@@ -1,0 +1,815 @@
+"""GossipSub v1.0/v1.1 router, vectorized over all N peers (gossipsub.go).
+
+The per-node state machine — mesh maintenance, heartbeat, IHAVE/IWANT lazy
+gossip, GRAFT/PRUNE with backoff, scoring, graylisting — runs for every
+peer at once as masked tensor ops over the padded neighbor axis; peer
+selection is the rank/top-k primitive (ops/select.py).
+
+Round model: one ``step()`` is one network-hop round, with the heartbeat
+every ``heartbeat_every`` rounds. Control written to per-edge outboxes in
+round r is read by the far end in round r+1 through the reverse-edge
+gather (the one-RTT control latency of the reference's wire layer).
+
+This slice ports the dense banded per-round step with the fused data plane:
+on a banded topology the whole edge-crossing exchange is the two kernels of
+``ops/fused_round.py``, which the step always takes. Options outside the
+slice raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import prng
+from ..config import GossipSubParams, PeerScoreParams, PeerScoreThresholds, ticks_for
+from ..ops import bitset, edges
+from ..ops import fused_round as fr
+from ..ops.select import (
+    count_true,
+    masked_width_random,
+    masked_width_topk,
+    median_masked,
+    select_random_mask,
+    select_topk_mask,
+)
+from ..score.engine import (
+    ScoreState,
+    TopicParamsArrays,
+    add_penalties,
+    compute_scores,
+    ip_colocation_surplus_sq,
+    on_deliveries,
+    on_graft,
+    on_prune,
+    refresh_scores,
+    slot_topic_words,
+)
+from ..score.gater import GaterState
+from ..state import Net, SimState, allocate_publishes, replace, tree_map
+from ..trace.events import EV, add_event
+from .common import (
+    RoundInfo,
+    accumulate_round_events,
+    origin_msg_words,
+    subscribed_msg_words,
+)
+
+# ---------------------------------------------------------------------------
+# configuration
+
+
+@dataclasses.dataclass(frozen=True)
+class GossipSubConfig:
+    """Static configuration: GossipSubParams with durations in ticks, plus
+    the v1.1 thresholds and feature switches (the JAX package's fields that
+    this slice reads; the step refuses values outside the slice)."""
+
+    D: int = 6
+    Dlo: int = 5
+    Dhi: int = 12
+    Dscore: int = 4
+    Dout: int = 2
+    Dlazy: int = 6
+    gossip_factor: float = 0.25
+    history_length: int = 5
+    history_gossip: int = 3
+    gossip_retransmission: int = 3
+    max_ihave_messages: int = 10
+    max_ihave_length: int = 5000
+    iwant_followup_ticks: int = 3
+    prune_backoff_ticks: int = 60
+    graft_flood_ticks: int = 10
+    opportunistic_graft_ticks: int = 60
+    opportunistic_graft_peers: int = 2
+    backoff_clear_ticks: int = 15   # gossipsub.go:1587
+    backoff_slack_ticks: int = 2    # gossipsub.go:1596
+    heartbeat_every: int = 1
+    score_enabled: bool = False
+    flood_publish: bool = False
+    do_px: bool = False
+    fanout_slots: int = 2
+    count_events: bool = True
+    fused: bool = False
+    gossip_threshold: float = 0.0
+    publish_threshold: float = 0.0
+    graylist_threshold: float = 0.0
+    opportunistic_graft_threshold: float = 0.0
+
+    @classmethod
+    def build(cls, params: GossipSubParams | None = None,
+              thresholds: PeerScoreThresholds | None = None,
+              score_enabled: bool = False,
+              heartbeat_every: int = 1) -> "GossipSubConfig":
+        p = params or GossipSubParams()
+        p.validate()
+        hb = p.heartbeat_interval
+        kw = dict(
+            D=p.D, Dlo=p.Dlo, Dhi=p.Dhi, Dscore=p.Dscore, Dout=p.Dout,
+            Dlazy=p.Dlazy, gossip_factor=p.gossip_factor,
+            history_length=p.history_length, history_gossip=p.history_gossip,
+            gossip_retransmission=p.gossip_retransmission,
+            max_ihave_messages=p.max_ihave_messages,
+            max_ihave_length=p.max_ihave_length,
+            iwant_followup_ticks=ticks_for(p.iwant_followup_time, hb),
+            prune_backoff_ticks=ticks_for(p.prune_backoff, hb),
+            graft_flood_ticks=ticks_for(p.graft_flood_threshold, hb),
+            opportunistic_graft_ticks=p.opportunistic_graft_ticks,
+            opportunistic_graft_peers=p.opportunistic_graft_peers,
+            heartbeat_every=heartbeat_every,
+            score_enabled=score_enabled,
+            flood_publish=p.flood_publish,
+            do_px=p.do_px,
+        )
+        if thresholds is not None:
+            thresholds.validate()
+            kw.update(
+                gossip_threshold=thresholds.gossip_threshold,
+                publish_threshold=thresholds.publish_threshold,
+                graylist_threshold=thresholds.graylist_threshold,
+                opportunistic_graft_threshold=thresholds.opportunistic_graft_threshold,
+            )
+        return cls(**kw)
+
+
+# ---------------------------------------------------------------------------
+# state
+
+
+@dataclasses.dataclass
+class GossipSubState:
+    core: SimState
+    mesh: torch.Tensor              # [N,S,K] bool (gossipsub.go:441)
+    backoff_expire: torch.Tensor    # [N,S,K] i32
+    backoff_present: torch.Tensor   # [N,S,K] bool
+    mcache: torch.Tensor            # [N,H,W] words; window 0 = current
+    ihave_out: torch.Tensor         # [N,K,W] words, read next round
+    iwant_out: torch.Tensor         # [N,K,W] words
+    graft_out: torch.Tensor         # [N,S,K] bool
+    prune_out: torch.Tensor         # [N,S,K] bool
+    peerhave: torch.Tensor          # [N,K] i32 (cleared each heartbeat)
+    iasked: torch.Tensor            # [N,K] i32
+    served_lo: torch.Tensor         # [N,K,W] 2-bit retransmission counters
+    served_hi: torch.Tensor         # [N,K,W]
+    promise_mid: torch.Tensor       # [N,K] i32 (-1 none)
+    promise_expire: torch.Tensor    # [N,K] i32
+    score: ScoreState
+    scores: torch.Tensor            # [N,K] f32 memoized per heartbeat
+    p6: torch.Tensor                # [N,K] f32 colocation surplus^2
+    app_score: torch.Tensor         # [N] f32 (P5)
+    gater: GaterState
+    fanout_topic: torch.Tensor      # [N,F] i32, -1 free
+    fanout_peers: torch.Tensor      # [N,F,K] bool
+    fanout_lastpub: torch.Tensor    # [N,F] i32
+    up: torch.Tensor                # [N] bool
+    blacklist: torch.Tensor         # [N] bool
+    edge_live: torch.Tensor         # [N,K] bool
+    prune_px_out: torch.Tensor      # [N,S,K] bool
+    congested_in: torch.Tensor      # [N,K] bool
+
+    @classmethod
+    def init(cls, net: Net, msg_slots: int, cfg: GossipSubConfig,
+             score_params: PeerScoreParams | None = None,
+             seed: int = 0) -> "GossipSubState":
+        dev = net.device
+        n, k = net.nbr.shape
+        s = net.n_slots
+        w = bitset.n_words(msg_slots)
+        h = cfg.history_length
+        f = cfg.fanout_slots
+        if score_params is not None and cfg.score_enabled:
+            p6 = ip_colocation_surplus_sq(
+                net, score_params.ip_colocation_factor_threshold,
+                score_params.ip_colocation_factor_whitelist)
+        else:
+            p6 = torch.zeros((n, k), dtype=torch.float32, device=dev)
+        i32, b = torch.int32, torch.bool
+        z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+        return cls(
+            core=SimState.init(n, msg_slots, seed, k=k, device=dev),
+            mesh=z((n, s, k), b),
+            backoff_expire=z((n, s, k), i32),
+            backoff_present=z((n, s, k), b),
+            mcache=z((n, h, w), i32),
+            ihave_out=z((n, k, w), i32),
+            iwant_out=z((n, k, w), i32),
+            graft_out=z((n, s, k), b),
+            prune_out=z((n, s, k), b),
+            peerhave=z((n, k), i32),
+            iasked=z((n, k), i32),
+            served_lo=z((n, k, w), i32),
+            served_hi=z((n, k, w), i32),
+            promise_mid=torch.full((n, k), -1, dtype=i32, device=dev),
+            promise_expire=z((n, k), i32),
+            score=ScoreState.empty(n, s, k, dev),
+            scores=z((n, k), torch.float32),
+            p6=p6,
+            app_score=z((n,), torch.float32),
+            gater=GaterState.empty(n, k, dev),
+            fanout_topic=torch.full((n, f), -1, dtype=i32, device=dev),
+            fanout_peers=z((n, f, k), b),
+            fanout_lastpub=z((n, f), i32),
+            up=torch.ones((n,), dtype=b, device=dev),
+            blacklist=z((n,), b),
+            edge_live=net.nbr_ok.clone(),
+            prune_px_out=z((n, s, k), b),
+            congested_in=z((n, k), b),
+        )
+
+
+def joined_msg_words(net: Net, msgs) -> torch.Tensor:
+    """[N, W]: messages in topics peer n has joined (mesh exists <=>
+    subscribed in the sim)."""
+    return subscribed_msg_words(net, msgs)
+
+
+# ---------------------------------------------------------------------------
+# control-plane handlers (per round)
+
+
+def handle_graft_prune(cfg: GossipSubConfig, net: Net, st: GossipSubState,
+                       tp: dict, acc_ok, graft_in_raw, prune_in_raw):
+    """GRAFT/PRUNE received this round (handleGraft gossipsub.go:718-809,
+    handlePrune :811-843). Returns (state, rejected, n_graft, n_prune);
+    ``rejected`` becomes next round's PRUNE outbox."""
+    tick = st.core.tick
+    graft_in = graft_in_raw & acc_ok[:, None, :]
+    prune_in = prune_in_raw & acc_ok[:, None, :]
+
+    pruned = prune_in & st.mesh
+    score = on_prune(st.score, pruned, tp) if cfg.score_enabled else st.score
+    mesh = st.mesh & ~prune_in
+    backoff_expire = torch.where(
+        prune_in, torch.maximum(st.backoff_expire, tick + cfg.prune_backoff_ticks),
+        st.backoff_expire)
+    backoff_present = st.backoff_present | prune_in
+
+    want = (graft_in & ~mesh & net.nbr_ok[:, None, :]
+            & (net.protocol >= 1)[:, None, None])
+    rej_direct = want & net.direct[:, None, :]
+    backoff_active = backoff_present & (tick < backoff_expire)
+    rej_backoff = want & backoff_active
+    flood_cutoff = backoff_expire + (cfg.graft_flood_ticks - cfg.prune_backoff_ticks)
+    flood = rej_backoff & (tick < flood_cutoff)
+    penalty_counts = (rej_backoff.to(torch.float32)
+                      + flood.to(torch.float32)).sum(1)
+    if cfg.score_enabled:
+        rej_score = want & (st.scores[:, None, :] < 0)
+    else:
+        rej_score = torch.zeros_like(want)
+    mesh_deg = count_true(mesh)
+    rej_full = want & (mesh_deg[:, :, None] >= cfg.Dhi) & ~net.outbound[:, None, :]
+
+    rejected = rej_direct | rej_backoff | rej_score | rej_full
+    accepted = want & ~rejected
+    mesh = mesh | accepted
+    if cfg.score_enabled:
+        score = on_graft(score, accepted, tick)
+        score = add_penalties(score, penalty_counts)
+
+    re_back = rej_backoff | rej_score | rej_full
+    backoff_expire = torch.where(
+        re_back, torch.maximum(backoff_expire, tick + cfg.prune_backoff_ticks),
+        backoff_expire)
+    backoff_present = backoff_present | re_back
+    st = replace(st, mesh=mesh, backoff_expire=backoff_expire,
+                 backoff_present=backoff_present, score=score)
+    if cfg.count_events:
+        n_graft = accepted.sum(dtype=torch.int32)
+        n_prune = pruned.sum(dtype=torch.int32)
+    else:
+        n_graft = n_prune = 0
+    return st, rejected, n_graft, n_prune
+
+
+def handle_ihave(cfg: GossipSubConfig, net: Net, st: GossipSubState,
+                 joined_words, acc_ok, ihave_in_raw) -> GossipSubState:
+    """IHAVE received this round -> IWANT requests + a promise
+    (handleIHave gossipsub.go:615-677)."""
+    m = st.core.msgs.capacity
+    tick = st.core.tick
+    ihave_in = torch.where(acc_ok[:, :, None], ihave_in_raw, 0)
+    got = bitset.popcount(ihave_in, axis=-1) > 0
+    peerhave = st.peerhave + got.to(st.peerhave.dtype)
+
+    ok = got
+    if cfg.score_enabled:
+        ok = ok & (st.scores >= cfg.gossip_threshold)
+    ok = ok & (peerhave <= cfg.max_ihave_messages)
+    ok = ok & (st.iasked < cfg.max_ihave_length)
+
+    wants = ihave_in & ~st.core.dlv.have[:, None, :] & joined_words[:, None, :]
+    wants = torch.where(ok[:, :, None], wants, 0)
+    # the MaxIHaveLength ask budget can only bind if one heartbeat's asks
+    # could exceed it — a static decision, as in the JAX package
+    if m * (cfg.heartbeat_every + 1) > cfg.max_ihave_length:
+        budget = (cfg.max_ihave_length - st.iasked).clamp(min=0).to(torch.int32)
+        asks = bitset.prefix_cap_bits(wants, budget, m)
+    else:
+        asks = wants
+    n_asked = bitset.popcount(asks, axis=-1)
+    iasked = st.iasked + n_asked.to(st.iasked.dtype)
+
+    first_ask, _ = bitset.lowest_bit(asks)
+    adopt = (n_asked > 0) & (st.promise_mid < 0)
+    return replace(
+        st,
+        peerhave=peerhave,
+        iasked=iasked,
+        iwant_out=asks,
+        promise_mid=torch.where(adopt, first_ask, st.promise_mid),
+        promise_expire=torch.where(adopt, tick + cfg.iwant_followup_ticks,
+                                   st.promise_expire),
+    )
+
+
+def sender_carry_words(mesh: torch.Tensor, slotw: torch.Tensor) -> torch.Tensor:
+    """[N,K,W] sender-side: words each peer would push on edge k — the OR
+    over its topic slots of the slot's messages where k is in that slot's
+    mesh."""
+    contrib = torch.where(mesh[:, :, :, None], slotw[:, :, None, :], 0)
+    return bitset.word_or_reduce(contrib, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the heartbeat (gossipsub.go:1303-1564)
+
+
+def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
+              score_params: PeerScoreParams, nbr_sub) -> GossipSubState:
+    """One heartbeat for every peer. The JAX package gates the maintenance
+    sub-passes with ``lax.cond`` on "any row needs it"; both branches give
+    identical results there, so this runs them unconditionally (no host
+    sync). The opportunistic-graft cadence is a real gate and stays one, as
+    a ``torch.where``."""
+    tick = st.core.tick
+    n, s_dim, k_dim = st.mesh.shape
+    key = prng.fold_in(st.core.key, tick)
+    k1, k2, k3, k4, k5, k6 = prng.split(key, 6)
+    events = st.core.events
+
+    # applyIwantPenalties: broken promises -> P7 (gossipsub.go:1578-1583)
+    promised_have = bitset.bit_get(st.core.dlv.have[:, None, :], st.promise_mid)
+    live = st.promise_mid >= 0
+    fulfilled = live & promised_have
+    broken = live & ~promised_have & (tick > st.promise_expire)
+    score = st.score
+    if cfg.score_enabled:
+        score = add_penalties(score, broken.to(torch.float32))
+    promise_mid = torch.where(fulfilled | broken, -1, st.promise_mid)
+
+    # clearIHaveCounters (gossipsub.go:1566-1576)
+    peerhave = torch.zeros_like(st.peerhave)
+    iasked = torch.zeros_like(st.iasked)
+
+    # clearBackoff every 15 ticks with slack (gossipsub.go:1585-1604)
+    clear_now = (tick % cfg.backoff_clear_ticks) == 0
+    expired = (st.backoff_expire + cfg.backoff_slack_ticks) < tick
+    backoff_present = torch.where(clear_now, st.backoff_present & ~expired,
+                                  st.backoff_present)
+
+    # refreshScores + memoized score cache (gossipsub.go:1333-1341)
+    if cfg.score_enabled:
+        score = refresh_scores(score, st.mesh, tick, tp, score_params)
+        scores = compute_scores(score, st.mesh, tp, score_params, st.p6,
+                                st.app_score, net)
+    else:
+        scores = st.scores
+
+    # ---- mesh maintenance per (peer, topic-slot) ------------------------
+    mesh = st.mesh
+    slot_live = (net.my_topics >= 0) & (net.protocol >= 1)[:, None]
+    connected = net.nbr_ok[:, None, :] & slot_live[:, :, None]
+    scores_b = scores[:, None, :].expand(mesh.shape)
+
+    tograft = torch.zeros_like(mesh)
+    toprune = torch.zeros_like(mesh)
+    if cfg.score_enabled:
+        bad = mesh & (scores_b < 0)
+        toprune = toprune | bad
+        mesh = mesh & ~bad
+
+    cand = connected & nbr_sub & ~mesh & ~backoff_present & ~net.direct[:, None, :]
+    if cfg.score_enabled:
+        cand = cand & (scores_b >= 0)
+
+    # |mesh| < Dlo -> graft to D (gossipsub.go:1371-1385)
+    deg = count_true(mesh)
+    ineed = torch.where(deg < cfg.Dlo, cfg.D - deg, 0)
+    grafts = masked_width_random(k1, cand, ineed, k_dim)
+    mesh = mesh | grafts
+    tograft = tograft | grafts
+
+    # |mesh| > Dhi -> keep Dscore best + random to D, Dout outbound
+    # (gossipsub.go:1388-1448)
+    deg = count_true(mesh)
+    over = (deg > cfg.Dhi)[:, :, None]
+    outb = net.outbound[:, None, :].expand(mesh.shape)
+    noise = prng.uniform(k2, mesh.shape)
+    if cfg.score_enabled:
+        topscore = masked_width_topk(scores_b, mesh, cfg.Dscore, k_dim, key=k3)
+    else:
+        topscore = masked_width_random(k3, mesh, cfg.Dscore, k_dim)
+    rest_rand = masked_width_topk(noise, mesh & ~topscore, cfg.D - cfg.Dscore, k_dim)
+    keep = topscore | rest_rand
+    x_need = (cfg.Dout - count_true(keep & outb)).clamp(min=0)
+    bring = select_topk_mask(noise, mesh & outb & ~keep, x_need)
+    drop = select_topk_mask(-noise, keep & ~outb & ~topscore, count_true(bring))
+    keep = (keep & ~drop) | bring
+    pruned_over = mesh & ~keep & over
+    mesh = torch.where(over, mesh & keep, mesh)
+    toprune = toprune | pruned_over
+
+    # outbound quota top-up at Dlo <= |mesh| (gossipsub.go:1451-1476)
+    deg = count_true(mesh)
+    need_out = torch.where(
+        deg >= cfg.Dlo, (cfg.Dout - count_true(mesh & outb)).clamp(min=0), 0)
+    grafts2 = masked_width_random(k4, cand & outb & ~mesh, need_out, k_dim)
+    mesh = mesh | grafts2
+    tograft = tograft | grafts2
+
+    # opportunistic grafting (gossipsub.go:1479-1510)
+    if cfg.score_enabled and cfg.opportunistic_graft_ticks > 0:
+        med = median_masked(scores_b, mesh)
+        low = (med < cfg.opportunistic_graft_threshold) & (count_true(mesh) > 1)
+        cand3 = cand & ~mesh & (scores_b > med[:, :, None])
+        oppo = select_random_mask(
+            k5, cand3, torch.where(low, cfg.opportunistic_graft_peers, 0))
+        grafts3 = oppo & ((tick % cfg.opportunistic_graft_ticks) == 0)
+        mesh = mesh | grafts3
+        tograft = tograft | grafts3
+
+    new_grafts = tograft & ~st.mesh
+    if cfg.score_enabled:
+        score = on_graft(score, new_grafts, tick)
+        score = on_prune(score, toprune, tp)
+    backoff_expire = torch.where(
+        toprune, torch.maximum(st.backoff_expire, tick + cfg.prune_backoff_ticks),
+        st.backoff_expire)
+    backoff_present = backoff_present | toprune
+
+    # ---- emitGossip (gossipsub.go:1669-1723) ----------------------------
+    gwin = bitset.word_or_reduce(st.mcache[:, : cfg.history_gossip, :], dim=1)
+    gossip_cand = connected & nbr_sub & ~mesh & ~net.direct[:, None, :]
+    if cfg.score_enabled:
+        gossip_cand = gossip_cand & (scores_b >= cfg.gossip_threshold)
+    n_cand = count_true(gossip_cand)
+    target = torch.clamp(
+        (torch.tensor(cfg.gossip_factor, dtype=torch.float32, device=n_cand.device)
+         * n_cand.to(torch.float32)).to(torch.int32), min=cfg.Dlazy)
+    chosen = masked_width_random(k6, gossip_cand, target, k_dim)
+    slot_tw = slot_topic_words(net, st.core.msgs.topic)
+    adv = torch.where(chosen[..., None], (gwin[:, None, :] & slot_tw)[:, :, None, :], 0)
+    ihave_out = bitset.word_or_reduce(adv, dim=1)
+
+    # mcache.Shift (gossipsub.go:1563)
+    mcache = torch.cat([torch.zeros_like(st.mcache[:, :1, :]), st.mcache[:, :-1, :]],
+                       dim=1)
+
+    if cfg.count_events:
+        events = add_event(events, EV.GRAFT, new_grafts.sum(dtype=torch.int32))
+        events = add_event(events, EV.PRUNE, toprune.sum(dtype=torch.int32))
+
+    return replace(
+        st,
+        core=replace(st.core, events=events),
+        mesh=mesh,
+        backoff_expire=backoff_expire,
+        backoff_present=backoff_present,
+        mcache=mcache,
+        ihave_out=ihave_out,
+        graft_out=new_grafts,
+        prune_out=st.prune_out | toprune,
+        peerhave=peerhave,
+        iasked=iasked,
+        promise_mid=promise_mid,
+        score=score,
+        scores=scores,
+    )
+
+
+def gather_nbr_subscribed(net: Net) -> torch.Tensor:
+    """[N,S,K]: neighbor k subscribes the topic of my slot s."""
+    n, s_dim = net.my_topics.shape
+    k_dim = net.nbr.shape[1]
+    sub_nbr = net.subscribed[net.nbr.clamp(min=0).long()]          # [N,K,T]
+    idx = net.my_topics.clamp(min=0).long()[:, None, :].expand(n, k_dim, s_dim)
+    out = torch.gather(sub_nbr, 2, idx).permute(0, 2, 1)
+    return out & net.nbr_ok[:, None, :] & (net.my_topics >= 0)[:, :, None]
+
+
+# ---------------------------------------------------------------------------
+# the per-round step
+
+
+@dataclasses.dataclass
+class StepConsts:
+    """Static per-topology constants of the step, computed once at build."""
+
+    score_params: PeerScoreParams
+    tp: dict
+    window_rounds_t: torch.Tensor
+    nbr_sub_const: torch.Tensor
+    flood_from: torch.Tensor
+    i_am_floodsub: torch.Tensor
+    sender_fwd_full: torch.Tensor
+    live_u32: torch.Tensor
+
+
+def topology_views(net: Net):
+    """(nbr_sub, flood_from): mesh candidates need a mesh-capable far end
+    (gossipsub.go:1374,1692); floodsub-semantics edges face a floodsub-only
+    peer."""
+    proto_nbr = net.protocol[net.nbr.clamp(min=0).long()]
+    mesh_capable = (proto_nbr >= 1) & net.nbr_ok
+    nbr_sub = gather_nbr_subscribed(net) & mesh_capable[:, None, :]
+    flood_from = (proto_nbr == 0) & net.nbr_ok
+    return nbr_sub, flood_from
+
+
+def prepare_step_consts(cfg: GossipSubConfig, net: Net,
+                        score_params: PeerScoreParams | None,
+                        heartbeat_interval: float) -> StepConsts:
+    if cfg.score_enabled:
+        assert score_params is not None
+        score_params.validate()
+        tpa = TopicParamsArrays.build(score_params, net.n_topics, heartbeat_interval)
+    else:
+        score_params = PeerScoreParams(topics={}, skip_app_specific=True)
+        tpa = TopicParamsArrays.build(score_params, net.n_topics)
+    nbr_sub, flood_from = topology_views(net)
+    return StepConsts(
+        score_params=score_params,
+        tp=tpa.gather(net.my_topics),
+        window_rounds_t=torch.as_tensor(tpa.window_rounds, device=net.device),
+        nbr_sub_const=nbr_sub,
+        flood_from=flood_from,
+        i_am_floodsub=net.protocol == 0,
+        sender_fwd_full=torch.ones(net.nbr.shape, dtype=torch.bool,
+                                   device=net.device),
+        live_u32=net.nbr_ok.to(torch.int32),
+    )
+
+
+def accept_gates(cfg: GossipSubConfig, net: Net, st: GossipSubState):
+    """AcceptFrom (gossipsub.go:583-594): direct always accepted,
+    graylisted dropped entirely. Returns (acc_ok, acc_msg) [N,K] bool (the
+    same plane without the gater)."""
+    if cfg.score_enabled:
+        acc_ok = (st.scores >= cfg.graylist_threshold) | net.direct
+    else:
+        acc_ok = net.nbr_ok
+    return acc_ok, acc_ok
+
+
+def control_parts(cfg: GossipSubConfig, net: Net, st: GossipSubState):
+    """The control-plane outboxes as named packed word tensors, in the wire
+    order (graft | prune | ihave); the score plane rides the exchange
+    kernel as f32 beside them."""
+    return [
+        ("graft", edges.topic_pack(st.graft_out, net.my_topics, net.n_topics)),
+        ("prune", edges.topic_pack(st.prune_out, net.my_topics, net.n_topics)),
+        ("ihave", st.ihave_out),
+    ]
+
+
+def control_unpack(cfg: GossipSubConfig, net: Net, w_seg):
+    """Receiver-side split of the gathered control words (``w_seg(i)`` =
+    the i-th part's edge view, in control_parts order): (graft_in_raw,
+    prune_in_raw, ihave_in_raw)."""
+    ok_slots = net.nbr_ok[:, None, :]
+    graft_in_raw = edges.topic_unpack(w_seg(0), net.my_topics) & ok_slots
+    prune_in_raw = edges.topic_unpack(w_seg(1), net.my_topics) & ok_slots
+    return graft_in_raw, prune_in_raw, w_seg(2)
+
+
+def px_connect(cfg: GossipSubConfig, st: GossipSubState) -> torch.Tensor:
+    """PX connect (pxConnect gossipsub.go:861-941): next round's edge
+    liveness. Without do_px (the only form this slice builds) it is the
+    current plane."""
+    return st.edge_live
+
+
+def _refuse_unported(cfg: GossipSubConfig, net: Net):
+    checks = [
+        (cfg.fused, "cfg.fused=True (sort-form selection) — ROADMAP §1 item 7"),
+        (net.band_off is None,
+         "a non-banded topology (the XLA-path composites control_exchange, "
+         "iwant_responses, gossip_edge_mask, delivery_round, merge_extra_tx) "
+         "— ROADMAP §1 item 7"),
+        (cfg.do_px, "do_px (peer exchange) — ROADMAP §1 item 7"),
+        (cfg.fanout_slots > 0, "fanout slots (unjoined-topic publish) — "
+                               "ROADMAP §1 item 7"),
+    ]
+    for bad, what in checks:
+        if bad:
+            raise NotImplementedError(f"not ported yet: {what}")
+    if net.max_degree > fr.MAX_K:
+        raise NotImplementedError(
+            f"K={net.max_degree} > {fr.MAX_K}: the fused kernels hold K "
+            "first-arrival words in registers — ROADMAP §2")
+
+
+def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
+                        score_params: PeerScoreParams | None = None,
+                        heartbeat_interval: float = 1.0,
+                        static_heartbeat: bool = False, **unported):
+    """Build the per-round step for a fixed config + topology:
+
+        step(state, pub_origin[P], pub_topic[P], pub_valid[P]) -> state
+
+    With ``static_heartbeat=True`` (and ``cfg.heartbeat_every > 1``) the
+    step takes a required keyword ``do_heartbeat`` (the caller owns the
+    contract do_heartbeat == (tick % heartbeat_every == 0)); otherwise a
+    heartbeat_every > 1 step decides on the device and selects leafwise.
+
+    The step is functional: it never writes into the state it is given.
+    Options of the JAX step outside this slice (chaos, adversary, router,
+    gater, dynamic peers or topology, lifted scores, telemetry) raise, and
+    so do config values outside it (fanout slots, PX, the fused selection,
+    a non-banded topology)."""
+    if unported:
+        raise NotImplementedError(
+            f"not ported yet: {sorted(unported)} — ROADMAP §1 items 6-13")
+    _refuse_unported(cfg, net)
+    consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval)
+    score_params = consts.score_params
+    tp = consts.tp
+    n_peers, k_dim = net.n_peers, net.max_degree
+
+    def _round(st: GossipSubState, pub_origin, pub_topic, pub_valid,
+               do_heartbeat: bool = True) -> GossipSubState:
+        core = st.core
+        tick = core.tick
+        m = core.msgs.capacity
+        w_dim = bitset.n_words(m)
+        kw = k_dim * w_dim
+        acc_ok, acc_msg = accept_gates(cfg, net, st)
+
+        # 0b. merged wire exchange: every control outbox crosses the edge
+        # involution in ONE kernel launch, the score plane riding as f32
+        parts = [p for _, p in control_parts(cfg, net, st)]
+        sizes = np.cumsum([0] + [p.shape[-1] for p in parts])
+        wc = int(sizes[-1])
+        wire_flat, nbr_score_of_me = fr.edge_exchange(
+            torch.cat(parts, dim=-1).reshape(n_peers, k_dim * wc),
+            st.scores if cfg.score_enabled else None,
+            consts.live_u32,
+            offsets=net.band_off, revs=net.band_rev, c=wc,
+            score_enabled=cfg.score_enabled,
+        )
+        wire = wire_flat.reshape(n_peers, k_dim, wc)
+        graft_in_raw, prune_in_raw, ihave_in_raw = control_unpack(
+            cfg, net, lambda i: wire[..., int(sizes[i]): int(sizes[i + 1])])
+
+        # 1. GRAFT/PRUNE ingest
+        st2, prune_resp, n_graft, n_prune = handle_graft_prune(
+            cfg, net, st, tp, acc_ok, graft_in_raw, prune_in_raw)
+        events = core.events
+        if cfg.count_events:
+            events = add_event(add_event(events, EV.GRAFT, n_graft),
+                               EV.PRUNE, n_prune)
+        edge_live_next = px_connect(cfg, st)
+
+        joined_words = joined_msg_words(net, core.msgs)
+        slotw = slot_topic_words(net, core.msgs.topic)
+        pre_have = core.dlv.have
+
+        # 2+3+4 fused: IHAVE ingest first (it consumes nothing the delivery
+        # kernel writes), then the whole delivery plane in one kernel over
+        # the post-graft mesh
+        asked_old = st2.iwant_out
+        served_lo_old, served_hi_old = st2.served_lo, st2.served_hi
+        st2 = handle_ihave(cfg, net, st2, joined_words, acc_ok, ihave_in_raw)
+
+        carry = sender_carry_words(st2.mesh, slotw)
+        origin_w = origin_msg_words(net, core.msgs)
+        if cfg.flood_publish:
+            # sender-side fold of v1.1 flood-publish (gossipsub.go:957-963)
+            fp_ok = ((st.scores >= cfg.publish_threshold)
+                     if cfg.score_enabled else net.nbr_ok)
+            carry = carry | torch.where(fp_ok[:, :, None], origin_w[:, None, :], 0)
+        flags = fr.make_flags(acc_msg, consts.flood_from, consts.i_am_floodsub,
+                              consts.sender_fwd_full, net.nbr_ok)
+        mcw = bitset.word_or_reduce(st2.mcache, dim=1)
+        valid_pack = bitset.pack(core.msgs.valid)
+        res = fr.fused_delivery(
+            carry.reshape(n_peers, kw).contiguous(),
+            core.dlv.fe_words.reshape(n_peers, kw),
+            core.dlv.fwd, mcw, nbr_score_of_me,
+            asked_old.reshape(n_peers, kw).contiguous(),
+            served_lo_old.reshape(n_peers, kw),
+            served_hi_old.reshape(n_peers, kw),
+            flags, pre_have, origin_w, joined_words.contiguous(),
+            valid_pack[None, :],
+            cfg.gossip_threshold, cfg.publish_threshold,
+            offsets=net.band_off, revs=net.band_rev, w=w_dim,
+            score_enabled=cfg.score_enabled,
+            want_cohorts=cfg.count_events,
+            retrans_cap=cfg.gossip_retransmission,
+        )
+        new_words = res["new"]
+        new_bits = bitset.unpack(new_words, m)
+        # first_round is stamped outside the kernel (it returns fresh
+        # have/fwd/fe planes; the [N, M] stamp plane never enters it)
+        dlv = replace(
+            core.dlv,
+            have=res["have"], fwd=res["fwd"],
+            first_round=torch.where(new_bits, tick, core.dlv.first_round),
+            fe_words=res["fe"].reshape(n_peers, k_dim, w_dim),
+        )
+        st2 = replace(
+            st2,
+            served_lo=res["served_lo"].reshape(n_peers, k_dim, w_dim),
+            served_hi=res["served_hi"].reshape(n_peers, k_dim, w_dim),
+        )
+        if cfg.count_events:
+            # cohort-split counters: RPCs count mesh-push and IWANT-response
+            # transmissions separately even when they overlap
+            n_rpc = (bitset.popcount(res["mesh_trans"]).sum(dtype=torch.int32)
+                     + bitset.popcount(res["extra"]).sum(dtype=torch.int32))
+            n_new = bitset.popcount(new_words).sum(dtype=torch.int32)
+            n_deliver = bitset.popcount(new_words & valid_pack[None, :]).sum(
+                dtype=torch.int32)
+            n_reject = n_new - n_deliver
+            n_duplicate = n_rpc - n_new
+        else:
+            n_rpc = n_new = n_deliver = n_reject = n_duplicate = 0
+        info = RoundInfo(
+            trans=res["trans"].reshape(n_peers, k_dim, w_dim),
+            new_words=new_words, n_deliver=n_deliver, n_reject=n_reject,
+            n_duplicate=n_duplicate, n_rpc=n_rpc,
+        )
+
+        # 5. score delivery attribution (packed)
+        score = st2.score
+        if cfg.score_enabled:
+            score = on_deliveries(
+                score, net, st2.mesh, tp, info.trans, info.new_words,
+                dlv.fe_words, dlv.first_round, core.msgs.topic,
+                core.msgs.valid, tick, consts.window_rounds_t,
+                msg_ignored=core.msgs.ignored, slotw=slotw)
+
+        # 6. mcache put: validated new receipts in joined topics
+        put = info.new_words & valid_pack[None, :] & joined_words
+        mcache = st2.mcache.clone()
+        mcache[:, 0, :] = mcache[:, 0, :] | put
+
+        # 7. publishes + slot-recycle cleanup; the recycled-slot clear
+        # precedes the origin's own mcache put (gossipsub.go:946)
+        msgs, dlv, _slots, is_pub, keep_words, pub_words = allocate_publishes(
+            core.msgs, dlv, tick, pub_origin, pub_topic, pub_valid)
+        mcache = mcache & keep_words
+        mcache[:, 0, :] = mcache[:, 0, :] | pub_words
+        # IHAVE outboxes were read by the far end this round
+        ihave_out = torch.zeros_like(st2.ihave_out)
+        iwant_out, served_lo, served_hi = bitset.masked_keep(
+            [st2.iwant_out, st2.served_lo, st2.served_hi], keep_words)
+        promise_reused = bitset.bit_get((~keep_words)[None, None, :],
+                                        st2.promise_mid)
+        promise_mid = torch.where((st2.promise_mid >= 0) & promise_reused, -1,
+                                  st2.promise_mid)
+
+        if cfg.count_events:
+            events = accumulate_round_events(events, info,
+                                             is_pub.sum(dtype=torch.int32))
+        st2 = replace(
+            st2,
+            core=replace(core, msgs=msgs, dlv=dlv, events=events),
+            mcache=mcache,
+            ihave_out=ihave_out,
+            iwant_out=iwant_out,
+            served_lo=served_lo,
+            served_hi=served_hi,
+            promise_mid=promise_mid,
+            graft_out=torch.zeros_like(st2.graft_out),
+            prune_out=prune_resp,
+            prune_px_out=torch.zeros_like(prune_resp),
+            edge_live=edge_live_next,
+            score=score,
+        )
+
+        # 8. heartbeat
+        def hb(s):
+            return heartbeat(cfg, net, s, tp, score_params, consts.nbr_sub_const)
+
+        if cfg.heartbeat_every == 1:
+            st2 = hb(st2)
+        elif static_heartbeat:
+            if do_heartbeat:
+                st2 = hb(st2)
+        else:
+            due = (tick % cfg.heartbeat_every) == 0
+            st2 = tree_map(lambda a, b: torch.where(due, a, b), hb(st2), st2)
+        return replace(st2, core=replace(st2.core, tick=tick + 1))
+
+    use_static_hb = static_heartbeat and cfg.heartbeat_every > 1
+    if use_static_hb:
+        def step(st, pub_origin, pub_topic, pub_valid, *, do_heartbeat):
+            return _round(st, pub_origin, pub_topic, pub_valid, do_heartbeat)
+    else:
+        def step(st, pub_origin, pub_topic, pub_valid):
+            return _round(st, pub_origin, pub_topic, pub_valid)
+    return step

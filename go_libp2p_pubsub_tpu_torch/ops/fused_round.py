@@ -1,0 +1,299 @@
+"""The per-round step's whole edge-crossing data plane on a banded
+topology, as two Hopper kernels (``csrc/fused_round.cu``).
+
+* ``edge_exchange`` — the merged control-wire gather across the edge
+  involution, ``wire_in[j,k] = wire[(j+off[k]) % N, rev[k]]`` zeroed on dead
+  edges, plus the neighbor-score exchange. Replaces the TPU kernel
+  ``go_libp2p_pubsub_tpu/ops/fused_round.py`` ``edge_exchange``
+  (``_exchange_kernel``).
+* ``fused_delivery`` — the delivery plane: mesh/flood push with echo and
+  origin exclusion, flag and score gates, the IWANT service with 2-bit
+  saturating retransmission counters, seen-cache dedup, first-arrival
+  cohorts (push before IWANT, lowest edge slot wins) and the new/have/fwd
+  commit. Replaces ``fused_delivery`` (``_delivery_kernel``) of the same
+  file.
+
+Both are bounded by bytes (word algebra, a few integer ops per word): the
+source notes what each must move and what the simple design does about it.
+
+Each wrapper launches its kernel for a CUDA tensor — or raises — and takes
+the plain PyTorch version (``*_plain``, built from rolls and bitwise ops)
+only for a CPU tensor. ``LAUNCHES`` counts kernel launches per wrapper.
+Reference semantics: gossipsub.go:943-1013 (push), floodsub.go:85-88 (echo
+and origin exclusion), pubsub.go:1076-1081 (dedup), gossipsub.go:679-716
+(IWANT service and retransmission cap), gossipsub.go:1096-1141 (control
+piggyback).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import bitset, kernels
+from .edges import edge_permute_banded, peer_gather_banded
+
+MAX_K = 16
+LAUNCHES = {"edge_exchange": 0, "fused_delivery": 0}
+
+# flags bit assignments (built by make_flags)
+F_ACC_MSG = 0        # AcceptFrom message plane (score graylist)
+F_FLOOD_FROM = 1     # far end is a floodsub-only peer
+F_I_AM_FLOODSUB = 2  # this peer is floodsub-only
+F_SENDER_FWD = 3     # edge's sender transmits data
+F_LIVE = 4           # edge alive
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def make_flags(acc_msg, flood_from, i_am_floodsub, sender_fwd_ok, live):
+    """[N,K] int32 per-edge flag words from the round's bool masks."""
+    i32 = torch.int32
+    f = acc_msg.to(i32) << F_ACC_MSG
+    f = f | (flood_from.to(i32) << F_FLOOD_FROM)
+    f = f | (i_am_floodsub.to(i32)[:, None] << F_I_AM_FLOODSUB)
+    f = f | (sender_fwd_ok.to(i32) << F_SENDER_FWD)
+    return f | (live.to(i32) << F_LIVE)
+
+
+def served_capped_mask(retrans_cap: int, lo, hi):
+    """Word-mask of slots whose 2-bit served count reached the
+    retransmission cap (static in the cap, clamped to the counter range)."""
+    cap = min(max(retrans_cap, 0), 3)
+    if cap >= 3:
+        return hi & lo
+    if cap == 2:
+        return hi
+    if cap == 1:
+        return hi | lo
+    return torch.full_like(lo, bitset.ALL)
+
+
+def _bit(flags: torch.Tensor, b: int) -> torch.Tensor:
+    return ((flags >> b) & 1) != 0
+
+
+def _gate(cond: torch.Tensor) -> torch.Tensor:
+    """bool [N,K] -> int32 word gate [N,K,1]."""
+    return torch.where(cond, bitset.ALL, 0).to(torch.int32)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path, and the card-side comparison in chip_smoke.py)
+
+
+def edge_exchange_plain(wire_pack, scores, live_u32, *, offsets, revs, c,
+                        score_enabled):
+    n = wire_pack.shape[0]
+    k = len(offsets)
+    live = live_u32 != 0
+    g = edge_permute_banded(wire_pack.reshape(n, k, c), offsets, revs)
+    wire_in = torch.where(live[..., None], g, 0).reshape(n, k * c)
+    if not score_enabled:
+        return wire_in, None
+    sc = edge_permute_banded(scores[..., None], offsets, revs)[..., 0]
+    return wire_in, torch.where(live, sc, 0.0)
+
+
+def fused_delivery_plain(carry_out, fe_words, fwd, mcache_win, nbr_score,
+                         asked, served_lo, served_hi, flags, have, origin_w,
+                         joined_w, valid_row, gossip_thr=0.0, publish_thr=0.0,
+                         *, offsets, revs, w, score_enabled, want_cohorts,
+                         retrans_cap):
+    n = fwd.shape[0]
+    k = len(offsets)
+    v3 = lambda x: x.reshape(n, k, w)
+    fwd_s = peer_gather_banded(fwd, offsets)
+    mcw_s = peer_gather_banded(mcache_win, offsets)
+    carry_k = edge_permute_banded(v3(carry_out), offsets, revs)
+    echo_k = edge_permute_banded(v3(fe_words), offsets, revs)
+    not_mine = (~origin_w)[:, None, :]
+
+    live = _bit(flags, F_LIVE)
+    live_g = _gate(live)
+    accmsg_g = _gate(_bit(flags, F_ACC_MSG))
+    sfo_g = _gate(_bit(flags, F_SENDER_FWD))
+    recv_ok = (nbr_score >= publish_thr) if score_enabled else live
+    flood = _gate(_bit(flags, F_FLOOD_FROM)) | (
+        _gate(_bit(flags, F_I_AM_FLOODSUB)) & _gate(recv_ok))
+    emask = (carry_k | flood) & accmsg_g & joined_w[:, None, :]
+    t = fwd_s & ~echo_k & emask & live_g & sfo_g & not_mine
+
+    slo, shi = v3(served_lo), v3(served_hi)
+    resp = v3(asked) & mcw_s & ~served_capped_mask(retrans_cap, slo, shi) & live_g
+    if score_enabled:
+        resp = resp & _gate(nbr_score >= gossip_thr)
+    inc = resp & ~(shi & slo)
+    extra = resp & accmsg_g & sfo_g & not_mine
+
+    new_t = bitset.word_or_reduce(t, 1) & ~have
+    new_e = bitset.word_or_reduce(extra, 1) & ~(have | new_t)
+    new = new_t | new_e
+    fe2 = ((v3(fe_words) & ~new[:, None, :])
+           | (bitset.first_set_per_bit(t, 1) & new_t[:, None, :])
+           | (bitset.first_set_per_bit(extra, 1) & new_e[:, None, :]))
+    res = {
+        "trans": (t | extra).reshape(n, k * w),
+        "fe": fe2.reshape(n, k * w),
+        "served_lo": (slo ^ inc).reshape(n, k * w),
+        "served_hi": (shi | (slo & inc)).reshape(n, k * w),
+        "new": new,
+        "have": have | new,
+        "fwd": new & valid_row,
+    }
+    if want_cohorts:
+        res["mesh_trans"] = t.reshape(n, k * w)
+        res["extra"] = extra.reshape(n, k * w)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_CONSTS: dict = {}
+
+
+def _lib():
+    lib = kernels.load("fused_round")
+    if not getattr(lib, "_pubsub_bound", False):
+        lib.edge_exchange_launch.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+        lib.edge_exchange_launch.restype = _I
+        lib.fused_delivery_launch.argtypes = [_P] * 24 + [_I] * 6 + [_P]
+        lib.fused_delivery_launch.restype = _I
+        lib._pubsub_bound = True
+    return lib
+
+
+def _const(key, make):
+    got = _CONSTS.get(key)
+    if got is None:
+        got = _CONSTS[key] = make()
+    return got
+
+
+def _offrev(offsets, revs, device) -> torch.Tensor:
+    return _const(("offrev", tuple(offsets), tuple(revs), str(device)),
+                  lambda: torch.tensor(list(offsets) + list(revs),
+                                       dtype=torch.int32, device=device))
+
+
+def _thr_row(gossip_thr, publish_thr, device) -> torch.Tensor:
+    g, p = float(gossip_thr), float(publish_thr)
+    return _const(("thr", g, p, str(device)),
+                  lambda: torch.tensor([g, p], dtype=torch.float32, device=device))
+
+
+def _check(t, name, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _check_k(k: int, n: int):
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"the fused kernels take 1 <= K <= {MAX_K} edges, got {k}")
+    if n <= 0:
+        raise ValueError("empty peer axis")
+
+
+def edge_exchange(wire_pack, scores, live_u32, *, offsets, revs, c,
+                  score_enabled):
+    """Merged control-wire gather + neighbor-score exchange (see module
+    docstring). Returns (wire_in [N, K*C] int32, nbr_score [N, K] f32 or
+    None)."""
+    if not wire_pack.is_cuda:
+        return edge_exchange_plain(wire_pack, scores, live_u32, offsets=offsets,
+                                   revs=revs, c=c, score_enabled=score_enabled)
+    dev = wire_pack.device
+    n, k = wire_pack.shape[0], len(offsets)
+    _check_k(k, n)
+    _check(wire_pack, "wire_pack", torch.int32, (n, k * c), dev)
+    _check(live_u32, "live_u32", torch.int32, (n, k), dev)
+    if score_enabled:
+        _check(scores, "scores", torch.float32, (n, k), dev)
+    wire_out = torch.empty_like(wire_pack)
+    score_out = (torch.empty((n, k), dtype=torch.float32, device=dev)
+                 if score_enabled else None)
+    err = _lib().edge_exchange_launch(
+        _ptr(wire_pack), _ptr(scores) if score_enabled else None,
+        _ptr(live_u32), _ptr(_offrev(offsets, revs, dev)),
+        _ptr(wire_out), _ptr(score_out), n, k, c, int(score_enabled),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "edge_exchange")
+    LAUNCHES["edge_exchange"] += 1
+    return wire_out, score_out
+
+
+def fused_delivery(carry_out, fe_words, fwd, mcache_win, nbr_score, asked,
+                   served_lo, served_hi, flags, have, origin_w, joined_w,
+                   valid_row, gossip_thr=0.0, publish_thr=0.0, *, offsets,
+                   revs, w, score_enabled, want_cohorts, retrans_cap):
+    """The full delivery plane of one round. Returns a dict with trans, fe,
+    served_lo, served_hi ([N, K*W]) and new, have, fwd ([N, W]), all
+    post-round and freshly allocated, plus the mesh_trans/extra cohorts
+    when ``want_cohorts``."""
+    kw_args = dict(offsets=offsets, revs=revs, w=w, score_enabled=score_enabled,
+                   want_cohorts=want_cohorts, retrans_cap=retrans_cap)
+    if not fwd.is_cuda:
+        return fused_delivery_plain(
+            carry_out, fe_words, fwd, mcache_win, nbr_score, asked, served_lo,
+            served_hi, flags, have, origin_w, joined_w, valid_row, gossip_thr,
+            publish_thr, **kw_args)
+    dev = fwd.device
+    n, k = fwd.shape[0], len(offsets)
+    _check_k(k, n)
+    kw = k * w
+    i32 = torch.int32
+    for name, t in (("carry_out", carry_out), ("fe_words", fe_words),
+                    ("asked", asked), ("served_lo", served_lo),
+                    ("served_hi", served_hi)):
+        _check(t, name, i32, (n, kw), dev)
+    for name, t in (("fwd", fwd), ("mcache_win", mcache_win), ("have", have),
+                    ("origin_w", origin_w), ("joined_w", joined_w)):
+        _check(t, name, i32, (n, w), dev)
+    _check(flags, "flags", i32, (n, k), dev)
+    _check(valid_row, "valid_row", i32, (1, w), dev)
+    if score_enabled:
+        _check(nbr_score, "nbr_score", torch.float32, (n, k), dev)
+    plane = lambda: torch.empty((n, kw), dtype=i32, device=dev)
+    row = lambda: torch.empty((n, w), dtype=i32, device=dev)
+    res = {"trans": plane(), "fe": plane(), "served_lo": plane(),
+           "served_hi": plane(), "new": row(), "have": row(), "fwd": row()}
+    if want_cohorts:
+        res["mesh_trans"] = plane()
+        res["extra"] = plane()
+    err = _lib().fused_delivery_launch(
+        _ptr(carry_out), _ptr(fe_words), _ptr(fwd), _ptr(mcache_win),
+        _ptr(nbr_score) if score_enabled else None, _ptr(asked),
+        _ptr(served_lo), _ptr(served_hi), _ptr(flags), _ptr(have),
+        _ptr(origin_w), _ptr(joined_w), _ptr(valid_row),
+        _ptr(_thr_row(gossip_thr, publish_thr, dev)),
+        _ptr(_offrev(offsets, revs, dev)),
+        _ptr(res["trans"]), _ptr(res["fe"]), _ptr(res["served_lo"]),
+        _ptr(res["served_hi"]), _ptr(res["new"]), _ptr(res["have"]),
+        _ptr(res["fwd"]), _ptr(res.get("mesh_trans")), _ptr(res.get("extra")),
+        n, k, w, int(score_enabled), int(want_cohorts), int(retrans_cap),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "fused_delivery")
+    LAUNCHES["fused_delivery"] += 1
+    return res

@@ -1,0 +1,92 @@
+"""Masked ranking and selection over the padded neighbor axis.
+
+Every peer selection of the reference is either a score-ordered keep/drop
+with random tie-break (gossipsub.go:1389-1399) or a uniform random-k over an
+eligibility filter (getPeers/shufflePeers, gossipsub.go:1852-1909). Both
+reduce to ``rank_desc`` — a dense descending rank with masked slots pushed
+to the end and ties broken by uniform noise — and "top k" is ``rank < k``.
+
+Only the pairwise form (the JAX package's ``fused=False``, which the bench
+builds) is ported; the sort composite waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import prng
+from . import bitset
+
+
+def _rank_desc_pairwise(primary: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """O(K^2) pairwise count of slots that outrank each slot in the strict
+    (value, noise, index)-descending order."""
+    k = primary.shape[-1]
+    idx = torch.arange(k, dtype=torch.int32, device=primary.device)
+    pi, pj = primary[..., :, None], primary[..., None, :]
+    ni, nj = noise[..., :, None], noise[..., None, :]
+    ties = pj == pi
+    nties = nj == ni
+    outranks = (pj > pi) | (ties & (nj > ni)) | (
+        ties & nties & (idx[None, :] < idx[:, None]))
+    return outranks.sum(-1, dtype=torch.int32)
+
+
+def rank_desc(values: torch.Tensor, mask: torch.Tensor, key=None) -> torch.Tensor:
+    """Dense descending rank along the last axis: the highest masked value
+    gets 0, unmasked slots rank after all masked ones, ties break by
+    uniform noise drawn from ``key`` (by slot index without one)."""
+    if key is not None:
+        noise = prng.uniform(key, values.shape)
+    else:
+        noise = torch.zeros(values.shape, dtype=torch.float32,
+                            device=values.device)
+    primary = torch.where(mask, values.to(torch.float32), float("-inf"))
+    return _rank_desc_pairwise(primary, noise)
+
+
+def select_topk_mask(values, mask, k, key=None):
+    """Bool mask choosing the (up to) k highest masked values per row; ``k``
+    is a scalar or a tensor broadcastable to ``values.shape[:-1]``."""
+    ranks = rank_desc(values, mask, key)
+    k_arr = torch.as_tensor(k, device=values.device)[..., None]
+    return (ranks < k_arr) & mask
+
+
+def select_random_mask(key, mask, k):
+    """Bool mask choosing (up to) k uniform-random masked slots per row."""
+    noise = prng.uniform(key, mask.shape)
+    return select_topk_mask(noise, mask, k)
+
+
+def _clip_width(width, width_max: int, device) -> torch.Tensor:
+    return torch.as_tensor(width, dtype=torch.int32, device=device).clamp(
+        0, int(width_max))
+
+
+def masked_width_topk(values, mask, width, width_max: int, key=None):
+    """Top-k at a width clipped into [0, width_max]."""
+    w = _clip_width(width, width_max, values.device)
+    return select_topk_mask(values, mask, w, key)
+
+
+def masked_width_random(key, mask, width, width_max: int):
+    """Random-k at a width clipped into [0, width_max]."""
+    w = _clip_width(width, width_max, mask.device)
+    return select_random_mask(key, mask, w)
+
+
+def count_true(mask: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return mask.sum(axis, dtype=torch.int32)
+
+
+def median_masked(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Upper median over masked slots per row (sort ascending, element
+    len/2 — gossipsub.go:1488-1493); +inf for rows with no masked slot."""
+    big = float("inf")
+    v = torch.where(mask, values.to(torch.float32), big)
+    v_sorted = torch.sort(v, dim=-1).values
+    n = count_true(mask)
+    idx = (n // 2).clamp(0, values.shape[-1] - 1)
+    med = bitset.take_word(v_sorted, idx)
+    return torch.where(n > 0, med, big)

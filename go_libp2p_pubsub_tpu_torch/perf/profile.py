@@ -1,0 +1,135 @@
+"""Where a round of the slice spends its time on the card.
+
+    python -m go_libp2p_pubsub_tpu_torch.perf.profile [--n 100000]
+        [--warm 16] [--rounds 16] [--out PATH]
+
+Builds the bench's default config on the card, runs ``--warm`` rounds,
+times ``--rounds`` untraced rounds, then traces ``--rounds`` more with
+``torch.profiler`` and prints: ms per round untraced and traced, device
+kernel time per round, the device's busy time per round (union of kernel
+intervals) and its share of the untraced round (the profiler stretches
+the host's dispatch, so the share of the traced window is printed beside
+it only for reference), kernel launches per round, the kernels by device
+time, and the host-side ops by launch count. ``--out`` also writes the
+numbers as JSON. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from . import sweep
+
+
+def _events_on(prof, kind: str):
+    from torch.autograd import DeviceType
+
+    dt = DeviceType.CUDA if kind == "cuda" else DeviceType.CPU
+    return [e for e in prof.events() if e.device_type == dt]
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def profile_rounds(n: int, warm: int, rounds: int) -> dict:
+    st, step, n_topics, honest = sweep.build_bench(n, 64, device="cuda")
+    po, pt, pv = sweep.publish_schedule(warm + 2 * rounds, n, n_topics, honest)
+    st = sweep.run_rounds(st, step, po[:warm], pt[:warm], pv[:warm])
+    torch.cuda.synchronize()
+    # an untraced window first: the profiler stretches the host's dispatch
+    # time, so the busy share is also read against this window's rounds
+    t0 = time.perf_counter()
+    plain = slice(warm, warm + rounds)
+    st = sweep.run_rounds(st, step, po[plain], pt[plain], pv[plain])
+    torch.cuda.synchronize()
+    untraced_us = 1e6 * (time.perf_counter() - t0)
+    traced = slice(warm + rounds, warm + 2 * rounds)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        st = sweep.run_rounds(st, step, po[traced], pt[traced], pv[traced])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kev = _events_on(prof, "cuda")
+    by_name: dict = {}
+    for e in kev:
+        d = by_name.setdefault(e.name, [0, 0.0])
+        d[0] += 1
+        d[1] += e.time_range.end - e.time_range.start
+    busy = _union_us([(e.time_range.start, e.time_range.end) for e in kev])
+    kernel_us = sum(v[1] for v in by_name.values())
+    host_ops: dict = {}
+    for e in _events_on(prof, "cpu"):
+        if e.name.startswith("aten::"):
+            host_ops[e.name] = host_ops.get(e.name, 0) + 1
+    return {
+        "n_peers": n, "rounds": rounds,
+        "host_ms_per_round": wall_us / 1e3 / rounds,
+        "untraced_ms_per_round": untraced_us / 1e3 / rounds,
+        "device_kernel_ms_per_round": kernel_us / 1e3 / rounds,
+        "device_busy_ms_per_round": busy / 1e3 / rounds,
+        "device_busy_share": busy / wall_us,
+        "device_busy_share_untraced": busy / untraced_us,
+        "kernel_launches_per_round": len(kev) / rounds,
+        "kernels": sorted(
+            ({"name": k, "launches_per_round": v[0] / rounds,
+              "us_per_round": v[1] / rounds} for k, v in by_name.items()),
+            key=lambda r: -r["us_per_round"]),
+        "host_ops_per_round": sorted(
+            ({"op": k, "calls_per_round": c / rounds} for k, c in host_ops.items()),
+            key=lambda r: -r["calls_per_round"]),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--warm", type=int, default=16)
+    ap.add_argument("--rounds", type=int, default=16)
+    ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile: needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    rep = profile_rounds(args.n, args.warm, args.rounds)
+    rep["card"] = card
+    print(card)
+    print(f"N={rep['n_peers']} over {rep['rounds']} rounds: untraced "
+          f"{rep['untraced_ms_per_round']:.3f} ms/round, traced "
+          f"{rep['host_ms_per_round']:.3f} ms/round, device kernels "
+          f"{rep['device_kernel_ms_per_round']:.3f} ms/round, device busy "
+          f"{rep['device_busy_ms_per_round']:.3f} ms/round, busy share "
+          f"{rep['device_busy_share_untraced']:.4f} of the untraced round "
+          f"({rep['device_busy_share']:.4f} of the traced one), "
+          f"{rep['kernel_launches_per_round']:.1f} kernel launches/round")
+    for r in rep["kernels"][: args.top]:
+        print(f"  {r['us_per_round']:10.1f} us/round {r['launches_per_round']:7.1f}x  "
+              f"{r['name'][:110]}")
+    print("host ops by calls/round:")
+    for r in rep["host_ops_per_round"][: args.top]:
+        print(f"  {r['calls_per_round']:8.1f}  {r['op']}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rep, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

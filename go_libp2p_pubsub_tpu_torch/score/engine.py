@@ -1,0 +1,273 @@
+"""Batched peer-score engine — the v1.1 security plane (score.go).
+
+Every peer n scores each of its neighbor slots k; topic-local counters live
+at [N, S, K]. The weighted P1..P7 sum (score.go:258-335), the decay pass
+(refreshScores, score.go:497-558) and the delivery-attribution updates
+(score.go:892-974) are elementwise passes. Each float expression keeps the
+JAX package's operation order term by term, so the f32 planes agree bit for
+bit (``p1`` divides by the quantum; it never multiplies by a reciprocal).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..config import PeerScoreParams, ticks_for
+from ..ops import bitset
+from ..state import Net, replace
+
+
+@dataclasses.dataclass(frozen=True)
+class TopicParamsArrays:
+    """Per-topic score params as dense [T] numpy arrays (row t zeroed when
+    topic t is unscored, score.go:269-273, 881-884)."""
+
+    scored: np.ndarray
+    topic_weight: np.ndarray
+    w1: np.ndarray
+    quantum_ticks: np.ndarray
+    cap1: np.ndarray
+    w2: np.ndarray
+    decay2: np.ndarray
+    cap2: np.ndarray
+    w3: np.ndarray
+    decay3: np.ndarray
+    cap3: np.ndarray
+    thr3: np.ndarray
+    window_rounds: np.ndarray     # [T] i32
+    activation_ticks: np.ndarray  # [T] i32
+    w3b: np.ndarray
+    decay3b: np.ndarray
+    w4: np.ndarray
+    decay4: np.ndarray
+
+    @classmethod
+    def build(cls, params: PeerScoreParams, n_topics: int,
+              heartbeat_interval: float = 1.0):
+        def arr(fn, dtype=np.float32):
+            out = np.zeros((n_topics,), dtype)
+            for t, tp in params.topics.items():
+                if 0 <= t < n_topics:
+                    out[t] = fn(tp)
+            return out
+
+        scored = np.zeros((n_topics,), bool)
+        for t in params.topics:
+            if 0 <= t < n_topics:
+                scored[t] = True
+        hb = heartbeat_interval
+        return cls(
+            scored=scored,
+            topic_weight=arr(lambda p: p.topic_weight),
+            w1=arr(lambda p: p.time_in_mesh_weight),
+            quantum_ticks=arr(lambda p: max(1, ticks_for(p.time_in_mesh_quantum, hb))),
+            cap1=arr(lambda p: p.time_in_mesh_cap),
+            w2=arr(lambda p: p.first_message_deliveries_weight),
+            decay2=arr(lambda p: p.first_message_deliveries_decay),
+            cap2=arr(lambda p: p.first_message_deliveries_cap),
+            w3=arr(lambda p: p.mesh_message_deliveries_weight),
+            decay3=arr(lambda p: p.mesh_message_deliveries_decay),
+            cap3=arr(lambda p: p.mesh_message_deliveries_cap),
+            thr3=arr(lambda p: p.mesh_message_deliveries_threshold),
+            window_rounds=arr(
+                lambda p: ticks_for(p.mesh_message_deliveries_window, hb) - 1
+                if p.mesh_message_deliveries_window >= hb else 0,
+                np.int32,
+            ),
+            activation_ticks=arr(
+                lambda p: ticks_for(p.mesh_message_deliveries_activation, hb),
+                np.int32),
+            w3b=arr(lambda p: p.mesh_failure_penalty_weight),
+            decay3b=arr(lambda p: p.mesh_failure_penalty_decay),
+            w4=arr(lambda p: p.invalid_message_deliveries_weight),
+            decay4=arr(lambda p: p.invalid_message_deliveries_decay),
+        )
+
+    def gather(self, my_topics: torch.Tensor) -> dict:
+        """Per-(peer, slot) [N, S] views; slots with no topic come out
+        zeroed/unscored."""
+        t = my_topics.clamp(min=0).long()
+        live = my_topics >= 0
+        out = {}
+        for f in dataclasses.fields(self):
+            v = torch.as_tensor(getattr(self, f.name), device=my_topics.device)[t]
+            out[f.name] = torch.where(live, v, torch.zeros((), dtype=v.dtype,
+                                                            device=v.device))
+        return out
+
+
+@dataclasses.dataclass
+class ScoreState:
+    """Counters the score is computed from, per (peer, topic-slot,
+    neighbor-slot) (peerStats/topicStats, score.go:17-62)."""
+
+    fmd: torch.Tensor          # [N,S,K] f32 firstMessageDeliveries
+    mmd: torch.Tensor          # [N,S,K] f32 meshMessageDeliveries
+    mfp: torch.Tensor          # [N,S,K] f32 meshFailurePenalty (P3b)
+    imd: torch.Tensor          # [N,S,K] f32 invalidMessageDeliveries
+    graft_tick: torch.Tensor   # [N,S,K] i32 (-1 never)
+    mesh_time: torch.Tensor    # [N,S,K] i32
+    mmd_active: torch.Tensor   # [N,S,K] bool P3 activation latch
+    bp: torch.Tensor           # [N,K] f32 behaviourPenalty (P7)
+
+    @classmethod
+    def empty(cls, n: int, s: int, k: int, device) -> "ScoreState":
+        f = lambda: torch.zeros((n, s, k), dtype=torch.float32, device=device)
+        return cls(
+            fmd=f(), mmd=f(), mfp=f(), imd=f(),
+            graft_tick=torch.full((n, s, k), -1, dtype=torch.int32, device=device),
+            mesh_time=torch.zeros((n, s, k), dtype=torch.int32, device=device),
+            mmd_active=torch.zeros((n, s, k), dtype=torch.bool, device=device),
+            bp=torch.zeros((n, k), dtype=torch.float32, device=device),
+        )
+
+
+def ip_colocation_surplus_sq(net: Net, threshold: int, whitelist=()) -> torch.Tensor:
+    """[N, K] f32: (peersInIP - threshold)^2 where the count of my connected
+    neighbors sharing neighbor k's ip-group exceeds the threshold
+    (score.go:337-381)."""
+    groups = net.peer_gather(net.ip_group)
+    same = (groups[:, :, None] == groups[:, None, :]) & net.nbr_ok[:, None, :]
+    count = same.sum(-1, dtype=torch.int32)
+    surplus = (count - threshold).to(torch.float32)
+    p6 = torch.where(count > threshold, surplus * surplus, 0.0)
+    if len(whitelist):
+        wl = torch.isin(groups, torch.as_tensor(list(whitelist), dtype=groups.dtype,
+                                                device=groups.device))
+        p6 = torch.where(wl, 0.0, p6)
+    return torch.where(net.nbr_ok, p6, 0.0)
+
+
+def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
+                   params: PeerScoreParams, p6: torch.Tensor,
+                   app_score: torch.Tensor, net: Net) -> torch.Tensor:
+    """[N, K] f32 — peer n's score of neighbor slot k (score.go:258-335)."""
+    e = lambda a: a[..., None]
+    p1 = torch.minimum(st.mesh_time.to(torch.float32) / e(tp["quantum_ticks"]),
+                       e(tp["cap1"]))
+    topic = torch.where(in_mesh, p1 * e(tp["w1"]), 0.0)
+    topic = topic + st.fmd * e(tp["w2"])
+    deficit = e(tp["thr3"]) - st.mmd
+    p3 = torch.where(st.mmd_active & (deficit > 0), deficit * deficit, 0.0)
+    topic = topic + p3 * e(tp["w3"])
+    topic = topic + st.mfp * e(tp["w3b"])
+    topic = topic + st.imd * st.imd * e(tp["w4"])
+    score = (topic * e(tp["topic_weight"])).sum(1)
+    if params.topic_score_cap > 0:
+        score = torch.clamp(score, max=params.topic_score_cap)
+    if params.app_specific_weight != 0.0:
+        score = score + net.peer_gather(app_score) * params.app_specific_weight
+    score = score + p6 * params.ip_colocation_factor_weight
+    excess = st.bp - params.behaviour_penalty_threshold
+    p7 = torch.where(excess > 0, excess * excess, 0.0)
+    score = score + p7 * params.behaviour_penalty_weight
+    return torch.where(net.nbr_ok, score, 0.0)
+
+
+def refresh_scores(st: ScoreState, in_mesh: torch.Tensor, tick, tp: dict,
+                   params: PeerScoreParams) -> ScoreState:
+    """The decay pass (refreshScores, score.go:497-558)."""
+    dtz = params.decay_to_zero
+    e = lambda a: a[..., None]
+
+    def dec(x, d):
+        y = x * d
+        return torch.where(y < dtz, 0.0, y)
+
+    mesh_time = torch.where(in_mesh, tick - st.graft_tick, st.mesh_time)
+    active = st.mmd_active | (in_mesh & (mesh_time > e(tp["activation_ticks"])))
+    bp = st.bp * params.behaviour_penalty_decay
+    bp = torch.where(bp < dtz, 0.0, bp)
+    return replace(
+        st,
+        fmd=dec(st.fmd, e(tp["decay2"])),
+        mmd=dec(st.mmd, e(tp["decay3"])),
+        mfp=dec(st.mfp, e(tp["decay3b"])),
+        imd=dec(st.imd, e(tp["decay4"])),
+        mesh_time=mesh_time, mmd_active=active, bp=bp,
+    )
+
+
+def on_graft(st: ScoreState, graft_mask: torch.Tensor, tick) -> ScoreState:
+    """Newly grafted edges: reset mesh time and the P3 latch
+    (score.go:642-660)."""
+    return replace(
+        st,
+        graft_tick=torch.where(graft_mask, tick, st.graft_tick),
+        mesh_time=torch.where(graft_mask, 0, st.mesh_time),
+        mmd_active=st.mmd_active & ~graft_mask,
+    )
+
+
+def on_prune(st: ScoreState, prune_mask: torch.Tensor, tp: dict) -> ScoreState:
+    """Edges leaving the mesh: the sticky mesh failure penalty when pruned
+    while active and below threshold (score.go:662-684)."""
+    deficit = tp["thr3"][..., None] - st.mmd
+    add = torch.where(prune_mask & st.mmd_active & (deficit > 0),
+                      deficit * deficit, 0.0)
+    return replace(st, mfp=st.mfp + add)
+
+
+def per_slot_counts(words: torch.Tensor, slotw: torch.Tensor) -> torch.Tensor:
+    """[N,K,W] packed words -> [N,S,K] f32 popcounts per topic slot."""
+    return torch.stack(
+        [bitset.popcount(words & slotw[:, s: s + 1, :], axis=-1)
+         for s in range(slotw.shape[1])], dim=1
+    ).to(torch.float32)
+
+
+def slot_topic_words(net: Net, msg_topic: torch.Tensor) -> torch.Tensor:
+    """[N, S, W] packed: messages belonging to the topic of my slot s."""
+    n_topics = net.subscribed.shape[1]
+    topics = torch.arange(n_topics, dtype=torch.int32, device=msg_topic.device)
+    tw = bitset.pack(msg_topic[None, :] == topics[:, None])      # [T, W]
+    stw = tw[net.my_topics.clamp(min=0).long()]                    # [N, S, W]
+    return torch.where((net.my_topics >= 0)[:, :, None], stw, 0)
+
+
+def on_deliveries(st: ScoreState, net: Net, in_mesh: torch.Tensor, tp: dict,
+                  trans_words: torch.Tensor, new_words: torch.Tensor,
+                  fe_words: torch.Tensor, first_round: torch.Tensor,
+                  msg_topic: torch.Tensor, msg_valid: torch.Tensor, tick,
+                  window_rounds_t: torch.Tensor,
+                  msg_ignored: torch.Tensor | None = None,
+                  slotw: torch.Tensor | None = None) -> ScoreState:
+    """Fold one delivery round into the counters (score.go:892-974):
+    first receipts credit P2 (and P3 on mesh edges), in-window duplicates
+    credit P3, arrivals of rejected messages charge P4; ignored messages
+    move nothing."""
+    t = msg_topic.clamp(min=0).long()
+    if slotw is None:
+        slotw = slot_topic_words(net, msg_topic)
+    valid_w = bitset.pack(msg_valid)
+    first_arrival = fe_words & new_words[:, None, :] & valid_w[None, None, :]
+    e = lambda a: a[..., None]
+    fmd = torch.minimum(st.fmd + per_slot_counts(first_arrival, slotw), e(tp["cap2"]))
+
+    msg_window = window_rounds_t[t]
+    within_w = bitset.pack(
+        (first_round >= 0) & ((tick - first_round) <= msg_window[None, :]))
+    mesh_credit = trans_words & valid_w[None, None, :] & within_w[:, None, :]
+    mmd_inc = per_slot_counts(mesh_credit, slotw) * in_mesh.to(torch.float32)
+    mmd = torch.minimum(st.mmd + mmd_inc, e(tp["cap3"]))
+
+    penalize_w = ~valid_w
+    if msg_ignored is not None:
+        penalize_w = penalize_w & ~bitset.pack(msg_ignored)
+    imd = st.imd + per_slot_counts(trans_words & penalize_w[None, None, :], slotw)
+
+    scored = e(tp["scored"])
+    return replace(
+        st,
+        fmd=torch.where(scored, fmd, st.fmd),
+        mmd=torch.where(scored, mmd, st.mmd),
+        imd=torch.where(scored, imd, st.imd),
+    )
+
+
+def add_penalties(st: ScoreState, counts: torch.Tensor) -> ScoreState:
+    """behaviourPenalty += counts [N,K] (AddPenalty, score.go:384-398)."""
+    return replace(st, bp=st.bp + counts.to(torch.float32))

@@ -1,0 +1,285 @@
+"""Device-resident simulation state (struct-of-arrays) as dataclasses of
+tensors.
+
+Message ids are interned to slots of a rotating global table of capacity
+M; per-peer message sets (seen-cache, forward sets) are packed 32-bit word
+planes over those slots (stored as int32, see ``ops/bitset.py``). A slot is
+recycled when the cursor wraps; recycling clears its bit column everywhere.
+
+Every entry point takes an explicit ``device``. None means the card: with
+no CUDA device it raises instead of running on the CPU, so a measurement can
+never land on the wrong device by accident. Tests pass ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import graph as graphlib
+from . import prng
+from .ops import bitset, edges
+from .trace.events import zero_counters
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    card — raising when no CUDA device is present."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the port on the CPU")
+    return torch.device("cuda")
+
+
+def replace(obj, **kw):
+    return dataclasses.replace(obj, **kw)
+
+
+def tree_map(fn, *trees):
+    """Apply ``fn`` leafwise over matching dataclass trees (None leaves
+    stay None)."""
+    t0 = trees[0]
+    if dataclasses.is_dataclass(t0):
+        return dataclasses.replace(t0, **{
+            f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))
+            for f in dataclasses.fields(t0)
+        })
+    if isinstance(t0, torch.Tensor):
+        return fn(*trees)
+    return t0
+
+
+@dataclasses.dataclass
+class Net:
+    """Static network: topology + subscriptions + identity (see graph.py
+    for field semantics). Dense layout only in this slice."""
+
+    nbr: torch.Tensor         # [N, K] i32
+    nbr_ok: torch.Tensor      # [N, K] bool
+    rev: torch.Tensor         # [N, K] i32
+    outbound: torch.Tensor    # [N, K] bool
+    subscribed: torch.Tensor  # [N, T] bool
+    my_topics: torch.Tensor   # [N, S] i32
+    slot_of: torch.Tensor     # [N, T] i32
+    ip_group: torch.Tensor    # [N] i32 (P6 colocation key)
+    direct: torch.Tensor      # [N, K] bool — direct peering edges
+    edge_perm: torch.Tensor   # [N, K] i32 flat (nbr*K + rev) involution
+    protocol: torch.Tensor    # [N] i8 — 0 floodsub, 1 meshsub/1.0, 2 /1.1
+    # banded-regular structure (ops/edges.detect_banded): static; when set,
+    # cross-peer gathers are K static rolls and the fused kernels apply
+    band_off: tuple | None = None
+    band_rev: tuple | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.nbr.device
+
+    def edge_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """x[N, K, ...] -> x[nbr[j,k], rev[j,k], ...] (the edge involution);
+        callers mask with nbr_ok."""
+        if self.band_off is not None:
+            return edges.edge_permute_banded(x, self.band_off, self.band_rev)
+        return edges.edge_permute(x, self.edge_perm)
+
+    def peer_gather(self, v: torch.Tensor) -> torch.Tensor:
+        """v[N, ...] -> [N, K, ...] neighbor view v[nbr[j,k]] (absent slots
+        read v[0])."""
+        if self.band_off is not None:
+            return edges.peer_gather_banded(v, self.band_off)
+        return v[self.nbr.clamp(min=0).long()]
+
+    @classmethod
+    def build(cls, topo: graphlib.Topology, subs: graphlib.Subscriptions,
+              ip_group: np.ndarray | None = None,
+              direct: np.ndarray | None = None,
+              protocol: np.ndarray | None = None,
+              edge_layout: str = "dense", fused: bool = False,
+              device=None) -> "Net":
+        if edge_layout != "dense":
+            raise NotImplementedError(
+                f"edge_layout={edge_layout!r}: the CSR layout is not ported "
+                "yet — ROADMAP §1 item 3 (ops/csr.py)")
+        if fused:
+            raise NotImplementedError(
+                "Net.build(fused=True): the fused composite set is not "
+                "ported yet — ROADMAP §1 item 7")
+        dev = resolve_device(device)
+        n = topo.n_peers
+        if ip_group is None:
+            ip_group = np.arange(n, dtype=np.int32)
+        if direct is None:
+            direct = np.zeros(topo.nbr.shape, bool)
+        if protocol is None:
+            protocol = np.full((n,), 2, np.int8)
+        band = edges.detect_banded(topo.nbr, topo.rev, topo.nbr_ok)
+        t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+        return cls(
+            nbr=t(topo.nbr, torch.int32),
+            nbr_ok=t(topo.nbr_ok, torch.bool),
+            rev=t(topo.rev, torch.int32),
+            outbound=t(topo.outbound, torch.bool),
+            subscribed=t(subs.subscribed, torch.bool),
+            my_topics=t(subs.my_topics, torch.int32),
+            slot_of=t(subs.slot_of, torch.int32),
+            ip_group=t(ip_group, torch.int32),
+            direct=t(direct, torch.bool),
+            edge_perm=t(edges.build_edge_perm(topo.nbr, topo.rev, topo.nbr_ok),
+                        torch.int64),
+            protocol=t(protocol, torch.int8),
+            band_off=band[0] if band else None,
+            band_rev=band[1] if band else None,
+        )
+
+    @property
+    def n_peers(self) -> int:
+        return self.nbr.shape[0]
+
+    @property
+    def max_degree(self) -> int:
+        return self.nbr.shape[1]
+
+    @property
+    def n_topics(self) -> int:
+        return self.subscribed.shape[1]
+
+    @property
+    def n_slots(self) -> int:
+        return self.my_topics.shape[1]
+
+
+@dataclasses.dataclass
+class MsgTable:
+    """Rotating global message table (the interned message-id space)."""
+
+    topic: torch.Tensor    # [M] i32, -1 = never used
+    origin: torch.Tensor   # [M] i32
+    birth: torch.Tensor    # [M] i32 round of publish, -1 = never used
+    valid: torch.Tensor    # [M] bool — ValidationAccept
+    ignored: torch.Tensor  # [M] bool — ValidationIgnore
+    cursor: torch.Tensor   # i32 — next slot to allocate (mod M)
+
+    @classmethod
+    def empty(cls, m: int, device) -> "MsgTable":
+        full = lambda v: torch.full((m,), v, dtype=torch.int32, device=device)
+        return cls(
+            topic=full(-1), origin=full(-1), birth=full(-1),
+            valid=torch.zeros((m,), dtype=torch.bool, device=device),
+            ignored=torch.zeros((m,), dtype=torch.bool, device=device),
+            cursor=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+    @property
+    def capacity(self) -> int:
+        return self.topic.shape[0]
+
+
+@dataclasses.dataclass
+class Delivery:
+    """Per-peer message-delivery state: ``have`` the seen-cache, ``fwd``
+    what this peer transmits next round, ``first_round`` the round of first
+    receipt (-1 never), ``fe_words`` the packed first-arrival edge plane
+    (bit m of row (n, k) set iff m first arrived at n on edge k)."""
+
+    have: torch.Tensor         # [N, W] i32 words
+    fwd: torch.Tensor          # [N, W] i32 words
+    first_round: torch.Tensor  # [N, M] i32
+    fe_words: torch.Tensor     # [N, K, W] i32 words
+
+    @classmethod
+    def empty(cls, n: int, m: int, k: int, device) -> "Delivery":
+        w = bitset.n_words(m)
+        z = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
+        return cls(
+            have=z(n, w), fwd=z(n, w),
+            first_round=torch.full((n, m), -1, dtype=torch.int32, device=device),
+            fe_words=z(n, k, w),
+        )
+
+
+@dataclasses.dataclass
+class SimState:
+    """Router-agnostic core of the step state."""
+
+    tick: torch.Tensor    # i32 current round
+    key: torch.Tensor     # threefry key: int64 [2] holding two u32 words
+    msgs: MsgTable
+    dlv: Delivery
+    events: torch.Tensor  # [N_EVENTS] i32 cumulative trace counters
+
+    @classmethod
+    def init(cls, n_peers: int, msg_slots: int, seed: int = 0, k: int = 0,
+             device=None) -> "SimState":
+        dev = resolve_device(device)
+        return cls(
+            tick=torch.zeros((), dtype=torch.int32, device=dev),
+            key=prng.key(seed, device=dev),
+            msgs=MsgTable.empty(msg_slots, dev),
+            dlv=Delivery.empty(n_peers, msg_slots, k, dev),
+            events=zero_counters(dev),
+        )
+
+
+def _scatter_drop(tbl: torch.Tensor, sidx: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """tbl.at[sidx].set(vals, mode="drop") for sidx in [0, M]: index M is a
+    spill slot that is cut away."""
+    ext = torch.cat([tbl, tbl[:1]])
+    ext = ext.index_put((sidx.long(),), vals.to(tbl.dtype))
+    return ext[: tbl.shape[0]]
+
+
+def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
+                       pub_origin: torch.Tensor, pub_topic: torch.Tensor,
+                       pub_valid: torch.Tensor):
+    """Intern this round's publishes (``pub_valid`` bool: accept or
+    reject) into table slots (rotating cursor),
+    clearing recycled slots' bit columns everywhere, and mark each origin's
+    own message seen and scheduled for forwarding.
+
+    Returns (msgs, dlv, slots, is_pub, keep_words, pub_words)."""
+    if pub_valid.dtype != torch.bool:
+        raise NotImplementedError(
+            "integer verdict codes (ACCEPT/REJECT/IGNORE) are not ported yet; "
+            "pass bool accept flags — ROADMAP §1 item 4")
+    m = msgs.capacity
+    dev = dlv.have.device
+    is_pub = pub_origin >= 0
+    pos = torch.cumsum(is_pub.to(torch.int32), 0, dtype=torch.int32) - 1
+    slots = (msgs.cursor + pos) % m
+    count = is_pub.sum(dtype=torch.int32)
+    sidx = torch.where(is_pub, slots, m)
+
+    n_peers = dlv.have.shape[0]
+    reused = _scatter_drop(torch.zeros((m,), dtype=torch.bool, device=dev),
+                           sidx, torch.ones_like(is_pub))
+    keep = ~bitset.pack(reused)
+    first_round = torch.where(reused[None, :], -1, dlv.first_round)
+    have_c, fwd_c, fe_c = bitset.masked_keep(
+        [dlv.have, dlv.fwd, dlv.fe_words], keep)
+
+    msgs = replace(
+        msgs,
+        topic=_scatter_drop(msgs.topic, sidx, pub_topic),
+        origin=_scatter_drop(msgs.origin, sidx, pub_origin),
+        birth=_scatter_drop(msgs.birth, sidx, tick.expand(pub_topic.shape)),
+        valid=_scatter_drop(msgs.valid, sidx, pub_valid),
+        ignored=_scatter_drop(msgs.ignored, sidx, torch.zeros_like(pub_valid)),
+        cursor=msgs.cursor + count,
+    )
+
+    row = torch.where(is_pub, pub_origin, n_peers).long()
+    pub_bits = torch.zeros((n_peers + 1, m + 1), dtype=torch.bool, device=dev)
+    pub_bits = pub_bits.index_put((row, sidx.long()), torch.ones_like(is_pub))
+    pub_bits = pub_bits[:n_peers, :m]
+    pub_words = bitset.pack(pub_bits)
+    dlv = Delivery(
+        have=have_c | pub_words,
+        fwd=fwd_c | pub_words,
+        first_round=torch.where(pub_bits, tick, first_round),
+        fe_words=fe_c,
+    )
+    return msgs, dlv, slots, is_pub, keep, pub_words

@@ -1,0 +1,166 @@
+"""The port's per-round GossipSub step against the JAX package's, leaf by
+leaf, every round.
+
+Both sides run the bench's default params (v1.1, live scoring, one topic)
+on ring_lattice(96, d=4), and at the bench's degree on ring_lattice(96,
+d=8). The JAX step runs its default XLA path, which the
+JAX package holds bit-identical to its fused Pallas path
+(tests/test_fused_round.py); the port always takes the fused data plane,
+on the CPU through its plain versions. The port's initial state is carried
+across with convert.state_from_reference, and every leaf — integer, bool,
+packed word and f32 score planes alike — must be equal bit for bit after
+every round: the score arithmetic keeps the JAX operation order, so no
+tolerance is needed on any leaf."""
+
+from __future__ import annotations
+
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_parity import bench_builds, diff_leaves, reference_leaves
+
+from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubState as JState
+from go_libp2p_pubsub_tpu.models.gossipsub import make_gossipsub_step as jmake
+from go_libp2p_pubsub_tpu_torch import convert
+from go_libp2p_pubsub_tpu_torch.models.gossipsub import GossipSubState as TState
+from go_libp2p_pubsub_tpu_torch.models.gossipsub import make_gossipsub_step as tmake
+from go_libp2p_pubsub_tpu_torch.perf import sweep as tsweep
+
+ROUNDS = 24
+N = 96
+
+
+def _schedule():
+    rng = np.random.default_rng(0)
+    po = rng.integers(0, N, size=(ROUNDS, 4)).astype(np.int32)
+    pt = np.zeros((ROUNDS, 4), np.int32)
+    pv = np.ones((ROUNDS, 4), bool)
+    pv[5, 1] = False   # one invalid publish
+    po[9, 3] = -1      # and one empty publish slot
+    return po, pt, pv
+
+
+def _case(d, heartbeat_every, static_hb, count_events):
+    tag = f"{heartbeat_every}-{static_hb}-{count_events}"
+    return pytest.param(d, heartbeat_every, static_hb, count_events,
+                        id=tag if d == 4 else f"d{d}-{tag}")
+
+
+@pytest.mark.parametrize("d,heartbeat_every,static_hb,count_events", [
+    _case(4, 1, False, True), _case(4, 1, False, False), _case(4, 2, True, True),
+    _case(4, 2, True, False), _case(4, 2, False, True),
+    # the bench's K=16: meshes can exceed Dhi, so the heartbeat's
+    # oversubscription prune and top-k/random selection over 16 candidates
+    # are held against the reference too
+    _case(8, 1, False, True),
+])
+def test_step_equals_reference_every_round(d, heartbeat_every, static_hb, count_events):
+    jcfg, jnet, jsp, tcfg, tnet, tsp = bench_builds(
+        n=N, d=d, heartbeat_every=heartbeat_every, count_events=count_events)
+    # a fresh JAX state per run: the JAX steps donate their buffers
+    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0)
+    tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
+    diff_leaves(reference_leaves(jst), convert.state_leaves(tst), "init")
+    jstep = jmake(jcfg, jnet, score_params=jsp, static_heartbeat=static_hb)
+    tstep = tmake(tcfg, tnet, score_params=tsp, static_heartbeat=static_hb)
+    po, pt, pv = _schedule()
+    for r in range(ROUNDS):
+        kw = ({"do_heartbeat": r % heartbeat_every == 0}
+              if static_hb and heartbeat_every > 1 else {})
+        jst = jstep(jst, jnp.asarray(po[r]), jnp.asarray(pt[r]), jnp.asarray(pv[r]), **kw)
+        tst = tstep(tst, torch.from_numpy(po[r]), torch.from_numpy(pt[r]),
+                    torch.from_numpy(pv[r]), **kw)
+        diff_leaves(reference_leaves(jst), convert.state_leaves(tst), f"round {r}")
+    leaves = convert.state_leaves(tst)
+    deg = leaves[".mesh"].sum(-1)
+    assert deg.min() >= 1
+    if count_events:
+        assert leaves[".core.events"].sum() > 0
+
+
+def test_state_matches_schema_manifest():
+    """The port's state tree carries exactly the gossipsub manifest of
+    STATE_SCHEMA.json: same 53 paths, dtypes and shapes."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "STATE_SCHEMA.json")) as f:
+        schema = json.load(f)
+    man = schema["engines"]["gossipsub"]["leaves"]
+    n, m = schema["shape"]["n_peers"], schema["shape"]["msg_slots"]
+    st, _step, _t, _h = tsweep.build_bench(n, m, device="cpu")
+    leaves = convert.state_leaves(st)
+    assert len(man) == 53 == len(leaves)
+    for leaf in man:
+        a = leaves[leaf["path"]]
+        dtype = "uint32" if leaf["dtype"] == "key" else leaf["dtype"]
+        shape = [2] if leaf["dtype"] == "key" else leaf["shape"]
+        assert (str(a.dtype), list(a.shape)) == (dtype, shape), leaf["path"]
+
+
+def test_reference_state_round_trips():
+    _jcfg, jnet, jsp, _tcfg, _tnet, _tsp = bench_builds(n=N, d=4)
+    ref = reference_leaves(JState.init(jnet, 64, _jcfg, score_params=jsp, seed=3))
+    diff_leaves(ref, convert.state_leaves(convert.state_from_reference(ref, "cpu")))
+
+
+def test_bench_loop_on_cpu():
+    st, step, n_topics, honest = tsweep.build_bench(256, 64, device="cpu")
+    po, pt, pv = tsweep.publish_schedule(20, 256, n_topics, honest)
+    st = tsweep.run_rounds(st, step, po, pt, pv)
+    assert int(st.core.tick) == 20
+    deg = st.mesh.sum(-1)
+    assert int(deg.min()) >= 5 and int(deg.max()) <= 12
+    assert torch.equal(st.core.dlv.fwd & ~st.core.dlv.have,
+                       torch.zeros_like(st.core.dlv.fwd))
+    # every message published 4+ rounds ago spread beyond its origin, and
+    # each receipt was stamped no earlier than the message's birth
+    born = st.core.msgs.birth
+    reach = (st.core.dlv.first_round >= 0).sum(0)
+    old = (born >= 0) & (born <= 16)
+    assert bool(old.any()) and bool((reach[old] > 8).all())
+    fr_ = st.core.dlv.first_round
+    assert bool(((fr_ < 0) | (fr_ >= born[None, :])).all())
+
+
+def test_entry_points_refuse_without_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsweep.build_bench(64, 64)
+    from go_libp2p_pubsub_tpu_torch import graph
+    from go_libp2p_pubsub_tpu_torch.state import Net
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Net.build(graph.ring_lattice(64, d=4), graph.subscribe_all(64, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.state_from_reference({})
+
+
+def test_unported_options_raise():
+    import dataclasses
+
+    _jcfg, _jnet, _jsp, tcfg, tnet, tsp = bench_builds(n=N, d=4)
+    for kw in ({"fanout_slots": 2}, {"do_px": True}, {"fused": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmake(dataclasses.replace(tcfg, **kw), tnet, score_params=tsp)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmake(tcfg, tnet, score_params=tsp, gater_params=object())
+    from go_libp2p_pubsub_tpu_torch import graph
+    from go_libp2p_pubsub_tpu_torch.state import Net
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Net.build(graph.ring_lattice(N, d=4), graph.subscribe_all(N, 1),
+                  edge_layout="csr", device="cpu")
+    general = Net.build(graph.random_connect(N, d=3, seed=1),
+                        graph.subscribe_all(N, 1), device="cpu")
+    with pytest.raises(NotImplementedError, match="non-banded"):
+        tmake(tcfg, general, score_params=tsp)
+    with pytest.raises(NotImplementedError, match="verdict"):
+        step = tmake(tcfg, tnet, score_params=tsp)
+        st = TState.init(tnet, 64, tcfg, score_params=tsp)
+        z = torch.zeros(4, dtype=torch.int32)
+        step(st, z, z, z)
+    st = TState.init(tnet, 64, tcfg, score_params=tsp)
+    assert st.mesh.shape == (N, 1, 8)
