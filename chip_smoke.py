@@ -8,19 +8,30 @@ Phases, each printing its own lines; any failure exits non-zero before the
 last line is printed:
 
 1. environment — torch/CUDA versions, the card's name and power limit;
-2. build — nvcc builds every kernel of the slice from csrc/ for sm_90a;
-3. kernels — at the main path's shapes (N=100k, K=16, W=2, C=4), on inputs
-   captured from a real round of the slice and on random words, each
-   kernel must equal its plain PyTorch version exactly; CUDA-event medians
-   of the kernel, the plain version and (edge_exchange) the one-call
-   library gather, beside the bytes bound;
-4. slice at full width — the bench's default config at N=100k, formation
-   rounds then 64 rounds of the bench's publish schedule; every launch
-   counter must equal the round count, mesh degrees lie in [Dlo, Dhi],
-   fwd is a subset of have; rounds/s and peak device memory;
-5. card against CPU — the same step from the same seed on the card and on
-   the CPU (plain versions) for 32 rounds at N=8192, every leaf equal after
-   every round.
+2. build — nvcc builds every kernel source of the port from csrc/ for
+   sm_90a, one nvcc per source, all started together;
+3. GossipSub kernels — at the bench's shapes (N=100k, K=16, W=2, C=4), on
+   inputs captured from a real round and on random words, edge_exchange and
+   fused_delivery must equal their plain PyTorch versions exactly;
+   CUDA-event medians of the kernel, the plain version and (edge_exchange)
+   the one-call library gather, beside the bytes bound;
+4. GossipSub at full width — the bench's default config at N=100k,
+   formation rounds then 64 rounds of the bench's publish schedule; both
+   launch counters must equal the round count, mesh degrees lie in
+   [Dlo, Dhi], fwd is a subset of have; rounds/s and peak device memory;
+5. GossipSub card against CPU — the same step from the same seed on the
+   card and on the CPU (plain versions) for 32 rounds at N=8192, every leaf
+   equal after every round;
+6. FloodSub, banded dense — ring_lattice(100k, d=8): delivery_banded
+   against its plain version (captured and random inputs, medians, bound),
+   then 80 rounds with 4 publishes a round: host set-up seconds, rounds/s,
+   peak memory, state bytes, launches equal to rounds, fwd a subset of
+   have, every message older than 4 rounds past its origin;
+7. FloodSub, CSR-resident — powerlaw(1M, 2.2, d_min=2, max_degree=64,
+   seed=0): csr_delivery the same way, with the link-deny mask on and off,
+   then the same 80-round run;
+8. FloodSub card against CPU — both layouts at N=8192 for 32 rounds, every
+   leaf equal after every round.
 
 It prints the ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
@@ -29,6 +40,7 @@ package, and exits non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -41,10 +53,15 @@ NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM outside the tensor cores
 N_FULL, M_SLOTS = 100_000, 64
 FORMATION_ROUNDS, MEASURED_ROUNDS = 16, 64
 N_PARITY, PARITY_ROUNDS = 8192, 32
+N_CSR, FLOOD_ROUNDS = 1_000_000, 80
+KERNEL_SOURCES = ("fused_round", "delivery")
 KERNEL_SOURCE = "go_libp2p_pubsub_tpu_torch/csrc/fused_round.cu"
+DELIVERY_SOURCE = "go_libp2p_pubsub_tpu_torch/csrc/delivery.cu"
 REPLACES = {
     "edge_exchange": "go_libp2p_pubsub_tpu/ops/fused_round.py:197",
     "fused_delivery": "go_libp2p_pubsub_tpu/ops/fused_round.py:424",
+    "delivery_banded": "go_libp2p_pubsub_tpu/ops/pallas_delivery.py:162",
+    "csr_delivery": "go_libp2p_pubsub_tpu/ops/pallas_csr.py:229,244,260",
 }
 
 
@@ -104,10 +121,10 @@ def max_abs_err(ref, got) -> float:
     return worst
 
 
-def capture_round(step, st, fr):
-    """Run one round of the slice, recording each kernel wrapper's call."""
+def capture_round(step, st, module, names=("edge_exchange", "fused_delivery")):
+    """Run one round, recording each named kernel wrapper's call."""
     captured = {}
-    originals = {name: getattr(fr, name) for name in ("edge_exchange", "fused_delivery")}
+    originals = {name: getattr(module, name) for name in names}
 
     def recorder(name):
         def call(*args, **kwargs):
@@ -117,11 +134,11 @@ def capture_round(step, st, fr):
 
     try:
         for name in originals:
-            setattr(fr, name, recorder(name))
+            setattr(module, name, recorder(name))
         st = step(st)
     finally:
         for name, fn in originals.items():
-            setattr(fr, name, fn)
+            setattr(module, name, fn)
     return st, captured
 
 
@@ -175,9 +192,7 @@ def check_kernels(fr, captured, gen):
         "max_abs_err": err,
         "ms": time_ms(lambda: fr.edge_exchange(*args, **kw)),
         "plain_ms": time_ms(lambda: fr.edge_exchange_plain(*args, **kw)),
-        "bound_ms": 1e3 * max(io / HBM_BYTES_PER_S, ops / NON_TENSOR_OPS_PER_S),
-        "bound_by": "bytes" if io / HBM_BYTES_PER_S >= ops / NON_TENSOR_OPS_PER_S
-        else "operations",
+        **bound(io, ops),
         "library_ms": time_ms(lambda: flat[perm]),
     }
     records.append(rec)
@@ -213,9 +228,7 @@ def check_kernels(fr, captured, gen):
         "max_abs_err": err,
         "ms": time_ms(lambda: fr.fused_delivery(*args, **kw)),
         "plain_ms": time_ms(lambda: fr.fused_delivery_plain(*args, **kw)),
-        "bound_ms": 1e3 * max(io / HBM_BYTES_PER_S, ops / NON_TENSOR_OPS_PER_S),
-        "bound_by": "bytes" if io / HBM_BYTES_PER_S >= ops / NON_TENSOR_OPS_PER_S
-        else "operations",
+        **bound(io, ops),
         "library_ms": None,
     }
     records.append(rec)
@@ -225,6 +238,136 @@ def check_kernels(fr, captured, gen):
         f"library_ms=null ({io} bytes moved)")
     say("kernels: " + ", ".join(r["name"] for r in records))
     return records
+
+
+def bound(io: int, ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the integer operations over the non-tensor-core rate,
+    and which of the two it is."""
+    t_io, t_ops = io / HBM_BYTES_PER_S, ops / NON_TENSOR_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_io, t_ops),
+            "bound_by": "bytes" if t_io >= t_ops else "operations"}
+
+
+def check_flood_kernel(module, name, args, kw, gen):
+    """A FloodSub delivery kernel against its plain version on the card, on
+    the captured call and on random words (the CSR kernel with its
+    link-deny mask off and on). Returns (max_abs_err, io bytes, ops)."""
+    import torch
+
+    plain = getattr(module, name + "_plain")
+    kernel = getattr(module, name)
+    trials = [("captured", None), ("random", None)]
+    if name == "csr_delivery":
+        trials += [("captured", 0.7), ("random", 0.7)]
+    err = 0.0
+    for trial, deny in trials:
+        a = list(args) if trial == "captured" else randomize_words(args, gen)
+        k2 = dict(kw)
+        if deny is not None:
+            e = args[1].shape[0]
+            k2["link_ok_e"] = (torch.rand(e, generator=gen) < deny).to(args[0].device)
+        ref, got = plain(*a, **k2), kernel(*a, **k2)
+        torch.cuda.synchronize()
+        names = sorted(ref)
+        assert names == sorted(got)
+        err = max(err, max_abs_err([ref[x] for x in names], [got[x] for x in names]))
+    res = kernel(*args, **kw)
+    if name == "csr_delivery":
+        # what the kernel reads: the peer and edge planes, col, eperm, row_ptr
+        reads = [*args[:9], args[10], args[14]]
+        e, w = args[1].shape
+        ops = 12 * e * w
+    else:
+        reads = list(args)
+        n, w = args[0].shape
+        ops = 12 * n * len(kw["offsets"]) * w
+    io = nbytes(*reads, *res.values())
+    return err, io, ops
+
+
+def flood_run(sweep, convert, module, name, spec, card, gen, dev):
+    """Phases 6 and 7: one FloodSub configuration at full size. Its kernel
+    against the plain version on a real round's inputs, then the main path:
+    80 rounds from a fresh state with the launch counter set to 0 just
+    before and read just after. Returns the kernel's record."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.state import SimState
+
+    n = spec["n"]
+    st, step = sweep.build_floodsub(n, M_SLOTS, graph=spec["graph"], layout=spec["layout"],
+                                    device=dev)
+    net = step.net
+    say(f"floodsub {spec['graph']}/{spec['layout']} N={n} K={net.max_degree} "
+        f"E={net.n_edges if net.n_edges is not None else n * net.max_degree}: "
+        f"host set-up {step.setup_seconds:.3f} s")
+    po, pt, pv = sweep.publish_schedule(FLOOD_ROUNDS, n, 1, None)
+    st = sweep.run_rounds(st, step, po[:8], pt[:8], pv[:8])
+    sched = [torch.as_tensor(a[8], device=dev) for a in (po, pt, pv)]
+    st, captured = capture_round(lambda s: step(s, *sched), st, module, (name,))
+    args, kw = captured[name]
+    err, io, ops = check_flood_kernel(module, name, args, kw, gen)
+    rec = {
+        "name": name, "route": "cuda", "source": DELIVERY_SOURCE,
+        "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+        "ms": time_ms(lambda: getattr(module, name)(*args, **kw)),
+        "plain_ms": time_ms(lambda: getattr(module, name + "_plain")(*args, **kw)),
+        **bound(io, ops), "library_ms": None,
+    }
+    say(f"kernel {name}: exact (max_abs_err {err}) kernel_ms={rec['ms']:.6f} "
+        f"plain_ms={rec['plain_ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
+        f"({rec['bound_by']}, {io} bytes moved) library_ms=null")
+    del st, captured, args
+
+    # the main path: 80 rounds from a fresh state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st = SimState.init(n, M_SLOTS, k=net.max_degree, device=dev, n_edges=net.n_edges)
+    module.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = sweep.run_rounds(st, step, po, pt, pv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec["launches"] = module.LAUNCHES[name]
+    if rec["launches"] != FLOOD_ROUNDS or int(st.tick) != FLOOD_ROUNDS:
+        raise AssertionError(f"{name} launched {rec['launches']} times in {FLOOD_ROUNDS} rounds")
+    if bool(((st.dlv.fwd & ~st.dlv.have) != 0).any()):
+        raise AssertionError("fwd is not a subset of have")
+    reach = (st.dlv.first_round >= 0).sum(0)
+    born = st.msgs.birth
+    old = (born >= 0) & (born <= FLOOD_ROUNDS - 4)
+    if not bool(old.any()) or not bool((reach[old] > 1).all()):
+        raise AssertionError("a message published 4+ rounds ago reached only its origin")
+    peak = torch.cuda.max_memory_allocated()
+    leaves = convert.state_leaves(st)
+    state_bytes = sum(a.nbytes for a in leaves.values())
+    say(f"floodsub {spec['graph']}/{spec['layout']} N={n}: {FLOOD_ROUNDS} rounds, "
+        f"{name} launches {rec['launches']}, fwd subset of have, old messages past "
+        f"their origin (median reach {int(reach[old].median())} peers); events "
+        f"{leaves['.events'][:9].tolist()}")
+    say(f"floodsub {spec['graph']}/{spec['layout']} rate: {FLOOD_ROUNDS / dt:.3f} rounds/s "
+        f"({1e3 * dt / FLOOD_ROUNDS:.3f} ms/round), peak memory {peak} bytes "
+        f"({peak / 2**20:.1f} MiB), state {state_bytes} bytes, on {card}")
+    return rec
+
+
+def flood_parity(sweep, convert, spec):
+    """Phase 8: FloodSub from the same seed on the card and on the CPU
+    (plain versions) at N=8192, every leaf equal after every round."""
+    po, pt, pv = sweep.publish_schedule(PARITY_ROUNDS, N_PARITY, 1, None, seed=5)
+    sides = {d: sweep.build_floodsub(N_PARITY, M_SLOTS, device=d, **spec)
+             for d in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    for r in range(PARITY_ROUNDS):
+        for d, (s, stp) in list(sides.items()):
+            sides[d] = (sweep.run_rounds(s, stp, po[r:r + 1], pt[r:r + 1], pv[r:r + 1]), stp)
+        leaves_equal(convert.state_leaves(sides["cpu"][0]),
+                     convert.state_leaves(sides["cuda"][0]), f"round {r}")
+    ev = convert.state_leaves(sides["cuda"][0])[".events"]
+    say(f"floodsub {spec['graph']}/{spec['layout']} card == CPU: every leaf equal after "
+        f"each of {PARITY_ROUNDS} rounds at N={N_PARITY} "
+        f"({time.perf_counter() - t0:.1f} s; events {ev[:9].tolist()})")
 
 
 def leaves_equal(a: dict, b: dict, where: str):
@@ -261,15 +404,17 @@ def main() -> int:
         f"{sys.version.split()[0]} device {name} count {torch.cuda.device_count()}")
     say(card)
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    built = kernels.build("fused_round")
-    kernels.load("fused_round")
-    say(f"build: fused_round.cu nvcc {built['seconds']:.2f} s "
-        f"(phase {time.perf_counter() - t0:.2f} s) -> {kernels.library_path('fused_round')}")
-    for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            say("  " + line.strip())
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = dict(zip(KERNEL_SOURCES, pool.map(kernels.build, KERNEL_SOURCES)))
+    for src, built in builds.items():
+        kernels.load(src)
+        say(f"build: {src}.cu nvcc {built['seconds']:.2f} s -> {kernels.library_path(src)}")
+        for line in built["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                say("  " + line.strip())
+    say(f"build phase {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels at the main path's shapes, inputs from a real round
     st, step, n_topics, honest = sweep.build_bench(N_FULL, M_SLOTS, device=dev)
@@ -339,6 +484,17 @@ def main() -> int:
     ev = convert.state_leaves(sides["cuda"][0])[".core.events"]
     say(f"card == CPU: every leaf equal after each of {PARITY_ROUNDS} rounds at "
         f"N={N_PARITY} ({time.perf_counter() - t0:.1f} s; events {ev.tolist()})")
+
+    # 6-8. FloodSub over the shared delivery core, both layouts
+    from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
+    from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
+
+    records.append(flood_run(sweep, convert, db, "delivery_banded", dict(
+        n=N_FULL, graph="lattice", layout="dense"), card, gen, dev))
+    records.append(flood_run(sweep, convert, cd, "csr_delivery", dict(
+        n=N_CSR, graph="powerlaw", layout="csr"), card, gen, dev))
+    for kw in (dict(graph="lattice", layout="dense"), dict(graph="powerlaw", layout="csr")):
+        flood_parity(sweep, convert, kw)
 
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,9 +1,11 @@
-"""Carry a GossipSub state between the JAX package and the port.
+"""Carry a state between the JAX package and the port: a GossipSub state,
+or the router-agnostic ``SimState`` FloodSub steps (dense or CSR-resident).
 
 Leaves are keyed by their STATE_SCHEMA.json path (``.core.dlv.have``,
-``.score.bp``, ...) and held as numpy arrays with the JAX package's dtypes:
-word planes are ``uint32`` (the port stores the same bits as int32) and
-``.core.key`` is the key's two ``uint32`` words (its ``key_data``).
+``.score.bp``, ... for GossipSub; ``.dlv.have``, ``.msgs.origin``, ... for a
+``SimState``) and held as numpy arrays with the JAX package's dtypes: word
+planes are ``uint32`` (the port stores the same bits as int32) and the key
+is its two ``uint32`` words (its ``key_data``).
 """
 
 from __future__ import annotations
@@ -19,17 +21,17 @@ from .score.gater import GaterState
 from .state import Delivery, MsgTable, SimState, resolve_device
 
 #: packed 32-bit word planes (uint32 in the JAX package, int32 here)
+_SIM_WORDS = (".dlv.have", ".dlv.fwd", ".dlv.fe_words")
 WORD_LEAVES = frozenset({
-    ".core.dlv.have", ".core.dlv.fwd", ".core.dlv.fe_words", ".mcache",
+    *_SIM_WORDS, *(".core" + p for p in _SIM_WORDS), ".mcache",
     ".ihave_out", ".iwant_out", ".served_lo", ".served_hi",
 })
-KEY_LEAF = ".core.key"
+KEY_LEAVES = frozenset({".key", ".core.key"})
 
+_SIM_NESTED = {"": SimState, ".msgs": MsgTable, ".dlv": Delivery}
 _NESTED = {
     "": GossipSubState,
-    ".core": SimState,
-    ".core.msgs": MsgTable,
-    ".core.dlv": Delivery,
+    **{".core" + p: cls for p, cls in _SIM_NESTED.items()},
     ".score": ScoreState,
     ".gater": GaterState,
 }
@@ -37,30 +39,32 @@ _NESTED = {
 
 def _to_tensor(path: str, a, device) -> torch.Tensor:
     a = np.asarray(a)
-    if path == KEY_LEAF:
+    if path in KEY_LEAVES:
         return torch.as_tensor(a.astype(np.int64), device=device)
     if path in WORD_LEAVES:
         a = a.astype(np.uint32).view(np.int32)
     return torch.as_tensor(np.array(a, copy=True), device=device)
 
 
-def state_from_reference(leaves: dict, device=None) -> GossipSubState:
-    """A port state from the JAX state's leaves (every schema path of the
-    gossipsub manifest must be present)."""
+def state_from_reference(leaves: dict, device=None):
+    """A port state from the JAX state's leaves: a ``GossipSubState`` when
+    they are a GossipSub state's (``.core.*`` paths), else a ``SimState``.
+    Every field must be present."""
     dev = resolve_device(device)
+    nested = _NESTED if any(p.startswith(".core.") for p in leaves) else _SIM_NESTED
 
     def build(prefix):
-        cls = _NESTED[prefix]
+        cls = nested[prefix]
         kw = {}
         for f in dataclasses.fields(cls):
             p = f"{prefix}.{f.name}"
-            kw[f.name] = build(p) if p in _NESTED else _to_tensor(p, leaves[p], dev)
+            kw[f.name] = build(p) if p in nested else _to_tensor(p, leaves[p], dev)
         return cls(**kw)
 
     return build("")
 
 
-def state_leaves(st: GossipSubState) -> dict:
+def state_leaves(st) -> dict:
     """The port state's leaves as numpy arrays with the JAX dtypes."""
     out = {}
 
@@ -74,7 +78,7 @@ def state_leaves(st: GossipSubState) -> dict:
             a = v.detach().cpu().numpy()
             if p in WORD_LEAVES:
                 a = a.view(np.uint32)
-            elif p == KEY_LEAF:
+            elif p in KEY_LEAVES:
                 a = a.astype(np.uint32)
             out[p] = a
 

@@ -1,5 +1,5 @@
 """Static topology builders (the port's own copy of the JAX package's
-``graph.py``, trimmed to the builders the per-round step needs).
+``graph.py``, trimmed to the builders the ported engines need).
 
 The reference wires real libp2p hosts with topology helpers `connect` /
 `sparseConnect` (3 random links) / `denseConnect` (10) / `connectAll`
@@ -165,6 +165,16 @@ def ring_lattice(n: int, d: int, max_degree: int | None = None) -> Topology:
         nbr=nbr, nbr_ok=nbr >= 0, rev=rev, outbound=outb,
         degree=np.full((n,), 2 * d, np.int32),
     )
+
+
+def from_edges(n: int, edges, max_degree: int | None = None) -> Topology:
+    """Explicit dialed-edge list [(dialer, dialee), ...] — the analogue of
+    the reference tests' hand-wired `connect(t, hosts[a], hosts[b])`
+    sequences (e.g. gossipsub_test.go:903-911)."""
+    dialed: list[set[int]] = [set() for _ in range(n)]
+    for a, b in edges:
+        dialed[a].add(b)
+    return _from_edge_lists(n, dialed, max_degree)
 
 
 # ---------------------------------------------------------------------------

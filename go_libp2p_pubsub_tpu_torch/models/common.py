@@ -1,8 +1,22 @@
-"""Shared delivery observables and per-message word masks.
+"""Shared delivery engine: one synchronous message-propagation round, and
+the delivery observables every router reports.
 
-The transmit tensor ``trans[N, K, W]`` (packed words) is the round's wire
-traffic; popcounts of it give the SendRPC/RecvRPC trace counters, and the
-score engine consumes it for delivery attribution.
+All routers share ``delivery_round``; they differ only in *which edges
+carry* a message (flood: every topic edge, floodsub.go:76-100; gossipsub:
+mesh/fanout edges; randomsub: a random subset chosen at publish). Each
+receiver j reads its senders' forward sets and applies edge/topic masks;
+the transmit tensor ``trans[N, K, W]`` (packed words) *is* the round's wire
+traffic, and popcounts of it give the SendRPC/RecvRPC trace counters.
+
+``delivery_round`` takes one of four forms, by the Net and the state:
+
+* banded dense (``net.band_off`` set): the ``delivery_banded`` kernel;
+* any other dense topology: the plain composite below;
+* CSR with a dense-resident ``[N, K, W]`` first-arrival plane: the flat
+  gathers, unpacked to the dense transmit tensor, then ``finish_delivery``;
+* CSR-resident (flat ``[E, W]`` plane): the ``csr_delivery`` kernel, whose
+  ``RoundInfo.trans`` is the flat ``[E, W]`` plane (popcount-equal to the
+  dense form: absent slots carry nothing either way).
 """
 
 from __future__ import annotations
@@ -12,20 +26,43 @@ import dataclasses
 import torch
 
 from ..ops import bitset
-from ..state import MsgTable, Net
+from ..ops import csr_delivery as cd
+from ..ops import delivery_banded as db
+from ..state import Delivery, MsgTable, Net, replace
 from ..trace.events import EV, add_event
 
 
 @dataclasses.dataclass
 class RoundInfo:
-    """Per-round delivery observables consumed by tracing and scoring."""
+    """Per-round delivery observables consumed by tracing and scoring.
+
+    With inline validation (the only form ported) the entry and validated
+    cohorts coincide: ``recv_new_words`` is ``new_words``."""
 
     trans: torch.Tensor        # [N, K, W] words transmitted to j on edge k
-    new_words: torch.Tensor    # [N, W] first receipts this round
+                               # (flat [E, W] on a CSR-resident round)
+    new_words: torch.Tensor    # [N, W] receipts validated this round
     n_deliver: torch.Tensor    # i32 receipts of valid messages
     n_reject: torch.Tensor     # i32 receipts of invalid messages
     n_duplicate: torch.Tensor  # i32 arrivals beyond the first
     n_rpc: torch.Tensor        # i32 total (edge, msg) transmissions
+    recv_new_words: torch.Tensor | None = None  # [N, W] first receipts
+    n_drop: torch.Tensor | int = 0  # transmissions lost to the queue cap
+    msg_slots: int | None = None    # M, the width new_bits unpacks to
+
+    def __post_init__(self):
+        if self.recv_new_words is None:
+            self.recv_new_words = self.new_words
+
+    @property
+    def new_bits(self) -> torch.Tensor:
+        """[N, M] bool: ``new_words`` unpacked. Derived on demand rather
+        than stored: the unpack writes an [N, W, 32] plane each round that
+        few consumers read."""
+        m = self.msg_slots
+        if m is None:
+            m = self.new_words.shape[-1] * bitset.WORD
+        return bitset.unpack(self.new_words, m)
 
 
 def member_msg_words(member: torch.Tensor, msg_topic: torch.Tensor) -> torch.Tensor:
@@ -58,6 +95,161 @@ def origin_msg_words(net: Net, msgs: MsgTable) -> torch.Tensor:
     return bitset.to_word(flat[: n * w]).reshape(n, w)
 
 
+def _refuse_unported(forward_mask, queue_cap: int, val_delay_topic) -> None:
+    checks = [
+        (forward_mask is not None, "forward_mask (the gossipsub forward gate on "
+                                   "the shared core) — ROADMAP §1 item 7"),
+        (queue_cap > 0, "queue_cap > 0 (outbound-queue backpressure, "
+                        "bitset.keep_lowest_bits) — ROADMAP §1 item 7"),
+        (val_delay_topic is not None, "the async-validation pipeline — "
+                                      "ROADMAP §1 item 4"),
+    ]
+    for bad, what in checks:
+        if bad:
+            raise NotImplementedError(f"not ported yet: {what}")
+
+
+def delivery_round(net: Net, msgs: MsgTable, dlv: Delivery,
+                   edge_mask: torch.Tensor, tick: torch.Tensor,
+                   forward_mask: torch.Tensor | None = None,
+                   count_events: bool = True, queue_cap: int = 0,
+                   val_delay_topic: tuple | None = None):
+    """Advance one propagation round: transmit every sender's ``fwd`` set
+    along permitted edges (``edge_mask[N, K, W]``: words edge (j, k) may
+    carry j-ward), dedup against the seen-cache, record first receipts.
+
+    Per receiver j, edge k (sender s = nbr[j, k]):
+      trans = fwd[s] & not-echo(s->j) & edge_mask & not-mine(j)
+    where echo excludes the edge a message first arrived on at s (the
+    source exclusion, floodsub.go:85-86) and not-mine the origin. Messages
+    are marked seen whether valid or not (validation.go:285-293); only
+    valid ones are re-forwarded (validation.go:309-351).
+
+    Returns (Delivery, RoundInfo). The gossipsub forward gate, the queue
+    cap and the validation pipeline raise ``NotImplementedError``."""
+    _refuse_unported(forward_mask, queue_cap, val_delay_topic)
+    n, k = net.nbr.shape
+    if dlv.fe_words.dim() == 2:
+        if net.edge_layout != "csr" or dlv.fe_words.shape[0] != net.n_edges:
+            raise ValueError(
+                "flat fe_words needs a matching edge_layout='csr' Net "
+                f"({dlv.fe_words.shape[0]} != E={net.n_edges})")
+    elif dlv.fe_words.shape[1] != k:
+        raise ValueError(
+            "Delivery.fe_words edge axis does not match the topology's "
+            f"max_degree ({dlv.fe_words.shape[1]} != {k}) — construct the "
+            "state with SimState.init(..., k=net.max_degree)")
+    m = msgs.capacity
+    w = bitset.n_words(m)
+    valid_words = bitset.pack(msgs.valid)
+    not_mine = ~origin_msg_words(net, msgs)  # [N, W]
+
+    if net.band_off is not None:
+        ok = torch.where(net.nbr_ok[..., None], bitset.ALL, 0).to(torch.int32)
+        res = db.delivery_banded(
+            dlv.fwd, dlv.fe_words.reshape(n, k * w),
+            (edge_mask & ok).reshape(n, k * w), not_mine, dlv.have,
+            dlv.first_round, valid_words[None, :], tick,
+            offsets=net.band_off, revs=net.band_rev, w=w)
+        dlv = replace(dlv, have=res["have"], fwd=res["fwd"],
+                      first_round=res["first_round"],
+                      fe_words=res["fe"].reshape(n, k, w))
+        return dlv, _round_info(res["trans"].reshape(n, k, w), res["new"], m,
+                                valid_words, count_events)
+
+    if net.edge_layout == "csr":
+        mask_e = net.pack_edges(edge_mask)
+        if dlv.fe_words.dim() == 2:
+            # CSR-resident: the whole round over the flat edge space; the
+            # dense [N, K, W] transmit tensor never exists. Every row segment
+            # is bounded by K in both the fused and the unfused build.
+            res = cd.csr_delivery(
+                dlv.fwd, dlv.fe_words, mask_e, not_mine, dlv.have,
+                dlv.first_round, valid_words[None, :], tick, net.csr_col,
+                net.csr_row, net.csr_eperm, net.csr_seg_start,
+                net.csr_row_last, net.csr_row_nonempty, net.csr_row_ptr,
+                cap=k)
+            return _commit_flat_result(dlv, res, m, valid_words, count_events)
+        trans_e = (net.peer_gather_flat(dlv.fwd)
+                   & ~net.edge_gather_flat(net.pack_edges(dlv.fe_words))
+                   & mask_e & net.owner_gather(not_mine))
+        return finish_delivery(net, msgs, dlv, net.unpack_edges(trans_e), tick,
+                               count_events=count_events)
+
+    ok = torch.where(net.nbr_ok[..., None], bitset.ALL, 0).to(torch.int32)
+    trans = (net.peer_gather(dlv.fwd) & ~net.edge_gather(dlv.fe_words)
+             & edge_mask & ok & not_mine[:, None, :])
+    return finish_delivery(net, msgs, dlv, trans, tick, count_events=count_events)
+
+
+def finish_delivery(net: Net, msgs: MsgTable, dlv: Delivery,
+                    trans: torch.Tensor, tick: torch.Tensor,
+                    forward_mask: torch.Tensor | None = None,
+                    count_events: bool = True, queue_cap: int = 0,
+                    val_delay_topic: tuple | None = None):
+    """Commit a computed ``[N, K, W]`` transmit tensor: seen-cache dedup,
+    first-arrival attribution (lowest edge slot carrying each new bit),
+    forward-set update. The shared tail of ``delivery_round``'s composite
+    forms."""
+    _refuse_unported(forward_mask, queue_cap, val_delay_topic)
+    m = msgs.capacity
+    new = bitset.word_or_reduce(trans, 1) & ~dlv.have
+    fa = bitset.first_set_per_bit(trans, 1) & new[:, None, :]
+    valid_words = bitset.pack(msgs.valid)
+    dlv = replace(
+        dlv,
+        have=dlv.have | new,
+        fwd=new & valid_words[None, :],
+        first_round=torch.where(bitset.unpack(new, m), tick, dlv.first_round),
+        # overwrite (not OR) on new receipts, so stale bits cannot survive
+        # a slot whose message is received again after a recycle
+        fe_words=(dlv.fe_words & ~new[:, None, :]) | fa,
+    )
+    return dlv, _round_info(trans, new, m, valid_words, count_events)
+
+
+def finish_delivery_flat(net: Net, msgs: MsgTable, dlv: Delivery,
+                         trans_e: torch.Tensor, tick: torch.Tensor,
+                         forward_mask: torch.Tensor | None = None,
+                         count_events: bool = True, queue_cap: int = 0,
+                         val_delay_topic: tuple | None = None):
+    """The CSR-resident commit of a computed flat ``[E, W]`` transmit
+    plane: the per-peer receive OR and the first-arrival isolation fall
+    out of one segmented prefix OR over the row segments, and the
+    first-arrival plane commits flat. Equal to ``finish_delivery`` on the
+    unpacked tensor; ``RoundInfo.trans`` is the flat plane."""
+    _refuse_unported(forward_mask, queue_cap, val_delay_topic)
+    valid_words = bitset.pack(msgs.valid)
+    res = cd.commit_flat(
+        trans_e, dlv.fe_words, dlv.have, dlv.first_round, valid_words[None, :],
+        tick, net.csr_row, net.csr_seg_start, net.csr_row_last,
+        net.csr_row_nonempty, cap=net.max_degree if net.fused else None)
+    return _commit_flat_result(dlv, res, msgs.capacity, valid_words, count_events)
+
+
+def _commit_flat_result(dlv: Delivery, res: dict, m: int,
+                        valid_words: torch.Tensor, count_events: bool):
+    dlv = replace(dlv, have=res["have"], fwd=res["fwd"],
+                  first_round=res["first_round"], fe_words=res["fe"])
+    return dlv, _round_info(res["trans_e"], res["new"], m, valid_words, count_events)
+
+
+def _round_info(trans, new_words, m, valid_words, count_events=True) -> RoundInfo:
+    """Delivery observables from a round's transmit/new sets. Without
+    event counting (no tracer attached) the popcount reductions are
+    skipped and the counters read 0."""
+    if not count_events:
+        z = torch.zeros((), dtype=torch.int32, device=new_words.device)
+        return RoundInfo(trans=trans, new_words=new_words, n_deliver=z,
+                         n_reject=z, n_duplicate=z, n_rpc=z, msg_slots=m)
+    n_rpc = bitset.popcount(trans).sum(dtype=torch.int32)
+    n_new = bitset.popcount(new_words).sum(dtype=torch.int32)
+    n_deliver = bitset.popcount(new_words & valid_words[None, :]).sum(dtype=torch.int32)
+    return RoundInfo(trans=trans, new_words=new_words, n_deliver=n_deliver,
+                     n_reject=n_new - n_deliver, n_duplicate=n_rpc - n_new,
+                     n_rpc=n_rpc, msg_slots=m)
+
+
 def accumulate_round_events(events: torch.Tensor, info: RoundInfo,
                             n_publish) -> torch.Tensor:
     """Fold a round's delivery observables into the cumulative counters
@@ -67,4 +259,5 @@ def accumulate_round_events(events: torch.Tensor, info: RoundInfo,
     ev = add_event(ev, EV.REJECT_MESSAGE, info.n_reject)
     ev = add_event(ev, EV.DUPLICATE_MESSAGE, info.n_duplicate)
     ev = add_event(ev, EV.SEND_RPC, info.n_rpc)
-    return add_event(ev, EV.RECV_RPC, info.n_rpc)
+    ev = add_event(ev, EV.RECV_RPC, info.n_rpc)
+    return add_event(ev, EV.DROP_RPC, info.n_drop)

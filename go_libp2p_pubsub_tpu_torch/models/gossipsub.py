@@ -594,7 +594,9 @@ def px_connect(cfg: GossipSubConfig, st: GossipSubState) -> torch.Tensor:
 
 def _refuse_unported(cfg: GossipSubConfig, net: Net):
     checks = [
-        (cfg.fused, "cfg.fused=True (sort-form selection) — ROADMAP §1 item 7"),
+        (cfg.fused or net.fused,
+         "cfg.fused=True or a Net.build(fused=True) net (sort-form "
+         "selection) — ROADMAP §1 item 7"),
         (net.band_off is None,
          "a non-banded topology (the XLA-path composites control_exchange, "
          "iwant_responses, gossip_edge_mask, delivery_round, merge_extra_tx) "

@@ -145,6 +145,26 @@ def first_set_per_bit(words: torch.Tensor, dim: int = 1) -> torch.Tensor:
     return torch.stack(outs, dim=dim)
 
 
+def edge_eq_words(first_edge: torch.Tensor, k_dim: int) -> torch.Tensor:
+    """first_edge[N, M] int8 -> [N, K, W] packed: bit m of row (n, k) set
+    iff first_edge[n, m] == k (the packed form of the int8 first-edge
+    plane)."""
+    ks = torch.arange(k_dim, dtype=torch.int8, device=first_edge.device)
+    return pack(first_edge[:, None, :] == ks[None, :, None])
+
+
+def first_edge_of(trans: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """trans int32[N, K, W] -> int8[N, n_bits]: lowest edge slot k whose
+    packed row carries each bit, -1 where no edge carries it."""
+    k_dim = trans.shape[-2]
+    if k_dim > 128:
+        raise ValueError(f"edge slot index must fit int8, got K={k_dim}")
+    bits = unpack(trans, n_bits)  # [N, K, M] bool
+    ks = torch.arange(k_dim, dtype=torch.int8, device=trans.device)[None, :, None]
+    first = torch.where(bits, ks, torch.tensor(127, dtype=torch.int8)).amin(dim=-2)
+    return torch.where(bits.any(dim=-2), first, torch.tensor(-1, dtype=torch.int8))
+
+
 def masked_keep(planes: list, keep: torch.Tensor) -> list:
     """AND the same ``[W]`` keep mask into several ``[N, ..., W]`` planes
     (the recycled-slot clear around ``allocate_publishes``); ``None``

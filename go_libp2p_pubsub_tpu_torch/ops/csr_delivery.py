@@ -1,0 +1,134 @@
+"""The shared delivery round on a CSR-resident state (flat ``[E, W]``
+first-arrival plane), as one Hopper kernel (``csrc/delivery.cu``).
+
+``csr_delivery`` replaces the three ``pallas_call``s of
+``go_libp2p_pubsub_tpu/ops/pallas_csr.py`` ``csr_delivery``:
+
+* the edge phase (``_edge_phase_kernel``): the flat transmit plane
+  ``trans_e = fwd[col] & ~fe[eperm] & mask_e & not_mine[row]``, with the
+  optional chaos link-deny fold ``& link_ok_e``, then a capacity-bounded
+  segmented prefix OR and its exclusive shift;
+* the row phase (``_row_phase_kernel``): ``recv = inc[row_last]`` on
+  non-empty rows, new / have / fwd and the first_round stamp;
+* the edge commit (``_edge_commit_kernel``): ``fa = trans & ~exc &
+  new[row]``, ``fe' = (fe & ~new[row]) | fa``.
+
+Every row segment holds at most K edges (``ops/csr.build_csr``), so the
+kernel gives one thread each (row, word) and walks the row from
+``row_ptr[j]`` to ``row_ptr[j+1]`` twice: once forming ``trans_e`` and its
+running OR, once committing the first arrivals. The segmented scan, and
+the block halo it needed on the TPU, disappear. It is bounded by bytes;
+the source says what it moves.
+
+The wrapper launches the kernel for a CUDA tensor — or raises — and takes
+the plain PyTorch version (``csr_delivery_plain``, the reference's
+composite: flat gathers plus ``ops/csr.segment_or_scan`` with ``cap``)
+only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import bitset, csr, kernels
+
+LAUNCHES = {"csr_delivery": 0}
+
+#: the dict keys of a round's outputs (pallas_csr.csr_delivery's)
+OUTPUTS = ("trans_e", "recv", "new", "have", "fwd", "first_round", "fe", "fa_e")
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["csr_delivery"] = 0
+
+
+def commit_flat(trans_e, fe_e, have, first_round, valid_row, tick, row,
+                seg_start, row_last, row_nonempty, *, cap):
+    """The flat commit of a computed transmit plane: the per-row receive OR
+    and first-arrival isolation from one segmented prefix OR, then the
+    have / fwd / first_round / fe update. Returns the ``OUTPUTS`` dict."""
+    m = first_round.shape[1]
+    inc, exc = csr.segment_or_scan(trans_e, seg_start, cap=cap)
+    recv = torch.where(row_nonempty[:, None], inc[row_last.clamp(min=0)],
+                       torch.zeros((), dtype=inc.dtype, device=inc.device))
+    new = recv & ~have
+    new_e = new[row]
+    fa_e = trans_e & ~exc & new_e
+    return {
+        "trans_e": trans_e,
+        "recv": recv,
+        "new": new,
+        "have": have | new,
+        "fwd": new & valid_row,
+        "first_round": torch.where(bitset.unpack(new, m), tick, first_round),
+        "fe": (fe_e & ~new_e) | fa_e,
+        "fa_e": fa_e,
+    }
+
+
+def csr_delivery_plain(fwd, fe_e, mask_e, not_mine, have, first_round,
+                       valid_row, tick, col, row, eperm, seg_start, row_last,
+                       row_nonempty, row_ptr=None, *, cap, link_ok_e=None):
+    # row_ptr is the kernel's; this version reduces with the segment planes
+    trans_e = fwd[col] & ~fe_e[eperm] & mask_e & not_mine[row]
+    if link_ok_e is not None:
+        trans_e = torch.where(link_ok_e[:, None], trans_e, torch.zeros_like(trans_e))
+    return commit_flat(trans_e, fe_e, have, first_round, valid_row, tick, row,
+                       seg_start, row_last, row_nonempty, cap=cap)
+
+
+def _lib():
+    lib = kernels.load("delivery")
+    if not getattr(lib, "_csr_bound", False):
+        kernels.bind(lib, "csr_delivery_launch", 20, 3)
+        lib._csr_bound = True
+    return lib
+
+
+def csr_delivery(fwd, fe_e, mask_e, not_mine, have, first_round, valid_row,
+                 tick, col, row, eperm, seg_start, row_last, row_nonempty,
+                 row_ptr, *, cap, link_ok_e=None):
+    """One delivery round over the flat edge space. ``fe_e``/``mask_e`` are
+    ``[E, W]``, the peer planes ``[N, W]``, ``valid_row`` ``[1, W]``,
+    ``tick`` a 0-dim int32, ``col``/``row``/``eperm`` ``[E]`` and
+    ``row_ptr`` ``[N+1]`` int32 (the kernel walks rows with ``row_ptr``;
+    the plain version reduces with ``seg_start``/``row_last``/
+    ``row_nonempty`` and the segment bound ``cap``). ``link_ok_e`` is an
+    optional ``[E]`` bool deny mask. Returns the ``OUTPUTS`` dict of fresh
+    tensors."""
+    if not fwd.is_cuda:
+        return csr_delivery_plain(fwd, fe_e, mask_e, not_mine, have, first_round,
+                                  valid_row, tick, col, row, eperm, seg_start,
+                                  row_last, row_nonempty, row_ptr, cap=cap,
+                                  link_ok_e=link_ok_e)
+    dev = fwd.device
+    n, w = fwd.shape
+    e, m = fe_e.shape[0], first_round.shape[1]
+    if n == 0 or bitset.n_words(m) != w:
+        raise ValueError(f"csr_delivery: needs N > 0 and W = ceil(M/32), got "
+                         f"N={n}, M={m}, W={w}")
+    i32 = torch.int32
+    for name, x in (("fe_e", fe_e), ("mask_e", mask_e)):
+        kernels.check(x, name, i32, (e, w), dev)
+    for name, x in (("not_mine", not_mine), ("have", have)):
+        kernels.check(x, name, i32, (n, w), dev)
+    kernels.check(fwd, "fwd", i32, (n, w), dev)
+    kernels.check(first_round, "first_round", i32, (n, m), dev)
+    kernels.check(valid_row, "valid_row", i32, (1, w), dev)
+    kernels.check(tick, "tick", i32, (), dev)
+    for name, x in (("col", col), ("eperm", eperm)):
+        kernels.check(x, name, i32, (e,), dev)
+    kernels.check(row_ptr, "row_ptr", i32, (n + 1,), dev)
+    if link_ok_e is not None:
+        kernels.check(link_ok_e, "link_ok_e", torch.bool, (e,), dev)
+    res = {"trans_e": torch.empty_like(fe_e), "recv": torch.empty_like(fwd),
+           "new": torch.empty_like(fwd), "have": torch.empty_like(fwd),
+           "fwd": torch.empty_like(fwd), "first_round": torch.empty_like(first_round),
+           "fe": torch.empty_like(fe_e), "fa_e": torch.empty_like(fe_e)}
+    ptrs = [kernels.ptr(x) for x in (
+        fwd, fe_e, mask_e, not_mine, have, first_round, valid_row, tick, col,
+        eperm, row_ptr, link_ok_e, *(res[k] for k in OUTPUTS))]
+    err = _lib().csr_delivery_launch(*ptrs, n, w, m, kernels.stream(dev))
+    kernels.raise_on(err, "csr_delivery")
+    LAUNCHES["csr_delivery"] += 1
+    return res

@@ -1,0 +1,102 @@
+"""The shared delivery round on a banded topology, as one Hopper kernel
+(``csrc/delivery.cu``).
+
+``delivery_banded`` replaces the TPU kernel
+``go_libp2p_pubsub_tpu/ops/pallas_delivery.py`` ``delivery_round_banded``
+(``_kernel``): per receiver j and edge k (sender ``(j + off[k]) % N``, which
+holds the edge in slot ``rev[k]``),
+
+    trans = fwd[s] & ~fe[s, rev[k]] & emask[j, k] & not_mine[j]
+
+then the OR over edges deduplicated against the seen-cache, the lowest
+edge carrying each new bit as its first arrival, and the have / fwd /
+first_round / fe commit. It works on the packed ``[N, K, W]`` first-arrival
+plane that ``Delivery`` holds, not the TPU kernel's int8 ``[N, M]`` form
+(which only the TPU compiler needed), and its ``fe'`` is the composite's
+``(fe & ~new) | fa``. It is bounded by bytes; the source says what it
+moves and what the simple design does about it.
+
+The wrapper launches the kernel for a CUDA tensor — or raises — and takes
+the plain PyTorch version (``delivery_banded_plain``) only for a CPU
+tensor. ``LAUNCHES`` counts kernel launches. Reference semantics:
+floodsub.go:76-100 (forward to every topic peer except the source and the
+origin), pubsub.go:1076-1081 (seen-cache dedup).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import bitset, kernels
+from .edges import edge_permute_banded, peer_gather_banded
+
+LAUNCHES = {"delivery_banded": 0}
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["delivery_banded"] = 0
+
+
+def delivery_banded_plain(fwd, fe, emask, not_mine, have, first_round,
+                          valid_row, tick, *, offsets, revs, w):
+    n = fwd.shape[0]
+    k = len(offsets)
+    m = first_round.shape[1]
+    v3 = lambda x: x.reshape(n, k, w)
+    t = (peer_gather_banded(fwd, offsets) & ~edge_permute_banded(v3(fe), offsets, revs)
+         & v3(emask) & not_mine[:, None, :])
+    new = bitset.word_or_reduce(t, 1) & ~have
+    fa = bitset.first_set_per_bit(t, 1) & new[:, None, :]
+    return {
+        "trans": t.reshape(n, k * w),
+        "fe": ((v3(fe) & ~new[:, None, :]) | fa).reshape(n, k * w),
+        "new": new,
+        "have": have | new,
+        "fwd": new & valid_row,
+        "first_round": torch.where(bitset.unpack(new, m), tick, first_round),
+    }
+
+
+def _lib():
+    lib = kernels.load("delivery")
+    if not getattr(lib, "_banded_bound", False):
+        kernels.bind(lib, "delivery_banded_launch", 15, 4)
+        lib._banded_bound = True
+    return lib
+
+
+def delivery_banded(fwd, fe, emask, not_mine, have, first_round, valid_row,
+                    tick, *, offsets, revs, w):
+    """One delivery round on a banded topology. ``fe``/``emask`` are the
+    ``[N, K*W]`` first-arrival and edge-mask planes (the mask already
+    zero on dead edges), ``not_mine`` the ``[N, W]`` words of messages a
+    peer did not originate, ``valid_row`` ``[1, W]``, ``tick`` a 0-dim
+    int32. Returns a dict of fresh tensors: trans, fe ``[N, K*W]``; new,
+    have, fwd ``[N, W]``; first_round ``[N, M]``."""
+    if not fwd.is_cuda:
+        return delivery_banded_plain(fwd, fe, emask, not_mine, have, first_round,
+                                     valid_row, tick, offsets=offsets, revs=revs, w=w)
+    dev = fwd.device
+    n, k, m = fwd.shape[0], len(offsets), first_round.shape[1]
+    if k == 0 or n == 0 or bitset.n_words(m) != w:
+        raise ValueError(f"delivery_banded: needs K > 0, N > 0 and W = ceil(M/32), "
+                         f"got K={k}, N={n}, M={m}, W={w}")
+    i32 = torch.int32
+    for name, x in (("fe", fe), ("emask", emask)):
+        kernels.check(x, name, i32, (n, k * w), dev)
+    for name, x in (("fwd", fwd), ("not_mine", not_mine), ("have", have)):
+        kernels.check(x, name, i32, (n, w), dev)
+    kernels.check(first_round, "first_round", i32, (n, m), dev)
+    kernels.check(valid_row, "valid_row", i32, (1, w), dev)
+    kernels.check(tick, "tick", i32, (), dev)
+    res = {"trans": torch.empty_like(fe), "fe": torch.empty_like(fe),
+           "new": torch.empty_like(fwd), "have": torch.empty_like(fwd),
+           "fwd": torch.empty_like(fwd), "first_round": torch.empty_like(first_round)}
+    ptrs = [kernels.ptr(x) for x in (
+        fwd, fe, emask, not_mine, have, first_round, valid_row, tick,
+        kernels.offrev(offsets, revs, dev), res["trans"], res["fe"], res["new"],
+        res["have"], res["fwd"], res["first_round"])]
+    err = _lib().delivery_banded_launch(*ptrs, n, k, w, m, kernels.stream(dev))
+    kernels.raise_on(err, "delivery_banded")
+    LAUNCHES["delivery_banded"] += 1
+    return res

@@ -27,8 +27,6 @@ piggyback).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import bitset, kernels
@@ -154,59 +152,19 @@ def fused_delivery_plain(carry_out, fe_words, fwd, mcache_win, nbr_score,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_CONSTS: dict = {}
-
-
 def _lib():
     lib = kernels.load("fused_round")
     if not getattr(lib, "_pubsub_bound", False):
-        lib.edge_exchange_launch.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-        lib.edge_exchange_launch.restype = _I
-        lib.fused_delivery_launch.argtypes = [_P] * 24 + [_I] * 6 + [_P]
-        lib.fused_delivery_launch.restype = _I
+        kernels.bind(lib, "edge_exchange_launch", 6, 4)
+        kernels.bind(lib, "fused_delivery_launch", 24, 6)
         lib._pubsub_bound = True
     return lib
 
 
-def _const(key, make):
-    got = _CONSTS.get(key)
-    if got is None:
-        got = _CONSTS[key] = make()
-    return got
-
-
-def _offrev(offsets, revs, device) -> torch.Tensor:
-    return _const(("offrev", tuple(offsets), tuple(revs), str(device)),
-                  lambda: torch.tensor(list(offsets) + list(revs),
-                                       dtype=torch.int32, device=device))
-
-
 def _thr_row(gossip_thr, publish_thr, device) -> torch.Tensor:
     g, p = float(gossip_thr), float(publish_thr)
-    return _const(("thr", g, p, str(device)),
-                  lambda: torch.tensor([g, p], dtype=torch.float32, device=device))
-
-
-def _check(t, name, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return kernels.const(("thr", g, p, str(device)),
+                         lambda: torch.tensor([g, p], dtype=torch.float32, device=device))
 
 
 def _check_k(k: int, n: int):
@@ -227,19 +185,19 @@ def edge_exchange(wire_pack, scores, live_u32, *, offsets, revs, c,
     dev = wire_pack.device
     n, k = wire_pack.shape[0], len(offsets)
     _check_k(k, n)
-    _check(wire_pack, "wire_pack", torch.int32, (n, k * c), dev)
-    _check(live_u32, "live_u32", torch.int32, (n, k), dev)
+    kernels.check(wire_pack, "wire_pack", torch.int32, (n, k * c), dev)
+    kernels.check(live_u32, "live_u32", torch.int32, (n, k), dev)
     if score_enabled:
-        _check(scores, "scores", torch.float32, (n, k), dev)
+        kernels.check(scores, "scores", torch.float32, (n, k), dev)
     wire_out = torch.empty_like(wire_pack)
     score_out = (torch.empty((n, k), dtype=torch.float32, device=dev)
                  if score_enabled else None)
-    err = _lib().edge_exchange_launch(
-        _ptr(wire_pack), _ptr(scores) if score_enabled else None,
-        _ptr(live_u32), _ptr(_offrev(offsets, revs, dev)),
-        _ptr(wire_out), _ptr(score_out), n, k, c, int(score_enabled),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "edge_exchange")
+    ptrs = [kernels.ptr(t) for t in (
+        wire_pack, scores if score_enabled else None, live_u32,
+        kernels.offrev(offsets, revs, dev), wire_out, score_out)]
+    err = _lib().edge_exchange_launch(*ptrs, n, k, c, int(score_enabled),
+                                      kernels.stream(dev))
+    kernels.raise_on(err, "edge_exchange")
     LAUNCHES["edge_exchange"] += 1
     return wire_out, score_out
 
@@ -267,14 +225,14 @@ def fused_delivery(carry_out, fe_words, fwd, mcache_win, nbr_score, asked,
     for name, t in (("carry_out", carry_out), ("fe_words", fe_words),
                     ("asked", asked), ("served_lo", served_lo),
                     ("served_hi", served_hi)):
-        _check(t, name, i32, (n, kw), dev)
+        kernels.check(t, name, i32, (n, kw), dev)
     for name, t in (("fwd", fwd), ("mcache_win", mcache_win), ("have", have),
                     ("origin_w", origin_w), ("joined_w", joined_w)):
-        _check(t, name, i32, (n, w), dev)
-    _check(flags, "flags", i32, (n, k), dev)
-    _check(valid_row, "valid_row", i32, (1, w), dev)
+        kernels.check(t, name, i32, (n, w), dev)
+    kernels.check(flags, "flags", i32, (n, k), dev)
+    kernels.check(valid_row, "valid_row", i32, (1, w), dev)
     if score_enabled:
-        _check(nbr_score, "nbr_score", torch.float32, (n, k), dev)
+        kernels.check(nbr_score, "nbr_score", torch.float32, (n, k), dev)
     plane = lambda: torch.empty((n, kw), dtype=i32, device=dev)
     row = lambda: torch.empty((n, w), dtype=i32, device=dev)
     res = {"trans": plane(), "fe": plane(), "served_lo": plane(),
@@ -282,18 +240,15 @@ def fused_delivery(carry_out, fe_words, fwd, mcache_win, nbr_score, asked,
     if want_cohorts:
         res["mesh_trans"] = plane()
         res["extra"] = plane()
+    ptrs = [kernels.ptr(t) for t in (
+        carry_out, fe_words, fwd, mcache_win, nbr_score if score_enabled else None,
+        asked, served_lo, served_hi, flags, have, origin_w, joined_w, valid_row,
+        _thr_row(gossip_thr, publish_thr, dev), kernels.offrev(offsets, revs, dev),
+        res["trans"], res["fe"], res["served_lo"], res["served_hi"], res["new"],
+        res["have"], res["fwd"], res.get("mesh_trans"), res.get("extra"))]
     err = _lib().fused_delivery_launch(
-        _ptr(carry_out), _ptr(fe_words), _ptr(fwd), _ptr(mcache_win),
-        _ptr(nbr_score) if score_enabled else None, _ptr(asked),
-        _ptr(served_lo), _ptr(served_hi), _ptr(flags), _ptr(have),
-        _ptr(origin_w), _ptr(joined_w), _ptr(valid_row),
-        _ptr(_thr_row(gossip_thr, publish_thr, dev)),
-        _ptr(_offrev(offsets, revs, dev)),
-        _ptr(res["trans"]), _ptr(res["fe"]), _ptr(res["served_lo"]),
-        _ptr(res["served_hi"]), _ptr(res["new"]), _ptr(res["have"]),
-        _ptr(res["fwd"]), _ptr(res.get("mesh_trans")), _ptr(res.get("extra")),
-        n, k, w, int(score_enabled), int(want_cohorts), int(retrans_cap),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "fused_delivery")
+        *ptrs, n, k, w, int(score_enabled), int(want_cohorts), int(retrans_cap),
+        kernels.stream(dev))
+    kernels.raise_on(err, "fused_delivery")
     LAUNCHES["fused_delivery"] += 1
     return res

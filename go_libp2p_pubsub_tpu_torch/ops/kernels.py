@@ -18,12 +18,15 @@ import subprocess
 import threading
 import time
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_CONSTS: dict = {}
 _LOCK = threading.Lock()
 
 
@@ -72,3 +75,58 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def bind(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int):
+    """``lib.fn`` with its ctypes signature set: ``n_ptr`` pointers, then
+    ``n_int`` ints, then the stream; it returns a CUDA error code."""
+    f = getattr(lib, fn)
+    f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this dtype and shape on
+    ``device``: the kernels take exactly that."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(t):
+    """A tensor's device address for ctypes (None passes a null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream(device) -> int:
+    """The handle of PyTorch's current stream on ``device``: kernels launch
+    there and never synchronise."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def const(key, make):
+    """A small device tensor made once per ``key`` and kept (kernel
+    arguments that are fixed per topology or config)."""
+    got = _CONSTS.get(key)
+    if got is None:
+        got = _CONSTS[key] = make()
+    return got
+
+
+def offrev(offsets, revs, device):
+    """The banded kernels' int32 ``[2K]`` array: ring offsets, then the
+    reverse slots."""
+    return const(("offrev", tuple(offsets), tuple(revs), str(device)),
+                 lambda: torch.tensor(list(offsets) + list(revs),
+                                      dtype=torch.int32, device=device))
+
+
+def raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

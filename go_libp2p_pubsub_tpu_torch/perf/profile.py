@@ -1,9 +1,13 @@
-"""Where a round of the slice spends its time on the card.
+"""Where a round spends its time on the card.
 
     python -m go_libp2p_pubsub_tpu_torch.perf.profile [--n 100000]
+        [--engine gossipsub|floodsub] [--layout dense|csr]
         [--warm 16] [--rounds 16] [--out PATH]
 
-Builds the bench's default config on the card, runs ``--warm`` rounds,
+Builds the bench's default GossipSub config (or, with ``--engine
+floodsub``, FloodSub over ``ring_lattice(n, d=8)`` dense or over the
+power-law graph CSR-resident with ``--layout csr``) on the card, runs
+``--warm`` rounds,
 times ``--rounds`` untraced rounds, then traces ``--rounds`` more with
 ``torch.profiler`` and prints: ms per round untraced and traced, device
 kernel time per round, the device's busy time per round (union of kernel
@@ -45,8 +49,16 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profile_rounds(n: int, warm: int, rounds: int) -> dict:
-    st, step, n_topics, honest = sweep.build_bench(n, 64, device="cuda")
+def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
+                   layout: str = "dense") -> dict:
+    if engine == "gossipsub":
+        if layout != "dense":
+            raise SystemExit("profile: the GossipSub step runs the dense layout only")
+        st, step, n_topics, honest = sweep.build_bench(n, 64, device="cuda")
+    else:
+        graph = "lattice" if layout == "dense" else "powerlaw"
+        st, step = sweep.build_floodsub(n, 64, graph=graph, layout=layout, device="cuda")
+        n_topics, honest = 1, None
     po, pt, pv = sweep.publish_schedule(warm + 2 * rounds, n, n_topics, honest)
     st = sweep.run_rounds(st, step, po[:warm], pt[:warm], pv[:warm])
     torch.cuda.synchronize()
@@ -77,7 +89,7 @@ def profile_rounds(n: int, warm: int, rounds: int) -> dict:
         if e.name.startswith("aten::"):
             host_ops[e.name] = host_ops.get(e.name, 0) + 1
     return {
-        "n_peers": n, "rounds": rounds,
+        "engine": engine, "layout": layout, "n_peers": n, "rounds": rounds,
         "host_ms_per_round": wall_us / 1e3 / rounds,
         "untraced_ms_per_round": untraced_us / 1e3 / rounds,
         "device_kernel_ms_per_round": kernel_us / 1e3 / rounds,
@@ -98,6 +110,8 @@ def profile_rounds(n: int, warm: int, rounds: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--engine", choices=("gossipsub", "floodsub"), default="gossipsub")
+    ap.add_argument("--layout", choices=("dense", "csr"), default="dense")
     ap.add_argument("--warm", type=int, default=16)
     ap.add_argument("--rounds", type=int, default=16)
     ap.add_argument("--top", type=int, default=20)
@@ -108,10 +122,10 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    rep = profile_rounds(args.n, args.warm, args.rounds)
+    rep = profile_rounds(args.n, args.warm, args.rounds, args.engine, args.layout)
     rep["card"] = card
     print(card)
-    print(f"N={rep['n_peers']} over {rep['rounds']} rounds: untraced "
+    print(f"{rep['engine']} {rep['layout']} N={rep['n_peers']} over {rep['rounds']} rounds: untraced "
           f"{rep['untraced_ms_per_round']:.3f} ms/round, traced "
           f"{rep['host_ms_per_round']:.3f} ms/round, device kernels "
           f"{rep['device_kernel_ms_per_round']:.3f} ms/round, device busy "

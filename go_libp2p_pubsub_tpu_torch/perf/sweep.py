@@ -1,20 +1,28 @@
-"""Bench workload: the ``default`` configuration of the JAX package's
-``perf/sweep.build_bench`` (GossipSub v1.1, one topic every peer
-subscribes, live scoring, ``ring_lattice(n, d=8)`` so K=16 and banded,
-4 publishes per round) built on the port, and the loop that drives it with
-the bench's publish schedule."""
+"""Bench workloads built on the port, and the loop that drives them with
+the bench's publish schedule:
+
+* ``build_bench`` — the ``default`` configuration of the JAX package's
+  ``perf/sweep.build_bench`` (GossipSub v1.1, one topic every peer
+  subscribes, live scoring, ``ring_lattice(n, d=8)`` so K=16 and banded,
+  4 publishes per round);
+* ``build_floodsub`` — FloodSub on one topic every peer joins, over the
+  same lattice or the capacity-bounded power-law graph, in the dense or
+  the CSR layout."""
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
-from .. import graph
+from .. import graph as graphlib
+from .. import topo
 from ..config import GossipSubParams, PeerScoreParams, PeerScoreThresholds, TopicScoreParams
+from ..models.floodsub import floodsub_step
 from ..models.gossipsub import GossipSubConfig, GossipSubState, make_gossipsub_step
-from ..state import Net, resolve_device
+from ..state import Net, SimState, resolve_device
 
 #: publish batch width of every bench cell ([R, 4] schedules)
 PUBS_PER_ROUND = 4
@@ -50,10 +58,10 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
             f"bench config {config!r} is not ported yet (eth2 needs fanout, "
             "sybil the gater and adversary planes) — ROADMAP §1 items 6-11")
     dev = resolve_device(device)
-    topo = graph.ring_lattice(n_peers, d=8)
+    tp = graphlib.ring_lattice(n_peers, d=8)
     n_topics = 1
-    subs = graph.subscribe_all(n_peers, 1)
-    net = Net.build(topo, subs, device=dev)
+    subs = graphlib.subscribe_all(n_peers, 1)
+    net = Net.build(tp, subs, device=dev)
     params = dataclasses.replace(GossipSubParams(), flood_publish=False)
     _tp, sp = bench_score_params(n_topics)
     cfg = GossipSubConfig.build(params, PeerScoreThresholds(), score_enabled=True)
@@ -61,6 +69,54 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     st = GossipSubState.init(net, msg_slots, cfg, score_params=sp, seed=seed)
     step = make_gossipsub_step(cfg, net, score_params=sp)
     return st, step, n_topics, None
+
+
+#: the power-law graph of the CSR runs: topo.powerlaw's defaults, the
+#: max-degree cap being the padded K
+POWERLAW = dict(exponent=2.2, d_min=2, max_degree=64)
+
+
+@dataclasses.dataclass
+class FloodSubRun:
+    """A built FloodSub workload's step: ``run(state, po, pt, pv)``. Keeps
+    the Net and the host seconds its build took (graph generation,
+    topology and CSR build, upload, state init)."""
+
+    net: Net
+    setup_seconds: float
+
+    def __call__(self, st, pub_origin, pub_topic, pub_valid):
+        return floodsub_step(self.net, st, pub_origin, pub_topic, pub_valid)
+
+
+def build_floodsub(n_peers: int, msg_slots: int, graph: str = "lattice",
+                   layout: str = "dense", resident: bool = True,
+                   seed: int = 0, device=None):
+    """Build (state, step) for FloodSub on one topic every peer joins.
+
+    ``graph``: ``"lattice"`` is ``ring_lattice(n, d=8)`` (K=16,
+    banded when dense); ``"powerlaw"`` is ``topo.powerlaw(n, 2.2, d_min=2,
+    max_degree=64, seed)`` padded to K=64. ``layout="csr"`` builds the
+    flat edge space; with ``resident`` the state keeps its first-arrival
+    plane flat ``[E, W]``, else dense ``[N, K, W]``. ``step.setup_seconds``
+    is the host time of the build."""
+    if graph not in ("lattice", "powerlaw"):
+        raise ValueError(f"graph must be 'lattice' or 'powerlaw', got {graph!r}")
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    if graph == "lattice":
+        tp = graphlib.ring_lattice(n_peers, d=8)
+    else:
+        el = topo.powerlaw(n_peers, seed=seed, **POWERLAW)
+        tp = topo.to_topology(el, max_degree=POWERLAW["max_degree"])
+    net = Net.build(tp, graphlib.subscribe_all(n_peers, 1), edge_layout=layout,
+                    device=dev)
+    n_edges = net.n_edges if layout == "csr" and resident else None
+    st = SimState.init(n_peers, msg_slots, seed=seed, k=net.max_degree,
+                       device=dev, n_edges=n_edges)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return st, FloodSubRun(net, time.perf_counter() - t0)
 
 
 def publish_schedule(n_rounds: int, n_peers: int, n_topics: int,
@@ -77,8 +133,9 @@ def publish_schedule(n_rounds: int, n_peers: int, n_topics: int,
 
 
 def run_rounds(st, step, po, pt, pv):
-    """Drive ``step`` over a publish schedule (uploaded once)."""
-    dev = st.core.tick.device
+    """Drive ``step`` over a publish schedule (uploaded once); ``st`` is a
+    GossipSub state or a ``SimState``."""
+    dev = (st.core if hasattr(st, "core") else st).tick.device
     po_t, pt_t, pv_t = (torch.as_tensor(np.asarray(a), device=dev)
                         for a in (po, pt, pv))
     for r in range(len(po_t)):

@@ -20,7 +20,7 @@ import torch
 
 from . import graph as graphlib
 from . import prng
-from .ops import bitset, edges
+from .ops import bitset, csr, edges
 from .trace.events import zero_counters
 
 
@@ -56,7 +56,9 @@ def tree_map(fn, *trees):
 @dataclasses.dataclass
 class Net:
     """Static network: topology + subscriptions + identity (see graph.py
-    for field semantics). Dense layout only in this slice."""
+    for field semantics), in the dense layout or, with
+    ``edge_layout="csr"``, with the flat edge space of ``ops/csr.py``
+    beside it."""
 
     nbr: torch.Tensor         # [N, K] i32
     nbr_ok: torch.Tensor      # [N, K] bool
@@ -70,13 +72,58 @@ class Net:
     edge_perm: torch.Tensor   # [N, K] i32 flat (nbr*K + rev) involution
     protocol: torch.Tensor    # [N] i8 — 0 floodsub, 1 meshsub/1.0, 2 /1.1
     # banded-regular structure (ops/edges.detect_banded): static; when set,
-    # cross-peer gathers are K static rolls and the fused kernels apply
+    # cross-peer gathers are K static rolls and the banded kernels apply
+    # (never set on a CSR build)
     band_off: tuple | None = None
     band_rev: tuple | None = None
+    # capacity-bounded CSR layout (ops/csr.py), present only when built
+    # with edge_layout="csr"; the flat planes are over the E present edges
+    edge_layout: str = "dense"
+    csr_col: torch.Tensor | None = None           # [E] i32 neighbor per edge
+    csr_row: torch.Tensor | None = None           # [E] i32 owner (sorted)
+    csr_slot: torch.Tensor | None = None          # [E] i32 dense slot
+    csr_eperm: torch.Tensor | None = None         # [E] i32 flat involution
+    csr_e_of_nk: torch.Tensor | None = None       # [N, K] i32, -1 absent
+    csr_row_ptr: torch.Tensor | None = None       # [N+1] i32
+    csr_seg_start: torch.Tensor | None = None     # [E] bool
+    csr_row_last: torch.Tensor | None = None      # [N] i32
+    csr_row_nonempty: torch.Tensor | None = None  # [N] bool
+    # the reference's bandwidth-lean composite set; the CSR delivery
+    # round takes the same kernel either way (every row segment has at
+    # most K edges in both builds), and the GossipSub step refuses it
+    fused: bool = False
 
     @property
     def device(self) -> torch.device:
         return self.nbr.device
+
+    @property
+    def n_edges(self) -> int | None:
+        """Present (directed) edge count E of a CSR build; None on a dense
+        build."""
+        return None if self.csr_col is None else self.csr_col.shape[0]
+
+    # -- flat edge space (edge_layout="csr" only) -------------------------
+
+    def pack_edges(self, x: torch.Tensor) -> torch.Tensor:
+        """[N, K, ...] -> [E, ...]: the present slots, row-major."""
+        return csr.pack_edges(x, self.csr_row, self.csr_slot)
+
+    def unpack_edges(self, x_e: torch.Tensor, fill=None) -> torch.Tensor:
+        """[E, ...] -> [N, K, ...]; absent slots take ``fill`` (zero)."""
+        return csr.unpack_edges(x_e, self.csr_e_of_nk, fill)
+
+    def edge_gather_flat(self, x_e: torch.Tensor) -> torch.Tensor:
+        """The involution on a flat edge plane: out[e] = x_e[eperm[e]]."""
+        return csr.edge_permute_flat(x_e, self.csr_eperm)
+
+    def owner_gather(self, v: torch.Tensor) -> torch.Tensor:
+        """v[N, ...] read at each edge's owner row: out[e] = v[row[e]]."""
+        return v[self.csr_row]
+
+    def peer_gather_flat(self, v: torch.Tensor) -> torch.Tensor:
+        """Flat neighbor view: out[e] = v[col[e]]."""
+        return csr.peer_gather_flat(v, self.csr_col)
 
     def edge_gather(self, x: torch.Tensor) -> torch.Tensor:
         """x[N, K, ...] -> x[nbr[j,k], rev[j,k], ...] (the edge involution);
@@ -99,14 +146,12 @@ class Net:
               protocol: np.ndarray | None = None,
               edge_layout: str = "dense", fused: bool = False,
               device=None) -> "Net":
-        if edge_layout != "dense":
-            raise NotImplementedError(
-                f"edge_layout={edge_layout!r}: the CSR layout is not ported "
-                "yet — ROADMAP §1 item 3 (ops/csr.py)")
-        if fused:
-            raise NotImplementedError(
-                "Net.build(fused=True): the fused composite set is not "
-                "ported yet — ROADMAP §1 item 7")
+        """``edge_layout="csr"`` adds the flat edge space (the
+        reference's static CSR build, without edge-shard padding);
+        ``fused`` is carried as the reference carries it."""
+        if edge_layout not in ("dense", "csr"):
+            raise ValueError(
+                f"edge_layout must be 'dense' or 'csr', got {edge_layout!r}")
         dev = resolve_device(device)
         n = topo.n_peers
         if ip_group is None:
@@ -115,9 +160,29 @@ class Net:
             direct = np.zeros(topo.nbr.shape, bool)
         if protocol is None:
             protocol = np.full((n,), 2, np.int8)
-        band = edges.detect_banded(topo.nbr, topo.rev, topo.nbr_ok)
         t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+        csr_kw: dict = {}
+        if edge_layout == "csr":
+            ct = csr.build_csr(topo.nbr, topo.rev, topo.nbr_ok)
+            i32 = torch.int32
+            csr_kw = dict(
+                csr_col=t(ct.col, i32), csr_row=t(ct.row, i32),
+                csr_slot=t(ct.slot, i32), csr_eperm=t(ct.eperm, i32),
+                csr_e_of_nk=t(ct.e_of_nk, i32),
+                csr_row_ptr=t(ct.row_ptr, i32),
+                csr_seg_start=t(ct.seg_start, torch.bool),
+                csr_row_last=t(ct.row_last, i32),
+                csr_row_nonempty=t(topo.degree > 0, torch.bool),
+            )
+            # the banded fast paths key off band_off; a CSR build never
+            # falls into them
+            band = None
+        else:
+            band = edges.detect_banded(topo.nbr, topo.rev, topo.nbr_ok)
         return cls(
+            edge_layout=edge_layout,
+            fused=bool(fused),
+            **csr_kw,
             nbr=t(topo.nbr, torch.int32),
             nbr_ok=t(topo.nbr_ok, torch.bool),
             rev=t(topo.rev, torch.int32),
@@ -187,16 +252,31 @@ class Delivery:
     have: torch.Tensor         # [N, W] i32 words
     fwd: torch.Tensor          # [N, W] i32 words
     first_round: torch.Tensor  # [N, M] i32
-    fe_words: torch.Tensor     # [N, K, W] i32 words
+    fe_words: torch.Tensor     # [N, K, W] i32 words; [E, W] flat on a
+                               # CSR-resident state (ndim tells them apart)
+
+    @property
+    def first_edge(self) -> torch.Tensor:
+        """[N, M] int8: first-arrival edge slot per message, -1 when none
+        (local publish or never received). Needs the dense plane."""
+        if self.fe_words.dim() == 2:
+            raise ValueError(
+                "first_edge needs the dense [N, K, W] plane, but this state "
+                "is CSR-resident (flat [E, W] fe_words)")
+        return bitset.first_edge_of(self.fe_words, self.first_round.shape[-1])
 
     @classmethod
-    def empty(cls, n: int, m: int, k: int, device) -> "Delivery":
+    def empty(cls, n: int, m: int, k: int, device,
+              n_edges: int | None = None) -> "Delivery":
+        """``n_edges`` selects the CSR-resident first-arrival plane:
+        ``fe_words`` is flat ``[E, W]`` instead of ``[N, K, W]`` (pass
+        ``net.n_edges``, None on a dense build)."""
         w = bitset.n_words(m)
         z = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
         return cls(
             have=z(n, w), fwd=z(n, w),
             first_round=torch.full((n, m), -1, dtype=torch.int32, device=device),
-            fe_words=z(n, k, w),
+            fe_words=z(n, k, w) if n_edges is None else z(n_edges, w),
         )
 
 
@@ -212,13 +292,16 @@ class SimState:
 
     @classmethod
     def init(cls, n_peers: int, msg_slots: int, seed: int = 0, k: int = 0,
-             device=None) -> "SimState":
+             device=None, n_edges: int | None = None) -> "SimState":
+        """``k`` is the topology's padded max degree; ``n_edges`` (pass
+        ``net.n_edges``) selects the CSR-resident ``[E, W]`` first-arrival
+        plane."""
         dev = resolve_device(device)
         return cls(
             tick=torch.zeros((), dtype=torch.int32, device=dev),
             key=prng.key(seed, device=dev),
             msgs=MsgTable.empty(msg_slots, dev),
-            dlv=Delivery.empty(n_peers, msg_slots, k, dev),
+            dlv=Delivery.empty(n_peers, msg_slots, k, dev, n_edges=n_edges),
             events=zero_counters(dev),
         )
 

@@ -150,9 +150,14 @@ def test_unported_options_raise():
     from go_libp2p_pubsub_tpu_torch import graph
     from go_libp2p_pubsub_tpu_torch.state import Net
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Net.build(graph.ring_lattice(N, d=4), graph.subscribe_all(N, 1),
-                  edge_layout="csr", device="cpu")
+    # CSR and fused nets build (FloodSub runs on them); the GossipSub step
+    # refuses them
+    for kw in ({"edge_layout": "csr"}, {"fused": True},
+               {"edge_layout": "csr", "fused": True}):
+        other = Net.build(graph.ring_lattice(N, d=4), graph.subscribe_all(N, 1),
+                          device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmake(tcfg, other, score_params=tsp)
     general = Net.build(graph.random_connect(N, d=3, seed=1),
                         graph.subscribe_all(N, 1), device="cpu")
     with pytest.raises(NotImplementedError, match="non-banded"):

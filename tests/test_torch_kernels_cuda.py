@@ -1,0 +1,103 @@
+"""The FloodSub delivery kernels against their plain versions on the card.
+
+This file imports only the port (no JAX package), so it also runs on a
+machine that has PyTorch with CUDA and nothing of the JAX stack:
+
+    python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Each test skips when no CUDA device is present. The plain versions are
+held against the JAX package on the CPU in tests/test_torch_delivery.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from go_libp2p_pubsub_tpu_torch import graph, topo
+from go_libp2p_pubsub_tpu_torch.ops import bitset
+from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
+from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
+from go_libp2p_pubsub_tpu_torch.state import Net
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+def _words(rng, *shape):
+    return torch.from_numpy(
+        rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32).view(np.int32))
+
+
+def _equal_on_card(plain, kernel, args, kw, cuda, counter, name):
+    ref = plain(*args, **kw)
+    on_card = {k: (v.to(cuda) if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+    counter[name] = 0
+    got = kernel(*[a.to(cuda) for a in args], **on_card)
+    torch.cuda.synchronize()
+    assert counter[name] == 1
+    assert sorted(ref) == sorted(got)
+    for key in ref:
+        assert torch.equal(ref[key], got[key].cpu()), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,m", [(256, 8, 64), (100, 3, 40)])
+def test_delivery_banded_kernel_equals_plain(cuda, n, d, m):
+    net = Net.build(graph.ring_lattice(n, d=d), graph.subscribe_all(n, 1), device="cpu")
+    k, w = net.max_degree, bitset.n_words(m)
+    rng = np.random.default_rng(n + m)
+    args = [_words(rng, n, w), _words(rng, n, k * w), _words(rng, n, k * w),
+            _words(rng, n, w), _words(rng, n, w),
+            torch.from_numpy(rng.integers(-1, 9, size=(n, m)).astype(np.int32)),
+            _words(rng, 1, w), torch.tensor(5, dtype=torch.int32)]
+    _equal_on_card(db.delivery_banded_plain, db.delivery_banded, args,
+                   dict(offsets=net.band_off, revs=net.band_rev, w=w), cuda,
+                   db.LAUNCHES, "delivery_banded")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deny", [False, True])
+def test_csr_delivery_kernel_equals_plain(cuda, deny):
+    n, m = 512, 64
+    net = Net.build(topo.to_topology(topo.powerlaw(n, 2.2, 2, 64, seed=0), max_degree=64),
+                    graph.subscribe_all(n, 1), edge_layout="csr", device="cpu")
+    e, w = net.n_edges, 2
+    rng = np.random.default_rng(22 + deny)
+    args = [_words(rng, n, w), _words(rng, e, w), _words(rng, e, w), _words(rng, n, w),
+            _words(rng, n, w), torch.from_numpy(rng.integers(-1, 50, size=(n, m)).astype(np.int32)),
+            _words(rng, 1, w), torch.tensor(3, dtype=torch.int32), net.csr_col, net.csr_row,
+            net.csr_eperm, net.csr_seg_start, net.csr_row_last, net.csr_row_nonempty,
+            net.csr_row_ptr]
+    kw = dict(cap=net.max_degree)
+    if deny:
+        kw["link_ok_e"] = torch.from_numpy(rng.random(e) < 0.7)
+    _equal_on_card(cd.csr_delivery_plain, cd.csr_delivery, args, kw, cuda,
+                   cd.LAUNCHES, "csr_delivery")
+
+
+@pytest.mark.cuda
+def test_unsupported_shapes_raise_on_the_card(cuda):
+    """A CUDA tensor launches the kernel or raises: a plane of the wrong
+    shape, dtype or device never falls back to the plain version."""
+    n, w = 64, 2
+    net = Net.build(graph.ring_lattice(n, d=4), graph.subscribe_all(n, 1), device="cpu")
+    k = net.max_degree
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device=cuda)
+    args = [z(n, w), z(n, k * w), z(n, k * w), z(n, w), z(n, w), z(n, 64), z(1, w),
+            torch.tensor(0, dtype=torch.int32, device=cuda)]
+    static = dict(offsets=net.band_off, revs=net.band_rev, w=w)
+    db.LAUNCHES["delivery_banded"] = 0
+    for i, bad in ((1, z(n, k * w + 1)), (5, z(n, 64).float()), (2, z(n, k * w).cpu())):
+        a = list(args)
+        a[i] = bad
+        with pytest.raises((ValueError, TypeError)):
+            db.delivery_banded(*a, **static)
+    with pytest.raises(ValueError, match="W = ceil"):
+        db.delivery_banded(*args[:5], z(n, 96), *args[6:], **static)
+    assert db.LAUNCHES["delivery_banded"] == 0
