@@ -17,20 +17,37 @@ last line is printed:
    the one-call library gather, beside the bytes bound;
 4. GossipSub at full width — the bench's default config at N=100k,
    formation rounds then 64 rounds of the bench's publish schedule; both
-   launch counters must equal the round count, mesh degrees lie in
-   [Dlo, Dhi], fwd is a subset of have; rounds/s and peak device memory;
+   fused-kernel launch counters must equal the round count and select_topk
+   must launch 8 times a heartbeat, mesh degrees lie in [Dlo, Dhi], fwd is
+   a subset of have; rounds/s and peak device memory;
 5. GossipSub card against CPU — the same step from the same seed on the
    card and on the CPU (plain versions) for 32 rounds at N=8192, every leaf
    equal after every round;
-6. FloodSub, banded dense — ring_lattice(100k, d=8): delivery_banded
+6. GossipSub CSR bench — the same config built with edge_layout="csr",
+   fused=True (CSR-resident state, the XLA-path composites, E=1.6M) for
+   the same 80 rounds: select_topk 8 launches a heartbeat and the fused
+   kernels none, the same degree and subset checks, and the final state,
+   densified, equal to phase 4's leaf for leaf; rounds/s, peak memory;
+7. GossipSub on powerlaw(100k, 2.2, d_min=2, max_degree=64, seed=0),
+   CSR-resident, fused=True: 16 + 32 rounds; host set-up seconds,
+   rounds/s, peak memory, the launch and subset checks;
+8. select_topk — on a heartbeat call captured from phase 6 (R=100k, K=16)
+   and from phase 7 (K=64), and on random rows with ties, signed zeros,
+   all-masked rows and widths 0..K+1: equal to its plain version bit for
+   bit; CUDA-event times of batches of back-to-back calls (the kernel
+   alone on prepared arguments), the pairwise and the sort form, beside
+   the bound;
+9. GossipSub CSR card against CPU — phases 6 and 7's builds at N=8192 for
+   32 rounds, every leaf equal after every round;
+10. FloodSub, banded dense — ring_lattice(100k, d=8): delivery_banded
    against its plain version (captured and random inputs, medians, bound),
    then 80 rounds with 4 publishes a round: host set-up seconds, rounds/s,
    peak memory, state bytes, launches equal to rounds, fwd a subset of
    have, every message older than 4 rounds past its origin;
-7. FloodSub, CSR-resident — powerlaw(1M, 2.2, d_min=2, max_degree=64,
+11. FloodSub, CSR-resident — powerlaw(1M, 2.2, d_min=2, max_degree=64,
    seed=0): csr_delivery the same way, with the link-deny mask on and off,
    then the same 80-round run;
-8. FloodSub card against CPU — both layouts at N=8192 for 32 rounds, every
+12. FloodSub card against CPU — both layouts at N=8192 for 32 rounds, every
    leaf equal after every round.
 
 It prints the ``{"kernels": [...]}`` line, then as its last line
@@ -41,6 +58,7 @@ package, and exits non-zero when no CUDA device is present.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import statistics
@@ -54,14 +72,19 @@ N_FULL, M_SLOTS = 100_000, 64
 FORMATION_ROUNDS, MEASURED_ROUNDS = 16, 64
 N_PARITY, PARITY_ROUNDS = 8192, 32
 N_CSR, FLOOD_ROUNDS = 1_000_000, 80
-KERNEL_SOURCES = ("fused_round", "delivery")
+POWERLAW_ROUNDS = 32          # timed rounds of phase 7, after the formation
+SELECTIONS_PER_HEARTBEAT = 8  # grafts, topscore, rest_rand, bring, drop,
+                              # grafts2, oppo, chosen (models/gossipsub.py)
+KERNEL_SOURCES = ("fused_round", "delivery", "select_topk")
 KERNEL_SOURCE = "go_libp2p_pubsub_tpu_torch/csrc/fused_round.cu"
 DELIVERY_SOURCE = "go_libp2p_pubsub_tpu_torch/csrc/delivery.cu"
+SELECT_SOURCE = "go_libp2p_pubsub_tpu_torch/csrc/select_topk.cu"
 REPLACES = {
     "edge_exchange": "go_libp2p_pubsub_tpu/ops/fused_round.py:197",
     "fused_delivery": "go_libp2p_pubsub_tpu/ops/fused_round.py:424",
     "delivery_banded": "go_libp2p_pubsub_tpu/ops/pallas_delivery.py:162",
     "csr_delivery": "go_libp2p_pubsub_tpu/ops/pallas_csr.py:229,244,260",
+    "select_topk": "go_libp2p_pubsub_tpu/ops/pallas_csr.py:312",
 }
 
 
@@ -92,6 +115,29 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def batch_ms(fn, calls: int = 50, reps: int = 5) -> float:
+    """Median over ``reps`` batches of ``calls`` back-to-back calls between
+    one pair of CUDA events, divided by ``calls``: the device time of a
+    call whose host dispatch is shorter than its kernels, which one call
+    on an idle card cannot show."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -287,7 +333,7 @@ def check_flood_kernel(module, name, args, kw, gen):
 
 
 def flood_run(sweep, convert, module, name, spec, card, gen, dev):
-    """Phases 6 and 7: one FloodSub configuration at full size. Its kernel
+    """Phases 10 and 11: one FloodSub configuration at full size. Its kernel
     against the plain version on a real round's inputs, then the main path:
     80 rounds from a fresh state with the launch counter set to 0 just
     before and read just after. Returns the kernel's record."""
@@ -353,7 +399,7 @@ def flood_run(sweep, convert, module, name, spec, card, gen, dev):
 
 
 def flood_parity(sweep, convert, spec):
-    """Phase 8: FloodSub from the same seed on the card and on the CPU
+    """Phase 12: FloodSub from the same seed on the card and on the CPU
     (plain versions) at N=8192, every leaf equal after every round."""
     po, pt, pv = sweep.publish_schedule(PARITY_ROUNDS, N_PARITY, 1, None, seed=5)
     sides = {d: sweep.build_floodsub(N_PARITY, M_SLOTS, device=d, **spec)
@@ -368,6 +414,166 @@ def flood_parity(sweep, convert, spec):
     say(f"floodsub {spec['graph']}/{spec['layout']} card == CPU: every leaf equal after "
         f"each of {PARITY_ROUNDS} rounds at N={N_PARITY} "
         f"({time.perf_counter() - t0:.1f} s; events {ev[:9].tolist()})")
+
+
+def random_rows(r: int, k: int, device, gen):
+    """select_topk arguments that hold the hazards of its order: quantized
+    values and noise (ties), -0.0 beside +0.0, all-masked rows and widths
+    from 0 to K + 1."""
+    import torch
+
+    vals = torch.tensor([-1.5, -0.0, 0.0, 0.5, 2.0])[torch.randint(0, 5, (r, k), generator=gen)]
+    noise = torch.tensor([-0.0, 0.0, 0.25, 0.5])[torch.randint(0, 4, (r, k), generator=gen)]
+    mask = torch.rand((r, k), generator=gen) < 0.7
+    mask[: max(1, r // 100)] = False
+    k_rows = torch.randint(0, k + 2, (r,), generator=gen, dtype=torch.int32)
+    return [t.to(device) for t in (vals, mask, k_rows, noise)]
+
+
+def sort_form(values, mask, k_rows, noise):
+    """The selection through the JAX package's fused=True rank form, on
+    select_topk's arguments, timed beside the kernel: a stable sort on
+    (-value, -noise) in two stable passes (secondary key first; + 0.0
+    turns -0.0 into +0.0), then the inverse permutation."""
+    import torch
+
+    primary = torch.where(mask, values, float("-inf"))
+    by_noise = torch.sort(-noise + 0.0, dim=-1, stable=True).indices
+    by_value = torch.sort(torch.gather(-primary + 0.0, -1, by_noise), dim=-1,
+                          stable=True).indices
+    perm = torch.gather(by_noise, -1, by_value)
+    iota = torch.arange(values.shape[-1], dtype=torch.int32,
+                        device=values.device).expand(perm.shape)
+    rank = torch.empty_like(iota).scatter_(-1, perm, iota)
+    return (rank < k_rows[:, None]) & mask
+
+
+def prepared_launch(sk, kernels, args):
+    """One select_topk launch on prepared pointers into a reused output,
+    without the wrapper's checks (so uncounted), for timing the kernel."""
+    import torch
+
+    values, mask, k_rows, noise = args
+    r, k = values.shape
+    out = torch.empty((r, k), dtype=torch.bool, device=values.device)
+    lib = sk._lib()
+    ptrs = [kernels.ptr(x) for x in (values, mask, k_rows, noise, out)]
+    stream = kernels.stream(values.device)
+
+    def launch():
+        kernels.raise_on(lib.select_topk_launch(*ptrs, r, k, stream), "select_topk")
+    return launch
+
+
+def check_select_topk(sk, kernels, captured, gen):
+    """Phase 8: select_topk against its plain version (and the sort form)
+    on each captured heartbeat call and on random rows of its shape, and
+    its times: batches of back-to-back calls, the kernel alone on prepared
+    arguments. Returns {tag: numbers}."""
+    import torch
+
+    out = {}
+    for tag, args in captured.items():
+        values, mask, k_rows, noise = args
+        r, k = values.shape
+        err = 0.0
+        for a in [list(args)] + [random_rows(r, k, values.device, gen) for _ in range(3)]:
+            ref = sk.select_topk_plain(*a)
+            got = sk.select_topk(*a)
+            srt = sort_form(*a)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err([ref], [got]))
+            if not torch.equal(ref, srt):
+                raise AssertionError("the sort form differs from the pairwise form")
+        io = r * k * 10 + 4 * r        # value, noise f32 + mask, out bytes; k_rows
+        # the least work ranks each row by sorting: K log2 K compares
+        ops = r * k * max(1, (k - 1).bit_length())
+        rec = {
+            "max_abs_err": err,
+            "ms": batch_ms(prepared_launch(sk, kernels, args)),
+            "plain_ms": batch_ms(lambda: sk.select_topk_plain(*args)),
+            "sort_ms": batch_ms(lambda: sort_form(*args)),
+            **bound(io, ops), "rows": r, "k": k,
+            "selected": int(sk.select_topk(*args).sum()),
+        }
+        out[tag] = rec
+        say(f"kernel select_topk {tag}: R={r} K={k} exact (max_abs_err {err}) "
+            f"kernel_ms={rec['ms']:.6f} plain_ms={rec['plain_ms']:.6f} "
+            f"sort_ms={rec['sort_ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
+            f"({rec['bound_by']}, {io} bytes, {ops} operations) library_ms=null")
+    return out
+
+
+def build_powerlaw_gossipsub(sweep, n: int, device, count_events: bool = False):
+    """The bench's default GossipSub params on topo.powerlaw(n, 2.2,
+    d_min=2, max_degree=64, seed=0), CSR-resident with fused=True, from the
+    port's public pieces. Returns (state, step, net, host set-up seconds)."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import graph, topo
+    from go_libp2p_pubsub_tpu_torch.config import GossipSubParams, PeerScoreThresholds
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import (
+        GossipSubConfig,
+        GossipSubState,
+        make_gossipsub_step,
+    )
+    from go_libp2p_pubsub_tpu_torch.state import Net
+
+    t0 = time.perf_counter()
+    tp = topo.to_topology(topo.powerlaw(n, seed=0, **sweep.POWERLAW),
+                          max_degree=sweep.POWERLAW["max_degree"])
+    net = Net.build(tp, graph.subscribe_all(n, 1), edge_layout="csr", fused=True,
+                    device=device)
+    _tp, sp = sweep.bench_score_params(1)
+    cfg = GossipSubConfig.build(dataclasses.replace(GossipSubParams(), flood_publish=False),
+                                PeerScoreThresholds(), score_enabled=True,
+                                edge_layout="csr", fused=True)
+    cfg = dataclasses.replace(cfg, count_events=count_events, fanout_slots=0)
+    st = GossipSubState.init(net, M_SLOTS, cfg, score_params=sp, seed=0)
+    step = make_gossipsub_step(cfg, net, score_params=sp)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return st, step, net, time.perf_counter() - t0
+
+
+def gossip_state_checks(st, net, total: int, where: str, degree_range=None):
+    """tick == total, mesh only on present edges (and, given a range, every
+    mesh degree in it), fwd a subset of have, every message 4+ rounds old
+    past its origin. Returns (min, mean, max) mesh degree."""
+    assert int(st.core.tick) == total, where
+    if bool((st.mesh & ~net.nbr_ok[:, None, :]).any()):
+        raise AssertionError(f"{where}: a mesh link on an absent edge")
+    deg = st.mesh.sum(-1)
+    dmin, dmax = int(deg.min()), int(deg.max())
+    if degree_range is not None and not (degree_range[0] <= dmin and dmax <= degree_range[1]):
+        raise AssertionError(f"{where}: mesh degrees [{dmin}, {dmax}] outside "
+                             f"[Dlo, Dhi] = {list(degree_range)}")
+    if bool(((st.core.dlv.fwd & ~st.core.dlv.have) != 0).any()):
+        raise AssertionError(f"{where}: fwd is not a subset of have")
+    reach = (st.core.dlv.first_round >= 0).sum(0)
+    born = st.core.msgs.birth
+    old = (born >= 0) & (born <= total - 4)
+    if not bool(old.any()) or not bool((reach[old] > 1).all()):
+        raise AssertionError(f"{where}: a message published 4+ rounds ago reached "
+                             "only its origin")
+    return dmin, float(deg.float().mean()), dmax
+
+
+def gossip_parity(sweep, convert, name, build):
+    """Phases 5 and 9: one GossipSub build from the same seed on the card
+    and on the CPU (plain versions) at N=8192, every leaf equal after each
+    of 32 rounds; ``build(device)`` returns (state, step)."""
+    po, pt, pv = sweep.publish_schedule(PARITY_ROUNDS, N_PARITY, 1, None, seed=5)
+    sides = {d: build(d) for d in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    for r in range(PARITY_ROUNDS):
+        for d, (s, stp) in list(sides.items()):
+            sides[d] = (sweep.run_rounds(s, stp, po[r:r + 1], pt[r:r + 1], pv[r:r + 1]), stp)
+        leaves_equal(convert.state_leaves(sides["cpu"][0]),
+                     convert.state_leaves(sides["cuda"][0]), f"{name} round {r}")
+    ev = convert.state_leaves(sides["cuda"][0])[".core.events"]
+    say(f"{name} card == CPU: every leaf equal after each of {PARITY_ROUNDS} rounds at "
+        f"N={N_PARITY} ({time.perf_counter() - t0:.1f} s; events {ev.tolist()})")
 
 
 def leaves_equal(a: dict, b: dict, where: str):
@@ -391,14 +597,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from go_libp2p_pubsub_tpu_torch import convert
+    from go_libp2p_pubsub_tpu_torch import convert, graph
+    from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
+    from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
     from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
     from go_libp2p_pubsub_tpu_torch.ops import kernels
+    from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
     from go_libp2p_pubsub_tpu_torch.perf import sweep
+    from go_libp2p_pubsub_tpu_torch.state import Net, densify_edge_planes
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     card = card_line()
+    counters = (fr, sk, cd, db)
     # 1. environment
     say(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {name} count {torch.cuda.device_count()}")
@@ -428,10 +640,17 @@ def main() -> int:
     del st, captured
 
     # 4. the slice at full width
+    total = FORMATION_ROUNDS + MEASURED_ROUNDS
+    heartbeat_launches = SELECTIONS_PER_HEARTBEAT * total
+    # the lattice's CSR build: its nbr_ok for the checks, its flat edge
+    # space to densify phase 6's state
+    csr_net = Net.build(graph.ring_lattice(N_FULL, d=8), graph.subscribe_all(N_FULL, 1),
+                        edge_layout="csr", fused=True, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     st, step, n_topics, honest = sweep.build_bench(N_FULL, M_SLOTS, device=dev)
-    fr.reset_launch_counts()
+    for m in counters:
+        m.reset_launch_counts()
     st = sweep.run_rounds(st, step, po[:FORMATION_ROUNDS], pt[:FORMATION_ROUNDS],
                           pv[:FORMATION_ROUNDS])
     torch.cuda.synchronize()
@@ -440,27 +659,20 @@ def main() -> int:
     st = sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(fr.LAUNCHES)
-    total = FORMATION_ROUNDS + MEASURED_ROUNDS
+    launches = {**fr.LAUNCHES, **sk.LAUNCHES}
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["launches"] != total:
             raise AssertionError(f"{r['name']} launched {r['launches']} times in "
                                  f"{total} rounds")
-    assert int(st.core.tick) == total
-    deg = st.mesh.sum(-1)
-    dmin, dmax = int(deg.min()), int(deg.max())
-    if not (5 <= dmin and dmax <= 12):
-        raise AssertionError(f"mesh degrees [{dmin}, {dmax}] outside [Dlo, Dhi] = [5, 12]")
-    if bool(((st.core.dlv.fwd & ~st.core.dlv.have) != 0).any()):
-        raise AssertionError("fwd is not a subset of have")
-    reach = (st.core.dlv.first_round >= 0).sum(0)
-    born = st.core.msgs.birth
-    old = (born >= 0) & (born <= total - 4)
-    if not bool((reach[old] > 1).all()):
-        raise AssertionError("a message published 4+ rounds ago reached only its origin")
+    if launches["select_topk"] != heartbeat_launches:
+        raise AssertionError(f"select_topk launched {launches['select_topk']} times in "
+                             f"{total} heartbeats")
+    dmin, _mean, dmax = gossip_state_checks(st, csr_net, total, "GossipSub bench",
+                                            (5, 12))
     peak = torch.cuda.max_memory_allocated()
-    state_bytes = sum(a.nbytes for a in convert.state_leaves(st).values())
+    dense_final = convert.state_leaves(st)
+    state_bytes = sum(a.nbytes for a in dense_final.values())
     say(f"slice N={N_FULL} M={M_SLOTS} K=16: {total} rounds, launches {launches}, "
         f"mesh degree [{dmin}, {dmax}], fwd subset of have")
     say(f"slice rate: {MEASURED_ROUNDS / dt:.3f} rounds/s over {MEASURED_ROUNDS} rounds "
@@ -469,26 +681,100 @@ def main() -> int:
     del st
 
     # 5. card against CPU from the same seed
-    po5, pt5, pv5 = sweep.publish_schedule(PARITY_ROUNDS, N_PARITY, 1, None, seed=5)
-    sides = {}
-    for d in ("cuda", "cpu"):
-        s, stp, _, _ = sweep.build_bench(N_PARITY, M_SLOTS, count_events=True, device=d)
-        sides[d] = (s, stp)
+    gossip_parity(sweep, convert, "GossipSub bench", lambda d: sweep.build_bench(
+        N_PARITY, M_SLOTS, count_events=True, device=d)[:2])
+
+    # 6. the CSR bench: the same run CSR-resident through the composites
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, edge_layout="csr", fused=True,
+                                         device=dev)
+    for m in counters:
+        m.reset_launch_counts()
+    st = sweep.run_rounds(st, step, po[:FORMATION_ROUNDS], pt[:FORMATION_ROUNDS],
+                          pv[:FORMATION_ROUNDS])
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for r in range(PARITY_ROUNDS):
-        for d, (s, stp) in list(sides.items()):
-            s = sweep.run_rounds(s, stp, po5[r:r + 1], pt5[r:r + 1], pv5[r:r + 1])
-            sides[d] = (s, stp)
-        leaves_equal(convert.state_leaves(sides["cpu"][0]),
-                     convert.state_leaves(sides["cuda"][0]), f"round {r}")
-    ev = convert.state_leaves(sides["cuda"][0])[".core.events"]
-    say(f"card == CPU: every leaf equal after each of {PARITY_ROUNDS} rounds at "
-        f"N={N_PARITY} ({time.perf_counter() - t0:.1f} s; events {ev.tolist()})")
+    st = sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {**fr.LAUNCHES, **sk.LAUNCHES, **cd.LAUNCHES, **db.LAUNCHES}
+    want = {"edge_exchange": 0, "fused_delivery": 0, "csr_delivery": 0,
+            "delivery_banded": 0, "select_topk": heartbeat_launches}
+    if launches != want:
+        raise AssertionError(f"CSR bench launches {launches}, expected {want}")
+    csr_launches = launches["select_topk"]
+    dmin, _mean, dmax = gossip_state_checks(st, csr_net, total, "CSR bench", (5, 12))
+    peak = torch.cuda.max_memory_allocated()
+    leaves = convert.state_leaves(st)
+    state_bytes = sum(a.nbytes for a in leaves.values())
+    leaves_equal(dense_final, convert.state_leaves(densify_edge_planes(csr_net, st)),
+                 "CSR bench final state against the dense bench's")
+    say(f"CSR bench N={N_FULL} K=16 E={csr_net.n_edges} fused: {total} rounds, launches "
+        f"{launches}, mesh degree [{dmin}, {dmax}], fwd subset of have, final state "
+        f"densified equal to phase 4's leaf for leaf")
+    say(f"CSR bench rate: {MEASURED_ROUNDS / dt:.3f} rounds/s over {MEASURED_ROUNDS} rounds "
+        f"({1e3 * dt / MEASURED_ROUNDS:.3f} ms/round), peak memory {peak} bytes "
+        f"({peak / 2**20:.1f} MiB), state {state_bytes} bytes, on {card}")
+    sched = [torch.as_tensor(a[total], device=dev) for a in (po, pt, pv)]
+    _st, cap = capture_round(lambda s: step(s, *sched), st, sk, ("select_topk",))
+    select_calls = {"K=16": cap["select_topk"][0]}
+    del st, _st, dense_final, leaves
 
-    # 6-8. FloodSub over the shared delivery core, both layouts
-    from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
-    from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
+    # 7. GossipSub on the power-law graph, CSR-resident
+    pl_total = FORMATION_ROUNDS + POWERLAW_ROUNDS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, step, pl_net, setup = build_powerlaw_gossipsub(sweep, N_FULL, dev)
+    ppo, ppt, ppv = sweep.publish_schedule(pl_total + 1, N_FULL, 1, None)
+    for m in counters:
+        m.reset_launch_counts()
+    st = sweep.run_rounds(st, step, ppo[:FORMATION_ROUNDS], ppt[:FORMATION_ROUNDS],
+                          ppv[:FORMATION_ROUNDS])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psl = slice(FORMATION_ROUNDS, pl_total)
+    st = sweep.run_rounds(st, step, ppo[psl], ppt[psl], ppv[psl])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {**fr.LAUNCHES, **sk.LAUNCHES, **cd.LAUNCHES, **db.LAUNCHES}
+    want = dict(want, select_topk=SELECTIONS_PER_HEARTBEAT * pl_total)
+    if launches != want:
+        raise AssertionError(f"power-law GossipSub launches {launches}, expected {want}")
+    dmin, dmean, dmax = gossip_state_checks(st, pl_net, pl_total, "power-law GossipSub")
+    peak = torch.cuda.max_memory_allocated()
+    state_bytes = sum(a.nbytes for a in convert.state_leaves(st).values())
+    say(f"power-law GossipSub N={N_FULL} K={pl_net.max_degree} E={pl_net.n_edges} fused: "
+        f"host set-up {setup:.3f} s, {pl_total} rounds, launches {launches}, mesh degree "
+        f"min {dmin} mean {dmean:.3f} max {dmax}, fwd subset of have")
+    say(f"power-law GossipSub rate: {POWERLAW_ROUNDS / dt:.3f} rounds/s over "
+        f"{POWERLAW_ROUNDS} rounds ({1e3 * dt / POWERLAW_ROUNDS:.3f} ms/round), peak memory "
+        f"{peak} bytes ({peak / 2**20:.1f} MiB), state {state_bytes} bytes, on {card}")
+    sched = [torch.as_tensor(a[pl_total], device=dev) for a in (ppo, ppt, ppv)]
+    _st, cap = capture_round(lambda s: step(s, *sched), st, sk, ("select_topk",))
+    select_calls["K=64"] = cap["select_topk"][0]
+    del st, _st, cap
 
+    # 8. select_topk at the main path's shapes
+    sel = check_select_topk(sk, kernels, select_calls, gen)
+    main16, k64 = sel["K=16"], sel["K=64"]
+    records.append({
+        "name": "select_topk", "route": "cuda", "source": SELECT_SOURCE,
+        "replaces": REPLACES["select_topk"], "launches": csr_launches,
+        **{k: main16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "sort_ms": main16["sort_ms"],
+        "k64": {k: k64[k] for k in ("rows", "max_abs_err", "ms", "plain_ms", "sort_ms",
+                                    "bound_ms", "bound_by")},
+    })
+    del select_calls
+
+    # 9. the CSR builds, card against CPU
+    gossip_parity(sweep, convert, "CSR bench", lambda d: sweep.build_bench(
+        N_PARITY, M_SLOTS, count_events=True, edge_layout="csr", fused=True, device=d)[:2])
+    gossip_parity(sweep, convert, "power-law GossipSub", lambda d: build_powerlaw_gossipsub(
+        sweep, N_PARITY, d, count_events=True)[:2])
+
+    # 10-12. FloodSub over the shared delivery core, both layouts
     records.append(flood_run(sweep, convert, db, "delivery_banded", dict(
         n=N_FULL, graph="lattice", layout="dense"), card, gen, dev))
     records.append(flood_run(sweep, convert, cd, "csr_delivery", dict(
@@ -496,6 +782,7 @@ def main() -> int:
     for kw in (dict(graph="lattice", layout="dense"), dict(graph="powerlaw", layout="csr")):
         flood_parity(sweep, convert, kw)
 
+    say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

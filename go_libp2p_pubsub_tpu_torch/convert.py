@@ -1,5 +1,7 @@
-"""Carry a state between the JAX package and the port: a GossipSub state,
-or the router-agnostic ``SimState`` FloodSub steps (dense or CSR-resident).
+"""Carry a state between the JAX package and the port: a GossipSub state
+or the router-agnostic ``SimState`` FloodSub steps, dense or CSR-resident
+(the same leaves; on a CSR net ``fe_words``, ``served_lo``/``served_hi``
+are flat ``[E, W]`` and ``peerhave``/``iasked`` ``[E]``).
 
 Leaves are keyed by their STATE_SCHEMA.json path (``.core.dlv.have``,
 ``.score.bp``, ... for GossipSub; ``.dlv.have``, ``.msgs.origin``, ... for a

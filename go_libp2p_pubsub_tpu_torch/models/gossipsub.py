@@ -10,15 +10,22 @@ every ``heartbeat_every`` rounds. Control written to per-edge outboxes in
 round r is read by the far end in round r+1 through the reverse-edge
 gather (the one-RTT control latency of the reference's wire layer).
 
-This slice ports the dense banded per-round step with the fused data plane:
-on a banded topology the whole edge-crossing exchange is the two kernels of
-``ops/fused_round.py``, which the step always takes. Options outside the
-slice raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+The step runs on every net the JAX step takes in the bench configuration.
+On a banded dense topology the whole edge-crossing exchange is the two
+kernels of ``ops/fused_round.py``; on any other dense topology, and on a
+CSR net, it is the JAX package's XLA-path composites (``control_exchange``,
+``iwant_responses``, ``gossip_edge_mask``, the shared ``delivery_round``,
+``merge_extra_tx``). A CSR net keeps its per-edge planes flat between steps
+(``state.wrap_csr_resident``). Every heartbeat selection is one launch of
+the ``select_topk`` kernel on the card (``ops/select.py``). Options outside
+the port raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -48,11 +55,19 @@ from ..score.engine import (
     slot_topic_words,
 )
 from ..score.gater import GaterState
-from ..state import Net, SimState, allocate_publishes, replace, tree_map
+from ..state import (
+    Net,
+    SimState,
+    allocate_publishes,
+    replace,
+    tree_map,
+    wrap_csr_resident,
+)
 from ..trace.events import EV, add_event
 from .common import (
     RoundInfo,
     accumulate_round_events,
+    delivery_round,
     origin_msg_words,
     subscribed_msg_words,
 )
@@ -92,6 +107,7 @@ class GossipSubConfig:
     do_px: bool = False
     fanout_slots: int = 2
     count_events: bool = True
+    edge_layout: str = "dense"
     fused: bool = False
     gossip_threshold: float = 0.0
     publish_threshold: float = 0.0
@@ -102,9 +118,17 @@ class GossipSubConfig:
     def build(cls, params: GossipSubParams | None = None,
               thresholds: PeerScoreThresholds | None = None,
               score_enabled: bool = False,
-              heartbeat_every: int = 1) -> "GossipSubConfig":
+              heartbeat_every: int = 1, edge_layout: str = "dense",
+              fused: bool = False) -> "GossipSubConfig":
+        """``edge_layout`` and ``fused`` must match the Net's
+        (``Net.build(..., edge_layout=..., fused=...)``); the step refuses
+        a mismatch. The selections take one form under either flag; its
+        ranks equal both of the JAX package's forms."""
         p = params or GossipSubParams()
         p.validate()
+        if edge_layout not in ("dense", "csr"):
+            raise ValueError(
+                f"edge_layout must be 'dense' or 'csr', got {edge_layout!r}")
         hb = p.heartbeat_interval
         kw = dict(
             D=p.D, Dlo=p.Dlo, Dhi=p.Dhi, Dscore=p.Dscore, Dout=p.Dout,
@@ -122,6 +146,8 @@ class GossipSubConfig:
             score_enabled=score_enabled,
             flood_publish=p.flood_publish,
             do_px=p.do_px,
+            edge_layout=edge_layout,
+            fused=bool(fused),
         )
         if thresholds is not None:
             thresholds.validate()
@@ -187,8 +213,14 @@ class GossipSubState:
             p6 = torch.zeros((n, k), dtype=torch.float32, device=dev)
         i32, b = torch.int32, torch.bool
         z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+        # against a CSR net the per-edge planes are CSR-resident: fe_words
+        # and served_* flat [E, W], peerhave/iasked [E] (the step densifies
+        # them for its body, state.wrap_csr_resident)
+        e = net.n_edges
+        ph_shape = (n, k) if e is None else (e,)
+        sv_shape = (n, k, w) if e is None else (e, w)
         return cls(
-            core=SimState.init(n, msg_slots, seed, k=k, device=dev),
+            core=SimState.init(n, msg_slots, seed, k=k, device=dev, n_edges=e),
             mesh=z((n, s, k), b),
             backoff_expire=z((n, s, k), i32),
             backoff_present=z((n, s, k), b),
@@ -197,10 +229,10 @@ class GossipSubState:
             iwant_out=z((n, k, w), i32),
             graft_out=z((n, s, k), b),
             prune_out=z((n, s, k), b),
-            peerhave=z((n, k), i32),
-            iasked=z((n, k), i32),
-            served_lo=z((n, k, w), i32),
-            served_hi=z((n, k, w), i32),
+            peerhave=z(ph_shape, i32),
+            iasked=z(ph_shape, i32),
+            served_lo=z(sv_shape, i32),
+            served_hi=z(sv_shape, i32),
             promise_mid=torch.full((n, k), -1, dtype=i32, device=dev),
             promise_expire=z((n, k), i32),
             score=ScoreState.empty(n, s, k, dev),
@@ -325,12 +357,89 @@ def handle_ihave(cfg: GossipSubConfig, net: Net, st: GossipSubState,
     )
 
 
+def iwant_responses(cfg: GossipSubConfig, net: Net, st: GossipSubState,
+                    nbr_score_of_me):
+    """The IWANT-response carry for this round's delivery and the
+    retransmission counter update (handleIWant gossipsub.go:679-716):
+    ``st.iwant_out`` holds what I asked each neighbor last round, and the
+    neighbor serves from its whole mcache window unless the (edge, msg)
+    count reached the cap. Returns (state, resp [N,K,W])."""
+    sender_window = bitset.word_or_reduce(st.mcache, dim=1)       # [N, W]
+    window_g = torch.where(net.nbr_ok[:, :, None], net.peer_gather(sender_window), 0)
+    capped = fr.served_capped_mask(cfg.gossip_retransmission, st.served_lo,
+                                   st.served_hi)
+    resp = st.iwant_out & window_g & ~capped
+    if cfg.score_enabled:
+        # the responder ignores requesters below the gossip threshold
+        # (gossipsub.go:681-685): the score the neighbor holds of me
+        resp = torch.where((nbr_score_of_me >= cfg.gossip_threshold)[:, :, None],
+                           resp, 0)
+    # 2-bit saturating increment on served slots
+    inc = resp & ~(st.served_hi & st.served_lo)
+    lo = st.served_lo ^ inc
+    hi = st.served_hi | (st.served_lo & inc)
+    return replace(st, served_lo=lo, served_hi=hi), resp
+
+
 def sender_carry_words(mesh: torch.Tensor, slotw: torch.Tensor) -> torch.Tensor:
     """[N,K,W] sender-side: words each peer would push on edge k — the OR
     over its topic slots of the slot's messages where k is in that slot's
     mesh."""
     contrib = torch.where(mesh[:, :, :, None], slotw[:, :, None, :], 0)
     return bitset.word_or_reduce(contrib, dim=1)
+
+
+def gossip_edge_mask(cfg: GossipSubConfig, net: Net, st: GossipSubState,
+                     joined_words, acc_msg, slotw, msgs, flood_edges,
+                     nbr_score_of_me) -> torch.Tensor:
+    """[N,K,W] edge-carry mask: mesh push (gossipsub.go:981-1002),
+    floodsub-peer edges (gossipsub.go:973-978) and v1.1 flood-publish of
+    origin-sent messages (gossipsub.go:957-963), gated by the receiver's
+    graylist and joined topics. Sender-side packed outbox, one word gather."""
+    carry_out = sender_carry_words(st.mesh, slotw)
+    mask = torch.where(net.nbr_ok[:, :, None], net.edge_gather(carry_out), 0)
+    mask = mask | torch.where(flood_edges[:, :, None], bitset.ALL, 0).to(torch.int32)
+    if cfg.flood_publish:
+        origin_is_sender = msgs.origin[None, :] == net.nbr[..., None]   # [N,K,M]
+        flood_ok = ((nbr_score_of_me >= cfg.publish_threshold)
+                    if cfg.score_enabled else net.nbr_ok)
+        mask = mask | (bitset.pack(origin_is_sender)
+                       & torch.where(flood_ok[:, :, None], bitset.ALL, 0).to(torch.int32))
+    mask = torch.where(acc_msg[:, :, None], mask, 0)
+    return mask & joined_words[:, None, :]
+
+
+def merge_extra_tx(net: Net, msgs, dlv, info: RoundInfo, extra: torch.Tensor,
+                   tick, count_events: bool = True):
+    """Fold IWANT-response transmissions (outside the senders' forward
+    sets) into the round's delivery results: dedup against the seen-cache,
+    first arrivals, forward set and the round's counters. The queue cap
+    and the validation pipeline of the JAX function are not ported."""
+    m = msgs.capacity
+    extra = extra & ~origin_msg_words(net, msgs)[:, None, :]
+    new_words = bitset.word_or_reduce(extra, 1) & ~dlv.have
+    fa_words = bitset.first_set_per_bit(extra, 1) & new_words[:, None, :]
+    valid_words = bitset.pack(msgs.valid)
+    dlv = replace(
+        dlv,
+        have=dlv.have | new_words,
+        fe_words=(dlv.fe_words & ~new_words[:, None, :]) | fa_words,
+        fwd=dlv.fwd | (new_words & valid_words[None, :]),
+        first_round=torch.where(bitset.unpack(new_words, m), tick, dlv.first_round),
+    )
+    info = replace(info, trans=info.trans | extra,
+                   recv_new_words=info.recv_new_words | new_words,
+                   new_words=info.new_words | new_words)
+    if count_events:
+        n_extra = bitset.popcount(extra).sum(dtype=torch.int32)
+        n_new = bitset.popcount(new_words).sum(dtype=torch.int32)
+        n_deliver = bitset.popcount(new_words & valid_words[None, :]).sum(
+            dtype=torch.int32)
+        info = replace(info, n_duplicate=info.n_duplicate + (n_extra - n_new),
+                       n_rpc=info.n_rpc + n_extra,
+                       n_deliver=info.n_deliver + n_deliver,
+                       n_reject=info.n_reject + (n_new - n_deliver))
+    return dlv, info
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +641,16 @@ def topology_views(net: Net):
 def prepare_step_consts(cfg: GossipSubConfig, net: Net,
                         score_params: PeerScoreParams | None,
                         heartbeat_interval: float) -> StepConsts:
+    # the layout and the fused flag are one choice per build: the config
+    # drives the selections, the net the gathers and the delivery seam
+    if cfg.edge_layout != net.edge_layout:
+        raise ValueError(
+            f"cfg.edge_layout={cfg.edge_layout!r} but the Net was built with "
+            f"edge_layout={net.edge_layout!r} — build both with the same layout")
+    if cfg.fused != net.fused:
+        raise ValueError(
+            f"cfg.fused={cfg.fused!r} but the Net was built with "
+            f"fused={net.fused!r} — build both with the same flag")
     if cfg.score_enabled:
         assert score_params is not None
         score_params.validate()
@@ -585,6 +704,33 @@ def control_unpack(cfg: GossipSubConfig, net: Net, w_seg):
     return graft_in_raw, prune_in_raw, w_seg(2)
 
 
+def gather_cross(net: Net, words: torch.Tensor, scores):
+    """Carry ``[N, K, C]`` control words, and the ``[N, K]`` score plane
+    when given, across the edge involution as two gathers (the JAX
+    package's policy at Wt == 1; its split of IHAVE from the topic words at
+    Wt > 1 only spared a TPU relayout and changes no value). Absent slots
+    read 0."""
+    wire = torch.where(net.nbr_ok[:, :, None], net.edge_gather(words), 0)
+    if scores is None:
+        return wire, None
+    return wire, torch.where(net.nbr_ok, net.edge_gather(scores), 0.0)
+
+
+def control_exchange(cfg: GossipSubConfig, net: Net, st: GossipSubState, cross):
+    """The control wire exchange: every control outbox crosses the edges at
+    once through ``cross(words [N, K, C], scores or None) -> (wire
+    [N, K, C], nbr_score_of_me or None)``, the score plane beside it.
+    Returns (graft_in_raw, prune_in_raw, ihave_in_raw, nbr_score_of_me),
+    the last None without scoring."""
+    parts = [p for _, p in control_parts(cfg, net, st)]
+    sizes = np.cumsum([0] + [p.shape[-1] for p in parts])
+    wire, nbr_score_of_me = cross(torch.cat(parts, dim=-1),
+                                  st.scores if cfg.score_enabled else None)
+    return (*control_unpack(
+        cfg, net, lambda i: wire[..., int(sizes[i]): int(sizes[i + 1])]),
+        nbr_score_of_me)
+
+
 def px_connect(cfg: GossipSubConfig, st: GossipSubState) -> torch.Tensor:
     """PX connect (pxConnect gossipsub.go:861-941): next round's edge
     liveness. Without do_px (the only form this slice builds) it is the
@@ -594,13 +740,6 @@ def px_connect(cfg: GossipSubConfig, st: GossipSubState) -> torch.Tensor:
 
 def _refuse_unported(cfg: GossipSubConfig, net: Net):
     checks = [
-        (cfg.fused or net.fused,
-         "cfg.fused=True or a Net.build(fused=True) net (sort-form "
-         "selection) — ROADMAP §1 item 7"),
-        (net.band_off is None,
-         "a non-banded topology (the XLA-path composites control_exchange, "
-         "iwant_responses, gossip_edge_mask, delivery_round, merge_extra_tx) "
-         "— ROADMAP §1 item 7"),
         (cfg.do_px, "do_px (peer exchange) — ROADMAP §1 item 7"),
         (cfg.fanout_slots > 0, "fanout slots (unjoined-topic publish) — "
                                "ROADMAP §1 item 7"),
@@ -608,10 +747,10 @@ def _refuse_unported(cfg: GossipSubConfig, net: Net):
     for bad, what in checks:
         if bad:
             raise NotImplementedError(f"not ported yet: {what}")
-    if net.max_degree > fr.MAX_K:
+    if net.band_off is not None and net.max_degree > fr.MAX_K:
         raise NotImplementedError(
-            f"K={net.max_degree} > {fr.MAX_K}: the fused kernels hold K "
-            "first-arrival words in registers — ROADMAP §2")
+            f"K={net.max_degree} > {fr.MAX_K} on a banded net: the fused "
+            "kernels hold K first-arrival words in registers — ROADMAP §2")
 
 
 def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
@@ -627,11 +766,13 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     contract do_heartbeat == (tick % heartbeat_every == 0)); otherwise a
     heartbeat_every > 1 step decides on the device and selects leafwise.
 
-    The step is functional: it never writes into the state it is given.
-    Options of the JAX step outside this slice (chaos, adversary, router,
-    gater, dynamic peers or topology, lifted scores, telemetry) raise, and
-    so do config values outside it (fanout slots, PX, the fused selection,
-    a non-banded topology)."""
+    On a banded dense net the data plane is the two fused kernels; on any
+    other net it is the XLA-path composites, and a CSR net's state stays
+    CSR-resident between steps. The step is functional: it never writes
+    into the state it is given. Options of the JAX step outside the port
+    (chaos, adversary, router, gater, dynamic peers or topology, lifted
+    scores, telemetry) raise, and so do config values outside it (fanout
+    slots, PX)."""
     if unported:
         raise NotImplementedError(
             f"not ported yet: {sorted(unported)} — ROADMAP §1 items 6-13")
@@ -641,47 +782,31 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     tp = consts.tp
     n_peers, k_dim = net.n_peers, net.max_degree
 
-    def _round(st: GossipSubState, pub_origin, pub_topic, pub_valid,
-               do_heartbeat: bool = True) -> GossipSubState:
+    banded = net.band_off is not None
+
+    def banded_cross(words, scores):
+        """The control words across the banded involution as one
+        edge_exchange launch, the score plane riding as f32."""
+        wc = words.shape[-1]
+        wire_flat, nbr_score_of_me = fr.edge_exchange(
+            words.reshape(n_peers, k_dim * wc), scores, consts.live_u32,
+            offsets=net.band_off, revs=net.band_rev, c=wc,
+            score_enabled=cfg.score_enabled,
+        )
+        return wire_flat.reshape(n_peers, k_dim, wc), nbr_score_of_me
+
+    cross = banded_cross if banded else functools.partial(gather_cross, net)
+
+    def banded_data_plane(st, st2, joined_words, slotw, acc_ok, acc_msg,
+                          ihave_in_raw, nbr_score_of_me, valid_pack):
+        """IHAVE ingest first (it consumes nothing the delivery kernel
+        writes), then the whole delivery plane in one fused_delivery launch
+        over the post-graft mesh. Returns (st2, dlv, info)."""
         core = st.core
         tick = core.tick
         m = core.msgs.capacity
         w_dim = bitset.n_words(m)
         kw = k_dim * w_dim
-        acc_ok, acc_msg = accept_gates(cfg, net, st)
-
-        # 0b. merged wire exchange: every control outbox crosses the edge
-        # involution in ONE kernel launch, the score plane riding as f32
-        parts = [p for _, p in control_parts(cfg, net, st)]
-        sizes = np.cumsum([0] + [p.shape[-1] for p in parts])
-        wc = int(sizes[-1])
-        wire_flat, nbr_score_of_me = fr.edge_exchange(
-            torch.cat(parts, dim=-1).reshape(n_peers, k_dim * wc),
-            st.scores if cfg.score_enabled else None,
-            consts.live_u32,
-            offsets=net.band_off, revs=net.band_rev, c=wc,
-            score_enabled=cfg.score_enabled,
-        )
-        wire = wire_flat.reshape(n_peers, k_dim, wc)
-        graft_in_raw, prune_in_raw, ihave_in_raw = control_unpack(
-            cfg, net, lambda i: wire[..., int(sizes[i]): int(sizes[i + 1])])
-
-        # 1. GRAFT/PRUNE ingest
-        st2, prune_resp, n_graft, n_prune = handle_graft_prune(
-            cfg, net, st, tp, acc_ok, graft_in_raw, prune_in_raw)
-        events = core.events
-        if cfg.count_events:
-            events = add_event(add_event(events, EV.GRAFT, n_graft),
-                               EV.PRUNE, n_prune)
-        edge_live_next = px_connect(cfg, st)
-
-        joined_words = joined_msg_words(net, core.msgs)
-        slotw = slot_topic_words(net, core.msgs.topic)
-        pre_have = core.dlv.have
-
-        # 2+3+4 fused: IHAVE ingest first (it consumes nothing the delivery
-        # kernel writes), then the whole delivery plane in one kernel over
-        # the post-graft mesh
         asked_old = st2.iwant_out
         served_lo_old, served_hi_old = st2.served_lo, st2.served_hi
         st2 = handle_ihave(cfg, net, st2, joined_words, acc_ok, ihave_in_raw)
@@ -696,7 +821,6 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         flags = fr.make_flags(acc_msg, consts.flood_from, consts.i_am_floodsub,
                               consts.sender_fwd_full, net.nbr_ok)
         mcw = bitset.word_or_reduce(st2.mcache, dim=1)
-        valid_pack = bitset.pack(core.msgs.valid)
         res = fr.fused_delivery(
             carry.reshape(n_peers, kw).contiguous(),
             core.dlv.fe_words.reshape(n_peers, kw),
@@ -704,7 +828,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             asked_old.reshape(n_peers, kw).contiguous(),
             served_lo_old.reshape(n_peers, kw),
             served_hi_old.reshape(n_peers, kw),
-            flags, pre_have, origin_w, joined_words.contiguous(),
+            flags, core.dlv.have, origin_w, joined_words.contiguous(),
             valid_pack[None, :],
             cfg.gossip_threshold, cfg.publish_threshold,
             offsets=net.band_off, revs=net.band_rev, w=w_dim,
@@ -744,6 +868,66 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             new_words=new_words, n_deliver=n_deliver, n_reject=n_reject,
             n_duplicate=n_duplicate, n_rpc=n_rpc,
         )
+        return st2, dlv, info
+
+    def composite_data_plane(st, st2, joined_words, slotw, acc_ok, acc_msg,
+                             ihave_in_raw, nbr_score_of_me):
+        """The JAX package's XLA path: IWANT service (last round's asks ->
+        this round's carry), IHAVE ingest, the mesh/flood edge mask through
+        the shared delivery_round, then the IWANT responses merged in.
+        Returns (st2, dlv, info)."""
+        core = st.core
+        st2, iwant_resp = iwant_responses(cfg, net, st2, nbr_score_of_me)
+        st2 = handle_ihave(cfg, net, st2, joined_words, acc_ok, ihave_in_raw)
+        # floodsub-peer edges: sender floodsub => flood; receiver floodsub
+        # => the gossipsub sender still sends everything, score-gated
+        # (gossipsub.go:973-978)
+        recv_ok = ((nbr_score_of_me >= cfg.publish_threshold)
+                   if cfg.score_enabled else net.nbr_ok)
+        flood_edges = consts.flood_from | (consts.i_am_floodsub[:, None]
+                                           & recv_ok & net.nbr_ok)
+        edge_mask = gossip_edge_mask(cfg, net, st2, joined_words, acc_msg, slotw,
+                                     core.msgs, flood_edges, nbr_score_of_me)
+        dlv, info = delivery_round(net, core.msgs, core.dlv, edge_mask, core.tick,
+                                   count_events=cfg.count_events)
+        iwant_resp = torch.where(acc_msg[:, :, None], iwant_resp, 0)
+        dlv, info = merge_extra_tx(net, core.msgs, dlv, info, iwant_resp,
+                                   core.tick, count_events=cfg.count_events)
+        return st2, dlv, info
+
+    def _round(st: GossipSubState, pub_origin, pub_topic, pub_valid,
+               do_heartbeat: bool = True) -> GossipSubState:
+        core = st.core
+        tick = core.tick
+        acc_ok, acc_msg = accept_gates(cfg, net, st)
+
+        # 0b. merged wire exchange: every control outbox crosses the edge
+        # involution at once, the score plane beside it
+        graft_in_raw, prune_in_raw, ihave_in_raw, nbr_score_of_me = (
+            control_exchange(cfg, net, st, cross))
+
+        # 1. GRAFT/PRUNE ingest
+        st2, prune_resp, n_graft, n_prune = handle_graft_prune(
+            cfg, net, st, tp, acc_ok, graft_in_raw, prune_in_raw)
+        events = core.events
+        if cfg.count_events:
+            events = add_event(add_event(events, EV.GRAFT, n_graft),
+                               EV.PRUNE, n_prune)
+        edge_live_next = px_connect(cfg, st)
+
+        joined_words = joined_msg_words(net, core.msgs)
+        slotw = slot_topic_words(net, core.msgs.topic)
+        valid_pack = bitset.pack(core.msgs.valid)
+
+        # 2-4. IWANT service, IHAVE ingest and delivery
+        if banded:
+            st2, dlv, info = banded_data_plane(
+                st, st2, joined_words, slotw, acc_ok, acc_msg, ihave_in_raw,
+                nbr_score_of_me, valid_pack)
+        else:
+            st2, dlv, info = composite_data_plane(
+                st, st2, joined_words, slotw, acc_ok, acc_msg, ihave_in_raw,
+                nbr_score_of_me)
 
         # 5. score delivery attribution (packed)
         score = st2.score
@@ -806,6 +990,11 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             due = (tick % cfg.heartbeat_every) == 0
             st2 = tree_map(lambda a, b: torch.where(due, a, b), hb(st2), st2)
         return replace(st2, core=replace(st2.core, tick=tick + 1))
+
+    if net.edge_layout == "csr":
+        # CSR-resident state: the flat per-edge planes are densified at
+        # entry and re-packed at exit; the body above stays dense-written
+        _round = wrap_csr_resident(net, _round)
 
     use_static_hb = static_heartbeat and cfg.heartbeat_every > 1
     if use_static_hb:

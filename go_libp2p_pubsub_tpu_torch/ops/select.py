@@ -6,8 +6,12 @@ eligibility filter (getPeers/shufflePeers, gossipsub.go:1852-1909). Both
 reduce to ``rank_desc`` — a dense descending rank with masked slots pushed
 to the end and ties broken by uniform noise — and "top k" is ``rank < k``.
 
-Only the pairwise form (the JAX package's ``fused=False``, which the bench
-builds) is ported; the sort composite waits for a later slice.
+``rank_desc`` is the pairwise count of the JAX package's ``fused=False``
+form; its ``fused=True`` sort form gives the same ranks on NaN-free inputs,
+so the port keeps one form for both builds. On the card
+``select_topk_mask`` is one launch of the ``select_topk`` kernel
+(``ops/select_topk.py``); on the CPU it ranks with the kernel's plain
+version.
 """
 
 from __future__ import annotations
@@ -16,38 +20,43 @@ import torch
 
 from .. import prng
 from . import bitset
+from . import select_topk as sk
+from .select_topk import rank_desc_pairwise as _rank_desc_pairwise
 
 
-def _rank_desc_pairwise(primary: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-    """O(K^2) pairwise count of slots that outrank each slot in the strict
-    (value, noise, index)-descending order."""
-    k = primary.shape[-1]
-    idx = torch.arange(k, dtype=torch.int32, device=primary.device)
-    pi, pj = primary[..., :, None], primary[..., None, :]
-    ni, nj = noise[..., :, None], noise[..., None, :]
-    ties = pj == pi
-    nties = nj == ni
-    outranks = (pj > pi) | (ties & (nj > ni)) | (
-        ties & nties & (idx[None, :] < idx[:, None]))
-    return outranks.sum(-1, dtype=torch.int32)
+def _noise(key, shape, device) -> torch.Tensor:
+    if key is not None:
+        return prng.uniform(key, shape)
+    return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
 def rank_desc(values: torch.Tensor, mask: torch.Tensor, key=None) -> torch.Tensor:
     """Dense descending rank along the last axis: the highest masked value
     gets 0, unmasked slots rank after all masked ones, ties break by
     uniform noise drawn from ``key`` (by slot index without one)."""
-    if key is not None:
-        noise = prng.uniform(key, values.shape)
-    else:
-        noise = torch.zeros(values.shape, dtype=torch.float32,
-                            device=values.device)
+    noise = _noise(key, values.shape, values.device)
     primary = torch.where(mask, values.to(torch.float32), float("-inf"))
     return _rank_desc_pairwise(primary, noise)
+
+
+def kernel_rows(values, mask, k, key=None):
+    """The ``[R, K]`` arguments of one ``select_topk`` call for
+    ``[..., K]`` inputs: float32 values and the mask made contiguous (the
+    heartbeat's score plane is a broadcast view), ``k`` broadcast to one
+    int32 width per row, the tie-break noise drawn from ``key``."""
+    k_dim = values.shape[-1]
+    k_rows = torch.as_tensor(k, device=values.device).to(torch.int32)
+    return (values.to(torch.float32).contiguous().reshape(-1, k_dim),
+            mask.contiguous().reshape(-1, k_dim),
+            k_rows.expand(values.shape[:-1]).reshape(-1).contiguous(),
+            _noise(key, values.shape, values.device).reshape(-1, k_dim))
 
 
 def select_topk_mask(values, mask, k, key=None):
     """Bool mask choosing the (up to) k highest masked values per row; ``k``
     is a scalar or a tensor broadcastable to ``values.shape[:-1]``."""
+    if values.is_cuda:
+        return sk.select_topk(*kernel_rows(values, mask, k, key)).reshape(values.shape)
     ranks = rank_desc(values, mask, key)
     k_arr = torch.as_tensor(k, device=values.device)[..., None]
     return (ranks < k_arr) & mask

@@ -1,0 +1,96 @@
+"""The heartbeat's per-row top-k selection as one Hopper kernel
+(``csrc/select_topk.cu``).
+
+``select_topk`` replaces ``go_libp2p_pubsub_tpu/ops/pallas_csr.py``
+``select_topk_pallas``: over rows ``[R, K]`` it returns
+``(rank < k_rows[:, None]) & mask``, where ``rank`` counts the slots that
+outrank each slot in the strict (value, noise, slot index)-descending order
+and masked-out slots carry ``-inf``. The GossipSub heartbeat makes eight such
+selections over its ``[N, S, K]`` rows; ``ops/select.py`` routes every one of
+them here on the card.
+
+The kernel gives one thread each (row, slot), stages a block's rows in
+shared memory and counts in a loop, so the ``[R, K, K]`` compare planes of
+the plain pairwise form (``select_topk_plain``, in this module) never reach
+device memory. It takes any K up to its block of 256 threads and raises
+above that.
+
+The wrapper launches the kernel for a CUDA tensor — or raises — and takes the
+plain version only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+
+LAUNCHES = {"select_topk": 0}
+
+#: the kernel's block size: one thread per slot of a row
+MAX_K = 256
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["select_topk"] = 0
+
+
+def rank_desc_pairwise(primary: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """O(K^2) pairwise count of slots that outrank each slot in the strict
+    (value, noise, index)-descending order."""
+    k = primary.shape[-1]
+    idx = torch.arange(k, dtype=torch.int32, device=primary.device)
+    pi, pj = primary[..., :, None], primary[..., None, :]
+    ni, nj = noise[..., :, None], noise[..., None, :]
+    ties = pj == pi
+    nties = nj == ni
+    outranks = (pj > pi) | (ties & (nj > ni)) | (
+        ties & nties & (idx[None, :] < idx[:, None]))
+    return outranks.sum(-1, dtype=torch.int32)
+
+
+def select_topk_plain(values, mask, k_rows, noise):
+    """The pairwise form: ``values``/``noise`` ``[R, K]``, ``mask`` ``[R, K]``
+    bool, ``k_rows`` ``[R]`` int32 -> ``[R, K]`` bool."""
+    primary = torch.where(mask, values.to(torch.float32), float("-inf"))
+    rank = rank_desc_pairwise(primary, noise)
+    return (rank < k_rows[:, None]) & mask
+
+
+def _lib():
+    lib = kernels.load("select_topk")
+    if not getattr(lib, "_bound", False):
+        kernels.bind(lib, "select_topk_launch", 5, 2)
+        lib._bound = True
+    return lib
+
+
+def select_topk(values, mask, k_rows, noise):
+    """Per-row top-k mask over ``[R, K]`` rows. ``values`` is any float
+    dtype (ranked as float32, as the TPU kernel does), ``mask`` bool,
+    ``k_rows`` ``[R]`` int32 (any value: at or below 0 selects nothing,
+    K or more every masked slot), ``noise`` float32, all contiguous on one
+    device. Returns a fresh ``[R, K]`` bool tensor. The arguments are
+    checked on either device, so the CPU takes what the card takes."""
+    if values.dim() != 2 or not values.dtype.is_floating_point:
+        raise ValueError(f"select_topk: values must be a 2-D float tensor, got "
+                         f"{values.dtype} of shape {tuple(values.shape)}")
+    r, k = values.shape
+    if r == 0 or not 0 < k <= MAX_K:
+        raise ValueError(f"select_topk: needs R > 0 rows and 1 <= K <= {MAX_K}, "
+                         f"got R={r}, K={k}")
+    dev = values.device
+    values = values.to(torch.float32)
+    kernels.check(values, "values", torch.float32, (r, k), dev)
+    kernels.check(mask, "mask", torch.bool, (r, k), dev)
+    kernels.check(k_rows, "k_rows", torch.int32, (r,), dev)
+    kernels.check(noise, "noise", torch.float32, (r, k), dev)
+    if not values.is_cuda:
+        return select_topk_plain(values, mask, k_rows, noise)
+    out = torch.empty((r, k), dtype=torch.bool, device=dev)
+    err = _lib().select_topk_launch(
+        *(kernels.ptr(x) for x in (values, mask, k_rows, noise, out)), r, k,
+        kernels.stream(dev))
+    kernels.raise_on(err, "select_topk")
+    LAUNCHES["select_topk"] += 1
+    return out

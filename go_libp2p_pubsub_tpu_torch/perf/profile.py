@@ -4,9 +4,11 @@
         [--engine gossipsub|floodsub] [--layout dense|csr]
         [--warm 16] [--rounds 16] [--out PATH]
 
-Builds the bench's default GossipSub config (or, with ``--engine
-floodsub``, FloodSub over ``ring_lattice(n, d=8)`` dense or over the
-power-law graph CSR-resident with ``--layout csr``) on the card, runs
+Builds the bench's default GossipSub config — banded dense, or with
+``--layout csr`` the bench's CSR variant (CSR-resident, ``fused=True``) —
+or, with ``--engine floodsub``, FloodSub over ``ring_lattice(n, d=8)``
+dense or over the power-law graph CSR-resident with ``--layout csr``, on
+the card, runs
 ``--warm`` rounds,
 times ``--rounds`` untraced rounds, then traces ``--rounds`` more with
 ``torch.profiler`` and prints: ms per round untraced and traced, device
@@ -14,8 +16,10 @@ kernel time per round, the device's busy time per round (union of kernel
 intervals) and its share of the untraced round (the profiler stretches
 the host's dispatch, so the share of the traced window is printed beside
 it only for reference), kernel launches per round, the kernels by device
-time, and the host-side ops by launch count. ``--out`` also writes the
-numbers as JSON. Needs a CUDA device.
+time (each with the host op and input shapes whose launches of it took
+the most device time), and
+the host-side ops by launch count. ``--out`` also writes the numbers as
+JSON. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -52,9 +56,8 @@ def _union_us(intervals) -> float:
 def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
                    layout: str = "dense") -> dict:
     if engine == "gossipsub":
-        if layout != "dense":
-            raise SystemExit("profile: the GossipSub step runs the dense layout only")
-        st, step, n_topics, honest = sweep.build_bench(n, 64, device="cuda")
+        st, step, n_topics, honest = sweep.build_bench(
+            n, 64, edge_layout=layout, fused=layout == "csr", device="cuda")
     else:
         graph = "lattice" if layout == "dense" else "powerlaw"
         st, step = sweep.build_floodsub(n, 64, graph=graph, layout=layout, device="cuda")
@@ -71,7 +74,7 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
     untraced_us = 1e6 * (time.perf_counter() - t0)
     traced = slice(warm + rounds, warm + 2 * rounds)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
         st = sweep.run_rounds(st, step, po[traced], pt[traced], pv[traced])
         torch.cuda.synchronize()
@@ -85,9 +88,14 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
     busy = _union_us([(e.time_range.start, e.time_range.end) for e in kev])
     kernel_us = sum(v[1] for v in by_name.values())
     host_ops: dict = {}
+    launched_by: dict = {}    # kernel name -> {host op and shapes: device us}
     for e in _events_on(prof, "cpu"):
         if e.name.startswith("aten::"):
             host_ops[e.name] = host_ops.get(e.name, 0) + 1
+        for kern in e.kernels:
+            by = launched_by.setdefault(kern.name, {})
+            op = f"{e.name} {e.input_shapes}"
+            by[op] = by.get(op, 0.0) + kern.duration
     return {
         "engine": engine, "layout": layout, "n_peers": n, "rounds": rounds,
         "host_ms_per_round": wall_us / 1e3 / rounds,
@@ -99,7 +107,10 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
         "kernel_launches_per_round": len(kev) / rounds,
         "kernels": sorted(
             ({"name": k, "launches_per_round": v[0] / rounds,
-              "us_per_round": v[1] / rounds} for k, v in by_name.items()),
+              "us_per_round": v[1] / rounds,
+              "launched_by": max(launched_by.get(k, {"": 0}).items(),
+                                 key=lambda kv: kv[1])[0]}
+             for k, v in by_name.items()),
             key=lambda r: -r["us_per_round"]),
         "host_ops_per_round": sorted(
             ({"op": k, "calls_per_round": c / rounds} for k, c in host_ops.items()),
@@ -136,6 +147,7 @@ def main(argv=None) -> int:
     for r in rep["kernels"][: args.top]:
         print(f"  {r['us_per_round']:10.1f} us/round {r['launches_per_round']:7.1f}x  "
               f"{r['name'][:110]}")
+        print(f"{'':34}from {r['launched_by'][:140]}")
     print("host ops by calls/round:")
     for r in rep["host_ops_per_round"][: args.top]:
         print(f"  {r['calls_per_round']:8.1f}  {r['op']}")

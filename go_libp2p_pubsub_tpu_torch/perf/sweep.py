@@ -3,8 +3,9 @@ the bench's publish schedule:
 
 * ``build_bench`` — the ``default`` configuration of the JAX package's
   ``perf/sweep.build_bench`` (GossipSub v1.1, one topic every peer
-  subscribes, live scoring, ``ring_lattice(n, d=8)`` so K=16 and banded,
-  4 publishes per round);
+  subscribes, live scoring, ``ring_lattice(n, d=8)`` so K=16, 4 publishes
+  per round), banded dense or, with ``edge_layout="csr"``, CSR-resident,
+  built with the ``fused`` flag the config and the Net share;
 * ``build_floodsub`` — FloodSub on one topic every peer joins, over the
   same lattice or the capacity-bounded power-law graph, in the dense or
   the CSR layout."""
@@ -49,10 +50,12 @@ def bench_score_params(n_topics: int):
 
 def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                 config: str = "default", count_events: bool = False,
-                device=None):
+                edge_layout: str = "dense", fused: bool = False, device=None):
     """Build (state, step, n_topics, honest) for the ``default`` bench
     config: the per-round step, tracer detached (no event counters unless
-    ``count_events``), no fanout slots (every peer joins the topic)."""
+    ``count_events``), no fanout slots (every peer joins the topic).
+    ``edge_layout`` and ``fused`` go to both ``Net.build`` and
+    ``GossipSubConfig.build``, as in the JAX package."""
     if config != "default":
         raise NotImplementedError(
             f"bench config {config!r} is not ported yet (eth2 needs fanout, "
@@ -61,10 +64,11 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     tp = graphlib.ring_lattice(n_peers, d=8)
     n_topics = 1
     subs = graphlib.subscribe_all(n_peers, 1)
-    net = Net.build(tp, subs, device=dev)
+    net = Net.build(tp, subs, edge_layout=edge_layout, fused=fused, device=dev)
     params = dataclasses.replace(GossipSubParams(), flood_publish=False)
     _tp, sp = bench_score_params(n_topics)
-    cfg = GossipSubConfig.build(params, PeerScoreThresholds(), score_enabled=True)
+    cfg = GossipSubConfig.build(params, PeerScoreThresholds(), score_enabled=True,
+                                edge_layout=edge_layout, fused=fused)
     cfg = dataclasses.replace(cfg, count_events=count_events, fanout_slots=0)
     st = GossipSubState.init(net, msg_slots, cfg, score_params=sp, seed=seed)
     step = make_gossipsub_step(cfg, net, score_params=sp)

@@ -88,9 +88,10 @@ class Net:
     csr_seg_start: torch.Tensor | None = None     # [E] bool
     csr_row_last: torch.Tensor | None = None      # [N] i32
     csr_row_nonempty: torch.Tensor | None = None  # [N] bool
-    # the reference's bandwidth-lean composite set; the CSR delivery
-    # round takes the same kernel either way (every row segment has at
-    # most K edges in both builds), and the GossipSub step refuses it
+    # the reference's bandwidth-lean composite set; the port's selection
+    # has one form in both builds (its ranks equal the reference's sort
+    # form), and the CSR delivery round takes the same kernel either way
+    # (every row segment has at most K edges in both builds)
     fused: bool = False
 
     @property
@@ -304,6 +305,50 @@ class SimState:
             dlv=Delivery.empty(n_peers, msg_slots, k, dev, n_edges=n_edges),
             events=zero_counters(dev),
         )
+
+
+def densify_edge_planes(net: Net, st):
+    """A GossipSub state's CSR-resident flat planes -> their dense forms:
+    ``fe_words``, ``served_lo``/``served_hi`` ``[E, W] -> [N, K, W]`` and
+    ``peerhave``/``iasked`` ``[E] -> [N, K]``, absent slots zero. A dense
+    state passes through unchanged."""
+    if st.served_lo.dim() == 3:
+        return st
+    dlv = st.core.dlv
+    return replace(st, core=replace(st.core, dlv=replace(
+        dlv, fe_words=net.unpack_edges(dlv.fe_words))),
+        served_lo=net.unpack_edges(st.served_lo),
+        served_hi=net.unpack_edges(st.served_hi),
+        peerhave=net.unpack_edges(st.peerhave),
+        iasked=net.unpack_edges(st.iasked))
+
+
+def flatten_edge_planes(net: Net, st):
+    """Dense per-edge planes -> the CSR-resident flat forms (the inverse of
+    ``densify_edge_planes``, exact because a dense plane is zero on absent
+    slots). A flat state passes through unchanged."""
+    if st.served_lo.dim() == 2:
+        return st
+    dlv = st.core.dlv
+    return replace(st, core=replace(st.core, dlv=replace(
+        dlv, fe_words=net.pack_edges(dlv.fe_words))),
+        served_lo=net.pack_edges(st.served_lo),
+        served_hi=net.pack_edges(st.served_hi),
+        peerhave=net.pack_edges(st.peerhave),
+        iasked=net.pack_edges(st.iasked))
+
+
+def wrap_csr_resident(net: Net, fn):
+    """Wrap a step for a CSR-resident state: densify the flat planes at
+    entry, run the dense-written ``fn`` unchanged, re-pack at exit, so the
+    state between steps holds only the present edges."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapped(st, *args, **kwargs):
+        return flatten_edge_planes(net, fn(densify_edge_planes(net, st), *args, **kwargs))
+
+    return wrapped
 
 
 def _scatter_drop(tbl: torch.Tensor, sidx: torch.Tensor,

@@ -142,7 +142,7 @@ def test_unported_options_raise():
     import dataclasses
 
     _jcfg, _jnet, _jsp, tcfg, tnet, tsp = bench_builds(n=N, d=4)
-    for kw in ({"fanout_slots": 2}, {"do_px": True}, {"fused": True}):
+    for kw in ({"fanout_slots": 2}, {"do_px": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tmake(dataclasses.replace(tcfg, **kw), tnet, score_params=tsp)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -150,18 +150,29 @@ def test_unported_options_raise():
     from go_libp2p_pubsub_tpu_torch import graph
     from go_libp2p_pubsub_tpu_torch.state import Net
 
-    # CSR and fused nets build (FloodSub runs on them); the GossipSub step
-    # refuses them
-    for kw in ({"edge_layout": "csr"}, {"fused": True},
-               {"edge_layout": "csr", "fused": True}):
-        other = Net.build(graph.ring_lattice(N, d=4), graph.subscribe_all(N, 1),
-                          device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmake(tcfg, other, score_params=tsp)
-    general = Net.build(graph.random_connect(N, d=3, seed=1),
-                        graph.subscribe_all(N, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="non-banded"):
-        tmake(tcfg, general, score_params=tsp)
+    # CSR, fused and non-banded nets build and step (their parity with the
+    # JAX step is tests/test_torch_gossipsub_csr.py); a config whose layout
+    # or fused flag differs from the net's is refused
+    po = torch.tensor([3, 7, -1, 11], dtype=torch.int32)
+    pt = torch.zeros(4, dtype=torch.int32)
+    pv = torch.ones(4, dtype=torch.bool)
+    for topo, kw in ((graph.ring_lattice(N, d=4), {"edge_layout": "csr"}),
+                     (graph.ring_lattice(N, d=4), {"fused": True}),
+                     (graph.ring_lattice(N, d=4), {"edge_layout": "csr", "fused": True}),
+                     (graph.random_connect(N, d=3, seed=1), {})):
+        other = Net.build(topo, graph.subscribe_all(N, 1), device="cpu", **kw)
+        cfg = dataclasses.replace(tcfg, **kw)
+        step = tmake(cfg, other, score_params=tsp)
+        st = TState.init(other, 64, cfg, score_params=tsp)
+        for _ in range(3):
+            st = step(st, po, pt, pv)
+        assert int(st.core.tick) == 3
+        assert st.served_lo.dim() == (2 if other.edge_layout == "csr" else 3)
+        assert bool((st.mesh.sum(-1) > 0).any())
+        for bad in ({"fused": not cfg.fused}, {"edge_layout": "dense" if kw.get(
+                "edge_layout") == "csr" else "csr"}):
+            with pytest.raises(ValueError, match="same"):
+                tmake(dataclasses.replace(cfg, **bad), other, score_params=tsp)
     with pytest.raises(NotImplementedError, match="verdict"):
         step = tmake(tcfg, tnet, score_params=tsp)
         st = TState.init(tnet, 64, tcfg, score_params=tsp)

@@ -1,4 +1,5 @@
-"""The FloodSub delivery kernels against their plain versions on the card.
+"""The delivery kernels and the heartbeat's select_topk kernel against
+their plain versions on the card.
 
 This file imports only the port (no JAX package), so it also runs on a
 machine that has PyTorch with CUDA and nothing of the JAX stack:
@@ -6,7 +7,8 @@ machine that has PyTorch with CUDA and nothing of the JAX stack:
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Each test skips when no CUDA device is present. The plain versions are
-held against the JAX package on the CPU in tests/test_torch_delivery.py.
+held against the JAX package on the CPU in tests/test_torch_delivery.py
+and tests/test_torch_select.py.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from go_libp2p_pubsub_tpu_torch import graph, topo
 from go_libp2p_pubsub_tpu_torch.ops import bitset
 from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
 from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
+from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
 from go_libp2p_pubsub_tpu_torch.state import Net
 
 
@@ -101,3 +104,36 @@ def test_unsupported_shapes_raise_on_the_card(cuda):
     with pytest.raises(ValueError, match="W = ceil"):
         db.delivery_banded(*args[:5], z(n, 96), *args[6:], **static)
     assert db.LAUNCHES["delivery_banded"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k", [(4096, 16), (1000, 64), (333, 5), (64, 256)])
+def test_select_topk_kernel_equals_plain(cuda, r, k):
+    """Bit for bit, on quantized values and noise (ties), signed zeros,
+    all-masked rows and widths from -1 to K + 1."""
+    rng = np.random.default_rng(r + k)
+    values = rng.choice(np.array([-1.5, -0.0, 0.0, 0.5, 2.0], np.float32), size=(r, k))
+    mask = rng.random((r, k)) < 0.7
+    mask[:3] = False
+    noise = rng.choice(np.array([-0.0, 0.0, 0.25, 0.5], np.float32), size=(r, k))
+    k_rows = rng.integers(-1, k + 2, size=(r,)).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (values, mask, k_rows, noise)]
+    ref = sk.select_topk_plain(*args)
+    sk.LAUNCHES["select_topk"] = 0
+    got = sk.select_topk(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["select_topk"] == 1
+    assert torch.equal(ref, got.cpu())
+
+
+@pytest.mark.cuda
+def test_select_topk_refuses_on_the_card(cuda):
+    z = torch.zeros((8, 16), device=cuda)
+    m = torch.ones((8, 16), dtype=torch.bool, device=cuda)
+    kr = torch.full((8,), 2, dtype=torch.int32, device=cuda)
+    sk.LAUNCHES["select_topk"] = 0
+    for bad in ((z, m.cpu(), kr, z), (z, m, kr.long(), z), (z, m, kr, z[:, :15]),
+                (torch.zeros((8, sk.MAX_K + 1), device=cuda), m, kr, z)):
+        with pytest.raises((ValueError, TypeError)):
+            sk.select_topk(*bad)
+    assert sk.LAUNCHES["select_topk"] == 0

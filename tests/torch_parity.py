@@ -1,6 +1,6 @@
 """Shared helpers of the port's parity tests: the JAX package's state as
 schema-path leaves, and the bench-default GossipSub builds of both
-packages on the same small banded topology."""
+packages on the same small topology (the banded lattice by default)."""
 
 from __future__ import annotations
 
@@ -39,9 +39,13 @@ def diff_leaves(ref: dict, got: dict, where: str = "") -> None:
 
 
 def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
-                 count_events=True, seed=0):
+                 count_events=True, seed=0, topologies=None,
+                 edge_layout="dense", fused=False):
     """(jax_cfg, jax_net, sp, torch_cfg, torch_net, torch_sp) for the
-    bench's default params on ring_lattice(n, d)."""
+    bench's default params on ring_lattice(n, d), or on ``topologies``, a
+    (JAX Topology, port Topology) pair of the same graph, in
+    ``edge_layout`` with the ``fused`` flag on both the net and the
+    config."""
     from go_libp2p_pubsub_tpu import config as jconfig
     from go_libp2p_pubsub_tpu import graph as jgraph
     from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubConfig as JCfg
@@ -54,17 +58,19 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     from go_libp2p_pubsub_tpu_torch.perf.sweep import bench_score_params as tbsp
     from go_libp2p_pubsub_tpu_torch.state import Net as TNet
 
-    jnet = JNet.build(jgraph.ring_lattice(n, d=d), jgraph.subscribe_all(n, 1))
+    if topologies is None:
+        topologies = jgraph.ring_lattice(n, d=d), tgraph.ring_lattice(n, d=d)
+    layout = dict(edge_layout=edge_layout, fused=fused)
+    jnet = JNet.build(topologies[0], jgraph.subscribe_all(n, 1), **layout)
     jcfg = JCfg.build(dataclasses.replace(jconfig.GossipSubParams(), flood_publish=False),
                       jconfig.PeerScoreThresholds(), score_enabled=True,
-                      heartbeat_every=heartbeat_every)
+                      heartbeat_every=heartbeat_every, **layout)
     jcfg = dataclasses.replace(jcfg, count_events=count_events, fanout_slots=0)
     _, jsp = jbsp("default", 1)
-    tnet = TNet.build(tgraph.ring_lattice(n, d=d), tgraph.subscribe_all(n, 1),
-                      device="cpu")
+    tnet = TNet.build(topologies[1], tgraph.subscribe_all(n, 1), device="cpu", **layout)
     tcfg = TCfg.build(dataclasses.replace(tconfig.GossipSubParams(), flood_publish=False),
                       tconfig.PeerScoreThresholds(), score_enabled=True,
-                      heartbeat_every=heartbeat_every)
+                      heartbeat_every=heartbeat_every, **layout)
     tcfg = dataclasses.replace(tcfg, count_events=count_events, fanout_slots=0)
     _, tsp = tbsp(1)
     return jcfg, jnet, jsp, tcfg, tnet, tsp
