@@ -2,7 +2,16 @@
 """Drive the PyTorch/CUDA port (go_libp2p_pubsub_tpu_torch) on one NVIDIA
 GPU and check what comes out.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
+
+Every kernel time is a batch of back-to-back launches on prepared
+arguments: one wrapper call records the arguments it hands its C function,
+and the launches replay exactly those (no checks, uncounted). The plain
+versions and library calls are timed as batches of calls. With
+``--baseline DIR`` (a checkout of another commit, e.g. unpacked with
+``git archive``), the kernels of DIR's csrc/ are built too and timed on
+the same prepared arguments in turns (baseline, this tree, this tree,
+baseline), after a check that both write the same outputs.
 
 Phases, each printing its own lines; any failure exits non-zero before the
 last line is printed:
@@ -12,9 +21,9 @@ last line is printed:
    sm_90a, one nvcc per source, all started together;
 3. GossipSub kernels — at the bench's shapes (N=100k, K=16, W=2, C=4), on
    inputs captured from a real round and on random words, edge_exchange and
-   fused_delivery must equal their plain PyTorch versions exactly;
-   CUDA-event medians of the kernel, the plain version and (edge_exchange)
-   the one-call library gather, beside the bytes bound;
+   fused_delivery must equal their plain PyTorch versions exactly; times of
+   the kernel, the plain version and (edge_exchange) the one-call library
+   gather, beside the bytes bound;
 4. GossipSub at full width — the bench's default config at N=100k,
    formation rounds then 64 rounds of the bench's publish schedule; both
    fused-kernel launch counters must equal the round count and select_topk
@@ -32,11 +41,11 @@ last line is printed:
    CSR-resident, fused=True: 16 + 32 rounds; host set-up seconds,
    rounds/s, peak memory, the launch and subset checks;
 8. select_topk — on a heartbeat call captured from phase 6 (R=100k, K=16)
-   and from phase 7 (K=64), and on random rows with ties, signed zeros,
-   all-masked rows and widths 0..K+1: equal to its plain version bit for
-   bit; CUDA-event times of batches of back-to-back calls (the kernel
-   alone on prepared arguments), the pairwise and the sort form, beside
-   the bound;
+   and from phase 7 (K=64), on random rows with ties, signed zeros,
+   all-masked rows and widths 0..K+1, and on hazard rows (masked +-inf and
+   NaN, subnormals, equal rows; tests/torch_parity.hazard_rows) of the
+   same shape: equal to its plain version bit for bit; times of the
+   kernel, the pairwise and the sort form, beside the bound;
 9. GossipSub CSR card against CPU — phases 6 and 7's builds at N=8192 for
    32 rounds, every leaf equal after every round;
 10. FloodSub, banded dense — ring_lattice(100k, d=8): delivery_banded
@@ -46,7 +55,9 @@ last line is printed:
    have, every message older than 4 rounds past its origin;
 11. FloodSub, CSR-resident — powerlaw(1M, 2.2, d_min=2, max_degree=64,
    seed=0): csr_delivery the same way, with the link-deny mask on and off,
-   then the same 80-round run;
+   and on the hazard graph (tests/torch_parity.hazard_graph: empty rows,
+   rows of 1-64 edges and one of 200, W = 1, 2, 3), then the same 80-round
+   run;
 12. FloodSub card against CPU — both layouts at N=8192 for 32 rounds, every
    leaf equal after every round.
 
@@ -57,10 +68,14 @@ package, and exits non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
+import ctypes
 import dataclasses
+import hashlib
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -99,25 +114,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Median CUDA-event time of one call, in milliseconds."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def batch_ms(fn, calls: int = 50, reps: int = 5) -> float:
     """Median over ``reps`` batches of ``calls`` back-to-back calls between
     one pair of CUDA events, divided by ``calls``: the device time of a
@@ -139,6 +135,98 @@ def batch_ms(fn, calls: int = 50, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def prepared(lib, fn: str, call):
+    """Run ``call`` (one wrapper call) once, recording the arguments it hands
+    the C function ``fn`` of ``lib``. Returns ``launch(other=None)``, which
+    launches ``fn`` again on exactly those arguments (the same output
+    buffers, no checks, uncounted), or the same function of ``other`` (a
+    library with the same C interface, e.g. the baseline's). ``launch.out``
+    keeps the wrapper's outputs alive."""
+    from go_libp2p_pubsub_tpu_torch.ops import kernels
+
+    orig = getattr(lib, fn)
+    seen = []
+
+    def record(*args):
+        seen.append(args)
+        return orig(*args)
+
+    setattr(lib, fn, record)
+    try:
+        out = call()
+    finally:
+        setattr(lib, fn, orig)
+    args = seen[0]
+
+    def launch(other=None):
+        f = orig
+        if other is not None:
+            f = getattr(other, fn)
+            f.argtypes, f.restype = orig.argtypes, orig.restype
+        kernels.raise_on(f(*args), fn)
+
+    launch.out = out
+    return launch
+
+
+def outputs_of(out) -> list:
+    """The output tensors of a wrapper's result, in a fixed order."""
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    if isinstance(out, (tuple, list)):
+        return [t for t in out if t is not None]
+    return [out]
+
+
+def build_baseline(tree: str) -> dict:
+    """Build the kernel sources of another checkout (``tree``/
+    go_libp2p_pubsub_tpu_torch/csrc/*.cu), one nvcc each, all started
+    together, into build/torch_kernels/baseline/; returns {source: CDLL}."""
+    from go_libp2p_pubsub_tpu_torch.ops import kernels
+
+    csrc = pathlib.Path(tree) / "go_libp2p_pubsub_tpu_torch" / "csrc"
+    out = kernels.BUILD_DIR / "baseline"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in KERNEL_SOURCES:
+        src = csrc / f"{name}.cu"
+        tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        lib = out / f"lib{name}-{tag}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            raise RuntimeError(f"baseline nvcc failed for {name}.cu:\n{log}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def kernel_times(launch, baseline=None) -> dict:
+    """``ms``: batches of back-to-back prepared launches. With a baseline
+    library: first a check that it writes the same outputs on the same
+    arguments, then both timed in turns (baseline, this tree, this tree,
+    baseline) and ``ms``/``baseline_ms`` the means of each pair."""
+    import torch
+
+    if baseline is None:
+        return {"ms": batch_ms(launch)}
+    launch()
+    torch.cuda.synchronize()
+    mine = [t.clone() for t in outputs_of(launch.out)]
+    launch(baseline)
+    torch.cuda.synchronize()
+    max_abs_err(mine, outputs_of(launch.out))
+    b1 = batch_ms(lambda: launch(baseline))
+    n1 = batch_ms(launch)
+    n2 = batch_ms(launch)
+    b2 = batch_ms(lambda: launch(baseline))
+    return {"ms": (n1 + n2) / 2, "baseline_ms": (b1 + b2) / 2,
+            "ab_ms": [b1, n1, n2, b2]}
 
 
 def nbytes(*ts) -> int:
@@ -206,9 +294,11 @@ def randomize_words(args, gen):
     return out
 
 
-def check_kernels(fr, captured, gen):
+def check_kernels(fr, captured, gen, base):
     """Phase 3: each kernel against its plain version on the card, and its
-    time. Returns the per-kernel records (launches filled in later)."""
+    time (beside the baseline's when ``base`` holds the baseline's
+    libraries). Returns the per-kernel records (launches filled in
+    later)."""
     import torch
 
     records = []
@@ -232,18 +322,20 @@ def check_kernels(fr, captured, gen):
               + torch.tensor(kw["offsets"], device=wire.device)[None, :]) % n) * k
             + torch.tensor(kw["revs"], device=wire.device)[None, :]).reshape(-1)
     flat = wire.view(n * k, c)
+    launch = prepared(fr._lib(), "edge_exchange_launch",
+                      lambda: fr.edge_exchange(*args, **kw))
     rec = {
         "name": "edge_exchange", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES["edge_exchange"], "launches": 0,
         "max_abs_err": err,
-        "ms": time_ms(lambda: fr.edge_exchange(*args, **kw)),
-        "plain_ms": time_ms(lambda: fr.edge_exchange_plain(*args, **kw)),
+        **kernel_times(launch, base and base["fused_round"]),
+        "plain_ms": batch_ms(lambda: fr.edge_exchange_plain(*args, **kw)),
         **bound(io, ops),
-        "library_ms": time_ms(lambda: flat[perm]),
+        "library_ms": batch_ms(lambda: flat[perm]),
     }
     records.append(rec)
     say(f"kernel edge_exchange: N={n} K={k} C={c} exact (max_abs_err {err}) "
-        f"kernel_ms={rec['ms']:.6f} plain_ms={rec['plain_ms']:.6f} "
+        f"kernel_ms={rec['ms']:.6f}{baseline_note(rec)} plain_ms={rec['plain_ms']:.6f} "
         f"bound_ms={rec['bound_ms']:.6f} library_ms={rec['library_ms']:.6f} "
         f"({io} bytes moved)")
 
@@ -268,22 +360,31 @@ def check_kernels(fr, captured, gen):
     res = fr.fused_delivery(*args, **kw)
     io = nbytes(*[t for t in args if hasattr(t, "numel")], *res.values())
     ops = 40 * n * k * w               # word ops per (peer, edge, word)
+    launch = prepared(fr._lib(), "fused_delivery_launch",
+                      lambda: fr.fused_delivery(*args, **kw))
     rec = {
         "name": "fused_delivery", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES["fused_delivery"], "launches": 0,
         "max_abs_err": err,
-        "ms": time_ms(lambda: fr.fused_delivery(*args, **kw)),
-        "plain_ms": time_ms(lambda: fr.fused_delivery_plain(*args, **kw)),
+        **kernel_times(launch, base and base["fused_round"]),
+        "plain_ms": batch_ms(lambda: fr.fused_delivery_plain(*args, **kw)),
         **bound(io, ops),
         "library_ms": None,
     }
     records.append(rec)
     say(f"kernel fused_delivery: N={n} K={k} W={w} want_cohorts={kw['want_cohorts']} "
-        f"exact (max_abs_err {err}) kernel_ms={rec['ms']:.6f} "
+        f"exact (max_abs_err {err}) kernel_ms={rec['ms']:.6f}{baseline_note(rec)} "
         f"plain_ms={rec['plain_ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
         f"library_ms=null ({io} bytes moved)")
     say("kernels: " + ", ".join(r["name"] for r in records))
     return records
+
+
+def baseline_note(rec: dict) -> str:
+    if "baseline_ms" not in rec:
+        return ""
+    return (f" baseline_ms={rec['baseline_ms']:.6f} (in turns: "
+            f"{', '.join(f'{t:.6f}' for t in rec['ab_ms'])})")
 
 
 def bound(io: int, ops: int) -> dict:
@@ -318,6 +419,8 @@ def check_flood_kernel(module, name, args, kw, gen):
         names = sorted(ref)
         assert names == sorted(got)
         err = max(err, max_abs_err([ref[x] for x in names], [got[x] for x in names]))
+    if name == "csr_delivery":
+        err = max(err, check_csr_hazards(module, args[0].device))
     res = kernel(*args, **kw)
     if name == "csr_delivery":
         # what the kernel reads: the peer and edge planes, col, eperm, row_ptr
@@ -332,7 +435,38 @@ def check_flood_kernel(module, name, args, kw, gen):
     return err, io, ops
 
 
-def flood_run(sweep, convert, module, name, spec, card, gen, dev):
+def check_csr_hazards(cd, dev) -> float:
+    """csr_delivery against its plain version on the hazard graph of the
+    tests (tests/torch_parity.py): M = 20, 64, 96 (W = 1, 2, 3), a row of
+    200 edges at M=64, the deny mask off and on. Returns max_abs_err."""
+    import numpy as np
+    import torch
+    from torch_parity import HAZARD_M, hazard_graph, hazard_planes
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a.view(np.int32) if a.dtype == np.uint32 else a)).to(dev)
+    err = 0.0
+    for m, long_row in [(m, 0) for m in HAZARD_M] + [(64, 200)]:
+        g = hazard_graph(long_row=long_row)
+        for deny in (False, True):
+            p = hazard_planes(m + deny, g["n"], g["e"], m)
+            args = [t(p[f]) for f in ("fwd", "fe_e", "mask_e", "not_mine", "have",
+                                      "first_round", "valid_row")]
+            args.append(torch.tensor(int(p["tick"]), dtype=torch.int32, device=dev))
+            args += [t(g[f]) for f in ("col", "row", "eperm", "seg_start", "row_last",
+                                       "row_nonempty", "row_ptr")]
+            link = t(p["link_ok_e"]) if deny else None
+            ref = cd.csr_delivery_plain(*args, cap=g["cap"], link_ok_e=link)
+            got = cd.csr_delivery(*args, cap=g["cap"], link_ok_e=link)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err([ref[x] for x in sorted(ref)],
+                                       [got[x] for x in sorted(ref)]))
+    say(f"kernel csr_delivery: hazard graph (N={g['n']}, M in {list(HAZARD_M)}, a "
+        f"200-edge row, deny off and on) exact (max_abs_err {err})")
+    return err
+
+
+def flood_run(sweep, convert, module, name, spec, card, gen, dev, base):
     """Phases 10 and 11: one FloodSub configuration at full size. Its kernel
     against the plain version on a real round's inputs, then the main path:
     80 rounds from a fresh state with the launch counter set to 0 just
@@ -354,14 +488,18 @@ def flood_run(sweep, convert, module, name, spec, card, gen, dev):
     st, captured = capture_round(lambda s: step(s, *sched), st, module, (name,))
     args, kw = captured[name]
     err, io, ops = check_flood_kernel(module, name, args, kw, gen)
+    launch = prepared(module._lib(), f"{name}_launch",
+                      lambda: getattr(module, name)(*args, **kw))
     rec = {
         "name": name, "route": "cuda", "source": DELIVERY_SOURCE,
         "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
-        "ms": time_ms(lambda: getattr(module, name)(*args, **kw)),
-        "plain_ms": time_ms(lambda: getattr(module, name + "_plain")(*args, **kw)),
+        **kernel_times(launch, base and base["delivery"]),
+        "plain_ms": batch_ms(lambda: getattr(module, name + "_plain")(*args, **kw)),
         **bound(io, ops), "library_ms": None,
     }
-    say(f"kernel {name}: exact (max_abs_err {err}) kernel_ms={rec['ms']:.6f} "
+    del launch
+    say(f"kernel {name}: exact (max_abs_err {err}) kernel_ms={rec['ms']:.6f}"
+        f"{baseline_note(rec)} "
         f"plain_ms={rec['plain_ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
         f"({rec['bound_by']}, {io} bytes moved) library_ms=null")
     del st, captured, args
@@ -448,28 +586,35 @@ def sort_form(values, mask, k_rows, noise):
     return (rank < k_rows[:, None]) & mask
 
 
-def prepared_launch(sk, kernels, args):
-    """One select_topk launch on prepared pointers into a reused output,
-    without the wrapper's checks (so uncounted), for timing the kernel."""
+def hazard_rows_on(r: int, k: int, device, seed: int):
+    """tests/torch_parity.hazard_rows of shape [R, K] on ``device``."""
+    import numpy as np
+    import torch
+    from torch_parity import hazard_rows
+
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in hazard_rows(seed, r, k)]
+
+
+def row_paths(values, mask, k_rows) -> dict:
+    """How many rows of a call the kernel decides by its ballot alone
+    (k <= 0, or k at or above the masked count), ranks among the masked
+    slots, or ranks over all K (a masked -inf value)."""
     import torch
 
-    values, mask, k_rows, noise = args
-    r, k = values.shape
-    out = torch.empty((r, k), dtype=torch.bool, device=values.device)
-    lib = sk._lib()
-    ptrs = [kernels.ptr(x) for x in (values, mask, k_rows, noise, out)]
-    stream = kernels.stream(values.device)
-
-    def launch():
-        kernels.raise_on(lib.select_topk_launch(*ptrs, r, k, stream), "select_topk")
-    return launch
+    c = mask.sum(1, dtype=torch.int32)
+    hazard = (mask & (values == float("-inf"))).any(1)
+    ballot = (k_rows <= 0) | (~hazard & (k_rows >= c))
+    return {"ballot": int(ballot.sum()), "ranked": int((~ballot & ~hazard).sum()),
+            "all_k": int((~ballot & hazard).sum())}
 
 
-def check_select_topk(sk, kernels, captured, gen):
-    """Phase 8: select_topk against its plain version (and the sort form)
-    on each captured heartbeat call and on random rows of its shape, and
-    its times: batches of back-to-back calls, the kernel alone on prepared
-    arguments. Returns {tag: numbers}."""
+def check_select_topk(sk, captured, gen, base):
+    """Phase 8: select_topk against its plain version (and, on NaN-free
+    rows, the sort form) on each captured heartbeat call, on random rows of
+    its shape and on hazard rows, and its times: batches of back-to-back
+    launches on prepared arguments (beside the baseline's when ``base`` is
+    given). Returns {tag: numbers}."""
     import torch
 
     out = {}
@@ -477,28 +622,36 @@ def check_select_topk(sk, kernels, captured, gen):
         values, mask, k_rows, noise = args
         r, k = values.shape
         err = 0.0
-        for a in [list(args)] + [random_rows(r, k, values.device, gen) for _ in range(3)]:
+        trials = [list(args)] + [random_rows(r, k, values.device, gen) for _ in range(3)]
+        trials += [hazard_rows_on(r, k, values.device, seed) for seed in (1, 2)]
+        for a in trials:
             ref = sk.select_topk_plain(*a)
             got = sk.select_topk(*a)
             srt = sort_form(*a)
             torch.cuda.synchronize()
             err = max(err, max_abs_err([ref], [got]))
-            if not torch.equal(ref, srt):
+            nan_free = not bool(a[0].isnan().any() or a[3].isnan().any())
+            if nan_free and not torch.equal(ref, srt):
                 raise AssertionError("the sort form differs from the pairwise form")
         io = r * k * 10 + 4 * r        # value, noise f32 + mask, out bytes; k_rows
         # the least work ranks each row by sorting: K log2 K compares
         ops = r * k * max(1, (k - 1).bit_length())
+        launch = prepared(sk._lib(), "select_topk_launch", lambda: sk.select_topk(*args))
         rec = {
             "max_abs_err": err,
-            "ms": batch_ms(prepared_launch(sk, kernels, args)),
+            **kernel_times(launch, base and base["select_topk"]),
             "plain_ms": batch_ms(lambda: sk.select_topk_plain(*args)),
             "sort_ms": batch_ms(lambda: sort_form(*args)),
             **bound(io, ops), "rows": r, "k": k,
             "selected": int(sk.select_topk(*args).sum()),
+            "row_paths": row_paths(values, mask, k_rows),
         }
+        del launch
         out[tag] = rec
-        say(f"kernel select_topk {tag}: R={r} K={k} exact (max_abs_err {err}) "
-            f"kernel_ms={rec['ms']:.6f} plain_ms={rec['plain_ms']:.6f} "
+        say(f"kernel select_topk {tag}: R={r} K={k} exact (max_abs_err {err}, captured, "
+            f"random and hazard rows) rows by path {rec['row_paths']}")
+        say(f"kernel select_topk {tag}: kernel_ms={rec['ms']:.6f}{baseline_note(rec)} "
+            f"plain_ms={rec['plain_ms']:.6f} "
             f"sort_ms={rec['sort_ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
             f"({rec['bound_by']}, {io} bytes, {ops} operations) library_ms=null")
     return out
@@ -593,10 +746,17 @@ def leaves_equal(a: dict, b: dict, where: str):
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="a checkout of another commit whose kernels are timed beside "
+                         "this tree's on the same prepared arguments")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    sys.path.insert(1, os.path.join(root, "tests"))   # torch_parity: the hazard inputs
     from go_libp2p_pubsub_tpu_torch import convert, graph
     from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
     from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
@@ -627,6 +787,11 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say("  " + line.strip())
     say(f"build phase {time.perf_counter() - t0:.2f} s")
+    base = None
+    if opts.baseline:
+        t0 = time.perf_counter()
+        base = build_baseline(opts.baseline)
+        say(f"baseline kernels of {opts.baseline} built in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels at the main path's shapes, inputs from a real round
     st, step, n_topics, honest = sweep.build_bench(N_FULL, M_SLOTS, device=dev)
@@ -636,7 +801,7 @@ def main() -> int:
     sched = [torch.as_tensor(a[8], device=dev) for a in (po, pt, pv)]
     st, captured = capture_round(lambda s: step(s, *sched), st, fr)
     gen = torch.Generator().manual_seed(0)
-    records = check_kernels(fr, captured, gen)
+    records = check_kernels(fr, captured, gen, base)
     del st, captured
 
     # 4. the slice at full width
@@ -756,15 +921,17 @@ def main() -> int:
     del st, _st, cap
 
     # 8. select_topk at the main path's shapes
-    sel = check_select_topk(sk, kernels, select_calls, gen)
+    sel = check_select_topk(sk, select_calls, gen, base)
     main16, k64 = sel["K=16"], sel["K=64"]
     records.append({
         "name": "select_topk", "route": "cuda", "source": SELECT_SOURCE,
         "replaces": REPLACES["select_topk"], "launches": csr_launches,
-        **{k: main16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        **{k: main16[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "baseline_ms", "row_paths") if k in main16},
         "library_ms": None, "sort_ms": main16["sort_ms"],
         "k64": {k: k64[k] for k in ("rows", "max_abs_err", "ms", "plain_ms", "sort_ms",
-                                    "bound_ms", "bound_by")},
+                                    "bound_ms", "bound_by", "baseline_ms", "row_paths")
+                if k in k64},
     })
     del select_calls
 
@@ -776,9 +943,9 @@ def main() -> int:
 
     # 10-12. FloodSub over the shared delivery core, both layouts
     records.append(flood_run(sweep, convert, db, "delivery_banded", dict(
-        n=N_FULL, graph="lattice", layout="dense"), card, gen, dev))
+        n=N_FULL, graph="lattice", layout="dense"), card, gen, dev, base))
     records.append(flood_run(sweep, convert, cd, "csr_delivery", dict(
-        n=N_CSR, graph="powerlaw", layout="csr"), card, gen, dev))
+        n=N_CSR, graph="powerlaw", layout="csr"), card, gen, dev, base))
     for kw in (dict(graph="lattice", layout="dense"), dict(graph="powerlaw", layout="csr")):
         flood_parity(sweep, convert, kw)
 

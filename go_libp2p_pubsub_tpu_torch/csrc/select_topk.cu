@@ -13,66 +13,267 @@
 //                    or (p[j] == p[i] and noise[j] == noise[i] and j < i) }
 //   out[r, i] = rank[i] < k_rows[r]  and  mask[r, i]
 // i.e. the (up to) k_rows[r] masked slots first in the strict (value, noise,
-// index)-descending order. The compares are IEEE float compares, the same as
-// the plain pairwise form's, so -0.0 == +0.0 here exactly as there, and the
-// kernel equals the plain version bit for bit on any input.
+// index)-descending order. The kernel equals the plain pairwise form bit for
+// bit on any input, because it keeps the meaning of its IEEE compares:
+// -0.0 == +0.0; subnormals are kept (no flush to zero); a masked NaN value
+// (or NaN noise at a tie) compares false both ways, so a masked NaN slot
+// has rank 0 and outranks nothing.
 //
-// What bounds it on the card: at K=16 bytes, at K=64 operations. It reads
-// 10 bytes per slot (value, noise f32, mask byte) and 4 per row and writes
-// one byte per slot; it does about 8 compare-and-count operations per
-// (i, j) pair. At R=100k that is 16.4 MB and 0.2 G operations at K=16
-// (about 5 us at 3.35 TB/s against 3 us at 67 T non-tensor ops/s), 64 MB
-// and 3.3 G at K=64 (about 19 us against 49 us).
-// The simple design below: one thread per (row, slot i), K threads per
-// row, 256 / K rows per block. The block stages its rows' masked values and
-// noise in shared memory (coalesced loads), then each thread walks the K
-// slots of its row (a warp reads one address at a time, a broadcast) and
-// writes one byte. The [R, K, K] compare planes of the plain form never
-// exist. Each launch returns cudaGetLastError().
+// What bounds it on the card: bytes. It must read 10 bytes a slot (value
+// and noise f32, mask byte) and 4 a row, and write one byte a slot: at
+// R=100k that is 16.4 MB at K=16 (about 5 us at 3.35 TB/s) and 64.4 MB at
+// K=64 (about 19 us). Sorting each row, the least work, is R*K*log2(K)
+// compares, well under the bytes time at the non-tensor rate.
+//
+// The design: a row belongs to a group of P lanes (4 slots a lane for K a
+// power of two up to 32, so 8 rows share a warp at K=16; a warp of 32 lanes
+// above, 2 slots a lane at K=64). A lane's slots are loaded as one vector of
+// values, one of noise and one word of mask bytes where the pointers allow
+// (neighbouring lanes on neighbouring addresses), and its output bytes are
+// stored the same way. Most rows are decided without ranking: a ballot
+// counts the row's masked slots c; k_rows <= 0 selects nothing and
+// k_rows >= c selects every masked slot, since an unmasked slot (-inf)
+// never outranks a masked one. That covers the padding-heavy rows of a
+// sparse graph (about 5 live slots of 64 on the power-law net) and most
+// heartbeat selections. The other rows rank among their masked slots only:
+// the ballot compacts them into a per-row list in shared memory, so a slot
+// counts its outrankers over c entries instead of K. An entry is the slot's
+// 96-bit key (order key of the value, of the noise, ~index), in which the
+// pairwise order is plain unsigned order; a compare is one subtract chain.
+// A row holding a NaN has no such key and takes the float compares
+// themselves. The trap is a masked slot whose value is -inf: it ties with
+// every unmasked slot, which then outranks it on noise or index, so such a
+// row (one ballot finds it) takes a list of all K slots — the pairwise
+// count itself. Any K up to 256; above, cudaErrorInvalidValue. Each launch
+// returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxK = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void select_topk_kernel(
+// An unsigned key in the order of a float's IEEE compares, for any float
+// but NaN: -0.0 and +0.0 share a key, subnormals keep theirs.
+__device__ __forceinline__ uint32_t order_key(float f) {
+  uint32_t u = __float_as_uint(f);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// n += 1 unless the 96-bit key (x, y, z) of entry e is above slot i's: the
+// carry out of key_i - key_e (one subtract chain, set when nothing is
+// borrowed) added with the carry. The loop below turns the count of
+// entries at or below a slot into the count above it.
+__device__ __forceinline__ void count_at_or_below(int& n, const uint4& i, const uint4& e) {
+#if defined(__CUDA_ARCH__)
+  asm("{\n\t.reg .u32 t;\n\t"
+      "sub.cc.u32 t, %1, %4;\n\t"
+      "subc.cc.u32 t, %2, %5;\n\t"
+      "subc.cc.u32 t, %3, %6;\n\t"
+      "addc.u32 %0, %0, 0;\n\t}"
+      : "+r"(n)
+      : "r"(i.z), "r"(i.y), "r"(i.x), "r"(e.z), "r"(e.y), "r"(e.x));
+#else
+  const uint64_t a = ((uint64_t)i.x << 32) | i.y, b = ((uint64_t)e.x << 32) | e.y;
+  n += !((b > a) || (b == a && e.z > i.z));
+#endif
+}
+
+// P lanes a row, S slots a lane (K <= P*S). VEC: K == P*S and lane g holds
+// slots [g*S, g*S + S), loaded and stored as vectors (S = 2, 4 or 8);
+// otherwise slot s*P + g, one element a load.
+template <int P, int S, bool VEC>
+__global__ void __launch_bounds__(kThreads) select_topk_kernel(
     const float* __restrict__ values,    // [R, K]
     const uint8_t* __restrict__ mask,    // [R, K] bool
     const int* __restrict__ k_rows,      // [R]
     const float* __restrict__ noise,     // [R, K]
     uint8_t* __restrict__ out,           // [R, K] bool
     int r, int k) {
-  extern __shared__ float smem[];
-  const int rows_pb = blockDim.x / k;
-  float* sp = smem;                      // [rows_pb * K] masked values
-  float* sn = smem + rows_pb * k;        // [rows_pb * K] noise
-  const int lr = threadIdx.x / k;
-  const int i = threadIdx.x - lr * k;
-  const long long row = (long long)blockIdx.x * rows_pb + lr;
-  const bool live = lr < rows_pb && row < r;
-  const long long off = row * k + i;
-  uint8_t mi = 0;
+  constexpr int kGroups = 32 / P;      // rows a warp
+  constexpr int kStride = P * S + 1;   // list entries a row; +1 keeps rows on other banks
+  __shared__ uint4 list[kWarps][kGroups * kStride];   // one 16-byte entry a slot
+  static_assert(32 % P == 0 && S * P <= kMaxK, "bad shape");
+  const float neg_inf = __int_as_float(0xff800000);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane / P;
+  const int g = lane - grp * P;
+  const long long row = ((long long)blockIdx.x * kWarps + warp) * kGroups + grp;
+  const bool live = row < r;
+  const unsigned gmask = P == 32 ? kFull : ((1u << P) - 1u) << (grp * P);
+  const long long off = row * k;
+
+  int slot[S];
+  float v[S], q[S];
+  bool mk[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    slot[s] = VEC ? g * S + s : s * P + g;
+    v[s] = 0.0f;
+    q[s] = 0.0f;
+    mk[s] = false;
+  }
   if (live) {
-    mi = mask[off];
-    sp[threadIdx.x] = mi ? values[off] : __int_as_float(0xff800000);  // -inf
-    sn[threadIdx.x] = noise[off];
+    if constexpr (VEC && S == 2) {
+      const float2 a = *reinterpret_cast<const float2*>(values + off + g * 2);
+      const float2 b = *reinterpret_cast<const float2*>(noise + off + g * 2);
+      const uint32_t mw = *reinterpret_cast<const uint16_t*>(mask + off + g * 2);
+      v[0] = a.x; v[1] = a.y;
+      q[0] = b.x; q[1] = b.y;
+      mk[0] = (mw & 0xffu) != 0u;
+      mk[1] = (mw >> 8) != 0u;
+    } else if constexpr (VEC) {
+#pragma unroll
+      for (int h = 0; h < S / 4; ++h) {
+        const float4 a = *reinterpret_cast<const float4*>(values + off + g * S + 4 * h);
+        const float4 b = *reinterpret_cast<const float4*>(noise + off + g * S + 4 * h);
+        const uint32_t mw = *reinterpret_cast<const uint32_t*>(mask + off + g * S + 4 * h);
+        v[4 * h] = a.x; v[4 * h + 1] = a.y; v[4 * h + 2] = a.z; v[4 * h + 3] = a.w;
+        q[4 * h] = b.x; q[4 * h + 1] = b.y; q[4 * h + 2] = b.z; q[4 * h + 3] = b.w;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) mk[4 * h + t] = ((mw >> (8 * t)) & 0xffu) != 0u;
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (slot[s] < k) {
+          v[s] = values[off + slot[s]];
+          q[s] = noise[off + slot[s]];
+          mk[s] = mask[off + slot[s]] != 0;
+        }
+      }
+    }
   }
-  __syncthreads();
+  float p[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) p[s] = mk[s] ? v[s] : neg_inf;
+
+  // one ballot per slot column: the row's masked slots and the -inf hazard
+  unsigned bal[S];
+  int c = 0;
+  bool my_hazard = false;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    bal[s] = __ballot_sync(kFull, mk[s]) & gmask;
+    c += __popc(bal[s]);
+    my_hazard |= mk[s] && p[s] == neg_inf;
+  }
+  const bool hazard = (__ballot_sync(kFull, my_hazard) & gmask) != 0u;
+  const int kr = live ? k_rows[row] : 0;
+
+  bool sel[S];
+  if (kr <= 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) sel[s] = false;
+  } else if (!hazard && kr >= c) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) sel[s] = mk[s];
+  } else {
+    // the slots that can outrank a masked slot, as a list: the masked ones,
+    // or all K when a masked slot is -inf. Without a NaN an entry is the
+    // slot's 96-bit key (value, noise, ~index), which orders the slots
+    // exactly as the pairwise compares do; a row with a NaN keeps the
+    // floats and takes the compares themselves.
+    bool my_nan = false;
+#pragma unroll
+    for (int s = 0; s < S; ++s) my_nan |= slot[s] < k && (q[s] != q[s] || (mk[s] && v[s] != v[s]));
+    const bool nan_row = (__ballot_sync(gmask, my_nan) & gmask) != 0u;
+    uint4 mine[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      mine[s] = nan_row ? make_uint4(__float_as_uint(p[s]), __float_as_uint(q[s]), slot[s], 0u)
+                        : make_uint4(order_key(p[s]), order_key(q[s]), ~(uint32_t)slot[s], 0u);
+    uint4* lst = &list[warp][grp * kStride];
+    int len;
+    if (hazard) {
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (slot[s] < k) lst[slot[s]] = mine[s];
+      len = k;
+    } else {
+      const unsigned below = (1u << lane) - 1u;
+      int base = 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if (mk[s]) lst[base + __popc(bal[s] & below)] = mine[s];
+        base += __popc(bal[s]);
+      }
+      len = c;
+    }
+    __syncwarp(gmask);
+    int rank[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) rank[s] = 0;
+    if (!nan_row) {
+#pragma unroll 4
+      for (int j = 0; j < len; ++j) {
+        const uint4 e = lst[j];
+#pragma unroll
+        for (int s = 0; s < S; ++s) count_at_or_below(rank[s], mine[s], e);
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s) rank[s] = len - rank[s];
+    } else {
+      for (int j = 0; j < len; ++j) {
+        const uint4 e = lst[j];
+        const float pj = __uint_as_float(e.x);
+        const float nj = __uint_as_float(e.y);
+        const int ij = (int)e.z;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const bool ties = pj == p[s];
+          rank[s] += (pj > p[s]) || (ties && nj > q[s]) || (ties && nj == q[s] && ij < slot[s]);
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) sel[s] = mk[s] && rank[s] < kr;
+  }
+
   if (!live) return;
-  const float* p = sp + lr * k;
-  const float* q = sn + lr * k;
-  const float pi = p[i];
-  const float ni = q[i];
-  int rank = 0;
-  for (int j = 0; j < k; ++j) {
-    const float pj = p[j];
-    const float nj = q[j];
-    const bool ties = pj == pi;
-    rank += (pj > pi) || (ties && nj > ni) || (ties && nj == ni && j < i);
+  if constexpr (VEC && S == 2) {
+    *reinterpret_cast<uint16_t*>(out + off + g * 2) =
+        (uint16_t)((uint32_t)sel[0] | ((uint32_t)sel[1] << 8));
+  } else if constexpr (VEC) {
+#pragma unroll
+    for (int h = 0; h < S / 4; ++h) {
+      uint32_t ow = 0u;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) ow |= (uint32_t)sel[4 * h + t] << (8 * t);
+      *reinterpret_cast<uint32_t*>(out + off + g * S + 4 * h) = ow;
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (slot[s] < k) out[off + slot[s]] = sel[s] ? 1 : 0;
   }
-  out[off] = (rank < k_rows[row] && mi) ? 1 : 0;
+}
+
+template <int P, int S, bool VEC>
+int launch(const void* values, const void* mask, const void* k_rows,
+           const void* noise, void* out, int r, int k, cudaStream_t stream) {
+  constexpr int rows_pb = kWarps * (32 / P);
+  const unsigned int blocks = (unsigned int)((r + rows_pb - 1) / rows_pb);
+  select_topk_kernel<P, S, VEC><<<blocks, kThreads, 0, stream>>>(
+      (const float*)values, (const uint8_t*)mask, (const int*)k_rows,
+      (const float*)noise, (uint8_t*)out, r, k);
+  return (int)cudaGetLastError();
+}
+
+// K a power of two from 4 to 256 (the layouts of the switch below), vector
+// loads when the pointers allow them
+template <int P, int S>
+int launch_pow2(bool vec, const void* values, const void* mask,
+                const void* k_rows, const void* noise, void* out, int r, int k,
+                cudaStream_t stream) {
+  return vec ? launch<P, S, true>(values, mask, k_rows, noise, out, r, k, stream)
+             : launch<P, S, false>(values, mask, k_rows, noise, out, r, k, stream);
 }
 
 }  // namespace
@@ -80,12 +281,36 @@ __global__ void select_topk_kernel(
 extern "C" int select_topk_launch(const void* values, const void* mask,
                                   const void* k_rows, const void* noise,
                                   void* out, int r, int k, void* stream) {
-  if (r <= 0 || k <= 0 || k > kThreads) return (int)cudaErrorInvalidValue;
-  const int rows_pb = kThreads / k;
-  const unsigned int blocks = (unsigned int)((r + rows_pb - 1) / rows_pb);
-  const size_t smem = 2 * (size_t)rows_pb * k * sizeof(float);
-  select_topk_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)values, (const uint8_t*)mask, (const int*)k_rows,
-      (const float*)noise, (uint8_t*)out, r, k);
-  return (int)cudaGetLastError();
+  if (r <= 0 || k <= 0 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  // 16-byte vectors of values and noise, 4-byte words of mask and out
+  const bool vec = ((uintptr_t)values % 16 == 0) && ((uintptr_t)noise % 16 == 0) &&
+                   ((uintptr_t)mask % 4 == 0) && ((uintptr_t)out % 4 == 0);
+  switch (k) {
+    case 4: return launch_pow2<1, 4>(vec, values, mask, k_rows, noise, out, r, k, st);
+    case 8: return launch_pow2<2, 4>(vec, values, mask, k_rows, noise, out, r, k, st);
+    case 16: return launch_pow2<4, 4>(vec, values, mask, k_rows, noise, out, r, k, st);
+    case 32: return launch_pow2<8, 4>(vec, values, mask, k_rows, noise, out, r, k, st);
+    case 64: return launch_pow2<32, 2>(vec, values, mask, k_rows, noise, out, r, k, st);
+    case 128: return launch_pow2<32, 4>(vec, values, mask, k_rows, noise, out, r, k, st);
+    case 256: return launch_pow2<32, 8>(vec, values, mask, k_rows, noise, out, r, k, st);
+    default: break;
+  }
+  // any other K: one slot a lane up to 32 (the row's group the next power
+  // of two), S = ceil(K/32) slots a lane of a whole warp above
+  if (k <= 1) return launch<1, 1, false>(values, mask, k_rows, noise, out, r, k, st);
+  if (k <= 2) return launch<2, 1, false>(values, mask, k_rows, noise, out, r, k, st);
+  if (k <= 4) return launch<4, 1, false>(values, mask, k_rows, noise, out, r, k, st);
+  if (k <= 8) return launch<8, 1, false>(values, mask, k_rows, noise, out, r, k, st);
+  if (k <= 16) return launch<16, 1, false>(values, mask, k_rows, noise, out, r, k, st);
+  if (k <= 32) return launch<32, 1, false>(values, mask, k_rows, noise, out, r, k, st);
+  switch ((k + 31) / 32) {
+    case 2: return launch<32, 2, false>(values, mask, k_rows, noise, out, r, k, st);
+    case 3: return launch<32, 3, false>(values, mask, k_rows, noise, out, r, k, st);
+    case 4: return launch<32, 4, false>(values, mask, k_rows, noise, out, r, k, st);
+    case 5: return launch<32, 5, false>(values, mask, k_rows, noise, out, r, k, st);
+    case 6: return launch<32, 6, false>(values, mask, k_rows, noise, out, r, k, st);
+    case 7: return launch<32, 7, false>(values, mask, k_rows, noise, out, r, k, st);
+    default: return launch<32, 8, false>(values, mask, k_rows, noise, out, r, k, st);
+  }
 }

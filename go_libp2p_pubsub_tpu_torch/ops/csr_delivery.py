@@ -13,12 +13,17 @@ first-arrival plane), as one Hopper kernel (``csrc/delivery.cu``).
 * the edge commit (``_edge_commit_kernel``): ``fa = trans & ~exc &
   new[row]``, ``fe' = (fe & ~new[row]) | fa``.
 
-Every row segment holds at most K edges (``ops/csr.build_csr``), so the
-kernel gives one thread each (row, word) and walks the row from
-``row_ptr[j]`` to ``row_ptr[j+1]`` twice: once forming ``trans_e`` and its
-running OR, once committing the first arrivals. The segmented scan, and
-the block halo it needed on the TPU, disappear. It is bounded by bytes;
-the source says what it moves.
+What bounds the kernel on the card is bytes, and 63% of them are the
+``[N, M]`` first_round plane, read and written whole (about 810 MB a round
+at N=1M, E=5M, M=64). Rows are sorted, so a warp owns 32 consecutive rows
+and their contiguous edge range: its lanes walk the flat ``(edge, word)``
+elements, reading and writing the ``[E, W]`` planes contiguously, keep the
+transmit words in shared memory, and reduce each row with a segmented
+inclusive OR (shuffles with the segment starts, a carry across chunks).
+The receive word comes from the row's last edge and the lowest edge wins
+each first arrival, as in the TPU kernels' scan. The warp then stamps its
+32 rows of first_round, one contiguous stretch, as 16-byte vectors. Rows
+of any length, any W and the deny mask are taken; the source says how.
 
 The wrapper launches the kernel for a CUDA tensor — or raises — and takes
 the plain PyTorch version (``csr_delivery_plain``, the reference's

@@ -9,11 +9,21 @@ and masked-out slots carry ``-inf``. The GossipSub heartbeat makes eight such
 selections over its ``[N, S, K]`` rows; ``ops/select.py`` routes every one of
 them here on the card.
 
-The kernel gives one thread each (row, slot), stages a block's rows in
-shared memory and counts in a loop, so the ``[R, K, K]`` compare planes of
-the plain pairwise form (``select_topk_plain``, in this module) never reach
-device memory. It takes any K up to its block of 256 threads and raises
-above that.
+What bounds the kernel on the card is bytes: 10 read and 1 written a slot.
+A row belongs to a group of lanes (8 rows share a warp at K=16), each lane
+holding a few slots loaded as vectors. One ballot counts the row's masked
+slots ``c`` and decides most rows with no ranking: ``k_rows <= 0`` selects
+nothing and ``k_rows >= c`` every masked slot. The other rows rank their
+masked slots among the masked slots only, compacted by the ballot into a
+shared-memory list, so a sparse row costs ``c`` compares a slot, not ``K``;
+a compare is one unsigned compare of 96-bit keys that order the slots as
+the plain version's IEEE compares do (-0.0 equals +0.0, subnormals are
+kept). A row with a NaN takes those float compares themselves: a masked
+NaN value ranks 0 and outranks nothing. A masked ``-inf`` value ties with
+the unmasked slots (``-inf`` too), which then outrank it on noise and
+index; a row holding one ranks over all K slots, the pairwise count itself.
+So the kernel equals ``select_topk_plain`` bit for bit on any input. It
+takes any K up to ``MAX_K`` and raises above.
 
 The wrapper launches the kernel for a CUDA tensor — or raises — and takes the
 plain version only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
@@ -27,7 +37,7 @@ from . import kernels
 
 LAUNCHES = {"select_topk": 0}
 
-#: the kernel's block size: one thread per slot of a row
+#: the widest row the kernel takes
 MAX_K = 256
 
 

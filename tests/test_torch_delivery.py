@@ -46,6 +46,7 @@ from go_libp2p_pubsub_tpu_torch.state import Delivery as TDelivery
 from go_libp2p_pubsub_tpu_torch.state import MsgTable as TMsgTable
 from go_libp2p_pubsub_tpu_torch.state import Net as TNet
 from go_libp2p_pubsub_tpu_torch.state import replace
+from torch_parity import HAZARD_M, hazard_graph, hazard_planes
 
 
 def _t(a):
@@ -249,6 +250,40 @@ def test_csr_plain_equals_pallas_csr(kind, deny):
     assert sorted(ref) == sorted(got) == sorted(tcd.OUTPUTS)
     for key in ref:
         _eq(ref[key], got[key], f"{kind} deny={deny} {key}")
+
+
+def _hazard_call(g, p, deny, *, jax_side):
+    """csr_delivery's arguments for the hazard graph ``g`` and the planes
+    ``p``, as JAX arrays or port tensors."""
+    as_arr = jnp.asarray if jax_side else _t
+    words = ("fwd", "fe_e", "mask_e", "not_mine", "have", "first_round", "valid_row")
+    tick = jnp.int32(p["tick"]) if jax_side else torch.tensor(int(p["tick"]), dtype=torch.int32)
+    idx = [as_arr(g[f]) for f in ("col", "row", "eperm", "seg_start", "row_last",
+                                  "row_nonempty")]
+    link = as_arr(p["link_ok_e"]) if deny else None
+    return [as_arr(p[f]) for f in words] + [tick] + idx, link
+
+
+@pytest.mark.parametrize("m,long_row", [(m, 0) for m in HAZARD_M] + [(64, 200)])
+@pytest.mark.parametrize("deny", [False, True])
+def test_csr_plain_equals_pallas_csr_on_hazard_graph(m, deny, long_row):
+    """The hazard graph of the card's csr_delivery tests (empty rows, rows
+    of 1, 31, 32, 33 and 64 edges, runs of long rows, rows on both sides of
+    every warp boundary, N=300; with ``long_row`` one row of 200 edges),
+    W = 1, 2, 3 and the deny mask off and on: the port's plain version
+    equals the three Pallas kernels in interpret mode on every output."""
+    g = hazard_graph(long_row=long_row)
+    n, e, cap = g["n"], g["e"], g["cap"]
+    p = hazard_planes(m + deny, n, e, m)
+    args, link = _hazard_call(g, p, deny, jax_side=True)
+    ref = jpcsr.csr_delivery(*args, cap=cap, block=jcommon._pick_div(e, cap, 256),
+                             block_rows=jcommon._pick_div(n, 1, 256), interpret=True,
+                             link_ok_e=link)
+    args, link = _hazard_call(g, p, deny, jax_side=False)
+    got = tcd.csr_delivery(*args, _t(g["row_ptr"]), cap=cap, link_ok_e=link)
+    assert sorted(ref) == sorted(got) == sorted(tcd.OUTPUTS)
+    for key in ref:
+        _eq(ref[key], got[key], f"M={m} deny={deny} long_row={long_row} {key}")
 
 
 @pytest.mark.parametrize("kind", ["ragged", "powerlaw"])

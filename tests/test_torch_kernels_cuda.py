@@ -23,6 +23,7 @@ from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
 from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
 from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
 from go_libp2p_pubsub_tpu_torch.state import Net
+from torch_parity import HAZARD_K, HAZARD_M, hazard_graph, hazard_planes, hazard_rows
 
 
 @pytest.fixture
@@ -85,6 +86,32 @@ def test_csr_delivery_kernel_equals_plain(cuda, deny):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,long_row", [(m, 0) for m in HAZARD_M] + [(64, 200)])
+@pytest.mark.parametrize("deny", [False, True])
+def test_csr_delivery_kernel_on_hazard_graph(cuda, m, deny, long_row):
+    """The hazard graph (tests/torch_parity.hazard_graph): empty rows, rows
+    of 1, 31, 32, 33 and 64 edges, a run of 64-edge rows longer than one
+    batch of a warp, rows on both sides of every warp boundary, N=300 (not
+    a multiple of the 32-row warp or the 128-row block), W = 1, 2, 3 with M
+    = 20, 64, 96, the deny mask off and on, and a row of 200 edges (the
+    kernel's long-row path at W=2)."""
+    g = hazard_graph(long_row=long_row)
+    p = hazard_planes(m + deny, g["n"], g["e"], m)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a.view(np.int32) if a.dtype == np.uint32 else a))
+    args = [t(p[f]) for f in ("fwd", "fe_e", "mask_e", "not_mine", "have", "first_round",
+                              "valid_row")]
+    args += [torch.tensor(int(p["tick"]), dtype=torch.int32)]
+    args += [t(g[f]) for f in ("col", "row", "eperm", "seg_start", "row_last",
+                               "row_nonempty", "row_ptr")]
+    kw = dict(cap=g["cap"])
+    if deny:
+        kw["link_ok_e"] = t(p["link_ok_e"])
+    _equal_on_card(cd.csr_delivery_plain, cd.csr_delivery, args, kw, cuda,
+                   cd.LAUNCHES, "csr_delivery")
+
+
+@pytest.mark.cuda
 def test_unsupported_shapes_raise_on_the_card(cuda):
     """A CUDA tensor launches the kernel or raises: a plane of the wrong
     shape, dtype or device never falls back to the plain version."""
@@ -123,6 +150,31 @@ def test_select_topk_kernel_equals_plain(cuda, r, k):
     got = sk.select_topk(*[a.to(cuda) for a in args])
     torch.cuda.synchronize()
     assert sk.LAUNCHES["select_topk"] == 1
+    assert torch.equal(ref, got.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", HAZARD_K)
+def test_select_topk_kernel_on_hazard_rows(cuda, k):
+    """Bit for bit on tests/torch_parity.hazard_rows: masked +-inf and NaN
+    values, NaN noise, subnormals, ties and signed zeros, equal rows, empty
+    and full masks, widths -1 to K+1; for every layout of the kernel (one
+    lane a row, several rows a warp, a warp a row, several slots a lane)
+    and from aligned and unaligned pointers (the scalar-load form)."""
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in hazard_rows(k, 300, k)]
+    ref = sk.select_topk_plain(*args)
+    sk.LAUNCHES["select_topk"] = 0
+    got = sk.select_topk(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["select_topk"] == 1
+    assert torch.equal(ref, got.cpu())
+    # views one element into their storage: not 16-byte aligned
+    r = 299
+    cut = [a.to(cuda).view(-1)[1:1 + r * k].view(r, k) for a in (args[0], args[1], args[3])]
+    shifted = [cut[0], cut[1], args[2][:r].to(cuda), cut[2]]
+    ref = sk.select_topk_plain(*[a.cpu() for a in shifted])
+    got = sk.select_topk(*shifted)
+    torch.cuda.synchronize()
     assert torch.equal(ref, got.cpu())
 
 

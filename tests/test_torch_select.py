@@ -22,6 +22,7 @@ from go_libp2p_pubsub_tpu.ops import select as jsel
 from go_libp2p_pubsub_tpu_torch import prng
 from go_libp2p_pubsub_tpu_torch.ops import select as tsel
 from go_libp2p_pubsub_tpu_torch.ops import select_topk as tsk
+from torch_parity import HAZARD_K, hazard_rows
 
 ZEROS = np.array([-1.5, -0.0, 0.0, 0.5, 2.0], np.float32)
 
@@ -97,6 +98,83 @@ def test_pairwise_rank_equals_both_reference_forms(k):
     # every row's ranks are a permutation of 0..K-1
     assert torch.equal(got.sort(-1).values,
                        torch.arange(k, dtype=torch.int32).expand(40, k))
+
+
+def _flush_denormals(a):
+    """What XLA on the CPU (and a TPU) does to float32 subnormals: zero."""
+    return np.where(np.abs(a) < np.finfo(np.float32).tiny, np.float32(0.0), a)
+
+
+@pytest.mark.parametrize("k", HAZARD_K)
+def test_plain_equals_pallas_on_hazard_rows(k):
+    """The hazard rows the card's select_topk tests use (masked +-inf and
+    NaN, NaN noise, equal rows, empty and full masks, widths -1 to K+1):
+    the port's plain version equals select_topk_pallas. Both get the rows
+    with subnormals flushed to zero, since the reference's platforms flush
+    them and the port does not (the test below pins that difference)."""
+    values, mask, k_rows, noise = hazard_rows(k, 40, k)
+    values, noise = _flush_denormals(values), _flush_denormals(noise)
+    want = jpcsr.select_topk_pallas(jnp.asarray(values), jnp.asarray(mask),
+                                    jnp.asarray(k_rows), jnp.asarray(noise),
+                                    block=8, interpret=True)
+    _eq(want, tsk.select_topk(*_torch(values, mask, k_rows, noise)), f"K={k}")
+
+
+def _one_row(values, mask, noise, k):
+    v, m, nz = (np.asarray(x)[None] for x in (values, mask, noise))
+    kr = np.array([k], np.int32)
+    got = tsk.select_topk(*_torch(v.astype(np.float32), m, kr, nz.astype(np.float32)))[0]
+    want = jpcsr.select_topk_pallas(jnp.asarray(v, jnp.float32), jnp.asarray(m),
+                                    jnp.asarray(kr), jnp.asarray(nz, jnp.float32),
+                                    block=1, interpret=True)[0]
+    _eq(want, got)
+    return got.numpy()
+
+
+def test_masked_nan_ranks_first_and_outranks_nothing():
+    """A masked NaN value compares false both ways: nothing outranks it
+    (rank 0, selected from k=1) and it outranks nothing (the other masked
+    slots keep the ranks they have without it)."""
+    values = [1.0, np.nan, 3.0, 2.0, 0.0]
+    mask = [True, True, True, True, False]
+    noise = [0.0] * 5
+    assert _one_row(values, mask, noise, 1).tolist() == [False, True, True, False, False]
+    assert _one_row(values, mask, noise, 2).tolist() == [False, True, True, True, False]
+    assert _one_row(values, mask, noise, 3).tolist() == [True, True, True, True, False]
+
+
+def test_masked_neg_inf_is_outranked_by_unmasked_slots():
+    """A masked -inf value ties with every unmasked slot (-inf as well), so
+    unmasked slots of higher noise, or equal noise and lower index, outrank
+    it: a width equal to the masked count need not select it."""
+    values = [-np.inf, 5.0, 7.0, 1.0]
+    mask = [False, True, False, True]
+    noise = [0.5, 0.0, 0.0, 0.0]
+    mask[0] = True
+    # slot 0 (masked, -inf, noise 0.5) against unmasked slot 2 (-inf, 0.0)
+    assert _one_row(values, mask, noise, 3).tolist() == [True, True, False, True]
+    values = [3.0, -np.inf, 1.0, 2.0]
+    mask = [False, True, False, True]
+    noise = [0.9, 0.1, 0.0, 0.0]
+    # unmasked slot 0 (-inf, noise 0.9) outranks masked slot 1: rank 2 there
+    assert _one_row(values, mask, noise, 2).tolist() == [False, False, False, True]
+    assert _one_row(values, mask, noise, 3).tolist() == [False, True, False, True]
+
+
+def test_subnormals_rank_exactly_where_the_reference_flushes_them():
+    """A known difference: XLA on the CPU (as a TPU) flushes float32
+    subnormals to zero, so the reference ties 1e-45 with 0.0 and breaks the
+    tie on noise; the port (torch on the CPU, the CUDA kernel built without
+    flush-to-zero) ranks 1e-45 above 0.0."""
+    values = np.array([[1e-45, 0.0]], np.float32)
+    mask = np.array([[True, True]])
+    noise = np.array([[0.0, 0.5]], np.float32)
+    kr = np.array([1], np.int32)
+    want = jpcsr.select_topk_pallas(jnp.asarray(values), jnp.asarray(mask), jnp.asarray(kr),
+                                    jnp.asarray(noise), block=1, interpret=True)
+    got = tsk.select_topk(*_torch(values, mask, kr, noise))
+    assert np.asarray(want).tolist() == [[False, True]]
+    assert got.tolist() == [[True, False]]
 
 
 def _select_case(name, fused, vals, mask, width, jk, tk):

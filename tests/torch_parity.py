@@ -1,18 +1,140 @@
 """Shared helpers of the port's parity tests: the JAX package's state as
-schema-path leaves, and the bench-default GossipSub builds of both
-packages on the same small topology (the banded lattice by default)."""
+schema-path leaves, the bench-default GossipSub builds of both packages on
+the same small topology (the banded lattice by default), and the hazard
+inputs of the two redesigned kernels (``hazard_rows`` for select_topk,
+``hazard_graph`` for csr_delivery), made with numpy from a seed.
+
+Importing this module imports no JAX: the card-only kernel tests and
+chip_smoke.py use the hazard builders on machines without the JAX stack.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
+
+#: the widths the select_topk hazard tests cover: the one-lane, sub-warp,
+#: warp and multi-slot layouts and both sides of each boundary
+HAZARD_K = (1, 16, 17, 32, 33, 64, 65, 256)
+
+#: (M, W) pairs of the csr_delivery hazard graph: W = 1, 2, 3 and an M
+#: that is not a multiple of 32
+HAZARD_M = (20, 64, 96)
+
+
+def hazard_rows(seed: int, r: int, k: int):
+    """select_topk arguments as numpy arrays (values f32, mask bool, k_rows
+    i32, noise f32) holding the hazards of its order: masked +-inf and NaN
+    values, NaN noise, denormals, ties and signed zeros; a row with no slot
+    masked, one with every slot masked, one whose slots are all equal, one
+    of masked -inf values only and one with a single masked -inf beside
+    unmasked slots; masks from empty to full; widths from -1 to K + 1
+    (every one of them on the first rows)."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([-np.inf, np.inf, np.nan, -0.0, 0.0, 1e-45, -1e-45, 1e-40,
+                     0.5, -1.5, 2.0], np.float32)
+    values = rng.choice(pool, size=(r, k)).astype(np.float32)
+    noise = rng.choice(np.array([-0.0, 0.0, 0.25, 0.5, np.nan, 1e-45], np.float32),
+                       size=(r, k)).astype(np.float32)
+    mask = rng.random((r, k)) < rng.random((r, 1))
+    # every other row NaN-free: the kernel ranks those by ordered keys
+    calm = np.arange(r) % 2 == 0
+    values[calm] = np.where(np.isnan(values[calm]), np.float32(0.5), values[calm])
+    noise[calm] = np.where(np.isnan(noise[calm]), np.float32(0.25), noise[calm])
+    special = [
+        (np.zeros(k, bool), None, None),                      # none masked
+        (np.ones(k, bool), None, None),                       # all masked
+        (np.ones(k, bool), np.float32(1.0), np.float32(0.0)),  # all equal
+        (np.ones(k, bool), np.float32(-np.inf), None),        # masked -inf only
+    ]
+    for i, (mk, v, q) in enumerate(special[:r]):
+        mask[i] = mk
+        if v is not None:
+            values[i] = v
+        if q is not None:
+            noise[i] = q
+    if r > 4:   # one masked -inf among unmasked slots
+        mask[4] = False
+        mask[4, k // 2] = True
+        values[4, k // 2] = -np.inf
+    k_rows = rng.integers(-1, k + 2, size=(r,)).astype(np.int32)
+    widths = np.arange(-1, k + 2)
+    room = max(0, r - 5)
+    if len(widths) > room:   # too few rows for every width: both ends
+        widths = np.concatenate([widths[:room // 2], widths[len(widths) - (room - room // 2):]])
+    k_rows[5:5 + len(widths)] = widths
+    return values, mask, k_rows, noise
+
+
+def hazard_graph(seed: int = 0, n: int = 300, long_row: int = 0) -> dict:
+    """A CSR edge space (numpy, the fields ``ops/csr.build_csr`` gives)
+    holding the hazards of csr_delivery: empty rows (the first, the last and
+    runs of them), rows of exactly 1, 31, 32, 33 and 64 edges, a run of
+    64-edge rows longer than one batch of the kernel, rows on both sides of
+    every 32-row warp boundary, and N not a multiple of 32 or 128. With
+    ``long_row`` one row has that many edges. E is a multiple of 64, so the
+    JAX package's three-call Pallas form takes it with blocks of 64 or
+    more. ``col`` is random and ``eperm`` a random involution of the flat
+    edges (the kernels only gather through them)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 9, size=n)
+    deg[0] = deg[n - 1] = 0
+    deg[1:8] = (1, 31, 32, 33, 64, 0, 0)
+    deg[40:45] = 64                                    # > one batch of a warp
+    for b in range(32, n, 32):                         # warp boundaries
+        deg[b - 1], deg[b] = rng.choice([0, 1, 33, 64], size=2)
+    if long_row:
+        deg[100] = long_row
+    cap = int(deg.max())
+    deg[n - 2] = (-int(deg.sum()) - 64 + int(deg[n - 2])) % 64 or 64
+    # the last row but one may exceed cap by the rounding; spread it
+    while deg[n - 2] > cap:
+        i = int(rng.integers(8, 32))
+        if deg[i] < cap:
+            deg[i] += 1
+            deg[n - 2] -= 1
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    e = int(row_ptr[-1])
+    row = np.repeat(np.arange(n), deg).astype(np.int32)
+    perm = rng.permutation(e)
+    eperm = np.empty(e, np.int64)
+    eperm[perm[0::2][: e // 2]] = perm[1::2][: e // 2]
+    eperm[perm[1::2][: e // 2]] = perm[0::2][: e // 2]
+    if e % 2:
+        eperm[perm[-1]] = perm[-1]
+    seg_start = np.ones(e, bool)
+    seg_start[1:] = row[1:] != row[:-1]
+    return {
+        "n": n, "e": e, "cap": cap, "row_ptr": row_ptr,
+        "col": rng.integers(0, n, size=e).astype(np.int32), "row": row,
+        "eperm": eperm.astype(np.int32), "seg_start": seg_start,
+        "row_last": np.maximum(np.searchsorted(row, np.arange(n), side="right") - 1,
+                               0).astype(np.int32),
+        "row_nonempty": deg > 0,
+    }
+
+
+def hazard_planes(seed: int, n: int, e: int, m: int) -> dict:
+    """Random words for one csr_delivery round on an edge space of E edges
+    (numpy, uint32 words; the padding bits of the last word random too)."""
+    rng = np.random.default_rng(seed)
+    w = (m + 31) // 32
+    u32 = lambda *shape: rng.integers(0, 1 << 32, size=shape,
+                                      dtype=np.uint64).astype(np.uint32)
+    return {
+        "fwd": u32(n, w), "fe_e": u32(e, w), "mask_e": u32(e, w), "not_mine": u32(n, w),
+        "have": u32(n, w), "first_round": rng.integers(-1, 50, size=(n, m)).astype(np.int32),
+        "valid_row": u32(1, w), "tick": np.int32(9),
+        "link_ok_e": rng.random(e) < 0.7,
+    }
 
 
 def reference_leaves(jst) -> dict:
     """{schema path: numpy array} of a JAX state tree (keys as key_data)."""
+    import jax
+    import jax.numpy as jnp
+
     out = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(jst)[0]:
         if jnp.issubdtype(leaf.dtype, jax.dtypes.prng_key):
