@@ -21,9 +21,13 @@ last line is printed:
    sm_90a, one nvcc per source, all started together;
 3. GossipSub kernels — at the bench's shapes (N=100k, K=16, W=2, C=4), on
    inputs captured from a real round and on random words, edge_exchange and
-   fused_delivery must equal their plain PyTorch versions exactly; times of
-   the kernel, the plain version and (edge_exchange) the one-call library
-   gather, beside the bytes bound;
+   fused_delivery must equal their plain PyTorch versions exactly, and
+   fused_delivery also on the hazard bands (tests/torch_parity.hazard_bands:
+   rings with K = 2, 6, 16, N=17 under the staged window, a circulant with
+   steps past the halo, W = 1, 2, 3, 10) under every retrans_cap, with the
+   cohort planes and scores on and off; times of the kernel, the plain
+   version and (edge_exchange) the one-call library gather, beside the
+   bytes bound;
 4. GossipSub at full width — the bench's default config at N=100k,
    formation rounds then 64 rounds of the bench's publish schedule; both
    fused-kernel launch counters must equal the round count and select_topk
@@ -49,7 +53,8 @@ last line is printed:
 9. GossipSub CSR card against CPU — phases 6 and 7's builds at N=8192 for
    32 rounds, every leaf equal after every round;
 10. FloodSub, banded dense — ring_lattice(100k, d=8): delivery_banded
-   against its plain version (captured and random inputs, medians, bound),
+   against its plain version (captured and random inputs, and the hazard
+   bands with K up to 40; medians, bound),
    then 80 rounds with 4 publishes a round: host set-up seconds, rounds/s,
    peak memory, state bytes, launches equal to rounds, fwd a subset of
    have, every message older than 4 rounds past its origin;
@@ -72,7 +77,6 @@ import argparse
 import concurrent.futures
 import ctypes
 import dataclasses
-import hashlib
 import json
 import os
 import pathlib
@@ -192,8 +196,7 @@ def build_baseline(tree: str) -> dict:
     procs = {}
     for name in KERNEL_SOURCES:
         src = csrc / f"{name}.cu"
-        tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        lib = out / f"lib{name}-{tag}.so"
+        lib = out / f"lib{name}-{kernels.source_tag(csrc, name)}.so"
         procs[name] = (lib, subprocess.Popen(
             [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
@@ -357,6 +360,7 @@ def check_kernels(fr, captured, gen, base):
         names = sorted(ref)
         assert names == sorted(got)
         err = max(err, max_abs_err([ref[x] for x in names], [got[x] for x in names]))
+    err = max(err, check_band_hazards("fused_delivery", args[2].device))
     res = fr.fused_delivery(*args, **kw)
     io = nbytes(*[t for t in args if hasattr(t, "numel")], *res.values())
     ops = 40 * n * k * w               # word ops per (peer, edge, word)
@@ -396,6 +400,59 @@ def bound(io: int, ops: int) -> dict:
             "bound_by": "bytes" if t_io >= t_ops else "operations"}
 
 
+def check_band_hazards(name: str, dev) -> float:
+    """fused_delivery (under every config of FUSED_CONFIGS) or
+    delivery_banded against its plain version on the hazard bands of the
+    tests (tests/torch_parity.hazard_bands: rings with K = 2 to 40, N not a
+    multiple of the block, N=17 under the staged window, a circulant with
+    steps beyond the halo) at W = 1, 2, 3 and 10. Returns max_abs_err."""
+    import numpy as np
+    import torch
+    from torch_parity import (
+        FUSED_CONFIGS,
+        HAZARD_BAND_M,
+        hazard_banded_args,
+        hazard_bands,
+        hazard_fused_args,
+    )
+
+    from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
+    from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
+
+    def t(a):
+        a = np.asarray(a)
+        return torch.from_numpy(np.array(a.view(np.int32) if a.dtype == np.uint32 else a)).to(dev)
+
+    err, cases = 0.0, 0
+    for band in hazard_bands():
+        k = len(band["offsets"])
+        for m in HAZARD_BAND_M:
+            static = dict(offsets=band["offsets"], revs=band["revs"], w=(m + 31) // 32)
+            calls = []
+            if name == "delivery_banded":
+                calls.append((db.delivery_banded_plain, db.delivery_banded,
+                              [t(a) for a in hazard_banded_args(m, band, m)], static, ()))
+            elif k <= fr.MAX_K:
+                for i, (score, cohorts, cap) in enumerate(FUSED_CONFIGS):
+                    a = [t(x) for x in hazard_fused_args(m + i, band, m)]
+                    if not score:
+                        a[4] = None
+                    calls.append((fr.fused_delivery_plain, fr.fused_delivery, a,
+                                  dict(static, score_enabled=score, want_cohorts=cohorts,
+                                       retrans_cap=cap), (-10.0, -50.0)))
+            for plain, kernel, a, kw, thr in calls:
+                ref, got = plain(*a, *thr, **kw), kernel(*a, *thr, **kw)
+                torch.cuda.synchronize()
+                names = sorted(ref)
+                assert names == sorted(got)
+                err = max(err, max_abs_err([ref[x] for x in names], [got[x] for x in names]))
+                cases += 1
+    say(f"kernel {name}: hazard bands ({cases} calls: rings with K = 2-40, N=17 under the "
+        f"staged window, a circulant past the halo; M in {list(HAZARD_BAND_M)}) exact "
+        f"(max_abs_err {err})")
+    return err
+
+
 def check_flood_kernel(module, name, args, kw, gen):
     """A FloodSub delivery kernel against its plain version on the card, on
     the captured call and on random words (the CSR kernel with its
@@ -421,6 +478,8 @@ def check_flood_kernel(module, name, args, kw, gen):
         err = max(err, max_abs_err([ref[x] for x in names], [got[x] for x in names]))
     if name == "csr_delivery":
         err = max(err, check_csr_hazards(module, args[0].device))
+    else:
+        err = max(err, check_band_hazards(name, args[0].device))
     res = kernel(*args, **kw)
     if name == "csr_delivery":
         # what the kernel reads: the peer and edge planes, col, eperm, row_ptr

@@ -36,11 +36,19 @@
 // [N, M] first_round plane, read and written whole, is half of the first
 // and 63% of the second.
 //
-// delivery_banded is the simple first design: one thread per (peer, word);
-// the sender words are 4-byte gathers (L2 serves the banded halo); each
-// thread writes its edges' `trans` and reads them back for the
-// first-arrival pass; the first_round row segment of the word is copied with
-// the stamp applied.
+// delivery_banded is laid out for the card as banded.cuh sets out: a block
+// owns 64 consecutive receivers (fewer when W is wide) and loads, all at
+// once with 16-byte vectors, the sender rows of fe and fwd its band needs
+// and its own rows' emask, not_mine and have into shared memory; a row's
+// (edge, word) elements sit on neighbouring lanes, so trans and fe' are
+// written as whole 128-byte rows at the bench shape. The OR over a row's
+// edges and the lowest-edge-wins prefix are shuffle scans; trans stays in
+// registers (K above a chunk of 32 edges recomputes its words for the
+// commit pass rather than reading them back). An offset beyond the block's
+// halo reads its sender words from global memory. The first_round stamp
+// runs last over the block's contiguous [rows, M] stretch as 16-byte
+// vectors through the read-only path (stamp_rows, shared with
+// csr_delivery).
 //
 // csr_delivery is laid out for the card. A warp owns 32 consecutive rows,
 // and so the contiguous edge range [row_ptr[r0], row_ptr[r0+32]); it takes
@@ -64,24 +72,81 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "banded.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kWord = 32;
 
-// first_round row segment of word wi, copied with `tick` where `nw` has a
-// bit (slots past m, the padding of the last word, do not exist)
-__device__ __forceinline__ void stamp_first_round(
-    const int* __restrict__ first_round, int* __restrict__ fr_out,
-    long long row, int wi, int m, uint32_t nw, int tick) {
-  int base = wi * kWord;
-  int lim = m - base < kWord ? m - base : kWord;
-  const int* src = first_round + row * m + base;
-  int* dst = fr_out + row * m + base;
-  for (int b = 0; b < lim; ++b) dst[b] = ((nw >> b) & 1u) ? tick : src[b];
+// The first_round stamp of nrows rows, slots [s0, s1): dst = src with `tk`
+// where the row's new bit is set, bit s - s0 of the row's words in new_s
+// (ws words a row). src and dst point at the first row ([nrows, m]); src
+// is read through __ldg (the read-only path); thread t of nt. Whole rows (s0 == 0, s1 == m)
+// are one contiguous stretch, taken as 16-byte vectors with neighbouring
+// threads on neighbouring addresses when both pointers allow; only slots
+// below m exist, never the padding bits of the last word.
+__device__ __forceinline__ void stamp_rows(const int* __restrict__ src, int* __restrict__ dst,
+                                           int nrows,
+                                           int m, int s0, int s1,
+                                           const uint32_t* __restrict__ new_s, int ws, int tk,
+                                           int t, int nt) {
+  if (s0 == 0 && s1 == m) {
+    const int total = nrows * m;
+    int done = 0;
+    if ((((uintptr_t)src | (uintptr_t)dst) & 15u) == 0u) {
+      const int nv = total / 4;
+      const int4* src4 = reinterpret_cast<const int4*>(src);
+      int4* dst4 = reinterpret_cast<int4*>(dst);
+      // (row, slot) of a thread's vector, advanced by 4 * nt slots a step
+      const int step_r = 4 * nt / m, step_s = 4 * nt - step_r * m;
+      int rl = (4 * t) / m;
+      int sl = 4 * t - rl * m;
+#pragma unroll 4
+      for (int q = t; q < nv; q += nt) {
+        const int rq = rl, sq = sl;
+        rl += step_r;
+        sl += step_s;
+        if (sl >= m) {
+          sl -= m;
+          ++rl;
+        }
+        const int4 f = __ldg(src4 + q);
+        int o[4] = {f.x, f.y, f.z, f.w};
+        int r4 = rq, s4 = sq;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if ((new_s[r4 * ws + (s4 >> 5)] >> (s4 & 31)) & 1u) o[u] = tk;
+          if (++s4 == m) {
+            s4 = 0;
+            ++r4;
+          }
+        }
+        dst4[q] = make_int4(o[0], o[1], o[2], o[3]);
+      }
+      done = 4 * nv;
+    }
+    for (int x = done + t; x < total; x += nt) {
+      const int rl = x / m, sl = x - rl * m;
+      dst[x] = ((new_s[rl * ws + (sl >> 5)] >> (sl & 31)) & 1u) ? tk : __ldg(src + x);
+    }
+  } else {
+    const int span = s1 - s0;
+    for (int x = t; x < nrows * span; x += nt) {
+      const int rl = x / span, sl = x - rl * span;
+      const long long at = (long long)rl * m + s0 + sl;
+      dst[at] = ((new_s[rl * ws + (sl >> 5)] >> (sl & 31)) & 1u) ? tk : __ldg(src + at);
+    }
+  }
 }
 
-__global__ void delivery_banded_kernel(
+// --- delivery_banded: a block owns a run of rows and stages its band ---
+
+// words a staged sender row takes per block word (fe's K edges, fwd), and
+// an own row (emask's K edges, not_mine, have, new)
+constexpr int banded_staged(int k) { return k + 1; }
+constexpr int banded_own(int k) { return k + 3; }
+
+__global__ void __launch_bounds__(banded::kThreads) delivery_banded_kernel(
     const uint32_t* __restrict__ fwd,       // [N, W]
     const uint32_t* __restrict__ fe,        // [N, K*W] first-arrival edges
     const uint32_t* __restrict__ emask,     // [N, K*W] (live edges only)
@@ -97,37 +162,116 @@ __global__ void delivery_banded_kernel(
     uint32_t* __restrict__ have_out,        // [N, W]
     uint32_t* __restrict__ fwd_out,         // [N, W]
     int* __restrict__ fr_out,               // [N, M]
-    int n, int k, int w, int m) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)n * w) return;
-  int wi = (int)(t % w);
-  int j = (int)(t / w);
-  uint32_t nm = not_mine[t];
-  long long row_kw = (long long)j * k * w;
-  uint32_t acc = 0u;
-  for (int kk = 0; kk < k; ++kk) {
-    int s = j + offrev[kk];
-    if (s >= n) s -= n;
-    int rk = offrev[k + kk];
-    long long e = row_kw + (long long)kk * w + wi;
-    uint32_t echo = fe[(long long)s * k * w + (long long)rk * w + wi];
-    uint32_t tk = fwd[(long long)s * w + wi] & ~echo & emask[e] & nm;
-    trans_out[e] = tk;
-    acc |= tk;
+    const banded::Layout L, int m) {
+  using namespace banded;
+  extern __shared__ uint4 smem_v[];
+  const int n = L.n, nk = L.k, w = L.w;
+  const long long r0 = (long long)blockIdx.x * L.rows;
+  const int nrows = n - r0 < L.rows ? (int)(n - r0) : L.rows;
+  const int w0 = blockIdx.y * L.wb;
+  const int wb = w - w0 < L.wb ? w - w0 : L.wb;
+  uint32_t* st_fe = reinterpret_cast<uint32_t*>(smem_v);   // [stage_rows, K, wb]
+  uint32_t* st_fwd = st_fe + L.stage_rows * nk * L.wb;     // [stage_rows, wb]
+  uint32_t* own_em = st_fwd + L.stage_rows * L.wb;         // [rows, K, wb]
+  uint32_t* own_nm = own_em + L.rows * nk * L.wb;          // [rows, wb]
+  uint32_t* own_have = own_nm + L.rows * L.wb;
+  uint32_t* own_new = own_have + L.rows * L.wb;
+
+  // the block's reads in flight at once: the band's sender rows and the
+  // own rows' edge masks and words
+  int lo, hi;
+  window(offrev, nk, n, L.halo, lo, hi);
+  const int ns = nrows + hi - lo;
+  stage(st_fe, fe, r0 + lo, ns, n, nk, w, w0, wb);
+  stage(st_fwd, fwd, r0 + lo, ns, n, 1, w, w0, wb);
+  stage(own_em, emask, r0, nrows, n, nk, w, w0, wb);
+  stage(own_nm, not_mine, r0, nrows, n, 1, w, w0, wb);
+  stage(own_have, have, r0, nrows, n, 1, w, w0, wb);
+  __syncthreads();
+
+  const Lane p = lane_of(L);
+  const Edge e0 = edge_of(offrev, p.ke, nk, n, L.halo);   // the lane's edge in chunk 0
+  const int groups = (wb + L.wg - 1) / L.wg;
+  const int units = nrows * groups;
+  for (int ub = (threadIdx.x >> 5) * L.upw; ub < units; ub += kWarps * L.upw) {
+    const int u = ub + p.unit;
+    const bool on_u = p.on && u < units;
+    const int rl = !on_u ? 0 : (groups == 1 ? u : u / groups);
+    const int wl = (u - rl * groups) * L.wg + p.wi;
+    const bool on_w = on_u && wl < wb;
+    const long long j = r0 + rl;
+    const long long wcol = w0 + wl;
+    const uint32_t h = on_w ? own_have[rl * wb + wl] : 0u;
+    const uint32_t nm = on_w ? own_nm[rl * wb + wl] : 0u;
+    // the transmit word of edge k: the sender's fwd, less its echo on the
+    // reverse edge, under the edge mask and not_mine
+    const auto trans = [=](const Edge ed, int k) -> uint32_t {
+      uint32_t echo, fs;
+      if (ed.near) {
+        const int sl = rl + ed.so - lo;
+        echo = st_fe[(sl * nk + ed.rev) * wb + wl];
+        fs = st_fwd[sl * wb + wl];
+      } else {
+        long long s = j + ed.off;
+        if (s >= n) s -= n;
+        echo = fe[(s * nk + ed.rev) * w + wcol];
+        fs = fwd[s * w + wcol];
+      }
+      return fs & ~echo & own_em[(rl * nk + k) * wb + wl] & nm;
+    };
+
+    // receive pass: trans out, the OR over the row's edges
+    uint32_t t0 = 0u, inc0 = 0u, acc = 0u;
+    for (int c = 0; c < L.nch; ++c) {
+      const int k = c * L.epc + p.ke;
+      const bool on = on_w && k < nk;
+      uint32_t t = 0u;
+      if (on) {
+        t = c == 0 ? trans(e0, k) : trans(edge_of(offrev, k, nk, n, L.halo), k);
+        trans_out[(j * nk + k) * w + wcol] = t;
+      }
+      const uint32_t inc = scan_or(t, p, L);
+      if (c == 0) {
+        t0 = t;
+        inc0 = inc;
+      }
+      acc |= __shfl_sync(kFull, inc, p.last);
+    }
+    const uint32_t nw = acc & ~h;
+
+    // commit pass: the lowest edge wins each new message
+    uint32_t carry = 0u;
+    for (int c = 0; c < L.nch; ++c) {
+      const int k = c * L.epc + p.ke;
+      const bool on = on_w && k < nk;
+      uint32_t t = t0, inc = inc0;
+      if (c > 0) {
+        t = on ? trans(edge_of(offrev, k, nk, n, L.halo), k) : 0u;
+        inc = scan_or(t, p, L);
+      }
+      const uint32_t exc = carry | exclusive(inc, p, L);
+      if (on) {
+        const uint32_t own = st_fe[((rl - lo) * nk + k) * wb + wl];
+        fe_out[(j * nk + k) * w + wcol] = (own & ~nw) | (t & ~exc & nw);
+      }
+      carry |= __shfl_sync(kFull, inc, p.last);
+    }
+    if (on_w && p.ke == 0) own_new[rl * wb + wl] = nw;
   }
-  uint32_t h = have[t];
-  uint32_t nw = acc & ~h;
-  new_out[t] = nw;
-  have_out[t] = h | nw;
-  fwd_out[t] = nw & valid[wi];
-  uint32_t seen = 0u;
-  for (int kk = 0; kk < k; ++kk) {
-    long long e = row_kw + (long long)kk * w + wi;
-    uint32_t tk = trans_out[e];
-    fe_out[e] = (fe[e] & ~nw) | (tk & ~seen & nw);
-    seen |= tk;
+  __syncthreads();
+
+  const int s0 = w0 * kWord;
+  const int s1 = m < s0 + wb * kWord ? m : s0 + wb * kWord;
+  stamp_rows(first_round + r0 * m, fr_out + r0 * m, nrows, m, s0, s1, own_new, wb, *tick,
+             threadIdx.x, kThreads);
+  for (int x = threadIdx.x; x < nrows * wb; x += kThreads) {
+    const int rl = x / wb, wl = x - rl * wb;
+    const long long gi = (r0 + rl) * w + w0 + wl;
+    const uint32_t nw = own_new[x];
+    new_out[gi] = nw;
+    have_out[gi] = own_have[x] | nw;
+    fwd_out[gi] = nw & valid[w0 + wl];
   }
-  stamp_first_round(first_round, fr_out, j, wi, m, nw, *tick);
 }
 
 // --- csr_delivery: a warp owns 32 consecutive rows and their edge range ---
@@ -173,7 +317,7 @@ __global__ void __launch_bounds__(32 * kCsrWarps) csr_delivery_kernel(
     int* __restrict__ fr_out,               // [N, M]
     uint32_t* __restrict__ fe_out,          // [E, W] (never aliases fe)
     uint32_t* __restrict__ fa_out,          // [E, W]
-    int n, int w, int m, int vec_stamp) {
+    int n, int w, int m) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -336,63 +480,10 @@ __global__ void __launch_bounds__(32 * kCsrWarps) csr_delivery_kernel(
   }
 
   // the first_round stamp of the warp's rows, slots [32*w0, 32*(w0+wg))
-  const int tk = *tick;
   const int s0 = w0 * kWord;
   const int s1 = m < s0 + wg * kWord ? m : s0 + wg * kWord;
-  if (s0 == 0 && s1 == m) {
-    // every slot: rows [r0, r0+nrows) are one contiguous run of the plane
-    const long long base = r0 * m;
-    const int total = nrows * m;
-    int done = 0;
-    if (vec_stamp && base % 4 == 0) {
-      const int nv = total / 4;
-      const int4* src = reinterpret_cast<const int4*>(first_round + base);
-      int4* dst = reinterpret_cast<int4*>(fr_out + base);
-      // (row, slot) of a lane's vector, advanced by 128 slots a step
-      const int step_r = 128 / m, step_s = 128 - step_r * m;
-      int rl = (4 * lane) / m;
-      int sl = 4 * lane - rl * m;
-#pragma unroll 4
-      for (int q = lane; q < nv; q += 32) {
-        const int rq = rl, sq = sl;
-        rl += step_r;
-        sl += step_s;
-        if (sl >= m) {
-          sl -= m;
-          ++rl;
-        }
-        int4 f = src[q];
-        int o[4] = {f.x, f.y, f.z, f.w};
-        int r4 = rq, s4 = sq;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if ((new_s[r4 * wg + (s4 >> 5)] >> (s4 & 31)) & 1u) o[u] = tk;
-          if (++s4 == m) {
-            s4 = 0;
-            ++r4;
-          }
-        }
-        dst[q] = make_int4(o[0], o[1], o[2], o[3]);
-      }
-      done = 4 * nv;
-    }
-    for (int x = done + lane; x < total; x += 32) {
-      const int rl = x / m, sl = x - rl * m;
-      const int f = first_round[base + x];
-      fr_out[base + x] = ((new_s[rl * wg + (sl >> 5)] >> (sl & 31)) & 1u) ? tk : f;
-    }
-  } else {
-    const int span = s1 - s0;
-    for (int x = lane; x < nrows * span; x += 32) {
-      const int rl = x / span, sl = x - rl * span;
-      const long long at = (r0 + rl) * m + s0 + sl;
-      fr_out[at] = ((new_s[rl * wg + (sl >> 5)] >> (sl & 31)) & 1u) ? tk : first_round[at];
-    }
-  }
-}
-
-unsigned int blocks_for(long long total) {
-  return (unsigned int)((total + kThreads - 1) / kThreads);
+  stamp_rows(first_round + r0 * m, fr_out + r0 * m, nrows, m, s0, s1, new_s, wg, *tick,
+             lane, 32);
 }
 
 bool bad_words(int n, int w, int m) {
@@ -408,14 +499,17 @@ extern "C" int delivery_banded_launch(
     void* new_out, void* have_out, void* fwd_out, void* fr_out, int n, int k,
     int w, int m, void* stream) {
   if (k <= 0 || bad_words(n, w, m)) return (int)cudaErrorInvalidValue;
-  delivery_banded_kernel<<<blocks_for((long long)n * w), kThreads, 0,
-                           (cudaStream_t)stream>>>(
+  const banded::Layout L = banded::make_layout(n, k, w, banded_staged(k), banded_own(k));
+  if (L.rows == 0) return (int)cudaErrorInvalidValue;   // K too wide to stage one row
+  const dim3 grid((unsigned int)((n + L.rows - 1) / L.rows),
+                  (unsigned int)((w + L.wb - 1) / L.wb));
+  delivery_banded_kernel<<<grid, banded::kThreads, L.smem_bytes, (cudaStream_t)stream>>>(
       (const uint32_t*)fwd, (const uint32_t*)fe, (const uint32_t*)emask,
       (const uint32_t*)not_mine, (const uint32_t*)have,
       (const int*)first_round, (const uint32_t*)valid, (const int*)tick,
       (const int*)offrev, (uint32_t*)trans_out, (uint32_t*)fe_out,
       (uint32_t*)new_out, (uint32_t*)have_out, (uint32_t*)fwd_out,
-      (int*)fr_out, n, k, w, m);
+      (int*)fr_out, L, m);
   return (int)cudaGetLastError();
 }
 
@@ -431,7 +525,6 @@ extern "C" int csr_delivery_launch(
   const long long warps = ((long long)n + kCsrRows - 1) / kCsrRows;
   const dim3 grid((unsigned int)((warps + kCsrWarps - 1) / kCsrWarps),
                   (unsigned int)((w + kWord - 1) / kWord));
-  const int vec_stamp = (uintptr_t)first_round % 16 == 0 && (uintptr_t)fr_out % 16 == 0;
   csr_delivery_kernel<<<grid, 32 * kCsrWarps, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)fwd, (const uint32_t*)fe, (const uint32_t*)mask,
       (const uint32_t*)not_mine, (const uint32_t*)have,
@@ -439,6 +532,6 @@ extern "C" int csr_delivery_launch(
       (const int*)col, (const int*)eperm, (const int*)row_ptr,
       (const uint8_t*)link_ok, (uint32_t*)trans_out, (uint32_t*)recv_out,
       (uint32_t*)new_out, (uint32_t*)have_out, (uint32_t*)fwd_out,
-      (int*)fr_out, (uint32_t*)fe_out, (uint32_t*)fa_out, n, w, m, vec_stamp);
+      (int*)fr_out, (uint32_t*)fe_out, (uint32_t*)fa_out, n, w, m);
   return (int)cudaGetLastError();
 }

@@ -9,28 +9,39 @@
 //                              fused_delivery / _delivery_kernel
 //
 // Banded topology: receiver j's edge k talks to sender (j + off[k]) mod N,
-// which holds the edge in its slot rev[k]. The TPU kernels read that halo
-// through three VMEM block views; here a banded roll is a static index
-// offset and L2 serves the halo. `offrev` is a device int32 array [2K]:
-// off[0..K) (each in [0, N)) then rev[0..K).
+// which holds the edge in its slot rev[k]. `offrev` is a device int32 array
+// [2K]: off[0..K) (each in [0, N)) then rev[0..K).
 //
 // What bounds them on the card: bytes. Both are pure word algebra (a few
 // integer ops per loaded word), so the floor is the bytes each must move
 // once over HBM at 3.35 TB/s — edge_exchange about 70 MB at N=100k, K=16,
-// C=4 (about 21 us), fused_delivery about 134 MB with W=2 and the cohort
-// planes (about 40 us). The simple design below does nothing clever about
-// it: one thread per output element, neighbouring threads on neighbouring
-// output words, the sender rows read strided (one 16-byte row of a
-// neighbour per thread); a warp-per-peer layout with coalesced 128-byte
-// rows is later work. Each launch returns cudaGetLastError().
+// C=4 (about 21 us), fused_delivery about 134 MB with W=2 and no cohort
+// planes (about 40 us).
+//
+// edge_exchange is the simple first design: one thread per output element,
+// neighbouring threads on neighbouring output words, the sender rows read
+// strided (one 16-byte row of a neighbour per thread).
+//
+// fused_delivery is laid out for the card as banded.cuh sets out: a block
+// owns 64 consecutive receivers and stages the sender rows of carry, fe,
+// fwd and the mcache window its band needs in shared memory with 16-byte
+// loads; a row's (edge, word) elements sit on neighbouring lanes (one
+// 128-byte row a warp instruction at K=16, W=2), so asked, served_lo/hi,
+// flags, nbr_score and every output plane move coalesced. The OR over a
+// row's edges of each cohort (mesh push, IWANT response) is a shuffle scan
+// over the lanes of one word, and its exclusive prefix lets the lowest edge
+// win, in place of per-thread first-arrival arrays. Each launch returns
+// cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "banded.cuh"
+
 namespace {
 
 constexpr int kMaxK = 16;
-constexpr int kThreads = 256;
+constexpr int kExchangeThreads = 256;   // edge_exchange's block
 constexpr uint32_t kAll = 0xFFFFFFFFu;
 
 // flag bits (ops/fused_round.make_flags)
@@ -81,7 +92,12 @@ __global__ void edge_exchange_kernel(
   }
 }
 
-__global__ void fused_delivery_kernel(
+// words a staged sender row takes per block word (carry and fe over K
+// edges, fwd, the mcache window), and an own row (have, origin, joined, new)
+constexpr int fused_staged(int k) { return 2 * k + 2; }
+constexpr int kFusedOwn = 4;
+
+__global__ void __launch_bounds__(banded::kThreads) fused_delivery_kernel(
     const uint32_t* __restrict__ carry,   // [N, K*W] sender push outboxes
     const uint32_t* __restrict__ fe,      // [N, K*W] first-arrival edges
     const uint32_t* __restrict__ fwd,     // [N, W]
@@ -106,98 +122,140 @@ __global__ void fused_delivery_kernel(
     uint32_t* __restrict__ fwd_out,       // [N, W]
     uint32_t* __restrict__ mesh_t_out,    // [N, K*W] or null
     uint32_t* __restrict__ extra_out,     // [N, K*W] or null
-    int n, int k, int w, int score_enabled, int want_cohorts,
-    int retrans_cap) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)n * w) return;
-  int wi = (int)(t % w);
-  int j = (int)(t / w);
-  uint32_t have_j = have[t];
-  uint32_t not_mine = ~origin[t];
-  uint32_t joined_j = joined[t];
-  float thr_gossip = thr[0];
-  float thr_publish = thr[1];
-  uint32_t acc_t = 0u, acc_e = 0u;
-  // per-edge first-arrival words of the two cohorts, kept in registers
-  uint32_t first_t[kMaxK];
-  uint32_t first_e[kMaxK];
-  long long row_kw = (long long)j * k * w;
+    const banded::Layout L, int score_enabled, int want_cohorts, int retrans_cap) {
+  using namespace banded;
+  extern __shared__ uint4 smem_v[];
+  const int n = L.n, nk = L.k, w = L.w;
+  const long long r0 = (long long)blockIdx.x * L.rows;
+  const int nrows = n - r0 < L.rows ? (int)(n - r0) : L.rows;
+  const int w0 = blockIdx.y * L.wb;
+  const int wb = w - w0 < L.wb ? w - w0 : L.wb;
+  const int plane = L.stage_rows * nk * L.wb;
+  uint32_t* st_carry = reinterpret_cast<uint32_t*>(smem_v);   // [stage_rows, K, wb]
+  uint32_t* st_fe = st_carry + plane;                          // [stage_rows, K, wb]
+  uint32_t* st_fwd = st_fe + plane;                            // [stage_rows, wb]
+  uint32_t* st_mcw = st_fwd + L.stage_rows * L.wb;             // [stage_rows, wb]
+  uint32_t* own_have = st_mcw + L.stage_rows * L.wb;           // [rows, wb]
+  uint32_t* own_org = own_have + L.rows * L.wb;
+  uint32_t* own_join = own_org + L.rows * L.wb;
+  uint32_t* own_new = own_join + L.rows * L.wb;
 
-#pragma unroll
-  for (int kk = 0; kk < kMaxK; ++kk) {
-    if (kk < k) {
-      int s = j + offrev[kk];
-      if (s >= n) s -= n;
-      int rk = offrev[k + kk];
-      long long sp = (long long)s * w + wi;
-      long long se = (long long)s * k * w + (long long)rk * w + wi;
-      uint32_t fwd_s = fwd[sp];
-      uint32_t mcw_s = mcw[sp];
-      uint32_t carry_k = carry[se];
-      uint32_t echo_k = fe[se];
+  // the band's sender rows; the own-row [N, K, W] planes are read in the
+  // loop below, a whole row a warp instruction
+  int lo, hi;
+  window(offrev, nk, n, L.halo, lo, hi);
+  const int ns = nrows + hi - lo;
+  stage(st_carry, carry, r0 + lo, ns, n, nk, w, w0, wb);
+  stage(st_fe, fe, r0 + lo, ns, n, nk, w, w0, wb);
+  stage(st_fwd, fwd, r0 + lo, ns, n, 1, w, w0, wb);
+  stage(st_mcw, mcw, r0 + lo, ns, n, 1, w, w0, wb);
+  stage(own_have, have, r0, nrows, n, 1, w, w0, wb);
+  stage(own_org, origin, r0, nrows, n, 1, w, w0, wb);
+  stage(own_join, joined, r0, nrows, n, 1, w, w0, wb);
+  __syncthreads();
 
-      uint32_t f = flags[(long long)j * k + kk];
-      bool live = bit(f, F_LIVE);
-      uint32_t live_g = gate(live);
-      uint32_t accmsg_g = gate(bit(f, F_ACC_MSG));
-      uint32_t sfo_g = gate(bit(f, F_SENDER_FWD));
+  // K <= 16 fits one chunk (epc == K): a lane keeps one edge throughout
+  const Lane p = lane_of(L);
+  const Edge ed = edge_of(offrev, p.ke, nk, n, L.halo);
+  const float thr_gossip = thr[0];
+  const float thr_publish = thr[1];
+  const int groups = (wb + L.wg - 1) / L.wg;
+  const int units = nrows * groups;
+  for (int ub = (threadIdx.x >> 5) * L.upw; ub < units; ub += kWarps * L.upw) {
+    const int u = ub + p.unit;
+    const bool on_u = p.on && u < units;
+    const int rl = !on_u ? 0 : (groups == 1 ? u : u / groups);
+    const int wl = (u - rl * groups) * L.wg + p.wi;
+    const bool on = on_u && wl < wb && p.ke < nk;
+    const long long j = r0 + rl;
+    const long long e = (j * nk + p.ke) * w + w0 + wl;   // the lane's own-row word
+    uint32_t t_k = 0u, extra_k = 0u, own_fe = 0u, have_j = 0u;
+    if (on) {
+      uint32_t carry_k, echo_k, fwd_s, mcw_s;
+      if (ed.near) {
+        const int sl = rl + ed.so - lo;
+        carry_k = st_carry[(sl * nk + ed.rev) * wb + wl];
+        echo_k = st_fe[(sl * nk + ed.rev) * wb + wl];
+        fwd_s = st_fwd[sl * wb + wl];
+        mcw_s = st_mcw[sl * wb + wl];
+      } else {
+        long long s = j + ed.off;
+        if (s >= n) s -= n;
+        const long long se = (s * nk + ed.rev) * w + w0 + wl;
+        carry_k = carry[se];
+        echo_k = fe[se];
+        fwd_s = fwd[s * w + w0 + wl];
+        mcw_s = mcw[s * w + w0 + wl];
+      }
+      own_fe = st_fe[((rl - lo) * nk + p.ke) * wb + wl];
+      have_j = own_have[rl * wb + wl];
+      const uint32_t not_mine = ~own_org[rl * wb + wl];
+      const uint32_t joined_j = own_join[rl * wb + wl];
+
+      const uint32_t f = flags[j * nk + p.ke];
+      const bool live = bit(f, F_LIVE);
+      const uint32_t live_g = gate(live);
+      const uint32_t accmsg_g = gate(bit(f, F_ACC_MSG));
+      const uint32_t sfo_g = gate(bit(f, F_SENDER_FWD));
       float s_k = 0.0f;
       bool recv_ok = live;
       if (score_enabled) {
-        s_k = nbrsc[(long long)j * k + kk];
+        s_k = nbrsc[j * nk + p.ke];
         recv_ok = s_k >= thr_publish;
       }
-      uint32_t flood = gate(bit(f, F_FLOOD_FROM)) |
-                       (gate(bit(f, F_I_AM_FLOODSUB)) & gate(recv_ok));
-      uint32_t emask = (carry_k | flood) & accmsg_g & joined_j;
-      uint32_t t_k = fwd_s & ~echo_k & emask & live_g & sfo_g & not_mine;
+      const uint32_t flood = gate(bit(f, F_FLOOD_FROM)) |
+                             (gate(bit(f, F_I_AM_FLOODSUB)) & gate(recv_ok));
+      const uint32_t emask = (carry_k | flood) & accmsg_g & joined_j;
+      t_k = fwd_s & ~echo_k & emask & live_g & sfo_g & not_mine;
 
       // IWANT service: what I asked edge k last round, served from the
       // neighbour's mcache window, capped per (edge, msg)
-      long long e = row_kw + (long long)kk * w + wi;
-      uint32_t asked_k = asked[e];
-      uint32_t slo_k = slo[e];
-      uint32_t shi_k = shi[e];
-      uint32_t resp = asked_k & mcw_s &
-                      ~served_capped(retrans_cap, slo_k, shi_k) & live_g;
+      const uint32_t asked_k = asked[e];
+      const uint32_t slo_k = slo[e];
+      const uint32_t shi_k = shi[e];
+      uint32_t resp = asked_k & mcw_s & ~served_capped(retrans_cap, slo_k, shi_k) & live_g;
       if (score_enabled) resp &= gate(s_k >= thr_gossip);
-      uint32_t inc = resp & ~(shi_k & slo_k);
+      const uint32_t inc = resp & ~(shi_k & slo_k);
       slo_out[e] = slo_k ^ inc;
       shi_out[e] = shi_k | (slo_k & inc);
 
-      uint32_t extra_k = resp & accmsg_g & sfo_g & not_mine;
+      extra_k = resp & accmsg_g & sfo_g & not_mine;
       trans_out[e] = t_k | extra_k;
       if (want_cohorts) {
         mesh_t_out[e] = t_k;
         extra_out[e] = extra_k;
       }
-      // mesh-push arrivals take precedence over IWANT responses; within
-      // each cohort the lowest edge slot wins
-      first_t[kk] = t_k & ~acc_t;
-      acc_t |= t_k;
-      first_e[kk] = extra_k & ~acc_e;
-      acc_e |= extra_k;
+    }
+    // mesh-push arrivals take precedence over IWANT responses; within each
+    // cohort the lowest edge slot wins: the OR of the earlier edges
+    const uint32_t inc_t = scan_or(t_k, p, L);
+    const uint32_t inc_e = scan_or(extra_k, p, L);
+    const uint32_t acc_t = __shfl_sync(kFull, inc_t, p.last);
+    const uint32_t acc_e = __shfl_sync(kFull, inc_e, p.last);
+    const uint32_t first_t = t_k & ~exclusive(inc_t, p, L);
+    const uint32_t first_e = extra_k & ~exclusive(inc_e, p, L);
+    const uint32_t new_t = acc_t & ~have_j;
+    const uint32_t new_e = acc_e & ~(have_j | new_t);
+    const uint32_t nw = new_t | new_e;
+    if (on) {
+      fe_out[e] = (own_fe & ~nw) | (first_t & new_t) | (first_e & new_e);
+      if (p.ke == 0) own_new[rl * wb + wl] = nw;
     }
   }
+  __syncthreads();
 
-  uint32_t new_t = acc_t & ~have_j;
-  uint32_t new_e = acc_e & ~(have_j | new_t);
-  uint32_t nw = new_t | new_e;
-  new_out[t] = nw;
-  have_out[t] = have_j | nw;
-  fwd_out[t] = nw & valid[wi];
-
-#pragma unroll
-  for (int kk = 0; kk < kMaxK; ++kk) {
-    if (kk < k) {
-      long long e = row_kw + (long long)kk * w + wi;
-      fe_out[e] = (fe[e] & ~nw) | (first_t[kk] & new_t) | (first_e[kk] & new_e);
-    }
+  for (int x = threadIdx.x; x < nrows * wb; x += kThreads) {
+    const int rl = x / wb, wl = x - rl * wb;
+    const long long gi = (r0 + rl) * w + w0 + wl;
+    const uint32_t nw = own_new[x];
+    new_out[gi] = nw;
+    have_out[gi] = own_have[x] | nw;
+    fwd_out[gi] = nw & valid[w0 + wl];
   }
 }
 
 unsigned int blocks_for(long long total) {
-  return (unsigned int)((total + kThreads - 1) / kThreads);
+  return (unsigned int)((total + kExchangeThreads - 1) / kExchangeThreads);
 }
 
 }  // namespace
@@ -208,7 +266,7 @@ extern "C" int edge_exchange_launch(
     void* stream) {
   if (k > kMaxK || k <= 0 || c <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   long long total = (long long)n * k * c;
-  edge_exchange_kernel<<<blocks_for(total), kThreads, 0,
+  edge_exchange_kernel<<<blocks_for(total), kExchangeThreads, 0,
                          (cudaStream_t)stream>>>(
       (const uint32_t*)wire, (const float*)scores, (const uint32_t*)live,
       (const int*)offrev, (uint32_t*)wire_out, (float*)score_out, n, k, c,
@@ -227,9 +285,10 @@ extern "C" int fused_delivery_launch(
     int score_enabled, int want_cohorts, int retrans_cap, void* stream) {
   if (k > kMaxK || k <= 0 || w <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   int cap = retrans_cap < 0 ? 0 : (retrans_cap > 3 ? 3 : retrans_cap);
-  long long total = (long long)n * w;
-  fused_delivery_kernel<<<blocks_for(total), kThreads, 0,
-                          (cudaStream_t)stream>>>(
+  const banded::Layout L = banded::make_layout(n, k, w, fused_staged(k), kFusedOwn);
+  const dim3 grid((unsigned int)((n + L.rows - 1) / L.rows),
+                  (unsigned int)((w + L.wb - 1) / L.wb));
+  fused_delivery_kernel<<<grid, banded::kThreads, L.smem_bytes, (cudaStream_t)stream>>>(
       (const uint32_t*)carry, (const uint32_t*)fe, (const uint32_t*)fwd,
       (const uint32_t*)mcw, (const float*)nbrsc, (const uint32_t*)asked,
       (const uint32_t*)slo, (const uint32_t*)shi, (const uint32_t*)flags,
@@ -238,6 +297,6 @@ extern "C" int fused_delivery_launch(
       (const int*)offrev, (uint32_t*)trans_out, (uint32_t*)fe_out,
       (uint32_t*)slo_out, (uint32_t*)shi_out, (uint32_t*)new_out,
       (uint32_t*)have_out, (uint32_t*)fwd_out, (uint32_t*)mesh_t_out,
-      (uint32_t*)extra_out, n, k, w, score_enabled, want_cohorts, cap);
+      (uint32_t*)extra_out, L, score_enabled, want_cohorts, cap);
   return (int)cudaGetLastError();
 }

@@ -15,9 +15,11 @@
 // i.e. the (up to) k_rows[r] masked slots first in the strict (value, noise,
 // index)-descending order. The kernel equals the plain pairwise form bit for
 // bit on any input, because it keeps the meaning of its IEEE compares:
-// -0.0 == +0.0; subnormals are kept (no flush to zero); a masked NaN value
-// (or NaN noise at a tie) compares false both ways, so a masked NaN slot
-// has rank 0 and outranks nothing.
+// -0.0 == +0.0; a subnormal value or noise ranks as a zero of its sign (the
+// plain version flushes them, as XLA on the CPU and a TPU do, so 1e-45 ties
+// with 0.0; flushed here in the code, not by a compiler flag); a masked NaN
+// value (or NaN noise at a tie) compares false both ways, so a masked NaN
+// slot has rank 0 and outranks nothing.
 //
 // What bounds it on the card: bytes. It must read 10 bytes a slot (value
 // and noise f32, mask byte) and 4 a row, and write one byte a slot: at
@@ -57,11 +59,18 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxK = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-// An unsigned key in the order of a float's IEEE compares, for any float
-// but NaN: -0.0 and +0.0 share a key, subnormals keep theirs.
+// A float32 subnormal as a zero of its sign; any other float as it is.
+__device__ __forceinline__ float flush_subnormal(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x7f800000u) == 0u ? __uint_as_float(u & 0x80000000u) : f;
+}
+
+// An unsigned key in the order of a float's IEEE compares with subnormals
+// flushed, for any float but NaN: -0.0, +0.0 and every subnormal share the
+// key of zero.
 __device__ __forceinline__ uint32_t order_key(float f) {
-  uint32_t u = __float_as_uint(f);
-  if (u == 0x80000000u) u = 0u;
+  const uint32_t u = __float_as_uint(f);
+  if ((u & 0x7f800000u) == 0u) return 0x80000000u;   // +-0 and every subnormal: zero's key
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
@@ -184,6 +193,15 @@ __global__ void __launch_bounds__(kThreads) select_topk_kernel(
 #pragma unroll
     for (int s = 0; s < S; ++s) my_nan |= slot[s] < k && (q[s] != q[s] || (mk[s] && v[s] != v[s]));
     const bool nan_row = (__ballot_sync(gmask, my_nan) & gmask) != 0u;
+    // a NaN row compares the floats with subnormals flushed, as order_key
+    // ranks them (the rows decided by the ballot above never rank)
+    if (nan_row) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        p[s] = flush_subnormal(p[s]);
+        q[s] = flush_subnormal(q[s]);
+      }
+    }
     uint4 mine[S];
 #pragma unroll
     for (int s = 0; s < S; ++s)

@@ -14,7 +14,13 @@ first_round / fe commit. It works on the packed ``[N, K, W]`` first-arrival
 plane that ``Delivery`` holds, not the TPU kernel's int8 ``[N, M]`` form
 (which only the TPU compiler needed), and its ``fe'`` is the composite's
 ``(fe & ~new) | fa``. It is bounded by bytes; the source says what it
-moves and what the simple design does about it.
+moves. Its layout is the one ``fused_delivery`` uses (``csrc/banded.cuh``):
+a block stages the sender rows of its band in shared memory, a row's
+(edge, word) words sit on neighbouring lanes, the OR over edges and the
+lowest-edge-wins prefix are shuffle scans, ``trans`` is never read back,
+and first_round is stamped over the block's rows as 16-byte vectors. It
+takes any K (up to the about 12,000 edges whose words one block can stage),
+any W and any N.
 
 The wrapper launches the kernel for a CUDA tensor — or raises — and takes
 the plain PyTorch version (``delivery_banded_plain``) only for a CPU

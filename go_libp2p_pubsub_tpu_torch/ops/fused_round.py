@@ -14,7 +14,12 @@ topology, as two Hopper kernels (``csrc/fused_round.cu``).
   file.
 
 Both are bounded by bytes (word algebra, a few integer ops per word): the
-source notes what each must move and what the simple design does about it.
+source notes what each must move. ``fused_delivery`` is laid out for the
+card (``csrc/banded.cuh``): a block stages the sender rows of its band in
+shared memory, a row's (edge, word) words sit on neighbouring lanes, and
+the first-arrival cohorts are shuffle scans over a row's edges; an offset
+beyond the block's halo reads its sender words from global memory. It takes
+any K <= 16 and any W.
 
 Each wrapper launches its kernel for a CUDA tensor — or raises — and takes
 the plain PyTorch version (``*_plain``, built from rolls and bitwise ops)

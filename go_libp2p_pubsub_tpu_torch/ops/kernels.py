@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into a shared library under ``build/torch_kernels/`` at the
-repository root (named by a hash of its source and flags, so an edited
-source rebuilds), then loaded with ``ctypes``. Building happens at first
+repository root (named by a hash of its source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header rebuilds), then
+loaded with ``ctypes``. Building happens at first
 use, never at import: the package imports on machines with no toolkit.
 """
 
@@ -40,10 +41,17 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def source_tag(csrc: pathlib.Path, name: str) -> str:
+    """A hash of ``csrc/<name>.cu``, the headers beside it and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    return BUILD_DIR / f"lib{name}-{source_tag(CSRC, name)}.so"
 
 
 def build(name: str) -> dict:

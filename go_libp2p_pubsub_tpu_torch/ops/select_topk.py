@@ -17,9 +17,11 @@ nothing and ``k_rows >= c`` every masked slot. The other rows rank their
 masked slots among the masked slots only, compacted by the ballot into a
 shared-memory list, so a sparse row costs ``c`` compares a slot, not ``K``;
 a compare is one unsigned compare of 96-bit keys that order the slots as
-the plain version's IEEE compares do (-0.0 equals +0.0, subnormals are
-kept). A row with a NaN takes those float compares themselves: a masked
-NaN value ranks 0 and outranks nothing. A masked ``-inf`` value ties with
+the plain version's IEEE compares do (-0.0 equals +0.0). Values and noise
+are ranked with float32 subnormals flushed to a zero of the same sign, as
+the JAX package's platforms (XLA on the CPU, a TPU) flush them, so 1e-45
+ties with 0.0. A row with a NaN takes those float compares themselves: a
+masked NaN value ranks 0 and outranks nothing. A masked ``-inf`` value ties with
 the unmasked slots (``-inf`` too), which then outrank it on noise and
 index; a row holding one ranks over all K slots, the pairwise count itself.
 So the kernel equals ``select_topk_plain`` bit for bit on any input. It
@@ -45,9 +47,17 @@ def reset_launch_counts() -> None:
     LAUNCHES["select_topk"] = 0
 
 
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` with every subnormal replaced by a zero of its sign, as
+    XLA on the CPU and a TPU compare them."""
+    tiny = torch.finfo(torch.float32).tiny
+    return torch.where(x.abs() < tiny, torch.copysign(torch.zeros_like(x), x), x)
+
+
 def rank_desc_pairwise(primary: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     """O(K^2) pairwise count of slots that outrank each slot in the strict
-    (value, noise, index)-descending order."""
+    (value, noise, index)-descending order, subnormals ranked as zeros."""
+    primary, noise = flush_subnormals(primary), flush_subnormals(noise)
     k = primary.shape[-1]
     idx = torch.arange(k, dtype=torch.int32, device=primary.device)
     pi, pj = primary[..., :, None], primary[..., None, :]

@@ -4,8 +4,9 @@ against the JAX package.
 * ``delivery_banded_plain`` (go_libp2p_pubsub_tpu_torch/ops/
   delivery_banded.py) against the TPU kernel ``delivery_round_banded``
   run in interpret mode, both directly and through ``delivery_round`` on
-  random banded states with live and dead edges, and against the JAX
-  ``delivery_round`` composite for the packed first-arrival plane.
+  random banded states with live and dead edges, directly on the hazard
+  bands of tests/torch_parity.py, and against the JAX ``delivery_round``
+  composite for the packed first-arrival plane.
 * ``csr_delivery_plain`` (ops/csr_delivery.py) against the three
   ``pallas_csr.csr_delivery`` kernels in interpret mode on ragged, banded
   and power-law nets, with the link-deny mask on and off.
@@ -30,6 +31,7 @@ from go_libp2p_pubsub_tpu import topo as jtopo
 from go_libp2p_pubsub_tpu.models import common as jcommon
 from go_libp2p_pubsub_tpu.ops import bitset as jbs
 from go_libp2p_pubsub_tpu.ops import csr as jcsr
+from go_libp2p_pubsub_tpu.ops import fused_round as jfr
 from go_libp2p_pubsub_tpu.ops import pallas_csr as jpcsr
 from go_libp2p_pubsub_tpu.ops.pallas_delivery import delivery_round_banded as jbanded
 from go_libp2p_pubsub_tpu.state import Delivery as JDelivery
@@ -46,7 +48,14 @@ from go_libp2p_pubsub_tpu_torch.state import Delivery as TDelivery
 from go_libp2p_pubsub_tpu_torch.state import MsgTable as TMsgTable
 from go_libp2p_pubsub_tpu_torch.state import Net as TNet
 from go_libp2p_pubsub_tpu_torch.state import replace
-from torch_parity import HAZARD_M, hazard_graph, hazard_planes
+from torch_parity import (
+    HAZARD_BAND_M,
+    HAZARD_M,
+    hazard_banded_args,
+    hazard_bands,
+    hazard_graph,
+    hazard_planes,
+)
 
 
 def _t(a):
@@ -168,6 +177,40 @@ def test_banded_plain_equals_the_tpu_kernel_directly():
     _eq(fe2, tbs.first_edge_of(got["fe"].reshape(n, k, w), m), "first_edge")
     _eq(jbs.edge_eq_words(fe2, k).reshape(n, k * w), got["fe"], "fe words")
     _eq(np.asarray(have2) & ~np.asarray(jdlv.have), got["new"], "new")
+
+
+@pytest.mark.parametrize("band", hazard_bands(), ids=[b["name"] for b in hazard_bands()])
+@pytest.mark.parametrize("m", HAZARD_BAND_M)
+def test_banded_plain_equals_the_tpu_kernel_on_hazard_bands(band, m):
+    """The hazard bands of the card's delivery_banded tests
+    (tests/torch_parity.hazard_bands): ring lattices with K = 2, 6, 16, 24
+    and 40, N not a multiple of the kernel's block, N=17 under the staged
+    window, a circulant with steps 333 and 500 = N/2, at W = 1, 2, 3 and
+    10. delivery_banded_plain equals delivery_round_banded in interpret
+    mode on a one-hot first-arrival plane and messages of random origins."""
+    n, off, rev = band["n"], band["offsets"], band["revs"]
+    k, w = len(off), (m + 31) // 32
+    fwd, fe, emask, _nm, have, first_round, valid_row, tick = hazard_banded_args(
+        m + k, band, m,
+        first_edge=lambda fe8: np.asarray(jbs.edge_eq_words(jnp.asarray(fe8), k)).reshape(n, k * w))
+    origin = np.random.default_rng(n + m).integers(-1, n, size=m).astype(np.int32)
+    not_mine = ~np.asarray(jbs.pack(jnp.asarray(origin[None, :] == np.arange(n)[:, None])))
+    block = jfr.pick_block(n, off) or n    # a halo past every block: one block of N
+    trans, have2, fwd2, fr2, fe2 = jbanded(
+        jnp.asarray(fwd), jbs.first_edge_of(jnp.asarray(fe).reshape(n, k, w), m),
+        jnp.asarray(emask), jnp.asarray(have), jnp.asarray(first_round), jnp.asarray(origin),
+        jnp.asarray(valid_row[0]), jnp.int32(tick), block=block, m=m, offsets=off, revs=rev,
+        interpret=True)
+    got = tdb.delivery_banded(
+        _t(fwd), _t(fe), _t(emask), _t(not_mine), _t(have), _t(first_round), _t(valid_row),
+        torch.tensor(int(tick), dtype=torch.int32), offsets=off, revs=rev, w=w)
+    at = f"{band['name']} M={m}"
+    _eq(np.asarray(trans).reshape(n, k * w), got["trans"], f"{at} trans")
+    _eq(have2, got["have"], f"{at} have")
+    _eq(fwd2, got["fwd"], f"{at} fwd")
+    _eq(fr2, got["first_round"], f"{at} first_round")
+    _eq(jbs.edge_eq_words(fe2, k).reshape(n, k * w), got["fe"], f"{at} fe words")
+    _eq(np.asarray(have2) & ~have, got["new"], f"{at} new")
 
 
 def test_first_edge_forms_equal_reference():

@@ -1,5 +1,6 @@
-"""The delivery kernels and the heartbeat's select_topk kernel against
-their plain versions on the card.
+"""The port's kernels against their plain versions on the card: the
+GossipSub data plane (edge_exchange, fused_delivery), the delivery kernels
+(delivery_banded, csr_delivery) and the heartbeat's select_topk.
 
 This file imports only the port (no JAX package), so it also runs on a
 machine that has PyTorch with CUDA and nothing of the JAX stack:
@@ -7,8 +8,9 @@ machine that has PyTorch with CUDA and nothing of the JAX stack:
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Each test skips when no CUDA device is present. The plain versions are
-held against the JAX package on the CPU in tests/test_torch_delivery.py
-and tests/test_torch_select.py.
+held against the JAX package on the CPU in tests/test_torch_fused_round.py,
+tests/test_torch_delivery.py and tests/test_torch_select.py, on the same
+hazard inputs (tests/torch_parity.py).
 """
 
 from __future__ import annotations
@@ -21,9 +23,24 @@ from go_libp2p_pubsub_tpu_torch import graph, topo
 from go_libp2p_pubsub_tpu_torch.ops import bitset
 from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
 from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
+from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
 from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
 from go_libp2p_pubsub_tpu_torch.state import Net
-from torch_parity import HAZARD_K, HAZARD_M, hazard_graph, hazard_planes, hazard_rows
+from torch_parity import (
+    FUSED_CONFIGS,
+    HAZARD_BAND_M,
+    HAZARD_K,
+    HAZARD_M,
+    hazard_banded_args,
+    hazard_bands,
+    hazard_fused_args,
+    hazard_graph,
+    hazard_planes,
+    hazard_rows,
+)
+
+BANDS = hazard_bands()
+FUSED_BANDS = [b for b in BANDS if len(b["offsets"]) <= fr.MAX_K]
 
 
 @pytest.fixture
@@ -63,6 +80,87 @@ def test_delivery_banded_kernel_equals_plain(cuda, n, d, m):
     _equal_on_card(db.delivery_banded_plain, db.delivery_banded, args,
                    dict(offsets=net.band_off, revs=net.band_rev, w=w), cuda,
                    db.LAUNCHES, "delivery_banded")
+
+
+def _np_tensor(a):
+    a = np.asarray(a)
+    return torch.from_numpy(np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32 else a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", BANDS, ids=[b["name"] for b in BANDS])
+@pytest.mark.parametrize("m", HAZARD_BAND_M)
+def test_delivery_banded_kernel_on_hazard_bands(cuda, band, m):
+    """tests/torch_parity.hazard_bands: ring lattices with K = 2, 6, 16, 24
+    and 40 (past one 32-edge chunk), N not a multiple of the 64-row block,
+    N=17 under a staged window of 33 rows, a circulant whose steps 333 and
+    500 = N/2 lie beyond the halo (the global-memory path), at W = 1, 2, 3
+    and 10 (two word blocks)."""
+    args = [_np_tensor(a) for a in hazard_banded_args(m, band, m)]
+    args[7] = torch.tensor(int(args[7]), dtype=torch.int32)
+    _equal_on_card(db.delivery_banded_plain, db.delivery_banded, args,
+                   dict(offsets=band["offsets"], revs=band["revs"], w=(m + 31) // 32), cuda,
+                   db.LAUNCHES, "delivery_banded")
+
+
+def _fused_on_card(cuda, band, m, seed, score_enabled, want_cohorts, retrans_cap):
+    args = [_np_tensor(a) for a in hazard_fused_args(seed, band, m)]
+    if not score_enabled:
+        args[4] = None
+    kw = dict(offsets=band["offsets"], revs=band["revs"], w=(m + 31) // 32,
+              score_enabled=score_enabled, want_cohorts=want_cohorts, retrans_cap=retrans_cap)
+    ref = fr.fused_delivery_plain(*args, -10.0, -50.0, **kw)
+    fr.LAUNCHES["fused_delivery"] = 0
+    got = fr.fused_delivery(*[None if a is None else a.to(cuda) for a in args], -10.0, -50.0,
+                            **kw)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES["fused_delivery"] == 1
+    assert sorted(ref) == sorted(got)
+    for key in ref:
+        assert torch.equal(ref[key], got[key].cpu()), (band["name"], m, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", FUSED_CONFIGS,
+                         ids=[f"score={s}-cohorts={c}-cap={r}" for s, c, r in FUSED_CONFIGS])
+def test_fused_delivery_kernel_equals_plain(cuda, config):
+    """The bench's layout (ring lattice d=8: K=16, W=2) on random words, at
+    every retrans_cap 0-3, the cohort planes on and off, scores on and off."""
+    band = next(b for b in BANDS if b["name"] == "ring N=1000 K=16")
+    _fused_on_card(cuda, band, 64, 5, *config)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", FUSED_BANDS, ids=[b["name"] for b in FUSED_BANDS])
+@pytest.mark.parametrize("m", HAZARD_BAND_M)
+def test_fused_delivery_kernel_on_hazard_bands(cuda, band, m):
+    """The hazard bands with K <= 16 at W = 1, 2, 3 and 10, each under every
+    config of FUSED_CONFIGS: scores on the thresholds, at -0.0 and at
+    subnormals, every pattern of the five flag bits."""
+    for i, config in enumerate(FUSED_CONFIGS):
+        _fused_on_card(cuda, band, m, m + i, *config)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", FUSED_BANDS, ids=[b["name"] for b in FUSED_BANDS])
+@pytest.mark.parametrize("score_enabled", [True, False])
+def test_edge_exchange_kernel_equals_plain(cuda, band, score_enabled):
+    n, k, c = band["n"], len(band["offsets"]), 4
+    rng = np.random.default_rng(n + k)
+    wire = _words(rng, n, k * c)
+    scores = torch.from_numpy(rng.normal(0.0, 20.0, size=(n, k)).astype(np.float32))
+    live = torch.from_numpy((rng.random((n, k)) < 0.8).astype(np.int32))
+    kw = dict(offsets=band["offsets"], revs=band["revs"], c=c, score_enabled=score_enabled)
+    ref = fr.edge_exchange_plain(wire, scores, live, **kw)
+    fr.LAUNCHES["edge_exchange"] = 0
+    got = fr.edge_exchange(wire.to(cuda), scores.to(cuda), live.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES["edge_exchange"] == 1
+    for a, b in zip(ref, got):
+        if a is None:
+            assert b is None
+        else:
+            assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -131,6 +229,18 @@ def test_unsupported_shapes_raise_on_the_card(cuda):
     with pytest.raises(ValueError, match="W = ceil"):
         db.delivery_banded(*args[:5], z(n, 96), *args[6:], **static)
     assert db.LAUNCHES["delivery_banded"] == 0
+    fr.LAUNCHES["fused_delivery"] = 0
+    words = lambda c: z(n, k * c)
+    fargs = [words(w), words(w), z(n, w), z(n, w), None, words(w), words(w), words(w),
+             z(n, k), z(n, w), z(n, w), z(n, w), z(1, w)]
+    fkw = dict(offsets=net.band_off, revs=net.band_rev, w=w, score_enabled=False,
+               want_cohorts=False, retrans_cap=3)
+    for i, bad in ((0, words(w)[:, 1:]), (8, z(n, k).float()), (9, z(n, w).cpu())):
+        a = list(fargs)
+        a[i] = bad
+        with pytest.raises((ValueError, TypeError)):
+            fr.fused_delivery(*a, **fkw)
+    assert fr.LAUNCHES["fused_delivery"] == 0
 
 
 @pytest.mark.cuda

@@ -100,20 +100,14 @@ def test_pairwise_rank_equals_both_reference_forms(k):
                        torch.arange(k, dtype=torch.int32).expand(40, k))
 
 
-def _flush_denormals(a):
-    """What XLA on the CPU (and a TPU) does to float32 subnormals: zero."""
-    return np.where(np.abs(a) < np.finfo(np.float32).tiny, np.float32(0.0), a)
-
-
 @pytest.mark.parametrize("k", HAZARD_K)
 def test_plain_equals_pallas_on_hazard_rows(k):
     """The hazard rows the card's select_topk tests use (masked +-inf and
-    NaN, NaN noise, equal rows, empty and full masks, widths -1 to K+1):
-    the port's plain version equals select_topk_pallas. Both get the rows
-    with subnormals flushed to zero, since the reference's platforms flush
-    them and the port does not (the test below pins that difference)."""
+    NaN, NaN noise, subnormal values and noise, equal rows, empty and full
+    masks, widths -1 to K+1): the port's plain version equals
+    select_topk_pallas, both given the same unflushed rows."""
     values, mask, k_rows, noise = hazard_rows(k, 40, k)
-    values, noise = _flush_denormals(values), _flush_denormals(noise)
+    assert (np.abs(values[np.isfinite(values)]) < np.finfo(np.float32).tiny).any()
     want = jpcsr.select_topk_pallas(jnp.asarray(values), jnp.asarray(mask),
                                     jnp.asarray(k_rows), jnp.asarray(noise),
                                     block=8, interpret=True)
@@ -162,19 +156,19 @@ def test_masked_neg_inf_is_outranked_by_unmasked_slots():
 
 
 def test_subnormals_rank_exactly_where_the_reference_flushes_them():
-    """A known difference: XLA on the CPU (as a TPU) flushes float32
-    subnormals to zero, so the reference ties 1e-45 with 0.0 and breaks the
-    tie on noise; the port (torch on the CPU, the CUDA kernel built without
-    flush-to-zero) ranks 1e-45 above 0.0."""
-    values = np.array([[1e-45, 0.0]], np.float32)
-    mask = np.array([[True, True]])
-    noise = np.array([[0.0, 0.5]], np.float32)
-    kr = np.array([1], np.int32)
+    """XLA on the CPU (as a TPU) flushes float32 subnormals to zero, so the
+    reference ties 1e-45 with 0.0 and breaks the tie on noise; the port
+    flushes them too and selects the same slot. Subnormal noise ties with
+    zero noise the same way, and the tie falls to the lower index."""
+    values = np.array([[1e-45, 0.0], [-1e-40, -0.0], [2.0, 2.0]], np.float32)
+    mask = np.ones((3, 2), bool)
+    noise = np.array([[0.0, 0.5], [0.0, 0.25], [0.0, 1e-45]], np.float32)
+    kr = np.array([1, 1, 1], np.int32)
     want = jpcsr.select_topk_pallas(jnp.asarray(values), jnp.asarray(mask), jnp.asarray(kr),
                                     jnp.asarray(noise), block=1, interpret=True)
     got = tsk.select_topk(*_torch(values, mask, kr, noise))
-    assert np.asarray(want).tolist() == [[False, True]]
-    assert got.tolist() == [[True, False]]
+    assert np.asarray(want).tolist() == [[False, True], [False, True], [True, False]]
+    _eq(want, got)
 
 
 def _select_case(name, fused, vals, mask, width, jk, tk):

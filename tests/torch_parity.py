@@ -1,8 +1,10 @@
 """Shared helpers of the port's parity tests: the JAX package's state as
 schema-path leaves, the bench-default GossipSub builds of both packages on
 the same small topology (the banded lattice by default), and the hazard
-inputs of the two redesigned kernels (``hazard_rows`` for select_topk,
-``hazard_graph`` for csr_delivery), made with numpy from a seed.
+inputs of the redesigned kernels (``hazard_rows`` for select_topk,
+``hazard_graph`` for csr_delivery, ``hazard_bands`` with
+``hazard_fused_args`` / ``hazard_banded_args`` for fused_delivery and
+delivery_banded), made with numpy from a seed.
 
 Importing this module imports no JAX: the card-only kernel tests and
 chip_smoke.py use the hazard builders on machines without the JAX stack.
@@ -22,21 +24,31 @@ HAZARD_K = (1, 16, 17, 32, 33, 64, 65, 256)
 #: that is not a multiple of 32
 HAZARD_M = (20, 64, 96)
 
+#: the slots of the banded hazard tests: HAZARD_M and W = 10, past the 8
+#: words a block of the banded kernels takes (grid.y splits the row)
+HAZARD_BAND_M = HAZARD_M + (300,)
+
+#: (score_enabled, want_cohorts, retrans_cap) under which fused_delivery's
+#: hazard checks run: every cap 0-3, the cohort planes and scores on and off
+FUSED_CONFIGS = ((True, True, 0), (True, False, 1), (False, True, 2), (False, False, 3),
+                 (True, True, 3), (False, True, 0))
+
 
 def hazard_rows(seed: int, r: int, k: int):
     """select_topk arguments as numpy arrays (values f32, mask bool, k_rows
     i32, noise f32) holding the hazards of its order: masked +-inf and NaN
-    values, NaN noise, denormals, ties and signed zeros; a row with no slot
+    values, NaN noise, subnormal values and noise of both signs (which rank
+    as zeros), ties and signed zeros; a row with no slot
     masked, one with every slot masked, one whose slots are all equal, one
     of masked -inf values only and one with a single masked -inf beside
     unmasked slots; masks from empty to full; widths from -1 to K + 1
     (every one of them on the first rows)."""
     rng = np.random.default_rng(seed)
     pool = np.array([-np.inf, np.inf, np.nan, -0.0, 0.0, 1e-45, -1e-45, 1e-40,
-                     0.5, -1.5, 2.0], np.float32)
+                     -1e-38, 0.5, -1.5, 2.0], np.float32)
     values = rng.choice(pool, size=(r, k)).astype(np.float32)
-    noise = rng.choice(np.array([-0.0, 0.0, 0.25, 0.5, np.nan, 1e-45], np.float32),
-                       size=(r, k)).astype(np.float32)
+    noise = rng.choice(np.array([-0.0, 0.0, 0.25, 0.5, np.nan, 1e-45, -1e-45, 1e-39],
+                                np.float32), size=(r, k)).astype(np.float32)
     mask = rng.random((r, k)) < rng.random((r, 1))
     # every other row NaN-free: the kernel ranks those by ordered keys
     calm = np.arange(r) % 2 == 0
@@ -128,6 +140,77 @@ def hazard_planes(seed: int, n: int, e: int, m: int) -> dict:
         "valid_row": u32(1, w), "tick": np.int32(9),
         "link_ok_e": rng.random(e) < 0.7,
     }
+
+
+def _band(name: str, n: int, steps) -> dict:
+    """A banded topology from signed ring steps: offsets mod N and each
+    edge's reverse slot (the slot holding the opposite step)."""
+    off = tuple(int(s) % n for s in steps)
+    return {"name": name, "n": n, "offsets": off,
+            "revs": tuple(off.index((n - o) % n) for o in off)}
+
+
+def _ring(n: int, d: int) -> dict:
+    return _band(f"ring N={n} K={2 * d}", n, [s for i in range(1, d + 1) for s in (i, -i)])
+
+
+def hazard_bands() -> list:
+    """The banded topologies of the hazard tests of fused_delivery and
+    delivery_banded: ring lattices with K = 2, 6, 16, 24 and 40 (K = 24
+    and 40 are past fused_delivery's K <= 16; K = 40 is past one 32-edge
+    chunk of delivery_banded), N not a multiple of the kernels' 64-row
+    block, an N smaller than the staged window (N=17 at K=16: a block's
+    window of 17 + 16 rows wraps past N), and a symmetric circulant on
+    N=1000 with steps +-1, +-333 and 500 = N/2 (its own reverse), whose wide
+    steps lie beyond any block's halo. Pair each with ``HAZARD_BAND_M``."""
+    return [_ring(100, 1), _ring(300, 3), _ring(1000, 8), _ring(17, 8), _ring(250, 12),
+            _ring(200, 20),
+            _band("circulant N=1000 steps 1, 333, 500", 1000, (1, -1, 333, -333, 500))]
+
+
+def _u32(rng, *shape):
+    return rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+
+
+def hazard_fused_args(seed: int, band: dict, m: int) -> list:
+    """fused_delivery's array arguments on ``band`` (numpy, in the
+    wrapper's order: carry_out .. valid_row), M slots a row: random words
+    (fe, served_hi, have and origin sparse, joined dense), every pattern of
+    the five flag bits, and neighbour scores that sit on the bench
+    thresholds (-10, -50), at -0.0 and at subnormals of both signs."""
+    rng = np.random.default_rng(seed)
+    n, k, w = band["n"], len(band["offsets"]), (m + 31) // 32
+    sparse = lambda *sh: _u32(rng, *sh) & _u32(rng, *sh) & _u32(rng, *sh)
+    score = rng.normal(0.0, 20.0, size=(n, k)).astype(np.float32)
+    pick = rng.integers(0, 8, size=(n, k))
+    for i, v in enumerate((-10.0, -50.0, -0.0, 1e-45, -1e-45)):
+        score[pick == i] = v
+    return [_u32(rng, n, k * w), sparse(n, k * w), _u32(rng, n, w), _u32(rng, n, w), score,
+            _u32(rng, n, k * w), _u32(rng, n, k * w), sparse(n, k * w),
+            rng.integers(0, 32, size=(n, k)).astype(np.int32), sparse(n, w), sparse(n, w),
+            ~sparse(n, w), _u32(rng, 1, w)]
+
+
+def hazard_banded_args(seed: int, band: dict, m: int, first_edge=None) -> list:
+    """delivery_banded's array arguments on ``band`` (numpy, in the
+    wrapper's order: fwd, fe, emask, not_mine, have, first_round,
+    valid_row, tick), M slots a row, the padding bits of the last word
+    clear. ``first_edge(int8 [N, M]) -> fe words [N, K*W]`` builds fe as
+    the one-hot form a round leaves (the JAX kernel's int8 first-edge
+    plane); without it fe is random words."""
+    rng = np.random.default_rng(seed)
+    n, k, w = band["n"], len(band["offsets"]), (m + 31) // 32
+    pad = np.uint32((1 << (m % 32)) - 1) if m % 32 else np.uint32(0xFFFFFFFF)
+
+    def words(*sh):
+        x = _u32(rng, *sh, w)
+        x[..., -1] &= pad
+        return x.reshape(sh[:-1] + (sh[-1] * w,)) if len(sh) > 1 else x
+
+    fe8 = rng.integers(-1, k, size=(n, m)).astype(np.int8)
+    fe = words(n, k) if first_edge is None else np.asarray(first_edge(fe8))
+    return [words(n), fe, words(n, k), words(n), words(n),
+            rng.integers(-1, 50, size=(n, m)).astype(np.int32), words(1), np.int32(11)]
 
 
 def reference_leaves(jst) -> dict:
