@@ -21,13 +21,14 @@ last line is printed:
    sm_90a, one nvcc per source, all started together;
 3. GossipSub kernels — at the bench's shapes (N=100k, K=16, W=2, C=4), on
    inputs captured from a real round and on random words, edge_exchange and
-   fused_delivery must equal their plain PyTorch versions exactly, and
-   fused_delivery also on the hazard bands (tests/torch_parity.hazard_bands:
-   rings with K = 2, 6, 16, N=17 under the staged window, a circulant with
-   steps past the halo, W = 1, 2, 3, 10) under every retrans_cap, with the
-   cohort planes and scores on and off; times of the kernel, the plain
-   version and (edge_exchange) the one-call library gather, beside the
-   bytes bound;
+   fused_delivery must equal their plain PyTorch versions exactly, and both
+   also on the hazard bands (tests/torch_parity.hazard_bands: rings with K
+   = 2, 6, 16, N=17 under the staged window, a circulant with steps past
+   the halo): edge_exchange at C = 1, 3, 4, 6 with scores holding -0.0,
+   subnormals and NaN, fused_delivery at W = 1, 2, 3, 10 under every
+   retrans_cap, with the cohort planes and scores on and off; times of the
+   kernel, the plain version and (edge_exchange) the one-call library
+   gather, beside the bytes bound;
 4. GossipSub at full width — the bench's default config at N=100k,
    formation rounds then 64 rounds of the bench's publish schedule; both
    fused-kernel launch counters must equal the round count and select_topk
@@ -35,7 +36,9 @@ last line is printed:
    a subset of have; rounds/s and peak device memory;
 5. GossipSub card against CPU — the same step from the same seed on the
    card and on the CPU (plain versions) for 32 rounds at N=8192, every leaf
-   equal after every round;
+   equal after every round; then the same on the lattice under each of the
+   score parameters that make float32 subnormals
+   (tests/torch_parity.SUBNORMAL_CELLS);
 6. GossipSub CSR bench — the same config built with edge_layout="csr",
    fused=True (CSR-resident state, the XLA-path composites, E=1.6M) for
    the same 80 rounds: select_topk 8 launches a heartbeat and the fused
@@ -64,7 +67,11 @@ last line is printed:
    rows of 1-64 edges and one of 200, W = 1, 2, 3), then the same 80-round
    run;
 12. FloodSub card against CPU — both layouts at N=8192 for 32 rounds, every
-   leaf equal after every round.
+   leaf equal after every round;
+13. the kernel launches of a traced GossipSub bench round
+   (perf/profile.py), with those of the score path's subnormal flush
+   (hardshrink, copysign) apart. It comes last, so that the profiler's
+   tracing cannot touch a rate timed in the same process.
 
 It prints the ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
@@ -318,6 +325,7 @@ def check_kernels(fr, captured, gen, base):
         got = fr.edge_exchange(*a, **kw)
         torch.cuda.synchronize()
         err = max(err, max_abs_err(ref, got))
+    err = max(err, check_band_hazards("edge_exchange", wire.device))
     out_w, out_s = fr.edge_exchange(*args, **kw)
     io = nbytes(wire, scores, live, out_w, out_s)
     ops = n * k * c + n * k            # one select per output element
@@ -405,14 +413,19 @@ def check_band_hazards(name: str, dev) -> float:
     delivery_banded against its plain version on the hazard bands of the
     tests (tests/torch_parity.hazard_bands: rings with K = 2 to 40, N not a
     multiple of the block, N=17 under the staged window, a circulant with
-    steps beyond the halo) at W = 1, 2, 3 and 10. Returns max_abs_err."""
+    steps beyond the halo) at W = 1, 2, 3 and 10 (fused_delivery also at
+    thresholds of 0.0 and -0.0), or edge_exchange on
+    those with K <= 16 at C = 1, 3, 4 and 6, scores on and off. Returns
+    max_abs_err."""
     import numpy as np
     import torch
     from torch_parity import (
         FUSED_CONFIGS,
         HAZARD_BAND_M,
+        HAZARD_C,
         hazard_banded_args,
         hazard_bands,
+        hazard_exchange_args,
         hazard_fused_args,
     )
 
@@ -424,6 +437,23 @@ def check_band_hazards(name: str, dev) -> float:
         return torch.from_numpy(np.array(a.view(np.int32) if a.dtype == np.uint32 else a)).to(dev)
 
     err, cases = 0.0, 0
+    if name == "edge_exchange":
+        for band in hazard_bands():
+            if len(band["offsets"]) > fr.MAX_K:
+                continue
+            for c in HAZARD_C:
+                a = [t(x) for x in hazard_exchange_args(band["n"] + c, band, c)]
+                for score in (True, False):
+                    kw = dict(offsets=band["offsets"], revs=band["revs"], c=c,
+                              score_enabled=score)
+                    ref, got = fr.edge_exchange_plain(*a, **kw), fr.edge_exchange(*a, **kw)
+                    torch.cuda.synchronize()
+                    err = max(err, max_abs_err(ref, got))
+                    cases += 1
+        say(f"kernel edge_exchange: hazard bands ({cases} calls: rings with K = 2-16, N=17, "
+            f"a circulant past the halo; C in {list(HAZARD_C)}, scores with -0.0, "
+            f"subnormals and NaN) exact (max_abs_err {err})")
+        return err
     for band in hazard_bands():
         k = len(band["offsets"])
         for m in HAZARD_BAND_M:
@@ -440,6 +470,12 @@ def check_band_hazards(name: str, dev) -> float:
                     calls.append((fr.fused_delivery_plain, fr.fused_delivery, a,
                                   dict(static, score_enabled=score, want_cohorts=cohorts,
                                        retrans_cap=cap), (-10.0, -50.0)))
+                # the score gates at thresholds of 0.0 and -0.0, which the
+                # hazard scores' subnormals of both signs pass as zeros
+                calls.append((fr.fused_delivery_plain, fr.fused_delivery,
+                              [t(x) for x in hazard_fused_args(m, band, m)],
+                              dict(static, score_enabled=True, want_cohorts=True,
+                                   retrans_cap=3), (0.0, -0.0)))
             for plain, kernel, a, kw, thr in calls:
                 ref, got = plain(*a, *thr, **kw), kernel(*a, *thr, **kw)
                 torch.cuda.synchronize()
@@ -748,6 +784,53 @@ def build_powerlaw_gossipsub(sweep, n: int, device, count_events: bool = False):
     return st, step, net, time.perf_counter() - t0
 
 
+def build_subnormal_gossipsub(sweep, n: int, device, cell: str):
+    """The bench's GossipSub build on ring_lattice(n, d=8) under one of
+    tests/torch_parity.SUBNORMAL_CELLS (score parameters that make float32
+    subnormals), events counted. Returns (state, step)."""
+    from torch_parity import subnormal_overrides
+
+    from go_libp2p_pubsub_tpu_torch import graph
+    from go_libp2p_pubsub_tpu_torch.config import GossipSubParams, PeerScoreThresholds
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import (
+        GossipSubConfig,
+        GossipSubState,
+        make_gossipsub_step,
+    )
+    from go_libp2p_pubsub_tpu_torch.state import Net
+
+    ov = subnormal_overrides(cell, n)
+    net = Net.build(graph.ring_lattice(n, d=8), graph.subscribe_all(n, 1),
+                    ip_group=ov["ip_group"], device=device)
+    _tp, sp = sweep.bench_score_params(1)
+    sp = dataclasses.replace(sp, topics={t: dataclasses.replace(p, **ov.get("topic", {}))
+                                         for t, p in sp.topics.items()}, **ov.get("peer", {}))
+    cfg = GossipSubConfig.build(dataclasses.replace(GossipSubParams(), flood_publish=False),
+                                PeerScoreThresholds(**ov.get("thresholds", {})),
+                                score_enabled=True)
+    cfg = dataclasses.replace(cfg, count_events=True, fanout_slots=0)
+    st = GossipSubState.init(net, M_SLOTS, cfg, score_params=sp, seed=0)
+    return st, make_gossipsub_step(cfg, net, score_params=sp)
+
+
+def bench_launches(card: str) -> dict:
+    """Kernel launches of a traced GossipSub bench round (perf/profile.py,
+    4 warm rounds, 4 traced), and those of the score path's subnormal flush
+    (the host ops hardshrink and copysign, which nothing else on the path
+    calls)."""
+    from go_libp2p_pubsub_tpu_torch.perf import profile
+
+    rep = profile.profile_rounds(N_FULL, warm=4, rounds=4)
+    flush = sum(v for op, v in rep["launches_by_op_per_round"].items()
+                if "hardshrink" in op or "copysign" in op)
+    total = rep["kernel_launches_per_round"]
+    say(f"slice launches: {total:.1f} kernel launches a bench round, {flush:.1f} of them the "
+        f"subnormal flush of the score path ({total - flush:.1f} without it); device busy "
+        f"{rep['device_busy_share_untraced']:.4f} of an untraced round "
+        f"({rep['untraced_ms_per_round']:.3f} ms), on {card}")
+    return {"launches_per_round": total, "flush_launches_per_round": flush}
+
+
 def gossip_state_checks(st, net, total: int, where: str, degree_range=None):
     """tick == total, mesh only on present edges (and, given a range, every
     mesh degree in it), fwd a subset of have, every message 4+ rounds old
@@ -816,6 +899,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     sys.path.insert(1, os.path.join(root, "tests"))   # torch_parity: the hazard inputs
+    from torch_parity import SUBNORMAL_CELLS
     from go_libp2p_pubsub_tpu_torch import convert, graph
     from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
     from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
@@ -904,9 +988,12 @@ def main() -> int:
         f"({peak / 2**20:.1f} MiB), state {state_bytes} bytes, on {card}")
     del st
 
-    # 5. card against CPU from the same seed
+    # 5. card against CPU from the same seed, also under subnormal scores
     gossip_parity(sweep, convert, "GossipSub bench", lambda d: sweep.build_bench(
         N_PARITY, M_SLOTS, count_events=True, device=d)[:2])
+    for cell in SUBNORMAL_CELLS:
+        gossip_parity(sweep, convert, f"GossipSub subnormal {cell}",
+                      lambda d, c=cell: build_subnormal_gossipsub(sweep, N_PARITY, d, c))
 
     # 6. the CSR bench: the same run CSR-resident through the composites
     torch.cuda.synchronize()
@@ -1007,6 +1094,9 @@ def main() -> int:
         n=N_CSR, graph="powerlaw", layout="csr"), card, gen, dev, base))
     for kw in (dict(graph="lattice", layout="dense"), dict(graph="powerlaw", layout="csr")):
         flood_parity(sweep, convert, kw)
+
+    # 13. launches of a bench round, traced
+    bench_launches(card)
 
     say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": records}))

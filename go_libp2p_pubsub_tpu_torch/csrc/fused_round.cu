@@ -18,9 +18,17 @@
 // C=4 (about 21 us), fused_delivery about 134 MB with W=2 and no cohort
 // planes (about 40 us).
 //
-// edge_exchange is the simple first design: one thread per output element,
-// neighbouring threads on neighbouring output words, the sender rows read
-// strided (one 16-byte row of a neighbour per thread).
+// edge_exchange moves 16 + 2 * 4 * C bytes a (receiver, edge) slot and
+// does no arithmetic: it copies words and score bits, a subnormal score as
+// it is. Its block is (vectors of a slot, K edges, rows): lane (x, k, r)
+// copies vectors x, x + bx, .. of receiver row r's slot k, so the index
+// math is 32-bit with no division and a warp writes a run of whole output
+// rows. A slot's C words move as 16-byte vectors when C is a multiple of 4
+// and both wire pointers are 16-byte aligned, as 4-byte words otherwise.
+// Each receiver slot reads its live flag once, from a coalesced run, and
+// its sender's vectors and score through the read-only path: the sender
+// rows of a band are read by their 2K neighbours within a few rows, so L2
+// (50 MB, a 25.6 MB wire plane at the bench) serves all but the first.
 //
 // fused_delivery is laid out for the card as banded.cuh sets out: a block
 // owns 64 consecutive receivers and stages the sender rows of carry, fe,
@@ -30,18 +38,21 @@
 // flags, nbr_score and every output plane move coalesced. The OR over a
 // row's edges of each cohort (mesh push, IWANT response) is a shuffle scan
 // over the lanes of one word, and its exclusive prefix lets the lowest edge
-// win, in place of per-thread first-arrival arrays. Each launch returns
-// cudaGetLastError().
+// win, in place of per-thread first-arrival arrays. Its score gates read a
+// subnormal neighbour score or threshold as a zero of its sign (fnum.cuh),
+// as XLA does. Each launch returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "banded.cuh"
+#include "fnum.cuh"
 
 namespace {
 
 constexpr int kMaxK = 16;
-constexpr int kExchangeThreads = 256;   // edge_exchange's block
+constexpr int kExchangeThreads = 256;   // edge_exchange's block, at most
+constexpr int kMaxBlockRows = 64;       // blockDim.z's limit
 constexpr uint32_t kAll = 0xFFFFFFFFu;
 
 // flag bits (ops/fused_round.make_flags)
@@ -65,31 +76,27 @@ __device__ __forceinline__ uint32_t served_capped(int cap, uint32_t lo,
   return kAll;
 }
 
-__global__ void edge_exchange_kernel(
-    const uint32_t* __restrict__ wire,    // [N, K*C]
+template <typename V>
+__global__ void __launch_bounds__(kExchangeThreads) edge_exchange_kernel(
+    const V* __restrict__ wire,           // [N, K, nv] vectors of a slot's C words
     const float* __restrict__ scores,     // [N, K] or null
     const uint32_t* __restrict__ live,    // [N, K]
     const int* __restrict__ offrev,       // [2K]
-    uint32_t* __restrict__ wire_out,      // [N, K*C]
+    V* __restrict__ wire_out,             // [N, K, nv]
     float* __restrict__ score_out,        // [N, K] or null
-    int n, int k, int c, int score_enabled) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = (long long)n * k * c;
-  if (t >= total) return;
-  int cc = (int)(t % c);
-  long long jk = t / c;
-  int kk = (int)(jk % k);
-  int j = (int)(jk / k);
-  int s = j + offrev[kk];
+    int n, int k, int nv, int score_enabled) {
+  const int kk = threadIdx.y;
+  const int j = blockIdx.x * blockDim.z + threadIdx.z;
+  if (j >= n) return;
+  int s = j + __ldg(offrev + kk);   // off in [0, N)
   if (s >= n) s -= n;
-  int rk = offrev[k + kk];
-  bool lv = live[jk] != 0u;
-  uint32_t v = wire[(long long)s * k * c + (long long)rk * c + cc];
-  wire_out[t] = lv ? v : 0u;
-  if (score_enabled && cc == 0) {
-    float sc = scores[(long long)s * k + rk];
-    score_out[jk] = lv ? sc : 0.0f;
-  }
+  const unsigned jk = (unsigned)j * k + kk;
+  const unsigned sk = (unsigned)s * k + __ldg(offrev + k + kk);
+  const bool lv = __ldg(live + jk) != 0u;
+  const V* src = wire + (size_t)sk * nv;
+  V* dst = wire_out + (size_t)jk * nv;
+  for (int x = threadIdx.x; x < nv; x += blockDim.x) dst[x] = lv ? __ldg(src + x) : V{};
+  if (score_enabled && threadIdx.x == 0) score_out[jk] = lv ? __ldg(scores + sk) : 0.0f;
 }
 
 // words a staged sender row takes per block word (carry and fe over K
@@ -199,9 +206,9 @@ __global__ void __launch_bounds__(banded::kThreads) fused_delivery_kernel(
       const uint32_t sfo_g = gate(bit(f, F_SENDER_FWD));
       float s_k = 0.0f;
       bool recv_ok = live;
-      if (score_enabled) {
+      if (score_enabled) {   // a subnormal score gates as a zero, as XLA reads it
         s_k = nbrsc[j * nk + p.ke];
-        recv_ok = s_k >= thr_publish;
+        recv_ok = fnum::ge_ftz(s_k, thr_publish);
       }
       const uint32_t flood = gate(bit(f, F_FLOOD_FROM)) |
                              (gate(bit(f, F_I_AM_FLOODSUB)) & gate(recv_ok));
@@ -214,7 +221,7 @@ __global__ void __launch_bounds__(banded::kThreads) fused_delivery_kernel(
       const uint32_t slo_k = slo[e];
       const uint32_t shi_k = shi[e];
       uint32_t resp = asked_k & mcw_s & ~served_capped(retrans_cap, slo_k, shi_k) & live_g;
-      if (score_enabled) resp &= gate(s_k >= thr_gossip);
+      if (score_enabled) resp &= gate(fnum::ge_ftz(s_k, thr_gossip));
       const uint32_t inc = resp & ~(shi_k & slo_k);
       slo_out[e] = slo_k ^ inc;
       shi_out[e] = shi_k | (slo_k & inc);
@@ -254,8 +261,17 @@ __global__ void __launch_bounds__(banded::kThreads) fused_delivery_kernel(
   }
 }
 
-unsigned int blocks_for(long long total) {
-  return (unsigned int)((total + kExchangeThreads - 1) / kExchangeThreads);
+template <typename V>
+void launch_exchange(const void* wire, const void* scores, const void* live,
+                     const void* offrev, void* wire_out, void* score_out, int n,
+                     int k, int nv, int score_enabled, cudaStream_t stream) {
+  const int bx = nv < kExchangeThreads / k ? nv : kExchangeThreads / k;
+  int bz = kExchangeThreads / (bx * k);
+  bz = bz > kMaxBlockRows ? kMaxBlockRows : bz;
+  const dim3 block((unsigned)bx, (unsigned)k, (unsigned)bz);
+  edge_exchange_kernel<V><<<(unsigned)((n + bz - 1) / bz), block, 0, stream>>>(
+      (const V*)wire, (const float*)scores, (const uint32_t*)live, (const int*)offrev,
+      (V*)wire_out, (float*)score_out, n, k, nv, score_enabled);
 }
 
 }  // namespace
@@ -265,12 +281,15 @@ extern "C" int edge_exchange_launch(
     void* wire_out, void* score_out, int n, int k, int c, int score_enabled,
     void* stream) {
   if (k > kMaxK || k <= 0 || c <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  long long total = (long long)n * k * c;
-  edge_exchange_kernel<<<blocks_for(total), kExchangeThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const uint32_t*)wire, (const float*)scores, (const uint32_t*)live,
-      (const int*)offrev, (uint32_t*)wire_out, (float*)score_out, n, k, c,
-      score_enabled);
+  // 16-byte vectors where a slot's C words and both wire pointers allow
+  const uintptr_t at = (uintptr_t)wire | (uintptr_t)wire_out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (c % 4 == 0 && at % 16 == 0)
+    launch_exchange<uint4>(wire, scores, live, offrev, wire_out, score_out, n, k, c / 4,
+                           score_enabled, st);
+  else
+    launch_exchange<uint32_t>(wire, scores, live, offrev, wire_out, score_out, n, k, c,
+                              score_enabled, st);
   return (int)cudaGetLastError();
 }
 

@@ -52,18 +52,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fnum.cuh"
+
 namespace {
+
+using fnum::flush_subnormal;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxK = 256;
 constexpr unsigned kFull = 0xffffffffu;
-
-// A float32 subnormal as a zero of its sign; any other float as it is.
-__device__ __forceinline__ float flush_subnormal(float f) {
-  const uint32_t u = __float_as_uint(f);
-  return (u & 0x7f800000u) == 0u ? __uint_as_float(u & 0x80000000u) : f;
-}
 
 // An unsigned key in the order of a float's IEEE compares with subnormals
 // flushed, for any float but NaN: -0.0, +0.0 and every subnormal share the

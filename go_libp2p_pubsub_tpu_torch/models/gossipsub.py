@@ -34,6 +34,7 @@ from .. import prng
 from ..config import GossipSubParams, PeerScoreParams, PeerScoreThresholds, ticks_for
 from ..ops import bitset, edges
 from ..ops import fused_round as fr
+from ..ops.fnum import flush_f32
 from ..ops.select import (
     count_true,
     masked_width_random,
@@ -43,6 +44,7 @@ from ..ops.select import (
     select_topk_mask,
 )
 from ..score.engine import (
+    ScoreScalars,
     ScoreState,
     TopicParamsArrays,
     add_penalties,
@@ -447,7 +449,7 @@ def merge_extra_tx(net: Net, msgs, dlv, info: RoundInfo, extra: torch.Tensor,
 
 
 def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
-              score_params: PeerScoreParams, nbr_sub) -> GossipSubState:
+              sc: ScoreScalars, nbr_sub) -> GossipSubState:
     """One heartbeat for every peer. The JAX package gates the maintenance
     sub-passes with ``lax.cond`` on "any row needs it"; both branches give
     identical results there, so this runs them unconditionally (no host
@@ -481,9 +483,8 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
 
     # refreshScores + memoized score cache (gossipsub.go:1333-1341)
     if cfg.score_enabled:
-        score = refresh_scores(score, st.mesh, tick, tp, score_params)
-        scores = compute_scores(score, st.mesh, tp, score_params, st.p6,
-                                st.app_score, net)
+        score = refresh_scores(score, st.mesh, tick, tp, sc)
+        scores = compute_scores(score, st.mesh, tp, sc, st.p6, st.app_score, net)
     else:
         scores = st.scores
 
@@ -615,9 +616,10 @@ def gather_nbr_subscribed(net: Net) -> torch.Tensor:
 
 @dataclasses.dataclass
 class StepConsts:
-    """Static per-topology constants of the step, computed once at build."""
+    """Static per-topology constants of the step, computed once at build
+    (float32 score constants flushed, ``ops/fnum.py``)."""
 
-    score_params: PeerScoreParams
+    scalars: ScoreScalars
     tp: dict
     window_rounds_t: torch.Tensor
     nbr_sub_const: torch.Tensor
@@ -660,7 +662,7 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
         tpa = TopicParamsArrays.build(score_params, net.n_topics)
     nbr_sub, flood_from = topology_views(net)
     return StepConsts(
-        score_params=score_params,
+        scalars=ScoreScalars.build(score_params),
         tp=tpa.gather(net.my_topics),
         window_rounds_t=torch.as_tensor(tpa.window_rounds, device=net.device),
         nbr_sub_const=nbr_sub,
@@ -670,6 +672,17 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
                                    device=net.device),
         live_u32=net.nbr_ok.to(torch.int32),
     )
+
+
+def flushed_thresholds(cfg: GossipSubConfig) -> GossipSubConfig:
+    """``cfg`` with its four score thresholds as the float32 constants the
+    JAX package compares against: a subnormal threshold is a zero of its
+    sign (``ops/fnum.py``). The scores they meet are flushed already, so
+    every compare of the step reads flushed operands on both sides."""
+    return dataclasses.replace(cfg, **{
+        f: flush_f32(getattr(cfg, f))
+        for f in ("gossip_threshold", "publish_threshold", "graylist_threshold",
+                  "opportunistic_graft_threshold")})
 
 
 def accept_gates(cfg: GossipSubConfig, net: Net, st: GossipSubState):
@@ -778,7 +791,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             f"not ported yet: {sorted(unported)} — ROADMAP §1 items 6-13")
     _refuse_unported(cfg, net)
     consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval)
-    score_params = consts.score_params
+    cfg = flushed_thresholds(cfg)
     tp = consts.tp
     n_peers, k_dim = net.n_peers, net.max_degree
 
@@ -979,7 +992,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
 
         # 8. heartbeat
         def hb(s):
-            return heartbeat(cfg, net, s, tp, score_params, consts.nbr_sub_const)
+            return heartbeat(cfg, net, s, tp, consts.scalars, consts.nbr_sub_const)
 
         if cfg.heartbeat_every == 1:
             st2 = hb(st2)

@@ -1,0 +1,42 @@
+"""float32 subnormals as the JAX package's platforms treat them.
+
+XLA on the CPU and a TPU flush every subnormal float32 result of arithmetic
+to a zero of its sign and read every subnormal operand as zero: under
+``jax.jit`` on XLA:CPU ``-1e-30 * 1e-10`` is -0.0, ``1.5e-38 - 1.6e-38``
+is -0.0, ``-1e-45 >= 0.0`` is True, and a sum reduction flushes each
+partial sum in index order. A select (``where``) passes its operand's bits
+unchanged. Torch keeps subnormals, on the CPU and on the card alike, so
+the port flushes the results of its float arithmetic itself, the same way
+on both: ``flush_subnormals`` on tensors, ``flush_f32`` on constants once,
+where they are built. Whatever only moves or selects float bits (the edge
+exchange, ``where``, sorts) is left as it is.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+TINY = float(np.finfo(np.float32).tiny)
+#: the largest float32 subnormal: ``hardshrink`` zeroes what lies within it
+_LARGEST_SUBNORMAL = float(np.nextafter(np.float32(TINY), np.float32(0.0)))
+
+
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` with every subnormal replaced by a zero of its sign;
+    normal values, zeros, infinities and NaN keep their bits. Two launches:
+    ``hardshrink`` zeroes every value within the largest subnormal, and
+    ``copysign`` gives each zero back the sign of ``x``."""
+    return torch.copysign(x.hardshrink(_LARGEST_SUBNORMAL), x)
+
+
+def flush_f32(v):
+    """A float constant, or a float32 numpy array, as XLA reads it: a value
+    whose float32 is subnormal becomes a zero of its sign; any other value
+    is returned as it is."""
+    if isinstance(v, np.ndarray):
+        return np.where(np.abs(v) < TINY, np.copysign(np.float32(0.0), v), v).astype(v.dtype)
+    f = abs(float(np.float32(v)))
+    return math.copysign(0.0, v) if 0.0 < f < TINY else v

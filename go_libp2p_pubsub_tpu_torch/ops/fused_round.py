@@ -14,12 +14,20 @@ topology, as two Hopper kernels (``csrc/fused_round.cu``).
   file.
 
 Both are bounded by bytes (word algebra, a few integer ops per word): the
-source notes what each must move. ``fused_delivery`` is laid out for the
-card (``csrc/banded.cuh``): a block stages the sender rows of its band in
-shared memory, a row's (edge, word) words sit on neighbouring lanes, and
-the first-arrival cohorts are shuffle scans over a row's edges; an offset
-beyond the block's halo reads its sender words from global memory. It takes
-any K <= 16 and any W.
+source notes what each must move. ``edge_exchange`` is a copy: a thread
+a (receiver, edge) slot, or a few for a wide slot, moves the slot's C
+words as 16-byte vectors where C and the pointers allow, with 32-bit
+index math and no division, reading each sender row through L2, where its
+2K neighbours find it; score bits are copied as they are, a subnormal
+too. ``fused_delivery`` is laid out for the card (``csrc/banded.cuh``): a
+block stages the sender rows of its band in shared memory, a row's (edge,
+word) words sit on neighbouring lanes, and the first-arrival cohorts are
+shuffle scans over a row's edges; an offset beyond the block's halo reads
+its sender words from global memory. Its score gates read a subnormal
+neighbour score or threshold as a zero of its sign, as the JAX package's
+platforms do (``ops/fnum.py``), in the kernel and the plain version
+alike. Both take any K <= 16; ``edge_exchange`` any C, ``fused_delivery``
+any W.
 
 Each wrapper launches its kernel for a CUDA tensor — or raises — and takes
 the plain PyTorch version (``*_plain``, built from rolls and bitwise ops)
@@ -36,6 +44,7 @@ import torch
 
 from . import bitset, kernels
 from .edges import edge_permute_banded, peer_gather_banded
+from .fnum import flush_f32, flush_subnormals
 
 MAX_K = 16
 LAUNCHES = {"edge_exchange": 0, "fused_delivery": 0}
@@ -120,6 +129,9 @@ def fused_delivery_plain(carry_out, fe_words, fwd, mcache_win, nbr_score,
     live_g = _gate(live)
     accmsg_g = _gate(_bit(flags, F_ACC_MSG))
     sfo_g = _gate(_bit(flags, F_SENDER_FWD))
+    if score_enabled:   # the score gates read subnormals as zeros, as XLA does
+        nbr_score = flush_subnormals(nbr_score)
+        gossip_thr, publish_thr = flush_f32(gossip_thr), flush_f32(publish_thr)
     recv_ok = (nbr_score >= publish_thr) if score_enabled else live
     flood = _gate(_bit(flags, F_FLOOD_FROM)) | (
         _gate(_bit(flags, F_I_AM_FLOODSUB)) & _gate(recv_ok))

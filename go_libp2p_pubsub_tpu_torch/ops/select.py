@@ -91,7 +91,9 @@ def count_true(mask: torch.Tensor, axis: int = -1) -> torch.Tensor:
 
 def median_masked(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Upper median over masked slots per row (sort ascending, element
-    len/2 — gossipsub.go:1488-1493); +inf for rows with no masked slot."""
+    len/2 — gossipsub.go:1488-1493); +inf for rows with no masked slot.
+    It only sorts and selects, so it needs no subnormal flush of its own:
+    the step's scores are flushed where they are computed."""
     big = float("inf")
     v = torch.where(mask, values.to(torch.float32), big)
     v_sorted = torch.sort(v, dim=-1).values

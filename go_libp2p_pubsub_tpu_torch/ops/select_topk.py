@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .fnum import flush_subnormals
 
 LAUNCHES = {"select_topk": 0}
 
@@ -45,13 +46,6 @@ MAX_K = 256
 
 def reset_launch_counts() -> None:
     LAUNCHES["select_topk"] = 0
-
-
-def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``x`` with every subnormal replaced by a zero of its sign, as
-    XLA on the CPU and a TPU compare them."""
-    tiny = torch.finfo(torch.float32).tiny
-    return torch.where(x.abs() < tiny, torch.copysign(torch.zeros_like(x), x), x)
 
 
 def rank_desc_pairwise(primary: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:

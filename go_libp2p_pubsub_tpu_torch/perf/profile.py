@@ -15,7 +15,8 @@ times ``--rounds`` untraced rounds, then traces ``--rounds`` more with
 kernel time per round, the device's busy time per round (union of kernel
 intervals) and its share of the untraced round (the profiler stretches
 the host's dispatch, so the share of the traced window is printed beside
-it only for reference), kernel launches per round, the kernels by device
+it only for reference), kernel launches per round (and, in the JSON, per
+launching host op), the kernels by device
 time (each with the host op and input shapes whose launches of it took
 the most device time), and
 the host-side ops by launch count. ``--out`` also writes the numbers as
@@ -89,9 +90,12 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
     kernel_us = sum(v[1] for v in by_name.values())
     host_ops: dict = {}
     launched_by: dict = {}    # kernel name -> {host op and shapes: device us}
+    op_launches: dict = {}    # host op -> kernels it launched
     for e in _events_on(prof, "cpu"):
         if e.name.startswith("aten::"):
             host_ops[e.name] = host_ops.get(e.name, 0) + 1
+        if e.kernels:
+            op_launches[e.name] = op_launches.get(e.name, 0) + len(e.kernels)
         for kern in e.kernels:
             by = launched_by.setdefault(kern.name, {})
             op = f"{e.name} {e.input_shapes}"
@@ -112,6 +116,7 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
                                  key=lambda kv: kv[1])[0]}
              for k, v in by_name.items()),
             key=lambda r: -r["us_per_round"]),
+        "launches_by_op_per_round": {k: v / rounds for k, v in sorted(op_launches.items())},
         "host_ops_per_round": sorted(
             ({"op": k, "calls_per_round": c / rounds} for k, c in host_ops.items()),
             key=lambda r: -r["calls_per_round"]),

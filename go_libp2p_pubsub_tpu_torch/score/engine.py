@@ -6,6 +6,15 @@ at [N, S, K]. The weighted P1..P7 sum (score.go:258-335), the decay pass
 (score.go:892-974) are elementwise passes. Each float expression keeps the
 JAX package's operation order term by term, so the f32 planes agree bit for
 bit (``p1`` divides by the quantum; it never multiplies by a reciprocal).
+
+Subnormals are flushed as the JAX package's platforms flush them
+(``ops/fnum.py``): the parameters once, where they are built
+(``TopicParamsArrays.build``, ``ScoreScalars.build``), and every product
+and every sum of mixed signs as it is computed. Two kinds of result need
+no flush and get none: a whole number over a whole quantum (``p1``), and
+the sum of a flushed non-negative counter and a non-negative whole count
+or another flushed non-negative term, which is zero, the counter itself,
+or at least as large as a normal operand.
 """
 
 from __future__ import annotations
@@ -17,13 +26,16 @@ import torch
 
 from ..config import PeerScoreParams, ticks_for
 from ..ops import bitset
+from ..ops.fnum import flush_f32
+from ..ops.fnum import flush_subnormals as fl
 from ..state import Net, replace
 
 
 @dataclasses.dataclass(frozen=True)
 class TopicParamsArrays:
     """Per-topic score params as dense [T] numpy arrays (row t zeroed when
-    topic t is unscored, score.go:269-273, 881-884)."""
+    topic t is unscored, score.go:269-273, 881-884), float32 subnormals
+    flushed to zeros of their sign."""
 
     scored: np.ndarray
     topic_weight: np.ndarray
@@ -52,7 +64,7 @@ class TopicParamsArrays:
             for t, tp in params.topics.items():
                 if 0 <= t < n_topics:
                     out[t] = fn(tp)
-            return out
+            return flush_f32(out) if dtype == np.float32 else out
 
         scored = np.zeros((n_topics,), bool)
         for t in params.topics:
@@ -99,6 +111,40 @@ class TopicParamsArrays:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class ScoreScalars:
+    """The PeerScoreParams scalars the step reads, as the float32 constants
+    the JAX package computes with: subnormals flushed once, here.
+    ``cap_on`` and ``app_on`` are the JAX package's static branches, taken
+    on the unflushed values as it takes them (a subnormal cap still clamps,
+    at zero, as XLA's minimum reads it as +0.0)."""
+
+    decay_to_zero: float
+    behaviour_penalty_decay: float
+    behaviour_penalty_threshold: float
+    behaviour_penalty_weight: float
+    ip_colocation_factor_weight: float
+    app_specific_weight: float
+    topic_score_cap: float
+    cap_on: bool
+    app_on: bool
+
+    @classmethod
+    def build(cls, params: PeerScoreParams) -> "ScoreScalars":
+        p = params
+        return cls(
+            decay_to_zero=flush_f32(p.decay_to_zero),
+            behaviour_penalty_decay=flush_f32(p.behaviour_penalty_decay),
+            behaviour_penalty_threshold=flush_f32(p.behaviour_penalty_threshold),
+            behaviour_penalty_weight=flush_f32(p.behaviour_penalty_weight),
+            ip_colocation_factor_weight=flush_f32(p.ip_colocation_factor_weight),
+            app_specific_weight=flush_f32(p.app_specific_weight),
+            topic_score_cap=flush_f32(p.topic_score_cap),
+            cap_on=p.topic_score_cap > 0,
+            app_on=p.app_specific_weight != 0.0,
+        )
+
+
 @dataclasses.dataclass
 class ScoreState:
     """Counters the score is computed from, per (peer, topic-slot,
@@ -142,52 +188,58 @@ def ip_colocation_surplus_sq(net: Net, threshold: int, whitelist=()) -> torch.Te
 
 
 def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
-                   params: PeerScoreParams, p6: torch.Tensor,
+                   sc: ScoreScalars, p6: torch.Tensor,
                    app_score: torch.Tensor, net: Net) -> torch.Tensor:
     """[N, K] f32 — peer n's score of neighbor slot k (score.go:258-335)."""
     e = lambda a: a[..., None]
     p1 = torch.minimum(st.mesh_time.to(torch.float32) / e(tp["quantum_ticks"]),
                        e(tp["cap1"]))
-    topic = torch.where(in_mesh, p1 * e(tp["w1"]), 0.0)
-    topic = topic + st.fmd * e(tp["w2"])
-    deficit = e(tp["thr3"]) - st.mmd
-    p3 = torch.where(st.mmd_active & (deficit > 0), deficit * deficit, 0.0)
-    topic = topic + p3 * e(tp["w3"])
-    topic = topic + st.mfp * e(tp["w3b"])
-    topic = topic + st.imd * st.imd * e(tp["w4"])
-    score = (topic * e(tp["topic_weight"])).sum(1)
-    if params.topic_score_cap > 0:
-        score = torch.clamp(score, max=params.topic_score_cap)
-    if params.app_specific_weight != 0.0:
-        score = score + net.peer_gather(app_score) * params.app_specific_weight
-    score = score + p6 * params.ip_colocation_factor_weight
-    excess = st.bp - params.behaviour_penalty_threshold
-    p7 = torch.where(excess > 0, excess * excess, 0.0)
-    score = score + p7 * params.behaviour_penalty_weight
+    topic = torch.where(in_mesh, fl(p1 * e(tp["w1"])), 0.0)
+    topic = fl(topic + fl(st.fmd * e(tp["w2"])))
+    deficit = fl(e(tp["thr3"]) - st.mmd)
+    p3 = torch.where(st.mmd_active & (deficit > 0), fl(deficit * deficit), 0.0)
+    topic = fl(topic + fl(p3 * e(tp["w3"])))
+    topic = fl(topic + fl(st.mfp * e(tp["w3b"])))
+    topic = fl(topic + fl(fl(st.imd * st.imd) * e(tp["w4"])))
+    terms = fl(topic * e(tp["topic_weight"]))
+    # the sum over topic slots as XLA reduces: in slot order from 0.0, each
+    # partial sum flushed (one slot is the slot's term itself)
+    score = terms[:, 0]
+    if terms.shape[1] > 1:
+        score = score + 0.0
+        for s in range(1, terms.shape[1]):
+            score = fl(score + terms[:, s])
+    if sc.cap_on:
+        score = torch.clamp(score, max=sc.topic_score_cap)
+    if sc.app_on:
+        score = fl(score + fl(fl(net.peer_gather(app_score)) * sc.app_specific_weight))
+    score = fl(score + fl(p6 * sc.ip_colocation_factor_weight))
+    excess = fl(st.bp - sc.behaviour_penalty_threshold)
+    p7 = torch.where(excess > 0, fl(excess * excess), 0.0)
+    score = fl(score + fl(p7 * sc.behaviour_penalty_weight))
     return torch.where(net.nbr_ok, score, 0.0)
 
 
 def refresh_scores(st: ScoreState, in_mesh: torch.Tensor, tick, tp: dict,
-                   params: PeerScoreParams) -> ScoreState:
+                   sc: ScoreScalars) -> ScoreState:
     """The decay pass (refreshScores, score.go:497-558)."""
-    dtz = params.decay_to_zero
+    dtz = sc.decay_to_zero
     e = lambda a: a[..., None]
 
     def dec(x, d):
-        y = x * d
+        y = fl(x * d)
         return torch.where(y < dtz, 0.0, y)
 
     mesh_time = torch.where(in_mesh, tick - st.graft_tick, st.mesh_time)
     active = st.mmd_active | (in_mesh & (mesh_time > e(tp["activation_ticks"])))
-    bp = st.bp * params.behaviour_penalty_decay
-    bp = torch.where(bp < dtz, 0.0, bp)
     return replace(
         st,
         fmd=dec(st.fmd, e(tp["decay2"])),
         mmd=dec(st.mmd, e(tp["decay3"])),
         mfp=dec(st.mfp, e(tp["decay3b"])),
         imd=dec(st.imd, e(tp["decay4"])),
-        mesh_time=mesh_time, mmd_active=active, bp=bp,
+        mesh_time=mesh_time, mmd_active=active,
+        bp=dec(st.bp, sc.behaviour_penalty_decay),
     )
 
 
@@ -205,10 +257,10 @@ def on_graft(st: ScoreState, graft_mask: torch.Tensor, tick) -> ScoreState:
 def on_prune(st: ScoreState, prune_mask: torch.Tensor, tp: dict) -> ScoreState:
     """Edges leaving the mesh: the sticky mesh failure penalty when pruned
     while active and below threshold (score.go:662-684)."""
-    deficit = tp["thr3"][..., None] - st.mmd
+    deficit = fl(tp["thr3"][..., None] - st.mmd)
     add = torch.where(prune_mask & st.mmd_active & (deficit > 0),
-                      deficit * deficit, 0.0)
-    return replace(st, mfp=st.mfp + add)
+                      fl(deficit * deficit), 0.0)
+    return replace(st, mfp=st.mfp + add)   # two flushed non-negatives
 
 
 def per_slot_counts(words: torch.Tensor, slotw: torch.Tensor) -> torch.Tensor:
@@ -238,7 +290,8 @@ def on_deliveries(st: ScoreState, net: Net, in_mesh: torch.Tensor, tp: dict,
     """Fold one delivery round into the counters (score.go:892-974):
     first receipts credit P2 (and P3 on mesh edges), in-window duplicates
     credit P3, arrivals of rejected messages charge P4; ignored messages
-    move nothing."""
+    move nothing. Each counter is flushed, non-negative and gains a whole
+    count, so no sum here needs a flush."""
     t = msg_topic.clamp(min=0).long()
     if slotw is None:
         slotw = slot_topic_words(net, msg_topic)
@@ -269,5 +322,6 @@ def on_deliveries(st: ScoreState, net: Net, in_mesh: torch.Tensor, tp: dict,
 
 
 def add_penalties(st: ScoreState, counts: torch.Tensor) -> ScoreState:
-    """behaviourPenalty += counts [N,K] (AddPenalty, score.go:384-398)."""
+    """behaviourPenalty += counts [N,K] (AddPenalty, score.go:384-398): a
+    flushed non-negative counter plus whole counts needs no flush."""
     return replace(st, bp=st.bp + counts.to(torch.float32))

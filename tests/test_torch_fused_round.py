@@ -19,7 +19,13 @@ from go_libp2p_pubsub_tpu import graph as jgraph
 from go_libp2p_pubsub_tpu.ops import fused_round as jfr
 from go_libp2p_pubsub_tpu.state import Net as JNet
 from go_libp2p_pubsub_tpu_torch.ops import fused_round as tfr
-from torch_parity import HAZARD_BAND_M, hazard_bands, hazard_fused_args
+from torch_parity import (
+    HAZARD_BAND_M,
+    HAZARD_C,
+    hazard_bands,
+    hazard_exchange_args,
+    hazard_fused_args,
+)
 
 N, D, W, C = 64, 4, 2, 4
 FUSED_BANDS = [b for b in hazard_bands() if len(b["offsets"]) <= tfr.MAX_K]
@@ -76,6 +82,27 @@ def test_edge_exchange_plain_equals_pallas(band, score_enabled):
                                       _u(got_s).view(np.uint32))
     else:
         assert got_s is None
+
+
+@pytest.mark.parametrize("band", FUSED_BANDS, ids=[b["name"] for b in FUSED_BANDS])
+@pytest.mark.parametrize("c", HAZARD_C)
+def test_edge_exchange_plain_equals_pallas_on_hazard_bands(band, c):
+    """The hazard bands (tests/torch_parity.hazard_bands, K <= 16: N=17
+    under the staged window, N not a multiple of the block, a circulant
+    with steps 333 and 500 = N/2) at C = 1, 3, 4 and 6 words a slot, with
+    dead edges and scores holding -0.0, subnormals of both signs and NaN:
+    the exchange copies every score bit, a subnormal as it is, as the
+    Pallas kernel does in interpret mode."""
+    n, off, rev = band["n"], band["offsets"], band["revs"]
+    wire, scores, live = hazard_exchange_args(n + c, band, c)
+    block = jfr.pick_block(n, off) or n    # a halo past every block: one block of N
+    ref_w, ref_s = jfr.edge_exchange(jnp.asarray(wire), jnp.asarray(scores),
+                                     jnp.asarray(live), block=block, offsets=off, revs=rev,
+                                     c=c, score_enabled=True, interpret=True)
+    got_w, got_s = tfr.edge_exchange(_t(wire), _t(scores), _t(live), offsets=off,
+                                     revs=rev, c=c, score_enabled=True)
+    np.testing.assert_array_equal(np.asarray(ref_w), _u(got_w))
+    np.testing.assert_array_equal(np.asarray(ref_s).view(np.uint32), _u(got_s).view(np.uint32))
 
 
 def _delivery_inputs(k, seed):
@@ -153,6 +180,28 @@ def test_fused_delivery_plain_equals_pallas_on_hazard_bands(band, m):
     for name in ref:
         np.testing.assert_array_equal(np.asarray(ref[name]), _u(got[name]),
                                       err_msg=f"{band['name']} M={m} {name}")
+
+
+@pytest.mark.parametrize("thr", [0.0, -0.0])
+def test_fused_delivery_gates_read_subnormal_scores_as_zeros(thr):
+    """Neighbour scores of +-1e-45 and +-1e-40 at gossip and publish
+    thresholds of 0.0 and -0.0: the Pallas kernel (XLA in interpret mode)
+    reads a subnormal as a zero of its sign, so -1e-45 passes a 0.0 gate,
+    and the plain version must gate the same."""
+    band = next(b for b in FUSED_BANDS if b["n"] == 300)
+    n, off, rev = band["n"], band["offsets"], band["revs"]
+    args = hazard_fused_args(5, band, 64)
+    rng = np.random.default_rng(6)
+    args[4] = rng.choice(np.array([1e-45, -1e-45, 1e-40, -1e-40, -0.0, 0.0, -1.0, 1.0],
+                                  np.float32), size=args[4].shape)
+    static = dict(offsets=off, revs=rev, w=2, score_enabled=True, want_cohorts=True,
+                  retrans_cap=3)
+    ref = jfr.fused_delivery(*[jnp.asarray(a) for a in args], thr, thr,
+                             block=jfr.pick_block(n, off), interpret=True, **static)
+    got = tfr.fused_delivery(*[_t(a) for a in args], thr, thr, **static)
+    assert sorted(ref) == sorted(got)
+    for name in ref:
+        np.testing.assert_array_equal(np.asarray(ref[name]), _u(got[name]), err_msg=name)
 
 
 def test_make_flags_and_capped_mask_equal_reference():

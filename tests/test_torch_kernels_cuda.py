@@ -29,10 +29,12 @@ from go_libp2p_pubsub_tpu_torch.state import Net
 from torch_parity import (
     FUSED_CONFIGS,
     HAZARD_BAND_M,
+    HAZARD_C,
     HAZARD_K,
     HAZARD_M,
     hazard_banded_args,
     hazard_bands,
+    hazard_exchange_args,
     hazard_fused_args,
     hazard_graph,
     hazard_planes,
@@ -161,6 +163,55 @@ def test_edge_exchange_kernel_equals_plain(cuda, band, score_enabled):
             assert b is None
         else:
             assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", FUSED_BANDS, ids=[b["name"] for b in FUSED_BANDS])
+@pytest.mark.parametrize("c", HAZARD_C)
+def test_edge_exchange_kernel_on_hazard_bands(cuda, band, c):
+    """The hazard bands at C = 1, 3, 4 and 6 words a slot (the 4-, 8- and
+    16-byte word forms), dead edges, scores holding -0.0, subnormals of
+    both signs and NaN (copied bit for bit), scores on and off, and from
+    wire planes one word into their storage (not 8- or 16-byte aligned:
+    the 4-byte form)."""
+    n, k = band["n"], len(band["offsets"])
+    wire, scores, live = (_np_tensor(a) for a in hazard_exchange_args(n + c, band, c))
+    kw = dict(offsets=band["offsets"], revs=band["revs"], c=c)
+    shifted = torch.zeros(n * k * c + 1, dtype=torch.int32, device=cuda)
+    shifted[1:] = wire.view(-1).to(cuda)
+    for on_card_wire, score_enabled in ((wire.to(cuda), True), (wire.to(cuda), False),
+                                        (shifted[1:].view(n, k * c), True)):
+        ref = fr.edge_exchange_plain(wire, scores, live, score_enabled=score_enabled, **kw)
+        fr.LAUNCHES["edge_exchange"] = 0
+        got = fr.edge_exchange(on_card_wire, scores.to(cuda), live.to(cuda),
+                               score_enabled=score_enabled, **kw)
+        torch.cuda.synchronize()
+        assert fr.LAUNCHES["edge_exchange"] == 1
+        assert (ref[1] is None) == (got[1] is None) == (not score_enabled)
+        for a, b in zip(ref, got):
+            if a is not None:
+                assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.0, -0.0])
+def test_fused_delivery_kernel_reads_subnormal_scores_as_zeros(cuda, thr):
+    """Neighbour scores of +-1e-45 and +-1e-40 at gossip and publish
+    thresholds of 0.0 and -0.0: the kernel gates a subnormal as a zero of
+    its sign, as its plain version does (and the JAX package's platforms)."""
+    band = next(b for b in BANDS if b["name"] == "ring N=300 K=6")
+    args = [_np_tensor(a) for a in hazard_fused_args(5, band, 64)]
+    rng = np.random.default_rng(6)
+    args[4] = torch.from_numpy(rng.choice(
+        np.array([1e-45, -1e-45, 1e-40, -1e-40, -0.0, 0.0, -1.0, 1.0], np.float32),
+        size=tuple(args[4].shape)))
+    kw = dict(offsets=band["offsets"], revs=band["revs"], w=2, score_enabled=True,
+              want_cohorts=True, retrans_cap=3)
+    ref = fr.fused_delivery_plain(*args, thr, thr, **kw)
+    got = fr.fused_delivery(*[a.to(cuda) for a in args], thr, thr, **kw)
+    torch.cuda.synchronize()
+    for key in ref:
+        assert torch.equal(ref[key], got[key].cpu()), key
 
 
 @pytest.mark.cuda

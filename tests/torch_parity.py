@@ -3,8 +3,9 @@ schema-path leaves, the bench-default GossipSub builds of both packages on
 the same small topology (the banded lattice by default), and the hazard
 inputs of the redesigned kernels (``hazard_rows`` for select_topk,
 ``hazard_graph`` for csr_delivery, ``hazard_bands`` with
-``hazard_fused_args`` / ``hazard_banded_args`` for fused_delivery and
-delivery_banded), made with numpy from a seed.
+``hazard_exchange_args`` / ``hazard_fused_args`` / ``hazard_banded_args``
+for edge_exchange, fused_delivery and delivery_banded), made with numpy
+from a seed.
 
 Importing this module imports no JAX: the card-only kernel tests and
 chip_smoke.py use the hazard builders on machines without the JAX stack.
@@ -27,6 +28,58 @@ HAZARD_M = (20, 64, 96)
 #: the slots of the banded hazard tests: HAZARD_M and W = 10, past the 8
 #: words a block of the banded kernels takes (grid.y splits the row)
 HAZARD_BAND_M = HAZARD_M + (300,)
+
+#: the words a slot of the edge_exchange hazard tests: one word, an odd
+#: count, one 16-byte vector and an even count that takes 4-byte words
+HAZARD_C = (1, 3, 4, 6)
+
+#: score parameters under which the GossipSub step makes float32
+#: subnormals (tests/test_torch_subnormal.py, chip_smoke.py): overrides of
+#: the bench's TopicScoreParams (``topic``), PeerScoreParams (``peer``) and
+#: PeerScoreThresholds (``thresholds``), and the peers of one P6 ip group
+_NEGATIVE = dict(
+    topic=dict(time_in_mesh_weight=0.0, first_message_deliveries_weight=0.0,
+               mesh_message_deliveries_weight=-1e-42, mesh_failure_penalty_weight=-1e-42,
+               invalid_message_deliveries_weight=-1e-42),
+    peer=dict(ip_colocation_factor_weight=-1e-42, behaviour_penalty_weight=-1e-42),
+    ip_group_size=3)
+SUBNORMAL_CELLS = {
+    # P1 and P2 weights of 1e-40, the other topic terms as the bench has them
+    "positive": dict(topic=dict(time_in_mesh_weight=1e-40,
+                                first_message_deliveries_weight=1e-40)),
+    # P3, P3b, P4, P6 and P7 weights of -1e-42, P1 and P2 off
+    "negative": _NEGATIVE,
+    # decay_to_zero 1e-40 and counter decays of 1e-20: a counter is
+    # subnormal at its second decay
+    "decay": dict(topic=dict(first_message_deliveries_decay=1e-20,
+                             mesh_message_deliveries_weight=-1.0,
+                             mesh_message_deliveries_decay=1e-20,
+                             mesh_failure_penalty_weight=-1.0,
+                             mesh_failure_penalty_decay=1e-20),
+                  peer=dict(decay_to_zero=1e-40, behaviour_penalty_decay=1e-20)),
+    # a topic score cap and P2 and P3 counter caps of 1e-40, which clamp at
+    # zero: P1's positive scores to 0.0, fmd and mmd to 0.0 (P3 on, so its
+    # deficit passes the cap as a negative score)
+    "caps": dict(topic=dict(first_message_deliveries_cap=1e-40,
+                            mesh_message_deliveries_weight=-1.0,
+                            mesh_message_deliveries_cap=1e-40),
+                 peer=dict(topic_score_cap=1e-40)),
+    # the negative weights at gossip, publish, graylist and
+    # opportunistic-graft thresholds of 0.0
+    "zero_thresholds": dict(_NEGATIVE, thresholds=dict(
+        gossip_threshold=0.0, publish_threshold=0.0, graylist_threshold=0.0,
+        opportunistic_graft_threshold=0.0)),
+}
+
+
+def subnormal_overrides(cell: str, n: int) -> dict:
+    """``SUBNORMAL_CELLS[cell]`` as ``bench_builds`` keywords for N peers
+    (the ip groups as an [N] array)."""
+    ov = dict(SUBNORMAL_CELLS[cell])
+    size = ov.pop("ip_group_size", None)
+    ov["ip_group"] = None if size is None else np.arange(n, dtype=np.int32) // size
+    return ov
+
 
 #: (score_enabled, want_cohorts, retrans_cap) under which fused_delivery's
 #: hazard checks run: every cap 0-3, the cohort planes and scores on and off
@@ -172,6 +225,21 @@ def _u32(rng, *shape):
     return rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
 
 
+def hazard_exchange_args(seed: int, band: dict, c: int) -> list:
+    """edge_exchange's array arguments on ``band`` (numpy, in the wrapper's
+    order: wire_pack [N, K*C], scores [N, K], live [N, K]), C words a
+    slot: random words, a fifth of the edges dead, and scores that hold
+    -0.0, subnormals of both signs (which the exchange copies bit for bit)
+    and NaN."""
+    rng = np.random.default_rng(seed)
+    n, k = band["n"], len(band["offsets"])
+    score = rng.normal(0.0, 20.0, size=(n, k)).astype(np.float32)
+    pick = rng.integers(0, 10, size=(n, k))
+    for i, v in enumerate((-0.0, 1e-45, -1e-45, 1e-40, -1e-39, np.nan)):
+        score[pick == i] = v
+    return [_u32(rng, n, k * c), score, (rng.random((n, k)) < 0.8).astype(np.uint32)]
+
+
 def hazard_fused_args(seed: int, band: dict, m: int) -> list:
     """fused_delivery's array arguments on ``band`` (numpy, in the
     wrapper's order: carry_out .. valid_row), M slots a row: random words
@@ -245,12 +313,15 @@ def diff_leaves(ref: dict, got: dict, where: str = "") -> None:
 
 def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
                  count_events=True, seed=0, topologies=None,
-                 edge_layout="dense", fused=False):
+                 edge_layout="dense", fused=False, topic=None, peer=None,
+                 thresholds=None, ip_group=None):
     """(jax_cfg, jax_net, sp, torch_cfg, torch_net, torch_sp) for the
     bench's default params on ring_lattice(n, d), or on ``topologies``, a
     (JAX Topology, port Topology) pair of the same graph, in
     ``edge_layout`` with the ``fused`` flag on both the net and the
-    config."""
+    config. ``topic``, ``peer`` and ``thresholds`` are field overrides of
+    the bench's TopicScoreParams, PeerScoreParams and PeerScoreThresholds,
+    and ``ip_group`` the nets' [N] P6 colocation groups, on both sides."""
     from go_libp2p_pubsub_tpu import config as jconfig
     from go_libp2p_pubsub_tpu import graph as jgraph
     from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubConfig as JCfg
@@ -266,16 +337,22 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     if topologies is None:
         topologies = jgraph.ring_lattice(n, d=d), tgraph.ring_lattice(n, d=d)
     layout = dict(edge_layout=edge_layout, fused=fused)
-    jnet = JNet.build(topologies[0], jgraph.subscribe_all(n, 1), **layout)
+
+    def score(sp):
+        topics = {t: dataclasses.replace(tp, **(topic or {})) for t, tp in sp.topics.items()}
+        return dataclasses.replace(sp, topics=topics, **(peer or {}))
+
+    jnet = JNet.build(topologies[0], jgraph.subscribe_all(n, 1), ip_group=ip_group, **layout)
     jcfg = JCfg.build(dataclasses.replace(jconfig.GossipSubParams(), flood_publish=False),
-                      jconfig.PeerScoreThresholds(), score_enabled=True,
+                      jconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, **layout)
     jcfg = dataclasses.replace(jcfg, count_events=count_events, fanout_slots=0)
-    _, jsp = jbsp("default", 1)
-    tnet = TNet.build(topologies[1], tgraph.subscribe_all(n, 1), device="cpu", **layout)
+    jsp = score(jbsp("default", 1)[1])
+    tnet = TNet.build(topologies[1], tgraph.subscribe_all(n, 1), ip_group=ip_group,
+                      device="cpu", **layout)
     tcfg = TCfg.build(dataclasses.replace(tconfig.GossipSubParams(), flood_publish=False),
-                      tconfig.PeerScoreThresholds(), score_enabled=True,
+                      tconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, **layout)
     tcfg = dataclasses.replace(tcfg, count_events=count_events, fanout_slots=0)
-    _, tsp = tbsp(1)
+    tsp = score(tbsp(1)[1])
     return jcfg, jnet, jsp, tcfg, tnet, tsp
