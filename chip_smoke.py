@@ -24,7 +24,7 @@ last line is printed:
    fused_delivery must equal their plain PyTorch versions exactly, and both
    also on the hazard bands (tests/torch_parity.hazard_bands: rings with K
    = 2, 6, 16, N=17 under the staged window, a circulant with steps past
-   the halo): edge_exchange at C = 1, 3, 4, 6 with scores holding -0.0,
+   the halo): edge_exchange at C = 1, 2, 3, 4, 6 with scores holding -0.0,
    subnormals and NaN, fused_delivery at W = 1, 2, 3, 10 under every
    retrans_cap, with the cohort planes and scores on and off; times of the
    kernel, the plain version and (edge_exchange) the one-call library
@@ -68,10 +68,28 @@ last line is printed:
    run;
 12. FloodSub card against CPU — both layouts at N=8192 for 32 rounds, every
    leaf equal after every round;
-13. the kernel launches of a traced GossipSub bench round
+13. GossipSub phase bench — the phase engine bench.py measures:
+   build_bench(N=100k, rounds_per_phase=8) on the banded lattice, the mesh
+   formed (driver.form_mesh), 2 formation phases, then 8 timed phases (64
+   rounds) of the bench's schedule; edge_exchange launches (1 + r) times a
+   phase (the control head at C = 6, the data at C = W = 2), the delivery
+   kernels none, select_topk 8 times a heartbeat; the degree and subset
+   checks; delivery-rounds/s, peak memory, state bytes;
+14. the same phases CSR-resident (edge_layout="csr", fused=True): no
+   edge_exchange, and the final state, densified, equal to phase 13's;
+15. the phase engine card against CPU — both builds at N=8192, r=8, events
+   counted, every leaf equal after every phase;
+16. edge_exchange at the phase shapes — the C = 6 head call and a C = 2
+   data call captured from a phase of phase 13: equal to the plain version
+   bit for bit (and on random words), their times (in back-to-back
+   batches, and one call at a time after the L2 is written over, so that
+   the C = 2 call's 32 MB come from HBM), bounds and the one-call gather's
+   time, as fields of the edge_exchange record;
+17. the kernel launches of a traced GossipSub bench round
    (perf/profile.py), with those of the score path's subnormal flush
-   (hardshrink, copysign) apart. It comes last, so that the profiler's
-   tracing cannot touch a rate timed in the same process.
+   (hardshrink, copysign) apart, and of a traced phase-bench phase per
+   delivery round. It comes last, so that the profiler's tracing cannot
+   touch a rate timed in the same process.
 
 It prints the ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
@@ -99,6 +117,10 @@ FORMATION_ROUNDS, MEASURED_ROUNDS = 16, 64
 N_PARITY, PARITY_ROUNDS = 8192, 32
 N_CSR, FLOOD_ROUNDS = 1_000_000, 80
 POWERLAW_ROUNDS = 32          # timed rounds of phase 7, after the formation
+PHASE_R = 8                   # rounds a phase: bench.py's BENCH_PHASE_R default
+PHASE_FORMATION, PHASE_MEASURED = 2, 8   # phases after form_mesh; timed phases
+PHASE_PARITY_PHASES = 4       # phases of phase 15, after form_mesh
+L2_SCRUB_BYTES = 128 << 20    # written before a cold-L2 timing (H100 L2: 50 MB)
 SELECTIONS_PER_HEARTBEAT = 8  # grafts, topscore, rest_rand, bring, drop,
                               # grafts2, oppo, chosen (models/gossipsub.py)
 KERNEL_SOURCES = ("fused_round", "delivery", "select_topk")
@@ -145,6 +167,30 @@ def batch_ms(fn, calls: int = 50, reps: int = 5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Median over ``reps`` single calls of the device time of one call
+    with a cold L2: each call follows a write of ``L2_SCRUB_BYTES`` (more
+    than the H100's 50 MB L2), so its inputs come from HBM, which
+    back-to-back batches (``batch_ms``) of a call whose bytes fit in the
+    L2 do not show."""
+    import torch
+
+    scrub = torch.empty(L2_SCRUB_BYTES // 4, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        scrub.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -415,7 +461,7 @@ def check_band_hazards(name: str, dev) -> float:
     multiple of the block, N=17 under the staged window, a circulant with
     steps beyond the halo) at W = 1, 2, 3 and 10 (fused_delivery also at
     thresholds of 0.0 and -0.0), or edge_exchange on
-    those with K <= 16 at C = 1, 3, 4 and 6, scores on and off. Returns
+    those with K <= 16 at C = 1, 2, 3, 4 and 6, scores on and off. Returns
     max_abs_err."""
     import numpy as np
     import torch
@@ -817,7 +863,8 @@ def bench_launches(card: str) -> dict:
     """Kernel launches of a traced GossipSub bench round (perf/profile.py,
     4 warm rounds, 4 traced), and those of the score path's subnormal flush
     (the host ops hardshrink and copysign, which nothing else on the path
-    calls)."""
+    calls); then those of a traced phase-bench phase (r=8: 2 warm phases, 1
+    traced) per delivery round."""
     from go_libp2p_pubsub_tpu_torch.perf import profile
 
     rep = profile.profile_rounds(N_FULL, warm=4, rounds=4)
@@ -828,7 +875,15 @@ def bench_launches(card: str) -> dict:
         f"subnormal flush of the score path ({total - flush:.1f} without it); device busy "
         f"{rep['device_busy_share_untraced']:.4f} of an untraced round "
         f"({rep['untraced_ms_per_round']:.3f} ms), on {card}")
-    return {"launches_per_round": total, "flush_launches_per_round": flush}
+    ph = profile.profile_rounds(N_FULL, warm=2 * PHASE_R, rounds=PHASE_R,
+                                rounds_per_phase=PHASE_R)
+    say(f"phase launches: {ph['kernel_launches_per_round']:.1f} kernel launches a delivery "
+        f"round of the phase bench (r={PHASE_R}; {PHASE_R * ph['kernel_launches_per_round']:.0f}"
+        f" a phase) against {total:.1f} a per-round bench round; device busy "
+        f"{ph['device_busy_share_untraced']:.4f} of an untraced phase "
+        f"({ph['untraced_ms_per_round']:.3f} ms a round), on {card}")
+    return {"launches_per_round": total, "flush_launches_per_round": flush,
+            "phase_launches_per_round": ph["kernel_launches_per_round"]}
 
 
 def gossip_state_checks(st, net, total: int, where: str, degree_range=None):
@@ -869,6 +924,171 @@ def gossip_parity(sweep, convert, name, build):
     ev = convert.state_leaves(sides["cuda"][0])[".core.events"]
     say(f"{name} card == CPU: every leaf equal after each of {PARITY_ROUNDS} rounds at "
         f"N={N_PARITY} ({time.perf_counter() - t0:.1f} s; events {ev.tolist()})")
+
+
+def capture_calls(run, module, name: str):
+    """Run ``run()``, recording every call of ``module.name`` (args, kwargs)
+    in order. Returns (its result, the calls)."""
+    calls = []
+    orig = getattr(module, name)
+
+    def call(*args, **kwargs):
+        calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, call)
+    try:
+        out = run()
+    finally:
+        setattr(module, name, orig)
+    return out, calls
+
+
+def phase_bench(sweep, driver, convert, layout, card, dev, counters, csr_net,
+                dense_final=None):
+    """Phases 13 and 14: the phase engine at full width. From a fresh
+    state with every launch count at 0: form_mesh, the formation phases,
+    then the timed phases; the launch, degree and subset checks; on CSR,
+    the final state densified against the dense run's leaves. Returns
+    (final leaves, edge_exchange launches, the edge_exchange calls of one
+    more phase, tagged by C)."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
+    from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
+    from go_libp2p_pubsub_tpu_torch.state import densify_edge_planes
+
+    r = PHASE_R
+    n_phases = 1 + PHASE_FORMATION + PHASE_MEASURED
+    total = n_phases * r
+    f, m = PHASE_FORMATION * r, PHASE_MEASURED * r
+    po, pt, pv = sweep.publish_schedule(f + m + r, N_FULL, 1, None)
+    tag = "phase bench" if layout == "dense" else "CSR phase bench"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, edge_layout=layout,
+                                         fused=layout == "csr", rounds_per_phase=r,
+                                         device=dev)
+    run = lambda st, sl: sweep.run_phases(st, step, po[sl], pt[sl], pv[sl],
+                                          rounds_per_phase=r, heartbeat_every=r)
+    for mod in counters:
+        mod.reset_launch_counts()
+    st = driver.form_mesh(step, st, rounds_per_phase=r)
+    st = run(st, slice(0, f))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run(st, slice(f, f + m))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {}
+    for mod in counters:
+        launches.update(mod.LAUNCHES)
+    want = {"edge_exchange": n_phases * (1 + r) if layout == "dense" else 0,
+            "fused_delivery": 0, "csr_delivery": 0, "delivery_banded": 0,
+            "select_topk": SELECTIONS_PER_HEARTBEAT * n_phases}
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    dmin, _mean, dmax = gossip_state_checks(st, csr_net, total, tag, (5, 12))
+    peak = torch.cuda.max_memory_allocated()
+    leaves = convert.state_leaves(densify_edge_planes(csr_net, st) if layout == "csr" else st)
+    state_bytes = sum(a.nbytes for a in convert.state_leaves(st).values())
+    note = ""
+    if dense_final is not None:
+        leaves_equal(dense_final, leaves, f"{tag} final state against the dense phase bench's")
+        note = ", final state densified equal to phase 13's leaf for leaf"
+    say(f"{tag} N={N_FULL} M={M_SLOTS} K=16 r={r}: form_mesh + {PHASE_FORMATION} + "
+        f"{PHASE_MEASURED} phases ({total} rounds), launches {launches}, mesh degree "
+        f"[{dmin}, {dmax}], fwd subset of have{note}")
+    say(f"{tag} rate: {m / dt:.3f} delivery-rounds/s over {m} rounds ({PHASE_MEASURED} "
+        f"phases; {1e3 * dt / m:.3f} ms/round), peak memory {peak} bytes "
+        f"({peak / 2**20:.1f} MiB), state {state_bytes} bytes, on {card}")
+    calls = {}
+    if layout == "dense":
+        _st, got = capture_calls(lambda: run(st, slice(f + m, f + m + r)), fr, "edge_exchange")
+        for args, kw in got:
+            calls.setdefault(f"C={kw['c']}", (args, kw))
+        del _st
+    del st
+    return leaves, launches["edge_exchange"], calls
+
+
+def phase_parity(sweep, driver, convert, layout):
+    """Phase 15: the phase engine from the same seed on the card and on the
+    CPU (plain versions) at N=8192, r=8, events counted, every leaf equal
+    after form_mesh and after every phase."""
+    r = PHASE_R
+    po, pt, pv = sweep.publish_schedule(PHASE_PARITY_PHASES * r, N_PARITY, 1, None, seed=5)
+    sides = {}
+    for d in ("cuda", "cpu"):
+        st, step, _t, _h = sweep.build_bench(N_PARITY, M_SLOTS, count_events=True,
+                                             edge_layout=layout, fused=layout == "csr",
+                                             rounds_per_phase=r, device=d)
+        sides[d] = (driver.form_mesh(step, st, rounds_per_phase=r), step)
+    leaves_equal(convert.state_leaves(sides["cpu"][0]), convert.state_leaves(sides["cuda"][0]),
+                 f"phase engine {layout} form_mesh")
+    t0 = time.perf_counter()
+    for p in range(PHASE_PARITY_PHASES):
+        sl = slice(p * r, (p + 1) * r)
+        for d, (st, step) in list(sides.items()):
+            sides[d] = (sweep.run_phases(st, step, po[sl], pt[sl], pv[sl], rounds_per_phase=r,
+                                         heartbeat_every=r), step)
+        leaves_equal(convert.state_leaves(sides["cpu"][0]),
+                     convert.state_leaves(sides["cuda"][0]), f"phase engine {layout} phase {p}")
+    ev = convert.state_leaves(sides["cuda"][0])[".core.events"]
+    say(f"phase engine {layout} card == CPU: every leaf equal after form_mesh and each of "
+        f"{PHASE_PARITY_PHASES} phases of r={r} at N={N_PARITY} "
+        f"({time.perf_counter() - t0:.1f} s; events {ev.tolist()})")
+
+
+def check_phase_exchange(fr, calls, gen, base) -> dict:
+    """Phase 16: edge_exchange on the phase engine's calls (the control
+    head at C = 6 with scores, a data sub-round at C = 2 without), captured
+    and on random words: bit for bit against the plain version; times of
+    the kernel (prepared launches), the plain version and the one-call
+    gather, beside the bound (and the baseline's kernel on the same
+    arguments when ``base`` holds the baseline's libraries). Returns
+    {tag: numbers}."""
+    import torch
+
+    out = {}
+    for tag, (args, kw) in sorted(calls.items(), key=lambda kv: -kv[1][1]["c"]):
+        wire, scores, live = args
+        n, k, c = wire.shape[0], len(kw["offsets"]), kw["c"]
+        err = 0.0
+        for trial in ("captured", "random"):
+            a = list(args) if trial == "captured" else randomize_words(args, gen)
+            if trial == "random":
+                a[2] = (torch.rand(live.shape, generator=gen) < 0.9).to(torch.int32).to(
+                    live.device)
+            ref = fr.edge_exchange_plain(*a, **kw)
+            got = fr.edge_exchange(*a, **kw)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(ref, got))
+        out_w, out_s = fr.edge_exchange(*args, **kw)
+        io = nbytes(wire, scores if kw["score_enabled"] else None, live, out_w, out_s)
+        ops = n * k * c + (n * k if kw["score_enabled"] else 0)
+        perm = (((torch.arange(n, device=wire.device)[:, None]
+                  + torch.tensor(kw["offsets"], device=wire.device)[None, :]) % n) * k
+                + torch.tensor(kw["revs"], device=wire.device)[None, :]).reshape(-1)
+        flat = wire.view(n * k, c)
+        launch = prepared(fr._lib(), "edge_exchange_launch",
+                          lambda: fr.edge_exchange(*args, **kw))
+        rec = {"c": c, "scores": bool(kw["score_enabled"]), "max_abs_err": err,
+               **kernel_times(launch, base and base["fused_round"]),
+               "cold_ms": cold_ms(launch),
+               "plain_ms": batch_ms(lambda: fr.edge_exchange_plain(*args, **kw)),
+               **bound(io, ops), "library_ms": batch_ms(lambda: flat[perm])}
+        del launch
+        out[tag] = rec
+        say(f"kernel edge_exchange phase {tag}: N={n} K={k} scores={rec['scores']} exact "
+            f"(max_abs_err {err}, captured and random) kernel_ms={rec['ms']:.6f}"
+            f"{baseline_note(rec)} "
+            f"plain_ms={rec['plain_ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
+            f"({rec['bound_by']}, {io} bytes moved; {100 * rec['bound_ms'] / rec['ms']:.1f}% of "
+            f"bound) cold_ms={rec['cold_ms']:.6f} (L2 written over before each call: "
+            f"{100 * rec['bound_ms'] / rec['cold_ms']:.1f}% of bound) "
+            f"library_ms={rec['library_ms']:.6f}")
+    return out
 
 
 def leaves_equal(a: dict, b: dict, where: str):
@@ -1095,7 +1315,26 @@ def main() -> int:
     for kw in (dict(graph="lattice", layout="dense"), dict(graph="powerlaw", layout="csr")):
         flood_parity(sweep, convert, kw)
 
-    # 13. launches of a bench round, traced
+    # 13-14. the phase engine bench.py measures, dense banded and CSR
+    from go_libp2p_pubsub_tpu_torch import driver
+
+    dense_leaves, phase_ex, phase_calls = phase_bench(sweep, driver, convert, "dense", card, dev,
+                                                      counters, csr_net)
+    phase_bench(sweep, driver, convert, "csr", card, dev, counters, csr_net,
+                dense_final=dense_leaves)
+    del dense_leaves
+
+    # 15. the phase engine, card against CPU
+    for layout in ("dense", "csr"):
+        phase_parity(sweep, driver, convert, layout)
+
+    # 16. edge_exchange at the phase engine's shapes
+    shapes = check_phase_exchange(fr, phase_calls, gen, base)
+    records[0].update(phase_launches=phase_ex, phase_head=shapes["C=6"],
+                      phase_data=shapes["C=2"])
+    del phase_calls
+
+    # 17. launches of a bench round and of a phase-bench phase, traced
     bench_launches(card)
 
     say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

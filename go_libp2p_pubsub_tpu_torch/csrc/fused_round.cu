@@ -24,7 +24,9 @@
 // copies vectors x, x + bx, .. of receiver row r's slot k, so the index
 // math is 32-bit with no division and a warp writes a run of whole output
 // rows. A slot's C words move as 16-byte vectors when C is a multiple of 4
-// and both wire pointers are 16-byte aligned, as 4-byte words otherwise.
+// and both wire pointers are 16-byte aligned, as 8-byte vectors when C is
+// even and both are 8-byte aligned (the phase engine's C = 6 control head
+// and C = 2 data words), as 4-byte words otherwise.
 // Each receiver slot reads its live flag once, from a coalesced run, and
 // its sender's vectors and score through the read-only path: the sender
 // rows of a band are read by their 2K neighbours within a few rows, so L2
@@ -281,11 +283,14 @@ extern "C" int edge_exchange_launch(
     void* wire_out, void* score_out, int n, int k, int c, int score_enabled,
     void* stream) {
   if (k > kMaxK || k <= 0 || c <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  // 16-byte vectors where a slot's C words and both wire pointers allow
+  // the widest vectors a slot's C words and both wire pointers allow
   const uintptr_t at = (uintptr_t)wire | (uintptr_t)wire_out;
   const cudaStream_t st = (cudaStream_t)stream;
   if (c % 4 == 0 && at % 16 == 0)
     launch_exchange<uint4>(wire, scores, live, offrev, wire_out, score_out, n, k, c / 4,
+                           score_enabled, st);
+  else if (c % 2 == 0 && at % 8 == 0)
+    launch_exchange<uint2>(wire, scores, live, offrev, wire_out, score_out, n, k, c / 2,
                            score_enabled, st);
   else
     launch_exchange<uint32_t>(wire, scores, live, offrev, wire_out, score_out, n, k, c,

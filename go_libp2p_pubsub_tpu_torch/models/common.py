@@ -98,11 +98,11 @@ def origin_msg_words(net: Net, msgs: MsgTable) -> torch.Tensor:
 def _refuse_unported(forward_mask, queue_cap: int, val_delay_topic) -> None:
     checks = [
         (forward_mask is not None, "forward_mask (the gossipsub forward gate on "
-                                   "the shared core) — ROADMAP §1 item 7"),
+                                   "the shared core) — ROADMAP §1 item 3"),
         (queue_cap > 0, "queue_cap > 0 (outbound-queue backpressure, "
-                        "bitset.keep_lowest_bits) — ROADMAP §1 item 7"),
+                        "bitset.keep_lowest_bits) — ROADMAP §1 item 3"),
         (val_delay_topic is not None, "the async-validation pipeline — "
-                                      "ROADMAP §1 item 4"),
+                                      "ROADMAP §1 item 3"),
     ]
     for bad, what in checks:
         if bad:

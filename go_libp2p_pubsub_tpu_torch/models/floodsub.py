@@ -42,11 +42,11 @@ def floodsub_step(net: Net, state: SimState, pub_origin: torch.Tensor,
     The queue cap and the chaos, telemetry and adversary planes raise
     ``NotImplementedError``."""
     unported = [
-        (queue_cap > 0, "queue_cap > 0 (outbound-queue backpressure) — ROADMAP §1 item 7"),
+        (queue_cap > 0, "queue_cap > 0 (outbound-queue backpressure) — ROADMAP §1 item 3"),
         (chaos is not None or link_deny is not None,
-         "chaos (link-fault injection) — ROADMAP §1 item 11"),
-        (telemetry is not None, "telemetry (the per-round panel) — ROADMAP §1 item 11"),
-        (adversary is not None, "adversary (the attack plane) — ROADMAP §1 item 11"),
+         "chaos (link-fault injection) — ROADMAP §1 item 5"),
+        (telemetry is not None, "telemetry (the per-round panel) — ROADMAP §1 item 5"),
+        (adversary is not None, "adversary (the attack plane) — ROADMAP §1 item 5"),
     ]
     for bad, what in unported:
         if bad:

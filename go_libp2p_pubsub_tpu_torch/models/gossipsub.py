@@ -11,9 +11,9 @@ round r is read by the far end in round r+1 through the reverse-edge
 gather (the one-RTT control latency of the reference's wire layer).
 
 The step runs on every net the JAX step takes in the bench configuration.
-On a banded dense topology the whole edge-crossing exchange is the two
-kernels of ``ops/fused_round.py``; on any other dense topology, and on a
-CSR net, it is the JAX package's XLA-path composites (``control_exchange``,
+On a banded dense topology with K <= 16 the whole edge-crossing exchange is
+the two kernels of ``ops/fused_round.py``; on any other dense topology, and
+on a CSR net, it is the JAX package's XLA-path composites (``control_exchange``,
 ``iwant_responses``, ``gossip_edge_mask``, the shared ``delivery_round``,
 ``merge_extra_tx``). A CSR net keeps its per-edge planes flat between steps
 (``state.wrap_csr_resident``). Every heartbeat selection is one launch of
@@ -109,6 +109,9 @@ class GossipSubConfig:
     do_px: bool = False
     fanout_slots: int = 2
     count_events: bool = True
+    # the phase engine's coalesced control head and stacked accumulators;
+    # the JAX package's False form is bit-identical and not ported
+    wire_coalesced: bool = True
     edge_layout: str = "dense"
     fused: bool = False
     gossip_threshold: float = 0.0
@@ -121,7 +124,8 @@ class GossipSubConfig:
               thresholds: PeerScoreThresholds | None = None,
               score_enabled: bool = False,
               heartbeat_every: int = 1, edge_layout: str = "dense",
-              fused: bool = False) -> "GossipSubConfig":
+              fused: bool = False,
+              wire_coalesced: bool = True) -> "GossipSubConfig":
         """``edge_layout`` and ``fused`` must match the Net's
         (``Net.build(..., edge_layout=..., fused=...)``); the step refuses
         a mismatch. The selections take one form under either flag; its
@@ -150,6 +154,7 @@ class GossipSubConfig:
             do_px=p.do_px,
             edge_layout=edge_layout,
             fused=bool(fused),
+            wire_coalesced=bool(wire_coalesced),
         )
         if thresholds is not None:
             thresholds.validate()
@@ -360,14 +365,17 @@ def handle_ihave(cfg: GossipSubConfig, net: Net, st: GossipSubState,
 
 
 def iwant_responses(cfg: GossipSubConfig, net: Net, st: GossipSubState,
-                    nbr_score_of_me):
+                    nbr_score_of_me, window_g: torch.Tensor | None = None):
     """The IWANT-response carry for this round's delivery and the
     retransmission counter update (handleIWant gossipsub.go:679-716):
     ``st.iwant_out`` holds what I asked each neighbor last round, and the
     neighbor serves from its whole mcache window unless the (edge, msg)
-    count reached the cap. Returns (state, resp [N,K,W])."""
-    sender_window = bitset.word_or_reduce(st.mcache, dim=1)       # [N, W]
-    window_g = torch.where(net.nbr_ok[:, :, None], net.peer_gather(sender_window), 0)
+    count reached the cap. ``window_g`` is the neighbours' gathered window
+    when the caller's wire exchange carried it (zero on dead edges).
+    Returns (state, resp [N,K,W])."""
+    if window_g is None:
+        sender_window = bitset.word_or_reduce(st.mcache, dim=1)   # [N, W]
+        window_g = torch.where(net.nbr_ok[:, :, None], net.peer_gather(sender_window), 0)
     capped = fr.served_capped_mask(cfg.gossip_retransmission, st.served_lo,
                                    st.served_hi)
     resp = st.iwant_out & window_g & ~capped
@@ -744,6 +752,60 @@ def control_exchange(cfg: GossipSubConfig, net: Net, st: GossipSubState, cross):
         nbr_score_of_me)
 
 
+def control_exchange_coalesced(cfg: GossipSubConfig, net: Net, st: GossipSubState):
+    """The phase engine's control head as one exchange: the control
+    outboxes, the score plane and the sender's mcache window (broadcast
+    over the edges, so its peer gather becomes the same involution) cross
+    the edges together (gossipsub.go:1096-1141 piggyback). On a banded net
+    with K <= MAX_K it is one ``edge_exchange`` launch over ``graft | prune
+    | ihave | window`` words with the scores as the kernel's f32 plane; on
+    any other net one ``Net.edge_gather`` of the concatenation (scores as
+    their bits), masked by ``nbr_ok``, as the JAX package computes it. The
+    JAX package also carries the P5 app plane here when its weight is live;
+    the port's heartbeat gathers it where it reads it (``compute_scores``),
+    which gives the same bits. Returns (graft_in_raw, prune_in_raw,
+    ihave_in_raw, nbr_score_of_me or None, window_g [N, K, W])."""
+    n, k = net.n_peers, net.max_degree
+    named = control_parts(cfg, net, st)
+    window = bitset.word_or_reduce(st.mcache, dim=1)[:, None, :].expand(n, k, -1)
+    named.append(("window", window))
+    kernel_route = net.band_off is not None and k <= fr.MAX_K
+    if not kernel_route and cfg.score_enabled:
+        # the reference's order: the score bits ride after the control words
+        named.insert(3, ("score", st.scores.view(torch.int32)[..., None]))
+    names = [nm for nm, _ in named]
+    sizes = np.cumsum([0] + [p.shape[-1] for _, p in named])
+    words = torch.cat([p for _, p in named], dim=-1)
+    if kernel_route:
+        c = words.shape[-1]
+        wire, nbr_score_of_me = fr.edge_exchange(
+            words.reshape(n, k * c), st.scores if cfg.score_enabled else None,
+            net.nbr_ok.to(torch.int32), offsets=net.band_off, revs=net.band_rev, c=c,
+            score_enabled=cfg.score_enabled)
+        wire = wire.reshape(n, k, c)
+    else:
+        wire = torch.where(net.nbr_ok[:, :, None], net.edge_gather(words), 0)
+        nbr_score_of_me = None
+
+    def seg(name):
+        i = names.index(name)
+        return wire[..., int(sizes[i]): int(sizes[i + 1])]
+
+    if not kernel_route and cfg.score_enabled:
+        nbr_score_of_me = torch.where(net.nbr_ok, seg("score")[..., 0].view(torch.float32),
+                                      0.0)
+    graft_in_raw, prune_in_raw, ihave_in_raw = control_unpack(
+        cfg, net, lambda i: seg(("graft", "prune", "ihave")[i]))
+    return graft_in_raw, prune_in_raw, ihave_in_raw, nbr_score_of_me, seg("window")
+
+
+def live_step_views(net: Net, consts: "StepConsts"):
+    """The topology views a step reads (gossipsub.go's live-peer view):
+    (net_l, nbr_sub_l, flood_from_l). With static peers and no PX — the
+    only builds the port makes — they are the build's constants."""
+    return net, consts.nbr_sub_const, consts.flood_from
+
+
 def px_connect(cfg: GossipSubConfig, st: GossipSubState) -> torch.Tensor:
     """PX connect (pxConnect gossipsub.go:861-941): next round's edge
     liveness. Without do_px (the only form this slice builds) it is the
@@ -751,19 +813,17 @@ def px_connect(cfg: GossipSubConfig, st: GossipSubState) -> torch.Tensor:
     return st.edge_live
 
 
-def _refuse_unported(cfg: GossipSubConfig, net: Net):
+def _refuse_unported(cfg: GossipSubConfig):
+    """Raise on a config value outside the port (the JAX config's options
+    that no ported step runs yet)."""
     checks = [
-        (cfg.do_px, "do_px (peer exchange) — ROADMAP §1 item 7"),
+        (cfg.do_px, "do_px (peer exchange) — ROADMAP §1 item 3"),
         (cfg.fanout_slots > 0, "fanout slots (unjoined-topic publish) — "
-                               "ROADMAP §1 item 7"),
+                               "ROADMAP §1 item 3"),
     ]
     for bad, what in checks:
         if bad:
             raise NotImplementedError(f"not ported yet: {what}")
-    if net.band_off is not None and net.max_degree > fr.MAX_K:
-        raise NotImplementedError(
-            f"K={net.max_degree} > {fr.MAX_K} on a banded net: the fused "
-            "kernels hold K first-arrival words in registers — ROADMAP §2")
 
 
 def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
@@ -779,8 +839,8 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     contract do_heartbeat == (tick % heartbeat_every == 0)); otherwise a
     heartbeat_every > 1 step decides on the device and selects leafwise.
 
-    On a banded dense net the data plane is the two fused kernels; on any
-    other net it is the XLA-path composites, and a CSR net's state stays
+    On a banded dense net with K <= 16 the data plane is the two fused
+    kernels; on any other net it is the XLA-path composites, and a CSR net's state stays
     CSR-resident between steps. The step is functional: it never writes
     into the state it is given. Options of the JAX step outside the port
     (chaos, adversary, router, gater, dynamic peers or topology, lifted
@@ -788,14 +848,16 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     slots, PX)."""
     if unported:
         raise NotImplementedError(
-            f"not ported yet: {sorted(unported)} — ROADMAP §1 items 6-13")
-    _refuse_unported(cfg, net)
+            f"not ported yet: {sorted(unported)} — ROADMAP §1 items 3-6")
+    _refuse_unported(cfg)
     consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval)
     cfg = flushed_thresholds(cfg)
     tp = consts.tp
     n_peers, k_dim = net.n_peers, net.max_degree
 
-    banded = net.band_off is not None
+    # the fused kernels hold a row's K first-arrival words in registers; a
+    # wider banded net takes the composites, as every non-banded net does
+    banded = net.band_off is not None and k_dim <= fr.MAX_K
 
     def banded_cross(words, scores):
         """The control words across the banded involution as one

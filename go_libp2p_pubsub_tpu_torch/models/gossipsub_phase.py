@@ -1,0 +1,414 @@
+"""Multi-round phase engine: r delivery rounds per call, control once.
+
+The reference runs continuous delivery against a 1 Hz maintenance
+heartbeat (gossipsub.go:1278-1301): message hops are milliseconds apart
+while GRAFT/PRUNE/IHAVE/IWANT and the score refresh run about a thousand
+times less often. The per-round step (``models/gossipsub.py``) runs control
+every hop; this step batches ``rounds_per_phase`` (r) delivery rounds into
+one call the reference's way:
+
+* the control head — the wire exchange, GRAFT/PRUNE and IHAVE ingest,
+  IWANT service — runs once a phase, and the heartbeat at most once, at
+  the phase tail;
+* the data plane — publish allocation, mesh and flood push, seen-cache
+  dedup, first-arrival attribution, mcache insertion — runs every
+  sub-round, so per-hop delivery latency and the ``first_round`` stamps
+  keep one-round resolution.
+
+Each sub-round composes what every sender pushes on each edge and crosses
+the edge involution once. On a banded net with K <= ``fused_round.MAX_K``
+both crossings are ``edge_exchange`` launches: the control head's words
+(``graft | prune | ihave | mcache window``, the score plane beside them)
+once a phase, the data words once a sub-round. Any other net, and a CSR
+net (whose state stays CSR-resident between phases), crosses with
+``Net.edge_gather``. The heartbeat's selections are ``select_topk``
+launches on the card. The publish schedule is allocated at the phase head
+(``state.PhasePubPlan``) and the score attribution is folded over the phase
+in packed word planes (``_AccStack``): every (edge, msg) pair transmits at
+most once a phase, so an OR keeps the exact transmission set, and the P3
+window is gated per sub-round at each arrival's own tick.
+
+The JAX package's phase engine (``go_libp2p_pubsub_tpu/models/
+gossipsub_phase.py``) is the reference, leaf for leaf. Options of it
+outside the port raise ``NotImplementedError`` naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from ..ops import bitset
+from ..ops import fused_round as fr
+from ..score.engine import on_deliveries, slot_topic_words
+from ..state import PhasePubPlan, replace, wrap_csr_resident
+from ..trace.events import EV, add_event
+from .common import RoundInfo, accumulate_round_events, finish_delivery, origin_msg_words
+from .gossipsub import (
+    GossipSubConfig,
+    GossipSubState,
+    _refuse_unported,
+    accept_gates,
+    control_exchange_coalesced,
+    flushed_thresholds,
+    handle_graft_prune,
+    handle_ihave,
+    heartbeat,
+    iwant_responses,
+    joined_msg_words,
+    live_step_views,
+    merge_extra_tx,
+    prepare_step_consts,
+    px_connect,
+    sender_carry_words,
+)
+
+#: keyword options of the JAX package's make_gossipsub_phase_step that the port
+#: refuses, and where they land
+UNPORTED = {
+    "gater_params": "the peer gater — ROADMAP §1 item 3",
+    "dynamic_peers": "dynamic peers (apply_peer_transitions) — ROADMAP §1 item 3",
+    "sub_knowledge_holes": "announce-visibility holes — ROADMAP §1 item 3",
+    "lift_scores": "the lifted score plane — ROADMAP §1 item 3",
+    "adversary_no_forward": "the adversary behaviour vector — ROADMAP §1 item 5",
+    "adversary": "the adversary plane — ROADMAP §1 item 5",
+    "telemetry": "the telemetry panel — ROADMAP §1 item 5",
+}
+
+class PhaseAdmissionError(ValueError):
+    """The phase's publish schedule can re-allocate a message slot within
+    one phase (``rounds_per_phase * pub_width > msg_slots``), which breaks
+    the exactness of the deferred recycled-slot clears. Cap admitted
+    publishes (then pass ``admission_capped=True``), raise ``msg_slots``,
+    or lower the publish rate."""
+
+
+class _AccStack:
+    """The phase's attribution accumulators as one ``[N, C, W]`` tensor: an
+    ``[N, W]`` plane is one lane, an ``[N, K, W]`` plane K lanes, and every
+    sub-round ORs its update into the whole stack and ANDs the recycled-slot
+    keep mask into it, one wide op each."""
+
+    def __init__(self, specs, n: int, w: int, device):
+        self.offs = {}
+        off = 0
+        for name, lanes in specs:
+            self.offs[name] = (off, lanes)
+            off += lanes
+        self.buf = (torch.zeros((n, off, w), dtype=torch.int32, device=device)
+                    if off else None)
+
+    def or_(self, updates: dict) -> None:
+        """OR one sub-round's update of every lane in."""
+        if self.buf is None:
+            return
+        n, _, w = self.buf.shape
+        self.buf = self.buf | torch.cat(
+            [updates[name].reshape(n, lanes, w) for name, (_, lanes) in self.offs.items()],
+            dim=1)
+
+    def keep(self, keep_w: torch.Tensor) -> None:
+        """Clear recycled slots' columns in every lane."""
+        if self.buf is not None:
+            self.buf = self.buf & keep_w
+
+    def get(self, name: str, default=None):
+        if name not in self.offs:
+            return default
+        off, lanes = self.offs[name]
+        return self.buf[:, off] if lanes == 1 else self.buf[:, off:off + lanes]
+
+
+def _weights_live(score_params, n_topics: int) -> tuple[bool, bool]:
+    """(P3 live, P4 live): whether any scored topic weights the mesh-credit
+    counter (P3, or the sticky P3b with a positive threshold) or the
+    invalid-delivery counter (P4), as float32 values, the way the JAX
+    package's static elision reads its parameter arrays."""
+    f = np.float32
+    topics = [p for t, p in score_params.topics.items() if 0 <= t < n_topics]
+    p3 = any(f(p.mesh_message_deliveries_weight) != 0
+             or (f(p.mesh_failure_penalty_weight) != 0
+                 and f(p.mesh_message_deliveries_threshold) > 0) for p in topics)
+    p4 = any(f(p.invalid_message_deliveries_weight) != 0 for p in topics)
+    return p3, p4
+
+
+def check_admission(r: int, pub_width: int, msg_slots: int) -> None:
+    """Raise when a phase can re-allocate a slot within itself (r·P > M);
+    warn when it can wipe in-flight receipts of a slot's previous message
+    before the phase boundary sees them (r·P > M // 2)."""
+    flat_cap = r * pub_width
+    if flat_cap > msg_slots:
+        raise PhaseAdmissionError(
+            f"phase publish capacity rounds_per_phase*pub_width = {r}*{pub_width} = "
+            f"{flat_cap} exceeds msg_slots = {msg_slots}: a slot can be re-allocated "
+            "within one phase, which the deferred recycled-slot clears assume never "
+            f"happens. Cap admitted publishes at {msg_slots // 2} a phase (then pass "
+            "admission_capped=True), raise msg_slots, or lower the publish rate.")
+    if flat_cap > msg_slots // 2:
+        warnings.warn(
+            f"phase publish capacity rounds_per_phase*pub_width = {r}*{pub_width} "
+            f"exceeds msg_slots//2 = {msg_slots // 2}: slots recycled within a phase "
+            "wipe in-flight receipts. Cap admitted publishes at "
+            f"{msg_slots // 2} a phase, raise msg_slots, or lower the publish rate.",
+            stacklevel=4)
+
+
+def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
+                              score_params=None, heartbeat_interval: float = 1.0,
+                              score_counts: bool | None = None,
+                              exact_counters: bool = False,
+                              admission_capped: bool = False, **unported):
+    """Build the phase step for a fixed config and topology:
+
+        step(state, pub_origin[r,P], pub_topic[r,P], pub_valid[r,P], *,
+             do_heartbeat) -> state                    (tick advances by r)
+
+    ``pub_*[i]`` is published at tick ``t + i``, as the per-round step
+    would. ``do_heartbeat`` is required: the caller owns the schedule
+    (``driver.heartbeat_schedule``); the heartbeat runs at the phase tail
+    with the phase's last tick. ``pub_valid`` is bool (accept or reject)
+    or ``state.VERDICT_*`` codes.
+
+    Attribution planes whose weights are zero for every topic are not
+    carried (the JAX package's static elision: scores are bit-identical,
+    the unread mmd/imd counters are not); ``exact_counters=True`` carries
+    them all. ``admission_capped=True`` certifies that the caller caps
+    admitted publishes at ``msg_slots // 2`` a phase and drops the
+    admission check. ``cfg.wire_coalesced=False``, the count path
+    (``score_counts=True``) and the JAX function's other options raise."""
+    r = int(rounds_per_phase)
+    if r < 1:
+        raise ValueError(f"rounds_per_phase must be >= 1, got {r}")
+    for key, value in unported.items():
+        if key not in UNPORTED:
+            raise TypeError(f"unknown option {key!r}")
+        if value is not None and value is not False:
+            raise NotImplementedError(f"not ported yet: {UNPORTED[key]}")
+    _refuse_unported(cfg)
+    if not cfg.wire_coalesced:
+        raise NotImplementedError(
+            "not ported yet: wire_coalesced=False (the JAX package's per-plane A/B "
+            "form, bit-identical to the coalesced one) — ROADMAP §1 item 3")
+    if score_counts:
+        raise NotImplementedError(
+            "not ported yet: score_counts=True (the per-slot count attribution "
+            "path) — ROADMAP §1 item 3")
+    consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval)
+    cfg = flushed_thresholds(cfg)
+    tp, wrt = consts.tp, consts.window_rounds_t
+    n_peers, k_dim = net.n_peers, net.max_degree
+    banded = net.band_off is not None and k_dim <= fr.MAX_K
+    if cfg.score_enabled:
+        p3_live, p4_live = _weights_live(score_params, net.n_topics)
+    else:
+        p3_live = p4_live = False
+    p3_live, p4_live = p3_live or exact_counters, p4_live or exact_counters
+    plane_score = cfg.score_enabled
+
+    def cross_data(send, gate):
+        """A sub-round's data words across the edges, zero off ``gate``
+        (which lies inside ``nbr_ok``): one edge_exchange launch on a banded
+        net, else the composite gather."""
+        if banded:
+            w = send.shape[-1]
+            wire, _ = fr.edge_exchange(
+                send.reshape(n_peers, k_dim * w), None, consts.live_u32,
+                offsets=net.band_off, revs=net.band_rev, c=w, score_enabled=False)
+            return torch.where(gate[:, :, None], wire.reshape(n_peers, k_dim, w), 0)
+        return torch.where(gate[:, :, None], net.edge_gather(send), 0)
+
+    def _phase(st: GossipSubState, pub_origin, pub_topic, pub_valid,
+               do_heartbeat: bool) -> GossipSubState:
+        net_l, nbr_sub_l, flood_from_l = live_step_views(net, consts)
+        core = st.core
+        tick0 = core.tick
+        m = core.msgs.capacity
+        w = bitset.n_words(m)
+        dev = tick0.device
+        if not admission_capped:
+            check_admission(r, pub_origin.shape[-1], m)
+
+        # ---- control head (once a phase) --------------------------------
+        acc_ok, acc_msg = accept_gates(cfg, net_l, st)
+        (graft_in_raw, prune_in_raw, ihave_in_raw, nbr_score_of_me,
+         window_g) = control_exchange_coalesced(cfg, net_l, st)
+        st2, prune_resp, n_graft, n_prune = handle_graft_prune(
+            cfg, net_l, st, tp, acc_ok, graft_in_raw, prune_in_raw)
+        events = core.events
+        if cfg.count_events:
+            events = add_event(add_event(events, EV.GRAFT, n_graft), EV.PRUNE, n_prune)
+        edge_live_next = px_connect(cfg, st)
+        st2, iwant_resp = iwant_responses(cfg, net_l, st2, nbr_score_of_me,
+                                          window_g=window_g)
+        st2 = handle_ihave(cfg, net_l, st2, joined_msg_words(net_l, core.msgs), acc_ok,
+                           ihave_in_raw)
+        iwant_resp = torch.where(acc_msg[:, :, None], iwant_resp, 0)
+
+        # phase-fixed data-plane constants: mesh, scores and accept gates
+        # hold for the whole phase (the r-round control latency)
+        mesh2 = st2.mesh
+        nbr_ok = net_l.nbr_ok
+        send_score_ok = (st.scores >= cfg.publish_threshold) if cfg.score_enabled else nbr_ok
+        # floodsub-semantics edges, sender side (floodsub.go:76-100,
+        # gossipsub.go:973-978)
+        flood_send = (consts.i_am_floodsub[:, None] & nbr_ok) | (flood_from_l & send_score_ok)
+        flood_words = torch.where(flood_send[:, :, None], bitset.ALL, 0).to(torch.int32)
+        recv_gate = nbr_ok & acc_msg
+
+        # ---- data loop: r delivery sub-rounds ---------------------------
+        msgs, dlv = core.msgs, core.dlv
+        mcache = st2.mcache
+        keep_acc = torch.full((w,), bitset.ALL, dtype=torch.int32, device=dev)
+        # the attribution planes the phase tail reads (the JAX package also
+        # folds a fresh-receipt and an accepted plane, which only its
+        # async-validation pipeline and its gater read)
+        specs = []
+        if plane_score:
+            specs.append(("new", 1))
+            if p4_live:
+                specs.append(("trans", k_dim))
+            if p3_live:
+                specs.append(("mcw", k_dim))
+        accs = _AccStack(specs, n_peers, w, dev)
+        if cfg.count_events:
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            cnt = dict(n_deliver=zero, n_reject=zero, n_duplicate=zero, n_rpc=zero,
+                       n_drop=zero)
+            n_pub = zero
+        plan = PhasePubPlan(msgs, n_peers, tick0, pub_origin, pub_topic, pub_valid)
+        slotw = slot_topic_words(net_l, msgs.topic)
+        joined_w = joined_msg_words(net_l, msgs)
+        # the origin plane rides the loop: (origin & keep) | pub_words is the
+        # next sub-round's origin_msg_words
+        origin_w = origin_msg_words(net_l, msgs)
+        warange = torch.arange(w, dtype=torch.int32, device=dev)
+        topics = torch.arange(net.n_topics, dtype=torch.int32, device=dev)
+
+        for i in range(r):
+            tick_i = tick0 + i
+            msgs = plan.msgs_at(i)
+
+            # sender-side transmit composition, one crossing a sub-round
+            carry = sender_carry_words(mesh2, slotw) | flood_words
+            if cfg.flood_publish:
+                # v1.1 flood-publish, sender side (gossipsub.go:957-963)
+                carry = carry | torch.where(send_score_ok[:, :, None],
+                                            origin_w[:, None, :], 0)
+            send = carry & dlv.fwd[:, None, :] & ~dlv.fe_words
+            trans = cross_data(send, recv_gate)
+            trans = trans & (joined_w & ~origin_w)[:, None, :]
+
+            dlv, info = finish_delivery(net_l, msgs, dlv, trans, tick_i,
+                                        count_events=cfg.count_events)
+            if i == 0:
+                # the head's IWANT responses ride the first sub-round
+                dlv, info = merge_extra_tx(net_l, msgs, dlv, info, iwant_resp, tick_i,
+                                           count_events=cfg.count_events)
+            valid_w_i = plan.valid_words[i]
+
+            # attribution: one stacked OR a sub-round
+            upd = {}
+            if plane_score:
+                upd["new"] = info.new_words
+                if p4_live:
+                    upd["trans"] = info.trans
+                if p3_live:
+                    # the P3 window at this arrival's own tick
+                    # (score.go:944-974)
+                    window = wrt[msgs.topic.clamp(min=0).long()]
+                    within_i = bitset.pack((dlv.first_round >= 0)
+                                           & ((tick_i - dlv.first_round) <= window[None, :]))
+                    upd["mcw"] = info.trans & within_i[:, None, :]
+            accs.or_(upd)
+            if cfg.count_events:
+                for name in cnt:
+                    cnt[name] = cnt[name] + getattr(info, name)
+
+            # mcache put: validated receipts in joined topics
+            put = info.new_words & valid_w_i[None, :] & joined_w
+            # this sub-round's publishes and recycled-slot clears
+            slots, is_pub = plan.sidx[i], plan.is_pub[i]
+            keep_w, pub_words = plan.keep_w[i], plan.pub_words[i]
+            dlv = plan.apply_to_delivery(dlv, i, tick_i)
+            origin_w = (origin_w & keep_w) | pub_words
+            # the membership planes, incrementally, for every topic
+            # universe (the JAX package recomputes them past 8 topics; the
+            # words are the same): recycled columns clear, each publish ORs
+            # its one-hot word column where the peer (or its slot) has the
+            # publish's topic
+            slotw, joined_w, mcache = bitset.masked_keep([slotw, joined_w, mcache], keep_w)
+            t_p = pub_topic[i].clamp(min=0)
+            bit = bitset.to_word(
+                torch.ones_like(slots, dtype=torch.int64) << (slots % bitset.WORD).long())
+            colw = torch.where((warange[None, :] == slots[:, None] // bitset.WORD)
+                               & is_pub[:, None], bit[:, None], 0)        # [P, W]
+            sub_p = (net_l.subscribed[:, :, None]
+                     & (topics[None, :, None] == t_p[None, None, :])).any(1)  # [N, P]
+            joined_w = joined_w | bitset.word_or_reduce(
+                torch.where(sub_p[:, :, None], colw[None], 0), dim=1)
+            slot_match = net_l.my_topics[:, :, None] == t_p[None, None, :]  # [N, S, P]
+            slotw = slotw | bitset.word_or_reduce(
+                torch.where(slot_match[..., None], colw[None, None], 0), dim=2)
+            # one window-0 update for the put and the publish stamps (the
+            # clear above precedes the slot's new message)
+            mcache = torch.cat([(mcache[:, :1] | (put & keep_w)[:, None]
+                                 | pub_words[:, None]), mcache[:, 1:]], dim=1)
+            # iwant_out / served / promise clears defer to the tail: nothing
+            # in the loop reads them, and the admission cap keeps a recycled
+            # slot from being re-allocated within the phase
+            keep_acc = keep_acc & keep_w
+            accs.keep(keep_w)
+            if cfg.count_events:
+                n_pub = n_pub + is_pub.sum(dtype=torch.int32)
+
+        # ---- phase tail (once) ------------------------------------------
+        msgs = plan.msgs_at(r)
+        iwant_out, served_lo, served_hi = bitset.masked_keep(
+            [st2.iwant_out, st2.served_lo, st2.served_hi], keep_acc)
+        promise_mid = st2.promise_mid
+        promise_reused = bitset.bit_get((~keep_acc)[None, None, :], promise_mid)
+        promise_mid = torch.where((promise_mid >= 0) & promise_reused, -1, promise_mid)
+        tick_last = tick0 + (r - 1)
+        score = st2.score
+        if plane_score:
+            zkw = torch.zeros((n_peers, k_dim, w), dtype=torch.int32, device=dev)
+            score = on_deliveries(
+                score, net_l, mesh2, tp, accs.get("trans", zkw), accs.get("new"),
+                dlv.fe_words, dlv.first_round, msgs.topic, msgs.valid, tick_last, wrt,
+                msg_ignored=msgs.ignored, slotw=slot_topic_words(net_l, msgs.topic),
+                mesh_credit_words=accs.get("mcw", zkw))
+        if cfg.count_events:
+            zw = torch.zeros((n_peers, w), dtype=torch.int32, device=dev)
+            events = accumulate_round_events(
+                events, RoundInfo(trans=zw, new_words=zw, **cnt), n_pub)
+
+        st2 = replace(
+            st2,
+            core=replace(core, msgs=msgs, dlv=dlv, events=events, tick=tick_last),
+            mcache=mcache,
+            ihave_out=torch.zeros_like(st2.ihave_out),
+            iwant_out=iwant_out,
+            served_lo=served_lo,
+            served_hi=served_hi,
+            promise_mid=promise_mid,
+            graft_out=torch.zeros_like(st2.graft_out),
+            prune_out=prune_resp,
+            prune_px_out=torch.zeros_like(prune_resp),
+            edge_live=edge_live_next,
+            score=score,
+        )
+        if do_heartbeat:
+            st2 = heartbeat(cfg, net_l, st2, tp, consts.scalars, nbr_sub_l)
+        return replace(st2, core=replace(st2.core, tick=tick0 + r))
+
+    if net.edge_layout == "csr":
+        # CSR-resident state: flat planes between phases, dense inside
+        _phase = wrap_csr_resident(net, _phase)
+
+    def step(st, pub_origin, pub_topic, pub_valid, *, do_heartbeat: bool):
+        return _phase(st, pub_origin, pub_topic, pub_valid, bool(do_heartbeat))
+
+    return step

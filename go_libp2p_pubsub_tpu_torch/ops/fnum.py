@@ -10,6 +10,11 @@ the port flushes the results of its float arithmetic itself, the same way
 on both: ``flush_subnormals`` on tensors, ``flush_f32`` on constants once,
 where they are built. Whatever only moves or selects float bits (the edge
 exchange, ``where``, sorts) is left as it is.
+
+XLA:CPU also contracts a multiply into the add that consumes it, inside
+one fused loop, to a fused multiply-add: one rounding where the written
+order has two. ``fma_f32`` computes that exactly, and the score path uses
+it where the JAX package's compiled score loop fuses (``score/engine.py``).
 """
 
 from __future__ import annotations
@@ -40,3 +45,26 @@ def flush_f32(v):
         return np.where(np.abs(v) < TINY, np.copysign(np.float32(0.0), v), v).astype(v.dtype)
     f = abs(float(np.float32(v)))
     return math.copysign(0.0, v) if 0.0 < f < TINY else v
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    product is exact in float64, the float64 sum is made round-to-odd from
+    its exact error (so its rounding to float32 is the single correct
+    rounding), then rounded to float32. ``b`` may be a Python float, which
+    is read as its float32 value and stays on the host (no copy to the
+    device). Subnormal results are left for the caller's flush."""
+    if isinstance(b, torch.Tensor):
+        a, b, c = torch.broadcast_tensors(a, b, c)
+        p = a.double() * b.double()
+    else:
+        a, c = torch.broadcast_tensors(a, c)
+        p = a.double() * float(np.float32(b))
+    c64 = c.double()
+    s = p + c64
+    t = s - p
+    err = (p - (s - t)) + (c64 - t)          # s + err == p + c exactly
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.full_like(s, math.inf), torch.full_like(s, -math.inf))
+    s = torch.where((err != 0) & even, torch.nextafter(s, away), s)
+    return s.float()

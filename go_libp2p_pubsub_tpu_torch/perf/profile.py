@@ -2,11 +2,13 @@
 
     python -m go_libp2p_pubsub_tpu_torch.perf.profile [--n 100000]
         [--engine gossipsub|floodsub] [--layout dense|csr]
-        [--warm 16] [--rounds 16] [--out PATH]
+        [--rounds-per-phase 1] [--warm 16] [--rounds 16] [--out PATH]
 
 Builds the bench's default GossipSub config — banded dense, or with
-``--layout csr`` the bench's CSR variant (CSR-resident, ``fused=True``) —
-or, with ``--engine floodsub``, FloodSub over ``ring_lattice(n, d=8)``
+``--layout csr`` the bench's CSR variant (CSR-resident, ``fused=True``);
+the per-round step, or with ``--rounds-per-phase`` r > 1 the phase engine
+(its mesh formed first, then whole phases: ``--warm`` and ``--rounds``
+multiples of r) — or, with ``--engine floodsub``, FloodSub over ``ring_lattice(n, d=8)``
 dense or over the power-law graph CSR-resident with ``--layout csr``, on
 the card, runs
 ``--warm`` rounds,
@@ -32,6 +34,7 @@ import time
 
 import torch
 
+from ..driver import form_mesh
 from . import sweep
 
 
@@ -55,29 +58,44 @@ def _union_us(intervals) -> float:
 
 
 def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
-                   layout: str = "dense") -> dict:
+                   layout: str = "dense", rounds_per_phase: int = 1) -> dict:
+    r = int(rounds_per_phase)
     if engine == "gossipsub":
         st, step, n_topics, honest = sweep.build_bench(
-            n, 64, edge_layout=layout, fused=layout == "csr", device="cuda")
+            n, 64, edge_layout=layout, fused=layout == "csr", rounds_per_phase=r,
+            device="cuda")
     else:
+        if r > 1:
+            raise ValueError("the phase engine is GossipSub's")
         graph = "lattice" if layout == "dense" else "powerlaw"
         st, step = sweep.build_floodsub(n, 64, graph=graph, layout=layout, device="cuda")
         n_topics, honest = 1, None
+    if r > 1:
+        if warm % r or rounds % r:
+            raise ValueError(f"--warm and --rounds must be whole phases of {r} rounds")
+        st = form_mesh(step, st, rounds_per_phase=r)
+
+        def run(st, po, pt, pv):
+            return sweep.run_phases(st, step, po, pt, pv, rounds_per_phase=r,
+                                    heartbeat_every=r)
+    else:
+        def run(st, po, pt, pv):
+            return sweep.run_rounds(st, step, po, pt, pv)
     po, pt, pv = sweep.publish_schedule(warm + 2 * rounds, n, n_topics, honest)
-    st = sweep.run_rounds(st, step, po[:warm], pt[:warm], pv[:warm])
+    st = run(st, po[:warm], pt[:warm], pv[:warm])
     torch.cuda.synchronize()
     # an untraced window first: the profiler stretches the host's dispatch
     # time, so the busy share is also read against this window's rounds
     t0 = time.perf_counter()
     plain = slice(warm, warm + rounds)
-    st = sweep.run_rounds(st, step, po[plain], pt[plain], pv[plain])
+    st = run(st, po[plain], pt[plain], pv[plain])
     torch.cuda.synchronize()
     untraced_us = 1e6 * (time.perf_counter() - t0)
     traced = slice(warm + rounds, warm + 2 * rounds)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
-        st = sweep.run_rounds(st, step, po[traced], pt[traced], pv[traced])
+        st = run(st, po[traced], pt[traced], pv[traced])
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kev = _events_on(prof, "cuda")
@@ -102,6 +120,7 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
             by[op] = by.get(op, 0.0) + kern.duration
     return {
         "engine": engine, "layout": layout, "n_peers": n, "rounds": rounds,
+        "rounds_per_phase": r,
         "host_ms_per_round": wall_us / 1e3 / rounds,
         "untraced_ms_per_round": untraced_us / 1e3 / rounds,
         "device_kernel_ms_per_round": kernel_us / 1e3 / rounds,
@@ -128,6 +147,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--engine", choices=("gossipsub", "floodsub"), default="gossipsub")
     ap.add_argument("--layout", choices=("dense", "csr"), default="dense")
+    ap.add_argument("--rounds-per-phase", type=int, default=1)
     ap.add_argument("--warm", type=int, default=16)
     ap.add_argument("--rounds", type=int, default=16)
     ap.add_argument("--top", type=int, default=20)
@@ -138,10 +158,11 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    rep = profile_rounds(args.n, args.warm, args.rounds, args.engine, args.layout)
+    rep = profile_rounds(args.n, args.warm, args.rounds, args.engine, args.layout,
+                         args.rounds_per_phase)
     rep["card"] = card
     print(card)
-    print(f"{rep['engine']} {rep['layout']} N={rep['n_peers']} over {rep['rounds']} rounds: untraced "
+    print(f"{rep['engine']} {rep['layout']} r={rep['rounds_per_phase']} N={rep['n_peers']} over {rep['rounds']} rounds: untraced "
           f"{rep['untraced_ms_per_round']:.3f} ms/round, traced "
           f"{rep['host_ms_per_round']:.3f} ms/round, device kernels "
           f"{rep['device_kernel_ms_per_round']:.3f} ms/round, device busy "

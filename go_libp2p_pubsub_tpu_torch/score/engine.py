@@ -6,6 +6,10 @@ at [N, S, K]. The weighted P1..P7 sum (score.go:258-335), the decay pass
 (score.go:892-974) are elementwise passes. Each float expression keeps the
 JAX package's operation order term by term, so the f32 planes agree bit for
 bit (``p1`` divides by the quantum; it never multiplies by a reciprocal).
+Where XLA:CPU's fused score loop contracts a product into its add — P7's
+term, the one whose product rounds under the bench's parameters — the port
+rounds once too (``ops/fnum.fma_f32``); the contractions other weights
+would bring are not reproduced (ROADMAP §3).
 
 Subnormals are flushed as the JAX package's platforms flush them
 (``ops/fnum.py``): the parameters once, where they are built
@@ -26,7 +30,7 @@ import torch
 
 from ..config import PeerScoreParams, ticks_for
 from ..ops import bitset
-from ..ops.fnum import flush_f32
+from ..ops.fnum import flush_f32, fma_f32
 from ..ops.fnum import flush_subnormals as fl
 from ..state import Net, replace
 
@@ -215,8 +219,14 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
         score = fl(score + fl(fl(net.peer_gather(app_score)) * sc.app_specific_weight))
     score = fl(score + fl(p6 * sc.ip_colocation_factor_weight))
     excess = fl(st.bp - sc.behaviour_penalty_threshold)
-    p7 = torch.where(excess > 0, fl(excess * excess), 0.0)
-    score = fl(score + fl(p7 * sc.behaviour_penalty_weight))
+    # XLA:CPU fuses this product into the add (one rounding); at a weight
+    # of -1 its compiler first folds the weight into the square, so the
+    # square itself is fused: score - excess * excess
+    if sc.behaviour_penalty_weight == -1.0:
+        score = torch.where(excess > 0, fl(fma_f32(excess, -excess, score)), score)
+    else:
+        p7 = torch.where(excess > 0, fl(excess * excess), 0.0)
+        score = fl(fma_f32(p7, sc.behaviour_penalty_weight, score))
     return torch.where(net.nbr_ok, score, 0.0)
 
 
@@ -286,12 +296,20 @@ def on_deliveries(st: ScoreState, net: Net, in_mesh: torch.Tensor, tp: dict,
                   msg_topic: torch.Tensor, msg_valid: torch.Tensor, tick,
                   window_rounds_t: torch.Tensor,
                   msg_ignored: torch.Tensor | None = None,
-                  slotw: torch.Tensor | None = None) -> ScoreState:
+                  slotw: torch.Tensor | None = None,
+                  mesh_credit_words: torch.Tensor | None = None) -> ScoreState:
     """Fold one delivery round into the counters (score.go:892-974):
     first receipts credit P2 (and P3 on mesh edges), in-window duplicates
     credit P3, arrivals of rejected messages charge P4; ignored messages
     move nothing. Each counter is flushed, non-negative and gains a whole
-    count, so no sum here needs a flush."""
+    count, so no sum here needs a flush.
+
+    Phase mode (``models/gossipsub_phase.py``): ``mesh_credit_words``
+    [N,K,W] is the in-window mesh credit the caller gated at each
+    arrival's own tick and OR-folded over the phase's sub-rounds (exact:
+    an (edge, msg) pair transmits at most once a phase); the credit is
+    then that plane on valid messages plus the first arrivals, and no
+    window is recomputed here."""
     t = msg_topic.clamp(min=0).long()
     if slotw is None:
         slotw = slot_topic_words(net, msg_topic)
@@ -300,10 +318,13 @@ def on_deliveries(st: ScoreState, net: Net, in_mesh: torch.Tensor, tp: dict,
     e = lambda a: a[..., None]
     fmd = torch.minimum(st.fmd + per_slot_counts(first_arrival, slotw), e(tp["cap2"]))
 
-    msg_window = window_rounds_t[t]
-    within_w = bitset.pack(
-        (first_round >= 0) & ((tick - first_round) <= msg_window[None, :]))
-    mesh_credit = trans_words & valid_w[None, None, :] & within_w[:, None, :]
+    if mesh_credit_words is not None:
+        mesh_credit = (mesh_credit_words & valid_w[None, None, :]) | first_arrival
+    else:
+        msg_window = window_rounds_t[t]
+        within_w = bitset.pack(
+            (first_round >= 0) & ((tick - first_round) <= msg_window[None, :]))
+        mesh_credit = trans_words & valid_w[None, None, :] & within_w[:, None, :]
     mmd_inc = per_slot_counts(mesh_credit, slotw) * in_mesh.to(torch.float32)
     mmd = torch.minimum(st.mmd + mmd_inc, e(tp["cap3"]))
 

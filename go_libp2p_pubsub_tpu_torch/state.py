@@ -360,6 +360,114 @@ def _scatter_drop(tbl: torch.Tensor, sidx: torch.Tensor,
     return ext[: tbl.shape[0]]
 
 
+# publish verdict codes (validation.go ValidationAccept/Reject/Ignore); the
+# wire-block flag bit is decoded away, as on a table that does not track it
+VERDICT_ACCEPT, VERDICT_REJECT, VERDICT_IGNORE = 0, 1, 2
+VERDICT_WIRE_BLOCK = 4
+
+
+def decode_verdicts(pub_valid: torch.Tensor):
+    """(accept, ignored) bool planes of a publish-verdict array: bool (True
+    accept, False reject) or integer ``VERDICT_*`` codes."""
+    if pub_valid.dtype == torch.bool:
+        return pub_valid, torch.zeros_like(pub_valid)
+    base = pub_valid & ~VERDICT_WIRE_BLOCK
+    return base == VERDICT_ACCEPT, base == VERDICT_IGNORE
+
+
+class PhasePubPlan:
+    """A phase's ``[r, P]`` publish schedule allocated at once, at the phase
+    head: every sub-round's slots, recycled-slot masks, origin publish
+    words and message-table snapshots come from (cursor, schedule) alone,
+    so they are a few wide ops instead of r ``allocate_publishes`` calls.
+
+    * ``sidx``/``is_pub`` ``[r, P]``: the slot of each publish (M on an
+      empty entry);
+    * ``keep_w`` ``[r, W]`` and ``reused`` ``[r, M]``: recycled-slot masks;
+    * ``pub_words`` ``[r, N, W]``: each origin's bit of its publishes;
+    * ``msgs_at(i)``: the table ``allocate_publishes`` leaves after the
+      publishes of sub-rounds < i (last write wins over the flattened
+      schedule); ``msgs_at(r)`` is the phase's final table.
+
+    ``apply_to_delivery`` is the delivery half of ``allocate_publishes``
+    for one sub-round, fed by these masks."""
+
+    def __init__(self, msgs: MsgTable, n_peers: int, tick0: torch.Tensor,
+                 pub_origin: torch.Tensor, pub_topic: torch.Tensor,
+                 pub_valid: torch.Tensor):
+        r, p = pub_origin.shape
+        m = msgs.capacity
+        if m < p:
+            raise ValueError(f"msg_slots {m} < publish width {p}")
+        dev = pub_origin.device
+        i32 = torch.int32
+        w = bitset.n_words(m)
+        self.m = m
+        accept, ignored = decode_verdicts(pub_valid)
+        rp = r * p
+        flat_pub = (pub_origin >= 0).reshape(-1)
+        self.is_pub = flat_pub.reshape(r, p)
+        gpos = torch.cumsum(flat_pub.to(i32), 0, dtype=i32) - 1
+        sidx_flat = torch.where(flat_pub, (msgs.cursor + gpos) % m, m)
+        self.sidx = sidx_flat.reshape(r, p)
+        counts = self.is_pub.sum(1, dtype=i32)
+        self.cursor_at = msgs.cursor + torch.cat(
+            [torch.zeros((1,), dtype=i32, device=dev),
+             torch.cumsum(counts, 0, dtype=i32)])                       # [r+1]
+
+        # last-write-wins snapshots over the flattened schedule
+        eq = sidx_flat[:, None] == torch.arange(m, dtype=i32, device=dev)[None, :]
+        jidx = torch.where(eq, torch.arange(rp, dtype=i32, device=dev)[:, None], -1)
+        incl = torch.cummax(jidx.reshape(r, p, m).amax(1), dim=0).values
+        self._lastw = torch.cat(
+            [torch.full((1, m), -1, dtype=i32, device=dev), incl])      # [r+1, M]
+        self.reused = eq.reshape(r, p, m).any(1)                        # [r, M]
+        self.keep_w = ~bitset.pack(self.reused)                         # [r, W]
+
+        flat_tick = tick0 + torch.arange(rp, dtype=i32, device=dev) // p
+        self._topic = self._snap(msgs.topic, pub_topic.reshape(-1))
+        self._origin = self._snap(msgs.origin, pub_origin.reshape(-1))
+        self._birth = self._snap(msgs.birth, flat_tick)
+        self._valid = self._snap(msgs.valid, accept.reshape(-1))
+        self._ignored = self._snap(msgs.ignored, ignored.reshape(-1))
+        self.valid_words = bitset.pack(self._valid)                     # [r+1, W]
+
+        # the origins' publish bits, one scatter for the phase: a
+        # sub-round's slots are distinct, so its bits are and add == or;
+        # an empty entry lands on the spill row N, which is cut away
+        row_flat = torch.where(flat_pub, pub_origin.reshape(-1), n_peers).long()
+        i_flat = torch.arange(rp, device=dev) // p
+        sidx64 = sidx_flat.long()
+        words = torch.zeros((r, n_peers + 1, w), dtype=torch.int64, device=dev)
+        words = words.index_put((i_flat, row_flat, (sidx64 // bitset.WORD).clamp(max=w - 1)),
+                                torch.ones_like(sidx64) << (sidx64 % bitset.WORD),
+                                accumulate=True)
+        self.pub_words = bitset.to_word(words[:, :n_peers])             # [r, N, W]
+
+    def _snap(self, tbl0: torch.Tensor, vals_flat: torch.Tensor) -> torch.Tensor:
+        picked = vals_flat.to(tbl0.dtype)[self._lastw.clamp(min=0).long()]
+        return torch.where(self._lastw >= 0, picked, tbl0[None, :])
+
+    def msgs_at(self, i: int) -> MsgTable:
+        """The message table as of sub-round ``i`` (after the publishes of
+        sub-rounds < i)."""
+        return MsgTable(topic=self._topic[i], origin=self._origin[i],
+                        birth=self._birth[i], valid=self._valid[i],
+                        ignored=self._ignored[i], cursor=self.cursor_at[i])
+
+    def apply_to_delivery(self, dlv: Delivery, i: int, tick_i) -> Delivery:
+        """Sub-round ``i``'s recycled-slot clears and the origins'
+        seen/forward/``first_round`` stamps (the plane form of
+        ``allocate_publishes``' delivery half)."""
+        keep = self.keep_w[i]
+        pw = self.pub_words[i]
+        pub_bits = bitset.unpack(pw, self.m)
+        first_round = torch.where(
+            pub_bits, tick_i, torch.where(self.reused[i][None, :], -1, dlv.first_round))
+        return Delivery(have=(dlv.have & keep) | pw, fwd=(dlv.fwd & keep) | pw,
+                        first_round=first_round, fe_words=dlv.fe_words & keep)
+
+
 def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
                        pub_origin: torch.Tensor, pub_topic: torch.Tensor,
                        pub_valid: torch.Tensor):
@@ -372,7 +480,7 @@ def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
     if pub_valid.dtype != torch.bool:
         raise NotImplementedError(
             "integer verdict codes (ACCEPT/REJECT/IGNORE) are not ported yet; "
-            "pass bool accept flags — ROADMAP §1 item 4")
+            "pass bool accept flags — ROADMAP §1 item 3")
     m = msgs.capacity
     dev = dlv.have.device
     is_pub = pub_origin >= 0

@@ -2,8 +2,10 @@
 leaf, every round.
 
 Both sides run the bench's default params (v1.1, live scoring, one topic)
-on ring_lattice(96, d=4), and at the bench's degree on ring_lattice(96,
-d=8). The JAX step runs its default XLA path, which the
+on ring_lattice(96, d=4), at the bench's degree on ring_lattice(96,
+d=8), and on ring_lattice(96, d=10), whose K=20 is past the fused
+kernels' 16 and takes the composites. The JAX step runs its default XLA
+path, which the
 JAX package holds bit-identical to its fused Pallas path
 (tests/test_fused_round.py); the port always takes the fused data plane,
 on the CPU through its plain versions. The port's initial state is carried
@@ -57,6 +59,8 @@ def _case(d, heartbeat_every, static_hb, count_events):
     # oversubscription prune and top-k/random selection over 16 candidates
     # are held against the reference too
     _case(8, 1, False, True),
+    # K=20: banded, but past the fused kernels' K <= 16, so the composites
+    _case(10, 1, False, True),
 ])
 def test_step_equals_reference_every_round(d, heartbeat_every, static_hb, count_events):
     jcfg, jnet, jsp, tcfg, tnet, tsp = bench_builds(

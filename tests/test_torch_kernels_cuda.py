@@ -169,7 +169,7 @@ def test_edge_exchange_kernel_equals_plain(cuda, band, score_enabled):
 @pytest.mark.parametrize("band", FUSED_BANDS, ids=[b["name"] for b in FUSED_BANDS])
 @pytest.mark.parametrize("c", HAZARD_C)
 def test_edge_exchange_kernel_on_hazard_bands(cuda, band, c):
-    """The hazard bands at C = 1, 3, 4 and 6 words a slot (the 4-, 8- and
+    """The hazard bands at C = 1, 2, 3, 4 and 6 words a slot (the 4-, 8- and
     16-byte word forms), dead edges, scores holding -0.0, subnormals of
     both signs and NaN (copied bit for bit), scores on and off, and from
     wire planes one word into their storage (not 8- or 16-byte aligned:
@@ -350,3 +350,79 @@ def test_select_topk_refuses_on_the_card(cuda):
         with pytest.raises((ValueError, TypeError)):
             sk.select_topk(*bad)
     assert sk.LAUNCHES["select_topk"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "csr"])
+def test_run_phases_on_the_card_equals_the_cpu(cuda, layout):
+    """The phase engine (r=8, a heartbeat every phase) on the card against
+    the same build on the CPU, every leaf after every phase: on the banded
+    lattice each phase is one control-head and r data edge_exchange
+    launches, on CSR none; every heartbeat is 8 select_topk launches."""
+    from go_libp2p_pubsub_tpu_torch import convert, driver
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n, r, phases = 2048, 8, 3
+    po, pt, pv = sweep.publish_schedule(phases * r, n, 1, None, seed=2)
+    sides = {}
+    for d in ("cpu", cuda):
+        st, step, _t, _h = sweep.build_bench(n, 64, count_events=True, edge_layout=layout,
+                                             fused=layout == "csr", rounds_per_phase=r,
+                                             device=d)
+        sides[str(d)] = (st, step)
+    fr.reset_launch_counts()
+    sk.reset_launch_counts()
+    for p in range(phases + 1):
+        for d, (st, step) in list(sides.items()):
+            if p == 0:
+                st = driver.form_mesh(step, st, rounds_per_phase=r)
+            else:
+                sl = slice((p - 1) * r, p * r)
+                st = sweep.run_phases(st, step, po[sl], pt[sl], pv[sl], rounds_per_phase=r,
+                                      heartbeat_every=r)
+            sides[d] = (st, step)
+        a = convert.state_leaves(sides["cpu"][0])
+        b = convert.state_leaves(sides[str(cuda)][0])
+        for path in a:
+            x, y = a[path], b[path]
+            if x.dtype.kind == "f":
+                x, y = x.view(np.uint32), y.view(np.uint32)
+            assert np.array_equal(x, y), (p, path)
+    assert fr.LAUNCHES["edge_exchange"] == (0 if layout == "csr" else (phases + 1) * (1 + r))
+    assert sk.LAUNCHES["select_topk"] == 8 * (phases + 1)
+    assert int(sides[str(cuda)][0].core.tick) == (phases + 1) * r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w7", [0.0, -0.7, -1.0])
+def test_compute_scores_makes_no_host_sync(cuda, w7):
+    """The score sum runs on the card with no host synchronisation under
+    any P7 weight (the default 0, the bench's -1, any other): torch's sync
+    debug mode raises on one, e.g. on a weight copied to the card as a
+    tensor every call."""
+    import dataclasses
+
+    from go_libp2p_pubsub_tpu_torch.config import PeerScoreParams, TopicScoreParams
+    from go_libp2p_pubsub_tpu_torch.score import engine as te
+
+    n, k = 512, 8
+    net = Net.build(graph.ring_lattice(n, d=4), graph.subscribe_all(n, 1), device=cuda)
+    sp = PeerScoreParams(topics={0: TopicScoreParams()}, skip_app_specific=True,
+                         behaviour_penalty_weight=w7, behaviour_penalty_threshold=1.0,
+                         behaviour_penalty_decay=0.9)
+    tp = te.TopicParamsArrays.build(sp, 1).gather(net.my_topics)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    st = dataclasses.replace(te.ScoreState.empty(n, 1, k, cuda),
+                             bp=torch.rand((n, k), generator=gen, device=cuda) * 3)
+    in_mesh = torch.rand((n, 1, k), generator=gen, device=cuda) < 0.5
+    p6 = torch.zeros((n, k), device=cuda)
+    app = torch.zeros((n,), device=cuda)
+    sc = te.ScoreScalars.build(sp)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = te.compute_scores(st, in_mesh, tp, sc, p6, app, net)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == (n, k) and bool(torch.isfinite(out).all())
+    assert bool((out[st.bp > 1.0] != 0).any()) == (w7 != 0.0)

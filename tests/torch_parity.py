@@ -1,6 +1,7 @@
 """Shared helpers of the port's parity tests: the JAX package's state as
 schema-path leaves, the bench-default GossipSub builds of both packages on
-the same small topology (the banded lattice by default), and the hazard
+the same small topology (the banded lattice by default), the phase engines
+of both run side by side (``phases_against_reference``), and the hazard
 inputs of the redesigned kernels (``hazard_rows`` for select_topk,
 ``hazard_graph`` for csr_delivery, ``hazard_bands`` with
 ``hazard_exchange_args`` / ``hazard_fused_args`` / ``hazard_banded_args``
@@ -29,9 +30,11 @@ HAZARD_M = (20, 64, 96)
 #: words a block of the banded kernels takes (grid.y splits the row)
 HAZARD_BAND_M = HAZARD_M + (300,)
 
-#: the words a slot of the edge_exchange hazard tests: one word, an odd
-#: count, one 16-byte vector and an even count that takes 4-byte words
-HAZARD_C = (1, 3, 4, 6)
+#: the words a slot of the edge_exchange hazard tests: one word, the phase
+#: engine's data words (W = 2: one 8-byte vector), an odd count (4-byte
+#: words), one 16-byte vector and the phase engine's control head at W = 2
+#: (three 8-byte vectors)
+HAZARD_C = (1, 2, 3, 4, 6)
 
 #: score parameters under which the GossipSub step makes float32
 #: subnormals (tests/test_torch_subnormal.py, chip_smoke.py): overrides of
@@ -311,17 +314,82 @@ def diff_leaves(ref: dict, got: dict, where: str = "") -> None:
                 f"{bad[:3].tolist()}: {a[tuple(bad[0])]} vs {b[tuple(bad[0])]}")
 
 
+def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None):
+    """The phase parity tests' publish schedule (numpy, seed 0): 4
+    publishes a round from random origins, one of them invalid and one slot
+    empty, on topic 0, or with ``my_topics`` (the [N, S] slot table) on a
+    random topic of the origin's own. With ``codes`` the verdicts are int32
+    verdict codes (0 accept, 1 reject, 2 ignore) and one more publish is
+    ignored."""
+    rng = np.random.default_rng(0)
+    po = rng.integers(0, n, size=(rounds, 4)).astype(np.int32)
+    pt = np.zeros((rounds, 4), np.int32)
+    if my_topics is not None:
+        slots = (my_topics >= 0).sum(1)
+        pick = (rng.random((rounds, 4)) * slots[po]).astype(np.int64)
+        pt = my_topics[po, pick].astype(np.int32)
+    pv = np.ones((rounds, 4), bool)
+    pv[5, 1] = False   # one invalid publish
+    po[9, 3] = -1      # and one empty publish slot
+    if codes:
+        pv = np.where(pv, 0, 1).astype(np.int32)
+        pv[7, 2] = 2   # an ignored publish
+    return po, pt, pv
+
+
+def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool = False,
+                             **kw):
+    """Run the JAX package's phase step and the port's (on the CPU) over
+    ``rounds`` rounds of ``phase_schedule`` in phases of ``r`` from the same
+    state, heartbeats as ``heartbeat_schedule(he, r)`` flags them, every
+    leaf compared bit for bit after every phase. ``builds`` is
+    ``bench_builds``' tuple; ``codes`` takes int verdict codes; ``kw`` goes
+    to both packages' make_gossipsub_phase_step. Returns the port's
+    final state."""
+    import jax.numpy as jnp
+    import torch
+
+    from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubState as JState
+    from go_libp2p_pubsub_tpu.models.gossipsub_phase import make_gossipsub_phase_step as jmake
+
+    from go_libp2p_pubsub_tpu_torch import convert
+    from go_libp2p_pubsub_tpu_torch.driver import heartbeat_schedule
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub_phase import make_gossipsub_phase_step
+
+    jcfg, jnet, jsp, tcfg, tnet, tsp = builds
+    # a fresh JAX state: the JAX step donates its buffers
+    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0)
+    tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
+    diff_leaves(reference_leaves(jst), convert.state_leaves(tst), "init")
+    jstep = jmake(jcfg, jnet, r, score_params=jsp, **kw)
+    tstep = make_gossipsub_phase_step(tcfg, tnet, r, score_params=tsp, **kw)
+    my_topics = tnet.my_topics.numpy() if tnet.n_topics > 1 else None
+    po, pt, pv = phase_schedule(tnet.n_peers, rounds, codes, my_topics)
+    flags = heartbeat_schedule(he, r)
+    for p in range(rounds // r):
+        sl = slice(p * r, (p + 1) * r)
+        hb = flags[p % len(flags)]
+        jst = jstep(jst, jnp.asarray(po[sl]), jnp.asarray(pt[sl]), jnp.asarray(pv[sl]),
+                    do_heartbeat=hb)
+        tst = tstep(tst, torch.from_numpy(po[sl]), torch.from_numpy(pt[sl]),
+                    torch.from_numpy(pv[sl]), do_heartbeat=hb)
+        diff_leaves(reference_leaves(jst), convert.state_leaves(tst), f"phase {p}")
+    return tst
+
+
 def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
                  count_events=True, seed=0, topologies=None,
                  edge_layout="dense", fused=False, topic=None, peer=None,
-                 thresholds=None, ip_group=None):
+                 thresholds=None, ip_group=None, subscriptions=None):
     """(jax_cfg, jax_net, sp, torch_cfg, torch_net, torch_sp) for the
     bench's default params on ring_lattice(n, d), or on ``topologies``, a
     (JAX Topology, port Topology) pair of the same graph, in
     ``edge_layout`` with the ``fused`` flag on both the net and the
     config. ``topic``, ``peer`` and ``thresholds`` are field overrides of
     the bench's TopicScoreParams, PeerScoreParams and PeerScoreThresholds,
-    and ``ip_group`` the nets' [N] P6 colocation groups, on both sides."""
+    and ``ip_group`` the nets' [N] P6 colocation groups, on both sides.
+    ``subscriptions`` is the JAX package's Subscriptions (default: every
+    peer in one topic); a topic universe of T scores T bench topics."""
     from go_libp2p_pubsub_tpu import config as jconfig
     from go_libp2p_pubsub_tpu import graph as jgraph
     from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubConfig as JCfg
@@ -342,17 +410,22 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
         topics = {t: dataclasses.replace(tp, **(topic or {})) for t, tp in sp.topics.items()}
         return dataclasses.replace(sp, topics=topics, **(peer or {}))
 
-    jnet = JNet.build(topologies[0], jgraph.subscribe_all(n, 1), ip_group=ip_group, **layout)
+    if subscriptions is None:
+        subscriptions = jgraph.subscribe_all(n, 1)
+    n_topics = subscriptions.subscribed.shape[1]
+    tsubs = tgraph.Subscriptions(*(np.asarray(getattr(subscriptions, f)) for f in (
+        "subscribed", "my_topics", "slot_of")))
+    jnet = JNet.build(topologies[0], subscriptions, ip_group=ip_group, **layout)
     jcfg = JCfg.build(dataclasses.replace(jconfig.GossipSubParams(), flood_publish=False),
                       jconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, **layout)
     jcfg = dataclasses.replace(jcfg, count_events=count_events, fanout_slots=0)
-    jsp = score(jbsp("default", 1)[1])
-    tnet = TNet.build(topologies[1], tgraph.subscribe_all(n, 1), ip_group=ip_group,
+    jsp = score(jbsp("default", n_topics)[1])
+    tnet = TNet.build(topologies[1], tsubs, ip_group=ip_group,
                       device="cpu", **layout)
     tcfg = TCfg.build(dataclasses.replace(tconfig.GossipSubParams(), flood_publish=False),
                       tconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, **layout)
     tcfg = dataclasses.replace(tcfg, count_events=count_events, fanout_slots=0)
-    tsp = score(tbsp(1)[1])
+    tsp = score(tbsp(n_topics)[1])
     return jcfg, jnet, jsp, tcfg, tnet, tsp
