@@ -85,11 +85,30 @@ last line is printed:
    batches, and one call at a time after the L2 is written over, so that
    the C = 2 call's 32 MB come from HBM), bounds and the one-call gather's
    time, as fields of the edge_exchange record;
-17. the kernel launches of a traced GossipSub bench round
+17. windows on the card — at N=8192 each window (driver.make_window /
+   make_scan: a captured CUDA graph a block) against the eager loop from
+   the same seed and schedule, every leaf: the phase engine at r=8 dense
+   banded and CSR-resident, the per-round step at static_heartbeat he=2,
+   FloodSub on the lattice and on the power-law graph CSR-resident, each
+   window in two calls (the second continuing from the state the first
+   returned under donate=True); then each of the five kernels, on a call
+   taken from those runs, captured alone in a graph and replayed against
+   its eager launch;
+18. windowed benches at N=100k — the phase bench and the per-round bench
+   (the continuity shape) eager and through make_scan in turns (eager,
+   window, window, eager): delivery-rounds/s (rounds/s), peak memory, the
+   capture's seconds, the wrappers' launches a captured block (the host
+   counters move while a block is captured, never in a replay) and the
+   graph replays a window;
+19. the bench CLI's measurement — perf/sweep.measure_rate through
+   bench.bench_line (python -m go_libp2p_pubsub_tpu_torch.bench) at a
+   segment of 160 rounds, its JSON line printed;
+20. the kernel launches of a traced GossipSub bench round
    (perf/profile.py), with those of the score path's subnormal flush
-   (hardshrink, copysign) apart, and of a traced phase-bench phase per
-   delivery round. It comes last, so that the profiler's tracing cannot
-   touch a rate timed in the same process.
+   (hardshrink, copysign) apart, of a traced phase-bench phase per
+   delivery round, and of a traced replay of a windowed phase (--window).
+   It comes last, so that the profiler's tracing cannot touch a rate timed
+   in the same process.
 
 It prints the ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
@@ -120,6 +139,8 @@ POWERLAW_ROUNDS = 32          # timed rounds of phase 7, after the formation
 PHASE_R = 8                   # rounds a phase: bench.py's BENCH_PHASE_R default
 PHASE_FORMATION, PHASE_MEASURED = 2, 8   # phases after form_mesh; timed phases
 PHASE_PARITY_PHASES = 4       # phases of phase 15, after form_mesh
+WINDOW_ROUNDS = 48            # rounds of each window run of phase 17 (two calls)
+BENCH_CLI_ROUNDS = 160        # the segment of phase 19's bench line
 L2_SCRUB_BYTES = 128 << 20    # written before a cold-L2 timing (H100 L2: 50 MB)
 SELECTIONS_PER_HEARTBEAT = 8  # grafts, topscore, rest_rand, bring, drop,
                               # grafts2, oppo, chosen (models/gossipsub.py)
@@ -882,6 +903,16 @@ def bench_launches(card: str) -> dict:
         f" a phase) against {total:.1f} a per-round bench round; device busy "
         f"{ph['device_busy_share_untraced']:.4f} of an untraced phase "
         f"({ph['untraced_ms_per_round']:.3f} ms a round), on {card}")
+    win = profile.profile_rounds(N_FULL, warm=2 * PHASE_R, rounds=4 * PHASE_R,
+                                 rounds_per_phase=PHASE_R, window=True)
+    top = "; ".join(f"{k['name'][:90]} {k['us_per_round']:.1f} us"
+                    for k in win["kernels"][:5])
+    say(f"windowed phase: {win['untraced_ms_per_round']:.3f} ms a delivery round untraced "
+        f"({1e3 / win['untraced_ms_per_round']:.3f} delivery-rounds/s), device busy "
+        f"{win['device_busy_share_untraced']:.4f} of it, "
+        f"{win['kernel_launches_per_round']:.1f} kernels a delivery round in a traced "
+        f"replay, {win['graph_replays_per_window']} graph replays a window of "
+        f"{4 * PHASE_R} rounds; by device time a round: {top}; on {card}")
     return {"launches_per_round": total, "flush_launches_per_round": flush,
             "phase_launches_per_round": ph["kernel_launches_per_round"]}
 
@@ -929,19 +960,8 @@ def gossip_parity(sweep, convert, name, build):
 def capture_calls(run, module, name: str):
     """Run ``run()``, recording every call of ``module.name`` (args, kwargs)
     in order. Returns (its result, the calls)."""
-    calls = []
-    orig = getattr(module, name)
-
-    def call(*args, **kwargs):
-        calls.append((args, kwargs))
-        return orig(*args, **kwargs)
-
-    setattr(module, name, call)
-    try:
-        out = run()
-    finally:
-        setattr(module, name, orig)
-    return out, calls
+    out, calls = record_calls(run, [(module, name)])
+    return out, calls[(module, name)]
 
 
 def phase_bench(sweep, driver, convert, layout, card, dev, counters, csr_net,
@@ -1089,6 +1109,233 @@ def check_phase_exchange(fr, calls, gen, base) -> dict:
             f"{100 * rec['bound_ms'] / rec['cold_ms']:.1f}% of bound) "
             f"library_ms={rec['library_ms']:.6f}")
     return out
+
+
+def window_cells(sweep, dev):
+    """Phase 17's cells at N=8192: name -> (build() -> (state, step),
+    eager(state, step, po, pt, pv) -> state, window(step) -> run(state, po,
+    pt, pv) -> state)."""
+    from go_libp2p_pubsub_tpu_torch import driver
+
+    r = PHASE_R
+
+    def phase(layout):
+        def build():
+            st, step, _t, _h = sweep.build_bench(N_PARITY, M_SLOTS, count_events=True,
+                                                 edge_layout=layout, fused=layout == "csr",
+                                                 rounds_per_phase=r, device=dev)
+            return driver.form_mesh(step, st, rounds_per_phase=r), step
+        eager = lambda st, step, *x: sweep.run_phases(st, step, *x, rounds_per_phase=r,
+                                                     heartbeat_every=r)
+        window = lambda step: driver.make_scan(step, heartbeat_every=r, rounds_per_phase=r,
+                                               unroll=2)
+        return build, eager, window
+
+    def static_hb():
+        he = 2
+
+        def eager(st, step, po, pt, pv):
+            for i in range(len(po)):
+                st = step(st, *(torch_row(a, i, dev) for a in (po, pt, pv)),
+                          do_heartbeat=i % he == 0)
+            return st
+        build = lambda: sweep.build_bench(N_PARITY, M_SLOTS, count_events=True,
+                                          heartbeat_every=he, device=dev)[:2]
+        window = lambda step: driver.make_scan(step, heartbeat_every=he,
+                                               static_heartbeat=True, unroll=2)
+        return build, eager, window
+
+    def flood(graph, layout):
+        build = lambda: sweep.build_floodsub(N_PARITY, M_SLOTS, graph=graph, layout=layout,
+                                             device=dev)
+        eager = lambda st, step, *x: sweep.run_rounds(st, step, *x)
+
+        def window(step):
+            win = driver.make_window(step, unroll=4)
+            run = lambda st, *x: win(st, x)[0]
+            run.window = win
+            return run
+        return build, eager, window
+
+    return {"phase engine dense": phase("dense"), "phase engine csr": phase("csr"),
+            "per-round step he=2": static_hb(), "floodsub lattice": flood("lattice", "dense"),
+            "floodsub power-law csr": flood("powerlaw", "csr")}
+
+
+def record_calls(run, targets):
+    """Run ``run()`` with every ``module.name`` of ``targets`` recording its
+    calls. Returns (the result, {(module, name): [(args, kwargs), ...]})."""
+    calls = {t: [] for t in targets}
+    origs = {t: getattr(*t) for t in targets}
+
+    def recorder(t):
+        def call(*args, **kwargs):
+            calls[t].append((args, kwargs))
+            return origs[t](*args, **kwargs)
+        return call
+
+    for t in targets:
+        setattr(t[0], t[1], recorder(t))
+    try:
+        out = run()
+    finally:
+        for t in targets:
+            setattr(t[0], t[1], origs[t])
+    return out, calls
+
+
+def torch_row(a, i, dev):
+    import torch
+
+    return torch.as_tensor(a[i], device=dev)
+
+
+def window_parity(sweep, convert, dev, counters) -> dict:
+    """Phase 17: every window equals its eager loop on the card, leaf for
+    leaf, in two calls; then every kernel captured alone. Returns the
+    wrappers' launches a captured block of each window."""
+    import torch
+    from torch_parity import graph_replay_equals_eager
+
+    from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
+    from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
+    from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
+    from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
+
+    po, pt, pv = sweep.publish_schedule(WINDOW_ROUNDS, N_PARITY, 1, None, seed=6)
+    half = WINDOW_ROUNDS * 2 // 3
+    blocks, calls = {}, {}
+    for name, (build, eager, window) in window_cells(sweep, dev).items():
+        st, step = build()
+        # the eager run, every kernel call recorded
+        out, got = record_calls(lambda: eager(st, step, po, pt, pv),
+                                [(fr, "edge_exchange"), (fr, "fused_delivery"),
+                                 (sk, "select_topk"), (db, "delivery_banded"),
+                                 (cd, "csr_delivery")])
+        for (mod, fn), recorded in got.items():
+            for args, kw in recorded:
+                key = fn if fn != "edge_exchange" else f"edge_exchange C={kw['c']}"
+                calls.setdefault(key, (getattr(mod, fn), args, kw))
+        want_leaves = convert.state_leaves(out)
+        del out
+        st, step = build()
+        run = window(step)
+        for m in counters:
+            m.reset_launch_counts()
+        st = run(st, po[:half], pt[:half], pv[:half])
+        st = run(st, po[half:], pt[half:], pv[half:])
+        torch.cuda.synchronize()
+        win = run.window
+        leaves_equal(want_leaves, convert.state_leaves(st), f"{name} window against eager")
+        launched = {k: v for k, v in win.block_launches.items() if v}
+        if win.replays < 2 or not launched:
+            raise AssertionError(f"{name}: the window replayed {win.replays} graphs with "
+                                 f"block launches {win.block_launches}")
+        blocks[name] = {"block_dispatches": win.block_dispatches, "launches": launched,
+                        "replays": win.replays, "capture_seconds": win.capture_seconds}
+        say(f"window {name} N={N_PARITY}: equal to the eager loop leaf for leaf after "
+            f"{WINDOW_ROUNDS} rounds in two calls ({half} + {WINDOW_ROUNDS - half}); "
+            f"{win.replays} graph replays, {win.captures} capture "
+            f"({win.capture_seconds:.3f} s), a block of {win.block_dispatches} dispatches "
+            f"launches {launched}")
+        del st, step, run, win
+    for key in sorted(calls):
+        fn, args, kw = calls[key]
+        n = graph_replay_equals_eager(lambda: fn(*args, **kw))
+        if n != 1:
+            raise AssertionError(f"{key}: {n} wrapper launches captured, expected 1")
+        say(f"kernel {key} captured alone in a graph: the replay equals the eager launch "
+            f"bit for bit")
+    missing = {"edge_exchange C=2", "edge_exchange C=4", "edge_exchange C=6",
+               "fused_delivery", "select_topk", "delivery_banded", "csr_delivery"} - set(calls)
+    if missing:
+        raise AssertionError(f"no call of {sorted(missing)} in the window cells")
+    return blocks
+
+
+def window_bench(sweep, driver, dev, card, counters, engine: str) -> dict:
+    """Phase 18: the phase bench (``engine="phase"``) or the per-round bench
+    at N=100k, eager and windowed in turns (eager, window, window, eager).
+    Each turn builds afresh, forms the mesh, runs the formation and one
+    untimed segment, then times one segment; a window turn's untimed
+    segment captures its block. Returns the turns."""
+    import torch
+
+    r = PHASE_R if engine == "phase" else 1
+    m = PHASE_MEASURED * r if engine == "phase" else MEASURED_ROUNDS
+    f = PHASE_FORMATION * r if engine == "phase" else FORMATION_ROUNDS
+    po, pt, pv = sweep.publish_schedule(f + 2 * m, N_FULL, 1, None)
+    turns = []
+    for mode in ("eager", "window", "window", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, rounds_per_phase=r, device=dev)
+        if r > 1:
+            st = driver.form_mesh(step, st, rounds_per_phase=r)
+            eager = lambda st, sl: sweep.run_phases(st, step, po[sl], pt[sl], pv[sl],
+                                                    rounds_per_phase=r, heartbeat_every=r)
+        else:
+            eager = lambda st, sl: sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl])
+        st = eager(st, slice(0, f))
+        run, rec = eager, {"mode": mode}
+        if mode == "window":
+            scan = (driver.make_scan(step, heartbeat_every=r, rounds_per_phase=r, unroll=2)
+                    if r > 1 else driver.make_scan(step, static_heartbeat=False, unroll=4))
+            run = lambda st, sl: scan(st, po[sl], pt[sl], pv[sl])
+            for mod in counters:
+                mod.reset_launch_counts()
+        st = run(st, slice(f, f + m))
+        torch.cuda.synchronize()
+        if mode == "window":
+            replays0 = scan.window.replays
+        t0 = time.perf_counter()
+        st = run(st, slice(f + m, f + 2 * m))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec.update(rate=m / dt, peak=torch.cuda.max_memory_allocated())
+        if mode == "window":
+            win = scan.window
+            counted = {}
+            for mod in counters:
+                counted.update(mod.LAUNCHES)
+            if not any(counted.values()):
+                raise AssertionError(f"{engine} bench window: no kernel launched")
+            rec.update(capture_seconds=win.capture_seconds, replays=win.replays - replays0,
+                       block_launches={k: v for k, v in win.block_launches.items() if v},
+                       block_dispatches=win.block_dispatches)
+            del scan, run, win
+        if int(st.core.tick) != (f + 2 * m + (r if r > 1 else 0)):
+            raise AssertionError(f"{engine} bench {mode}: tick {int(st.core.tick)}")
+        unit = "delivery-rounds/s" if r > 1 else "rounds/s"
+        extra = ""
+        if mode == "window":
+            extra = (f", capture {rec['capture_seconds']:.3f} s, {rec['replays']} graph "
+                     f"replays a window of {m} rounds, a block of {rec['block_dispatches']} "
+                     f"dispatches launches {rec['block_launches']}")
+        say(f"{engine} bench {mode} N={N_FULL}: {rec['rate']:.3f} {unit} over {m} rounds, "
+            f"peak memory {rec['peak']} bytes{extra}, on {card}")
+        turns.append(rec)
+        del st, step
+    return turns
+
+
+def bench_cli(card: str) -> dict:
+    """Phase 19: the bench CLI's measurement at a segment of
+    ``BENCH_CLI_ROUNDS`` rounds (the CLI's default is 1600), its line
+    printed."""
+    from go_libp2p_pubsub_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    line = bench.bench_line({"BENCH_ROUNDS": str(BENCH_CLI_ROUNDS), "BENCH_CONTINUITY": "1"})
+    if line.get("schema") != 3 or line.get("unit") != "delivery-rounds/s":
+        raise AssertionError(f"bench line: {line}")
+    if not (line["value"] > 0 and line["continuity_r1_ticks_per_sec"] > 0):
+        raise AssertionError(f"bench line without rates: {line}")
+    say(f"bench CLI at BENCH_ROUNDS={BENCH_CLI_ROUNDS} (the CLI's default segment is 1600 "
+        f"rounds) in {time.perf_counter() - t0:.1f} s, on {card}:")
+    say(json.dumps(line))
+    return line
 
 
 def leaves_equal(a: dict, b: dict, where: str):
@@ -1334,7 +1581,29 @@ def main() -> int:
                       phase_data=shapes["C=2"])
     del phase_calls
 
-    # 17. launches of a bench round and of a phase-bench phase, traced
+    # 17. windows on the card against the eager loop; each kernel in a graph
+    blocks = window_parity(sweep, convert, dev, counters)
+
+    # 18. windowed benches at full width, in turns with the eager loop
+    phase_turns = window_bench(sweep, driver, dev, card, counters, "phase")
+    round_turns = window_bench(sweep, driver, dev, card, counters, "per-round")
+    # each kernel's launches in one replay of a captured block
+    block_of = {"phase bench": (phase_turns[1]["block_dispatches"],
+                                phase_turns[1]["block_launches"]),
+                "per-round bench": (round_turns[1]["block_dispatches"],
+                                    round_turns[1]["block_launches"]),
+                **{f"{k} (N={N_PARITY})": (v["block_dispatches"], v["launches"])
+                   for k, v in blocks.items() if k.startswith("floodsub")}}
+    for rec in records:
+        rec["graph_block_launches"] = {
+            f"{k}, a block of {d} dispatches": launched[rec["name"]]
+            for k, (d, launched) in block_of.items() if launched.get(rec["name"])}
+
+    # 19. the bench CLI's line at a shortened segment
+    bench_cli(card)
+
+    # 20. launches of a bench round, a phase-bench phase and a windowed
+    # phase, traced
     bench_launches(card)
 
     say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

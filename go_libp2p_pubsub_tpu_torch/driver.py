@@ -1,12 +1,33 @@
-"""Drivers of the phase engine: its heartbeat schedule and the mesh
-formation prelude (the JAX package's ``driver.py``; its scanned windows
-are not ported yet — ROADMAP §1 item 2)."""
+"""Drivers: the phase engine's heartbeat schedule and mesh formation
+prelude, and run windows (the JAX package's ``driver.py``).
+
+A run window drives a step over a whole schedule of dispatches. In the JAX
+package it is one compiled program, ``jax.jit`` of a ``lax.scan``. Here, on
+the CPU, it is the plain loop over dispatches; on the card it is a captured
+CUDA graph: one block of dispatches (the heartbeat pattern's period, times
+``unroll``) is captured once per (shapes, pattern) and replayed with one
+graph launch a block, so a window issues no kernel launch from the host.
+
+The block reads its dispatch rows from static device buffers at a cursor
+held on the device and writes the state it leaves back into the static
+state buffers it started from (the step returns fresh tensors), so a replay
+copies nothing from the host and the next replay starts where the last one
+ended. A capture or a replay that fails raises: a CUDA window never runs
+eagerly.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import time
 
 import torch
+
+#: options of the JAX package's windows the port refuses, and where they land
+CHECK_UNPORTED = "the folded invariant checker (oracle/) — ROADMAP §1 item 5"
+CONSTS_UNPORTED = "the lifted score plane (lift_scores) — ROADMAP §1 item 3"
+UP_UNPORTED = "dynamic peers (the liveness schedule) — ROADMAP §1 item 3"
 
 
 def heartbeat_schedule(heartbeat_every: int, rounds_per_phase: int) -> list[bool]:
@@ -33,3 +54,323 @@ def form_mesh(step, st, *, rounds_per_phase: int, pub_width: int = 4):
     pt = torch.zeros((r, pub_width), dtype=torch.int32, device=dev)
     pv = torch.zeros((r, pub_width), dtype=torch.bool, device=dev)
     return step(st, po, pt, pv, do_heartbeat=True)
+
+
+def min_cycle(flags) -> list[bool]:
+    """The minimal repeating pattern of a periodic flag sequence (the whole
+    sequence when aperiodic), so a window built from a full per-dispatch
+    heartbeat list captures the same block as one built from the pattern."""
+    flags = [bool(b) for b in flags]
+    n = len(flags)
+    for p in range(1, n + 1):
+        if n % p == 0 and all(flags[i] == flags[i % p] for i in range(n)):
+            return flags[:p]
+    return flags
+
+
+def _core_of(st):
+    """The SimState face of any engine state (GossipSubState wraps it)."""
+    return st.core if hasattr(st, "core") else st
+
+
+# ---------------------------------------------------------------------------
+# trees of tensors: engine states (dataclasses) and observations (any nest
+# of dataclasses, dicts, tuples and lists)
+
+def _leaves(tree) -> list[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree) for x in _leaves(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return []
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its tensor leaves taken in order from the iterator
+    ``leaves``."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _rebuild(getattr(tree, f.name), leaves) for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(v, leaves) for v in tree)
+    return tree
+
+
+def _signature(leaves) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in leaves)
+
+
+def _stack(trees):
+    """A per-dispatch list of observation trees -> one tree of stacks."""
+    leaves = [_leaves(t) for t in trees]
+    return _rebuild(trees[0], iter([torch.stack(col) for col in zip(*leaves)]))
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counter (host counts, which move when
+    a wrapper launches, so during a capture and never during a replay)."""
+    from .ops import csr_delivery, delivery_banded, fused_round, select_topk
+
+    out = {}
+    for mod in (fused_round, delivery_banded, csr_delivery, select_topk):
+        out.update(mod.LAUNCHES)
+    return out
+
+
+class _Captured:
+    """One captured block of a CUDA window: its graph, the static state,
+    row and observation buffers it reads and writes, the device cursor."""
+
+    def __init__(self, win: "Window", st, xs, n_dispatch: int):
+        dev = xs[0].device
+        self.device = dev
+        self.template = st
+        leaves = _leaves(st)
+        self.state_sig = _signature(leaves)
+        self.state = [t.clone() for t in leaves]
+        self.rows = [torch.empty((n_dispatch,) + tuple(a.shape[1:]), dtype=a.dtype, device=dev)
+                     for a in xs]
+        self.cursor = torch.zeros((), dtype=torch.int64, device=dev)
+        self.n_dispatch = n_dispatch
+        self.obs = None
+        self.obs_template = None
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = {}
+        self.launches = {}
+        side = torch.cuda.Stream(dev)
+        t0 = time.perf_counter()
+        for a, buf in zip(xs, self.rows):
+            buf.copy_(a)
+        # warm-up on a side stream (torch.cuda.graphs asks for it): it
+        # loads every kernel module and fills the wrappers' constant
+        # caches, with the block's own heartbeat pattern, from a copy of
+        # the state that is then dropped
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            sw = _rebuild(st, iter([t.clone() for t in leaves]))
+            for j in range(win.block_dispatches):
+                sw = win.call(sw, [r[j % n_dispatch] for r in self.rows], j)
+                if win.observe is not None:
+                    obs = win.observe(sw)
+            if win.observe is not None:
+                self.obs_template = obs
+                self.obs = [torch.empty((n_dispatch,) + tuple(t.shape), dtype=t.dtype, device=dev)
+                            for t in _leaves(obs)]
+            del sw
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        win.capture_seconds += time.perf_counter() - t0
+
+    def graph(self, win: "Window", n: int) -> torch.cuda.CUDAGraph:
+        """The graph of a block of ``n`` dispatches, captured at first use."""
+        g = self.graphs.get(n)
+        if g is not None:
+            return g
+        t0 = time.perf_counter()
+        before = launch_counts()
+        g = torch.cuda.CUDAGraph()
+        inputs = {t.untyped_storage().data_ptr() for t in self.state}
+        with torch.cuda.graph(g, pool=self.pool):
+            st = _rebuild(self.template, iter(self.state))
+            idx = self.cursor + torch.arange(n, device=self.device)
+            rows = [buf.index_select(0, idx) for buf in self.rows]
+            for j in range(n):
+                st = win.call(st, [r[j] for r in rows], j)
+                if self.obs is not None:
+                    for buf, t in zip(self.obs, _leaves(win.observe(st))):
+                        buf.index_copy_(0, idx[j:j + 1], t.unsqueeze(0))
+            out = _leaves(st)
+            if _signature(out) != self.state_sig:
+                raise ValueError("make_window: the step changed the state's leaf shapes "
+                                 "or dtypes, which a captured block cannot carry")
+            # an output that shares memory with another input buffer is
+            # copied aside first, so no write-back reads a buffer already
+            # written
+            out = [o if o is s or o.untyped_storage().data_ptr() not in inputs else o.clone()
+                   for o, s in zip(out, self.state)]
+            for o, s in zip(out, self.state):
+                if o is not s:
+                    s.copy_(o)
+            self.cursor.add_(n)
+        after = launch_counts()
+        self.launches[n] = {k: after[k] - before[k] for k in after}
+        self.graphs[n] = g
+        torch.cuda.synchronize(self.device)
+        win.capture_seconds += time.perf_counter() - t0
+        return g
+
+
+class Window:
+    """A run window: ``run(state, xs, due=None, consts=()) -> (state, ys)``
+    (see ``make_window``). On the card it keeps its captured blocks and
+    counts what it did: ``replays`` (graph launches, every window call),
+    ``captures`` and ``capture_seconds`` (warm-up and capture), and
+    ``block_launches`` (kernel launches each wrapper made while a block of
+    ``block_dispatches`` was captured, so once a replay)."""
+
+    def __init__(self, step, heartbeat, observe, unroll: int, donate: bool):
+        self.step = step
+        self.hb = None if heartbeat is None else min_cycle(heartbeat)
+        self.period = 1 if self.hb is None else len(self.hb)
+        self.observe = observe
+        self.unroll = max(1, int(unroll))
+        self.donate = bool(donate)
+        self.block_dispatches = self.period * self.unroll
+        self.replays = 0
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.block_launches: dict = {}
+        self._entries: dict = {}
+
+    def call(self, st, args, j: int):
+        if self.hb is None:
+            return self.step(st, *args)
+        return self.step(st, *args, do_heartbeat=self.hb[j % self.period])
+
+    def __call__(self, st, xs, due=None, consts=()):
+        if due is not None:
+            raise NotImplementedError(f"not ported yet: {CHECK_UNPORTED}")
+        if len(tuple(consts)):
+            raise NotImplementedError(f"not ported yet: {CONSTS_UNPORTED}")
+        xs = tuple(xs)
+        if not xs:
+            raise ValueError("make_window: xs must carry at least one per-dispatch array "
+                             "(the dispatch count is read from its leading axis)")
+        n_dispatch = xs[0].shape[0]
+        if any(a.shape[0] != n_dispatch for a in xs[1:]):
+            raise ValueError(f"make_window: xs leading axes disagree "
+                             f"({[a.shape[0] for a in xs]})")
+        if n_dispatch % self.period:
+            raise ValueError(f"window length {n_dispatch} dispatches is not a multiple of "
+                             f"the heartbeat period {self.period}")
+        dev = _core_of(st).tick.device
+        xs = tuple(torch.as_tensor(a, device=dev) for a in xs)
+        if dev.type != "cuda":
+            return self._loop(st, xs, n_dispatch)
+        return self._replay(st, xs, n_dispatch)
+
+    def _loop(self, st, xs, n_dispatch: int):
+        obs = []
+        for d in range(n_dispatch):
+            st = self.call(st, [a[d] for a in xs], d)
+            if self.observe is not None:
+                obs.append(self.observe(st))
+        return st, ({"obs": _stack(obs)} if obs else {})
+
+    def _replay(self, st, xs, n_dispatch: int):
+        leaves = _leaves(st)
+        # one capture serves every window up to its row capacity
+        key = (_signature(leaves), tuple((tuple(a.shape[1:]), a.dtype) for a in xs))
+        entry = self._entries.get(key)
+        if entry is None or entry.n_dispatch < n_dispatch:
+            self._entries.pop(key, None)
+            entry = self._entries[key] = _Captured(self, st, xs, n_dispatch)
+            self.captures += 1
+        else:
+            for a, buf in zip(xs, entry.rows):
+                buf[:n_dispatch].copy_(a)
+        # the state comes in through the static buffers (a state this
+        # window returned under donate=True already lives there)
+        for t, buf in zip(leaves, entry.state):
+            if t.data_ptr() != buf.data_ptr():
+                buf.copy_(t)
+        entry.cursor.zero_()
+        big = self.block_dispatches
+        plan = [big] * (n_dispatch // big) + [self.period] * ((n_dispatch % big) // self.period)
+        graphs = {n: entry.graph(self, n) for n in sorted(set(plan), reverse=True)}
+        self.block_launches = entry.launches.get(big, self.block_launches)
+        for n in plan:
+            graphs[n].replay()
+            self.replays += 1
+        out = entry.state if self.donate else [t.clone() for t in entry.state]
+        st = _rebuild(entry.template, iter(out))
+        ys = {}
+        if entry.obs is not None:
+            ys["obs"] = _rebuild(entry.obs_template,
+                                 iter([b[:n_dispatch].clone() for b in entry.obs]))
+        return st, ys
+
+
+def make_window(step, *, heartbeat=None, check=None, check_every: int = 1, observe=None,
+                unroll: int = 1, donate: bool = True) -> Window:
+    """A whole run window: ``run(state, xs, due=None, consts=()) -> (state,
+    ys)``.
+
+    * ``xs`` is a tuple of per-dispatch arrays, each with leading axis ``D``
+      (publish batches ``[D, P]`` per-round, ``[D, r, P]`` phase); dispatch
+      ``d`` consumes row ``d`` of every array, exactly as if ``step`` had
+      been called ``D`` times from Python.
+    * ``heartbeat`` is the static cadence pattern (a bool sequence, cycled;
+      ``heartbeat_schedule``'s shape) for steps that take a keyword-only
+      ``do_heartbeat``; None for steps that own their cadence.
+    * ``observe`` is a state function evaluated after every dispatch; its
+      per-dispatch stack comes back in ``ys["obs"]`` (leading axis D).
+    * ``D`` must be a multiple of the pattern's period.
+    * ``donate=True`` (the JAX default) returns the window's own state
+      buffers, which its next call overwrites; ``donate=False`` returns
+      copies. A state a window returned may be passed back in as it is.
+    * ``unroll`` blocks of one period each are captured as one graph on the
+      card (a window whose length is not a multiple of that replays a
+      one-period graph for the rest).
+
+    ``check`` (the folded invariant checker) and ``consts`` (the lifted
+    score plane) raise ``NotImplementedError``."""
+    if check is not None:
+        raise NotImplementedError(f"not ported yet: {CHECK_UNPORTED}")
+    if int(check_every) < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    return Window(step, heartbeat, observe, unroll, donate)
+
+
+def make_scan(step, *, heartbeat_every: int = 1, rounds_per_phase: int = 1,
+              static_heartbeat: bool | None = None, unroll: int = 1, donate: bool = True):
+    """``run(state, pub_origin, pub_topic, pub_valid) -> state`` over a full
+    ``[R, P]`` publish schedule, the heartbeat cadence owned here:
+
+    * a per-round step that decides its heartbeat itself (``heartbeat_every``
+      1, or a plain build): rounds are dispatches;
+    * a per-round step built with ``static_heartbeat=True``: ``do_heartbeat``
+      is True exactly on ticks that are 0 mod ``heartbeat_every``;
+    * a phase step (``rounds_per_phase`` r > 1): the schedule is regrouped
+      into R // r phases of ``[r, P]``, each heartbeating iff its tick window
+      holds a heartbeat tick.
+
+    The state's tick at entry must be 0 mod lcm(he, r), and R a multiple of
+    it. A thin adapter over ``make_window``; ``run.window`` is the window
+    (its replay and capture counts on the card)."""
+    he, r = int(heartbeat_every), int(rounds_per_phase)
+    if static_heartbeat is None:
+        if r == 1 and he > 1:
+            raise ValueError(
+                "make_scan: pass static_heartbeat=True/False explicitly for a per-round "
+                "step with heartbeat_every > 1 (True for a make_gossipsub_step("
+                "static_heartbeat=True) build, False for a plain build)")
+        static_heartbeat = r > 1
+    lcm = math.lcm(he, r)
+    sched = heartbeat_schedule(he, r) if static_heartbeat else None
+    win = make_window(step, heartbeat=sched, unroll=unroll, donate=donate)
+
+    def run(st, po, pt, pv, up=None, consts=()):
+        if up is not None:
+            raise NotImplementedError(f"not ported yet: {UP_UNPORTED}")
+        n_rounds = po.shape[0]
+        if n_rounds % lcm:
+            raise ValueError(f"schedule length {n_rounds} is not a multiple of "
+                             f"lcm(heartbeat_every={he}, rounds_per_phase={r}) = {lcm}")
+        xs = (po, pt, pv)
+        if r > 1:
+            xs = tuple(torch.as_tensor(a).reshape((n_rounds // r, r) + tuple(a.shape[1:]))
+                       for a in xs)
+        st, _ = win(st, xs, None, consts)
+        return st
+
+    run.window = win
+    return run

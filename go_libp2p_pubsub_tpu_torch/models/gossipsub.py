@@ -574,9 +574,12 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     if cfg.score_enabled:
         gossip_cand = gossip_cand & (scores_b >= cfg.gossip_threshold)
     n_cand = count_true(gossip_cand)
+    # the factor as its float32 value, a host scalar (no copy to the card):
+    # the float32 product of two float32 values is the same rounded in any
+    # wider type
     target = torch.clamp(
-        (torch.tensor(cfg.gossip_factor, dtype=torch.float32, device=n_cand.device)
-         * n_cand.to(torch.float32)).to(torch.int32), min=cfg.Dlazy)
+        (n_cand.to(torch.float32) * float(np.float32(cfg.gossip_factor))).to(torch.int32),
+        min=cfg.Dlazy)
     chosen = masked_width_random(k6, gossip_cand, target, k_dim)
     slot_tw = slot_topic_words(net, st.core.msgs.topic)
     adv = torch.where(chosen[..., None], (gwin[:, None, :] & slot_tw)[:, :, None, :], 0)

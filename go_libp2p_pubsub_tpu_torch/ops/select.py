@@ -45,10 +45,14 @@ def kernel_rows(values, mask, k, key=None):
     heartbeat's score plane is a broadcast view), ``k`` broadcast to one
     int32 width per row, the tie-break noise drawn from ``key``."""
     k_dim = values.shape[-1]
-    k_rows = torch.as_tensor(k, device=values.device).to(torch.int32)
+    rows = values.shape[:-1]
+    if isinstance(k, torch.Tensor):
+        k_rows = k.to(torch.int32).expand(rows).reshape(-1).contiguous()
+    else:
+        # a Python width is a fill on the device, never a copy from the host
+        k_rows = torch.full((rows.numel(),), int(k), dtype=torch.int32, device=values.device)
     return (values.to(torch.float32).contiguous().reshape(-1, k_dim),
-            mask.contiguous().reshape(-1, k_dim),
-            k_rows.expand(values.shape[:-1]).reshape(-1).contiguous(),
+            mask.contiguous().reshape(-1, k_dim), k_rows,
             _noise(key, values.shape, values.device).reshape(-1, k_dim))
 
 
@@ -68,9 +72,12 @@ def select_random_mask(key, mask, k):
     return select_topk_mask(noise, mask, k)
 
 
-def _clip_width(width, width_max: int, device) -> torch.Tensor:
-    return torch.as_tensor(width, dtype=torch.int32, device=device).clamp(
-        0, int(width_max))
+def _clip_width(width, width_max: int, device):
+    """``width`` clipped into [0, width_max]: a tensor stays one, a Python
+    width stays a Python int."""
+    if not isinstance(width, torch.Tensor):
+        return min(max(int(width), 0), int(width_max))
+    return width.to(device=device, dtype=torch.int32).clamp(0, int(width_max))
 
 
 def masked_width_topk(values, mask, width, width_max: int, key=None):

@@ -2,7 +2,8 @@
 
     python -m go_libp2p_pubsub_tpu_torch.perf.profile [--n 100000]
         [--engine gossipsub|floodsub] [--layout dense|csr]
-        [--rounds-per-phase 1] [--warm 16] [--rounds 16] [--out PATH]
+        [--rounds-per-phase 1] [--warm 16] [--rounds 16] [--window]
+        [--out PATH]
 
 Builds the bench's default GossipSub config — banded dense, or with
 ``--layout csr`` the bench's CSR variant (CSR-resident, ``fused=True``);
@@ -22,7 +23,13 @@ launching host op), the kernels by device
 time (each with the host op and input shapes whose launches of it took
 the most device time), and
 the host-side ops by launch count. ``--out`` also writes the numbers as
-JSON. Needs a CUDA device.
+JSON. With ``--window`` the untraced and the traced rounds run as
+``driver.make_scan`` windows (captured CUDA graphs, the bench's way; the
+window is captured on a window of ``--rounds`` rounds after the warm-up):
+the report adds the graph replays a window and the wrapper launches a
+captured block, and reads the kernels off a traced replay (the host ops
+of a replay are graph launches, so no kernel is attributed to one).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import time
 
 import torch
 
-from ..driver import form_mesh
+from ..driver import form_mesh, make_scan
 from . import sweep
 
 
@@ -58,7 +65,8 @@ def _union_us(intervals) -> float:
 
 
 def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
-                   layout: str = "dense", rounds_per_phase: int = 1) -> dict:
+                   layout: str = "dense", rounds_per_phase: int = 1,
+                   window: bool = False) -> dict:
     r = int(rounds_per_phase)
     if engine == "gossipsub":
         st, step, n_topics, honest = sweep.build_bench(
@@ -81,9 +89,22 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
     else:
         def run(st, po, pt, pv):
             return sweep.run_rounds(st, step, po, pt, pv)
-    po, pt, pv = sweep.publish_schedule(warm + 2 * rounds, n, n_topics, honest)
+    po, pt, pv = sweep.publish_schedule(warm + (3 if window else 2) * rounds, n, n_topics,
+                                        honest)
     st = run(st, po[:warm], pt[:warm], pv[:warm])
+    scan = None
+    if window:
+        # the bench's windows: a block of 2 phases (r > 1) or 4 rounds,
+        # captured on one window of `rounds` rounds before the timed ones
+        if engine == "gossipsub" and r > 1:
+            scan = make_scan(step, heartbeat_every=r, rounds_per_phase=r, unroll=2)
+        else:
+            scan = make_scan(step, static_heartbeat=False, unroll=4)
+        run = scan
+        st = run(st, *(a[warm:warm + rounds] for a in (po, pt, pv)))
+        warm += rounds
     torch.cuda.synchronize()
+    replays0 = 0 if scan is None else scan.window.replays
     # an untraced window first: the profiler stretches the host's dispatch
     # time, so the busy share is also read against this window's rounds
     t0 = time.perf_counter()
@@ -91,6 +112,7 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
     st = run(st, po[plain], pt[plain], pv[plain])
     torch.cuda.synchronize()
     untraced_us = 1e6 * (time.perf_counter() - t0)
+    replays = None if scan is None else scan.window.replays - replays0
     traced = slice(warm + rounds, warm + 2 * rounds)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
@@ -120,7 +142,10 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
             by[op] = by.get(op, 0.0) + kern.duration
     return {
         "engine": engine, "layout": layout, "n_peers": n, "rounds": rounds,
-        "rounds_per_phase": r,
+        "rounds_per_phase": r, "window": bool(window),
+        "graph_replays_per_window": replays,
+        "block_launches": None if scan is None else dict(scan.window.block_launches),
+        "capture_seconds": None if scan is None else scan.window.capture_seconds,
         "host_ms_per_round": wall_us / 1e3 / rounds,
         "untraced_ms_per_round": untraced_us / 1e3 / rounds,
         "device_kernel_ms_per_round": kernel_us / 1e3 / rounds,
@@ -151,6 +176,8 @@ def main(argv=None) -> int:
     ap.add_argument("--warm", type=int, default=16)
     ap.add_argument("--rounds", type=int, default=16)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--window", action="store_true",
+                    help="run the timed rounds as driver.make_scan windows (CUDA graphs)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -159,7 +186,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     rep = profile_rounds(args.n, args.warm, args.rounds, args.engine, args.layout,
-                         args.rounds_per_phase)
+                         args.rounds_per_phase, window=args.window)
     rep["card"] = card
     print(card)
     print(f"{rep['engine']} {rep['layout']} r={rep['rounds_per_phase']} N={rep['n_peers']} over {rep['rounds']} rounds: untraced "
@@ -170,6 +197,10 @@ def main(argv=None) -> int:
           f"{rep['device_busy_share_untraced']:.4f} of the untraced round "
           f"({rep['device_busy_share']:.4f} of the traced one), "
           f"{rep['kernel_launches_per_round']:.1f} kernel launches/round")
+    if rep["window"]:
+        print(f"windows: {rep['graph_replays_per_window']} graph replays a window of "
+              f"{rep['rounds']} rounds, wrapper launches a captured block "
+              f"{rep['block_launches']}, capture {rep['capture_seconds']:.3f} s")
     for r in rep["kernels"][: args.top]:
         print(f"  {r['us_per_round']:10.1f} us/round {r['launches_per_round']:7.1f}x  "
               f"{r['name'][:110]}")

@@ -10,11 +10,16 @@ the bench's publish schedule:
   measures (r=8 there), driven by ``run_phases``;
 * ``build_floodsub`` — FloodSub on one topic every peer joins, over the
   same lattice or the capacity-bounded power-law graph, in the dense or
-  the CSR layout."""
+  the CSR layout;
+* ``measure_rate``, ``metric_name``, ``workload_fingerprint`` — the bench
+  line of ``python -m go_libp2p_pubsub_tpu_torch.bench``: the ``default``
+  config driven through ``driver.make_scan`` (a captured CUDA graph a block
+  on the card), as the JAX package's bench drives its compiled windows."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -31,6 +36,25 @@ from ..state import Net, SimState, resolve_device
 
 #: publish batch width of every bench cell ([R, 4] schedules)
 PUBS_PER_ROUND = 4
+
+#: the JAX package's phase engine takes its scatter publish allocation from
+#: this peer count (a fingerprint field; the port's phase engine allocates
+#: one way at every N, to the same bits)
+SCATTER_ALLOC_MIN_N = 20_000
+
+#: bench configs of the JAX package the port does not build yet
+UNPORTED_CONFIGS = {
+    "eth2": "eth2 needs fanout — ROADMAP §1 item 3",
+    "sybil": "sybil needs the peer gater and the adversary plane — ROADMAP §1 items 3 and 5",
+}
+
+
+def _refuse_config(config: str) -> None:
+    if config in UNPORTED_CONFIGS:
+        raise NotImplementedError(f"bench config {config!r} is not ported yet: "
+                                  f"{UNPORTED_CONFIGS[config]}")
+    if config != "default":
+        raise ValueError(f"unknown bench config {config!r}")
 
 
 def bench_score_params(n_topics: int):
@@ -66,10 +90,7 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     ``bench.py`` runs it); 1 builds the per-round step (a heartbeat every
     round by default; every ``heartbeat_every`` rounds with a required
     ``do_heartbeat`` otherwise)."""
-    if config != "default":
-        raise NotImplementedError(
-            f"bench config {config!r} is not ported yet (eth2 needs fanout, "
-            "sybil the gater and adversary planes) — ROADMAP §1 items 3 and 5")
+    _refuse_config(config)
     dev = resolve_device(device)
     tp = graphlib.ring_lattice(n_peers, d=8)
     n_topics = 1
@@ -181,3 +202,142 @@ def run_rounds(st, step, po, pt, pv):
     for r in range(len(po_t)):
         st = step(st, po_t[r], pt_t[r], pv_t[r])
     return st
+
+
+def metric_name(config: str, n_peers: int, rounds_per_phase: int) -> str:
+    """The bench's metric name (the JAX package's convention: a phase
+    metric carries its cadence)."""
+    tag = "" if config == "default" else f"_{config}"
+    if rounds_per_phase > 1:
+        return (f"gossipsub_v1.1_delivery_rounds_per_sec_n{n_peers}{tag}"
+                f"_phase{rounds_per_phase}")
+    return f"gossipsub_v1.1_heartbeat_ticks_per_sec_n{n_peers}{tag}"
+
+
+def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_every: int,
+                         rounds_per_phase: int, seg_rounds: int | None = None,
+                         unroll: int | None = None, edge_layout: str = "dense",
+                         device=None) -> dict:
+    """The bench line's self-description, field for field the JAX
+    package's for the configs the port builds. ``platform`` is ``cuda`` and
+    the card's name (``cpu`` on the CPU), ``prng_impl`` the port's one
+    generator, ``n_devices`` 1. ``permute_sets_per_phase`` counts the phase
+    engine's edge crossings a phase: the coalesced control head and one
+    data crossing a sub-round (``edge_exchange`` launches 1 + r times a
+    phase on the banded lattice)."""
+    from .artifacts import CHAOS_OFF, PARAMS_FINGERPRINT, ROUTER_V11, execution_fingerprint
+
+    _refuse_config(config)
+    n_topics = 1
+    _tp, sp = bench_score_params(n_topics)
+    tp = sp.topics[0]
+    r = int(rounds_per_phase)
+    phase = r > 1
+    p3_elided = (tp.mesh_message_deliveries_weight == 0.0
+                 and (tp.mesh_failure_penalty_weight == 0.0
+                      or tp.mesh_message_deliveries_threshold <= 0.0))
+    p4_elided = tp.invalid_message_deliveries_weight == 0.0
+    fp = {
+        "config": config,
+        "n_peers": int(n_peers),
+        "msg_slots": int(msg_slots),
+        "degree": 16,
+        "n_topics": n_topics,
+        "topics_per_peer": 1,
+        "adversary_fraction": 0.0,
+        "rounds_per_phase": r,
+        "heartbeat_every": int(heartbeat_every),
+        "pubs_per_round": PUBS_PER_ROUND,
+        "score_weights": {
+            "mesh_message_deliveries_weight": tp.mesh_message_deliveries_weight,
+            "mesh_failure_penalty_weight": tp.mesh_failure_penalty_weight,
+            "invalid_message_deliveries_weight": tp.invalid_message_deliveries_weight,
+            "first_message_deliveries_weight": tp.first_message_deliveries_weight,
+            "time_in_mesh_weight": tp.time_in_mesh_weight,
+            "behaviour_penalty_weight": sp.behaviour_penalty_weight,
+        },
+        "elides_mesh_message_deliveries": bool(phase and p3_elided),
+        "elides_invalid_message_deliveries": bool(phase and p4_elided),
+        "engine": {
+            "mode": "phase" if phase else "per_round",
+            "wire_coalesced": True,
+            "edge_layout": edge_layout,
+            "gater": False,
+            "validation_capacity": 0,
+            "count_events": False,
+            "fanout_slots": 0,
+            "scatter_publish_alloc": bool(phase and n_peers >= SCATTER_ALLOC_MIN_N),
+            # incremental membership planes: the port's phase engine keeps
+            # them for any topic universe, the JAX package's up to 8 topics
+            "incr_members": phase,
+        },
+        "chaos": dict(CHAOS_OFF),
+        "params": dict(PARAMS_FINGERPRINT),
+        "router": dict(ROUTER_V11),
+    }
+    if seg_rounds is not None:
+        fp["seg_rounds"] = int(seg_rounds)
+    if unroll is not None:
+        fp["unroll"] = int(unroll)
+    if seg_rounds is not None:
+        fp["execution"] = execution_fingerprint(segment_rounds=seg_rounds, unroll=unroll)
+    if phase:
+        fp["permute_sets_per_phase"] = r + 1
+    dev = resolve_device(device)
+    fp["platform"] = (f"cuda {torch.cuda.get_device_name(dev)}" if dev.type == "cuda"
+                      else dev.type)
+    fp["prng_impl"] = "threefry2x32"
+    fp["n_devices"] = 1
+    return fp
+
+
+def measure_rate(config: str, n_req: int, msg_slots: int, heartbeat_every: int,
+                 rounds_per_phase: int, seg_rounds: int, reps: int = 3,
+                 unroll: int | None = None, edge_layout: str = "dense", device=None):
+    """Build and run one bench cell through ``driver.make_scan``; returns
+    (rounds_per_sec, n_used, unroll_used, scan) or None. The rate is the best
+    of ``reps`` windows of ``seg_rounds`` rounds (cut to whole lcm(he, r)
+    groups) after one window that captures and warms; each timed window
+    ends in a readback of the tick and a score checksum. ``unroll`` is
+    rounds a captured block (default 2·lcm(he, r) in phase mode, 4 rounds
+    per-round). Out of device memory it halves N down to 10k (below 10k
+    the request runs as it is), and the N used is returned."""
+    from ..driver import make_scan
+
+    he, r = int(heartbeat_every), int(rounds_per_phase)
+    group = math.lcm(he, r)
+    seg = seg_rounds - seg_rounds % group
+    if seg <= 0:
+        raise ValueError(f"seg_rounds={seg_rounds} < one lcm(heartbeat_every, "
+                         f"rounds_per_phase) group ({group})")
+    sizes, nn = [n_req], n_req // 2
+    while nn >= 10_000:
+        sizes.append(nn)
+        nn //= 2
+    for n in sizes:
+        try:
+            st, step, n_topics, honest = build_bench(
+                n, msg_slots, config=config, heartbeat_every=he, rounds_per_phase=r,
+                edge_layout=edge_layout, device=device)
+            po, pt, pv = publish_schedule(seg, n, n_topics, honest)
+            dev = st.core.tick.device
+            po, pt, pv = (torch.as_tensor(a, device=dev) for a in (po, pt, pv))
+            u = unroll if unroll is not None else (2 * group if r > 1 else 4)
+            scan = make_scan(step, heartbeat_every=he, rounds_per_phase=r,
+                             static_heartbeat=he > 1 or r > 1, unroll=max(1, u // group))
+            st = scan(st, po, pt, pv)                       # capture and warm up
+            _ = (int(st.core.tick), float(st.scores.sum()))
+            rates = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                st = scan(st, po, pt, pv)
+                # the completion barrier: a readback that depends on the
+                # whole window
+                _ = (int(st.core.tick), float(st.scores.sum()))
+                rates.append(seg / (time.perf_counter() - t0))
+            return max(rates), n, u, scan
+        except torch.cuda.OutOfMemoryError:
+            st = step = scan = None
+            torch.cuda.empty_cache()
+            continue
+    return None

@@ -55,7 +55,8 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         d = data.to(device=k.device, dtype=torch.int64).reshape(()) & _M32
     else:
-        d = torch.tensor(int(data) & _M32, dtype=torch.int64, device=k.device)
+        # a fill on the key's device, not a copy from the host
+        d = torch.full((), int(data) & _M32, dtype=torch.int64, device=k.device)
     y0, y1 = threefry2x32(k[0], k[1], torch.zeros_like(d), d)
     return torch.stack([y0, y1])
 

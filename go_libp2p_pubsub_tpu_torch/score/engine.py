@@ -6,10 +6,10 @@ at [N, S, K]. The weighted P1..P7 sum (score.go:258-335), the decay pass
 (score.go:892-974) are elementwise passes. Each float expression keeps the
 JAX package's operation order term by term, so the f32 planes agree bit for
 bit (``p1`` divides by the quantum; it never multiplies by a reciprocal).
-Where XLA:CPU's fused score loop contracts a product into its add — P7's
-term, the one whose product rounds under the bench's parameters — the port
-rounds once too (``ops/fnum.fma_f32``); the contractions other weights
-would bring are not reproduced (ROADMAP §3).
+Where XLA:CPU's fused score loop contracts a product into its add, the port
+rounds once too (``ops/fnum.fma_f32``), site by site as its vector loop
+does (``compute_scores``); its scalar loops, which round some of those
+products, are the residue ROADMAP §3 names.
 
 Subnormals are flushed as the JAX package's platforms flush them
 (``ops/fnum.py``): the parameters once, where they are built
@@ -104,14 +104,23 @@ class TopicParamsArrays:
 
     def gather(self, my_topics: torch.Tensor) -> dict:
         """Per-(peer, slot) [N, S] views; slots with no topic come out
-        zeroed/unscored."""
+        zeroed/unscored. ``out["uniform"]`` maps each float field to its one
+        value when every (peer, slot) view holds the same value (the JAX
+        package's step embeds these views as constants, and XLA folds a
+        constant whose elements are all equal), else None."""
         t = my_topics.clamp(min=0).long()
         live = my_topics >= 0
-        out = {}
+        used = np.unique(my_topics.cpu().numpy())
+        out, uniform = {}, {}
         for f in dataclasses.fields(self):
-            v = torch.as_tensor(getattr(self, f.name), device=my_topics.device)[t]
+            a = getattr(self, f.name)
+            v = torch.as_tensor(a, device=my_topics.device)[t]
             out[f.name] = torch.where(live, v, torch.zeros((), dtype=v.dtype,
                                                             device=v.device))
+            if a.dtype == np.float32:
+                vals = {float(a[u]) if u >= 0 else 0.0 for u in used.tolist()}
+                uniform[f.name] = vals.pop() if len(vals) == 1 else None
+        out["uniform"] = uniform
         return out
 
 
@@ -191,37 +200,78 @@ def ip_colocation_surplus_sq(net: Net, threshold: int, whitelist=()) -> torch.Te
     return torch.where(net.nbr_ok, p6, 0.0)
 
 
+def _mul_add(a: torch.Tensor, w: torch.Tensor, w_uniform, c: torch.Tensor) -> torch.Tensor:
+    """``c + a * w`` as XLA:CPU's fused score loop computes it: one rounding
+    (a fused multiply-add, the weight a host float when it is uniform).
+    Under a uniform weight of 0 or 1 the rounded product is exact, so the
+    two-rounding form gives the same bits in fewer launches."""
+    if w_uniform in (0.0, 1.0):
+        return fl(c + fl(a * w))
+    return fl(fma_f32(a, w if w_uniform is None else w_uniform, c))
+
+
 def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
                    sc: ScoreScalars, p6: torch.Tensor,
                    app_score: torch.Tensor, net: Net) -> torch.Tensor:
-    """[N, K] f32 — peer n's score of neighbor slot k (score.go:258-335)."""
+    """[N, K] f32 — peer n's score of neighbor slot k (score.go:258-335).
+
+    Every product that XLA:CPU's vector loop contracts into the add that
+    consumes it is one fused multiply-add here: P2, P3 (its rounded square
+    times the weight; at a uniform weight of -1 the square itself), P3b,
+    P4 (likewise, but its square is fused at -1 only past one topic slot),
+    each topic slot's weighted term into the slot sum, P5, P6 and P7. Where
+    both operands of an add are products (one topic slot, no cap, P5 off:
+    the slot's weighted term meets P6's product) the compiler fuses the
+    first, the slot's term, and rounds the other."""
     e = lambda a: a[..., None]
+    u = tp["uniform"]
     p1 = torch.minimum(st.mesh_time.to(torch.float32) / e(tp["quantum_ticks"]),
                        e(tp["cap1"]))
     topic = torch.where(in_mesh, fl(p1 * e(tp["w1"])), 0.0)
-    topic = fl(topic + fl(st.fmd * e(tp["w2"])))
+    topic = _mul_add(st.fmd, e(tp["w2"]), u["w2"], topic)
     deficit = fl(e(tp["thr3"]) - st.mmd)
-    p3 = torch.where(st.mmd_active & (deficit > 0), fl(deficit * deficit), 0.0)
-    topic = fl(topic + fl(p3 * e(tp["w3"])))
-    topic = fl(topic + fl(st.mfp * e(tp["w3b"])))
-    topic = fl(topic + fl(fl(st.imd * st.imd) * e(tp["w4"])))
-    terms = fl(topic * e(tp["topic_weight"]))
+    p3_on = st.mmd_active & (deficit > 0)
+    if u["w3"] == -1.0:
+        topic = torch.where(p3_on, fl(fma_f32(deficit, -deficit, topic)), topic)
+    else:
+        p3 = torch.where(p3_on, fl(deficit * deficit), 0.0)
+        topic = _mul_add(p3, e(tp["w3"]), u["w3"], topic)
+    topic = _mul_add(st.mfp, e(tp["w3b"]), u["w3b"], topic)
+    if u["w4"] == -1.0 and topic.shape[1] > 1:
+        topic = fl(fma_f32(st.imd, -st.imd, topic))
+    else:
+        topic = _mul_add(fl(st.imd * st.imd), e(tp["w4"]), u["w4"], topic)
+    tw, tw_u = e(tp["topic_weight"]), u["topic_weight"]
     # the sum over topic slots as XLA reduces: in slot order from 0.0, each
-    # partial sum flushed (one slot is the slot's term itself)
-    score = terms[:, 0]
-    if terms.shape[1] > 1:
+    # partial sum flushed; one slot is the slot's weighted term itself, a
+    # bare product unless the weight is a uniform 1 (folded away)
+    bare = topic.shape[1] == 1 and not sc.cap_on and tw_u != 1.0
+    score = fl(topic[:, 0] * tw[:, 0])
+    if topic.shape[1] > 1:
         score = score + 0.0
-        for s in range(1, terms.shape[1]):
-            score = fl(score + terms[:, s])
+        for s in range(1, topic.shape[1]):
+            score = _mul_add(topic[:, s], tw[:, s], tw_u, score)
     if sc.cap_on:
         score = torch.clamp(score, max=sc.topic_score_cap)
+
+    def add_term(score, x, w):
+        """score + x * w for P5 and P6: the product fused, unless the score
+        is still the bare slot term, which is fused in its stead."""
+        if not bare:
+            return _mul_add(x, w, w, score)
+        if w == 0.0:
+            return fl(score + fl(x * w))
+        w_t = tw[:, 0] if tw_u is None else tw_u
+        return fl(fma_f32(topic[:, 0], w_t, fl(x * w)))
+
     if sc.app_on:
-        score = fl(score + fl(fl(net.peer_gather(app_score)) * sc.app_specific_weight))
-    score = fl(score + fl(p6 * sc.ip_colocation_factor_weight))
+        app_w = sc.app_specific_weight
+        score = _mul_add(fl(net.peer_gather(app_score)), app_w, app_w, score)
+        bare = False
+    score = add_term(score, p6, sc.ip_colocation_factor_weight)
     excess = fl(st.bp - sc.behaviour_penalty_threshold)
-    # XLA:CPU fuses this product into the add (one rounding); at a weight
-    # of -1 its compiler first folds the weight into the square, so the
-    # square itself is fused: score - excess * excess
+    # at a weight of -1 the compiler first folds the weight into the
+    # square, so the square itself is fused: score - excess * excess
     if sc.behaviour_penalty_weight == -1.0:
         score = torch.where(excess > 0, fl(fma_f32(excess, -excess, score)), score)
     else:

@@ -47,5 +47,8 @@ def zero_counters(device=None) -> torch.Tensor:
 def add_event(events: torch.Tensor, ev: EV, value) -> torch.Tensor:
     """events with ``value`` (a 0-dim tensor or int) added at ``ev``."""
     out = events.clone()
-    out[int(ev)] += torch.as_tensor(value, device=events.device).to(torch.int32)
+    if isinstance(value, torch.Tensor):
+        out[int(ev)] += value.to(device=events.device, dtype=torch.int32)
+    else:
+        out[int(ev)] += int(value)   # a host int: no copy to the device
     return out

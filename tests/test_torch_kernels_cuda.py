@@ -426,3 +426,160 @@ def test_compute_scores_makes_no_host_sync(cuda, w7):
         torch.cuda.set_sync_debug_mode(0)
     assert out.shape == (n, k) and bool(torch.isfinite(out).all())
     assert bool((out[st.bp > 1.0] != 0).any()) == (w7 != 0.0)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the kernels and the steps inside captured windows
+
+def _capture_cases(cuda):
+    """One call of each of the five kernels on the card, on hazard inputs."""
+    band = next(b for b in FUSED_BANDS if len(b["offsets"]) == 16)
+    n, k = band["n"], len(band["offsets"])
+    rng = np.random.default_rng(7)
+    to = lambda a: None if a is None else a.to(cuda)
+    wire = to(_words(rng, n, k * 6))
+    scores = to(torch.from_numpy(rng.normal(0.0, 20.0, size=(n, k)).astype(np.float32)))
+    live = to(torch.from_numpy((rng.random((n, k)) < 0.8).astype(np.int32)))
+    ex_kw = dict(offsets=band["offsets"], revs=band["revs"], c=6, score_enabled=True)
+    fused = [to(_np_tensor(a)) for a in hazard_fused_args(3, band, 64)]
+    fused_kw = dict(offsets=band["offsets"], revs=band["revs"], w=2, score_enabled=True,
+                    want_cohorts=True, retrans_cap=2)
+    banded = [to(_np_tensor(a)) for a in hazard_banded_args(64, band, 64)]
+    banded[7] = torch.tensor(int(banded[7]), dtype=torch.int32, device=cuda)
+    net = Net.build(topo.to_topology(topo.powerlaw(512, 2.2, 2, 64, seed=0), max_degree=64),
+                    graph.subscribe_all(512, 1), edge_layout="csr", device=cuda)
+    e = net.n_edges
+    csr = [to(x) for x in (_words(rng, 512, 2), _words(rng, e, 2), _words(rng, e, 2),
+                           _words(rng, 512, 2), _words(rng, 512, 2),
+                           torch.from_numpy(rng.integers(-1, 50, size=(512, 64)).astype(np.int32)),
+                           _words(rng, 1, 2))]
+    csr += [torch.tensor(3, dtype=torch.int32, device=cuda), net.csr_col, net.csr_row,
+            net.csr_eperm, net.csr_seg_start, net.csr_row_last, net.csr_row_nonempty,
+            net.csr_row_ptr]
+    rows = [to(torch.from_numpy(a)) for a in (
+        rng.normal(size=(4096, 16)).astype(np.float32), rng.random((4096, 16)) < 0.7,
+        rng.integers(-1, 18, size=(4096,)).astype(np.int32),
+        rng.random((4096, 16)).astype(np.float32))]
+    return {
+        "edge_exchange": lambda: fr.edge_exchange(wire, scores, live, **ex_kw),
+        "fused_delivery": lambda: fr.fused_delivery(*fused, -10.0, -50.0, **fused_kw),
+        "delivery_banded": lambda: db.delivery_banded(
+            *banded, offsets=band["offsets"], revs=band["revs"], w=2),
+        "csr_delivery": lambda: cd.csr_delivery(*csr, cap=net.max_degree),
+        "select_topk": lambda: sk.select_topk(*rows),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["edge_exchange", "fused_delivery", "delivery_banded",
+                                  "csr_delivery", "select_topk"])
+def test_kernel_captured_alone_equals_eager(cuda, name):
+    """Each kernel's launch recorded into a CUDA graph on torch's capturing
+    stream and replayed writes what the eager launch writes."""
+    from torch_parity import graph_replay_equals_eager
+
+    assert graph_replay_equals_eager(_capture_cases(cuda)[name]) == 1
+
+
+def _one_step(cuda, engine):
+    """(state, call) of one step of ``engine`` at N=512 on the card, warmed."""
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n = 512
+    po, pt, pv = (torch.as_tensor(a, device=cuda) for a in sweep.publish_schedule(16, n, 1))
+    if engine == "phase":
+        st, step, _t, _h = sweep.build_bench(n, 64, rounds_per_phase=8, device=cuda)
+        call = lambda s, i: step(s, po[8 * i:8 * i + 8], pt[8 * i:8 * i + 8],
+                                 pv[8 * i:8 * i + 8], do_heartbeat=True)
+    elif engine == "per-round":
+        st, step, _t, _h = sweep.build_bench(n, 64, device=cuda)
+        call = lambda s, i: step(s, po[i], pt[i], pv[i])
+    else:
+        layout, g = ("dense", "lattice") if engine == "floodsub" else ("csr", "powerlaw")
+        st, step = sweep.build_floodsub(n, 64, graph=g, layout=layout, device=cuda)
+        call = lambda s, i: step(s, po[i], pt[i], pv[i])
+    return call(st, 0), call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["phase", "per-round", "floodsub", "floodsub-csr"])
+def test_step_makes_no_host_sync(cuda, engine):
+    """A phase, a per-round step and a FloodSub round (lattice and CSR) run
+    on the card with no host synchronisation, so they can be captured:
+    torch's sync debug mode raises on one (an .item(), a copy of a host
+    value to the card)."""
+    st, call = _one_step(cuda, engine)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = call(st, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "csr"])
+def test_cuda_window_replays_a_graph(cuda, layout):
+    """A phase-engine window on the card is a captured graph, replayed once
+    a block: it counts its replays (a quiet eager loop would count none),
+    its wrappers launched only while the block was captured, and it ends
+    where the eager loop ends, also when a second call continues the
+    first."""
+    from go_libp2p_pubsub_tpu_torch import convert, driver
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n, r = 1024, 8
+    po, pt, pv = sweep.publish_schedule(6 * r, n, 1, None, seed=4)
+
+    def build():
+        return sweep.build_bench(n, 64, edge_layout=layout, fused=layout == "csr",
+                                 rounds_per_phase=r, device=cuda)[:2]
+
+    st, step = build()
+    eager = sweep.run_phases(st, step, po, pt, pv, rounds_per_phase=r, heartbeat_every=r)
+    st, step = build()
+    scan = driver.make_scan(step, heartbeat_every=r, rounds_per_phase=r, unroll=2)
+    fr.reset_launch_counts()
+    sk.reset_launch_counts()
+    st = scan(st, po[:4 * r], pt[:4 * r], pv[:4 * r])
+    launched = fr.LAUNCHES["edge_exchange"] + sk.LAUNCHES["select_topk"]
+    st = scan(st, po[4 * r:], pt[4 * r:], pv[4 * r:])
+    win = scan.window
+    assert win.captures == 1 and win.replays == 2 + 1     # the shorter window reuses it
+    # warm-up and capture launched the block twice; the replays launch
+    # nothing from the host
+    assert fr.LAUNCHES["edge_exchange"] + sk.LAUNCHES["select_topk"] == launched > 0
+    assert launched == 2 * (2 * 8 + (2 * (1 + r) if layout == "dense" else 0))
+    assert win.block_launches["select_topk"] == 2 * 8
+    assert win.block_launches["edge_exchange"] == (2 * (1 + r) if layout == "dense" else 0)
+    a, b = convert.state_leaves(eager), convert.state_leaves(st)
+    for path in a:
+        assert np.array_equal(np.atleast_1d(a[path]).view(np.uint8),
+                              np.atleast_1d(b[path]).view(np.uint8)), path
+
+
+@pytest.mark.cuda
+def test_cuda_window_observe_equals_the_eager_series(cuda):
+    """``observe``'s per-dispatch stack from a captured FloodSub window
+    equals the series of the eager loop, dispatch for dispatch."""
+    from go_libp2p_pubsub_tpu_torch import driver
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n, rounds = 1024, 12
+    po, pt, pv = sweep.publish_schedule(rounds, n, 1, None, seed=3)
+
+    def observe(s):
+        return {"tick": s.tick, "have": s.dlv.have.sum(0, dtype=torch.int32)}
+
+    st, step = sweep.build_floodsub(n, 64, device=cuda)
+    series = []
+    for i in range(rounds):
+        st = step(st, *(torch.as_tensor(a[i], device=cuda) for a in (po, pt, pv)))
+        series.append(observe(st))
+    st, step = sweep.build_floodsub(n, 64, device=cuda)
+    win = driver.make_window(step, observe=observe, unroll=4)
+    _, ys = win(st, (po, pt, pv))
+    assert win.replays == rounds // 4
+    for name in ("tick", "have"):
+        assert torch.equal(ys["obs"][name], torch.stack([x[name] for x in series])), name

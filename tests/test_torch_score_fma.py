@@ -10,7 +10,17 @@ computes those sites with ``ops/fnum.fma_f32``. Here the port's
 ``compute_scores`` must equal the JAX package's, jitted, bit for bit on
 random counters with behaviour penalties past their threshold, and
 ``fma_f32`` must round once, also where a float64 sum would land on a
-float32 midpoint."""
+float32 midpoint.
+
+The same loop fuses every other weighted product into its add: P2, P3
+(the rounded square times the weight; at a weight of -1 the square
+itself), P3b, P4, each topic slot's weighted term into the slot sum, P5
+and P6. Those cells run at N=64, K=8, where XLA's vector loop covers every
+element and the scores are bit-exact. With P5 live, XLA splits the rows
+around the wrap of the banded gather of the application scores off into
+scalar loops, which round the select-guarded squares (P3, P7) that the
+vector loop fuses: there the scores are bit-exact on the interior rows
+and within ``WRAP_ULPS`` of the reference on the wrap rows."""
 
 from __future__ import annotations
 
@@ -113,3 +123,118 @@ def test_compute_scores_equals_reference_past_the_penalty_threshold(n_topics, w7
                             tnet).numpy()
     assert (planes["bp"] > 1.0).mean() > 0.5
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+#: the one tolerance of this file, on ``.scores`` in the wrap rows of a
+#: cell with P5 live (XLA's scalar loops there round what its vector loop
+#: fuses): float32 ulps at the largest magnitude among the score's terms
+#: (a rounding difference inside the sum can cancel into many ulps of a
+#: small result, never into more than an ulp of its largest term)
+WRAP_ULPS = 1
+
+_ZERO_TOPIC = dict(mesh_message_deliveries_weight=0.0, mesh_failure_penalty_weight=0.0,
+                   invalid_message_deliveries_weight=0.0,
+                   mesh_message_deliveries_threshold=20.0)
+_PEER = dict(skip_app_specific=True, behaviour_penalty_weight=-1.0,
+             behaviour_penalty_threshold=1.0, behaviour_penalty_decay=0.9)
+_ALL = dict(_ZERO_TOPIC, first_message_deliveries_weight=0.7,
+            mesh_message_deliveries_weight=-0.6, mesh_failure_penalty_weight=-0.3,
+            invalid_message_deliveries_weight=-0.9, topic_weight=0.3)
+
+#: name -> (topic params, peer params, topics, per-topic overrides)
+FMA_CELLS = {
+    "p2": (dict(_ZERO_TOPIC, first_message_deliveries_weight=0.7), _PEER, 1, {}),
+    "p3": (dict(_ZERO_TOPIC, mesh_message_deliveries_weight=-0.7), _PEER, 1, {}),
+    "p3_at_minus_one": (dict(_ZERO_TOPIC, mesh_message_deliveries_weight=-1.0), _PEER, 1, {}),
+    "p3_mixed_weights": (dict(_ZERO_TOPIC, mesh_message_deliveries_weight=-1.0, topic_weight=0.3),
+                         _PEER, 2, {1: dict(mesh_message_deliveries_weight=-0.7)}),
+    "p3b": (dict(_ZERO_TOPIC, mesh_failure_penalty_weight=-0.7), _PEER, 1, {}),
+    "p4": (dict(_ZERO_TOPIC, invalid_message_deliveries_weight=-0.7), _PEER, 1, {}),
+    "p4_at_minus_one_three_topics": (
+        dict(_ZERO_TOPIC, invalid_message_deliveries_weight=-1.0, topic_weight=0.3), _PEER, 3, {}),
+    "p6_one_topic": (dict(_ZERO_TOPIC, topic_weight=0.3),
+                     dict(_PEER, ip_colocation_factor_weight=-0.7, behaviour_penalty_weight=-0.7),
+                     1, {}),
+    "p6_capped": (dict(_ZERO_TOPIC, topic_weight=0.3),
+                  dict(_PEER, ip_colocation_factor_weight=-0.7, topic_score_cap=5.0), 1, {}),
+    "two_topics": (dict(_ZERO_TOPIC, topic_weight=0.3), _PEER, 2, {}),
+    "three_topics": (dict(_ZERO_TOPIC, topic_weight=0.3), _PEER, 3, {}),
+    "two_topics_mixed_weights": (
+        dict(_ZERO_TOPIC, topic_weight=0.3, first_message_deliveries_weight=0.7), _PEER, 2,
+        {1: dict(topic_weight=0.45, first_message_deliveries_weight=0.2)}),
+    "every_term": (_ALL, dict(_PEER, ip_colocation_factor_weight=-0.4,
+                              behaviour_penalty_weight=-0.8), 2, {}),
+}
+
+#: cells with P5 live: bit-exact off the wrap rows, WRAP_ULPS on them
+P5_CELLS = {
+    "p5_one_topic": (dict(_ZERO_TOPIC, topic_weight=0.3),
+                     dict(_PEER, skip_app_specific=False, app_specific_weight=0.7,
+                          ip_colocation_factor_weight=-0.4), 1, {}),
+    "p5_two_topics": (dict(_ZERO_TOPIC, topic_weight=0.3),
+                      dict(_PEER, skip_app_specific=False, app_specific_weight=0.7,
+                           ip_colocation_factor_weight=-0.4), 2, {}),
+}
+
+
+def _scores(cell, seed, n=64, d=4):
+    """(port scores, jitted reference scores, a float64 bound on the
+    magnitude of the score's largest term) on random counters."""
+    topic_kw, peer_kw, n_topics, per_topic = cell
+    kws = [dict(topic_kw, **per_topic.get(t, {})) for t in range(n_topics)]
+    jsp = JPSP(topics={t: JTSP(**kw) for t, kw in enumerate(kws)}, **peer_kw)
+    tsp = TPSP(topics={t: TTSP(**kw) for t, kw in enumerate(kws)}, **peer_kw)
+    jsub = jgraph.subscribe_all(n, n_topics)
+    jnet = JNet.build(jgraph.ring_lattice(n, d=d), jsub)
+    tnet = TNet.build(tgraph.ring_lattice(n, d=d),
+                      tgraph.Subscriptions(*(np.asarray(getattr(jsub, f)) for f in (
+                          "subscribed", "my_topics", "slot_of"))), device="cpu")
+    s, k = jnet.my_topics.shape[1], 2 * d
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: (rng.random(shape) * 3).astype(np.float32)
+    planes = dict(fmd=f(n, s, k), mmd=f(n, s, k), mfp=f(n, s, k), imd=f(n, s, k), bp=f(n, k))
+    ints = dict(mesh_time=rng.integers(0, 50, (n, s, k)).astype(np.int32),
+                mmd_active=rng.random((n, s, k)) < 0.7)
+    in_mesh = rng.random((n, s, k)) < 0.5
+    p6, app = f(n, k), f(n)
+    jst = je.ScoreState.empty(n, s, k).replace(
+        **{x: jnp.asarray(v) for x, v in {**planes, **ints}.items()})
+    jtp = je.TopicParamsArrays.build(jsp, n_topics).gather(jnet.my_topics)
+    want = np.asarray(jax.jit(lambda st, m, p, a: je.compute_scores(st, m, jtp, jsp, p, a, jnet))(
+        jst, jnp.asarray(in_mesh), jnp.asarray(p6), jnp.asarray(app)))
+    tst = dataclasses.replace(
+        te.ScoreState.empty(n, s, k, "cpu"),
+        **{x: torch.from_numpy(v) for x, v in {**planes, **ints}.items()})
+    ttp = te.TopicParamsArrays.build(tsp, n_topics).gather(tnet.my_topics)
+    got = te.compute_scores(tst, torch.from_numpy(in_mesh), ttp, te.ScoreScalars.build(tsp),
+                            flush_subnormals(torch.from_numpy(p6)), torch.from_numpy(app),
+                            tnet).numpy()
+    # every term at its largest: 3 bounds each counter, 50 the mesh time
+    w = lambda name: max(abs(getattr(TTSP(**kw), name)) for kw in kws)
+    topic = (50 * w("time_in_mesh_weight") + 3 * w("first_message_deliveries_weight")
+             + 400 * w("mesh_message_deliveries_weight")
+             + 3 * w("mesh_failure_penalty_weight") + 9 * w("invalid_message_deliveries_weight"))
+    bound = (n_topics * topic * w("topic_weight")
+             + 3 * (abs(tsp.app_specific_weight) + abs(tsp.ip_colocation_factor_weight))
+             + 4 * abs(tsp.behaviour_penalty_weight))
+    return got, want, bound
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", sorted(FMA_CELLS))
+def test_compute_scores_fuses_every_weighted_term_as_the_reference(name, seed):
+    got, want, _ = _scores(FMA_CELLS[name], seed)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("name", sorted(P5_CELLS))
+def test_compute_scores_with_app_scores_as_the_reference(name):
+    """Bit-exact off the rows XLA splits off around the gather's wrap (the
+    first and last 2d rows of the ring), ``WRAP_ULPS`` on them."""
+    n, d = 64, 4
+    for seed in (0, 1):
+        got, want, bound = _scores(P5_CELLS[name], seed, n=n, d=d)
+        inner = slice(2 * d, n - 2 * d)
+        np.testing.assert_array_equal(got[inner].view(np.uint32), want[inner].view(np.uint32))
+        tol = WRAP_ULPS * float(np.spacing(np.float32(bound)))
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)

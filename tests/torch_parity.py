@@ -429,3 +429,45 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     tcfg = dataclasses.replace(tcfg, count_events=count_events, fanout_slots=0)
     tsp = score(tbsp(n_topics)[1])
     return jcfg, jnet, jsp, tcfg, tnet, tsp
+
+
+def graph_replay_equals_eager(fn) -> int:
+    """Call ``fn()`` (a kernel wrapper on CUDA tensors) eagerly, then capture
+    the same call alone in a CUDA graph (after a warm-up call on a side
+    stream, as ``torch.cuda.graphs`` asks), clear its outputs and replay it.
+    Raises unless the replay writes the eager outputs bit for bit; returns
+    the wrapper launches counted during the capture."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.driver import launch_counts
+
+    def flat(out):
+        if isinstance(out, dict):
+            return [out[k] for k in sorted(out)]
+        if isinstance(out, (tuple, list)):
+            return [t for t in out if t is not None]
+        return [out]
+
+    want = [t.clone() for t in flat(fn())]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = sum(launch_counts().values())
+    with torch.cuda.graph(graph):
+        got = flat(fn())
+    launched = sum(launch_counts().values()) - before
+    for t in got:   # cleared to what the kernel would not write
+        t.fill_(True if t.dtype == torch.bool else 0)
+    graph.replay()
+    torch.cuda.synchronize()
+    if len(got) != len(want):
+        raise AssertionError(f"the replay returned {len(got)} outputs, eager {len(want)}")
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a.dtype.is_floating_point:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"output {i} of the replayed graph differs from the eager call")
+    return launched
