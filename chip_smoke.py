@@ -103,12 +103,28 @@ last line is printed:
 19. the bench CLI's measurement — perf/sweep.measure_rate through
    bench.bench_line (python -m go_libp2p_pubsub_tpu_torch.bench) at a
    segment of 160 rounds, its JSON line printed;
-20. the kernel launches of a traced GossipSub bench round
+20. the bench's eth2 config (N=100k, 64 topics, 2 a peer, 2 fanout slots)
+   and sybil config (N=50k, 20% no-forward sybils, the peer gater, a
+   validation capacity of 8, deficit scoring), each in the per-round step
+   and the phase engine (r=8), eager and through driver.make_scan: every
+   launch count at 0 before a run and checked after it (per round: 1
+   edge_exchange, 1 fused_delivery, 8 select_topk a heartbeat, with eth2 2
+   more a heartbeat and 1 a round or a phase for the publishes' fanout
+   peers; per phase: 1 + r edge_exchange), delivery-rounds/s, peak memory
+   and hand-kernel
+   launches a delivery round; every kernel call of one more eager round or
+   phase against its plain version bit for bit;
+21. both configs card against CPU at N=8192 in both engines (every leaf
+   after each of 12 rounds; after form_mesh and each of 3 phases), and
+   each engine's window against its eager loop on the card;
+22. the bench CLI's line of each config (BENCH_CONFIG=eth2, sybil; the
+   sybil line at the CLI's default N=50k);
+23. the kernel launches of a traced GossipSub bench round
    (perf/profile.py), with those of the score path's subnormal flush
    (hardshrink, copysign) apart, of a traced phase-bench phase per
-   delivery round, and of a traced replay of a windowed phase (--window).
-   It comes last, so that the profiler's tracing cannot touch a rate timed
-   in the same process.
+   delivery round, of a traced replay of a windowed phase (--window), and
+   of a traced round and phase of each config. It comes last, so that the
+   profiler's tracing cannot touch a rate timed in the same process.
 
 It prints the ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
@@ -128,6 +144,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM outside the tensor cores
@@ -839,7 +856,7 @@ def build_powerlaw_gossipsub(sweep, n: int, device, count_events: bool = False):
                           max_degree=sweep.POWERLAW["max_degree"])
     net = Net.build(tp, graph.subscribe_all(n, 1), edge_layout="csr", fused=True,
                     device=device)
-    _tp, sp = sweep.bench_score_params(1)
+    _tp, sp = sweep.bench_score_params("default", 1)
     cfg = GossipSubConfig.build(dataclasses.replace(GossipSubParams(), flood_publish=False),
                                 PeerScoreThresholds(), score_enabled=True,
                                 edge_layout="csr", fused=True)
@@ -869,7 +886,7 @@ def build_subnormal_gossipsub(sweep, n: int, device, cell: str):
     ov = subnormal_overrides(cell, n)
     net = Net.build(graph.ring_lattice(n, d=8), graph.subscribe_all(n, 1),
                     ip_group=ov["ip_group"], device=device)
-    _tp, sp = sweep.bench_score_params(1)
+    _tp, sp = sweep.bench_score_params("default", 1)
     sp = dataclasses.replace(sp, topics={t: dataclasses.replace(p, **ov.get("topic", {}))
                                          for t, p in sp.topics.items()}, **ov.get("peer", {}))
     cfg = GossipSubConfig.build(dataclasses.replace(GossipSubParams(), flood_publish=False),
@@ -917,10 +934,37 @@ def bench_launches(card: str) -> dict:
             "phase_launches_per_round": ph["kernel_launches_per_round"]}
 
 
-def gossip_state_checks(st, net, total: int, where: str, degree_range=None):
+def config_traced_launches(card: str) -> dict:
+    """Phase 23 (after bench_launches): every kernel launch of a traced
+    round of each config's per-round step and of a traced phase of its
+    phase engine, per delivery round (perf/profile.py), at the configs'
+    full sizes."""
+    from go_libp2p_pubsub_tpu_torch.perf import profile
+
+    out = {}
+    for config in ("eth2", "sybil"):
+        n = CONFIG_N[config]
+        pr = profile.profile_rounds(n, warm=4, rounds=4, config=config)
+        ph = profile.profile_rounds(n, warm=2 * PHASE_R, rounds=PHASE_R,
+                                    rounds_per_phase=PHASE_R, config=config)
+        out[config] = (pr["kernel_launches_per_round"], ph["kernel_launches_per_round"])
+        say(f"{config} launches N={n}: {pr['kernel_launches_per_round']:.1f} kernel launches a "
+            f"per-round step round (device busy {pr['device_busy_share_untraced']:.4f} of an "
+            f"untraced round, {pr['untraced_ms_per_round']:.3f} ms), "
+            f"{ph['kernel_launches_per_round']:.1f} a delivery round of the phase engine "
+            f"(r={PHASE_R}; device busy {ph['device_busy_share_untraced']:.4f}, "
+            f"{ph['untraced_ms_per_round']:.3f} ms a round), on {card}")
+    return out
+
+
+def gossip_state_checks(st, net, total: int, where: str, degree_range=None,
+                        every_message: bool = True):
     """tick == total, mesh only on present edges (and, given a range, every
     mesh degree in it), fwd a subset of have, every message 4+ rounds old
-    past its origin. Returns (min, mean, max) mesh degree."""
+    past its origin (with ``every_message`` False, some of them: a topic
+    of eth2's 64 meets few subscribers on the lattice, and a publish with
+    none among the origin's neighbours stays with the origin). Returns
+    (min, mean, max) mesh degree."""
     assert int(st.core.tick) == total, where
     if bool((st.mesh & ~net.nbr_ok[:, None, :]).any()):
         raise AssertionError(f"{where}: a mesh link on an absent edge")
@@ -934,7 +978,8 @@ def gossip_state_checks(st, net, total: int, where: str, degree_range=None):
     reach = (st.core.dlv.first_round >= 0).sum(0)
     born = st.core.msgs.birth
     old = (born >= 0) & (born <= total - 4)
-    if not bool(old.any()) or not bool((reach[old] > 1).all()):
+    spread = (reach[old] > 1).all() if every_message else (reach[old] > 1).any()
+    if not bool(old.any()) or not bool(spread):
         raise AssertionError(f"{where}: a message published 4+ rounds ago reached "
                              "only its origin")
     return dmin, float(deg.float().mean()), dmax
@@ -1320,22 +1365,270 @@ def window_bench(sweep, driver, dev, card, counters, engine: str) -> dict:
     return turns
 
 
-def bench_cli(card: str) -> dict:
-    """Phase 19: the bench CLI's measurement at a segment of
-    ``BENCH_CLI_ROUNDS`` rounds (the CLI's default is 1600), its line
-    printed."""
+def bench_cli(card: str, config: str = "default") -> dict:
+    """Phases 19 and 22: the bench CLI's measurement of ``config`` at a
+    segment of ``BENCH_CLI_ROUNDS`` rounds (the CLI's default is 1600), its
+    line printed (the continuity rate with the default config only)."""
     from go_libp2p_pubsub_tpu_torch import bench
 
     t0 = time.perf_counter()
-    line = bench.bench_line({"BENCH_ROUNDS": str(BENCH_CLI_ROUNDS), "BENCH_CONTINUITY": "1"})
+    cont = "1" if config == "default" else "0"
+    line = bench.bench_line({"BENCH_CONFIG": config, "BENCH_ROUNDS": str(BENCH_CLI_ROUNDS),
+                             "BENCH_CONTINUITY": cont})
     if line.get("schema") != 3 or line.get("unit") != "delivery-rounds/s":
         raise AssertionError(f"bench line: {line}")
-    if not (line["value"] > 0 and line["continuity_r1_ticks_per_sec"] > 0):
+    if not (line["value"] > 0 and (cont == "0" or line["continuity_r1_ticks_per_sec"] > 0)):
         raise AssertionError(f"bench line without rates: {line}")
-    say(f"bench CLI at BENCH_ROUNDS={BENCH_CLI_ROUNDS} (the CLI's default segment is 1600 "
-        f"rounds) in {time.perf_counter() - t0:.1f} s, on {card}:")
+    want_n = 50_000 if config == "sybil" else N_FULL
+    if line["fingerprint"]["config"] != config or line["fingerprint"]["n_peers"] != want_n:
+        raise AssertionError(f"bench line of {config}: {line['fingerprint']}")
+    say(f"bench CLI BENCH_CONFIG={config} at BENCH_ROUNDS={BENCH_CLI_ROUNDS} (the CLI's "
+        f"default segment is 1600 rounds) in {time.perf_counter() - t0:.1f} s, on {card}:")
     say(json.dumps(line))
     return line
+
+
+#: the eth2 and sybil bench configs at the JAX bench's sizes (phases 20-22)
+CONFIG_N = {"eth2": 100_000, "sybil": 50_000}
+CONFIG_FORMATION, CONFIG_MEASURED = 8, 32     # per-round: formation, timed rounds
+CONFIG_PHASES = 4                             # phase engine: timed phases
+CONFIG_PARITY_ROUNDS, CONFIG_PARITY_PHASES = 12, 3
+CONFIG_WINDOW_ROUNDS = 32                     # rounds of each window check (two calls)
+
+
+def config_launches(config: str, engine: str, dispatches: int) -> dict:
+    """The wrapper launches a run of ``dispatches`` rounds (per-round) or
+    phases (phase engine, form_mesh included) of a config must make: per
+    heartbeat 8 selections, 2 more with eth2's fanout (maintenance and
+    gossip), and with eth2 the selection of the publishes' fanout peers,
+    one a round, or one a phase for all its sub-rounds (drawn at the
+    phase head)."""
+    eth2 = config == "eth2"
+    if engine == "per-round":
+        return {"edge_exchange": dispatches, "fused_delivery": dispatches,
+                "csr_delivery": 0, "delivery_banded": 0,
+                "select_topk": dispatches * (SELECTIONS_PER_HEARTBEAT + 3 * eth2)}
+    return {"edge_exchange": dispatches * (1 + PHASE_R), "fused_delivery": 0,
+            "csr_delivery": 0, "delivery_banded": 0,
+            "select_topk": dispatches * (SELECTIONS_PER_HEARTBEAT + 3 * eth2)}
+
+
+def check_config_calls(calls, where: str) -> dict:
+    """Every recorded kernel call against its plain version on the same
+    arguments, bit for bit. Returns {kernel: calls checked}."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
+    from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
+
+    plain = {"edge_exchange": fr.edge_exchange_plain, "fused_delivery": fr.fused_delivery_plain,
+             "select_topk": sk.select_topk_plain}
+    kernel = {"edge_exchange": fr.edge_exchange, "fused_delivery": fr.fused_delivery,
+              "select_topk": sk.select_topk}
+    done = {}
+    for (_mod, name), recorded in calls.items():
+        for args, kw in recorded:
+            ref, got = plain[name](*args, **kw), kernel[name](*args, **kw)
+            torch.cuda.synchronize()
+            if isinstance(ref, dict):
+                keys = sorted(ref)
+                ref, got = [ref[x] for x in keys], [got[x] for x in keys]
+            elif isinstance(ref, tuple):
+                ref, got = list(ref), list(got)
+            else:
+                ref, got = [ref], [got]
+            try:
+                max_abs_err(ref, got)
+            except AssertionError as e:
+                raise AssertionError(f"{where}: {name} {e}") from None
+            done[name] = done.get(name, 0) + 1
+    return done
+
+
+def config_bench(sweep, driver, config: str, engine: str, card, dev, counters) -> dict:
+    """Phase 20: a config at full size in one engine, eager then windowed.
+    Eager: from a fresh state with every launch count at 0, the formation
+    and the timed rounds; the launch, degree and subset checks; then every
+    kernel call of one more round (phase) against its plain version.
+    Windowed: the same build through driver.make_scan, a window that
+    captures, then a timed one. Returns the numbers of both."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
+    from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
+
+    n = CONFIG_N[config]
+    phase = engine == "phase"
+    r = PHASE_R if phase else 1
+    f = PHASE_FORMATION * r if phase else CONFIG_FORMATION
+    m = CONFIG_PHASES * r if phase else CONFIG_MEASURED
+    out = {}
+    for mode in ("eager", "window"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, step, n_topics, honest = sweep.build_bench(n, M_SLOTS, config=config,
+                                                       rounds_per_phase=r, device=dev)
+        setup = time.perf_counter() - t0
+        po, pt, pv = sweep.publish_schedule(f + 2 * m + r, n, n_topics, honest)
+        if phase:
+            eager = lambda st, sl: sweep.run_phases(st, step, po[sl], pt[sl], pv[sl],
+                                                    rounds_per_phase=r, heartbeat_every=r)
+        else:
+            eager = lambda st, sl: sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl])
+        for mod in counters:
+            mod.reset_launch_counts()
+        if phase:
+            st = driver.form_mesh(step, st, rounds_per_phase=r)
+        st = eager(st, slice(0, f))
+        run = eager
+        if mode == "window":
+            scan = (driver.make_scan(step, heartbeat_every=r, rounds_per_phase=r, unroll=2)
+                    if phase else driver.make_scan(step, static_heartbeat=False, unroll=4))
+            run = lambda st, sl: scan(st, po[sl], pt[sl], pv[sl])
+            st = run(st, slice(f, f + m))              # captures the block
+            torch.cuda.synchronize()
+            replays0 = scan.window.replays
+            timed = slice(f + m, f + 2 * m)
+        else:
+            timed = slice(f, f + m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = run(st, timed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = {}
+        for mod in counters:
+            launched.update(mod.LAUNCHES)
+        rounds = timed.stop + (r if phase else 0)
+        tag = f"{config} {engine} {mode}"
+        rec = {"rate": m / dt, "peak": torch.cuda.max_memory_allocated(), "launches": launched,
+               "setup_seconds": setup, "rounds": rounds}
+        if mode == "eager":
+            want = config_launches(config, engine, rounds // r)
+            if launched != want:
+                raise AssertionError(f"{tag} launches {launched}, expected {want}")
+            rec["kernel_launches_per_round"] = sum(launched.values()) / rounds
+        else:
+            win = scan.window
+            rec.update(capture_seconds=win.capture_seconds, replays=win.replays - replays0,
+                       block_dispatches=win.block_dispatches,
+                       block_launches={k: v for k, v in win.block_launches.items() if v})
+            # the host counts move only while a block is captured
+            want = config_launches(config, engine, win.block_dispatches)
+            if rec["block_launches"] != {k: v for k, v in want.items() if v}:
+                raise AssertionError(f"{tag}: a captured block launches "
+                                     f"{rec['block_launches']}, expected {want}")
+            rec["kernel_launches_per_round"] = (sum(rec["block_launches"].values())
+                                                / (win.block_dispatches * r))
+        # ring_lattice(n, d=8) has no absent slot: every edge is present
+        lattice = types.SimpleNamespace(nbr_ok=torch.ones_like(st.mesh[:, 0]))
+        dmin, _mean, dmax = gossip_state_checks(st, lattice, rounds, tag,
+                                                every_message=config != "eth2")
+        extra = ""
+        if config == "eth2":
+            live = int((st.fanout_topic >= 0).sum())
+            if live == 0 or int(st.fanout_peers.sum()) == 0:
+                raise AssertionError(f"{tag}: no fanout slot holds peers")
+            extra = f", {live} live fanout slots"
+        else:
+            g = st.gater
+            extra = (f", gater validate {float(g.validate.sum()):.1f} throttle "
+                     f"{float(g.throttle.sum()):.1f}")
+        unit = "delivery-rounds/s" if phase else "rounds/s (a delivery round each)"
+        say(f"{tag} N={n} K=16 T={n_topics}: {rec['rate']:.3f} {unit} over {m} rounds, peak "
+            f"memory {rec['peak']} bytes ({rec['peak'] / 2**20:.1f} MiB), "
+            f"{rec['kernel_launches_per_round']:.3f} hand-kernel launches a delivery round "
+            f"({'in a captured block' if mode == 'window' else 'counted'}: "
+            f"{rec.get('block_launches', launched)}), mesh degree [{dmin}, {dmax}]{extra}, "
+            f"host set-up {setup:.3f} s, on {card}")
+        if mode == "eager":
+            nxt = slice(timed.stop, timed.stop + r)
+            _st, calls = record_calls(lambda: eager(st, nxt), [
+                (fr, "edge_exchange"), (fr, "fused_delivery"), (sk, "select_topk")])
+            done = check_config_calls(calls, tag)
+            say(f"{tag}: every kernel call of one more {'phase' if phase else 'round'} equal "
+                f"to its plain version bit for bit: {done}")
+            rec["checked_calls"] = done
+            del _st, calls
+        else:
+            del scan, run
+        out[mode] = rec
+        del st, step
+    return out
+
+
+def config_parity(sweep, driver, convert, config: str, dev) -> None:
+    """Phase 21: a config on the card against the CPU (plain versions) at
+    N=8192 from the same seed, events counted — the per-round step every
+    leaf after each round, the phase engine after form_mesh and each phase —
+    then each engine's window against its eager loop on the card, every
+    leaf, in two calls."""
+    import torch
+
+    r = PHASE_R
+    t0 = time.perf_counter()
+    for engine in ("per-round", "phase"):
+        rr = r if engine == "phase" else 1
+        sides, sched = {}, None
+        for d in ("cuda", "cpu"):
+            st, step, n_topics, honest = sweep.build_bench(
+                N_PARITY, M_SLOTS, config=config, count_events=True, rounds_per_phase=rr,
+                device=d)
+            if rr > 1:
+                st = driver.form_mesh(step, st, rounds_per_phase=rr)
+            sides[d] = (st, step)
+            sched = sweep.publish_schedule(
+                max(CONFIG_PARITY_ROUNDS, CONFIG_PARITY_PHASES * r), N_PARITY, n_topics,
+                honest, seed=5)
+        po, pt, pv = sched
+        n_disp = CONFIG_PARITY_PHASES if rr > 1 else CONFIG_PARITY_ROUNDS
+        for i in range(n_disp):
+            sl = slice(i * rr, (i + 1) * rr)
+            for d, (st, step) in list(sides.items()):
+                if rr > 1:
+                    st = sweep.run_phases(st, step, po[sl], pt[sl], pv[sl], rounds_per_phase=rr,
+                                          heartbeat_every=rr)
+                else:
+                    st = sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl])
+                sides[d] = (st, step)
+            leaves_equal(convert.state_leaves(sides["cpu"][0]),
+                         convert.state_leaves(sides["cuda"][0]),
+                         f"{config} {engine} card against CPU, dispatch {i}")
+        del sides
+        say(f"{config} {engine} card == CPU: every leaf equal after each of {n_disp} "
+            f"{'phases of r=8 (after form_mesh)' if rr > 1 else 'rounds'} at N={N_PARITY}")
+        # the window against its eager loop, on the card
+        wr = CONFIG_WINDOW_ROUNDS
+        leaves = []
+        for mode in ("eager", "window"):
+            st, step, n_topics, honest = sweep.build_bench(
+                N_PARITY, M_SLOTS, config=config, count_events=True, rounds_per_phase=rr,
+                device=dev)
+            po, pt, pv = sweep.publish_schedule(wr, N_PARITY, n_topics, honest, seed=6)
+            if rr > 1:
+                st = driver.form_mesh(step, st, rounds_per_phase=rr)
+            if mode == "eager":
+                st = (sweep.run_phases(st, step, po, pt, pv, rounds_per_phase=rr,
+                                       heartbeat_every=rr) if rr > 1
+                      else sweep.run_rounds(st, step, po, pt, pv))
+            else:
+                scan = (driver.make_scan(step, heartbeat_every=rr, rounds_per_phase=rr, unroll=2)
+                        if rr > 1 else driver.make_scan(step, static_heartbeat=False, unroll=4))
+                half = wr // 2
+                st = scan(st, po[:half], pt[:half], pv[:half])
+                st = scan(st, po[half:], pt[half:], pv[half:])
+                torch.cuda.synchronize()
+                if scan.window.replays < 2:
+                    raise AssertionError(f"{config} {engine} window: {scan.window.replays} "
+                                         "graph replays")
+            leaves.append(convert.state_leaves(st))
+            del st, step
+        leaves_equal(leaves[0], leaves[1], f"{config} {engine} window against eager")
+        say(f"{config} {engine} window N={N_PARITY}: equal to the eager loop leaf for leaf "
+            f"after {wr} rounds in two calls")
+    say(f"{config} parity phases: {time.perf_counter() - t0:.1f} s")
 
 
 def leaves_equal(a: dict, b: dict, where: str):
@@ -1602,9 +1895,28 @@ def main() -> int:
     # 19. the bench CLI's line at a shortened segment
     bench_cli(card)
 
-    # 20. launches of a bench round, a phase-bench phase and a windowed
-    # phase, traced
+    # 20-21. the eth2 and sybil configs at full size, both engines, eager
+    # and windowed; card against CPU and windows against their eager loops
+    config_runs = {}
+    for config in ("eth2", "sybil"):
+        for engine in ("per-round", "phase"):
+            config_runs[f"{config} {engine}"] = config_bench(sweep, driver, config, engine,
+                                                             card, dev, counters)
+        config_parity(sweep, driver, convert, config, dev)
+    for rec in records:
+        rec["config_launches"] = {
+            f"{path} {mode}": run["launches" if mode == "eager" else "block_launches"].get(
+                rec["name"], 0)
+            for path, runs in config_runs.items() for mode, run in runs.items()}
+
+    # 22. the bench CLI's line of each config
+    for config in ("eth2", "sybil"):
+        bench_cli(card, config)
+
+    # 23. launches of a bench round, a phase-bench phase and a windowed
+    # phase, traced; then the configs' rounds and phases
     bench_launches(card)
+    config_traced_launches(card)
 
     say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": records}))

@@ -12,8 +12,8 @@ repository root), schema 3, in the same unit: simulated delivery rounds
 ``continuity_r1_ticks_per_sec``, the per-round step (control every round)
 measured in its own window in the same process.
 
-It reads the root bench's variables: ``BENCH_CONFIG`` (``default``; the
-others are not ported), ``BENCH_N`` (100000), ``BENCH_M`` (64),
+It reads the root bench's variables: ``BENCH_CONFIG`` (``default``,
+``eth2`` or ``sybil``), ``BENCH_N`` (100000; 50000 for ``sybil``), ``BENCH_M`` (64),
 ``BENCH_PHASE_R`` (8), ``BENCH_HB`` (r, or 1 at r=1), ``BENCH_ROUNDS`` (1600
 rounds a timed window), ``BENCH_UNROLL`` (rounds a captured block),
 ``BENCH_CONTINUITY`` and ``BENCH_EDGE_LAYOUT`` (``dense`` or ``csr``;
@@ -42,7 +42,7 @@ def bench_line(env=None, device=None) -> dict:
             f"BENCH_PRNG={prng!r}: the port carries threefry2x32 alone (the JAX bench's "
             "default unsafe_rbg cannot be reproduced; ROADMAP 'Held against the reference')")
     config = env.get("BENCH_CONFIG", "default")
-    n_peers = int(env.get("BENCH_N", 100_000))
+    n_peers = int(env.get("BENCH_N", 50_000 if config == "sybil" else 100_000))
     msg_slots = int(env.get("BENCH_M", 64))
     r = int(env.get("BENCH_PHASE_R", 8))
     he = int(env.get("BENCH_HB", r if r > 1 else 1))

@@ -1,5 +1,5 @@
 """Validated parameter dataclasses (the port's own copy of the JAX
-package's ``config.py``, trimmed to what the per-round GossipSub step reads).
+package's ``config.py``, trimmed to what the ported GossipSub steps read).
 
 Mirrors the reference's config mechanism: params structs with
 ``validate()`` — GossipSubParams (gossipsub.go:62-199 with defaults at
@@ -315,6 +315,49 @@ class PeerScoreThresholds:
             raise ConfigError("invalid accept PX threshold; it must be >= 0")
         if self.opportunistic_graft_threshold < 0 or _bad(self.opportunistic_graft_threshold):
             raise ConfigError("invalid opportunistic grafting threshold; it must be >= 0")
+
+
+# ---------------------------------------------------------------------------
+# Peer gater parameters
+
+
+@dataclass
+class PeerGaterParams:
+    """Peer gater (random-early-drop admission control) parameters
+    (peer_gater.go:31-116; defaults :19-28)."""
+
+    threshold: float = 0.33
+    global_decay: float = field(default_factory=lambda: score_parameter_decay(120.0))
+    source_decay: float = field(default_factory=lambda: score_parameter_decay(3600.0))
+    decay_interval: float = DEFAULT_DECAY_INTERVAL
+    decay_to_zero: float = DEFAULT_DECAY_TO_ZERO
+    retain_stats: float = 6 * 3600.0
+    quiet: float = 60.0
+    duplicate_weight: float = 0.125
+    ignore_weight: float = 1.0
+    reject_weight: float = 16.0
+    topic_delivery_weights: Dict[int, float] = field(default_factory=dict)
+
+    def validate(self) -> None:
+        # peer_gater.go:57-88
+        if self.threshold <= 0:
+            raise ConfigError("invalid threshold; must be > 0")
+        if not (0.0 < self.global_decay < 1.0):
+            raise ConfigError("invalid global_decay; must be between 0 and 1")
+        if not (0.0 < self.source_decay < 1.0):
+            raise ConfigError("invalid source_decay; must be between 0 and 1")
+        if self.decay_interval < 1.0:
+            raise ConfigError("invalid decay_interval; must be at least 1s")
+        if not (0.0 < self.decay_to_zero < 1.0):
+            raise ConfigError("invalid decay_to_zero; must be between 0 and 1")
+        if self.quiet < 1.0:
+            raise ConfigError("invalid quiet interval; must be at least 1s")
+        if self.duplicate_weight <= 0:
+            raise ConfigError("invalid duplicate_weight; must be > 0")
+        if self.ignore_weight < 1:
+            raise ConfigError("invalid ignore_weight; must be >= 1")
+        if self.reject_weight < 1:
+            raise ConfigError("invalid reject_weight; must be >= 1")
 
 
 def ticks_for(seconds: float, heartbeat_interval: float) -> int:

@@ -191,3 +191,25 @@ def subscribe_all(n: int, n_topics: int, max_slots: int | None = None) -> Subscr
     my_topics[:, :n_topics] = np.arange(n_topics, dtype=np.int32)[None, :]
     slot_of = np.tile(np.arange(n_topics, dtype=np.int32)[None, :], (n, 1))
     return Subscriptions(subscribed=subscribed, my_topics=my_topics, slot_of=slot_of)
+
+
+def subscribe_random(n: int, n_topics: int, topics_per_peer: int, seed: int = 0,
+                     max_slots: int | None = None) -> Subscriptions:
+    """Each peer subscribes ``topics_per_peer`` uniform-random topics — the
+    Eth2 attestation-subnet shape (BASELINE.json config 5: 64 subnets, a
+    few per validator). The draws are numpy's ``default_rng(seed)``, peer by
+    peer."""
+    if max_slots is None:
+        max_slots = topics_per_peer
+    assert max_slots >= topics_per_peer
+    rng = np.random.default_rng(seed)
+    subscribed = np.zeros((n, n_topics), dtype=bool)
+    my_topics = np.full((n, max_slots), -1, dtype=np.int32)
+    slot_of = np.full((n, n_topics), -1, dtype=np.int32)
+    for i in range(n):
+        picks = rng.choice(n_topics, size=min(topics_per_peer, n_topics), replace=False)
+        picks = np.sort(picks).astype(np.int32)
+        my_topics[i, : len(picks)] = picks
+        subscribed[i, picks] = True
+        slot_of[i, picks] = np.arange(len(picks), dtype=np.int32)
+    return Subscriptions(subscribed=subscribed, my_topics=my_topics, slot_of=slot_of)

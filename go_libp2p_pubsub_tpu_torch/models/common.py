@@ -68,11 +68,19 @@ class RoundInfo:
 def member_msg_words(member: torch.Tensor, msg_topic: torch.Tensor) -> torch.Tensor:
     """[N, W] packed mask: messages whose topic satisfies member[n, topic]
     (padding topics (-1) match nothing) — a masked OR over the topics'
-    message words."""
+    message words. A message has one topic, so the topics' words hold
+    disjoint bits and their OR is their sum, which no carry and no int32
+    overflow can reach: one reduction for any universe (eth2's 64 topics)
+    instead of a chain of ORs. One topic needs no reduction: its words are
+    the answer, and the reduction's launch cost the default bench line
+    0.07% (469.32-469.49 against 469.78-469.82 delivery-rounds/s, three
+    runs each in turns on an H100 at 700 W)."""
     topics = torch.arange(member.shape[1], dtype=torch.int32, device=msg_topic.device)
     tw = bitset.pack(msg_topic[None, :] == topics[:, None])  # [T, W]
     contrib = torch.where(member[:, :, None], tw[None, :, :], 0)
-    return bitset.word_or_reduce(contrib, dim=1)
+    if member.shape[1] == 1:
+        return contrib[:, 0]
+    return contrib.sum(1, dtype=torch.int32)
 
 
 def subscribed_msg_words(net: Net, msgs: MsgTable) -> torch.Tensor:
@@ -99,8 +107,8 @@ def _refuse_unported(forward_mask, queue_cap: int, val_delay_topic) -> None:
     checks = [
         (forward_mask is not None, "forward_mask (the gossipsub forward gate on "
                                    "the shared core) — ROADMAP §1 item 3"),
-        (queue_cap > 0, "queue_cap > 0 (outbound-queue backpressure, "
-                        "bitset.keep_lowest_bits) — ROADMAP §1 item 3"),
+        (queue_cap > 0, "queue_cap > 0 (outbound-queue backpressure) — "
+                        "ROADMAP §1 item 3"),
         (val_delay_topic is not None, "the async-validation pipeline — "
                                       "ROADMAP §1 item 3"),
     ]

@@ -31,7 +31,13 @@ import numpy as np
 import torch
 
 from .. import prng
-from ..config import GossipSubParams, PeerScoreParams, PeerScoreThresholds, ticks_for
+from ..config import (
+    GossipSubParams,
+    PeerGaterParams,
+    PeerScoreParams,
+    PeerScoreThresholds,
+    ticks_for,
+)
 from ..ops import bitset, edges
 from ..ops import fused_round as fr
 from ..ops.fnum import flush_f32
@@ -56,7 +62,7 @@ from ..score.engine import (
     refresh_scores,
     slot_topic_words,
 )
-from ..score.gater import GaterState
+from ..score.gater import GaterState, gater_accept, gater_decay, gater_on_round, source_share
 from ..state import (
     Net,
     SimState,
@@ -107,7 +113,14 @@ class GossipSubConfig:
     score_enabled: bool = False
     flood_publish: bool = False
     do_px: bool = False
-    fanout_slots: int = 2
+    # peer gater and the validation front-end queue (validation.go): 0
+    # capacity = unbounded, and the gater is inert without throttle pressure
+    gater_enabled: bool = False
+    gater_quiet_ticks: int = 60
+    validation_capacity: int = 0  # accepted validations per peer per round
+    # fanout: publishing to unjoined topics (gossipsub.go:981-1002,1517-1554)
+    fanout_slots: int = 2         # concurrent unjoined publish topics a peer
+    fanout_ttl_ticks: int = 60
     count_events: bool = True
     # the phase engine's coalesced control head and stacked accumulators;
     # the JAX package's False form is bit-identical and not ported
@@ -123,7 +136,10 @@ class GossipSubConfig:
     def build(cls, params: GossipSubParams | None = None,
               thresholds: PeerScoreThresholds | None = None,
               score_enabled: bool = False,
-              heartbeat_every: int = 1, edge_layout: str = "dense",
+              heartbeat_every: int = 1,
+              gater_params: PeerGaterParams | None = None,
+              validation_capacity: int = 0,
+              edge_layout: str = "dense",
               fused: bool = False,
               wire_coalesced: bool = True) -> "GossipSubConfig":
         """``edge_layout`` and ``fused`` must match the Net's
@@ -152,6 +168,10 @@ class GossipSubConfig:
             score_enabled=score_enabled,
             flood_publish=p.flood_publish,
             do_px=p.do_px,
+            gater_enabled=gater_params is not None,
+            gater_quiet_ticks=ticks_for(gater_params.quiet, hb) if gater_params else 60,
+            validation_capacity=validation_capacity,
+            fanout_ttl_ticks=ticks_for(p.fanout_ttl, hb),
             edge_layout=edge_layout,
             fused=bool(fused),
             wire_coalesced=bool(wire_coalesced),
@@ -399,14 +419,128 @@ def sender_carry_words(mesh: torch.Tensor, slotw: torch.Tensor) -> torch.Tensor:
     return bitset.word_or_reduce(contrib, dim=1)
 
 
+def fanout_topic_words(fanout_topic: torch.Tensor, msg_topic: torch.Tensor) -> torch.Tensor:
+    """[N,F,W] packed: messages in the topic of fanout slot f."""
+    bits = ((msg_topic[None, None, :] == fanout_topic[:, :, None])
+            & (msg_topic >= 0)[None, None, :])
+    return bitset.pack(bits)
+
+
+def fanout_carry_words(fanout_peers: torch.Tensor, fanout_topic: torch.Tensor,
+                       msg_topic: torch.Tensor) -> torch.Tensor:
+    """[N,K,W]: words each peer pushes on edge k for its fanout topics
+    (gossipsub.go:1000-1002 — fanout peers receive published messages of
+    unjoined topics)."""
+    ftw = fanout_topic_words(fanout_topic, msg_topic)
+    contrib = torch.where(fanout_peers[:, :, :, None], ftw[:, :, None, :], 0)
+    return bitset.word_or_reduce(contrib, dim=1)
+
+
+def _first_index(hit: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis, 0 where none is (the
+    JAX package's ``argmax`` of a bool row), without relying on a backend's
+    tie order."""
+    f = hit.shape[-1]
+    idx = torch.where(hit, torch.arange(f, dtype=torch.int32, device=hit.device), f)
+    return torch.where(hit.any(-1), idx.amin(-1), 0)
+
+
+def fanout_candidates(cfg: GossipSubConfig, net: Net, scores, pub_origin, pub_topic,
+                      nbr_sub_words) -> torch.Tensor:
+    """[..., P, K] bool: the peers a publish may take as fanout peers —
+    connected, mesh-capable, subscribed to the topic, not direct, scored at
+    or above publishThreshold (``pub_*`` [..., P])."""
+    k_dim = net.max_degree
+    o = pub_origin.clamp(min=0).long()
+    t32 = pub_topic.clamp(min=0).to(torch.int32)
+    nbr_subbed = bitset.bit_get(nbr_sub_words[o], t32[..., None].expand(o.shape + (k_dim,)))
+    cand = (nbr_subbed & net.nbr_ok[o]
+            & (net.protocol[net.nbr[o].clamp(min=0).long()] >= 1) & ~net.direct[o])
+    if cfg.score_enabled:
+        cand = cand & (scores[o] >= cfg.publish_threshold)
+    return cand
+
+
+def fanout_selections(cfg: GossipSubConfig, net: Net, scores, pub_origin, pub_topic,
+                      nbr_sub_words, keys) -> torch.Tensor:
+    """[R, P, K]: the D random fanout peers (gossipsub.go:983-998) of R
+    rounds' publishes ``pub_*`` [R, P] at once, row i drawn from
+    ``keys[i]`` (``jax.random`` threefry: ``masked_width_random`` with that
+    key). The candidates read only static views and the scores, which a
+    phase holds fixed, so a phase draws its sub-rounds' at its head."""
+    cand = fanout_candidates(cfg, net, scores, pub_origin, pub_topic, nbr_sub_words)
+    noise = prng.uniform_rows(keys, cand.shape[1:])
+    return select_topk_mask(noise, cand, min(max(cfg.D, 0), net.max_degree))
+
+
+def update_fanout_on_publish(cfg: GossipSubConfig, net: Net, st: "GossipSubState",
+                             pub_origin, pub_topic, sel, tick):
+    """Publishing to an unjoined topic creates or refreshes a fanout slot
+    with the publish's D random eligible peers (``sel`` [P,K], from
+    ``fanout_selections``) and stamps its last publish at ``tick``."""
+    p_dim = pub_origin.shape[0]
+    f_dim = cfg.fanout_slots
+    n_peers = net.n_peers
+    o = pub_origin.clamp(min=0).long()
+    t32 = pub_topic.clamp(min=0).to(torch.int32)
+    t = t32.long()
+    is_pub = pub_origin >= 0
+    joined = net.subscribed[o, t]
+    # floodsub-only origins flood instead of tracking fanout
+    need = is_pub & ~joined & (net.protocol[o] >= 1)
+
+    # the slot: an existing topic match, else the oldest slot; same-round
+    # fresh publishes by one origin land on different slots (each offset by
+    # its rank among that origin's earlier fresh entries)
+    ftop_o = st.fanout_topic[o]                                     # [P,F]
+    match = ftop_o == t32[:, None]
+    has_match = (match & need[:, None]).any(1)
+    match_slot = _first_index(match)
+    age = st.fanout_lastpub[o] + torch.where(ftop_o >= 0, 0, -(2**30))
+    oldest_slot = _first_index(age == age.amin(-1, keepdim=True))
+    fresh = need & ~has_match
+    idx_p = torch.arange(p_dim, device=o.device)
+    same_origin_before = (fresh[None, :] & fresh[:, None] & (o[None, :] == o[:, None])
+                          & (idx_p[None, :] < idx_p[:, None]))
+    fresh_rank = same_origin_before.sum(1, dtype=torch.int32)
+    slot = torch.where(has_match, match_slot, (oldest_slot + fresh_rank) % f_dim)
+
+    # a matched slot whose peer set emptied is repopulated like a fresh one
+    # (gossipsub.go:983-989)
+    held = torch.gather(st.fanout_peers[o], 1, slot.long()[:, None, None].expand(
+        -1, 1, net.max_degree))[:, 0, :].any(-1)
+    fresh = fresh | (has_match & ~held)
+
+    # commit: fresh slots take the selection, matched ones keep theirs; a
+    # fold of P masked selects over the [N, F] planes, ascending, so the
+    # last of duplicate (origin, slot) pairs wins
+    rows = torch.arange(n_peers, dtype=torch.int32, device=o.device)
+    fslots = torch.arange(f_dim, dtype=torch.int32, device=o.device)
+    fanout_topic, fanout_lastpub = st.fanout_topic, st.fanout_lastpub
+    fanout_peers = st.fanout_peers
+    for j in range(p_dim):
+        row_j = torch.where(need[j], pub_origin[j], n_peers)
+        mask = (rows == row_j)[:, None] & (fslots == slot[j])[None, :]      # [N,F]
+        fanout_topic = torch.where(mask, t32[j], fanout_topic)
+        fanout_lastpub = torch.where(mask, tick, fanout_lastpub)
+        fanout_peers = torch.where((mask & fresh[j])[:, :, None], sel[j][None, None, :],
+                                   fanout_peers)
+    return replace(st, fanout_topic=fanout_topic, fanout_lastpub=fanout_lastpub,
+                   fanout_peers=fanout_peers)
+
+
 def gossip_edge_mask(cfg: GossipSubConfig, net: Net, st: GossipSubState,
                      joined_words, acc_msg, slotw, msgs, flood_edges,
                      nbr_score_of_me) -> torch.Tensor:
-    """[N,K,W] edge-carry mask: mesh push (gossipsub.go:981-1002),
+    """[N,K,W] edge-carry mask: mesh and fanout push (gossipsub.go:981-1002),
     floodsub-peer edges (gossipsub.go:973-978) and v1.1 flood-publish of
     origin-sent messages (gossipsub.go:957-963), gated by the receiver's
-    graylist and joined topics. Sender-side packed outbox, one word gather."""
+    graylist, gater and joined topics. Sender-side packed outbox, one word
+    gather."""
     carry_out = sender_carry_words(st.mesh, slotw)
+    if cfg.fanout_slots > 0:
+        carry_out = carry_out | fanout_carry_words(st.fanout_peers, st.fanout_topic,
+                                                   msgs.topic)
     mask = torch.where(net.nbr_ok[:, :, None], net.edge_gather(carry_out), 0)
     mask = mask | torch.where(flood_edges[:, :, None], bitset.ALL, 0).to(torch.int32)
     if cfg.flood_publish:
@@ -457,12 +591,17 @@ def merge_extra_tx(net: Net, msgs, dlv, info: RoundInfo, extra: torch.Tensor,
 
 
 def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
-              sc: ScoreScalars, nbr_sub) -> GossipSubState:
+              sc: ScoreScalars, nbr_sub, gater_params: PeerGaterParams | None = None,
+              nbr_sub_words: torch.Tensor | None = None,
+              mesh_capable: torch.Tensor | None = None) -> GossipSubState:
     """One heartbeat for every peer. The JAX package gates the maintenance
     sub-passes with ``lax.cond`` on "any row needs it"; both branches give
     identical results there, so this runs them unconditionally (no host
     sync). The opportunistic-graft cadence is a real gate and stays one, as
-    a ``torch.where``."""
+    a ``torch.where``. ``nbr_sub_words`` [N,K,Wt] (the neighbours'
+    subscriptions as topic bits) turns on fanout maintenance and gossip,
+    with ``mesh_capable`` [N,K] (the far end speaks a mesh protocol; a
+    static view the step builds once)."""
     tick = st.core.tick
     n, s_dim, k_dim = st.mesh.shape
     key = prng.fold_in(st.core.key, tick)
@@ -495,6 +634,10 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
         scores = compute_scores(score, st.mesh, tp, sc, st.p6, st.app_score, net)
     else:
         scores = st.scores
+
+    # gater counter decay (peer_gater.go:204-216; DecayInterval default ==
+    # the heartbeat interval)
+    gater = gater_decay(st.gater, gater_params) if cfg.gater_enabled else st.gater
 
     # ---- mesh maintenance per (peer, topic-slot) ------------------------
     mesh = st.mesh
@@ -568,6 +711,30 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
         st.backoff_expire)
     backoff_present = backoff_present | toprune
 
+    # ---- fanout maintenance (gossipsub.go:1517-1554) --------------------
+    ft, fpeers, flastpub = st.fanout_topic, st.fanout_peers, st.fanout_lastpub
+    fanout = nbr_sub_words is not None and cfg.fanout_slots > 0
+    if fanout:
+        # expire by FanoutTTL since the last publish (gossipsub.go:1518-1524)
+        f_expired = (ft >= 0) & (flastpub + cfg.fanout_ttl_ticks < tick)
+        ft = torch.where(f_expired, -1, ft)
+        f_live = ft >= 0
+        fpeers = fpeers & f_live[:, :, None]
+        # drop peers below the publish threshold (gossipsub.go:1528-1534)
+        if cfg.score_enabled:
+            fpeers = fpeers & (scores[:, None, :] >= cfg.publish_threshold)
+        # the neighbour subscribes the slot's topic: a topic-bit pick
+        nbr_sub_f = bitset.bit_get(nbr_sub_words[:, None, :, :].expand(
+            -1, ft.shape[1], -1, -1), ft.clamp(min=0)[:, :, None].expand(fpeers.shape))
+        base_f = (nbr_sub_f & mesh_capable[:, None, :] & ~net.direct[:, None, :]
+                  & f_live[:, :, None])
+        cand_f = base_f & ~fpeers
+        if cfg.score_enabled:
+            cand_f = cand_f & (scores[:, None, :] >= cfg.publish_threshold)
+        ineed_f = torch.where(f_live, cfg.D - count_true(fpeers), 0)
+        kf1, kf2 = prng.split(prng.fold_in(key, 11))
+        fpeers = fpeers | masked_width_random(kf1, cand_f, ineed_f, k_dim)
+
     # ---- emitGossip (gossipsub.go:1669-1723) ----------------------------
     gwin = bitset.word_or_reduce(st.mcache[:, : cfg.history_gossip, :], dim=1)
     gossip_cand = connected & nbr_sub & ~mesh & ~net.direct[:, None, :]
@@ -584,6 +751,20 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     slot_tw = slot_topic_words(net, st.core.msgs.topic)
     adv = torch.where(chosen[..., None], (gwin[:, None, :] & slot_tw)[:, :, None, :], 0)
     ihave_out = bitset.word_or_reduce(adv, dim=1)
+
+    # fanout-topic gossip (gossipsub.go:1551-1553; fanout peers excluded)
+    if fanout:
+        gossip_cand_f = base_f & ~fpeers
+        if cfg.score_enabled:
+            gossip_cand_f = gossip_cand_f & (scores[:, None, :] >= cfg.gossip_threshold)
+        n_cand_f = count_true(gossip_cand_f)
+        target_f = torch.where(ft >= 0, torch.clamp(
+            (n_cand_f.to(torch.float32) * float(np.float32(cfg.gossip_factor))).to(torch.int32),
+            min=cfg.Dlazy), 0)
+        chosen_f = masked_width_random(kf2, gossip_cand_f, target_f, k_dim)
+        ftw = fanout_topic_words(ft, st.core.msgs.topic)
+        adv_f = torch.where(chosen_f[..., None], (gwin[:, None, :] & ftw)[:, :, None, :], 0)
+        ihave_out = ihave_out | bitset.word_or_reduce(adv_f, dim=1)
 
     # mcache.Shift (gossipsub.go:1563)
     mcache = torch.cat([torch.zeros_like(st.mcache[:, :1, :]), st.mcache[:, :-1, :]],
@@ -608,6 +789,10 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
         promise_mid=promise_mid,
         score=score,
         scores=scores,
+        gater=gater,
+        fanout_topic=ft,
+        fanout_peers=fpeers,
+        fanout_lastpub=flastpub,
     )
 
 
@@ -636,24 +821,44 @@ class StepConsts:
     nbr_sub_const: torch.Tensor
     flood_from: torch.Tensor
     i_am_floodsub: torch.Tensor
+    # the fanout checks' views (None without fanout slots): the
+    # neighbours' subscriptions as topic bits [N,K,Wt], and whether the far
+    # end speaks a mesh protocol [N,K]
+    nbr_sub_words: torch.Tensor | None
+    mesh_capable: torch.Tensor | None
+    # edge (j, k) carries data only if its sender nbr[j, k] forwards; None
+    # without an adversary vector (every sender forwards)
+    sender_fwd_ok: torch.Tensor | None
     sender_fwd_full: torch.Tensor
     live_u32: torch.Tensor
+    # the gater's per-source share of its counters (score/gater.py); None
+    # without the gater
+    gater_share: object = None
 
 
-def topology_views(net: Net):
-    """(nbr_sub, flood_from): mesh candidates need a mesh-capable far end
-    (gossipsub.go:1374,1692); floodsub-semantics edges face a floodsub-only
-    peer."""
+def topology_views(net: Net, fanout: bool):
+    """(nbr_sub, flood_from, nbr_sub_words, mesh_capable): mesh candidates
+    need a mesh-capable far end (gossipsub.go:1374,1692); floodsub-semantics
+    edges face a floodsub-only peer; with ``fanout`` the neighbours'
+    subscriptions as topic-bit words [N,K,Wt] and the mesh-capable plane
+    serve the fanout checks (None without)."""
     proto_nbr = net.protocol[net.nbr.clamp(min=0).long()]
     mesh_capable = (proto_nbr >= 1) & net.nbr_ok
     nbr_sub = gather_nbr_subscribed(net) & mesh_capable[:, None, :]
     flood_from = (proto_nbr == 0) & net.nbr_ok
-    return nbr_sub, flood_from
+    if not fanout:
+        return nbr_sub, flood_from, None, None
+    subscribed_words = bitset.pack(net.subscribed)                    # [N, Wt]
+    nbr_sub_words = torch.where(net.nbr_ok[:, :, None],
+                                subscribed_words[net.nbr.clamp(min=0).long()], 0)
+    return nbr_sub, flood_from, nbr_sub_words, mesh_capable
 
 
 def prepare_step_consts(cfg: GossipSubConfig, net: Net,
                         score_params: PeerScoreParams | None,
-                        heartbeat_interval: float) -> StepConsts:
+                        heartbeat_interval: float,
+                        gater_params: PeerGaterParams | None = None,
+                        adversary_no_forward: np.ndarray | None = None) -> StepConsts:
     # the layout and the fused flag are one choice per build: the config
     # drives the selections, the net the gathers and the delivery seam
     if cfg.edge_layout != net.edge_layout:
@@ -664,6 +869,10 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
         raise ValueError(
             f"cfg.fused={cfg.fused!r} but the Net was built with "
             f"fused={net.fused!r} — build both with the same flag")
+    if cfg.gater_enabled:
+        if gater_params is None:
+            raise ValueError("cfg.gater_enabled needs gater_params")
+        gater_params.validate()
     if cfg.score_enabled:
         assert score_params is not None
         score_params.validate()
@@ -671,7 +880,15 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
     else:
         score_params = PeerScoreParams(topics={}, skip_app_specific=True)
         tpa = TopicParamsArrays.build(score_params, net.n_topics)
-    nbr_sub, flood_from = topology_views(net)
+    nbr_sub, flood_from, nbr_sub_words, mesh_capable = topology_views(
+        net, cfg.fanout_slots > 0)
+    # the adversary behaviour vector: marked peers run the control plane
+    # but never transmit message data (a build-time constant)
+    if adversary_no_forward is not None:
+        adv = torch.as_tensor(np.asarray(adversary_no_forward, bool), device=net.device)
+        sender_fwd_ok = ~adv[net.nbr.clamp(min=0).long()] & net.nbr_ok
+    else:
+        sender_fwd_ok = None
     return StepConsts(
         scalars=ScoreScalars.build(score_params),
         tp=tpa.gather(net.my_topics),
@@ -679,9 +896,13 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
         nbr_sub_const=nbr_sub,
         flood_from=flood_from,
         i_am_floodsub=net.protocol == 0,
-        sender_fwd_full=torch.ones(net.nbr.shape, dtype=torch.bool,
-                                   device=net.device),
+        nbr_sub_words=nbr_sub_words,
+        mesh_capable=mesh_capable,
+        sender_fwd_ok=sender_fwd_ok,
+        sender_fwd_full=(sender_fwd_ok if sender_fwd_ok is not None else
+                         torch.ones(net.nbr.shape, dtype=torch.bool, device=net.device)),
         live_u32=net.nbr_ok.to(torch.int32),
+        gater_share=source_share(net) if cfg.gater_enabled else None,
     )
 
 
@@ -696,15 +917,76 @@ def flushed_thresholds(cfg: GossipSubConfig) -> GossipSubConfig:
                   "opportunistic_graft_threshold")})
 
 
-def accept_gates(cfg: GossipSubConfig, net: Net, st: GossipSubState):
+def accept_gates(cfg: GossipSubConfig, net: Net, st: GossipSubState,
+                 consts: StepConsts, gater_params: PeerGaterParams | None, tick):
     """AcceptFrom (gossipsub.go:583-594): direct always accepted,
-    graylisted dropped entirely. Returns (acc_ok, acc_msg) [N,K] bool (the
-    same plane without the gater)."""
+    graylisted dropped entirely; the gater's random-early drop takes only
+    the message plane (AcceptControl, peer_gater.go:362). Returns (acc_ok,
+    acc_msg) [N,K] bool."""
     if cfg.score_enabled:
         acc_ok = (st.scores >= cfg.graylist_threshold) | net.direct
     else:
         acc_ok = net.nbr_ok
-    return acc_ok, acc_ok
+    if not cfg.gater_enabled:
+        return acc_ok, acc_ok
+    # a stream of its own: the round key folded with a distinct tag (the
+    # heartbeat takes fold_in(key, tick) directly)
+    gkey = prng.fold_in(prng.fold_in(st.core.key, tick), 0x6A7E)
+    acc_msg = acc_ok & (gater_accept(st.gater, consts.gater_share, gater_params,
+                                     cfg.gater_quiet_ticks, tick, gkey) | net.direct)
+    return acc_ok, acc_msg
+
+
+def apply_validation_throttle(dlv, info: RoundInfo, cap: int, m: int, valid_words):
+    """The validation front-end queue (validation.go:230-244, Push on a full
+    queue => RejectValidationThrottled): each peer admits at most ``cap``
+    new receipts a round, the lowest slots first; the overflow is refused —
+    not marked seen, not forwarded, no score attribution
+    (score.go:745-749,761-767). Returns (dlv, info, accepted_new_words,
+    n_throttled [N] i32)."""
+    entry = info.recv_new_words
+    # the clear-lowest-bit chain for a static cap, not an unpack+cumsum
+    accepted = bitset.keep_lowest_bits(entry, cap, m)
+    refused = entry & ~accepted
+    n_throttled = bitset.popcount(refused)
+    dlv = replace(
+        dlv,
+        have=dlv.have & ~refused,
+        fwd=dlv.fwd & ~refused,
+        first_round=torch.where(bitset.unpack(refused, m), -1, dlv.first_round),
+        fe_words=dlv.fe_words & ~refused[:, None, :],
+    )
+    # accepted-valid deliver; accepted-invalid and throttled trace Reject
+    info = replace(
+        info, new_words=accepted, recv_new_words=accepted,
+        n_deliver=bitset.popcount(accepted & valid_words[None, :]).sum(dtype=torch.int32),
+        n_reject=(bitset.popcount(accepted & ~valid_words[None, :]).sum(dtype=torch.int32)
+                  + n_throttled.sum(dtype=torch.int32)),
+    )
+    return dlv, info, accepted, n_throttled
+
+
+def outcome_planes(trans, pre_have, valid_words, ignored_words):
+    """The gater's per-edge outcome planes of a delivery round: arrivals of
+    messages the receiver held already (duplicate), of ignored messages
+    (ignore) and of the other invalid ones (reject), as (dup, rej, ign)
+    [N,K,W] words (peer_gater.go:365-443)."""
+    return (trans & pre_have[:, None, :],
+            trans & ~(valid_words | ignored_words)[None, None, :],
+            trans & ignored_words[None, None, :])
+
+
+def gater_outcomes(gater: GaterState, fe_words, accepted, valid_words, dup, rej, ign,
+                   n_validated, n_throttled, tick) -> GaterState:
+    """Fold delivery outcomes into the gater's counters (the RawTracer
+    hooks): first arrivals of accepted valid messages deliver, and the
+    ``outcome_planes`` count per edge."""
+    f32 = torch.float32
+    first_arrival = fe_words & accepted[:, None, :] & valid_words[None, None, :]
+    return gater_on_round(
+        gater, n_validated, n_throttled, bitset.popcount(first_arrival).to(f32),
+        bitset.popcount(dup).to(f32), bitset.popcount(rej).to(f32), tick,
+        ignore_inc=bitset.popcount(ign).to(f32))
 
 
 def control_parts(cfg: GossipSubConfig, net: Net, st: GossipSubState):
@@ -804,9 +1086,10 @@ def control_exchange_coalesced(cfg: GossipSubConfig, net: Net, st: GossipSubStat
 
 def live_step_views(net: Net, consts: "StepConsts"):
     """The topology views a step reads (gossipsub.go's live-peer view):
-    (net_l, nbr_sub_l, flood_from_l). With static peers and no PX — the
-    only builds the port makes — they are the build's constants."""
-    return net, consts.nbr_sub_const, consts.flood_from
+    (net_l, nbr_sub_l, flood_from_l, nbr_sub_words_l). With static peers
+    and no PX — the only builds the port makes — they are the build's
+    constants."""
+    return net, consts.nbr_sub_const, consts.flood_from, consts.nbr_sub_words
 
 
 def px_connect(cfg: GossipSubConfig, st: GossipSubState) -> torch.Tensor:
@@ -821,8 +1104,6 @@ def _refuse_unported(cfg: GossipSubConfig):
     that no ported step runs yet)."""
     checks = [
         (cfg.do_px, "do_px (peer exchange) — ROADMAP §1 item 3"),
-        (cfg.fanout_slots > 0, "fanout slots (unjoined-topic publish) — "
-                               "ROADMAP §1 item 3"),
     ]
     for bad, what in checks:
         if bad:
@@ -832,6 +1113,8 @@ def _refuse_unported(cfg: GossipSubConfig):
 def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                         score_params: PeerScoreParams | None = None,
                         heartbeat_interval: float = 1.0,
+                        gater_params: PeerGaterParams | None = None,
+                        adversary_no_forward: np.ndarray | None = None,
                         static_heartbeat: bool = False, **unported):
     """Build the per-round step for a fixed config + topology:
 
@@ -842,18 +1125,25 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     contract do_heartbeat == (tick % heartbeat_every == 0)); otherwise a
     heartbeat_every > 1 step decides on the device and selects leafwise.
 
+    ``gater_params`` (with ``cfg.gater_enabled``) drives the peer gater;
+    ``cfg.validation_capacity`` > 0 the validation throttle; fanout slots
+    (``cfg.fanout_slots``) track publishes to unjoined topics.
+    ``adversary_no_forward`` is a static [N] bool behaviour vector: marked
+    peers run the whole control plane but never transmit message data (the
+    reference suite's ``sybilSquatter``, gossipsub_test.go:1777-1811).
+
     On a banded dense net with K <= 16 the data plane is the two fused
     kernels; on any other net it is the XLA-path composites, and a CSR net's state stays
     CSR-resident between steps. The step is functional: it never writes
     into the state it is given. Options of the JAX step outside the port
-    (chaos, adversary, router, gater, dynamic peers or topology, lifted
-    scores, telemetry) raise, and so do config values outside it (fanout
-    slots, PX)."""
+    (the chaos and adversary planes, the router, dynamic peers or topology,
+    announce holes, lifted scores, telemetry) raise, and so does PX."""
     if unported:
         raise NotImplementedError(
             f"not ported yet: {sorted(unported)} — ROADMAP §1 items 3-6")
     _refuse_unported(cfg)
-    consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval)
+    consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval, gater_params,
+                                 adversary_no_forward)
     cfg = flushed_thresholds(cfg)
     tp = consts.tp
     n_peers, k_dim = net.n_peers, net.max_degree
@@ -890,6 +1180,10 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         st2 = handle_ihave(cfg, net, st2, joined_words, acc_ok, ihave_in_raw)
 
         carry = sender_carry_words(st2.mesh, slotw)
+        if cfg.fanout_slots > 0:
+            # the fanout push joins the mesh push in the kernel's carry
+            carry = carry | fanout_carry_words(st2.fanout_peers, st2.fanout_topic,
+                                               core.msgs.topic)
         origin_w = origin_msg_words(net, core.msgs)
         if cfg.flood_publish:
             # sender-side fold of v1.1 flood-publish (gossipsub.go:957-963)
@@ -966,6 +1260,10 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                                            & recv_ok & net.nbr_ok)
         edge_mask = gossip_edge_mask(cfg, net, st2, joined_words, acc_msg, slotw,
                                      core.msgs, flood_edges, nbr_score_of_me)
+        if consts.sender_fwd_ok is not None:
+            # edges from no-forward peers carry no data
+            edge_mask = torch.where(consts.sender_fwd_ok[:, :, None], edge_mask, 0)
+            iwant_resp = torch.where(consts.sender_fwd_ok[:, :, None], iwant_resp, 0)
         dlv, info = delivery_round(net, core.msgs, core.dlv, edge_mask, core.tick,
                                    count_events=cfg.count_events)
         iwant_resp = torch.where(acc_msg[:, :, None], iwant_resp, 0)
@@ -977,7 +1275,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                do_heartbeat: bool = True) -> GossipSubState:
         core = st.core
         tick = core.tick
-        acc_ok, acc_msg = accept_gates(cfg, net, st)
+        acc_ok, acc_msg = accept_gates(cfg, net, st, consts, gater_params, tick)
 
         # 0b. merged wire exchange: every control outbox crosses the edge
         # involution at once, the score plane beside it
@@ -1007,6 +1305,13 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                 st, st2, joined_words, slotw, acc_ok, acc_msg, ihave_in_raw,
                 nbr_score_of_me)
 
+        # 4b. the validation front-end throttle (validation.go:230-244): it
+        # rewrites the round's have, fwd, first_round and fe planes
+        accepted_new, n_throttled = info.new_words, None
+        if cfg.validation_capacity > 0:
+            dlv, info, accepted_new, n_throttled = apply_validation_throttle(
+                dlv, info, cfg.validation_capacity, core.msgs.capacity, valid_pack)
+
         # 5. score delivery attribution (packed)
         score = st2.score
         if cfg.score_enabled:
@@ -1015,6 +1320,16 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                 dlv.fe_words, dlv.first_round, core.msgs.topic,
                 core.msgs.valid, tick, consts.window_rounds_t,
                 msg_ignored=core.msgs.ignored, slotw=slotw)
+
+        # 5b. the gater's outcome counters (peer_gater.go:365-443)
+        gater = st2.gater
+        if cfg.gater_enabled:
+            if n_throttled is None:
+                n_throttled = torch.zeros((n_peers,), dtype=torch.int32, device=tick.device)
+            dup, rej, ign = outcome_planes(info.trans, core.dlv.have, valid_pack,
+                                           bitset.pack(core.msgs.ignored))
+            gater = gater_outcomes(gater, dlv.fe_words, accepted_new, valid_pack, dup, rej,
+                                   ign, bitset.popcount(accepted_new), n_throttled, tick)
 
         # 6. mcache put: validated new receipts in joined topics
         put = info.new_words & valid_pack[None, :] & joined_words
@@ -1036,6 +1351,13 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         promise_mid = torch.where((st2.promise_mid >= 0) & promise_reused, -1,
                                   st2.promise_mid)
 
+        # 7b. fanout slots for publishes to unjoined topics
+        if cfg.fanout_slots > 0:
+            fkey = prng.fold_in_rows(prng.fold_in_rows(core.key, tick), 0xFA40)
+            sel = fanout_selections(cfg, net, st2.scores, pub_origin[None], pub_topic[None],
+                                    consts.nbr_sub_words, fkey)[0]
+            st2 = update_fanout_on_publish(cfg, net, st2, pub_origin, pub_topic, sel, tick)
+
         if cfg.count_events:
             events = accumulate_round_events(events, info,
                                              is_pub.sum(dtype=torch.int32))
@@ -1053,11 +1375,13 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             prune_px_out=torch.zeros_like(prune_resp),
             edge_live=edge_live_next,
             score=score,
+            gater=gater,
         )
 
         # 8. heartbeat
         def hb(s):
-            return heartbeat(cfg, net, s, tp, consts.scalars, consts.nbr_sub_const)
+            return heartbeat(cfg, net, s, tp, consts.scalars, consts.nbr_sub_const,
+                             gater_params, consts.nbr_sub_words, consts.mesh_capable)
 
         if cfg.heartbeat_every == 1:
             st2 = hb(st2)

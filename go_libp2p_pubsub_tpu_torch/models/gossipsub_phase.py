@@ -40,6 +40,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import prng
 from ..ops import bitset
 from ..ops import fused_round as fr
 from ..score.engine import on_deliveries, slot_topic_words
@@ -51,8 +52,12 @@ from .gossipsub import (
     GossipSubState,
     _refuse_unported,
     accept_gates,
+    apply_validation_throttle,
     control_exchange_coalesced,
+    fanout_carry_words,
+    fanout_selections,
     flushed_thresholds,
+    gater_outcomes,
     handle_graft_prune,
     handle_ihave,
     heartbeat,
@@ -60,22 +65,23 @@ from .gossipsub import (
     joined_msg_words,
     live_step_views,
     merge_extra_tx,
+    outcome_planes,
     prepare_step_consts,
     px_connect,
     sender_carry_words,
+    update_fanout_on_publish,
 )
 
 #: keyword options of the JAX package's make_gossipsub_phase_step that the port
 #: refuses, and where they land
 UNPORTED = {
-    "gater_params": "the peer gater — ROADMAP §1 item 3",
     "dynamic_peers": "dynamic peers (apply_peer_transitions) — ROADMAP §1 item 3",
     "sub_knowledge_holes": "announce-visibility holes — ROADMAP §1 item 3",
     "lift_scores": "the lifted score plane — ROADMAP §1 item 3",
-    "adversary_no_forward": "the adversary behaviour vector — ROADMAP §1 item 5",
     "adversary": "the adversary plane — ROADMAP §1 item 5",
     "telemetry": "the telemetry panel — ROADMAP §1 item 5",
 }
+
 
 class PhaseAdmissionError(ValueError):
     """The phase's publish schedule can re-allocate a message slot within
@@ -158,6 +164,7 @@ def check_admission(r: int, pub_width: int, msg_slots: int) -> None:
 
 def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                               score_params=None, heartbeat_interval: float = 1.0,
+                              gater_params=None, adversary_no_forward=None,
                               score_counts: bool | None = None,
                               exact_counters: bool = False,
                               admission_capped: bool = False, **unported):
@@ -172,13 +179,24 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
     with the phase's last tick. ``pub_valid`` is bool (accept or reject)
     or ``state.VERDICT_*`` codes.
 
+    The gater (``gater_params`` with ``cfg.gater_enabled``) draws its
+    accept plane once a phase, at the head, and folds the phase's outcomes
+    into its counters at the tail; the validation throttle
+    (``cfg.validation_capacity``) runs every sub-round; fanout slots move
+    at every sub-round's publishes. ``adversary_no_forward`` ([N] bool) marks
+    peers that run the control plane but never transmit data: their rows
+    of every sub-round's transmit composition and their IWANT service are
+    zero.
+
     Attribution planes whose weights are zero for every topic are not
     carried (the JAX package's static elision: scores are bit-identical,
     the unread mmd/imd counters are not); ``exact_counters=True`` carries
     them all. ``admission_capped=True`` certifies that the caller caps
     admitted publishes at ``msg_slots // 2`` a phase and drops the
     admission check. ``cfg.wire_coalesced=False``, the count path
-    (``score_counts=True``) and the JAX function's other options raise."""
+    (``score_counts=True``) and the JAX function's other options (dynamic
+    peers, announce holes, lifted scores, the chaos adversary plane,
+    telemetry) raise."""
     r = int(rounds_per_phase)
     if r < 1:
         raise ValueError(f"rounds_per_phase must be >= 1, got {r}")
@@ -196,7 +214,10 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         raise NotImplementedError(
             "not ported yet: score_counts=True (the per-slot count attribution "
             "path) — ROADMAP §1 item 3")
-    consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval)
+    consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval, gater_params,
+                                 adversary_no_forward)
+    adv_self = (torch.as_tensor(np.asarray(adversary_no_forward, bool), device=net.device)
+                if adversary_no_forward is not None else None)
     cfg = flushed_thresholds(cfg)
     tp, wrt = consts.tp, consts.window_rounds_t
     n_peers, k_dim = net.n_peers, net.max_degree
@@ -222,7 +243,7 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
 
     def _phase(st: GossipSubState, pub_origin, pub_topic, pub_valid,
                do_heartbeat: bool) -> GossipSubState:
-        net_l, nbr_sub_l, flood_from_l = live_step_views(net, consts)
+        net_l, nbr_sub_l, flood_from_l, nbr_sub_words_l = live_step_views(net, consts)
         core = st.core
         tick0 = core.tick
         m = core.msgs.capacity
@@ -232,7 +253,7 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             check_admission(r, pub_origin.shape[-1], m)
 
         # ---- control head (once a phase) --------------------------------
-        acc_ok, acc_msg = accept_gates(cfg, net_l, st)
+        acc_ok, acc_msg = accept_gates(cfg, net_l, st, consts, gater_params, tick0)
         (graft_in_raw, prune_in_raw, ihave_in_raw, nbr_score_of_me,
          window_g) = control_exchange_coalesced(cfg, net_l, st)
         st2, prune_resp, n_graft, n_prune = handle_graft_prune(
@@ -245,6 +266,9 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                                           window_g=window_g)
         st2 = handle_ihave(cfg, net_l, st2, joined_msg_words(net_l, core.msgs), acc_ok,
                            ihave_in_raw)
+        if consts.sender_fwd_ok is not None:
+            # no-forward peers serve no IWANT either
+            iwant_resp = torch.where(consts.sender_fwd_ok[:, :, None], iwant_resp, 0)
         iwant_resp = torch.where(acc_msg[:, :, None], iwant_resp, 0)
 
         # phase-fixed data-plane constants: mesh, scores and accept gates
@@ -262,17 +286,32 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         msgs, dlv = core.msgs, core.dlv
         mcache = st2.mcache
         keep_acc = torch.full((w,), bitset.ALL, dtype=torch.int32, device=dev)
-        # the attribution planes the phase tail reads (the JAX package also
-        # folds a fresh-receipt and an accepted plane, which only its
-        # async-validation pipeline and its gater read)
+        # the attribution planes the phase tail reads: with inline
+        # validation the JAX package's fresh-receipt and accepted planes
+        # are this one "new" plane (the throttle leaves entry == accepted)
         specs = []
-        if plane_score:
+        if plane_score or cfg.gater_enabled:
             specs.append(("new", 1))
-            if p4_live:
-                specs.append(("trans", k_dim))
-            if p3_live:
-                specs.append(("mcw", k_dim))
+        if plane_score and p4_live:
+            specs.append(("trans", k_dim))
+        if plane_score and p3_live:
+            specs.append(("mcw", k_dim))
+        if cfg.gater_enabled:
+            specs += [("dup", k_dim), ("rejw", k_dim), ("ignw", k_dim)]
+            n_validated = torch.zeros((n_peers,), dtype=torch.int32, device=dev)
+            n_throttled = torch.zeros((n_peers,), dtype=torch.int32, device=dev)
         accs = _AccStack(specs, n_peers, w, dev)
+        # fanout: the slots' topics, peers and last publishes move at every
+        # sub-round's publishes
+        fanout_st = st2
+        if cfg.fanout_slots > 0:
+            # every sub-round's fanout selection drawn at the head, each from
+            # its own tick's key: the candidates read only static views and
+            # the phase-fixed scores
+            ticks = tick0 + torch.arange(r, dtype=torch.int32, device=dev)
+            fkeys = prng.fold_in_rows(prng.fold_in_rows(core.key, ticks), 0xFA40)
+            fsel = fanout_selections(cfg, net_l, st2.scores, pub_origin, pub_topic,
+                                     nbr_sub_words_l, fkeys)
         if cfg.count_events:
             zero = torch.zeros((), dtype=torch.int32, device=dev)
             cnt = dict(n_deliver=zero, n_reject=zero, n_duplicate=zero, n_rpc=zero,
@@ -293,14 +332,21 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
 
             # sender-side transmit composition, one crossing a sub-round
             carry = sender_carry_words(mesh2, slotw) | flood_words
+            if cfg.fanout_slots > 0:
+                carry = carry | fanout_carry_words(
+                    fanout_st.fanout_peers, fanout_st.fanout_topic, msgs.topic)
             if cfg.flood_publish:
                 # v1.1 flood-publish, sender side (gossipsub.go:957-963)
                 carry = carry | torch.where(send_score_ok[:, :, None],
                                             origin_w[:, None, :], 0)
             send = carry & dlv.fwd[:, None, :] & ~dlv.fe_words
+            if adv_self is not None:
+                # no-forward peers run control but never transmit data
+                send = torch.where(adv_self[:, None, None], 0, send)
             trans = cross_data(send, recv_gate)
             trans = trans & (joined_w & ~origin_w)[:, None, :]
 
+            pre_have = dlv.have if cfg.gater_enabled else None
             dlv, info = finish_delivery(net_l, msgs, dlv, trans, tick_i,
                                         count_events=cfg.count_events)
             if i == 0:
@@ -308,20 +354,28 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                 dlv, info = merge_extra_tx(net_l, msgs, dlv, info, iwant_resp, tick_i,
                                            count_events=cfg.count_events)
             valid_w_i = plan.valid_words[i]
+            if cfg.validation_capacity > 0:
+                dlv, info, _accepted, n_thr = apply_validation_throttle(
+                    dlv, info, cfg.validation_capacity, m, valid_w_i)
 
             # attribution: one stacked OR a sub-round
             upd = {}
-            if plane_score:
+            if "new" in accs.offs:
                 upd["new"] = info.new_words
-                if p4_live:
-                    upd["trans"] = info.trans
-                if p3_live:
-                    # the P3 window at this arrival's own tick
-                    # (score.go:944-974)
-                    window = wrt[msgs.topic.clamp(min=0).long()]
-                    within_i = bitset.pack((dlv.first_round >= 0)
-                                           & ((tick_i - dlv.first_round) <= window[None, :]))
-                    upd["mcw"] = info.trans & within_i[:, None, :]
+            if plane_score and p4_live:
+                upd["trans"] = info.trans
+            if plane_score and p3_live:
+                # the P3 window at this arrival's own tick (score.go:944-974)
+                window = wrt[msgs.topic.clamp(min=0).long()]
+                within_i = bitset.pack((dlv.first_round >= 0)
+                                       & ((tick_i - dlv.first_round) <= window[None, :]))
+                upd["mcw"] = info.trans & within_i[:, None, :]
+            if cfg.gater_enabled:
+                upd["dup"], upd["rejw"], upd["ignw"] = outcome_planes(
+                    info.trans, pre_have, valid_w_i, bitset.pack(msgs.ignored))
+                n_validated = n_validated + bitset.popcount(info.new_words)
+                if cfg.validation_capacity > 0:
+                    n_throttled = n_throttled + n_thr
             accs.or_(upd)
             if cfg.count_events:
                 for name in cnt:
@@ -363,6 +417,9 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             accs.keep(keep_w)
             if cfg.count_events:
                 n_pub = n_pub + is_pub.sum(dtype=torch.int32)
+            if cfg.fanout_slots > 0:
+                fanout_st = update_fanout_on_publish(
+                    cfg, net_l, fanout_st, pub_origin[i], pub_topic[i], fsel[i], tick_i)
 
         # ---- phase tail (once) ------------------------------------------
         msgs = plan.msgs_at(r)
@@ -380,6 +437,11 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                 dlv.fe_words, dlv.first_round, msgs.topic, msgs.valid, tick_last, wrt,
                 msg_ignored=msgs.ignored, slotw=slot_topic_words(net_l, msgs.topic),
                 mesh_credit_words=accs.get("mcw", zkw))
+        gater = st2.gater
+        if cfg.gater_enabled:
+            gater = gater_outcomes(gater, dlv.fe_words, accs.get("new"),
+                                   bitset.pack(msgs.valid), accs.get("dup"), accs.get("rejw"),
+                                   accs.get("ignw"), n_validated, n_throttled, tick_last)
         if cfg.count_events:
             zw = torch.zeros((n_peers, w), dtype=torch.int32, device=dev)
             events = accumulate_round_events(
@@ -399,9 +461,17 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             prune_px_out=torch.zeros_like(prune_resp),
             edge_live=edge_live_next,
             score=score,
+            gater=gater,
+            fanout_topic=fanout_st.fanout_topic,
+            fanout_peers=fanout_st.fanout_peers,
+            fanout_lastpub=fanout_st.fanout_lastpub,
         )
+        # the head's state rode the loop for its fanout planes only: let its
+        # other planes go before the heartbeat
+        del fanout_st
         if do_heartbeat:
-            st2 = heartbeat(cfg, net_l, st2, tp, consts.scalars, nbr_sub_l)
+            st2 = heartbeat(cfg, net_l, st2, tp, consts.scalars, nbr_sub_l, gater_params,
+                            nbr_sub_words_l, consts.mesh_capable)
         return replace(st2, core=replace(st2.core, tick=tick0 + r))
 
     if net.edge_layout == "csr":

@@ -133,6 +133,48 @@ def prefix_cap_bits(words: torch.Tensor, cap: torch.Tensor,
     return pack(keep)
 
 
+def keep_lowest_bits(words: torch.Tensor, cap: int, m: int | None = None) -> torch.Tensor:
+    """Keep only the first ``cap`` set bits (lowest slots) of each packed
+    row, for a STATIC cap: ``cap`` steps of the clear-lowest-bit chain
+    (``w & (w - 1)`` on each row's lowest nonzero word) — word-sized
+    elementwise ops, no ``[.., m]`` unpack and no cumsum. After ``cap``
+    clears the remainder is exactly the overflow, and keep = words & ~rem.
+    Equal to ``prefix_cap_bits`` with a full(cap) plane; above 64 steps it
+    is that form. ``m`` (the valid bit count) clears the padding bits of
+    the last word first, which the chain would otherwise count."""
+    w_dim = words.shape[-1]
+    if m is not None and m % WORD != 0:
+        words = words & pack(torch.arange(w_dim * WORD, device=words.device) < m)
+    if cap <= 0:
+        return torch.zeros_like(words)
+    if cap >= w_dim * WORD:
+        return words
+    if cap > 64:
+        return prefix_cap_bits(words, torch.full(words.shape[:-1], cap, dtype=torch.int32,
+                                                 device=words.device), w_dim * WORD)
+    if w_dim <= 2:
+        # a row of one or two words is one 64-bit number whose lowest set
+        # bit is the lowest nonzero word's: x & (x - 1) clears it
+        x = words[..., 0].to(torch.int64) & _M32
+        if w_dim == 2:
+            x = x | (words[..., 1].to(torch.int64) << 32)
+        for _ in range(cap):
+            x = x & (x - 1)
+        rem = [to_word(x)] + ([to_word(x >> 32)] if w_dim == 2 else [])
+        return words & ~torch.stack(rem, dim=-1)
+    rem = words
+    for _ in range(cap):
+        nz = rem != 0
+        # the row's lowest nonzero word: nonzero, and no nonzero word below
+        first = nz
+        if w_dim > 1:
+            below = torch.cat([torch.zeros_like(nz[..., :1]),
+                               torch.cumsum(nz, -1, dtype=torch.int32)[..., :-1] > 0], -1)
+            first = nz & ~below
+        rem = torch.where(first, rem & (rem - 1), rem)
+    return words & ~rem
+
+
 def first_set_per_bit(words: torch.Tensor, dim: int = 1) -> torch.Tensor:
     """Keep, per bit, only its lowest index along ``dim`` (the lowest edge
     slot carrying each message) — a static accumulator chain."""

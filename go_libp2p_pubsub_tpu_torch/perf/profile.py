@@ -1,11 +1,14 @@
 """Where a round spends its time on the card.
 
     python -m go_libp2p_pubsub_tpu_torch.perf.profile [--n 100000]
-        [--engine gossipsub|floodsub] [--layout dense|csr]
+        [--engine gossipsub|floodsub] [--config default|eth2|sybil]
+        [--layout dense|csr]
         [--rounds-per-phase 1] [--warm 16] [--rounds 16] [--window]
         [--out PATH]
 
-Builds the bench's default GossipSub config — banded dense, or with
+Builds a bench GossipSub config (``--config``, the default one unless
+given; its publish schedule with the config's topics and honest origins) —
+banded dense, or with
 ``--layout csr`` the bench's CSR variant (CSR-resident, ``fused=True``);
 the per-round step, or with ``--rounds-per-phase`` r > 1 the phase engine
 (its mesh formed first, then whole phases: ``--warm`` and ``--rounds``
@@ -66,12 +69,12 @@ def _union_us(intervals) -> float:
 
 def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
                    layout: str = "dense", rounds_per_phase: int = 1,
-                   window: bool = False) -> dict:
+                   window: bool = False, config: str = "default") -> dict:
     r = int(rounds_per_phase)
     if engine == "gossipsub":
         st, step, n_topics, honest = sweep.build_bench(
-            n, 64, edge_layout=layout, fused=layout == "csr", rounds_per_phase=r,
-            device="cuda")
+            n, 64, config=config, edge_layout=layout, fused=layout == "csr",
+            rounds_per_phase=r, device="cuda")
     else:
         if r > 1:
             raise ValueError("the phase engine is GossipSub's")
@@ -141,7 +144,7 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
             op = f"{e.name} {e.input_shapes}"
             by[op] = by.get(op, 0.0) + kern.duration
     return {
-        "engine": engine, "layout": layout, "n_peers": n, "rounds": rounds,
+        "engine": engine, "config": config, "layout": layout, "n_peers": n, "rounds": rounds,
         "rounds_per_phase": r, "window": bool(window),
         "graph_replays_per_window": replays,
         "block_launches": None if scan is None else dict(scan.window.block_launches),
@@ -171,6 +174,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--engine", choices=("gossipsub", "floodsub"), default="gossipsub")
+    ap.add_argument("--config", choices=sweep.CONFIGS, default="default")
     ap.add_argument("--layout", choices=("dense", "csr"), default="dense")
     ap.add_argument("--rounds-per-phase", type=int, default=1)
     ap.add_argument("--warm", type=int, default=16)
@@ -186,7 +190,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     rep = profile_rounds(args.n, args.warm, args.rounds, args.engine, args.layout,
-                         args.rounds_per_phase, window=args.window)
+                         args.rounds_per_phase, window=args.window, config=args.config)
     rep["card"] = card
     print(card)
     print(f"{rep['engine']} {rep['layout']} r={rep['rounds_per_phase']} N={rep['n_peers']} over {rep['rounds']} rounds: untraced "

@@ -1,20 +1,23 @@
 """Bench workloads built on the port, and the loop that drives them with
 the bench's publish schedule:
 
-* ``build_bench`` — the ``default`` configuration of the JAX package's
-  ``perf/sweep.build_bench`` (GossipSub v1.1, one topic every peer
-  subscribes, live scoring, ``ring_lattice(n, d=8)`` so K=16, 4 publishes
-  per round), banded dense or, with ``edge_layout="csr"``, CSR-resident,
-  built with the ``fused`` flag the config and the Net share: the per-round
-  step, or with ``rounds_per_phase`` > 1 the phase engine ``bench.py``
-  measures (r=8 there), driven by ``run_phases``;
+* ``build_bench`` — the three configurations of the JAX package's
+  ``perf/sweep.build_bench`` (GossipSub v1.1, live scoring,
+  ``ring_lattice(n, d=8)`` so K=16, 4 publishes per round): ``default``
+  (one topic every peer subscribes), ``eth2`` (64 topics, 2 a peer, fanout)
+  and ``sybil`` (one topic, 20% no-forward sybils, the peer gater, the
+  validation throttle and deficit scoring); banded dense or, with
+  ``edge_layout="csr"``, CSR-resident, built with the ``fused`` flag the
+  config and the Net share: the per-round step, or with
+  ``rounds_per_phase`` > 1 the phase engine ``bench.py`` measures (r=8
+  there), driven by ``run_phases``;
 * ``build_floodsub`` — FloodSub on one topic every peer joins, over the
   same lattice or the capacity-bounded power-law graph, in the dense or
   the CSR layout;
 * ``measure_rate``, ``metric_name``, ``workload_fingerprint`` — the bench
-  line of ``python -m go_libp2p_pubsub_tpu_torch.bench``: the ``default``
-  config driven through ``driver.make_scan`` (a captured CUDA graph a block
-  on the card), as the JAX package's bench drives its compiled windows."""
+  line of ``python -m go_libp2p_pubsub_tpu_torch.bench``: a config driven
+  through ``driver.make_scan`` (a captured CUDA graph a block on the card),
+  as the JAX package's bench drives its compiled windows."""
 
 from __future__ import annotations
 
@@ -27,7 +30,13 @@ import torch
 
 from .. import graph as graphlib
 from .. import topo
-from ..config import GossipSubParams, PeerScoreParams, PeerScoreThresholds, TopicScoreParams
+from ..config import (
+    GossipSubParams,
+    PeerGaterParams,
+    PeerScoreParams,
+    PeerScoreThresholds,
+    TopicScoreParams,
+)
 from ..models.floodsub import floodsub_step
 from ..driver import heartbeat_schedule
 from ..models.gossipsub import GossipSubConfig, GossipSubState, make_gossipsub_step
@@ -42,30 +51,36 @@ PUBS_PER_ROUND = 4
 #: one way at every N, to the same bits)
 SCATTER_ALLOC_MIN_N = 20_000
 
-#: bench configs of the JAX package the port does not build yet
-UNPORTED_CONFIGS = {
-    "eth2": "eth2 needs fanout — ROADMAP §1 item 3",
-    "sybil": "sybil needs the peer gater and the adversary plane — ROADMAP §1 items 3 and 5",
-}
+#: the bench configs (the JAX package's perf/sweep.build_bench)
+CONFIGS = ("default", "eth2", "sybil")
+
+#: the sybil config's share of no-forward peers
+SYBIL_FRACTION = 0.2
 
 
-def _refuse_config(config: str) -> None:
-    if config in UNPORTED_CONFIGS:
-        raise NotImplementedError(f"bench config {config!r} is not ported yet: "
-                                  f"{UNPORTED_CONFIGS[config]}")
-    if config != "default":
-        raise ValueError(f"unknown bench config {config!r}")
+def _check_config(config: str) -> None:
+    if config not in CONFIGS:
+        raise ValueError(f"unknown bench config {config!r}; one of {CONFIGS}")
 
 
-def bench_score_params(n_topics: int):
-    """The ``default`` config's score parameterization: an honest net, so
-    the delivery deficit is off and every publish is valid (P4 never
-    fires). Returns (TopicScoreParams, PeerScoreParams)."""
-    tp = TopicScoreParams(
-        mesh_message_deliveries_weight=0.0,
-        mesh_failure_penalty_weight=0.0,
-        invalid_message_deliveries_weight=0.0,
-    )
+def bench_score_params(config: str, n_topics: int):
+    """The per-config score parameterization. ``sybil`` turns the delivery
+    deficit on (the sybils are what scoring must catch); the honest
+    configs turn it off, and every publish being valid, P4 with it.
+    Returns (TopicScoreParams, PeerScoreParams)."""
+    if config == "sybil":
+        tp = TopicScoreParams(
+            mesh_message_deliveries_weight=-0.5,
+            mesh_message_deliveries_threshold=4.0,
+            mesh_message_deliveries_activation=10.0,
+            mesh_message_deliveries_window=2.0,
+        )
+    else:
+        tp = TopicScoreParams(
+            mesh_message_deliveries_weight=0.0,
+            mesh_failure_penalty_weight=0.0,
+            invalid_message_deliveries_weight=0.0,
+        )
     sp = PeerScoreParams(
         topics={t: tp for t in range(n_topics)},
         skip_app_specific=True,
@@ -76,39 +91,69 @@ def bench_score_params(n_topics: int):
     return tp, sp
 
 
+def bench_topics(config: str) -> int:
+    """The config's topic universe: eth2's 64 attestation subnets, else 1."""
+    return 64 if config == "eth2" else 1
+
+
 def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                 config: str = "default", count_events: bool = False,
                 edge_layout: str = "dense", fused: bool = False,
                 rounds_per_phase: int = 1, heartbeat_every: int | None = None,
                 device=None):
-    """Build (state, step, n_topics, honest) for the ``default`` bench
-    config, tracer detached (no event counters unless ``count_events``),
-    no fanout slots (every peer joins the topic). ``edge_layout`` and
-    ``fused`` go to both ``Net.build`` and ``GossipSubConfig.build``, as in
-    the JAX package. ``rounds_per_phase`` > 1 builds the phase engine with a
-    heartbeat every ``heartbeat_every`` rounds (default: every phase, as
-    ``bench.py`` runs it); 1 builds the per-round step (a heartbeat every
-    round by default; every ``heartbeat_every`` rounds with a required
-    ``do_heartbeat`` otherwise)."""
-    _refuse_config(config)
+    """Build (state, step, n_topics, honest) for a bench config, tracer
+    detached (no event counters unless ``count_events``):
+
+    * ``default`` — one topic every peer subscribes, no fanout slots (fanout
+      cannot occur when every peer joins the topic);
+    * ``eth2`` — 64 topics, each peer in 2 random ones (``subscribe_random``
+      with the seed), 2 fanout slots: the Eth2 attestation-subnet geometry
+      (BASELINE.json config #5);
+    * ``sybil`` — one topic, 20% of the peers (``default_rng(seed)``) no-forward
+      sybils, ``PeerGaterParams()``, ``validation_capacity=8`` and deficit
+      scoring (BASELINE.json config #4); ``honest`` lists the other peers,
+      the only publish origins (a sybil would drop its own publish).
+
+    ``edge_layout`` and ``fused`` go to both ``Net.build`` and
+    ``GossipSubConfig.build``, as in the JAX package. ``rounds_per_phase`` >
+    1 builds the phase engine with a heartbeat every ``heartbeat_every``
+    rounds (default: every phase, as ``bench.py`` runs it); 1 builds the
+    per-round step (a heartbeat every round by default; every
+    ``heartbeat_every`` rounds with a required ``do_heartbeat`` otherwise)."""
+    _check_config(config)
     dev = resolve_device(device)
     tp = graphlib.ring_lattice(n_peers, d=8)
-    n_topics = 1
-    subs = graphlib.subscribe_all(n_peers, 1)
+    n_topics = bench_topics(config)
+    if config == "eth2":
+        subs = graphlib.subscribe_random(n_peers, n_topics=n_topics, topics_per_peer=2,
+                                         seed=seed)
+    else:
+        subs = graphlib.subscribe_all(n_peers, 1)
     net = Net.build(tp, subs, edge_layout=edge_layout, fused=fused, device=dev)
     params = dataclasses.replace(GossipSubParams(), flood_publish=False)
-    _tp, sp = bench_score_params(n_topics)
+    _tp, sp = bench_score_params(config, n_topics)
+    gater = PeerGaterParams() if config == "sybil" else None
+    adversary = None
+    if config == "sybil":
+        adversary = np.random.default_rng(seed).random(n_peers) < SYBIL_FRACTION
     r = int(rounds_per_phase)
     he = (r if r > 1 else 1) if heartbeat_every is None else int(heartbeat_every)
     cfg = GossipSubConfig.build(params, PeerScoreThresholds(), score_enabled=True,
-                                heartbeat_every=he, edge_layout=edge_layout, fused=fused)
-    cfg = dataclasses.replace(cfg, count_events=count_events, fanout_slots=0)
+                                heartbeat_every=he, gater_params=gater,
+                                validation_capacity=8 if config == "sybil" else 0,
+                                edge_layout=edge_layout, fused=fused)
+    cfg = dataclasses.replace(cfg, count_events=count_events,
+                              fanout_slots=cfg.fanout_slots if config == "eth2" else 0)
     st = GossipSubState.init(net, msg_slots, cfg, score_params=sp, seed=seed)
     if r > 1:
-        step = make_gossipsub_phase_step(cfg, net, r, score_params=sp)
+        step = make_gossipsub_phase_step(cfg, net, r, score_params=sp, gater_params=gater,
+                                         adversary_no_forward=adversary)
     else:
-        step = make_gossipsub_step(cfg, net, score_params=sp, static_heartbeat=he > 1)
-    return st, step, n_topics, None
+        step = make_gossipsub_step(cfg, net, score_params=sp, gater_params=gater,
+                                   adversary_no_forward=adversary,
+                                   static_heartbeat=he > 1)
+    honest = np.flatnonzero(~adversary) if adversary is not None else None
+    return st, step, n_topics, honest
 
 
 #: the power-law graph of the CSR runs: topo.powerlaw's defaults, the
@@ -219,18 +264,22 @@ def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_ev
                          unroll: int | None = None, edge_layout: str = "dense",
                          device=None) -> dict:
     """The bench line's self-description, field for field the JAX
-    package's for the configs the port builds. ``platform`` is ``cuda`` and
-    the card's name (``cpu`` on the CPU), ``prng_impl`` the port's one
-    generator, ``n_devices`` 1. ``permute_sets_per_phase`` counts the phase
-    engine's edge crossings a phase: the coalesced control head and one
-    data crossing a sub-round (``edge_exchange`` launches 1 + r times a
-    phase on the banded lattice)."""
+    package's. ``platform`` is ``cuda`` and the card's name (``cpu`` on the
+    CPU), ``prng_impl`` the port's one generator, ``n_devices`` 1.
+    ``permute_sets_per_phase`` counts the phase engine's edge crossings a
+    phase: the coalesced control head and one data crossing a sub-round
+    (``edge_exchange`` launches 1 + r times a phase on the banded lattice).
+    Two fields are the port's own: ``incr_members`` (its phase engine
+    carries the membership planes incrementally for any topic universe)
+    and, for ``eth2`` and ``sybil``, ``permute_sets_per_phase`` (the JAX
+    package crosses the edges once more a phase, for the heartbeat's
+    neighbour-protocol view or the gater's source groups; the port builds
+    both once, with the step, as static views)."""
     from .artifacts import CHAOS_OFF, PARAMS_FINGERPRINT, ROUTER_V11, execution_fingerprint
 
-    _refuse_config(config)
-    n_topics = 1
-    _tp, sp = bench_score_params(n_topics)
-    tp = sp.topics[0]
+    _check_config(config)
+    n_topics = bench_topics(config)
+    tp, sp = bench_score_params(config, n_topics)
     r = int(rounds_per_phase)
     phase = r > 1
     p3_elided = (tp.mesh_message_deliveries_weight == 0.0
@@ -243,8 +292,8 @@ def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_ev
         "msg_slots": int(msg_slots),
         "degree": 16,
         "n_topics": n_topics,
-        "topics_per_peer": 1,
-        "adversary_fraction": 0.0,
+        "topics_per_peer": 2 if config == "eth2" else 1,
+        "adversary_fraction": SYBIL_FRACTION if config == "sybil" else 0.0,
         "rounds_per_phase": r,
         "heartbeat_every": int(heartbeat_every),
         "pubs_per_round": PUBS_PER_ROUND,
@@ -262,10 +311,10 @@ def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_ev
             "mode": "phase" if phase else "per_round",
             "wire_coalesced": True,
             "edge_layout": edge_layout,
-            "gater": False,
-            "validation_capacity": 0,
+            "gater": config == "sybil",
+            "validation_capacity": 8 if config == "sybil" else 0,
             "count_events": False,
-            "fanout_slots": 0,
+            "fanout_slots": 2 if config == "eth2" else 0,
             "scatter_publish_alloc": bool(phase and n_peers >= SCATTER_ALLOC_MIN_N),
             # incremental membership planes: the port's phase engine keeps
             # them for any topic universe, the JAX package's up to 8 topics

@@ -6,8 +6,9 @@
 ``cells`` times the host-bound cells of ``chip_smoke.py`` as it does
 (phases 4, 6, 10 and 13: the per-round bench and the CSR bench, 16 + 64
 rounds; the phase bench, ``form_mesh`` + 2 + 8 phases; FloodSub on the
-lattice, 80 rounds), with the port of the checkout at ``--tree`` (this
-one by default), so a parent checkout (``git archive``) and this one can
+lattice, 80 rounds) and the peak device memory of each (``<cell>_peak``,
+reset before the cell's build), with the port of the checkout at
+``--tree`` (this one by default), so a parent checkout (``git archive``) and this one can
 be run in alternation on one card. ``eager-bench`` runs the bench line's
 measurement (``perf/sweep.measure_rate``: the same build, schedule,
 1600-round windows, a warm window, the best of 3, each ending in the tick
@@ -34,6 +35,7 @@ def cells(sweep, driver, torch) -> dict:
     f, t = 16, 64
     po, pt, pv = sweep.publish_schedule(f + t + 1, N, 1, None)
     for name, kw in (("bench", {}), ("csr_bench", dict(edge_layout="csr", fused=True))):
+        torch.cuda.reset_peak_memory_stats()
         st, step, _t, _h = sweep.build_bench(N, M, device=dev, **kw)
         st = sweep.run_rounds(st, step, po[:f], pt[:f], pv[:f])
         torch.cuda.synchronize()
@@ -41,9 +43,11 @@ def cells(sweep, driver, torch) -> dict:
         st = sweep.run_rounds(st, step, po[f:f + t], pt[f:f + t], pv[f:f + t])
         torch.cuda.synchronize()
         out[name] = t / (time.perf_counter() - t0)
+        out[f"{name}_peak"] = torch.cuda.max_memory_allocated()
         del st, step
     r = 8
     po, pt, pv = sweep.publish_schedule(11 * r, N, 1, None)
+    torch.cuda.reset_peak_memory_stats()
     st, step, _t, _h = sweep.build_bench(N, M, rounds_per_phase=r, device=dev)
 
     def run(st, sl):
@@ -56,6 +60,7 @@ def cells(sweep, driver, torch) -> dict:
     st = run(st, slice(2 * r, 10 * r))
     torch.cuda.synchronize()
     out["phase_bench"] = 8 * r / (time.perf_counter() - t0)
+    out["phase_bench_peak"] = torch.cuda.max_memory_allocated()
     del st, step
     po, pt, pv = sweep.publish_schedule(80, N, 1, None)
     st, step = sweep.build_floodsub(N, M, graph="lattice", layout="dense", device=dev)

@@ -90,3 +90,30 @@ def uniform(k: torch.Tensor, shape) -> torch.Tensor:
     bits = random_bits(k, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def fold_in_rows(k: torch.Tensor, data) -> torch.Tensor:
+    """``fold_in`` over rows at once: ``k`` one key ``[2]`` or R keys
+    ``[R, 2]``, ``data`` an integer tensor ``[R]`` or one Python int.
+    Returns the R keys ``[R, 2]``, row i equal to ``fold_in(k_i, data_i)``."""
+    k = k.reshape(-1, 2)
+    if isinstance(data, torch.Tensor):
+        d = data.to(device=k.device, dtype=torch.int64).reshape(-1) & _M32
+    else:
+        d = torch.full((k.shape[0],), int(data) & _M32, dtype=torch.int64, device=k.device)
+    y0, y1 = threefry2x32(k[:, 0], k[:, 1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def uniform_rows(keys: torch.Tensor, shape) -> torch.Tensor:
+    """``[R, *shape]``: row i is ``uniform(keys[i], shape)``, all rows in
+    one pass."""
+    shape = tuple(int(s) for s in shape)
+    n = 1
+    for s in shape:
+        n *= s
+    lo = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
+    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(lo), lo)
+    bits = (b1 ^ b2).reshape((keys.shape[0],) + shape)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0

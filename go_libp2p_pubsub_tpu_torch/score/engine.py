@@ -218,7 +218,8 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
     Every product that XLA:CPU's vector loop contracts into the add that
     consumes it is one fused multiply-add here: P2, P3 (its rounded square
     times the weight; at a uniform weight of -1 the square itself), P3b,
-    P4 (likewise, but its square is fused at -1 only past one topic slot),
+    P4 (likewise, but with one topic slot its square is rounded apart at -1
+    in rows of 5 to 8 neighbour slots),
     each topic slot's weighted term into the slot sum, P5, P6 and P7. Where
     both operands of an add are products (one topic slot, no cap, P5 off:
     the slot's weighted term meets P6's product) the compiler fuses the
@@ -237,7 +238,12 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
         p3 = torch.where(p3_on, fl(deficit * deficit), 0.0)
         topic = _mul_add(p3, e(tp["w3"]), u["w3"], topic)
     topic = _mul_add(st.mfp, e(tp["w3b"]), u["w3b"], topic)
-    if u["w4"] == -1.0 and topic.shape[1] > 1:
+    # at -1 XLA:CPU fuses P4's square past one topic slot; with one slot it
+    # rounds the square apart in rows of 5 to 8 neighbour slots and fuses
+    # it in narrower and wider rows (ROADMAP §3: the columns past a wide
+    # row's last whole 8-column chunk are the residue)
+    k_dim = topic.shape[-1]
+    if u["w4"] == -1.0 and (topic.shape[1] > 1 or not 5 <= k_dim <= 8):
         topic = fl(fma_f32(st.imd, -st.imd, topic))
     else:
         topic = _mul_add(fl(st.imd * st.imd), e(tp["w4"]), u["w4"], topic)

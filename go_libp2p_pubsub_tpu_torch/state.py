@@ -472,15 +472,12 @@ def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
                        pub_origin: torch.Tensor, pub_topic: torch.Tensor,
                        pub_valid: torch.Tensor):
     """Intern this round's publishes (``pub_valid`` bool: accept or
-    reject) into table slots (rotating cursor),
+    reject, or ``VERDICT_*`` codes) into table slots (rotating cursor),
     clearing recycled slots' bit columns everywhere, and mark each origin's
     own message seen and scheduled for forwarding.
 
     Returns (msgs, dlv, slots, is_pub, keep_words, pub_words)."""
-    if pub_valid.dtype != torch.bool:
-        raise NotImplementedError(
-            "integer verdict codes (ACCEPT/REJECT/IGNORE) are not ported yet; "
-            "pass bool accept flags — ROADMAP §1 item 3")
+    accept, ignored = decode_verdicts(pub_valid)
     m = msgs.capacity
     dev = dlv.have.device
     is_pub = pub_origin >= 0
@@ -502,8 +499,8 @@ def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
         topic=_scatter_drop(msgs.topic, sidx, pub_topic),
         origin=_scatter_drop(msgs.origin, sidx, pub_origin),
         birth=_scatter_drop(msgs.birth, sidx, tick.expand(pub_topic.shape)),
-        valid=_scatter_drop(msgs.valid, sidx, pub_valid),
-        ignored=_scatter_drop(msgs.ignored, sidx, torch.zeros_like(pub_valid)),
+        valid=_scatter_drop(msgs.valid, sidx, accept),
+        ignored=_scatter_drop(msgs.ignored, sidx, ignored),
         cursor=msgs.cursor + count,
     )
 

@@ -1,9 +1,10 @@
 """The port's bench line (``python -m go_libp2p_pubsub_tpu_torch.bench``)
-against the JAX package's: the metric name and the workload fingerprint of
-the ``default`` config equal the JAX package's field for field, apart from
-``platform``, ``prng_impl`` and ``n_devices``; ``measure_rate`` and the
-whole line run on the CPU at a small N; the configs and generators the
-port does not carry raise.
+against the JAX package's: the metric names and the workload fingerprints
+of the ``default``, ``eth2`` and ``sybil`` configs equal the JAX package's
+field for field, apart from ``platform``, ``prng_impl`` and ``n_devices``
+and the fields ``PORT_FIELDS`` names; ``measure_rate`` and the whole line
+run on the CPU at a small N, for every config; the generators the port
+does not carry raise.
 
 The JAX test harness has eight virtual devices, under which the JAX
 package records a peer mesh for an N that is a multiple of 8; an N that is
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import json
 
+import numpy as np
 import pytest
 
 from go_libp2p_pubsub_tpu.perf import sweep as jsweep
@@ -22,25 +24,108 @@ from go_libp2p_pubsub_tpu_torch.perf import sweep as tsweep
 
 OWN_FIELDS = ("platform", "prng_impl", "n_devices")
 
+#: fields where the port's phase engine differs from the JAX package's, by
+#: config: ``incr_members`` (the port carries the membership planes
+#: incrementally for any topic universe, the JAX package up to 8 topics)
+#: and ``permute_sets_per_phase`` (the JAX package crosses the edges once
+#: more a phase, for the heartbeat's neighbour-protocol view with fanout or
+#: the gater's source groups; the port builds both once, with the step)
+PORT_FIELDS = {"default": (), "eth2": ("incr_members", "permute_sets_per_phase"),
+               "sybil": ("permute_sets_per_phase",)}
 
+
+@pytest.mark.parametrize("config", ["default", "eth2", "sybil"])
 @pytest.mark.parametrize("n,r", [(100_000, 8), (12_345, 16), (50_000, 1)])
-def test_metric_name_equals_reference(n, r):
-    assert tsweep.metric_name("default", n, r) == jsweep.metric_name("default", n, r)
+def test_metric_name_equals_reference(n, r, config):
+    assert tsweep.metric_name(config, n, r) == jsweep.metric_name(config, n, r)
 
 
+@pytest.mark.parametrize("config", ["default", "eth2", "sybil"])
 @pytest.mark.parametrize("r,he,seg,unroll", [(8, 8, 1600, 16), (1, 1, None, None),
                                              (4, 8, 800, 16)])
-def test_fingerprint_equals_reference(r, he, seg, unroll):
-    n = 100_001
-    want = jsweep.workload_fingerprint("default", n, 64, he, r, seg_rounds=seg, unroll=unroll)
-    got = tsweep.workload_fingerprint("default", n, 64, he, r, seg_rounds=seg, unroll=unroll,
+def test_fingerprint_equals_reference(r, he, seg, unroll, config):
+    n = 50_001 if config == "sybil" else 100_001
+    want = jsweep.workload_fingerprint(config, n, 64, he, r, seg_rounds=seg, unroll=unroll)
+    got = tsweep.workload_fingerprint(config, n, 64, he, r, seg_rounds=seg, unroll=unroll,
                                       device="cpu")
     assert got["platform"] == "cpu" and got["prng_impl"] == "threefry2x32"
     assert got["n_devices"] == 1
     for f in OWN_FIELDS:
         want.pop(f, None)
         got.pop(f)
+    if r > 1:
+        # the port's own fields, named above: the port's values
+        for f in PORT_FIELDS[config]:
+            if f == "incr_members":
+                assert got["engine"][f] and not want["engine"][f]
+                want["engine"][f] = got["engine"][f]
+            else:
+                assert got[f] == r + 1 and want[f] == r + 2
+                want[f] = got[f]
     assert got == want
+
+
+@pytest.mark.parametrize("config", ["eth2", "sybil"])
+def test_bench_line_of_each_config_on_the_cpu(config):
+    """The eth2 and sybil lines at a small N: schema 3, the metric the JAX
+    bench names, the config's fingerprint; the sybil line's N defaults to
+    50,000 as the root bench's does."""
+    env = {"BENCH_CONFIG": config, "BENCH_N": "512", "BENCH_ROUNDS": "8",
+           "BENCH_CONTINUITY": "0"}
+    line = bench.bench_line(env, device="cpu")
+    assert line["schema"] == 3 and line["value"] > 0
+    assert line["metric"] == jsweep.metric_name(config, 512, 8)
+    fp = line["fingerprint"]
+    assert fp["config"] == config and fp["n_peers"] == 512
+    assert fp["engine"]["gater"] == (config == "sybil")
+    assert fp["engine"]["fanout_slots"] == (2 if config == "eth2" else 0)
+
+
+def test_sybil_default_n(monkeypatch):
+    seen = {}
+
+    def fake_measure(config, n_peers, *a, **kw):
+        seen[config] = n_peers
+        return None
+
+    monkeypatch.setattr(tsweep, "measure_rate", fake_measure)
+    for config in ("default", "eth2", "sybil"):
+        bench.bench_line({"BENCH_CONFIG": config, "BENCH_CONTINUITY": "0"}, device="cpu")
+    assert seen == {"default": 100_000, "eth2": 100_000, "sybil": 50_000}
+
+
+def test_build_bench_configs_equal_the_reference():
+    """The eth2 and sybil builds take the JAX package's settings: the
+    same subscriptions, gater parameters, throttle capacity, fanout slots
+    and TTL, and (sybil) the same adversary draw, so the same honest
+    publish origins."""
+    import dataclasses
+
+    from go_libp2p_pubsub_tpu import config as jconfig
+    from go_libp2p_pubsub_tpu import graph as jgraph
+    from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubConfig as JCfg
+    from go_libp2p_pubsub_tpu_torch import config as tconfig
+    from go_libp2p_pubsub_tpu_torch import graph as tgraph
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import GossipSubConfig as TCfg
+
+    js, ts = jgraph.subscribe_random(300, 64, 2, seed=3), tgraph.subscribe_random(300, 64, 2, seed=3)
+    for f in ("subscribed", "my_topics", "slot_of"):
+        assert np.array_equal(np.asarray(getattr(js, f)), getattr(ts, f)), f
+    jg, tg = jconfig.PeerGaterParams(), tconfig.PeerGaterParams()
+    assert dataclasses.asdict(jg) == dataclasses.asdict(tg)
+    jc = JCfg.build(jconfig.GossipSubParams(), jconfig.PeerScoreThresholds(), score_enabled=True,
+                    gater_params=jg, validation_capacity=8)
+    tc = TCfg.build(tconfig.GossipSubParams(), tconfig.PeerScoreThresholds(), score_enabled=True,
+                    gater_params=tg, validation_capacity=8)
+    for f in dataclasses.fields(TCfg):
+        assert getattr(jc, f.name) == getattr(tc, f.name), f.name
+    for config, slots in (("eth2", 2), ("sybil", 0), ("default", 0)):
+        _jst, _jstep, jt, jhonest = jsweep.build_bench(256, 64, config=config)
+        tst, _tstep, tt, thonest = tsweep.build_bench(256, 64, config=config, device="cpu")
+        assert jt == tt and tst.fanout_topic.shape == (256, slots)
+        assert (jhonest is None) == (thonest is None) == (config != "sybil")
+        if config == "sybil":
+            assert np.array_equal(jhonest, thonest) and 0.7 < len(thonest) / 256 < 0.9
 
 
 def test_bench_line_on_the_cpu():
@@ -66,14 +151,6 @@ def test_measure_rate_on_the_cpu():
                                            device="cpu")
     assert rate > 0 and n == 1024 and u == 4
     assert scan.window.replays == 0        # the CPU runs the plain loop
-
-
-@pytest.mark.parametrize("config", ["eth2", "sybil"])
-def test_unported_configs_raise(config):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bench.bench_line({"BENCH_CONFIG": config, "BENCH_N": "1024"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsweep.workload_fingerprint(config, 1024, 64, 8, 8, device="cpu")
 
 
 @pytest.mark.parametrize("prng", ["unsafe_rbg", "rbg"])

@@ -146,11 +146,15 @@ def test_unported_options_raise():
     import dataclasses
 
     _jcfg, _jnet, _jsp, tcfg, tnet, tsp = bench_builds(n=N, d=4)
-    for kw in ({"fanout_slots": 2}, {"do_px": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmake(dataclasses.replace(tcfg, **kw), tnet, score_params=tsp)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake(tcfg, tnet, score_params=tsp, gater_params=object())
+        tmake(dataclasses.replace(tcfg, do_px=True), tnet, score_params=tsp)
+    for kw in ({"dynamic_peers": True}, {"telemetry": object()}, {"adversary": object()},
+               {"lift_scores": True}, {"sub_knowledge_holes": object()}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmake(tcfg, tnet, score_params=tsp, **kw)
+    # the gater needs its parameters
+    with pytest.raises(ValueError, match="gater_params"):
+        tmake(dataclasses.replace(tcfg, gater_enabled=True), tnet, score_params=tsp)
     from go_libp2p_pubsub_tpu_torch import graph
     from go_libp2p_pubsub_tpu_torch.state import Net
 
@@ -177,10 +181,12 @@ def test_unported_options_raise():
                 "edge_layout") == "csr" else "csr"}):
             with pytest.raises(ValueError, match="same"):
                 tmake(dataclasses.replace(cfg, **bad), other, score_params=tsp)
-    with pytest.raises(NotImplementedError, match="verdict"):
-        step = tmake(tcfg, tnet, score_params=tsp)
-        st = TState.init(tnet, 64, tcfg, score_params=tsp)
-        z = torch.zeros(4, dtype=torch.int32)
-        step(st, z, z, z)
+    # integer verdict codes: accept, reject, ignore
+    step = tmake(tcfg, tnet, score_params=tsp)
+    st = TState.init(tnet, 64, tcfg, score_params=tsp)
+    z = torch.zeros(4, dtype=torch.int32)
+    st = step(st, z, z, torch.tensor([0, 1, 2, 0], dtype=torch.int32))
+    assert st.core.msgs.valid[:4].tolist() == [True, False, False, True]
+    assert st.core.msgs.ignored[:4].tolist() == [False, False, True, False]
     st = TState.init(tnet, 64, tcfg, score_params=tsp)
     assert st.mesh.shape == (N, 1, 8)

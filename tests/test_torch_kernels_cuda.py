@@ -482,17 +482,26 @@ def test_kernel_captured_alone_equals_eager(cuda, name):
 
 
 def _one_step(cuda, engine):
-    """(state, call) of one step of ``engine`` at N=512 on the card, warmed."""
+    """(state, call) of one step of ``engine`` at N=512 on the card, warmed
+    (``phase`` and ``per-round`` take a bench config after a dash)."""
     from go_libp2p_pubsub_tpu_torch.perf import sweep
 
     n = 512
-    po, pt, pv = (torch.as_tensor(a, device=cuda) for a in sweep.publish_schedule(16, n, 1))
-    if engine == "phase":
-        st, step, _t, _h = sweep.build_bench(n, 64, rounds_per_phase=8, device=cuda)
+    kind, _, config = engine.partition("-")
+    if kind in ("phase", "per"):
+        config = config.replace("round", "").lstrip("-") or "default"
+        n_topics = sweep.bench_topics(config)
+        r = 8 if kind == "phase" else 1
+        st, step, _t, honest = sweep.build_bench(n, 64, config=config, rounds_per_phase=r,
+                                                 device=cuda)
+    else:
+        n_topics, honest = 1, None
+    po, pt, pv = (torch.as_tensor(a, device=cuda)
+                  for a in sweep.publish_schedule(16, n, n_topics, honest))
+    if kind == "phase":
         call = lambda s, i: step(s, po[8 * i:8 * i + 8], pt[8 * i:8 * i + 8],
                                  pv[8 * i:8 * i + 8], do_heartbeat=True)
-    elif engine == "per-round":
-        st, step, _t, _h = sweep.build_bench(n, 64, device=cuda)
+    elif kind == "per":
         call = lambda s, i: step(s, po[i], pt[i], pv[i])
     else:
         layout, g = ("dense", "lattice") if engine == "floodsub" else ("csr", "powerlaw")
@@ -502,12 +511,14 @@ def _one_step(cuda, engine):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("engine", ["phase", "per-round", "floodsub", "floodsub-csr"])
+@pytest.mark.parametrize("engine", ["phase", "per-round", "floodsub", "floodsub-csr",
+                                    "phase-eth2", "phase-sybil", "per-round-eth2",
+                                    "per-round-sybil"])
 def test_step_makes_no_host_sync(cuda, engine):
-    """A phase, a per-round step and a FloodSub round (lattice and CSR) run
-    on the card with no host synchronisation, so they can be captured:
-    torch's sync debug mode raises on one (an .item(), a copy of a host
-    value to the card)."""
+    """A phase, a per-round step (the default, eth2 and sybil configs) and
+    a FloodSub round (lattice and CSR) run on the card with no host
+    synchronisation, so they can be captured: torch's sync debug mode
+    raises on one (an .item(), a copy of a host value to the card)."""
     st, call = _one_step(cuda, engine)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -583,3 +594,86 @@ def test_cuda_window_observe_equals_the_eager_series(cuda):
     assert win.replays == rounds // 4
     for name in ("tick", "have"):
         assert torch.equal(ys["obs"][name], torch.stack([x[name] for x in series])), name
+
+
+ROUNDS_ON_CARD = 20
+
+
+def _config_build(config: str, n: int, device):
+    """(state, step, schedule) of a bench config's per-round step at N
+    peers, ``ROUNDS_ON_CARD`` rounds; ``sybil`` with a validation capacity
+    of 2 (the bench's 8 never throttles at 4 publishes a round) and a
+    fifth of the publishes rejected, so the gater's random-early drop
+    clears acc_msg bits within the run."""
+    import dataclasses
+
+    from go_libp2p_pubsub_tpu_torch.config import (
+        GossipSubParams, PeerGaterParams, PeerScoreThresholds)
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import (
+        GossipSubConfig, GossipSubState, make_gossipsub_step)
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    if config == "eth2":
+        st, step, n_topics, honest = sweep.build_bench(n, 64, config="eth2", device=device)
+        return st, step, sweep.publish_schedule(ROUNDS_ON_CARD, n, n_topics, honest, seed=3)
+    net = Net.build(graph.ring_lattice(n, d=8), graph.subscribe_all(n, 1), device=device)
+    gater = PeerGaterParams()
+    cfg = GossipSubConfig.build(dataclasses.replace(GossipSubParams(), flood_publish=False),
+                                PeerScoreThresholds(), score_enabled=True,
+                                gater_params=gater, validation_capacity=2)
+    cfg = dataclasses.replace(cfg, count_events=False, fanout_slots=0)
+    sp = sweep.bench_score_params("sybil", 1)[1]
+    adversary = np.random.default_rng(0).random(n) < sweep.SYBIL_FRACTION
+    step = make_gossipsub_step(cfg, net, score_params=sp, gater_params=gater,
+                               adversary_no_forward=adversary)
+    st = GossipSubState.init(net, 64, cfg, score_params=sp)
+    po, pt, pv = sweep.publish_schedule(ROUNDS_ON_CARD, n, 1, np.flatnonzero(~adversary), seed=3)
+    pv = pv & (np.random.default_rng(4).random(pv.shape) >= 0.2)
+    return st, step, (po, pt, pv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["eth2", "sybil"])
+def test_config_kernels_equal_plain(cuda, config):
+    """fused_delivery and select_topk on every call of 20 rounds of the
+    eth2 and sybil per-round steps on the card, each against its plain
+    version on the same arguments: eth2's fanout words in the carry, 64
+    topics with 2 slots a peer; sybil's F_SENDER_FWD bit off on edges from
+    sybils and acc_msg bits the gater cleared."""
+    n = 2048
+    st, step, (po, pt, pv) = _config_build(config, n, cuda)
+    calls = {"fused_delivery": [], "select_topk": []}
+    orig = {"fused_delivery": fr.fused_delivery, "select_topk": sk.select_topk}
+
+    def recorder(name):
+        def call(*args, **kw):
+            calls[name].append((args, kw))
+            return orig[name](*args, **kw)
+        return call
+
+    fr.fused_delivery, sk.select_topk = recorder("fused_delivery"), recorder("select_topk")
+    try:
+        for i in range(ROUNDS_ON_CARD):
+            st = step(st, *(torch.as_tensor(a[i], device=cuda) for a in (po, pt, pv)))
+    finally:
+        fr.fused_delivery, sk.select_topk = orig["fused_delivery"], orig["select_topk"]
+    assert len(calls["fused_delivery"]) == ROUNDS_ON_CARD
+    assert len(calls["select_topk"]) >= ROUNDS_ON_CARD * 8
+    flags_seen = torch.zeros((), dtype=torch.int32, device=cuda)
+    for args, kw in calls["fused_delivery"]:
+        ref = fr.fused_delivery_plain(*args, **kw)
+        got = orig["fused_delivery"](*args, **kw)
+        for key in ref:
+            assert torch.equal(ref[key], got[key]), key
+        live = (args[8] >> fr.F_LIVE) & 1
+        off = live & ~(args[8] >> (fr.F_SENDER_FWD if config == "sybil" else fr.F_ACC_MSG)) & 1
+        flags_seen = flags_seen + off.sum(dtype=torch.int32)
+    for args, kw in calls["select_topk"]:
+        assert torch.equal(sk.select_topk_plain(*args, **kw), orig["select_topk"](*args, **kw))
+    if config == "sybil":
+        assert int(flags_seen) > 0                       # edges from sybils
+        acc_off = sum(int((((a[8] >> fr.F_LIVE) & ~(a[8] >> fr.F_ACC_MSG)) & 1).sum())
+                      for a, _ in calls["fused_delivery"])
+        assert acc_off > 0                               # the gater dropped
+    else:
+        assert int((st.fanout_topic >= 0).sum()) > 0

@@ -107,6 +107,31 @@ def test_prefix_cap_bits():
         tbs.prefix_cap_bits(_t(w), torch.from_numpy(cap), 64))
 
 
+@pytest.mark.parametrize("w_dim,m", [(1, 32), (1, 20), (2, 64), (2, 48), (3, 96),
+                                     (3, 80), (10, 320), (10, 300)])
+def test_keep_lowest_bits(w_dim, m):
+    """Every form of the static-cap chain (one word, two words as one 64-bit
+    number, the word chain past two, the cap > 64 form) against the JAX
+    package: its prefix_cap_bits over caps 0..70 and m, its keep_lowest_bits
+    at a few caps. Where m is not a multiple of 32 the last word's padding
+    bits are set, which ``m`` must clear before the chain counts them."""
+    rng = np.random.default_rng(w_dim * 1000 + m)
+    caps = list(range(71)) + [m]
+    for density in (0.0, 0.1, 0.5, 0.95):
+        w = _words(rng, 9, w_dim, density=density)
+        if m % 32:
+            w[..., -1] |= np.uint32(0xFFFFFFFF) << np.uint32(m % 32)
+        jw = jnp.asarray(w)
+        ref = np.asarray(jbs.prefix_cap_bits(
+            jnp.broadcast_to(jw, (len(caps),) + w.shape),
+            jnp.asarray(np.array(caps, np.int32)[:, None].repeat(9, 1)), m))
+        for i, cap in enumerate(caps):
+            _eq(ref[i], tbs.keep_lowest_bits(_t(w), cap, m), (w_dim, m, density, cap))
+        for cap in (0, 1, 3, 33, 64, 65):
+            _eq(jbs.keep_lowest_bits(jw, cap, m), tbs.keep_lowest_bits(_t(w), cap, m),
+                (w_dim, m, density, cap))
+
+
 # ---------------------------------------------------------------------------
 # graph, Net and edges
 

@@ -171,7 +171,7 @@ def test_refused_options_raise():
     _jcfg, _jnet, _jsp, tcfg, tnet, tsp = bench_builds(n=N, d=4)
     build = lambda cfg, **kw: tphase.make_gossipsub_phase_step(cfg, tnet, 8,
                                                                score_params=tsp, **kw)
-    for field, value in (("fanout_slots", 2), ("do_px", True), ("wire_coalesced", False)):
+    for field, value in (("do_px", True), ("wire_coalesced", False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(dataclasses.replace(tcfg, **{field: value}))
         if field != "wire_coalesced":   # the per-round step refuses them too
@@ -180,8 +180,8 @@ def test_refused_options_raise():
                                     score_params=tsp)
     # the JAX config's fields that no ported step runs are not fields of the
     # port's config: setting one is an error before any step is built
-    for field in ("queue_cap", "gater_enabled", "validation_capacity",
-                  "validation_delay_rounds", "chaos", "trace_exact", "router"):
+    for field in ("queue_cap", "validation_delay_rounds", "chaos", "trace_exact",
+                  "router"):
         with pytest.raises(TypeError):
             dataclasses.replace(tcfg, **{field: 1})
     for key in tphase.UNPORTED:

@@ -6,6 +6,7 @@ from __future__ import annotations
 import jax
 import numpy as np
 import pytest
+import torch
 
 from go_libp2p_pubsub_tpu_torch import prng
 
@@ -68,3 +69,21 @@ def test_uniform(shape):
         got = prng.uniform(tk, shape).numpy()
         assert got.dtype == np.float32 and got.shape == shape
         np.testing.assert_array_equal(ref.view(np.uint32), got.view(np.uint32))
+
+
+def test_rows_forms_equal_the_scalar_forms():
+    """fold_in_rows and uniform_rows, row for row, equal fold_in and
+    uniform (the phase engine draws a phase's fanout selections with them
+    at its head) and the JAX package's threefry draws."""
+    ticks = torch.arange(5, 13, dtype=torch.int32)
+    base = prng.fold_in(prng.key(3), 77)
+    rows = prng.fold_in_rows(prng.fold_in_rows(base, ticks), 0xFA40)
+    got = prng.uniform_rows(rows, (4, 16))
+    jbase = jax.random.fold_in(jax.random.key(3), 77)
+    for i, t in enumerate(ticks.tolist()):
+        k = prng.fold_in(prng.fold_in(base, t), 0xFA40)
+        assert torch.equal(rows[i], k)
+        assert torch.equal(got[i], prng.uniform(k, (4, 16)))
+        jk = jax.random.fold_in(jax.random.fold_in(jbase, t), 0xFA40)
+        want = np.asarray(jax.random.uniform(jk, (4, 16)))
+        np.testing.assert_array_equal(got[i].numpy().view(np.uint32), want.view(np.uint32))

@@ -238,3 +238,47 @@ def test_compute_scores_with_app_scores_as_the_reference(name):
         np.testing.assert_array_equal(got[inner].view(np.uint32), want[inner].view(np.uint32))
         tol = WRAP_ULPS * float(np.spacing(np.float32(bound)))
         np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+#: the sybil bench config's score terms: P3 at -0.5 with its deficit live,
+#: P4 at the default -1 and P7 at -1, one topic
+SYBIL_CELL = (dict(_ZERO_TOPIC, mesh_message_deliveries_weight=-0.5,
+                   mesh_message_deliveries_threshold=4.0,
+                   invalid_message_deliveries_weight=-1.0), _PEER, 1, {})
+
+
+@pytest.mark.parametrize("d", [2, 4, 8, 12])
+@pytest.mark.parametrize("name", ["p4_at_minus_one", "sybil"])
+def test_p4_square_fusion_follows_the_row_width(name, d):
+    """With one topic slot XLA:CPU rounds P4's square apart at a weight of
+    -1 in rows of 5 to 8 neighbour slots and fuses it into the sum in
+    narrower rows and in rows of whole 8-slot chunks (K = 4, 8, 16, 24
+    here; the bench lattice is K = 16)."""
+    cell = SYBIL_CELL if name == "sybil" else (
+        dict(_ZERO_TOPIC, invalid_message_deliveries_weight=-1.0), _PEER, 1, {})
+    for seed in (0, 1):
+        got, want, _ = _scores(cell, seed, n=64, d=d)
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+#: the open P4 residue (ROADMAP §3): with one topic slot and K >= 9 not a
+#: multiple of 8, the columns past the last whole 8-column chunk take
+#: neither form; there the port may differ from the reference by this many
+#: units in the last place of the largest term's bound (measured: at most 1)
+P4_TAIL_ULPS = 1
+
+
+@pytest.mark.parametrize("d", [5, 6, 9])
+@pytest.mark.parametrize("name", ["p4_at_minus_one", "sybil"])
+def test_p4_square_residue_past_the_last_whole_chunk(name, d):
+    """K = 10, 12 and 18: bit-exact on the whole 8-column chunks, within
+    ``P4_TAIL_ULPS`` on the tail columns, which hold the open residue."""
+    cell = SYBIL_CELL if name == "sybil" else (
+        dict(_ZERO_TOPIC, invalid_message_deliveries_weight=-1.0), _PEER, 1, {})
+    full = (2 * d) // 8 * 8
+    for seed in (0, 1):
+        got, want, bound = _scores(cell, seed, n=64, d=d)
+        np.testing.assert_array_equal(got[:, :full].view(np.uint32),
+                                      want[:, :full].view(np.uint32))
+        tol = P4_TAIL_ULPS * float(np.spacing(np.float32(bound)))
+        np.testing.assert_allclose(got[:, full:], want[:, full:], rtol=0, atol=tol)

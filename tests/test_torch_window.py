@@ -21,7 +21,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import bench_builds, diff_leaves, phase_schedule, reference_leaves
+from test_torch_eth2 import eth2_builds
+from test_torch_sybil import GaterLog, sybil_builds, verdict_schedule
+from torch_parity import (
+    bench_builds,
+    diff_leaves,
+    phase_schedule,
+    reference_leaves,
+    step_options,
+)
 
 from go_libp2p_pubsub_tpu import driver as jdriver
 from go_libp2p_pubsub_tpu import graph as jgraph
@@ -100,23 +108,27 @@ def test_floodsub_window_equals_reference(kind):
         assert got.shape == want.shape and np.array_equal(got.view(want.dtype), want)
 
 
-def _scan_pair(builds, r, he, rounds, static_heartbeat=None, port_builds=(), phase=None):
+def _scan_pair(builds, r, he, rounds, static_heartbeat=None, port_builds=(), phase=None,
+               schedule=None):
     """The JAX package's make_scan and the port's over the same schedule
-    from the same fresh state, on the phase engine (``phase``, default
-    r > 1) or the per-round step. Returns the JAX window's final leaves and
-    the port's final state, then the port's final state on each of
+    (``phase_schedule``'s, or ``schedule``) from the same fresh state, on
+    the phase engine (``phase``, default r > 1) or the per-round step, with
+    the builds' step options. Returns the JAX window's final leaves and the
+    port's final state, then the port's final state on each of
     ``port_builds`` (more (cfg, net, sp) builds of the same graph)."""
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
     phase = r > 1 if phase is None else phase
+    jkw, tkw = step_options(builds)
 
-    def steps(cfg, net, sp, make_phase, make_step):
+    def steps(cfg, net, sp, make_phase, make_step, opts):
         if phase:
-            return make_phase(cfg, net, r, score_params=sp)
-        return make_step(cfg, net, score_params=sp, static_heartbeat=bool(static_heartbeat))
+            return make_phase(cfg, net, r, score_params=sp, **opts)
+        return make_step(cfg, net, score_params=sp, static_heartbeat=bool(static_heartbeat),
+                         **opts)
 
     jst = JState.init(jnet, M, jcfg, score_params=jsp, seed=0)
     leaves0 = reference_leaves(jst)
-    po, pt, pv = phase_schedule(tnet.n_peers, rounds)
+    po, pt, pv = schedule or phase_schedule(tnet.n_peers, rounds)
     kw = dict(heartbeat_every=he, rounds_per_phase=r,
               static_heartbeat=True if phase else static_heartbeat)
     if phase and r == 1:
@@ -130,15 +142,15 @@ def _scan_pair(builds, r, he, rounds, static_heartbeat=None, port_builds=(), pha
     else:
         def scan(step, **kw):
             return kw.pop("driver").make_scan(step, **kw)
-    jst = scan(steps(jcfg, jnet, jsp, jmake_phase, jmake_step), driver=jdriver, **kw)(
+    jst = scan(steps(jcfg, jnet, jsp, jmake_phase, jmake_step, jkw), driver=jdriver, **kw)(
         jst, jnp.asarray(po), jnp.asarray(pt), jnp.asarray(pv))
     out = [reference_leaves(jst)]
     for cfg, net, sp in ((tcfg, tnet, tsp),) + tuple(port_builds):
         tst = TState.init(net, M, cfg, score_params=sp, seed=0)
         if net.edge_layout == "dense":
             tst = convert.state_from_reference(leaves0, device="cpu")
-        out.append(scan(steps(cfg, net, sp, tmake_phase, tmake_step), driver=driver, **kw)(
-            tst, po, pt, pv))
+        out.append(scan(steps(cfg, net, sp, tmake_phase, tmake_step, tkw), driver=driver,
+                        **kw)(tst, po, pt, pv))
     return out
 
 
@@ -169,6 +181,30 @@ def test_static_heartbeat_scan_equals_reference():
     ref, got = _scan_pair(builds, 1, 2, ROUNDS, static_heartbeat=True)
     diff_leaves(ref, convert.state_leaves(got), "per-round he=2")
     assert int(got.core.tick) == ROUNDS
+
+
+def test_eth2_phase_window_equals_reference():
+    """The eth2 config's fanout plane through a phase window: the K=16
+    lattice, 64 topics, 2 a peer, half the publishes on unjoined topics,
+    r=8 with a heartbeat every phase."""
+    builds = eth2_builds("lattice", 64, heartbeat_every=8, count_events=False)
+    tnet = builds[4]
+    sched = phase_schedule(tnet.n_peers, 32, my_topics=tnet.my_topics.numpy(), n_topics=64)
+    ref, got = _scan_pair(builds, 8, 8, 32, schedule=sched)
+    diff_leaves(ref, convert.state_leaves(got), "eth2 r=8 window")
+    assert int(got.fanout_peers.sum()) > 0 and int((got.fanout_topic >= 0).sum()) > 0
+
+
+def test_sybil_round_window_equals_reference():
+    """The sybil config's gater, throttle and no-forward vector through a
+    per-round window (the bench's continuity shape): the K=16 lattice,
+    shared ip groups, a capacity of 2, rejected and ignored publishes."""
+    builds = sybil_builds("lattice", 2, 3, count_events=False)
+    ref, got = _scan_pair(builds, 1, 1, 24, schedule=verdict_schedule(24))
+    diff_leaves(ref, convert.state_leaves(got), "sybil per-round window")
+    log = GaterLog()
+    log(got)
+    assert log.throttle > 0 and log.reject > 0
 
 
 def test_donated_window_continues():

@@ -314,13 +314,16 @@ def diff_leaves(ref: dict, got: dict, where: str = "") -> None:
                 f"{bad[:3].tolist()}: {a[tuple(bad[0])]} vs {b[tuple(bad[0])]}")
 
 
-def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None):
+def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None,
+                   n_topics: int = 0):
     """The phase parity tests' publish schedule (numpy, seed 0): 4
     publishes a round from random origins, one of them invalid and one slot
     empty, on topic 0, or with ``my_topics`` (the [N, S] slot table) on a
-    random topic of the origin's own. With ``codes`` the verdicts are int32
-    verdict codes (0 accept, 1 reject, 2 ignore) and one more publish is
-    ignored."""
+    random topic of the origin's own. With ``n_topics`` as well, the last
+    two publishes of every round go to a uniform topic of the universe
+    instead (mostly one the origin has not joined: fanout). With ``codes``
+    the verdicts are int32 verdict codes (0 accept, 1 reject, 2 ignore) and
+    one more publish is ignored."""
     rng = np.random.default_rng(0)
     po = rng.integers(0, n, size=(rounds, 4)).astype(np.int32)
     pt = np.zeros((rounds, 4), np.int32)
@@ -328,6 +331,8 @@ def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None):
         slots = (my_topics >= 0).sum(1)
         pick = (rng.random((rounds, 4)) * slots[po]).astype(np.int64)
         pt = my_topics[po, pick].astype(np.int32)
+        if n_topics:
+            pt[:, 2:] = rng.integers(0, n_topics, size=(rounds, 2))
     pv = np.ones((rounds, 4), bool)
     pv[5, 1] = False   # one invalid publish
     po[9, 3] = -1      # and one empty publish slot
@@ -338,14 +343,18 @@ def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None):
 
 
 def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool = False,
+                             fanout_topics: bool = False, schedule=None, observe=None,
                              **kw):
     """Run the JAX package's phase step and the port's (on the CPU) over
     ``rounds`` rounds of ``phase_schedule`` in phases of ``r`` from the same
     state, heartbeats as ``heartbeat_schedule(he, r)`` flags them, every
     leaf compared bit for bit after every phase. ``builds`` is
-    ``bench_builds``' tuple; ``codes`` takes int verdict codes; ``kw`` goes
-    to both packages' make_gossipsub_phase_step. Returns the port's
-    final state."""
+    ``bench_builds``' tuple; ``codes`` takes int verdict codes;
+    ``fanout_topics`` sends half the publishes to any topic of the universe
+    (``phase_schedule``'s ``n_topics``); ``schedule`` replaces the schedule
+    with (po, pt, pv); ``observe(state)`` sees the port's state after every
+    phase. ``kw`` goes to both packages' make_gossipsub_phase_step, beside
+    the builds' own step options. Returns the port's final state."""
     import jax.numpy as jnp
     import torch
 
@@ -361,10 +370,12 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
     jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     diff_leaves(reference_leaves(jst), convert.state_leaves(tst), "init")
-    jstep = jmake(jcfg, jnet, r, score_params=jsp, **kw)
-    tstep = make_gossipsub_phase_step(tcfg, tnet, r, score_params=tsp, **kw)
+    jkw, tkw = step_options(builds)
+    jstep = jmake(jcfg, jnet, r, score_params=jsp, **jkw, **kw)
+    tstep = make_gossipsub_phase_step(tcfg, tnet, r, score_params=tsp, **tkw, **kw)
     my_topics = tnet.my_topics.numpy() if tnet.n_topics > 1 else None
-    po, pt, pv = phase_schedule(tnet.n_peers, rounds, codes, my_topics)
+    po, pt, pv = schedule or phase_schedule(
+        tnet.n_peers, rounds, codes, my_topics, tnet.n_topics if fanout_topics else 0)
     flags = heartbeat_schedule(he, r)
     for p in range(rounds // r):
         sl = slice(p * r, (p + 1) * r)
@@ -374,22 +385,43 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
         tst = tstep(tst, torch.from_numpy(po[sl]), torch.from_numpy(pt[sl]),
                     torch.from_numpy(pv[sl]), do_heartbeat=hb)
         diff_leaves(reference_leaves(jst), convert.state_leaves(tst), f"phase {p}")
+        if observe is not None:
+            observe(tst)
     return tst
+
+
+class Builds(tuple):
+    """``bench_builds``' 6-tuple, carrying the step options of each
+    package (``step_options``) as attributes."""
+
+
+def step_options(builds) -> tuple:
+    """(JAX kwargs, port kwargs) of both packages' step builders: the
+    gater parameters and the adversary vector of the builds."""
+    return getattr(builds, "jkw", {}), getattr(builds, "tkw", {})
 
 
 def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
                  count_events=True, seed=0, topologies=None,
                  edge_layout="dense", fused=False, topic=None, peer=None,
-                 thresholds=None, ip_group=None, subscriptions=None):
+                 thresholds=None, ip_group=None, subscriptions=None,
+                 config="default", fanout_slots=0, fanout_ttl=None, gater=None,
+                 validation_capacity=0, adversary=None):
     """(jax_cfg, jax_net, sp, torch_cfg, torch_net, torch_sp) for the
-    bench's default params on ring_lattice(n, d), or on ``topologies``, a
+    bench's params on ring_lattice(n, d), or on ``topologies``, a
     (JAX Topology, port Topology) pair of the same graph, in
     ``edge_layout`` with the ``fused`` flag on both the net and the
     config. ``topic``, ``peer`` and ``thresholds`` are field overrides of
     the bench's TopicScoreParams, PeerScoreParams and PeerScoreThresholds,
     and ``ip_group`` the nets' [N] P6 colocation groups, on both sides.
     ``subscriptions`` is the JAX package's Subscriptions (default: every
-    peer in one topic); a topic universe of T scores T bench topics."""
+    peer in one topic); a topic universe of T scores T bench topics.
+    ``config`` picks the bench config's score parameters; ``fanout_slots``
+    and ``fanout_ttl`` (seconds) size the fanout plane; ``gater`` (a dict
+    of PeerGaterParams overrides, {} for the defaults) turns the peer gater
+    on; ``validation_capacity`` the throttle; ``adversary`` ([N] bool) the
+    no-forward vector. The step options ride the result
+    (``step_options``)."""
     from go_libp2p_pubsub_tpu import config as jconfig
     from go_libp2p_pubsub_tpu import graph as jgraph
     from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubConfig as JCfg
@@ -415,20 +447,91 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     n_topics = subscriptions.subscribed.shape[1]
     tsubs = tgraph.Subscriptions(*(np.asarray(getattr(subscriptions, f)) for f in (
         "subscribed", "my_topics", "slot_of")))
+    params = {"flood_publish": False}
+    if fanout_ttl is not None:
+        params["fanout_ttl"] = fanout_ttl
+    jgp = None if gater is None else jconfig.PeerGaterParams(**gater)
+    tgp = None if gater is None else tconfig.PeerGaterParams(**gater)
     jnet = JNet.build(topologies[0], subscriptions, ip_group=ip_group, **layout)
-    jcfg = JCfg.build(dataclasses.replace(jconfig.GossipSubParams(), flood_publish=False),
+    jcfg = JCfg.build(dataclasses.replace(jconfig.GossipSubParams(), **params),
                       jconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
-                      heartbeat_every=heartbeat_every, **layout)
-    jcfg = dataclasses.replace(jcfg, count_events=count_events, fanout_slots=0)
-    jsp = score(jbsp("default", n_topics)[1])
+                      heartbeat_every=heartbeat_every, gater_params=jgp,
+                      validation_capacity=validation_capacity, **layout)
+    jcfg = dataclasses.replace(jcfg, count_events=count_events, fanout_slots=fanout_slots)
+    jsp = score(jbsp(config, n_topics)[1])
     tnet = TNet.build(topologies[1], tsubs, ip_group=ip_group,
                       device="cpu", **layout)
-    tcfg = TCfg.build(dataclasses.replace(tconfig.GossipSubParams(), flood_publish=False),
+    tcfg = TCfg.build(dataclasses.replace(tconfig.GossipSubParams(), **params),
                       tconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
-                      heartbeat_every=heartbeat_every, **layout)
-    tcfg = dataclasses.replace(tcfg, count_events=count_events, fanout_slots=0)
-    tsp = score(tbsp(n_topics)[1])
-    return jcfg, jnet, jsp, tcfg, tnet, tsp
+                      heartbeat_every=heartbeat_every, gater_params=tgp,
+                      validation_capacity=validation_capacity, **layout)
+    tcfg = dataclasses.replace(tcfg, count_events=count_events, fanout_slots=fanout_slots)
+    tsp = score(tbsp(config, n_topics)[1])
+    out = Builds((jcfg, jnet, jsp, tcfg, tnet, tsp))
+    out.jkw, out.tkw = {}, {}
+    if gater is not None:
+        out.jkw["gater_params"], out.tkw["gater_params"] = jgp, tgp
+    if adversary is not None:
+        out.jkw["adversary_no_forward"] = out.tkw["adversary_no_forward"] = np.asarray(
+            adversary, bool)
+    return out
+
+
+def rounds_against_reference(builds, rounds: int, codes: bool = False,
+                             fanout_topics: bool = False, schedule=None,
+                             static_heartbeat: bool = False, observe=None):
+    """The per-round counterpart of ``phases_against_reference``: both
+    packages' per-round steps from the same state over ``rounds`` rounds,
+    every leaf compared bit for bit after every round. Returns the port's
+    final state."""
+    import jax.numpy as jnp
+    import torch
+
+    from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubState as JState
+    from go_libp2p_pubsub_tpu.models.gossipsub import make_gossipsub_step as jmake
+
+    from go_libp2p_pubsub_tpu_torch import convert
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import make_gossipsub_step
+
+    jcfg, jnet, jsp, tcfg, tnet, tsp = builds
+    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0)
+    tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
+    jkw, tkw = step_options(builds)
+    jstep = jmake(jcfg, jnet, score_params=jsp, static_heartbeat=static_heartbeat, **jkw)
+    tstep = make_gossipsub_step(tcfg, tnet, score_params=tsp,
+                                static_heartbeat=static_heartbeat, **tkw)
+    my_topics = tnet.my_topics.numpy() if tnet.n_topics > 1 else None
+    po, pt, pv = schedule or phase_schedule(
+        tnet.n_peers, rounds, codes, my_topics, tnet.n_topics if fanout_topics else 0)
+    he = tcfg.heartbeat_every
+    for t in range(rounds):
+        hb = ({"do_heartbeat": t % he == 0} if static_heartbeat and he > 1 else {})
+        jst = jstep(jst, jnp.asarray(po[t]), jnp.asarray(pt[t]), jnp.asarray(pv[t]), **hb)
+        tst = tstep(tst, torch.from_numpy(po[t]), torch.from_numpy(pt[t]),
+                    torch.from_numpy(pv[t]), **hb)
+        diff_leaves(reference_leaves(jst), convert.state_leaves(tst), f"round {t}")
+        if observe is not None:
+            observe(tst)
+    return tst
+
+
+class FanoutLog:
+    """An ``observe`` callback that counts fanout-slot events across a run:
+    ``expired`` slots (a topic, then none), ``refilled`` slots (the same
+    topic, more peers) and ``fresh`` ones (a new topic)."""
+
+    def __init__(self):
+        self.prev = None
+        self.expired = self.refilled = self.fresh = 0
+
+    def __call__(self, st):
+        topic, peers = st.fanout_topic.clone(), st.fanout_peers.sum(-1)
+        if self.prev is not None:
+            t0, p0 = self.prev
+            self.expired += int(((t0 >= 0) & (topic < 0)).sum())
+            self.refilled += int(((t0 >= 0) & (topic == t0) & (peers > p0)).sum())
+            self.fresh += int(((topic >= 0) & (topic != t0)).sum())
+        self.prev = (topic, peers)
 
 
 def graph_replay_equals_eager(fn) -> int:
