@@ -119,7 +119,29 @@ last line is printed:
    each engine's window against its eager loop on the card;
 22. the bench CLI's line of each config (BENCH_CONFIG=eth2, sybil; the
    sybil line at the CLI's default N=50k);
-23. the kernel launches of a traced GossipSub bench round
+23. RandomSub, BASELINE.json config #2 — random_connect(1000, 32, seed=0),
+   one topic, no size estimate (target ceil(sqrt(1000)) = 32), 4 publishes
+   a round for 80 rounds: one select_topk a round and no delivery kernel
+   (a random net takes the composite), each draw against its plain
+   version, card against CPU every leaf after every round;
+24. RandomSub at full width — ring_lattice(100k, d=8) with size_estimate=36
+   (the target RandomSubD = 6; select_topk and delivery_banded a round)
+   and powerlaw(1M) CSR-resident with size_estimate=1000 (target 32 of up
+   to 64; select_topk at K=64 and csr_delivery): every count at 0 before
+   the main path and each checked after it, the first calls of each kernel
+   against their plain versions, the draw's time and bound, rounds/s eager
+   and through driver.make_window, peak memory; card against CPU at
+   N=8192;
+25. the delivery core's options on the bench default config —
+   queue_cap=2, validation_delay_rounds=2 and both: card against CPU and
+   windows against eager in both engines at N=8192; the per-round step
+   launches neither edge_exchange nor fused_delivery, the phase engine
+   1 + r edge_exchange a phase, delivery_banded and csr_delivery never;
+   the both-options phase bench windowed at N=100k in turns with eager,
+   beside phase 18's plain one;
+26. FloodSub on the lattice with queue_cap=2 at N=100k (no kernel: the cap
+   takes the composites; drops counted), card against CPU at N=8192;
+27. the kernel launches of a traced GossipSub bench round
    (perf/profile.py), with those of the score path's subnormal flush
    (hardshrink, copysign) apart, of a traced phase-bench phase per
    delivery round, of a traced replay of a windowed phase (--window), and
@@ -935,7 +957,7 @@ def bench_launches(card: str) -> dict:
 
 
 def config_traced_launches(card: str) -> dict:
-    """Phase 23 (after bench_launches): every kernel launch of a traced
+    """Phase 27 (after bench_launches): every kernel launch of a traced
     round of each config's per-round step and of a traced phase of its
     phase engine, per delivery round (perf/profile.py), at the configs'
     full sizes."""
@@ -1207,15 +1229,18 @@ def window_cells(sweep, dev):
             "floodsub power-law csr": flood("powerlaw", "csr")}
 
 
-def record_calls(run, targets):
+def record_calls(run, targets, keep: int | None = None):
     """Run ``run()`` with every ``module.name`` of ``targets`` recording its
-    calls. Returns (the result, {(module, name): [(args, kwargs), ...]})."""
+    calls (the first ``keep`` of each when given: a RandomSub draw at N=1M
+    holds 576 MB of arguments). Returns (the result, {(module, name):
+    [(args, kwargs), ...]})."""
     calls = {t: [] for t in targets}
     origs = {t: getattr(*t) for t in targets}
 
     def recorder(t):
         def call(*args, **kwargs):
-            calls[t].append((args, kwargs))
+            if keep is None or len(calls[t]) < keep:
+                calls[t].append((args, kwargs))
             return origs[t](*args, **kwargs)
         return call
 
@@ -1298,9 +1323,10 @@ def window_parity(sweep, convert, dev, counters) -> dict:
     return blocks
 
 
-def window_bench(sweep, driver, dev, card, counters, engine: str) -> dict:
-    """Phase 18: the phase bench (``engine="phase"``) or the per-round bench
-    at N=100k, eager and windowed in turns (eager, window, window, eager).
+def window_bench(sweep, driver, dev, card, counters, engine: str, **bench_kw) -> dict:
+    """Phases 18 and 25: the phase bench (``engine="phase"``) or the
+    per-round bench at N=100k (with ``bench_kw``, the delivery core's
+    options), eager and windowed in turns (eager, window, window, eager).
     Each turn builds afresh, forms the mesh, runs the formation and one
     untimed segment, then times one segment; a window turn's untimed
     segment captures its block. Returns the turns."""
@@ -1315,7 +1341,8 @@ def window_bench(sweep, driver, dev, card, counters, engine: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, rounds_per_phase=r, device=dev)
+        st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, rounds_per_phase=r, device=dev,
+                                             **bench_kw)
         if r > 1:
             st = driver.form_mesh(step, st, rounds_per_phase=r)
             eager = lambda st, sl: sweep.run_phases(st, step, po[sl], pt[sl], pv[sl],
@@ -1358,8 +1385,9 @@ def window_bench(sweep, driver, dev, card, counters, engine: str) -> dict:
             extra = (f", capture {rec['capture_seconds']:.3f} s, {rec['replays']} graph "
                      f"replays a window of {m} rounds, a block of {rec['block_dispatches']} "
                      f"dispatches launches {rec['block_launches']}")
-        say(f"{engine} bench {mode} N={N_FULL}: {rec['rate']:.3f} {unit} over {m} rounds, "
-            f"peak memory {rec['peak']} bytes{extra}, on {card}")
+        opts = "".join(f" {k}={v}" for k, v in bench_kw.items())
+        say(f"{engine} bench{opts} {mode} N={N_FULL}: {rec['rate']:.3f} {unit} over {m} "
+            f"rounds, peak memory {rec['peak']} bytes{extra}, on {card}")
         turns.append(rec)
         del st, step
     return turns
@@ -1414,21 +1442,16 @@ def config_launches(config: str, engine: str, dispatches: int) -> dict:
 
 
 def check_config_calls(calls, where: str) -> dict:
-    """Every recorded kernel call against its plain version on the same
-    arguments, bit for bit. Returns {kernel: calls checked}."""
+    """Every recorded kernel call against its plain version (the wrapper's
+    ``<name>_plain`` beside it) on the same arguments, bit for bit, after
+    the run's counts were read. Returns {kernel: calls checked}."""
     import torch
 
-    from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
-    from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
-
-    plain = {"edge_exchange": fr.edge_exchange_plain, "fused_delivery": fr.fused_delivery_plain,
-             "select_topk": sk.select_topk_plain}
-    kernel = {"edge_exchange": fr.edge_exchange, "fused_delivery": fr.fused_delivery,
-              "select_topk": sk.select_topk}
     done = {}
-    for (_mod, name), recorded in calls.items():
+    for (mod, name), recorded in calls.items():
+        plain, kernel = getattr(mod, name + "_plain"), getattr(mod, name)
         for args, kw in recorded:
-            ref, got = plain[name](*args, **kw), kernel[name](*args, **kw)
+            ref, got = plain(*args, **kw), kernel(*args, **kw)
             torch.cuda.synchronize()
             if isinstance(ref, dict):
                 keys = sorted(ref)
@@ -1559,23 +1582,27 @@ def config_bench(sweep, driver, config: str, engine: str, card, dev, counters) -
     return out
 
 
-def config_parity(sweep, driver, convert, config: str, dev) -> None:
-    """Phase 21: a config on the card against the CPU (plain versions) at
-    N=8192 from the same seed, events counted — the per-round step every
+def config_parity(sweep, driver, convert, config: str, dev, label: str | None = None,
+                  **bench_kw) -> None:
+    """Phases 21 and 25: a config (with ``bench_kw``, the delivery core's
+    options, under ``label``) on the card against the CPU (plain versions)
+    at N=8192 from the same seed, events counted — the per-round step every
     leaf after each round, the phase engine after form_mesh and each phase —
     then each engine's window against its eager loop on the card, every
     leaf, in two calls."""
     import torch
 
     r = PHASE_R
+    config_name = config
+    config = label or config
     t0 = time.perf_counter()
     for engine in ("per-round", "phase"):
         rr = r if engine == "phase" else 1
         sides, sched = {}, None
         for d in ("cuda", "cpu"):
             st, step, n_topics, honest = sweep.build_bench(
-                N_PARITY, M_SLOTS, config=config, count_events=True, rounds_per_phase=rr,
-                device=d)
+                N_PARITY, M_SLOTS, config=config_name, count_events=True, rounds_per_phase=rr,
+                device=d, **bench_kw)
             if rr > 1:
                 st = driver.form_mesh(step, st, rounds_per_phase=rr)
             sides[d] = (st, step)
@@ -1604,8 +1631,8 @@ def config_parity(sweep, driver, convert, config: str, dev) -> None:
         leaves = []
         for mode in ("eager", "window"):
             st, step, n_topics, honest = sweep.build_bench(
-                N_PARITY, M_SLOTS, config=config, count_events=True, rounds_per_phase=rr,
-                device=dev)
+                N_PARITY, M_SLOTS, config=config_name, count_events=True, rounds_per_phase=rr,
+                device=dev, **bench_kw)
             po, pt, pv = sweep.publish_schedule(wr, N_PARITY, n_topics, honest, seed=6)
             if rr > 1:
                 st = driver.form_mesh(step, st, rounds_per_phase=rr)
@@ -1629,6 +1656,246 @@ def config_parity(sweep, driver, convert, config: str, dev) -> None:
         say(f"{config} {engine} window N={N_PARITY}: equal to the eager loop leaf for leaf "
             f"after {wr} rounds in two calls")
     say(f"{config} parity phases: {time.perf_counter() - t0:.1f} s")
+
+
+RANDOMSUB_N, RANDOMSUB_ROUNDS = 1000, 80         # BASELINE.json config #2: 1k peers
+SCALE_FORMATION, SCALE_ROUNDS = 8, 32             # RandomSub at scale: untimed, timed
+SCALE_PARITY_ROUNDS = 16                          # card against CPU at N_PARITY
+#: RandomSub at scale: the lattice with a size estimate whose target is
+#: RandomSubD = 6, and the 1M-peer power-law graph CSR-resident (target 32)
+RANDOMSUB_SCALE = {
+    "lattice": dict(n=N_FULL, graph="lattice", layout="dense", size_estimate=36,
+                    kernel="delivery_banded"),
+    "power-law csr": dict(n=N_CSR, graph="powerlaw", layout="csr", size_estimate=1000,
+                          kernel="csr_delivery"),
+}
+#: the delivery core's options on the bench default config (phase 25)
+CORE_OPTIONS = {"queue_cap=2": dict(queue_cap=2),
+                "validation_delay_rounds=2": dict(validation_delay_rounds=2),
+                "both": dict(queue_cap=2, validation_delay_rounds=2)}
+
+
+def counts(counters) -> dict:
+    out = {}
+    for mod in counters:
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def randomsub_baseline(sweep, convert, counters, dev, card) -> dict:
+    """Phase 23: RandomSub as BASELINE.json config #2 — random_connect(1000,
+    32, seed=0), one topic every peer joins, no size estimate (target
+    ceil(sqrt(1000)) = 32), 4 publishes a round for 80 rounds: the main path
+    with every count at 0 (one select_topk a round; a random net takes the
+    delivery composite), each draw against its plain version, then card
+    against CPU every leaf after every round."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
+
+    n, rounds = RANDOMSUB_N, RANDOMSUB_ROUNDS
+    po, pt, pv = sweep.publish_schedule(rounds, n, 1, None, seed=7)
+    st, run = sweep.build_randomsub(n, M_SLOTS, graph="random", device=dev)
+    k = run.net.max_degree
+    for mod in counters:
+        mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, calls = record_calls(lambda: sweep.run_rounds(st, run, po, pt, pv),
+                             [(sk, "select_topk")])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = counts(counters)
+    want = {"edge_exchange": 0, "fused_delivery": 0, "delivery_banded": 0,
+            "csr_delivery": 0, "select_topk": rounds}
+    if got != want:
+        raise AssertionError(f"RandomSub #2 launches {got}, expected {want}")
+    checked = check_config_calls(calls, "RandomSub #2")
+    leaves = convert.state_leaves(st)
+    reach = (st.dlv.first_round >= 0).sum(0)
+    old = (st.msgs.birth >= 0) & (st.msgs.birth <= rounds - 4)
+    if not bool((reach[old] > 1).all()):
+        raise AssertionError("RandomSub #2: a message 4+ rounds old reached only its origin")
+    say(f"randomsub #2 N={n} K={k} target 32: {rounds} rounds, launches {got}, each draw "
+        f"equal to its plain version ({checked}); median reach {int(reach[old].median())} "
+        f"peers; events {leaves['.events'][:9].tolist()}; {rounds / dt:.3f} rounds/s, on {card}")
+    sides = {d: sweep.build_randomsub(n, M_SLOTS, graph="random", device=d)
+             for d in ("cuda", "cpu")}
+    for r in range(rounds):
+        for d, (s, stp) in list(sides.items()):
+            sides[d] = (sweep.run_rounds(s, stp, po[r:r + 1], pt[r:r + 1], pv[r:r + 1]), stp)
+        leaves_equal(convert.state_leaves(sides["cpu"][0]),
+                     convert.state_leaves(sides["cuda"][0]), f"RandomSub #2 round {r}")
+    say(f"randomsub #2 card == CPU: every leaf equal after each of {rounds} rounds at N={n}")
+    return {"RandomSub #2 (N=1000)": got}
+
+
+def randomsub_scale(sweep, driver, convert, counters, dev, card, name: str, spec: dict) -> dict:
+    """Phase 24: RandomSub at full width. The main path from a fresh state
+    with every count at 0 (formation, then timed rounds: one select_topk
+    and one delivery kernel a round), its first draws and deliveries held
+    against their plain versions, the draw's time; then the same rounds
+    through driver.make_window (a captured CUDA graph a block) and card
+    against CPU at N=8192. Returns the cell's numbers."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
+    from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
+    from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
+    from go_libp2p_pubsub_tpu_torch.state import SimState
+
+    n, kernel = spec["n"], spec["kernel"]
+    kmod = db if kernel == "delivery_banded" else cd
+    kw = dict(graph=spec["graph"], layout=spec["layout"], size_estimate=spec["size_estimate"])
+    total = SCALE_FORMATION + 2 * SCALE_ROUNDS
+    po, pt, pv = sweep.publish_schedule(total, n, 1, None, seed=8)
+    f, m = SCALE_FORMATION, SCALE_ROUNDS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st, run = sweep.build_randomsub(n, M_SLOTS, device=dev, **kw)
+    net = run.net
+    fresh = lambda: SimState.init(n, M_SLOTS, k=net.max_degree, device=dev,
+                                  n_edges=net.n_edges)
+    for mod in counters:
+        mod.reset_launch_counts()
+    st = sweep.run_rounds(st, run, po[:f], pt[:f], pv[:f])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, calls = record_calls(lambda: sweep.run_rounds(st, run, po[f:f + m], pt[f:f + m],
+                                                      pv[f:f + m]),
+                             [(sk, "select_topk"), (kmod, kernel)], keep=2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = counts(counters)
+    want = {"edge_exchange": 0, "fused_delivery": 0, "delivery_banded": 0,
+            "csr_delivery": 0, "select_topk": f + m, kernel: f + m}
+    if got != want:
+        raise AssertionError(f"RandomSub {name} launches {got}, expected {want}")
+    checked = check_config_calls(calls, f"RandomSub {name}")
+    if bool(((st.dlv.fwd & ~st.dlv.have) != 0).any()):
+        raise AssertionError(f"RandomSub {name}: fwd is not a subset of have")
+    reach = (st.dlv.first_round >= 0).sum(0)
+    old = (st.msgs.birth >= 0) & (st.msgs.birth <= f + m - 4)
+    if not bool((reach[old] > 1).all()):
+        raise AssertionError(f"RandomSub {name}: a message 4+ rounds old reached only its origin")
+    args, skw = calls[(sk, "select_topk")][0]
+    r_rows, k = args[0].shape
+    launch = prepared(sk._lib(), "select_topk_launch", lambda: sk.select_topk(*args, **skw))
+    draw = {"rows": r_rows, "k": k, "target": int(args[2].max()),
+            **kernel_times(launch), "plain_ms": batch_ms(lambda: sk.select_topk_plain(*args)),
+            **bound(r_rows * k * 10 + 4 * r_rows, r_rows * k * max(1, (k - 1).bit_length())),
+            "row_paths": row_paths(*args[:3])}
+    del launch, calls, args
+    rec = {"eager_rate": m / dt, "peak": peak,
+           "launches_a_round": {k_: v / (f + m) for k_, v in got.items() if v},
+           "select_topk": draw}
+    say(f"randomsub {name} N={n} K={net.max_degree} target {draw['target']}: {f + m} rounds, "
+        f"launches {got}, first calls equal to their plain versions ({checked}), median "
+        f"reach {int(reach[old].median())} peers; eager {rec['eager_rate']:.3f} rounds/s "
+        f"over {m} rounds, peak memory {peak} bytes ({peak / 2**20:.1f} MiB), on {card}")
+    say(f"kernel select_topk randomsub {name}: R={r_rows} K={k} kernel_ms={draw['ms']:.6f} "
+        f"plain_ms={draw['plain_ms']:.6f} bound_ms={draw['bound_ms']:.6f} "
+        f"({draw['bound_by']}) rows by path {draw['row_paths']}")
+    del st
+    # the same rounds through a window: the first call captures, the
+    # second is timed
+    st = sweep.run_rounds(fresh(), run, po[:f], pt[:f], pv[:f])
+    win = driver.make_window(run, unroll=4)
+    for mod in counters:
+        mod.reset_launch_counts()
+    st, _ = win(st, (po[f:f + m], pt[f:f + m], pv[f:f + m]))
+    torch.cuda.synchronize()
+    replays0 = win.replays
+    t0 = time.perf_counter()
+    st, _ = win(st, (po[f + m:], pt[f + m:], pv[f + m:]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if int(st.tick) != total or win.replays - replays0 != m // win.block_dispatches:
+        raise AssertionError(f"RandomSub {name} window: tick {int(st.tick)}, "
+                             f"{win.replays - replays0} replays")
+    rec.update(window_rate=m / dt, block_dispatches=win.block_dispatches,
+               block_launches={k_: v for k_, v in win.block_launches.items() if v},
+               capture_seconds=win.capture_seconds)
+    say(f"randomsub {name} window N={n}: {rec['window_rate']:.3f} rounds/s over {m} rounds "
+        f"(eager {rec['eager_rate']:.3f}), capture {win.capture_seconds:.3f} s, a block of "
+        f"{win.block_dispatches} dispatches launches {rec['block_launches']}, on {card}")
+    del st, win, run, net
+    # card against CPU at the parity size
+    pp = sweep.publish_schedule(SCALE_PARITY_ROUNDS, N_PARITY, 1, None, seed=5)
+    sides = {d: sweep.build_randomsub(N_PARITY, M_SLOTS, device=d, **kw)
+             for d in ("cuda", "cpu")}
+    for r in range(SCALE_PARITY_ROUNDS):
+        for d, (s, stp) in list(sides.items()):
+            sides[d] = (sweep.run_rounds(s, stp, *(a[r:r + 1] for a in pp)), stp)
+        leaves_equal(convert.state_leaves(sides["cpu"][0]),
+                     convert.state_leaves(sides["cuda"][0]), f"RandomSub {name} round {r}")
+    say(f"randomsub {name} card == CPU: every leaf equal after each of "
+        f"{SCALE_PARITY_ROUNDS} rounds at N={N_PARITY}")
+    return rec
+
+
+def option_launches(sweep, driver, dev, counters, kw: dict) -> dict:
+    """Phase 25's launch check: the default config with ``kw`` on the card
+    at N=8192 from every count at 0 — 8 per-round rounds (no edge_exchange,
+    no fused_delivery: the composites) and form_mesh plus 2 phases of r=8
+    (edge_exchange 1 + r a phase); delivery_banded and csr_delivery never."""
+    out = {}
+    for engine, rr in (("per-round", 1), ("phase", PHASE_R)):
+        st, step, _t, _h = sweep.build_bench(N_PARITY, M_SLOTS, rounds_per_phase=rr,
+                                             device=dev, **kw)
+        po, pt, pv = sweep.publish_schedule(2 * PHASE_R, N_PARITY, 1, None, seed=9)
+        for mod in counters:
+            mod.reset_launch_counts()
+        if rr > 1:
+            st = driver.form_mesh(step, st, rounds_per_phase=rr)
+            st = sweep.run_phases(st, step, po, pt, pv, rounds_per_phase=rr, heartbeat_every=rr)
+            want = {"edge_exchange": 3 * (1 + rr), "fused_delivery": 0}
+        else:
+            st = sweep.run_rounds(st, step, po[:8], pt[:8], pv[:8])
+            want = {"edge_exchange": 0, "fused_delivery": 0}
+        got = counts(counters)
+        want.update(delivery_banded=0, csr_delivery=0, select_topk=got["select_topk"])
+        if got != want or got["select_topk"] == 0:
+            raise AssertionError(f"options {kw} {engine}: launches {got}, expected {want}")
+        out[engine] = got
+        del st, step
+    return out
+
+
+def flood_capped(sweep, convert, counters, dev, card) -> dict:
+    """Phase 26: FloodSub on the lattice with queue_cap=2 at N=100k: the
+    composites (no delivery_banded), drops counted (DROP_RPC); card against
+    CPU at N=8192."""
+    import torch
+
+    n, f, m = N_FULL, SCALE_FORMATION, SCALE_ROUNDS
+    po, pt, pv = sweep.publish_schedule(f + m, n, 1, None, seed=10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, step = sweep.build_floodsub(n, M_SLOTS, device=dev, queue_cap=2)
+    for mod in counters:
+        mod.reset_launch_counts()
+    st = sweep.run_rounds(st, step, po[:f], pt[:f], pv[:f])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = sweep.run_rounds(st, step, po[f:], pt[f:], pv[f:])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = counts(counters)
+    if any(got.values()):
+        raise AssertionError(f"capped FloodSub launched {got}; the cap takes the composites")
+    # a link of the sparse lattice rarely meets three messages in a round:
+    # the drops are data, not a check (the parity run below holds them)
+    ev = convert.state_leaves(st)[".events"]
+    peak = torch.cuda.max_memory_allocated()
+    say(f"floodsub lattice queue_cap=2 N={n}: {f + m} rounds, launches {got}, "
+        f"events {ev[:9].tolist()}; {m / dt:.3f} rounds/s, peak memory {peak} bytes, "
+        f"on {card}")
+    del st, step
+    flood_parity(sweep, convert, dict(graph="lattice", layout="dense", queue_cap=2))
+    return {"rate": m / dt, "peak": peak}
 
 
 def leaves_equal(a: dict, b: dict, where: str):
@@ -1913,7 +2180,46 @@ def main() -> int:
     for config in ("eth2", "sybil"):
         bench_cli(card, config)
 
-    # 23. launches of a bench round, a phase-bench phase and a windowed
+    # 23-24. RandomSub: BASELINE.json config #2, then at full width on the
+    # lattice and on the 1M-peer power-law graph CSR-resident
+    slice_launches = randomsub_baseline(sweep, convert, counters, dev, card)
+    scale = {}
+    for cell, spec in RANDOMSUB_SCALE.items():
+        scale[cell] = randomsub_scale(sweep, driver, convert, counters, dev, card, cell, spec)
+        slice_launches[f"RandomSub {cell} (N={spec['n']}), a round"] = (
+            scale[cell]["launches_a_round"])
+
+    # 25. the delivery core's options on the bench default config: card
+    # against CPU and windows against eager in both engines, the kernels
+    # each engine may launch under them, and the both-options cell's
+    # windowed phase bench beside phase 18's plain one
+    option_counts = {}
+    for label, kw in CORE_OPTIONS.items():
+        config_parity(sweep, driver, convert, "default", dev, label=f"default {label}", **kw)
+        option_counts[label] = option_launches(sweep, driver, dev, counters, kw)
+        say(f"default {label} launches at N={N_PARITY}: {option_counts[label]} (per-round: "
+            "no edge_exchange, no fused_delivery; no delivery_banded anywhere)")
+    option_turns = window_bench(sweep, driver, dev, card, counters, "phase",
+                                **CORE_OPTIONS["both"])
+    say(f"phase bench windowed N={N_FULL}: both options "
+        f"{[round(t['rate'], 3) for t in option_turns if t['mode'] == 'window']} against "
+        f"the plain config's {[round(t['rate'], 3) for t in phase_turns if t['mode'] == 'window']}"
+        f" delivery-rounds/s (phase 18), on {card}")
+
+    # 26. FloodSub under the queue cap
+    capped = flood_capped(sweep, convert, counters, dev, card)
+    for rec in records:
+        rec["slice_launches"] = {k: v.get(rec["name"], 0) for k, v in slice_launches.items()}
+        if rec["name"] == "select_topk":
+            rec["randomsub"] = {cell: scale[cell]["select_topk"] for cell in scale}
+    say("slice cells: " + json.dumps({
+        "randomsub": {cell: {k: v for k, v in rec.items() if k != "select_topk"}
+                      for cell, rec in scale.items()},
+        "options_launches": option_counts,
+        "options_window_rates": [t["rate"] for t in option_turns if t["mode"] == "window"],
+        "floodsub_queue_cap": capped}))
+
+    # 27. launches of a bench round, a phase-bench phase and a windowed
     # phase, traced; then the configs' rounds and phases
     bench_launches(card)
     config_traced_launches(card)

@@ -1,7 +1,9 @@
 """Carry a state between the JAX package and the port: a GossipSub state
 or the router-agnostic ``SimState`` FloodSub steps, dense or CSR-resident
 (the same leaves; on a CSR net ``fe_words``, ``served_lo``/``served_hi``
-are flat ``[E, W]`` and ``peerhave``/``iasked`` ``[E]``).
+are flat ``[E, W]`` and ``peerhave``/``iasked`` ``[E]``), with or without
+the async-validation pipeline (``.dlv.pending``, a leaf only when the state
+has one, on both sides).
 
 Leaves are keyed by their STATE_SCHEMA.json path (``.core.dlv.have``,
 ``.score.bp``, ... for GossipSub; ``.dlv.have``, ``.msgs.origin``, ... for a
@@ -23,12 +25,14 @@ from .score.gater import GaterState
 from .state import Delivery, MsgTable, SimState, resolve_device
 
 #: packed 32-bit word planes (uint32 in the JAX package, int32 here)
-_SIM_WORDS = (".dlv.have", ".dlv.fwd", ".dlv.fe_words")
+_SIM_WORDS = (".dlv.have", ".dlv.fwd", ".dlv.fe_words", ".dlv.pending")
 WORD_LEAVES = frozenset({
     *_SIM_WORDS, *(".core" + p for p in _SIM_WORDS), ".mcache",
     ".ihave_out", ".iwant_out", ".served_lo", ".served_hi",
 })
 KEY_LEAVES = frozenset({".key", ".core.key"})
+#: leaves a state may lack (None): the pipeline's stages
+OPTIONAL_LEAVES = frozenset({".dlv.pending", ".core.dlv.pending"})
 
 _SIM_NESTED = {"": SimState, ".msgs": MsgTable, ".dlv": Delivery}
 _NESTED = {
@@ -51,7 +55,8 @@ def _to_tensor(path: str, a, device) -> torch.Tensor:
 def state_from_reference(leaves: dict, device=None):
     """A port state from the JAX state's leaves: a ``GossipSubState`` when
     they are a GossipSub state's (``.core.*`` paths), else a ``SimState``.
-    Every field must be present."""
+    Every field must be present but an ``OPTIONAL_LEAVES`` one, which is
+    None when absent."""
     dev = resolve_device(device)
     nested = _NESTED if any(p.startswith(".core.") for p in leaves) else _SIM_NESTED
 
@@ -60,14 +65,20 @@ def state_from_reference(leaves: dict, device=None):
         kw = {}
         for f in dataclasses.fields(cls):
             p = f"{prefix}.{f.name}"
-            kw[f.name] = build(p) if p in nested else _to_tensor(p, leaves[p], dev)
+            if p in nested:
+                kw[f.name] = build(p)
+            elif p in OPTIONAL_LEAVES and p not in leaves:
+                kw[f.name] = None
+            else:
+                kw[f.name] = _to_tensor(p, leaves[p], dev)
         return cls(**kw)
 
     return build("")
 
 
 def state_leaves(st) -> dict:
-    """The port state's leaves as numpy arrays with the JAX dtypes."""
+    """The port state's leaves as numpy arrays with the JAX dtypes (a
+    None leaf has no entry, as in a JAX tree)."""
     out = {}
 
     def walk(obj, prefix):
@@ -76,6 +87,8 @@ def state_leaves(st) -> dict:
             p = f"{prefix}.{f.name}"
             if dataclasses.is_dataclass(v):
                 walk(v, p)
+                continue
+            if v is None:
                 continue
             a = v.detach().cpu().numpy()
             if p in WORD_LEAVES:

@@ -17,6 +17,12 @@ traffic, and popcounts of it give the SendRPC/RecvRPC trace counters.
 * CSR-resident (flat ``[E, W]`` plane): the ``csr_delivery`` kernel, whose
   ``RoundInfo.trans`` is the flat ``[E, W]`` plane (popcount-equal to the
   dense form: absent slots carry nothing either way).
+
+The core's two options leave both kernels, as the JAX package routes them
+(its ``common.py:204-206, 238-240``): with an outbound-queue cap
+(``queue_cap``) or an async-validation pipeline (a state with
+``dlv.pending``) a banded net takes the dense composite and a CSR-resident
+state the flat composite (``finish_delivery_flat``).
 """
 
 from __future__ import annotations
@@ -36,8 +42,11 @@ from ..trace.events import EV, add_event
 class RoundInfo:
     """Per-round delivery observables consumed by tracing and scoring.
 
-    With inline validation (the only form ported) the entry and validated
-    cohorts coincide: ``recv_new_words`` is ``new_words``."""
+    With inline validation the entry and validated cohorts coincide:
+    ``recv_new_words`` is ``new_words``. With the async-validation pipeline
+    ``recv_new_words`` is this round's fresh receipts (queue admission, the
+    throttle's cohort) and ``new_words`` the receipts whose verdict landed
+    this round (delivery, forwarding and scoring)."""
 
     trans: torch.Tensor        # [N, K, W] words transmitted to j on edge k
                                # (flat [E, W] on a CSR-resident round)
@@ -103,18 +112,54 @@ def origin_msg_words(net: Net, msgs: MsgTable) -> torch.Tensor:
     return bitset.to_word(flat[: n * w]).reshape(n, w)
 
 
-def _refuse_unported(forward_mask, queue_cap: int, val_delay_topic) -> None:
-    checks = [
-        (forward_mask is not None, "forward_mask (the gossipsub forward gate on "
-                                   "the shared core) — ROADMAP §1 item 3"),
-        (queue_cap > 0, "queue_cap > 0 (outbound-queue backpressure) — "
-                        "ROADMAP §1 item 3"),
-        (val_delay_topic is not None, "the async-validation pipeline — "
-                                      "ROADMAP §1 item 3"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
+def pipeline_entry_masks(msg_topic: torch.Tensor, delay_topic: tuple, v: int) -> torch.Tensor:
+    """[V, W] stage-entry masks of the per-topic validation pipeline: a
+    receipt of a topic with delay d enters shift stage V - d, so its
+    verdict lands d rounds after arrival (validation.go:391-438). Padding
+    topics (-1) match no stage."""
+    dt = torch.as_tensor(delay_topic, dtype=torch.int32,
+                         device=msg_topic.device)[msg_topic.clamp(min=0).long()]
+    stage = torch.where(msg_topic >= 0, v - dt, -1)
+    stages = torch.arange(v, dtype=torch.int32, device=msg_topic.device)
+    return bitset.pack(stage[None, :] == stages[:, None])
+
+
+def pipeline_insert(pending_shifted: torch.Tensor, new_words: torch.Tensor,
+                    msg_topic: torch.Tensor, delay_topic: tuple | None) -> torch.Tensor:
+    """Insert this round's fresh receipts into the (already shifted)
+    pipeline at their per-topic entry stage (stage 0 when uniform)."""
+    if delay_topic is None:
+        return torch.cat([pending_shifted[:, :1] | new_words[:, None],
+                          pending_shifted[:, 1:]], dim=1)
+    masks = pipeline_entry_masks(msg_topic, delay_topic, pending_shifted.shape[1])
+    return pending_shifted | (new_words[:, None, :] & masks[None, :, :])
+
+
+def _pipeline_step(dlv: Delivery, new_words, msg_topic, delay_topic):
+    """(validated, pending): with a pipeline, the cohort leaving its last
+    stage and the stages shifted with ``new_words`` entered; inline,
+    ``new_words`` and None."""
+    if dlv.pending is None:
+        return new_words, None
+    shifted = torch.cat([torch.zeros_like(dlv.pending[:, :1]), dlv.pending[:, :-1]], dim=1)
+    return dlv.pending[:, -1], pipeline_insert(shifted, new_words, msg_topic, delay_topic)
+
+
+def _cap(trans: torch.Tensor, queue_cap: int, m: int):
+    """(trans, n_drop): each directed link carries at most ``queue_cap``
+    messages a round, the lowest slots first; the overflow is lost and
+    counted (doDropRPC, gossipsub.go:1155-1160; comm.go:139-170)."""
+    if queue_cap <= 0:
+        return trans, 0
+    kept = bitset.keep_lowest_bits(trans, queue_cap, m)
+    return kept, bitset.popcount(trans & ~kept).sum(dtype=torch.int32)
+
+
+def _refuse_unported(forward_mask) -> None:
+    if forward_mask is not None:
+        raise NotImplementedError(
+            "not ported yet: forward_mask (the gossipsub forward gate on the "
+            "shared core) — ROADMAP §1 item 3")
 
 
 def delivery_round(net: Net, msgs: MsgTable, dlv: Delivery,
@@ -133,9 +178,14 @@ def delivery_round(net: Net, msgs: MsgTable, dlv: Delivery,
     are marked seen whether valid or not (validation.go:285-293); only
     valid ones are re-forwarded (validation.go:309-351).
 
-    Returns (Delivery, RoundInfo). The gossipsub forward gate, the queue
-    cap and the validation pipeline raise ``NotImplementedError``."""
-    _refuse_unported(forward_mask, queue_cap, val_delay_topic)
+    ``queue_cap`` > 0 caps each directed link's messages a round (the
+    overflow is dropped and counted); a state with ``dlv.pending`` runs the
+    async-validation pipeline: receipts are seen on arrival, and
+    forwarding, the verdict and ``first_round`` land at pipeline exit
+    (``val_delay_topic`` the per-topic delays, None uniform). Returns
+    (Delivery, RoundInfo). The gossipsub forward gate raises
+    ``NotImplementedError``."""
+    _refuse_unported(forward_mask)
     n, k = net.nbr.shape
     if dlv.fe_words.dim() == 2:
         if net.edge_layout != "csr" or dlv.fe_words.shape[0] != net.n_edges:
@@ -151,8 +201,12 @@ def delivery_round(net: Net, msgs: MsgTable, dlv: Delivery,
     w = bitset.n_words(m)
     valid_words = bitset.pack(msgs.valid)
     not_mine = ~origin_msg_words(net, msgs)  # [N, W]
+    # the kernels commit inline and uncapped; the options take the composites
+    plain_core = queue_cap == 0 and dlv.pending is None
+    opts = dict(count_events=count_events, queue_cap=queue_cap,
+                val_delay_topic=val_delay_topic)
 
-    if net.band_off is not None:
+    if net.band_off is not None and plain_core:
         ok = torch.where(net.nbr_ok[..., None], bitset.ALL, 0).to(torch.int32)
         res = db.delivery_banded(
             dlv.fwd, dlv.fe_words.reshape(n, k * w),
@@ -167,7 +221,7 @@ def delivery_round(net: Net, msgs: MsgTable, dlv: Delivery,
 
     if net.edge_layout == "csr":
         mask_e = net.pack_edges(edge_mask)
-        if dlv.fe_words.dim() == 2:
+        if dlv.fe_words.dim() == 2 and plain_core:
             # CSR-resident: the whole round over the flat edge space; the
             # dense [N, K, W] transmit tensor never exists. Every row segment
             # is bounded by K in both the fused and the unfused build.
@@ -178,16 +232,19 @@ def delivery_round(net: Net, msgs: MsgTable, dlv: Delivery,
                 net.csr_row_last, net.csr_row_nonempty, net.csr_row_ptr,
                 cap=k)
             return _commit_flat_result(dlv, res, m, valid_words, count_events)
+        resident = dlv.fe_words.dim() == 2
         trans_e = (net.peer_gather_flat(dlv.fwd)
-                   & ~net.edge_gather_flat(net.pack_edges(dlv.fe_words))
+                   & ~net.edge_gather_flat(dlv.fe_words if resident
+                                           else net.pack_edges(dlv.fe_words))
                    & mask_e & net.owner_gather(not_mine))
-        return finish_delivery(net, msgs, dlv, net.unpack_edges(trans_e), tick,
-                               count_events=count_events)
+        if resident:
+            return finish_delivery_flat(net, msgs, dlv, trans_e, tick, **opts)
+        return finish_delivery(net, msgs, dlv, net.unpack_edges(trans_e), tick, **opts)
 
     ok = torch.where(net.nbr_ok[..., None], bitset.ALL, 0).to(torch.int32)
     trans = (net.peer_gather(dlv.fwd) & ~net.edge_gather(dlv.fe_words)
              & edge_mask & ok & not_mine[:, None, :])
-    return finish_delivery(net, msgs, dlv, trans, tick, count_events=count_events)
+    return finish_delivery(net, msgs, dlv, trans, tick, **opts)
 
 
 def finish_delivery(net: Net, msgs: MsgTable, dlv: Delivery,
@@ -195,25 +252,29 @@ def finish_delivery(net: Net, msgs: MsgTable, dlv: Delivery,
                     forward_mask: torch.Tensor | None = None,
                     count_events: bool = True, queue_cap: int = 0,
                     val_delay_topic: tuple | None = None):
-    """Commit a computed ``[N, K, W]`` transmit tensor: seen-cache dedup,
-    first-arrival attribution (lowest edge slot carrying each new bit),
-    forward-set update. The shared tail of ``delivery_round``'s composite
-    forms."""
-    _refuse_unported(forward_mask, queue_cap, val_delay_topic)
+    """Commit a computed ``[N, K, W]`` transmit tensor: the queue cap,
+    seen-cache dedup, first-arrival attribution (lowest edge slot carrying
+    each new bit), the validation pipeline, forward-set update. The shared
+    tail of ``delivery_round``'s composite forms and the phase engine's."""
+    _refuse_unported(forward_mask)
     m = msgs.capacity
+    trans, n_drop = _cap(trans, queue_cap, m)
     new = bitset.word_or_reduce(trans, 1) & ~dlv.have
     fa = bitset.first_set_per_bit(trans, 1) & new[:, None, :]
     valid_words = bitset.pack(msgs.valid)
+    validated, pending = _pipeline_step(dlv, new, msgs.topic, val_delay_topic)
     dlv = replace(
         dlv,
         have=dlv.have | new,
-        fwd=new & valid_words[None, :],
-        first_round=torch.where(bitset.unpack(new, m), tick, dlv.first_round),
+        fwd=validated & valid_words[None, :],
+        first_round=torch.where(bitset.unpack(validated, m), tick, dlv.first_round),
         # overwrite (not OR) on new receipts, so stale bits cannot survive
         # a slot whose message is received again after a recycle
         fe_words=(dlv.fe_words & ~new[:, None, :]) | fa,
+        pending=pending,
     )
-    return dlv, _round_info(trans, new, m, valid_words, count_events)
+    return dlv, _finish_info(trans, validated, new, m, valid_words, count_events, n_drop,
+                             pending is not None)
 
 
 def finish_delivery_flat(net: Net, msgs: MsgTable, dlv: Delivery,
@@ -225,14 +286,37 @@ def finish_delivery_flat(net: Net, msgs: MsgTable, dlv: Delivery,
     plane: the per-peer receive OR and the first-arrival isolation fall
     out of one segmented prefix OR over the row segments, and the
     first-arrival plane commits flat. Equal to ``finish_delivery`` on the
-    unpacked tensor; ``RoundInfo.trans`` is the flat plane."""
-    _refuse_unported(forward_mask, queue_cap, val_delay_topic)
+    unpacked tensor; ``RoundInfo.trans`` is the flat plane. The queue cap
+    applies per flat row, one directed link each, as in the dense form."""
+    _refuse_unported(forward_mask)
+    m = msgs.capacity
+    trans_e, n_drop = _cap(trans_e, queue_cap, m)
     valid_words = bitset.pack(msgs.valid)
     res = cd.commit_flat(
         trans_e, dlv.fe_words, dlv.have, dlv.first_round, valid_words[None, :],
         tick, net.csr_row, net.csr_seg_start, net.csr_row_last,
         net.csr_row_nonempty, cap=net.max_degree if net.fused else None)
-    return _commit_flat_result(dlv, res, msgs.capacity, valid_words, count_events)
+    validated, pending = _pipeline_step(dlv, res["new"], msgs.topic, val_delay_topic)
+    if pending is not None:
+        res["fwd"] = validated & valid_words[None, :]
+        res["first_round"] = torch.where(bitset.unpack(validated, m), tick, dlv.first_round)
+    dlv = replace(dlv, have=res["have"], fwd=res["fwd"], first_round=res["first_round"],
+                  fe_words=res["fe"], pending=pending)
+    return dlv, _finish_info(trans_e, validated, res["new"], m, valid_words, count_events,
+                             n_drop, pending is not None)
+
+
+def _finish_info(trans, validated, new, m, valid_words, count_events, n_drop,
+                 pipelined: bool) -> RoundInfo:
+    """The composite commits' RoundInfo: the verdict cohort's counters,
+    the fresh receipts as ``recv_new_words`` and the cap's drops; with the
+    pipeline, duplicates counted against the fresh receipts."""
+    info = _round_info(trans, validated, m, valid_words, count_events)
+    info = replace(info, recv_new_words=new, n_drop=n_drop)
+    if count_events and pipelined:
+        info = replace(info, n_duplicate=info.n_rpc - bitset.popcount(new).sum(
+            dtype=torch.int32))
+    return info
 
 
 def _commit_flat_result(dlv: Delivery, res: dict, m: int,

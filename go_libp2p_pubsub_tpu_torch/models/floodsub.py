@@ -10,8 +10,9 @@ delivery engine (``models/common.delivery_round``) applies the source and
 origin exclusions and dedup. The step inherits the Net's edge layout
 through that seam: on CUDA a banded dense Net runs the ``delivery_banded``
 kernel and a CSR-resident state (``SimState.init(..., n_edges=net.n_edges)``)
-the ``csr_delivery`` kernel; other dense topologies and a CSR Net with a
-dense-resident state run the plain composites, as in the reference.
+the ``csr_delivery`` kernel; other dense topologies, a CSR Net with a
+dense-resident state, and any round under the queue cap or the validation
+pipeline run the plain composites, as in the reference.
 """
 
 from __future__ import annotations
@@ -39,10 +40,13 @@ def floodsub_step(net: Net, state: SimState, pub_origin: torch.Tensor,
     bool verdicts); they start propagating next round. Functional: the
     given state is not written.
 
-    The queue cap and the chaos, telemetry and adversary planes raise
-    ``NotImplementedError``."""
+    The outbound-queue cap and the async-validation pipeline live below
+    the router in the reference, so they apply here as in GossipSub:
+    ``queue_cap`` > 0 drops (and counts) each link's overflow, and a state
+    built with ``SimState.init(val_delay=...)`` runs the pipeline. Either
+    takes the delivery composites, not the kernels (``common.py``). The
+    chaos, telemetry and adversary planes raise ``NotImplementedError``."""
     unported = [
-        (queue_cap > 0, "queue_cap > 0 (outbound-queue backpressure) — ROADMAP §1 item 3"),
         (chaos is not None or link_deny is not None,
          "chaos (link-fault injection) — ROADMAP §1 item 5"),
         (telemetry is not None, "telemetry (the per-round panel) — ROADMAP §1 item 5"),
@@ -52,7 +56,8 @@ def floodsub_step(net: Net, state: SimState, pub_origin: torch.Tensor,
         if bad:
             raise NotImplementedError(f"floodsub_step: not ported yet: {what}")
     edge_mask = flood_edge_mask(net, state.msgs)
-    dlv, info = delivery_round(net, state.msgs, state.dlv, edge_mask, state.tick)
+    dlv, info = delivery_round(net, state.msgs, state.dlv, edge_mask, state.tick,
+                               queue_cap=queue_cap)
     msgs, dlv, _slots, is_pub, _keep, _pub_words = allocate_publishes(
         state.msgs, dlv, state.tick, pub_origin, pub_topic, pub_valid)
     events = accumulate_round_events(state.events, info, is_pub.sum(dtype=torch.int32))

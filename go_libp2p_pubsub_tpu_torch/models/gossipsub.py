@@ -17,8 +17,15 @@ on a CSR net, it is the JAX package's XLA-path composites (``control_exchange``,
 ``iwant_responses``, ``gossip_edge_mask``, the shared ``delivery_round``,
 ``merge_extra_tx``). A CSR net keeps its per-edge planes flat between steps
 (``state.wrap_csr_resident``). Every heartbeat selection is one launch of
-the ``select_topk`` kernel on the card (``ops/select.py``). Options outside
-the port raise ``NotImplementedError`` naming the ROADMAP item that brings
+the ``select_topk`` kernel on the card (``ops/select.py``).
+
+The outbound-queue cap (``queue_cap``) and the async-validation pipeline
+(``validation_delay_rounds``/``validation_delay_topic``) take the
+composites on every net, the banded K <= 16 one too, as the JAX package's
+``fused_eligible`` routes them: under either option neither
+``edge_exchange`` nor ``fused_delivery`` launches, and the shared delivery
+round leaves ``delivery_banded`` for its composite. Options outside the
+port raise ``NotImplementedError`` naming the ROADMAP item that brings
 them.
 """
 
@@ -77,6 +84,7 @@ from .common import (
     accumulate_round_events,
     delivery_round,
     origin_msg_words,
+    pipeline_insert,
     subscribed_msg_words,
 )
 
@@ -118,6 +126,20 @@ class GossipSubConfig:
     gater_enabled: bool = False
     gater_quiet_ticks: int = 60
     validation_capacity: int = 0  # accepted validations per peer per round
+    # outbound-queue backpressure: each link's message budget a round, the
+    # overflow lost and traced DROP_RPC (pubsub.go:240, comm.go:139-170);
+    # 0 = lossless
+    queue_cap: int = 0
+    # async validation latency in rounds: receipts spend this many rounds
+    # between arrival (markSeen) and their verdict (forward, Deliver or
+    # Reject, the CDF stamp); 0 = inline. ``validation_delay_topic`` holds
+    # per-topic delays in [1, validation_delay_rounds] (validation.go:
+    # 123-135, 391-438), None = uniform
+    validation_delay_rounds: int = 0
+    validation_delay_topic: tuple | None = None
+    # WithValidatorTimeout (validation.go:522-529): a verdict later than
+    # this many rounds times out and the message is ignored; 0 = none
+    validator_timeout_rounds: int = 0
     # fanout: publishing to unjoined topics (gossipsub.go:981-1002,1517-1554)
     fanout_slots: int = 2         # concurrent unjoined publish topics a peer
     fanout_ttl_ticks: int = 60
@@ -139,18 +161,35 @@ class GossipSubConfig:
               heartbeat_every: int = 1,
               gater_params: PeerGaterParams | None = None,
               validation_capacity: int = 0,
+              validation_delay_rounds: int = 0,
+              validation_delay_topic: tuple | None = None,
+              validator_timeout_rounds: int = 0,
+              queue_cap: int = 0,
               edge_layout: str = "dense",
               fused: bool = False,
               wire_coalesced: bool = True) -> "GossipSubConfig":
         """``edge_layout`` and ``fused`` must match the Net's
         (``Net.build(..., edge_layout=..., fused=...)``); the step refuses
         a mismatch. The selections take one form under either flag; its
-        ranks equal both of the JAX package's forms."""
+        ranks equal both of the JAX package's forms. Per-topic delays
+        without a depth set the depth to their largest."""
         p = params or GossipSubParams()
         p.validate()
         if edge_layout not in ("dense", "csr"):
             raise ValueError(
                 f"edge_layout must be 'dense' or 'csr', got {edge_layout!r}")
+        if validator_timeout_rounds < 0:
+            raise ValueError(
+                f"validator_timeout_rounds must be >= 0, got {validator_timeout_rounds}")
+        if validation_delay_topic is not None:
+            validation_delay_topic = tuple(int(d) for d in validation_delay_topic)
+            if validation_delay_rounds <= 0:
+                validation_delay_rounds = max(validation_delay_topic)
+            if not all(1 <= d <= validation_delay_rounds for d in validation_delay_topic):
+                raise ValueError(
+                    "validation_delay_topic entries must lie in "
+                    f"[1, {validation_delay_rounds}] (the pipeline depth); "
+                    f"got {validation_delay_topic}")
         hb = p.heartbeat_interval
         kw = dict(
             D=p.D, Dlo=p.Dlo, Dhi=p.Dhi, Dscore=p.Dscore, Dout=p.Dout,
@@ -171,6 +210,10 @@ class GossipSubConfig:
             gater_enabled=gater_params is not None,
             gater_quiet_ticks=ticks_for(gater_params.quiet, hb) if gater_params else 60,
             validation_capacity=validation_capacity,
+            validation_delay_rounds=validation_delay_rounds,
+            validation_delay_topic=validation_delay_topic,
+            validator_timeout_rounds=validator_timeout_rounds,
+            queue_cap=queue_cap,
             fanout_ttl_ticks=ticks_for(p.fanout_ttl, hb),
             edge_layout=edge_layout,
             fused=bool(fused),
@@ -185,6 +228,20 @@ class GossipSubConfig:
                 opportunistic_graft_threshold=thresholds.opportunistic_graft_threshold,
             )
         return cls(**kw)
+
+    def validation_timed_out(self, topic: int) -> bool:
+        """True when this topic's verdict can never land inside the
+        validator timeout (its effective delay exceeds
+        ``validator_timeout_rounds``): its messages resolve to
+        ValidationIgnore, the expired-context outcome (validation.go:
+        522-529)."""
+        if self.validator_timeout_rounds <= 0:
+            return False
+        if self.validation_delay_topic is not None:
+            delay = self.validation_delay_topic[topic]
+        else:
+            delay = self.validation_delay_rounds
+        return delay > self.validator_timeout_rounds
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +304,8 @@ class GossipSubState:
         ph_shape = (n, k) if e is None else (e,)
         sv_shape = (n, k, w) if e is None else (e, w)
         return cls(
-            core=SimState.init(n, msg_slots, seed, k=k, device=dev, n_edges=e),
+            core=SimState.init(n, msg_slots, seed, k=k, device=dev, n_edges=e,
+                               val_delay=cfg.validation_delay_rounds),
             mesh=z((n, s, k), b),
             backoff_expire=z((n, s, k), i32),
             backoff_present=z((n, s, k), b),
@@ -554,13 +612,23 @@ def gossip_edge_mask(cfg: GossipSubConfig, net: Net, st: GossipSubState,
 
 
 def merge_extra_tx(net: Net, msgs, dlv, info: RoundInfo, extra: torch.Tensor,
-                   tick, count_events: bool = True):
+                   tick, count_events: bool = True, queue_cap: int = 0,
+                   val_delay_topic: tuple | None = None):
     """Fold IWANT-response transmissions (outside the senders' forward
     sets) into the round's delivery results: dedup against the seen-cache,
-    first arrivals, forward set and the round's counters. The queue cap
-    and the validation pipeline of the JAX function are not ported."""
+    first arrivals, forward set and the round's counters. With
+    ``queue_cap`` the responses share the link's budget with the push
+    already in ``info.trans``, the overflow dropped and counted (comm.go:
+    139-170); with the validation pipeline the fresh receipts enter it at
+    their entry stage and their verdict lands at its exit."""
     m = msgs.capacity
     extra = extra & ~origin_msg_words(net, msgs)[:, None, :]
+    if queue_cap > 0:
+        budget = (queue_cap - bitset.popcount(info.trans)).clamp(min=0)
+        want = extra
+        extra = bitset.keep_lowest_bits(want, queue_cap, m, rows=budget)
+        info = replace(info, n_drop=info.n_drop + bitset.popcount(want & ~extra).sum(
+            dtype=torch.int32))
     new_words = bitset.word_or_reduce(extra, 1) & ~dlv.have
     fa_words = bitset.first_set_per_bit(extra, 1) & new_words[:, None, :]
     valid_words = bitset.pack(msgs.valid)
@@ -568,21 +636,31 @@ def merge_extra_tx(net: Net, msgs, dlv, info: RoundInfo, extra: torch.Tensor,
         dlv,
         have=dlv.have | new_words,
         fe_words=(dlv.fe_words & ~new_words[:, None, :]) | fa_words,
-        fwd=dlv.fwd | (new_words & valid_words[None, :]),
-        first_round=torch.where(bitset.unpack(new_words, m), tick, dlv.first_round),
     )
+    pipelined = dlv.pending is not None
+    if pipelined:
+        dlv = replace(dlv, pending=pipeline_insert(dlv.pending, new_words, msgs.topic,
+                                                   val_delay_topic))
+    else:
+        dlv = replace(
+            dlv,
+            fwd=dlv.fwd | (new_words & valid_words[None, :]),
+            first_round=torch.where(bitset.unpack(new_words, m), tick, dlv.first_round),
+        )
     info = replace(info, trans=info.trans | extra,
-                   recv_new_words=info.recv_new_words | new_words,
-                   new_words=info.new_words | new_words)
+                   recv_new_words=info.recv_new_words | new_words)
+    if not pipelined:
+        info = replace(info, new_words=info.new_words | new_words)
     if count_events:
         n_extra = bitset.popcount(extra).sum(dtype=torch.int32)
         n_new = bitset.popcount(new_words).sum(dtype=torch.int32)
-        n_deliver = bitset.popcount(new_words & valid_words[None, :]).sum(
-            dtype=torch.int32)
         info = replace(info, n_duplicate=info.n_duplicate + (n_extra - n_new),
-                       n_rpc=info.n_rpc + n_extra,
-                       n_deliver=info.n_deliver + n_deliver,
-                       n_reject=info.n_reject + (n_new - n_deliver))
+                       n_rpc=info.n_rpc + n_extra)
+        if not pipelined:
+            n_deliver = bitset.popcount(new_words & valid_words[None, :]).sum(
+                dtype=torch.int32)
+            info = replace(info, n_deliver=info.n_deliver + n_deliver,
+                           n_reject=info.n_reject + (n_new - n_deliver))
     return dlv, info
 
 
@@ -593,7 +671,8 @@ def merge_extra_tx(net: Net, msgs, dlv, info: RoundInfo, extra: torch.Tensor,
 def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
               sc: ScoreScalars, nbr_sub, gater_params: PeerGaterParams | None = None,
               nbr_sub_words: torch.Tensor | None = None,
-              mesh_capable: torch.Tensor | None = None) -> GossipSubState:
+              mesh_capable: torch.Tensor | None = None,
+              gossip_suppress: torch.Tensor | None = None) -> GossipSubState:
     """One heartbeat for every peer. The JAX package gates the maintenance
     sub-passes with ``lax.cond`` on "any row needs it"; both branches give
     identical results there, so this runs them unconditionally (no host
@@ -601,7 +680,9 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     a ``torch.where``. ``nbr_sub_words`` [N,K,Wt] (the neighbours'
     subscriptions as topic bits) turns on fanout maintenance and gossip,
     with ``mesh_capable`` [N,K] (the far end speaks a mesh protocol; a
-    static view the step builds once)."""
+    static view the step builds once). ``gossip_suppress`` [N,K] marks
+    congested outbound links whose IHAVE batch is dropped this heartbeat
+    (the queue cap's backpressure; gossipsub.go:1757-1764)."""
     tick = st.core.tick
     n, s_dim, k_dim = st.mesh.shape
     key = prng.fold_in(st.core.key, tick)
@@ -738,6 +819,8 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     # ---- emitGossip (gossipsub.go:1669-1723) ----------------------------
     gwin = bitset.word_or_reduce(st.mcache[:, : cfg.history_gossip, :], dim=1)
     gossip_cand = connected & nbr_sub & ~mesh & ~net.direct[:, None, :]
+    if gossip_suppress is not None:
+        gossip_cand = gossip_cand & ~gossip_suppress[:, None, :]
     if cfg.score_enabled:
         gossip_cand = gossip_cand & (scores_b >= cfg.gossip_threshold)
     n_cand = count_true(gossip_cand)
@@ -755,6 +838,8 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     # fanout-topic gossip (gossipsub.go:1551-1553; fanout peers excluded)
     if fanout:
         gossip_cand_f = base_f & ~fpeers
+        if gossip_suppress is not None:
+            gossip_cand_f = gossip_cand_f & ~gossip_suppress[:, None, :]
         if cfg.score_enabled:
             gossip_cand_f = gossip_cand_f & (scores[:, None, :] >= cfg.gossip_threshold)
         n_cand_f = count_true(gossip_cand_f)
@@ -873,6 +958,11 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
         if gater_params is None:
             raise ValueError("cfg.gater_enabled needs gater_params")
         gater_params.validate()
+    if (cfg.validation_delay_topic is not None
+            and len(cfg.validation_delay_topic) != net.n_topics):
+        raise ValueError(
+            f"validation_delay_topic has {len(cfg.validation_delay_topic)} entries "
+            f"but the net has {net.n_topics} topics")
     if cfg.score_enabled:
         assert score_params is not None
         score_params.validate()
@@ -942,13 +1032,25 @@ def apply_validation_throttle(dlv, info: RoundInfo, cap: int, m: int, valid_word
     queue => RejectValidationThrottled): each peer admits at most ``cap``
     new receipts a round, the lowest slots first; the overflow is refused —
     not marked seen, not forwarded, no score attribution
-    (score.go:745-749,761-767). Returns (dlv, info, accepted_new_words,
-    n_throttled [N] i32)."""
+    (score.go:745-749,761-767). The cap applies at queue admission (this
+    round's fresh receipts), so with the async pipeline the refused receipts
+    clear from the stages, not from the verdict state, and this round's
+    verdicts stand. Returns (dlv, info, accepted_new_words, n_throttled [N]
+    i32); the accepted plane is the verdict cohort."""
     entry = info.recv_new_words
     # the clear-lowest-bit chain for a static cap, not an unpack+cumsum
     accepted = bitset.keep_lowest_bits(entry, cap, m)
     refused = entry & ~accepted
     n_throttled = bitset.popcount(refused)
+    if dlv.pending is not None:
+        # refused receipts are fresh, so they sit in their entry stage;
+        # clearing every stage serves any per-topic entry pattern
+        dlv = replace(dlv, have=dlv.have & ~refused,
+                      fe_words=dlv.fe_words & ~refused[:, None, :],
+                      pending=dlv.pending & ~refused[:, None, :])
+        info = replace(info, recv_new_words=accepted,
+                       n_reject=info.n_reject + n_throttled.sum(dtype=torch.int32))
+        return dlv, info, info.new_words, n_throttled
     dlv = replace(
         dlv,
         have=dlv.have & ~refused,
@@ -1132,9 +1234,18 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     peers run the whole control plane but never transmit message data (the
     reference suite's ``sybilSquatter``, gossipsub_test.go:1777-1811).
 
+    ``cfg.queue_cap`` caps each link's messages a round (the overflow
+    dropped and counted, congested links suppressing the next heartbeat's
+    gossip toward them), and ``cfg.validation_delay_rounds`` (or
+    ``validation_delay_topic``) runs the async-validation pipeline; the
+    state carries its stages (``GossipSubState.init``).
+
     On a banded dense net with K <= 16 the data plane is the two fused
-    kernels; on any other net it is the XLA-path composites, and a CSR net's state stays
-    CSR-resident between steps. The step is functional: it never writes
+    kernels, unless the queue cap or the pipeline is on: as in the JAX
+    package (its ``fused_eligible``), those configs take the XLA-path
+    composites, as every other net does, and neither ``edge_exchange`` nor
+    ``fused_delivery`` launches. A CSR net's state stays CSR-resident
+    between steps. The step is functional: it never writes
     into the state it is given. Options of the JAX step outside the port
     (the chaos and adversary planes, the router, dynamic peers or topology,
     announce holes, lifted scores, telemetry) raise, and so does PX."""
@@ -1149,8 +1260,12 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     n_peers, k_dim = net.n_peers, net.max_degree
 
     # the fused kernels hold a row's K first-arrival words in registers; a
-    # wider banded net takes the composites, as every non-banded net does
-    banded = net.band_off is not None and k_dim <= fr.MAX_K
+    # wider banded net takes the composites, as every non-banded net does,
+    # and so do the queue cap and the pipeline, which the kernels predate
+    banded = (net.band_off is not None and k_dim <= fr.MAX_K
+              and cfg.validation_delay_rounds == 0 and cfg.queue_cap == 0)
+    opts = dict(count_events=cfg.count_events, queue_cap=cfg.queue_cap,
+                val_delay_topic=cfg.validation_delay_topic)
 
     def banded_cross(words, scores):
         """The control words across the banded involution as one
@@ -1264,11 +1379,9 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             # edges from no-forward peers carry no data
             edge_mask = torch.where(consts.sender_fwd_ok[:, :, None], edge_mask, 0)
             iwant_resp = torch.where(consts.sender_fwd_ok[:, :, None], iwant_resp, 0)
-        dlv, info = delivery_round(net, core.msgs, core.dlv, edge_mask, core.tick,
-                                   count_events=cfg.count_events)
+        dlv, info = delivery_round(net, core.msgs, core.dlv, edge_mask, core.tick, **opts)
         iwant_resp = torch.where(acc_msg[:, :, None], iwant_resp, 0)
-        dlv, info = merge_extra_tx(net, core.msgs, dlv, info, iwant_resp,
-                                   core.tick, count_events=cfg.count_events)
+        dlv, info = merge_extra_tx(net, core.msgs, dlv, info, iwant_resp, core.tick, **opts)
         return st2, dlv, info
 
     def _round(st: GossipSubState, pub_origin, pub_topic, pub_valid,
@@ -1306,7 +1419,8 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                 nbr_score_of_me)
 
         # 4b. the validation front-end throttle (validation.go:230-244): it
-        # rewrites the round's have, fwd, first_round and fe planes
+        # rewrites the round's have, fwd, first_round and fe planes (the
+        # pipeline's stages instead of fwd and first_round)
         accepted_new, n_throttled = info.new_words, None
         if cfg.validation_capacity > 0:
             dlv, info, accepted_new, n_throttled = apply_validation_throttle(
@@ -1319,7 +1433,10 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                 score, net, st2.mesh, tp, info.trans, info.new_words,
                 dlv.fe_words, dlv.first_round, core.msgs.topic,
                 core.msgs.valid, tick, consts.window_rounds_t,
-                msg_ignored=core.msgs.ignored, slotw=slotw)
+                msg_ignored=core.msgs.ignored, slotw=slotw,
+                pending_words=(bitset.word_or_reduce(dlv.pending, dim=1)
+                               if dlv.pending is not None else None),
+                recv_new_words=info.recv_new_words)
 
         # 5b. the gater's outcome counters (peer_gater.go:365-443)
         gater = st2.gater
@@ -1378,10 +1495,20 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             gater=gater,
         )
 
+        # congested links suppress this round's heartbeat gossip toward
+        # them: a full writer queue drops the IHAVE batch, never retried
+        # (gossipsub.go:1757-1764, :1155-1160)
+        gossip_suppress = None
+        if cfg.queue_cap > 0:
+            sat_recv = bitset.popcount(info.trans) >= cfg.queue_cap
+            gossip_suppress = net.edge_gather(sat_recv) & net.nbr_ok
+            st2 = replace(st2, congested_in=sat_recv)
+
         # 8. heartbeat
         def hb(s):
             return heartbeat(cfg, net, s, tp, consts.scalars, consts.nbr_sub_const,
-                             gater_params, consts.nbr_sub_words, consts.mesh_capable)
+                             gater_params, consts.nbr_sub_words, consts.mesh_capable,
+                             gossip_suppress)
 
         if cfg.heartbeat_every == 1:
             st2 = hb(st2)

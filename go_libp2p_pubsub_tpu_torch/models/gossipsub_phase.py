@@ -13,7 +13,10 @@ one call the reference's way:
 * the data plane — publish allocation, mesh and flood push, seen-cache
   dedup, first-arrival attribution, mcache insertion — runs every
   sub-round, so per-hop delivery latency and the ``first_round`` stamps
-  keep one-round resolution.
+  keep one-round resolution. The outbound-queue cap and the
+  async-validation pipeline apply in every sub-round's commit
+  (``common.finish_delivery``); the last sub-round's link saturation
+  suppresses the tail heartbeat's gossip.
 
 Each sub-round composes what every sender pushes on each edge and crosses
 the edge involution once. On a banded net with K <= ``fused_round.MAX_K``
@@ -228,6 +231,8 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         p3_live = p4_live = False
     p3_live, p4_live = p3_live or exact_counters, p4_live or exact_counters
     plane_score = cfg.score_enabled
+    opts = dict(count_events=cfg.count_events, queue_cap=cfg.queue_cap,
+                val_delay_topic=cfg.validation_delay_topic)
 
     def cross_data(send, gate):
         """A sub-round's data words across the edges, zero off ``gate``
@@ -286,9 +291,10 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         msgs, dlv = core.msgs, core.dlv
         mcache = st2.mcache
         keep_acc = torch.full((w,), bitset.ALL, dtype=torch.int32, device=dev)
-        # the attribution planes the phase tail reads: with inline
-        # validation the JAX package's fresh-receipt and accepted planes
-        # are this one "new" plane (the throttle leaves entry == accepted)
+        # the attribution planes the phase tail reads: the JAX package's
+        # accepted plane is always this "new" one (the verdict cohort, which
+        # the throttle leaves as the accepted receipts), and its
+        # fresh-receipt plane reaches no score of a phase
         specs = []
         if plane_score or cfg.gater_enabled:
             specs.append(("new", 1))
@@ -347,12 +353,11 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             trans = trans & (joined_w & ~origin_w)[:, None, :]
 
             pre_have = dlv.have if cfg.gater_enabled else None
-            dlv, info = finish_delivery(net_l, msgs, dlv, trans, tick_i,
-                                        count_events=cfg.count_events)
+            dlv, info = finish_delivery(net_l, msgs, dlv, trans, tick_i, **opts)
             if i == 0:
                 # the head's IWANT responses ride the first sub-round
                 dlv, info = merge_extra_tx(net_l, msgs, dlv, info, iwant_resp, tick_i,
-                                           count_events=cfg.count_events)
+                                           **opts)
             valid_w_i = plan.valid_words[i]
             if cfg.validation_capacity > 0:
                 dlv, info, _accepted, n_thr = apply_validation_throttle(
@@ -370,6 +375,13 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                 within_i = bitset.pack((dlv.first_round >= 0)
                                        & ((tick_i - dlv.first_round) <= window[None, :]))
                 upd["mcw"] = info.trans & within_i[:, None, :]
+                if dlv.pending is not None:
+                    # duplicates arriving while the message sits in the
+                    # pipeline (score.go:712-718); the fresh first arrival
+                    # earns its credit at its verdict instead
+                    pend_post = bitset.word_or_reduce(dlv.pending, dim=1)
+                    fa_i = dlv.fe_words & info.recv_new_words[:, None, :]
+                    upd["mcw"] = upd["mcw"] | (info.trans & pend_post[:, None, :] & ~fa_i)
             if cfg.gater_enabled:
                 upd["dup"], upd["rejw"], upd["ignw"] = outcome_planes(
                     info.trans, pre_have, valid_w_i, bitset.pack(msgs.ignored))
@@ -469,9 +481,16 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         # the head's state rode the loop for its fanout planes only: let its
         # other planes go before the heartbeat
         del fanout_st
+        # congested links suppress this heartbeat's gossip toward them: the
+        # last sub-round's saturation, as in the per-round step
+        gossip_suppress = None
+        if cfg.queue_cap > 0:
+            sat_recv = bitset.popcount(info.trans) >= cfg.queue_cap
+            gossip_suppress = net_l.edge_gather(sat_recv) & net_l.nbr_ok
+            st2 = replace(st2, congested_in=sat_recv)
         if do_heartbeat:
             st2 = heartbeat(cfg, net_l, st2, tp, consts.scalars, nbr_sub_l, gater_params,
-                            nbr_sub_words_l, consts.mesh_capable)
+                            nbr_sub_words_l, consts.mesh_capable, gossip_suppress)
         return replace(st2, core=replace(st2.core, tick=tick0 + r))
 
     if net.edge_layout == "csr":

@@ -1,0 +1,110 @@
+"""RandomSub router, vectorized (randomsub.go).
+
+Reference semantics (randomsub.go:99-160): on each publish or forward, send
+to max(RandomSubD = 6, ceil(sqrt(topic size))) random *gossip-capable* peers
+subscribed to the topic, while peers speaking only /floodsub/1.0.0 always
+receive (randomsub.go:107-116 splits the peer list before sampling).
+
+Vector form: each sender draws a fresh random-k edge selection per topic
+slot per round over its gossip-capable neighbours (one ``select_topk``
+launch on the card, the size target as each row's k) and ORs in the
+floodsub-only edges; the receivers read the sender-side outbox through the
+edge involution, as the GossipSub mesh push does. The delivery round is the
+shared core's (``models/common.delivery_round``): ``delivery_banded`` on a
+banded dense net, ``csr_delivery`` on a CSR-resident state, the composites
+elsewhere and under the queue cap or the validation pipeline.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import prng
+from ..ops.select import select_random_mask
+from ..score.engine import slot_topic_words
+from ..state import Net, SimState, allocate_publishes, replace
+from .common import accumulate_round_events, delivery_round
+from .gossipsub import gather_nbr_subscribed, joined_msg_words, sender_carry_words
+
+RANDOMSUB_D = 6  # randomsub.go:17
+
+
+def size_targets(net: Net, d: int = RANDOMSUB_D,
+                 size_estimate: int | None = None) -> np.ndarray:
+    """[T] int32 fanout targets max(d, ceil(sqrt(size))) (randomsub.go:
+    124-131): ``size`` is ``size_estimate`` when given (the reference's
+    static network-size parameter), else each topic's count of
+    gossip-capable subscribers."""
+    if size_estimate is not None:
+        size = np.full((net.n_topics,), size_estimate, np.int64)
+    else:
+        gossip = (net.protocol >= 1).cpu().numpy()
+        size = (net.subscribed.cpu().numpy() & gossip[:, None]).sum(0)
+    return np.maximum(d, np.ceil(np.sqrt(size))).astype(np.int32)
+
+
+def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
+                        size_estimate: int | None = None,
+                        queue_cap: int = 0,
+                        stacked: bool = True,
+                        chaos=None, telemetry=None, adversary=None,
+                        lift_scores: bool = False):
+    """Build the per-round RandomSub step for a fixed topology:
+
+        step(state, pub_origin[P], pub_topic[P], pub_valid[P]) -> state
+
+    a plain function on tensors (``driver.make_window`` captures it as it
+    captures FloodSub's). ``size_estimate`` sets every topic's size, as
+    NewRandomSub's ``size`` does (randomsub.go:61-67); None sizes each
+    topic by its gossip-capable subscribers. ``queue_cap`` is the
+    outbound-queue budget and a state built with
+    ``SimState.init(val_delay=...)`` runs the async-validation pipeline,
+    both in the shared delivery core. ``stacked`` is the JAX package's A/B
+    switch for its recycled-slot clears; both of its forms give the bits of
+    the port's one form (``state.allocate_publishes``). The chaos,
+    telemetry and adversary planes and the lifted score plane raise
+    ``NotImplementedError``."""
+    del stacked
+    unported = [
+        (chaos is not None, "chaos (link-fault injection) — ROADMAP §1 item 5"),
+        (telemetry is not None, "telemetry (the per-round panel) — ROADMAP §1 item 5"),
+        (adversary is not None, "adversary (the attack plane) — ROADMAP §1 item 5"),
+        (lift_scores, "lift_scores (the lifted score plane) — ROADMAP §1 item 3"),
+    ]
+    for bad, what in unported:
+        if bad:
+            raise NotImplementedError(f"make_randomsub_step: not ported yet: {what}")
+    target_t = size_targets(net, d, size_estimate)
+    my_topics = net.my_topics.cpu().numpy()
+    target_ns = torch.as_tensor(
+        np.where(my_topics >= 0, target_t[np.clip(my_topics, 0, None)], 0),
+        dtype=torch.int32, device=net.device)                        # [N, S]
+
+    eligible = gather_nbr_subscribed(net)                            # [N, S, K]
+    # the random draw samples gossip-capable peers only; floodsub-only
+    # neighbours always receive (randomsub.go:107-116)
+    fs_edge = (net.protocol[net.nbr.clamp(min=0).long()] == 0) & net.nbr_ok
+    elig_random = eligible & ~fs_edge[:, None, :]
+    always = eligible & fs_edge[:, None, :]
+    # a floodsub-only sender runs the floodsub router: it forwards to every
+    # subscribed neighbour (floodsub.go:76-100)
+    i_am_floodsub = (net.protocol == 0)[:, None, None]
+
+    def step(st: SimState, pub_origin, pub_topic, pub_valid) -> SimState:
+        tick = st.tick
+        # a fresh random fanout per sender, slot and round
+        key = prng.fold_in(st.key, tick)
+        sel = select_random_mask(key, elig_random, target_ns) | always
+        sel = torch.where(i_am_floodsub, eligible, sel)
+        carry_out = sender_carry_words(sel, slot_topic_words(net, st.msgs.topic))
+        carried = torch.where(net.nbr_ok[:, :, None], net.edge_gather(carry_out), 0)
+        edge_mask = carried & joined_msg_words(net, st.msgs)[:, None, :]
+        dlv, info = delivery_round(net, st.msgs, st.dlv, edge_mask, tick,
+                                   queue_cap=queue_cap)
+        msgs, dlv, _slots, is_pub, _keep, _pw = allocate_publishes(
+            st.msgs, dlv, tick, pub_origin, pub_topic, pub_valid)
+        events = accumulate_round_events(st.events, info, is_pub.sum(dtype=torch.int32))
+        return replace(st, tick=tick + 1, msgs=msgs, dlv=dlv, events=events)
+
+    return step

@@ -133,7 +133,8 @@ def prefix_cap_bits(words: torch.Tensor, cap: torch.Tensor,
     return pack(keep)
 
 
-def keep_lowest_bits(words: torch.Tensor, cap: int, m: int | None = None) -> torch.Tensor:
+def keep_lowest_bits(words: torch.Tensor, cap: int, m: int | None = None,
+                     rows: torch.Tensor | None = None) -> torch.Tensor:
     """Keep only the first ``cap`` set bits (lowest slots) of each packed
     row, for a STATIC cap: ``cap`` steps of the clear-lowest-bit chain
     (``w & (w - 1)`` on each row's lowest nonzero word) — word-sized
@@ -141,29 +142,41 @@ def keep_lowest_bits(words: torch.Tensor, cap: int, m: int | None = None) -> tor
     clears the remainder is exactly the overflow, and keep = words & ~rem.
     Equal to ``prefix_cap_bits`` with a full(cap) plane; above 64 steps it
     is that form. ``m`` (the valid bit count) clears the padding bits of
-    the last word first, which the chain would otherwise count."""
+    the last word first, which the chain would otherwise count.
+
+    ``rows`` (int32, the leading dims' shape, each in [0, cap]) lowers the
+    cap row by row: a row takes only its first ``rows`` steps, so it keeps
+    its first ``rows`` set bits — ``prefix_cap_bits(words, rows, m)`` for
+    a per-row budget the static ``cap`` bounds (the IWANT responses' share
+    of a link's queue), without its ``[.., m]`` planes."""
     w_dim = words.shape[-1]
     if m is not None and m % WORD != 0:
         words = words & pack(torch.arange(w_dim * WORD, device=words.device) < m)
     if cap <= 0:
         return torch.zeros_like(words)
-    if cap >= w_dim * WORD:
+    if cap >= w_dim * WORD and rows is None:
         return words
-    if cap > 64:
-        return prefix_cap_bits(words, torch.full(words.shape[:-1], cap, dtype=torch.int32,
-                                                 device=words.device), w_dim * WORD)
+    if cap > 64 or cap >= w_dim * WORD:
+        caps = (torch.full(words.shape[:-1], cap, dtype=torch.int32, device=words.device)
+                if rows is None else rows)
+        return prefix_cap_bits(words, caps, w_dim * WORD)
+
+    def step(i, cleared, kept):
+        return cleared if rows is None else torch.where(
+            (rows > i).reshape(rows.shape + (1,) * (cleared.dim() - rows.dim())), cleared, kept)
+
     if w_dim <= 2:
         # a row of one or two words is one 64-bit number whose lowest set
         # bit is the lowest nonzero word's: x & (x - 1) clears it
         x = words[..., 0].to(torch.int64) & _M32
         if w_dim == 2:
             x = x | (words[..., 1].to(torch.int64) << 32)
-        for _ in range(cap):
-            x = x & (x - 1)
+        for i in range(cap):
+            x = step(i, x & (x - 1), x)
         rem = [to_word(x)] + ([to_word(x >> 32)] if w_dim == 2 else [])
         return words & ~torch.stack(rem, dim=-1)
     rem = words
-    for _ in range(cap):
+    for i in range(cap):
         nz = rem != 0
         # the row's lowest nonzero word: nonzero, and no nonzero word below
         first = nz
@@ -171,7 +184,7 @@ def keep_lowest_bits(words: torch.Tensor, cap: int, m: int | None = None) -> tor
             below = torch.cat([torch.zeros_like(nz[..., :1]),
                                torch.cumsum(nz, -1, dtype=torch.int32)[..., :-1] > 0], -1)
             first = nz & ~below
-        rem = torch.where(first, rem & (rem - 1), rem)
+        rem = step(i, torch.where(first, rem & (rem - 1), rem), rem)
     return words & ~rem
 
 

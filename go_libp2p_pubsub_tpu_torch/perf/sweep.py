@@ -14,6 +14,10 @@ the bench's publish schedule:
 * ``build_floodsub`` — FloodSub on one topic every peer joins, over the
   same lattice or the capacity-bounded power-law graph, in the dense or
   the CSR layout;
+* ``build_randomsub`` — RandomSub (``BASELINE.json`` config #2: 1k peers,
+  D=6 fanout, one topic) on the same graphs or ``random_connect(n, 32)``,
+  with the size estimate, the queue cap and the validation pipeline passed
+  explicitly (no bench config runs it);
 * ``measure_rate``, ``metric_name``, ``workload_fingerprint`` — the bench
   line of ``python -m go_libp2p_pubsub_tpu_torch.bench``: a config driven
   through ``driver.make_scan`` (a captured CUDA graph a block on the card),
@@ -38,6 +42,7 @@ from ..config import (
     TopicScoreParams,
 )
 from ..models.floodsub import floodsub_step
+from ..models.randomsub import make_randomsub_step
 from ..driver import heartbeat_schedule
 from ..models.gossipsub import GossipSubConfig, GossipSubState, make_gossipsub_step
 from ..models.gossipsub_phase import make_gossipsub_phase_step
@@ -100,7 +105,7 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                 config: str = "default", count_events: bool = False,
                 edge_layout: str = "dense", fused: bool = False,
                 rounds_per_phase: int = 1, heartbeat_every: int | None = None,
-                device=None):
+                device=None, queue_cap: int = 0, validation_delay_rounds: int = 0):
     """Build (state, step, n_topics, honest) for a bench config, tracer
     detached (no event counters unless ``count_events``):
 
@@ -119,7 +124,9 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     1 builds the phase engine with a heartbeat every ``heartbeat_every``
     rounds (default: every phase, as ``bench.py`` runs it); 1 builds the
     per-round step (a heartbeat every round by default; every
-    ``heartbeat_every`` rounds with a required ``do_heartbeat`` otherwise)."""
+    ``heartbeat_every`` rounds with a required ``do_heartbeat`` otherwise).
+    ``queue_cap`` and ``validation_delay_rounds`` turn on the delivery
+    core's options (no config has them on)."""
     _check_config(config)
     dev = resolve_device(device)
     tp = graphlib.ring_lattice(n_peers, d=8)
@@ -141,6 +148,8 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     cfg = GossipSubConfig.build(params, PeerScoreThresholds(), score_enabled=True,
                                 heartbeat_every=he, gater_params=gater,
                                 validation_capacity=8 if config == "sybil" else 0,
+                                queue_cap=queue_cap,
+                                validation_delay_rounds=validation_delay_rounds,
                                 edge_layout=edge_layout, fused=fused)
     cfg = dataclasses.replace(cfg, count_events=count_events,
                               fanout_slots=cfg.fanout_slots if config == "eth2" else 0)
@@ -160,6 +169,9 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
 #: max-degree cap being the padded K
 POWERLAW = dict(exponent=2.2, d_min=2, max_degree=64)
 
+#: dials a peer of the ``"random"`` graph makes (random_connect's d)
+RANDOM_DIALS = 32
+
 
 @dataclasses.dataclass
 class FloodSubRun:
@@ -169,39 +181,87 @@ class FloodSubRun:
 
     net: Net
     setup_seconds: float
+    queue_cap: int = 0
 
     def __call__(self, st, pub_origin, pub_topic, pub_valid):
-        return floodsub_step(self.net, st, pub_origin, pub_topic, pub_valid)
+        return floodsub_step(self.net, st, pub_origin, pub_topic, pub_valid,
+                             queue_cap=self.queue_cap)
+
+
+@dataclasses.dataclass
+class RandomSubRun:
+    """A built RandomSub workload's step (``make_randomsub_step``'s), with
+    the Net and the host seconds of the build."""
+
+    net: Net
+    setup_seconds: float
+    step: object
+
+    def __call__(self, st, pub_origin, pub_topic, pub_valid):
+        return self.step(st, pub_origin, pub_topic, pub_valid)
+
+
+def _one_topic_net(n_peers: int, graph: str, layout: str, seed: int, dev) -> Net:
+    """The Net of a one-topic workload: ``"lattice"`` is
+    ``ring_lattice(n, d=8)`` (K=16, banded when dense), ``"powerlaw"``
+    ``topo.powerlaw(n, 2.2, d_min=2, max_degree=64, seed)`` padded to K=64,
+    ``"random"`` ``random_connect(n, RANDOM_DIALS, seed)``."""
+    if graph == "lattice":
+        tp = graphlib.ring_lattice(n_peers, d=8)
+    elif graph == "powerlaw":
+        el = topo.powerlaw(n_peers, seed=seed, **POWERLAW)
+        tp = topo.to_topology(el, max_degree=POWERLAW["max_degree"])
+    elif graph == "random":
+        tp = graphlib.random_connect(n_peers, RANDOM_DIALS, seed=seed)
+    else:
+        raise ValueError(f"graph must be 'lattice', 'powerlaw' or 'random', got {graph!r}")
+    return Net.build(tp, graphlib.subscribe_all(n_peers, 1), edge_layout=layout, device=dev)
+
+
+def _one_topic_state(net: Net, msg_slots: int, layout: str, resident: bool, seed: int,
+                     val_delay: int = 0) -> SimState:
+    n_edges = net.n_edges if layout == "csr" and resident else None
+    return SimState.init(net.n_peers, msg_slots, seed=seed, k=net.max_degree,
+                         device=net.device, n_edges=n_edges, val_delay=val_delay)
 
 
 def build_floodsub(n_peers: int, msg_slots: int, graph: str = "lattice",
                    layout: str = "dense", resident: bool = True,
-                   seed: int = 0, device=None):
+                   seed: int = 0, device=None, queue_cap: int = 0):
     """Build (state, step) for FloodSub on one topic every peer joins.
 
-    ``graph``: ``"lattice"`` is ``ring_lattice(n, d=8)`` (K=16,
-    banded when dense); ``"powerlaw"`` is ``topo.powerlaw(n, 2.2, d_min=2,
-    max_degree=64, seed)`` padded to K=64. ``layout="csr"`` builds the
-    flat edge space; with ``resident`` the state keeps its first-arrival
-    plane flat ``[E, W]``, else dense ``[N, K, W]``. ``step.setup_seconds``
-    is the host time of the build."""
-    if graph not in ("lattice", "powerlaw"):
-        raise ValueError(f"graph must be 'lattice' or 'powerlaw', got {graph!r}")
+    ``graph``: ``"lattice"``, ``"powerlaw"`` or ``"random"``
+    (``_one_topic_net``). ``layout="csr"`` builds the flat edge space;
+    with ``resident`` the state keeps its first-arrival plane flat
+    ``[E, W]``, else dense ``[N, K, W]``. ``queue_cap`` is the step's
+    outbound-queue cap. ``step.setup_seconds`` is the host time of the
+    build."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    if graph == "lattice":
-        tp = graphlib.ring_lattice(n_peers, d=8)
-    else:
-        el = topo.powerlaw(n_peers, seed=seed, **POWERLAW)
-        tp = topo.to_topology(el, max_degree=POWERLAW["max_degree"])
-    net = Net.build(tp, graphlib.subscribe_all(n_peers, 1), edge_layout=layout,
-                    device=dev)
-    n_edges = net.n_edges if layout == "csr" and resident else None
-    st = SimState.init(n_peers, msg_slots, seed=seed, k=net.max_degree,
-                       device=dev, n_edges=n_edges)
+    net = _one_topic_net(n_peers, graph, layout, seed, dev)
+    st = _one_topic_state(net, msg_slots, layout, resident, seed)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return st, FloodSubRun(net, time.perf_counter() - t0)
+    return st, FloodSubRun(net, time.perf_counter() - t0, queue_cap)
+
+
+def build_randomsub(n_peers: int, msg_slots: int, graph: str = "lattice",
+                    size_estimate: int | None = None, device=None, *,
+                    layout: str = "dense", resident: bool = True,
+                    queue_cap: int = 0, val_delay: int = 0, seed: int = 0):
+    """Build (state, step) for RandomSub on one topic every peer joins,
+    over ``graph`` as ``build_floodsub`` takes it. ``size_estimate`` sets
+    the fanout target max(6, ceil(sqrt(size))) (None: each topic's
+    subscribers); ``queue_cap`` and ``val_delay`` (the pipeline's depth)
+    are the delivery core's options."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    net = _one_topic_net(n_peers, graph, layout, seed, dev)
+    st = _one_topic_state(net, msg_slots, layout, resident, seed, val_delay)
+    step = make_randomsub_step(net, size_estimate=size_estimate, queue_cap=queue_cap)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return st, RandomSubRun(net, time.perf_counter() - t0, step)
 
 
 def publish_schedule(n_rounds: int, n_peers: int, n_topics: int,

@@ -2,6 +2,7 @@
 
     python go_libp2p_pubsub_tpu_torch/perf/turns.py cells [--tree DIR]
     python go_libp2p_pubsub_tpu_torch/perf/turns.py eager-bench [--tree DIR]
+    python go_libp2p_pubsub_tpu_torch/perf/turns.py options [--tree DIR]
 
 ``cells`` times the host-bound cells of ``chip_smoke.py`` as it does
 (phases 4, 6, 10 and 13: the per-round bench and the CSR bench, 16 + 64
@@ -13,7 +14,11 @@ be run in alternation on one card. ``eager-bench`` runs the bench line's
 measurement (``perf/sweep.measure_rate``: the same build, schedule,
 1600-round windows, a warm window, the best of 3, each ending in the tick
 and score readback) with the eager loops in place of ``driver.make_scan``,
-and the per-round step over 320-round windows (best of 2). Each prints
+and the per-round step over 320-round windows (best of 2). ``options``
+times the phase bench under the delivery core's two options
+(``queue_cap=2``, ``validation_delay_rounds=2``) as ``chip_smoke.py``
+phase 25 does: eager, then through ``driver.make_scan`` (a segment that
+captures, then a timed one), with the peak of each. Each prints
 one JSON line. Run it as a file, so that ``--tree`` decides which port is
 imported. Needs a CUDA device.
 """
@@ -101,9 +106,40 @@ def eager_bench(sweep, torch) -> dict:
             "eager_per_round_seg320": rates(1, 320, 2)}
 
 
+def options(sweep, driver, torch) -> dict:
+    dev = torch.device("cuda")
+    r, f, m = 8, 16, 64
+    po, pt, pv = sweep.publish_schedule(f + 2 * m, N, 1, None)
+    out = {}
+    for mode in ("eager", "window"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st, step, _t, _h = sweep.build_bench(N, M, rounds_per_phase=r, device=dev,
+                                             queue_cap=2, validation_delay_rounds=2)
+        st = driver.form_mesh(step, st, rounds_per_phase=r)
+        if mode == "eager":
+            def run(st, sl):
+                return sweep.run_phases(st, step, po[sl], pt[sl], pv[sl], rounds_per_phase=r,
+                                        heartbeat_every=r)
+        else:
+            scan = driver.make_scan(step, heartbeat_every=r, rounds_per_phase=r, unroll=2)
+
+            def run(st, sl):
+                return scan(st, po[sl], pt[sl], pv[sl])
+        st = run(run(st, slice(0, f)), slice(f, f + m))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = run(st, slice(f + m, f + 2 * m))
+        torch.cuda.synchronize()
+        out[f"options_phase_{mode}"] = m / (time.perf_counter() - t0)
+        out[f"options_phase_{mode}_peak"] = torch.cuda.max_memory_allocated()
+        del st, step
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("cells", "eager-bench"))
+    ap.add_argument("what", choices=("cells", "eager-bench", "options"))
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).resolve().parents[2]),
                     help="the checkout whose port is timed")
     args = ap.parse_args(argv)
@@ -119,7 +155,12 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("turns: needs a CUDA device")
-    out = cells(sweep, driver, torch) if args.what == "cells" else eager_bench(sweep, torch)
+    if args.what == "cells":
+        out = cells(sweep, driver, torch)
+    elif args.what == "options":
+        out = options(sweep, driver, torch)
+    else:
+        out = eager_bench(sweep, torch)
     print(json.dumps({"tree": tree, **out}), flush=True)
     return 0
 

@@ -8,8 +8,9 @@ JAX package's operation order term by term, so the f32 planes agree bit for
 bit (``p1`` divides by the quantum; it never multiplies by a reciprocal).
 Where XLA:CPU's fused score loop contracts a product into its add, the port
 rounds once too (``ops/fnum.fma_f32``), site by site as its vector loop
-does (``compute_scores``); its scalar loops, which round some of those
-products, are the residue ROADMAP §3 names.
+does (``compute_scores``), and the one-topic scalar loop's tail columns
+too; the scalar rows around P5's banded gather are the residue ROADMAP §3
+names.
 
 Subnormals are flushed as the JAX package's platforms flush them
 (``ops/fnum.py``): the parameters once, where they are built
@@ -210,6 +211,30 @@ def _mul_add(a: torch.Tensor, w: torch.Tensor, w_uniform, c: torch.Tensor) -> to
     return fl(fma_f32(a, w if w_uniform is None else w_uniform, c))
 
 
+def scalar_tail_start(k_dim: int, n_slots: int) -> int:
+    """The first neighbour column XLA:CPU's fused score loop leaves to its
+    scalar loop (``k_dim`` when none), with one topic slot: the columns
+    past the last whole 8-column chunk of a row of K >= 9 columns, except
+    that rows of 20 to 23 columns take columns 16-19 in a 4-wide vector
+    chunk. Mapped on random counters for every K from 9 to 41 at N = 64, 96
+    and 256: the form depends on K and the column alone (ROADMAP §3)."""
+    if n_slots != 1 or k_dim < 9 or k_dim % 8 == 0:
+        return k_dim
+    return 20 if 20 <= k_dim <= 23 else k_dim // 8 * 8
+
+
+def _fuse_square(acc: torch.Tensor, x: torch.Tensor, tail: int) -> torch.Tensor:
+    """``acc - x * x`` as XLA:CPU's fused score loop computes a
+    select-guarded square at a weight of -1: one rounding in its vector
+    chunks, the square rounded apart in the scalar loop's columns from
+    ``tail`` on (``scalar_tail_start``)."""
+    fused = fl(fma_f32(x, -x, acc))
+    if tail >= x.shape[-1]:
+        return fused
+    sl = (..., slice(tail, None))
+    return torch.cat([fused[..., :tail], fl(acc[sl] - fl(x[sl] * x[sl]))], dim=-1)
+
+
 def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
                    sc: ScoreScalars, p6: torch.Tensor,
                    app_score: torch.Tensor, net: Net) -> torch.Tensor:
@@ -223,9 +248,12 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
     each topic slot's weighted term into the slot sum, P5, P6 and P7. Where
     both operands of an add are products (one topic slot, no cap, P5 off:
     the slot's weighted term meets P6's product) the compiler fuses the
-    first, the slot's term, and rounds the other."""
+    first, the slot's term, and rounds the other. With one topic slot the
+    columns its scalar loop takes (``scalar_tail_start``) round the
+    select-guarded squares at -1 (P3, P7) apart."""
     e = lambda a: a[..., None]
     u = tp["uniform"]
+    tail = scalar_tail_start(in_mesh.shape[-1], in_mesh.shape[1])
     p1 = torch.minimum(st.mesh_time.to(torch.float32) / e(tp["quantum_ticks"]),
                        e(tp["cap1"]))
     topic = torch.where(in_mesh, fl(p1 * e(tp["w1"])), 0.0)
@@ -233,15 +261,14 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
     deficit = fl(e(tp["thr3"]) - st.mmd)
     p3_on = st.mmd_active & (deficit > 0)
     if u["w3"] == -1.0:
-        topic = torch.where(p3_on, fl(fma_f32(deficit, -deficit, topic)), topic)
+        topic = torch.where(p3_on, _fuse_square(topic, deficit, tail), topic)
     else:
         p3 = torch.where(p3_on, fl(deficit * deficit), 0.0)
         topic = _mul_add(p3, e(tp["w3"]), u["w3"], topic)
     topic = _mul_add(st.mfp, e(tp["w3b"]), u["w3b"], topic)
     # at -1 XLA:CPU fuses P4's square past one topic slot; with one slot it
     # rounds the square apart in rows of 5 to 8 neighbour slots and fuses
-    # it in narrower and wider rows (ROADMAP §3: the columns past a wide
-    # row's last whole 8-column chunk are the residue)
+    # it in narrower and wider rows, the scalar loop's columns too
     k_dim = topic.shape[-1]
     if u["w4"] == -1.0 and (topic.shape[1] > 1 or not 5 <= k_dim <= 8):
         topic = fl(fma_f32(st.imd, -st.imd, topic))
@@ -278,8 +305,9 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
     excess = fl(st.bp - sc.behaviour_penalty_threshold)
     # at a weight of -1 the compiler first folds the weight into the
     # square, so the square itself is fused: score - excess * excess
+    # (rounded apart in the scalar loop's columns)
     if sc.behaviour_penalty_weight == -1.0:
-        score = torch.where(excess > 0, fl(fma_f32(excess, -excess, score)), score)
+        score = torch.where(excess > 0, _fuse_square(score, excess, tail), score)
     else:
         p7 = torch.where(excess > 0, fl(excess * excess), 0.0)
         score = fl(fma_f32(p7, sc.behaviour_penalty_weight, score))
@@ -353,7 +381,9 @@ def on_deliveries(st: ScoreState, net: Net, in_mesh: torch.Tensor, tp: dict,
                   window_rounds_t: torch.Tensor,
                   msg_ignored: torch.Tensor | None = None,
                   slotw: torch.Tensor | None = None,
-                  mesh_credit_words: torch.Tensor | None = None) -> ScoreState:
+                  mesh_credit_words: torch.Tensor | None = None,
+                  pending_words: torch.Tensor | None = None,
+                  recv_new_words: torch.Tensor | None = None) -> ScoreState:
     """Fold one delivery round into the counters (score.go:892-974):
     first receipts credit P2 (and P3 on mesh edges), in-window duplicates
     credit P3, arrivals of rejected messages charge P4; ignored messages
@@ -365,7 +395,15 @@ def on_deliveries(st: ScoreState, net: Net, in_mesh: torch.Tensor, tp: dict,
     arrival's own tick and OR-folded over the phase's sub-rounds (exact:
     an (edge, msg) pair transmits at most once a phase); the credit is
     then that plane on valid messages plus the first arrivals, and no
-    window is recomputed here."""
+    window is recomputed here.
+
+    With the async-validation pipeline (the per-round step: ``new_words``
+    the verdict cohort, ``pending_words`` [N,W] what sits in the stages,
+    ``recv_new_words`` this round's fresh receipts) the first-arrival edge
+    earns its mesh credit at the verdict, and duplicates arriving while a
+    message is pending are credited unconditionally (DeliverMessage's
+    drec.peers loop, score.go:712-718), the fresh first arrival itself
+    excluded."""
     t = msg_topic.clamp(min=0).long()
     if slotw is None:
         slotw = slot_topic_words(net, msg_topic)
@@ -381,6 +419,12 @@ def on_deliveries(st: ScoreState, net: Net, in_mesh: torch.Tensor, tp: dict,
         within_w = bitset.pack(
             (first_round >= 0) & ((tick - first_round) <= msg_window[None, :]))
         mesh_credit = trans_words & valid_w[None, None, :] & within_w[:, None, :]
+        if pending_words is not None:
+            first_fresh = (fe_words & recv_new_words[:, None, :]
+                           if recv_new_words is not None else 0)
+            pend_dup = (trans_words & pending_words[:, None, :] & valid_w[None, None, :]
+                        & ~first_fresh)
+            mesh_credit = mesh_credit | pend_dup | first_arrival
     mmd_inc = per_slot_counts(mesh_credit, slotw) * in_mesh.to(torch.float32)
     mmd = torch.minimum(st.mmd + mmd_inc, e(tp["cap3"]))
 

@@ -255,6 +255,10 @@ class Delivery:
     first_round: torch.Tensor  # [N, M] i32
     fe_words: torch.Tensor     # [N, K, W] i32 words; [E, W] flat on a
                                # CSR-resident state (ndim tells them apart)
+    # the async-validation pipeline (validation.go:123-135): receipts sit
+    # in V shift stages between arrival and their verdict; None when
+    # validation is inline (V = 0)
+    pending: torch.Tensor | None = None  # [N, V, W] i32 words
 
     @property
     def first_edge(self) -> torch.Tensor:
@@ -267,17 +271,19 @@ class Delivery:
         return bitset.first_edge_of(self.fe_words, self.first_round.shape[-1])
 
     @classmethod
-    def empty(cls, n: int, m: int, k: int, device,
+    def empty(cls, n: int, m: int, k: int, device, val_delay: int = 0,
               n_edges: int | None = None) -> "Delivery":
         """``n_edges`` selects the CSR-resident first-arrival plane:
         ``fe_words`` is flat ``[E, W]`` instead of ``[N, K, W]`` (pass
-        ``net.n_edges``, None on a dense build)."""
+        ``net.n_edges``, None on a dense build); ``val_delay`` > 0 adds
+        the pipeline's stages."""
         w = bitset.n_words(m)
         z = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
         return cls(
             have=z(n, w), fwd=z(n, w),
             first_round=torch.full((n, m), -1, dtype=torch.int32, device=device),
             fe_words=z(n, k, w) if n_edges is None else z(n_edges, w),
+            pending=z(n, val_delay, w) if val_delay > 0 else None,
         )
 
 
@@ -293,16 +299,18 @@ class SimState:
 
     @classmethod
     def init(cls, n_peers: int, msg_slots: int, seed: int = 0, k: int = 0,
-             device=None, n_edges: int | None = None) -> "SimState":
+             device=None, n_edges: int | None = None,
+             val_delay: int = 0) -> "SimState":
         """``k`` is the topology's padded max degree; ``n_edges`` (pass
         ``net.n_edges``) selects the CSR-resident ``[E, W]`` first-arrival
-        plane."""
+        plane; ``val_delay`` > 0 adds the async-validation pipeline's
+        stages (its presence in the state is the configuration)."""
         dev = resolve_device(device)
         return cls(
             tick=torch.zeros((), dtype=torch.int32, device=dev),
             key=prng.key(seed, device=dev),
             msgs=MsgTable.empty(msg_slots, dev),
-            dlv=Delivery.empty(n_peers, msg_slots, k, dev, n_edges=n_edges),
+            dlv=Delivery.empty(n_peers, msg_slots, k, dev, val_delay, n_edges=n_edges),
             events=zero_counters(dev),
         )
 
@@ -464,8 +472,9 @@ class PhasePubPlan:
         pub_bits = bitset.unpack(pw, self.m)
         first_round = torch.where(
             pub_bits, tick_i, torch.where(self.reused[i][None, :], -1, dlv.first_round))
+        fe_words, pending = bitset.masked_keep([dlv.fe_words, dlv.pending], keep)
         return Delivery(have=(dlv.have & keep) | pw, fwd=(dlv.fwd & keep) | pw,
-                        first_round=first_round, fe_words=dlv.fe_words & keep)
+                        first_round=first_round, fe_words=fe_words, pending=pending)
 
 
 def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
@@ -473,8 +482,10 @@ def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
                        pub_valid: torch.Tensor):
     """Intern this round's publishes (``pub_valid`` bool: accept or
     reject, or ``VERDICT_*`` codes) into table slots (rotating cursor),
-    clearing recycled slots' bit columns everywhere, and mark each origin's
-    own message seen and scheduled for forwarding.
+    clearing recycled slots' bit columns everywhere (the pipeline's stages
+    too), and mark each origin's own message seen and scheduled for
+    forwarding. The four keep-clears are one fold, the JAX package's
+    ``stacked_clears=True`` form; its per-plane form gives the same bits.
 
     Returns (msgs, dlv, slots, is_pub, keep_words, pub_words)."""
     accept, ignored = decode_verdicts(pub_valid)
@@ -491,8 +502,8 @@ def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
                            sidx, torch.ones_like(is_pub))
     keep = ~bitset.pack(reused)
     first_round = torch.where(reused[None, :], -1, dlv.first_round)
-    have_c, fwd_c, fe_c = bitset.masked_keep(
-        [dlv.have, dlv.fwd, dlv.fe_words], keep)
+    have_c, fwd_c, fe_c, pending_c = bitset.masked_keep(
+        [dlv.have, dlv.fwd, dlv.fe_words, dlv.pending], keep)
 
     msgs = replace(
         msgs,
@@ -514,5 +525,6 @@ def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
         fwd=fwd_c | pub_words,
         first_round=torch.where(pub_bits, tick, first_round),
         fe_words=fe_c,
+        pending=pending_c,
     )
     return msgs, dlv, slots, is_pub, keep, pub_words

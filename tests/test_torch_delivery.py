@@ -428,10 +428,19 @@ def test_unported_delivery_options_raise():
     jdlv, jmsgs, emask = _random_banded(16, 64, tnet.max_degree, rng)
     tdlv, tmsgs = _port_state(jdlv, jmsgs)
     tick = torch.tensor(1, dtype=torch.int32)
-    for kw in ({"queue_cap": 4}, {"forward_mask": _t(jdlv.have)},
-               {"val_delay_topic": (1,)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcommon.delivery_round(tnet, tmsgs, tdlv, _t(emask), tick, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcommon.delivery_round(tnet, tmsgs, tdlv, _t(emask), tick,
+                               forward_mask=_t(jdlv.have))
+    # the queue cap and the per-topic delays are ported: a cap of 4 leaves
+    # at most 4 messages on a link, and a state without a pipeline takes
+    # per-topic delays as inline validation
+    plain = tcommon.delivery_round(tnet, tmsgs, tdlv, _t(emask), tick)
+    _, capped = tcommon.delivery_round(tnet, tmsgs, tdlv, _t(emask), tick, queue_cap=4)
+    assert int(tbs.popcount(capped.trans).max()) <= 4
+    assert int(capped.n_drop) == int(plain[1].n_rpc) - int(capped.n_rpc)
+    topical = tcommon.delivery_round(tnet, tmsgs, tdlv, _t(emask), tick, val_delay_topic=(1,))
+    for f in ("have", "fwd", "first_round", "fe_words"):
+        _eq(getattr(plain[0], f), getattr(topical[0], f), f)
     with pytest.raises(ValueError, match="max_degree"):
         tcommon.delivery_round(tnet, tmsgs, replace(tdlv, fe_words=tdlv.fe_words[:, :2]),
                                _t(emask), tick)

@@ -196,6 +196,32 @@ def test_csr_resident_state_carries_across():
         st.dlv.first_edge
 
 
+@pytest.mark.parametrize("val_delay", [0, 2])
+@pytest.mark.parametrize("resident", [False, True])
+def test_pipelined_state_carries_across(val_delay, resident):
+    """A reference state with the async-validation pipeline (and one
+    without: no ``.dlv.pending`` leaf on either side) carries into the port
+    and back, dense and CSR-resident, stages holding receipts."""
+    jt, _ = _topologies("powerlaw")
+    jnet = JNet.build(jt, jgraph.subscribe_all(N, 1), edge_layout="csr")
+    jst = JSim.init(N, M, seed=0, k=jnet.max_degree, val_delay=val_delay,
+                    n_edges=jnet.n_edges if resident else None)
+    z = jnp.zeros((4,), jnp.int32)
+    jst = jflood.floodsub_step(jnet, jst, jnp.asarray([3, 9, 40, 77], jnp.int32), z,
+                               jnp.ones((4,), bool))
+    jst = jflood.run_rounds(jnet, jst, 2)
+    leaves = reference_leaves(jst)
+    assert (".dlv.pending" in leaves) == (val_delay > 0)
+    tst = convert.state_from_reference(leaves, device="cpu")
+    assert (tst.dlv.pending is None) == (val_delay == 0)
+    back = convert.state_leaves(tst)
+    diff_leaves(leaves, back)
+    diff_leaves(back, convert.state_leaves(convert.state_from_reference(back, "cpu")))
+    if val_delay:
+        assert tuple(tst.dlv.pending.shape) == (N, val_delay, 2)
+        assert back[".dlv.pending"].dtype == np.uint32 and back[".dlv.pending"].any()
+
+
 @pytest.mark.parametrize("graph,layout,resident", [
     ("lattice", "dense", True), ("powerlaw", "csr", True), ("powerlaw", "csr", False),
     ("powerlaw", "dense", True),
@@ -220,8 +246,7 @@ def test_unported_options_raise():
     tnet = TNet.build(tgraph.ring_lattice(16, d=2), tgraph.subscribe_all(16, 1), device="cpu")
     p = torch.full((1,), -1, dtype=torch.int32)
     ok = torch.ones(1, dtype=torch.bool)
-    for kw in ({"queue_cap": 2}, {"chaos": object()}, {"telemetry": object()},
-               {"adversary": object()}):
+    for kw in ({"chaos": object()}, {"telemetry": object()}, {"adversary": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tflood.floodsub_step(tnet, TSim.init(16, 32, k=tnet.max_degree, device="cpu"),
                                  p, p, ok, **kw)

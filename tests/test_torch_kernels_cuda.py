@@ -677,3 +677,115 @@ def test_config_kernels_equal_plain(cuda, config):
         assert acc_off > 0                               # the gater dropped
     else:
         assert int((st.fanout_topic >= 0).sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# RandomSub and the delivery core's options on the card
+
+def _record(module, name, calls):
+    """Wrap ``module.name`` so every call's arguments land in ``calls``;
+    returns the original."""
+    orig = getattr(module, name)
+
+    def call(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    setattr(module, name, call)
+    return orig
+
+
+@pytest.mark.cuda
+def test_select_topk_on_randomsub_size_targets(cuda):
+    """RandomSub's draw: uniform noise, per-row k the topic's size target,
+    including rows whose target reaches or passes their eligible count
+    (every eligible slot chosen) and rows with no eligible slot or no
+    topic (k = 0)."""
+    rng = np.random.default_rng(11)
+    r, k = 5000, 32
+    mask = rng.random((r, k)) < rng.random((r, 1))
+    mask[:200] = False                          # no eligible neighbour
+    k_rows = np.full((r,), 32, np.int32)
+    k_rows[200:1200] = mask[200:1200].sum(1)    # target == eligible count
+    k_rows[1200:1400] = 0                       # a slot with no topic
+    k_rows[1400:2000] = 6
+    args = [torch.from_numpy(a) for a in (rng.random((r, k)).astype(np.float32), mask,
+                                          k_rows, np.zeros((r, k), np.float32))]
+    ref = sk.select_topk_plain(*args)
+    got = sk.select_topk(*[a.to(cuda) for a in args])
+    assert torch.equal(ref, got.cpu())
+    assert torch.equal(ref[200:1200], args[1][200:1200]) and not ref[1200:1400].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph_name", ["lattice", "powerlaw"])
+def test_randomsub_round_kernels_equal_plain(cuda, graph_name):
+    """Every select_topk and delivery call of 12 RandomSub rounds on the
+    card against its plain version on the captured arguments: the lattice
+    runs delivery_banded, the power-law graph CSR-resident csr_delivery;
+    one draw and one delivery launch a round."""
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n, rounds = 4096, 12
+    layout = "csr" if graph_name == "powerlaw" else "dense"
+    st, run = sweep.build_randomsub(n, 64, graph=graph_name, device=cuda, layout=layout,
+                                    size_estimate=36 if layout == "dense" else 1000)
+    po, pt, pv = sweep.publish_schedule(rounds, n, 1, None, seed=5)
+    mod, name = (cd, "csr_delivery") if layout == "csr" else (db, "delivery_banded")
+    dcalls, scalls = [], []
+    orig_d, orig_s = _record(mod, name, dcalls), _record(sk, "select_topk", scalls)
+    try:
+        st = sweep.run_rounds(st, run, po, pt, pv)
+    finally:
+        setattr(mod, name, orig_d)
+        sk.select_topk = orig_s
+    assert len(dcalls) == len(scalls) == rounds
+    plain = getattr(mod, name + "_plain")
+    for args, kw in dcalls:
+        ref = plain(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args],
+                    **{k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
+        got = orig_d(*args, **kw)
+        for key in ref:
+            assert torch.equal(ref[key], got[key].cpu()), key
+    for args, kw in scalls:
+        assert torch.equal(sk.select_topk_plain(*args, **kw), orig_s(*args, **kw))
+    reach = (st.dlv.first_round >= 0).sum(0)
+    old = (st.msgs.birth >= 0) & (st.msgs.birth <= rounds - 4)
+    assert bool((reach[old] > 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["floodsub", "randomsub", "per-round"])
+def test_options_leave_the_delivery_kernels(cuda, engine):
+    """Under the queue cap or the validation pipeline the card launches
+    neither delivery_banded nor the fused round: FloodSub with a cap of 2,
+    RandomSub with a pipeline of 1 and the per-round GossipSub step with
+    both, on the banded lattice; and the card's state equals the CPU's."""
+    from go_libp2p_pubsub_tpu_torch import convert
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n, rounds = 1024, 8
+    po, pt, pv = sweep.publish_schedule(rounds, n, 1, None, seed=6)
+
+    def build(dev):
+        if engine == "floodsub":
+            return sweep.build_floodsub(n, 64, device=dev, queue_cap=2)
+        if engine == "randomsub":
+            return sweep.build_randomsub(n, 64, size_estimate=36, device=dev, val_delay=1)
+        st, step, _t, _h = sweep.build_bench(n, 64, count_events=True, device=dev,
+                                             queue_cap=2, validation_delay_rounds=1)
+        return st, step
+
+    out = []
+    for dev in ("cpu", cuda):
+        for lib in (db, cd, fr, sk):
+            lib.reset_launch_counts()
+        st, step = build(dev)
+        out.append(convert.state_leaves(sweep.run_rounds(st, step, po, pt, pv)))
+        if dev != "cpu":
+            assert db.LAUNCHES["delivery_banded"] == cd.LAUNCHES["csr_delivery"] == 0
+            assert fr.LAUNCHES["edge_exchange"] == fr.LAUNCHES["fused_delivery"] == 0
+            assert (sk.LAUNCHES["select_topk"] > 0) == (engine != "floodsub")
+    for path in out[0]:
+        assert np.array_equal(np.atleast_1d(out[0][path]).view(np.uint8),
+                              np.atleast_1d(out[1][path]).view(np.uint8)), path

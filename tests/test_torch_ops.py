@@ -132,6 +132,23 @@ def test_keep_lowest_bits(w_dim, m):
                 (w_dim, m, density, cap))
 
 
+@pytest.mark.parametrize("w_dim,m,cap", [(1, 20, 2), (2, 64, 1), (2, 48, 3), (3, 80, 2),
+                                         (10, 300, 4), (2, 64, 70)])
+def test_keep_lowest_bits_by_row(w_dim, m, cap):
+    """Per-row caps in [0, cap] (the IWANT merge's share of a link's queue
+    budget) against the JAX package's prefix_cap_bits, the padding bits
+    set, on every form of the chain."""
+    rng = np.random.default_rng(w_dim * 100 + cap)
+    for density in (0.1, 0.5, 0.95):
+        w = _words(rng, 40, w_dim, density=density)
+        if m % 32:
+            w[..., -1] |= np.uint32(0xFFFFFFFF) << np.uint32(m % 32)
+        rows = rng.integers(0, cap + 1, size=(40,)).astype(np.int32)
+        _eq(jbs.prefix_cap_bits(jnp.asarray(w), jnp.asarray(rows), m),
+            tbs.keep_lowest_bits(_t(w), cap, m, rows=torch.from_numpy(rows)),
+            (w_dim, m, density, cap))
+
+
 # ---------------------------------------------------------------------------
 # graph, Net and edges
 

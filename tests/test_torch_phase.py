@@ -180,10 +180,12 @@ def test_refused_options_raise():
                                     score_params=tsp)
     # the JAX config's fields that no ported step runs are not fields of the
     # port's config: setting one is an error before any step is built
-    for field in ("queue_cap", "validation_delay_rounds", "chaos", "trace_exact",
-                  "router"):
+    for field in ("chaos", "trace_exact", "router"):
         with pytest.raises(TypeError):
             dataclasses.replace(tcfg, **{field: 1})
+    # the queue cap and the validation pipeline are (tests/test_torch_valdelay.py)
+    for field in ("queue_cap", "validation_delay_rounds", "validator_timeout_rounds"):
+        build(dataclasses.replace(tcfg, **{field: 1}))
     for key in tphase.UNPORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(tcfg, **{key: object()})

@@ -207,6 +207,18 @@ def test_sybil_round_window_equals_reference():
     assert log.throttle > 0 and log.reject > 0
 
 
+def test_pipeline_phase_window_equals_reference():
+    """The async-validation pipeline (V = 2) and the queue cap (2)
+    through a phase window: the K=8 lattice at r=8, where the per-round
+    step's fused kernels do not run and the phase engine's edge_exchange
+    still does; the pipeline's stages are a captured leaf."""
+    builds = bench_builds(n=N, d=4, heartbeat_every=8, count_events=True,
+                          validation_delay_rounds=2, queue_cap=2)
+    ref, got = _scan_pair(builds, 8, 8, ROUNDS)
+    diff_leaves(ref, convert.state_leaves(got), "pipelined r=8 window")
+    assert got.core.dlv.pending.shape[1] == 2 and int(got.core.events[8]) > 0
+
+
 def test_donated_window_continues():
     """A second call from the state a ``donate=True`` window returned
     continues the run: two windows of 8 rounds end where one of 16 does."""

@@ -406,7 +406,8 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
                  edge_layout="dense", fused=False, topic=None, peer=None,
                  thresholds=None, ip_group=None, subscriptions=None,
                  config="default", fanout_slots=0, fanout_ttl=None, gater=None,
-                 validation_capacity=0, adversary=None):
+                 validation_capacity=0, adversary=None, queue_cap=0,
+                 validation_delay_rounds=0, validation_delay_topic=None):
     """(jax_cfg, jax_net, sp, torch_cfg, torch_net, torch_sp) for the
     bench's params on ring_lattice(n, d), or on ``topologies``, a
     (JAX Topology, port Topology) pair of the same graph, in
@@ -420,8 +421,9 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     and ``fanout_ttl`` (seconds) size the fanout plane; ``gater`` (a dict
     of PeerGaterParams overrides, {} for the defaults) turns the peer gater
     on; ``validation_capacity`` the throttle; ``adversary`` ([N] bool) the
-    no-forward vector. The step options ride the result
-    (``step_options``)."""
+    no-forward vector; ``queue_cap``, ``validation_delay_rounds`` and
+    ``validation_delay_topic`` the delivery core's options. The step
+    options ride the result (``step_options``)."""
     from go_libp2p_pubsub_tpu import config as jconfig
     from go_libp2p_pubsub_tpu import graph as jgraph
     from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubConfig as JCfg
@@ -437,6 +439,8 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     if topologies is None:
         topologies = jgraph.ring_lattice(n, d=d), tgraph.ring_lattice(n, d=d)
     layout = dict(edge_layout=edge_layout, fused=fused)
+    core = dict(queue_cap=queue_cap, validation_delay_rounds=validation_delay_rounds,
+                validation_delay_topic=validation_delay_topic)
 
     def score(sp):
         topics = {t: dataclasses.replace(tp, **(topic or {})) for t, tp in sp.topics.items()}
@@ -456,7 +460,7 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     jcfg = JCfg.build(dataclasses.replace(jconfig.GossipSubParams(), **params),
                       jconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, gater_params=jgp,
-                      validation_capacity=validation_capacity, **layout)
+                      validation_capacity=validation_capacity, **layout, **core)
     jcfg = dataclasses.replace(jcfg, count_events=count_events, fanout_slots=fanout_slots)
     jsp = score(jbsp(config, n_topics)[1])
     tnet = TNet.build(topologies[1], tsubs, ip_group=ip_group,
@@ -464,7 +468,7 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     tcfg = TCfg.build(dataclasses.replace(tconfig.GossipSubParams(), **params),
                       tconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, gater_params=tgp,
-                      validation_capacity=validation_capacity, **layout)
+                      validation_capacity=validation_capacity, **layout, **core)
     tcfg = dataclasses.replace(tcfg, count_events=count_events, fanout_slots=fanout_slots)
     tsp = score(tbsp(config, n_topics)[1])
     out = Builds((jcfg, jnet, jsp, tcfg, tnet, tsp))
