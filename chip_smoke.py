@@ -24,7 +24,8 @@ last line is printed:
    fused_delivery must equal their plain PyTorch versions exactly, and both
    also on the hazard bands (tests/torch_parity.hazard_bands: rings with K
    = 2, 6, 16, N=17 under the staged window, a circulant with steps past
-   the halo): edge_exchange at C = 1, 2, 3, 4, 6 with scores holding -0.0,
+   the halo): edge_exchange at C = 1 to 7 (5 and 7, the PX widths, under
+   a symmetric live mask) with scores holding -0.0,
    subnormals and NaN, fused_delivery at W = 1, 2, 3, 10 under every
    retrans_cap, with the cohort planes and scores on and off; times of the
    kernel, the plain version and (edge_exchange) the one-call library
@@ -141,9 +142,25 @@ last line is printed:
    beside phase 18's plain one;
 26. FloodSub on the lattice with queue_cap=2 at N=100k (no kernel: the cap
    takes the composites; drops counted), card against CPU at N=8192;
-27. the kernel launches of a traced GossipSub bench round
+27. PX with edge liveness, the exact-trace plane and the int16 counters
+   on the bench default config at N=100k (sweep.build_bench(px=True): 30%
+   of the lattice's edges dormant, AcceptPXThreshold 0): from every count
+   at 0 a PX round launches 1 edge_exchange (C = 5: graft | prune |
+   ihave(2) | px) and 1 fused_delivery, a PX phase 1 + r edge_exchange
+   (the head at C = 7 with the window, the data at C = 2); those calls,
+   whose live words and F_LIVE flags have the dormant edges dead, against
+   their plain versions bit for bit (captured and random words), timed
+   beside their bounds; then both engines eager and through
+   driver.make_scan in turns: rates, peak memory, live edges (more than at
+   the start: PX activated some) and the p50/p99 of state.hops over the
+   delivered pairs;
+28. the PX cell card against CPU at N=8192 in both engines, every leaf
+   after every round or phase, and each window against its eager loop;
+29. the kernel launches of a traced GossipSub bench round
    (perf/profile.py), with those of the score path's subnormal flush
-   (hardshrink, copysign) apart, of a traced phase-bench phase per
+   (hardshrink, copysign) apart (2,287.75 a bench round and 466.25 a
+   phase-bench delivery round, or the script fails: the options off
+   launch nothing more), of a traced phase-bench phase per
    delivery round, of a traced replay of a windowed phase (--window), and
    of a traced round and phase of each config. It comes last, so that the
    profiler's tracing cannot touch a rate timed in the same process.
@@ -181,6 +198,12 @@ PHASE_PARITY_PHASES = 4       # phases of phase 15, after form_mesh
 WINDOW_ROUNDS = 48            # rounds of each window run of phase 17 (two calls)
 BENCH_CLI_ROUNDS = 160        # the segment of phase 19's bench line
 L2_SCRUB_BYTES = 128 << 20    # written before a cold-L2 timing (H100 L2: 50 MB)
+#: traced kernel launches of a default bench round (over 4 rounds) and of
+#: a phase-bench delivery round (over a phase of 8): the options off (PX,
+#: edge liveness, the exact-trace plane, the int16 counters) launch
+#: nothing more; the phase head takes its live words from the build's
+#: constants, one conversion a phase fewer than before
+DEFAULT_LAUNCHES = (2287.75, 466.25)
 SELECTIONS_PER_HEARTBEAT = 8  # grafts, topscore, rest_rand, bring, drop,
                               # grafts2, oppo, chosen (models/gossipsub.py)
 KERNEL_SOURCES = ("fused_round", "delivery", "select_topk")
@@ -919,6 +942,115 @@ def build_subnormal_gossipsub(sweep, n: int, device, cell: str):
     return st, make_gossipsub_step(cfg, net, score_params=sp)
 
 
+PX_GATE_ROUNDS = 16            # per-round rounds before the recorded PX round
+
+
+def px_observe(st) -> dict:
+    """The PX cell's end state: live edges, activated edges over the
+    dormant start, and the p50/p99 of ``state.hops`` over the delivered
+    (peer, message) pairs (hops >= 0, the origins' 0 included, as
+    scripts/parity_report.py reads them)."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.state import hops
+
+    h = hops(st.core.msgs, st.core.dlv)
+    got = h[h >= 0].to(torch.float32)
+    q = torch.quantile(got, torch.tensor([0.5, 0.99], device=got.device)).tolist()
+    return {"live_edges": int(st.edge_live.sum()), "hops_p50": q[0], "hops_p99": q[1],
+            "delivered_pairs": int(got.numel())}
+
+
+def px_gates(sweep, driver, dev, counters) -> dict:
+    """Phase 27's launch gates at N=100k: from every count at 0, a PX
+    per-round run (``PX_GATE_ROUNDS`` rounds, then one recorded round)
+    launches 1 edge_exchange and 1 fused_delivery a round, a PX phase run
+    (form_mesh, 2 phases, then one recorded phase) 1 + r edge_exchange a
+    phase; the recorded calls (edge_exchange at C = 5, 7 and 2, one
+    fused_delivery) carry the live view, dormant edges dead in it. Returns
+    {"calls": {tag: (args, kw)}, "delivery": (args, kw), "live_start": n,
+    "launches": {...}}."""
+    from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
+
+    r = PHASE_R
+    out = {"calls": {}, "launches": {}}
+    po, pt, pv = sweep.publish_schedule(PX_GATE_ROUNDS + 3 * r, N_FULL, 1, None, seed=7)
+    for engine, rr in (("per-round", 1), ("phase", r)):
+        st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, rounds_per_phase=rr, device=dev,
+                                             px=True)
+        out["live_start"] = int(st.edge_live.sum())
+        for mod in counters:
+            mod.reset_launch_counts()
+        if rr > 1:
+            st = driver.form_mesh(step, st, rounds_per_phase=rr)
+            run = lambda st, sl: sweep.run_phases(st, step, po[sl], pt[sl], pv[sl],
+                                                  rounds_per_phase=rr, heartbeat_every=rr)
+            n_disp, pre = 4, slice(0, 2 * rr)
+            last = slice(2 * rr, 3 * rr)
+            want = {"edge_exchange": n_disp * (1 + rr), "fused_delivery": 0}
+        else:
+            run = lambda st, sl: sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl])
+            n_disp, pre = PX_GATE_ROUNDS + 1, slice(0, PX_GATE_ROUNDS)
+            last = slice(PX_GATE_ROUNDS, PX_GATE_ROUNDS + 1)
+            want = {"edge_exchange": n_disp, "fused_delivery": n_disp}
+        st = run(st, pre)
+        st, got = record_calls(lambda: run(st, last),
+                               [(fr, "edge_exchange"), (fr, "fused_delivery")])
+        launched = counts(counters)
+        want.update(delivery_banded=0, csr_delivery=0, select_topk=launched["select_topk"])
+        if launched != want or launched["select_topk"] == 0:
+            raise AssertionError(f"PX {engine} launches {launched} in {n_disp} dispatches, "
+                                 f"expected {want}")
+        out["launches"][engine] = dict(launched, dispatches=n_disp)
+        for args, kw in got[(fr, "edge_exchange")]:
+            out["calls"].setdefault(f"C={kw['c']}", (args, kw))
+        if rr == 1:
+            out["delivery"] = got[(fr, "fused_delivery")][0]
+        del st, step, got
+    for tag, (args, kw) in out["calls"].items():
+        dead = int((args[2] == 0).sum())
+        if dead == 0:
+            raise AssertionError(f"PX edge_exchange {tag}: no dead edge in its live words")
+    flags = out["delivery"][0][8]
+    if int((((flags >> fr.F_LIVE) & 1) == 0).sum()) == 0:
+        raise AssertionError("PX fused_delivery: no edge without F_LIVE")
+    if sorted(out["calls"]) != ["C=2", "C=5", "C=7"]:
+        raise AssertionError(f"PX edge_exchange widths {sorted(out['calls'])}")
+    return out
+
+
+def check_px_delivery(fr, call, gen, base) -> dict:
+    """fused_delivery on the PX round's call (F_LIVE from the live view),
+    captured and on random words under the same flags: bit for bit against
+    its plain version; its times beside the bound."""
+    import torch
+
+    args, kw = call
+    n, k, w = args[2].shape[0], len(kw["offsets"]), kw["w"]
+    err = 0.0
+    for trial in ("captured", "random"):
+        a = list(args) if trial == "captured" else randomize_words(args, gen)
+        if trial == "random":
+            a[8] = args[8]
+        ref = fr.fused_delivery_plain(*a, **kw)
+        got = fr.fused_delivery(*a, **kw)
+        torch.cuda.synchronize()
+        names = sorted(ref)
+        err = max(err, max_abs_err([ref[x] for x in names], [got[x] for x in names]))
+    res = fr.fused_delivery(*args, **kw)
+    io = nbytes(*[t for t in args if hasattr(t, "numel")], *res.values())
+    launch = prepared(fr._lib(), "fused_delivery_launch", lambda: fr.fused_delivery(*args, **kw))
+    rec = {"max_abs_err": err, **kernel_times(launch, base and base["fused_round"]),
+           "plain_ms": batch_ms(lambda: fr.fused_delivery_plain(*args, **kw)),
+           **bound(io, 40 * n * k * w), "library_ms": None}
+    del launch
+    say(f"kernel fused_delivery PX round: N={n} K={k} W={w} exact (max_abs_err {err}, "
+        f"captured and random words under the live flags) kernel_ms={rec['ms']:.6f}"
+        f"{baseline_note(rec)} plain_ms={rec['plain_ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
+        f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of bound)")
+    return rec
+
+
 def bench_launches(card: str) -> dict:
     """Kernel launches of a traced GossipSub bench round (perf/profile.py,
     4 warm rounds, 4 traced), and those of the score path's subnormal flush
@@ -931,12 +1063,18 @@ def bench_launches(card: str) -> dict:
     flush = sum(v for op, v in rep["launches_by_op_per_round"].items()
                 if "hardshrink" in op or "copysign" in op)
     total = rep["kernel_launches_per_round"]
+    if total != DEFAULT_LAUNCHES[0]:
+        raise AssertionError(f"{total} kernel launches a bench round, expected "
+                             f"{DEFAULT_LAUNCHES[0]}")
     say(f"slice launches: {total:.1f} kernel launches a bench round, {flush:.1f} of them the "
         f"subnormal flush of the score path ({total - flush:.1f} without it); device busy "
         f"{rep['device_busy_share_untraced']:.4f} of an untraced round "
         f"({rep['untraced_ms_per_round']:.3f} ms), on {card}")
     ph = profile.profile_rounds(N_FULL, warm=2 * PHASE_R, rounds=PHASE_R,
                                 rounds_per_phase=PHASE_R)
+    if ph["kernel_launches_per_round"] != DEFAULT_LAUNCHES[1]:
+        raise AssertionError(f"{ph['kernel_launches_per_round']} kernel launches a phase "
+                             f"bench delivery round, expected {DEFAULT_LAUNCHES[1]}")
     say(f"phase launches: {ph['kernel_launches_per_round']:.1f} kernel launches a delivery "
         f"round of the phase bench (r={PHASE_R}; {PHASE_R * ph['kernel_launches_per_round']:.0f}"
         f" a phase) against {total:.1f} a per-round bench round; device busy "
@@ -957,7 +1095,7 @@ def bench_launches(card: str) -> dict:
 
 
 def config_traced_launches(card: str) -> dict:
-    """Phase 27 (after bench_launches): every kernel launch of a traced
+    """Phase 29 (after bench_launches): every kernel launch of a traced
     round of each config's per-round step and of a traced phase of its
     phase engine, per delivery round (perf/profile.py), at the configs'
     full sizes."""
@@ -1127,7 +1265,7 @@ def phase_parity(sweep, driver, convert, layout):
         f"({time.perf_counter() - t0:.1f} s; events {ev.tolist()})")
 
 
-def check_phase_exchange(fr, calls, gen, base) -> dict:
+def check_phase_exchange(fr, calls, gen, base, label: str = "phase") -> dict:
     """Phase 16: edge_exchange on the phase engine's calls (the control
     head at C = 6 with scores, a data sub-round at C = 2 without), captured
     and on random words: bit for bit against the plain version; times of
@@ -1167,7 +1305,7 @@ def check_phase_exchange(fr, calls, gen, base) -> dict:
                **bound(io, ops), "library_ms": batch_ms(lambda: flat[perm])}
         del launch
         out[tag] = rec
-        say(f"kernel edge_exchange phase {tag}: N={n} K={k} scores={rec['scores']} exact "
+        say(f"kernel edge_exchange {label} {tag}: N={n} K={k} scores={rec['scores']} exact "
             f"(max_abs_err {err}, captured and random) kernel_ms={rec['ms']:.6f}"
             f"{baseline_note(rec)} "
             f"plain_ms={rec['plain_ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
@@ -1323,13 +1461,15 @@ def window_parity(sweep, convert, dev, counters) -> dict:
     return blocks
 
 
-def window_bench(sweep, driver, dev, card, counters, engine: str, **bench_kw) -> dict:
-    """Phases 18 and 25: the phase bench (``engine="phase"``) or the
+def window_bench(sweep, driver, dev, card, counters, engine: str, observe=None,
+                 **bench_kw) -> dict:
+    """Phases 18, 25 and 27: the phase bench (``engine="phase"``) or the
     per-round bench at N=100k (with ``bench_kw``, the delivery core's
-    options), eager and windowed in turns (eager, window, window, eager).
-    Each turn builds afresh, forms the mesh, runs the formation and one
-    untimed segment, then times one segment; a window turn's untimed
-    segment captures its block. Returns the turns."""
+    options or the PX cell's), eager and windowed in turns (eager, window,
+    window, eager). Each turn builds afresh, forms the mesh, runs the
+    formation and one untimed segment, then times one segment; a window
+    turn's untimed segment captures its block. ``observe(state) -> dict``
+    reads each turn's final state into its record. Returns the turns."""
     import torch
 
     r = PHASE_R if engine == "phase" else 1
@@ -1381,6 +1521,10 @@ def window_bench(sweep, driver, dev, card, counters, engine: str, **bench_kw) ->
             raise AssertionError(f"{engine} bench {mode}: tick {int(st.core.tick)}")
         unit = "delivery-rounds/s" if r > 1 else "rounds/s"
         extra = ""
+        if observe is not None:
+            seen = observe(st)
+            rec.update(seen)
+            extra = "".join(f", {k} {v}" for k, v in seen.items())
         if mode == "window":
             extra = (f", capture {rec['capture_seconds']:.3f} s, {rec['replays']} graph "
                      f"replays a window of {m} rounds, a block of {rec['block_dispatches']} "
@@ -2219,7 +2363,31 @@ def main() -> int:
         "options_window_rates": [t["rate"] for t in option_turns if t["mode"] == "window"],
         "floodsub_queue_cap": capped}))
 
-    # 27. launches of a bench round, a phase-bench phase and a windowed
+    # 27. PX with edge liveness, the exact-trace plane and the int16
+    # counters at full width: launch gates and each kernel call on the
+    # live view, then both engines eager and windowed in turns
+    gates = px_gates(sweep, driver, dev, counters)
+    px_ex = check_phase_exchange(fr, gates["calls"], gen, base, label="PX")
+    px_del = check_px_delivery(fr, gates["delivery"], gen, base)
+    records[0]["px"] = {**px_ex, "launches": gates["launches"]}
+    records[1]["px"] = {**px_del, "launches": gates["launches"]}
+    px_turns = {}
+    for engine in ("per-round", "phase"):
+        px_turns[engine] = window_bench(sweep, driver, dev, card, counters, engine,
+                                        observe=px_observe, px=True)
+        for t in px_turns[engine]:
+            if t["live_edges"] <= gates["live_start"]:
+                raise AssertionError(f"PX {engine} {t['mode']}: {t['live_edges']} live edges, "
+                                     f"{gates['live_start']} at the start: none activated")
+    say("PX cell: " + json.dumps({"live_edges_start": gates["live_start"],
+                                  "launches": gates["launches"], "turns": px_turns}))
+
+    # 28. the PX cell card against CPU at N=8192, both engines, every leaf
+    # after every round or phase; each window against its eager loop
+    config_parity(sweep, driver, convert, "default", dev, label="default PX",
+                  px=True)
+
+    # 29. launches of a bench round, a phase-bench phase and a windowed
     # phase, traced; then the configs' rounds and phases
     bench_launches(card)
     config_traced_launches(card)

@@ -2,8 +2,9 @@
 or the router-agnostic ``SimState`` FloodSub steps, dense or CSR-resident
 (the same leaves; on a CSR net ``fe_words``, ``served_lo``/``served_hi``
 are flat ``[E, W]`` and ``peerhave``/``iasked`` ``[E]``), with or without
-the async-validation pipeline (``.dlv.pending``, a leaf only when the state
-has one, on both sides).
+the async-validation pipeline (``.dlv.pending``) and the exact-trace
+duplicate plane (``.dup_trans``), each a leaf only when the state has one,
+on both sides. Narrowed int16 counters keep their dtype both ways.
 
 Leaves are keyed by their STATE_SCHEMA.json path (``.core.dlv.have``,
 ``.score.bp``, ... for GossipSub; ``.dlv.have``, ``.msgs.origin``, ... for a
@@ -28,11 +29,12 @@ from .state import Delivery, MsgTable, SimState, resolve_device
 _SIM_WORDS = (".dlv.have", ".dlv.fwd", ".dlv.fe_words", ".dlv.pending")
 WORD_LEAVES = frozenset({
     *_SIM_WORDS, *(".core" + p for p in _SIM_WORDS), ".mcache",
-    ".ihave_out", ".iwant_out", ".served_lo", ".served_hi",
+    ".ihave_out", ".iwant_out", ".served_lo", ".served_hi", ".dup_trans",
 })
 KEY_LEAVES = frozenset({".key", ".core.key"})
-#: leaves a state may lack (None): the pipeline's stages
-OPTIONAL_LEAVES = frozenset({".dlv.pending", ".core.dlv.pending"})
+#: leaves a state may lack (None): the pipeline's stages and the
+#: exact-trace duplicate plane
+OPTIONAL_LEAVES = frozenset({".dlv.pending", ".core.dlv.pending", ".dup_trans"})
 
 _SIM_NESTED = {"": SimState, ".msgs": MsgTable, ".dlv": Delivery}
 _NESTED = {

@@ -321,9 +321,10 @@ def make_window(step, *, heartbeat=None, check=None, check_every: int = 1, obser
       card (a window whose length is not a multiple of that replays a
       one-period graph for the rest).
     * Every tensor leaf of the state is a static buffer of the capture: the
-      validation pipeline's stages (``dlv.pending``) and the queue cap's
-      ``congested_in`` too; a None leaf (a state without a pipeline) stays
-      None. ``step`` may be any engine's: a GossipSub or phase step, or a
+      validation pipeline's stages (``dlv.pending``), the queue cap's
+      ``congested_in``, PX's ``edge_live`` and ``prune_px_out``, the
+      exact-trace ``dup_trans`` and the int16 counters too; a None leaf (a
+      state without a pipeline or the trace plane) stays None. ``step`` may be any engine's: a GossipSub or phase step, or a
       FloodSub or RandomSub round (``perf/sweep``'s runs).
 
     ``check`` (the folded invariant checker) and ``consts`` (the lifted

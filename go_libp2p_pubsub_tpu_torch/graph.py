@@ -167,6 +167,24 @@ def ring_lattice(n: int, d: int, max_degree: int | None = None) -> Topology:
     )
 
 
+def dormant_edges(topo: Topology, frac: float, seed: int = 0) -> np.ndarray:
+    """[N, K] bool, symmetric over the edge involution: a random ``frac`` of
+    the undirected edges marked *dormant* — provisioned slots of the padded
+    adjacency that start disconnected and that PX can activate at runtime
+    (pxConnect, gossipsub.go:861-941). One ``rng.random()`` draw per
+    undirected edge, taken from its low end in row-major (j, k) order, as
+    the JAX package's loop draws them; drawn here in one call."""
+    rng = np.random.default_rng(seed)
+    own = topo.nbr_ok & (topo.nbr >= np.arange(topo.n_peers)[:, None])
+    rows, cols = np.nonzero(own)                  # row-major order
+    hit = rng.random(rows.size) < frac
+    rows, cols = rows[hit], cols[hit]
+    dormant = np.zeros(topo.nbr.shape, bool)
+    dormant[rows, cols] = True
+    dormant[topo.nbr[rows, cols], topo.rev[rows, cols]] = True
+    return dormant
+
+
 def from_edges(n: int, edges, max_degree: int | None = None) -> Topology:
     """Explicit dialed-edge list [(dialer, dialee), ...] — the analogue of
     the reference tests' hand-wired `connect(t, hosts[a], hosts[b])`

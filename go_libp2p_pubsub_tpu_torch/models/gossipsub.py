@@ -24,9 +24,16 @@ The outbound-queue cap (``queue_cap``) and the async-validation pipeline
 composites on every net, the banded K <= 16 one too, as the JAX package's
 ``fused_eligible`` routes them: under either option neither
 ``edge_exchange`` nor ``fused_delivery`` launches, and the shared delivery
-round leaves ``delivery_banded`` for its composite. Options outside the
-port raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+round leaves ``delivery_banded`` for its composite.
+
+Peer exchange (``do_px``) and ``edge_liveness`` keep the kernel route: a
+round reads the live edges ``nbr_ok & edge_live`` (``live_step_views``)
+for every gate, gather and kernel argument, ``edge_exchange``'s live words
+and ``fused_delivery``'s F_LIVE flags included, and the px lane rides the
+control words (C = 5 at one topic and W = 2). Without either option the
+step reads the build's constants and launches nothing more. Options
+outside the port raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 """
 
 from __future__ import annotations
@@ -95,8 +102,8 @@ from .common import (
 @dataclasses.dataclass(frozen=True)
 class GossipSubConfig:
     """Static configuration: GossipSubParams with durations in ticks, plus
-    the v1.1 thresholds and feature switches (the JAX package's fields that
-    this slice reads; the step refuses values outside the slice)."""
+    the v1.1 thresholds and feature switches (the JAX package's fields but
+    ``chaos`` and ``router``)."""
 
     D: int = 6
     Dlo: int = 5
@@ -117,10 +124,14 @@ class GossipSubConfig:
     opportunistic_graft_peers: int = 2
     backoff_clear_ticks: int = 15   # gossipsub.go:1587
     backoff_slack_ticks: int = 2    # gossipsub.go:1596
+    direct_connect_ticks: int = 300  # gossipsub.go:1606-1628
     heartbeat_every: int = 1
     score_enabled: bool = False
     flood_publish: bool = False
     do_px: bool = False
+    # edge liveness without PX: dormant provisioned edges (the state's
+    # ``edge_live``) carry nothing until activated; PX implies it
+    edge_liveness: bool = False
     # peer gater and the validation front-end queue (validation.go): 0
     # capacity = unbounded, and the gater is inert without throttle pressure
     gater_enabled: bool = False
@@ -149,9 +160,18 @@ class GossipSubConfig:
     wire_coalesced: bool = True
     edge_layout: str = "dense"
     fused: bool = False
+    # the IHAVE flood-protection counters (peerhave, iasked) as int16:
+    # exact, since both clear every heartbeat and ``build`` refuses a cap
+    # or a cadence outside int16
+    narrow_counters: bool = False
+    # the exact-trace duplicate plane: each round's arrivals beyond the
+    # first per (peer, msg), per edge, kept in the state's ``dup_trans``
+    # (trace.go:186-194)
+    trace_exact: bool = False
     gossip_threshold: float = 0.0
     publish_threshold: float = 0.0
     graylist_threshold: float = 0.0
+    accept_px_threshold: float = 0.0
     opportunistic_graft_threshold: float = 0.0
 
     @classmethod
@@ -167,17 +187,34 @@ class GossipSubConfig:
               queue_cap: int = 0,
               edge_layout: str = "dense",
               fused: bool = False,
-              wire_coalesced: bool = True) -> "GossipSubConfig":
+              wire_coalesced: bool = True,
+              trace_exact: bool = False,
+              narrow_counters: bool = False) -> "GossipSubConfig":
         """``edge_layout`` and ``fused`` must match the Net's
         (``Net.build(..., edge_layout=..., fused=...)``); the step refuses
         a mismatch. The selections take one form under either flag; its
         ranks equal both of the JAX package's forms. Per-topic delays
-        without a depth set the depth to their largest."""
+        without a depth set the depth to their largest. ``narrow_counters``
+        is refused where an int16 counter could not hold its bound."""
         p = params or GossipSubParams()
         p.validate()
         if edge_layout not in ("dense", "csr"):
             raise ValueError(
                 f"edge_layout must be 'dense' or 'csr', got {edge_layout!r}")
+        i16_cap = int(np.iinfo(np.int16).max) + 1
+        if narrow_counters and p.max_ihave_length >= i16_cap:
+            # iasked saturates at the cap it gates on
+            raise ValueError(
+                f"narrow_counters needs max_ihave_length < {i16_cap} "
+                f"(got {p.max_ihave_length}) — the int16 iasked counter "
+                "must be able to represent its own cap")
+        if narrow_counters and heartbeat_every >= i16_cap:
+            # peerhave counts one IHAVE batch a round until the heartbeat
+            # clears it
+            raise ValueError(
+                f"narrow_counters needs heartbeat_every < {i16_cap} "
+                f"(got {heartbeat_every}) — the int16 peerhave counter "
+                "grows once per round until the heartbeat clear")
         if validator_timeout_rounds < 0:
             raise ValueError(
                 f"validator_timeout_rounds must be >= 0, got {validator_timeout_rounds}")
@@ -203,6 +240,7 @@ class GossipSubConfig:
             graft_flood_ticks=ticks_for(p.graft_flood_threshold, hb),
             opportunistic_graft_ticks=p.opportunistic_graft_ticks,
             opportunistic_graft_peers=p.opportunistic_graft_peers,
+            direct_connect_ticks=p.direct_connect_ticks,
             heartbeat_every=heartbeat_every,
             score_enabled=score_enabled,
             flood_publish=p.flood_publish,
@@ -218,6 +256,8 @@ class GossipSubConfig:
             edge_layout=edge_layout,
             fused=bool(fused),
             wire_coalesced=bool(wire_coalesced),
+            trace_exact=bool(trace_exact),
+            narrow_counters=bool(narrow_counters),
         )
         if thresholds is not None:
             thresholds.validate()
@@ -225,6 +265,7 @@ class GossipSubConfig:
                 gossip_threshold=thresholds.gossip_threshold,
                 publish_threshold=thresholds.publish_threshold,
                 graylist_threshold=thresholds.graylist_threshold,
+                accept_px_threshold=thresholds.accept_px_threshold,
                 opportunistic_graft_threshold=thresholds.opportunistic_graft_threshold,
             )
         return cls(**kw)
@@ -259,8 +300,8 @@ class GossipSubState:
     iwant_out: torch.Tensor         # [N,K,W] words
     graft_out: torch.Tensor         # [N,S,K] bool
     prune_out: torch.Tensor         # [N,S,K] bool
-    peerhave: torch.Tensor          # [N,K] i32 (cleared each heartbeat)
-    iasked: torch.Tensor            # [N,K] i32
+    peerhave: torch.Tensor          # [N,K] i32, i16 narrowed (cleared each heartbeat)
+    iasked: torch.Tensor            # [N,K] i32, i16 narrowed
     served_lo: torch.Tensor         # [N,K,W] 2-bit retransmission counters
     served_hi: torch.Tensor         # [N,K,W]
     promise_mid: torch.Tensor       # [N,K] i32 (-1 none)
@@ -275,14 +316,22 @@ class GossipSubState:
     fanout_lastpub: torch.Tensor    # [N,F] i32
     up: torch.Tensor                # [N] bool
     blacklist: torch.Tensor         # [N] bool
+    # the PX connection plane: which provisioned edges are live (dormant
+    # ones start False; kept symmetric over the edge involution), and the
+    # PX flag riding this round's PRUNEs
     edge_live: torch.Tensor         # [N,K] bool
     prune_px_out: torch.Tensor      # [N,S,K] bool
     congested_in: torch.Tensor      # [N,K] bool
+    # this round's arrivals beyond the first per (peer, msg), per edge
+    # (cfg.trace_exact only, else None)
+    dup_trans: torch.Tensor | None = None  # [N,K,W] words
 
     @classmethod
     def init(cls, net: Net, msg_slots: int, cfg: GossipSubConfig,
              score_params: PeerScoreParams | None = None,
-             seed: int = 0) -> "GossipSubState":
+             seed: int = 0, dormant: np.ndarray | None = None) -> "GossipSubState":
+        """``dormant`` ([N, K] bool, ``graph.dormant_edges``) marks the
+        provisioned edges that start disconnected."""
         dev = net.device
         n, k = net.nbr.shape
         s = net.n_slots
@@ -303,6 +352,10 @@ class GossipSubState:
         e = net.n_edges
         ph_shape = (n, k) if e is None else (e,)
         sv_shape = (n, k, w) if e is None else (e, w)
+        ctr = torch.int16 if cfg.narrow_counters else i32
+        edge_live = net.nbr_ok.clone()
+        if dormant is not None:
+            edge_live &= ~torch.as_tensor(np.asarray(dormant, bool), device=dev)
         return cls(
             core=SimState.init(n, msg_slots, seed, k=k, device=dev, n_edges=e,
                                val_delay=cfg.validation_delay_rounds),
@@ -314,8 +367,8 @@ class GossipSubState:
             iwant_out=z((n, k, w), i32),
             graft_out=z((n, s, k), b),
             prune_out=z((n, s, k), b),
-            peerhave=z(ph_shape, i32),
-            iasked=z(ph_shape, i32),
+            peerhave=z(ph_shape, ctr),
+            iasked=z(ph_shape, ctr),
             served_lo=z(sv_shape, i32),
             served_hi=z(sv_shape, i32),
             promise_mid=torch.full((n, k), -1, dtype=i32, device=dev),
@@ -330,9 +383,10 @@ class GossipSubState:
             fanout_lastpub=z((n, f), i32),
             up=torch.ones((n,), dtype=b, device=dev),
             blacklist=z((n,), b),
-            edge_live=net.nbr_ok.clone(),
+            edge_live=edge_live,
             prune_px_out=z((n, s, k), b),
             congested_in=z((n, k), b),
+            dup_trans=z((n, k, w), i32) if cfg.trace_exact else None,
         )
 
 
@@ -347,13 +401,22 @@ def joined_msg_words(net: Net, msgs) -> torch.Tensor:
 
 
 def handle_graft_prune(cfg: GossipSubConfig, net: Net, st: GossipSubState,
-                       tp: dict, acc_ok, graft_in_raw, prune_in_raw):
+                       tp: dict, acc_ok, graft_in_raw, prune_in_raw, px_in_raw=None):
     """GRAFT/PRUNE received this round (handleGraft gossipsub.go:718-809,
-    handlePrune :811-843). Returns (state, rejected, n_graft, n_prune);
-    ``rejected`` becomes next round's PRUNE outbox."""
+    handlePrune :811-843); ``net`` is the round's live view. Returns
+    (state, rejected, px_resp, px_ok, n_graft, n_prune): ``rejected``
+    becomes next round's PRUNE outbox and ``px_resp`` its PX flags;
+    ``px_ok`` [N,K] marks the edges whose PRUNE carried PX from a pruner
+    scored at or above AcceptPXThreshold (None without PX)."""
     tick = st.core.tick
     graft_in = graft_in_raw & acc_ok[:, None, :]
     prune_in = prune_in_raw & acc_ok[:, None, :]
+
+    # PX ingest (handlePrune gossipsub.go:834-841)
+    px_ok = None
+    if cfg.do_px:
+        px_ok = ((px_in_raw & prune_in).any(1)
+                 & (st.scores >= cfg.accept_px_threshold))
 
     pruned = prune_in & st.mesh
     score = on_prune(st.score, pruned, tp) if cfg.score_enabled else st.score
@@ -393,12 +456,15 @@ def handle_graft_prune(cfg: GossipSubConfig, net: Net, st: GossipSubState,
     backoff_present = backoff_present | re_back
     st = replace(st, mesh=mesh, backoff_expire=backoff_expire,
                  backoff_present=backoff_present, score=score)
+    # graft-rejection PRUNEs carry PX unless the score rejected the graft
+    # (handleGraft's makePrune, gossipsub.go:796-806)
+    px_resp = rejected & ~rej_score if cfg.do_px else torch.zeros_like(rejected)
     if cfg.count_events:
         n_graft = accepted.sum(dtype=torch.int32)
         n_prune = pruned.sum(dtype=torch.int32)
     else:
         n_graft = n_prune = 0
-    return st, rejected, n_graft, n_prune
+    return st, rejected, px_resp, px_ok, n_graft, n_prune
 
 
 def handle_ihave(cfg: GossipSubConfig, net: Net, st: GossipSubState,
@@ -672,7 +738,8 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
               sc: ScoreScalars, nbr_sub, gater_params: PeerGaterParams | None = None,
               nbr_sub_words: torch.Tensor | None = None,
               mesh_capable: torch.Tensor | None = None,
-              gossip_suppress: torch.Tensor | None = None) -> GossipSubState:
+              gossip_suppress: torch.Tensor | None = None,
+              present_ok: torch.Tensor | None = None) -> GossipSubState:
     """One heartbeat for every peer. The JAX package gates the maintenance
     sub-passes with ``lax.cond`` on "any row needs it"; both branches give
     identical results there, so this runs them unconditionally (no host
@@ -682,7 +749,9 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     with ``mesh_capable`` [N,K] (the far end speaks a mesh protocol; a
     static view the step builds once). ``gossip_suppress`` [N,K] marks
     congested outbound links whose IHAVE batch is dropped this heartbeat
-    (the queue cap's backpressure; gossipsub.go:1757-1764)."""
+    (the queue cap's backpressure; gossipsub.go:1757-1764). ``net`` is
+    the round's live view; ``present_ok`` [N,K] the provisioned edges the
+    direct-peer redial may wake (default ``net.nbr_ok``)."""
     tick = st.core.tick
     n, s_dim, k_dim = st.mesh.shape
     key = prng.fold_in(st.core.key, tick)
@@ -763,6 +832,11 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     pruned_over = mesh & ~keep & over
     mesh = torch.where(over, mesh & keep, mesh)
     toprune = toprune | pruned_over
+    # over-subscription prunes carry PX, score prunes (``bad``) none
+    # (gossipsub.go:1365 vs :1446)
+    px_prune = None
+    if cfg.do_px:
+        px_prune = pruned_over & (scores_b >= 0) if cfg.score_enabled else pruned_over
 
     # outbound quota top-up at Dlo <= |mesh| (gossipsub.go:1451-1476)
     deg = count_true(mesh)
@@ -855,6 +929,16 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     mcache = torch.cat([torch.zeros_like(st.mcache[:, :1, :]), st.mcache[:, :-1, :]],
                        dim=1)
 
+    # directConnect (gossipsub.go:1606-1628): every DirectConnectTicks a
+    # dormant direct edge comes back live, both ways; tick 0 is skipped
+    # (DirectConnectInitialDelay)
+    edge_live = st.edge_live
+    if cfg.do_px and cfg.direct_connect_ticks > 0:
+        direct_sym = net.direct | net.edge_gather(net.direct)
+        redial = ((tick % cfg.direct_connect_ticks) == 0) & (tick > 0)
+        ok = net.nbr_ok if present_ok is None else present_ok
+        edge_live = torch.where(redial, edge_live | (direct_sym & ok), edge_live)
+
     if cfg.count_events:
         events = add_event(events, EV.GRAFT, new_grafts.sum(dtype=torch.int32))
         events = add_event(events, EV.PRUNE, toprune.sum(dtype=torch.int32))
@@ -869,6 +953,8 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
         ihave_out=ihave_out,
         graft_out=new_grafts,
         prune_out=st.prune_out | toprune,
+        prune_px_out=st.prune_px_out if px_prune is None else st.prune_px_out | px_prune,
+        edge_live=edge_live,
         peerhave=peerhave,
         iasked=iasked,
         promise_mid=promise_mid,
@@ -997,22 +1083,22 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
 
 
 def flushed_thresholds(cfg: GossipSubConfig) -> GossipSubConfig:
-    """``cfg`` with its four score thresholds as the float32 constants the
+    """``cfg`` with its five score thresholds as the float32 constants the
     JAX package compares against: a subnormal threshold is a zero of its
     sign (``ops/fnum.py``). The scores they meet are flushed already, so
     every compare of the step reads flushed operands on both sides."""
     return dataclasses.replace(cfg, **{
         f: flush_f32(getattr(cfg, f))
         for f in ("gossip_threshold", "publish_threshold", "graylist_threshold",
-                  "opportunistic_graft_threshold")})
+                  "accept_px_threshold", "opportunistic_graft_threshold")})
 
 
 def accept_gates(cfg: GossipSubConfig, net: Net, st: GossipSubState,
                  consts: StepConsts, gater_params: PeerGaterParams | None, tick):
     """AcceptFrom (gossipsub.go:583-594): direct always accepted,
     graylisted dropped entirely; the gater's random-early drop takes only
-    the message plane (AcceptControl, peer_gater.go:362). Returns (acc_ok,
-    acc_msg) [N,K] bool."""
+    the message plane (AcceptControl, peer_gater.go:362). ``net`` is the
+    round's live view. Returns (acc_ok, acc_msg) [N,K] bool."""
     if cfg.score_enabled:
         acc_ok = (st.scores >= cfg.graylist_threshold) | net.direct
     else:
@@ -1022,8 +1108,9 @@ def accept_gates(cfg: GossipSubConfig, net: Net, st: GossipSubState,
     # a stream of its own: the round key folded with a distinct tag (the
     # heartbeat takes fold_in(key, tick) directly)
     gkey = prng.fold_in(prng.fold_in(st.core.key, tick), 0x6A7E)
+    live = net.nbr_ok if tracks_liveness(cfg) else None
     acc_msg = acc_ok & (gater_accept(st.gater, consts.gater_share, gater_params,
-                                     cfg.gater_quiet_ticks, tick, gkey) | net.direct)
+                                     cfg.gater_quiet_ticks, tick, gkey, live) | net.direct)
     return acc_ok, acc_msg
 
 
@@ -1093,23 +1180,29 @@ def gater_outcomes(gater: GaterState, fe_words, accepted, valid_words, dup, rej,
 
 def control_parts(cfg: GossipSubConfig, net: Net, st: GossipSubState):
     """The control-plane outboxes as named packed word tensors, in the wire
-    order (graft | prune | ihave); the score plane rides the exchange
-    kernel as f32 beside them."""
-    return [
+    order (graft | prune | ihave, then px under PX); the score plane rides
+    the exchange kernel as f32 beside them."""
+    parts = [
         ("graft", edges.topic_pack(st.graft_out, net.my_topics, net.n_topics)),
         ("prune", edges.topic_pack(st.prune_out, net.my_topics, net.n_topics)),
         ("ihave", st.ihave_out),
     ]
+    if cfg.do_px:
+        parts.append(("px", edges.topic_pack(st.prune_px_out, net.my_topics, net.n_topics)))
+    return parts
 
 
 def control_unpack(cfg: GossipSubConfig, net: Net, w_seg):
     """Receiver-side split of the gathered control words (``w_seg(i)`` =
-    the i-th part's edge view, in control_parts order): (graft_in_raw,
-    prune_in_raw, ihave_in_raw)."""
+    the i-th part's edge view, in control_parts order; ``net`` the round's
+    live view): (graft_in_raw, prune_in_raw, ihave_in_raw, px_in_raw), the
+    last None without PX."""
     ok_slots = net.nbr_ok[:, None, :]
     graft_in_raw = edges.topic_unpack(w_seg(0), net.my_topics) & ok_slots
     prune_in_raw = edges.topic_unpack(w_seg(1), net.my_topics) & ok_slots
-    return graft_in_raw, prune_in_raw, w_seg(2)
+    px_in_raw = (edges.topic_unpack(w_seg(3), net.my_topics) & ok_slots
+                 if cfg.do_px else None)
+    return graft_in_raw, prune_in_raw, w_seg(2), px_in_raw
 
 
 def gather_cross(net: Net, words: torch.Tensor, scores):
@@ -1127,9 +1220,10 @@ def gather_cross(net: Net, words: torch.Tensor, scores):
 def control_exchange(cfg: GossipSubConfig, net: Net, st: GossipSubState, cross):
     """The control wire exchange: every control outbox crosses the edges at
     once through ``cross(words [N, K, C], scores or None) -> (wire
-    [N, K, C], nbr_score_of_me or None)``, the score plane beside it.
-    Returns (graft_in_raw, prune_in_raw, ihave_in_raw, nbr_score_of_me),
-    the last None without scoring."""
+    [N, K, C], nbr_score_of_me or None)``, the score plane beside it;
+    ``net`` is the round's live view. Returns (graft_in_raw, prune_in_raw,
+    ihave_in_raw, px_in_raw, nbr_score_of_me), the last two None without
+    PX and without scoring."""
     parts = [p for _, p in control_parts(cfg, net, st)]
     sizes = np.cumsum([0] + [p.shape[-1] for p in parts])
     wire, nbr_score_of_me = cross(torch.cat(parts, dim=-1),
@@ -1139,19 +1233,22 @@ def control_exchange(cfg: GossipSubConfig, net: Net, st: GossipSubState, cross):
         nbr_score_of_me)
 
 
-def control_exchange_coalesced(cfg: GossipSubConfig, net: Net, st: GossipSubState):
+def control_exchange_coalesced(cfg: GossipSubConfig, net: Net, st: GossipSubState,
+                               live_u32: torch.Tensor):
     """The phase engine's control head as one exchange: the control
     outboxes, the score plane and the sender's mcache window (broadcast
     over the edges, so its peer gather becomes the same involution) cross
     the edges together (gossipsub.go:1096-1141 piggyback). On a banded net
     with K <= MAX_K it is one ``edge_exchange`` launch over ``graft | prune
-    | ihave | window`` words with the scores as the kernel's f32 plane; on
-    any other net one ``Net.edge_gather`` of the concatenation (scores as
-    their bits), masked by ``nbr_ok``, as the JAX package computes it. The
+    | ihave [| px] | window`` words with the scores as the kernel's f32
+    plane, zero where ``live_u32`` is; on any other net one
+    ``Net.edge_gather`` of the concatenation (scores as their bits), masked
+    by the live view ``net.nbr_ok``, as the JAX package computes it. The
     JAX package also carries the P5 app plane here when its weight is live;
     the port's heartbeat gathers it where it reads it (``compute_scores``),
     which gives the same bits. Returns (graft_in_raw, prune_in_raw,
-    ihave_in_raw, nbr_score_of_me or None, window_g [N, K, W])."""
+    ihave_in_raw, px_in_raw or None, nbr_score_of_me or None, window_g
+    [N, K, W])."""
     n, k = net.n_peers, net.max_degree
     named = control_parts(cfg, net, st)
     window = bitset.word_or_reduce(st.mcache, dim=1)[:, None, :].expand(n, k, -1)
@@ -1159,7 +1256,7 @@ def control_exchange_coalesced(cfg: GossipSubConfig, net: Net, st: GossipSubStat
     kernel_route = net.band_off is not None and k <= fr.MAX_K
     if not kernel_route and cfg.score_enabled:
         # the reference's order: the score bits ride after the control words
-        named.insert(3, ("score", st.scores.view(torch.int32)[..., None]))
+        named.insert(len(named) - 1, ("score", st.scores.view(torch.int32)[..., None]))
     names = [nm for nm, _ in named]
     sizes = np.cumsum([0] + [p.shape[-1] for _, p in named])
     words = torch.cat([p for _, p in named], dim=-1)
@@ -1167,7 +1264,7 @@ def control_exchange_coalesced(cfg: GossipSubConfig, net: Net, st: GossipSubStat
         c = words.shape[-1]
         wire, nbr_score_of_me = fr.edge_exchange(
             words.reshape(n, k * c), st.scores if cfg.score_enabled else None,
-            net.nbr_ok.to(torch.int32), offsets=net.band_off, revs=net.band_rev, c=c,
+            live_u32, offsets=net.band_off, revs=net.band_rev, c=c,
             score_enabled=cfg.score_enabled)
         wire = wire.reshape(n, k, c)
     else:
@@ -1181,35 +1278,62 @@ def control_exchange_coalesced(cfg: GossipSubConfig, net: Net, st: GossipSubStat
     if not kernel_route and cfg.score_enabled:
         nbr_score_of_me = torch.where(net.nbr_ok, seg("score")[..., 0].view(torch.float32),
                                       0.0)
-    graft_in_raw, prune_in_raw, ihave_in_raw = control_unpack(
-        cfg, net, lambda i: seg(("graft", "prune", "ihave")[i]))
-    return graft_in_raw, prune_in_raw, ihave_in_raw, nbr_score_of_me, seg("window")
+    graft_in_raw, prune_in_raw, ihave_in_raw, px_in_raw = control_unpack(
+        cfg, net, lambda i: seg(("graft", "prune", "ihave", "px")[i]))
+    return (graft_in_raw, prune_in_raw, ihave_in_raw, px_in_raw, nbr_score_of_me,
+            seg("window"))
 
 
-def live_step_views(net: Net, consts: "StepConsts"):
-    """The topology views a step reads (gossipsub.go's live-peer view):
-    (net_l, nbr_sub_l, flood_from_l, nbr_sub_words_l). With static peers
-    and no PX — the only builds the port makes — they are the build's
+def tracks_liveness(cfg: GossipSubConfig) -> bool:
+    """Whether the build reads the state's ``edge_live`` plane: under PX
+    or ``edge_liveness``. Otherwise the live view is the static topology
+    and the step reads its build constants (no extra op, no extra launch)."""
+    return cfg.do_px or cfg.edge_liveness
+
+
+def live_step_views(cfg: GossipSubConfig, net: Net, st: GossipSubState,
+                    consts: "StepConsts"):
+    """The topology views a round reads (the live-peer view): (net_l,
+    nbr_sub_l, flood_from_l, nbr_sub_words_l, live_u32). Under PX or
+    ``edge_liveness`` the live edges are ``nbr_ok & st.edge_live`` (dormant
+    edges carry nothing until activated; ``edge_live`` is symmetric, so one
+    side suffices), ``net_l`` the net with them as its ``nbr_ok``, the
+    three planes masked by them and ``live_u32`` their int32 form, the live
+    words of every ``edge_exchange``. Otherwise they are the build's
     constants."""
-    return net, consts.nbr_sub_const, consts.flood_from, consts.nbr_sub_words
+    if not tracks_liveness(cfg):
+        return (net, consts.nbr_sub_const, consts.flood_from, consts.nbr_sub_words,
+                consts.live_u32)
+    live = net.nbr_ok & st.edge_live
+    nbr_sub_words_l = None
+    if consts.nbr_sub_words is not None:
+        nbr_sub_words_l = torch.where(live[:, :, None], consts.nbr_sub_words, 0)
+    return (replace(net, nbr_ok=live), consts.nbr_sub_const & live[:, None, :],
+            consts.flood_from & live, nbr_sub_words_l, live.to(torch.int32))
 
 
-def px_connect(cfg: GossipSubConfig, st: GossipSubState) -> torch.Tensor:
-    """PX connect (pxConnect gossipsub.go:861-941): next round's edge
-    liveness. Without do_px (the only form this slice builds) it is the
-    current plane."""
-    return st.edge_live
-
-
-def _refuse_unported(cfg: GossipSubConfig):
-    """Raise on a config value outside the port (the JAX config's options
-    that no ported step runs yet)."""
-    checks = [
-        (cfg.do_px, "do_px (peer exchange) — ROADMAP §1 item 3"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
+def px_connect(cfg: GossipSubConfig, net: Net, net_l: Net, st: GossipSubState,
+               px_ok) -> torch.Tensor:
+    """PX connect (pxConnect gossipsub.go:861-941): a peer pruned with PX
+    activates its dormant provisioned edges to the peers the pruner
+    suggested — the pruner's mesh members over its topics, one round stale
+    as every outbox (makePrune/getPeers :1814-1872). ``net_l`` is the live
+    view (suggestions ride live edges), ``net`` the static topology
+    (dormant slots live there). Returns next round's ``edge_live``."""
+    if not cfg.do_px:
+        return st.edge_live
+    sugg = torch.where(st.mesh.any(1) & net_l.nbr_ok, net_l.nbr, -1)    # [N, K]
+    # the suggestions each PRUNE with an accepted PX carries, -1 elsewhere
+    sugg_g = torch.where(px_ok[:, :, None], net.peer_gather(sugg), -1)  # [N, K, K]
+    dormant_avail = net.nbr_ok & ~st.edge_live & (net.nbr >= 0)
+    act = torch.zeros_like(dormant_avail)
+    for kk in range(net.max_degree):
+        # my dormant slot's peer is among pruner kk's suggestions, reduced
+        # over the middle axis: the card reduces a last axis of K several
+        # times slower (perf/profile.py --px)
+        act = act | (net.nbr[:, None, :] == sugg_g[:, kk, :, None]).any(1)
+    act = act & dormant_avail
+    return st.edge_live | ((act | net.edge_gather(act)) & net.nbr_ok)
 
 
 def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
@@ -1240,6 +1364,16 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     ``validation_delay_topic``) runs the async-validation pipeline; the
     state carries its stages (``GossipSubState.init``).
 
+    ``cfg.do_px`` runs peer exchange: PRUNEs carry PX, a peer pruned with
+    PX by a pruner scored at or above ``accept_px_threshold`` activates its
+    dormant edges to the pruner's mesh peers, and direct edges are redialed
+    every ``direct_connect_ticks``; under it or ``cfg.edge_liveness`` every
+    round reads the live edges ``nbr_ok & edge_live`` (the state's dormant
+    edges: ``GossipSubState.init(..., dormant=...)``), the kernels' live
+    words included. ``cfg.trace_exact`` keeps each round's duplicate
+    arrivals in ``dup_trans``; ``cfg.narrow_counters`` the IHAVE counters
+    as int16.
+
     On a banded dense net with K <= 16 the data plane is the two fused
     kernels, unless the queue cap or the pipeline is on: as in the JAX
     package (its ``fused_eligible``), those configs take the XLA-path
@@ -1248,11 +1382,10 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     between steps. The step is functional: it never writes
     into the state it is given. Options of the JAX step outside the port
     (the chaos and adversary planes, the router, dynamic peers or topology,
-    announce holes, lifted scores, telemetry) raise, and so does PX."""
+    announce holes, lifted scores, telemetry) raise."""
     if unported:
         raise NotImplementedError(
             f"not ported yet: {sorted(unported)} — ROADMAP §1 items 3-6")
-    _refuse_unported(cfg)
     consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval, gater_params,
                                  adversary_no_forward)
     cfg = flushed_thresholds(cfg)
@@ -1267,20 +1400,18 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     opts = dict(count_events=cfg.count_events, queue_cap=cfg.queue_cap,
                 val_delay_topic=cfg.validation_delay_topic)
 
-    def banded_cross(words, scores):
+    def banded_cross(live_u32, words, scores):
         """The control words across the banded involution as one
         edge_exchange launch, the score plane riding as f32."""
         wc = words.shape[-1]
         wire_flat, nbr_score_of_me = fr.edge_exchange(
-            words.reshape(n_peers, k_dim * wc), scores, consts.live_u32,
+            words.reshape(n_peers, k_dim * wc), scores, live_u32,
             offsets=net.band_off, revs=net.band_rev, c=wc,
             score_enabled=cfg.score_enabled,
         )
         return wire_flat.reshape(n_peers, k_dim, wc), nbr_score_of_me
 
-    cross = banded_cross if banded else functools.partial(gather_cross, net)
-
-    def banded_data_plane(st, st2, joined_words, slotw, acc_ok, acc_msg,
+    def banded_data_plane(net_l, st, st2, joined_words, slotw, acc_ok, acc_msg,
                           ihave_in_raw, nbr_score_of_me, valid_pack):
         """IHAVE ingest first (it consumes nothing the delivery kernel
         writes), then the whole delivery plane in one fused_delivery launch
@@ -1292,21 +1423,22 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         kw = k_dim * w_dim
         asked_old = st2.iwant_out
         served_lo_old, served_hi_old = st2.served_lo, st2.served_hi
-        st2 = handle_ihave(cfg, net, st2, joined_words, acc_ok, ihave_in_raw)
+        st2 = handle_ihave(cfg, net_l, st2, joined_words, acc_ok, ihave_in_raw)
 
         carry = sender_carry_words(st2.mesh, slotw)
         if cfg.fanout_slots > 0:
             # the fanout push joins the mesh push in the kernel's carry
             carry = carry | fanout_carry_words(st2.fanout_peers, st2.fanout_topic,
                                                core.msgs.topic)
-        origin_w = origin_msg_words(net, core.msgs)
+        origin_w = origin_msg_words(net_l, core.msgs)
         if cfg.flood_publish:
             # sender-side fold of v1.1 flood-publish (gossipsub.go:957-963)
             fp_ok = ((st.scores >= cfg.publish_threshold)
-                     if cfg.score_enabled else net.nbr_ok)
+                     if cfg.score_enabled else net_l.nbr_ok)
             carry = carry | torch.where(fp_ok[:, :, None], origin_w[:, None, :], 0)
+        # the kernel gates every edge by F_LIVE, the static flood_from too
         flags = fr.make_flags(acc_msg, consts.flood_from, consts.i_am_floodsub,
-                              consts.sender_fwd_full, net.nbr_ok)
+                              consts.sender_fwd_full, net_l.nbr_ok)
         mcw = bitset.word_or_reduce(st2.mcache, dim=1)
         res = fr.fused_delivery(
             carry.reshape(n_peers, kw).contiguous(),
@@ -1357,66 +1489,77 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         )
         return st2, dlv, info
 
-    def composite_data_plane(st, st2, joined_words, slotw, acc_ok, acc_msg,
-                             ihave_in_raw, nbr_score_of_me):
+    def composite_data_plane(net_l, flood_from_l, st, st2, joined_words, slotw, acc_ok,
+                             acc_msg, ihave_in_raw, nbr_score_of_me):
         """The JAX package's XLA path: IWANT service (last round's asks ->
         this round's carry), IHAVE ingest, the mesh/flood edge mask through
         the shared delivery_round, then the IWANT responses merged in.
         Returns (st2, dlv, info)."""
         core = st.core
-        st2, iwant_resp = iwant_responses(cfg, net, st2, nbr_score_of_me)
-        st2 = handle_ihave(cfg, net, st2, joined_words, acc_ok, ihave_in_raw)
+        st2, iwant_resp = iwant_responses(cfg, net_l, st2, nbr_score_of_me)
+        st2 = handle_ihave(cfg, net_l, st2, joined_words, acc_ok, ihave_in_raw)
         # floodsub-peer edges: sender floodsub => flood; receiver floodsub
         # => the gossipsub sender still sends everything, score-gated
         # (gossipsub.go:973-978)
         recv_ok = ((nbr_score_of_me >= cfg.publish_threshold)
-                   if cfg.score_enabled else net.nbr_ok)
-        flood_edges = consts.flood_from | (consts.i_am_floodsub[:, None]
-                                           & recv_ok & net.nbr_ok)
-        edge_mask = gossip_edge_mask(cfg, net, st2, joined_words, acc_msg, slotw,
+                   if cfg.score_enabled else net_l.nbr_ok)
+        flood_edges = flood_from_l | (consts.i_am_floodsub[:, None]
+                                      & recv_ok & net_l.nbr_ok)
+        edge_mask = gossip_edge_mask(cfg, net_l, st2, joined_words, acc_msg, slotw,
                                      core.msgs, flood_edges, nbr_score_of_me)
         if consts.sender_fwd_ok is not None:
             # edges from no-forward peers carry no data
             edge_mask = torch.where(consts.sender_fwd_ok[:, :, None], edge_mask, 0)
             iwant_resp = torch.where(consts.sender_fwd_ok[:, :, None], iwant_resp, 0)
-        dlv, info = delivery_round(net, core.msgs, core.dlv, edge_mask, core.tick, **opts)
+        dlv, info = delivery_round(net_l, core.msgs, core.dlv, edge_mask, core.tick, **opts)
         iwant_resp = torch.where(acc_msg[:, :, None], iwant_resp, 0)
-        dlv, info = merge_extra_tx(net, core.msgs, dlv, info, iwant_resp, core.tick, **opts)
+        dlv, info = merge_extra_tx(net_l, core.msgs, dlv, info, iwant_resp, core.tick,
+                                   **opts)
         return st2, dlv, info
 
     def _round(st: GossipSubState, pub_origin, pub_topic, pub_valid,
                do_heartbeat: bool = True) -> GossipSubState:
         core = st.core
         tick = core.tick
-        acc_ok, acc_msg = accept_gates(cfg, net, st, consts, gater_params, tick)
+        net_l, nbr_sub_l, flood_from_l, nbr_sub_words_l, live_u32 = live_step_views(
+            cfg, net, st, consts)
+        acc_ok, acc_msg = accept_gates(cfg, net_l, st, consts, gater_params, tick)
 
         # 0b. merged wire exchange: every control outbox crosses the edge
         # involution at once, the score plane beside it
-        graft_in_raw, prune_in_raw, ihave_in_raw, nbr_score_of_me = (
-            control_exchange(cfg, net, st, cross))
+        cross = (functools.partial(banded_cross, live_u32) if banded
+                 else functools.partial(gather_cross, net_l))
+        graft_in_raw, prune_in_raw, ihave_in_raw, px_in_raw, nbr_score_of_me = (
+            control_exchange(cfg, net_l, st, cross))
 
-        # 1. GRAFT/PRUNE ingest
-        st2, prune_resp, n_graft, n_prune = handle_graft_prune(
-            cfg, net, st, tp, acc_ok, graft_in_raw, prune_in_raw)
+        # 1. GRAFT/PRUNE ingest, and PX connect
+        st2, prune_resp, px_resp, px_ok, n_graft, n_prune = handle_graft_prune(
+            cfg, net_l, st, tp, acc_ok, graft_in_raw, prune_in_raw, px_in_raw)
         events = core.events
         if cfg.count_events:
             events = add_event(add_event(events, EV.GRAFT, n_graft),
                                EV.PRUNE, n_prune)
-        edge_live_next = px_connect(cfg, st)
+        edge_live_next = px_connect(cfg, net, net_l, st, px_ok)
 
-        joined_words = joined_msg_words(net, core.msgs)
-        slotw = slot_topic_words(net, core.msgs.topic)
+        joined_words = joined_msg_words(net_l, core.msgs)
+        slotw = slot_topic_words(net_l, core.msgs.topic)
         valid_pack = bitset.pack(core.msgs.valid)
 
         # 2-4. IWANT service, IHAVE ingest and delivery
         if banded:
             st2, dlv, info = banded_data_plane(
-                st, st2, joined_words, slotw, acc_ok, acc_msg, ihave_in_raw,
+                net_l, st, st2, joined_words, slotw, acc_ok, acc_msg, ihave_in_raw,
                 nbr_score_of_me, valid_pack)
         else:
             st2, dlv, info = composite_data_plane(
-                st, st2, joined_words, slotw, acc_ok, acc_msg, ihave_in_raw,
-                nbr_score_of_me)
+                net_l, flood_from_l, st, st2, joined_words, slotw, acc_ok, acc_msg,
+                ihave_in_raw, nbr_score_of_me)
+
+        # the exact-trace duplicate plane: arrivals beyond the first per
+        # (peer, msg), before the throttle (its refusals are fresh receipts)
+        dup_plane = None
+        if cfg.trace_exact:
+            dup_plane = info.trans & ~(dlv.fe_words & info.recv_new_words[:, None, :])
 
         # 4b. the validation front-end throttle (validation.go:230-244): it
         # rewrites the round's have, fwd, first_round and fe planes (the
@@ -1430,7 +1573,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         score = st2.score
         if cfg.score_enabled:
             score = on_deliveries(
-                score, net, st2.mesh, tp, info.trans, info.new_words,
+                score, net_l, st2.mesh, tp, info.trans, info.new_words,
                 dlv.fe_words, dlv.first_round, core.msgs.topic,
                 core.msgs.valid, tick, consts.window_rounds_t,
                 msg_ignored=core.msgs.ignored, slotw=slotw,
@@ -1471,9 +1614,9 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         # 7b. fanout slots for publishes to unjoined topics
         if cfg.fanout_slots > 0:
             fkey = prng.fold_in_rows(prng.fold_in_rows(core.key, tick), 0xFA40)
-            sel = fanout_selections(cfg, net, st2.scores, pub_origin[None], pub_topic[None],
-                                    consts.nbr_sub_words, fkey)[0]
-            st2 = update_fanout_on_publish(cfg, net, st2, pub_origin, pub_topic, sel, tick)
+            sel = fanout_selections(cfg, net_l, st2.scores, pub_origin[None],
+                                    pub_topic[None], nbr_sub_words_l, fkey)[0]
+            st2 = update_fanout_on_publish(cfg, net_l, st2, pub_origin, pub_topic, sel, tick)
 
         if cfg.count_events:
             events = accumulate_round_events(events, info,
@@ -1489,10 +1632,13 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             promise_mid=promise_mid,
             graft_out=torch.zeros_like(st2.graft_out),
             prune_out=prune_resp,
-            prune_px_out=torch.zeros_like(prune_resp),
+            prune_px_out=px_resp,
             edge_live=edge_live_next,
             score=score,
             gater=gater,
+            # not keep-masked: a dup bit names the message its slot held at
+            # the arrival
+            dup_trans=dup_plane,
         )
 
         # congested links suppress this round's heartbeat gossip toward
@@ -1501,14 +1647,14 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         gossip_suppress = None
         if cfg.queue_cap > 0:
             sat_recv = bitset.popcount(info.trans) >= cfg.queue_cap
-            gossip_suppress = net.edge_gather(sat_recv) & net.nbr_ok
+            gossip_suppress = net_l.edge_gather(sat_recv) & net_l.nbr_ok
             st2 = replace(st2, congested_in=sat_recv)
 
         # 8. heartbeat
         def hb(s):
-            return heartbeat(cfg, net, s, tp, consts.scalars, consts.nbr_sub_const,
-                             gater_params, consts.nbr_sub_words, consts.mesh_capable,
-                             gossip_suppress)
+            return heartbeat(cfg, net_l, s, tp, consts.scalars, nbr_sub_l,
+                             gater_params, nbr_sub_words_l, consts.mesh_capable,
+                             gossip_suppress, present_ok=net.nbr_ok)
 
         if cfg.heartbeat_every == 1:
             st2 = hb(st2)

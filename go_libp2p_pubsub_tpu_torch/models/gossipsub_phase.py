@@ -21,15 +21,20 @@ one call the reference's way:
 Each sub-round composes what every sender pushes on each edge and crosses
 the edge involution once. On a banded net with K <= ``fused_round.MAX_K``
 both crossings are ``edge_exchange`` launches: the control head's words
-(``graft | prune | ihave | mcache window``, the score plane beside them)
-once a phase, the data words once a sub-round. Any other net, and a CSR
-net (whose state stays CSR-resident between phases), crosses with
+(``graft | prune | ihave [| px] | mcache window``, the score plane beside
+them) once a phase, the data words once a sub-round, each under the
+phase's live edges (``gossipsub.live_step_views``: under PX or
+``edge_liveness`` the dormant edges are dead; PX connects at the head).
+Any other net, and a CSR net (whose state stays CSR-resident between
+phases), crosses with
 ``Net.edge_gather``. The heartbeat's selections are ``select_topk``
 launches on the card. The publish schedule is allocated at the phase head
 (``state.PhasePubPlan``) and the score attribution is folded over the phase
 in packed word planes (``_AccStack``): every (edge, msg) pair transmits at
 most once a phase, so an OR keeps the exact transmission set, and the P3
-window is gated per sub-round at each arrival's own tick.
+window is gated per sub-round at each arrival's own tick. Under
+``trace_exact`` a plane beside the stack, which recycled slots do not
+clear, ORs each sub-round's duplicate arrivals into ``dup_trans``.
 
 The JAX package's phase engine (``go_libp2p_pubsub_tpu/models/
 gossipsub_phase.py``) is the reference, leaf for leaf. Options of it
@@ -53,7 +58,6 @@ from .common import RoundInfo, accumulate_round_events, finish_delivery, origin_
 from .gossipsub import (
     GossipSubConfig,
     GossipSubState,
-    _refuse_unported,
     accept_gates,
     apply_validation_throttle,
     control_exchange_coalesced,
@@ -208,7 +212,6 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             raise TypeError(f"unknown option {key!r}")
         if value is not None and value is not False:
             raise NotImplementedError(f"not ported yet: {UNPORTED[key]}")
-    _refuse_unported(cfg)
     if not cfg.wire_coalesced:
         raise NotImplementedError(
             "not ported yet: wire_coalesced=False (the JAX package's per-plane A/B "
@@ -234,21 +237,22 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
     opts = dict(count_events=cfg.count_events, queue_cap=cfg.queue_cap,
                 val_delay_topic=cfg.validation_delay_topic)
 
-    def cross_data(send, gate):
+    def cross_data(send, gate, live_u32):
         """A sub-round's data words across the edges, zero off ``gate``
-        (which lies inside ``nbr_ok``): one edge_exchange launch on a banded
-        net, else the composite gather."""
+        (which lies inside the live edges ``live_u32``): one edge_exchange
+        launch on a banded net, else the composite gather."""
         if banded:
             w = send.shape[-1]
             wire, _ = fr.edge_exchange(
-                send.reshape(n_peers, k_dim * w), None, consts.live_u32,
+                send.reshape(n_peers, k_dim * w), None, live_u32,
                 offsets=net.band_off, revs=net.band_rev, c=w, score_enabled=False)
             return torch.where(gate[:, :, None], wire.reshape(n_peers, k_dim, w), 0)
         return torch.where(gate[:, :, None], net.edge_gather(send), 0)
 
     def _phase(st: GossipSubState, pub_origin, pub_topic, pub_valid,
                do_heartbeat: bool) -> GossipSubState:
-        net_l, nbr_sub_l, flood_from_l, nbr_sub_words_l = live_step_views(net, consts)
+        net_l, nbr_sub_l, flood_from_l, nbr_sub_words_l, live_u32 = live_step_views(
+            cfg, net, st, consts)
         core = st.core
         tick0 = core.tick
         m = core.msgs.capacity
@@ -259,14 +263,14 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
 
         # ---- control head (once a phase) --------------------------------
         acc_ok, acc_msg = accept_gates(cfg, net_l, st, consts, gater_params, tick0)
-        (graft_in_raw, prune_in_raw, ihave_in_raw, nbr_score_of_me,
-         window_g) = control_exchange_coalesced(cfg, net_l, st)
-        st2, prune_resp, n_graft, n_prune = handle_graft_prune(
-            cfg, net_l, st, tp, acc_ok, graft_in_raw, prune_in_raw)
+        (graft_in_raw, prune_in_raw, ihave_in_raw, px_in_raw, nbr_score_of_me,
+         window_g) = control_exchange_coalesced(cfg, net_l, st, live_u32)
+        st2, prune_resp, px_resp, px_ok, n_graft, n_prune = handle_graft_prune(
+            cfg, net_l, st, tp, acc_ok, graft_in_raw, prune_in_raw, px_in_raw)
         events = core.events
         if cfg.count_events:
             events = add_event(add_event(events, EV.GRAFT, n_graft), EV.PRUNE, n_prune)
-        edge_live_next = px_connect(cfg, st)
+        edge_live_next = px_connect(cfg, net, net_l, st, px_ok)
         st2, iwant_resp = iwant_responses(cfg, net_l, st2, nbr_score_of_me,
                                           window_g=window_g)
         st2 = handle_ihave(cfg, net_l, st2, joined_msg_words(net_l, core.msgs), acc_ok,
@@ -307,6 +311,11 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             n_validated = torch.zeros((n_peers,), dtype=torch.int32, device=dev)
             n_throttled = torch.zeros((n_peers,), dtype=torch.int32, device=dev)
         accs = _AccStack(specs, n_peers, w, dev)
+        # the exact-trace duplicate plane, beside the stack: recycled slots do
+        # not clear it, since a dup bit names the message its slot held at
+        # the arrival (slots outlive a phase under the admission cap)
+        dupt = (torch.zeros((n_peers, k_dim, w), dtype=torch.int32, device=dev)
+                if cfg.trace_exact else None)
         # fanout: the slots' topics, peers and last publishes move at every
         # sub-round's publishes
         fanout_st = st2
@@ -349,7 +358,7 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             if adv_self is not None:
                 # no-forward peers run control but never transmit data
                 send = torch.where(adv_self[:, None, None], 0, send)
-            trans = cross_data(send, recv_gate)
+            trans = cross_data(send, recv_gate, live_u32)
             trans = trans & (joined_w & ~origin_w)[:, None, :]
 
             pre_have = dlv.have if cfg.gater_enabled else None
@@ -358,6 +367,9 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                 # the head's IWANT responses ride the first sub-round
                 dlv, info = merge_extra_tx(net_l, msgs, dlv, info, iwant_resp, tick_i,
                                            **opts)
+            if dupt is not None:
+                # before the throttle, as in the per-round step
+                dupt = dupt | (info.trans & ~(dlv.fe_words & info.recv_new_words[:, None, :]))
             valid_w_i = plan.valid_words[i]
             if cfg.validation_capacity > 0:
                 dlv, info, _accepted, n_thr = apply_validation_throttle(
@@ -470,13 +482,14 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             promise_mid=promise_mid,
             graft_out=torch.zeros_like(st2.graft_out),
             prune_out=prune_resp,
-            prune_px_out=torch.zeros_like(prune_resp),
+            prune_px_out=px_resp,
             edge_live=edge_live_next,
             score=score,
             gater=gater,
             fanout_topic=fanout_st.fanout_topic,
             fanout_peers=fanout_st.fanout_peers,
             fanout_lastpub=fanout_st.fanout_lastpub,
+            dup_trans=dupt,
         )
         # the head's state rode the loop for its fanout planes only: let its
         # other planes go before the heartbeat
@@ -490,7 +503,8 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             st2 = replace(st2, congested_in=sat_recv)
         if do_heartbeat:
             st2 = heartbeat(cfg, net_l, st2, tp, consts.scalars, nbr_sub_l, gater_params,
-                            nbr_sub_words_l, consts.mesh_capable, gossip_suppress)
+                            nbr_sub_words_l, consts.mesh_capable, gossip_suppress,
+                            present_ok=net.nbr_ok)
         return replace(st2, core=replace(st2.core, tick=tick0 + r))
 
     if net.edge_layout == "csr":

@@ -2,12 +2,13 @@
 
     python -m go_libp2p_pubsub_tpu_torch.perf.profile [--n 100000]
         [--engine gossipsub|floodsub] [--config default|eth2|sybil]
-        [--layout dense|csr]
+        [--layout dense|csr] [--px]
         [--rounds-per-phase 1] [--warm 16] [--rounds 16] [--window]
         [--out PATH]
 
 Builds a bench GossipSub config (``--config``, the default one unless
-given; its publish schedule with the config's topics and honest origins) —
+given; its publish schedule with the config's topics and honest origins;
+``--px`` its PX cell, ``sweep.build_bench(px=True)``) —
 banded dense, or with
 ``--layout csr`` the bench's CSR variant (CSR-resident, ``fused=True``);
 the per-round step, or with ``--rounds-per-phase`` r > 1 the phase engine
@@ -69,12 +70,12 @@ def _union_us(intervals) -> float:
 
 def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
                    layout: str = "dense", rounds_per_phase: int = 1,
-                   window: bool = False, config: str = "default") -> dict:
+                   window: bool = False, config: str = "default", px: bool = False) -> dict:
     r = int(rounds_per_phase)
     if engine == "gossipsub":
         st, step, n_topics, honest = sweep.build_bench(
             n, 64, config=config, edge_layout=layout, fused=layout == "csr",
-            rounds_per_phase=r, device="cuda")
+            rounds_per_phase=r, device="cuda", px=px)
     else:
         if r > 1:
             raise ValueError("the phase engine is GossipSub's")
@@ -176,6 +177,7 @@ def main(argv=None) -> int:
     ap.add_argument("--engine", choices=("gossipsub", "floodsub"), default="gossipsub")
     ap.add_argument("--config", choices=sweep.CONFIGS, default="default")
     ap.add_argument("--layout", choices=("dense", "csr"), default="dense")
+    ap.add_argument("--px", action="store_true", help="the config's PX cell")
     ap.add_argument("--rounds-per-phase", type=int, default=1)
     ap.add_argument("--warm", type=int, default=16)
     ap.add_argument("--rounds", type=int, default=16)
@@ -190,7 +192,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     rep = profile_rounds(args.n, args.warm, args.rounds, args.engine, args.layout,
-                         args.rounds_per_phase, window=args.window, config=args.config)
+                         args.rounds_per_phase, window=args.window, config=args.config,
+                         px=args.px)
     rep["card"] = card
     print(card)
     print(f"{rep['engine']} {rep['layout']} r={rep['rounds_per_phase']} N={rep['n_peers']} over {rep['rounds']} rounds: untraced "

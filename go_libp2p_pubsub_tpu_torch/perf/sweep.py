@@ -62,6 +62,10 @@ CONFIGS = ("default", "eth2", "sybil")
 #: the sybil config's share of no-forward peers
 SYBIL_FRACTION = 0.2
 
+#: the PX cell's share of dormant lattice edges (``graph.dormant_edges``,
+#: seed 5)
+PX_DORMANT = 0.3
+
 
 def _check_config(config: str) -> None:
     if config not in CONFIGS:
@@ -105,7 +109,8 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                 config: str = "default", count_events: bool = False,
                 edge_layout: str = "dense", fused: bool = False,
                 rounds_per_phase: int = 1, heartbeat_every: int | None = None,
-                device=None, queue_cap: int = 0, validation_delay_rounds: int = 0):
+                device=None, queue_cap: int = 0, validation_delay_rounds: int = 0,
+                px: bool = False):
     """Build (state, step, n_topics, honest) for a bench config, tracer
     detached (no event counters unless ``count_events``):
 
@@ -126,7 +131,12 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     per-round step (a heartbeat every round by default; every
     ``heartbeat_every`` rounds with a required ``do_heartbeat`` otherwise).
     ``queue_cap`` and ``validation_delay_rounds`` turn on the delivery
-    core's options (no config has them on)."""
+    core's options (no config has them on). ``px`` builds the PX cell:
+    peer exchange over the lattice with ``PX_DORMANT`` of its edges
+    dormant, AcceptPXThreshold 0 (the config's own default: at the
+    thresholds' 10 a pruner, out of the pruned peer's mesh, never scores
+    high enough on the bench lattice, and no edge activates), the
+    exact-trace duplicate plane and the int16 IHAVE counters."""
     _check_config(config)
     dev = resolve_device(device)
     tp = graphlib.ring_lattice(n_peers, d=8)
@@ -137,7 +147,7 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     else:
         subs = graphlib.subscribe_all(n_peers, 1)
     net = Net.build(tp, subs, edge_layout=edge_layout, fused=fused, device=dev)
-    params = dataclasses.replace(GossipSubParams(), flood_publish=False)
+    params = dataclasses.replace(GossipSubParams(), flood_publish=False, do_px=px)
     _tp, sp = bench_score_params(config, n_topics)
     gater = PeerGaterParams() if config == "sybil" else None
     adversary = None
@@ -145,15 +155,21 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
         adversary = np.random.default_rng(seed).random(n_peers) < SYBIL_FRACTION
     r = int(rounds_per_phase)
     he = (r if r > 1 else 1) if heartbeat_every is None else int(heartbeat_every)
-    cfg = GossipSubConfig.build(params, PeerScoreThresholds(), score_enabled=True,
+    thresholds = PeerScoreThresholds()
+    if px:
+        thresholds = dataclasses.replace(thresholds, accept_px_threshold=0.0)
+    cfg = GossipSubConfig.build(params, thresholds, score_enabled=True,
                                 heartbeat_every=he, gater_params=gater,
                                 validation_capacity=8 if config == "sybil" else 0,
                                 queue_cap=queue_cap,
                                 validation_delay_rounds=validation_delay_rounds,
-                                edge_layout=edge_layout, fused=fused)
+                                edge_layout=edge_layout, fused=fused,
+                                trace_exact=px, narrow_counters=px)
     cfg = dataclasses.replace(cfg, count_events=count_events,
                               fanout_slots=cfg.fanout_slots if config == "eth2" else 0)
-    st = GossipSubState.init(net, msg_slots, cfg, score_params=sp, seed=seed)
+    st = GossipSubState.init(
+        net, msg_slots, cfg, score_params=sp, seed=seed,
+        dormant=graphlib.dormant_edges(tp, PX_DORMANT, seed=5) if px else None)
     if r > 1:
         step = make_gossipsub_phase_step(cfg, net, r, score_params=sp, gater_params=gater,
                                          adversary_no_forward=adversary)

@@ -213,12 +213,14 @@ def _mul_add(a: torch.Tensor, w: torch.Tensor, w_uniform, c: torch.Tensor) -> to
 
 def scalar_tail_start(k_dim: int, n_slots: int) -> int:
     """The first neighbour column XLA:CPU's fused score loop leaves to its
-    scalar loop (``k_dim`` when none), with one topic slot: the columns
-    past the last whole 8-column chunk of a row of K >= 9 columns, except
-    that rows of 20 to 23 columns take columns 16-19 in a 4-wide vector
-    chunk. Mapped on random counters for every K from 9 to 41 at N = 64, 96
-    and 256: the form depends on K and the column alone (ROADMAP §3)."""
-    if n_slots != 1 or k_dim < 9 or k_dim % 8 == 0:
+    scalar loop (``k_dim`` when none): the columns past the last whole
+    8-column chunk of a row of K >= 9 columns, except that rows of 20 to 23
+    columns take columns 16-19 in a 4-wide vector chunk; with several
+    topic slots only rows of K > 16 have such columns. Mapped on random
+    counters for every K from 9 to 41 at N = 64, 96 and 256 with one topic
+    slot, and at N = 64 with two and three: the form depends on K, the
+    column and whether there are several slots alone (ROADMAP §3)."""
+    if k_dim < 9 or k_dim % 8 == 0 or (n_slots != 1 and k_dim < 16):
         return k_dim
     return 20 if 20 <= k_dim <= 23 else k_dim // 8 * 8
 
@@ -235,6 +237,20 @@ def _fuse_square(acc: torch.Tensor, x: torch.Tensor, tail: int) -> torch.Tensor:
     return torch.cat([fused[..., :tail], fl(acc[sl] - fl(x[sl] * x[sl]))], dim=-1)
 
 
+def _guarded_mul_add(x: torch.Tensor, w, w_uniform, acc: torch.Tensor,
+                     tail: int) -> torch.Tensor:
+    """``acc + x * w`` for a select-guarded product ``x`` (zero where its
+    guard is off) at a weight other than -1: fused in XLA:CPU's vector
+    chunks, the product rounded apart in the scalar loop's columns from
+    ``tail`` on."""
+    fused = _mul_add(x, w, w_uniform, acc)
+    if tail >= x.shape[-1]:
+        return fused
+    sl = (..., slice(tail, None))
+    w_t = w if w_uniform is None else w_uniform
+    return torch.cat([fused[..., :tail], fl(acc[sl] + fl(x[sl] * w_t))], dim=-1)
+
+
 def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
                    sc: ScoreScalars, p6: torch.Tensor,
                    app_score: torch.Tensor, net: Net) -> torch.Tensor:
@@ -248,9 +264,11 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
     each topic slot's weighted term into the slot sum, P5, P6 and P7. Where
     both operands of an add are products (one topic slot, no cap, P5 off:
     the slot's weighted term meets P6's product) the compiler fuses the
-    first, the slot's term, and rounds the other. With one topic slot the
-    columns its scalar loop takes (``scalar_tail_start``) round the
-    select-guarded squares at -1 (P3, P7) apart."""
+    first, the slot's term, and rounds the other (in a row of 9 neighbour
+    slots its one scalar column fuses P6's product instead). The columns
+    its scalar loop takes (``scalar_tail_start``) round the select-guarded
+    products of P3 and P7 apart: the square at a weight of -1, the
+    weighted square at any other."""
     e = lambda a: a[..., None]
     u = tp["uniform"]
     tail = scalar_tail_start(in_mesh.shape[-1], in_mesh.shape[1])
@@ -264,7 +282,7 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
         topic = torch.where(p3_on, _fuse_square(topic, deficit, tail), topic)
     else:
         p3 = torch.where(p3_on, fl(deficit * deficit), 0.0)
-        topic = _mul_add(p3, e(tp["w3"]), u["w3"], topic)
+        topic = _guarded_mul_add(p3, e(tp["w3"]), u["w3"], topic, tail)
     topic = _mul_add(st.mfp, e(tp["w3b"]), u["w3b"], topic)
     # at -1 XLA:CPU fuses P4's square past one topic slot; with one slot it
     # rounds the square apart in rows of 5 to 8 neighbour slots and fuses
@@ -289,13 +307,19 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
 
     def add_term(score, x, w):
         """score + x * w for P5 and P6: the product fused, unless the score
-        is still the bare slot term, which is fused in its stead."""
+        is still the bare slot term, which is fused in its stead (but in
+        the scalar column of a row of 9)."""
         if not bare:
             return _mul_add(x, w, w, score)
         if w == 0.0:
             return fl(score + fl(x * w))
         w_t = tw[:, 0] if tw_u is None else tw_u
-        return fl(fma_f32(topic[:, 0], w_t, fl(x * w)))
+        out = fl(fma_f32(topic[:, 0], w_t, fl(x * w)))
+        if k_dim == 9:
+            # a row of 9: its one scalar column fuses the product into
+            # the rounded slot term instead
+            out = torch.cat([out[:, :8], fl(fma_f32(x[:, 8:], w, score[:, 8:]))], dim=-1)
+        return out
 
     if sc.app_on:
         app_w = sc.app_specific_weight
@@ -310,7 +334,8 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
         score = torch.where(excess > 0, _fuse_square(score, excess, tail), score)
     else:
         p7 = torch.where(excess > 0, fl(excess * excess), 0.0)
-        score = fl(fma_f32(p7, sc.behaviour_penalty_weight, score))
+        w7 = sc.behaviour_penalty_weight
+        score = _guarded_mul_add(p7, w7, w7, score, tail)
     return torch.where(net.nbr_ok, score, 0.0)
 
 

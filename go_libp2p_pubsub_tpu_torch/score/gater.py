@@ -61,22 +61,30 @@ class GaterState:
 
 def source_share(net):
     """The per-source share of the outcome counters (peer_gater.go:261-278:
-    stats keyed by source IP) as a function ``share(x [N,K]) -> [N,K]``:
-    ``einsum("nkj,nj->nk", same, x)`` with ``same[n, k, j]`` = neighbours k
-    and j share an ip-group, both edges live. The topology is static, so
-    the plane is built once, with the step; when no two live neighbours of
-    any peer share a group (unique IPs, as in the bench) it is the identity
-    on live edges and the share is ``x`` there, exactly (a sum of ``x`` and
-    zeros) — a choice made once, on the host, at build."""
+    stats keyed by source IP) as a function ``share(x [N,K], live=None) ->
+    [N,K]``: ``einsum("nkj,nj->nk", same, x)`` with ``same[n, k, j]`` =
+    neighbours k and j share an ip-group, both edges live — ``nbr_ok``, or
+    the round's ``live`` view ([N, K] bool inside ``nbr_ok``) where edge
+    liveness moves. The groups are static, so the plane is built once, with
+    the step; when no two present neighbours of any peer share a group
+    (unique IPs, as in the bench) it is the identity on live edges and the
+    share is ``x`` there, exactly (a sum of ``x`` and zeros) — a choice
+    made once, on the host, at build."""
     groups = net.peer_gather(net.ip_group)
     same = ((groups[:, :, None] == groups[:, None, :])
             & net.nbr_ok[:, None, :] & net.nbr_ok[:, :, None])
     k = same.shape[-1]
     eye = torch.eye(k, dtype=torch.bool, device=same.device)
+    ok = net.nbr_ok
     if bool(torch.equal(same, eye & net.nbr_ok[:, :, None])):
-        ok = net.nbr_ok
-        return lambda x: torch.where(ok, x, 0.0)
-    return lambda x: share(same, x)
+        return lambda x, live=None: torch.where(ok if live is None else live, x, 0.0)
+
+    def shared(x, live=None):
+        if live is None:
+            return share(same, x)
+        return share(same & live[:, None, :] & live[:, :, None], x)
+
+    return shared
 
 
 def share(same: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -127,10 +135,10 @@ def gater_decay(gs: GaterState, params) -> GaterState:
 
 
 def gater_accept(gs: GaterState, share_fn, params, quiet_ticks: int, tick,
-                 key: torch.Tensor) -> torch.Tensor:
+                 key: torch.Tensor, live=None) -> torch.Tensor:
     """[N,K] bool: True = AcceptAll, False = AcceptControl (drop messages)
     for this round (peer_gater.go:320-363). ``share_fn`` is the net's
-    ``source_share``."""
+    ``source_share``; ``live`` the round's live edges where they move."""
     # circuit breaker off: quiet period elapsed, no throttle pressure, or
     # ratio below threshold
     calm = (tick - gs.last_throttle) > quiet_ticks
@@ -138,11 +146,11 @@ def gater_accept(gs: GaterState, share_fn, params, quiet_ticks: int, tick,
     ratio = flush_subnormals(gs.throttle / gs.validate.clamp(min=1e-9))
     calm = calm | ((gs.validate != 0.0) & (ratio < flush_f32(params.threshold)))
 
-    deliver = share_fn(gs.deliver)
+    deliver = share_fn(gs.deliver, live)
     total = deliver
     for w, x in ((params.duplicate_weight, gs.duplicate),
                  (params.ignore_weight, gs.ignore), (params.reject_weight, gs.reject)):
-        total = flush_subnormals(fma_f32(share_fn(x), flush_f32(w), total))
+        total = flush_subnormals(fma_f32(share_fn(x, live), flush_f32(w), total))
     p = flush_subnormals((1.0 + deliver) / (1.0 + total))
     u = prng.uniform(key, p.shape)
     accept = (u < p) | (total == 0.0)

@@ -528,3 +528,12 @@ def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
         pending=pending_c,
     )
     return msgs, dlv, slots, is_pub, keep, pub_words
+
+
+def hops(msgs: MsgTable, dlv: Delivery) -> torch.Tensor:
+    """[N, M] int32 propagation hop count per (peer, msg): 0 at the origin,
+    k for a peer first reached k rounds after the publish, -1 where never
+    received. A message published at round r reaches its 1-hop neighbours
+    in round r + 1."""
+    h = dlv.first_round - msgs.birth[None, :]
+    return torch.where((dlv.first_round >= 0) & (msgs.birth >= 0)[None, :], h, -1)

@@ -89,8 +89,8 @@ def test_edge_exchange_plain_equals_pallas(band, score_enabled):
 def test_edge_exchange_plain_equals_pallas_on_hazard_bands(band, c):
     """The hazard bands (tests/torch_parity.hazard_bands, K <= 16: N=17
     under the staged window, N not a multiple of the block, a circulant
-    with steps 333 and 500 = N/2) at C = 1, 2, 3, 4 and 6 words a slot, with
-    dead edges and scores holding -0.0, subnormals of both signs and NaN:
+    with steps 333 and 500 = N/2) at C = 1 to 7 words a slot (the PX widths
+    5 and 7 with a symmetric live mask), with dead edges and scores holding -0.0, subnormals of both signs and NaN:
     the exchange copies every score bit, a subnormal as it is, as the
     Pallas kernel does in interpret mode."""
     n, off, rev = band["n"], band["offsets"], band["revs"]

@@ -146,8 +146,13 @@ def test_unported_options_raise():
     import dataclasses
 
     _jcfg, _jnet, _jsp, tcfg, tnet, tsp = bench_builds(n=N, d=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake(dataclasses.replace(tcfg, do_px=True), tnet, score_params=tsp)
+    # PX builds and steps (its parity with the JAX step is
+    # tests/test_torch_px.py)
+    px_cfg = dataclasses.replace(tcfg, do_px=True)
+    st = tmake(px_cfg, tnet, score_params=tsp)(
+        TState.init(tnet, 64, px_cfg, score_params=tsp), torch.tensor([3, -1], dtype=torch.int32),
+        torch.zeros(2, dtype=torch.int32), torch.ones(2, dtype=torch.bool))
+    assert int(st.core.tick) == 1 and torch.equal(st.edge_live, tnet.nbr_ok)
     for kw in ({"dynamic_peers": True}, {"telemetry": object()}, {"adversary": object()},
                {"lift_scores": True}, {"sub_knowledge_holes": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -169,8 +169,9 @@ def test_edge_exchange_kernel_equals_plain(cuda, band, score_enabled):
 @pytest.mark.parametrize("band", FUSED_BANDS, ids=[b["name"] for b in FUSED_BANDS])
 @pytest.mark.parametrize("c", HAZARD_C)
 def test_edge_exchange_kernel_on_hazard_bands(cuda, band, c):
-    """The hazard bands at C = 1, 2, 3, 4 and 6 words a slot (the 4-, 8- and
-    16-byte word forms), dead edges, scores holding -0.0, subnormals of
+    """The hazard bands at C = 1 to 7 words a slot (the 4-, 8- and 16-byte
+    word forms; the PX widths 5 and 7 with a symmetric live mask), dead
+    edges, scores holding -0.0, subnormals of
     both signs and NaN (copied bit for bit), scores on and off, and from
     wire planes one word into their storage (not 8- or 16-byte aligned:
     the 4-byte form)."""
@@ -490,10 +491,13 @@ def _one_step(cuda, engine):
     kind, _, config = engine.partition("-")
     if kind in ("phase", "per"):
         config = config.replace("round", "").lstrip("-") or "default"
+        opts = {}
+        if config == "px":
+            config, opts = "default", dict(px=True)
         n_topics = sweep.bench_topics(config)
         r = 8 if kind == "phase" else 1
         st, step, _t, honest = sweep.build_bench(n, 64, config=config, rounds_per_phase=r,
-                                                 device=cuda)
+                                                 device=cuda, **opts)
     else:
         n_topics, honest = 1, None
     po, pt, pv = (torch.as_tensor(a, device=cuda)
@@ -512,6 +516,7 @@ def _one_step(cuda, engine):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine", ["phase", "per-round", "floodsub", "floodsub-csr",
+                                    "phase-px", "per-round-px",
                                     "phase-eth2", "phase-sybil", "per-round-eth2",
                                     "per-round-sybil"])
 def test_step_makes_no_host_sync(cuda, engine):
@@ -789,3 +794,45 @@ def test_options_leave_the_delivery_kernels(cuda, engine):
     for path in out[0]:
         assert np.array_equal(np.atleast_1d(out[0][path]).view(np.uint8),
                               np.atleast_1d(out[1][path]).view(np.uint8)), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["per-round", "phase"])
+def test_px_steps_on_the_card_equal_the_cpu(cuda, engine):
+    """The PX cell (``sweep.build_bench(px=True)``: 30% dormant edges, the
+    exact-trace plane, the int16 counters) on the banded lattice: the card
+    equals the CPU every leaf after every round or phase, some edges
+    activate, and the kernels read the live view: a PX round launches one
+    edge_exchange (C = 5) and one fused_delivery, a phase 1 + r
+    edge_exchange (C = 7 at its head)."""
+    from go_libp2p_pubsub_tpu_torch import convert, driver
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n, r = 1024, (8 if engine == "phase" else 1)
+    po, pt, pv = sweep.publish_schedule(48, n, 1, None, seed=3)
+    sides = {}
+    for dev in ("cpu", cuda):
+        st, step, _t, _h = sweep.build_bench(n, 64, count_events=True, rounds_per_phase=r,
+                                             device=dev, px=True)
+        if r > 1:
+            st = driver.form_mesh(step, st, rounds_per_phase=r)
+        sides[dev] = [st, step]
+    live0 = int(sides["cpu"][0].edge_live.sum())
+    for i in range(0, 48, r):
+        sl = slice(i, i + r)
+        fr.reset_launch_counts()
+        for dev, (st, step) in sides.items():
+            if r > 1:
+                sides[dev][0] = sweep.run_phases(st, step, po[sl], pt[sl], pv[sl],
+                                                 rounds_per_phase=r, heartbeat_every=r)
+            else:
+                sides[dev][0] = sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl])
+        want = {"edge_exchange": 1 + r if r > 1 else 1, "fused_delivery": 0 if r > 1 else 1}
+        assert fr.LAUNCHES == want, (i, fr.LAUNCHES)
+        a, b = (convert.state_leaves(sides[d][0]) for d in ("cpu", cuda))
+        for path in a:
+            assert np.array_equal(np.atleast_1d(a[path]).view(np.uint8),
+                                  np.atleast_1d(b[path]).view(np.uint8)), (i, path)
+    st = sides[cuda][0]
+    assert int(st.edge_live.sum()) > live0 and st.peerhave.dtype == torch.int16
+    assert st.dup_trans is not None

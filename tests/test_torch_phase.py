@@ -171,16 +171,24 @@ def test_refused_options_raise():
     _jcfg, _jnet, _jsp, tcfg, tnet, tsp = bench_builds(n=N, d=4)
     build = lambda cfg, **kw: tphase.make_gossipsub_phase_step(cfg, tnet, 8,
                                                                score_params=tsp, **kw)
-    for field, value in (("do_px", True), ("wire_coalesced", False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(dataclasses.replace(tcfg, **{field: value}))
-        if field != "wire_coalesced":   # the per-round step refuses them too
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                make_gossipsub_step(dataclasses.replace(tcfg, **{field: value}), tnet,
-                                    score_params=tsp)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build(dataclasses.replace(tcfg, wire_coalesced=False))
+    # PX, edge liveness, the exact-trace plane and the int16 counters build
+    # and step in both engines (tests/test_torch_px.py, _trace_exact.py,
+    # _narrow.py hold them to the JAX package)
+    for field in ("do_px", "edge_liveness", "trace_exact", "narrow_counters"):
+        cfg = dataclasses.replace(tcfg, **{field: True})
+        st0 = TState.init(tnet, 64, cfg, score_params=tsp)
+        po, pt, pv = (torch.from_numpy(a[:8]) for a in phase_schedule(N, 16))
+        st = build(cfg)(st0, po, pt, pv, do_heartbeat=True)
+        assert int(st.core.tick) == 8
+        st = make_gossipsub_step(cfg, tnet, score_params=tsp)(st0, po[0], pt[0], pv[0])
+        assert int(st.core.tick) == 1
+        assert (st.dup_trans is not None) == (field == "trace_exact")
+        assert (st.iasked.dtype == torch.int16) == (field == "narrow_counters")
     # the JAX config's fields that no ported step runs are not fields of the
     # port's config: setting one is an error before any step is built
-    for field in ("chaos", "trace_exact", "router"):
+    for field in ("chaos", "router"):
         with pytest.raises(TypeError):
             dataclasses.replace(tcfg, **{field: 1})
     # the queue cap and the validation pipeline are (tests/test_torch_valdelay.py)

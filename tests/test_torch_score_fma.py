@@ -315,3 +315,98 @@ def test_step_with_p4_at_minus_one_on_a_residue_width_equals_reference():
                                      invalid_message_deliveries_weight=-1.0))
     st = rounds_against_reference(builds, 24, codes=True, schedule=verdict_schedule(24))
     assert float(st.score.imd.max()) > 0 and float(st.scores.min()) < 0
+
+
+#: multi-slot nets at residue widths: (dials, seed) of random_connect(96),
+#: the topic universe and the topics a peer; K = 18, 17 and 16
+MULTI_SLOT_NETS = [((5, 0), 4, 2), ((6, 1), 8, 2), ((5, 3), 3, 3)]
+
+
+class PenaltyLog:
+    """An ``observe`` callback: the largest P3 deficit (the mesh-delivery
+    shortfall of an activated edge of the mesh the round started from) and
+    P7 excess (the behaviour penalty past its threshold) over a run."""
+
+    def __init__(self, threshold3: float, threshold7: float):
+        self.t3, self.t7 = threshold3, threshold7
+        self.deficit = self.excess = 0.0
+        self.mesh = None
+
+    def __call__(self, st):
+        sc = st.score
+        if self.mesh is not None:
+            live = sc.mmd_active & self.mesh & (sc.mmd < self.t3)
+            self.deficit = max(self.deficit,
+                               float(torch.where(live, self.t3 - sc.mmd, 0.0).max()))
+        self.mesh = st.mesh
+        self.excess = max(self.excess, float((sc.bp - self.t7).clamp(min=0).max()))
+
+
+@pytest.mark.parametrize("dials_seed,n_topics,per_peer", MULTI_SLOT_NETS,
+                         ids=[f"K{k}" for k in (18, 17, 16)])
+def test_multi_slot_step_with_p3_and_p7_live_equals_reference(dials_seed, n_topics, per_peer):
+    """Several topic slots at residue widths with P3 and P7 at -1, both
+    penalties live: a mesh-delivery threshold (4) the deliveries miss,
+    activated after 2 ticks, and a P7 threshold of 0 that the broken
+    promises of 20% no-forward peers pass. Every leaf equal after every one
+    of 24 rounds, a fifth of the publishes rejected and a fifth ignored;
+    P3's deficit and P7's excess nonzero at some round. Before the scalar
+    loop's columns took their form with several slots
+    (``score/engine.scalar_tail_start``) a last-bit score difference at
+    K = 18, column 16, split the run from the reference at round 8."""
+    from test_torch_sybil import verdict_schedule
+    from torch_parity import bench_builds, rounds_against_reference
+
+    n = 96
+    dials, seed = dials_seed
+    topologies = (jgraph.random_connect(n, d=dials, seed=seed),
+                  tgraph.random_connect(n, d=dials, seed=seed))
+    subs = jgraph.subscribe_random(n, n_topics, per_peer, seed=2)
+    builds = bench_builds(n=n, topologies=topologies, config="sybil", subscriptions=subs,
+                          adversary=np.random.default_rng(0).random(n) < 0.2,
+                          topic=dict(mesh_message_deliveries_weight=-1.0,
+                                     mesh_message_deliveries_threshold=4.0,
+                                     mesh_message_deliveries_activation=2.0,
+                                     invalid_message_deliveries_weight=-1.0),
+                          peer=dict(behaviour_penalty_weight=-1.0,
+                                    behaviour_penalty_threshold=0.0))
+    assert builds[4].n_slots == per_peer
+    log = PenaltyLog(4.0, 0.0)
+    po, pt, pv = verdict_schedule(24)
+    my_topics = builds[4].my_topics.numpy()
+    pt = my_topics[po.clip(0), 0].astype(np.int32)
+    rounds_against_reference(builds, 24, codes=True, schedule=(po, pt, pv), observe=log)
+    assert log.deficit > 0 and log.excess > 0, (log.deficit, log.excess)
+
+
+#: the select-guarded products of P3 and P7 at weights other than -1, both
+#: squares at -1, P6's product and every term, on one to three slots
+GUARDED_CELLS = {
+    "p3_at_minus_0.7": (dict(_ZERO_TOPIC, mesh_message_deliveries_weight=-0.7, topic_weight=0.3),
+                        dict(_PEER, behaviour_penalty_weight=0.0)),
+    "p7_at_minus_0.7": (dict(_ZERO_TOPIC, topic_weight=0.3),
+                        dict(_PEER, behaviour_penalty_weight=-0.7)),
+    "p3_p7_at_minus_one": (dict(_ZERO_TOPIC, mesh_message_deliveries_weight=-1.0,
+                                topic_weight=0.3), _PEER),
+    "p6": (dict(_ZERO_TOPIC, topic_weight=0.3),
+           dict(_PEER, behaviour_penalty_weight=0.0, ip_colocation_factor_weight=-0.4)),
+    "every_term": (_ALL, dict(_PEER, ip_colocation_factor_weight=-0.4,
+                              behaviour_penalty_weight=-0.8)),
+}
+
+
+@pytest.mark.parametrize("k", [9, 12, 18, 21, 41])
+@pytest.mark.parametrize("slots", [1, 2, 3])
+@pytest.mark.parametrize("name", sorted(GUARDED_CELLS))
+def test_scalar_columns_round_as_the_reference(name, slots, k):
+    """The columns XLA:CPU's scalar loop takes (``scalar_tail_start``:
+    past the last whole 8-column chunk, 16-19 fused in rows of 20-23, none
+    below K = 16 with several slots) round the select-guarded products of
+    P3 and P7 apart, the squares at -1 and the weighted squares at any
+    other weight; in a row of 9 with one slot the scalar column fuses
+    P6's product into the rounded slot term. Bit-exact on every column
+    (the map: every K from 9 to 41 not a multiple of 8, one to three
+    slots, ROADMAP §3)."""
+    topic, peer = GUARDED_CELLS[name]
+    got, want, _ = _scores((topic, peer, slots, {}), k, n=64, d=k / 2 if k % 2 else k // 2)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

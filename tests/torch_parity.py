@@ -32,9 +32,15 @@ HAZARD_BAND_M = HAZARD_M + (300,)
 
 #: the words a slot of the edge_exchange hazard tests: one word, the phase
 #: engine's data words (W = 2: one 8-byte vector), an odd count (4-byte
-#: words), one 16-byte vector and the phase engine's control head at W = 2
-#: (three 8-byte vectors)
-HAZARD_C = (1, 2, 3, 4, 6)
+#: words), one 16-byte vector, the phase engine's control head at W = 2
+#: (three 8-byte vectors), and the PX widths at W = 2 (``PX_C``)
+HAZARD_C = (1, 2, 3, 4, 5, 6, 7)
+
+#: the control widths with the px lane at one topic and W = 2: the
+#: per-round step's graft | prune | ihave | px (5) and the phase head's
+#: graft | prune | ihave | px | window (7), odd (4-byte words); their
+#: hazard live masks are symmetric over the involution, as PX's are
+PX_C = (5, 7)
 
 #: score parameters under which the GossipSub step makes float32
 #: subnormals (tests/test_torch_subnormal.py, chip_smoke.py): overrides of
@@ -231,16 +237,22 @@ def _u32(rng, *shape):
 def hazard_exchange_args(seed: int, band: dict, c: int) -> list:
     """edge_exchange's array arguments on ``band`` (numpy, in the wrapper's
     order: wire_pack [N, K*C], scores [N, K], live [N, K]), C words a
-    slot: random words, a fifth of the edges dead, and scores that hold
-    -0.0, subnormals of both signs (which the exchange copies bit for bit)
-    and NaN."""
+    slot: random words, a fifth of the edges dead (at the ``PX_C`` widths
+    an edge dead at either end, so the mask is symmetric over the
+    involution), and scores that hold -0.0, subnormals of both signs (which
+    the exchange copies bit for bit) and NaN."""
     rng = np.random.default_rng(seed)
     n, k = band["n"], len(band["offsets"])
     score = rng.normal(0.0, 20.0, size=(n, k)).astype(np.float32)
     pick = rng.integers(0, 10, size=(n, k))
     for i, v in enumerate((-0.0, 1e-45, -1e-45, 1e-40, -1e-39, np.nan)):
         score[pick == i] = v
-    return [_u32(rng, n, k * c), score, (rng.random((n, k)) < 0.8).astype(np.uint32)]
+    wire = _u32(rng, n, k * c)
+    live = rng.random((n, k)) < 0.8
+    if c in PX_C:
+        sender = (np.arange(n)[:, None] + np.asarray(band["offsets"])[None, :]) % n
+        live = live & live[sender, np.asarray(band["revs"])[None, :]]
+    return [wire, score, live.astype(np.uint32)]
 
 
 def hazard_fused_args(seed: int, band: dict, m: int) -> list:
@@ -344,7 +356,7 @@ def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None,
 
 def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None, observe=None,
-                             **kw):
+                             dormant=None, **kw):
     """Run the JAX package's phase step and the port's (on the CPU) over
     ``rounds`` rounds of ``phase_schedule`` in phases of ``r`` from the same
     state, heartbeats as ``heartbeat_schedule(he, r)`` flags them, every
@@ -353,7 +365,8 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
     ``fanout_topics`` sends half the publishes to any topic of the universe
     (``phase_schedule``'s ``n_topics``); ``schedule`` replaces the schedule
     with (po, pt, pv); ``observe(state)`` sees the port's state after every
-    phase. ``kw`` goes to both packages' make_gossipsub_phase_step, beside
+    phase; ``dormant`` marks the [N, K] dormant edges of both initial
+    states. ``kw`` goes to both packages' make_gossipsub_phase_step, beside
     the builds' own step options. Returns the port's final state."""
     import jax.numpy as jnp
     import torch
@@ -367,7 +380,7 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
 
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
     # a fresh JAX state: the JAX step donates its buffers
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0)
+    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     diff_leaves(reference_leaves(jst), convert.state_leaves(tst), "init")
     jkw, tkw = step_options(builds)
@@ -407,7 +420,8 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
                  thresholds=None, ip_group=None, subscriptions=None,
                  config="default", fanout_slots=0, fanout_ttl=None, gater=None,
                  validation_capacity=0, adversary=None, queue_cap=0,
-                 validation_delay_rounds=0, validation_delay_topic=None):
+                 validation_delay_rounds=0, validation_delay_topic=None,
+                 params=None, options=None, direct=None):
     """(jax_cfg, jax_net, sp, torch_cfg, torch_net, torch_sp) for the
     bench's params on ring_lattice(n, d), or on ``topologies``, a
     (JAX Topology, port Topology) pair of the same graph, in
@@ -422,8 +436,12 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     of PeerGaterParams overrides, {} for the defaults) turns the peer gater
     on; ``validation_capacity`` the throttle; ``adversary`` ([N] bool) the
     no-forward vector; ``queue_cap``, ``validation_delay_rounds`` and
-    ``validation_delay_topic`` the delivery core's options. The step
-    options ride the result (``step_options``)."""
+    ``validation_delay_topic`` the delivery core's options. ``params``
+    overrides GossipSubParams fields (``do_px``, ``direct_connect_ticks``,
+    the degrees), ``options`` config fields after the build
+    (``edge_liveness``, ``trace_exact``, ``narrow_counters``), and
+    ``direct`` is the nets' [N, K] direct edges. The step options ride the
+    result (``step_options``)."""
     from go_libp2p_pubsub_tpu import config as jconfig
     from go_libp2p_pubsub_tpu import graph as jgraph
     from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubConfig as JCfg
@@ -451,25 +469,28 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     n_topics = subscriptions.subscribed.shape[1]
     tsubs = tgraph.Subscriptions(*(np.asarray(getattr(subscriptions, f)) for f in (
         "subscribed", "my_topics", "slot_of")))
-    params = {"flood_publish": False}
+    params = {"flood_publish": False, **(params or {})}
     if fanout_ttl is not None:
         params["fanout_ttl"] = fanout_ttl
     jgp = None if gater is None else jconfig.PeerGaterParams(**gater)
     tgp = None if gater is None else tconfig.PeerGaterParams(**gater)
-    jnet = JNet.build(topologies[0], subscriptions, ip_group=ip_group, **layout)
+    jnet = JNet.build(topologies[0], subscriptions, ip_group=ip_group, direct=direct,
+                      **layout)
     jcfg = JCfg.build(dataclasses.replace(jconfig.GossipSubParams(), **params),
                       jconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, gater_params=jgp,
                       validation_capacity=validation_capacity, **layout, **core)
-    jcfg = dataclasses.replace(jcfg, count_events=count_events, fanout_slots=fanout_slots)
+    jcfg = dataclasses.replace(jcfg, count_events=count_events, fanout_slots=fanout_slots,
+                               **(options or {}))
     jsp = score(jbsp(config, n_topics)[1])
-    tnet = TNet.build(topologies[1], tsubs, ip_group=ip_group,
+    tnet = TNet.build(topologies[1], tsubs, ip_group=ip_group, direct=direct,
                       device="cpu", **layout)
     tcfg = TCfg.build(dataclasses.replace(tconfig.GossipSubParams(), **params),
                       tconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, gater_params=tgp,
                       validation_capacity=validation_capacity, **layout, **core)
-    tcfg = dataclasses.replace(tcfg, count_events=count_events, fanout_slots=fanout_slots)
+    tcfg = dataclasses.replace(tcfg, count_events=count_events, fanout_slots=fanout_slots,
+                               **(options or {}))
     tsp = score(tbsp(config, n_topics)[1])
     out = Builds((jcfg, jnet, jsp, tcfg, tnet, tsp))
     out.jkw, out.tkw = {}, {}
@@ -483,7 +504,7 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
 
 def rounds_against_reference(builds, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None,
-                             static_heartbeat: bool = False, observe=None):
+                             static_heartbeat: bool = False, observe=None, dormant=None):
     """The per-round counterpart of ``phases_against_reference``: both
     packages' per-round steps from the same state over ``rounds`` rounds,
     every leaf compared bit for bit after every round. Returns the port's
@@ -498,7 +519,7 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
     from go_libp2p_pubsub_tpu_torch.models.gossipsub import make_gossipsub_step
 
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0)
+    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     jkw, tkw = step_options(builds)
     jstep = jmake(jcfg, jnet, score_params=jsp, static_heartbeat=static_heartbeat, **jkw)
