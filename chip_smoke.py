@@ -25,9 +25,11 @@ last line is printed:
    also on the hazard bands (tests/torch_parity.hazard_bands: rings with K
    = 2, 6, 16, N=17 under the staged window, a circulant with steps past
    the halo): edge_exchange at C = 1 to 7 (5 and 7, the PX widths, under
-   a symmetric live mask) with scores holding -0.0,
+   a symmetric live mask, and every C under a churn round's mask: whole
+   peers dead, rows and columns) with scores holding -0.0,
    subnormals and NaN, fused_delivery at W = 1, 2, 3, 10 under every
-   retrans_cap, with the cohort planes and scores on and off; times of the
+   retrans_cap, with the cohort planes and scores on and off, and F_LIVE
+   with whole peers dead; times of the
    kernel, the plain version and (edge_exchange) the one-call library
    gather, beside the bytes bound;
 4. GossipSub at full width — the bench's default config at N=100k,
@@ -156,7 +158,31 @@ last line is printed:
    delivered pairs;
 28. the PX cell card against CPU at N=8192 in both engines, every leaf
    after every round or phase, and each window against its eager loop;
-29. the kernel launches of a traced GossipSub bench round
+29. churn on the kernel route at N=100k: the bench default config with
+   dynamic_peers (sweep.churn_up: 20,000 peers, default_rng(0).choice,
+   down in rounds 16-47 and up from 48 of an 80-round run): from every
+   count at 0 a churn round launches 1 edge_exchange (C = 4) and 1
+   fused_delivery, a churn phase 1 + r edge_exchange (C = 6, 2); those
+   calls, taken inside the kill window, whose live words and F_LIVE flags
+   have 20,000 whole rows dead, against their plain versions bit for bit,
+   timed beside their bounds; then both engines eager (events counted) and
+   through driver.make_scan(..., up): rates over rounds 16-79, peak memory,
+   mesh edges before the kill, after round 47 and at the end,
+   EV.REMOVE_PEER and EV.ADD_PEER (20,000 each), the delivery ratio of the
+   messages of rounds 56-71;
+30. the mutating overlay at N=100k: the default config with dynamic_peers
+   and dynamic_topo on powerlaw(100k, 2.2, d_min=2, max_degree=60) padded
+   to K = 64, built dynamic, dense and full-capacity CSR (E = 6.4M), under
+   churn_storm(n_dispatches=64, kill_frac=0.2, rewires=8, joins=2,
+   join_links=2): the storm's compile seconds, batch width and hash; from
+   every count at 0 no edge_exchange, fused_delivery or delivery kernel
+   and 8 select_topk a heartbeat; rounds/s eager and through
+   driver.make_window; peak memory; the overlay equal to the storm's host
+   mirror;
+31. card against CPU at N=8192, every leaf after every round or phase: the
+   churn cell in both engines and the overlay (its own power-law net,
+   dense and CSR); each window against its eager loop on the card;
+32. the kernel launches of a traced GossipSub bench round
    (perf/profile.py), with those of the score path's subnormal flush
    (hardshrink, copysign) apart (2,287.75 a bench round and 466.25 a
    phase-bench delivery round, or the script fails: the options off
@@ -552,10 +578,12 @@ def check_band_hazards(name: str, dev) -> float:
         FUSED_CONFIGS,
         HAZARD_BAND_M,
         HAZARD_C,
+        dead_peers_live,
         hazard_banded_args,
         hazard_bands,
         hazard_exchange_args,
         hazard_fused_args,
+        with_dead_peers,
     )
 
     from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
@@ -572,16 +600,18 @@ def check_band_hazards(name: str, dev) -> float:
                 continue
             for c in HAZARD_C:
                 a = [t(x) for x in hazard_exchange_args(band["n"] + c, band, c)]
-                for score in (True, False):
+                # and a churn round's mask: whole peers dead, rows and columns
+                dead = [a[0], a[1], t(dead_peers_live(band["n"], band))]
+                for args, score in ((a, True), (a, False), (dead, True)):
                     kw = dict(offsets=band["offsets"], revs=band["revs"], c=c,
                               score_enabled=score)
-                    ref, got = fr.edge_exchange_plain(*a, **kw), fr.edge_exchange(*a, **kw)
+                    ref, got = fr.edge_exchange_plain(*args, **kw), fr.edge_exchange(*args, **kw)
                     torch.cuda.synchronize()
                     err = max(err, max_abs_err(ref, got))
                     cases += 1
         say(f"kernel edge_exchange: hazard bands ({cases} calls: rings with K = 2-16, N=17, "
             f"a circulant past the halo; C in {list(HAZARD_C)}, scores with -0.0, "
-            f"subnormals and NaN) exact (max_abs_err {err})")
+            f"subnormals and NaN; whole peers dead) exact (max_abs_err {err})")
         return err
     for band in hazard_bands():
         k = len(band["offsets"])
@@ -593,12 +623,17 @@ def check_band_hazards(name: str, dev) -> float:
                               [t(a) for a in hazard_banded_args(m, band, m)], static, ()))
             elif k <= fr.MAX_K:
                 for i, (score, cohorts, cap) in enumerate(FUSED_CONFIGS):
-                    a = [t(x) for x in hazard_fused_args(m + i, band, m)]
-                    if not score:
-                        a[4] = None
-                    calls.append((fr.fused_delivery_plain, fr.fused_delivery, a,
-                                  dict(static, score_enabled=score, want_cohorts=cohorts,
-                                       retrans_cap=cap), (-10.0, -50.0)))
+                    for dead in (False, True):
+                        raw = hazard_fused_args(m + i, band, m)
+                        if dead:
+                            # a churn round's F_LIVE: whole peers dead
+                            raw[8] = with_dead_peers(band["n"], band, raw[8])
+                        a = [t(x) for x in raw]
+                        if not score:
+                            a[4] = None
+                        calls.append((fr.fused_delivery_plain, fr.fused_delivery, a,
+                                      dict(static, score_enabled=score, want_cohorts=cohorts,
+                                           retrans_cap=cap), (-10.0, -50.0)))
                 # the score gates at thresholds of 0.0 and -0.0, which the
                 # hazard scores' subnormals of both signs pass as zeros
                 calls.append((fr.fused_delivery_plain, fr.fused_delivery,
@@ -1019,10 +1054,10 @@ def px_gates(sweep, driver, dev, counters) -> dict:
     return out
 
 
-def check_px_delivery(fr, call, gen, base) -> dict:
-    """fused_delivery on the PX round's call (F_LIVE from the live view),
-    captured and on random words under the same flags: bit for bit against
-    its plain version; its times beside the bound."""
+def check_px_delivery(fr, call, gen, base, label: str = "PX") -> dict:
+    """fused_delivery on the PX (or churn) round's call (F_LIVE from the
+    live view), captured and on random words under the same flags: bit for
+    bit against its plain version; its times beside the bound."""
     import torch
 
     args, kw = call
@@ -1044,11 +1079,370 @@ def check_px_delivery(fr, call, gen, base) -> dict:
            "plain_ms": batch_ms(lambda: fr.fused_delivery_plain(*args, **kw)),
            **bound(io, 40 * n * k * w), "library_ms": None}
     del launch
-    say(f"kernel fused_delivery PX round: N={n} K={k} W={w} exact (max_abs_err {err}, "
+    say(f"kernel fused_delivery {label} round: N={n} K={k} W={w} exact (max_abs_err {err}, "
         f"captured and random words under the live flags) kernel_ms={rec['ms']:.6f}"
         f"{baseline_note(rec)} plain_ms={rec['plain_ms']:.6f} bound_ms={rec['bound_ms']:.6f} "
         f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of bound)")
     return rec
+
+
+CHURN_RECORD_ROUND = 20         # a churn round inside the kill window (16-47)
+
+
+def churn_gates(sweep, driver, dev, counters) -> dict:
+    """Phase 29's launch gates at N=100k under churn (``sweep.churn_up``: a
+    fifth of the peers down in rounds 16-47): from every count at 0 the
+    per-round step runs rounds 0-19 and a recorded round 20, 1
+    edge_exchange (C = 4) and 1 fused_delivery a round; the phase engine
+    form_mesh, two phases and a recorded third (rounds 16-23), 1 + r
+    edge_exchange a phase (head C = 6, data C = 2). The recorded calls'
+    live words and F_LIVE flags must have whole peers dead: rows and their
+    mirrored columns. Returns {"calls": {tag: (args, kw)}, "delivery":
+    (args, kw), "launches": {...}, "dead_rows": n}."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
+
+    r = PHASE_R
+    up = sweep.churn_up(N_FULL)
+    down = int((~up[CHURN_RECORD_ROUND]).sum())
+    po, pt, pv = sweep.publish_schedule(3 * r, N_FULL, 1, None, seed=7)
+    out = {"calls": {}, "launches": {}}
+    for engine, rr in (("per-round", 1), ("phase", r)):
+        st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, rounds_per_phase=rr, device=dev,
+                                             dynamic_peers=True)
+        for mod in counters:
+            mod.reset_launch_counts()
+        if rr > 1:
+            st = driver.form_mesh(step, st, rounds_per_phase=rr, up=torch.ones(N_FULL, dtype=bool))
+            run = lambda st, sl: sweep.run_phases(st, step, po[sl], pt[sl], pv[sl],
+                                                  rounds_per_phase=rr, heartbeat_every=rr,
+                                                  up=up[sl])
+            n_disp, pre, last = 4, slice(0, 2 * rr), slice(2 * rr, 3 * rr)
+            want = {"edge_exchange": n_disp * (1 + rr), "fused_delivery": 0}
+        else:
+            run = lambda st, sl: sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl], up[sl])
+            n_disp = CHURN_RECORD_ROUND + 1
+            pre, last = slice(0, CHURN_RECORD_ROUND), slice(CHURN_RECORD_ROUND, n_disp)
+            want = {"edge_exchange": n_disp, "fused_delivery": n_disp}
+        st = run(st, pre)
+        st, got = record_calls(lambda: run(st, last),
+                               [(fr, "edge_exchange"), (fr, "fused_delivery")])
+        launched = counts(counters)
+        want.update(delivery_banded=0, csr_delivery=0, select_topk=launched["select_topk"])
+        if launched != want or launched["select_topk"] == 0:
+            raise AssertionError(f"churn {engine} launches {launched} in {n_disp} dispatches, "
+                                 f"expected {want}")
+        out["launches"][engine] = dict(launched, dispatches=n_disp)
+        for args, kw in got[(fr, "edge_exchange")]:
+            out["calls"].setdefault(f"C={kw['c']}", (args, kw))
+        if rr == 1:
+            out["delivery"] = got[(fr, "fused_delivery")][0]
+        del st, step, got
+    for tag, (args, kw) in out["calls"].items():
+        dead_rows = int((args[2] == 0).all(1).sum())
+        if dead_rows != down:
+            raise AssertionError(f"churn edge_exchange {tag}: {dead_rows} dead rows in its live "
+                                 f"words, {down} peers down")
+    flags = out["delivery"][0][8]
+    dead = ((flags >> fr.F_LIVE) & 1) == 0
+    if int(dead.all(1).sum()) != down:
+        raise AssertionError(f"churn fused_delivery: {int(dead.all(1).sum())} rows without "
+                             f"F_LIVE, {down} peers down")
+    if sorted(out["calls"]) != ["C=2", "C=4", "C=6"]:
+        raise AssertionError(f"churn edge_exchange widths {sorted(out['calls'])}")
+    out["dead_rows"] = down
+    return out
+
+
+def churn_observe(st, tick0: int) -> dict:
+    """The churn cell's delivery ratio: of the messages published in rounds
+    56-71 (the run publishes nothing in rounds 72-79, so their slots
+    survive), the share of (peer, message) pairs delivered by round 80,
+    every peer up by then (on the ring lattice a message reaches about 16
+    peers more a round, so the share is small at N=100k and is held against
+    the same schedule run without churn)."""
+    import torch
+
+    born = st.core.msgs.birth - tick0
+    cols = (born >= 56) & (born <= 71) & (st.core.msgs.origin >= 0)
+    got = (st.core.dlv.first_round[:, cols] >= 0)
+    return {"ratio_56_71": float(got.to(torch.float64).mean()), "messages": int(cols.sum())}
+
+
+def churn_runs(sweep, driver, dev, card, counters) -> dict:
+    """Phase 29's runs at N=100k: both engines (the phase engine at r=8
+    after form_mesh) over the 80-round churn schedule with the bench's
+    publishes (none in rounds 72-79), eager with the event counters on and
+    through driver.make_scan without them (a window first captures its
+    32-round block on an untimed call, so no capture lands in the timing),
+    each also without churn (every peer up) as its reference: rounds 16-79
+    timed; mesh edges before the kill, after round 47 and at the end;
+    EV.REMOVE_PEER and EV.ADD_PEER (20,000 each, eager); the delivery ratio
+    of the messages of rounds 56-71, which must be the run without churn's
+    within 5%; peak memory."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.trace.events import EV
+
+    up = sweep.churn_up(N_FULL)
+    rounds = up.shape[0]
+    po, pt, pv = sweep.publish_schedule(rounds, N_FULL, 1, None, seed=11)
+    po[72:] = -1
+    victims = int((~up[16]).sum())
+    out = {}
+    for engine, rr in (("per-round", 1), ("phase", PHASE_R)):
+        for mode in ("eager", "eager, no churn", "window", "window, no churn"):
+            rows = np.ones_like(up) if mode.endswith("no churn") else up
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            eager_mode = mode.startswith("eager")
+            st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, rounds_per_phase=rr,
+                                                 device=dev, dynamic_peers=True,
+                                                 count_events=eager_mode)
+            if rr > 1:
+                st = driver.form_mesh(step, st, rounds_per_phase=rr,
+                                      up=torch.ones(N_FULL, dtype=bool))
+            tick0 = int(st.core.tick)
+            if eager_mode:
+                if rr > 1:
+                    run = lambda st, sl: sweep.run_phases(st, step, po[sl], pt[sl], pv[sl],
+                                                          rounds_per_phase=rr,
+                                                          heartbeat_every=rr, up=rows[sl])
+                else:
+                    run = lambda st, sl: sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl],
+                                                          rows[sl])
+            else:
+                scan = (driver.make_scan(step, heartbeat_every=rr, rounds_per_phase=rr, unroll=2)
+                        if rr > 1 else driver.make_scan(step, static_heartbeat=False, unroll=4))
+                run = lambda st, sl: scan(st, po[sl], pt[sl], pv[sl], rows[sl])
+                for mod in counters:
+                    mod.reset_launch_counts()
+                # capture the block at the widest call's row capacity on an
+                # untimed call from the same state (which the window copies
+                # into its buffers and leaves as it is)
+                run(st, slice(16, 48))
+            st = run(st, slice(0, 16))
+            mesh = [int(st.mesh.sum())]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = run(st, slice(16, 48))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            mesh.append(int(st.mesh.sum()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = run(st, slice(48, rounds))
+            torch.cuda.synchronize()
+            dt += time.perf_counter() - t0
+            rec = {"rate": (rounds - 16) / dt, "peak": torch.cuda.max_memory_allocated(),
+                   "mesh_edges": mesh + [int(st.mesh.sum())],
+                   **churn_observe(st, tick0)}
+            if mode == "eager":
+                rec["remove_peer"] = int(st.core.events[EV.REMOVE_PEER])
+                rec["add_peer"] = int(st.core.events[EV.ADD_PEER])
+                if rec["remove_peer"] != victims or rec["add_peer"] != victims:
+                    raise AssertionError(f"churn {engine}: REMOVE_PEER {rec['remove_peer']}, "
+                                         f"ADD_PEER {rec['add_peer']}, {victims} victims")
+            elif not eager_mode:
+                win = scan.window
+                rec.update(capture_seconds=win.capture_seconds, replays=win.replays,
+                           block_launches={k: v for k, v in win.block_launches.items() if v},
+                           block_dispatches=win.block_dispatches)
+                del scan, win
+            if rec["messages"] != 64:
+                raise AssertionError(f"churn {engine} {mode}: {rec['messages']} messages of "
+                                     "rounds 56-71")
+            if not mode.endswith("no churn") and not rec["mesh_edges"][1] < rec["mesh_edges"][0]:
+                raise AssertionError(f"churn {engine} {mode}: mesh edges {rec['mesh_edges']}")
+            unit = "delivery-rounds/s" if rr > 1 else "rounds/s"
+            say(f"churn {engine} {mode} N={N_FULL}: {rec['rate']:.3f} {unit} over rounds "
+                f"16-79, peak memory {rec['peak']} bytes, "
+                + ", ".join(f"{k} {v}" for k, v in rec.items() if k not in ("rate", "peak"))
+                + f", on {card}")
+            out[f"{engine} {mode}"] = rec
+            del st, step
+        # the churned runs deliver the messages of rounds 56-71 as the run
+        # without churn does (the victims have re-meshed by round 56)
+        for mode in ("eager", "window"):
+            ref = out[f"{engine} {mode}, no churn"]["ratio_56_71"]
+            got = out[f"{engine} {mode}"]["ratio_56_71"]
+            if got < 0.95 * ref:
+                raise AssertionError(f"churn {engine} {mode}: delivery ratio {got} of rounds "
+                                     f"56-71 against {ref} without churn")
+    return out
+
+
+OVERLAY_DISPATCHES = 64          # phase 30's storm: 64 rounds, a dispatch a round
+
+
+def overlay_runs(sweep, driver, dev, card, counters) -> dict:
+    """Phase 30: the mutating overlay at N=100k (``sweep.build_overlay``:
+    powerlaw(100k, 2.2, d_min=2, max_degree=60) padded to K = 64, built
+    dynamic, dense and full-capacity CSR, E = 6.4M) under one churn_storm
+    of 64 dispatches: the storm's compile seconds, batch width and hash;
+    from every count at 0 an eager run launches no edge_exchange,
+    fused_delivery, delivery_banded or csr_delivery and 8 select_topk a
+    heartbeat; rounds/s eager (64 rounds) and through driver.make_window
+    (32 rounds, after a first call of 32 that captures); peak memory; the
+    storm's kills, joins and rewires; the device overlay equal to the
+    storm's host mirror at the end."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.topo.dynamics import PAD_SLOT
+
+    storm, out = None, {}
+    for layout in ("dense", "csr"):
+        for mode in ("eager", "window"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            st, step, storm, secs = sweep.build_overlay(N_FULL, M_SLOTS, OVERLAY_DISPATCHES,
+                                                        edge_layout=layout, device=dev,
+                                                        storm=storm)
+            if "storm" not in out:
+                writes, up = storm.build()
+                out["storm"] = {"seconds": secs, "batch": int(writes.shape[1]),
+                                "hash": storm.schedule_hash(), "kills": storm.n_kills,
+                                "joins": storm.n_joins, "rewires": storm.n_rewires,
+                                "write_rows": int((writes[:, :, 0] != PAD_SLOT).sum())}
+                say(f"overlay storm N={N_FULL}: compiled in {secs:.3f} s on the host, "
+                    + json.dumps(out["storm"]) + f", the run on {card}")
+            d = OVERLAY_DISPATCHES
+            po, pt, pv = sweep.publish_schedule(d, N_FULL, 1, None, seed=13)
+            xs = [torch.as_tensor(a, device=dev) for a in (po, pt, pv, up, writes)]
+            for mod in counters:
+                mod.reset_launch_counts()
+            if mode == "eager":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in range(d):
+                    st = step(st, *(a[t] for a in xs))
+                torch.cuda.synchronize()
+                rate = d / (time.perf_counter() - t0)
+                launched = counts(counters)
+                want = {"edge_exchange": 0, "fused_delivery": 0, "delivery_banded": 0,
+                        "csr_delivery": 0, "select_topk": SELECTIONS_PER_HEARTBEAT * d}
+                if launched != want:
+                    raise AssertionError(f"overlay {layout} launches {launched} in {d} rounds, "
+                                         f"expected {want}")
+                rec = {"rate": rate, "launches": launched}
+            else:
+                win = driver.make_window(step, unroll=4)
+                half = d // 2
+                st, _ = win(st, [a[:half] for a in xs])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, _ = win(st, [a[half:] for a in xs])
+                torch.cuda.synchronize()
+                rate = half / (time.perf_counter() - t0)
+                rec = {"rate": rate, "capture_seconds": win.capture_seconds,
+                       "replays": win.replays,
+                       "block_launches": {k: v for k, v in win.block_launches.items() if v}}
+                del win
+            if not torch.equal(st.core.topo.nbr.cpu(), torch.from_numpy(storm.nbr)):
+                raise AssertionError(f"overlay {layout} {mode}: the device overlay differs "
+                                     "from the storm's host mirror")
+            rec.update(peak=torch.cuda.max_memory_allocated(), mesh_edges=int(st.mesh.sum()),
+                       n_edges=N_FULL * 64 if layout == "csr" else None)
+            say(f"overlay {layout} {mode} N={N_FULL}: {rec['rate']:.3f} rounds/s, "
+                + ", ".join(f"{k} {v}" for k, v in rec.items() if k != "rate")
+                + f", on {card}")
+            out[f"{layout} {mode}"] = rec
+            del st, step
+    return out
+
+
+def dynamic_parity(sweep, driver, convert, dev) -> None:
+    """Phase 31: card against CPU at N=8192, every leaf after every round or
+    phase: the churn cell in both engines (the per-round step 32 rounds, a
+    fifth down in rounds 8-19; the phase engine form_mesh and 4 phases,
+    down for phases 1-2) and the mutating overlay dense and CSR (its own
+    power-law net at N=8192, a storm of 12 dispatches); then each window
+    (make_scan with the liveness rows; make_window with the rows and the
+    write batches) against its eager loop on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    n, r = N_PARITY, PHASE_R
+    up = sweep.churn_up(n, rounds=4 * r, down_at=8, up_at=20)
+    po, pt, pv = sweep.publish_schedule(4 * r, n, 1, None, seed=5)
+    for engine, rr in (("per-round", 1), ("phase", r)):
+        sides = {}
+        for d in ("cuda", "cpu"):
+            st, step, _t, _h = sweep.build_bench(n, M_SLOTS, rounds_per_phase=rr, device=d,
+                                                 count_events=True, dynamic_peers=True)
+            if rr > 1:
+                st = driver.form_mesh(step, st, rounds_per_phase=rr,
+                                      up=torch.ones(n, dtype=bool))
+            sides[d] = [st, step]
+        for i in range(4 * r // rr):
+            sl = slice(i * rr, (i + 1) * rr)
+            for d, (st, step) in sides.items():
+                sides[d][0] = (sweep.run_phases(st, step, po[sl], pt[sl], pv[sl],
+                                                rounds_per_phase=rr, heartbeat_every=rr,
+                                                up=up[sl]) if rr > 1
+                               else sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl], up[sl]))
+            leaves_equal(convert.state_leaves(sides["cpu"][0]),
+                         convert.state_leaves(sides["cuda"][0]),
+                         f"churn {engine} card against CPU, dispatch {i}")
+        say(f"churn {engine} card == CPU: every leaf equal after each of {4 * r // rr} "
+            f"dispatches at N={n} (a fifth of the peers down and back)")
+        leaves = []
+        for mode in ("eager", "window"):
+            st, step, _t, _h = sweep.build_bench(n, M_SLOTS, rounds_per_phase=rr, device=dev,
+                                                 count_events=True, dynamic_peers=True)
+            if rr > 1:
+                st = driver.form_mesh(step, st, rounds_per_phase=rr,
+                                      up=torch.ones(n, dtype=bool))
+            if mode == "eager":
+                st = (sweep.run_phases(st, step, po, pt, pv, rounds_per_phase=rr,
+                                       heartbeat_every=rr, up=up) if rr > 1
+                      else sweep.run_rounds(st, step, po, pt, pv, up))
+            else:
+                scan = (driver.make_scan(step, heartbeat_every=rr, rounds_per_phase=rr, unroll=2)
+                        if rr > 1 else driver.make_scan(step, static_heartbeat=False, unroll=4))
+                half = 2 * r
+                st = scan(st, po[:half], pt[:half], pv[:half], up[:half])
+                st = scan(st, po[half:], pt[half:], pv[half:], up[half:])
+                torch.cuda.synchronize()
+            leaves.append(convert.state_leaves(st))
+            del st, step
+        leaves_equal(leaves[0], leaves[1], f"churn {engine} window against eager")
+        say(f"churn {engine} window N={n}: equal to the eager loop leaf for leaf in two calls")
+    storm = None
+    d_disp = 12
+    for layout in ("dense", "csr"):
+        sides = {}
+        for d in ("cuda", "cpu"):
+            st, step, storm, _s = sweep.build_overlay(n, M_SLOTS, d_disp, edge_layout=layout,
+                                                      device=d, count_events=True, storm=storm)
+            sides[d] = [st, step]
+        writes, upw = storm.build()
+        po2, pt2, pv2 = sweep.publish_schedule(d_disp, n, 1, None, seed=9)
+        for t in range(d_disp):
+            for d, (st, step) in sides.items():
+                sides[d][0] = sweep.run_rounds(st, step, po2[t:t + 1], pt2[t:t + 1],
+                                               pv2[t:t + 1], upw[t:t + 1], writes[t:t + 1])
+            leaves_equal(convert.state_leaves(sides["cpu"][0]),
+                         convert.state_leaves(sides["cuda"][0]),
+                         f"overlay {layout} card against CPU, round {t}")
+        eager = sides["cuda"][0]
+        del sides
+        st, step, _st, _s = sweep.build_overlay(n, M_SLOTS, d_disp, edge_layout=layout,
+                                                device=dev, count_events=True, storm=storm)
+        win = driver.make_window(step, unroll=2)
+        xs = [torch.as_tensor(a, device=dev) for a in (po2, pt2, pv2, upw, writes)]
+        st, _ = win(st, [a[:d_disp // 2] for a in xs])
+        st, _ = win(st, [a[d_disp // 2:] for a in xs])
+        leaves_equal(convert.state_leaves(eager), convert.state_leaves(st),
+                     f"overlay {layout} window against eager")
+        say(f"overlay {layout} card == CPU: every leaf equal after each of {d_disp} rounds at "
+            f"N={n} (B={writes.shape[1]}); the window equal to the eager loop in two calls")
+        del st, step, eager, win
+    say(f"dynamic parity phases: {time.perf_counter() - t0:.1f} s")
 
 
 def bench_launches(card: str) -> dict:
@@ -2387,7 +2781,30 @@ def main() -> int:
     config_parity(sweep, driver, convert, "default", dev, label="default PX",
                   px=True)
 
-    # 29. launches of a bench round, a phase-bench phase and a windowed
+    # 29. churn on the kernel route at N=100k: launch gates, the kill
+    # window's kernel calls against their plain versions, both engines
+    # eager and windowed
+    cg = churn_gates(sweep, driver, dev, counters)
+    churn_ex = check_phase_exchange(fr, cg["calls"], gen, base, label="churn")
+    churn_del = check_px_delivery(fr, cg["delivery"], gen, base, label="churn")
+    records[0]["churn"] = {**churn_ex, "launches": cg["launches"]}
+    records[1]["churn"] = {**churn_del, "launches": cg["launches"]}
+    churn = churn_runs(sweep, driver, dev, card, counters)
+    say("churn cell: " + json.dumps({"card": card, "dead_rows": cg["dead_rows"],
+                                     "launches": cg["launches"], "runs": churn}))
+
+    # 30. the mutating overlay at N=100k, dense and full-capacity CSR
+    overlay = overlay_runs(sweep, driver, dev, card, counters)
+    for rec in records:
+        if rec["name"] == "select_topk":
+            rec["overlay_launches"] = {k: v["launches"]["select_topk"]
+                                       for k, v in overlay.items() if "launches" in v}
+    say("overlay cell: " + json.dumps({"card": card, **overlay}))
+
+    # 31. card against CPU at N=8192 and windows against eager, both cells
+    dynamic_parity(sweep, driver, convert, dev)
+
+    # 32. launches of a bench round, a phase-bench phase and a windowed
     # phase, traced; then the configs' rounds and phases
     bench_launches(card)
     config_traced_launches(card)

@@ -4,7 +4,9 @@ or the router-agnostic ``SimState`` FloodSub steps, dense or CSR-resident
 are flat ``[E, W]`` and ``peerhave``/``iasked`` ``[E]``), with or without
 the async-validation pipeline (``.dlv.pending``) and the exact-trace
 duplicate plane (``.dup_trans``), each a leaf only when the state has one,
-on both sides. Narrowed int16 counters keep their dtype both ways.
+on both sides, and the mutable overlay of a dynamic-topology state
+(``.core.topo``, ``TopoState``) likewise. Narrowed int16 counters keep
+their dtype both ways.
 
 Leaves are keyed by their STATE_SCHEMA.json path (``.core.dlv.have``,
 ``.score.bp``, ... for GossipSub; ``.dlv.have``, ``.msgs.origin``, ... for a
@@ -23,7 +25,7 @@ import torch
 from .models.gossipsub import GossipSubState
 from .score.engine import ScoreState
 from .score.gater import GaterState
-from .state import Delivery, MsgTable, SimState, resolve_device
+from .state import Delivery, MsgTable, SimState, TopoState, resolve_device
 
 #: packed 32-bit word planes (uint32 in the JAX package, int32 here)
 _SIM_WORDS = (".dlv.have", ".dlv.fwd", ".dlv.fe_words", ".dlv.pending")
@@ -35,8 +37,10 @@ KEY_LEAVES = frozenset({".key", ".core.key"})
 #: leaves a state may lack (None): the pipeline's stages and the
 #: exact-trace duplicate plane
 OPTIONAL_LEAVES = frozenset({".dlv.pending", ".core.dlv.pending", ".dup_trans"})
+#: nested states a state may lack (None): the mutable overlay
+OPTIONAL_NESTED = frozenset({".topo", ".core.topo"})
 
-_SIM_NESTED = {"": SimState, ".msgs": MsgTable, ".dlv": Delivery}
+_SIM_NESTED = {"": SimState, ".msgs": MsgTable, ".dlv": Delivery, ".topo": TopoState}
 _NESTED = {
     "": GossipSubState,
     **{".core" + p: cls for p, cls in _SIM_NESTED.items()},
@@ -57,8 +61,8 @@ def _to_tensor(path: str, a, device) -> torch.Tensor:
 def state_from_reference(leaves: dict, device=None):
     """A port state from the JAX state's leaves: a ``GossipSubState`` when
     they are a GossipSub state's (``.core.*`` paths), else a ``SimState``.
-    Every field must be present but an ``OPTIONAL_LEAVES`` one, which is
-    None when absent."""
+    Every field must be present but an ``OPTIONAL_LEAVES`` or
+    ``OPTIONAL_NESTED`` one, which is None when absent."""
     dev = resolve_device(device)
     nested = _NESTED if any(p.startswith(".core.") for p in leaves) else _SIM_NESTED
 
@@ -67,7 +71,9 @@ def state_from_reference(leaves: dict, device=None):
         kw = {}
         for f in dataclasses.fields(cls):
             p = f"{prefix}.{f.name}"
-            if p in nested:
+            if p in OPTIONAL_NESTED and not any(q.startswith(p + ".") for q in leaves):
+                kw[f.name] = None
+            elif p in nested:
                 kw[f.name] = build(p)
             elif p in OPTIONAL_LEAVES and p not in leaves:
                 kw[f.name] = None

@@ -27,7 +27,6 @@ import torch
 #: options of the JAX package's windows the port refuses, and where they land
 CHECK_UNPORTED = "the folded invariant checker (oracle/) — ROADMAP §1 item 5"
 CONSTS_UNPORTED = "the lifted score plane (lift_scores) — ROADMAP §1 item 3"
-UP_UNPORTED = "dynamic peers (the liveness schedule) — ROADMAP §1 item 3"
 
 
 def heartbeat_schedule(heartbeat_every: int, rounds_per_phase: int) -> list[bool]:
@@ -42,18 +41,20 @@ def heartbeat_schedule(heartbeat_every: int, rounds_per_phase: int) -> list[bool
     return [any((p * r + i) % he == 0 for i in range(r)) for p in range(period)]
 
 
-def form_mesh(step, st, *, rounds_per_phase: int, pub_width: int = 4):
+def form_mesh(step, st, *, rounds_per_phase: int, pub_width: int = 4, up=None):
     """One publish-free phase with ``do_heartbeat=True``: its tail heartbeat
     selects every peer's mesh (Join's immediate mesh, gossipsub.go:1015-1064)
     and the next phase's control head ingests the GRAFTs before any data
     sub-round, so the first phase a caller publishes into sees a formed
-    mesh. Advances the tick by ``rounds_per_phase``."""
+    mesh. Advances the tick by ``rounds_per_phase``. ``up`` is the [N]
+    liveness row of a ``dynamic_peers`` step."""
     r = int(rounds_per_phase)
     dev = st.core.tick.device
     po = torch.full((r, pub_width), -1, dtype=torch.int32, device=dev)
     pt = torch.zeros((r, pub_width), dtype=torch.int32, device=dev)
     pv = torch.zeros((r, pub_width), dtype=torch.bool, device=dev)
-    return step(st, po, pt, pv, do_heartbeat=True)
+    args = (po, pt, pv) if up is None else (po, pt, pv, torch.as_tensor(up, device=dev))
+    return step(st, *args, do_heartbeat=True)
 
 
 def min_cycle(flags) -> list[bool]:
@@ -323,9 +324,14 @@ def make_window(step, *, heartbeat=None, check=None, check_every: int = 1, obser
     * Every tensor leaf of the state is a static buffer of the capture: the
       validation pipeline's stages (``dlv.pending``), the queue cap's
       ``congested_in``, PX's ``edge_live`` and ``prune_px_out``, the
-      exact-trace ``dup_trans`` and the int16 counters too; a None leaf (a
-      state without a pipeline or the trace plane) stays None. ``step`` may be any engine's: a GossipSub or phase step, or a
-      FloodSub or RandomSub round (``perf/sweep``'s runs).
+      exact-trace ``dup_trans``, the int16 counters, dynamic peers' ``up``
+      and ``blacklist`` and the mutable overlay ``core.topo`` too; a None
+      leaf (a state without a pipeline, the trace plane or the overlay)
+      stays None. A ``dynamic_peers`` step's liveness rows ``[D, N]`` and a
+      ``dynamic_topo`` step's write batches ``[D, B, 4]`` are ordinary
+      ``xs`` after the publish arrays. ``step`` may be any engine's: a
+      GossipSub or phase step, or a FloodSub or RandomSub round
+      (``perf/sweep``'s runs).
 
     ``check`` (the folded invariant checker) and ``consts`` (the lifted
     score plane) raise ``NotImplementedError``."""
@@ -349,6 +355,11 @@ def make_scan(step, *, heartbeat_every: int = 1, rounds_per_phase: int = 1,
       into R // r phases of ``[r, P]``, each heartbeating iff its tick window
       holds a heartbeat tick.
 
+    A ``dynamic_peers`` step takes the liveness schedule as ``run(st, po,
+    pt, pv, up)``, ``up`` an ``[R, N]`` bool plane; a phase consumes the
+    first row of its r rows (the transitions land once a phase, at its
+    head).
+
     The state's tick at entry must be 0 mod lcm(he, r), and R a multiple of
     it. A thin adapter over ``make_window``; ``run.window`` is the window
     (its replay and capture counts on the card)."""
@@ -365,8 +376,6 @@ def make_scan(step, *, heartbeat_every: int = 1, rounds_per_phase: int = 1,
     win = make_window(step, heartbeat=sched, unroll=unroll, donate=donate)
 
     def run(st, po, pt, pv, up=None, consts=()):
-        if up is not None:
-            raise NotImplementedError(f"not ported yet: {UP_UNPORTED}")
         n_rounds = po.shape[0]
         if n_rounds % lcm:
             raise ValueError(f"schedule length {n_rounds} is not a multiple of "
@@ -375,6 +384,11 @@ def make_scan(step, *, heartbeat_every: int = 1, rounds_per_phase: int = 1,
         if r > 1:
             xs = tuple(torch.as_tensor(a).reshape((n_rounds // r, r) + tuple(a.shape[1:]))
                        for a in xs)
+            if up is not None:
+                # one liveness row a phase: the first round's
+                xs += (torch.as_tensor(up)[::r],)
+        elif up is not None:
+            xs += (up,)
         st, _ = win(st, xs, None, consts)
         return st
 

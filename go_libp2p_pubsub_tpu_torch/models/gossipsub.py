@@ -68,6 +68,8 @@ from ..score.engine import (
     ScoreState,
     TopicParamsArrays,
     add_penalties,
+    clear_edges,
+    clear_mesh_status,
     compute_scores,
     ip_colocation_surplus_sq,
     on_deliveries,
@@ -80,6 +82,7 @@ from ..score.gater import GaterState, gater_accept, gater_decay, gater_on_round,
 from ..state import (
     Net,
     SimState,
+    TopoState,
     allocate_publishes,
     replace,
     tree_map,
@@ -329,9 +332,12 @@ class GossipSubState:
     @classmethod
     def init(cls, net: Net, msg_slots: int, cfg: GossipSubConfig,
              score_params: PeerScoreParams | None = None,
-             seed: int = 0, dormant: np.ndarray | None = None) -> "GossipSubState":
+             seed: int = 0, dormant: np.ndarray | None = None,
+             dynamic_topo: bool = False) -> "GossipSubState":
         """``dormant`` ([N, K] bool, ``graph.dormant_edges``) marks the
-        provisioned edges that start disconnected."""
+        provisioned edges that start disconnected; ``dynamic_topo`` installs
+        the mutable overlay (``core.topo``, seeded from the net) that a
+        ``dynamic_topo`` step writes."""
         dev = net.device
         n, k = net.nbr.shape
         s = net.n_slots
@@ -358,7 +364,8 @@ class GossipSubState:
             edge_live &= ~torch.as_tensor(np.asarray(dormant, bool), device=dev)
         return cls(
             core=SimState.init(n, msg_slots, seed, k=k, device=dev, n_edges=e,
-                               val_delay=cfg.validation_delay_rounds),
+                               val_delay=cfg.validation_delay_rounds,
+                               topo=TopoState.from_net(net) if dynamic_topo else None),
             mesh=z((n, s, k), b),
             backoff_expire=z((n, s, k), i32),
             backoff_present=z((n, s, k), b),
@@ -1005,6 +1012,10 @@ class StepConsts:
     # the gater's per-source share of its counters (score/gater.py); None
     # without the gater
     gater_share: object = None
+    # whether the live edges move from round to round (PX, edge_liveness
+    # or dynamic peers): every gate, gather and kernel argument then reads
+    # the round's live view instead of these constants
+    live_moves: bool = False
 
 
 def topology_views(net: Net, fanout: bool):
@@ -1025,11 +1036,41 @@ def topology_views(net: Net, fanout: bool):
     return nbr_sub, flood_from, nbr_sub_words, mesh_capable
 
 
+def announce_holes(net: Net, nbr_sub, nbr_sub_words, holes):
+    """Fold the announce-visibility holes (pubsub.go:842-901) into the
+    neighbour-subscription views: ``holes`` [N,K,T] marks the (receiver,
+    edge, topic) triples whose SubOpts announcement has not arrived, and
+    the unannounced subscriber is invisible to mesh-candidate selection,
+    gossip targeting and fanout. Returns (nbr_sub, nbr_sub_words)."""
+    holes = torch.as_tensor(np.asarray(holes, bool), device=net.device)   # [N,K,T]
+    mt = net.my_topics
+    hs = torch.gather(holes, 2, mt.clamp(min=0).long()[:, None, :].expand(
+        -1, holes.shape[1], -1)).transpose(1, 2)                          # [N,S,K]
+    nbr_sub = nbr_sub & ~(hs & (mt >= 0)[:, :, None])
+    if nbr_sub_words is not None:
+        nbr_sub_words = nbr_sub_words & ~bitset.pack(holes)
+    return nbr_sub, nbr_sub_words
+
+
+def rebind_step_consts(cfg: GossipSubConfig, consts: StepConsts, net: Net) -> StepConsts:
+    """``consts`` with the topology views recomputed from ``net`` (a
+    dynamic-topology round's rebound net) by the build's own expressions."""
+    nbr_sub, flood_from, nbr_sub_words, mesh_capable = topology_views(
+        net, cfg.fanout_slots > 0)
+    return replace(
+        consts, nbr_sub_const=nbr_sub, flood_from=flood_from, nbr_sub_words=nbr_sub_words,
+        mesh_capable=mesh_capable, live_u32=net.nbr_ok.to(torch.int32),
+        # the groups each peer sees move with its edges
+        gater_share=source_share(net, static=False) if cfg.gater_enabled else None)
+
+
 def prepare_step_consts(cfg: GossipSubConfig, net: Net,
                         score_params: PeerScoreParams | None,
                         heartbeat_interval: float,
                         gater_params: PeerGaterParams | None = None,
-                        adversary_no_forward: np.ndarray | None = None) -> StepConsts:
+                        adversary_no_forward: np.ndarray | None = None,
+                        sub_knowledge_holes: np.ndarray | None = None,
+                        dynamic_peers: bool = False) -> StepConsts:
     # the layout and the fused flag are one choice per build: the config
     # drives the selections, the net the gathers and the delivery seam
     if cfg.edge_layout != net.edge_layout:
@@ -1058,6 +1099,9 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
         tpa = TopicParamsArrays.build(score_params, net.n_topics)
     nbr_sub, flood_from, nbr_sub_words, mesh_capable = topology_views(
         net, cfg.fanout_slots > 0)
+    if sub_knowledge_holes is not None:
+        nbr_sub, nbr_sub_words = announce_holes(net, nbr_sub, nbr_sub_words,
+                                                sub_knowledge_holes)
     # the adversary behaviour vector: marked peers run the control plane
     # but never transmit message data (a build-time constant)
     if adversary_no_forward is not None:
@@ -1079,6 +1123,7 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
                          torch.ones(net.nbr.shape, dtype=torch.bool, device=net.device)),
         live_u32=net.nbr_ok.to(torch.int32),
         gater_share=source_share(net) if cfg.gater_enabled else None,
+        live_moves=tracks_liveness(cfg) or dynamic_peers,
     )
 
 
@@ -1108,7 +1153,7 @@ def accept_gates(cfg: GossipSubConfig, net: Net, st: GossipSubState,
     # a stream of its own: the round key folded with a distinct tag (the
     # heartbeat takes fold_in(key, tick) directly)
     gkey = prng.fold_in(prng.fold_in(st.core.key, tick), 0x6A7E)
-    live = net.nbr_ok if tracks_liveness(cfg) else None
+    live = net.nbr_ok if consts.live_moves else None
     acc_msg = acc_ok & (gater_accept(st.gater, consts.gater_share, gater_params,
                                      cfg.gater_quiet_ticks, tick, gkey, live) | net.direct)
     return acc_ok, acc_msg
@@ -1284,6 +1329,107 @@ def control_exchange_coalesced(cfg: GossipSubConfig, net: Net, st: GossipSubStat
             seg("window"))
 
 
+def drop_edges(st: GossipSubState, edge: torch.Tensor, score: ScoreState) -> GossipSubState:
+    """``st`` with every per-edge plane of the router cleared on ``edge``
+    [N,K] (the edges leave the mesh and the fanout sets, their outboxes,
+    served counters, IHAVE counters and promises reset) and ``score`` as
+    its score state: the cleanup both a departing peer's edges and a
+    rewritten slot take."""
+    x3, e3 = edge[:, None, :], edge[:, :, None]
+    return replace(
+        st,
+        mesh=st.mesh & ~x3,
+        fanout_peers=st.fanout_peers & ~x3,
+        graft_out=st.graft_out & ~x3,
+        prune_out=st.prune_out & ~x3,
+        ihave_out=torch.where(e3, 0, st.ihave_out),
+        iwant_out=torch.where(e3, 0, st.iwant_out),
+        served_lo=torch.where(e3, 0, st.served_lo),
+        served_hi=torch.where(e3, 0, st.served_hi),
+        peerhave=torch.where(edge, 0, st.peerhave),
+        iasked=torch.where(edge, 0, st.iasked),
+        promise_mid=torch.where(edge, -1, st.promise_mid),
+        score=score,
+    )
+
+
+def apply_peer_transitions(cfg: GossipSubConfig, net: Net, st: GossipSubState,
+                           up_next: torch.Tensor, tp: dict):
+    """Peer lifecycle (dynamic peers): a peer that goes down, or is
+    blacklisted (``set_blacklist``), is disconnected with the reference's
+    whole dead-peer cleanup (handleDeadPeers pubsub.go:648-689, the
+    router's RemovePeer gossipsub.go:545-562, score retention
+    score.go:604-689), and every edge touching it dies both ways; a peer
+    that comes back starts with fresh soft state. ``up_next`` [N] bool.
+    Returns (state, live [N,K] bool: the edges whose two ends are up)."""
+    eff_next = up_next & ~st.blacklist
+    down_tr = st.up & ~eff_next
+    up_tr = ~st.up & eff_next
+    down_nbr = net.peer_gather(down_tr) & net.nbr_ok
+    down_edge = (down_nbr | down_tr[:, None]) & net.nbr_ok
+    score = st.score
+    if cfg.score_enabled:
+        # removePeer (score.go:604-637): a standing P3 deficit on a
+        # departing mesh edge converts into the sticky P3b penalty, every
+        # dead edge leaves the mesh, then the stats go, but those of
+        # retained (negative-score) neighbours, which keep decaying
+        score = on_prune(score, st.mesh & down_nbr[:, None, :], tp)
+        score = clear_mesh_status(score, down_nbr)
+        score = clear_edges(score, (down_nbr & (st.scores >= 0)) | down_tr[:, None])
+    # a crashing node loses its soft state: seen-cache, forward set,
+    # receipts, the pipeline, mcache
+    dlv = st.core.dlv
+    d2, d3 = down_tr[:, None], down_tr[:, None, None]
+    dlv = replace(
+        dlv, have=torch.where(d2, 0, dlv.have), fwd=torch.where(d2, 0, dlv.fwd),
+        first_round=torch.where(d2, -1, dlv.first_round),
+        fe_words=torch.where(d3, 0, dlv.fe_words),
+        pending=torch.where(d3, 0, dlv.pending) if dlv.pending is not None else None)
+    events = st.core.events
+    if cfg.count_events:
+        events = add_event(add_event(events, EV.REMOVE_PEER, down_tr.sum(dtype=torch.int32)),
+                           EV.ADD_PEER, up_tr.sum(dtype=torch.int32))
+    st = replace(drop_edges(st, down_edge, score),
+                 core=replace(st.core, dlv=dlv, events=events),
+                 mcache=torch.where(d3, 0, st.mcache), up=eff_next)
+    live = net.nbr_ok & st.up[:, None] & net.peer_gather(st.up)
+    return st, live
+
+
+def clear_mutated_edges(cfg: GossipSubConfig, st: GossipSubState, wr_edge: torch.Tensor,
+                        tp: dict) -> GossipSubState:
+    """The dead-edge cleanup of the slots a dynamic-topology round wrote
+    (``wr_edge`` [N,K], ``topo.dynamics.written_edge_mask``): a written slot
+    names a new connection, so its per-edge state clears as a departing
+    peer's edges do (score retention included), and its backoff clears too
+    (the reference keys backoff by peer, and a rewired slot is another
+    peer). Per-peer planes stay: both ends are up across a rewire."""
+    we3 = wr_edge[:, None, :]
+    score = st.score
+    if cfg.score_enabled:
+        score = on_prune(score, st.mesh & we3, tp)
+        score = clear_mesh_status(score, wr_edge)
+        score = clear_edges(score, wr_edge)
+    # first-arrival attribution credits the slot's old far end
+    dlv = replace(st.core.dlv, fe_words=torch.where(wr_edge[:, :, None], 0,
+                                                    st.core.dlv.fe_words))
+    return replace(drop_edges(st, wr_edge, score),
+                   core=replace(st.core, dlv=dlv),
+                   backoff_present=st.backoff_present & ~we3,
+                   backoff_expire=torch.where(we3, 0, st.backoff_expire),
+                   congested_in=st.congested_in & ~wr_edge)
+
+
+def set_blacklist(st: GossipSubState, mask) -> GossipSubState:
+    """BlacklistPeer (pubsub.go:590-605): ``mask`` [N] bool; the next
+    dynamic-peers step disconnects each marked peer with the whole cleanup
+    and keeps it out while its flag is set (pubsub.go:636-639,
+    :1048-1060)."""
+    if not isinstance(mask, torch.Tensor):
+        mask = torch.as_tensor(np.asarray(mask, bool))
+    return replace(st, blacklist=mask.to(device=st.blacklist.device, dtype=torch.bool))
+
+
 def tracks_liveness(cfg: GossipSubConfig) -> bool:
     """Whether the build reads the state's ``edge_live`` plane: under PX
     or ``edge_liveness``. Otherwise the live view is the static topology
@@ -1292,19 +1438,22 @@ def tracks_liveness(cfg: GossipSubConfig) -> bool:
 
 
 def live_step_views(cfg: GossipSubConfig, net: Net, st: GossipSubState,
-                    consts: "StepConsts"):
+                    consts: "StepConsts", live: torch.Tensor | None = None):
     """The topology views a round reads (the live-peer view): (net_l,
-    nbr_sub_l, flood_from_l, nbr_sub_words_l, live_u32). Under PX or
-    ``edge_liveness`` the live edges are ``nbr_ok & st.edge_live`` (dormant
-    edges carry nothing until activated; ``edge_live`` is symmetric, so one
-    side suffices), ``net_l`` the net with them as its ``nbr_ok``, the
-    three planes masked by them and ``live_u32`` their int32 form, the live
-    words of every ``edge_exchange``. Otherwise they are the build's
-    constants."""
-    if not tracks_liveness(cfg):
+    nbr_sub_l, flood_from_l, nbr_sub_words_l, live_u32). ``live`` is the
+    peer transitions' live mask (``apply_peer_transitions``, dynamic peers),
+    None otherwise. Under PX or ``edge_liveness`` the live edges are that
+    mask (or ``nbr_ok``) and ``st.edge_live`` (dormant edges carry nothing
+    until activated; ``edge_live`` is symmetric, so one side suffices);
+    under dynamic peers alone, the mask. ``net_l`` is the net with them as
+    its ``nbr_ok``, the three planes are masked by them and ``live_u32`` is
+    their int32 form, the live words of every ``edge_exchange``. Otherwise
+    they are the build's constants."""
+    if tracks_liveness(cfg):
+        live = (net.nbr_ok if live is None else live) & st.edge_live
+    if live is None:
         return (net, consts.nbr_sub_const, consts.flood_from, consts.nbr_sub_words,
                 consts.live_u32)
-    live = net.nbr_ok & st.edge_live
     nbr_sub_words_l = None
     if consts.nbr_sub_words is not None:
         nbr_sub_words_l = torch.where(live[:, :, None], consts.nbr_sub_words, 0)
@@ -1313,19 +1462,22 @@ def live_step_views(cfg: GossipSubConfig, net: Net, st: GossipSubState,
 
 
 def px_connect(cfg: GossipSubConfig, net: Net, net_l: Net, st: GossipSubState,
-               px_ok) -> torch.Tensor:
+               px_ok, dynamic_peers: bool = False) -> torch.Tensor:
     """PX connect (pxConnect gossipsub.go:861-941): a peer pruned with PX
     activates its dormant provisioned edges to the peers the pruner
     suggested — the pruner's mesh members over its topics, one round stale
     as every outbox (makePrune/getPeers :1814-1872). ``net_l`` is the live
     view (suggestions ride live edges), ``net`` the static topology
-    (dormant slots live there). Returns next round's ``edge_live``."""
+    (dormant slots live there); with ``dynamic_peers`` only an edge whose
+    two ends are up activates. Returns next round's ``edge_live``."""
     if not cfg.do_px:
         return st.edge_live
     sugg = torch.where(st.mesh.any(1) & net_l.nbr_ok, net_l.nbr, -1)    # [N, K]
     # the suggestions each PRUNE with an accepted PX carries, -1 elsewhere
     sugg_g = torch.where(px_ok[:, :, None], net.peer_gather(sugg), -1)  # [N, K, K]
     dormant_avail = net.nbr_ok & ~st.edge_live & (net.nbr >= 0)
+    if dynamic_peers:
+        dormant_avail = dormant_avail & st.up[:, None] & net.peer_gather(st.up)
     act = torch.zeros_like(dormant_avail)
     for kk in range(net.max_degree):
         # my dormant slot's peer is among pruner kk's suggestions, reduced
@@ -1341,10 +1493,29 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                         heartbeat_interval: float = 1.0,
                         gater_params: PeerGaterParams | None = None,
                         adversary_no_forward: np.ndarray | None = None,
-                        static_heartbeat: bool = False, **unported):
+                        static_heartbeat: bool = False, dynamic_peers: bool = False,
+                        sub_knowledge_holes: np.ndarray | None = None,
+                        dynamic_topo: bool = False, **unported):
     """Build the per-round step for a fixed config + topology:
 
-        step(state, pub_origin[P], pub_topic[P], pub_valid[P]) -> state
+        step(state, pub_origin[P], pub_topic[P], pub_valid[P]
+             [, up_next[N] [, mut_writes[B, 4]]]) -> state
+
+    With ``dynamic_peers=True`` the step takes the notify plane ``up_next``
+    [N] bool: a peer that goes down, or is blacklisted (``set_blacklist``),
+    is disconnected with the whole dead-peer cleanup
+    (``apply_peer_transitions``) and every edge touching it carries nothing
+    until it is back; every gate, gather and kernel argument reads the
+    round's live edges. With ``dynamic_topo=True`` as well it takes
+    ``mut_writes`` [B, 4] int32 (a ``topo.dynamics.MutationSchedule``
+    batch, padded with ``PAD_SLOT`` rows): the round's writes land on the
+    state's overlay (``GossipSubState.init(..., dynamic_topo=True)``) first,
+    the net and its topology views are rebound from it and the written
+    slots' edge state clears; it needs an unbanded net
+    (``Net.build(..., dynamic=True)``, dense or full-capacity CSR) and
+    refuses the adversary vector, announce holes, PX and edge liveness, as
+    the JAX package does. ``sub_knowledge_holes`` [N,K,T] bool hides
+    unannounced subscriptions from mesh, gossip and fanout selection.
 
     With ``static_heartbeat=True`` (and ``cfg.heartbeat_every > 1``) the
     step takes a required keyword ``do_heartbeat`` (the caller owns the
@@ -1381,13 +1552,42 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     ``fused_delivery`` launches. A CSR net's state stays CSR-resident
     between steps. The step is functional: it never writes
     into the state it is given. Options of the JAX step outside the port
-    (the chaos and adversary planes, the router, dynamic peers or topology,
-    announce holes, lifted scores, telemetry) raise."""
+    (the chaos and adversary planes, the router, lifted scores, telemetry)
+    raise."""
     if unported:
         raise NotImplementedError(
             f"not ported yet: {sorted(unported)} — ROADMAP §1 items 3-6")
+    if dynamic_topo:
+        # each refused combination bakes neighbour identity or the banded
+        # geometry into a build constant that a write could not update
+        if not dynamic_peers:
+            raise ValueError("dynamic_topo=True requires dynamic_peers=True — node "
+                             "death/replacement rides the up_next plane")
+        if net.band_off is not None or net.fused or cfg.fused:
+            raise ValueError("dynamic_topo=True needs an unbanded net (Net.build(..., "
+                             "dynamic=True)) — the banded/fused kernels bake the edge "
+                             "geometry at build time")
+        if net.edge_layout == "csr" and (
+                not net.csr_identity or net.n_edges != net.n_peers * net.max_degree):
+            raise ValueError("dynamic_topo=True on CSR needs the full-capacity identity "
+                             "plane (Net.build(..., edge_layout='csr', dynamic=True)) — a "
+                             "degree-compacted CSR cannot gain edges without a rebuild")
+        if adversary_no_forward is not None:
+            raise ValueError("dynamic_topo=True is incompatible with the adversary planes "
+                             "— their neighbour views are constants over the static "
+                             "topology")
+        if sub_knowledge_holes is not None:
+            raise ValueError("dynamic_topo=True is incompatible with sub_knowledge_holes "
+                             "— the announce-hole mask is indexed by static (receiver, "
+                             "slot) edge identity")
+        if cfg.do_px or cfg.edge_liveness:
+            raise ValueError("dynamic_topo=True is incompatible with do_px/edge_liveness "
+                             "— the edge_live plane binds activation to static slot "
+                             "identity; topology changes go through the mutation "
+                             "schedule instead")
+        from ..topo import dynamics as topo_dynamics
     consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval, gater_params,
-                                 adversary_no_forward)
+                                 adversary_no_forward, sub_knowledge_holes, dynamic_peers)
     cfg = flushed_thresholds(cfg)
     tp = consts.tp
     n_peers, k_dim = net.n_peers, net.max_degree
@@ -1517,12 +1717,27 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                                    **opts)
         return st2, dlv, info
 
-    def _round(st: GossipSubState, pub_origin, pub_topic, pub_valid,
-               do_heartbeat: bool = True) -> GossipSubState:
+    # net and consts are parameters of the round, not closure reads: a
+    # dynamic-topology round rebinds both from the state's overlay
+    def _round(st: GossipSubState, pub_origin, pub_topic, pub_valid, up_next=None,
+               mut_writes=None, do_heartbeat: bool = True, *, net=net,
+               consts=consts) -> GossipSubState:
+        if dynamic_topo:
+            # the round's writes land first: the whole round runs on the
+            # mutated topology
+            topo1 = topo_dynamics.apply_mutation(st.core.topo, mut_writes)
+            wr_edge = topo_dynamics.written_edge_mask(mut_writes, n_peers, k_dim)
+            net = net.with_overlay(topo1)
+            consts = rebind_step_consts(cfg, consts, net)
+            st = clear_mutated_edges(cfg, st, wr_edge, tp)
+            st = replace(st, core=replace(st.core, topo=topo1))
+        live = None
+        if dynamic_peers:
+            st, live = apply_peer_transitions(cfg, net, st, up_next, tp)
         core = st.core
         tick = core.tick
         net_l, nbr_sub_l, flood_from_l, nbr_sub_words_l, live_u32 = live_step_views(
-            cfg, net, st, consts)
+            cfg, net, st, consts, live)
         acc_ok, acc_msg = accept_gates(cfg, net_l, st, consts, gater_params, tick)
 
         # 0b. merged wire exchange: every control outbox crosses the edge
@@ -1539,7 +1754,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         if cfg.count_events:
             events = add_event(add_event(events, EV.GRAFT, n_graft),
                                EV.PRUNE, n_prune)
-        edge_live_next = px_connect(cfg, net, net_l, st, px_ok)
+        edge_live_next = px_connect(cfg, net, net_l, st, px_ok, dynamic_peers)
 
         joined_words = joined_msg_words(net_l, core.msgs)
         slotw = slot_topic_words(net_l, core.msgs.topic)
@@ -1671,10 +1886,28 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         # entry and re-packed at exit; the body above stays dense-written
         _round = wrap_csr_resident(net, _round)
 
+    # the JAX package's call forms: up_next and then mut_writes are required
+    # positionals (a default would silently run without churn or writes)
     use_static_hb = static_heartbeat and cfg.heartbeat_every > 1
     if use_static_hb:
-        def step(st, pub_origin, pub_topic, pub_valid, *, do_heartbeat):
-            return _round(st, pub_origin, pub_topic, pub_valid, do_heartbeat)
+        if dynamic_topo:
+            def step(st, pub_origin, pub_topic, pub_valid, up_next, mut_writes, *,
+                     do_heartbeat):
+                return _round(st, pub_origin, pub_topic, pub_valid, up_next, mut_writes,
+                              do_heartbeat)
+        elif dynamic_peers:
+            def step(st, pub_origin, pub_topic, pub_valid, up_next, *, do_heartbeat):
+                return _round(st, pub_origin, pub_topic, pub_valid, up_next, None,
+                              do_heartbeat)
+        else:
+            def step(st, pub_origin, pub_topic, pub_valid, *, do_heartbeat):
+                return _round(st, pub_origin, pub_topic, pub_valid, None, None, do_heartbeat)
+    elif dynamic_topo:
+        def step(st, pub_origin, pub_topic, pub_valid, up_next, mut_writes):
+            return _round(st, pub_origin, pub_topic, pub_valid, up_next, mut_writes)
+    elif dynamic_peers:
+        def step(st, pub_origin, pub_topic, pub_valid, up_next):
+            return _round(st, pub_origin, pub_topic, pub_valid, up_next)
     else:
         def step(st, pub_origin, pub_topic, pub_valid):
             return _round(st, pub_origin, pub_topic, pub_valid)

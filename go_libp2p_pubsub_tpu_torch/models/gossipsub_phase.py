@@ -59,6 +59,7 @@ from .gossipsub import (
     GossipSubConfig,
     GossipSubState,
     accept_gates,
+    apply_peer_transitions,
     apply_validation_throttle,
     control_exchange_coalesced,
     fanout_carry_words,
@@ -82,8 +83,6 @@ from .gossipsub import (
 #: keyword options of the JAX package's make_gossipsub_phase_step that the port
 #: refuses, and where they land
 UNPORTED = {
-    "dynamic_peers": "dynamic peers (apply_peer_transitions) — ROADMAP §1 item 3",
-    "sub_knowledge_holes": "announce-visibility holes — ROADMAP §1 item 3",
     "lift_scores": "the lifted score plane — ROADMAP §1 item 3",
     "adversary": "the adversary plane — ROADMAP §1 item 5",
     "telemetry": "the telemetry panel — ROADMAP §1 item 5",
@@ -174,11 +173,12 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                               gater_params=None, adversary_no_forward=None,
                               score_counts: bool | None = None,
                               exact_counters: bool = False,
-                              admission_capped: bool = False, **unported):
+                              admission_capped: bool = False, dynamic_peers: bool = False,
+                              sub_knowledge_holes=None, **unported):
     """Build the phase step for a fixed config and topology:
 
-        step(state, pub_origin[r,P], pub_topic[r,P], pub_valid[r,P], *,
-             do_heartbeat) -> state                    (tick advances by r)
+        step(state, pub_origin[r,P], pub_topic[r,P], pub_valid[r,P]
+             [, up_next[N]], *, do_heartbeat) -> state  (tick advances by r)
 
     ``pub_*[i]`` is published at tick ``t + i``, as the per-round step
     would. ``do_heartbeat`` is required: the caller owns the schedule
@@ -198,12 +198,16 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
     Attribution planes whose weights are zero for every topic are not
     carried (the JAX package's static elision: scores are bit-identical,
     the unread mmd/imd counters are not); ``exact_counters=True`` carries
-    them all. ``admission_capped=True`` certifies that the caller caps
-    admitted publishes at ``msg_slots // 2`` a phase and drops the
-    admission check. ``cfg.wire_coalesced=False``, the count path
-    (``score_counts=True``) and the JAX function's other options (dynamic
-    peers, announce holes, lifted scores, the chaos adversary plane,
-    telemetry) raise."""
+    them all. With ``dynamic_peers=True`` the step takes one liveness row
+    ``up_next`` [N] a phase: the peer transitions
+    (``gossipsub.apply_peer_transitions``) land once, at the phase head, and
+    the head's and every data sub-round's crossings read that phase's live
+    edges. ``sub_knowledge_holes`` [N,K,T] hides unannounced subscriptions
+    from mesh, gossip and fanout selection. ``admission_capped=True``
+    certifies that the caller caps admitted publishes at ``msg_slots // 2``
+    a phase and drops the admission check. ``cfg.wire_coalesced=False``, the count path
+    (``score_counts=True``) and the JAX function's other options (lifted
+    scores, the chaos adversary plane, telemetry) raise."""
     r = int(rounds_per_phase)
     if r < 1:
         raise ValueError(f"rounds_per_phase must be >= 1, got {r}")
@@ -221,7 +225,7 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             "not ported yet: score_counts=True (the per-slot count attribution "
             "path) — ROADMAP §1 item 3")
     consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval, gater_params,
-                                 adversary_no_forward)
+                                 adversary_no_forward, sub_knowledge_holes, dynamic_peers)
     adv_self = (torch.as_tensor(np.asarray(adversary_no_forward, bool), device=net.device)
                 if adversary_no_forward is not None else None)
     cfg = flushed_thresholds(cfg)
@@ -249,10 +253,14 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             return torch.where(gate[:, :, None], wire.reshape(n_peers, k_dim, w), 0)
         return torch.where(gate[:, :, None], net.edge_gather(send), 0)
 
-    def _phase(st: GossipSubState, pub_origin, pub_topic, pub_valid,
+    def _phase(st: GossipSubState, pub_origin, pub_topic, pub_valid, up_next,
                do_heartbeat: bool) -> GossipSubState:
+        # the peer transitions land once a phase, at the head
+        live = None
+        if dynamic_peers:
+            st, live = apply_peer_transitions(cfg, net, st, up_next, tp)
         net_l, nbr_sub_l, flood_from_l, nbr_sub_words_l, live_u32 = live_step_views(
-            cfg, net, st, consts)
+            cfg, net, st, consts, live)
         core = st.core
         tick0 = core.tick
         m = core.msgs.capacity
@@ -270,7 +278,7 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         events = core.events
         if cfg.count_events:
             events = add_event(add_event(events, EV.GRAFT, n_graft), EV.PRUNE, n_prune)
-        edge_live_next = px_connect(cfg, net, net_l, st, px_ok)
+        edge_live_next = px_connect(cfg, net, net_l, st, px_ok, dynamic_peers)
         st2, iwant_resp = iwant_responses(cfg, net_l, st2, nbr_score_of_me,
                                           window_g=window_g)
         st2 = handle_ihave(cfg, net_l, st2, joined_msg_words(net_l, core.msgs), acc_ok,
@@ -511,7 +519,11 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         # CSR-resident state: flat planes between phases, dense inside
         _phase = wrap_csr_resident(net, _phase)
 
-    def step(st, pub_origin, pub_topic, pub_valid, *, do_heartbeat: bool):
-        return _phase(st, pub_origin, pub_topic, pub_valid, bool(do_heartbeat))
+    if dynamic_peers:
+        def step(st, pub_origin, pub_topic, pub_valid, up_next, *, do_heartbeat: bool):
+            return _phase(st, pub_origin, pub_topic, pub_valid, up_next, bool(do_heartbeat))
+    else:
+        def step(st, pub_origin, pub_topic, pub_valid, *, do_heartbeat: bool):
+            return _phase(st, pub_origin, pub_topic, pub_valid, None, bool(do_heartbeat))
 
     return step

@@ -1,6 +1,6 @@
 """Capacity-bounded CSR edge layout: the sparse data plane (the port's
 copy of the JAX package's ``ops/csr.py``, without the edge-sharding
-padding and the dynamic full-capacity build).
+padding).
 
 On a capacity-padded ragged topology (power-law or random graphs padded to
 the max degree K) most of the dense ``[N, K]`` slot space is dead. This
@@ -35,6 +35,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .edges import build_edge_perm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +133,40 @@ def build_csr(nbr: np.ndarray, rev: np.ndarray,
         e_of_nk=e_of_nk,
         eperm=eperm.astype(np.int32),
     )
+
+
+def build_csr_full(nbr: np.ndarray, rev: np.ndarray,
+                   nbr_ok: np.ndarray) -> tuple[CsrTopology, np.ndarray]:
+    """The full-capacity identity layout of the mutable overlay: every
+    padded ``[N, K]`` slot, present or absent, owns a flat edge, E = N*K in
+    row-major slot order, so the flat structure is a function of the
+    capacity alone and a rewire changes only ``col``/``eperm``/``e_valid``
+    (``state.Net.with_overlay``). Returns (layout, ``e_valid`` = ``nbr_ok``
+    flat): absent slots are inert, their ``eperm`` self-points."""
+    nbr = np.asarray(nbr)
+    rev = np.asarray(rev)
+    nbr_ok = np.asarray(nbr_ok, bool)
+    n, k = nbr.shape
+    e = n * k
+    ar = np.arange(e, dtype=np.int32)
+    perm = build_edge_perm(nbr, rev, nbr_ok).reshape(e)
+    if not (perm[perm] == ar).all():
+        raise ValueError("build_csr_full: rev mapping is not an involution")
+    okf = nbr_ok.reshape(e)
+    nbrf = nbr.reshape(e)
+    row = (ar // k).astype(np.int32)
+    if not (okf[perm] == okf).all() or not (nbrf[perm][okf] == row[okf]).all():
+        raise ValueError("build_csr_full: topology is not symmetric")
+    ct = CsrTopology(
+        row_ptr=(np.arange(n + 1, dtype=np.int64) * k).astype(np.int32),
+        col=np.clip(nbrf, 0, None).astype(np.int32),
+        row=row,
+        slot=(ar % k).astype(np.int32),
+        e2nk=ar.copy(),
+        e_of_nk=ar.reshape(n, k).copy(),
+        eperm=perm.astype(np.int32),
+    )
+    return ct, okf.copy()
 
 
 # ---------------------------------------------------------------------------

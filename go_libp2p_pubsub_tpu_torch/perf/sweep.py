@@ -11,6 +11,10 @@ the bench's publish schedule:
   config and the Net share: the per-round step, or with
   ``rounds_per_phase`` > 1 the phase engine ``bench.py`` measures (r=8
   there), driven by ``run_phases``;
+* ``churn_up``, ``build_overlay`` — the churn cell (the default config
+  with ``dynamic_peers``: a fifth of the peers down and back) and the
+  mutating overlay (the default config with ``dynamic_topo`` on a
+  power-law net with free slots, under ``topo.churn_storm``);
 * ``build_floodsub`` — FloodSub on one topic every peer joins, over the
   same lattice or the capacity-bounded power-law graph, in the dense or
   the CSR layout;
@@ -110,7 +114,7 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                 edge_layout: str = "dense", fused: bool = False,
                 rounds_per_phase: int = 1, heartbeat_every: int | None = None,
                 device=None, queue_cap: int = 0, validation_delay_rounds: int = 0,
-                px: bool = False):
+                px: bool = False, dynamic_peers: bool = False):
     """Build (state, step, n_topics, honest) for a bench config, tracer
     detached (no event counters unless ``count_events``):
 
@@ -136,7 +140,9 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     dormant, AcceptPXThreshold 0 (the config's own default: at the
     thresholds' 10 a pruner, out of the pruned peer's mesh, never scores
     high enough on the bench lattice, and no edge activates), the
-    exact-trace duplicate plane and the int16 IHAVE counters."""
+    exact-trace duplicate plane and the int16 IHAVE counters.
+    ``dynamic_peers`` builds the churn cell's step, which takes a liveness
+    row a dispatch (``churn_up``)."""
     _check_config(config)
     dev = resolve_device(device)
     tp = graphlib.ring_lattice(n_peers, d=8)
@@ -172,13 +178,70 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
         dormant=graphlib.dormant_edges(tp, PX_DORMANT, seed=5) if px else None)
     if r > 1:
         step = make_gossipsub_phase_step(cfg, net, r, score_params=sp, gater_params=gater,
-                                         adversary_no_forward=adversary)
+                                         adversary_no_forward=adversary,
+                                         dynamic_peers=dynamic_peers)
     else:
         step = make_gossipsub_step(cfg, net, score_params=sp, gater_params=gater,
                                    adversary_no_forward=adversary,
-                                   static_heartbeat=he > 1)
+                                   static_heartbeat=he > 1, dynamic_peers=dynamic_peers)
     honest = np.flatnonzero(~adversary) if adversary is not None else None
     return st, step, n_topics, honest
+
+
+#: the churn cell: churn_storm's kill fraction and its kill and replace
+#: points over an 80-round run, on the up plane alone
+CHURN = dict(kill_frac=0.2, rounds=80, down_at=16, up_at=48)
+
+
+def churn_up(n_peers: int, rounds: int = CHURN["rounds"], kill_frac: float = CHURN["kill_frac"],
+             down_at: int = CHURN["down_at"], up_at: int = CHURN["up_at"],
+             seed: int = 0) -> np.ndarray:
+    """[rounds, N] bool liveness rows of the churn cell: ``kill_frac`` of the
+    peers (``default_rng(seed).choice``, without replacement) down in rounds
+    [down_at, up_at), every peer up otherwise."""
+    up = np.ones((rounds, n_peers), bool)
+    victims = np.random.default_rng(seed).choice(n_peers, int(round(kill_frac * n_peers)),
+                                                 replace=False)
+    up[down_at:up_at, victims] = False
+    return up
+
+
+#: the mutating overlay's graph: a power-law tail of 60 padded to a
+#: capacity of 64, which leaves free slots for joins
+OVERLAY = dict(exponent=2.2, d_min=2, max_degree=60, capacity=64)
+
+
+def build_overlay(n_peers: int, msg_slots: int, n_dispatches: int, edge_layout: str = "dense",
+                  seed: int = 0, count_events: bool = False, device=None, storm=None):
+    """The mutating overlay: the bench default config's per-round step with
+    ``dynamic_peers`` and ``dynamic_topo`` on ``topo.powerlaw(n, 2.2,
+    d_min=2, max_degree=60, seed)`` padded to K = 64, built dynamic (dense,
+    or the full-capacity CSR layout, E = N·K), under ``topo.churn_storm``
+    (a fifth killed a quarter in and replaced half way with 2 links each, 8
+    rewires, 2 joins). ``storm`` reuses a schedule already compiled for
+    the same graph. Returns (state, step, schedule, seconds the schedule
+    took to compile)."""
+    dev = resolve_device(device)
+    tp = topo.to_topology(topo.powerlaw(n_peers, OVERLAY["exponent"], d_min=OVERLAY["d_min"],
+                                        max_degree=OVERLAY["max_degree"], seed=seed),
+                          max_degree=OVERLAY["capacity"])
+    t0 = time.perf_counter()
+    if storm is None:
+        storm = topo.churn_storm(tp, n_dispatches=n_dispatches, kill_frac=0.2, rewires=8,
+                                 joins=2, join_links=2, seed=seed)
+        storm.build()
+    storm_seconds = time.perf_counter() - t0
+    net = Net.build(tp, graphlib.subscribe_all(n_peers, 1), edge_layout=edge_layout,
+                    device=dev, dynamic=True)
+    params = dataclasses.replace(GossipSubParams(), flood_publish=False)
+    _tp, sp = bench_score_params("default", 1)
+    cfg = GossipSubConfig.build(params, PeerScoreThresholds(), score_enabled=True,
+                                edge_layout=edge_layout)
+    cfg = dataclasses.replace(cfg, count_events=count_events, fanout_slots=0)
+    st = GossipSubState.init(net, msg_slots, cfg, score_params=sp, seed=seed, dynamic_topo=True)
+    step = make_gossipsub_step(cfg, net, score_params=sp, dynamic_peers=True,
+                               dynamic_topo=True)
+    return st, step, storm, storm_seconds
 
 
 #: the power-law graph of the CSR runs: topo.powerlaw's defaults, the
@@ -293,11 +356,14 @@ def publish_schedule(n_rounds: int, n_peers: int, n_topics: int,
     return po.astype(np.int32), pt.astype(np.int32), pv
 
 
-def run_phases(st, step, po, pt, pv, *, rounds_per_phase: int, heartbeat_every: int):
+def run_phases(st, step, po, pt, pv, *, rounds_per_phase: int, heartbeat_every: int,
+               up=None):
     """Drive a phase step over a publish schedule of whole phases ([R, P],
     R a multiple of ``rounds_per_phase``, uploaded once): ``[r, P]`` blocks
     with ``heartbeat_schedule``'s flags for the phases' tick windows (the
-    state's tick, read once, must start a phase)."""
+    state's tick, read once, must start a phase). ``up`` ([R, N]) is a
+    ``dynamic_peers`` step's liveness schedule: a phase takes its first
+    round's row."""
     r = int(rounds_per_phase)
     if len(po) % r:
         raise ValueError(f"{len(po)} rounds are not whole phases of {r}")
@@ -308,20 +374,23 @@ def run_phases(st, step, po, pt, pv, *, rounds_per_phase: int, heartbeat_every: 
     dev = st.core.tick.device
     po_t, pt_t, pv_t = (torch.as_tensor(np.asarray(a), device=dev).reshape(
         (-1, r) + np.asarray(a).shape[1:]) for a in (po, pt, pv))
+    extra = () if up is None else (torch.as_tensor(np.asarray(up)[::r], device=dev),)
     for p in range(len(po_t)):
-        st = step(st, po_t[p], pt_t[p], pv_t[p],
+        st = step(st, po_t[p], pt_t[p], pv_t[p], *(a[p] for a in extra),
                   do_heartbeat=flags[(tick // r + p) % len(flags)])
     return st
 
 
-def run_rounds(st, step, po, pt, pv):
+def run_rounds(st, step, po, pt, pv, *rows):
     """Drive ``step`` over a publish schedule (uploaded once); ``st`` is a
-    GossipSub state or a ``SimState``."""
+    GossipSub state or a ``SimState``. ``rows`` are further per-round
+    arrays (a ``dynamic_peers`` step's liveness rows [R, N], a
+    ``dynamic_topo`` step's write batches [R, B, 4])."""
     dev = (st.core if hasattr(st, "core") else st).tick.device
-    po_t, pt_t, pv_t = (torch.as_tensor(np.asarray(a), device=dev)
-                        for a in (po, pt, pv))
+    po_t, pt_t, pv_t, *rows_t = (torch.as_tensor(np.asarray(a), device=dev)
+                                 for a in (po, pt, pv, *rows))
     for r in range(len(po_t)):
-        st = step(st, po_t[r], pt_t[r], pv_t[r])
+        st = step(st, po_t[r], pt_t[r], pv_t[r], *(a[r] for a in rows_t))
     return st
 
 

@@ -373,6 +373,36 @@ def on_graft(st: ScoreState, graft_mask: torch.Tensor, tick) -> ScoreState:
     )
 
 
+def clear_edges(st: ScoreState, mask: torch.Tensor) -> ScoreState:
+    """Reset every per-edge stat where ``mask`` [N,K]: removePeer's delete
+    (score.go:604-637). The caller leaves negative-score edges out of the
+    mask (retention: their stats keep decaying, so a disconnect cannot wash
+    a bad score)."""
+    m3 = mask[:, None, :]
+    z = lambda a: torch.where(m3, 0.0, a)
+    return replace(
+        st, fmd=z(st.fmd), mmd=z(st.mmd), mfp=z(st.mfp), imd=z(st.imd),
+        graft_tick=torch.where(m3, -1, st.graft_tick),
+        mesh_time=torch.where(m3, 0, st.mesh_time),
+        mmd_active=st.mmd_active & ~m3,
+        bp=torch.where(mask, 0.0, st.bp),
+    )
+
+
+def clear_mesh_status(st: ScoreState, mask: torch.Tensor) -> ScoreState:
+    """Clear the in-mesh bookkeeping (graft tick, mesh time, P3 latch) on
+    every edge in ``mask`` [N,K]: removePeer's "no longer in any mesh" step
+    (score.go:614-625), for retained and deleted stats alike, so a retained
+    peer's P3 deficit converts once (``on_prune``) instead of staying
+    latched."""
+    m3 = mask[:, None, :]
+    return replace(
+        st, graft_tick=torch.where(m3, -1, st.graft_tick),
+        mesh_time=torch.where(m3, 0, st.mesh_time),
+        mmd_active=st.mmd_active & ~m3,
+    )
+
+
 def on_prune(st: ScoreState, prune_mask: torch.Tensor, tp: dict) -> ScoreState:
     """Edges leaving the mesh: the sticky mesh failure penalty when pruned
     while active and below threshold (score.go:662-684)."""

@@ -59,7 +59,7 @@ class GaterState:
         )
 
 
-def source_share(net):
+def source_share(net, static: bool = True):
     """The per-source share of the outcome counters (peer_gater.go:261-278:
     stats keyed by source IP) as a function ``share(x [N,K], live=None) ->
     [N,K]``: ``einsum("nkj,nj->nk", same, x)`` with ``same[n, k, j]`` =
@@ -69,14 +69,16 @@ def source_share(net):
     the step; when no two present neighbours of any peer share a group
     (unique IPs, as in the bench) it is the identity on live edges and the
     share is ``x`` there, exactly (a sum of ``x`` and zeros) — a choice
-    made once, on the host, at build."""
+    made once, on the host, at build. ``static=False`` (a net rebuilt every
+    round, whose groups move with its edges) always takes the general
+    form, with no host read."""
     groups = net.peer_gather(net.ip_group)
     same = ((groups[:, :, None] == groups[:, None, :])
             & net.nbr_ok[:, None, :] & net.nbr_ok[:, :, None])
     k = same.shape[-1]
     eye = torch.eye(k, dtype=torch.bool, device=same.device)
     ok = net.nbr_ok
-    if bool(torch.equal(same, eye & net.nbr_ok[:, :, None])):
+    if static and bool(torch.equal(same, eye & net.nbr_ok[:, :, None])):
         return lambda x, live=None: torch.where(ok if live is None else live, x, 0.0)
 
     def shared(x, live=None):

@@ -88,6 +88,11 @@ class Net:
     csr_seg_start: torch.Tensor | None = None     # [E] bool
     csr_row_last: torch.Tensor | None = None      # [N] i32
     csr_row_nonempty: torch.Tensor | None = None  # [N] bool
+    # the full-capacity layout of a dynamic build (ops/csr.build_csr_full):
+    # every slot owns a flat edge (E = N*K, ``csr_identity``) and
+    # ``csr_e_valid`` marks the present ones; None on a static CSR build
+    csr_e_valid: torch.Tensor | None = None       # [E] bool
+    csr_identity: bool = False
     # the reference's bandwidth-lean composite set; the port's selection
     # has one form in both builds (its ranks equal the reference's sort
     # form), and the CSR delivery round takes the same kernel either way
@@ -107,11 +112,17 @@ class Net:
     # -- flat edge space (edge_layout="csr" only) -------------------------
 
     def pack_edges(self, x: torch.Tensor) -> torch.Tensor:
-        """[N, K, ...] -> [E, ...]: the present slots, row-major."""
+        """[N, K, ...] -> [E, ...]: the present slots, row-major (every
+        slot, a reshape, on the full-capacity layout)."""
+        if self.csr_identity:
+            return x.reshape((-1,) + tuple(x.shape[2:]))
         return csr.pack_edges(x, self.csr_row, self.csr_slot)
 
     def unpack_edges(self, x_e: torch.Tensor, fill=None) -> torch.Tensor:
-        """[E, ...] -> [N, K, ...]; absent slots take ``fill`` (zero)."""
+        """[E, ...] -> [N, K, ...]; absent slots take ``fill`` (zero); a
+        reshape on the full-capacity layout."""
+        if self.csr_identity:
+            return x_e.reshape(tuple(self.csr_e_of_nk.shape) + tuple(x_e.shape[1:]))
         return csr.unpack_edges(x_e, self.csr_e_of_nk, fill)
 
     def edge_gather_flat(self, x_e: torch.Tensor) -> torch.Tensor:
@@ -138,7 +149,35 @@ class Net:
         read v[0])."""
         if self.band_off is not None:
             return edges.peer_gather_banded(v, self.band_off)
-        return v[self.nbr.clamp(min=0).long()]
+        got = v[self.nbr.clamp(min=0).long()]
+        if self.csr_e_valid is None:
+            return got
+        # the full-capacity layout reads zero on absent slots, as its
+        # flat gather masked by e_valid does
+        ok = self.csr_e_valid.reshape(tuple(self.nbr.shape) + (1,) * (v.dim() - 1))
+        return torch.where(ok, got, torch.zeros((), dtype=v.dtype, device=v.device))
+
+    def with_overlay(self, topo: "TopoState") -> "Net":
+        """The net with its mutable overlay planes (nbr, nbr_ok, rev,
+        edge_perm, and on a CSR build the flat col, eperm and e_valid)
+        rebound from ``topo``; shapes are unchanged. Needs a
+        ``Net.build(..., dynamic=True)`` net: no banded structure, and on
+        CSR the full-capacity layout (E = N*K)."""
+        if self.band_off is not None:
+            raise ValueError("with_overlay: banded structure is static — build the net "
+                             "with Net.build(..., dynamic=True)")
+        kw = dict(nbr=topo.nbr, nbr_ok=topo.nbr_ok, rev=topo.rev,
+                  edge_perm=topo.edge_perm.long())
+        if self.edge_layout == "csr":
+            e = self.n_peers * self.max_degree
+            if not self.csr_identity or self.n_edges != e:
+                raise ValueError("with_overlay: the CSR face must be the full-capacity "
+                                 "layout (E == N*K) — build the net with Net.build(..., "
+                                 "dynamic=True)")
+            kw.update(csr_col=topo.nbr.clamp(min=0).reshape(e),
+                      csr_eperm=topo.edge_perm.reshape(e),
+                      csr_e_valid=topo.nbr_ok.reshape(e))
+        return replace(self, **kw)
 
     @classmethod
     def build(cls, topo: graphlib.Topology, subs: graphlib.Subscriptions,
@@ -146,13 +185,19 @@ class Net:
               direct: np.ndarray | None = None,
               protocol: np.ndarray | None = None,
               edge_layout: str = "dense", fused: bool = False,
-              device=None) -> "Net":
+              device=None, dynamic: bool = False) -> "Net":
         """``edge_layout="csr"`` adds the flat edge space (the
         reference's static CSR build, without edge-shard padding);
-        ``fused`` is carried as the reference carries it."""
+        ``fused`` is carried as the reference carries it. ``dynamic=True``
+        builds for the mutable overlay (``TopoState``, ``with_overlay``):
+        no banded structure on either layout, and on CSR the full-capacity
+        layout (``ops/csr.build_csr_full``)."""
         if edge_layout not in ("dense", "csr"):
             raise ValueError(
                 f"edge_layout must be 'dense' or 'csr', got {edge_layout!r}")
+        if dynamic and fused:
+            raise ValueError("dynamic=True is incompatible with the fused kernel set "
+                             "(cfg.fused) — the composites assume a static edge list")
         dev = resolve_device(device)
         n = topo.n_peers
         if ip_group is None:
@@ -164,22 +209,30 @@ class Net:
         t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
         csr_kw: dict = {}
         if edge_layout == "csr":
-            ct = csr.build_csr(topo.nbr, topo.rev, topo.nbr_ok)
             i32 = torch.int32
-            csr_kw = dict(
+            if dynamic:
+                ct, e_valid = csr.build_csr_full(topo.nbr, topo.rev, topo.nbr_ok)
+                # every row owns its K-slot segment: an empty row may gain
+                # edges mid-run
+                nonempty = np.ones((n,), bool)
+                csr_kw = dict(csr_e_valid=t(e_valid, torch.bool), csr_identity=True)
+            else:
+                ct = csr.build_csr(topo.nbr, topo.rev, topo.nbr_ok)
+                nonempty = topo.degree > 0
+            csr_kw.update(
                 csr_col=t(ct.col, i32), csr_row=t(ct.row, i32),
                 csr_slot=t(ct.slot, i32), csr_eperm=t(ct.eperm, i32),
                 csr_e_of_nk=t(ct.e_of_nk, i32),
                 csr_row_ptr=t(ct.row_ptr, i32),
                 csr_seg_start=t(ct.seg_start, torch.bool),
                 csr_row_last=t(ct.row_last, i32),
-                csr_row_nonempty=t(topo.degree > 0, torch.bool),
+                csr_row_nonempty=t(nonempty, torch.bool),
             )
             # the banded fast paths key off band_off; a CSR build never
             # falls into them
             band = None
         else:
-            band = edges.detect_banded(topo.nbr, topo.rev, topo.nbr_ok)
+            band = None if dynamic else edges.detect_banded(topo.nbr, topo.rev, topo.nbr_ok)
         return cls(
             edge_layout=edge_layout,
             fused=bool(fused),
@@ -288,6 +341,36 @@ class Delivery:
 
 
 @dataclasses.dataclass
+class TopoState:
+    """The mutable overlay of a dynamic-topology build: the state's
+    mirror of the net's edge planes, rebound into the net every round
+    (``Net.with_overlay``) after the round's writes land
+    (``topo/dynamics.apply_mutation``). ``epoch`` counts the writes to
+    each slot. The static per-slot flags (``Net.outbound``,
+    ``Net.direct``) are not mirrored: a written slot keeps its build-time
+    flags, as in the JAX package."""
+
+    nbr: torch.Tensor        # [N, K] i32, -1 absent
+    nbr_ok: torch.Tensor     # [N, K] bool
+    rev: torch.Tensor        # [N, K] i32
+    edge_perm: torch.Tensor  # [N, K] i32 flat involution, absent self-point
+    epoch: torch.Tensor      # [N, K] i32 writes per slot
+
+    @classmethod
+    def from_net(cls, net: Net) -> "TopoState":
+        """Copies of the net's planes (the state is written, the net is
+        not); ``edge_perm`` as int32, the JAX leaf's dtype (the net keeps
+        it as int64 for indexing)."""
+        return cls(
+            nbr=net.nbr.to(torch.int32, copy=True),
+            nbr_ok=net.nbr_ok.clone(),
+            rev=net.rev.to(torch.int32, copy=True),
+            edge_perm=net.edge_perm.to(torch.int32, copy=True),
+            epoch=torch.zeros(net.nbr.shape, dtype=torch.int32, device=net.device),
+        )
+
+
+@dataclasses.dataclass
 class SimState:
     """Router-agnostic core of the step state."""
 
@@ -296,15 +379,18 @@ class SimState:
     msgs: MsgTable
     dlv: Delivery
     events: torch.Tensor  # [N_EVENTS] i32 cumulative trace counters
+    # the mutable overlay (dynamic-topology builds), None otherwise
+    topo: TopoState | None = None
 
     @classmethod
     def init(cls, n_peers: int, msg_slots: int, seed: int = 0, k: int = 0,
              device=None, n_edges: int | None = None,
-             val_delay: int = 0) -> "SimState":
+             val_delay: int = 0, topo: TopoState | None = None) -> "SimState":
         """``k`` is the topology's padded max degree; ``n_edges`` (pass
         ``net.n_edges``) selects the CSR-resident ``[E, W]`` first-arrival
         plane; ``val_delay`` > 0 adds the async-validation pipeline's
-        stages (its presence in the state is the configuration)."""
+        stages (its presence in the state is the configuration); ``topo``
+        (``TopoState.from_net(net)``) installs the mutable overlay."""
         dev = resolve_device(device)
         return cls(
             tick=torch.zeros((), dtype=torch.int32, device=dev),
@@ -312,6 +398,7 @@ class SimState:
             msgs=MsgTable.empty(msg_slots, dev),
             dlv=Delivery.empty(n_peers, msg_slots, k, dev, val_delay, n_edges=n_edges),
             events=zero_counters(dev),
+            topo=topo,
         )
 
 

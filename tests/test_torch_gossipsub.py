@@ -153,10 +153,18 @@ def test_unported_options_raise():
         TState.init(tnet, 64, px_cfg, score_params=tsp), torch.tensor([3, -1], dtype=torch.int32),
         torch.zeros(2, dtype=torch.int32), torch.ones(2, dtype=torch.bool))
     assert int(st.core.tick) == 1 and torch.equal(st.edge_live, tnet.nbr_ok)
-    for kw in ({"dynamic_peers": True}, {"telemetry": object()}, {"adversary": object()},
-               {"lift_scores": True}, {"sub_knowledge_holes": object()}):
+    # dynamic peers, the overlay and announce holes are ported
+    # (tests/test_torch_churn.py, _dynamics.py); the router's delay plane
+    # and the phase engine's lifted scores are not
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub_phase import make_gossipsub_phase_step
+
+    for make, kw in ((tmake, {"link_delay": np.zeros((N, 8), np.int32)}),
+                     (tmake, {"telemetry": object()}), (tmake, {"adversary": object()}),
+                     (tmake, {"lift_scores": True}),
+                     (lambda *a, **k: make_gossipsub_phase_step(a[0], a[1], 8, **k),
+                      {"lift_scores": True})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmake(tcfg, tnet, score_params=tsp, **kw)
+            make(tcfg, tnet, score_params=tsp, **kw)
     # the gater needs its parameters
     with pytest.raises(ValueError, match="gater_params"):
         tmake(dataclasses.replace(tcfg, gater_enabled=True), tnet, score_params=tsp)

@@ -33,12 +33,14 @@ from torch_parity import (
     HAZARD_K,
     HAZARD_M,
     hazard_banded_args,
+    dead_peers_live,
     hazard_bands,
     hazard_exchange_args,
     hazard_fused_args,
     hazard_graph,
     hazard_planes,
     hazard_rows,
+    with_dead_peers,
 )
 
 BANDS = hazard_bands()
@@ -192,6 +194,40 @@ def test_edge_exchange_kernel_on_hazard_bands(cuda, band, c):
         for a, b in zip(ref, got):
             if a is not None:
                 assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", FUSED_BANDS, ids=[b["name"] for b in FUSED_BANDS])
+def test_fused_kernels_with_dead_peers(cuda, band):
+    """A churn round's live mask on the hazard bands: a tenth of the peers
+    down, their rows and mirrored columns dead (tests/torch_parity.
+    dead_peers_live). edge_exchange at every C with scores, and
+    fused_delivery under every FUSED_CONFIGS entry with F_LIVE cleared
+    there, equal their plain versions bit for bit."""
+    n = band["n"]
+    live = torch.from_numpy(dead_peers_live(n, band).view(np.int32))
+    assert int((live == 0).sum()) > 0
+    for c in HAZARD_C:
+        wire, scores, _live = (_np_tensor(a) for a in hazard_exchange_args(n + c, band, c))
+        kw = dict(offsets=band["offsets"], revs=band["revs"], c=c, score_enabled=True)
+        ref = fr.edge_exchange_plain(wire, scores, live, **kw)
+        got = fr.edge_exchange(wire.to(cuda), scores.to(cuda), live.to(cuda), **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(ref, got):
+            assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32)), c
+    for i, (score, cohorts, cap) in enumerate(FUSED_CONFIGS):
+        args = [_np_tensor(a) for a in hazard_fused_args(n + i, band, 64)]
+        args[8] = torch.from_numpy(with_dead_peers(n, band, args[8].numpy()))
+        if not score:
+            args[4] = None
+        kw = dict(offsets=band["offsets"], revs=band["revs"], w=2, score_enabled=score,
+                  want_cohorts=cohorts, retrans_cap=cap)
+        ref = fr.fused_delivery_plain(*args, -10.0, -50.0, **kw)
+        got = fr.fused_delivery(*[None if a is None else a.to(cuda) for a in args], -10.0,
+                                -50.0, **kw)
+        torch.cuda.synchronize()
+        for key in ref:
+            assert torch.equal(ref[key], got[key].cpu()), (i, key)
 
 
 @pytest.mark.cuda
@@ -532,6 +568,44 @@ def test_step_makes_no_host_sync(cuda, engine):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["churn-per-round", "churn-phase", "overlay-dense",
+                                  "overlay-csr"])
+def test_dynamic_step_makes_no_host_sync(cuda, cell):
+    """A churn round or phase (peers going down) and a mutating-overlay
+    round (a storm's kill dispatch, writes landing) run on the card with no
+    host synchronisation, so their windows capture."""
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n = 512
+    po, pt, pv = (torch.as_tensor(a, device=cuda) for a in sweep.publish_schedule(16, n, 1))
+    kind, _, what = cell.partition("-")
+    if kind == "churn":
+        r = 8 if what == "phase" else 1
+        st, step, _t, _h = sweep.build_bench(n, 64, rounds_per_phase=r, device=cuda,
+                                             dynamic_peers=True)
+        up = torch.as_tensor(sweep.churn_up(n, rounds=16, down_at=1, up_at=12), device=cuda)
+        if r > 1:
+            call = lambda s, i: step(s, po[8 * i:8 * i + 8], pt[8 * i:8 * i + 8],
+                                     pv[8 * i:8 * i + 8], up[8 * i + 1], do_heartbeat=True)
+        else:
+            call = lambda s, i: step(s, po[i], pt[i], pv[i], up[i])
+    else:
+        st, step, storm, _s = sweep.build_overlay(n, 64, 8, edge_layout=what, device=cuda)
+        writes, upw = (torch.as_tensor(a, device=cuda) for a in storm.build())
+        call = lambda s, i: step(s, po[i], pt[i], pv[i], upw[i], writes[i])
+        st = call(call(st, 0), 1)     # dispatch 2 is the storm's kill dispatch
+    st = call(st, 0 if kind == "churn" else 2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = call(st, 1 if kind == "churn" else 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert not bool(st.up.all())
 
 
 @pytest.mark.cuda

@@ -265,6 +265,8 @@ def test_unported_window_options_raise():
     win = driver.make_window(step)
     with pytest.raises(NotImplementedError, match="item 3"):
         win(_fresh(tcfg, tnet, tsp), (po, pt, pv), consts=(torch.zeros(1),))
+    # the liveness schedule is ported (tests/test_torch_churn.py); the
+    # lifted plane is not, through make_scan either
     with pytest.raises(NotImplementedError, match="item 3"):
         driver.make_scan(step)(_fresh(tcfg, tnet, tsp), po, pt, pv,
-                               up=np.ones((2, N), bool))
+                               consts=(torch.zeros(1),))

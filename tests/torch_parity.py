@@ -255,6 +255,26 @@ def hazard_exchange_args(seed: int, band: dict, c: int) -> list:
     return [wire, score, live.astype(np.uint32)]
 
 
+def dead_peers_live(seed: int, band: dict, frac: float = 0.1) -> np.ndarray:
+    """[N, K] uint32 live words of ``band`` with whole peers dead, as a
+    churn round leaves them: a ``frac`` of the peers are down, so their
+    rows and the mirrored columns (every edge whose far end is down) are 0,
+    and every other edge is live."""
+    rng = np.random.default_rng(seed)
+    n = band["n"]
+    down = np.zeros(n, bool)
+    down[rng.choice(n, max(1, int(frac * n)), replace=False)] = True
+    far = (np.arange(n)[:, None] + np.asarray(band["offsets"])[None, :]) % n
+    return (~down[:, None] & ~down[far]).astype(np.uint32)
+
+
+def with_dead_peers(seed: int, band: dict, flags: np.ndarray) -> np.ndarray:
+    """fused_delivery's [N, K] flag words with F_LIVE (bit 4) cleared on
+    the edges of ``dead_peers_live``'s down peers, rows and columns."""
+    return np.where(dead_peers_live(seed, band) == 0, flags & ~np.int32(1 << 4),
+                    flags).astype(np.int32)
+
+
 def hazard_fused_args(seed: int, band: dict, m: int) -> list:
     """fused_delivery's array arguments on ``band`` (numpy, in the
     wrapper's order: carry_out .. valid_row), M slots a row: random words
@@ -356,7 +376,7 @@ def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None,
 
 def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None, observe=None,
-                             dormant=None, **kw):
+                             dormant=None, up=None, blacklist=None, **kw):
     """Run the JAX package's phase step and the port's (on the CPU) over
     ``rounds`` rounds of ``phase_schedule`` in phases of ``r`` from the same
     state, heartbeats as ``heartbeat_schedule(he, r)`` flags them, every
@@ -366,8 +386,11 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
     (``phase_schedule``'s ``n_topics``); ``schedule`` replaces the schedule
     with (po, pt, pv); ``observe(state)`` sees the port's state after every
     phase; ``dormant`` marks the [N, K] dormant edges of both initial
-    states. ``kw`` goes to both packages' make_gossipsub_phase_step, beside
-    the builds' own step options. Returns the port's final state."""
+    states. ``up`` ([rounds, N] bool) is a ``dynamic_peers`` step's
+    liveness schedule (a phase takes the row of its first round) and
+    ``blacklist`` ({phase: [N] bool}) sets both states' blacklist before
+    that phase. ``kw`` goes to both packages' make_gossipsub_phase_step,
+    beside the builds' own step options. Returns the port's final state."""
     import jax.numpy as jnp
     import torch
 
@@ -393,10 +416,15 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
     for p in range(rounds // r):
         sl = slice(p * r, (p + 1) * r)
         hb = flags[p % len(flags)]
+        jx, tx = (), ()
+        if up is not None:
+            jx, tx = (jnp.asarray(up[p * r]),), (torch.from_numpy(up[p * r]),)
+        if blacklist is not None and p in blacklist:
+            jst, tst = set_both_blacklists(jst, tst, blacklist[p])
         jst = jstep(jst, jnp.asarray(po[sl]), jnp.asarray(pt[sl]), jnp.asarray(pv[sl]),
-                    do_heartbeat=hb)
+                    *jx, do_heartbeat=hb)
         tst = tstep(tst, torch.from_numpy(po[sl]), torch.from_numpy(pt[sl]),
-                    torch.from_numpy(pv[sl]), do_heartbeat=hb)
+                    torch.from_numpy(pv[sl]), *tx, do_heartbeat=hb)
         diff_leaves(reference_leaves(jst), convert.state_leaves(tst), f"phase {p}")
         if observe is not None:
             observe(tst)
@@ -421,7 +449,7 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
                  config="default", fanout_slots=0, fanout_ttl=None, gater=None,
                  validation_capacity=0, adversary=None, queue_cap=0,
                  validation_delay_rounds=0, validation_delay_topic=None,
-                 params=None, options=None, direct=None):
+                 params=None, options=None, direct=None, dynamic=False):
     """(jax_cfg, jax_net, sp, torch_cfg, torch_net, torch_sp) for the
     bench's params on ring_lattice(n, d), or on ``topologies``, a
     (JAX Topology, port Topology) pair of the same graph, in
@@ -440,8 +468,9 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     overrides GossipSubParams fields (``do_px``, ``direct_connect_ticks``,
     the degrees), ``options`` config fields after the build
     (``edge_liveness``, ``trace_exact``, ``narrow_counters``), and
-    ``direct`` is the nets' [N, K] direct edges. The step options ride the
-    result (``step_options``)."""
+    ``direct`` is the nets' [N, K] direct edges; ``dynamic`` builds both
+    nets for the mutable overlay. The step options ride the result
+    (``step_options``)."""
     from go_libp2p_pubsub_tpu import config as jconfig
     from go_libp2p_pubsub_tpu import graph as jgraph
     from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubConfig as JCfg
@@ -475,7 +504,7 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     jgp = None if gater is None else jconfig.PeerGaterParams(**gater)
     tgp = None if gater is None else tconfig.PeerGaterParams(**gater)
     jnet = JNet.build(topologies[0], subscriptions, ip_group=ip_group, direct=direct,
-                      **layout)
+                      dynamic=dynamic, **layout)
     jcfg = JCfg.build(dataclasses.replace(jconfig.GossipSubParams(), **params),
                       jconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, gater_params=jgp,
@@ -484,7 +513,7 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
                                **(options or {}))
     jsp = score(jbsp(config, n_topics)[1])
     tnet = TNet.build(topologies[1], tsubs, ip_group=ip_group, direct=direct,
-                      device="cpu", **layout)
+                      device="cpu", dynamic=dynamic, **layout)
     tcfg = TCfg.build(dataclasses.replace(tconfig.GossipSubParams(), **params),
                       tconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, gater_params=tgp,
@@ -502,13 +531,28 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     return out
 
 
+def set_both_blacklists(jst, tst, mask):
+    """Both packages' ``set_blacklist`` on their states."""
+    from go_libp2p_pubsub_tpu.models.gossipsub import set_blacklist as jset
+
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import set_blacklist as tset
+
+    return jset(jst, mask), tset(tst, mask)
+
+
 def rounds_against_reference(builds, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None,
-                             static_heartbeat: bool = False, observe=None, dormant=None):
+                             static_heartbeat: bool = False, observe=None, dormant=None,
+                             up=None, writes=None, blacklist=None, step_kw=None,
+                             dynamic_topo: bool = False):
     """The per-round counterpart of ``phases_against_reference``: both
     packages' per-round steps from the same state over ``rounds`` rounds,
-    every leaf compared bit for bit after every round. Returns the port's
-    final state."""
+    every leaf compared bit for bit after every round. ``up`` ([rounds, N]
+    bool) and ``writes`` ([rounds, B, 4] int32) are the liveness and
+    mutation rows of a ``dynamic_peers`` / ``dynamic_topo`` step (both
+    packages' states then carry the overlay), ``blacklist`` ({round: [N]
+    bool}) sets both blacklists before that round, ``step_kw`` goes to both
+    step builders. Returns the port's final state."""
     import jax.numpy as jnp
     import torch
 
@@ -519,21 +563,28 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
     from go_libp2p_pubsub_tpu_torch.models.gossipsub import make_gossipsub_step
 
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant)
+    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant,
+                      dynamic_topo=dynamic_topo)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     jkw, tkw = step_options(builds)
-    jstep = jmake(jcfg, jnet, score_params=jsp, static_heartbeat=static_heartbeat, **jkw)
+    step_kw = step_kw or {}
+    jstep = jmake(jcfg, jnet, score_params=jsp, static_heartbeat=static_heartbeat, **jkw,
+                  **step_kw)
     tstep = make_gossipsub_step(tcfg, tnet, score_params=tsp,
-                                static_heartbeat=static_heartbeat, **tkw)
+                                static_heartbeat=static_heartbeat, **tkw, **step_kw)
     my_topics = tnet.my_topics.numpy() if tnet.n_topics > 1 else None
     po, pt, pv = schedule or phase_schedule(
         tnet.n_peers, rounds, codes, my_topics, tnet.n_topics if fanout_topics else 0)
     he = tcfg.heartbeat_every
     for t in range(rounds):
         hb = ({"do_heartbeat": t % he == 0} if static_heartbeat and he > 1 else {})
-        jst = jstep(jst, jnp.asarray(po[t]), jnp.asarray(pt[t]), jnp.asarray(pv[t]), **hb)
+        extra = [a[t] for a in (up, writes) if a is not None]
+        if blacklist is not None and t in blacklist:
+            jst, tst = set_both_blacklists(jst, tst, blacklist[t])
+        jst = jstep(jst, jnp.asarray(po[t]), jnp.asarray(pt[t]), jnp.asarray(pv[t]),
+                    *(jnp.asarray(a) for a in extra), **hb)
         tst = tstep(tst, torch.from_numpy(po[t]), torch.from_numpy(pt[t]),
-                    torch.from_numpy(pv[t]), **hb)
+                    torch.from_numpy(pv[t]), *(torch.from_numpy(a) for a in extra), **hb)
         diff_leaves(reference_leaves(jst), convert.state_leaves(tst), f"round {t}")
         if observe is not None:
             observe(tst)
