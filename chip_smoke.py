@@ -182,7 +182,32 @@ last line is printed:
 31. card against CPU at N=8192, every leaf after every round or phase: the
    churn cell in both engines and the overlay (its own power-law net,
    dense and CSR); each window against its eager loop on the card;
-32. the kernel launches of a traced GossipSub bench round
+32. the lifted score plane at N=100k (sweep.build_bench(lift_scores=True),
+   planes from lift_planes: A the config's own values, B every lifted
+   surface moved, C a CandidateParams of B with D = 8, Dlo = 6, Dhi = 12),
+   both engines: from every count at 0 the formation under A launches the
+   static build's route (1 edge_exchange and 1 fused_delivery a round,
+   1 + r edge_exchange a phase, 8 select_topk a heartbeat); every
+   edge_exchange, the first fused_delivery (its threshold row read from
+   the plane on the card) and the first select_topk (the plane's widths)
+   of one dispatch under C against their plain versions bit for bit; then
+   eager, window, window, eager under A (rates beside phase 18's static
+   ones, peak memory, capture seconds), the last window replaying a
+   segment under B and one under C with ``captures`` still 1; mesh
+   degrees in [Dlo, Dhi] of the plane in force;
+33. the phase engine's count path (score_counts=True) and the per-plane
+   wire form (wire_coalesced=False) of the phase and per-round benches at
+   N=100k, eager and windowed, each captured block on the static build's
+   kernel route, beside phase 18's plain rates; the bench CLI's line under
+   BENCH_WIRE_COALESCED=0;
+34. card against CPU at N=8192, every leaf after every round or phase, and
+   windows against eager: the lifted step in both engines, dense banded
+   and CSR-resident, under plane A then B (one window capture replaying
+   both); the count path; the per-plane form in both engines; FloodSub and
+   RandomSub given a plane (equal to the runs without it); forward_mask in
+   the shared delivery round on the lattice (delivery_banded not launched)
+   and CSR-resident (csr_delivery launched once, its fwd gated);
+35. the kernel launches of a traced GossipSub bench round
    (perf/profile.py), with those of the score path's subnormal flush
    (hardshrink, copysign) apart (2,287.75 a bench round and 466.25 a
    phase-bench delivery round, or the script fails: the options off
@@ -1856,14 +1881,15 @@ def window_parity(sweep, convert, dev, counters) -> dict:
 
 
 def window_bench(sweep, driver, dev, card, counters, engine: str, observe=None,
-                 **bench_kw) -> dict:
+                 modes=("eager", "window", "window", "eager"), **bench_kw) -> dict:
     """Phases 18, 25 and 27: the phase bench (``engine="phase"``) or the
     per-round bench at N=100k (with ``bench_kw``, the delivery core's
     options or the PX cell's), eager and windowed in turns (eager, window,
     window, eager). Each turn builds afresh, forms the mesh, runs the
     formation and one untimed segment, then times one segment; a window
     turn's untimed segment captures its block. ``observe(state) -> dict``
-    reads each turn's final state into its record. Returns the turns."""
+    reads each turn's final state into its record; ``modes`` are the turns
+    (phase 33 takes one of each). Returns the turns."""
     import torch
 
     r = PHASE_R if engine == "phase" else 1
@@ -1871,7 +1897,7 @@ def window_bench(sweep, driver, dev, card, counters, engine: str, observe=None,
     f = PHASE_FORMATION * r if engine == "phase" else FORMATION_ROUNDS
     po, pt, pv = sweep.publish_schedule(f + 2 * m, N_FULL, 1, None)
     turns = []
-    for mode in ("eager", "window", "window", "eager"):
+    for mode in modes:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1931,16 +1957,20 @@ def window_bench(sweep, driver, dev, card, counters, engine: str, observe=None,
     return turns
 
 
-def bench_cli(card: str, config: str = "default") -> dict:
-    """Phases 19 and 22: the bench CLI's measurement of ``config`` at a
+def bench_cli(card: str, config: str = "default", coalesced: bool = True) -> dict:
+    """Phases 19, 22 and 33: the bench CLI's measurement of ``config`` at a
     segment of ``BENCH_CLI_ROUNDS`` rounds (the CLI's default is 1600), its
-    line printed (the continuity rate with the default config only)."""
+    line printed (the continuity rate with the default config only; with
+    ``coalesced`` False under ``BENCH_WIRE_COALESCED=0``)."""
     from go_libp2p_pubsub_tpu_torch import bench
 
     t0 = time.perf_counter()
     cont = "1" if config == "default" else "0"
-    line = bench.bench_line({"BENCH_CONFIG": config, "BENCH_ROUNDS": str(BENCH_CLI_ROUNDS),
-                             "BENCH_CONTINUITY": cont})
+    env = {"BENCH_CONFIG": config, "BENCH_ROUNDS": str(BENCH_CLI_ROUNDS),
+           "BENCH_CONTINUITY": cont}
+    if not coalesced:
+        env["BENCH_WIRE_COALESCED"] = "0"
+    line = bench.bench_line(env)
     if line.get("schema") != 3 or line.get("unit") != "delivery-rounds/s":
         raise AssertionError(f"bench line: {line}")
     if not (line["value"] > 0 and (cont == "0" or line["continuity_r1_ticks_per_sec"] > 0)):
@@ -1948,7 +1978,10 @@ def bench_cli(card: str, config: str = "default") -> dict:
     want_n = 50_000 if config == "sybil" else N_FULL
     if line["fingerprint"]["config"] != config or line["fingerprint"]["n_peers"] != want_n:
         raise AssertionError(f"bench line of {config}: {line['fingerprint']}")
-    say(f"bench CLI BENCH_CONFIG={config} at BENCH_ROUNDS={BENCH_CLI_ROUNDS} (the CLI's "
+    if line["fingerprint"]["engine"]["wire_coalesced"] != coalesced:
+        raise AssertionError(f"bench line of {config}: wire form {line['fingerprint']['engine']}")
+    wire = "" if coalesced else " BENCH_WIRE_COALESCED=0"
+    say(f"bench CLI BENCH_CONFIG={config}{wire} at BENCH_ROUNDS={BENCH_CLI_ROUNDS} (the CLI's "
         f"default segment is 1600 rounds) in {time.perf_counter() - t0:.1f} s, on {card}:")
     say(json.dumps(line))
     return line
@@ -2121,14 +2154,20 @@ def config_bench(sweep, driver, config: str, engine: str, card, dev, counters) -
 
 
 def config_parity(sweep, driver, convert, config: str, dev, label: str | None = None,
-                  **bench_kw) -> None:
-    """Phases 21 and 25: a config (with ``bench_kw``, the delivery core's
-    options, under ``label``) on the card against the CPU (plain versions)
-    at N=8192 from the same seed, events counted — the per-round step every
-    leaf after each round, the phase engine after form_mesh and each phase —
-    then each engine's window against its eager loop on the card, every
-    leaf, in two calls."""
+                  plane=None, **bench_kw) -> None:
+    """Phases 21, 25 and 34: a config (with ``bench_kw``, the delivery
+    core's options or the build's forms, under ``label``) on the card
+    against the CPU (plain versions) at N=8192 from the same seed, events
+    counted — the per-round step every leaf after each round, the phase
+    engine after form_mesh and each phase — then each engine's window
+    against its eager loop on the card, every leaf, in two calls. A lifted
+    build takes ``plane(device)``, a pair of planes: the first for the
+    first half of the dispatches (and form_mesh), the second after, one
+    window replaying both without a second capture."""
     import torch
+
+    def consts(planes, i, n):
+        return () if planes is None else (planes[0] if i < n // 2 else planes[1],)
 
     r = PHASE_R
     config_name = config
@@ -2141,9 +2180,10 @@ def config_parity(sweep, driver, convert, config: str, dev, label: str | None = 
             st, step, n_topics, honest = sweep.build_bench(
                 N_PARITY, M_SLOTS, config=config_name, count_events=True, rounds_per_phase=rr,
                 device=d, **bench_kw)
+            planes = None if plane is None else plane(torch.device(d))
             if rr > 1:
-                st = driver.form_mesh(step, st, rounds_per_phase=rr)
-            sides[d] = (st, step)
+                st = driver.form_mesh(step, st, rounds_per_phase=rr, consts=consts(planes, 0, 2))
+            sides[d] = (st, step, planes)
             sched = sweep.publish_schedule(
                 max(CONFIG_PARITY_ROUNDS, CONFIG_PARITY_PHASES * r), N_PARITY, n_topics,
                 honest, seed=5)
@@ -2151,13 +2191,14 @@ def config_parity(sweep, driver, convert, config: str, dev, label: str | None = 
         n_disp = CONFIG_PARITY_PHASES if rr > 1 else CONFIG_PARITY_ROUNDS
         for i in range(n_disp):
             sl = slice(i * rr, (i + 1) * rr)
-            for d, (st, step) in list(sides.items()):
+            for d, (st, step, planes) in list(sides.items()):
+                c = consts(planes, i, n_disp)
                 if rr > 1:
                     st = sweep.run_phases(st, step, po[sl], pt[sl], pv[sl], rounds_per_phase=rr,
-                                          heartbeat_every=rr)
+                                          heartbeat_every=rr, consts=c)
                 else:
-                    st = sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl])
-                sides[d] = (st, step)
+                    st = sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl], consts=c)
+                sides[d] = (st, step, planes)
             leaves_equal(convert.state_leaves(sides["cpu"][0]),
                          convert.state_leaves(sides["cuda"][0]),
                          f"{config} {engine} card against CPU, dispatch {i}")
@@ -2172,27 +2213,31 @@ def config_parity(sweep, driver, convert, config: str, dev, label: str | None = 
                 N_PARITY, M_SLOTS, config=config_name, count_events=True, rounds_per_phase=rr,
                 device=dev, **bench_kw)
             po, pt, pv = sweep.publish_schedule(wr, N_PARITY, n_topics, honest, seed=6)
+            planes = None if plane is None else plane(dev)
             if rr > 1:
-                st = driver.form_mesh(step, st, rounds_per_phase=rr)
+                st = driver.form_mesh(step, st, rounds_per_phase=rr, consts=consts(planes, 0, 2))
+            half = wr // 2
             if mode == "eager":
-                st = (sweep.run_phases(st, step, po, pt, pv, rounds_per_phase=rr,
-                                       heartbeat_every=rr) if rr > 1
-                      else sweep.run_rounds(st, step, po, pt, pv))
+                for sl, c in ((slice(0, half), consts(planes, 0, 2)),
+                              (slice(half, wr), consts(planes, 1, 2))):
+                    st = (sweep.run_phases(st, step, po[sl], pt[sl], pv[sl], rounds_per_phase=rr,
+                                           heartbeat_every=rr, consts=c) if rr > 1
+                          else sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl], consts=c))
             else:
                 scan = (driver.make_scan(step, heartbeat_every=rr, rounds_per_phase=rr, unroll=2)
                         if rr > 1 else driver.make_scan(step, static_heartbeat=False, unroll=4))
-                half = wr // 2
-                st = scan(st, po[:half], pt[:half], pv[:half])
-                st = scan(st, po[half:], pt[half:], pv[half:])
+                st = scan(st, po[:half], pt[:half], pv[:half], consts=consts(planes, 0, 2))
+                st = scan(st, po[half:], pt[half:], pv[half:], consts=consts(planes, 1, 2))
                 torch.cuda.synchronize()
-                if scan.window.replays < 2:
+                if scan.window.replays < 2 or scan.window.captures != 1:
                     raise AssertionError(f"{config} {engine} window: {scan.window.replays} "
-                                         "graph replays")
+                                         f"graph replays, {scan.window.captures} captures")
             leaves.append(convert.state_leaves(st))
             del st, step
         leaves_equal(leaves[0], leaves[1], f"{config} {engine} window against eager")
         say(f"{config} {engine} window N={N_PARITY}: equal to the eager loop leaf for leaf "
-            f"after {wr} rounds in two calls")
+            f"after {wr} rounds in two calls"
+            + (", one capture replaying both planes" if plane is not None else ""))
     say(f"{config} parity phases: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2434,6 +2479,304 @@ def flood_capped(sweep, convert, counters, dev, card) -> dict:
     del st, step
     flood_parity(sweep, convert, dict(graph="lattice", layout="dense", queue_cap=2))
     return {"rate": m / dt, "peak": peak}
+
+
+#: the candidate plane's mesh degrees (phases 32-34)
+CANDIDATE_DEGREES = dict(D=8, Dlo=6, Dhi=12)
+#: the bench default config's degrees: every mesh degree lies in [Dlo, Dhi]
+DEFAULT_DEGREES = (5, 12)
+
+
+def lift_planes(sweep, dev) -> dict:
+    """The lifted planes of phases 32-34 on ``dev``: ``A`` the bench default
+    config's own values (``sweep.bench_plane``: what the static build
+    computes); ``B`` moves every lifted surface (thresholds -4 / -20 / -40
+    / 5 / 10, P1's weight halved, P2's weight 2.0); ``A+`` and ``B+`` the
+    same as CandidateParams with the config's degrees, and ``C`` a
+    CandidateParams of B's scores and ``CANDIDATE_DEGREES``: the three
+    candidate planes share one structure, so one captured window replays
+    them all."""
+    import torch
+
+    a = sweep.bench_plane(device=dev)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    b = dataclasses.replace(
+        a, w1=a.w1 * 0.5, w2=torch.full_like(a.w2, 2.0), gossip_threshold=f32(-4.0),
+        publish_threshold=f32(-20.0), graylist_threshold=f32(-40.0),
+        accept_px_threshold=f32(5.0), opportunistic_graft_threshold=f32(10.0))
+    from go_libp2p_pubsub_tpu_torch.score.params import CandidateParams
+
+    own = sweep.bench_plane(device=dev, mesh=True).mesh
+    moved = dataclasses.replace(own, **{k: torch.tensor(v, dtype=torch.int32, device=dev)
+                                        for k, v in CANDIDATE_DEGREES.items()})
+    return {"A": a, "B": b, "A+": CandidateParams(score=a, mesh=own),
+            "B+": CandidateParams(score=b, mesh=own), "C": CandidateParams(score=b, mesh=moved)}
+
+
+def lift_launches(engine: str, dispatches: int) -> dict:
+    """The launches a lifted run of the bench default config must make: the
+    kernel route of the static build (a lifted round 1 edge_exchange and 1
+    fused_delivery, a lifted phase 1 + r edge_exchange, 8 select_topk a
+    heartbeat)."""
+    if engine == "per-round":
+        return {"edge_exchange": dispatches, "fused_delivery": dispatches, "csr_delivery": 0,
+                "delivery_banded": 0, "select_topk": dispatches * SELECTIONS_PER_HEARTBEAT}
+    return {"edge_exchange": dispatches * (1 + PHASE_R), "fused_delivery": 0,
+            "csr_delivery": 0, "delivery_banded": 0,
+            "select_topk": dispatches * SELECTIONS_PER_HEARTBEAT}
+
+
+def lift_cell(sweep, driver, dev, card, counters, engine: str, static_turns) -> dict:
+    """Phase 32: the lifted bench default config at N=100k in one engine.
+
+    The planes are ``lift_planes``' candidate forms (A+, B+, C: one
+    structure). Gates: from every count at 0, form_mesh (phase) and the
+    formation under A+ must launch ``lift_launches``; then one more
+    dispatch under C records its kernel calls, and the first
+    fused_delivery (its threshold row read from the plane on the device)
+    and the first select_topk (the plane's widths) must equal their plain
+    versions bit for bit, every edge_exchange too. Turns: eager, window,
+    window, eager under A+, each timed over one segment after the
+    formation and an untimed one (the window's capture); each window then
+    replays one segment under B+ and one under C, and its ``captures``
+    must stay 1. Mesh degrees lie in [Dlo, Dhi] of the plane in force.
+    Returns the rates, peaks, captures and launches."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
+    from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
+
+    r = PHASE_R if engine == "phase" else 1
+    m = PHASE_MEASURED * r if engine == "phase" else MEASURED_ROUNDS
+    f = PHASE_FORMATION * r if engine == "phase" else FORMATION_ROUNDS
+    po, pt, pv = sweep.publish_schedule(f + 4 * m + r, N_FULL, 1, None)
+    planes = {k[0]: v for k, v in lift_planes(sweep, dev).items() if k in ("A+", "B+", "C")}
+    out = {"turns": []}
+
+    def degrees(st, rng, where):
+        deg = st.mesh.sum(-1)
+        lo, hi = int(deg.min()), int(deg.max())
+        if not (rng[0] <= lo and hi <= rng[1]):
+            raise AssertionError(f"lifted {engine} {where}: mesh degrees [{lo}, {hi}] outside "
+                                 f"[Dlo, Dhi] = {list(rng)}")
+        return [lo, hi]
+
+    for mode in ("eager", "window", "window", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, rounds_per_phase=r, device=dev,
+                                             lift_scores=True)
+        first = not out["turns"]
+        if first:
+            for mod in counters:
+                mod.reset_launch_counts()
+        eager = {}
+        for key, plane in planes.items():
+            if r > 1:
+                eager[key] = (lambda st, sl, plane=plane: sweep.run_phases(
+                    st, step, po[sl], pt[sl], pv[sl], rounds_per_phase=r, heartbeat_every=r,
+                    consts=(plane,)))
+            else:
+                eager[key] = (lambda st, sl, plane=plane: sweep.run_rounds(
+                    st, step, po[sl], pt[sl], pv[sl], consts=(plane,)))
+        if r > 1:
+            st = driver.form_mesh(step, st, rounds_per_phase=r, consts=(planes["A"],))
+        st = eager["A"](st, slice(0, f))
+        rec = {"mode": mode}
+        if first:
+            want = lift_launches(engine, f // r + (r > 1))
+            launched = counts(counters)
+            if launched != want:
+                raise AssertionError(f"lifted {engine} launches {launched} in the formation, "
+                                     f"expected {want}")
+            out["launches"] = dict(launched, dispatches=f // r + (r > 1))
+            nxt = slice(f, f + r)
+            st, calls = record_calls(lambda: eager["C"](st, nxt),
+                                     [(fr, "edge_exchange"), (fr, "fused_delivery"),
+                                      (sk, "select_topk")], keep=1)
+            if r == 1 and "thr_row" not in calls[(fr, "fused_delivery")][0][1]:
+                raise AssertionError("lifted fused_delivery: no device threshold row")
+            if not calls[(sk, "select_topk")]:
+                raise AssertionError(f"lifted {engine}: no select_topk call under the plane")
+            out["checked_calls"] = check_config_calls(calls, f"lifted {engine}")
+            widths = calls[(sk, "select_topk")][0][0][2]
+            out["first_select_widths"] = sorted(set(widths.tolist()))
+            del calls
+            start = f + r
+        else:
+            start = f
+        run = lambda st, sl: eager["A"](st, sl)
+        if mode == "window":
+            scan = driver.make_scan(step, heartbeat_every=r, rounds_per_phase=r,
+                                    static_heartbeat=r > 1, unroll=2 if r > 1 else 4)
+            run = lambda st, sl, plane=planes["A"]: scan(st, po[sl], pt[sl], pv[sl],
+                                                         consts=(plane,))
+        st = run(st, slice(start, start + m))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = run(st, slice(start + m, start + 2 * m))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec.update(rate=m / dt, peak=torch.cuda.max_memory_allocated(),
+                   degrees_A=degrees(st, DEFAULT_DEGREES, f"{mode} under A"))
+        if mode == "window":
+            win = scan.window
+            rec.update(capture_seconds=win.capture_seconds, captures=win.captures,
+                       block_launches={k: v for k, v in win.block_launches.items() if v},
+                       block_dispatches=win.block_dispatches)
+            want = lift_launches(engine, win.block_dispatches)
+            if rec["block_launches"] != {k: v for k, v in want.items() if v}:
+                raise AssertionError(f"lifted {engine} window: a captured block launches "
+                                     f"{rec['block_launches']}, expected {want}")
+            for key, rng in (("B", DEFAULT_DEGREES),
+                             ("C", (CANDIDATE_DEGREES["Dlo"], CANDIDATE_DEGREES["Dhi"]))):
+                sl = slice(start + 2 * m if key == "B" else start + 3 * m,
+                           start + 3 * m if key == "B" else start + 4 * m)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = run(st, sl, planes[key])
+                torch.cuda.synchronize()
+                rec[f"rate_{key}"] = m / (time.perf_counter() - t0)
+                rec[f"degrees_{key}"] = degrees(st, rng, f"window under {key}")
+            if win.captures != 1:
+                raise AssertionError(f"lifted {engine} window: {win.captures} captures over "
+                                     "planes A+, B+ and C")
+            del scan, run, win
+        out["turns"].append(rec)
+        unit = "delivery-rounds/s" if r > 1 else "rounds/s"
+        extra = ""
+        if mode == "window":
+            extra = (f", then a replay under B {rec['rate_B']:.3f} and under the candidate C "
+                     f"{rec['rate_C']:.3f} with captures {rec['captures']} "
+                     f"(capture {rec['capture_seconds']:.3f} s; a block of "
+                     f"{rec['block_dispatches']} dispatches launches {rec['block_launches']}; "
+                     f"degrees under C {rec['degrees_C']})")
+        say(f"lifted {engine} bench {mode} N={N_FULL}: {rec['rate']:.3f} {unit} under A over "
+            f"{m} rounds, peak memory {rec['peak']} bytes, degrees {rec['degrees_A']}{extra}, "
+            f"on {card}")
+        del st, step
+    static = [round(t["rate"], 3) for t in static_turns if t["mode"] == "window"]
+    lifted = [round(t["rate"], 3) for t in out["turns"] if t["mode"] == "window"]
+    say(f"lifted {engine} bench windowed {lifted} against the static build's {static} "
+        f"(phase 18, this process); launches {out['launches']}; calls checked "
+        f"{out['checked_calls']}; the first select_topk's widths {out['first_select_widths']}")
+    out["static_window_rates"] = static
+    return out
+
+
+def window_gates(engine: str, turns, **bench_kw) -> None:
+    """The kernel route of a captured block of phase 33's windowed runs:
+    1 edge_exchange and 1 fused_delivery a round, 1 + r edge_exchange a
+    phase, 8 select_topk a heartbeat."""
+    for t in turns:
+        if t["mode"] != "window":
+            continue
+        want = lift_launches(engine, t["block_dispatches"])
+        if t["block_launches"] != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{engine} {bench_kw}: a captured block launches "
+                                 f"{t['block_launches']}, expected {want}")
+
+
+def forward_mask_parity(dev, counters) -> dict:
+    """Phase 34's forward_mask cells: ``common.delivery_round`` with a
+    random [N, W] forward mask at N=8192 on the banded lattice (which
+    leaves delivery_banded for the composite) and CSR-resident (where
+    csr_delivery still runs and the mask gates its fwd), card against CPU
+    bit for bit, with the launches of each route."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import graph
+    from go_libp2p_pubsub_tpu_torch.models import common
+    from go_libp2p_pubsub_tpu_torch.ops import bitset
+    from go_libp2p_pubsub_tpu_torch.state import Delivery, MsgTable, Net
+
+    n, m = N_PARITY, M_SLOTS
+    w = bitset.n_words(m)
+    rng = np.random.default_rng(11)
+    u32 = lambda *shape: torch.from_numpy(rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+                                          .astype(np.uint32).view(np.int32))
+    out = {}
+    for layout in ("dense", "csr"):
+        sides = {}
+        base = None
+        for d in ("cpu", dev):
+            net = Net.build(graph.ring_lattice(n, d=8), graph.subscribe_all(n, 1),
+                            edge_layout=layout, fused=layout == "csr", device=d)
+            if base is None:
+                k = net.max_degree
+                fe_rows = n * k if layout == "dense" else net.n_edges
+                base = dict(have=u32(n, w), fwd=u32(n, w), fe=u32(fe_rows, w) & u32(fe_rows, w),
+                            fr=torch.from_numpy(rng.integers(-1, 5, size=(n, m)).astype(np.int32)),
+                            mask=u32(n, k, w), fm=u32(n, w),
+                            origin=torch.from_numpy(rng.integers(-1, n, size=m).astype(np.int32)),
+                            valid=torch.from_numpy(rng.random(m) < 0.8))
+            fe = base["fe"].reshape(n, k, w) if layout == "dense" else base["fe"]
+            dlv = Delivery(have=base["have"].to(d), fwd=base["fwd"].to(d),
+                           first_round=base["fr"].to(d), fe_words=fe.to(d))
+            msgs = MsgTable(topic=torch.zeros(m, dtype=torch.int32, device=d),
+                            origin=base["origin"].to(d),
+                            birth=torch.zeros(m, dtype=torch.int32, device=d),
+                            valid=base["valid"].to(d),
+                            ignored=torch.zeros(m, dtype=torch.bool, device=d),
+                            cursor=torch.tensor(0, dtype=torch.int32, device=d))
+            for mod in counters:
+                mod.reset_launch_counts()
+            got, info = common.delivery_round(net, msgs, dlv, base["mask"].to(d),
+                                              torch.tensor(3, dtype=torch.int32, device=d),
+                                              forward_mask=base["fm"].to(d))
+            torch.cuda.synchronize()
+            sides[str(d)] = ([getattr(got, x).cpu() for x in ("have", "fwd", "first_round",
+                                                              "fe_words")]
+                             + [info.trans.cpu(), info.new_words.cpu()], counts(counters))
+        (ref, _), (card_out, launched) = sides["cpu"], sides[str(dev)]
+        for i, (a, b) in enumerate(zip(ref, card_out)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"forward_mask {layout}: output {i} differs card and CPU")
+        if bool(((card_out[1] & ~base["fm"]) != 0).any()):
+            raise AssertionError(f"forward_mask {layout}: fwd outside the mask")
+        want = ({"delivery_banded": 0, "csr_delivery": 0} if layout == "dense"
+                else {"delivery_banded": 0, "csr_delivery": 1})
+        if {k: launched[k] for k in want} != want:
+            raise AssertionError(f"forward_mask {layout}: launches {launched}, expected {want}")
+        out[layout] = {k: launched[k] for k in want}
+        say(f"forward_mask {layout} N={n}: card == CPU bit for bit, fwd within the mask, "
+            f"launches {out[layout]}")
+    return out
+
+
+def plane_engines_parity(sweep, convert, dev) -> None:
+    """Phase 34's FloodSub and RandomSub cells: each takes a lifted plane
+    (FloodSub's ``score_plane``, a lifted RandomSub step's last positional)
+    and ignores it, card against CPU every leaf after each of 12 rounds at
+    N=8192 on the lattice, and equal to the same engine run without it."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.models import floodsub as fs
+    from go_libp2p_pubsub_tpu_torch.models import randomsub as rs
+
+    po, pt, pv = sweep.publish_schedule(12, N_PARITY, 1, None, seed=5)
+    finals = {}
+    for d in ("cpu", dev):
+        plane = lift_planes(sweep, d)["B"]
+        st_f, flood = sweep.build_floodsub(N_PARITY, M_SLOTS, device=d)
+        st_r, rsr = sweep.build_randomsub(N_PARITY, M_SLOTS, size_estimate=36, device=d)
+        lifted = rs.make_randomsub_step(rsr.net, size_estimate=36, lift_scores=True)
+        st_f0, st_r0 = st_f, st_r
+        for t in range(12):
+            args = [torch.as_tensor(a[t], device=d) for a in (po, pt, pv)]
+            st_f = fs.floodsub_step(flood.net, st_f, *args, score_plane=plane)
+            st_r = lifted(st_r, *args, plane)
+            st_f0, st_r0 = flood(st_f0, *args), rsr(st_r0, *args)
+        for name, a, b in (("floodsub", st_f, st_f0), ("randomsub", st_r, st_r0)):
+            leaves_equal(convert.state_leaves(b), convert.state_leaves(a),
+                         f"{name} with the plane against without it on {d}")
+        finals[str(d)] = (convert.state_leaves(st_f), convert.state_leaves(st_r))
+    for i, name in enumerate(("floodsub", "randomsub")):
+        leaves_equal(finals["cpu"][i], finals[str(dev)][i], f"{name} with the plane")
+    say(f"floodsub and randomsub with a lifted plane N={N_PARITY}: card == CPU every leaf "
+        "after 12 rounds, equal to the runs without it")
 
 
 def leaves_equal(a: dict, b: dict, where: str):
@@ -2804,7 +3147,47 @@ def main() -> int:
     # 31. card against CPU at N=8192 and windows against eager, both cells
     dynamic_parity(sweep, driver, convert, dev)
 
-    # 32. launches of a bench round, a phase-bench phase and a windowed
+    # 32. the lifted score plane at full width, both engines: the kernel
+    # route, the first calls against plain, eager and windowed in turns,
+    # one window replaying three planes
+    lift = {engine: lift_cell(sweep, driver, dev, card, counters, engine, turns)
+            for engine, turns in (("per-round", round_turns), ("phase", phase_turns))}
+    rec_of = {rec["name"]: rec for rec in records}
+    for kernel in ("edge_exchange", "fused_delivery", "select_topk"):
+        rec_of[kernel]["lift_launches"] = {e: v["launches"][kernel] for e, v in lift.items()}
+    say("lift cell: " + json.dumps({"card": card, **lift}))
+
+    # 33. the count path and the per-plane wire form at full width, eager
+    # and windowed beside the plain config; the bench CLI's per-plane line
+    forms = {}
+    for label, engine, kw in (("score_counts", "phase", dict(score_counts=True)),
+                              ("per-plane", "phase", dict(wire_coalesced=False)),
+                              ("per-plane", "per-round", dict(wire_coalesced=False))):
+        turns = window_bench(sweep, driver, dev, card, counters, engine,
+                             modes=("eager", "window"), **kw)
+        window_gates(engine, turns, **kw)
+        forms[f"{label} {engine}"] = turns
+    forms["plain (phase 18)"] = {"phase": phase_turns, "per-round": round_turns}
+    say("forms cell: " + json.dumps({"card": card, **forms}))
+    bench_cli(card, coalesced=False)
+
+    # 34. card against CPU at N=8192 and windows against eager: the lifted
+    # step (plane A then B, dense banded and CSR-resident), the count path,
+    # the per-plane form; FloodSub and RandomSub with a plane; forward_mask
+    for layout in ("dense", "csr"):
+        config_parity(sweep, driver, convert, "default", dev, label=f"default lifted {layout}",
+                      plane=lambda d: (lift_planes(sweep, d)["A"], lift_planes(sweep, d)["B"]),
+                      lift_scores=True, edge_layout=layout, fused=layout == "csr")
+    config_parity(sweep, driver, convert, "default", dev, label="default score_counts",
+                  score_counts=True)
+    config_parity(sweep, driver, convert, "default", dev, label="default per-plane",
+                  wire_coalesced=False)
+    plane_engines_parity(sweep, convert, dev)
+    fm = forward_mask_parity(dev, counters)
+    for kernel in ("delivery_banded", "csr_delivery"):
+        rec_of[kernel]["forward_mask_launches"] = {layout: fm[layout][kernel] for layout in fm}
+
+    # 35. launches of a bench round, a phase-bench phase and a windowed
     # phase, traced; then the configs' rounds and phases
     bench_launches(card)
     config_traced_launches(card)

@@ -16,8 +16,9 @@ It reads the root bench's variables: ``BENCH_CONFIG`` (``default``,
 ``eth2`` or ``sybil``), ``BENCH_N`` (100000; 50000 for ``sybil``), ``BENCH_M`` (64),
 ``BENCH_PHASE_R`` (8), ``BENCH_HB`` (r, or 1 at r=1), ``BENCH_ROUNDS`` (1600
 rounds a timed window), ``BENCH_UNROLL`` (rounds a captured block),
-``BENCH_CONTINUITY`` and ``BENCH_EDGE_LAYOUT`` (``dense`` or ``csr``;
-``BENCH_WIRE_COALESCED=0`` raises: the per-plane wire path is not ported).
+``BENCH_CONTINUITY``, ``BENCH_EDGE_LAYOUT`` (``dense`` or ``csr``) and
+``BENCH_WIRE_COALESCED`` (``0`` runs the per-plane wire form, which the
+fingerprint's ``engine.wire_coalesced`` records).
 ``BENCH_PRNG`` may be empty or ``threefry2x32``, the port's one generator;
 ``BENCH_PLATFORM`` does not apply (the port runs on the card).
 """
@@ -52,12 +53,10 @@ def bench_line(env=None, device=None) -> dict:
     layout = env.get("BENCH_EDGE_LAYOUT", "dense")
     if layout not in ("dense", "csr"):
         raise ValueError(f"BENCH_EDGE_LAYOUT must be 'dense' or 'csr', got {layout!r}")
-    if env.get("BENCH_WIRE_COALESCED", "1") == "0":
-        raise NotImplementedError(
-            "BENCH_WIRE_COALESCED=0: the per-plane wire path is not ported — ROADMAP §1 item 3")
+    coalesced = env.get("BENCH_WIRE_COALESCED", "1") != "0"
 
     res = measure_rate(config, n_peers, msg_slots, he, r, seg, reps=3, unroll=unroll,
-                       edge_layout=layout, device=device)
+                       edge_layout=layout, device=device, wire_coalesced=coalesced)
     if res is None:
         return {"metric": "error", "value": 0, "unit": "", "vs_baseline": 0}
     value, n_peers, unroll_used, _scan = res
@@ -75,13 +74,14 @@ def bench_line(env=None, device=None) -> dict:
             "%d rounds, heartbeat once per %d — see BASELINE.md equivalence rule" % (r, he))
         if env.get("BENCH_CONTINUITY", "1") == "1":
             cont = measure_rate(config, n_peers, msg_slots, 1, 1, seg, reps=2,
-                                edge_layout=layout, device=device)
+                                edge_layout=layout, device=device, wire_coalesced=coalesced)
             if cont is not None:
                 out["continuity_r1_ticks_per_sec"] = round(cont[0], 2)
                 out["continuity_r1_n"] = cont[1]
     out["fingerprint"] = workload_fingerprint(config, n_peers, msg_slots, he, r,
                                               seg_rounds=seg, unroll=unroll_used,
-                                              edge_layout=layout, device=device)
+                                              edge_layout=layout, device=device,
+                                              wire_coalesced=coalesced)
     return out
 
 

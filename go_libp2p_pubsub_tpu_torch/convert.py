@@ -8,6 +8,10 @@ on both sides, and the mutable overlay of a dynamic-topology state
 (``.core.topo``, ``TopoState``) likewise. Narrowed int16 counters keep
 their dtype both ways.
 
+``score_plane_from_reference`` carries a lifted score plane the same way
+(a JAX ``ScoreParams`` or ``CandidateParams``'s leaves, keyed ``.w2``,
+``.score.w2``, ``.mesh.D``, ...), so both packages can run one plane.
+
 Leaves are keyed by their STATE_SCHEMA.json path (``.core.dlv.have``,
 ``.score.bp``, ... for GossipSub; ``.dlv.have``, ``.msgs.origin``, ... for a
 ``SimState``) and held as numpy arrays with the JAX package's dtypes: word
@@ -25,6 +29,7 @@ import torch
 from .models.gossipsub import GossipSubState
 from .score.engine import ScoreState
 from .score.gater import GaterState
+from .score.params import CandidateParams, MeshParams, ScoreParams
 from .state import Delivery, MsgTable, SimState, TopoState, resolve_device
 
 #: packed 32-bit word planes (uint32 in the JAX package, int32 here)
@@ -106,4 +111,43 @@ def state_leaves(st) -> dict:
             out[p] = a
 
     walk(st, "")
+    return out
+
+
+def score_plane_from_reference(leaves: dict, device=None, app_specific_weight: float = 0.0):
+    """The port's lifted plane from a JAX plane's leaves (``{".w2": array,
+    ...}`` of a ``ScoreParams``, ``{".score.w2": ..., ".mesh.D": ...}`` of
+    a ``CandidateParams``), with the JAX dtypes kept. ``app_specific_weight``
+    is the plane's host weight, which rides the JAX plane as static data,
+    not as a leaf."""
+    dev = resolve_device(device)
+
+    def build(cls, prefix, **extra):
+        kw = {f.name: torch.as_tensor(np.array(leaves[f"{prefix}.{f.name}"], copy=True),
+                                      device=dev)
+              for f in dataclasses.fields(cls) if f.name not in extra}
+        return cls(**kw, **extra)
+
+    def score(prefix):
+        return build(ScoreParams, prefix, app_specific_weight=float(app_specific_weight))
+
+    if any(p.startswith(".mesh.") for p in leaves):
+        return CandidateParams(score=score(".score"), mesh=build(MeshParams, ".mesh"))
+    return score("")
+
+
+def plane_leaves(plane) -> dict:
+    """A port plane's leaves as numpy arrays, keyed as
+    ``score_plane_from_reference`` takes them."""
+    out = {}
+
+    def walk(obj, prefix):
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if dataclasses.is_dataclass(v):
+                walk(v, f"{prefix}.{f.name}")
+            elif isinstance(v, torch.Tensor):
+                out[f"{prefix}.{f.name}"] = v.detach().cpu().numpy()
+
+    walk(plane, "")
     return out

@@ -12,8 +12,10 @@ The block reads its dispatch rows from static device buffers at a cursor
 held on the device and writes the state it leaves back into the static
 state buffers it started from (the step returns fresh tensors), so a replay
 copies nothing from the host and the next replay starts where the last one
-ended. A capture or a replay that fails raises: a CUDA window never runs
-eagerly.
+ended. Window-invariant inputs (``consts``: a lifted step's score plane)
+are static buffers of the block too: each call copies the caller's into
+them, so one capture replays any plane of the same leaf shapes. A capture
+or a replay that fails raises: a CUDA window never runs eagerly.
 """
 
 from __future__ import annotations
@@ -24,9 +26,8 @@ import time
 
 import torch
 
-#: options of the JAX package's windows the port refuses, and where they land
+#: the option of the JAX package's windows the port refuses, and where it lands
 CHECK_UNPORTED = "the folded invariant checker (oracle/) — ROADMAP §1 item 5"
-CONSTS_UNPORTED = "the lifted score plane (lift_scores) — ROADMAP §1 item 3"
 
 
 def heartbeat_schedule(heartbeat_every: int, rounds_per_phase: int) -> list[bool]:
@@ -41,20 +42,21 @@ def heartbeat_schedule(heartbeat_every: int, rounds_per_phase: int) -> list[bool
     return [any((p * r + i) % he == 0 for i in range(r)) for p in range(period)]
 
 
-def form_mesh(step, st, *, rounds_per_phase: int, pub_width: int = 4, up=None):
+def form_mesh(step, st, *, rounds_per_phase: int, pub_width: int = 4, up=None, consts=()):
     """One publish-free phase with ``do_heartbeat=True``: its tail heartbeat
     selects every peer's mesh (Join's immediate mesh, gossipsub.go:1015-1064)
     and the next phase's control head ingests the GRAFTs before any data
     sub-round, so the first phase a caller publishes into sees a formed
     mesh. Advances the tick by ``rounds_per_phase``. ``up`` is the [N]
-    liveness row of a ``dynamic_peers`` step."""
+    liveness row of a ``dynamic_peers`` step, ``consts`` a lifted step's
+    plane."""
     r = int(rounds_per_phase)
     dev = st.core.tick.device
     po = torch.full((r, pub_width), -1, dtype=torch.int32, device=dev)
     pt = torch.zeros((r, pub_width), dtype=torch.int32, device=dev)
     pv = torch.zeros((r, pub_width), dtype=torch.bool, device=dev)
     args = (po, pt, pv) if up is None else (po, pt, pv, torch.as_tensor(up, device=dev))
-    return step(st, *args, do_heartbeat=True)
+    return step(st, *args, *consts, do_heartbeat=True)
 
 
 def min_cycle(flags) -> list[bool]:
@@ -109,6 +111,23 @@ def _signature(leaves) -> tuple:
     return tuple((tuple(t.shape), t.dtype) for t in leaves)
 
 
+def _structure(tree):
+    """The shape of a tree apart from its tensors: its classes, field
+    names and non-tensor values (a plane's host ``app_specific_weight``),
+    so two trees with the same structure and leaf signatures can share a
+    captured block."""
+    if isinstance(tree, torch.Tensor):
+        return None
+    if dataclasses.is_dataclass(tree):
+        return (type(tree), tuple((f.name, _structure(getattr(tree, f.name)))
+                                  for f in dataclasses.fields(tree)))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _structure(v)) for k, v in tree.items()))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_structure(v) for v in tree))
+    return tree
+
+
 def _stack(trees):
     """A per-dispatch list of observation trees -> one tree of stacks."""
     leaves = [_leaves(t) for t in trees]
@@ -130,13 +149,15 @@ class _Captured:
     """One captured block of a CUDA window: its graph, the static state,
     row and observation buffers it reads and writes, the device cursor."""
 
-    def __init__(self, win: "Window", st, xs, n_dispatch: int):
+    def __init__(self, win: "Window", st, xs, consts, n_dispatch: int):
         dev = xs[0].device
         self.device = dev
         self.template = st
         leaves = _leaves(st)
         self.state_sig = _signature(leaves)
         self.state = [t.clone() for t in leaves]
+        self.consts_template = consts
+        self.consts = [t.clone() for t in _leaves(consts)]
         self.rows = [torch.empty((n_dispatch,) + tuple(a.shape[1:]), dtype=a.dtype, device=dev)
                      for a in xs]
         self.cursor = torch.zeros((), dtype=torch.int64, device=dev)
@@ -157,8 +178,9 @@ class _Captured:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             sw = _rebuild(st, iter([t.clone() for t in leaves]))
+            cw = self.const_args()
             for j in range(win.block_dispatches):
-                sw = win.call(sw, [r[j % n_dispatch] for r in self.rows], j)
+                sw = win.call(sw, [r[j % n_dispatch] for r in self.rows] + cw, j)
                 if win.observe is not None:
                     obs = win.observe(sw)
             if win.observe is not None:
@@ -169,6 +191,10 @@ class _Captured:
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         win.capture_seconds += time.perf_counter() - t0
+
+    def const_args(self) -> list:
+        """The step's trailing arguments, read from the static buffers."""
+        return list(_rebuild(self.consts_template, iter(self.consts)))
 
     def graph(self, win: "Window", n: int) -> torch.cuda.CUDAGraph:
         """The graph of a block of ``n`` dispatches, captured at first use."""
@@ -183,8 +209,9 @@ class _Captured:
             st = _rebuild(self.template, iter(self.state))
             idx = self.cursor + torch.arange(n, device=self.device)
             rows = [buf.index_select(0, idx) for buf in self.rows]
+            cw = self.const_args()
             for j in range(n):
-                st = win.call(st, [r[j] for r in rows], j)
+                st = win.call(st, [r[j] for r in rows] + cw, j)
                 if self.obs is not None:
                     for buf, t in zip(self.obs, _leaves(win.observe(st))):
                         buf.index_copy_(0, idx[j:j + 1], t.unsqueeze(0))
@@ -215,7 +242,9 @@ class Window:
     counts what it did: ``replays`` (graph launches, every window call),
     ``captures`` and ``capture_seconds`` (warm-up and capture), and
     ``block_launches`` (kernel launches each wrapper made while a block of
-    ``block_dispatches`` was captured, so once a replay)."""
+    ``block_dispatches`` was captured, so once a replay). A call with other
+    ``consts`` of the same structure and leaf shapes (another weight set)
+    replays the same capture: ``captures`` does not move."""
 
     def __init__(self, step, heartbeat, observe, unroll: int, donate: bool):
         self.step = step
@@ -239,8 +268,7 @@ class Window:
     def __call__(self, st, xs, due=None, consts=()):
         if due is not None:
             raise NotImplementedError(f"not ported yet: {CHECK_UNPORTED}")
-        if len(tuple(consts)):
-            raise NotImplementedError(f"not ported yet: {CONSTS_UNPORTED}")
+        consts = tuple(consts)
         xs = tuple(xs)
         if not xs:
             raise ValueError("make_window: xs must carry at least one per-dispatch array "
@@ -254,30 +282,38 @@ class Window:
                              f"the heartbeat period {self.period}")
         dev = _core_of(st).tick.device
         xs = tuple(torch.as_tensor(a, device=dev) for a in xs)
+        if any(t.device != dev for t in _leaves(consts)):
+            raise ValueError(f"make_window: consts must live on the state's device {dev}")
         if dev.type != "cuda":
-            return self._loop(st, xs, n_dispatch)
-        return self._replay(st, xs, n_dispatch)
+            return self._loop(st, xs, consts, n_dispatch)
+        return self._replay(st, xs, consts, n_dispatch)
 
-    def _loop(self, st, xs, n_dispatch: int):
+    def _loop(self, st, xs, consts, n_dispatch: int):
         obs = []
         for d in range(n_dispatch):
-            st = self.call(st, [a[d] for a in xs], d)
+            st = self.call(st, [a[d] for a in xs] + list(consts), d)
             if self.observe is not None:
                 obs.append(self.observe(st))
         return st, ({"obs": _stack(obs)} if obs else {})
 
-    def _replay(self, st, xs, n_dispatch: int):
+    def _replay(self, st, xs, consts, n_dispatch: int):
         leaves = _leaves(st)
-        # one capture serves every window up to its row capacity
-        key = (_signature(leaves), tuple((tuple(a.shape[1:]), a.dtype) for a in xs))
+        const_leaves = _leaves(consts)
+        # one capture serves every window up to its row capacity, and every
+        # consts of its structure and leaf signatures
+        key = (_signature(leaves), tuple((tuple(a.shape[1:]), a.dtype) for a in xs),
+               _structure(consts), _signature(const_leaves))
         entry = self._entries.get(key)
         if entry is None or entry.n_dispatch < n_dispatch:
             self._entries.pop(key, None)
-            entry = self._entries[key] = _Captured(self, st, xs, n_dispatch)
+            entry = self._entries[key] = _Captured(self, st, xs, consts, n_dispatch)
             self.captures += 1
         else:
             for a, buf in zip(xs, entry.rows):
                 buf[:n_dispatch].copy_(a)
+        for t, buf in zip(const_leaves, entry.consts):
+            if t.data_ptr() != buf.data_ptr():
+                buf.copy_(t)
         # the state comes in through the static buffers (a state this
         # window returned under donate=True already lives there)
         for t, buf in zip(leaves, entry.state):
@@ -321,6 +357,12 @@ def make_window(step, *, heartbeat=None, check=None, check_every: int = 1, obser
     * ``unroll`` blocks of one period each are captured as one graph on the
       card (a window whose length is not a multiple of that replays a
       one-period graph for the rest).
+    * ``consts`` (a run-time argument) is a tuple of window-invariant
+      inputs appended to every step call after the per-dispatch rows: a
+      lifted step's score plane (``score.params``). On the card its tensor
+      leaves are static buffers of the capture, so the same window replays
+      another plane of the same structure and leaf shapes without a new
+      capture (``Window.captures``).
     * Every tensor leaf of the state is a static buffer of the capture: the
       validation pipeline's stages (``dlv.pending``), the queue cap's
       ``congested_in``, PX's ``edge_live`` and ``prune_px_out``, the
@@ -333,8 +375,8 @@ def make_window(step, *, heartbeat=None, check=None, check_every: int = 1, obser
       GossipSub or phase step, or a FloodSub or RandomSub round
       (``perf/sweep``'s runs).
 
-    ``check`` (the folded invariant checker) and ``consts`` (the lifted
-    score plane) raise ``NotImplementedError``."""
+    ``check`` (the folded invariant checker) raises
+    ``NotImplementedError``."""
     if check is not None:
         raise NotImplementedError(f"not ported yet: {CHECK_UNPORTED}")
     if int(check_every) < 1:
@@ -358,7 +400,7 @@ def make_scan(step, *, heartbeat_every: int = 1, rounds_per_phase: int = 1,
     A ``dynamic_peers`` step takes the liveness schedule as ``run(st, po,
     pt, pv, up)``, ``up`` an ``[R, N]`` bool plane; a phase consumes the
     first row of its r rows (the transitions land once a phase, at its
-    head).
+    head). A lifted step takes its plane as ``run(..., consts=(plane,))``.
 
     The state's tick at entry must be 0 mod lcm(he, r), and R a multiple of
     it. A thin adapter over ``make_window``; ``run.window`` is the window

@@ -22,7 +22,11 @@ The core's two options leave both kernels, as the JAX package routes them
 (its ``common.py:204-206, 238-240``): with an outbound-queue cap
 (``queue_cap``) or an async-validation pipeline (a state with
 ``dlv.pending``) a banded net takes the dense composite and a CSR-resident
-state the flat composite (``finish_delivery_flat``).
+state the flat composite (``finish_delivery_flat``). A ``forward_mask``
+(``[N, W]``, an extra gate on what each receiver re-forwards) takes a
+banded net off ``delivery_banded`` too, as the JAX package's banded route
+refuses it; on a CSR-resident state ``csr_delivery`` still runs and the
+mask is ANDed into the forward set it returns.
 """
 
 from __future__ import annotations
@@ -155,11 +159,8 @@ def _cap(trans: torch.Tensor, queue_cap: int, m: int):
     return kept, bitset.popcount(trans & ~kept).sum(dtype=torch.int32)
 
 
-def _refuse_unported(forward_mask) -> None:
-    if forward_mask is not None:
-        raise NotImplementedError(
-            "not ported yet: forward_mask (the gossipsub forward gate on the "
-            "shared core) — ROADMAP §1 item 3")
+def _gate_forward(fwd: torch.Tensor, forward_mask: torch.Tensor | None) -> torch.Tensor:
+    return fwd if forward_mask is None else fwd & forward_mask
 
 
 def delivery_round(net: Net, msgs: MsgTable, dlv: Delivery,
@@ -182,10 +183,9 @@ def delivery_round(net: Net, msgs: MsgTable, dlv: Delivery,
     overflow is dropped and counted); a state with ``dlv.pending`` runs the
     async-validation pipeline: receipts are seen on arrival, and
     forwarding, the verdict and ``first_round`` land at pipeline exit
-    (``val_delay_topic`` the per-topic delays, None uniform). Returns
-    (Delivery, RoundInfo). The gossipsub forward gate raises
-    ``NotImplementedError``."""
-    _refuse_unported(forward_mask)
+    (``val_delay_topic`` the per-topic delays, None uniform).
+    ``forward_mask`` [N, W] gates what each receiver re-forwards (its next
+    ``fwd``). Returns (Delivery, RoundInfo)."""
     n, k = net.nbr.shape
     if dlv.fe_words.dim() == 2:
         if net.edge_layout != "csr" or dlv.fe_words.shape[0] != net.n_edges:
@@ -203,10 +203,10 @@ def delivery_round(net: Net, msgs: MsgTable, dlv: Delivery,
     not_mine = ~origin_msg_words(net, msgs)  # [N, W]
     # the kernels commit inline and uncapped; the options take the composites
     plain_core = queue_cap == 0 and dlv.pending is None
-    opts = dict(count_events=count_events, queue_cap=queue_cap,
+    opts = dict(forward_mask=forward_mask, count_events=count_events, queue_cap=queue_cap,
                 val_delay_topic=val_delay_topic)
 
-    if net.band_off is not None and plain_core:
+    if net.band_off is not None and plain_core and forward_mask is None:
         ok = torch.where(net.nbr_ok[..., None], bitset.ALL, 0).to(torch.int32)
         res = db.delivery_banded(
             dlv.fwd, dlv.fe_words.reshape(n, k * w),
@@ -231,6 +231,7 @@ def delivery_round(net: Net, msgs: MsgTable, dlv: Delivery,
                 net.csr_row, net.csr_eperm, net.csr_seg_start,
                 net.csr_row_last, net.csr_row_nonempty, net.csr_row_ptr,
                 cap=k)
+            res["fwd"] = _gate_forward(res["fwd"], forward_mask)
             return _commit_flat_result(dlv, res, m, valid_words, count_events)
         resident = dlv.fe_words.dim() == 2
         trans_e = (net.peer_gather_flat(dlv.fwd)
@@ -255,8 +256,8 @@ def finish_delivery(net: Net, msgs: MsgTable, dlv: Delivery,
     """Commit a computed ``[N, K, W]`` transmit tensor: the queue cap,
     seen-cache dedup, first-arrival attribution (lowest edge slot carrying
     each new bit), the validation pipeline, forward-set update. The shared
-    tail of ``delivery_round``'s composite forms and the phase engine's."""
-    _refuse_unported(forward_mask)
+    tail of ``delivery_round``'s composite forms and the phase engine's;
+    ``forward_mask`` [N, W] gates the next ``fwd``."""
     m = msgs.capacity
     trans, n_drop = _cap(trans, queue_cap, m)
     new = bitset.word_or_reduce(trans, 1) & ~dlv.have
@@ -266,7 +267,7 @@ def finish_delivery(net: Net, msgs: MsgTable, dlv: Delivery,
     dlv = replace(
         dlv,
         have=dlv.have | new,
-        fwd=validated & valid_words[None, :],
+        fwd=_gate_forward(validated & valid_words[None, :], forward_mask),
         first_round=torch.where(bitset.unpack(validated, m), tick, dlv.first_round),
         # overwrite (not OR) on new receipts, so stale bits cannot survive
         # a slot whose message is received again after a recycle
@@ -288,7 +289,6 @@ def finish_delivery_flat(net: Net, msgs: MsgTable, dlv: Delivery,
     first-arrival plane commits flat. Equal to ``finish_delivery`` on the
     unpacked tensor; ``RoundInfo.trans`` is the flat plane. The queue cap
     applies per flat row, one directed link each, as in the dense form."""
-    _refuse_unported(forward_mask)
     m = msgs.capacity
     trans_e, n_drop = _cap(trans_e, queue_cap, m)
     valid_words = bitset.pack(msgs.valid)
@@ -300,6 +300,7 @@ def finish_delivery_flat(net: Net, msgs: MsgTable, dlv: Delivery,
     if pending is not None:
         res["fwd"] = validated & valid_words[None, :]
         res["first_round"] = torch.where(bitset.unpack(validated, m), tick, dlv.first_round)
+    res["fwd"] = _gate_forward(res["fwd"], forward_mask)
     dlv = replace(dlv, have=res["have"], fwd=res["fwd"], first_round=res["first_round"],
                   fe_words=res["fe"], pending=pending)
     return dlv, _finish_info(trans_e, validated, res["new"], m, valid_words, count_events,

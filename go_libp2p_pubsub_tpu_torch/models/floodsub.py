@@ -34,7 +34,7 @@ def flood_edge_mask(net: Net, msgs) -> torch.Tensor:
 def floodsub_step(net: Net, state: SimState, pub_origin: torch.Tensor,
                   pub_topic: torch.Tensor, pub_valid: torch.Tensor,
                   queue_cap: int = 0, chaos=None, link_deny=None,
-                  telemetry=None, adversary=None) -> SimState:
+                  telemetry=None, adversary=None, score_plane=None) -> SimState:
     """One synchronous round: deliver in-flight messages one hop, then
     intern this round's publishes ([P] origins with -1 padding, topics,
     bool verdicts); they start propagating next round. Functional: the
@@ -44,8 +44,11 @@ def floodsub_step(net: Net, state: SimState, pub_origin: torch.Tensor,
     the router in the reference, so they apply here as in GossipSub:
     ``queue_cap`` > 0 drops (and counts) each link's overflow, and a state
     built with ``SimState.init(val_delay=...)`` runs the pipeline. Either
-    takes the delivery composites, not the kernels (``common.py``). The
-    chaos, telemetry and adversary planes raise ``NotImplementedError``."""
+    takes the delivery composites, not the kernels (``common.py``).
+    ``score_plane`` (a lifted score plane) is taken and unused: FloodSub has
+    no score machinery, and the seam keeps the four engines' lifted call
+    convention one. The chaos, telemetry and adversary planes raise
+    ``NotImplementedError``."""
     unported = [
         (chaos is not None or link_deny is not None,
          "chaos (link-fault injection) — ROADMAP §1 item 5"),

@@ -71,6 +71,7 @@ from ..score.engine import (
     clear_edges,
     clear_mesh_status,
     compute_scores,
+    compute_scores_lifted,
     ip_colocation_surplus_sq,
     on_deliveries,
     on_graft,
@@ -79,6 +80,7 @@ from ..score.engine import (
     slot_topic_words,
 )
 from ..score.gater import GaterState, gater_accept, gater_decay, gater_on_round, source_share
+from ..score.params import split_plane
 from ..state import (
     Net,
     SimState,
@@ -158,8 +160,8 @@ class GossipSubConfig:
     fanout_slots: int = 2         # concurrent unjoined publish topics a peer
     fanout_ttl_ticks: int = 60
     count_events: bool = True
-    # the phase engine's coalesced control head and stacked accumulators;
-    # the JAX package's False form is bit-identical and not ported
+    # the coalesced control head and stacked folds; False is the JAX
+    # package's per-plane A/B form, to the same bits
     wire_coalesced: bool = True
     edge_layout: str = "dense"
     fused: bool = False
@@ -408,13 +410,18 @@ def joined_msg_words(net: Net, msgs) -> torch.Tensor:
 
 
 def handle_graft_prune(cfg: GossipSubConfig, net: Net, st: GossipSubState,
-                       tp: dict, acc_ok, graft_in_raw, prune_in_raw, px_in_raw=None):
+                       tp: dict, acc_ok, graft_in_raw, prune_in_raw, px_in_raw=None,
+                       thr=None, msh=None):
     """GRAFT/PRUNE received this round (handleGraft gossipsub.go:718-809,
     handlePrune :811-843); ``net`` is the round's live view. Returns
     (state, rejected, px_resp, px_ok, n_graft, n_prune): ``rejected``
     becomes next round's PRUNE outbox and ``px_resp`` its PX flags;
     ``px_ok`` [N,K] marks the edges whose PRUNE carried PX from a pruner
-    scored at or above AcceptPXThreshold (None without PX)."""
+    scored at or above AcceptPXThreshold (None without PX). ``thr`` is
+    the thresholds' source (``cfg``, or a lifted build's score plane) and
+    ``msh`` the mesh degrees' (``cfg``, or a MeshParams plane)."""
+    thr = cfg if thr is None else thr
+    msh = cfg if msh is None else msh
     tick = st.core.tick
     graft_in = graft_in_raw & acc_ok[:, None, :]
     prune_in = prune_in_raw & acc_ok[:, None, :]
@@ -423,7 +430,7 @@ def handle_graft_prune(cfg: GossipSubConfig, net: Net, st: GossipSubState,
     px_ok = None
     if cfg.do_px:
         px_ok = ((px_in_raw & prune_in).any(1)
-                 & (st.scores >= cfg.accept_px_threshold))
+                 & (st.scores >= thr.accept_px_threshold))
 
     pruned = prune_in & st.mesh
     score = on_prune(st.score, pruned, tp) if cfg.score_enabled else st.score
@@ -447,7 +454,7 @@ def handle_graft_prune(cfg: GossipSubConfig, net: Net, st: GossipSubState,
     else:
         rej_score = torch.zeros_like(want)
     mesh_deg = count_true(mesh)
-    rej_full = want & (mesh_deg[:, :, None] >= cfg.Dhi) & ~net.outbound[:, None, :]
+    rej_full = want & (mesh_deg[:, :, None] >= msh.Dhi) & ~net.outbound[:, None, :]
 
     rejected = rej_direct | rej_backoff | rej_score | rej_full
     accepted = want & ~rejected
@@ -475,9 +482,10 @@ def handle_graft_prune(cfg: GossipSubConfig, net: Net, st: GossipSubState,
 
 
 def handle_ihave(cfg: GossipSubConfig, net: Net, st: GossipSubState,
-                 joined_words, acc_ok, ihave_in_raw) -> GossipSubState:
+                 joined_words, acc_ok, ihave_in_raw, thr=None) -> GossipSubState:
     """IHAVE received this round -> IWANT requests + a promise
-    (handleIHave gossipsub.go:615-677)."""
+    (handleIHave gossipsub.go:615-677); ``thr`` the thresholds' source."""
+    thr = cfg if thr is None else thr
     m = st.core.msgs.capacity
     tick = st.core.tick
     ihave_in = torch.where(acc_ok[:, :, None], ihave_in_raw, 0)
@@ -486,7 +494,7 @@ def handle_ihave(cfg: GossipSubConfig, net: Net, st: GossipSubState,
 
     ok = got
     if cfg.score_enabled:
-        ok = ok & (st.scores >= cfg.gossip_threshold)
+        ok = ok & (st.scores >= thr.gossip_threshold)
     ok = ok & (peerhave <= cfg.max_ihave_messages)
     ok = ok & (st.iasked < cfg.max_ihave_length)
 
@@ -516,14 +524,15 @@ def handle_ihave(cfg: GossipSubConfig, net: Net, st: GossipSubState,
 
 
 def iwant_responses(cfg: GossipSubConfig, net: Net, st: GossipSubState,
-                    nbr_score_of_me, window_g: torch.Tensor | None = None):
+                    nbr_score_of_me, window_g: torch.Tensor | None = None, thr=None):
     """The IWANT-response carry for this round's delivery and the
     retransmission counter update (handleIWant gossipsub.go:679-716):
     ``st.iwant_out`` holds what I asked each neighbor last round, and the
     neighbor serves from its whole mcache window unless the (edge, msg)
     count reached the cap. ``window_g`` is the neighbours' gathered window
     when the caller's wire exchange carried it (zero on dead edges).
-    Returns (state, resp [N,K,W])."""
+    ``thr`` is the thresholds' source. Returns (state, resp [N,K,W])."""
+    thr = cfg if thr is None else thr
     if window_g is None:
         sender_window = bitset.word_or_reduce(st.mcache, dim=1)   # [N, W]
         window_g = torch.where(net.nbr_ok[:, :, None], net.peer_gather(sender_window), 0)
@@ -533,7 +542,7 @@ def iwant_responses(cfg: GossipSubConfig, net: Net, st: GossipSubState,
     if cfg.score_enabled:
         # the responder ignores requesters below the gossip threshold
         # (gossipsub.go:681-685): the score the neighbor holds of me
-        resp = torch.where((nbr_score_of_me >= cfg.gossip_threshold)[:, :, None],
+        resp = torch.where((nbr_score_of_me >= thr.gossip_threshold)[:, :, None],
                            resp, 0)
     # 2-bit saturating increment on served slots
     inc = resp & ~(st.served_hi & st.served_lo)
@@ -577,10 +586,12 @@ def _first_index(hit: torch.Tensor) -> torch.Tensor:
 
 
 def fanout_candidates(cfg: GossipSubConfig, net: Net, scores, pub_origin, pub_topic,
-                      nbr_sub_words) -> torch.Tensor:
+                      nbr_sub_words, thr=None) -> torch.Tensor:
     """[..., P, K] bool: the peers a publish may take as fanout peers —
     connected, mesh-capable, subscribed to the topic, not direct, scored at
-    or above publishThreshold (``pub_*`` [..., P])."""
+    or above publishThreshold (``pub_*`` [..., P]; ``thr`` the thresholds'
+    source)."""
+    thr = cfg if thr is None else thr
     k_dim = net.max_degree
     o = pub_origin.clamp(min=0).long()
     t32 = pub_topic.clamp(min=0).to(torch.int32)
@@ -588,20 +599,22 @@ def fanout_candidates(cfg: GossipSubConfig, net: Net, scores, pub_origin, pub_to
     cand = (nbr_subbed & net.nbr_ok[o]
             & (net.protocol[net.nbr[o].clamp(min=0).long()] >= 1) & ~net.direct[o])
     if cfg.score_enabled:
-        cand = cand & (scores[o] >= cfg.publish_threshold)
+        cand = cand & (scores[o] >= thr.publish_threshold)
     return cand
 
 
 def fanout_selections(cfg: GossipSubConfig, net: Net, scores, pub_origin, pub_topic,
-                      nbr_sub_words, keys) -> torch.Tensor:
+                      nbr_sub_words, keys, thr=None, msh=None) -> torch.Tensor:
     """[R, P, K]: the D random fanout peers (gossipsub.go:983-998) of R
     rounds' publishes ``pub_*`` [R, P] at once, row i drawn from
     ``keys[i]`` (``jax.random`` threefry: ``masked_width_random`` with that
     key). The candidates read only static views and the scores, which a
-    phase holds fixed, so a phase draws its sub-rounds' at its head."""
-    cand = fanout_candidates(cfg, net, scores, pub_origin, pub_topic, nbr_sub_words)
+    phase holds fixed, so a phase draws its sub-rounds' at its head.
+    ``thr`` and ``msh`` are the thresholds' and the degrees' sources."""
+    msh = cfg if msh is None else msh
+    cand = fanout_candidates(cfg, net, scores, pub_origin, pub_topic, nbr_sub_words, thr)
     noise = prng.uniform_rows(keys, cand.shape[1:])
-    return select_topk_mask(noise, cand, min(max(cfg.D, 0), net.max_degree))
+    return masked_width_topk(noise, cand, msh.D, net.max_degree)
 
 
 def update_fanout_on_publish(cfg: GossipSubConfig, net: Net, st: "GossipSubState",
@@ -662,12 +675,13 @@ def update_fanout_on_publish(cfg: GossipSubConfig, net: Net, st: "GossipSubState
 
 def gossip_edge_mask(cfg: GossipSubConfig, net: Net, st: GossipSubState,
                      joined_words, acc_msg, slotw, msgs, flood_edges,
-                     nbr_score_of_me) -> torch.Tensor:
+                     nbr_score_of_me, thr=None) -> torch.Tensor:
     """[N,K,W] edge-carry mask: mesh and fanout push (gossipsub.go:981-1002),
     floodsub-peer edges (gossipsub.go:973-978) and v1.1 flood-publish of
     origin-sent messages (gossipsub.go:957-963), gated by the receiver's
     graylist, gater and joined topics. Sender-side packed outbox, one word
-    gather."""
+    gather. ``thr`` is the thresholds' source."""
+    thr = cfg if thr is None else thr
     carry_out = sender_carry_words(st.mesh, slotw)
     if cfg.fanout_slots > 0:
         carry_out = carry_out | fanout_carry_words(st.fanout_peers, st.fanout_topic,
@@ -676,7 +690,7 @@ def gossip_edge_mask(cfg: GossipSubConfig, net: Net, st: GossipSubState,
     mask = mask | torch.where(flood_edges[:, :, None], bitset.ALL, 0).to(torch.int32)
     if cfg.flood_publish:
         origin_is_sender = msgs.origin[None, :] == net.nbr[..., None]   # [N,K,M]
-        flood_ok = ((nbr_score_of_me >= cfg.publish_threshold)
+        flood_ok = ((nbr_score_of_me >= thr.publish_threshold)
                     if cfg.score_enabled else net.nbr_ok)
         mask = mask | (bitset.pack(origin_is_sender)
                        & torch.where(flood_ok[:, :, None], bitset.ALL, 0).to(torch.int32))
@@ -741,12 +755,23 @@ def merge_extra_tx(net: Net, msgs, dlv, info: RoundInfo, extra: torch.Tensor,
 # the heartbeat (gossipsub.go:1303-1564)
 
 
+def _gossip_target(n_cand: torch.Tensor, msh) -> torch.Tensor:
+    """max(Dlazy, int(gossip_factor * candidates)) (gossipsub.go:1697-1704).
+    A static factor is its float32 value as a host scalar (no copy to the
+    card): the float32 product of two float32 values is the same rounded in
+    any wider type; a MeshParams plane's is a float32 0-d tensor."""
+    gf = msh.gossip_factor
+    if not isinstance(gf, torch.Tensor):
+        gf = float(np.float32(gf))
+    return torch.clamp((n_cand.to(torch.float32) * gf).to(torch.int32), min=msh.Dlazy)
+
+
 def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
               sc: ScoreScalars, nbr_sub, gater_params: PeerGaterParams | None = None,
               nbr_sub_words: torch.Tensor | None = None,
               mesh_capable: torch.Tensor | None = None,
               gossip_suppress: torch.Tensor | None = None,
-              present_ok: torch.Tensor | None = None) -> GossipSubState:
+              present_ok: torch.Tensor | None = None, thr=None, msh=None) -> GossipSubState:
     """One heartbeat for every peer. The JAX package gates the maintenance
     sub-passes with ``lax.cond`` on "any row needs it"; both branches give
     identical results there, so this runs them unconditionally (no host
@@ -758,7 +783,13 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     congested outbound links whose IHAVE batch is dropped this heartbeat
     (the queue cap's backpressure; gossipsub.go:1757-1764). ``net`` is
     the round's live view; ``present_ok`` [N,K] the provisioned edges the
-    direct-peer redial may wake (default ``net.nbr_ok``)."""
+    direct-peer redial may wake (default ``net.nbr_ok``). Under a lifted
+    plane ``tp`` and ``sc`` are the plane's gathered rows and the flushed
+    plane itself, ``thr`` the plane too and ``msh`` a MeshParams plane
+    (default ``cfg`` for both): every threshold and degree is then a 0-d
+    tensor on the device."""
+    thr = cfg if thr is None else thr
+    msh = cfg if msh is None else msh
     tick = st.core.tick
     n, s_dim, k_dim = st.mesh.shape
     key = prng.fold_in(st.core.key, tick)
@@ -788,7 +819,8 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     # refreshScores + memoized score cache (gossipsub.go:1333-1341)
     if cfg.score_enabled:
         score = refresh_scores(score, st.mesh, tick, tp, sc)
-        scores = compute_scores(score, st.mesh, tp, sc, st.p6, st.app_score, net)
+        score_fn = compute_scores_lifted if getattr(sc, "lifted", False) else compute_scores
+        scores = score_fn(score, st.mesh, tp, sc, st.p6, st.app_score, net)
     else:
         scores = st.scores
 
@@ -815,7 +847,7 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
 
     # |mesh| < Dlo -> graft to D (gossipsub.go:1371-1385)
     deg = count_true(mesh)
-    ineed = torch.where(deg < cfg.Dlo, cfg.D - deg, 0)
+    ineed = torch.where(deg < msh.Dlo, msh.D - deg, 0)
     grafts = masked_width_random(k1, cand, ineed, k_dim)
     mesh = mesh | grafts
     tograft = tograft | grafts
@@ -823,16 +855,16 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     # |mesh| > Dhi -> keep Dscore best + random to D, Dout outbound
     # (gossipsub.go:1388-1448)
     deg = count_true(mesh)
-    over = (deg > cfg.Dhi)[:, :, None]
+    over = (deg > msh.Dhi)[:, :, None]
     outb = net.outbound[:, None, :].expand(mesh.shape)
     noise = prng.uniform(k2, mesh.shape)
     if cfg.score_enabled:
-        topscore = masked_width_topk(scores_b, mesh, cfg.Dscore, k_dim, key=k3)
+        topscore = masked_width_topk(scores_b, mesh, msh.Dscore, k_dim, key=k3)
     else:
-        topscore = masked_width_random(k3, mesh, cfg.Dscore, k_dim)
-    rest_rand = masked_width_topk(noise, mesh & ~topscore, cfg.D - cfg.Dscore, k_dim)
+        topscore = masked_width_random(k3, mesh, msh.Dscore, k_dim)
+    rest_rand = masked_width_topk(noise, mesh & ~topscore, msh.D - msh.Dscore, k_dim)
     keep = topscore | rest_rand
-    x_need = (cfg.Dout - count_true(keep & outb)).clamp(min=0)
+    x_need = (msh.Dout - count_true(keep & outb)).clamp(min=0)
     bring = select_topk_mask(noise, mesh & outb & ~keep, x_need)
     drop = select_topk_mask(-noise, keep & ~outb & ~topscore, count_true(bring))
     keep = (keep & ~drop) | bring
@@ -848,7 +880,7 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     # outbound quota top-up at Dlo <= |mesh| (gossipsub.go:1451-1476)
     deg = count_true(mesh)
     need_out = torch.where(
-        deg >= cfg.Dlo, (cfg.Dout - count_true(mesh & outb)).clamp(min=0), 0)
+        deg >= msh.Dlo, (msh.Dout - count_true(mesh & outb)).clamp(min=0), 0)
     grafts2 = masked_width_random(k4, cand & outb & ~mesh, need_out, k_dim)
     mesh = mesh | grafts2
     tograft = tograft | grafts2
@@ -856,7 +888,7 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     # opportunistic grafting (gossipsub.go:1479-1510)
     if cfg.score_enabled and cfg.opportunistic_graft_ticks > 0:
         med = median_masked(scores_b, mesh)
-        low = (med < cfg.opportunistic_graft_threshold) & (count_true(mesh) > 1)
+        low = (med < thr.opportunistic_graft_threshold) & (count_true(mesh) > 1)
         cand3 = cand & ~mesh & (scores_b > med[:, :, None])
         oppo = select_random_mask(
             k5, cand3, torch.where(low, cfg.opportunistic_graft_peers, 0))
@@ -884,7 +916,7 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
         fpeers = fpeers & f_live[:, :, None]
         # drop peers below the publish threshold (gossipsub.go:1528-1534)
         if cfg.score_enabled:
-            fpeers = fpeers & (scores[:, None, :] >= cfg.publish_threshold)
+            fpeers = fpeers & (scores[:, None, :] >= thr.publish_threshold)
         # the neighbour subscribes the slot's topic: a topic-bit pick
         nbr_sub_f = bitset.bit_get(nbr_sub_words[:, None, :, :].expand(
             -1, ft.shape[1], -1, -1), ft.clamp(min=0)[:, :, None].expand(fpeers.shape))
@@ -892,8 +924,8 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
                   & f_live[:, :, None])
         cand_f = base_f & ~fpeers
         if cfg.score_enabled:
-            cand_f = cand_f & (scores[:, None, :] >= cfg.publish_threshold)
-        ineed_f = torch.where(f_live, cfg.D - count_true(fpeers), 0)
+            cand_f = cand_f & (scores[:, None, :] >= thr.publish_threshold)
+        ineed_f = torch.where(f_live, msh.D - count_true(fpeers), 0)
         kf1, kf2 = prng.split(prng.fold_in(key, 11))
         fpeers = fpeers | masked_width_random(kf1, cand_f, ineed_f, k_dim)
 
@@ -903,14 +935,9 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     if gossip_suppress is not None:
         gossip_cand = gossip_cand & ~gossip_suppress[:, None, :]
     if cfg.score_enabled:
-        gossip_cand = gossip_cand & (scores_b >= cfg.gossip_threshold)
+        gossip_cand = gossip_cand & (scores_b >= thr.gossip_threshold)
     n_cand = count_true(gossip_cand)
-    # the factor as its float32 value, a host scalar (no copy to the card):
-    # the float32 product of two float32 values is the same rounded in any
-    # wider type
-    target = torch.clamp(
-        (n_cand.to(torch.float32) * float(np.float32(cfg.gossip_factor))).to(torch.int32),
-        min=cfg.Dlazy)
+    target = _gossip_target(n_cand, msh)
     chosen = masked_width_random(k6, gossip_cand, target, k_dim)
     slot_tw = slot_topic_words(net, st.core.msgs.topic)
     adv = torch.where(chosen[..., None], (gwin[:, None, :] & slot_tw)[:, :, None, :], 0)
@@ -922,11 +949,9 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
         if gossip_suppress is not None:
             gossip_cand_f = gossip_cand_f & ~gossip_suppress[:, None, :]
         if cfg.score_enabled:
-            gossip_cand_f = gossip_cand_f & (scores[:, None, :] >= cfg.gossip_threshold)
+            gossip_cand_f = gossip_cand_f & (scores[:, None, :] >= thr.gossip_threshold)
         n_cand_f = count_true(gossip_cand_f)
-        target_f = torch.where(ft >= 0, torch.clamp(
-            (n_cand_f.to(torch.float32) * float(np.float32(cfg.gossip_factor))).to(torch.int32),
-            min=cfg.Dlazy), 0)
+        target_f = torch.where(ft >= 0, _gossip_target(n_cand_f, msh), 0)
         chosen_f = masked_width_random(kf2, gossip_cand_f, target_f, k_dim)
         ftw = fanout_topic_words(ft, st.core.msgs.topic)
         adv_f = torch.where(chosen_f[..., None], (gwin[:, None, :] & ftw)[:, :, None, :], 0)
@@ -1127,6 +1152,35 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
     )
 
 
+@dataclasses.dataclass
+class RoundParams:
+    """What a round reads of the score and mesh parameters: the gathered
+    topic rows ``tp``, the score scalars ``sc``, the per-topic P3 windows
+    ``wrt``, the thresholds' source ``thr`` and the degrees' source
+    ``msh``. A static build's are its constants and ``cfg``; a lifted
+    build's come from the plane of the call (``round_params``)."""
+
+    tp: dict
+    sc: object
+    wrt: torch.Tensor
+    thr: object
+    msh: object
+
+
+def round_params(cfg: GossipSubConfig, net: Net, consts: "StepConsts",
+                 score_plane=None) -> RoundParams:
+    """The round's parameters: the build's (``score_plane`` None), or a
+    lifted plane's (a ``score.params.ScoreParams``, or a
+    ``CandidateParams`` whose mesh plane then gives the degrees), its
+    float leaves flushed on the device."""
+    if score_plane is None:
+        return RoundParams(consts.tp, consts.scalars, consts.window_rounds_t, cfg, cfg)
+    sc, mesh = split_plane(score_plane)
+    sc = sc.flushed()
+    return RoundParams(sc.gather(net.my_topics), sc, sc.window_rounds, sc,
+                       cfg if mesh is None else mesh)
+
+
 def flushed_thresholds(cfg: GossipSubConfig) -> GossipSubConfig:
     """``cfg`` with its five score thresholds as the float32 constants the
     JAX package compares against: a subnormal threshold is a zero of its
@@ -1139,13 +1193,15 @@ def flushed_thresholds(cfg: GossipSubConfig) -> GossipSubConfig:
 
 
 def accept_gates(cfg: GossipSubConfig, net: Net, st: GossipSubState,
-                 consts: StepConsts, gater_params: PeerGaterParams | None, tick):
+                 consts: StepConsts, gater_params: PeerGaterParams | None, tick, thr=None):
     """AcceptFrom (gossipsub.go:583-594): direct always accepted,
     graylisted dropped entirely; the gater's random-early drop takes only
     the message plane (AcceptControl, peer_gater.go:362). ``net`` is the
-    round's live view. Returns (acc_ok, acc_msg) [N,K] bool."""
+    round's live view, ``thr`` the thresholds' source. Returns (acc_ok,
+    acc_msg) [N,K] bool."""
+    thr = cfg if thr is None else thr
     if cfg.score_enabled:
-        acc_ok = (st.scores >= cfg.graylist_threshold) | net.direct
+        acc_ok = (st.scores >= thr.graylist_threshold) | net.direct
     else:
         acc_ok = net.nbr_ok
     if not cfg.gater_enabled:
@@ -1260,6 +1316,18 @@ def gather_cross(net: Net, words: torch.Tensor, scores):
     if scores is None:
         return wire, None
     return wire, torch.where(net.nbr_ok, net.edge_gather(scores), 0.0)
+
+
+def banded_cross(net: Net, live_u32: torch.Tensor, score_enabled: bool, words: torch.Tensor,
+                 scores):
+    """Carry ``[N, K, C]`` control words across the banded involution as one
+    ``edge_exchange`` launch, the score plane riding as f32 (zero where
+    ``live_u32`` is)."""
+    n, k, c = words.shape
+    wire_flat, nbr_score_of_me = fr.edge_exchange(
+        words.reshape(n, k * c), scores, live_u32, offsets=net.band_off,
+        revs=net.band_rev, c=c, score_enabled=score_enabled)
+    return wire_flat.reshape(n, k, c), nbr_score_of_me
 
 
 def control_exchange(cfg: GossipSubConfig, net: Net, st: GossipSubState, cross):
@@ -1495,11 +1563,21 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                         adversary_no_forward: np.ndarray | None = None,
                         static_heartbeat: bool = False, dynamic_peers: bool = False,
                         sub_knowledge_holes: np.ndarray | None = None,
-                        dynamic_topo: bool = False, **unported):
+                        dynamic_topo: bool = False, lift_scores: bool = False,
+                        **unported):
     """Build the per-round step for a fixed config + topology:
 
         step(state, pub_origin[P], pub_topic[P], pub_valid[P]
-             [, up_next[N] [, mut_writes[B, 4]]]) -> state
+             [, up_next[N] [, mut_writes[B, 4]]] [, score_plane]) -> state
+
+    With ``lift_scores=True`` (which needs ``cfg.score_enabled``) the step
+    takes a lifted plane as its last positional (``score.params``: a
+    ``ScoreParams``, or a ``CandidateParams`` with the mesh degrees too):
+    every score weight, decay, cap and threshold, and with a mesh plane
+    every degree, is read from it on the device, so one step (and one
+    captured window) runs any weight set; ``ScoreParams.from_config`` of the
+    build's values reproduces the static build. Its float forms are the
+    JAX package's lifted build's (``score.engine.compute_scores_lifted``).
 
     With ``dynamic_peers=True`` the step takes the notify plane ``up_next``
     [N] bool: a peer that goes down, or is blacklisted (``set_blacklist``),
@@ -1529,6 +1607,9 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     peers run the whole control plane but never transmit message data (the
     reference suite's ``sybilSquatter``, gossipsub_test.go:1777-1811).
 
+    ``cfg.wire_coalesced=False`` clears the recycled slots plane by plane
+    (the JAX package's A/B form of the stacked fold, the same bits).
+
     ``cfg.queue_cap`` caps each link's messages a round (the overflow
     dropped and counted, congested links suppressing the next heartbeat's
     gossip toward them), and ``cfg.validation_delay_rounds`` (or
@@ -1552,11 +1633,13 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     ``fused_delivery`` launches. A CSR net's state stays CSR-resident
     between steps. The step is functional: it never writes
     into the state it is given. Options of the JAX step outside the port
-    (the chaos and adversary planes, the router, lifted scores, telemetry)
-    raise."""
+    (the adversary plane, the router's link delays, telemetry) raise."""
     if unported:
         raise NotImplementedError(
-            f"not ported yet: {sorted(unported)} — ROADMAP §1 items 3-6")
+            f"not ported yet: {sorted(unported)} — ROADMAP §1 items 5-6")
+    if lift_scores and not cfg.score_enabled:
+        raise ValueError("lift_scores=True needs cfg.score_enabled — the lifted plane "
+                         "parameterizes the v1.1 score machinery")
     if dynamic_topo:
         # each refused combination bakes neighbour identity or the banded
         # geometry into a build constant that a write could not update
@@ -1589,7 +1672,6 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval, gater_params,
                                  adversary_no_forward, sub_knowledge_holes, dynamic_peers)
     cfg = flushed_thresholds(cfg)
-    tp = consts.tp
     n_peers, k_dim = net.n_peers, net.max_degree
 
     # the fused kernels hold a row's K first-arrival words in registers; a
@@ -1600,22 +1682,13 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     opts = dict(count_events=cfg.count_events, queue_cap=cfg.queue_cap,
                 val_delay_topic=cfg.validation_delay_topic)
 
-    def banded_cross(live_u32, words, scores):
-        """The control words across the banded involution as one
-        edge_exchange launch, the score plane riding as f32."""
-        wc = words.shape[-1]
-        wire_flat, nbr_score_of_me = fr.edge_exchange(
-            words.reshape(n_peers, k_dim * wc), scores, live_u32,
-            offsets=net.band_off, revs=net.band_rev, c=wc,
-            score_enabled=cfg.score_enabled,
-        )
-        return wire_flat.reshape(n_peers, k_dim, wc), nbr_score_of_me
-
     def banded_data_plane(net_l, st, st2, joined_words, slotw, acc_ok, acc_msg,
-                          ihave_in_raw, nbr_score_of_me, valid_pack):
+                          ihave_in_raw, nbr_score_of_me, valid_pack, thr):
         """IHAVE ingest first (it consumes nothing the delivery kernel
         writes), then the whole delivery plane in one fused_delivery launch
-        over the post-graft mesh. Returns (st2, dlv, info)."""
+        over the post-graft mesh; under a lifted plane the kernel reads its
+        (gossip, publish) threshold row from the device. Returns (st2, dlv,
+        info)."""
         core = st.core
         tick = core.tick
         m = core.msgs.capacity
@@ -1623,7 +1696,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         kw = k_dim * w_dim
         asked_old = st2.iwant_out
         served_lo_old, served_hi_old = st2.served_lo, st2.served_hi
-        st2 = handle_ihave(cfg, net_l, st2, joined_words, acc_ok, ihave_in_raw)
+        st2 = handle_ihave(cfg, net_l, st2, joined_words, acc_ok, ihave_in_raw, thr)
 
         carry = sender_carry_words(st2.mesh, slotw)
         if cfg.fanout_slots > 0:
@@ -1633,13 +1706,18 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         origin_w = origin_msg_words(net_l, core.msgs)
         if cfg.flood_publish:
             # sender-side fold of v1.1 flood-publish (gossipsub.go:957-963)
-            fp_ok = ((st.scores >= cfg.publish_threshold)
+            fp_ok = ((st.scores >= thr.publish_threshold)
                      if cfg.score_enabled else net_l.nbr_ok)
             carry = carry | torch.where(fp_ok[:, :, None], origin_w[:, None, :], 0)
         # the kernel gates every edge by F_LIVE, the static flood_from too
         flags = fr.make_flags(acc_msg, consts.flood_from, consts.i_am_floodsub,
                               consts.sender_fwd_full, net_l.nbr_ok)
         mcw = bitset.word_or_reduce(st2.mcache, dim=1)
+        if thr is cfg:
+            thr_kw = dict(gossip_thr=cfg.gossip_threshold, publish_thr=cfg.publish_threshold)
+        else:
+            thr_kw = dict(thr_row=torch.stack([thr.gossip_threshold,
+                                               thr.publish_threshold])[None])
         res = fr.fused_delivery(
             carry.reshape(n_peers, kw).contiguous(),
             core.dlv.fe_words.reshape(n_peers, kw),
@@ -1648,8 +1726,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             served_lo_old.reshape(n_peers, kw),
             served_hi_old.reshape(n_peers, kw),
             flags, core.dlv.have, origin_w, joined_words.contiguous(),
-            valid_pack[None, :],
-            cfg.gossip_threshold, cfg.publish_threshold,
+            valid_pack[None, :], **thr_kw,
             offsets=net.band_off, revs=net.band_rev, w=w_dim,
             score_enabled=cfg.score_enabled,
             want_cohorts=cfg.count_events,
@@ -1690,23 +1767,23 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         return st2, dlv, info
 
     def composite_data_plane(net_l, flood_from_l, st, st2, joined_words, slotw, acc_ok,
-                             acc_msg, ihave_in_raw, nbr_score_of_me):
+                             acc_msg, ihave_in_raw, nbr_score_of_me, thr):
         """The JAX package's XLA path: IWANT service (last round's asks ->
         this round's carry), IHAVE ingest, the mesh/flood edge mask through
         the shared delivery_round, then the IWANT responses merged in.
         Returns (st2, dlv, info)."""
         core = st.core
-        st2, iwant_resp = iwant_responses(cfg, net_l, st2, nbr_score_of_me)
-        st2 = handle_ihave(cfg, net_l, st2, joined_words, acc_ok, ihave_in_raw)
+        st2, iwant_resp = iwant_responses(cfg, net_l, st2, nbr_score_of_me, thr=thr)
+        st2 = handle_ihave(cfg, net_l, st2, joined_words, acc_ok, ihave_in_raw, thr)
         # floodsub-peer edges: sender floodsub => flood; receiver floodsub
         # => the gossipsub sender still sends everything, score-gated
         # (gossipsub.go:973-978)
-        recv_ok = ((nbr_score_of_me >= cfg.publish_threshold)
+        recv_ok = ((nbr_score_of_me >= thr.publish_threshold)
                    if cfg.score_enabled else net_l.nbr_ok)
         flood_edges = flood_from_l | (consts.i_am_floodsub[:, None]
                                       & recv_ok & net_l.nbr_ok)
         edge_mask = gossip_edge_mask(cfg, net_l, st2, joined_words, acc_msg, slotw,
-                                     core.msgs, flood_edges, nbr_score_of_me)
+                                     core.msgs, flood_edges, nbr_score_of_me, thr)
         if consts.sender_fwd_ok is not None:
             # edges from no-forward peers carry no data
             edge_mask = torch.where(consts.sender_fwd_ok[:, :, None], edge_mask, 0)
@@ -1720,8 +1797,9 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     # net and consts are parameters of the round, not closure reads: a
     # dynamic-topology round rebinds both from the state's overlay
     def _round(st: GossipSubState, pub_origin, pub_topic, pub_valid, up_next=None,
-               mut_writes=None, do_heartbeat: bool = True, *, net=net,
+               mut_writes=None, do_heartbeat: bool = True, score_plane=None, *, net=net,
                consts=consts) -> GossipSubState:
+        rp = round_params(cfg, net, consts, score_plane)
         if dynamic_topo:
             # the round's writes land first: the whole round runs on the
             # mutated topology
@@ -1729,27 +1807,28 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             wr_edge = topo_dynamics.written_edge_mask(mut_writes, n_peers, k_dim)
             net = net.with_overlay(topo1)
             consts = rebind_step_consts(cfg, consts, net)
-            st = clear_mutated_edges(cfg, st, wr_edge, tp)
+            st = clear_mutated_edges(cfg, st, wr_edge, rp.tp)
             st = replace(st, core=replace(st.core, topo=topo1))
         live = None
         if dynamic_peers:
-            st, live = apply_peer_transitions(cfg, net, st, up_next, tp)
+            st, live = apply_peer_transitions(cfg, net, st, up_next, rp.tp)
         core = st.core
         tick = core.tick
         net_l, nbr_sub_l, flood_from_l, nbr_sub_words_l, live_u32 = live_step_views(
             cfg, net, st, consts, live)
-        acc_ok, acc_msg = accept_gates(cfg, net_l, st, consts, gater_params, tick)
+        acc_ok, acc_msg = accept_gates(cfg, net_l, st, consts, gater_params, tick, rp.thr)
 
         # 0b. merged wire exchange: every control outbox crosses the edge
         # involution at once, the score plane beside it
-        cross = (functools.partial(banded_cross, live_u32) if banded
+        cross = (functools.partial(banded_cross, net, live_u32, cfg.score_enabled) if banded
                  else functools.partial(gather_cross, net_l))
         graft_in_raw, prune_in_raw, ihave_in_raw, px_in_raw, nbr_score_of_me = (
             control_exchange(cfg, net_l, st, cross))
 
         # 1. GRAFT/PRUNE ingest, and PX connect
         st2, prune_resp, px_resp, px_ok, n_graft, n_prune = handle_graft_prune(
-            cfg, net_l, st, tp, acc_ok, graft_in_raw, prune_in_raw, px_in_raw)
+            cfg, net_l, st, rp.tp, acc_ok, graft_in_raw, prune_in_raw, px_in_raw,
+            rp.thr, rp.msh)
         events = core.events
         if cfg.count_events:
             events = add_event(add_event(events, EV.GRAFT, n_graft),
@@ -1764,11 +1843,11 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         if banded:
             st2, dlv, info = banded_data_plane(
                 net_l, st, st2, joined_words, slotw, acc_ok, acc_msg, ihave_in_raw,
-                nbr_score_of_me, valid_pack)
+                nbr_score_of_me, valid_pack, rp.thr)
         else:
             st2, dlv, info = composite_data_plane(
                 net_l, flood_from_l, st, st2, joined_words, slotw, acc_ok, acc_msg,
-                ihave_in_raw, nbr_score_of_me)
+                ihave_in_raw, nbr_score_of_me, rp.thr)
 
         # the exact-trace duplicate plane: arrivals beyond the first per
         # (peer, msg), before the throttle (its refusals are fresh receipts)
@@ -1788,9 +1867,9 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         score = st2.score
         if cfg.score_enabled:
             score = on_deliveries(
-                score, net_l, st2.mesh, tp, info.trans, info.new_words,
+                score, net_l, st2.mesh, rp.tp, info.trans, info.new_words,
                 dlv.fe_words, dlv.first_round, core.msgs.topic,
-                core.msgs.valid, tick, consts.window_rounds_t,
+                core.msgs.valid, tick, rp.wrt,
                 msg_ignored=core.msgs.ignored, slotw=slotw,
                 pending_words=(bitset.word_or_reduce(dlv.pending, dim=1)
                                if dlv.pending is not None else None),
@@ -1814,13 +1893,18 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         # 7. publishes + slot-recycle cleanup; the recycled-slot clear
         # precedes the origin's own mcache put (gossipsub.go:946)
         msgs, dlv, _slots, is_pub, keep_words, pub_words = allocate_publishes(
-            core.msgs, dlv, tick, pub_origin, pub_topic, pub_valid)
+            core.msgs, dlv, tick, pub_origin, pub_topic, pub_valid,
+            stacked_clears=cfg.wire_coalesced)
         mcache = mcache & keep_words
         mcache[:, 0, :] = mcache[:, 0, :] | pub_words
         # IHAVE outboxes were read by the far end this round
         ihave_out = torch.zeros_like(st2.ihave_out)
-        iwant_out, served_lo, served_hi = bitset.masked_keep(
-            [st2.iwant_out, st2.served_lo, st2.served_hi], keep_words)
+        if cfg.wire_coalesced:
+            iwant_out, served_lo, served_hi = bitset.masked_keep(
+                [st2.iwant_out, st2.served_lo, st2.served_hi], keep_words)
+        else:
+            iwant_out, served_lo, served_hi = (
+                p & keep_words for p in (st2.iwant_out, st2.served_lo, st2.served_hi))
         promise_reused = bitset.bit_get((~keep_words)[None, None, :],
                                         st2.promise_mid)
         promise_mid = torch.where((st2.promise_mid >= 0) & promise_reused, -1,
@@ -1830,7 +1914,8 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         if cfg.fanout_slots > 0:
             fkey = prng.fold_in_rows(prng.fold_in_rows(core.key, tick), 0xFA40)
             sel = fanout_selections(cfg, net_l, st2.scores, pub_origin[None],
-                                    pub_topic[None], nbr_sub_words_l, fkey)[0]
+                                    pub_topic[None], nbr_sub_words_l, fkey, rp.thr,
+                                    rp.msh)[0]
             st2 = update_fanout_on_publish(cfg, net_l, st2, pub_origin, pub_topic, sel, tick)
 
         if cfg.count_events:
@@ -1867,9 +1952,9 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
 
         # 8. heartbeat
         def hb(s):
-            return heartbeat(cfg, net_l, s, tp, consts.scalars, nbr_sub_l,
+            return heartbeat(cfg, net_l, s, rp.tp, rp.sc, nbr_sub_l,
                              gater_params, nbr_sub_words_l, consts.mesh_capable,
-                             gossip_suppress, present_ok=net.nbr_ok)
+                             gossip_suppress, present_ok=net.nbr_ok, thr=rp.thr, msh=rp.msh)
 
         if cfg.heartbeat_every == 1:
             st2 = hb(st2)
@@ -1887,9 +1972,28 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         _round = wrap_csr_resident(net, _round)
 
     # the JAX package's call forms: up_next and then mut_writes are required
-    # positionals (a default would silently run without churn or writes)
+    # positionals (a default would silently run without churn or writes),
+    # and a lifted step's plane comes last
     use_static_hb = static_heartbeat and cfg.heartbeat_every > 1
-    if use_static_hb:
+    if lift_scores:
+        n_rows = int(dynamic_peers) + int(dynamic_topo)
+
+        def dispatch(st, pub_origin, pub_topic, pub_valid, rest, do_heartbeat=True):
+            if len(rest) != n_rows + 1:
+                raise TypeError(f"a lifted step takes {n_rows} row argument(s) and the "
+                                f"score plane after the publishes, got {len(rest)}")
+            up = rest[0] if dynamic_peers else None
+            writes = rest[1] if dynamic_topo else None
+            return _round(st, pub_origin, pub_topic, pub_valid, up, writes, do_heartbeat,
+                          rest[-1])
+
+        if use_static_hb:
+            def step(st, pub_origin, pub_topic, pub_valid, *rest, do_heartbeat):
+                return dispatch(st, pub_origin, pub_topic, pub_valid, rest, do_heartbeat)
+        else:
+            def step(st, pub_origin, pub_topic, pub_valid, *rest):
+                return dispatch(st, pub_origin, pub_topic, pub_valid, rest)
+    elif use_static_hb:
         if dynamic_topo:
             def step(st, pub_origin, pub_topic, pub_valid, up_next, mut_writes, *,
                      do_heartbeat):

@@ -43,6 +43,7 @@ outside the port raise ``NotImplementedError`` naming the ROADMAP item.
 
 from __future__ import annotations
 
+import functools
 import warnings
 
 import numpy as np
@@ -51,8 +52,13 @@ import torch
 from .. import prng
 from ..ops import bitset
 from ..ops import fused_round as fr
-from ..score.engine import on_deliveries, slot_topic_words
-from ..state import PhasePubPlan, replace, wrap_csr_resident
+from ..score.engine import (
+    apply_delivery_counts,
+    on_deliveries,
+    per_slot_counts,
+    slot_topic_words,
+)
+from ..state import PhasePubPlan, allocate_publishes, replace, wrap_csr_resident
 from ..trace.events import EV, add_event
 from .common import RoundInfo, accumulate_round_events, finish_delivery, origin_msg_words
 from .gossipsub import (
@@ -61,10 +67,13 @@ from .gossipsub import (
     accept_gates,
     apply_peer_transitions,
     apply_validation_throttle,
+    banded_cross,
+    control_exchange,
     control_exchange_coalesced,
     fanout_carry_words,
     fanout_selections,
     flushed_thresholds,
+    gather_cross,
     gater_outcomes,
     handle_graft_prune,
     handle_ihave,
@@ -76,6 +85,7 @@ from .gossipsub import (
     outcome_planes,
     prepare_step_consts,
     px_connect,
+    round_params,
     sender_carry_words,
     update_fanout_on_publish,
 )
@@ -83,7 +93,6 @@ from .gossipsub import (
 #: keyword options of the JAX package's make_gossipsub_phase_step that the port
 #: refuses, and where they land
 UNPORTED = {
-    "lift_scores": "the lifted score plane — ROADMAP §1 item 3",
     "adversary": "the adversary plane — ROADMAP §1 item 5",
     "telemetry": "the telemetry panel — ROADMAP §1 item 5",
 }
@@ -98,22 +107,35 @@ class PhaseAdmissionError(ValueError):
 
 
 class _AccStack:
-    """The phase's attribution accumulators as one ``[N, C, W]`` tensor: an
-    ``[N, W]`` plane is one lane, an ``[N, K, W]`` plane K lanes, and every
-    sub-round ORs its update into the whole stack and ANDs the recycled-slot
-    keep mask into it, one wide op each."""
+    """The phase's attribution accumulators. Stacked (the default), one
+    ``[N, C, W]`` tensor: an ``[N, W]`` plane is one lane, an ``[N, K, W]``
+    plane K lanes, and every sub-round ORs its update into the whole stack
+    and ANDs the recycled-slot keep mask into it, one wide op each. With
+    ``stacked=False`` (``cfg.wire_coalesced=False``) every plane is its own
+    tensor with its own folds, the JAX package's per-plane A/B form; both
+    run the same updates in the same order, to the same bits."""
 
-    def __init__(self, specs, n: int, w: int, device):
+    def __init__(self, specs, n: int, w: int, device, stacked: bool = True):
         self.offs = {}
+        self.stacked = stacked
         off = 0
         for name, lanes in specs:
             self.offs[name] = (off, lanes)
             off += lanes
-        self.buf = (torch.zeros((n, off, w), dtype=torch.int32, device=device)
-                    if off else None)
+        if stacked:
+            self.buf = (torch.zeros((n, off, w), dtype=torch.int32, device=device)
+                        if off else None)
+        else:
+            self.planes = {name: torch.zeros((n, w) if lanes == 1 else (n, lanes, w),
+                                             dtype=torch.int32, device=device)
+                           for name, lanes in specs}
 
     def or_(self, updates: dict) -> None:
         """OR one sub-round's update of every lane in."""
+        if not self.stacked:
+            for name in self.planes:
+                self.planes[name] = self.planes[name] | updates[name]
+            return
         if self.buf is None:
             return
         n, _, w = self.buf.shape
@@ -123,12 +145,17 @@ class _AccStack:
 
     def keep(self, keep_w: torch.Tensor) -> None:
         """Clear recycled slots' columns in every lane."""
-        if self.buf is not None:
+        if not self.stacked:
+            for name in self.planes:
+                self.planes[name] = self.planes[name] & keep_w
+        elif self.buf is not None:
             self.buf = self.buf & keep_w
 
     def get(self, name: str, default=None):
         if name not in self.offs:
             return default
+        if not self.stacked:
+            return self.planes[name]
         off, lanes = self.offs[name]
         return self.buf[:, off] if lanes == 1 else self.buf[:, off:off + lanes]
 
@@ -174,11 +201,13 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                               score_counts: bool | None = None,
                               exact_counters: bool = False,
                               admission_capped: bool = False, dynamic_peers: bool = False,
-                              sub_knowledge_holes=None, **unported):
+                              sub_knowledge_holes=None, lift_scores: bool = False,
+                              **unported):
     """Build the phase step for a fixed config and topology:
 
         step(state, pub_origin[r,P], pub_topic[r,P], pub_valid[r,P]
-             [, up_next[N]], *, do_heartbeat) -> state  (tick advances by r)
+             [, up_next[N]] [, score_plane], *, do_heartbeat) -> state
+             (tick advances by r)
 
     ``pub_*[i]`` is published at tick ``t + i``, as the per-round step
     would. ``do_heartbeat`` is required: the caller owns the schedule
@@ -205,9 +234,24 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
     edges. ``sub_knowledge_holes`` [N,K,T] hides unannounced subscriptions
     from mesh, gossip and fanout selection. ``admission_capped=True``
     certifies that the caller caps admitted publishes at ``msg_slots // 2``
-    a phase and drops the admission check. ``cfg.wire_coalesced=False``, the count path
-    (``score_counts=True``) and the JAX function's other options (lifted
-    scores, the chaos adversary plane, telemetry) raise."""
+    a phase and drops the admission check.
+
+    ``lift_scores=True`` takes a lifted plane (``score.params``) as the last
+    positional, as the per-round step does; a lifted build carries every
+    attribution plane (a weight on the device cannot drive the build's
+    elision). ``score_counts=True`` reduces each sub-round's arrivals to
+    per-(peer, slot, edge) counts at arrival time and folds them into the
+    counters at the tail (``score.engine.apply_delivery_counts``; a cap can
+    bind up to r - 1 rounds late), instead of OR-folding word planes: it
+    keeps the credit of slots recycled within the phase, which the plane
+    path sheds. It is off under the validation pipeline, as in the JAX
+    package. ``cfg.wire_coalesced=False`` is the JAX package's per-plane
+    form, to the same bits: the per-round control exchange at the head
+    (``edge_exchange`` over graft | prune | ihave [| px] on a banded net)
+    and the IWANT window gathered apart, ``allocate_publishes`` every
+    sub-round instead of the head's plan, the mcache put a sub-round, and
+    the accumulators and the tail's clears plane by plane. The JAX
+    function's adversary and telemetry options raise."""
     r = int(rounds_per_phase)
     if r < 1:
         raise ValueError(f"rounds_per_phase must be >= 1, got {r}")
@@ -216,28 +260,27 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             raise TypeError(f"unknown option {key!r}")
         if value is not None and value is not False:
             raise NotImplementedError(f"not ported yet: {UNPORTED[key]}")
-    if not cfg.wire_coalesced:
-        raise NotImplementedError(
-            "not ported yet: wire_coalesced=False (the JAX package's per-plane A/B "
-            "form, bit-identical to the coalesced one) — ROADMAP §1 item 3")
-    if score_counts:
-        raise NotImplementedError(
-            "not ported yet: score_counts=True (the per-slot count attribution "
-            "path) — ROADMAP §1 item 3")
+    if lift_scores and not cfg.score_enabled:
+        raise ValueError("lift_scores=True needs cfg.score_enabled — the lifted plane "
+                         "parameterizes the v1.1 score machinery")
     consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval, gater_params,
                                  adversary_no_forward, sub_knowledge_holes, dynamic_peers)
     adv_self = (torch.as_tensor(np.asarray(adversary_no_forward, bool), device=net.device)
                 if adversary_no_forward is not None else None)
     cfg = flushed_thresholds(cfg)
-    tp, wrt = consts.tp, consts.window_rounds_t
     n_peers, k_dim = net.n_peers, net.max_degree
     banded = net.band_off is not None and k_dim <= fr.MAX_K
-    if cfg.score_enabled:
+    if lift_scores:
+        p3_live = p4_live = True
+    elif cfg.score_enabled:
         p3_live, p4_live = _weights_live(score_params, net.n_topics)
     else:
         p3_live = p4_live = False
     p3_live, p4_live = p3_live or exact_counters, p4_live or exact_counters
-    plane_score = cfg.score_enabled
+    count_score = cfg.score_enabled and cfg.validation_delay_rounds == 0 and bool(score_counts)
+    plane_score = cfg.score_enabled and not count_score
+    coalesced = cfg.wire_coalesced
+    scatter_alloc = n_peers >= 20_000
     opts = dict(count_events=cfg.count_events, queue_cap=cfg.queue_cap,
                 val_delay_topic=cfg.validation_delay_topic)
 
@@ -253,12 +296,25 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             return torch.where(gate[:, :, None], wire.reshape(n_peers, k_dim, w), 0)
         return torch.where(gate[:, :, None], net.edge_gather(send), 0)
 
+    def control_head(net_l, st, live_u32):
+        """(graft_in_raw, prune_in_raw, ihave_in_raw, px_in_raw,
+        nbr_score_of_me, window_g): the coalesced exchange, or the per-plane
+        form's control exchange with the IWANT window left to
+        ``iwant_responses`` (window_g None)."""
+        if coalesced:
+            return control_exchange_coalesced(cfg, net_l, st, live_u32)
+        cross = (functools.partial(banded_cross, net, live_u32, cfg.score_enabled) if banded
+                 else functools.partial(gather_cross, net_l))
+        return (*control_exchange(cfg, net_l, st, cross), None)
+
     def _phase(st: GossipSubState, pub_origin, pub_topic, pub_valid, up_next,
-               do_heartbeat: bool) -> GossipSubState:
+               do_heartbeat: bool, score_plane=None) -> GossipSubState:
+        rp = round_params(cfg, net, consts, score_plane)
+        thr, msh = rp.thr, rp.msh
         # the peer transitions land once a phase, at the head
         live = None
         if dynamic_peers:
-            st, live = apply_peer_transitions(cfg, net, st, up_next, tp)
+            st, live = apply_peer_transitions(cfg, net, st, up_next, rp.tp)
         net_l, nbr_sub_l, flood_from_l, nbr_sub_words_l, live_u32 = live_step_views(
             cfg, net, st, consts, live)
         core = st.core
@@ -270,19 +326,19 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             check_admission(r, pub_origin.shape[-1], m)
 
         # ---- control head (once a phase) --------------------------------
-        acc_ok, acc_msg = accept_gates(cfg, net_l, st, consts, gater_params, tick0)
+        acc_ok, acc_msg = accept_gates(cfg, net_l, st, consts, gater_params, tick0, thr)
         (graft_in_raw, prune_in_raw, ihave_in_raw, px_in_raw, nbr_score_of_me,
-         window_g) = control_exchange_coalesced(cfg, net_l, st, live_u32)
+         window_g) = control_head(net_l, st, live_u32)
         st2, prune_resp, px_resp, px_ok, n_graft, n_prune = handle_graft_prune(
-            cfg, net_l, st, tp, acc_ok, graft_in_raw, prune_in_raw, px_in_raw)
+            cfg, net_l, st, rp.tp, acc_ok, graft_in_raw, prune_in_raw, px_in_raw, thr, msh)
         events = core.events
         if cfg.count_events:
             events = add_event(add_event(events, EV.GRAFT, n_graft), EV.PRUNE, n_prune)
         edge_live_next = px_connect(cfg, net, net_l, st, px_ok, dynamic_peers)
         st2, iwant_resp = iwant_responses(cfg, net_l, st2, nbr_score_of_me,
-                                          window_g=window_g)
+                                          window_g=window_g, thr=thr)
         st2 = handle_ihave(cfg, net_l, st2, joined_msg_words(net_l, core.msgs), acc_ok,
-                           ihave_in_raw)
+                           ihave_in_raw, thr)
         if consts.sender_fwd_ok is not None:
             # no-forward peers serve no IWANT either
             iwant_resp = torch.where(consts.sender_fwd_ok[:, :, None], iwant_resp, 0)
@@ -292,7 +348,7 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         # hold for the whole phase (the r-round control latency)
         mesh2 = st2.mesh
         nbr_ok = net_l.nbr_ok
-        send_score_ok = (st.scores >= cfg.publish_threshold) if cfg.score_enabled else nbr_ok
+        send_score_ok = (st.scores >= thr.publish_threshold) if cfg.score_enabled else nbr_ok
         # floodsub-semantics edges, sender side (floodsub.go:76-100,
         # gossipsub.go:973-978)
         flood_send = (consts.i_am_floodsub[:, None] & nbr_ok) | (flood_from_l & send_score_ok)
@@ -318,7 +374,10 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             specs += [("dup", k_dim), ("rejw", k_dim), ("ignw", k_dim)]
             n_validated = torch.zeros((n_peers,), dtype=torch.int32, device=dev)
             n_throttled = torch.zeros((n_peers,), dtype=torch.int32, device=dev)
-        accs = _AccStack(specs, n_peers, w, dev)
+        accs = _AccStack(specs, n_peers, w, dev, stacked=coalesced)
+        if count_score:
+            zsc = torch.zeros((n_peers, net.n_slots, k_dim), dtype=torch.float32, device=dev)
+            fmd_counts = mmd_counts = imd_counts = zsc
         # the exact-trace duplicate plane, beside the stack: recycled slots do
         # not clear it, since a dup bit names the message its slot held at
         # the arrival (slots outlive a phase under the admission cap)
@@ -334,13 +393,14 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             ticks = tick0 + torch.arange(r, dtype=torch.int32, device=dev)
             fkeys = prng.fold_in_rows(prng.fold_in_rows(core.key, ticks), 0xFA40)
             fsel = fanout_selections(cfg, net_l, st2.scores, pub_origin, pub_topic,
-                                     nbr_sub_words_l, fkeys)
+                                     nbr_sub_words_l, fkeys, thr, msh)
         if cfg.count_events:
             zero = torch.zeros((), dtype=torch.int32, device=dev)
             cnt = dict(n_deliver=zero, n_reject=zero, n_duplicate=zero, n_rpc=zero,
                        n_drop=zero)
             n_pub = zero
-        plan = PhasePubPlan(msgs, n_peers, tick0, pub_origin, pub_topic, pub_valid)
+        plan = (PhasePubPlan(msgs, n_peers, tick0, pub_origin, pub_topic, pub_valid)
+                if coalesced else None)
         slotw = slot_topic_words(net_l, msgs.topic)
         joined_w = joined_msg_words(net_l, msgs)
         # the origin plane rides the loop: (origin & keep) | pub_words is the
@@ -351,7 +411,11 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
 
         for i in range(r):
             tick_i = tick0 + i
-            msgs = plan.msgs_at(i)
+            if plan is not None:
+                msgs = plan.msgs_at(i)
+                valid_w_i = plan.valid_words[i]
+            else:
+                valid_w_i = bitset.pack(msgs.valid)
 
             # sender-side transmit composition, one crossing a sub-round
             carry = sender_carry_words(mesh2, slotw) | flood_words
@@ -378,22 +442,32 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             if dupt is not None:
                 # before the throttle, as in the per-round step
                 dupt = dupt | (info.trans & ~(dlv.fe_words & info.recv_new_words[:, None, :]))
-            valid_w_i = plan.valid_words[i]
             if cfg.validation_capacity > 0:
                 dlv, info, _accepted, n_thr = apply_validation_throttle(
                     dlv, info, cfg.validation_capacity, m, valid_w_i)
 
-            # attribution: one stacked OR a sub-round
+            # attribution: the count path reduces the arrivals now, the
+            # plane path ORs them into the stack
+            if count_score or (plane_score and p3_live):
+                # the P3 window at this arrival's own tick (score.go:944-974)
+                window = rp.wrt[msgs.topic.clamp(min=0).long()]
+                within_i = bitset.pack((dlv.first_round >= 0)
+                                       & ((tick_i - dlv.first_round) <= window[None, :]))
             upd = {}
             if "new" in accs.offs:
                 upd["new"] = info.new_words
+            if count_score:
+                valid3 = valid_w_i[None, None, :]
+                ign_i = bitset.pack(msgs.ignored)
+                mmd_counts = mmd_counts + per_slot_counts(
+                    info.trans & valid3 & within_i[:, None, :], slotw)
+                fmd_counts = fmd_counts + per_slot_counts(
+                    dlv.fe_words & info.new_words[:, None, :] & valid3, slotw)
+                imd_counts = imd_counts + per_slot_counts(
+                    info.trans & ~(valid_w_i | ign_i)[None, None, :], slotw)
             if plane_score and p4_live:
                 upd["trans"] = info.trans
             if plane_score and p3_live:
-                # the P3 window at this arrival's own tick (score.go:944-974)
-                window = wrt[msgs.topic.clamp(min=0).long()]
-                within_i = bitset.pack((dlv.first_round >= 0)
-                                       & ((tick_i - dlv.first_round) <= window[None, :]))
                 upd["mcw"] = info.trans & within_i[:, None, :]
                 if dlv.pending is not None:
                     # duplicates arriving while the message sits in the
@@ -416,16 +490,26 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             # mcache put: validated receipts in joined topics
             put = info.new_words & valid_w_i[None, :] & joined_w
             # this sub-round's publishes and recycled-slot clears
-            slots, is_pub = plan.sidx[i], plan.is_pub[i]
-            keep_w, pub_words = plan.keep_w[i], plan.pub_words[i]
-            dlv = plan.apply_to_delivery(dlv, i, tick_i)
-            origin_w = (origin_w & keep_w) | pub_words
+            if plan is not None:
+                slots, is_pub = plan.sidx[i], plan.is_pub[i]
+                keep_w, pub_words = plan.keep_w[i], plan.pub_words[i]
+                dlv = plan.apply_to_delivery(dlv, i, tick_i)
+                origin_w = (origin_w & keep_w) | pub_words
+            else:
+                mcache = torch.cat([mcache[:, :1] | put[:, None], mcache[:, 1:]], dim=1)
+                msgs, dlv, slots, is_pub, keep_w, pub_words = allocate_publishes(
+                    msgs, dlv, tick_i, pub_origin[i], pub_topic[i], pub_valid[i],
+                    scatter_form=scatter_alloc, stacked_clears=False)
+                origin_w = origin_msg_words(net_l, msgs)
             # the membership planes, incrementally, for every topic
             # universe (the JAX package recomputes them past 8 topics; the
             # words are the same): recycled columns clear, each publish ORs
             # its one-hot word column where the peer (or its slot) has the
             # publish's topic
-            slotw, joined_w, mcache = bitset.masked_keep([slotw, joined_w, mcache], keep_w)
+            if coalesced:
+                slotw, joined_w, mcache = bitset.masked_keep([slotw, joined_w, mcache], keep_w)
+            else:
+                slotw, joined_w = slotw & keep_w, joined_w & keep_w
             t_p = pub_topic[i].clamp(min=0)
             bit = bitset.to_word(
                 torch.ones_like(slots, dtype=torch.int64) << (slots % bitset.WORD).long())
@@ -438,10 +522,14 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             slot_match = net_l.my_topics[:, :, None] == t_p[None, None, :]  # [N, S, P]
             slotw = slotw | bitset.word_or_reduce(
                 torch.where(slot_match[..., None], colw[None, None], 0), dim=2)
-            # one window-0 update for the put and the publish stamps (the
-            # clear above precedes the slot's new message)
-            mcache = torch.cat([(mcache[:, :1] | (put & keep_w)[:, None]
-                                 | pub_words[:, None]), mcache[:, 1:]], dim=1)
+            if coalesced:
+                # one window-0 update for the put and the publish stamps (the
+                # clear above precedes the slot's new message)
+                mcache = torch.cat([(mcache[:, :1] | (put & keep_w)[:, None]
+                                     | pub_words[:, None]), mcache[:, 1:]], dim=1)
+            else:
+                mcache = mcache & keep_w
+                mcache = torch.cat([mcache[:, :1] | pub_words[:, None], mcache[:, 1:]], dim=1)
             # iwant_out / served / promise clears defer to the tail: nothing
             # in the loop reads them, and the admission cap keeps a recycled
             # slot from being re-allocated within the phase
@@ -454,19 +542,26 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                     cfg, net_l, fanout_st, pub_origin[i], pub_topic[i], fsel[i], tick_i)
 
         # ---- phase tail (once) ------------------------------------------
-        msgs = plan.msgs_at(r)
-        iwant_out, served_lo, served_hi = bitset.masked_keep(
-            [st2.iwant_out, st2.served_lo, st2.served_hi], keep_acc)
+        if plan is not None:
+            msgs = plan.msgs_at(r)
+            iwant_out, served_lo, served_hi = bitset.masked_keep(
+                [st2.iwant_out, st2.served_lo, st2.served_hi], keep_acc)
+        else:
+            iwant_out, served_lo, served_hi = (
+                p & keep_acc for p in (st2.iwant_out, st2.served_lo, st2.served_hi))
         promise_mid = st2.promise_mid
         promise_reused = bitset.bit_get((~keep_acc)[None, None, :], promise_mid)
         promise_mid = torch.where((promise_mid >= 0) & promise_reused, -1, promise_mid)
         tick_last = tick0 + (r - 1)
         score = st2.score
-        if plane_score:
+        if count_score:
+            score = apply_delivery_counts(score, rp.tp, fmd_counts, mmd_counts, imd_counts,
+                                          mesh2)
+        elif plane_score:
             zkw = torch.zeros((n_peers, k_dim, w), dtype=torch.int32, device=dev)
             score = on_deliveries(
-                score, net_l, mesh2, tp, accs.get("trans", zkw), accs.get("new"),
-                dlv.fe_words, dlv.first_round, msgs.topic, msgs.valid, tick_last, wrt,
+                score, net_l, mesh2, rp.tp, accs.get("trans", zkw), accs.get("new"),
+                dlv.fe_words, dlv.first_round, msgs.topic, msgs.valid, tick_last, rp.wrt,
                 msg_ignored=msgs.ignored, slotw=slot_topic_words(net_l, msgs.topic),
                 mesh_credit_words=accs.get("mcw", zkw))
         gater = st2.gater
@@ -510,16 +605,25 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             gossip_suppress = net_l.edge_gather(sat_recv) & net_l.nbr_ok
             st2 = replace(st2, congested_in=sat_recv)
         if do_heartbeat:
-            st2 = heartbeat(cfg, net_l, st2, tp, consts.scalars, nbr_sub_l, gater_params,
+            st2 = heartbeat(cfg, net_l, st2, rp.tp, rp.sc, nbr_sub_l, gater_params,
                             nbr_sub_words_l, consts.mesh_capable, gossip_suppress,
-                            present_ok=net.nbr_ok)
+                            present_ok=net.nbr_ok, thr=thr, msh=msh)
         return replace(st2, core=replace(st2.core, tick=tick0 + r))
 
     if net.edge_layout == "csr":
         # CSR-resident state: flat planes between phases, dense inside
         _phase = wrap_csr_resident(net, _phase)
 
-    if dynamic_peers:
+    if lift_scores:
+        n_rows = int(dynamic_peers)
+
+        def step(st, pub_origin, pub_topic, pub_valid, *rest, do_heartbeat: bool):
+            if len(rest) != n_rows + 1:
+                raise TypeError(f"a lifted phase step takes {n_rows} row argument(s) and "
+                                f"the score plane after the publishes, got {len(rest)}")
+            return _phase(st, pub_origin, pub_topic, pub_valid,
+                          rest[0] if dynamic_peers else None, bool(do_heartbeat), rest[-1])
+    elif dynamic_peers:
         def step(st, pub_origin, pub_topic, pub_valid, up_next, *, do_heartbeat: bool):
             return _phase(st, pub_origin, pub_topic, pub_valid, up_next, bool(do_heartbeat))
     else:

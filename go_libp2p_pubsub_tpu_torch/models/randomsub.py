@@ -52,7 +52,7 @@ def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
                         lift_scores: bool = False):
     """Build the per-round RandomSub step for a fixed topology:
 
-        step(state, pub_origin[P], pub_topic[P], pub_valid[P]) -> state
+        step(state, pub_origin[P], pub_topic[P], pub_valid[P] [, score_plane]) -> state
 
     a plain function on tensors (``driver.make_window`` captures it as it
     captures FloodSub's). ``size_estimate`` sets every topic's size, as
@@ -61,16 +61,16 @@ def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
     outbound-queue budget and a state built with
     ``SimState.init(val_delay=...)`` runs the async-validation pipeline,
     both in the shared delivery core. ``stacked`` is the JAX package's A/B
-    switch for its recycled-slot clears; both of its forms give the bits of
-    the port's one form (``state.allocate_publishes``). The chaos,
-    telemetry and adversary planes and the lifted score plane raise
-    ``NotImplementedError``."""
-    del stacked
+    switch for its recycled-slot clears (one fold, or one op a plane: the
+    same bits, ``state.allocate_publishes``). With ``lift_scores=True`` the
+    step takes a lifted score plane as its last positional and ignores it
+    (RandomSub has no score machinery), so all four engines share the
+    lifted call convention. The chaos, telemetry and adversary planes
+    raise ``NotImplementedError``."""
     unported = [
         (chaos is not None, "chaos (link-fault injection) — ROADMAP §1 item 5"),
         (telemetry is not None, "telemetry (the per-round panel) — ROADMAP §1 item 5"),
         (adversary is not None, "adversary (the attack plane) — ROADMAP §1 item 5"),
-        (lift_scores, "lift_scores (the lifted score plane) — ROADMAP §1 item 3"),
     ]
     for bad, what in unported:
         if bad:
@@ -91,7 +91,7 @@ def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
     # subscribed neighbour (floodsub.go:76-100)
     i_am_floodsub = (net.protocol == 0)[:, None, None]
 
-    def step(st: SimState, pub_origin, pub_topic, pub_valid) -> SimState:
+    def _round(st: SimState, pub_origin, pub_topic, pub_valid) -> SimState:
         tick = st.tick
         # a fresh random fanout per sender, slot and round
         key = prng.fold_in(st.key, tick)
@@ -103,8 +103,12 @@ def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
         dlv, info = delivery_round(net, st.msgs, st.dlv, edge_mask, tick,
                                    queue_cap=queue_cap)
         msgs, dlv, _slots, is_pub, _keep, _pw = allocate_publishes(
-            st.msgs, dlv, tick, pub_origin, pub_topic, pub_valid)
+            st.msgs, dlv, tick, pub_origin, pub_topic, pub_valid, stacked_clears=stacked)
         events = accumulate_round_events(st.events, info, is_pub.sum(dtype=torch.int32))
         return replace(st, tick=tick + 1, msgs=msgs, dlv=dlv, events=events)
 
-    return step
+    if lift_scores:
+        def step(st, pub_origin, pub_topic, pub_valid, score_plane):
+            return _round(st, pub_origin, pub_topic, pub_valid)
+        return step
+    return _round

@@ -115,7 +115,7 @@ def fused_delivery_plain(carry_out, fe_words, fwd, mcache_win, nbr_score,
                          asked, served_lo, served_hi, flags, have, origin_w,
                          joined_w, valid_row, gossip_thr=0.0, publish_thr=0.0,
                          *, offsets, revs, w, score_enabled, want_cohorts,
-                         retrans_cap):
+                         retrans_cap, thr_row=None):
     n = fwd.shape[0]
     k = len(offsets)
     v3 = lambda x: x.reshape(n, k, w)
@@ -131,7 +131,10 @@ def fused_delivery_plain(carry_out, fe_words, fwd, mcache_win, nbr_score,
     sfo_g = _gate(_bit(flags, F_SENDER_FWD))
     if score_enabled:   # the score gates read subnormals as zeros, as XLA does
         nbr_score = flush_subnormals(nbr_score)
-        gossip_thr, publish_thr = flush_f32(gossip_thr), flush_f32(publish_thr)
+        if thr_row is not None:
+            gossip_thr, publish_thr = flush_subnormals(thr_row.reshape(2)).unbind()
+        else:
+            gossip_thr, publish_thr = flush_f32(gossip_thr), flush_f32(publish_thr)
     recv_ok = (nbr_score >= publish_thr) if score_enabled else live
     flood = _gate(_bit(flags, F_FLOOD_FROM)) | (
         _gate(_bit(flags, F_I_AM_FLOODSUB)) & _gate(recv_ok))
@@ -179,9 +182,10 @@ def _lib():
 
 
 def _thr_row(gossip_thr, publish_thr, device) -> torch.Tensor:
+    """The [1, 2] threshold row of host floats, made once per value."""
     g, p = float(gossip_thr), float(publish_thr)
     return kernels.const(("thr", g, p, str(device)),
-                         lambda: torch.tensor([g, p], dtype=torch.float32, device=device))
+                         lambda: torch.tensor([[g, p]], dtype=torch.float32, device=device))
 
 
 def _check_k(k: int, n: int):
@@ -222,13 +226,17 @@ def edge_exchange(wire_pack, scores, live_u32, *, offsets, revs, c,
 def fused_delivery(carry_out, fe_words, fwd, mcache_win, nbr_score, asked,
                    served_lo, served_hi, flags, have, origin_w, joined_w,
                    valid_row, gossip_thr=0.0, publish_thr=0.0, *, offsets,
-                   revs, w, score_enabled, want_cohorts, retrans_cap):
+                   revs, w, score_enabled, want_cohorts, retrans_cap, thr_row=None):
     """The full delivery plane of one round. Returns a dict with trans, fe,
     served_lo, served_hi ([N, K*W]) and new, have, fwd ([N, W]), all
     post-round and freshly allocated, plus the mesh_trans/extra cohorts
-    when ``want_cohorts``."""
+    when ``want_cohorts``. The score gates' (gossip, publish) thresholds are
+    host floats (``gossip_thr``, ``publish_thr``: a constant row kept per
+    value) or, from a lifted plane, ``thr_row``, a float32 ``[1, 2]`` row
+    on the device, which the kernel reads as it stands: no host read, so a
+    captured window replays any plane's thresholds."""
     kw_args = dict(offsets=offsets, revs=revs, w=w, score_enabled=score_enabled,
-                   want_cohorts=want_cohorts, retrans_cap=retrans_cap)
+                   want_cohorts=want_cohorts, retrans_cap=retrans_cap, thr_row=thr_row)
     if not fwd.is_cuda:
         return fused_delivery_plain(
             carry_out, fe_words, fwd, mcache_win, nbr_score, asked, served_lo,
@@ -250,6 +258,11 @@ def fused_delivery(carry_out, fe_words, fwd, mcache_win, nbr_score, asked,
     kernels.check(valid_row, "valid_row", i32, (1, w), dev)
     if score_enabled:
         kernels.check(nbr_score, "nbr_score", torch.float32, (n, k), dev)
+    if thr_row is None:
+        thr_row = _thr_row(gossip_thr, publish_thr, dev)
+    else:
+        thr_row = thr_row.contiguous()
+        kernels.check(thr_row, "thr_row", torch.float32, (1, 2), dev)
     plane = lambda: torch.empty((n, kw), dtype=i32, device=dev)
     row = lambda: torch.empty((n, w), dtype=i32, device=dev)
     res = {"trans": plane(), "fe": plane(), "served_lo": plane(),
@@ -260,7 +273,7 @@ def fused_delivery(carry_out, fe_words, fwd, mcache_win, nbr_score, asked,
     ptrs = [kernels.ptr(t) for t in (
         carry_out, fe_words, fwd, mcache_win, nbr_score if score_enabled else None,
         asked, served_lo, served_hi, flags, have, origin_w, joined_w, valid_row,
-        _thr_row(gossip_thr, publish_thr, dev), kernels.offrev(offsets, revs, dev),
+        thr_row, kernels.offrev(offsets, revs, dev),
         res["trans"], res["fe"], res["served_lo"], res["served_hi"], res["new"],
         res["have"], res["fwd"], res.get("mesh_trans"), res.get("extra"))]
     err = _lib().fused_delivery_launch(

@@ -13,8 +13,15 @@ NORTH_STAR_RATE = 10_000.0
 #: the bench wire is lossless
 CHAOS_OFF = {"generator": "off", "loss_rate": 0.0, "scheduled": False, "scenario": None}
 
-#: every score parameter static (no lifted plane)
-PARAMS_FINGERPRINT = {"recorded": True, "lifted": False, "traced": []}
+def params_fingerprint(lifted: bool) -> dict:
+    """The ``fingerprint["params"]`` block: whether the build reads its
+    score parameters from a lifted plane, and which config fields it then
+    reads there (``score.params.LIFTED_FIELD_NAMES``; none when every
+    parameter is static)."""
+    traced = ()
+    if lifted:
+        from ..score.params import LIFTED_FIELD_NAMES as traced
+    return {"recorded": True, "lifted": bool(lifted), "traced": sorted(traced)}
 
 #: the v1.1 router: no IDONTWANT, no choking, no latency ring
 ROUTER_V11 = {"enabled": False, "protocol": "v1.1", "idontwant": False,

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 
 import numpy as np
@@ -104,6 +105,15 @@ def bench_score_params(config: str, n_topics: int):
     return tp, sp
 
 
+def bench_wire_coalesced(wire_coalesced: bool | None = None) -> bool:
+    """The bench's wire form: the coalesced control head and stacked
+    accumulators (the default), or with ``BENCH_WIRE_COALESCED=0`` the
+    per-plane A/B form. One source for the build and the fingerprint."""
+    if wire_coalesced is not None:
+        return bool(wire_coalesced)
+    return os.environ.get("BENCH_WIRE_COALESCED", "1") != "0"
+
+
 def bench_topics(config: str) -> int:
     """The config's topic universe: eth2's 64 attestation subnets, else 1."""
     return 64 if config == "eth2" else 1
@@ -114,7 +124,9 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                 edge_layout: str = "dense", fused: bool = False,
                 rounds_per_phase: int = 1, heartbeat_every: int | None = None,
                 device=None, queue_cap: int = 0, validation_delay_rounds: int = 0,
-                px: bool = False, dynamic_peers: bool = False):
+                px: bool = False, dynamic_peers: bool = False,
+                wire_coalesced: bool | None = None, lift_scores: bool = False,
+                score_counts: bool = False):
     """Build (state, step, n_topics, honest) for a bench config, tracer
     detached (no event counters unless ``count_events``):
 
@@ -142,7 +154,11 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     high enough on the bench lattice, and no edge activates), the
     exact-trace duplicate plane and the int16 IHAVE counters.
     ``dynamic_peers`` builds the churn cell's step, which takes a liveness
-    row a dispatch (``churn_up``)."""
+    row a dispatch (``churn_up``). ``wire_coalesced`` (default
+    ``BENCH_WIRE_COALESCED``, on) picks the wire form; ``lift_scores``
+    builds a lifted step, which takes ``bench_plane``'s plane (or any
+    other) as its last argument; ``score_counts`` the phase engine's count
+    path."""
     _check_config(config)
     dev = resolve_device(device)
     tp = graphlib.ring_lattice(n_peers, d=8)
@@ -161,15 +177,13 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
         adversary = np.random.default_rng(seed).random(n_peers) < SYBIL_FRACTION
     r = int(rounds_per_phase)
     he = (r if r > 1 else 1) if heartbeat_every is None else int(heartbeat_every)
-    thresholds = PeerScoreThresholds()
-    if px:
-        thresholds = dataclasses.replace(thresholds, accept_px_threshold=0.0)
-    cfg = GossipSubConfig.build(params, thresholds, score_enabled=True,
+    cfg = GossipSubConfig.build(params, bench_thresholds(px), score_enabled=True,
                                 heartbeat_every=he, gater_params=gater,
                                 validation_capacity=8 if config == "sybil" else 0,
                                 queue_cap=queue_cap,
                                 validation_delay_rounds=validation_delay_rounds,
                                 edge_layout=edge_layout, fused=fused,
+                                wire_coalesced=bench_wire_coalesced(wire_coalesced),
                                 trace_exact=px, narrow_counters=px)
     cfg = dataclasses.replace(cfg, count_events=count_events,
                               fanout_slots=cfg.fanout_slots if config == "eth2" else 0)
@@ -179,13 +193,39 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     if r > 1:
         step = make_gossipsub_phase_step(cfg, net, r, score_params=sp, gater_params=gater,
                                          adversary_no_forward=adversary,
-                                         dynamic_peers=dynamic_peers)
+                                         dynamic_peers=dynamic_peers, lift_scores=lift_scores,
+                                         score_counts=score_counts)
     else:
         step = make_gossipsub_step(cfg, net, score_params=sp, gater_params=gater,
                                    adversary_no_forward=adversary,
-                                   static_heartbeat=he > 1, dynamic_peers=dynamic_peers)
+                                   static_heartbeat=he > 1, dynamic_peers=dynamic_peers,
+                                   lift_scores=lift_scores)
     honest = np.flatnonzero(~adversary) if adversary is not None else None
     return st, step, n_topics, honest
+
+
+def bench_thresholds(px: bool = False) -> PeerScoreThresholds:
+    """The bench's score thresholds (the PX cell's AcceptPXThreshold 0)."""
+    thresholds = PeerScoreThresholds()
+    if px:
+        thresholds = dataclasses.replace(thresholds, accept_px_threshold=0.0)
+    return thresholds
+
+
+def bench_plane(config: str = "default", device=None, mesh: bool = False, px: bool = False):
+    """The lifted plane of a bench config's own values
+    (``ScoreParams.from_config``): a lifted bench step fed it computes what
+    the static build computes. ``mesh`` adds the mesh degrees
+    (``CandidateParams``)."""
+    from ..score.params import CandidateParams, ScoreParams
+
+    _check_config(config)
+    n_topics = bench_topics(config)
+    _tp, sp = bench_score_params(config, n_topics)
+    params = dataclasses.replace(GossipSubParams(), flood_publish=False, do_px=px)
+    cfg = GossipSubConfig.build(params, bench_thresholds(px), score_enabled=True)
+    make = CandidateParams if mesh else ScoreParams
+    return make.from_config(cfg, sp, n_topics, device=resolve_device(device))
 
 
 #: the churn cell: churn_storm's kill fraction and its kill and replace
@@ -357,13 +397,14 @@ def publish_schedule(n_rounds: int, n_peers: int, n_topics: int,
 
 
 def run_phases(st, step, po, pt, pv, *, rounds_per_phase: int, heartbeat_every: int,
-               up=None):
+               up=None, consts=()):
     """Drive a phase step over a publish schedule of whole phases ([R, P],
     R a multiple of ``rounds_per_phase``, uploaded once): ``[r, P]`` blocks
     with ``heartbeat_schedule``'s flags for the phases' tick windows (the
     state's tick, read once, must start a phase). ``up`` ([R, N]) is a
     ``dynamic_peers`` step's liveness schedule: a phase takes its first
-    round's row."""
+    round's row. ``consts`` (a lifted step's plane) follow every call's
+    rows."""
     r = int(rounds_per_phase)
     if len(po) % r:
         raise ValueError(f"{len(po)} rounds are not whole phases of {r}")
@@ -376,21 +417,22 @@ def run_phases(st, step, po, pt, pv, *, rounds_per_phase: int, heartbeat_every: 
         (-1, r) + np.asarray(a).shape[1:]) for a in (po, pt, pv))
     extra = () if up is None else (torch.as_tensor(np.asarray(up)[::r], device=dev),)
     for p in range(len(po_t)):
-        st = step(st, po_t[p], pt_t[p], pv_t[p], *(a[p] for a in extra),
+        st = step(st, po_t[p], pt_t[p], pv_t[p], *(a[p] for a in extra), *consts,
                   do_heartbeat=flags[(tick // r + p) % len(flags)])
     return st
 
 
-def run_rounds(st, step, po, pt, pv, *rows):
+def run_rounds(st, step, po, pt, pv, *rows, consts=()):
     """Drive ``step`` over a publish schedule (uploaded once); ``st`` is a
     GossipSub state or a ``SimState``. ``rows`` are further per-round
     arrays (a ``dynamic_peers`` step's liveness rows [R, N], a
-    ``dynamic_topo`` step's write batches [R, B, 4])."""
+    ``dynamic_topo`` step's write batches [R, B, 4]); ``consts`` (a lifted
+    step's plane) follow every call's rows."""
     dev = (st.core if hasattr(st, "core") else st).tick.device
     po_t, pt_t, pv_t, *rows_t = (torch.as_tensor(np.asarray(a), device=dev)
                                  for a in (po, pt, pv, *rows))
     for r in range(len(po_t)):
-        st = step(st, po_t[r], pt_t[r], pv_t[r], *(a[r] for a in rows_t))
+        st = step(st, po_t[r], pt_t[r], pv_t[r], *(a[r] for a in rows_t), *consts)
     return st
 
 
@@ -407,7 +449,8 @@ def metric_name(config: str, n_peers: int, rounds_per_phase: int) -> str:
 def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_every: int,
                          rounds_per_phase: int, seg_rounds: int | None = None,
                          unroll: int | None = None, edge_layout: str = "dense",
-                         device=None) -> dict:
+                         device=None, wire_coalesced: bool | None = None,
+                         lift_scores: bool = False) -> dict:
     """The bench line's self-description, field for field the JAX
     package's. ``platform`` is ``cuda`` and the card's name (``cpu`` on the
     CPU), ``prng_impl`` the port's one generator, ``n_devices`` 1.
@@ -419,8 +462,11 @@ def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_ev
     and, for ``eth2`` and ``sybil``, ``permute_sets_per_phase`` (the JAX
     package crosses the edges once more a phase, for the heartbeat's
     neighbour-protocol view or the gater's source groups; the port builds
-    both once, with the step, as static views)."""
-    from .artifacts import CHAOS_OFF, PARAMS_FINGERPRINT, ROUTER_V11, execution_fingerprint
+    both once, with the step, as static views). In the per-plane form
+    (``wire_coalesced`` False) the head crosses twice: the control words
+    with the scores, and the IWANT window. ``params`` names the fields a
+    lifted build reads from its plane (``score.params.LIFTED_FIELD_NAMES``)."""
+    from .artifacts import CHAOS_OFF, ROUTER_V11, execution_fingerprint, params_fingerprint
 
     _check_config(config)
     n_topics = bench_topics(config)
@@ -431,6 +477,7 @@ def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_ev
                  and (tp.mesh_failure_penalty_weight == 0.0
                       or tp.mesh_message_deliveries_threshold <= 0.0))
     p4_elided = tp.invalid_message_deliveries_weight == 0.0
+    coalesced = bench_wire_coalesced(wire_coalesced)
     fp = {
         "config": config,
         "n_peers": int(n_peers),
@@ -454,7 +501,7 @@ def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_ev
         "elides_invalid_message_deliveries": bool(phase and p4_elided),
         "engine": {
             "mode": "phase" if phase else "per_round",
-            "wire_coalesced": True,
+            "wire_coalesced": coalesced,
             "edge_layout": edge_layout,
             "gater": config == "sybil",
             "validation_capacity": 8 if config == "sybil" else 0,
@@ -466,7 +513,7 @@ def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_ev
             "incr_members": phase,
         },
         "chaos": dict(CHAOS_OFF),
-        "params": dict(PARAMS_FINGERPRINT),
+        "params": params_fingerprint(lift_scores),
         "router": dict(ROUTER_V11),
     }
     if seg_rounds is not None:
@@ -476,7 +523,7 @@ def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_ev
     if seg_rounds is not None:
         fp["execution"] = execution_fingerprint(segment_rounds=seg_rounds, unroll=unroll)
     if phase:
-        fp["permute_sets_per_phase"] = r + 1
+        fp["permute_sets_per_phase"] = r + 1 if coalesced else r + 2
     dev = resolve_device(device)
     fp["platform"] = (f"cuda {torch.cuda.get_device_name(dev)}" if dev.type == "cuda"
                       else dev.type)
@@ -487,7 +534,8 @@ def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_ev
 
 def measure_rate(config: str, n_req: int, msg_slots: int, heartbeat_every: int,
                  rounds_per_phase: int, seg_rounds: int, reps: int = 3,
-                 unroll: int | None = None, edge_layout: str = "dense", device=None):
+                 unroll: int | None = None, edge_layout: str = "dense", device=None,
+                 wire_coalesced: bool | None = None):
     """Build and run one bench cell through ``driver.make_scan``; returns
     (rounds_per_sec, n_used, unroll_used, scan) or None. The rate is the best
     of ``reps`` windows of ``seg_rounds`` rounds (cut to whole lcm(he, r)
@@ -512,7 +560,7 @@ def measure_rate(config: str, n_req: int, msg_slots: int, heartbeat_every: int,
         try:
             st, step, n_topics, honest = build_bench(
                 n, msg_slots, config=config, heartbeat_every=he, rounds_per_phase=r,
-                edge_layout=edge_layout, device=device)
+                edge_layout=edge_layout, device=device, wire_coalesced=wire_coalesced)
             po, pt, pv = publish_schedule(seg, n, n_topics, honest)
             dev = st.core.tick.device
             po, pt, pv = (torch.as_tensor(a, device=dev) for a in (po, pt, pv))

@@ -339,6 +339,96 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
     return torch.where(net.nbr_ok, score, 0.0)
 
 
+def lifted_scalar_columns(k_dim: int, n_slots: int) -> tuple[list, bool]:
+    """(columns, narrow): the neighbour columns XLA:CPU's lifted score loop
+    leaves to its scalar form, and whether P2 and P3b round apart there.
+    Only one topic slot has them: columns 0-1 of a row of 3 and every
+    column of a row of 4 (narrow), and column 8 of a row of 9. Mapped on
+    random counters for every K from 1 to 41 with one to three slots at
+    N = 64, 96 and 256 (ROADMAP §3); with P5 live the map is not taken
+    (its rows are the residue ROADMAP §3 names)."""
+    if n_slots != 1:
+        return [], False
+    if k_dim == 3:
+        return [0, 1], True
+    if k_dim == 4:
+        return [0, 1, 2, 3], True
+    if k_dim == 9:
+        return [8], False
+    return [], False
+
+
+def compute_scores_lifted(st: ScoreState, in_mesh: torch.Tensor, tp: dict, sc,
+                          p6: torch.Tensor, app_score: torch.Tensor,
+                          net: Net) -> torch.Tensor:
+    """``compute_scores`` under a lifted plane (``score/params.py``): ``tp``
+    the plane's gathered rows and ``sc`` the plane, flushed. The weights
+    are runtime operands, so nothing folds and XLA:CPU's score loop fuses
+    every weighted product into the add that consumes it, the
+    select-guarded squares of P3 and P7 too; the topic-score cap is a
+    select on its value and P5's weight stays a host float. The scalar
+    columns of a one-slot row (``lifted_scalar_columns``) take the slot's
+    weighted term fused into P6's rounded product where the cap is off,
+    and in the narrow rows P2's and P3b's products rounded apart."""
+    e = lambda a: a[..., None]
+    k_dim = in_mesh.shape[-1]
+    cols, narrow = lifted_scalar_columns(k_dim, in_mesh.shape[1])
+    if sc.app_specific_weight != 0.0:
+        cols, narrow = [], False
+
+    def mul_add(x, w, acc):
+        return fl(fma_f32(x, w, acc))
+
+    def apart(x, w, acc):
+        return fl(acc + fl(x * w))
+
+    def at_cols(vec, sca):
+        if not cols:
+            return vec
+        m = torch.zeros(k_dim, dtype=torch.bool, device=vec.device)
+        m[cols] = True
+        return torch.where(m, sca, vec)
+
+    p1 = torch.minimum(st.mesh_time.to(torch.float32) / e(tp["quantum_ticks"]),
+                       e(tp["cap1"]))
+    topic = torch.where(in_mesh, fl(p1 * e(tp["w1"])), 0.0)
+    if narrow:
+        topic = at_cols(mul_add(st.fmd, e(tp["w2"]), topic), apart(st.fmd, e(tp["w2"]), topic))
+    else:
+        topic = mul_add(st.fmd, e(tp["w2"]), topic)
+    deficit = fl(e(tp["thr3"]) - st.mmd)
+    p3 = torch.where(st.mmd_active & (deficit > 0), fl(deficit * deficit), 0.0)
+    topic = mul_add(p3, e(tp["w3"]), topic)
+    if narrow:
+        topic = at_cols(mul_add(st.mfp, e(tp["w3b"]), topic), apart(st.mfp, e(tp["w3b"]), topic))
+    else:
+        topic = mul_add(st.mfp, e(tp["w3b"]), topic)
+    topic = mul_add(fl(st.imd * st.imd), e(tp["w4"]), topic)
+    tw = e(tp["topic_weight"])
+    prod = fl(topic[:, 0] * tw[:, 0])
+    score = prod
+    if topic.shape[1] > 1:
+        score = score + 0.0
+        for s in range(1, topic.shape[1]):
+            score = mul_add(topic[:, s], tw[:, s], score)
+    cap = sc.topic_score_cap
+    capped = torch.where(cap > 0, torch.minimum(score, cap), score)
+    w6 = sc.ip_colocation_factor_weight
+    if sc.app_specific_weight != 0.0:
+        app_w = flush_f32(sc.app_specific_weight)
+        capped = mul_add(fl(net.peer_gather(app_score)), app_w, capped)
+    score = mul_add(p6, w6, capped)
+    if cols:
+        # the cap's select sinks past the add: where the cap is off the
+        # slot's term fuses into P6's rounded product
+        score = at_cols(score, torch.where(cap > 0, score,
+                                           fl(fma_f32(topic[:, 0], tw[:, 0], fl(p6 * w6)))))
+    excess = fl(st.bp - sc.behaviour_penalty_threshold)
+    p7 = torch.where(excess > 0, fl(excess * excess), 0.0)
+    score = mul_add(p7, sc.behaviour_penalty_weight, score)
+    return torch.where(net.nbr_ok, score, 0.0)
+
+
 def refresh_scores(st: ScoreState, in_mesh: torch.Tensor, tick, tp: dict,
                    sc: ScoreScalars) -> ScoreState:
     """The decay pass (refreshScores, score.go:497-558)."""
@@ -488,6 +578,29 @@ def on_deliveries(st: ScoreState, net: Net, in_mesh: torch.Tensor, tp: dict,
         penalize_w = penalize_w & ~bitset.pack(msg_ignored)
     imd = st.imd + per_slot_counts(trans_words & penalize_w[None, None, :], slotw)
 
+    scored = e(tp["scored"])
+    return replace(
+        st,
+        fmd=torch.where(scored, fmd, st.fmd),
+        mmd=torch.where(scored, mmd, st.mmd),
+        imd=torch.where(scored, imd, st.imd),
+    )
+
+
+def apply_delivery_counts(st: ScoreState, tp: dict, fmd_counts: torch.Tensor,
+                          mmd_counts: torch.Tensor, imd_counts: torch.Tensor,
+                          in_mesh: torch.Tensor) -> ScoreState:
+    """Fold a phase's pre-reduced delivery counts ([N,S,K] f32: first
+    deliveries, in-window mesh deliveries, invalid arrivals) into the
+    counters: the phase engine's count path, which reduces each sub-round
+    at arrival time. The caps apply once a fold, as ``on_deliveries``
+    applies them once a round, so a cap can bind up to r - 1 rounds late,
+    as in the JAX package. Whole counts on flushed non-negative counters
+    need no flush."""
+    e = lambda a: a[..., None]
+    fmd = torch.minimum(st.fmd + fmd_counts, e(tp["cap2"]))
+    mmd = torch.minimum(st.mmd + mmd_counts * in_mesh.to(torch.float32), e(tp["cap3"]))
+    imd = st.imd + imd_counts
     scored = e(tp["scored"])
     return replace(
         st,

@@ -566,13 +566,21 @@ class PhasePubPlan:
 
 def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
                        pub_origin: torch.Tensor, pub_topic: torch.Tensor,
-                       pub_valid: torch.Tensor):
+                       pub_valid: torch.Tensor, scatter_form: bool = False,
+                       stacked_clears: bool = True):
     """Intern this round's publishes (``pub_valid`` bool: accept or
     reject, or ``VERDICT_*`` codes) into table slots (rotating cursor),
     clearing recycled slots' bit columns everywhere (the pipeline's stages
     too), and mark each origin's own message seen and scheduled for
-    forwarding. The four keep-clears are one fold, the JAX package's
-    ``stacked_clears=True`` form; its per-plane form gives the same bits.
+    forwarding.
+
+    ``stacked_clears`` runs the four keep-clears (have, fwd, fe_words,
+    pending) as one fold (``bitset.masked_keep``), False as one op a plane
+    (the JAX package's per-plane A/B form); ``scatter_form`` does the
+    recycled columns' ``first_round`` clear and the origins' stamps as one
+    column scatter and the origins' words as a word scatter, instead of
+    whole-plane selects (the JAX phase engine's choice at N >= 20,000).
+    Every form gives the same bits.
 
     Returns (msgs, dlv, slots, is_pub, keep_words, pub_words)."""
     accept, ignored = decode_verdicts(pub_valid)
@@ -588,9 +596,12 @@ def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
     reused = _scatter_drop(torch.zeros((m,), dtype=torch.bool, device=dev),
                            sidx, torch.ones_like(is_pub))
     keep = ~bitset.pack(reused)
-    first_round = torch.where(reused[None, :], -1, dlv.first_round)
-    have_c, fwd_c, fe_c, pending_c = bitset.masked_keep(
-        [dlv.have, dlv.fwd, dlv.fe_words, dlv.pending], keep)
+    if stacked_clears:
+        have_c, fwd_c, fe_c, pending_c = bitset.masked_keep(
+            [dlv.have, dlv.fwd, dlv.fe_words, dlv.pending], keep)
+    else:
+        have_c, fwd_c, fe_c = dlv.have & keep, dlv.fwd & keep, dlv.fe_words & keep
+        pending_c = dlv.pending & keep if dlv.pending is not None else None
 
     msgs = replace(
         msgs,
@@ -603,14 +614,33 @@ def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
     )
 
     row = torch.where(is_pub, pub_origin, n_peers).long()
-    pub_bits = torch.zeros((n_peers + 1, m + 1), dtype=torch.bool, device=dev)
-    pub_bits = pub_bits.index_put((row, sidx.long()), torch.ones_like(is_pub))
-    pub_bits = pub_bits[:n_peers, :m]
-    pub_words = bitset.pack(pub_bits)
+    if scatter_form:
+        # column j of the update: -1 everywhere but the publishing origin's
+        # row, which takes the tick (the clear-then-stamp pair in one
+        # scatter; an empty entry lands on the spill column M)
+        col_vals = torch.where(
+            torch.arange(n_peers, device=dev)[:, None] == row[None, :], tick, -1)
+        ext = torch.cat([dlv.first_round, dlv.first_round[:, :1]], dim=1)
+        first_round = ext.index_copy(1, sidx.long(), col_vals.to(ext.dtype))[:, :m]
+        w = bitset.n_words(m)
+        sidx64 = sidx.long()
+        # distinct slots make distinct bits, so the word add is an OR
+        words = torch.zeros((n_peers + 1, w), dtype=torch.int64, device=dev)
+        words = words.index_put((row, (sidx64 // bitset.WORD).clamp(max=w - 1)),
+                                torch.ones_like(sidx64) << (sidx64 % bitset.WORD),
+                                accumulate=True)
+        pub_words = bitset.to_word(words[:n_peers])
+    else:
+        pub_bits = torch.zeros((n_peers + 1, m + 1), dtype=torch.bool, device=dev)
+        pub_bits = pub_bits.index_put((row, sidx.long()), torch.ones_like(is_pub))
+        pub_bits = pub_bits[:n_peers, :m]
+        pub_words = bitset.pack(pub_bits)
+        first_round = torch.where(pub_bits, tick,
+                                  torch.where(reused[None, :], -1, dlv.first_round))
     dlv = Delivery(
         have=have_c | pub_words,
         fwd=fwd_c | pub_words,
-        first_round=torch.where(pub_bits, tick, first_round),
+        first_round=first_round,
         fe_words=fe_c,
         pending=pending_c,
     )

@@ -29,7 +29,8 @@ OWN_FIELDS = ("platform", "prng_impl", "n_devices")
 #: incrementally for any topic universe, the JAX package up to 8 topics)
 #: and ``permute_sets_per_phase`` (the JAX package crosses the edges once
 #: more a phase, for the heartbeat's neighbour-protocol view with fanout or
-#: the gater's source groups; the port builds both once, with the step)
+#: the gater's source groups; the port builds both once, with the step; in
+#: the per-plane form it crosses once more again, ``_check_fingerprint``)
 PORT_FIELDS = {"default": (), "eth2": ("incr_members", "permute_sets_per_phase"),
                "sybil": ("permute_sets_per_phase",)}
 
@@ -45,9 +46,14 @@ def test_metric_name_equals_reference(n, r, config):
                                              (4, 8, 800, 16)])
 def test_fingerprint_equals_reference(r, he, seg, unroll, config):
     n = 50_001 if config == "sybil" else 100_001
-    want = jsweep.workload_fingerprint(config, n, 64, he, r, seg_rounds=seg, unroll=unroll)
+    _check_fingerprint(config, n, r, he, seg, unroll, {})
+
+
+def _check_fingerprint(config, n, r, he, seg, unroll, kw):
+    want = jsweep.workload_fingerprint(config, n, 64, he, r, seg_rounds=seg, unroll=unroll,
+                                       **kw)
     got = tsweep.workload_fingerprint(config, n, 64, he, r, seg_rounds=seg, unroll=unroll,
-                                      device="cpu")
+                                      device="cpu", **kw)
     assert got["platform"] == "cpu" and got["prng_impl"] == "threefry2x32"
     assert got["n_devices"] == 1
     for f in OWN_FIELDS:
@@ -59,10 +65,41 @@ def test_fingerprint_equals_reference(r, he, seg, unroll, config):
             if f == "incr_members":
                 assert got["engine"][f] and not want["engine"][f]
                 want["engine"][f] = got["engine"][f]
-            else:
-                assert got[f] == r + 1 and want[f] == r + 2
-                want[f] = got[f]
+        # the per-plane head: the port carries the score plane in the
+        # control words' crossing, the JAX package in a crossing of its own
+        coalesced = kw.get("wire_coalesced", True)
+        f = "permute_sets_per_phase"
+        assert got[f] == r + (1 if coalesced else 2)
+        assert want[f] - got[f] == ("permute_sets_per_phase" in PORT_FIELDS[config]) + (
+            not coalesced)
+        want[f] = got[f]
     assert got == want
+
+
+@pytest.mark.parametrize("config,coalesced,lift", [
+    ("default", True, False), ("default", True, True), ("default", False, False),
+    ("default", False, True), ("sybil", False, True)])
+def test_fingerprint_of_wire_form_and_lift_equals_reference(config, coalesced, lift):
+    """The ``engine.wire_coalesced`` field and the ``params`` block (the
+    lifted fields by name) equal the JAX package's, in both engines; the
+    per-plane phase head crosses twice, the coalesced one once."""
+    n = 50_001 if config == "sybil" else 100_001
+    kw = dict(wire_coalesced=coalesced, lift_scores=lift)
+    for r, he, seg in ((8, 8, 1600), (1, 1, None)):
+        _check_fingerprint(config, n, r, he, seg, 16 if seg else None, kw)
+    got = tsweep.workload_fingerprint(config, n, 64, 8, 8, device="cpu", **kw)
+    assert got["engine"]["wire_coalesced"] == coalesced
+    assert got["params"]["lifted"] == lift and len(got["params"]["traced"]) == (29 if lift else 0)
+    assert got["permute_sets_per_phase"] == (9 if coalesced else 10)
+
+
+def test_bench_line_per_plane_on_the_cpu():
+    """``BENCH_WIRE_COALESCED=0`` runs the per-plane form and says so."""
+    env = {"BENCH_N": "512", "BENCH_ROUNDS": "8", "BENCH_CONTINUITY": "0",
+           "BENCH_WIRE_COALESCED": "0"}
+    line = bench.bench_line(env, device="cpu")
+    assert line["value"] > 0
+    assert line["fingerprint"]["engine"]["wire_coalesced"] is False
 
 
 @pytest.mark.parametrize("config", ["eth2", "sybil"])

@@ -428,9 +428,11 @@ def test_unported_delivery_options_raise():
     jdlv, jmsgs, emask = _random_banded(16, 64, tnet.max_degree, rng)
     tdlv, tmsgs = _port_state(jdlv, jmsgs)
     tick = torch.tensor(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcommon.delivery_round(tnet, tmsgs, tdlv, _t(emask), tick,
-                               forward_mask=_t(jdlv.have))
+    # the forward gate is ported (tests/test_torch_forward_mask.py): it
+    # leaves at most the mask in the forward set
+    gated, _ = tcommon.delivery_round(tnet, tmsgs, tdlv, _t(emask), tick,
+                                      forward_mask=_t(jdlv.have))
+    assert torch.equal(gated.fwd & ~_t(jdlv.have), torch.zeros_like(gated.fwd))
     # the queue cap and the per-topic delays are ported: a cap of 4 leaves
     # at most 4 messages on a link, and a state without a pipeline takes
     # per-topic delays as inline validation

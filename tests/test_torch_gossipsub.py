@@ -154,17 +154,24 @@ def test_unported_options_raise():
         torch.zeros(2, dtype=torch.int32), torch.ones(2, dtype=torch.bool))
     assert int(st.core.tick) == 1 and torch.equal(st.edge_live, tnet.nbr_ok)
     # dynamic peers, the overlay and announce holes are ported
-    # (tests/test_torch_churn.py, _dynamics.py); the router's delay plane
-    # and the phase engine's lifted scores are not
+    # (tests/test_torch_churn.py, _dynamics.py), and so are lifted scores in
+    # both engines (tests/test_torch_lift.py); the router's delay plane is not
     from go_libp2p_pubsub_tpu_torch.models.gossipsub_phase import make_gossipsub_phase_step
+    from go_libp2p_pubsub_tpu_torch.score.params import ScoreParams
 
     for make, kw in ((tmake, {"link_delay": np.zeros((N, 8), np.int32)}),
-                     (tmake, {"telemetry": object()}), (tmake, {"adversary": object()}),
-                     (tmake, {"lift_scores": True}),
-                     (lambda *a, **k: make_gossipsub_phase_step(a[0], a[1], 8, **k),
-                      {"lift_scores": True})):
+                     (tmake, {"telemetry": object()}), (tmake, {"adversary": object()})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make(tcfg, tnet, score_params=tsp, **kw)
+    plane = ScoreParams.from_config(tcfg, tsp, device="cpu")
+    st0 = TState.init(tnet, 64, tcfg, score_params=tsp)
+    pub = (torch.tensor([3, -1], dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+           torch.ones(2, dtype=torch.bool))
+    assert int(tmake(tcfg, tnet, score_params=tsp, lift_scores=True)(
+        st0, *pub, plane).core.tick) == 1
+    phase = make_gossipsub_phase_step(tcfg, tnet, 8, score_params=tsp, lift_scores=True)
+    assert int(phase(st0, *(a.expand(8, 2) for a in pub), plane,
+                     do_heartbeat=True).core.tick) == 8
     # the gater needs its parameters
     with pytest.raises(ValueError, match="gater_params"):
         tmake(dataclasses.replace(tcfg, gater_enabled=True), tnet, score_params=tsp)

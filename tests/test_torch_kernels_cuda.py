@@ -910,3 +910,74 @@ def test_px_steps_on_the_card_equal_the_cpu(cuda, engine):
     st = sides[cuda][0]
     assert int(st.edge_live.sum()) > live0 and st.peerhave.dtype == torch.int16
     assert st.dup_trans is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [(-10.0, -50.0), (0.0, -0.0), (1e-40, -1e-40)])
+def test_fused_delivery_kernel_reads_a_device_threshold_row(cuda, thr):
+    """A lifted plane's (gossip, publish) row as a float32 ``[1, 2]`` tensor
+    on the card: the kernel reads it as it reads the host floats' row, and
+    equals its plain version on the same row (subnormal thresholds read as
+    zeros of their sign)."""
+    band = next(b for b in BANDS if b["name"] == "ring N=1000 K=16")
+    args = [_np_tensor(a) for a in hazard_fused_args(5, band, 64)]
+    kw = dict(offsets=band["offsets"], revs=band["revs"], w=2, score_enabled=True,
+              want_cohorts=True, retrans_cap=3)
+    row = torch.tensor([list(thr)], dtype=torch.float32)
+    ref = fr.fused_delivery_plain(*args, thr_row=row, **kw)
+    host = fr.fused_delivery_plain(*args, *thr, **kw)
+    fr.LAUNCHES["fused_delivery"] = 0
+    got = fr.fused_delivery(*[a.to(cuda) for a in args], thr_row=row.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert fr.LAUNCHES["fused_delivery"] == 1
+    for key in ref:
+        assert torch.equal(ref[key], host[key]), key
+        assert torch.equal(ref[key], got[key].cpu()), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 8])
+def test_lifted_window_replays_another_plane_without_a_capture(cuda, r):
+    """One captured lifted window (the bench default config at N = 512),
+    called under the config's plane, then a moved plane, then a candidate
+    plane with moved degrees: ``captures`` stays 1, the state of each call
+    equals the eager loop under the same plane, and the moved plane's
+    differs from the first's (a replay does not keep the captured plane)."""
+    import dataclasses
+
+    from go_libp2p_pubsub_tpu_torch import driver
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n = 512
+    st0, step, _t, _h = sweep.build_bench(n, 64, rounds_per_phase=r, device=cuda,
+                                          lift_scores=True)
+    plane_a = sweep.bench_plane(device=cuda, mesh=True)
+    sc = plane_a.score
+    plane_b = dataclasses.replace(plane_a, score=dataclasses.replace(
+        sc, w1=sc.w1 * 0.5, w2=torch.full_like(sc.w2, 2.0),
+        gossip_threshold=torch.tensor(-4.0, device=cuda),
+        publish_threshold=torch.tensor(-20.0, device=cuda),
+        graylist_threshold=torch.tensor(-40.0, device=cuda)))
+    plane_c = dataclasses.replace(plane_b, mesh=dataclasses.replace(
+        plane_b.mesh, D=torch.tensor(8, dtype=torch.int32, device=cuda),
+        Dlo=torch.tensor(6, dtype=torch.int32, device=cuda),
+        Dhi=torch.tensor(12, dtype=torch.int32, device=cuda)))
+    po, pt, pv = (torch.as_tensor(a, device=cuda) for a in sweep.publish_schedule(32, n, 1))
+    scan = driver.make_scan(step, heartbeat_every=r, rounds_per_phase=r,
+                            static_heartbeat=r > 1, donate=False)
+    clone = lambda s: driver._rebuild(s, iter([t.clone() for t in driver._leaves(s)]))
+    finals = []
+    for plane in (plane_a, plane_b, plane_c):
+        win = scan(clone(st0), po, pt, pv, consts=(plane,))
+        eager = clone(st0)
+        for p in range(32 // r):
+            if r > 1:
+                sl = slice(p * r, (p + 1) * r)
+                eager = step(eager, po[sl], pt[sl], pv[sl], plane, do_heartbeat=True)
+            else:
+                eager = step(eager, po[p], pt[p], pv[p], plane)
+        for a, b in zip(driver._leaves(eager), driver._leaves(win)):
+            assert torch.equal(a, b)
+        finals.append(win)
+    assert scan.window.captures == 1
+    assert not torch.equal(finals[0].scores, finals[1].scores)

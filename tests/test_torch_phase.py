@@ -171,8 +171,12 @@ def test_refused_options_raise():
     _jcfg, _jnet, _jsp, tcfg, tnet, tsp = bench_builds(n=N, d=4)
     build = lambda cfg, **kw: tphase.make_gossipsub_phase_step(cfg, tnet, 8,
                                                                score_params=tsp, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(dataclasses.replace(tcfg, wire_coalesced=False))
+    # the per-plane wire form and the count path build and step
+    # (tests/test_torch_phase_forms.py holds them to the JAX package)
+    po8, pt8, pv8 = (torch.from_numpy(a[:8]) for a in phase_schedule(N, 16))
+    st_pp = build(dataclasses.replace(tcfg, wire_coalesced=False))(
+        TState.init(tnet, 64, tcfg, score_params=tsp), po8, pt8, pv8, do_heartbeat=True)
+    assert int(st_pp.core.tick) == 8
     # PX, edge liveness, the exact-trace plane and the int16 counters build
     # and step in both engines (tests/test_torch_px.py, _trace_exact.py,
     # _narrow.py hold them to the JAX package)
@@ -198,8 +202,9 @@ def test_refused_options_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(tcfg, **{key: object()})
         build(tcfg, **{key: None})       # unset options pass
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(tcfg, score_counts=True)
+    st_cnt = build(tcfg, score_counts=True)(TState.init(tnet, 64, tcfg, score_params=tsp),
+                                            po8, pt8, pv8, do_heartbeat=True)
+    assert int(st_cnt.core.tick) == 8
     with pytest.raises(TypeError, match="unknown option"):
         build(tcfg, fanout=True)
     with pytest.raises(ValueError):

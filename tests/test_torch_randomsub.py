@@ -157,10 +157,18 @@ def test_size_targets_and_the_random_draw():
 
 def test_unported_options_raise():
     tnet = TNet.build(tgraph.ring_lattice(16, d=2), tgraph.subscribe_all(16, 1), device="cpu")
-    for kw in ({"chaos": object()}, {"telemetry": object()}, {"adversary": object()},
-               {"lift_scores": True}):
+    for kw in ({"chaos": object()}, {"telemetry": object()}, {"adversary": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trs.make_randomsub_step(tnet, **kw)
+    # the lifted call convention: the plane is taken and unused
+    # (tests/test_torch_lift.py)
+    lifted = trs.make_randomsub_step(tnet, lift_scores=True)
+    from go_libp2p_pubsub_tpu_torch.state import SimState
+
+    st = SimState.init(16, 32, seed=0, k=tnet.max_degree, device="cpu")
+    po = torch.tensor([1, -1], dtype=torch.int32)
+    assert int(lifted(st, po, torch.zeros(2, dtype=torch.int32),
+                      torch.ones(2, dtype=torch.bool), object()).tick) == 1
     with pytest.raises(ValueError, match="graph"):
         tsweep.build_randomsub(16, 32, graph="star", device="cpu")
 

@@ -262,11 +262,14 @@ def test_unported_window_options_raise():
     po, pt, pv = (a[:2] for a in phase_schedule(N, ROUNDS))
     with pytest.raises(NotImplementedError, match="item 5"):
         driver.make_window(step, check=lambda s, p, d: None, check_every=2)
-    win = driver.make_window(step)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        win(_fresh(tcfg, tnet, tsp), (po, pt, pv), consts=(torch.zeros(1),))
-    # the liveness schedule is ported (tests/test_torch_churn.py); the
-    # lifted plane is not, through make_scan either
-    with pytest.raises(NotImplementedError, match="item 3"):
-        driver.make_scan(step)(_fresh(tcfg, tnet, tsp), po, pt, pv,
-                               consts=(torch.zeros(1),))
+    # the liveness schedule (tests/test_torch_churn.py) and the lifted
+    # plane are ported, through make_window and make_scan alike
+    # (tests/test_torch_lift.py holds the windows to their eager loops)
+    from go_libp2p_pubsub_tpu_torch.score.params import ScoreParams
+
+    lifted = tmake_step(tcfg, tnet, score_params=tsp, lift_scores=True)
+    plane = ScoreParams.from_config(tcfg, tsp, device="cpu")
+    st, _ = driver.make_window(lifted)(_fresh(tcfg, tnet, tsp), (po, pt, pv), consts=(plane,))
+    assert int(st.core.tick) == 2
+    st = driver.make_scan(lifted)(_fresh(tcfg, tnet, tsp), po, pt, pv, consts=(plane,))
+    assert int(st.core.tick) == 2

@@ -376,7 +376,7 @@ def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None,
 
 def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None, observe=None,
-                             dormant=None, up=None, blacklist=None, **kw):
+                             dormant=None, up=None, blacklist=None, plane=None, **kw):
     """Run the JAX package's phase step and the port's (on the CPU) over
     ``rounds`` rounds of ``phase_schedule`` in phases of ``r`` from the same
     state, heartbeats as ``heartbeat_schedule(he, r)`` flags them, every
@@ -389,8 +389,10 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
     states. ``up`` ([rounds, N] bool) is a ``dynamic_peers`` step's
     liveness schedule (a phase takes the row of its first round) and
     ``blacklist`` ({phase: [N] bool}) sets both states' blacklist before
-    that phase. ``kw`` goes to both packages' make_gossipsub_phase_step,
-    beside the builds' own step options. Returns the port's final state."""
+    that phase. ``plane`` is a lifted step's (JAX plane, port plane) pair,
+    or a function of the phase index giving one, passed last to every call.
+    ``kw`` goes to both packages' make_gossipsub_phase_step, beside the
+    builds' own step options. Returns the port's final state."""
     import jax.numpy as jnp
     import torch
 
@@ -419,6 +421,9 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
         jx, tx = (), ()
         if up is not None:
             jx, tx = (jnp.asarray(up[p * r]),), (torch.from_numpy(up[p * r]),)
+        if plane is not None:
+            jp, tp = plane(p) if callable(plane) else plane
+            jx, tx = jx + (jp,), tx + (tp,)
         if blacklist is not None and p in blacklist:
             jst, tst = set_both_blacklists(jst, tst, blacklist[p])
         jst = jstep(jst, jnp.asarray(po[sl]), jnp.asarray(pt[sl]), jnp.asarray(pv[sl]),
@@ -544,7 +549,7 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None,
                              static_heartbeat: bool = False, observe=None, dormant=None,
                              up=None, writes=None, blacklist=None, step_kw=None,
-                             dynamic_topo: bool = False):
+                             dynamic_topo: bool = False, plane=None):
     """The per-round counterpart of ``phases_against_reference``: both
     packages' per-round steps from the same state over ``rounds`` rounds,
     every leaf compared bit for bit after every round. ``up`` ([rounds, N]
@@ -552,7 +557,9 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
     mutation rows of a ``dynamic_peers`` / ``dynamic_topo`` step (both
     packages' states then carry the overlay), ``blacklist`` ({round: [N]
     bool}) sets both blacklists before that round, ``step_kw`` goes to both
-    step builders. Returns the port's final state."""
+    step builders, ``plane`` is a lifted step's (JAX plane, port plane)
+    pair or a function of the round giving one. Returns the port's final
+    state."""
     import jax.numpy as jnp
     import torch
 
@@ -581,10 +588,13 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
         extra = [a[t] for a in (up, writes) if a is not None]
         if blacklist is not None and t in blacklist:
             jst, tst = set_both_blacklists(jst, tst, blacklist[t])
+        planes = ((), ()) if plane is None else tuple(
+            (x,) for x in (plane(t) if callable(plane) else plane))
         jst = jstep(jst, jnp.asarray(po[t]), jnp.asarray(pt[t]), jnp.asarray(pv[t]),
-                    *(jnp.asarray(a) for a in extra), **hb)
+                    *(jnp.asarray(a) for a in extra), *planes[0], **hb)
         tst = tstep(tst, torch.from_numpy(po[t]), torch.from_numpy(pt[t]),
-                    torch.from_numpy(pv[t]), *(torch.from_numpy(a) for a in extra), **hb)
+                    torch.from_numpy(pv[t]), *(torch.from_numpy(a) for a in extra),
+                    *planes[1], **hb)
         diff_leaves(reference_leaves(jst), convert.state_leaves(tst), f"round {t}")
         if observe is not None:
             observe(tst)
@@ -650,3 +660,48 @@ def graph_replay_equals_eager(fn) -> int:
         if not torch.equal(a, b):
             raise AssertionError(f"output {i} of the replayed graph differs from the eager call")
     return launched
+
+
+#: the JAX lift test's ``second_plane`` moves (tests/test_score_lift.py):
+#: TopicScoreParams, PeerScoreParams and PeerScoreThresholds overrides that
+#: move every lifted surface away from the bench's values
+SECOND_PLANE = dict(
+    topic=dict(first_message_deliveries_weight=2.0, mesh_message_deliveries_weight=-0.25,
+               time_in_mesh_weight=0.5, invalid_message_deliveries_weight=-0.5),
+    peer=dict(behaviour_penalty_weight=-2.0, topic_score_cap=50.0),
+    thresholds=dict(gossip_threshold=-4.0, publish_threshold=-20.0, graylist_threshold=-40.0,
+                    accept_px_threshold=5.0, opportunistic_graft_threshold=10.0))
+
+
+def lifted_planes(builds, mesh: bool = False, moves=None, degrees=None):
+    """(JAX plane, port plane) for a lifted step of ``bench_builds``' tuple:
+    the builds' own values (``from_config``, what the static build
+    computes), or with ``moves`` (``SECOND_PLANE``'s form) the builds'
+    parameters moved by those overrides; ``mesh`` makes it a
+    ``CandidateParams`` of the config's degrees, ``degrees`` ({"D": 8,
+    ...}) moved. The port's plane is ``convert.score_plane_from_reference``
+    of the JAX plane's leaves."""
+    import jax.numpy as jnp
+
+    from go_libp2p_pubsub_tpu import config as jconfig
+    from go_libp2p_pubsub_tpu.score import params as jparams
+
+    from go_libp2p_pubsub_tpu_torch import convert
+
+    jcfg, jnet, jsp = builds[0], builds[1], builds[2]
+    n_topics = int(jnet.subscribed.shape[1])
+    if moves is None:
+        plane = jparams.ScoreParams.from_config(jcfg, jsp, n_topics)
+    else:
+        topics = {t: dataclasses.replace(tp, **moves.get("topic", {}))
+                  for t, tp in jsp.topics.items()}
+        sp = dataclasses.replace(jsp, topics=topics, **moves.get("peer", {}))
+        thr = jconfig.PeerScoreThresholds(**moves.get("thresholds", {}))
+        plane = jparams.ScoreParams.build(sp, thr, n_topics)
+    if mesh:
+        msh = jparams.MeshParams.from_config(jcfg)
+        if degrees:
+            msh = msh.replace(**{k: jnp.int32(v) for k, v in degrees.items()})
+        plane = jparams.CandidateParams(score=plane, mesh=msh)
+    return plane, convert.score_plane_from_reference(
+        reference_leaves(plane), device="cpu", app_specific_weight=plane.app_specific_weight)
