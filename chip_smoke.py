@@ -16,7 +16,8 @@ baseline), after a check that both write the same outputs.
 Phases, each printing its own lines; any failure exits non-zero before the
 last line is printed:
 
-1. environment — torch/CUDA versions, the card's name and power limit;
+1. environment — torch/CUDA versions, the card's name and power limit, the
+   protobuf runtime's version and implementation (the trace sinks');
 2. build — nvcc builds every kernel source of the port from csrc/ for
    sm_90a, one nvcc per source, all started together;
 3. GossipSub kernels — at the bench's shapes (N=100k, K=16, W=2, C=4), on
@@ -207,7 +208,33 @@ last line is printed:
    RandomSub given a plane (equal to the runs without it); forward_mask in
    the shared delivery round on the lattice (delivery_banded not launched)
    and CSR-resident (csr_delivery launched once, its fwd gated);
-35. the kernel launches of a traced GossipSub bench round
+35. the trace drain (trace/drain.py, trace/sinks.py): five cells traced
+   from the same seed on the card and on the CPU at N=8192 into a
+   PBTracer, the files equal byte for byte — the per-round step
+   (edge_exchange, fused_delivery), the phase engine at r=8, FloodSub on
+   the lattice (delivery_banded) and CSR-resident on the power-law graph
+   (csr_delivery, the flat first-arrival plane densified by the
+   snapshot), exact mode on the PX build; then the default config at
+   N=100k (events counted), formed untraced, traced for 12 rounds (the
+   phase engine: one phase of 8) into a PBTracer beside the same run
+   untraced: DELIVER +
+   REJECT records equal the first receipts counted on the card, PUBLISH
+   the publishes, SEND_RPC and RECV_RPC each DELIVER + REJECT, GRAFT and
+   PRUNE the mesh diffs, the propagation latencies read from the file
+   (deliver tick minus publish tick) equal first_round - birth on the
+   card (p50, p99), DELIVER ticks keep sub-round resolution in the phase;
+   the final state and the launch counts equal the untraced run's;
+   records, bytes and host seconds (snapshot, emission) a round, and the
+   traced and untraced rates;
+36. the checkpoint (checkpoint.py, the v6 npz container) at N=100k: the
+   per-round step saved after 16 rounds, the phase engine at a phase
+   boundary (form_mesh + 2 phases), each compressed and not (sizes, save
+   and restore seconds), each file restored into a fresh template equal
+   to the saved state; 8 (the phase engine: 16) more rounds from the
+   restore equal the uninterrupted eager run on every leaf, the per-round
+   step eagerly and the phase engine through a captured window
+   (driver.make_scan);
+37. the kernel launches of a traced GossipSub bench round
    (perf/profile.py), with those of the score path's subnormal flush
    (hardshrink, copysign) apart (2,287.75 a bench round and 466.25 a
    phase-bench delivery round, or the script fails: the options off
@@ -2779,6 +2806,377 @@ def plane_engines_parity(sweep, convert, dev) -> None:
         "after 12 rounds, equal to the runs without it")
 
 
+
+TRACE_DIR = os.path.join("build", "chip_smoke")   # under the checkout (git-ignored)
+TRACE_BUFFER = 1 << 21          # records a sink holds: a full-width emit_init is 2N
+TRACE_PARITY_ROUNDS = 8         # rounds of a card-against-CPU trace cell (the phase
+                                # engine: one phase; the flood cells fewer, below)
+TRACED_ROUNDS = 12              # traced rounds of phase 35's full-width per-round run
+                                # (at most M / 4: no slot published in the window recycles)
+CKPT_ROUNDS = (16, 8)           # phase 36: rounds before the save, rounds after it
+
+
+def fresh_path(*parts) -> str:
+    """A path under TRACE_DIR with no file at it (the file sinks append)."""
+    path = os.path.join(TRACE_DIR, *parts)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def bench_net(n: int, device):
+    """The bench lattice's Net (``sweep.build_bench``'s one topic on
+    ``ring_lattice(n, d=8)``): what a TraceSession reads."""
+    from go_libp2p_pubsub_tpu_torch import graph
+    from go_libp2p_pubsub_tpu_torch.state import Net
+
+    return Net.build(graph.ring_lattice(n, d=8), graph.subscribe_all(n, 1), device=device)
+
+
+class Traced:
+    """A TraceSession over eager dispatches, as a user drives one: a
+    snapshot before and after each dispatch, the diff emitted and the
+    sinks flushed. Host seconds are split into the snapshots (the copies
+    to the host, timed after the dispatch's device work has finished)
+    and the emission (the diff, the protos, the writes)."""
+
+    def __init__(self, drain, net, sinks, exact: bool = False, resident: bool = False):
+        self.drain, self.sinks = drain, sinks
+        self.sess = drain.TraceSession(net, sinks, exact=exact)
+        self.net = net if resident else None
+        self.snap_s = self.emit_s = 0.0
+
+    def _snapshot(self, st):
+        t0 = time.perf_counter()
+        snap = self.drain.snapshot(st, self.net)
+        self.snap_s += time.perf_counter() - t0
+        return snap
+
+    def _emit(self, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        for s in self.sinks:
+            s.flush()
+        self.emit_s += time.perf_counter() - t0
+
+    def start(self, st):
+        self.prev = self._snapshot(st)
+        self._emit(self.sess.emit_init, self.prev)
+
+    def step(self, st, dispatch, pubs):
+        import torch
+
+        st = dispatch(st)
+        if getattr(st, "core", st).tick.is_cuda:
+            torch.cuda.synchronize()   # the snapshot's seconds are its copies alone
+        new = self._snapshot(st)
+        self._emit(self.sess.observe, self.prev, new, *pubs)
+        self.prev = new
+        return st
+
+    def close(self):
+        self._emit(self.sess.close, self.prev)
+        dropped = sum(s.dropped for s in self.sinks)
+        if dropped:
+            raise AssertionError(f"the trace sinks dropped {dropped} records")
+
+
+def event_counts(trace_pb2, evs) -> dict:
+    out = {}
+    for e in evs:
+        name = trace_pb2.TraceEvent.Type.Name(e.type)
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def trace_parity_cells(sweep, driver) -> dict:
+    """Phase 35's card-against-CPU cells at N=8192: name -> (build(device)
+    -> (state, dispatch(st, i), publishes(i), net, CSR-resident), dispatches,
+    exact, the kernel the card run must launch)."""
+    n, r, rounds_of = N_PARITY, PHASE_R, TRACE_PARITY_ROUNDS
+    po, pt, pv = sweep.publish_schedule(rounds_of, n, 1, None, seed=5)
+    rounds = lambda st, step, i: sweep.run_rounds(st, step, po[i:i + 1], pt[i:i + 1],
+                                                  pv[i:i + 1])
+    per_round = lambda i: (po[i], pt[i], pv[i])
+
+    def gossip(d, **kw):
+        st, step, _t, _h = sweep.build_bench(n, M_SLOTS, count_events=True, device=d, **kw)
+        return st, lambda s, i: rounds(s, step, i), per_round, bench_net(n, d), False
+
+    def phase(d):
+        st, step, _t, _h = sweep.build_bench(n, M_SLOTS, count_events=True,
+                                             rounds_per_phase=r, device=d)
+        st = driver.form_mesh(step, st, rounds_per_phase=r)
+        sl = lambda i: slice(i * r, (i + 1) * r)
+        run = lambda s, i: sweep.run_phases(s, step, po[sl(i)], pt[sl(i)], pv[sl(i)],
+                                            rounds_per_phase=r, heartbeat_every=r)
+        return st, run, lambda i: (po[sl(i)], pt[sl(i)], pv[sl(i)]), bench_net(n, d), False
+
+    def flood(d, graph, layout):
+        st, run = sweep.build_floodsub(n, M_SLOTS, graph, layout=layout, device=d)
+        return st, lambda s, i: rounds(s, run, i), per_round, run.net, layout == "csr"
+
+    # the power-law flood writes about 64,000 records a round at N=8192
+    # and exact mode about 26,000: fewer rounds keep the host's emission
+    # on both sides to seconds
+    return {
+        "GossipSub per-round": (gossip, rounds_of, False, "fused_delivery"),
+        "GossipSub phase r=8": (phase, rounds_of // r, False, "edge_exchange"),
+        "FloodSub lattice": (lambda d: flood(d, "lattice", "dense"), rounds_of, False,
+                             "delivery_banded"),
+        "FloodSub power-law CSR-resident": (lambda d: flood(d, "powerlaw", "csr"), 4, False,
+                                            "csr_delivery"),
+        "GossipSub exact (PX build)": (lambda d: gossip(d, px=True), 6, True,
+                                       "fused_delivery"),
+    }
+
+
+def trace_parity(sweep, driver, drain, sinks, counters, card) -> dict:
+    """Phase 35, part 1: each cell traced from the same seed on the card
+    and on the CPU (plain versions) into a PBTracer; the files equal byte
+    for byte (the JSON and collector forms of the same records are held
+    to the JAX package's on the CPU, tests/test_torch_trace.py), and the
+    card run launched its kernel."""
+    out = {}
+    for name, (build, dispatches, exact, kernel) in trace_parity_cells(sweep, driver).items():
+        files = {}
+        t0 = time.perf_counter()
+        for d in ("cuda", "cpu"):
+            st, dispatch, pubs, net, resident = build(d)
+            tag = name.replace(" ", "_").replace("=", "")
+            path = fresh_path(f"{tag}-{d}.pb")
+            tr = Traced(drain, net, [sinks.PBTracer(path, use_native=False,
+                                                    buffer_cap=TRACE_BUFFER)],
+                        exact=exact, resident=resident)
+            for mod in counters:
+                mod.reset_launch_counts()
+            tr.start(st)
+            for i in range(dispatches):
+                st = tr.step(st, lambda s, i=i: dispatch(s, i), pubs(i))
+            tr.close()
+            if d == "cuda" and not counts(counters)[kernel]:
+                raise AssertionError(f"trace {name}: {kernel} never launched on the card")
+            files[d] = open(path, "rb").read()
+        if files["cuda"] != files["cpu"]:
+            raise AssertionError(f"trace {name}: the card's file differs from the CPU's "
+                                 f"({len(files['cuda'])} and {len(files['cpu'])} bytes)")
+        evs = list(sinks.read_pb_trace(path))
+        out[name] = {"records": len(evs), "pb_bytes": len(files["cuda"]),
+                     "types": len(set(e.type for e in evs))}
+        say(f"trace {name} card == CPU at N={N_PARITY}: the files ({len(files['cuda'])} "
+            f"bytes) equal byte for byte, {len(evs)} records of {out[name]['types']} types "
+            f"over {dispatches} dispatches ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def traced_full(sweep, driver, convert, drain, sinks, trace_pb2, dev, card, counters,
+                engine: str) -> dict:
+    """Phase 35, part 2: the default config at N=100k (events counted),
+    formed and run untraced, then ``TRACED_ROUNDS`` rounds (the phase
+    engine: one phase of r) traced into a PBTracer, beside the same run
+    untraced. The file's records reconcile with the device state: DELIVER
+    + REJECT equal the first receipts stamped in the traced dispatches
+    (counted on the card from each dispatch's state), PUBLISH the
+    publishes, SEND_RPC and RECV_RPC each DELIVER + REJECT, GRAFT and
+    PRUNE the mesh diffs; the latencies (deliver tick minus publish tick)
+    of the messages published in the window equal first_round - birth on
+    the card; the final state and the launch counts equal the untraced
+    run's."""
+    import numpy as np
+    import torch
+
+    phase = engine == "phase"
+    r = PHASE_R if phase else 1
+    pre = PHASE_FORMATION * r if phase else FORMATION_ROUNDS
+    traced = r if phase else TRACED_ROUNDS
+    po, pt, pv = sweep.publish_schedule(pre + traced, N_FULL, 1, None)
+
+    def run(st, step, a, b):
+        if phase:
+            return sweep.run_phases(st, step, po[a:b], pt[a:b], pv[a:b], rounds_per_phase=r,
+                                    heartbeat_every=r)
+        return sweep.run_rounds(st, step, po[a:b], pt[a:b], pv[a:b])
+
+    def fresh():
+        st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, count_events=True,
+                                             rounds_per_phase=r, device=dev)
+        for mod in counters:
+            mod.reset_launch_counts()
+        if phase:
+            st = driver.form_mesh(step, st, rounds_per_phase=r)
+        return run(st, step, 0, pre), step
+
+    st, step = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run(st, step, pre, pre + traced)
+    torch.cuda.synchronize()
+    untraced_rate = traced / (time.perf_counter() - t0)
+    want, want_counts = convert.state_leaves(st), counts(counters)
+    del st, step
+
+    st, step = fresh()
+    net = bench_net(N_FULL, dev)
+    path = fresh_path(f"traced-{engine}.pb")
+    tr = Traced(drain, net, [sinks.PBTracer(path, use_native=False, buffer_cap=TRACE_BUFFER)])
+    tr.start(st)
+    init_s, init_bytes = tr.snap_s + tr.emit_s, os.path.getsize(path)
+    tr.snap_s = tr.emit_s = 0.0
+    t_lo = int(st.core.tick)
+    on_card = dict(first=0, graft=0, prune=0)
+    lat_state = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_s = 0.0
+    for i in range(traced // r):
+        a = pre + i * r
+        prev_mesh, tick0 = st.mesh.clone(), int(st.core.tick)
+        st = tr.step(st, lambda s: run(s, step, a, a + r), (po[a:a + r], pt[a:a + r],
+                                                             pv[a:a + r]) if phase else
+                     (po[a], pt[a], pv[a]))
+        c0 = time.perf_counter()
+        fr_, birth = st.core.dlv.first_round, st.core.msgs.birth
+        got = (fr_ >= tick0) & (fr_ < int(st.core.tick)) & (st.core.dlv.first_edge >= 0)
+        on_card["first"] += int(got.sum())
+        on_card["graft"] += int((st.mesh & ~prev_mesh).sum())
+        on_card["prune"] += int((prev_mesh & ~st.mesh).sum())
+        lat_state.append((fr_ - birth[None, :])[got & (birth >= t_lo)[None, :]].cpu())
+        card_s += time.perf_counter() - c0
+    wall = time.perf_counter() - t0 - card_s
+    loop_snap, loop_emit = tr.snap_s, tr.emit_s
+    loop_bytes = os.path.getsize(path) - init_bytes
+    tr.close()
+    close_s = tr.snap_s + tr.emit_s - loop_snap - loop_emit
+    leaves_equal(want, convert.state_leaves(st), f"traced {engine}: final state against the "
+                 "untraced run's")
+    got_counts = counts(counters)
+    if got_counts != want_counts:
+        raise AssertionError(f"traced {engine}: launches {got_counts}, untraced {want_counts}")
+
+    evs = list(sinks.read_pb_trace(path))
+    n = event_counts(trace_pb2, evs)
+    pubs_in = int((po[pre:pre + traced] >= 0).sum())
+    first = n.get("DELIVER_MESSAGE", 0) + n.get("REJECT_MESSAGE", 0)
+    checks = {"DELIVER + REJECT": (first, on_card["first"]), "PUBLISH": (
+        n.get("PUBLISH_MESSAGE", 0), pubs_in), "SEND_RPC": (n.get("SEND_RPC", 0), first),
+        "RECV_RPC": (n.get("RECV_RPC", 0), first),
+        "GRAFT": (n.get("GRAFT", 0), on_card["graft"]),
+        "PRUNE": (n.get("PRUNE", 0), on_card["prune"]), "ADD_PEER": (n.get("ADD_PEER", 0), N_FULL),
+        "LEAVE": (n.get("LEAVE", 0), N_FULL)}
+    for what, (a, b) in checks.items():
+        if a != b:
+            raise AssertionError(f"traced {engine}: {what} {a} in the file, {b} expected")
+    ns = trace_pb2.TraceEvent
+    pub_tick = {e.publishMessage.messageID: e.timestamp for e in evs
+                if e.type == ns.PUBLISH_MESSAGE}
+    lat_file = np.sort(np.array([(e.timestamp - pub_tick[e.deliverMessage.messageID]) // 10**9
+                                 for e in evs if e.type == ns.DELIVER_MESSAGE
+                                 and e.deliverMessage.messageID in pub_tick], np.int64))
+    lat_card = np.sort(torch.cat(lat_state).numpy().astype(np.int64))
+    if not np.array_equal(lat_file, lat_card) or not len(lat_file):
+        raise AssertionError(f"traced {engine}: {len(lat_file)} latencies in the file differ "
+                             f"from the {len(lat_card)} on the card")
+    ticks = {e.timestamp // 10**9 for e in evs if e.type == ns.DELIVER_MESSAGE}
+    if phase and len(ticks) < 2:
+        raise AssertionError(f"traced phase: DELIVER ticks {sorted(ticks)}: no sub-round "
+                             "resolution")
+    step_records = len(evs) - n.get("ADD_PEER", 0) - n.get("JOIN", 0) - n.get("LEAVE", 0)
+    size = os.path.getsize(path)
+    rec = {
+        "rounds": traced, "records": len(evs), "counts": n,
+        "records_a_round": step_records / traced,
+        "bytes_a_round": loop_bytes / traced,
+        "init_bytes": init_bytes, "file_bytes": size,
+        "snapshot_s_a_round": loop_snap / traced, "emit_s_a_round": loop_emit / traced,
+        "traced_rate": traced / wall, "untraced_rate": untraced_rate,
+        "init_s": init_s, "close_s": close_s, "deliver_ticks": len(ticks),
+        "latency_p50": float(np.percentile(lat_file, 50)),
+        "latency_p99": float(np.percentile(lat_file, 99)), "latencies": len(lat_file),
+        "launches": got_counts,
+    }
+    unit = "delivery-rounds/s" if phase else "rounds/s"
+    say(f"traced {engine} N={N_FULL}: {traced} rounds traced after {pre} untraced, "
+        f"{len(evs)} records {n}; DELIVER + REJECT {first} == first receipts on the card, "
+        f"SEND_RPC == RECV_RPC == {first}, GRAFT {on_card['graft']} / PRUNE {on_card['prune']} == "
+        f"the mesh diffs, {len(lat_file)} latencies == first_round - birth (p50 "
+        f"{rec['latency_p50']}, p99 {rec['latency_p99']} rounds); final state and launches "
+        f"{got_counts} equal the untraced run's")
+    say(f"traced {engine} host: {rec['records_a_round']:.1f} records and "
+        f"{rec['bytes_a_round']:.0f} bytes a round, snapshot {rec['snapshot_s_a_round']:.4f} s "
+        f"+ emission {rec['emit_s_a_round']:.4f} s a round, {rec['traced_rate']:.3f} {unit} "
+        f"traced against {untraced_rate:.3f} untraced; emit_init {init_s:.3f} s "
+        f"({init_bytes} bytes), close {close_s:.3f} s; on {card}")
+    return rec
+
+
+def checkpoint_cell(sweep, driver, convert, checkpoint, dev, engine: str) -> dict:
+    """Phase 36: the default config at N=100k saved mid-run (compressed,
+    then not), each file restored into a fresh template equal to the
+    saved state; the run continued from the restore equals the
+    uninterrupted eager run on every leaf: eagerly (per-round), or
+    through a captured window (``driver.make_scan``, the phase engine
+    saved at a phase boundary)."""
+    import torch
+
+    phase = engine == "phase"
+    r = PHASE_R if phase else 1
+    pre, more = (PHASE_FORMATION * r, 2 * r) if phase else CKPT_ROUNDS
+    po, pt, pv = sweep.publish_schedule(pre + more, N_FULL, 1, None)
+
+    def run(st, step, a, b):
+        if phase:
+            return sweep.run_phases(st, step, po[a:b], pt[a:b], pv[a:b], rounds_per_phase=r,
+                                    heartbeat_every=r)
+        return sweep.run_rounds(st, step, po[a:b], pt[a:b], pv[a:b])
+
+    build = lambda: sweep.build_bench(N_FULL, M_SLOTS, rounds_per_phase=r, device=dev)[:2]
+    st, step = build()
+    if phase:
+        st = driver.form_mesh(step, st, rounds_per_phase=r)
+    st = run(st, step, 0, pre)
+    mid = convert.state_leaves(st)
+    rec = {"engine": engine, "tick": int(st.core.tick)}
+    paths = {}
+    for compress in (True, False):
+        kind = "compressed" if compress else "uncompressed"
+        paths[kind] = fresh_path(f"ckpt-{engine}-{kind}.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(paths[kind], st, compress=compress)
+        rec[f"save_s_{kind}"] = time.perf_counter() - t0
+        rec[f"bytes_{kind}"] = os.path.getsize(paths[kind])
+    want = convert.state_leaves(run(st, step, pre, pre + more))
+    del st
+    template = build()[0]
+    restored = {}
+    for kind, path in paths.items():
+        t0 = time.perf_counter()
+        restored[kind] = checkpoint.restore(path, template)
+        torch.cuda.synchronize()
+        rec[f"restore_s_{kind}"] = time.perf_counter() - t0
+        leaves_equal(mid, convert.state_leaves(restored[kind]),
+                     f"checkpoint {engine} {kind}: restored against saved")
+    st = restored["compressed"]
+    del restored, template
+    if phase:
+        scan = driver.make_scan(step, heartbeat_every=r, rounds_per_phase=r)
+        st = scan(st, po[pre:pre + more], pt[pre:pre + more], pv[pre:pre + more])
+        how = f"through a captured window (make_scan, {scan.window.captures} capture)"
+    else:
+        st = run(st, step, pre, pre + more)
+        how = "eagerly"
+    leaves_equal(want, convert.state_leaves(st), f"checkpoint {engine}: resumed run against "
+                 "the uninterrupted one")
+    say(f"checkpoint {engine} N={N_FULL}: saved at tick {rec['tick']} "
+        f"({rec['bytes_compressed']} bytes compressed in {rec['save_s_compressed']:.3f} s, "
+        f"{rec['bytes_uncompressed']} uncompressed in {rec['save_s_uncompressed']:.3f} s), "
+        f"restored in {rec['restore_s_compressed']:.3f} / {rec['restore_s_uncompressed']:.3f} "
+        f"s, equal to the saved state; {more} rounds resumed {how} equal the uninterrupted "
+        f"run on every leaf; on {card_line()}")
+    return rec
+
+
 def leaves_equal(a: dict, b: dict, where: str):
     import numpy as np
 
@@ -2826,6 +3224,11 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {name} count {torch.cuda.device_count()}")
     say(card)
+    import google.protobuf
+    from google.protobuf.internal import api_implementation
+
+    say(f"protobuf {google.protobuf.__version__} ({api_implementation.Type()}), the trace "
+        "sinks' runtime")
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -3187,7 +3590,28 @@ def main() -> int:
     for kernel in ("delivery_banded", "csr_delivery"):
         rec_of[kernel]["forward_mask_launches"] = {layout: fm[layout][kernel] for layout in fm}
 
-    # 35. launches of a bench round, a phase-bench phase and a windowed
+    # 35. the trace drain: card against CPU trace bytes at N=8192, then the
+    # full-width traced per-round and phase runs reconciled with the state
+    from go_libp2p_pubsub_tpu_torch import checkpoint
+    from go_libp2p_pubsub_tpu_torch.pb import trace_pb2
+    from go_libp2p_pubsub_tpu_torch.trace import drain, sinks
+
+    t0 = time.perf_counter()
+    trace_cells = trace_parity(sweep, driver, drain, sinks, counters, card)
+    traced = {engine: traced_full(sweep, driver, convert, drain, sinks, trace_pb2, dev, card,
+                                  counters, engine) for engine in ("per-round", "phase")}
+    say("trace cell: " + json.dumps({"card": card, "parity": trace_cells, **traced}))
+    say(f"trace phase {time.perf_counter() - t0:.1f} s")
+
+    # 36. the checkpoint at full width: save, restore, resume eagerly and
+    # into a captured window
+    t0 = time.perf_counter()
+    ckpt = [checkpoint_cell(sweep, driver, convert, checkpoint, dev, engine)
+            for engine in ("per-round", "phase")]
+    say("checkpoint cell: " + json.dumps({"card": card, "runs": ckpt}))
+    say(f"checkpoint phase {time.perf_counter() - t0:.1f} s")
+
+    # 37. launches of a bench round, a phase-bench phase and a windowed
     # phase, traced; then the configs' rounds and phases
     bench_launches(card)
     config_traced_launches(card)

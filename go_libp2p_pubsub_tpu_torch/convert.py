@@ -89,28 +89,44 @@ def state_from_reference(leaves: dict, device=None):
     return build("")
 
 
+def _walk(obj, prefix: str = ""):
+    """(path, tensor) of every leaf of a port state, in dataclass field
+    order, nested states in place, None leaves and absent nested states
+    skipped: the JAX tree's flatten order."""
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        p = f"{prefix}.{f.name}"
+        if dataclasses.is_dataclass(v):
+            yield from _walk(v, p)
+        elif v is not None:
+            yield p, v
+
+
+def _reference_dtype(path: str, t: torch.Tensor) -> np.dtype:
+    """The JAX package's dtype of the leaf at ``path`` (``uint32`` for a
+    word plane and for the key's words)."""
+    if path in WORD_LEAVES or path in KEY_LEAVES:
+        return np.dtype(np.uint32)
+    return torch.empty((), dtype=t.dtype).numpy().dtype
+
+
+def leaf_specs(st) -> dict:
+    """{path: (shape, JAX dtype)} of a port state's leaves, in the JAX
+    tree's order, without a copy to the host."""
+    return {p: (tuple(v.shape), _reference_dtype(p, v)) for p, v in _walk(st)}
+
+
 def state_leaves(st) -> dict:
-    """The port state's leaves as numpy arrays with the JAX dtypes (a
-    None leaf has no entry, as in a JAX tree)."""
+    """The port state's leaves as numpy arrays with the JAX dtypes, in the
+    JAX tree's order (a None leaf has no entry, as in a JAX tree)."""
     out = {}
-
-    def walk(obj, prefix):
-        for f in dataclasses.fields(obj):
-            v = getattr(obj, f.name)
-            p = f"{prefix}.{f.name}"
-            if dataclasses.is_dataclass(v):
-                walk(v, p)
-                continue
-            if v is None:
-                continue
-            a = v.detach().cpu().numpy()
-            if p in WORD_LEAVES:
-                a = a.view(np.uint32)
-            elif p in KEY_LEAVES:
-                a = a.astype(np.uint32)
-            out[p] = a
-
-    walk(st, "")
+    for p, v in _walk(st):
+        a = v.detach().cpu().numpy()
+        if p in WORD_LEAVES:
+            a = a.view(np.uint32)
+        elif p in KEY_LEAVES:
+            a = a.astype(np.uint32)
+        out[p] = a
     return out
 
 

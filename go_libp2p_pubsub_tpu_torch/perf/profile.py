@@ -22,7 +22,9 @@ times ``--rounds`` untraced rounds, then traces ``--rounds`` more with
 kernel time per round, the device's busy time per round (union of kernel
 intervals) and its share of the untraced round (the profiler stretches
 the host's dispatch, so the share of the traced window is printed beside
-it only for reference), kernel launches per round (and, in the JSON, per
+it only for reference), kernel launches per round (an eager run's
+counted at the host's launch and copy calls, a window's from the device's
+records; in the JSON also the device's records and the kernels per
 launching host op), the kernels by device
 time (each with the host op and input shapes whose launches of it took
 the most device time), and
@@ -54,6 +56,12 @@ def _events_on(prof, kind: str):
 
     dt = DeviceType.CUDA if kind == "cuda" else DeviceType.CPU
     return [e for e in prof.events() if e.device_type == dt]
+
+
+#: the host-side CUDA calls that each put one operation (a kernel, a copy
+#: or a fill) on the device
+_DEVICE_OP_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpy", "cuMemcpy",
+                    "cudaMemset", "cuMemset")
 
 
 def _union_us(intervals) -> float:
@@ -125,6 +133,13 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kev = _events_on(prof, "cuda")
+    cpu_events = _events_on(prof, "cpu")
+    # an eager run's launches are counted at the host's launch calls, which
+    # the profiler records exactly; the device's activity records can come
+    # back short (55 of 3,730 missing in one of four traced phases on an
+    # H100), while a graph replay's kernels exist only as device records
+    calls = sum(1 for e in cpu_events if e.name.startswith(_DEVICE_OP_CALLS))
+    launches = len(kev) if scan is not None else calls
     by_name: dict = {}
     for e in kev:
         d = by_name.setdefault(e.name, [0, 0.0])
@@ -135,7 +150,7 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
     host_ops: dict = {}
     launched_by: dict = {}    # kernel name -> {host op and shapes: device us}
     op_launches: dict = {}    # host op -> kernels it launched
-    for e in _events_on(prof, "cpu"):
+    for e in cpu_events:
         if e.name.startswith("aten::"):
             host_ops[e.name] = host_ops.get(e.name, 0) + 1
         if e.kernels:
@@ -156,7 +171,8 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
         "device_busy_ms_per_round": busy / 1e3 / rounds,
         "device_busy_share": busy / wall_us,
         "device_busy_share_untraced": busy / untraced_us,
-        "kernel_launches_per_round": len(kev) / rounds,
+        "kernel_launches_per_round": launches / rounds,
+        "device_ops_per_round": len(kev) / rounds,
         "kernels": sorted(
             ({"name": k, "launches_per_round": v[0] / rounds,
               "us_per_round": v[1] / rounds,

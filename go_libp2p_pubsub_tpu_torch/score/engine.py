@@ -339,18 +339,22 @@ def compute_scores(st: ScoreState, in_mesh: torch.Tensor, tp: dict,
     return torch.where(net.nbr_ok, score, 0.0)
 
 
-def lifted_scalar_columns(k_dim: int, n_slots: int) -> tuple[list, bool]:
+def lifted_scalar_columns(k_dim: int, n_slots: int,
+                          app_on: bool = False) -> tuple[list, bool]:
     """(columns, narrow): the neighbour columns XLA:CPU's lifted score loop
     leaves to its scalar form, and whether P2 and P3b round apart there.
     Only one topic slot has them: columns 0-1 of a row of 3 and every
-    column of a row of 4 (narrow), and column 8 of a row of 9. Mapped on
-    random counters for every K from 1 to 41 with one to three slots at
-    N = 64, 96 and 256 (ROADMAP §3); with P5 live the map is not taken
-    (its rows are the residue ROADMAP §3 names)."""
+    column of a row of 4 (narrow), and column 8 of a row of 9. With P5
+    live (``app_on``) only the row of 3 keeps its columns 0-1, not
+    narrow. Mapped on random counters for every K from 1 to 41 with one
+    to three slots at N = 64, 96 and 256, with P5 off and on (ROADMAP
+    §3)."""
     if n_slots != 1:
         return [], False
     if k_dim == 3:
-        return [0, 1], True
+        return [0, 1], not app_on
+    if app_on:
+        return [], False
     if k_dim == 4:
         return [0, 1, 2, 3], True
     if k_dim == 9:
@@ -369,12 +373,13 @@ def compute_scores_lifted(st: ScoreState, in_mesh: torch.Tensor, tp: dict, sc,
     select on its value and P5's weight stays a host float. The scalar
     columns of a one-slot row (``lifted_scalar_columns``) take the slot's
     weighted term fused into P6's rounded product where the cap is off,
-    and in the narrow rows P2's and P3b's products rounded apart."""
+    and in the narrow rows P2's and P3b's products rounded apart; with P5
+    live they take P5's product fused after the cap's select and P6's
+    rounded apart, whatever the cap."""
     e = lambda a: a[..., None]
     k_dim = in_mesh.shape[-1]
-    cols, narrow = lifted_scalar_columns(k_dim, in_mesh.shape[1])
-    if sc.app_specific_weight != 0.0:
-        cols, narrow = [], False
+    app_on = sc.app_specific_weight != 0.0
+    cols, narrow = lifted_scalar_columns(k_dim, in_mesh.shape[1], app_on)
 
     def mul_add(x, w, acc):
         return fl(fma_f32(x, w, acc))
@@ -414,11 +419,13 @@ def compute_scores_lifted(st: ScoreState, in_mesh: torch.Tensor, tp: dict, sc,
     cap = sc.topic_score_cap
     capped = torch.where(cap > 0, torch.minimum(score, cap), score)
     w6 = sc.ip_colocation_factor_weight
-    if sc.app_specific_weight != 0.0:
+    if app_on:
         app_w = flush_f32(sc.app_specific_weight)
         capped = mul_add(fl(net.peer_gather(app_score)), app_w, capped)
     score = mul_add(p6, w6, capped)
-    if cols:
+    if cols and app_on:
+        score = at_cols(score, apart(p6, w6, capped))
+    elif cols:
         # the cap's select sinks past the add: where the cap is off the
         # slot's term fuses into P6's rounded product
         score = at_cols(score, torch.where(cap > 0, score,

@@ -38,6 +38,12 @@ class EV(enum.IntEnum):
 
 N_EVENTS = len(EV)
 
+_NAMES = {e: e.name for e in EV}
+
+
+def event_name(code: int) -> str:
+    return _NAMES[EV(code)]
+
 
 def zero_counters(device=None) -> torch.Tensor:
     """int32 cumulative counters, one per event code."""

@@ -981,3 +981,69 @@ def test_lifted_window_replays_another_plane_without_a_capture(cuda, r):
         finals.append(win)
     assert scan.window.captures == 1
     assert not torch.equal(finals[0].scores, finals[1].scores)
+
+
+@pytest.mark.cuda
+def test_snapshot_refuses_a_capture(cuda):
+    """A trace snapshot copies to the host, which a CUDA graph capture
+    cannot hold: it raises before touching the card."""
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+    from go_libp2p_pubsub_tpu_torch.trace import drain
+
+    st = sweep.build_bench(256, 64, device=cuda)[0]
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            drain.snapshot(st)
+    assert drain.snapshot(st).first_edge.dtype == np.int8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["per-round", "phase"])
+def test_trace_and_checkpoint_on_the_card_equal_the_cpu(cuda, engine, tmp_path):
+    """The default config traced on the card and on the CPU writes the
+    same protobuf file; a checkpoint the CPU run writes restores on the
+    card and continues equal to the CPU run."""
+    from go_libp2p_pubsub_tpu_torch import checkpoint, convert, driver, graph
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+    from go_libp2p_pubsub_tpu_torch.trace import drain, sinks
+
+    n, r = 512, (8 if engine == "phase" else 1)
+    po, pt, pv = sweep.publish_schedule(24, n, 1, None, seed=3)
+    out, finals = {}, {}
+    for dev in ("cpu", cuda):
+        st, step, _t, _h = sweep.build_bench(n, 64, count_events=True, rounds_per_phase=r,
+                                             device=dev)
+        if r > 1:
+            st = driver.form_mesh(step, st, rounds_per_phase=r)
+        net = Net.build(graph.ring_lattice(n, d=8), graph.subscribe_all(n, 1), device=dev)
+        path = str(tmp_path / f"{torch.device(dev).type}.pb")
+        sess = drain.TraceSession(net, [sinks.PBTracer(path)])
+        prev = drain.snapshot(st)
+        sess.emit_init(prev)
+        for i in range(0, 16, r):
+            sl = slice(i, i + r)
+            if r > 1:
+                st = sweep.run_phases(st, step, po[sl], pt[sl], pv[sl], rounds_per_phase=r,
+                                      heartbeat_every=r)
+            else:
+                st = sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl])
+            new = drain.snapshot(st)
+            sess.observe(prev, new, po[i] if r == 1 else po[sl], pt[i] if r == 1 else pt[sl],
+                         pv[i] if r == 1 else pv[sl])
+            prev = new
+        sess.close(prev)
+        out[torch.device(dev).type] = open(path, "rb").read()
+        if dev == "cpu":
+            checkpoint.save(str(tmp_path / "cpu.npz"), st)
+            run = sweep.run_phases if r > 1 else sweep.run_rounds
+            kw = dict(rounds_per_phase=r, heartbeat_every=r) if r > 1 else {}
+            finals["cpu"] = convert.state_leaves(run(st, step, po[16:], pt[16:], pv[16:], **kw))
+        else:
+            st = checkpoint.restore(str(tmp_path / "cpu.npz"), st)
+            assert st.core.tick.device.type == "cuda"
+            finals["cuda"] = convert.state_leaves(run(st, step, po[16:], pt[16:], pv[16:], **kw))
+    assert out["cpu"] == out["cuda"] and len(out["cpu"]) > 0
+    for p in finals["cpu"]:
+        assert np.array_equal(np.atleast_1d(finals["cpu"][p]).view(np.uint8),
+                              np.atleast_1d(finals["cuda"][p]).view(np.uint8)), p

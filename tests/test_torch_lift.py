@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_score_fma import (
+    _ALL,
     _ZERO_TOPIC,
     FMA_CELLS,
     P5_CELLS,
@@ -313,6 +314,38 @@ def test_lifted_score_sum_with_app_scores(name):
     for seed in (0, 1):
         got, want = _lifted_scores(cell, seed, n=n, d=d)
         inner = slice(2 * d, n - 2 * d)
+        np.testing.assert_array_equal(got[inner].view(np.uint32), want[inner].view(np.uint32))
+        tol = WRAP_ULPS * float(np.spacing(np.float32(bound)))
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+#: the lifted scalar columns with P5 live: every topic term on one slot,
+#: the topic-score cap off and on
+_P5_PEER = dict(P5_CELLS["p5_one_topic"][1], behaviour_penalty_weight=-0.8)
+P5_LIFT_CELLS = {
+    "uncapped": (_ALL, _P5_PEER, 1, {}),
+    "capped": (_ALL, dict(_P5_PEER, topic_score_cap=5.0), 1, {}),
+}
+
+
+@pytest.mark.parametrize("n", [64, 96, 256])
+@pytest.mark.parametrize("k", [3, 4, 9])
+@pytest.mark.parametrize("name", sorted(P5_LIFT_CELLS))
+def test_lifted_scalar_columns_with_app_scores(name, k, n):
+    """The one-slot scalar columns with P5 live (``lifted_scalar_columns``
+    with ``app_on``: columns 0-1 of a row of 3 take P5's product fused and
+    P6's rounded apart; rows of 4 and 9 keep no scalar column): bit for
+    bit off the banded gather's wrap rows (the first and last 2d rows of
+    the ring) and within ``WRAP_ULPS`` of the largest term on them, as
+    ``test_lifted_score_sum_with_app_scores``."""
+    d = k / 2 if k % 2 else k // 2
+    wrap = int(2 * d)
+    cell = P5_LIFT_CELLS[name]
+    bound = 3 * (abs(cell[1]["app_specific_weight"]) + abs(cell[1]["ip_colocation_factor_weight"])
+                 + 4 * abs(cell[1]["behaviour_penalty_weight"]) + 100 * cell[2])
+    for seed in (0, 1):
+        got, want = _lifted_scores(cell, seed, n=n, d=d)
+        inner = slice(wrap, n - wrap)
         np.testing.assert_array_equal(got[inner].view(np.uint32), want[inner].view(np.uint32))
         tol = WRAP_ULPS * float(np.spacing(np.float32(bound)))
         np.testing.assert_allclose(got, want, rtol=0, atol=tol)
