@@ -17,7 +17,8 @@ Phases, each printing its own lines; any failure exits non-zero before the
 last line is printed:
 
 1. environment — torch/CUDA versions, the card's name and power limit, the
-   protobuf runtime's version and implementation (the trace sinks');
+   protobuf runtime's version and implementation (the trace sinks'), the
+   cryptography package's version (the API's Ed25519 signing);
 2. build — nvcc builds every kernel source of the port from csrc/ for
    sm_90a, one nvcc per source, all started together;
 3. GossipSub kernels — at the bench's shapes (N=100k, K=16, W=2, C=4), on
@@ -234,7 +235,27 @@ last line is printed:
    restore equal the uninterrupted eager run on every leaf, the per-round
    step eagerly and the phase engine through a captured window
    (driver.make_scan);
-37. the kernel launches of a traced GossipSub bench round
+37. the application API (api.py, before the profiler phase): six scripted
+   sessions through api.Network on the connect()ed ring lattice at N=8192
+   (GossipSub at r = 1 and r = 8, FloodSub, RandomSub, max_message_size,
+   a runtime Join and Leave), each on the card and on the CPU: the
+   subscriptions' bytes, the event handler's events and the final state
+   equal leaf for leaf, the card's launches recorded (connect() builds the
+   lattice in _from_edge_lists' slot order, which is not banded, so these
+   take the composites and select_topk); the transmit-block plane on the
+   kernels' routes at N=8192 (the per-round step's edge_exchange and
+   fused_delivery, the phase engine's edge_exchange, FloodSub's
+   delivery_banded and csr_delivery), card against CPU every round or
+   phase, each kernel launched on the block state and every blocked
+   message at its origin only; then the API at N=100,000 at r = 8 (8
+   phases) and r = 1 (8 rounds), 1,000 subscriptions, 4 signed publishes a
+   dispatch: the host's seconds to build (identities, connect, join,
+   start with its peer records), the subscriptions reconciled with
+   first_round and verified, the final state and the launches equal to
+   the direct build's (make_gossipsub_phase_step / make_gossipsub_step)
+   driven with the API's calls, rounds/s through the API and direct, and
+   the host's ms a round split into the step, the snapshots and the drain;
+38. the kernel launches of a traced GossipSub bench round
    (perf/profile.py), with those of the score path's subnormal flush
    (hardshrink, copysign) apart (2,287.75 a bench round and 466.25 a
    phase-bench delivery round, or the script fails: the options off
@@ -3177,6 +3198,332 @@ def checkpoint_cell(sweep, driver, convert, checkpoint, dev, engine: str) -> dic
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 37: the application API (api.py) on the card
+
+API_SUB_EVERY = 100             # 1,000 of the 100k nodes hold a Subscription
+API_PHASES, API_ROUNDS = 8, 8   # driven phases at r = 8, rounds at r = 1
+API_PUBS = 4                    # signed publishes a phase (a round at r = 1)
+API_PARITY_BATCHES = 3          # publish batches of each card == CPU session
+API_CELLS = ("gossipsub r=1", "gossipsub r=8", "floodsub", "randomsub",
+             "max_message_size", "join/leave")
+WIRE_BLOCK_CELLS = {             # cell: (kernels that must launch on a block state)
+    "per-round": ("edge_exchange", "fused_delivery"),
+    "phase": ("edge_exchange",),
+    "floodsub lattice": ("delivery_banded",),
+    "floodsub csr": ("csr_delivery",),
+}
+
+
+def api_lattice(api, n: int, device, **kw):
+    """An ``api.Network`` of n nodes, each ``connect()``ed to its 8
+    successors on the ring (``graph.ring_lattice(n, d=8)``'s edges, K = 16)
+    and joined to topic "t"; returns (net, nodes, host seconds by step)."""
+    secs = {}
+    t0 = time.perf_counter()
+    net = api.Network(device=device, **kw)
+    nodes = net.add_nodes(n)
+    secs["identities"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i, a in enumerate(nodes):
+        for j in range(1, 9):
+            net.connect(a, nodes[(i + j) % n])
+    secs["connect"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for nd in nodes:
+        nd.join("t")
+    secs["join"] = time.perf_counter() - t0
+    return net, nodes, secs
+
+
+def api_session(api, sweep, device, cell: str) -> dict:
+    """One scripted API session at N=8192 on ``device``: 3 batches of 4
+    signed publishes from seeded origins, one run of 8 rounds (one phase at
+    r = 8) after each, 1 in 64 nodes subscribed and node 0's event
+    handler; the cell's own event (an oversized publish; a runtime Join
+    and Leave of a second topic; a node going down). Returns what the card
+    and the CPU must agree on."""
+    import numpy as np
+
+    from go_libp2p_pubsub_tpu_torch import convert
+
+    if cell in ("floodsub", "randomsub"):
+        kw = dict(router=cell)
+    else:
+        kw = dict(score_params=sweep.bench_score_params("default", 1)[1],
+                  rounds_per_phase=8 if cell == "gossipsub r=8" else 1,
+                  max_message_size=256 if cell == "max_message_size" else None)
+    net, nodes, _secs = api_lattice(api, N_PARITY, device, seed=11, **kw)
+    if cell == "join/leave":
+        for nd in nodes[::4]:
+            nd.join("u")
+    subs = [nodes[i].topics["t"].subscribe() for i in range(0, N_PARITY, 64)]
+    net.start()
+    handlers = [nodes[0].topics["t"].event_handler()]
+    rng = np.random.default_rng(3)
+    for k in range(API_PARITY_BATCHES):
+        for o in rng.integers(0, N_PARITY, API_PUBS).tolist():
+            nodes[o].topics["t"].publish(b"api-%d-%d" % (k, o))
+        if k == 1 and cell == "max_message_size":
+            nodes[5].topics["t"].publish(b"L" * 1024)
+        if k == 1 and cell == "join/leave":
+            subs.append(nodes[1].join("u").subscribe())
+            nodes[4].leave("u")
+            nodes[8].topics["u"].publish(b"on-u")
+        if k == 2 and cell != "floodsub" and cell != "randomsub":
+            nodes[7].disconnect()
+        net.run(8)
+    events = []
+    while (ev := handlers[0].next_event()) is not None:
+        events.append(ev)
+    return dict(subs=[[m.SerializeToString() for m in s] for s in subs], events=events,
+                oversized=net.oversized_publishes, leaves=convert.state_leaves(net.state))
+
+
+def api_parity(api, sweep, counters) -> dict:
+    """Phase 37a: every API cell on the card and on the CPU from the same
+    script: the subscriptions' bytes, the events and the final state equal
+    leaf for leaf. Returns each cell's kernel launches on the card."""
+    out = {}
+    for cell in API_CELLS:
+        t0 = time.perf_counter()
+        for m in counters:
+            m.reset_launch_counts()
+        card = api_session(api, sweep, "cuda", cell)
+        launched = counts(counters)
+        cpu = api_session(api, sweep, "cpu", cell)
+        for key in ("subs", "events", "oversized"):
+            if card[key] != cpu[key]:
+                raise AssertionError(f"API {cell}: {key} differ between card and CPU")
+        leaves_equal(cpu["leaves"], card["leaves"], f"API {cell} final state")
+        delivered = sum(len(s) for s in card["subs"])
+        if not delivered:
+            raise AssertionError(f"API {cell}: no subscription received a message")
+        out[cell] = launched
+        say(f"API {cell} card == CPU at N={N_PARITY}: {delivered} subscription messages, "
+            f"{len(card['events'])} events and the final state equal leaf for leaf "
+            f"({time.perf_counter() - t0:.1f} s; card launches {launched})")
+    return out
+
+
+def with_wire_block(st):
+    """``st`` with an empty transmit-block plane (``MsgTable.wire_block``)."""
+    import torch
+
+    core = getattr(st, "core", st)
+    msgs = dataclasses.replace(core.msgs, wire_block=torch.zeros(
+        core.msgs.capacity, dtype=torch.bool, device=core.tick.device))
+    core = dataclasses.replace(core, msgs=msgs)
+    return dataclasses.replace(st, core=core) if hasattr(st, "core") else core
+
+
+def wire_block_parity(sweep, driver, convert, dev, counters) -> dict:
+    """Phase 37b: the block plane on the kernels' routes at N=8192, card
+    against CPU every round or phase. Every third publish carries
+    VERDICT_WIRE_BLOCK; the kernels take the block through their receiver
+    exclusion, so each cell launches its route's kernels (the returned
+    counts) and a blocked message is stamped at its origin only."""
+    import numpy as np
+
+    from go_libp2p_pubsub_tpu_torch.state import VERDICT_WIRE_BLOCK
+
+    r8 = PHASE_R
+    po, pt, pv = sweep.publish_schedule(2 * r8, N_PARITY, 1, None, seed=7)
+    codes = np.where(pv, 0, 1).astype(np.int8)
+    codes.reshape(-1)[::3] |= VERDICT_WIRE_BLOCK
+    builds = {
+        "per-round": lambda d: sweep.build_bench(N_PARITY, M_SLOTS, count_events=True,
+                                                 device=d)[:2],
+        "phase": lambda d: sweep.build_bench(N_PARITY, M_SLOTS, count_events=True,
+                                             rounds_per_phase=r8, device=d)[:2],
+        "floodsub lattice": lambda d: sweep.build_floodsub(N_PARITY, M_SLOTS, device=d),
+        "floodsub csr": lambda d: sweep.build_floodsub(N_PARITY, M_SLOTS, graph="powerlaw",
+                                                       layout="csr", device=d),
+    }
+    out = {}
+    for cell, kernels_of in WIRE_BLOCK_CELLS.items():
+        t0 = time.perf_counter()
+        phase = cell == "phase"
+        sides = {}
+        for d in ("cuda", "cpu"):
+            st, step = builds[cell](d)
+            if phase:
+                st = driver.form_mesh(step, st, rounds_per_phase=r8)
+            sides[d] = (with_wire_block(st), step)
+        for m in counters:
+            m.reset_launch_counts()
+        n_disp = 2 if phase else 2 * r8
+        for i in range(n_disp):
+            for d, (st, step) in list(sides.items()):
+                if phase:
+                    sl = slice(i * r8, (i + 1) * r8)
+                    st = sweep.run_phases(st, step, po[sl], pt[sl], codes[sl],
+                                          rounds_per_phase=r8, heartbeat_every=r8)
+                else:
+                    st = sweep.run_rounds(st, step, po[i:i + 1], pt[i:i + 1], codes[i:i + 1])
+                sides[d] = (st, step)
+                if d == "cuda":
+                    launched = counts(counters)
+            leaves_equal(convert.state_leaves(sides["cpu"][0]),
+                         convert.state_leaves(sides["cuda"][0]), f"wire_block {cell} {i}")
+        missing = [k for k in kernels_of if not launched[k]]
+        if missing:
+            raise AssertionError(f"wire_block {cell}: {missing} never launched on the block "
+                                 f"state ({launched})")
+        core = getattr(sides["cuda"][0], "core", sides["cuda"][0])
+        block = core.msgs.wire_block.cpu().numpy()
+        reach = (core.dlv.first_round >= 0).sum(0).cpu().numpy()
+        if not block.any() or (reach[block] != 1).any():
+            raise AssertionError(f"wire_block {cell}: a blocked message left its origin "
+                                 f"(reach {reach[block].tolist()})")
+        out[cell] = launched
+        say(f"wire_block {cell} card == CPU at N={N_PARITY}: every leaf after each of {n_disp} "
+            f"{'phases' if phase else 'rounds'}, {int(block.sum())} blocked messages at their "
+            f"origins only, launches {launched} ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def api_full(api, sign, sweep, convert, dev, card, counters, r: int) -> dict:
+    """Phase 37c: the API at full width: 100,000 nodes on the connect()ed
+    lattice, the bench default's score parameters, 1,000 subscriptions,
+    4 signed publishes a phase (r = 8) or a round (r = 1). The host's
+    seconds to build, the API's rounds/s against the same step driven
+    directly (make_gossipsub_phase_step / make_gossipsub_step with the
+    API's options) on the calls the API made, the host's ms a round split
+    into the step (to a sync), the two snapshots and the drain; the
+    subscriptions reconciled with first_round (each message verifying),
+    the final state equal to the direct build's, and the launches equal."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import (
+        GossipSubState,
+        make_gossipsub_step,
+    )
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub_phase import make_gossipsub_phase_step
+
+    sp = sweep.bench_score_params("default", 1)[1]
+    net, nodes, secs = api_lattice(api, N_FULL, dev, score_params=sp, rounds_per_phase=r,
+                                   seed=21)
+    subs = {i: nodes[i].topics["t"].subscribe() for i in range(0, N_FULL, API_SUB_EVERY)}
+    t0 = time.perf_counter()
+    net.start()
+    torch.cuda.synchronize()
+    secs["start"] = time.perf_counter() - t0
+    banded = net.net.band_off is not None
+    # the host split: the step to a sync, the snapshots, the drain
+    host = {"step": 0.0, "snapshot": 0.0, "drain": 0.0}
+    calls = []
+    step0, snap0, drain0 = net._step, api.snapshot, net._drain_deliveries
+
+    def timed_step(st, *args, **kw):
+        calls.append((tuple(a.clone() for a in args), kw))
+        t = time.perf_counter()
+        out = step0(st, *args, **kw)
+        torch.cuda.synchronize()
+        host["step"] += time.perf_counter() - t
+        return out
+
+    def timed_snapshot(st, *a, **kw):
+        t = time.perf_counter()
+        out = snap0(st, *a, **kw)
+        host["snapshot"] += time.perf_counter() - t
+        return out
+
+    def timed_drain(prev, new):
+        t = time.perf_counter()
+        drain0(prev, new)
+        host["drain"] += time.perf_counter() - t
+
+    net._step, api.snapshot, net._drain_deliveries = timed_step, timed_snapshot, timed_drain
+    rng = np.random.default_rng(9)
+    dispatches = API_PHASES if r > 1 else API_ROUNDS
+    for m in counters:
+        m.reset_launch_counts()
+    publish_s = run_s = 0.0
+    try:
+        for _ in range(dispatches):
+            t = time.perf_counter()
+            for o in rng.integers(0, N_FULL, API_PUBS).tolist():
+                nodes[o].topics["t"].publish(b"api-%d" % o)
+            publish_s += time.perf_counter() - t
+            t = time.perf_counter()
+            net.run(r)
+            run_s += time.perf_counter() - t
+    finally:
+        api.snapshot = snap0
+    launched = counts(counters)
+    rounds = dispatches * r
+
+    # the subscriptions against the device's first receipts
+    fr = net.state.core.dlv.first_round.cpu().numpy()
+    n_msgs = 0
+    for i, sub in subs.items():
+        got = list(sub)
+        want = sorted(api.default_msg_id(net._slot_msg[s]) for s in np.flatnonzero(fr[i] >= 0))
+        if sorted(api.default_msg_id(m) for m in got) != want:
+            raise AssertionError(f"API N={N_FULL} r={r}: node {i}'s subscription holds "
+                                 f"{len(got)} messages, first_round says {len(want)}")
+        for m in got:
+            sign.verify_message(m)
+        n_msgs += len(got)
+
+    # the same step built directly, driven with the API's calls
+    cfg = net._cfg
+    if r > 1:
+        dstep = make_gossipsub_phase_step(cfg, net.net, r, score_params=sp,
+                                          dynamic_peers=True, exact_counters=True,
+                                          admission_capped=True)
+    else:
+        dstep = make_gossipsub_step(cfg, net.net, score_params=sp, dynamic_peers=True)
+    dst = GossipSubState.init(net.net, net.msg_slots, cfg, score_params=sp, seed=21)
+    if r > 1:   # the API's formation prelude: one publish-free phase
+        w = net.pub_width
+        dst = dstep(dst, torch.full((r, w), -1, dtype=torch.int32, device=dev),
+                    torch.zeros((r, w), dtype=torch.int32, device=dev),
+                    torch.zeros((r, w), dtype=torch.int8, device=dev),
+                    torch.ones(N_FULL, dtype=torch.bool, device=dev), do_heartbeat=True)
+    torch.cuda.synchronize()
+    for m in counters:
+        m.reset_launch_counts()
+    t = time.perf_counter()
+    for args, kw in calls:
+        dst = dstep(dst, *args, **kw)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t
+    direct_launched = counts(counters)
+    if direct_launched != launched:
+        raise AssertionError(f"API r={r} launches {launched}, the direct build's "
+                             f"{direct_launched}")
+    if banded:
+        route = ({"edge_exchange": (1 + r) * dispatches} if r > 1 else
+                 {"edge_exchange": rounds, "fused_delivery": rounds})
+    else:
+        route = {}
+    # the API's config keeps GossipSubConfig's 2 fanout slots: 2 more
+    # selections a heartbeat and 1 a dispatch for the publishes' fanout peers
+    sel_per = SELECTIONS_PER_HEARTBEAT + (3 if cfg.fanout_slots else 0)
+    want = {k: 0 for k in launched}
+    want.update(route, select_topk=sel_per * dispatches)
+    if launched != want:
+        raise AssertionError(f"API r={r} launches {launched}, expected {want}")
+    leaves_equal(convert.state_leaves(dst), convert.state_leaves(net.state),
+                 f"API r={r} final state against the direct build")
+    per = {k: 1e3 * v / rounds for k, v in host.items()}
+    per["other"] = 1e3 * run_s / rounds - sum(per.values())
+    rec = {"r": r, "n": N_FULL, "banded": banded, "build_s": secs, "subscriptions": len(subs),
+           "subscription_messages": n_msgs, "api_rounds_per_s": rounds / run_s,
+           "direct_rounds_per_s": rounds / direct_s, "publish_ms": 1e3 * publish_s /
+           (dispatches * API_PUBS), "host_ms_a_round": per, "launches": launched}
+    say(f"API N={N_FULL} r={r} on {card}: band_off {'set' if banded else 'None'} "
+        f"(connect()'s slot order), build {json.dumps({k: round(v, 3) for k, v in secs.items()})}"
+        f" s, {n_msgs} subscription messages reconciled with first_round and verified, final "
+        f"state equal to the direct build's, launches {launched} equal to its route; "
+        f"{rounds / run_s:.3f} rounds/s through the API against {rounds / direct_s:.3f} "
+        f"direct; host ms a round {json.dumps({k: round(v, 3) for k, v in per.items()})}")
+    return rec
+
+
 def leaves_equal(a: dict, b: dict, where: str):
     import numpy as np
 
@@ -3229,6 +3576,9 @@ def main() -> int:
 
     say(f"protobuf {google.protobuf.__version__} ({api_implementation.Type()}), the trace "
         "sinks' runtime")
+    import cryptography
+
+    say(f"cryptography {cryptography.__version__}, the API's Ed25519 signing")
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -3611,7 +3961,25 @@ def main() -> int:
     say("checkpoint cell: " + json.dumps({"card": card, "runs": ckpt}))
     say(f"checkpoint phase {time.perf_counter() - t0:.1f} s")
 
-    # 37. launches of a bench round, a phase-bench phase and a windowed
+    # 37. the application API: card == CPU at N=8192, the block plane on
+    # the kernels' routes, the API at full width against the direct build
+    from go_libp2p_pubsub_tpu_torch import api, sign
+
+    t0 = time.perf_counter()
+    api_cells = api_parity(api, sweep, counters)
+    wb = wire_block_parity(sweep, driver, convert, dev, counters)
+    api_runs = [api_full(api, sign, sweep, convert, dev, card, counters, r)
+                for r in (PHASE_R, 1)]
+    for rec in records:
+        rec["api_launches"] = {
+            **{f"API {c} (N={N_PARITY})": v.get(rec["name"], 0) for c, v in api_cells.items()},
+            **{f"API r={a['r']} (N={N_FULL}), {API_PHASES if a['r'] > 1 else API_ROUNDS} "
+               "dispatches": a["launches"].get(rec["name"], 0) for a in api_runs},
+            **{f"wire_block {c} (N={N_PARITY})": v.get(rec["name"], 0) for c, v in wb.items()}}
+    say("api cell: " + json.dumps({"card": card, "runs": api_runs}))
+    say(f"api phase {time.perf_counter() - t0:.1f} s")
+
+    # 38. launches of a bench round, a phase-bench phase and a windowed
     # phase, traced; then the configs' rounds and phases
     bench_launches(card)
     config_traced_launches(card)

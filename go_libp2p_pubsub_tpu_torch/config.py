@@ -366,3 +366,21 @@ def ticks_for(seconds: float, heartbeat_interval: float) -> int:
     if seconds <= 0:
         return 0
     return max(1, math.ceil(seconds / heartbeat_interval))
+
+
+def default_topic_score_params() -> TopicScoreParams:
+    return TopicScoreParams()
+
+
+def default_peer_score_params(n_topics: int = 1) -> PeerScoreParams:
+    """The JAX package's API default: every topic at the default topic
+    parameters, P7 and P6 weighted."""
+    return PeerScoreParams(
+        topics={t: TopicScoreParams() for t in range(n_topics)},
+        skip_app_specific=True,
+        behaviour_penalty_weight=-1.0,
+        behaviour_penalty_threshold=1.0,
+        behaviour_penalty_decay=0.9,
+        ip_colocation_factor_weight=-1.0,
+        ip_colocation_factor_threshold=4,
+    )

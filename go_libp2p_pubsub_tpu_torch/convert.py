@@ -2,8 +2,9 @@
 or the router-agnostic ``SimState`` FloodSub steps, dense or CSR-resident
 (the same leaves; on a CSR net ``fe_words``, ``served_lo``/``served_hi``
 are flat ``[E, W]`` and ``peerhave``/``iasked`` ``[E]``), with or without
-the async-validation pipeline (``.dlv.pending``) and the exact-trace
-duplicate plane (``.dup_trans``), each a leaf only when the state has one,
+the async-validation pipeline (``.dlv.pending``), the exact-trace
+duplicate plane (``.dup_trans``) and the transmit block
+(``.msgs.wire_block``), each a leaf only when the state has one,
 on both sides, and the mutable overlay of a dynamic-topology state
 (``.core.topo``, ``TopoState``) likewise. Narrowed int16 counters keep
 their dtype both ways.
@@ -39,9 +40,10 @@ WORD_LEAVES = frozenset({
     ".ihave_out", ".iwant_out", ".served_lo", ".served_hi", ".dup_trans",
 })
 KEY_LEAVES = frozenset({".key", ".core.key"})
-#: leaves a state may lack (None): the pipeline's stages and the
-#: exact-trace duplicate plane
-OPTIONAL_LEAVES = frozenset({".dlv.pending", ".core.dlv.pending", ".dup_trans"})
+#: leaves a state may lack (None): the pipeline's stages, the exact-trace
+#: duplicate plane and the transmit block
+OPTIONAL_LEAVES = frozenset({".dlv.pending", ".core.dlv.pending", ".dup_trans",
+                             ".msgs.wire_block", ".core.msgs.wire_block"})
 #: nested states a state may lack (None): the mutable overlay
 OPTIONAL_NESTED = frozenset({".topo", ".core.topo"})
 

@@ -231,3 +231,23 @@ def subscribe_random(n: int, n_topics: int, topics_per_peer: int, seed: int = 0,
         subscribed[i, picks] = True
         slot_of[i, picks] = np.arange(len(picks), dtype=np.int32)
     return Subscriptions(subscribed=subscribed, my_topics=my_topics, slot_of=slot_of)
+
+
+def subscribe_mask(mask: np.ndarray, max_slots: int | None = None) -> Subscriptions:
+    """Subscriptions from an explicit [N, T] bool mask: each peer's topics
+    fill its slots in ascending topic order."""
+    mask = np.asarray(mask, dtype=bool)
+    n, n_topics = mask.shape
+    deg = mask.sum(axis=1).astype(np.int32)
+    if max_slots is None:
+        max_slots = int(deg.max()) if n else 1
+    over = np.flatnonzero(deg > max_slots)
+    if over.size:
+        i = int(over[0])
+        raise ValueError(f"peer {i} subscribes {int(deg[i])} topics > max_slots={max_slots}")
+    slot = np.cumsum(mask, axis=1, dtype=np.int32) - 1
+    slot_of = np.where(mask, slot, -1).astype(np.int32)
+    my_topics = np.full((n, max_slots), -1, dtype=np.int32)
+    rows, tids = np.nonzero(mask)
+    my_topics[rows, slot[rows, tids]] = tids.astype(np.int32)
+    return Subscriptions(subscribed=mask.copy(), my_topics=my_topics, slot_of=slot_of)

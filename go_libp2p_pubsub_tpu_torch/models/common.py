@@ -18,6 +18,13 @@ traffic, and popcounts of it give the SendRPC/RecvRPC trace counters.
   ``RoundInfo.trans`` is the flat ``[E, W]`` plane (popcount-equal to the
   dense form: absent slots carry nothing either way).
 
+A table with the transmit-block plane (``MsgTable.wire_block``, behind
+``api.Network(max_message_size=)``) folds the blocked messages into every
+receiver's exclusion mask (``not_mine``) before any route is chosen: both
+kernels take that mask as an argument, so a blocked message crosses no edge
+on any route (the JAX package's ``common.py:217-222``), and the route is the
+one the state would take without the block.
+
 The core's two options leave both kernels, as the JAX package routes them
 (its ``common.py:204-206, 238-240``): with an outbound-queue cap
 (``queue_cap``) or an async-validation pipeline (a state with
@@ -38,7 +45,7 @@ import torch
 from ..ops import bitset
 from ..ops import csr_delivery as cd
 from ..ops import delivery_banded as db
-from ..state import Delivery, MsgTable, Net, replace
+from ..state import Delivery, MsgTable, Net, replace, wire_block_words
 from ..trace.events import EV, add_event
 
 
@@ -201,6 +208,12 @@ def delivery_round(net: Net, msgs: MsgTable, dlv: Delivery,
     w = bitset.n_words(m)
     valid_words = bitset.pack(msgs.valid)
     not_mine = ~origin_msg_words(net, msgs)  # [N, W]
+    block_w = wire_block_words(msgs)
+    if block_w is not None:
+        # oversized messages never cross any edge (sendRPC's fragmentRPC
+        # drop, gossipsub.go:1126-1140); they still live in mcache and are
+        # IHAVE-advertised, as in the reference
+        not_mine = not_mine & ~block_w[None, :]
     # the kernels commit inline and uncapped; the options take the composites
     plain_core = queue_cap == 0 and dlv.pending is None
     opts = dict(forward_mask=forward_mask, count_events=count_events, queue_cap=queue_cap,

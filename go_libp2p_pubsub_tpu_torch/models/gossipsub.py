@@ -88,6 +88,7 @@ from ..state import (
     allocate_publishes,
     replace,
     tree_map,
+    wire_block_words,
     wrap_csr_resident,
 )
 from ..trace.events import EV, add_event
@@ -335,11 +336,14 @@ class GossipSubState:
     def init(cls, net: Net, msg_slots: int, cfg: GossipSubConfig,
              score_params: PeerScoreParams | None = None,
              seed: int = 0, dormant: np.ndarray | None = None,
-             dynamic_topo: bool = False) -> "GossipSubState":
+             dynamic_topo: bool = False, wire_block: bool = False) -> "GossipSubState":
         """``dormant`` ([N, K] bool, ``graph.dormant_edges``) marks the
         provisioned edges that start disconnected; ``dynamic_topo`` installs
         the mutable overlay (``core.topo``, seeded from the net) that a
-        ``dynamic_topo`` step writes."""
+        ``dynamic_topo`` step writes; ``wire_block`` adds the per-message
+        transmit block (``MsgTable.wire_block``, behind
+        ``api.Network(max_message_size=)``), which every route of every
+        engine honours."""
         dev = net.device
         n, k = net.nbr.shape
         s = net.n_slots
@@ -367,7 +371,8 @@ class GossipSubState:
         return cls(
             core=SimState.init(n, msg_slots, seed, k=k, device=dev, n_edges=e,
                                val_delay=cfg.validation_delay_rounds,
-                               topo=TopoState.from_net(net) if dynamic_topo else None),
+                               topo=TopoState.from_net(net) if dynamic_topo else None,
+                               wire_block=wire_block),
             mesh=z((n, s, k), b),
             backoff_expire=z((n, s, k), i32),
             backoff_present=z((n, s, k), b),
@@ -710,6 +715,13 @@ def merge_extra_tx(net: Net, msgs, dlv, info: RoundInfo, extra: torch.Tensor,
     their entry stage and their verdict lands at its exit."""
     m = msgs.capacity
     extra = extra & ~origin_msg_words(net, msgs)[:, None, :]
+    block_w = wire_block_words(msgs)
+    if block_w is not None:
+        # IWANT responses for oversized messages die at the wire too, after
+        # the retransmission counter ticked (mcache.GetForPeer counts the
+        # attempt before sendRPC drops it, mcache.go:66-80 ->
+        # gossipsub.go:1126-1140), which iwant_responses already did
+        extra = extra & ~block_w[None, None, :]
     if queue_cap > 0:
         budget = (queue_cap - bitset.popcount(info.trans)).clamp(min=0)
         want = extra
@@ -1712,6 +1724,12 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         # the kernel gates every edge by F_LIVE, the static flood_from too
         flags = fr.make_flags(acc_msg, consts.flood_from, consts.i_am_floodsub,
                               consts.sender_fwd_full, net_l.nbr_ok)
+        # the kernel's receiver exclusion (origin_w) masks the push and the
+        # IWANT responses but not the retransmission counters, so blocked
+        # messages join it: a blocked response still ticks its counter and
+        # then dies at the wire, as in the composite
+        block_w = wire_block_words(core.msgs)
+        excl_w = origin_w if block_w is None else origin_w | block_w[None, :]
         mcw = bitset.word_or_reduce(st2.mcache, dim=1)
         if thr is cfg:
             thr_kw = dict(gossip_thr=cfg.gossip_threshold, publish_thr=cfg.publish_threshold)
@@ -1725,7 +1743,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             asked_old.reshape(n_peers, kw).contiguous(),
             served_lo_old.reshape(n_peers, kw),
             served_hi_old.reshape(n_peers, kw),
-            flags, core.dlv.have, origin_w, joined_words.contiguous(),
+            flags, core.dlv.have, excl_w, joined_words.contiguous(),
             valid_pack[None, :], **thr_kw,
             offsets=net.band_off, revs=net.band_rev, w=w_dim,
             score_enabled=cfg.score_enabled,

@@ -58,7 +58,13 @@ from ..score.engine import (
     per_slot_counts,
     slot_topic_words,
 )
-from ..state import PhasePubPlan, allocate_publishes, replace, wrap_csr_resident
+from ..state import (
+    PhasePubPlan,
+    allocate_publishes,
+    replace,
+    wire_block_words,
+    wrap_csr_resident,
+)
 from ..trace.events import EV, add_event
 from .common import RoundInfo, accumulate_round_events, finish_delivery, origin_msg_words
 from .gossipsub import (
@@ -431,7 +437,12 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                 # no-forward peers run control but never transmit data
                 send = torch.where(adv_self[:, None, None], 0, send)
             trans = cross_data(send, recv_gate, live_u32)
-            trans = trans & (joined_w & ~origin_w)[:, None, :]
+            nm = ~origin_w
+            block_w = wire_block_words(msgs)
+            if block_w is not None:
+                # oversized messages cross no edge (gossipsub.go:1126-1140)
+                nm = nm & ~block_w[None, :]
+            trans = trans & (joined_w & nm)[:, None, :]
 
             pre_have = dlv.have if cfg.gater_enabled else None
             dlv, info = finish_delivery(net_l, msgs, dlv, trans, tick_i, **opts)

@@ -280,15 +280,20 @@ class MsgTable:
     valid: torch.Tensor    # [M] bool — ValidationAccept
     ignored: torch.Tensor  # [M] bool — ValidationIgnore
     cursor: torch.Tensor   # i32 — next slot to allocate (mod M)
+    # [M] bool: oversized messages, never transmitted on any edge
+    # (VERDICT_WIRE_BLOCK; WithMaxMessageSize pubsub.go:480, the sendRPC
+    # drop gossipsub.go:1126-1140); None when the network does not check
+    wire_block: torch.Tensor | None = None
 
     @classmethod
-    def empty(cls, m: int, device) -> "MsgTable":
+    def empty(cls, m: int, device, wire_block: bool = False) -> "MsgTable":
         full = lambda v: torch.full((m,), v, dtype=torch.int32, device=device)
+        zeros = lambda: torch.zeros((m,), dtype=torch.bool, device=device)
         return cls(
             topic=full(-1), origin=full(-1), birth=full(-1),
-            valid=torch.zeros((m,), dtype=torch.bool, device=device),
-            ignored=torch.zeros((m,), dtype=torch.bool, device=device),
+            valid=zeros(), ignored=zeros(),
             cursor=torch.zeros((), dtype=torch.int32, device=device),
+            wire_block=zeros() if wire_block else None,
         )
 
     @property
@@ -385,17 +390,20 @@ class SimState:
     @classmethod
     def init(cls, n_peers: int, msg_slots: int, seed: int = 0, k: int = 0,
              device=None, n_edges: int | None = None,
-             val_delay: int = 0, topo: TopoState | None = None) -> "SimState":
+             val_delay: int = 0, topo: TopoState | None = None,
+             wire_block: bool = False) -> "SimState":
         """``k`` is the topology's padded max degree; ``n_edges`` (pass
         ``net.n_edges``) selects the CSR-resident ``[E, W]`` first-arrival
         plane; ``val_delay`` > 0 adds the async-validation pipeline's
         stages (its presence in the state is the configuration); ``topo``
-        (``TopoState.from_net(net)``) installs the mutable overlay."""
+        (``TopoState.from_net(net)``) installs the mutable overlay;
+        ``wire_block`` adds the per-message transmit block
+        (``MsgTable.wire_block``, behind ``api.Network(max_message_size=)``)."""
         dev = resolve_device(device)
         return cls(
             tick=torch.zeros((), dtype=torch.int32, device=dev),
             key=prng.key(seed, device=dev),
-            msgs=MsgTable.empty(msg_slots, dev),
+            msgs=MsgTable.empty(msg_slots, dev, wire_block=wire_block),
             dlv=Delivery.empty(n_peers, msg_slots, k, dev, val_delay, n_edges=n_edges),
             events=zero_counters(dev),
             topo=topo,
@@ -455,8 +463,9 @@ def _scatter_drop(tbl: torch.Tensor, sidx: torch.Tensor,
     return ext[: tbl.shape[0]]
 
 
-# publish verdict codes (validation.go ValidationAccept/Reject/Ignore); the
-# wire-block flag bit is decoded away, as on a table that does not track it
+# publish verdict codes (validation.go ValidationAccept/Reject/Ignore), and
+# the wire-block flag bit a max_message_size network ORs into an oversized
+# publish's code (a table without the block plane decodes it away)
 VERDICT_ACCEPT, VERDICT_REJECT, VERDICT_IGNORE = 0, 1, 2
 VERDICT_WIRE_BLOCK = 4
 
@@ -468,6 +477,20 @@ def decode_verdicts(pub_valid: torch.Tensor):
         return pub_valid, torch.zeros_like(pub_valid)
     base = pub_valid & ~VERDICT_WIRE_BLOCK
     return base == VERDICT_ACCEPT, base == VERDICT_IGNORE
+
+
+def decode_wire_block(pub_valid: torch.Tensor) -> torch.Tensor:
+    """Bool plane of the ``VERDICT_WIRE_BLOCK`` flag (False for bool
+    verdicts)."""
+    if pub_valid.dtype == torch.bool:
+        return torch.zeros_like(pub_valid)
+    return (pub_valid & VERDICT_WIRE_BLOCK) != 0
+
+
+def wire_block_words(msgs: MsgTable) -> torch.Tensor | None:
+    """[W] packed words of the table's blocked messages, None when the
+    table carries no block plane."""
+    return None if msgs.wire_block is None else bitset.pack(msgs.wire_block)
 
 
 class PhasePubPlan:
@@ -525,6 +548,9 @@ class PhasePubPlan:
         self._birth = self._snap(msgs.birth, flat_tick)
         self._valid = self._snap(msgs.valid, accept.reshape(-1))
         self._ignored = self._snap(msgs.ignored, ignored.reshape(-1))
+        self._wire_block = (
+            self._snap(msgs.wire_block, decode_wire_block(pub_valid).reshape(-1))
+            if msgs.wire_block is not None else None)
         self.valid_words = bitset.pack(self._valid)                     # [r+1, W]
 
         # the origins' publish bits, one scatter for the phase: a
@@ -548,7 +574,9 @@ class PhasePubPlan:
         sub-rounds < i)."""
         return MsgTable(topic=self._topic[i], origin=self._origin[i],
                         birth=self._birth[i], valid=self._valid[i],
-                        ignored=self._ignored[i], cursor=self.cursor_at[i])
+                        ignored=self._ignored[i], cursor=self.cursor_at[i],
+                        wire_block=(self._wire_block[i] if self._wire_block is not None
+                                    else None))
 
     def apply_to_delivery(self, dlv: Delivery, i: int, tick_i) -> Delivery:
         """Sub-round ``i``'s recycled-slot clears and the origins'
@@ -611,6 +639,8 @@ def allocate_publishes(msgs: MsgTable, dlv: Delivery, tick: torch.Tensor,
         valid=_scatter_drop(msgs.valid, sidx, accept),
         ignored=_scatter_drop(msgs.ignored, sidx, ignored),
         cursor=msgs.cursor + count,
+        wire_block=(_scatter_drop(msgs.wire_block, sidx, decode_wire_block(pub_valid))
+                    if msgs.wire_block is not None else None),
     )
 
     row = torch.where(is_pub, pub_origin, n_peers).long()

@@ -4,7 +4,9 @@ fused_round.py) against the JAX package's Pallas kernels.
 On the CPU the port's wrappers take the plain PyTorch versions; they must
 equal ``fr.edge_exchange`` / ``fr.fused_delivery`` run in interpret mode
 bit for bit, on a small banded topology with random words and on the
-hazard bands of tests/torch_parity.py. The CUDA kernels are held against
+hazard bands of tests/torch_parity.py (``fused_delivery``'s in
+tests/test_torch_fused_round_hazards.py, so that each file stays within a
+loadfile worker's share of the suite). The CUDA kernels are held against
 the plain versions on the card (the ``cuda`` marked tests here and in
 tests/test_torch_kernels_cuda.py, and chip_smoke.py)."""
 
@@ -19,13 +21,7 @@ from go_libp2p_pubsub_tpu import graph as jgraph
 from go_libp2p_pubsub_tpu.ops import fused_round as jfr
 from go_libp2p_pubsub_tpu.state import Net as JNet
 from go_libp2p_pubsub_tpu_torch.ops import fused_round as tfr
-from torch_parity import (
-    HAZARD_BAND_M,
-    HAZARD_C,
-    hazard_bands,
-    hazard_exchange_args,
-    hazard_fused_args,
-)
+from torch_parity import HAZARD_C, hazard_bands, hazard_exchange_args, hazard_fused_args
 
 N, D, W, C = 64, 4, 2, 4
 FUSED_BANDS = [b for b in hazard_bands() if len(b["offsets"]) <= tfr.MAX_K]
@@ -151,35 +147,6 @@ def test_fused_delivery_plain_equals_pallas(band, score_enabled, want_cohorts,
     for name in ref:
         np.testing.assert_array_equal(np.asarray(ref[name]), _u(got[name]),
                                       err_msg=name)
-
-
-@pytest.mark.parametrize("band", FUSED_BANDS, ids=[b["name"] for b in FUSED_BANDS])
-@pytest.mark.parametrize("m", HAZARD_BAND_M)
-def test_fused_delivery_plain_equals_pallas_on_hazard_bands(band, m):
-    """The hazard bands of the card's fused_delivery tests
-    (tests/torch_parity.hazard_bands, K <= 16): ring lattices with K = 2, 6
-    and 16, N not a multiple of the kernel's block, N=17 under the staged
-    window, a circulant with steps 333 and 500 = N/2, at W = 1, 2, 3 and 10,
-    with scores on the thresholds and at subnormals. The plain version
-    equals the Pallas kernel in interpret mode, under a config that turns
-    with the case (scores, cohorts, retrans_cap 0-3)."""
-    n, off, rev = band["n"], band["offsets"], band["revs"]
-    i = FUSED_BANDS.index(band) + HAZARD_BAND_M.index(m)
-    score_enabled, want_cohorts, cap = i % 2 == 0, i % 3 != 2, i % 4
-    args = hazard_fused_args(m + i, band, m)
-    if not score_enabled:
-        args[4] = None
-    static = dict(offsets=off, revs=rev, w=(m + 31) // 32, score_enabled=score_enabled,
-                  want_cohorts=want_cohorts, retrans_cap=cap)
-    block = jfr.pick_block(n, off) or n    # a halo past every block: one block of N
-    ref = jfr.fused_delivery(*[None if a is None else jnp.asarray(a) for a in args],
-                             -10.0, -50.0, block=block, interpret=True, **static)
-    got = tfr.fused_delivery(*[None if a is None else _t(a) for a in args], -10.0, -50.0,
-                             **static)
-    assert sorted(ref) == sorted(got)
-    for name in ref:
-        np.testing.assert_array_equal(np.asarray(ref[name]), _u(got[name]),
-                                      err_msg=f"{band['name']} M={m} {name}")
 
 
 @pytest.mark.parametrize("thr", [0.0, -0.0])

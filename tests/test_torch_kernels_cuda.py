@@ -8,8 +8,9 @@ machine that has PyTorch with CUDA and nothing of the JAX stack:
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Each test skips when no CUDA device is present. The plain versions are
-held against the JAX package on the CPU in tests/test_torch_fused_round.py,
-tests/test_torch_delivery.py and tests/test_torch_select.py, on the same
+held against the JAX package on the CPU in tests/test_torch_fused_round.py
+(and _hazards), tests/test_torch_delivery.py (and _csr, _hazards,
+_hazards_wide) and tests/test_torch_select.py, on the same
 hazard inputs (tests/torch_parity.py).
 """
 

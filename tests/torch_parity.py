@@ -15,8 +15,18 @@ chip_smoke.py use the hazard builders on machines without the JAX stack.
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import numpy as np
+
+if "pytest" in sys.modules:
+    # one torch thread a test process: the parity tensors are small, and
+    # six xdist workers each running torch's default pool (a thread a core)
+    # on the same cores spend more time waiting than computing; scripts
+    # that import this module (chip_smoke.py) keep torch's default
+    import torch
+
+    torch.set_num_threads(1)
 
 #: the widths the select_topk hazard tests cover: the one-lane, sub-warp,
 #: warp and multi-slot layouts and both sides of each boundary
@@ -316,6 +326,21 @@ def hazard_banded_args(seed: int, band: dict, m: int, first_edge=None) -> list:
             rng.integers(-1, 50, size=(n, m)).astype(np.int32), words(1), np.int32(11)]
 
 
+def package_modules(side: str, names) -> "types.SimpleNamespace":
+    """One package's modules by dotted name under its root (``"api"``,
+    ``"trace.sinks"``), keyed by their last component, for a script
+    written once against both packages; ``side`` is "jax" or "port", and
+    ``net_kw`` the keywords the package's ``api.Network`` takes to run on
+    the CPU."""
+    import importlib
+    import types
+
+    root = "go_libp2p_pubsub_tpu" if side == "jax" else "go_libp2p_pubsub_tpu_torch"
+    mods = {m.split(".")[-1]: importlib.import_module(f"{root}.{m}") for m in names}
+    return types.SimpleNamespace(side=side, net_kw={} if side == "jax" else {"device": "cpu"},
+                                 **mods)
+
+
 def reference_leaves(jst) -> dict:
     """{schema path: numpy array} of a JAX state tree (keys as key_data)."""
     import jax
@@ -376,7 +401,8 @@ def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None,
 
 def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None, observe=None,
-                             dormant=None, up=None, blacklist=None, plane=None, **kw):
+                             dormant=None, up=None, blacklist=None, plane=None,
+                             wire_block: bool = False, **kw):
     """Run the JAX package's phase step and the port's (on the CPU) over
     ``rounds`` rounds of ``phase_schedule`` in phases of ``r`` from the same
     state, heartbeats as ``heartbeat_schedule(he, r)`` flags them, every
@@ -391,6 +417,7 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
     ``blacklist`` ({phase: [N] bool}) sets both states' blacklist before
     that phase. ``plane`` is a lifted step's (JAX plane, port plane) pair,
     or a function of the phase index giving one, passed last to every call.
+    ``wire_block`` gives both initial states the transmit-block plane.
     ``kw`` goes to both packages' make_gossipsub_phase_step, beside the
     builds' own step options. Returns the port's final state."""
     import jax.numpy as jnp
@@ -405,7 +432,8 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
 
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
     # a fresh JAX state: the JAX step donates its buffers
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant)
+    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant,
+                      wire_block=wire_block)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     diff_leaves(reference_leaves(jst), convert.state_leaves(tst), "init")
     jkw, tkw = step_options(builds)
@@ -549,7 +577,8 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None,
                              static_heartbeat: bool = False, observe=None, dormant=None,
                              up=None, writes=None, blacklist=None, step_kw=None,
-                             dynamic_topo: bool = False, plane=None):
+                             dynamic_topo: bool = False, plane=None,
+                             wire_block: bool = False):
     """The per-round counterpart of ``phases_against_reference``: both
     packages' per-round steps from the same state over ``rounds`` rounds,
     every leaf compared bit for bit after every round. ``up`` ([rounds, N]
@@ -558,7 +587,8 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
     packages' states then carry the overlay), ``blacklist`` ({round: [N]
     bool}) sets both blacklists before that round, ``step_kw`` goes to both
     step builders, ``plane`` is a lifted step's (JAX plane, port plane)
-    pair or a function of the round giving one. Returns the port's final
+    pair or a function of the round giving one, ``wire_block`` gives both
+    initial states the transmit-block plane. Returns the port's final
     state."""
     import jax.numpy as jnp
     import torch
@@ -571,7 +601,7 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
 
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
     jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant,
-                      dynamic_topo=dynamic_topo)
+                      dynamic_topo=dynamic_topo, wire_block=wire_block)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     jkw, tkw = step_options(builds)
     step_kw = step_kw or {}
