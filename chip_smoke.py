@@ -255,7 +255,30 @@ last line is printed:
    the direct build's (make_gossipsub_phase_step / make_gossipsub_step)
    driven with the API's calls, rounds/s through the API and direct, and
    the host's ms a round split into the step, the snapshots and the drain;
-38. the kernel launches of a traced GossipSub bench round
+38. the link-fault plane (chaos/): at N=8192 every engine under the
+   i.i.d. (loss 0.35) and the Gilbert–Elliott (0.15 down, 0.4 up) generator
+   card against CPU every round or phase — the per-round step on the
+   lattice (delivery_banded a round and 8 select_topk a heartbeat, neither
+   edge_exchange nor fused_delivery: the reference's fused_eligible keeps
+   chaos off the fused kernels), on random_connect(8192, 8) and CSR
+   (select_topk only), the phase engine coalesced and per-plane (1 + r
+   edge_exchange a phase: the head's link mask joins its live words, each
+   sub-round's gates its crossing), FloodSub and
+   RandomSub on the lattice (delivery_banded) and CSR-resident
+   (csr_delivery), each route asserted from the host's launch counts; a
+   scheduled two_group_partition in both GossipSub engines; a disabled
+   ChaosConfig equal to chaos=None in leaves and launches; windows (deny
+   rows as xs) against their eager loops. Then the default config at
+   N=100k without chaos, under loss 0.1 and under GE 0.02/0.25 in both
+   engines eager and windowed (LINK_DOWN, IWANT_RECOVER, the IWANT
+   recovery share, the delivery ratio; each window block on its route),
+   FloodSub under loss 0.1 at N=100k and on powerlaw(1M) CSR-resident
+   beside itself without, and a scheduled partition (halves, ticks 24-55)
+   of random_connect(100k, 8) under the sybil config's deficit scoring
+   through one phase window with the device cross-group mesh observer: no
+   message crosses the cut before the heal, the cross-group mesh edges a
+   phase, the mesh repair and re-form latencies and the time to recover;
+39. the kernel launches of a traced GossipSub bench round
    (perf/profile.py), with those of the score path's subnormal flush
    (hardshrink, copysign) apart (2,287.75 a bench round and 466.25 a
    phase-bench delivery round, or the script fails: the options off
@@ -3524,6 +3547,453 @@ def api_full(api, sign, sweep, convert, dev, card, counters, r: int) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 38: the link-fault plane
+
+#: the parity cells' generators (the JAX package's tests/test_chaos.py:50-51)
+CHAOS_PARITY = {"iid": dict(loss_rate=0.35),
+                "ge": dict(generator="ge", ge_p_down=0.15, ge_p_up=0.4)}
+#: the full-width generators: the loss of the JAX package's
+#: scripts/topo_smoke.py:72 and a bursty Gilbert–Elliott process (mean burst
+#: 4 rounds, about 7% of the links bad)
+CHAOS_FULL = {"iid": dict(loss_rate=0.1),
+              "ge": dict(generator="ge", ge_p_down=0.02, ge_p_up=0.25)}
+CHAOS_PARITY_ROUNDS = 12      # per-round dispatches of a parity cell (phases: 2)
+#: the full-width partition: ticks of the cut (the phases at ticks 24-48
+#: after form_mesh), then the heal and enough phases for a pruned
+#: cross-group mesh link to re-form after the prune backoff (60 ticks); one
+#: publish a round throughout into a table that recycles no slot in the run
+#: (IHAVE ingest holds an [N, K, M] plane: M = 256 keeps it at 6.6 GB at
+#: N=100k, K=32); the time to recover is read for the messages of the
+#: cut's last phase (older ones may have left the 3 heartbeats IHAVE
+#: advertises)
+CHAOS_CUT = dict(start=24, rounds=32)
+CHAOS_CUT_LAST = (48, 56)
+CHAOS_CUT_PHASES = 20
+CHAOS_CUT_SLOTS = 256
+
+
+def _dispatch_counts(counters) -> dict:
+    got = counts(counters)
+    return {k: got.get(k, 0) for k in REPLACES}
+
+
+def _route(n: int, **launched) -> dict:
+    """A route's launch counts over ``n`` dispatches: every kernel 0 but
+    the named ones, given per dispatch."""
+    return {k: n * launched.get(k, 0) for k in REPLACES}
+
+
+def chaos_card_cpu(convert, counters, label: str, build, drive, n_disp: int, want: dict):
+    """One chaos cell on the card and on the CPU (plain versions) from the
+    same seed: ``build(device) -> (state, step)``, ``drive(state, step, i)``
+    dispatch i; every leaf equal after every dispatch, and the card's
+    launches over the dispatches (every count at 0 just before) equal to
+    ``want``. Returns the launches."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.trace.events import EV
+
+    sides = {d: build(torch.device(d)) for d in ("cuda", "cpu")}
+    for mod in counters:
+        mod.reset_launch_counts()
+    for i in range(n_disp):
+        for d, (st, step) in list(sides.items()):
+            sides[d] = (drive(st, step, i), step)
+        leaves_equal(convert.state_leaves(sides["cpu"][0]),
+                     convert.state_leaves(sides["cuda"][0]), f"chaos {label} dispatch {i}")
+    got = _dispatch_counts(counters)
+    if got != want:
+        raise AssertionError(f"chaos {label}: launches {got}, the route wants {want}")
+    ev = convert.state_leaves(sides["cuda"][0])
+    ev = ev[".core.events" if ".core.events" in ev else ".events"]
+    if ev[EV.LINK_DOWN] <= 0:
+        raise AssertionError(f"chaos {label}: no link went down")
+    say(f"chaos {label} card == CPU: every leaf after each of {n_disp} dispatches at "
+        f"N={N_PARITY}, LINK_DOWN {int(ev[EV.LINK_DOWN])} IWANT_RECOVER "
+        f"{int(ev[EV.IWANT_RECOVER])}, launches {got}")
+    return got
+
+
+def chaos_parity(sweep, driver, convert, dev, counters) -> dict:
+    """Phase 38's checks at N=8192: every engine under the i.i.d. and the GE
+    generator card against CPU with its route asserted from launch counts;
+    scheduled partitions in both GossipSub engines; the elision; windows
+    against their eager loops on the card. Returns the launches by cell."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import graph
+    from go_libp2p_pubsub_tpu_torch.chaos import ChaosConfig, two_group_partition
+
+    n, r, nr, wr = N_PARITY, PHASE_R, CHAOS_PARITY_ROUNDS, CONFIG_WINDOW_ROUNDS
+    po, pt, pv = sweep.publish_schedule(wr + r, n, 1, None, seed=11)
+    rounds = lambda st, step, i: sweep.run_rounds(st, step, po[i:i + 1], pt[i:i + 1],
+                                                  pv[i:i + 1])
+    phases = lambda st, step, i: sweep.run_phases(
+        st, step, po[i * r:(i + 1) * r], pt[i * r:(i + 1) * r], pv[i * r:(i + 1) * r],
+        rounds_per_phase=r, heartbeat_every=r)
+
+    def bench(chaos, rr=1, **kw):
+        def build(d):
+            st, step, _t, _h = sweep.build_bench(n, M_SLOTS, count_events=True,
+                                                 rounds_per_phase=rr, device=d, chaos=chaos,
+                                                 **kw)
+            if rr > 1:
+                st = driver.form_mesh(step, st, rounds_per_phase=rr)
+            return st, step
+        return build
+
+    def sim(router, graph_kind, layout, chaos):
+        def build(d):
+            make = sweep.build_floodsub if router == "floodsub" else sweep.build_randomsub
+            kw = {} if router == "floodsub" else dict(size_estimate=36)
+            return make(n, M_SLOTS, graph=graph_kind, layout=layout, device=d, chaos=chaos,
+                        **kw)
+        return build
+
+    out = {}
+    sel = SELECTIONS_PER_HEARTBEAT
+    for gen, kw in CHAOS_PARITY.items():
+        chaos = ChaosConfig(**kw)
+        cells = {
+            # the reference's fused_eligible keeps a chaos round off both fused
+            # kernels; the shared delivery round keeps delivery_banded
+            "per-round lattice": (bench(chaos), rounds, nr,
+                                  _route(nr, delivery_banded=1, select_topk=sel)),
+            "phase lattice": (bench(chaos, r), phases, 2,
+                              _route(2, edge_exchange=1 + r, select_topk=sel)),
+            # the per-plane head: graft | prune | ihave in one exchange, the
+            # IWANT window a gather of its own
+            "phase per-plane lattice": (bench(chaos, r, wire_coalesced=False), phases, 2,
+                                        _route(2, edge_exchange=1 + r, select_topk=sel)),
+            "per-round random": (lambda d, c=chaos: random_gossip_build(n, d, c)[:2], rounds,
+                                 nr, _route(nr, select_topk=sel)),
+            "per-round csr": (bench(chaos, edge_layout="csr", fused=True), rounds, nr,
+                              _route(nr, select_topk=sel)),
+            "floodsub lattice": (sim("floodsub", "lattice", "dense", chaos), rounds, nr,
+                                 _route(nr, delivery_banded=1)),
+            "floodsub power-law csr": (sim("floodsub", "powerlaw", "csr", chaos), rounds, nr,
+                                       _route(nr, csr_delivery=1)),
+            "randomsub lattice": (sim("randomsub", "lattice", "dense", chaos), rounds, nr,
+                                  _route(nr, delivery_banded=1, select_topk=1)),
+            "randomsub power-law csr": (sim("randomsub", "powerlaw", "csr", chaos), rounds,
+                                        nr, _route(nr, csr_delivery=1, select_topk=1)),
+        }
+        for cell, (build, drive, n_disp, want) in cells.items():
+            out[f"{cell} {gen}"] = chaos_card_cpu(convert, counters, f"{cell} {gen}", build,
+                                                  drive, n_disp, want)
+
+    # scheduled partitions: the per-round step (i.i.d. beside the cut) and the
+    # phase engine (GE beside it; one deny row a phase, its head's)
+    nbr = graph.ring_lattice(n, d=8).nbr
+    sc = two_group_partition(n, start=4, rounds=16)
+    deny = np.stack([sc.link_deny_at(t, nbr) if sc.link_deny_at(t, nbr) is not None
+                     else np.zeros(nbr.shape, bool) for t in range(wr + 2 * r)])
+    sched_round = lambda st, step, i: sweep.run_rounds(
+        st, step, po[i:i + 1], pt[i:i + 1], pv[i:i + 1], deny[i:i + 1])
+    sched_phase = lambda st, step, i: sweep.run_phases(
+        st, step, po[i * r:(i + 1) * r], pt[i * r:(i + 1) * r], pv[i * r:(i + 1) * r],
+        rounds_per_phase=r, heartbeat_every=r, link_deny=deny[r + i * r:r + (i + 1) * r])
+    out["per-round partition"] = chaos_card_cpu(
+        convert, counters, "per-round partition", bench(ChaosConfig(
+            **CHAOS_PARITY["iid"], scheduled=True)), sched_round, nr,
+        _route(nr, delivery_banded=1, select_topk=sel))
+    out["phase partition"] = chaos_card_cpu(
+        convert, counters, "phase partition", bench(ChaosConfig(
+            **CHAOS_PARITY["ge"], scheduled=True), r), sched_phase, 2,
+        _route(2, edge_exchange=1 + r, select_topk=sel))
+
+    # the elision: a disabled config is the chaos-off build, leaves and launches
+    for engine, rr, drive, n_disp in (("per-round", 1, rounds, nr), ("phase", r, phases, 2)):
+        runs = []
+        for chaos in (None, ChaosConfig(), ChaosConfig(generator="ge")):
+            st, step = bench(chaos, rr)(dev)
+            for mod in counters:
+                mod.reset_launch_counts()
+            for i in range(n_disp):
+                st = drive(st, step, i)
+            runs.append((convert.state_leaves(st), _dispatch_counts(counters)))
+        for leaves, got in runs[1:]:
+            leaves_equal(runs[0][0], leaves, f"chaos off {engine}")
+            if got != runs[0][1]:
+                raise AssertionError(f"chaos off {engine}: launches {got} against the "
+                                     f"chaos-off build's {runs[0][1]}")
+        out[f"{engine} disabled"] = runs[0][1]
+        say(f"chaos off {engine}: ChaosConfig() and ChaosConfig(generator='ge') equal the "
+            f"chaos=None build leaf for leaf, launches {runs[0][1]} alike")
+
+    # windows against their eager loops on the card: the per-round step under
+    # i.i.d. flaps, the scheduled GE phase engine with deny rows as xs
+    for engine, rr, chaos in (("per-round", 1, ChaosConfig(**CHAOS_PARITY["iid"])),
+                              ("phase", r, ChaosConfig(**CHAOS_PARITY["ge"], scheduled=True))):
+        leaves = []
+        wdeny = deny[r:r + wr] if rr > 1 else None
+        for mode in ("eager", "window"):
+            st, step = bench(chaos, rr)(dev)
+            sl = slice(0, wr)
+            if mode == "eager":
+                st = (sweep.run_phases(st, step, po[sl], pt[sl], pv[sl], rounds_per_phase=rr,
+                                       heartbeat_every=rr, link_deny=wdeny) if rr > 1
+                      else sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl]))
+            else:
+                scan = (driver.make_scan(step, heartbeat_every=rr, rounds_per_phase=rr)
+                        if rr > 1 else driver.make_scan(step, static_heartbeat=False, unroll=4))
+                rows = lambda sl: ({} if wdeny is None else
+                                   dict(link_deny=torch.as_tensor(wdeny[sl], device=dev)))
+                half = wr // 2
+                st = scan(st, po[:half], pt[:half], pv[:half], **rows(slice(0, half)))
+                st = scan(st, po[half:wr], pt[half:wr], pv[half:wr], **rows(slice(half, wr)))
+                torch.cuda.synchronize()
+                if scan.window.captures != 1 or scan.window.replays < 2:
+                    raise AssertionError(f"chaos {engine} window: {scan.window.captures} "
+                                         f"captures, {scan.window.replays} replays")
+                out[f"{engine} window block"] = {k: v for k, v in
+                                                 scan.window.block_launches.items() if v}
+            leaves.append(convert.state_leaves(st))
+            del st, step
+        leaves_equal(leaves[0], leaves[1], f"chaos {engine} window against eager")
+        say(f"chaos {engine} window N={n}: equal to the eager loop leaf for leaf after {wr} "
+            f"rounds in two calls; a block launches {out[f'{engine} window block']}")
+    return out
+
+
+def chaos_observe(n: int):
+    """A full-width chaos turn's readings: the chaos counters, the IWANT
+    recovery share and the delivery ratio over the resident messages
+    (``chaos.metrics``, every peer subscribed to the one topic)."""
+    import numpy as np
+
+    from go_libp2p_pubsub_tpu_torch.chaos import (
+        delivery_stats,
+        iwant_recovery_share,
+        links_down_total,
+    )
+    from go_libp2p_pubsub_tpu_torch.trace.events import EV
+
+    def observe(st) -> dict:
+        ev = st.core.events.cpu().numpy()
+        msgs = st.core.msgs
+        stats = delivery_stats(st.core.dlv.first_round.cpu().numpy(), msgs.birth.cpu().numpy(),
+                               msgs.topic.cpu().numpy(), msgs.origin.cpu().numpy(),
+                               np.ones((n, 1), bool))
+        return {"link_down": links_down_total(ev), "iwant_recover": int(ev[EV.IWANT_RECOVER]),
+                "iwant_share": iwant_recovery_share(ev), "delivered": stats.delivered,
+                "expected": stats.expected, "delivery_ratio": stats.ratio}
+
+    return observe
+
+
+def chaos_full(sweep, driver, dev, card, counters) -> dict:
+    """Phase 38 at full width: the bench default config at N=100k (events
+    counted) without chaos, under CHAOS_FULL's i.i.d. and GE generators, in
+    both engines, eager and windowed (off, iid, ge in turns), each window's
+    block on the route of its engine under chaos; FloodSub under the i.i.d.
+    flaps on the lattice and on powerlaw(1M) CSR-resident beside itself
+    without them. Returns the turns."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.chaos import ChaosConfig, delivery_stats
+    from go_libp2p_pubsub_tpu_torch.state import SimState
+    from go_libp2p_pubsub_tpu_torch.trace.events import EV
+
+    out = {}
+    sel = SELECTIONS_PER_HEARTBEAT
+    for engine in ("per-round", "phase"):
+        r = PHASE_R if engine == "phase" else 1
+        for label in ("off", "iid", "ge"):
+            chaos = None if label == "off" else ChaosConfig(**CHAOS_FULL[label])
+            turns = window_bench(sweep, driver, dev, card, counters, engine,
+                                 observe=chaos_observe(N_FULL), modes=("eager", "window"),
+                                 count_events=True, chaos=chaos)
+            block = turns[1]["block_launches"]
+            d = turns[1]["block_dispatches"]
+            if chaos is not None:
+                want = (_route(d, edge_exchange=1 + r, select_topk=sel) if r > 1
+                        else _route(d, delivery_banded=1, select_topk=sel))
+                want = {k: v for k, v in want.items() if v}
+                if block != want:
+                    raise AssertionError(f"chaos {label} {engine} window block launches "
+                                         f"{block}, the route wants {want}")
+            out[f"{engine} {label}"] = turns
+
+    # FloodSub under the i.i.d. flaps at full width, beside itself without
+    f, m = SCALE_FORMATION, SCALE_ROUNDS
+    for graph_kind, layout, n, kernel in (("lattice", "dense", N_FULL, "delivery_banded"),
+                                         ("powerlaw", "csr", N_CSR, "csr_delivery")):
+        _st, base = sweep.build_floodsub(n, M_SLOTS, graph=graph_kind, layout=layout, device=dev)
+        del _st
+        po, pt, pv = sweep.publish_schedule(f + m, n, 1, None, seed=12)
+        for label in ("off", "iid", "iid", "off"):
+            chaos = None if label == "off" else ChaosConfig(**CHAOS_FULL["iid"])
+            step = sweep.FloodSubRun(base.net, base.setup_seconds, 0, chaos)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            st = SimState.init(n, M_SLOTS, k=base.net.max_degree, device=dev,
+                               n_edges=base.net.n_edges)
+            st = sweep.run_rounds(st, step, po[:f], pt[:f], pv[:f])
+            for mod in counters:
+                mod.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = sweep.run_rounds(st, step, po[f:], pt[f:], pv[f:])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = {k: v for k, v in _dispatch_counts(counters).items() if v}
+            if got != {kernel: m}:
+                raise AssertionError(f"floodsub {graph_kind} {label}: launches {got}, the "
+                                     f"route wants {{{kernel!r}: {m}}}")
+            stats = delivery_stats(st.dlv.first_round.cpu().numpy(), st.msgs.birth.cpu().numpy(),
+                                   st.msgs.topic.cpu().numpy(), st.msgs.origin.cpu().numpy(),
+                                   np.ones((n, 1), bool))
+            rec = {"rate": m / dt, "peak": torch.cuda.max_memory_allocated(),
+                   "link_down": int(st.events[EV.LINK_DOWN]),
+                   "delivery_ratio": stats.ratio, "launches": got}
+            out.setdefault(f"floodsub {graph_kind} {layout}", []).append({label: rec})
+            say(f"chaos floodsub {graph_kind}/{layout} {label} N={n}: {rec['rate']:.3f} rounds/s "
+                f"over {m} rounds, launches {got}, LINK_DOWN {rec['link_down']}, delivery "
+                f"ratio {stats.ratio:.6f} ({stats.delivered}/{stats.expected}), peak memory "
+                f"{rec['peak']} bytes, on {card}")
+            del st, step
+        del base
+    return out
+
+
+def random_gossip_build(n: int, device, chaos, r: int = 1, msg_slots: int = M_SLOTS):
+    """GossipSub on ``random_connect(n, 8, seed=0)`` (a small-world net a
+    message crosses in a few hops, so a run can watch every message
+    recover; K = 32 at N=100k, unbanded: the composites and
+    ``select_topk``): the bench's parameters with the sybil config's
+    delivery-deficit scoring (P3: a mesh link that carries nothing loses
+    score), events counted, under ``chaos``; the per-round step, or at r > 1
+    the phase engine with the mesh formed. Returns (state, step,
+    topology)."""
+    import dataclasses
+
+    from go_libp2p_pubsub_tpu_torch import driver, graph
+    from go_libp2p_pubsub_tpu_torch.config import GossipSubParams
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import (
+        GossipSubConfig,
+        GossipSubState,
+        make_gossipsub_step,
+    )
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub_phase import make_gossipsub_phase_step
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+    from go_libp2p_pubsub_tpu_torch.state import Net
+
+    tp = graph.random_connect(n, 8, seed=0)
+    net = Net.build(tp, graph.subscribe_all(n, 1), device=device)
+    _tp, sp = sweep.bench_score_params("sybil", 1)
+    params = dataclasses.replace(GossipSubParams(), flood_publish=False)
+    cfg = GossipSubConfig.build(params, sweep.bench_thresholds(), score_enabled=True,
+                                heartbeat_every=r, chaos=chaos)
+    cfg = dataclasses.replace(cfg, count_events=True, fanout_slots=0)
+    st = GossipSubState.init(net, msg_slots, cfg, score_params=sp, seed=0)
+    if r == 1:
+        return st, make_gossipsub_step(cfg, net, score_params=sp), tp
+    step = make_gossipsub_phase_step(cfg, net, r, score_params=sp)
+    return driver.form_mesh(step, st, rounds_per_phase=r), step, tp
+
+
+def chaos_partition(driver, dev, card, counters) -> dict:
+    """Phase 38's scheduled partition at N=100k (``random_gossip_build``):
+    CHAOS_CUT_PHASES phases of r=8 through one ``driver.make_window`` with
+    the deny rows of ``two_group_partition`` (halves: about half of the
+    links cross; cut over CHAOS_CUT) as xs and the device cross-group mesh
+    observer: no message born in the cut crosses it before the heal; the
+    cross-group mesh edges before, during and after it; the mesh repair and
+    re-form latencies, the delivery ratio of the cut's messages and the time
+    to recover those of its last phase (``chaos.metrics``); every block
+    launches 8 ``select_topk`` a phase and nothing else (an unbanded net)."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.chaos import (
+        ChaosConfig,
+        delivery_stats,
+        halves,
+        make_cross_mesh_observer,
+        mesh_reform_latency,
+        mesh_repair_latency,
+        time_to_recover,
+        two_group_partition,
+    )
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+    from go_libp2p_pubsub_tpu_torch.trace.events import EV
+
+    n, r, d = N_FULL, PHASE_R, CHAOS_CUT_PHASES
+    t0 = time.perf_counter()
+    st, step, tp = random_gossip_build(n, dev, ChaosConfig(scheduled=True), r,
+                                       CHAOS_CUT_SLOTS)
+    build_s = time.perf_counter() - t0
+    groups = np.asarray(halves(n))
+    sc = two_group_partition(n, **CHAOS_CUT)
+    tick0 = int(st.core.tick)
+    ticks = tick0 + r * np.arange(d)
+    zeros = np.zeros(tp.nbr.shape, bool)
+    deny = np.stack([zeros if sc.link_deny_at(int(t), tp.nbr) is None
+                     else sc.link_deny_at(int(t), tp.nbr) for t in ticks])
+    po, pt, pv = sweep.publish_schedule(d * r, n, 1, None, seed=13)
+    po[:, 1:] = -1
+    obs = make_cross_mesh_observer(tp.nbr, tp.nbr_ok, groups, device=dev)
+    before = int(obs(st))
+    win = driver.make_window(step, heartbeat=[True], observe=obs)
+    xs = tuple(torch.as_tensor(a, device=dev) for a in (
+        po.reshape(d, r, -1), pt.reshape(d, r, -1), pv.reshape(d, r, -1), deny))
+    for mod in counters:
+        mod.reset_launch_counts()
+    t1 = time.perf_counter()
+    st, ys = win(st, xs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    block = {k: v for k, v in win.block_launches.items() if v}
+    if block != {"select_topk": SELECTIONS_PER_HEARTBEAT}:
+        raise AssertionError(f"partition window block launches {block}, the route wants "
+                             f"{{'select_topk': {SELECTIONS_PER_HEARTBEAT}}}")
+    series = [(tick0, before)] + [(int(t) + r, int(c))
+                                  for t, c in zip(ticks, ys["obs"].cpu().numpy())]
+    heal = sc.partitions[0].end
+    fr = st.core.dlv.first_round.cpu().numpy()
+    birth = st.core.msgs.birth.cpu().numpy()
+    origin = st.core.msgs.origin.cpu().numpy()
+    topic = st.core.msgs.topic.cpu().numpy()
+    cut_era = (CHAOS_CUT["start"], heal)
+    cut = (birth >= cut_era[0]) & (birth < cut_era[1])
+    for m in np.nonzero(cut)[0]:
+        other = groups != groups[origin[m]]
+        if ((fr[other, m] >= 0) & (fr[other, m] < heal)).any():
+            raise AssertionError(f"partition: message {m} crossed the cut before the heal")
+    subscribed = np.ones((n, 1), bool)
+    stats = delivery_stats(fr, birth, topic, origin, subscribed, born_in=cut_era)
+    last = delivery_stats(fr, birth, topic, origin, subscribed, born_in=CHAOS_CUT_LAST)
+    ev = st.core.events.cpu().numpy()
+    rec = {"card": card, "graph": f"random_connect({n}, 8, seed=0), K={tp.nbr.shape[1]}",
+           "cut": CHAOS_CUT, "heal_tick": heal, "series": series,
+           "mesh_repair_latency": mesh_repair_latency(series, heal),
+           "mesh_reform_latency": mesh_reform_latency(series, heal),
+           "time_to_recover": time_to_recover(fr, birth, topic, origin, subscribed, heal,
+                                              born_in=CHAOS_CUT_LAST),
+           "cut_messages": int(cut.sum()), "delivery_ratio": stats.ratio,
+           "last_phase_delivery_ratio": last.ratio,
+           "link_down": int(ev[EV.LINK_DOWN]), "iwant_recover": int(ev[EV.IWANT_RECOVER]),
+           "prune": int(ev[EV.PRUNE]), "graft": int(ev[EV.GRAFT]),
+           "block_launches": block, "build_seconds": build_s,
+           "delivery_rounds_per_s": d * r / run_s}
+    say(f"chaos partition N={n} r={r} on {rec['graph']}: cross-group mesh edges "
+        f"{series} (cut ticks {CHAOS_CUT['start']}-{heal - 1}); no cut message crossed "
+        f"before the heal; mesh repair latency {rec['mesh_repair_latency']}, re-form latency "
+        f"{rec['mesh_reform_latency']}, time to recover the last cut phase's messages "
+        f"{rec['time_to_recover']} rounds (their delivery ratio {last.ratio:.6f}), delivery "
+        f"ratio of the cut's {rec['cut_messages']} messages {stats.ratio:.6f}; "
+        f"LINK_DOWN {rec['link_down']} IWANT_RECOVER {rec['iwant_recover']} PRUNE "
+        f"{rec['prune']} GRAFT {rec['graft']}; a block launches {block}; build "
+        f"{build_s:.1f} s, {rec['delivery_rounds_per_s']:.3f} delivery-rounds/s windowed, "
+        f"on {card}")
+    return rec
+
+
 def leaves_equal(a: dict, b: dict, where: str):
     import numpy as np
 
@@ -3979,7 +4449,29 @@ def main() -> int:
     say("api cell: " + json.dumps({"card": card, "runs": api_runs}))
     say(f"api phase {time.perf_counter() - t0:.1f} s")
 
-    # 38. launches of a bench round, a phase-bench phase and a windowed
+    # 38. the link-fault plane: every engine under i.i.d. and GE flaps and
+    # under a scheduled partition, card against CPU with the routes asserted
+    # from launch counts; the full-width rates and the partition's recovery
+    t0 = time.perf_counter()
+    chaos_cells = chaos_parity(sweep, driver, convert, dev, counters)
+    chaos_runs = chaos_full(sweep, driver, dev, card, counters)
+    partition = chaos_partition(driver, dev, card, counters)
+    for rec in records:
+        rec["chaos_launches"] = {
+            **{f"{c} (N={N_PARITY})": v.get(rec["name"], 0) for c, v in chaos_cells.items()},
+            **{f"{c} window, a block of {t[1]['block_dispatches']} dispatches (N={N_FULL})":
+               t[1]["block_launches"].get(rec["name"], 0)
+               for c, t in chaos_runs.items() if not c.startswith("floodsub")},
+            **{f"{c} {label}, {SCALE_ROUNDS} rounds": run["launches"].get(rec["name"], 0)
+               for c, turns in chaos_runs.items() if c.startswith("floodsub")
+               for turn in turns for label, run in turn.items()},
+            f"partition window, a block of 1 phase (N={N_FULL})":
+                partition["block_launches"].get(rec["name"], 0)}
+    say("chaos cell: " + json.dumps({"card": card, "runs": chaos_runs,
+                                     "partition": partition}))
+    say(f"chaos phase {time.perf_counter() - t0:.1f} s")
+
+    # 39. launches of a bench round, a phase-bench phase and a windowed
     # phase, traced; then the configs' rounds and phases
     bench_launches(card)
     config_traced_launches(card)

@@ -1,0 +1,34 @@
+"""Chaos plane: link-fault injection, partition and crash schedules, and
+recovery metrics (the JAX package's ``chaos/``, but its attack plane).
+
+  faults    — ChaosConfig and the i.i.d. / Gilbert–Elliott link-flap
+              generators (symmetric per-link masks drawn from the state's
+              PRNG stream; checkpoint-exact resume)
+  scenario  — declarative partition and crash-storm schedules compiled to
+              per-round or per-phase mask arguments
+  metrics   — recovery metrics: delivery ratio under loss, IWANT-recovery
+              share, mesh-repair latency, time to recover
+"""
+
+from .faults import ChaosConfig, ChaosConfigError, resolve  # noqa: F401
+from .metrics import (  # noqa: F401
+    DeliveryStats,
+    batched_cross_group_mesh_counts,
+    batched_iwant_shares,
+    cross_group_mesh_count,
+    delivery_stats,
+    expected_receivers,
+    iwant_recovery_share,
+    links_down_total,
+    make_cross_mesh_observer,
+    mesh_reform_latency,
+    mesh_repair_latency,
+    time_to_recover,
+)
+from .scenario import (  # noqa: F401
+    CrashStorm,
+    Partition,
+    Scenario,
+    halves,
+    two_group_partition,
+)

@@ -5,8 +5,9 @@ are flat ``[E, W]`` and ``peerhave``/``iasked`` ``[E]``), with or without
 the async-validation pipeline (``.dlv.pending``), the exact-trace
 duplicate plane (``.dup_trans``) and the transmit block
 (``.msgs.wire_block``), each a leaf only when the state has one,
-on both sides, and the mutable overlay of a dynamic-topology state
-(``.core.topo``, ``TopoState``) likewise. Narrowed int16 counters keep
+on both sides, and the Gilbert–Elliott link-fault chain of a GE chaos
+state (``.core.chaos``, ``ChaosState``) and the mutable overlay of a
+dynamic-topology state (``.core.topo``, ``TopoState``) likewise. Narrowed int16 counters keep
 their dtype both ways.
 
 ``score_plane_from_reference`` carries a lifted score plane the same way
@@ -31,7 +32,7 @@ from .models.gossipsub import GossipSubState
 from .score.engine import ScoreState
 from .score.gater import GaterState
 from .score.params import CandidateParams, MeshParams, ScoreParams
-from .state import Delivery, MsgTable, SimState, TopoState, resolve_device
+from .state import ChaosState, Delivery, MsgTable, SimState, TopoState, resolve_device
 
 #: packed 32-bit word planes (uint32 in the JAX package, int32 here)
 _SIM_WORDS = (".dlv.have", ".dlv.fwd", ".dlv.fe_words", ".dlv.pending")
@@ -44,10 +45,11 @@ KEY_LEAVES = frozenset({".key", ".core.key"})
 #: duplicate plane and the transmit block
 OPTIONAL_LEAVES = frozenset({".dlv.pending", ".core.dlv.pending", ".dup_trans",
                              ".msgs.wire_block", ".core.msgs.wire_block"})
-#: nested states a state may lack (None): the mutable overlay
-OPTIONAL_NESTED = frozenset({".topo", ".core.topo"})
+#: nested states a state may lack (None): the GE chain and the mutable overlay
+OPTIONAL_NESTED = frozenset({".chaos", ".core.chaos", ".topo", ".core.topo"})
 
-_SIM_NESTED = {"": SimState, ".msgs": MsgTable, ".dlv": Delivery, ".topo": TopoState}
+_SIM_NESTED = {"": SimState, ".msgs": MsgTable, ".dlv": Delivery, ".chaos": ChaosState,
+               ".topo": TopoState}
 _NESTED = {
     "": GossipSubState,
     **{".core" + p: cls for p, cls in _SIM_NESTED.items()},

@@ -27,7 +27,7 @@ import time
 import torch
 
 #: the option of the JAX package's windows the port refuses, and where it lands
-CHECK_UNPORTED = "the folded invariant checker (oracle/) — ROADMAP §1 item 5"
+CHECK_UNPORTED = "the folded invariant checker (oracle/) — ROADMAP §1 item 5.4"
 
 
 def heartbeat_schedule(heartbeat_every: int, rounds_per_phase: int) -> list[bool]:
@@ -42,20 +42,27 @@ def heartbeat_schedule(heartbeat_every: int, rounds_per_phase: int) -> list[bool
     return [any((p * r + i) % he == 0 for i in range(r)) for p in range(period)]
 
 
-def form_mesh(step, st, *, rounds_per_phase: int, pub_width: int = 4, up=None, consts=()):
+def form_mesh(step, st, *, rounds_per_phase: int, pub_width: int = 4,
+              pv_dtype=torch.bool, up=None, consts=()):
     """One publish-free phase with ``do_heartbeat=True``: its tail heartbeat
     selects every peer's mesh (Join's immediate mesh, gossipsub.go:1015-1064)
     and the next phase's control head ingests the GRAFTs before any data
     sub-round, so the first phase a caller publishes into sees a formed
-    mesh. Advances the tick by ``rounds_per_phase``. ``up`` is the [N]
-    liveness row of a ``dynamic_peers`` step, ``consts`` a lifted step's
-    plane."""
+    mesh. Advances the tick by ``rounds_per_phase``. ``pv_dtype`` is the
+    verdicts' dtype (bool, or integer verdict codes), which should match
+    the caller's later publish batches. ``up`` is the [N] liveness row of a
+    ``dynamic_peers`` step, ``consts`` a lifted step's plane; a scheduled
+    chaos step (its ``rows`` name ``link_deny``) gets an all-False deny
+    row: no partition during the formation."""
     r = int(rounds_per_phase)
     dev = st.core.tick.device
     po = torch.full((r, pub_width), -1, dtype=torch.int32, device=dev)
     pt = torch.zeros((r, pub_width), dtype=torch.int32, device=dev)
-    pv = torch.zeros((r, pub_width), dtype=torch.bool, device=dev)
+    pv = torch.zeros((r, pub_width), dtype=pv_dtype, device=dev)
     args = (po, pt, pv) if up is None else (po, pt, pv, torch.as_tensor(up, device=dev))
+    if "link_deny" in getattr(step, "rows", ()):
+        nbr_shape = tuple(st.mesh.shape[:1] + st.mesh.shape[2:])
+        args += (torch.zeros(nbr_shape, dtype=torch.bool, device=dev),)
     return step(st, *args, *consts, do_heartbeat=True)
 
 
@@ -371,7 +378,10 @@ def make_window(step, *, heartbeat=None, check=None, check_every: int = 1, obser
       leaf (a state without a pipeline, the trace plane or the overlay)
       stays None. A ``dynamic_peers`` step's liveness rows ``[D, N]`` and a
       ``dynamic_topo`` step's write batches ``[D, B, 4]`` are ordinary
-      ``xs`` after the publish arrays. ``step`` may be any engine's: a
+      ``xs`` after the publish arrays, and so is a scheduled chaos step's
+      ``link_deny`` ``[D, N, K]`` bool (in the step's row order: up, deny,
+      writes); a dispatch with no partition takes an all-False row, since a
+      window row cannot be None. ``step`` may be any engine's: a
       GossipSub or phase step, or a FloodSub or RandomSub round
       (``perf/sweep``'s runs).
 
@@ -400,7 +410,10 @@ def make_scan(step, *, heartbeat_every: int = 1, rounds_per_phase: int = 1,
     A ``dynamic_peers`` step takes the liveness schedule as ``run(st, po,
     pt, pv, up)``, ``up`` an ``[R, N]`` bool plane; a phase consumes the
     first row of its r rows (the transitions land once a phase, at its
-    head). A lifted step takes its plane as ``run(..., consts=(plane,))``.
+    head). A scheduled chaos step takes ``run(..., link_deny=deny)``,
+    ``deny`` an ``[R, N, K]`` bool plane (all False where no partition is
+    active), of which a phase likewise consumes its head's row. A lifted
+    step takes its plane as ``run(..., consts=(plane,))``.
 
     The state's tick at entry must be 0 mod lcm(he, r), and R a multiple of
     it. A thin adapter over ``make_window``; ``run.window`` is the window
@@ -417,7 +430,7 @@ def make_scan(step, *, heartbeat_every: int = 1, rounds_per_phase: int = 1,
     sched = heartbeat_schedule(he, r) if static_heartbeat else None
     win = make_window(step, heartbeat=sched, unroll=unroll, donate=donate)
 
-    def run(st, po, pt, pv, up=None, consts=()):
+    def run(st, po, pt, pv, up=None, consts=(), link_deny=None):
         n_rounds = po.shape[0]
         if n_rounds % lcm:
             raise ValueError(f"schedule length {n_rounds} is not a multiple of "
@@ -426,11 +439,8 @@ def make_scan(step, *, heartbeat_every: int = 1, rounds_per_phase: int = 1,
         if r > 1:
             xs = tuple(torch.as_tensor(a).reshape((n_rounds // r, r) + tuple(a.shape[1:]))
                        for a in xs)
-            if up is not None:
-                # one liveness row a phase: the first round's
-                xs += (torch.as_tensor(up)[::r],)
-        elif up is not None:
-            xs += (up,)
+        # one liveness and one deny row a phase: its first round's
+        xs += tuple(torch.as_tensor(a)[::r] for a in (up, link_deny) if a is not None)
         st, _ = win(st, xs, None, consts)
         return st
 

@@ -24,7 +24,10 @@ The outbound-queue cap (``queue_cap``) and the async-validation pipeline
 composites on every net, the banded K <= 16 one too, as the JAX package's
 ``fused_eligible`` routes them: under either option neither
 ``edge_exchange`` nor ``fused_delivery`` launches, and the shared delivery
-round leaves ``delivery_banded`` for its composite.
+round leaves ``delivery_banded`` for its composite. The chaos plane
+(``cfg.chaos``) takes the composites too, but its link mask rides the edge
+mask, so the shared delivery round keeps ``delivery_banded`` on a banded
+net.
 
 Peer exchange (``do_px``) and ``edge_liveness`` keep the kernel route: a
 round reads the live edges ``nbr_ok & edge_live`` (``live_step_views``)
@@ -45,6 +48,8 @@ import numpy as np
 import torch
 
 from .. import prng
+from ..chaos import faults as chaos_faults
+from ..chaos.faults import ChaosConfig
 from ..config import (
     GossipSubParams,
     PeerGaterParams,
@@ -109,7 +114,7 @@ from .common import (
 class GossipSubConfig:
     """Static configuration: GossipSubParams with durations in ticks, plus
     the v1.1 thresholds and feature switches (the JAX package's fields but
-    ``chaos`` and ``router``)."""
+    ``router``)."""
 
     D: int = 6
     Dlo: int = 5
@@ -170,6 +175,11 @@ class GossipSubConfig:
     # exact, since both clear every heartbeat and ``build`` refuses a cap
     # or a cadence outside int16
     narrow_counters: bool = False
+    # the chaos plane (chaos/faults.py): i.i.d. or Gilbert–Elliott link
+    # flaps drawn from the state's PRNG stream, and with ``scheduled`` a
+    # per-round ``link_deny`` argument; None or a disabled config leaves
+    # the plane out (the same leaves, ops and launches as without it)
+    chaos: ChaosConfig | None = None
     # the exact-trace duplicate plane: each round's arrivals beyond the
     # first per (peer, msg), per edge, kept in the state's ``dup_trans``
     # (trace.go:186-194)
@@ -195,13 +205,15 @@ class GossipSubConfig:
               fused: bool = False,
               wire_coalesced: bool = True,
               trace_exact: bool = False,
-              narrow_counters: bool = False) -> "GossipSubConfig":
+              narrow_counters: bool = False,
+              chaos: ChaosConfig | None = None) -> "GossipSubConfig":
         """``edge_layout`` and ``fused`` must match the Net's
         (``Net.build(..., edge_layout=..., fused=...)``); the step refuses
         a mismatch. The selections take one form under either flag; its
         ranks equal both of the JAX package's forms. Per-topic delays
         without a depth set the depth to their largest. ``narrow_counters``
-        is refused where an int16 counter could not hold its bound."""
+        is refused where an int16 counter could not hold its bound; an
+        invalid ``chaos`` config raises ``ChaosConfigError``."""
         p = params or GossipSubParams()
         p.validate()
         if edge_layout not in ("dense", "csr"):
@@ -264,7 +276,10 @@ class GossipSubConfig:
             wire_coalesced=bool(wire_coalesced),
             trace_exact=bool(trace_exact),
             narrow_counters=bool(narrow_counters),
+            chaos=chaos,
         )
+        if chaos is not None:
+            chaos.validate()
         if thresholds is not None:
             thresholds.validate()
             kw.update(
@@ -335,15 +350,24 @@ class GossipSubState:
     @classmethod
     def init(cls, net: Net, msg_slots: int, cfg: GossipSubConfig,
              score_params: PeerScoreParams | None = None,
-             seed: int = 0, dormant: np.ndarray | None = None,
-             dynamic_topo: bool = False, wire_block: bool = False) -> "GossipSubState":
-        """``dormant`` ([N, K] bool, ``graph.dormant_edges``) marks the
-        provisioned edges that start disconnected; ``dynamic_topo`` installs
-        the mutable overlay (``core.topo``, seeded from the net) that a
-        ``dynamic_topo`` step writes; ``wire_block`` adds the per-message
-        transmit block (``MsgTable.wire_block``, behind
+             seed: int = 0, app_score: np.ndarray | None = None,
+             dormant: np.ndarray | None = None, wire_block: bool = False,
+             telemetry=None, dynamic_topo: bool = False) -> "GossipSubState":
+        """The parameters follow the JAX package's order. ``app_score`` is
+        the [N] P5 application-specific score plane (zeros when None);
+        ``dormant`` ([N, K] bool, ``graph.dormant_edges``) marks the
+        provisioned edges that start disconnected; ``wire_block`` adds the
+        per-message transmit block (``MsgTable.wire_block``, behind
         ``api.Network(max_message_size=)``), which every route of every
-        engine honours."""
+        engine honours; ``dynamic_topo`` installs the mutable overlay
+        (``core.topo``, seeded from the net) that a ``dynamic_topo`` step
+        writes. A config whose chaos plane needs state (a GE generator) gets
+        the link chain (``core.chaos``). ``telemetry`` raises
+        ``NotImplementedError``."""
+        if telemetry is not None:
+            raise NotImplementedError(
+                "GossipSubState.init: not ported yet: telemetry (the per-round panel) — "
+                "ROADMAP §1 item 5.3")
         dev = net.device
         n, k = net.nbr.shape
         s = net.n_slots
@@ -372,7 +396,8 @@ class GossipSubState:
             core=SimState.init(n, msg_slots, seed, k=k, device=dev, n_edges=e,
                                val_delay=cfg.validation_delay_rounds,
                                topo=TopoState.from_net(net) if dynamic_topo else None,
-                               wire_block=wire_block),
+                               wire_block=wire_block,
+                               chaos_ge=cfg.chaos is not None and cfg.chaos.needs_state),
             mesh=z((n, s, k), b),
             backoff_expire=z((n, s, k), i32),
             backoff_present=z((n, s, k), b),
@@ -390,7 +415,8 @@ class GossipSubState:
             score=ScoreState.empty(n, s, k, dev),
             scores=z((n, k), torch.float32),
             p6=p6,
-            app_score=z((n,), torch.float32),
+            app_score=(z((n,), torch.float32) if app_score is None else torch.as_tensor(
+                np.asarray(app_score, np.float32), device=dev)),
             gater=GaterState.empty(n, k, dev),
             fanout_topic=torch.full((n, f), -1, dtype=i32, device=dev),
             fanout_peers=z((n, f, k), b),
@@ -1580,7 +1606,8 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     """Build the per-round step for a fixed config + topology:
 
         step(state, pub_origin[P], pub_topic[P], pub_valid[P]
-             [, up_next[N] [, mut_writes[B, 4]]] [, score_plane]) -> state
+             [, up_next[N]] [, link_deny[N, K]] [, mut_writes[B, 4]]
+             [, score_plane]) -> state
 
     With ``lift_scores=True`` (which needs ``cfg.score_enabled``) the step
     takes a lifted plane as its last positional (``score.params``: a
@@ -1622,6 +1649,14 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     ``cfg.wire_coalesced=False`` clears the recycled slots plane by plane
     (the JAX package's A/B form of the stacked fold, the same bits).
 
+    ``cfg.chaos`` (a ``chaos.ChaosConfig``) flaps links: each round's link
+    mask (``chaos.faults.round_link_ok``, keyed on the post-mutation overlay
+    under ``dynamic_topo``) drops the whole link for the round, control and
+    data, counted as ``LINK_DOWN`` over the live links, and first arrivals
+    that rode the IWANT service count as ``IWANT_RECOVER``; a ``scheduled``
+    config takes the ``link_deny`` row, and a GE generator advances the
+    state's ``core.chaos`` chain (``GossipSubState.init`` builds it).
+
     ``cfg.queue_cap`` caps each link's messages a round (the overflow
     dropped and counted, congested links suppressing the next heartbeat's
     gossip toward them), and ``cfg.validation_delay_rounds`` (or
@@ -1639,16 +1674,18 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     as int16.
 
     On a banded dense net with K <= 16 the data plane is the two fused
-    kernels, unless the queue cap or the pipeline is on: as in the JAX
-    package (its ``fused_eligible``), those configs take the XLA-path
-    composites, as every other net does, and neither ``edge_exchange`` nor
-    ``fused_delivery`` launches. A CSR net's state stays CSR-resident
-    between steps. The step is functional: it never writes
-    into the state it is given. Options of the JAX step outside the port
+    kernels, unless the queue cap, the pipeline or the chaos plane is on:
+    as in the JAX package (its ``fused_eligible``), those configs take the
+    XLA-path composites, as every other net does, and neither
+    ``edge_exchange`` nor ``fused_delivery`` launches (under chaos the
+    shared delivery round still takes ``delivery_banded``). A CSR net's
+    state stays CSR-resident between steps. The step is functional: it
+    never writes into the state it is given. Options of the JAX step outside the port
     (the adversary plane, the router's link delays, telemetry) raise."""
     if unported:
         raise NotImplementedError(
-            f"not ported yet: {sorted(unported)} — ROADMAP §1 items 5-6")
+            f"not ported yet: {sorted(unported)} — ROADMAP §1 items 5.2-6 (the adversary "
+            "plane 5.2, telemetry 5.3, the router's link delays 6)")
     if lift_scores and not cfg.score_enabled:
         raise ValueError("lift_scores=True needs cfg.score_enabled — the lifted plane "
                          "parameterizes the v1.1 score machinery")
@@ -1686,11 +1723,16 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     cfg = flushed_thresholds(cfg)
     n_peers, k_dim = net.n_peers, net.max_degree
 
+    # the chaos plane: None (or a disabled config) leaves every chaos branch
+    # below out, so the round is the one without it, op for op
+    chaos = chaos_faults.resolve(cfg.chaos)
     # the fused kernels hold a row's K first-arrival words in registers; a
     # wider banded net takes the composites, as every non-banded net does,
-    # and so do the queue cap and the pipeline, which the kernels predate
+    # and so do the queue cap, the pipeline and the chaos plane, which the
+    # kernels predate (the JAX package's fused_eligible)
     banded = (net.band_off is not None and k_dim <= fr.MAX_K
-              and cfg.validation_delay_rounds == 0 and cfg.queue_cap == 0)
+              and cfg.validation_delay_rounds == 0 and cfg.queue_cap == 0
+              and chaos is None)
     opts = dict(count_events=cfg.count_events, queue_cap=cfg.queue_cap,
                 val_delay_topic=cfg.validation_delay_topic)
 
@@ -1784,14 +1826,18 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         )
         return st2, dlv, info
 
-    def composite_data_plane(net_l, flood_from_l, st, st2, joined_words, slotw, acc_ok,
-                             acc_msg, ihave_in_raw, nbr_score_of_me, thr):
+    def composite_data_plane(net_l, net_w, flood_from_l, st, st2, joined_words, slotw,
+                             acc_ok, acc_msg, ihave_in_raw, nbr_score_of_me, thr):
         """The JAX package's XLA path: IWANT service (last round's asks ->
         this round's carry), IHAVE ingest, the mesh/flood edge mask through
         the shared delivery_round, then the IWANT responses merged in.
-        Returns (st2, dlv, info)."""
+        ``net_w`` is the wire view (the live view under the round's link
+        mask): the IWANT window rides it, so a flapped link's responses are
+        lost and its retransmission counters do not tick. Returns (st2,
+        dlv, info, n_iwant_rec): the last, under chaos with events counted,
+        the valid first arrivals that rode the IWANT service, else None."""
         core = st.core
-        st2, iwant_resp = iwant_responses(cfg, net_l, st2, nbr_score_of_me, thr=thr)
+        st2, iwant_resp = iwant_responses(cfg, net_w, st2, nbr_score_of_me, thr=thr)
         st2 = handle_ihave(cfg, net_l, st2, joined_words, acc_ok, ihave_in_raw, thr)
         # floodsub-peer edges: sender floodsub => flood; receiver floodsub
         # => the gossipsub sender still sends everything, score-gated
@@ -1808,15 +1854,23 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             iwant_resp = torch.where(consts.sender_fwd_ok[:, :, None], iwant_resp, 0)
         dlv, info = delivery_round(net_l, core.msgs, core.dlv, edge_mask, core.tick, **opts)
         iwant_resp = torch.where(acc_msg[:, :, None], iwant_resp, 0)
+        have_pre_merge = dlv.have
         dlv, info = merge_extra_tx(net_l, core.msgs, dlv, info, iwant_resp, core.tick,
                                    **opts)
-        return st2, dlv, info
+        n_iwant_rec = None
+        if chaos is not None and cfg.count_events:
+            # valid-plane membership read at arrival, as the duplicate
+            # counter reads it
+            n_iwant_rec = bitset.popcount(
+                (dlv.have & ~have_pre_merge) & bitset.pack(core.msgs.valid)[None, :]
+            ).sum(dtype=torch.int32)
+        return st2, dlv, info, n_iwant_rec
 
     # net and consts are parameters of the round, not closure reads: a
     # dynamic-topology round rebinds both from the state's overlay
     def _round(st: GossipSubState, pub_origin, pub_topic, pub_valid, up_next=None,
-               mut_writes=None, do_heartbeat: bool = True, score_plane=None, *, net=net,
-               consts=consts) -> GossipSubState:
+               mut_writes=None, do_heartbeat: bool = True, score_plane=None,
+               link_deny=None, *, net=net, consts=consts) -> GossipSubState:
         rp = round_params(cfg, net, consts, score_plane)
         if dynamic_topo:
             # the round's writes land first: the whole round runs on the
@@ -1827,6 +1881,8 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             consts = rebind_step_consts(cfg, consts, net)
             st = clear_mutated_edges(cfg, st, wr_edge, rp.tp)
             st = replace(st, core=replace(st.core, topo=topo1))
+        else:
+            topo1 = None
         live = None
         if dynamic_peers:
             st, live = apply_peer_transitions(cfg, net, st, up_next, rp.tp)
@@ -1836,12 +1892,28 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             cfg, net, st, consts, live)
         acc_ok, acc_msg = accept_gates(cfg, net_l, st, consts, gater_params, tick, rp.thr)
 
+        # 0a. the chaos plane: this round's link outages. The whole link
+        # (control and data, both directions) drops for the round, with no
+        # cleanup at either end; ``net_w`` is the one-round-masked wire view
+        # every receiver gather reads, and the data gate ``acc_msg`` (the
+        # edge mask's and the IWANT responses') takes the mask too. Keyed on
+        # the post-mutation overlay, so a rewired link re-keys at once.
+        if chaos is not None:
+            ge_bad0 = core.chaos.ge_bad if core.chaos is not None else None
+            link_ok, ge_bad_next = chaos_faults.round_link_ok(
+                chaos, chaos_faults.chaos_seed(core.key), net.nbr, tick, ge_bad0, link_deny,
+                topo=topo1)
+            net_w = replace(net_l, nbr_ok=net_l.nbr_ok & link_ok)
+            acc_msg = acc_msg & link_ok
+        else:
+            net_w = net_l
+
         # 0b. merged wire exchange: every control outbox crosses the edge
         # involution at once, the score plane beside it
         cross = (functools.partial(banded_cross, net, live_u32, cfg.score_enabled) if banded
-                 else functools.partial(gather_cross, net_l))
+                 else functools.partial(gather_cross, net_w))
         graft_in_raw, prune_in_raw, ihave_in_raw, px_in_raw, nbr_score_of_me = (
-            control_exchange(cfg, net_l, st, cross))
+            control_exchange(cfg, net_w, st, cross))
 
         # 1. GRAFT/PRUNE ingest, and PX connect
         st2, prune_resp, px_resp, px_ok, n_graft, n_prune = handle_graft_prune(
@@ -1862,9 +1934,10 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             st2, dlv, info = banded_data_plane(
                 net_l, st, st2, joined_words, slotw, acc_ok, acc_msg, ihave_in_raw,
                 nbr_score_of_me, valid_pack, rp.thr)
+            n_iwant_rec = None
         else:
-            st2, dlv, info = composite_data_plane(
-                net_l, flood_from_l, st, st2, joined_words, slotw, acc_ok, acc_msg,
+            st2, dlv, info, n_iwant_rec = composite_data_plane(
+                net_l, net_w, flood_from_l, st, st2, joined_words, slotw, acc_ok, acc_msg,
                 ihave_in_raw, nbr_score_of_me, rp.thr)
 
         # the exact-trace duplicate plane: arrivals beyond the first per
@@ -1939,9 +2012,18 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         if cfg.count_events:
             events = accumulate_round_events(events, info,
                                              is_pub.sum(dtype=torch.int32))
+            if chaos is not None:
+                # the live view's links, not the static topology's
+                events = add_event(add_event(
+                    events, EV.LINK_DOWN,
+                    chaos_faults.count_links_down(net.nbr, net_l.nbr_ok, link_ok)),
+                    EV.IWANT_RECOVER, n_iwant_rec)
+        core_next = replace(core, msgs=msgs, dlv=dlv, events=events)
+        if chaos is not None and chaos.needs_state:
+            core_next = replace(core_next, chaos=replace(core.chaos, ge_bad=ge_bad_next))
         st2 = replace(
             st2,
-            core=replace(core, msgs=msgs, dlv=dlv, events=events),
+            core=core_next,
             mcache=mcache,
             ihave_out=ihave_out,
             iwant_out=iwant_out,
@@ -1989,48 +2071,49 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         # entry and re-packed at exit; the body above stays dense-written
         _round = wrap_csr_resident(net, _round)
 
-    # the JAX package's call forms: up_next and then mut_writes are required
-    # positionals (a default would silently run without churn or writes),
-    # and a lifted step's plane comes last
-    use_static_hb = static_heartbeat and cfg.heartbeat_every > 1
-    if lift_scores:
-        n_rows = int(dynamic_peers) + int(dynamic_topo)
+    # the JAX package's call forms: up_next, link_deny (a scheduled chaos
+    # build) and mut_writes are required positionals in that order (a
+    # default would silently run without churn, partitions or writes), and
+    # a lifted step's plane comes last
+    return step_form(_round, dynamic_peers=dynamic_peers,
+                     chaos_sched=chaos is not None and chaos.scheduled,
+                     dynamic_topo=dynamic_topo, lift_scores=lift_scores,
+                     static_heartbeat=static_heartbeat and cfg.heartbeat_every > 1)
 
-        def dispatch(st, pub_origin, pub_topic, pub_valid, rest, do_heartbeat=True):
-            if len(rest) != n_rows + 1:
-                raise TypeError(f"a lifted step takes {n_rows} row argument(s) and the "
-                                f"score plane after the publishes, got {len(rest)}")
-            up = rest[0] if dynamic_peers else None
-            writes = rest[1] if dynamic_topo else None
-            return _round(st, pub_origin, pub_topic, pub_valid, up, writes, do_heartbeat,
-                          rest[-1])
 
-        if use_static_hb:
-            def step(st, pub_origin, pub_topic, pub_valid, *rest, do_heartbeat):
-                return dispatch(st, pub_origin, pub_topic, pub_valid, rest, do_heartbeat)
-        else:
-            def step(st, pub_origin, pub_topic, pub_valid, *rest):
-                return dispatch(st, pub_origin, pub_topic, pub_valid, rest)
-    elif use_static_hb:
-        if dynamic_topo:
-            def step(st, pub_origin, pub_topic, pub_valid, up_next, mut_writes, *,
-                     do_heartbeat):
-                return _round(st, pub_origin, pub_topic, pub_valid, up_next, mut_writes,
-                              do_heartbeat)
-        elif dynamic_peers:
-            def step(st, pub_origin, pub_topic, pub_valid, up_next, *, do_heartbeat):
-                return _round(st, pub_origin, pub_topic, pub_valid, up_next, None,
-                              do_heartbeat)
-        else:
-            def step(st, pub_origin, pub_topic, pub_valid, *, do_heartbeat):
-                return _round(st, pub_origin, pub_topic, pub_valid, None, None, do_heartbeat)
-    elif dynamic_topo:
-        def step(st, pub_origin, pub_topic, pub_valid, up_next, mut_writes):
-            return _round(st, pub_origin, pub_topic, pub_valid, up_next, mut_writes)
-    elif dynamic_peers:
-        def step(st, pub_origin, pub_topic, pub_valid, up_next):
-            return _round(st, pub_origin, pub_topic, pub_valid, up_next)
+def step_form(body, *, dynamic_peers: bool, chaos_sched: bool, dynamic_topo: bool = False,
+              lift_scores: bool = False, static_heartbeat: bool):
+    """The call form of a step body ``body(st, pub_origin, pub_topic,
+    pub_valid, up_next, mut_writes, do_heartbeat, score_plane, link_deny)``:
+
+        step(st, pub_origin, pub_topic, pub_valid, *rows [, score_plane]
+             [, *, do_heartbeat])
+
+    ``rows`` are the build's per-dispatch rows in the JAX package's order,
+    ``up_next`` (dynamic peers), ``link_deny`` (scheduled chaos),
+    ``mut_writes`` (dynamic topology), each required; a lifted step takes
+    its plane last; ``static_heartbeat`` makes ``do_heartbeat`` a required
+    keyword. The step's ``rows`` attribute names its rows (the drivers read
+    it to fill a scheduled step's deny row)."""
+    rows = tuple(name for name, on in (("up_next", dynamic_peers), ("link_deny", chaos_sched),
+                                      ("mut_writes", dynamic_topo)) if on)
+    n_rest = len(rows) + int(lift_scores)
+
+    def dispatch(st, pub_origin, pub_topic, pub_valid, rest, do_heartbeat=True):
+        if len(rest) != n_rest:
+            plane = " and the score plane" if lift_scores else ""
+            raise TypeError(f"this step takes {len(rows)} row argument(s) {list(rows)}{plane} "
+                            f"after the publishes, got {len(rest)}")
+        got = dict(zip(rows, rest))
+        return body(st, pub_origin, pub_topic, pub_valid, got.get("up_next"),
+                    got.get("mut_writes"), do_heartbeat, rest[-1] if lift_scores else None,
+                    got.get("link_deny"))
+
+    if static_heartbeat:
+        def step(st, pub_origin, pub_topic, pub_valid, *rest, do_heartbeat):
+            return dispatch(st, pub_origin, pub_topic, pub_valid, rest, do_heartbeat)
     else:
-        def step(st, pub_origin, pub_topic, pub_valid):
-            return _round(st, pub_origin, pub_topic, pub_valid)
+        def step(st, pub_origin, pub_topic, pub_valid, *rest):
+            return dispatch(st, pub_origin, pub_topic, pub_valid, rest)
+    step.rows = rows
     return step

@@ -19,7 +19,9 @@ one call the reference's way:
   suppresses the tail heartbeat's gossip.
 
 Each sub-round composes what every sender pushes on each edge and crosses
-the edge involution once. On a banded net with K <= ``fused_round.MAX_K``
+the edge involution once. Under the chaos plane the crossings keep this
+route: the head's link mask joins its live words and each sub-round's mask
+gates its crossing's output. On a banded net with K <= ``fused_round.MAX_K``
 both crossings are ``edge_exchange`` launches: the control head's words
 (``graft | prune | ihave [| px] | mcache window``, the score plane beside
 them) once a phase, the data words once a sub-round, each under the
@@ -50,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import prng
+from ..chaos import faults as chaos_faults
 from ..ops import bitset
 from ..ops import fused_round as fr
 from ..score.engine import (
@@ -93,14 +96,15 @@ from .gossipsub import (
     px_connect,
     round_params,
     sender_carry_words,
+    step_form,
     update_fanout_on_publish,
 )
 
 #: keyword options of the JAX package's make_gossipsub_phase_step that the port
 #: refuses, and where they land
 UNPORTED = {
-    "adversary": "the adversary plane — ROADMAP §1 item 5",
-    "telemetry": "the telemetry panel — ROADMAP §1 item 5",
+    "adversary": "the adversary plane — ROADMAP §1 item 5.2",
+    "telemetry": "the telemetry panel — ROADMAP §1 item 5.3",
 }
 
 
@@ -212,8 +216,8 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
     """Build the phase step for a fixed config and topology:
 
         step(state, pub_origin[r,P], pub_topic[r,P], pub_valid[r,P]
-             [, up_next[N]] [, score_plane], *, do_heartbeat) -> state
-             (tick advances by r)
+             [, up_next[N]] [, link_deny[N, K]] [, score_plane], *, do_heartbeat)
+             -> state (tick advances by r)
 
     ``pub_*[i]`` is published at tick ``t + i``, as the per-round step
     would. ``do_heartbeat`` is required: the caller owns the schedule
@@ -256,7 +260,15 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
     (``edge_exchange`` over graft | prune | ihave [| px] on a banded net)
     and the IWANT window gathered apart, ``allocate_publishes`` every
     sub-round instead of the head's plan, the mcache put a sub-round, and
-    the accumulators and the tail's clears plane by plane. The JAX
+    the accumulators and the tail's clears plane by plane.
+
+    ``cfg.chaos`` flaps links as the per-round step does, at the same
+    cadence: the control head crosses under round tick0's link mask (ANDed
+    into its live words, so a banded net keeps its one ``edge_exchange``),
+    each data sub-round gates its crossing by its own round's mask, the GE
+    chain advances once a sub-round, and ``LINK_DOWN`` and ``IWANT_RECOVER``
+    are the phase's totals. A ``scheduled`` config takes one ``link_deny`` a
+    phase (partitions land at phase heads, as peer transitions do). The JAX
     function's adversary and telemetry options raise."""
     r = int(rounds_per_phase)
     if r < 1:
@@ -276,6 +288,8 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
     cfg = flushed_thresholds(cfg)
     n_peers, k_dim = net.n_peers, net.max_degree
     banded = net.band_off is not None and k_dim <= fr.MAX_K
+    # None (or a disabled config) leaves every chaos branch below out
+    chaos = chaos_faults.resolve(cfg.chaos)
     if lift_scores:
         p3_live = p4_live = True
     elif cfg.score_enabled:
@@ -314,7 +328,7 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         return (*control_exchange(cfg, net_l, st, cross), None)
 
     def _phase(st: GossipSubState, pub_origin, pub_topic, pub_valid, up_next,
-               do_heartbeat: bool, score_plane=None) -> GossipSubState:
+               do_heartbeat: bool, score_plane=None, link_deny=None) -> GossipSubState:
         rp = round_params(cfg, net, consts, score_plane)
         thr, msh = rp.thr, rp.msh
         # the peer transitions land once a phase, at the head
@@ -333,15 +347,34 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
 
         # ---- control head (once a phase) --------------------------------
         acc_ok, acc_msg = accept_gates(cfg, net_l, st, consts, gater_params, tick0, thr)
+
+        # the chaos plane: the head crosses the wire once, at round tick0,
+        # under that round's link mask (the wire view ``net_w``); each data
+        # sub-round applies its own round's mask, and the GE chain advances
+        # once a sub-round, the per-round engine's cadence. A scheduled
+        # build's ``link_deny`` holds for the whole phase.
+        if chaos is not None:
+            seed = chaos_faults.chaos_seed(core.key)
+            ge_bad = core.chaos.ge_bad if core.chaos is not None else None
+            link_ok0, ge_bad = chaos_faults.round_link_ok(chaos, seed, net.nbr, tick0,
+                                                          ge_bad, link_deny)
+            net_w = replace(net_l, nbr_ok=net_l.nbr_ok & link_ok0)
+            live_w_u32 = net_w.nbr_ok.to(torch.int32)
+            n_link_down = (chaos_faults.count_links_down(net.nbr, net_l.nbr_ok, link_ok0)
+                           if cfg.count_events else None)
+        else:
+            net_w, live_w_u32 = net_l, live_u32
         (graft_in_raw, prune_in_raw, ihave_in_raw, px_in_raw, nbr_score_of_me,
-         window_g) = control_head(net_l, st, live_u32)
+         window_g) = control_head(net_w, st, live_w_u32)
         st2, prune_resp, px_resp, px_ok, n_graft, n_prune = handle_graft_prune(
             cfg, net_l, st, rp.tp, acc_ok, graft_in_raw, prune_in_raw, px_in_raw, thr, msh)
         events = core.events
         if cfg.count_events:
             events = add_event(add_event(events, EV.GRAFT, n_graft), EV.PRUNE, n_prune)
         edge_live_next = px_connect(cfg, net, net_l, st, px_ok, dynamic_peers)
-        st2, iwant_resp = iwant_responses(cfg, net_l, st2, nbr_score_of_me,
+        # the IWANT window rides the wire view: a flapped link's responses
+        # are lost and its retransmission counters do not tick
+        st2, iwant_resp = iwant_responses(cfg, net_w, st2, nbr_score_of_me,
                                           window_g=window_g, thr=thr)
         st2 = handle_ihave(cfg, net_l, st2, joined_msg_words(net_l, core.msgs), acc_ok,
                            ihave_in_raw, thr)
@@ -415,8 +448,21 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         warange = torch.arange(w, dtype=torch.int32, device=dev)
         topics = torch.arange(net.n_topics, dtype=torch.int32, device=dev)
 
+        n_iwant_rec = None
         for i in range(r):
             tick_i = tick0 + i
+            gate_i = recv_gate
+            if chaos is not None:
+                # this sub-round's link mask (round tick0's is the head's)
+                if i == 0:
+                    link_ok_i = link_ok0
+                else:
+                    link_ok_i, ge_bad = chaos_faults.round_link_ok(
+                        chaos, seed, net.nbr, tick_i, ge_bad, link_deny)
+                    if cfg.count_events:
+                        n_link_down = n_link_down + chaos_faults.count_links_down(
+                            net.nbr, net_l.nbr_ok, link_ok_i)
+                gate_i = recv_gate & link_ok_i
             if plan is not None:
                 msgs = plan.msgs_at(i)
                 valid_w_i = plan.valid_words[i]
@@ -436,7 +482,7 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             if adv_self is not None:
                 # no-forward peers run control but never transmit data
                 send = torch.where(adv_self[:, None, None], 0, send)
-            trans = cross_data(send, recv_gate, live_u32)
+            trans = cross_data(send, gate_i, live_u32)
             nm = ~origin_w
             block_w = wire_block_words(msgs)
             if block_w is not None:
@@ -448,8 +494,14 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             dlv, info = finish_delivery(net_l, msgs, dlv, trans, tick_i, **opts)
             if i == 0:
                 # the head's IWANT responses ride the first sub-round
+                have_pre_merge = dlv.have
                 dlv, info = merge_extra_tx(net_l, msgs, dlv, info, iwant_resp, tick_i,
                                            **opts)
+                if chaos is not None and cfg.count_events:
+                    # first arrivals that rode the IWANT service
+                    n_iwant_rec = bitset.popcount(
+                        (dlv.have & ~have_pre_merge) & valid_w_i[None, :]
+                    ).sum(dtype=torch.int32)
             if dupt is not None:
                 # before the throttle, as in the per-round step
                 dupt = dupt | (info.trans & ~(dlv.fe_words & info.recv_new_words[:, None, :]))
@@ -584,10 +636,16 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             zw = torch.zeros((n_peers, w), dtype=torch.int32, device=dev)
             events = accumulate_round_events(
                 events, RoundInfo(trans=zw, new_words=zw, **cnt), n_pub)
+            if chaos is not None:
+                events = add_event(add_event(events, EV.LINK_DOWN, n_link_down),
+                                   EV.IWANT_RECOVER, n_iwant_rec)
 
+        core_next = replace(core, msgs=msgs, dlv=dlv, events=events, tick=tick_last)
+        if chaos is not None and chaos.needs_state:
+            core_next = replace(core_next, chaos=replace(core.chaos, ge_bad=ge_bad))
         st2 = replace(
             st2,
-            core=replace(core, msgs=msgs, dlv=dlv, events=events, tick=tick_last),
+            core=core_next,
             mcache=mcache,
             ihave_out=torch.zeros_like(st2.ihave_out),
             iwant_out=iwant_out,
@@ -625,20 +683,13 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         # CSR-resident state: flat planes between phases, dense inside
         _phase = wrap_csr_resident(net, _phase)
 
-    if lift_scores:
-        n_rows = int(dynamic_peers)
+    # the JAX package's call forms: up_next, then a scheduled build's one
+    # link_deny a phase, each required, and a lifted step's plane last
+    def body(st, pub_origin, pub_topic, pub_valid, up_next, _writes, do_heartbeat,
+             score_plane, link_deny):
+        return _phase(st, pub_origin, pub_topic, pub_valid, up_next, bool(do_heartbeat),
+                      score_plane, link_deny)
 
-        def step(st, pub_origin, pub_topic, pub_valid, *rest, do_heartbeat: bool):
-            if len(rest) != n_rows + 1:
-                raise TypeError(f"a lifted phase step takes {n_rows} row argument(s) and "
-                                f"the score plane after the publishes, got {len(rest)}")
-            return _phase(st, pub_origin, pub_topic, pub_valid,
-                          rest[0] if dynamic_peers else None, bool(do_heartbeat), rest[-1])
-    elif dynamic_peers:
-        def step(st, pub_origin, pub_topic, pub_valid, up_next, *, do_heartbeat: bool):
-            return _phase(st, pub_origin, pub_topic, pub_valid, up_next, bool(do_heartbeat))
-    else:
-        def step(st, pub_origin, pub_topic, pub_valid, *, do_heartbeat: bool):
-            return _phase(st, pub_origin, pub_topic, pub_valid, None, bool(do_heartbeat))
-
-    return step
+    return step_form(body, dynamic_peers=dynamic_peers,
+                     chaos_sched=chaos is not None and chaos.scheduled,
+                     lift_scores=lift_scores, static_heartbeat=True)

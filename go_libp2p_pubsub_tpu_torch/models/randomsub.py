@@ -12,7 +12,8 @@ floodsub-only edges; the receivers read the sender-side outbox through the
 edge involution, as the GossipSub mesh push does. The delivery round is the
 shared core's (``models/common.delivery_round``): ``delivery_banded`` on a
 banded dense net, ``csr_delivery`` on a CSR-resident state, the composites
-elsewhere and under the queue cap or the validation pipeline.
+elsewhere and under the queue cap or the validation pipeline. The chaos
+plane's link mask folds into the edge mask and keeps the round's route.
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ import numpy as np
 import torch
 
 from .. import prng
+from ..chaos import faults as chaos_faults
 from ..ops.select import select_random_mask
 from ..score.engine import slot_topic_words
 from ..state import Net, SimState, allocate_publishes, replace
+from ..trace.events import EV, add_event
 from .common import accumulate_round_events, delivery_round
 from .gossipsub import gather_nbr_subscribed, joined_msg_words, sender_carry_words
 
@@ -52,7 +55,8 @@ def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
                         lift_scores: bool = False):
     """Build the per-round RandomSub step for a fixed topology:
 
-        step(state, pub_origin[P], pub_topic[P], pub_valid[P] [, score_plane]) -> state
+        step(state, pub_origin[P], pub_topic[P], pub_valid[P]
+             [, link_deny[N, K]] [, score_plane]) -> state
 
     a plain function on tensors (``driver.make_window`` captures it as it
     captures FloodSub's). ``size_estimate`` sets every topic's size, as
@@ -62,19 +66,24 @@ def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
     ``SimState.init(val_delay=...)`` runs the async-validation pipeline,
     both in the shared delivery core. ``stacked`` is the JAX package's A/B
     switch for its recycled-slot clears (one fold, or one op a plane: the
-    same bits, ``state.allocate_publishes``). With ``lift_scores=True`` the
-    step takes a lifted score plane as its last positional and ignores it
-    (RandomSub has no score machinery), so all four engines share the
-    lifted call convention. The chaos, telemetry and adversary planes
-    raise ``NotImplementedError``."""
+    same bits, ``state.allocate_publishes``). ``chaos`` (a
+    ``chaos.ChaosConfig``) folds the round's link mask into the edge mask
+    before the shared delivery round and counts ``LINK_DOWN``; a
+    ``scheduled`` config makes the step take ``link_deny``, and a GE
+    generator needs ``SimState.init(..., chaos_ge=True)``. With
+    ``lift_scores=True`` the step takes a lifted score plane as its last
+    positional and ignores it (RandomSub has no score machinery), so all
+    four engines share the lifted call convention. The telemetry and
+    adversary planes raise ``NotImplementedError``."""
     unported = [
-        (chaos is not None, "chaos (link-fault injection) — ROADMAP §1 item 5"),
-        (telemetry is not None, "telemetry (the per-round panel) — ROADMAP §1 item 5"),
-        (adversary is not None, "adversary (the attack plane) — ROADMAP §1 item 5"),
+        (telemetry is not None, "telemetry (the per-round panel) — ROADMAP §1 item 5.3"),
+        (adversary is not None, "adversary (the attack plane) — ROADMAP §1 item 5.2"),
     ]
     for bad, what in unported:
         if bad:
             raise NotImplementedError(f"make_randomsub_step: not ported yet: {what}")
+    chaos = chaos_faults.resolve(chaos)
+    chaos_sched = chaos is not None and chaos.scheduled
     target_t = size_targets(net, d, size_estimate)
     my_topics = net.my_topics.cpu().numpy()
     target_ns = torch.as_tensor(
@@ -91,7 +100,7 @@ def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
     # subscribed neighbour (floodsub.go:76-100)
     i_am_floodsub = (net.protocol == 0)[:, None, None]
 
-    def _round(st: SimState, pub_origin, pub_topic, pub_valid) -> SimState:
+    def _round(st: SimState, pub_origin, pub_topic, pub_valid, link_deny=None) -> SimState:
         tick = st.tick
         # a fresh random fanout per sender, slot and round
         key = prng.fold_in(st.key, tick)
@@ -100,15 +109,40 @@ def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
         carry_out = sender_carry_words(sel, slot_topic_words(net, st.msgs.topic))
         carried = torch.where(net.nbr_ok[:, :, None], net.edge_gather(carry_out), 0)
         edge_mask = carried & joined_msg_words(net, st.msgs)[:, None, :]
+        if chaos is not None:
+            ge_bad = st.chaos.ge_bad if st.chaos is not None else None
+            link_ok, ge_bad_next = chaos_faults.round_link_ok(
+                chaos, chaos_faults.chaos_seed(st.key), net.nbr, tick, ge_bad, link_deny)
+            edge_mask = torch.where(link_ok[:, :, None], edge_mask, 0)
         dlv, info = delivery_round(net, st.msgs, st.dlv, edge_mask, tick,
                                    queue_cap=queue_cap)
         msgs, dlv, _slots, is_pub, _keep, _pw = allocate_publishes(
             st.msgs, dlv, tick, pub_origin, pub_topic, pub_valid, stacked_clears=stacked)
         events = accumulate_round_events(st.events, info, is_pub.sum(dtype=torch.int32))
+        if chaos is not None:
+            events = add_event(events, EV.LINK_DOWN,
+                               chaos_faults.count_links_down(net.nbr, net.nbr_ok, link_ok))
+            if chaos.needs_state:
+                st = replace(st, chaos=replace(st.chaos, ge_bad=ge_bad_next))
         return replace(st, tick=tick + 1, msgs=msgs, dlv=dlv, events=events)
 
+    # the JAX package's call forms: link_deny is a required positional of a
+    # scheduled build, and a lifted step's plane comes last (and is unused)
     if lift_scores:
-        def step(st, pub_origin, pub_topic, pub_valid, score_plane):
-            return _round(st, pub_origin, pub_topic, pub_valid)
+        n_rest = int(chaos_sched) + 1
+
+        def step(st, pub_origin, pub_topic, pub_valid, *rest):
+            if len(rest) != n_rest:
+                raise TypeError(f"a lifted RandomSub step takes {n_rest - 1} row argument(s) "
+                                f"and the score plane after the publishes, got {len(rest)}")
+            return _round(st, pub_origin, pub_topic, pub_valid,
+                          rest[0] if chaos_sched else None)
         return step
-    return _round
+    if chaos_sched:
+        def step(st, pub_origin, pub_topic, pub_valid, link_deny):
+            return _round(st, pub_origin, pub_topic, pub_valid, link_deny)
+        return step
+
+    def step(st, pub_origin, pub_topic, pub_valid):
+        return _round(st, pub_origin, pub_topic, pub_valid)
+    return step

@@ -126,7 +126,7 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                 device=None, queue_cap: int = 0, validation_delay_rounds: int = 0,
                 px: bool = False, dynamic_peers: bool = False,
                 wire_coalesced: bool | None = None, lift_scores: bool = False,
-                score_counts: bool = False):
+                score_counts: bool = False, chaos=None):
     """Build (state, step, n_topics, honest) for a bench config, tracer
     detached (no event counters unless ``count_events``):
 
@@ -158,7 +158,9 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     ``BENCH_WIRE_COALESCED``, on) picks the wire form; ``lift_scores``
     builds a lifted step, which takes ``bench_plane``'s plane (or any
     other) as its last argument; ``score_counts`` the phase engine's count
-    path."""
+    path. ``chaos`` (a ``chaos.ChaosConfig``) turns the link-fault plane on:
+    a ``scheduled`` config's step takes a ``link_deny`` row a dispatch
+    after the liveness row."""
     _check_config(config)
     dev = resolve_device(device)
     tp = graphlib.ring_lattice(n_peers, d=8)
@@ -184,7 +186,7 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                                 validation_delay_rounds=validation_delay_rounds,
                                 edge_layout=edge_layout, fused=fused,
                                 wire_coalesced=bench_wire_coalesced(wire_coalesced),
-                                trace_exact=px, narrow_counters=px)
+                                trace_exact=px, narrow_counters=px, chaos=chaos)
     cfg = dataclasses.replace(cfg, count_events=count_events,
                               fanout_slots=cfg.fanout_slots if config == "eth2" else 0)
     st = GossipSubState.init(
@@ -294,17 +296,20 @@ RANDOM_DIALS = 32
 
 @dataclasses.dataclass
 class FloodSubRun:
-    """A built FloodSub workload's step: ``run(state, po, pt, pv)``. Keeps
-    the Net and the host seconds its build took (graph generation,
-    topology and CSR build, upload, state init)."""
+    """A built FloodSub workload's step: ``run(state, po, pt, pv[,
+    link_deny])`` (the deny row of a scheduled ``chaos``). Keeps the Net and
+    the host seconds its build took (graph generation, topology and CSR
+    build, upload, state init)."""
 
     net: Net
     setup_seconds: float
     queue_cap: int = 0
+    chaos: object = None
 
-    def __call__(self, st, pub_origin, pub_topic, pub_valid):
+    def __call__(self, st, pub_origin, pub_topic, pub_valid, link_deny=None):
         return floodsub_step(self.net, st, pub_origin, pub_topic, pub_valid,
-                             queue_cap=self.queue_cap)
+                             queue_cap=self.queue_cap, chaos=self.chaos,
+                             link_deny=link_deny)
 
 
 @dataclasses.dataclass
@@ -316,8 +321,8 @@ class RandomSubRun:
     setup_seconds: float
     step: object
 
-    def __call__(self, st, pub_origin, pub_topic, pub_valid):
-        return self.step(st, pub_origin, pub_topic, pub_valid)
+    def __call__(self, st, pub_origin, pub_topic, pub_valid, *rows):
+        return self.step(st, pub_origin, pub_topic, pub_valid, *rows)
 
 
 def _one_topic_net(n_peers: int, graph: str, layout: str, seed: int, dev) -> Net:
@@ -338,46 +343,49 @@ def _one_topic_net(n_peers: int, graph: str, layout: str, seed: int, dev) -> Net
 
 
 def _one_topic_state(net: Net, msg_slots: int, layout: str, resident: bool, seed: int,
-                     val_delay: int = 0) -> SimState:
+                     val_delay: int = 0, chaos=None) -> SimState:
     n_edges = net.n_edges if layout == "csr" and resident else None
     return SimState.init(net.n_peers, msg_slots, seed=seed, k=net.max_degree,
-                         device=net.device, n_edges=n_edges, val_delay=val_delay)
+                         device=net.device, n_edges=n_edges, val_delay=val_delay,
+                         chaos_ge=chaos is not None and chaos.needs_state)
 
 
 def build_floodsub(n_peers: int, msg_slots: int, graph: str = "lattice",
                    layout: str = "dense", resident: bool = True,
-                   seed: int = 0, device=None, queue_cap: int = 0):
+                   seed: int = 0, device=None, queue_cap: int = 0, chaos=None):
     """Build (state, step) for FloodSub on one topic every peer joins.
 
     ``graph``: ``"lattice"``, ``"powerlaw"`` or ``"random"``
     (``_one_topic_net``). ``layout="csr"`` builds the flat edge space;
     with ``resident`` the state keeps its first-arrival plane flat
     ``[E, W]``, else dense ``[N, K, W]``. ``queue_cap`` is the step's
-    outbound-queue cap. ``step.setup_seconds`` is the host time of the
-    build."""
+    outbound-queue cap, ``chaos`` its link-fault plane (a scheduled config's
+    step takes a ``link_deny`` row). ``step.setup_seconds`` is the host time
+    of the build."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     net = _one_topic_net(n_peers, graph, layout, seed, dev)
-    st = _one_topic_state(net, msg_slots, layout, resident, seed)
+    st = _one_topic_state(net, msg_slots, layout, resident, seed, chaos=chaos)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return st, FloodSubRun(net, time.perf_counter() - t0, queue_cap)
+    return st, FloodSubRun(net, time.perf_counter() - t0, queue_cap, chaos)
 
 
 def build_randomsub(n_peers: int, msg_slots: int, graph: str = "lattice",
                     size_estimate: int | None = None, device=None, *,
                     layout: str = "dense", resident: bool = True,
-                    queue_cap: int = 0, val_delay: int = 0, seed: int = 0):
+                    queue_cap: int = 0, val_delay: int = 0, seed: int = 0, chaos=None):
     """Build (state, step) for RandomSub on one topic every peer joins,
     over ``graph`` as ``build_floodsub`` takes it. ``size_estimate`` sets
     the fanout target max(6, ceil(sqrt(size))) (None: each topic's
     subscribers); ``queue_cap`` and ``val_delay`` (the pipeline's depth)
-    are the delivery core's options."""
+    are the delivery core's options, ``chaos`` the link-fault plane."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     net = _one_topic_net(n_peers, graph, layout, seed, dev)
-    st = _one_topic_state(net, msg_slots, layout, resident, seed, val_delay)
-    step = make_randomsub_step(net, size_estimate=size_estimate, queue_cap=queue_cap)
+    st = _one_topic_state(net, msg_slots, layout, resident, seed, val_delay, chaos=chaos)
+    step = make_randomsub_step(net, size_estimate=size_estimate, queue_cap=queue_cap,
+                               chaos=chaos)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return st, RandomSubRun(net, time.perf_counter() - t0, step)
@@ -397,13 +405,14 @@ def publish_schedule(n_rounds: int, n_peers: int, n_topics: int,
 
 
 def run_phases(st, step, po, pt, pv, *, rounds_per_phase: int, heartbeat_every: int,
-               up=None, consts=()):
+               up=None, consts=(), link_deny=None):
     """Drive a phase step over a publish schedule of whole phases ([R, P],
     R a multiple of ``rounds_per_phase``, uploaded once): ``[r, P]`` blocks
     with ``heartbeat_schedule``'s flags for the phases' tick windows (the
     state's tick, read once, must start a phase). ``up`` ([R, N]) is a
-    ``dynamic_peers`` step's liveness schedule: a phase takes its first
-    round's row. ``consts`` (a lifted step's plane) follow every call's
+    ``dynamic_peers`` step's liveness schedule and ``link_deny`` ([R, N, K])
+    a scheduled chaos step's deny plane: a phase takes its first round's
+    row of each. ``consts`` (a lifted step's plane) follow every call's
     rows."""
     r = int(rounds_per_phase)
     if len(po) % r:
@@ -415,7 +424,8 @@ def run_phases(st, step, po, pt, pv, *, rounds_per_phase: int, heartbeat_every: 
     dev = st.core.tick.device
     po_t, pt_t, pv_t = (torch.as_tensor(np.asarray(a), device=dev).reshape(
         (-1, r) + np.asarray(a).shape[1:]) for a in (po, pt, pv))
-    extra = () if up is None else (torch.as_tensor(np.asarray(up)[::r], device=dev),)
+    extra = tuple(torch.as_tensor(np.asarray(a)[::r], device=dev)
+                  for a in (up, link_deny) if a is not None)
     for p in range(len(po_t)):
         st = step(st, po_t[p], pt_t[p], pv_t[p], *(a[p] for a in extra), *consts,
                   do_heartbeat=flags[(tick // r + p) % len(flags)])

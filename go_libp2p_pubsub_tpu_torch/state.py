@@ -346,6 +346,21 @@ class Delivery:
 
 
 @dataclasses.dataclass
+class ChaosState:
+    """The chaos plane's Gilbert–Elliott chain (``chaos/faults.py``): each
+    link's bad state, symmetric over the edge involution by construction.
+    Present only in states built for a GE generator
+    (``ChaosConfig.needs_state``); the i.i.d. generator and schedules are
+    stateless (their masks are functions of the key and the tick)."""
+
+    ge_bad: torch.Tensor  # [N, K] bool, link in the bad state
+
+    @classmethod
+    def empty(cls, n: int, k: int, device) -> "ChaosState":
+        return cls(ge_bad=torch.zeros((n, k), dtype=torch.bool, device=device))
+
+
+@dataclasses.dataclass
 class TopoState:
     """The mutable overlay of a dynamic-topology build: the state's
     mirror of the net's edge planes, rebound into the net every round
@@ -384,6 +399,8 @@ class SimState:
     msgs: MsgTable
     dlv: Delivery
     events: torch.Tensor  # [N_EVENTS] i32 cumulative trace counters
+    # the Gilbert–Elliott link-fault chain (GE chaos builds), None otherwise
+    chaos: ChaosState | None = None
     # the mutable overlay (dynamic-topology builds), None otherwise
     topo: TopoState | None = None
 
@@ -391,14 +408,16 @@ class SimState:
     def init(cls, n_peers: int, msg_slots: int, seed: int = 0, k: int = 0,
              device=None, n_edges: int | None = None,
              val_delay: int = 0, topo: TopoState | None = None,
-             wire_block: bool = False) -> "SimState":
+             wire_block: bool = False, chaos_ge: bool = False) -> "SimState":
         """``k`` is the topology's padded max degree; ``n_edges`` (pass
         ``net.n_edges``) selects the CSR-resident ``[E, W]`` first-arrival
         plane; ``val_delay`` > 0 adds the async-validation pipeline's
         stages (its presence in the state is the configuration); ``topo``
         (``TopoState.from_net(net)``) installs the mutable overlay;
         ``wire_block`` adds the per-message transmit block
-        (``MsgTable.wire_block``, behind ``api.Network(max_message_size=)``)."""
+        (``MsgTable.wire_block``, behind ``api.Network(max_message_size=)``);
+        ``chaos_ge`` the Gilbert–Elliott link-fault chain (``ChaosState``),
+        which a build whose ``ChaosConfig.needs_state`` requires."""
         dev = resolve_device(device)
         return cls(
             tick=torch.zeros((), dtype=torch.int32, device=dev),
@@ -406,6 +425,7 @@ class SimState:
             msgs=MsgTable.empty(msg_slots, dev, wire_block=wire_block),
             dlv=Delivery.empty(n_peers, msg_slots, k, dev, val_delay, n_edges=n_edges),
             events=zero_counters(dev),
+            chaos=ChaosState.empty(n_peers, k, dev) if chaos_ge else None,
             topo=topo,
         )
 

@@ -271,7 +271,7 @@ class MutationSchedule:
         is not ported."""
         raise NotImplementedError(
             "not ported yet: MutationSchedule.due_fn needs the invariant oracle "
-            "(oracle/) — ROADMAP §1 item 5")
+            "(oracle/) — ROADMAP §1 item 5.4")
 
     def schedule_hash(self) -> str:
         """sha256 over the compiled program (which storm ran)."""

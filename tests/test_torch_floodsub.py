@@ -246,10 +246,17 @@ def test_unported_options_raise():
     tnet = TNet.build(tgraph.ring_lattice(16, d=2), tgraph.subscribe_all(16, 1), device="cpu")
     p = torch.full((1,), -1, dtype=torch.int32)
     ok = torch.ones(1, dtype=torch.bool)
-    for kw in ({"chaos": object()}, {"telemetry": object()}, {"adversary": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in (({"telemetry": object()}, "5.3"), ({"adversary": object()}, "5.2")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
             tflood.floodsub_step(tnet, TSim.init(16, 32, k=tnet.max_degree, device="cpu"),
                                  p, p, ok, **kw)
+    # the chaos plane is ported (tests/test_torch_chaos_engines.py): an
+    # invalid config raises before the round
+    from go_libp2p_pubsub_tpu_torch.chaos import ChaosConfig, ChaosConfigError
+
+    with pytest.raises(ChaosConfigError):
+        tflood.floodsub_step(tnet, TSim.init(16, 32, k=tnet.max_degree, device="cpu"),
+                             p, p, ok, chaos=ChaosConfig(generator="nope"))
     with pytest.raises(ValueError, match="edge_layout"):
         TNet.build(tgraph.ring_lattice(16, d=2), tgraph.subscribe_all(16, 1),
                    edge_layout="sparse", device="cpu")

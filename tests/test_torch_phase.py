@@ -190,11 +190,17 @@ def test_refused_options_raise():
         assert int(st.core.tick) == 1
         assert (st.dup_trans is not None) == (field == "trace_exact")
         assert (st.iasked.dtype == torch.int16) == (field == "narrow_counters")
-    # the JAX config's fields that no ported step runs are not fields of the
-    # port's config: setting one is an error before any step is built
-    for field in ("chaos", "router"):
-        with pytest.raises(TypeError):
-            dataclasses.replace(tcfg, **{field: 1})
+    # the JAX config's field that no ported step runs is not a field of the
+    # port's config: setting it is an error before any step is built; the
+    # chaos plane is ported (tests/test_torch_chaos_engines.py)
+    with pytest.raises(TypeError):
+        dataclasses.replace(tcfg, router=1)
+    from go_libp2p_pubsub_tpu_torch.chaos import ChaosConfig
+
+    cfg = dataclasses.replace(tcfg, chaos=ChaosConfig(loss_rate=0.2))
+    st = build(cfg)(TState.init(tnet, 64, cfg, score_params=tsp), po8, pt8, pv8,
+                    do_heartbeat=True)
+    assert int(st.core.tick) == 8
     # the queue cap and the validation pipeline are (tests/test_torch_valdelay.py)
     for field in ("queue_cap", "validation_delay_rounds", "validator_timeout_rounds"):
         build(dataclasses.replace(tcfg, **{field: 1}))

@@ -402,7 +402,7 @@ def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None,
 def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None, observe=None,
                              dormant=None, up=None, blacklist=None, plane=None,
-                             wire_block: bool = False, **kw):
+                             wire_block: bool = False, deny=None, **kw):
     """Run the JAX package's phase step and the port's (on the CPU) over
     ``rounds`` rounds of ``phase_schedule`` in phases of ``r`` from the same
     state, heartbeats as ``heartbeat_schedule(he, r)`` flags them, every
@@ -418,8 +418,10 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
     that phase. ``plane`` is a lifted step's (JAX plane, port plane) pair,
     or a function of the phase index giving one, passed last to every call.
     ``wire_block`` gives both initial states the transmit-block plane.
-    ``kw`` goes to both packages' make_gossipsub_phase_step, beside the
-    builds' own step options. Returns the port's final state."""
+    ``deny`` ([rounds, N, K] bool) is a scheduled chaos step's deny plane (a
+    phase takes its head's row). ``kw`` goes to both packages'
+    make_gossipsub_phase_step, beside the builds' own step options.
+    Returns the port's final state."""
     import jax.numpy as jnp
     import torch
 
@@ -449,6 +451,8 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
         jx, tx = (), ()
         if up is not None:
             jx, tx = (jnp.asarray(up[p * r]),), (torch.from_numpy(up[p * r]),)
+        if deny is not None:
+            jx, tx = jx + (jnp.asarray(deny[p * r]),), tx + (torch.from_numpy(deny[p * r]),)
         if plane is not None:
             jp, tp = plane(p) if callable(plane) else plane
             jx, tx = jx + (jp,), tx + (tp,)
@@ -482,7 +486,7 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
                  config="default", fanout_slots=0, fanout_ttl=None, gater=None,
                  validation_capacity=0, adversary=None, queue_cap=0,
                  validation_delay_rounds=0, validation_delay_topic=None,
-                 params=None, options=None, direct=None, dynamic=False):
+                 params=None, options=None, direct=None, dynamic=False, chaos=None):
     """(jax_cfg, jax_net, sp, torch_cfg, torch_net, torch_sp) for the
     bench's params on ring_lattice(n, d), or on ``topologies``, a
     (JAX Topology, port Topology) pair of the same graph, in
@@ -502,8 +506,9 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     the degrees), ``options`` config fields after the build
     (``edge_liveness``, ``trace_exact``, ``narrow_counters``), and
     ``direct`` is the nets' [N, K] direct edges; ``dynamic`` builds both
-    nets for the mutable overlay. The step options ride the result
-    (``step_options``)."""
+    nets for the mutable overlay; ``chaos`` (a dict of ChaosConfig fields)
+    turns each package's link-fault plane on. The step options ride the
+    result (``step_options``)."""
     from go_libp2p_pubsub_tpu import config as jconfig
     from go_libp2p_pubsub_tpu import graph as jgraph
     from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubConfig as JCfg
@@ -526,6 +531,14 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
         topics = {t: dataclasses.replace(tp, **(topic or {})) for t, tp in sp.topics.items()}
         return dataclasses.replace(sp, topics=topics, **(peer or {}))
 
+    if chaos is not None:
+        from go_libp2p_pubsub_tpu.chaos import ChaosConfig as JChaos
+
+        from go_libp2p_pubsub_tpu_torch.chaos import ChaosConfig as TChaos
+
+        jcore, tcore = dict(core, chaos=JChaos(**chaos)), dict(core, chaos=TChaos(**chaos))
+    else:
+        jcore = tcore = core
     if subscriptions is None:
         subscriptions = jgraph.subscribe_all(n, 1)
     n_topics = subscriptions.subscribed.shape[1]
@@ -541,7 +554,7 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     jcfg = JCfg.build(dataclasses.replace(jconfig.GossipSubParams(), **params),
                       jconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, gater_params=jgp,
-                      validation_capacity=validation_capacity, **layout, **core)
+                      validation_capacity=validation_capacity, **layout, **jcore)
     jcfg = dataclasses.replace(jcfg, count_events=count_events, fanout_slots=fanout_slots,
                                **(options or {}))
     jsp = score(jbsp(config, n_topics)[1])
@@ -550,7 +563,7 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     tcfg = TCfg.build(dataclasses.replace(tconfig.GossipSubParams(), **params),
                       tconfig.PeerScoreThresholds(**(thresholds or {})), score_enabled=True,
                       heartbeat_every=heartbeat_every, gater_params=tgp,
-                      validation_capacity=validation_capacity, **layout, **core)
+                      validation_capacity=validation_capacity, **layout, **tcore)
     tcfg = dataclasses.replace(tcfg, count_events=count_events, fanout_slots=fanout_slots,
                                **(options or {}))
     tsp = score(tbsp(config, n_topics)[1])
@@ -578,7 +591,7 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
                              static_heartbeat: bool = False, observe=None, dormant=None,
                              up=None, writes=None, blacklist=None, step_kw=None,
                              dynamic_topo: bool = False, plane=None,
-                             wire_block: bool = False):
+                             wire_block: bool = False, deny=None, app_score=None):
     """The per-round counterpart of ``phases_against_reference``: both
     packages' per-round steps from the same state over ``rounds`` rounds,
     every leaf compared bit for bit after every round. ``up`` ([rounds, N]
@@ -588,8 +601,10 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
     bool}) sets both blacklists before that round, ``step_kw`` goes to both
     step builders, ``plane`` is a lifted step's (JAX plane, port plane)
     pair or a function of the round giving one, ``wire_block`` gives both
-    initial states the transmit-block plane. Returns the port's final
-    state."""
+    initial states the transmit-block plane, ``deny`` ([rounds, N, K] bool)
+    is a scheduled chaos step's deny plane (its row rides between ``up`` and
+    ``writes``), ``app_score`` ([N] f32) both initial states' P5 plane.
+    Returns the port's final state."""
     import jax.numpy as jnp
     import torch
 
@@ -601,7 +616,7 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
 
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
     jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant,
-                      dynamic_topo=dynamic_topo, wire_block=wire_block)
+                      dynamic_topo=dynamic_topo, wire_block=wire_block, app_score=app_score)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     jkw, tkw = step_options(builds)
     step_kw = step_kw or {}
@@ -615,7 +630,7 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
     he = tcfg.heartbeat_every
     for t in range(rounds):
         hb = ({"do_heartbeat": t % he == 0} if static_heartbeat and he > 1 else {})
-        extra = [a[t] for a in (up, writes) if a is not None]
+        extra = [a[t] for a in (up, deny, writes) if a is not None]
         if blacklist is not None and t in blacklist:
             jst, tst = set_both_blacklists(jst, tst, blacklist[t])
         planes = ((), ()) if plane is None else tuple(
