@@ -284,8 +284,37 @@ last line is printed:
    phase-bench delivery round, or the script fails: the options off
    launch nothing more), of a traced phase-bench phase per
    delivery round, of a traced replay of a windowed phase (--window), and
-   of a traced round and phase of each config. It comes last, so that the
-   profiler's tracing cannot touch a rate timed in the same process.
+   of a traced round and phase of each config. It comes last, after 40-41,
+   so that the profiler's tracing cannot touch a rate timed in the same
+   process;
+40. the attack plane (chaos/adversary.py): at N=8192 all five behaviours
+   (a fifth of the peers from a ramped onset; censoring every seventh
+   peer's messages) in all four engines, each recording the telemetry
+   panel, card against CPU every round or phase with its route from the
+   host's launch counts — the per-round step on the lattice
+   (delivery_banded a round and 8 select_topk a heartbeat, neither fused
+   kernel: the reference's fused_eligible keeps an adversary off them),
+   the phase engine (1 + r edge_exchange a phase: the IWANT service masked
+   receiver-side after the head's crossing, the data sender-side before
+   each sub-round's), FloodSub and RandomSub on the lattice
+   (delivery_banded) and power-law CSR-resident (csr_delivery), and both
+   without an attack — the ADV counters moving and the panel reconciled on
+   the card; an unarmed population equal to none in leaves and launches;
+   attacked windows against their eager loops. Then
+   scripts/attack_report.py's sybil flood (20% sybils running
+   drop_forward, lie_ihave, graft_spam and self_promo from tick 12, i.i.d.
+   loss 0.1) on the default config at N=100k in both engines, eager and
+   windowed (each window equal to its eager loop, its block on the attacked
+   route), beside the attack-free run on the same streams: honest and
+   attacker delivery of the messages born in ticks 16-35, the honest
+   median score of attacker and of honest edges; and its eclipse (targets
+   0-2, half of each one's lattice neighbourhood sybil, drop_forward and
+   graft_spam from tick 20): the takeover peak and the recovery tick in
+   both engines;
+41. the telemetry panel on the windowed default phase and per-round step
+   at N=100k (events counted), on and off in turns: the rate cost, each
+   window block's launches (equal on and off) and reconcile empty on the
+   card's panel.
 
 It prints the ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
@@ -3584,15 +3613,15 @@ def _route(n: int, **launched) -> dict:
     return {k: n * launched.get(k, 0) for k in REPLACES}
 
 
-def chaos_card_cpu(convert, counters, label: str, build, drive, n_disp: int, want: dict):
-    """One chaos cell on the card and on the CPU (plain versions) from the
-    same seed: ``build(device) -> (state, step)``, ``drive(state, step, i)``
-    dispatch i; every leaf equal after every dispatch, and the card's
-    launches over the dispatches (every count at 0 just before) equal to
-    ``want``. Returns the launches."""
+def plane_card_cpu(convert, counters, label: str, build, drive, n_disp: int, want: dict,
+                   check):
+    """One cell on the card and on the CPU (plain versions) from the same
+    seed: ``build(device) -> (state, step)``, ``drive(state, step, i)``
+    dispatch i; every leaf equal after every dispatch, the card's launches
+    over the dispatches (every count at 0 just before) equal to ``want``,
+    and ``check(leaves)`` passing on the card's final leaves. Returns the
+    launches."""
     import torch
-
-    from go_libp2p_pubsub_tpu_torch.trace.events import EV
 
     sides = {d: build(torch.device(d)) for d in ("cuda", "cpu")}
     for mod in counters:
@@ -3601,18 +3630,24 @@ def chaos_card_cpu(convert, counters, label: str, build, drive, n_disp: int, wan
         for d, (st, step) in list(sides.items()):
             sides[d] = (drive(st, step, i), step)
         leaves_equal(convert.state_leaves(sides["cpu"][0]),
-                     convert.state_leaves(sides["cuda"][0]), f"chaos {label} dispatch {i}")
+                     convert.state_leaves(sides["cuda"][0]), f"{label} dispatch {i}")
     got = _dispatch_counts(counters)
     if got != want:
-        raise AssertionError(f"chaos {label}: launches {got}, the route wants {want}")
-    ev = convert.state_leaves(sides["cuda"][0])
-    ev = ev[".core.events" if ".core.events" in ev else ".events"]
-    if ev[EV.LINK_DOWN] <= 0:
-        raise AssertionError(f"chaos {label}: no link went down")
-    say(f"chaos {label} card == CPU: every leaf after each of {n_disp} dispatches at "
-        f"N={N_PARITY}, LINK_DOWN {int(ev[EV.LINK_DOWN])} IWANT_RECOVER "
-        f"{int(ev[EV.IWANT_RECOVER])}, launches {got}")
+        raise AssertionError(f"{label}: launches {got}, the route wants {want}")
+    seen = check(convert.state_leaves(sides["cuda"][0]))
+    say(f"{label} card == CPU: every leaf after each of {n_disp} dispatches at "
+        f"N={N_PARITY}, {seen}, launches {got}")
     return got
+
+
+def links_went_down(leaves) -> str:
+    """A chaos cell's check: some link went down."""
+    from go_libp2p_pubsub_tpu_torch.trace.events import EV
+
+    ev = leaves[".core.events" if ".core.events" in leaves else ".events"]
+    if ev[EV.LINK_DOWN] <= 0:
+        raise AssertionError("no link went down")
+    return f"LINK_DOWN {int(ev[EV.LINK_DOWN])} IWANT_RECOVER {int(ev[EV.IWANT_RECOVER])}"
 
 
 def chaos_parity(sweep, driver, convert, dev, counters) -> dict:
@@ -3681,8 +3716,8 @@ def chaos_parity(sweep, driver, convert, dev, counters) -> dict:
                                         nr, _route(nr, csr_delivery=1, select_topk=1)),
         }
         for cell, (build, drive, n_disp, want) in cells.items():
-            out[f"{cell} {gen}"] = chaos_card_cpu(convert, counters, f"{cell} {gen}", build,
-                                                  drive, n_disp, want)
+            out[f"{cell} {gen}"] = plane_card_cpu(convert, counters, f"chaos {cell} {gen}",
+                                                  build, drive, n_disp, want, links_went_down)
 
     # scheduled partitions: the per-round step (i.i.d. beside the cut) and the
     # phase engine (GE beside it; one deny row a phase, its head's)
@@ -3695,14 +3730,14 @@ def chaos_parity(sweep, driver, convert, dev, counters) -> dict:
     sched_phase = lambda st, step, i: sweep.run_phases(
         st, step, po[i * r:(i + 1) * r], pt[i * r:(i + 1) * r], pv[i * r:(i + 1) * r],
         rounds_per_phase=r, heartbeat_every=r, link_deny=deny[r + i * r:r + (i + 1) * r])
-    out["per-round partition"] = chaos_card_cpu(
-        convert, counters, "per-round partition", bench(ChaosConfig(
+    out["per-round partition"] = plane_card_cpu(
+        convert, counters, "chaos per-round partition", bench(ChaosConfig(
             **CHAOS_PARITY["iid"], scheduled=True)), sched_round, nr,
-        _route(nr, delivery_banded=1, select_topk=sel))
-    out["phase partition"] = chaos_card_cpu(
-        convert, counters, "phase partition", bench(ChaosConfig(
+        _route(nr, delivery_banded=1, select_topk=sel), links_went_down)
+    out["phase partition"] = plane_card_cpu(
+        convert, counters, "chaos phase partition", bench(ChaosConfig(
             **CHAOS_PARITY["ge"], scheduled=True), r), sched_phase, 2,
-        _route(2, edge_exchange=1 + r, select_topk=sel))
+        _route(2, edge_exchange=1 + r, select_topk=sel), links_went_down)
 
     # the elision: a disabled config is the chaos-off build, leaves and launches
     for engine, rr, drive, n_disp in (("per-round", 1, rounds, nr), ("phase", r, phases, 2)):
@@ -3994,6 +4029,493 @@ def chaos_partition(driver, dev, card, counters) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 40: the attack plane
+
+#: the parity cells' population: every behaviour, a fifth of the peers
+#: from a ramped onset, censoring every seventh peer's messages
+ATTACK_PARITY = dict(sybil_fraction=0.2, onset=2, ramp_rounds=2, seed=3)
+#: scripts/attack_report.py's sybil-flood cell (its fraction, behaviours,
+#: onset and loss) on the bench default config; 2 honest publishes a round
+#: at ticks ATTACK_PUBS into 64 slots (none recycled), delivery read for
+#: the messages born in ATTACK_BORN (its SYBIL_BORN) at the run's end
+ATTACK_FLOOD = dict(sybil_fraction=0.2, onset=12, seed=0,
+                    behaviors=("drop_forward", "lie_ihave", "graft_spam", "self_promo"))
+ATTACK_LOSS = 0.1
+ATTACK_ROUNDS = 56
+ATTACK_PUBS = (4, 36)
+ATTACK_BORN = (16, 36)
+#: the most honest delivery an attack may cost over the pairs its
+#: attack-free twin reached (the JAX smoke's tolerance)
+ATTACK_HONEST_TOL = 0.05
+#: its eclipse cell: half of each target's neighbourhood sybil, graft spam
+#: toward the targets and drop-on-forward, from tick 20, no link faults
+ATTACK_ECLIPSE = dict(targets=(0, 1, 2), surround_targets=True, surround_fraction=0.5,
+                      behaviors=("drop_forward", "graft_spam"), onset=20, seed=1)
+ECLIPSE_ROUNDS = 88
+
+
+def attack_parity(sweep, driver, convert, dev, counters) -> dict:
+    """Phase 40's checks at N=8192: all five behaviours in all four engines,
+    card against CPU with the route asserted from launch counts (the
+    per-round step off both fused kernels, as the reference's
+    fused_eligible keeps an adversary build, with delivery_banded a round
+    and 8 select_topk a heartbeat; the phase engine 1 + r edge_exchange a
+    phase; FloodSub and RandomSub their delivery kernel a round), each
+    recording the telemetry panel, which must reconcile on the card, also in
+    FloodSub and RandomSub cells without an attack; an unarmed population
+    equal to none in leaves and launches, and attacked windows against
+    their eager loops. Returns the launches by cell."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.chaos import BEHAVIORS, Adversary, AttackScenario
+    from go_libp2p_pubsub_tpu_torch.telemetry import TelemetryConfig, reconcile
+    from go_libp2p_pubsub_tpu_torch.trace.events import EV
+
+    n, r, nr, wr = N_PARITY, PHASE_R, CHAOS_PARITY_ROUNDS, CONFIG_WINDOW_ROUNDS
+    tel = TelemetryConfig(rows=nr, tracked=(0, n // 2))
+    scenario = AttackScenario(n_peers=n, behaviors=BEHAVIORS,
+                              censor_origins=tuple(range(0, n, 7)), **ATTACK_PARITY)
+    po, pt, pv = sweep.publish_schedule(wr + r, n, 1, None, seed=14)
+    rounds = lambda st, step, i: sweep.run_rounds(st, step, po[i:i + 1], pt[i:i + 1],
+                                                  pv[i:i + 1])
+    phases = lambda st, step, i: sweep.run_phases(
+        st, step, po[i * r:(i + 1) * r], pt[i * r:(i + 1) * r], pv[i * r:(i + 1) * r],
+        rounds_per_phase=r, heartbeat_every=r)
+
+    def bench(adversary, rr=1):
+        def build(d):
+            st, step, _t, _h = sweep.build_bench(n, M_SLOTS, count_events=True,
+                                                 rounds_per_phase=rr, device=d,
+                                                 adversary=adversary, telemetry=tel)
+            if rr > 1:
+                st = driver.form_mesh(step, st, rounds_per_phase=rr)
+            return st, step
+        return build
+
+    def sim(router, graph_kind, layout, adversary=scenario):
+        def build(d):
+            make = sweep.build_floodsub if router == "floodsub" else sweep.build_randomsub
+            kw = {} if router == "floodsub" else dict(size_estimate=36)
+            return make(n, M_SLOTS, graph=graph_kind, layout=layout, device=d,
+                        adversary=adversary, telemetry=tel, **kw)
+        return build
+
+    def counters_of(gossip: bool, armed: bool = True):
+        def check(leaves):
+            pre = ".core" if gossip else ""
+            ev = leaves[f"{pre}.events"]
+            bad = reconcile(leaves[f"{pre}.telem.panel"], ev)
+            if bad:
+                raise AssertionError(f"telemetry reconcile on the card: {bad}")
+            names = (("ADV_DROP", "ADV_IHAVE_LIE", "ADV_GRAFT_SPAM") if gossip
+                     else ("ADV_DROP",))
+            got = {k: int(ev[EV[k]]) for k in names}
+            if armed and min(got.values()) <= 0:
+                raise AssertionError(f"attack counters {got}: a behaviour never acted")
+            return f"counters {got}, the panel reconciled"
+        return check
+
+    sel = SELECTIONS_PER_HEARTBEAT
+    cells = {
+        "per-round lattice": (bench(scenario), rounds, nr,
+                              _route(nr, delivery_banded=1, select_topk=sel), True),
+        "phase lattice": (bench(scenario, r), phases, 2,
+                          _route(2, edge_exchange=1 + r, select_topk=sel), True),
+        "floodsub lattice": (sim("floodsub", "lattice", "dense"), rounds, nr,
+                             _route(nr, delivery_banded=1), False),
+        "floodsub power-law csr": (sim("floodsub", "powerlaw", "csr"), rounds, nr,
+                                   _route(nr, csr_delivery=1), False),
+        "randomsub lattice": (sim("randomsub", "lattice", "dense"), rounds, nr,
+                              _route(nr, delivery_banded=1, select_topk=1), False),
+        "randomsub power-law csr": (sim("randomsub", "powerlaw", "csr"), rounds, nr,
+                                    _route(nr, csr_delivery=1, select_topk=1), False),
+        "floodsub power-law csr, no attack": (sim("floodsub", "powerlaw", "csr", None), rounds,
+                                              nr, _route(nr, csr_delivery=1), False),
+        "randomsub lattice, no attack": (sim("randomsub", "lattice", "dense", None), rounds, nr,
+                                         _route(nr, delivery_banded=1, select_topk=1), False),
+    }
+    out = {}
+    for cell, (build, drive, n_disp, want, gossip) in cells.items():
+        out[cell] = plane_card_cpu(convert, counters, f"attack {cell}", build, drive, n_disp,
+                                   want, counters_of(gossip, "no attack" not in cell))
+
+    # an unarmed population is no population: leaves and launches
+    unarmed = Adversary(n, np.zeros(n, bool), behaviors=("drop_forward", "lie_ihave"))
+    for engine, rr, drive, n_disp in (("per-round", 1, rounds, nr), ("phase", r, phases, 2)):
+        runs = []
+        for adversary in (None, unarmed):
+            st, step = bench(adversary, rr)(dev)
+            for mod in counters:
+                mod.reset_launch_counts()
+            for i in range(n_disp):
+                st = drive(st, step, i)
+            runs.append((convert.state_leaves(st), _dispatch_counts(counters)))
+        leaves_equal(runs[0][0], runs[1][0], f"attack unarmed {engine}")
+        if runs[1][1] != runs[0][1]:
+            raise AssertionError(f"attack unarmed {engine}: launches {runs[1][1]} against "
+                                 f"{runs[0][1]}")
+        out[f"{engine} unarmed"] = runs[0][1]
+        say(f"attack unarmed {engine}: a population with no sybil equals adversary=None "
+            f"leaf for leaf, launches {runs[0][1]} alike")
+
+    # attacked windows against their eager loops on the card
+    for engine, rr in (("per-round", 1), ("phase", r)):
+        leaves = []
+        for mode in ("eager", "window"):
+            st, step = bench(scenario, rr)(dev)
+            sl = slice(0, wr)
+            if mode == "eager":
+                st = (sweep.run_phases(st, step, po[sl], pt[sl], pv[sl], rounds_per_phase=rr,
+                                       heartbeat_every=rr) if rr > 1
+                      else sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl]))
+            else:
+                scan = (driver.make_scan(step, heartbeat_every=rr, rounds_per_phase=rr)
+                        if rr > 1 else driver.make_scan(step, static_heartbeat=False, unroll=4))
+                half = wr // 2
+                st = scan(st, po[:half], pt[:half], pv[:half])
+                st = scan(st, po[half:wr], pt[half:wr], pv[half:wr])
+                torch.cuda.synchronize()
+                if scan.window.captures != 1 or scan.window.replays < 2:
+                    raise AssertionError(f"attack {engine} window: {scan.window.captures} "
+                                         f"captures, {scan.window.replays} replays")
+                out[f"{engine} window block"] = {k: v for k, v in
+                                                 scan.window.block_launches.items() if v}
+            leaves.append(convert.state_leaves(st))
+            del st, step
+        leaves_equal(leaves[0], leaves[1], f"attack {engine} window against eager")
+        say(f"attack {engine} window N={n}: equal to the eager loop leaf for leaf after {wr} "
+            f"rounds in two calls; a block launches {out[f'{engine} window block']}")
+    return out
+
+
+def attack_schedule(is_sybil, rounds: int, seed: int = 0):
+    """[T, 2] publishes by absolute tick: 2 honest origins a round at ticks
+    ATTACK_PUBS, none elsewhere (T = rounds + r covers the phase engine's
+    form_mesh)."""
+    import numpy as np
+
+    t = rounds + PHASE_R
+    rng = np.random.default_rng(seed)
+    po = np.full((t, 2), -1, np.int32)
+    po[ATTACK_PUBS[0]:ATTACK_PUBS[1]] = rng.choice(
+        np.flatnonzero(~is_sybil), size=(ATTACK_PUBS[1] - ATTACK_PUBS[0], 2))
+    return po, np.zeros((t, 2), np.int32), po >= 0
+
+
+def attack_run(sweep, driver, dev, engine: str, mode: str, po, pt, pv, counters, observe=None,
+               rounds: int | None = None, **bench_kw):
+    """One full-width run of the bench default config (events counted):
+    the per-round step over ticks [0, rounds), or form_mesh and the phase
+    engine over [r, r + rounds) (``rounds`` default ATTACK_ROUNDS), eager
+    or through make_scan.
+    ``observe(state, tick)`` reads the state after every dispatch of an
+    eager run. Returns (state, record)."""
+    import torch
+
+    r = PHASE_R if engine == "phase" else 1
+    rounds = ATTACK_ROUNDS if rounds is None else rounds
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, rounds_per_phase=r, device=dev,
+                                         count_events=True, **bench_kw)
+    t0 = 0
+    if r > 1:
+        st = driver.form_mesh(step, st, rounds_per_phase=r, pub_width=2)
+        t0 = r
+    sl = slice(t0, t0 + rounds)
+    rec = {"mode": mode}
+    for mod in counters:
+        mod.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if mode == "window":
+        scan = (driver.make_scan(step, heartbeat_every=r, rounds_per_phase=r, unroll=2)
+                if r > 1 else driver.make_scan(step, static_heartbeat=False, unroll=4))
+        st = scan(st, po[sl], pt[sl], pv[sl])
+    elif observe is None:
+        st = (sweep.run_phases(st, step, po[sl], pt[sl], pv[sl], rounds_per_phase=r,
+                               heartbeat_every=r) if r > 1
+              else sweep.run_rounds(st, step, po[sl], pt[sl], pv[sl]))
+    else:
+        for i in range(0, rounds, r):
+            a = slice(t0 + i, t0 + i + r)
+            st = (sweep.run_phases(st, step, po[a], pt[a], pv[a], rounds_per_phase=r,
+                                   heartbeat_every=r) if r > 1
+                  else sweep.run_rounds(st, step, po[a], pt[a], pv[a]))
+            observe(st, t0 + i + r)
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t1
+    if mode == "window":
+        win = scan.window
+        rec.update(capture_seconds=win.capture_seconds,
+                   block_launches={k: v for k, v in win.block_launches.items() if v},
+                   block_dispatches=win.block_dispatches)
+        rec["rate"] = rounds / max(rec["seconds"] - win.capture_seconds, 1e-9)
+    else:
+        rec["launches"] = {k: v for k, v in _dispatch_counts(counters).items() if v}
+        rec["rate"] = rounds / rec["seconds"]
+    if int(st.core.tick) != t0 + rounds:
+        raise AssertionError(f"attack {engine} {mode}: tick {int(st.core.tick)}")
+    return st, rec
+
+
+def attack_readings(st, is_sybil, att_edges, hon_edges, reach=None) -> dict:
+    """The sybil-flood cell's readings (scripts/attack_report.py's): the
+    delivery ratio of the messages born in ATTACK_BORN to honest and to
+    sybil receivers, the median score honest peers hold of attacker edges
+    and of honest edges, and the attack and fault counters. ``reach`` (the
+    attack-free twin's [N, M] delivered plane, on the same publish and
+    fault streams) adds each side's delivery over the pairs the twin
+    reached (None where the twin reached none), and the run's own plane
+    comes back under ``"reached"``."""
+    import numpy as np
+
+    from go_libp2p_pubsub_tpu_torch.chaos import expected_receivers
+    from go_libp2p_pubsub_tpu_torch.trace.events import EV
+
+    n = is_sybil.shape[0]
+    msgs = st.core.msgs
+    birth, topic, origin = (msgs.birth.cpu().numpy(), msgs.topic.cpu().numpy(),
+                            msgs.origin.cpu().numpy())
+    got = st.core.dlv.first_round.cpu().numpy() >= 0
+    exp = expected_receivers(birth, topic, origin, np.ones((n, 1), bool), born_in=ATTACK_BORN)
+    out = {"reached": got, "msgs": (birth, topic, origin)}
+    for side, rows in (("honest", ~is_sybil), ("sybil", is_sybil)):
+        e = exp & rows[:, None]
+        out[f"{side}_delivery"] = float((got & e).sum() / max(int(e.sum()), 1))
+        out[f"{side}_expected"] = int(e.sum())
+        if reach is not None:
+            twin = e & reach
+            out[f"{side}_twin_reached"] = int(twin.sum())
+            out[f"{side}_delivery_of_twin"] = (float((got & twin).sum() / twin.sum())
+                                               if twin.any() else None)
+    scores = st.scores.cpu().numpy()
+    ev = st.core.events.cpu().numpy()
+    out.update(attacker_edge_score_median=float(np.median(scores[att_edges])),
+               honest_edge_score_median=float(np.median(scores[hon_edges])),
+               **{k.lower(): int(ev[EV[k]]) for k in ("ADV_DROP", "ADV_IHAVE_LIE",
+                                                       "ADV_GRAFT_SPAM", "LINK_DOWN")})
+    return out
+
+
+def attack_flood(sweep, driver, convert, dev, card, counters) -> dict:
+    """Phase 40's sybil flood at N=100k: both engines, eager and windowed,
+    each after the attack-free run on the same fault and publish streams
+    (i.i.d. loss ATTACK_LOSS); windows equal their eager loops leaf for
+    leaf and launch, a block, the route of an attacked build. The sybils
+    are the last fifth of the ids, one arc of the bench ring, so a message
+    meets them only near the arc's two ends: delivery is read over the
+    pairs the attack-free twin reached, where the attack must keep
+    honest delivery within ATTACK_HONEST_TOL and the honest peers must
+    score attacker edges below honest ones. Returns the runs."""
+    import numpy as np
+
+    from go_libp2p_pubsub_tpu_torch import graph
+    from go_libp2p_pubsub_tpu_torch.chaos import AttackScenario, ChaosConfig
+
+    scenario = AttackScenario(n_peers=N_FULL, **ATTACK_FLOOD)
+    is_sybil = scenario.build().is_sybil
+    tp = graph.ring_lattice(N_FULL, d=8)
+    nbr = np.clip(tp.nbr, 0, None)
+    att = tp.nbr_ok & is_sybil[nbr] & ~is_sybil[:, None]
+    hon = tp.nbr_ok & ~is_sybil[nbr] & ~is_sybil[:, None]
+    po, pt, pv = attack_schedule(is_sybil, ATTACK_ROUNDS)
+    chaos = ChaosConfig(loss_rate=ATTACK_LOSS)
+    sel = SELECTIONS_PER_HEARTBEAT
+    adv_keys = ("adv_drop", "adv_ihave_lie", "adv_graft_spam")
+    out = {}
+    for engine in ("per-round", "phase"):
+        r = PHASE_R if engine == "phase" else 1
+        twin = None
+        for armed in (False, True):
+            label = f"{engine} {'attack' if armed else 'ablation'}"
+            leaves = []
+            for mode in ("eager", "window"):
+                st, rec = attack_run(sweep, driver, dev, engine, mode, po, pt, pv, counters,
+                                     chaos=chaos, adversary=scenario if armed else None)
+                rec.update(attack_readings(st, is_sybil, att, hon,
+                                           reach=twin["reached"] if armed else None))
+                leaves.append(convert.state_leaves(st))
+                del st
+                if mode == "eager" and not armed:
+                    twin = {"reached": rec["reached"], "msgs": rec["msgs"]}
+                elif armed and any(not np.array_equal(a, b)
+                                   for a, b in zip(rec["msgs"], twin["msgs"])):
+                    raise AssertionError(f"attack {label} {mode}: the message table differs "
+                                         "from the twin's")
+                del rec["reached"], rec["msgs"]
+                if mode == "window" and armed:
+                    d = rec["block_dispatches"]
+                    want = (_route(d, edge_exchange=1 + r, select_topk=sel) if r > 1
+                            else _route(d, delivery_banded=1, select_topk=sel))
+                    want = {k: v for k, v in want.items() if v}
+                    if rec["block_launches"] != want:
+                        raise AssertionError(f"attack {label} window block launches "
+                                             f"{rec['block_launches']}, the route wants {want}")
+                unit = "delivery-rounds/s" if r > 1 else "rounds/s"
+                of_twin = ""
+                if armed:
+                    of_twin = (f" ({rec['honest_delivery_of_twin']} of the "
+                               f"{rec['honest_twin_reached']} pairs the twin reached), "
+                               f"attacker {rec['sybil_delivery_of_twin']} of the twin's "
+                               f"{rec['sybil_twin_reached']}")
+                say(f"attack sybil flood {label} {mode} N={N_FULL}: {rec['rate']:.3f} {unit} "
+                    f"over {ATTACK_ROUNDS} rounds ({rec.get('capture_seconds', 0.0):.3f} s "
+                    f"capture), honest delivery {rec['honest_delivery']:.6f} "
+                    f"({rec['honest_expected']} expected){of_twin}, attacker delivery "
+                    f"{rec['sybil_delivery']:.6f}, median score of attacker edges "
+                    f"{rec['attacker_edge_score_median']:.6f} (honest edges "
+                    f"{rec['honest_edge_score_median']:.6f}), ADV_DROP {rec['adv_drop']} "
+                    f"ADV_IHAVE_LIE {rec['adv_ihave_lie']} ADV_GRAFT_SPAM "
+                    f"{rec['adv_graft_spam']} LINK_DOWN {rec['link_down']}, launches "
+                    f"{rec.get('launches', rec.get('block_launches'))}, on {card}")
+                if not armed and any(rec[k] for k in adv_keys):
+                    raise AssertionError(f"attack {label} {mode}: attack counters "
+                                         f"{[rec[k] for k in adv_keys]} with no attack")
+                if armed:
+                    if not (rec["adv_ihave_lie"] and rec["adv_graft_spam"]):
+                        raise AssertionError(f"attack {label} {mode}: no lying IHAVE or "
+                                             f"GRAFT flood counted ({rec['adv_ihave_lie']}, "
+                                             f"{rec['adv_graft_spam']})")
+                    if not (rec["attacker_edge_score_median"]
+                            < rec["honest_edge_score_median"]):
+                        raise AssertionError(
+                            f"attack {label} {mode}: honest peers score attacker edges at "
+                            f"{rec['attacker_edge_score_median']}, not below honest edges "
+                            f"({rec['honest_edge_score_median']})")
+                    if not rec["honest_twin_reached"]:
+                        raise AssertionError(f"attack {label}: the twin reached no honest pair")
+                    if rec["honest_delivery_of_twin"] < 1.0 - ATTACK_HONEST_TOL:
+                        raise AssertionError(
+                            f"attack {label} {mode}: honest delivery "
+                            f"{rec['honest_delivery_of_twin']} of the twin's reach, below "
+                            f"1 - {ATTACK_HONEST_TOL}")
+                out.setdefault(label, []).append(rec)
+            leaves_equal(leaves[0], leaves[1], f"attack {label} window against eager")
+            del leaves
+    return out
+
+
+def attack_eclipse(sweep, driver, dev, card, counters) -> dict:
+    """Phase 40's eclipse at N=100k on the bench lattice: the targets'
+    mesh edges to sybils and to honest peers after every dispatch, in both
+    engines eagerly, with the scores the targets hold of their sybil
+    edges in and out of the mesh and of their honest mesh edges; the
+    takeover (the peak sybil share of the targets' mesh edges after the
+    onset, which must rise above the share before it: the sybils are the
+    targets' lattice neighbours, honest until then) and the recovery tick (the first tick from the peak on with no sybil and some
+    honest mesh edge), as scripts/attack_report.py reads them."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import graph
+    from go_libp2p_pubsub_tpu_torch.chaos import AttackScenario
+
+    tp = graph.ring_lattice(N_FULL, d=8)
+    adv = AttackScenario(n_peers=N_FULL, **ATTACK_ECLIPSE).build(tp)
+    tgt = list(ATTACK_ECLIPSE["targets"])
+    nbr = np.clip(tp.nbr, 0, None)
+    syb_edge = torch.as_tensor(tp.nbr_ok[tgt] & adv.is_sybil[nbr[tgt]], device=dev)
+    hon_edge = torch.as_tensor(tp.nbr_ok[tgt] & ~adv.is_sybil[nbr[tgt]], device=dev)
+    po, pt, pv = attack_schedule(adv.is_sybil, ECLIPSE_ROUNDS, seed=1)
+    onset = ATTACK_ECLIPSE["onset"]
+    out = {}
+    for engine in ("per-round", "phase"):
+        series, scores = [], []
+
+        def observe(st, tick):
+            mesh_t = st.mesh[tgt, 0, :]
+            series.append((tick, int((mesh_t & syb_edge).sum()), int((mesh_t & hon_edge).sum())))
+            sc = st.scores[tgt]
+            scores.append((tick, sc[syb_edge & mesh_t].tolist(), sc[syb_edge & ~mesh_t].tolist(),
+                           sc[hon_edge & mesh_t].tolist()))
+
+        st, rec = attack_run(sweep, driver, dev, engine, "eager", po, pt, pv, counters,
+                             observe=observe, rounds=ECLIPSE_ROUNDS, adversary=adv)
+        del st
+        before = [syb / (syb + hon) for t, syb, hon in series if t < onset and syb + hon]
+        peak, peak_t = 0.0, onset
+        for t, syb, hon in series:
+            share = syb / (syb + hon) if t >= onset and syb + hon else 0.0
+            if share > peak:
+                peak, peak_t = share, t
+        recover = next((t for t, syb, hon in series if t >= peak_t and syb == 0 and hon), None)
+        spread = lambda v: [min(v), float(np.median(v)), max(v)] if v else None
+        last_t, *last = scores[-1]
+        kinds = ("sybil_mesh_edges", "sybil_edges_out_of_mesh", "honest_mesh_edges")
+        rec.update(peak_sybil_share=peak, peak_tick=peak_t, recover_tick=recover,
+                   share_before=before[-1] if before else None, series=series,
+                   sybils=int(adv.is_sybil.sum()),
+                   target_scores={"tick": last_t, **{k: spread(v) for k, v in zip(kinds, last)}},
+                   target_score_series=[(t, *(float(np.median(v)) if v else None for v in vs))
+                                        for t, *vs in scores])
+        say(f"attack eclipse {engine} N={N_FULL}: targets {tgt}, {rec['sybils']} sybils "
+            f"around them, {rec['share_before']} of the targets' mesh edges theirs before "
+            f"the onset; takeover peak {peak:.3f} of the targets' mesh edges at tick "
+            f"{peak_t}, recovered (no sybil, some honest mesh edge) at tick {recover} (onset "
+            f"{onset}); the targets' scores (min, median, max) at tick {last_t} of their "
+            f"sybil mesh edges {rec['target_scores'][kinds[0]]}, of their sybil edges out "
+            f"of the mesh {rec['target_scores'][kinds[1]]}, of their honest mesh edges "
+            f"{rec['target_scores'][kinds[2]]}; "
+            f"{rec['rate']:.3f} {'delivery-rounds' if engine == 'phase' else 'rounds'}"
+            f"/s eager, launches {rec['launches']}, on {card}")
+        if rec["share_before"] is None or not peak > rec["share_before"]:
+            raise AssertionError(f"attack eclipse {engine}: takeover peak {peak} does not "
+                                 f"rise above the share before the onset "
+                                 f"{rec['share_before']}")
+        out[engine] = rec
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 41: the telemetry panel
+
+
+def telemetry_cost(sweep, driver, dev, card, counters) -> dict:
+    """Phase 41: the windowed default phase and per-round step at N=100k
+    (events counted) with the panel on and off in turns (off, on, on, off);
+    the rate cost, each window block's launches (the panel's row is plain
+    ops: equal on and off), and ``reconcile`` on the card's panel, which
+    must come back empty. Returns the turns by engine."""
+    from go_libp2p_pubsub_tpu_torch.telemetry import TelemetryConfig, metric_index, reconcile
+
+    tel = TelemetryConfig(rows=256, tracked=(0, N_FULL // 2))
+
+    def observe(st):
+        bad = reconcile(st.core.telem.panel, st.core.events)
+        if bad:
+            raise AssertionError(f"telemetry reconcile on the card: {bad}")
+        panel = st.core.telem.panel
+        rows = int((panel != 0).any(1).sum())
+        return {"reconcile": "empty", "rows_written": rows,
+                "last_delivery_ratio": float(panel[rows - 1, metric_index("delivery_ratio")]),
+                "last_mesh_deg_mean": float(panel[rows - 1, metric_index("mesh_deg_mean")]),
+                "last_score_p50": float(panel[rows - 1, metric_index("score_p50")])}
+
+    out = {}
+    for engine in ("phase", "per-round"):
+        turns = []
+        for on in (False, True, True, False):
+            kw = dict(telemetry=tel, observe=observe) if on else {}
+            t = window_bench(sweep, driver, dev, card, counters, engine, modes=("window",),
+                             count_events=True, **kw)[0]
+            t["telemetry"] = on
+            turns.append(t)
+        blocks = {str(t["block_launches"]) for t in turns}
+        if len(blocks) != 1:
+            raise AssertionError(f"telemetry {engine}: window blocks launch {blocks} on and off")
+        off = [t["rate"] for t in turns if not t["telemetry"]]
+        on_ = [t["rate"] for t in turns if t["telemetry"]]
+        cost = 1.0 - (sum(on_) / len(on_)) / (sum(off) / len(off))
+        say(f"telemetry {engine} windowed N={N_FULL}: on {[round(x, 3) for x in on_]} against "
+            f"off {[round(x, 3) for x in off]} ({cost:.4f} of the rate), a block launches "
+            f"{turns[0]['block_launches']} on and off, reconcile empty on the card, on {card}")
+        out[engine] = {"turns": turns, "cost": cost}
+    return out
+
+
 def leaves_equal(a: dict, b: dict, where: str):
     import numpy as np
 
@@ -4033,6 +4555,14 @@ def main() -> int:
     from go_libp2p_pubsub_tpu_torch.state import Net, densify_edge_planes
 
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(phases: str) -> None:
+        """Print the seconds since the last lap: the time of ``phases``."""
+        now = time.perf_counter()
+        say(f"time of phase(s) {phases}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -4050,6 +4580,7 @@ def main() -> int:
 
     say(f"cryptography {cryptography.__version__}, the API's Ed25519 signing")
 
+    lap("1")
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
@@ -4067,6 +4598,7 @@ def main() -> int:
         base = build_baseline(opts.baseline)
         say(f"baseline kernels of {opts.baseline} built in {time.perf_counter() - t0:.2f} s")
 
+    lap("2")
     # 3. kernels at the main path's shapes, inputs from a real round
     st, step, n_topics, honest = sweep.build_bench(N_FULL, M_SLOTS, device=dev)
     po, pt, pv = sweep.publish_schedule(FORMATION_ROUNDS + MEASURED_ROUNDS + 1,
@@ -4078,6 +4610,7 @@ def main() -> int:
     records = check_kernels(fr, captured, gen, base)
     del st, captured
 
+    lap("3")
     # 4. the slice at full width
     total = FORMATION_ROUNDS + MEASURED_ROUNDS
     heartbeat_launches = SELECTIONS_PER_HEARTBEAT * total
@@ -4119,6 +4652,7 @@ def main() -> int:
         f"({peak / 2**20:.1f} MiB), state {state_bytes} bytes, on {card}")
     del st
 
+    lap("4")
     # 5. card against CPU from the same seed, also under subnormal scores
     gossip_parity(sweep, convert, "GossipSub bench", lambda d: sweep.build_bench(
         N_PARITY, M_SLOTS, count_events=True, device=d)[:2])
@@ -4126,6 +4660,7 @@ def main() -> int:
         gossip_parity(sweep, convert, f"GossipSub subnormal {cell}",
                       lambda d, c=cell: build_subnormal_gossipsub(sweep, N_PARITY, d, c))
 
+    lap("5")
     # 6. the CSR bench: the same run CSR-resident through the composites
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4163,6 +4698,7 @@ def main() -> int:
     select_calls = {"K=16": cap["select_topk"][0]}
     del st, _st, dense_final, leaves
 
+    lap("6")
     # 7. GossipSub on the power-law graph, CSR-resident
     pl_total = FORMATION_ROUNDS + POWERLAW_ROUNDS
     torch.cuda.synchronize()
@@ -4197,6 +4733,7 @@ def main() -> int:
     select_calls["K=64"] = cap["select_topk"][0]
     del st, _st, cap
 
+    lap("7")
     # 8. select_topk at the main path's shapes
     sel = check_select_topk(sk, select_calls, gen, base)
     main16, k64 = sel["K=16"], sel["K=64"]
@@ -4212,12 +4749,14 @@ def main() -> int:
     })
     del select_calls
 
+    lap("8")
     # 9. the CSR builds, card against CPU
     gossip_parity(sweep, convert, "CSR bench", lambda d: sweep.build_bench(
         N_PARITY, M_SLOTS, count_events=True, edge_layout="csr", fused=True, device=d)[:2])
     gossip_parity(sweep, convert, "power-law GossipSub", lambda d: build_powerlaw_gossipsub(
         sweep, N_PARITY, d, count_events=True)[:2])
 
+    lap("9")
     # 10-12. FloodSub over the shared delivery core, both layouts
     records.append(flood_run(sweep, convert, db, "delivery_banded", dict(
         n=N_FULL, graph="lattice", layout="dense"), card, gen, dev, base))
@@ -4226,6 +4765,7 @@ def main() -> int:
     for kw in (dict(graph="lattice", layout="dense"), dict(graph="powerlaw", layout="csr")):
         flood_parity(sweep, convert, kw)
 
+    lap("10-12")
     # 13-14. the phase engine bench.py measures, dense banded and CSR
     from go_libp2p_pubsub_tpu_torch import driver
 
@@ -4235,19 +4775,23 @@ def main() -> int:
                 dense_final=dense_leaves)
     del dense_leaves
 
+    lap("13-14")
     # 15. the phase engine, card against CPU
     for layout in ("dense", "csr"):
         phase_parity(sweep, driver, convert, layout)
 
+    lap("15")
     # 16. edge_exchange at the phase engine's shapes
     shapes = check_phase_exchange(fr, phase_calls, gen, base)
     records[0].update(phase_launches=phase_ex, phase_head=shapes["C=6"],
                       phase_data=shapes["C=2"])
     del phase_calls
 
+    lap("16")
     # 17. windows on the card against the eager loop; each kernel in a graph
     blocks = window_parity(sweep, convert, dev, counters)
 
+    lap("17")
     # 18. windowed benches at full width, in turns with the eager loop
     phase_turns = window_bench(sweep, driver, dev, card, counters, "phase")
     round_turns = window_bench(sweep, driver, dev, card, counters, "per-round")
@@ -4263,9 +4807,11 @@ def main() -> int:
             f"{k}, a block of {d} dispatches": launched[rec["name"]]
             for k, (d, launched) in block_of.items() if launched.get(rec["name"])}
 
+    lap("18")
     # 19. the bench CLI's line at a shortened segment
     bench_cli(card)
 
+    lap("19")
     # 20-21. the eth2 and sybil configs at full size, both engines, eager
     # and windowed; card against CPU and windows against their eager loops
     config_runs = {}
@@ -4280,10 +4826,12 @@ def main() -> int:
                 rec["name"], 0)
             for path, runs in config_runs.items() for mode, run in runs.items()}
 
+    lap("20-21")
     # 22. the bench CLI's line of each config
     for config in ("eth2", "sybil"):
         bench_cli(card, config)
 
+    lap("22")
     # 23-24. RandomSub: BASELINE.json config #2, then at full width on the
     # lattice and on the 1M-peer power-law graph CSR-resident
     slice_launches = randomsub_baseline(sweep, convert, counters, dev, card)
@@ -4293,6 +4841,7 @@ def main() -> int:
         slice_launches[f"RandomSub {cell} (N={spec['n']}), a round"] = (
             scale[cell]["launches_a_round"])
 
+    lap("23-24")
     # 25. the delivery core's options on the bench default config: card
     # against CPU and windows against eager in both engines, the kernels
     # each engine may launch under them, and the both-options cell's
@@ -4310,6 +4859,7 @@ def main() -> int:
         f"the plain config's {[round(t['rate'], 3) for t in phase_turns if t['mode'] == 'window']}"
         f" delivery-rounds/s (phase 18), on {card}")
 
+    lap("25")
     # 26. FloodSub under the queue cap
     capped = flood_capped(sweep, convert, counters, dev, card)
     for rec in records:
@@ -4323,6 +4873,7 @@ def main() -> int:
         "options_window_rates": [t["rate"] for t in option_turns if t["mode"] == "window"],
         "floodsub_queue_cap": capped}))
 
+    lap("26")
     # 27. PX with edge liveness, the exact-trace plane and the int16
     # counters at full width: launch gates and each kernel call on the
     # live view, then both engines eager and windowed in turns
@@ -4342,11 +4893,13 @@ def main() -> int:
     say("PX cell: " + json.dumps({"live_edges_start": gates["live_start"],
                                   "launches": gates["launches"], "turns": px_turns}))
 
+    lap("27")
     # 28. the PX cell card against CPU at N=8192, both engines, every leaf
     # after every round or phase; each window against its eager loop
     config_parity(sweep, driver, convert, "default", dev, label="default PX",
                   px=True)
 
+    lap("28")
     # 29. churn on the kernel route at N=100k: launch gates, the kill
     # window's kernel calls against their plain versions, both engines
     # eager and windowed
@@ -4359,6 +4912,7 @@ def main() -> int:
     say("churn cell: " + json.dumps({"card": card, "dead_rows": cg["dead_rows"],
                                      "launches": cg["launches"], "runs": churn}))
 
+    lap("29")
     # 30. the mutating overlay at N=100k, dense and full-capacity CSR
     overlay = overlay_runs(sweep, driver, dev, card, counters)
     for rec in records:
@@ -4367,9 +4921,11 @@ def main() -> int:
                                        for k, v in overlay.items() if "launches" in v}
     say("overlay cell: " + json.dumps({"card": card, **overlay}))
 
+    lap("30")
     # 31. card against CPU at N=8192 and windows against eager, both cells
     dynamic_parity(sweep, driver, convert, dev)
 
+    lap("31")
     # 32. the lifted score plane at full width, both engines: the kernel
     # route, the first calls against plain, eager and windowed in turns,
     # one window replaying three planes
@@ -4380,6 +4936,7 @@ def main() -> int:
         rec_of[kernel]["lift_launches"] = {e: v["launches"][kernel] for e, v in lift.items()}
     say("lift cell: " + json.dumps({"card": card, **lift}))
 
+    lap("32")
     # 33. the count path and the per-plane wire form at full width, eager
     # and windowed beside the plain config; the bench CLI's per-plane line
     forms = {}
@@ -4394,6 +4951,7 @@ def main() -> int:
     say("forms cell: " + json.dumps({"card": card, **forms}))
     bench_cli(card, coalesced=False)
 
+    lap("33")
     # 34. card against CPU at N=8192 and windows against eager: the lifted
     # step (plane A then B, dense banded and CSR-resident), the count path,
     # the per-plane form; FloodSub and RandomSub with a plane; forward_mask
@@ -4410,6 +4968,7 @@ def main() -> int:
     for kernel in ("delivery_banded", "csr_delivery"):
         rec_of[kernel]["forward_mask_launches"] = {layout: fm[layout][kernel] for layout in fm}
 
+    lap("34")
     # 35. the trace drain: card against CPU trace bytes at N=8192, then the
     # full-width traced per-round and phase runs reconciled with the state
     from go_libp2p_pubsub_tpu_torch import checkpoint
@@ -4423,6 +4982,7 @@ def main() -> int:
     say("trace cell: " + json.dumps({"card": card, "parity": trace_cells, **traced}))
     say(f"trace phase {time.perf_counter() - t0:.1f} s")
 
+    lap("35")
     # 36. the checkpoint at full width: save, restore, resume eagerly and
     # into a captured window
     t0 = time.perf_counter()
@@ -4431,6 +4991,7 @@ def main() -> int:
     say("checkpoint cell: " + json.dumps({"card": card, "runs": ckpt}))
     say(f"checkpoint phase {time.perf_counter() - t0:.1f} s")
 
+    lap("36")
     # 37. the application API: card == CPU at N=8192, the block plane on
     # the kernels' routes, the API at full width against the direct build
     from go_libp2p_pubsub_tpu_torch import api, sign
@@ -4449,6 +5010,7 @@ def main() -> int:
     say("api cell: " + json.dumps({"card": card, "runs": api_runs}))
     say(f"api phase {time.perf_counter() - t0:.1f} s")
 
+    lap("37")
     # 38. the link-fault plane: every engine under i.i.d. and GE flaps and
     # under a scheduled partition, card against CPU with the routes asserted
     # from launch counts; the full-width rates and the partition's recovery
@@ -4471,11 +5033,51 @@ def main() -> int:
                                      "partition": partition}))
     say(f"chaos phase {time.perf_counter() - t0:.1f} s")
 
+    lap("38")
+    # 40. the attack plane: all five behaviours in all four engines card
+    # against CPU with their routes; the sybil flood and the eclipse at
+    # full width
+    t0 = time.perf_counter()
+    attack_cells = attack_parity(sweep, driver, convert, dev, counters)
+    flood = attack_flood(sweep, driver, convert, dev, card, counters)
+    eclipse = attack_eclipse(sweep, driver, dev, card, counters)
+    say(f"attack phase {time.perf_counter() - t0:.1f} s")
+
+    lap("40")
+    # 41. the telemetry panel on and off, windowed, at full width
+    t0 = time.perf_counter()
+    telemetry = telemetry_cost(sweep, driver, dev, card, counters)
+    say(f"telemetry phase {time.perf_counter() - t0:.1f} s")
+    for rec in records:
+        rec["attack_launches"] = {
+            **{f"{c} (N={N_PARITY})": v.get(rec["name"], 0) for c, v in attack_cells.items()},
+            **{f"sybil flood {c} {run['mode']} (N={N_FULL}), "
+               + (f"a block of {run['block_dispatches']} dispatches" if "block_launches" in run
+                  else f"{ATTACK_ROUNDS} rounds"):
+               run.get("block_launches", run.get("launches", {})).get(rec["name"], 0)
+               for c, runs in flood.items() for run in runs},
+            **{f"eclipse {e} (N={N_FULL}), {ECLIPSE_ROUNDS} rounds":
+               run["launches"].get(rec["name"], 0) for e, run in eclipse.items()}}
+        rec["telemetry_launches"] = {
+            f"{e} window {'on' if t['telemetry'] else 'off'} (N={N_FULL}), a block of "
+            f"{t['block_dispatches']} dispatches": t["block_launches"].get(rec["name"], 0)
+            for e, cell in telemetry.items() for t in cell["turns"][:2]}
+    say("attack cell: " + json.dumps({"card": card, "eclipse": {
+        e: {k: v for k, v in run.items() if k not in ("series", "target_score_series")}
+        for e, run in eclipse.items()},
+        "eclipse_series": {e: {"mesh": run["series"], "target_scores": run["target_score_series"]}
+                           for e, run in eclipse.items()},
+        "flood": flood}))
+    say("telemetry cell: " + json.dumps({"card": card, **telemetry}))
+
+    lap("41")
     # 39. launches of a bench round, a phase-bench phase and a windowed
-    # phase, traced; then the configs' rounds and phases
+    # phase, traced; then the configs' rounds and phases (last: the
+    # profiler's tracing must not touch a rate timed in this process)
     bench_launches(card)
     config_traced_launches(card)
 
+    lap("39")
     say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
 """Chaos plane: link-fault injection, partition and crash schedules, and
-recovery metrics (the JAX package's ``chaos/``, but its attack plane).
+recovery metrics, and the attack plane (the JAX package's ``chaos/``).
 
   faults    — ChaosConfig and the i.i.d. / Gilbert–Elliott link-flap
               generators (symmetric per-link masks drawn from the state's
@@ -8,8 +8,18 @@ recovery metrics (the JAX package's ``chaos/``, but its attack plane).
               per-round or per-phase mask arguments
   metrics   — recovery metrics: delivery ratio under loss, IWANT-recovery
               share, mesh-repair latency, time to recover
+  adversary — the v1.1 attack suite: per-peer sybil and behaviour planes
+              driving lie-in-IHAVE, drop-on-forward, graft spam,
+              self-promotion and censorship as masked variants of the step
+              math, and declarative AttackScenario schedules
 """
 
+from .adversary import (  # noqa: F401
+    BEHAVIORS,
+    Adversary,
+    AdversaryError,
+    AttackScenario,
+)
 from .faults import ChaosConfig, ChaosConfigError, resolve  # noqa: F401
 from .metrics import (  # noqa: F401
     DeliveryStats,

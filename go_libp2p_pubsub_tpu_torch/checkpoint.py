@@ -201,8 +201,8 @@ def restore(path: str, template):
             raise ValueError(
                 f"checkpoint has {n} leaves, template has {len(specs)} "
                 "(different configs/topology? optional planes — the "
-                "validation pipeline, the exact-trace plane, chaos_ge, the "
-                f"mutable overlay — change the leaf count); template leaves: "
+                "validation pipeline, the exact-trace plane, chaos_ge, telemetry, "
+                f"the mutable overlay — change the leaf count); template leaves: "
                 f"{', '.join(specs)}")
         leaves = {}
         errors = []

@@ -7,8 +7,10 @@ duplicate plane (``.dup_trans``) and the transmit block
 (``.msgs.wire_block``), each a leaf only when the state has one,
 on both sides, and the Gilbert–Elliott link-fault chain of a GE chaos
 state (``.core.chaos``, ``ChaosState``) and the mutable overlay of a
-dynamic-topology state (``.core.topo``, ``TopoState``) likewise. Narrowed int16 counters keep
-their dtype both ways.
+dynamic-topology state (``.core.topo``, ``TopoState``) and the telemetry
+panel and flight recorder of a recording state (``.core.telem.panel``,
+``.core.telem.flight``, ``TelemetryState``) likewise. Narrowed int16
+counters keep their dtype both ways.
 
 ``score_plane_from_reference`` carries a lifted score plane the same way
 (a JAX ``ScoreParams`` or ``CandidateParams``'s leaves, keyed ``.w2``,
@@ -33,6 +35,7 @@ from .score.engine import ScoreState
 from .score.gater import GaterState
 from .score.params import CandidateParams, MeshParams, ScoreParams
 from .state import ChaosState, Delivery, MsgTable, SimState, TopoState, resolve_device
+from .telemetry.panel import TelemetryState
 
 #: packed 32-bit word planes (uint32 in the JAX package, int32 here)
 _SIM_WORDS = (".dlv.have", ".dlv.fwd", ".dlv.fe_words", ".dlv.pending")
@@ -42,14 +45,17 @@ WORD_LEAVES = frozenset({
 })
 KEY_LEAVES = frozenset({".key", ".core.key"})
 #: leaves a state may lack (None): the pipeline's stages, the exact-trace
-#: duplicate plane and the transmit block
+#: duplicate plane, the transmit block and the flight recorder
 OPTIONAL_LEAVES = frozenset({".dlv.pending", ".core.dlv.pending", ".dup_trans",
-                             ".msgs.wire_block", ".core.msgs.wire_block"})
-#: nested states a state may lack (None): the GE chain and the mutable overlay
-OPTIONAL_NESTED = frozenset({".chaos", ".core.chaos", ".topo", ".core.topo"})
+                             ".msgs.wire_block", ".core.msgs.wire_block",
+                             ".telem.flight", ".core.telem.flight"})
+#: nested states a state may lack (None): the GE chain, the telemetry panel
+#: and the mutable overlay
+OPTIONAL_NESTED = frozenset({".chaos", ".core.chaos", ".telem", ".core.telem",
+                             ".topo", ".core.topo"})
 
 _SIM_NESTED = {"": SimState, ".msgs": MsgTable, ".dlv": Delivery, ".chaos": ChaosState,
-               ".topo": TopoState}
+               ".telem": TelemetryState, ".topo": TopoState}
 _NESTED = {
     "": GossipSubState,
     **{".core" + p: cls for p, cls in _SIM_NESTED.items()},

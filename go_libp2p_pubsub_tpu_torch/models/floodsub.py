@@ -13,15 +13,19 @@ kernel and a CSR-resident state (``SimState.init(..., n_edges=net.n_edges)``)
 the ``csr_delivery`` kernel; other dense topologies, a CSR Net with a
 dense-resident state, and any round under the queue cap or the validation
 pipeline run the plain composites, as in the reference. The chaos plane's
-link mask folds into the edge mask and keeps the round's route.
+link mask and the attack plane's data masks fold into the edge mask and
+keep the round's route; the telemetry panel's row is the round's last
+operation.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..chaos import adversary as adversary_mod
 from ..chaos import faults as chaos_faults
 from ..state import Net, SimState, allocate_publishes, replace
+from ..telemetry import panel as telemetry_panel
 from ..trace.events import EV, add_event
 from .common import accumulate_round_events, delivery_round, subscribed_msg_words
 
@@ -60,22 +64,32 @@ def floodsub_step(net: Net, state: SimState, pub_origin: torch.Tensor,
     ``SimState.init(..., chaos_ge=True)``. None or a disabled config runs the
     round without the plane. ``score_plane`` (a lifted score plane) is
     taken and unused: FloodSub has no score machinery, and the seam keeps
-    the four engines' lifted call convention one. The telemetry and
-    adversary planes raise ``NotImplementedError``."""
-    unported = [
-        (telemetry is not None, "telemetry (the per-round panel) — ROADMAP §1 item 5.3"),
-        (adversary is not None, "adversary (the attack plane) — ROADMAP §1 item 5.2"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"floodsub_step: not ported yet: {what}")
+    the four engines' lifted call convention one.
+
+    ``adversary`` (a ``chaos.Adversary`` or ``AttackScenario``, whose device
+    constants are built at every call as the reference builds them from its
+    traced net, or an ``adversary.AdversaryConsts`` built once over this
+    net, which a window needs: ``build_floodsub``'s step passes one) runs
+    the attack plane's data behaviours, drop-on-forward and censorship (the
+    mesh and score behaviours have no FloodSub counterpart): edges from an
+    active attacker lose their bits before the shared delivery round, which
+    keeps its route, and ``ADV_DROP`` counts the withheld bits within the
+    senders' forward sets. ``telemetry`` (a ``telemetry.TelemetryConfig``;
+    the state needs ``SimState.init(..., telemetry=)``) writes the round's
+    panel row last, the mesh and score columns zero. None leaves either
+    plane out."""
     chaos = chaos_faults.resolve(chaos)
+    adv = adversary_mod.build_consts(adversary, net)
     edge_mask = flood_edge_mask(net, state.msgs)
     if chaos is not None:
         ge_bad = state.chaos.ge_bad if state.chaos is not None else None
         link_ok, ge_bad_next = chaos_faults.round_link_ok(
             chaos, chaos_faults.chaos_seed(state.key), net.nbr, state.tick, ge_bad, link_deny)
         edge_mask = torch.where(link_ok[:, :, None], edge_mask, 0)
+    n_adv_drop = None
+    if adv is not None and adv.data_plane:
+        edge_mask, removed = adv.mask_transmit_nbr(state.tick, edge_mask, state.msgs)
+        n_adv_drop = adversary_mod.withheld_count(net, state.dlv.fwd, removed)
     dlv, info = delivery_round(net, state.msgs, state.dlv, edge_mask, state.tick,
                                queue_cap=queue_cap)
     msgs, dlv, _slots, is_pub, _keep, _pub_words = allocate_publishes(
@@ -87,7 +101,15 @@ def floodsub_step(net: Net, state: SimState, pub_origin: torch.Tensor,
                            chaos_faults.count_links_down(net.nbr, net.nbr_ok, link_ok))
         if chaos.needs_state:
             state = replace(state, chaos=replace(state.chaos, ge_bad=ge_bad_next))
-    return replace(state, tick=state.tick + 1, msgs=msgs, dlv=dlv, events=events)
+    if n_adv_drop is not None:
+        events = add_event(events, EV.ADV_DROP, n_adv_drop)
+    telem = state.telem
+    if telemetry is not None:
+        # the JAX step takes its net as a traced argument: no net plane is
+        # a build constant there
+        telem = telemetry_panel.record_step(telemetry, telem, state.tick, state.events, events,
+                                            net, msgs, dlv, static_live=False)
+    return replace(state, tick=state.tick + 1, msgs=msgs, dlv=dlv, events=events, telem=telem)
 
 
 def run_rounds(net: Net, state: SimState, n_rounds: int) -> SimState:

@@ -27,7 +27,11 @@ composites on every net, the banded K <= 16 one too, as the JAX package's
 round leaves ``delivery_banded`` for its composite. The chaos plane
 (``cfg.chaos``) takes the composites too, but its link mask rides the edge
 mask, so the shared delivery round keeps ``delivery_banded`` on a banded
-net.
+net. The attack plane (``adversary``) leaves the fused kernels too, as the
+JAX package's ``fused_eligible`` does; its data masks ride the edge mask
+and the IWANT responses, so the shared delivery round keeps
+``delivery_banded`` there as well. The telemetry panel changes no route:
+its row is the step's last operation.
 
 Peer exchange (``do_px``) and ``edge_liveness`` keep the kernel route: a
 round reads the live edges ``nbr_ok & edge_live`` (``live_step_views``)
@@ -48,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import prng
+from ..chaos import adversary as adversary_mod
 from ..chaos import faults as chaos_faults
 from ..chaos.faults import ChaosConfig
 from ..config import (
@@ -96,6 +101,7 @@ from ..state import (
     wire_block_words,
     wrap_csr_resident,
 )
+from ..telemetry import panel as telemetry_panel
 from ..trace.events import EV, add_event
 from .common import (
     RoundInfo,
@@ -362,12 +368,9 @@ class GossipSubState:
         engine honours; ``dynamic_topo`` installs the mutable overlay
         (``core.topo``, seeded from the net) that a ``dynamic_topo`` step
         writes. A config whose chaos plane needs state (a GE generator) gets
-        the link chain (``core.chaos``). ``telemetry`` raises
-        ``NotImplementedError``."""
-        if telemetry is not None:
-            raise NotImplementedError(
-                "GossipSubState.init: not ported yet: telemetry (the per-round panel) — "
-                "ROADMAP §1 item 5.3")
+        the link chain (``core.chaos``); ``telemetry`` (a
+        ``telemetry.TelemetryConfig``) the panel a recording step writes
+        (``core.telem``)."""
         dev = net.device
         n, k = net.nbr.shape
         s = net.n_slots
@@ -397,7 +400,8 @@ class GossipSubState:
                                val_delay=cfg.validation_delay_rounds,
                                topo=TopoState.from_net(net) if dynamic_topo else None,
                                wire_block=wire_block,
-                               chaos_ge=cfg.chaos is not None and cfg.chaos.needs_state),
+                               chaos_ge=cfg.chaos is not None and cfg.chaos.needs_state,
+                               telemetry=telemetry),
             mesh=z((n, s, k), b),
             backoff_expire=z((n, s, k), i32),
             backoff_present=z((n, s, k), b),
@@ -809,7 +813,8 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
               nbr_sub_words: torch.Tensor | None = None,
               mesh_capable: torch.Tensor | None = None,
               gossip_suppress: torch.Tensor | None = None,
-              present_ok: torch.Tensor | None = None, thr=None, msh=None) -> GossipSubState:
+              present_ok: torch.Tensor | None = None, thr=None, msh=None,
+              adversary=None) -> GossipSubState:
     """One heartbeat for every peer. The JAX package gates the maintenance
     sub-passes with ``lax.cond`` on "any row needs it"; both branches give
     identical results there, so this runs them unconditionally (no host
@@ -825,7 +830,12 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     plane ``tp`` and ``sc`` are the plane's gathered rows and the flushed
     plane itself, ``thr`` the plane too and ``msh`` a MeshParams plane
     (default ``cfg`` for both): every threshold and degree is then a 0-d
-    tensor on the device."""
+    tensor on the device. ``adversary`` (a ``chaos.adversary.
+    AdversaryConsts``, None without the attack plane) runs the heartbeat's
+    attacker behaviours: self-promotion pins the sybils' held scores of
+    fellow sybils, graft spam GRAFTs every eligible edge ignoring backoff
+    (and keeps no backoff of its own), lie-in-IHAVE advertises every live
+    message on every edge."""
     thr = cfg if thr is None else thr
     msh = cfg if msh is None else msh
     tick = st.core.tick
@@ -853,12 +863,27 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     expired = (st.backoff_expire + cfg.backoff_slack_ticks) < tick
     backoff_present = torch.where(clear_now, st.backoff_present & ~expired,
                                   st.backoff_present)
+    # graft spam: an attacker keeps no backoff bookkeeping (the reference's
+    # attacker is a raw-wire fake), and the clear lands before the
+    # candidate filter below, so a spammer pruned last round re-grafts at
+    # once
+    if adversary is not None and adversary.has("graft_spam"):
+        spam_a = adversary.active_self("graft_spam", tick)
+        backoff_present = torch.where(spam_a[:, None, None], False, backoff_present)
 
     # refreshScores + memoized score cache (gossipsub.go:1333-1341)
     if cfg.score_enabled:
         score = refresh_scores(score, st.mesh, tick, tp, sc)
         score_fn = compute_scores_lifted if getattr(sc, "lifted", False) else compute_scores
         scores = score_fn(score, st.mesh, tp, sc, st.p6, st.app_score, net)
+        # self-promotion: cooperating sybils pin their held scores of fellow
+        # sybils on the memoised plane, so every consumer (mesh maintenance,
+        # gossip targets, accept gates, the wire's score column) sees the
+        # faction's cohesion; honest peers' scores of sybils are untouched
+        if adversary is not None and adversary.has("self_promo"):
+            promo = adversary.active_self("self_promo", tick)
+            scores = torch.where(promo[:, None] & adversary.sybil_nbr, adversary.promo_score,
+                                 scores)
     else:
         scores = st.scores
 
@@ -1009,6 +1034,33 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
         ok = net.nbr_ok if present_ok is None else present_ok
         edge_live = torch.where(redial, edge_live | (direct_sym & ok), edge_live)
 
+    # the attack plane's heartbeat behaviours
+    graft_out_next = new_grafts
+    if adversary is not None:
+        if adversary.has("graft_spam"):
+            # GRAFT every eligible (live slot, edge), backoff or not (the
+            # GRAFT flood, gossipsub_spam_test.go:365); the spammer's own
+            # backoff planes stay zero
+            spam_a = adversary.active_self("graft_spam", tick)
+            spam = (spam_a[:, None, None] & slot_live[:, :, None]
+                    & adversary.spam_edges[:, None, :])
+            graft_out_next = graft_out_next | spam
+            backoff_present = torch.where(spam_a[:, None, None], False, backoff_present)
+            backoff_expire = torch.where(spam_a[:, None, None], 0, backoff_expire)
+            if cfg.count_events:
+                events = add_event(events, EV.ADV_GRAFT_SPAM, spam.sum(dtype=torch.int32))
+        if adversary.has("lie_ihave"):
+            # advertise every live message on every present edge, held or
+            # not (IHAVE spam, gossipsub_spam_test.go:290): the victims'
+            # IWANTs go unserved and their promises break
+            lie_a = adversary.active_self("lie_ihave", tick)
+            live_w = bitset.pack(st.core.msgs.birth >= 0)
+            lie = torch.where((lie_a[:, None] & net.nbr_ok)[:, :, None], live_w[None, None, :], 0)
+            if cfg.count_events:
+                events = add_event(events, EV.ADV_IHAVE_LIE,
+                                   bitset.popcount(lie & ~ihave_out).sum(dtype=torch.int32))
+            ihave_out = ihave_out | lie
+
     if cfg.count_events:
         events = add_event(events, EV.GRAFT, new_grafts.sum(dtype=torch.int32))
         events = add_event(events, EV.PRUNE, toprune.sum(dtype=torch.int32))
@@ -1021,7 +1073,7 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
         backoff_present=backoff_present,
         mcache=mcache,
         ihave_out=ihave_out,
-        graft_out=new_grafts,
+        graft_out=graft_out_next,
         prune_out=st.prune_out | toprune,
         prune_px_out=st.prune_px_out if px_prune is None else st.prune_px_out | px_prune,
         edge_live=edge_live,
@@ -1079,6 +1131,9 @@ class StepConsts:
     # or dynamic peers): every gate, gather and kernel argument then reads
     # the round's live view instead of these constants
     live_moves: bool = False
+    # the attack plane's device constants (chaos.adversary.AdversaryConsts),
+    # None without an armed population
+    adv: object = None
 
 
 def topology_views(net: Net, fanout: bool):
@@ -1133,7 +1188,7 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
                         gater_params: PeerGaterParams | None = None,
                         adversary_no_forward: np.ndarray | None = None,
                         sub_knowledge_holes: np.ndarray | None = None,
-                        dynamic_peers: bool = False) -> StepConsts:
+                        dynamic_peers: bool = False, adversary=None) -> StepConsts:
     # the layout and the fused flag are one choice per build: the config
     # drives the selections, the net the gathers and the delivery seam
     if cfg.edge_layout != net.edge_layout:
@@ -1172,6 +1227,10 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
         sender_fwd_ok = ~adv[net.nbr.clamp(min=0).long()] & net.nbr_ok
     else:
         sender_fwd_ok = None
+    # the attack plane: None (or an unarmed population) leaves it out; an
+    # armed one's planes and neighbour views are device constants built
+    # here once
+    adversary = adversary_mod.resolve(adversary, net)
     return StepConsts(
         scalars=ScoreScalars.build(score_params),
         tp=tpa.gather(net.my_topics),
@@ -1187,6 +1246,7 @@ def prepare_step_consts(cfg: GossipSubConfig, net: Net,
         live_u32=net.nbr_ok.to(torch.int32),
         gater_share=source_share(net) if cfg.gater_enabled else None,
         live_moves=tracks_liveness(cfg) or dynamic_peers,
+        adv=adversary_mod.AdversaryConsts(adversary, net) if adversary is not None else None,
     )
 
 
@@ -1602,7 +1662,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                         static_heartbeat: bool = False, dynamic_peers: bool = False,
                         sub_knowledge_holes: np.ndarray | None = None,
                         dynamic_topo: bool = False, lift_scores: bool = False,
-                        **unported):
+                        telemetry=None, adversary=None, **unported):
     """Build the per-round step for a fixed config + topology:
 
         step(state, pub_origin[P], pub_topic[P], pub_valid[P]
@@ -1646,6 +1706,18 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     peers run the whole control plane but never transmit message data (the
     reference suite's ``sybilSquatter``, gossipsub_test.go:1777-1811).
 
+    ``adversary`` (a ``chaos.Adversary``, or an ``AttackScenario`` built
+    against ``net``) arms the attack plane: its per-peer planes and their
+    neighbour views become device constants here, and each round compares
+    them with the tick. drop_forward and censor mask the edge mask and the
+    IWANT responses on edges from an active attacker (``ADV_DROP`` counts
+    the withheld bits); lie_ihave, graft_spam and self_promo act in the
+    heartbeat (``ADV_IHAVE_LIE``, ``ADV_GRAFT_SPAM``). The plane has no
+    state. ``telemetry`` (a ``telemetry.TelemetryConfig``; the state needs
+    ``GossipSubState.init(..., telemetry=)``) writes one panel row a round
+    as the step's last operation, the event deltas from the step's entry.
+    None leaves either plane out: the same leaves, ops and launches.
+
     ``cfg.wire_coalesced=False`` clears the recycled slots plane by plane
     (the JAX package's A/B form of the stacked fold, the same bits).
 
@@ -1674,21 +1746,24 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     as int16.
 
     On a banded dense net with K <= 16 the data plane is the two fused
-    kernels, unless the queue cap, the pipeline or the chaos plane is on:
-    as in the JAX package (its ``fused_eligible``), those configs take the
-    XLA-path composites, as every other net does, and neither
-    ``edge_exchange`` nor ``fused_delivery`` launches (under chaos the
-    shared delivery round still takes ``delivery_banded``). A CSR net's
-    state stays CSR-resident between steps. The step is functional: it
-    never writes into the state it is given. Options of the JAX step outside the port
-    (the adversary plane, the router's link delays, telemetry) raise."""
+    kernels, unless the queue cap, the pipeline, the chaos plane or the
+    attack plane is on: as in the JAX package (its ``fused_eligible``),
+    those configs take the XLA-path composites, as every other net does,
+    and neither ``edge_exchange`` nor ``fused_delivery`` launches (under
+    chaos and attack the shared delivery round still takes
+    ``delivery_banded``). A CSR net's state stays CSR-resident between
+    steps. The step is functional: it never writes into the state it is
+    given. The JAX step's one option outside the port, the router's
+    ``link_delay``, raises."""
     if unported:
         raise NotImplementedError(
-            f"not ported yet: {sorted(unported)} — ROADMAP §1 items 5.2-6 (the adversary "
-            "plane 5.2, telemetry 5.3, the router's link delays 6)")
+            f"not ported yet: {sorted(unported)} — ROADMAP §1 item 6 (the router plane's "
+            "per-edge link delays)")
     if lift_scores and not cfg.score_enabled:
         raise ValueError("lift_scores=True needs cfg.score_enabled — the lifted plane "
                          "parameterizes the v1.1 score machinery")
+    if telemetry is not None:
+        telemetry.validate()
     if dynamic_topo:
         # each refused combination bakes neighbour identity or the banded
         # geometry into a build constant that a write could not update
@@ -1704,10 +1779,10 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             raise ValueError("dynamic_topo=True on CSR needs the full-capacity identity "
                              "plane (Net.build(..., edge_layout='csr', dynamic=True)) — a "
                              "degree-compacted CSR cannot gain edges without a rebuild")
-        if adversary_no_forward is not None:
+        if adversary is not None or adversary_no_forward is not None:
             raise ValueError("dynamic_topo=True is incompatible with the adversary planes "
-                             "— their neighbour views are constants over the static "
-                             "topology")
+                             "— their behaviour masks and neighbour views are constants "
+                             "over the static topology")
         if sub_knowledge_holes is not None:
             raise ValueError("dynamic_topo=True is incompatible with sub_knowledge_holes "
                              "— the announce-hole mask is indexed by static (receiver, "
@@ -1719,20 +1794,25 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                              "schedule instead")
         from ..topo import dynamics as topo_dynamics
     consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval, gater_params,
-                                 adversary_no_forward, sub_knowledge_holes, dynamic_peers)
+                                 adversary_no_forward, sub_knowledge_holes, dynamic_peers,
+                                 adversary)
     cfg = flushed_thresholds(cfg)
     n_peers, k_dim = net.n_peers, net.max_degree
+    adv = consts.adv
 
     # the chaos plane: None (or a disabled config) leaves every chaos branch
     # below out, so the round is the one without it, op for op
     chaos = chaos_faults.resolve(cfg.chaos)
     # the fused kernels hold a row's K first-arrival words in registers; a
     # wider banded net takes the composites, as every non-banded net does,
-    # and so do the queue cap, the pipeline and the chaos plane, which the
-    # kernels predate (the JAX package's fused_eligible)
+    # and so do the queue cap, the pipeline, the chaos plane and the attack
+    # plane, which the kernels predate (the JAX package's fused_eligible)
     banded = (net.band_off is not None and k_dim <= fr.MAX_K
               and cfg.validation_delay_rounds == 0 and cfg.queue_cap == 0
-              and chaos is None)
+              and chaos is None and adv is None)
+    # whether the round's live edges are the build's (the telemetry
+    # recorder's divisions fold as the JAX program's constants then)
+    static_live = not (dynamic_peers or dynamic_topo or tracks_liveness(cfg))
     opts = dict(count_events=cfg.count_events, queue_cap=cfg.queue_cap,
                 val_delay_topic=cfg.validation_delay_topic)
 
@@ -1834,8 +1914,9 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         ``net_w`` is the wire view (the live view under the round's link
         mask): the IWANT window rides it, so a flapped link's responses are
         lost and its retransmission counters do not tick. Returns (st2,
-        dlv, info, n_iwant_rec): the last, under chaos with events counted,
-        the valid first arrivals that rode the IWANT service, else None."""
+        dlv, info, n_iwant_rec, n_adv_drop): with events counted, the valid
+        first arrivals that rode the IWANT service under chaos and the
+        attack plane's withheld bits (None without either plane)."""
         core = st.core
         st2, iwant_resp = iwant_responses(cfg, net_w, st2, nbr_score_of_me, thr=thr)
         st2 = handle_ihave(cfg, net_l, st2, joined_words, acc_ok, ihave_in_raw, thr)
@@ -1852,6 +1933,18 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             # edges from no-forward peers carry no data
             edge_mask = torch.where(consts.sender_fwd_ok[:, :, None], edge_mask, 0)
             iwant_resp = torch.where(consts.sender_fwd_ok[:, :, None], iwant_resp, 0)
+        n_adv_drop = None
+        if adv is not None and adv.data_plane:
+            # drop-on-forward and censorship: edges from an active attacker
+            # lose their bits, one mask on planes the round builds anyway
+            edge_mask, rem_mask = adv.mask_transmit_nbr(core.tick, edge_mask, core.msgs)
+            iwant_resp, rem_resp = adv.mask_transmit_nbr(core.tick, iwant_resp, core.msgs)
+            if cfg.count_events:
+                # withheld bits within the senders' forward sets; the IWANT
+                # responses are serves, counted whole
+                fwd_g = net_l.peer_gather(core.dlv.fwd)
+                n_adv_drop = (bitset.popcount(rem_mask & fwd_g).sum(dtype=torch.int32)
+                              + bitset.popcount(rem_resp).sum(dtype=torch.int32))
         dlv, info = delivery_round(net_l, core.msgs, core.dlv, edge_mask, core.tick, **opts)
         iwant_resp = torch.where(acc_msg[:, :, None], iwant_resp, 0)
         have_pre_merge = dlv.have
@@ -1864,7 +1957,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             n_iwant_rec = bitset.popcount(
                 (dlv.have & ~have_pre_merge) & bitset.pack(core.msgs.valid)[None, :]
             ).sum(dtype=torch.int32)
-        return st2, dlv, info, n_iwant_rec
+        return st2, dlv, info, n_iwant_rec, n_adv_drop
 
     # net and consts are parameters of the round, not closure reads: a
     # dynamic-topology round rebinds both from the state's overlay
@@ -1883,6 +1976,9 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             st = replace(st, core=replace(st.core, topo=topo1))
         else:
             topo1 = None
+        # the counters at the step's entry: the telemetry row's deltas cover
+        # the whole step, peer transitions included
+        ev_prev = st.core.events if telemetry is not None else None
         live = None
         if dynamic_peers:
             st, live = apply_peer_transitions(cfg, net, st, up_next, rp.tp)
@@ -1934,9 +2030,9 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             st2, dlv, info = banded_data_plane(
                 net_l, st, st2, joined_words, slotw, acc_ok, acc_msg, ihave_in_raw,
                 nbr_score_of_me, valid_pack, rp.thr)
-            n_iwant_rec = None
+            n_iwant_rec = n_adv_drop = None
         else:
-            st2, dlv, info, n_iwant_rec = composite_data_plane(
+            st2, dlv, info, n_iwant_rec, n_adv_drop = composite_data_plane(
                 net_l, net_w, flood_from_l, st, st2, joined_words, slotw, acc_ok, acc_msg,
                 ihave_in_raw, nbr_score_of_me, rp.thr)
 
@@ -2018,6 +2114,8 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                     events, EV.LINK_DOWN,
                     chaos_faults.count_links_down(net.nbr, net_l.nbr_ok, link_ok)),
                     EV.IWANT_RECOVER, n_iwant_rec)
+            if n_adv_drop is not None:
+                events = add_event(events, EV.ADV_DROP, n_adv_drop)
         core_next = replace(core, msgs=msgs, dlv=dlv, events=events)
         if chaos is not None and chaos.needs_state:
             core_next = replace(core_next, chaos=replace(core.chaos, ge_bad=ge_bad_next))
@@ -2054,7 +2152,8 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         def hb(s):
             return heartbeat(cfg, net_l, s, rp.tp, rp.sc, nbr_sub_l,
                              gater_params, nbr_sub_words_l, consts.mesh_capable,
-                             gossip_suppress, present_ok=net.nbr_ok, thr=rp.thr, msh=rp.msh)
+                             gossip_suppress, present_ok=net.nbr_ok, thr=rp.thr, msh=rp.msh,
+                             adversary=adv)
 
         if cfg.heartbeat_every == 1:
             st2 = hb(st2)
@@ -2064,6 +2163,17 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         else:
             due = (tick % cfg.heartbeat_every) == 0
             st2 = tree_map(lambda a, b: torch.where(due, a, b), hb(st2), st2)
+
+        # the telemetry row: the step's last operation, after the
+        # heartbeat's GRAFT/PRUNE accounting
+        if telemetry is not None:
+            core_f = st2.core
+            telem = telemetry_panel.record_step(
+                telemetry, core_f.telem, tick, ev_prev, core_f.events, net_l, core_f.msgs,
+                core_f.dlv, mesh=st2.mesh, my_topics=net_l.my_topics, scores=st2.scores,
+                backoff_active=st2.backoff_present & (st2.backoff_expire > tick),
+                static_live=static_live)
+            st2 = replace(st2, core=replace(core_f, telem=telem))
         return replace(st2, core=replace(st2.core, tick=tick + 1))
 
     if net.edge_layout == "csr":

@@ -21,14 +21,18 @@ one call the reference's way:
 Each sub-round composes what every sender pushes on each edge and crosses
 the edge involution once. Under the chaos plane the crossings keep this
 route: the head's link mask joins its live words and each sub-round's mask
-gates its crossing's output. On a banded net with K <= ``fused_round.MAX_K``
-both crossings are ``edge_exchange`` launches: the control head's words
-(``graft | prune | ihave [| px] | mcache window``, the score plane beside
-them) once a phase, the data words once a sub-round, each under the
-phase's live edges (``gossipsub.live_step_views``: under PX or
-``edge_liveness`` the dormant edges are dead; PX connects at the head).
-Any other net, and a CSR net (whose state stays CSR-resident between
-phases), crosses with
+gates its crossing's output. So under the attack plane: the IWANT service
+is masked receiver-side after the head's crossing, at the head's tick, and
+each sub-round's data sender-side, on ``send`` before its crossing, at its
+own tick; lie-in-IHAVE, graft spam and self-promotion change the control
+words and the score column the head's crossing carries. On a banded net
+with K <= ``fused_round.MAX_K`` both crossings are ``edge_exchange``
+launches: the control head's words (``graft | prune | ihave [| px] |
+mcache window``, the score plane beside them) once a phase, the data words
+once a sub-round, each under the phase's live edges
+(``gossipsub.live_step_views``: under PX or ``edge_liveness`` the dormant
+edges are dead; PX connects at the head). Any other net, and a CSR net
+(whose state stays CSR-resident between phases), crosses with
 ``Net.edge_gather``. The heartbeat's selections are ``select_topk``
 launches on the card. The publish schedule is allocated at the phase head
 (``state.PhasePubPlan``) and the score attribution is folded over the phase
@@ -39,8 +43,8 @@ window is gated per sub-round at each arrival's own tick. Under
 clear, ORs each sub-round's duplicate arrivals into ``dup_trans``.
 
 The JAX package's phase engine (``go_libp2p_pubsub_tpu/models/
-gossipsub_phase.py``) is the reference, leaf for leaf. Options of it
-outside the port raise ``NotImplementedError`` naming the ROADMAP item.
+gossipsub_phase.py``) is the reference, leaf for leaf; the telemetry
+panel's row is a phase's last operation.
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ from ..state import (
     wire_block_words,
     wrap_csr_resident,
 )
+from ..telemetry import panel as telemetry_panel
 from ..trace.events import EV, add_event
 from .common import RoundInfo, accumulate_round_events, finish_delivery, origin_msg_words
 from .gossipsub import (
@@ -97,15 +102,9 @@ from .gossipsub import (
     round_params,
     sender_carry_words,
     step_form,
+    tracks_liveness,
     update_fanout_on_publish,
 )
-
-#: keyword options of the JAX package's make_gossipsub_phase_step that the port
-#: refuses, and where they land
-UNPORTED = {
-    "adversary": "the adversary plane — ROADMAP §1 item 5.2",
-    "telemetry": "the telemetry panel — ROADMAP §1 item 5.3",
-}
 
 
 class PhaseAdmissionError(ValueError):
@@ -212,7 +211,7 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                               exact_counters: bool = False,
                               admission_capped: bool = False, dynamic_peers: bool = False,
                               sub_knowledge_holes=None, lift_scores: bool = False,
-                              **unported):
+                              telemetry=None, adversary=None):
     """Build the phase step for a fixed config and topology:
 
         step(state, pub_origin[r,P], pub_topic[r,P], pub_valid[r,P]
@@ -268,23 +267,35 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
     each data sub-round gates its crossing by its own round's mask, the GE
     chain advances once a sub-round, and ``LINK_DOWN`` and ``IWANT_RECOVER``
     are the phase's totals. A ``scheduled`` config takes one ``link_deny`` a
-    phase (partitions land at phase heads, as peer transitions do). The JAX
-    function's adversary and telemetry options raise."""
+    phase (partitions land at phase heads, as peer transitions do).
+
+    ``adversary`` (a ``chaos.Adversary``, or an ``AttackScenario`` built
+    against ``net``) arms the attack plane as in the per-round step: an
+    active drop_forward or censor attacker withholds its IWANT service
+    (masked receiver-side at the head's tick) and its data (masked on its
+    own rows of every sub-round's transmit composition, at that sub-round's
+    tick), so a banded net keeps its 1 + r ``edge_exchange`` launches;
+    ``ADV_DROP`` counts the withheld bits sender-side, an upper bound, as
+    the JAX engine does. The heartbeat runs the control behaviours.
+    ``telemetry`` (a ``telemetry.TelemetryConfig``; the state needs
+    ``GossipSubState.init(..., telemetry=)``) writes one panel row a phase
+    (``rounds_per_row = r``) as its last operation."""
     r = int(rounds_per_phase)
     if r < 1:
         raise ValueError(f"rounds_per_phase must be >= 1, got {r}")
-    for key, value in unported.items():
-        if key not in UNPORTED:
-            raise TypeError(f"unknown option {key!r}")
-        if value is not None and value is not False:
-            raise NotImplementedError(f"not ported yet: {UNPORTED[key]}")
+    if telemetry is not None:
+        telemetry.validate()
     if lift_scores and not cfg.score_enabled:
         raise ValueError("lift_scores=True needs cfg.score_enabled — the lifted plane "
                          "parameterizes the v1.1 score machinery")
     consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval, gater_params,
-                                 adversary_no_forward, sub_knowledge_holes, dynamic_peers)
+                                 adversary_no_forward, sub_knowledge_holes, dynamic_peers,
+                                 adversary)
+    adv = consts.adv
     adv_self = (torch.as_tensor(np.asarray(adversary_no_forward, bool), device=net.device)
                 if adversary_no_forward is not None else None)
+    # whether the phase's live edges are the build's (telemetry's divisions)
+    static_live = not (dynamic_peers or tracks_liveness(cfg))
     cfg = flushed_thresholds(cfg)
     n_peers, k_dim = net.n_peers, net.max_degree
     banded = net.band_off is not None and k_dim <= fr.MAX_K
@@ -331,6 +342,9 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
                do_heartbeat: bool, score_plane=None, link_deny=None) -> GossipSubState:
         rp = round_params(cfg, net, consts, score_plane)
         thr, msh = rp.thr, rp.msh
+        # the counters at the phase's entry: the telemetry row's deltas
+        # cover the whole phase, peer transitions included
+        ev_prev = st.core.events if telemetry is not None else None
         # the peer transitions land once a phase, at the head
         live = None
         if dynamic_peers:
@@ -381,6 +395,14 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         if consts.sender_fwd_ok is not None:
             # no-forward peers serve no IWANT either
             iwant_resp = torch.where(consts.sender_fwd_ok[:, :, None], iwant_resp, 0)
+        n_adv_drop = None
+        if adv is not None and adv.data_plane:
+            # an active drop or censor attacker withholds its IWANT service
+            # too: the responses ride sub-round 0, under the head's tick, and
+            # are masked receiver-side after the head's crossing
+            iwant_resp, rem_resp = adv.mask_transmit_nbr(tick0, iwant_resp, core.msgs)
+            if cfg.count_events:
+                n_adv_drop = bitset.popcount(rem_resp).sum(dtype=torch.int32)
         iwant_resp = torch.where(acc_msg[:, :, None], iwant_resp, 0)
 
         # phase-fixed data-plane constants: mesh, scores and accept gates
@@ -482,6 +504,14 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             if adv_self is not None:
                 # no-forward peers run control but never transmit data
                 send = torch.where(adv_self[:, None, None], 0, send)
+            if adv is not None and adv.data_plane:
+                # active drop and censor attackers mask their own rows
+                # before the sub-round's one crossing, under its own tick;
+                # the removed bits count sender-side (an upper bound: the
+                # receivers' gates apply after the crossing)
+                send, rem_send = adv.mask_transmit_self(tick_i, send, msgs)
+                if cfg.count_events:
+                    n_adv_drop = n_adv_drop + bitset.popcount(rem_send).sum(dtype=torch.int32)
             trans = cross_data(send, gate_i, live_u32)
             nm = ~origin_w
             block_w = wire_block_words(msgs)
@@ -639,6 +669,8 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
             if chaos is not None:
                 events = add_event(add_event(events, EV.LINK_DOWN, n_link_down),
                                    EV.IWANT_RECOVER, n_iwant_rec)
+            if n_adv_drop is not None:
+                events = add_event(events, EV.ADV_DROP, n_adv_drop)
 
         core_next = replace(core, msgs=msgs, dlv=dlv, events=events, tick=tick_last)
         if chaos is not None and chaos.needs_state:
@@ -676,7 +708,18 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
         if do_heartbeat:
             st2 = heartbeat(cfg, net_l, st2, rp.tp, rp.sc, nbr_sub_l, gater_params,
                             nbr_sub_words_l, consts.mesh_capable, gossip_suppress,
-                            present_ok=net.nbr_ok, thr=thr, msh=msh)
+                            present_ok=net.nbr_ok, thr=thr, msh=msh, adversary=adv)
+        # the telemetry row: one a phase, the phase's last operation (after
+        # the heartbeat's GRAFT/PRUNE accounting), at the phase tail's state
+        if telemetry is not None:
+            core_f = st2.core
+            telem = telemetry_panel.record_step(
+                telemetry, core_f.telem, tick0, ev_prev, core_f.events, net_l, core_f.msgs,
+                core_f.dlv, rounds_per_row=r, mesh=st2.mesh, my_topics=net_l.my_topics,
+                scores=st2.scores,
+                backoff_active=st2.backoff_present & (st2.backoff_expire > tick_last),
+                static_live=static_live)
+            st2 = replace(st2, core=replace(core_f, telem=telem))
         return replace(st2, core=replace(st2.core, tick=tick0 + r))
 
     if net.edge_layout == "csr":

@@ -13,7 +13,9 @@ edge involution, as the GossipSub mesh push does. The delivery round is the
 shared core's (``models/common.delivery_round``): ``delivery_banded`` on a
 banded dense net, ``csr_delivery`` on a CSR-resident state, the composites
 elsewhere and under the queue cap or the validation pipeline. The chaos
-plane's link mask folds into the edge mask and keeps the round's route.
+plane's link mask and the attack plane's data masks fold into the edge
+mask and keep the round's route; the telemetry panel's row is the round's
+last operation.
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ import numpy as np
 import torch
 
 from .. import prng
+from ..chaos import adversary as adversary_mod
 from ..chaos import faults as chaos_faults
 from ..ops.select import select_random_mask
 from ..score.engine import slot_topic_words
 from ..state import Net, SimState, allocate_publishes, replace
+from ..telemetry import panel as telemetry_panel
 from ..trace.events import EV, add_event
 from .common import accumulate_round_events, delivery_round
 from .gossipsub import gather_nbr_subscribed, joined_msg_words, sender_carry_words
@@ -73,17 +77,18 @@ def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
     generator needs ``SimState.init(..., chaos_ge=True)``. With
     ``lift_scores=True`` the step takes a lifted score plane as its last
     positional and ignores it (RandomSub has no score machinery), so all
-    four engines share the lifted call convention. The telemetry and
-    adversary planes raise ``NotImplementedError``."""
-    unported = [
-        (telemetry is not None, "telemetry (the per-round panel) — ROADMAP §1 item 5.3"),
-        (adversary is not None, "adversary (the attack plane) — ROADMAP §1 item 5.2"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"make_randomsub_step: not ported yet: {what}")
+    four engines share the lifted call convention.
+
+    ``adversary`` (a ``chaos.Adversary`` or ``AttackScenario``) runs the
+    attack plane's data behaviours, drop-on-forward and censorship, masked
+    into the edge mask from neighbour views built here once (the mesh and
+    score behaviours have no RandomSub counterpart), with ``ADV_DROP``
+    counted. ``telemetry`` (a ``telemetry.TelemetryConfig``; the state
+    needs ``SimState.init(..., telemetry=)``) writes the round's panel row
+    last, the mesh and score columns zero. None leaves either plane out."""
     chaos = chaos_faults.resolve(chaos)
     chaos_sched = chaos is not None and chaos.scheduled
+    adv = adversary_mod.build_consts(adversary, net)
     target_t = size_targets(net, d, size_estimate)
     my_topics = net.my_topics.cpu().numpy()
     target_ns = torch.as_tensor(
@@ -114,6 +119,10 @@ def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
             link_ok, ge_bad_next = chaos_faults.round_link_ok(
                 chaos, chaos_faults.chaos_seed(st.key), net.nbr, tick, ge_bad, link_deny)
             edge_mask = torch.where(link_ok[:, :, None], edge_mask, 0)
+        n_adv_drop = None
+        if adv is not None and adv.data_plane:
+            edge_mask, removed = adv.mask_transmit_nbr(tick, edge_mask, st.msgs)
+            n_adv_drop = adversary_mod.withheld_count(net, st.dlv.fwd, removed)
         dlv, info = delivery_round(net, st.msgs, st.dlv, edge_mask, tick,
                                    queue_cap=queue_cap)
         msgs, dlv, _slots, is_pub, _keep, _pw = allocate_publishes(
@@ -124,7 +133,13 @@ def make_randomsub_step(net: Net, d: int = RANDOMSUB_D,
                                chaos_faults.count_links_down(net.nbr, net.nbr_ok, link_ok))
             if chaos.needs_state:
                 st = replace(st, chaos=replace(st.chaos, ge_bad=ge_bad_next))
-        return replace(st, tick=tick + 1, msgs=msgs, dlv=dlv, events=events)
+        if n_adv_drop is not None:
+            events = add_event(events, EV.ADV_DROP, n_adv_drop)
+        telem = st.telem
+        if telemetry is not None:
+            telem = telemetry_panel.record_step(telemetry, telem, tick, st.events, events,
+                                                net, msgs, dlv)
+        return replace(st, tick=tick + 1, msgs=msgs, dlv=dlv, events=events, telem=telem)
 
     # the JAX package's call forms: link_deny is a required positional of a
     # scheduled build, and a lifted step's plane comes last (and is unused)

@@ -39,6 +39,7 @@ import torch
 
 from .. import graph as graphlib
 from .. import topo
+from ..chaos import adversary as adversary_mod
 from ..config import (
     GossipSubParams,
     PeerGaterParams,
@@ -126,7 +127,7 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                 device=None, queue_cap: int = 0, validation_delay_rounds: int = 0,
                 px: bool = False, dynamic_peers: bool = False,
                 wire_coalesced: bool | None = None, lift_scores: bool = False,
-                score_counts: bool = False, chaos=None):
+                score_counts: bool = False, chaos=None, telemetry=None, adversary=None):
     """Build (state, step, n_topics, honest) for a bench config, tracer
     detached (no event counters unless ``count_events``):
 
@@ -160,7 +161,13 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     other) as its last argument; ``score_counts`` the phase engine's count
     path. ``chaos`` (a ``chaos.ChaosConfig``) turns the link-fault plane on:
     a ``scheduled`` config's step takes a ``link_deny`` row a dispatch
-    after the liveness row."""
+    after the liveness row. ``telemetry`` (a ``telemetry.TelemetryConfig``)
+    builds the recording variant: the state carries the panel and the step
+    writes a row a dispatch (its event columns move only with
+    ``count_events``). ``adversary`` (a ``chaos.Adversary`` or an
+    ``AttackScenario``, built against the bench lattice) arms the attack
+    plane; ``honest`` then lists the peers outside its faction (and outside
+    the sybil config's no-forward set)."""
     _check_config(config)
     dev = resolve_device(device)
     tp = graphlib.ring_lattice(n_peers, d=8)
@@ -174,9 +181,9 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     params = dataclasses.replace(GossipSubParams(), flood_publish=False, do_px=px)
     _tp, sp = bench_score_params(config, n_topics)
     gater = PeerGaterParams() if config == "sybil" else None
-    adversary = None
+    no_forward = None
     if config == "sybil":
-        adversary = np.random.default_rng(seed).random(n_peers) < SYBIL_FRACTION
+        no_forward = np.random.default_rng(seed).random(n_peers) < SYBIL_FRACTION
     r = int(rounds_per_phase)
     he = (r if r > 1 else 1) if heartbeat_every is None else int(heartbeat_every)
     cfg = GossipSubConfig.build(params, bench_thresholds(px), score_enabled=True,
@@ -191,18 +198,27 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                               fanout_slots=cfg.fanout_slots if config == "eth2" else 0)
     st = GossipSubState.init(
         net, msg_slots, cfg, score_params=sp, seed=seed,
-        dormant=graphlib.dormant_edges(tp, PX_DORMANT, seed=5) if px else None)
+        dormant=graphlib.dormant_edges(tp, PX_DORMANT, seed=5) if px else None,
+        telemetry=telemetry)
+    attack = adversary_mod.resolve(adversary, net)
     if r > 1:
         step = make_gossipsub_phase_step(cfg, net, r, score_params=sp, gater_params=gater,
-                                         adversary_no_forward=adversary,
+                                         adversary_no_forward=no_forward,
                                          dynamic_peers=dynamic_peers, lift_scores=lift_scores,
-                                         score_counts=score_counts)
+                                         score_counts=score_counts, telemetry=telemetry,
+                                         adversary=attack)
     else:
         step = make_gossipsub_step(cfg, net, score_params=sp, gater_params=gater,
-                                   adversary_no_forward=adversary,
+                                   adversary_no_forward=no_forward,
                                    static_heartbeat=he > 1, dynamic_peers=dynamic_peers,
-                                   lift_scores=lift_scores)
-    honest = np.flatnonzero(~adversary) if adversary is not None else None
+                                   lift_scores=lift_scores, telemetry=telemetry,
+                                   adversary=attack)
+    faction = np.zeros((n_peers,), bool)
+    if no_forward is not None:
+        faction |= no_forward
+    if attack is not None:
+        faction |= attack.is_sybil
+    honest = np.flatnonzero(~faction) if faction.any() else None
     return st, step, n_topics, honest
 
 
@@ -297,19 +313,23 @@ RANDOM_DIALS = 32
 @dataclasses.dataclass
 class FloodSubRun:
     """A built FloodSub workload's step: ``run(state, po, pt, pv[,
-    link_deny])`` (the deny row of a scheduled ``chaos``). Keeps the Net and
-    the host seconds its build took (graph generation, topology and CSR
-    build, upload, state init)."""
+    link_deny])`` (the deny row of a scheduled ``chaos``), with its
+    ``adversary`` (its ``AdversaryConsts``, built once) and ``telemetry``
+    planes. Keeps the Net and the host seconds its build took (graph
+    generation, topology and CSR build, upload, state init)."""
 
     net: Net
     setup_seconds: float
     queue_cap: int = 0
     chaos: object = None
+    adversary: object = None
+    telemetry: object = None
 
     def __call__(self, st, pub_origin, pub_topic, pub_valid, link_deny=None):
         return floodsub_step(self.net, st, pub_origin, pub_topic, pub_valid,
                              queue_cap=self.queue_cap, chaos=self.chaos,
-                             link_deny=link_deny)
+                             link_deny=link_deny, telemetry=self.telemetry,
+                             adversary=self.adversary)
 
 
 @dataclasses.dataclass
@@ -343,16 +363,17 @@ def _one_topic_net(n_peers: int, graph: str, layout: str, seed: int, dev) -> Net
 
 
 def _one_topic_state(net: Net, msg_slots: int, layout: str, resident: bool, seed: int,
-                     val_delay: int = 0, chaos=None) -> SimState:
+                     val_delay: int = 0, chaos=None, telemetry=None) -> SimState:
     n_edges = net.n_edges if layout == "csr" and resident else None
     return SimState.init(net.n_peers, msg_slots, seed=seed, k=net.max_degree,
                          device=net.device, n_edges=n_edges, val_delay=val_delay,
-                         chaos_ge=chaos is not None and chaos.needs_state)
+                         chaos_ge=chaos is not None and chaos.needs_state, telemetry=telemetry)
 
 
 def build_floodsub(n_peers: int, msg_slots: int, graph: str = "lattice",
                    layout: str = "dense", resident: bool = True,
-                   seed: int = 0, device=None, queue_cap: int = 0, chaos=None):
+                   seed: int = 0, device=None, queue_cap: int = 0, chaos=None,
+                   adversary=None, telemetry=None):
     """Build (state, step) for FloodSub on one topic every peer joins.
 
     ``graph``: ``"lattice"``, ``"powerlaw"`` or ``"random"``
@@ -360,32 +381,39 @@ def build_floodsub(n_peers: int, msg_slots: int, graph: str = "lattice",
     with ``resident`` the state keeps its first-arrival plane flat
     ``[E, W]``, else dense ``[N, K, W]``. ``queue_cap`` is the step's
     outbound-queue cap, ``chaos`` its link-fault plane (a scheduled config's
-    step takes a ``link_deny`` row). ``step.setup_seconds`` is the host time
-    of the build."""
+    step takes a ``link_deny`` row), ``adversary`` its attack plane (a
+    ``chaos.Adversary`` or an ``AttackScenario``, built here against the
+    net), ``telemetry`` its panel (the state carries it).
+    ``step.setup_seconds`` is the host time of the build."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     net = _one_topic_net(n_peers, graph, layout, seed, dev)
-    st = _one_topic_state(net, msg_slots, layout, resident, seed, chaos=chaos)
+    st = _one_topic_state(net, msg_slots, layout, resident, seed, chaos=chaos,
+                          telemetry=telemetry)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return st, FloodSubRun(net, time.perf_counter() - t0, queue_cap, chaos)
+    return st, FloodSubRun(net, time.perf_counter() - t0, queue_cap, chaos,
+                           adversary_mod.build_consts(adversary, net), telemetry)
 
 
 def build_randomsub(n_peers: int, msg_slots: int, graph: str = "lattice",
                     size_estimate: int | None = None, device=None, *,
                     layout: str = "dense", resident: bool = True,
-                    queue_cap: int = 0, val_delay: int = 0, seed: int = 0, chaos=None):
+                    queue_cap: int = 0, val_delay: int = 0, seed: int = 0, chaos=None,
+                    adversary=None, telemetry=None):
     """Build (state, step) for RandomSub on one topic every peer joins,
     over ``graph`` as ``build_floodsub`` takes it. ``size_estimate`` sets
     the fanout target max(6, ceil(sqrt(size))) (None: each topic's
     subscribers); ``queue_cap`` and ``val_delay`` (the pipeline's depth)
-    are the delivery core's options, ``chaos`` the link-fault plane."""
+    are the delivery core's options, ``chaos`` the link-fault plane,
+    ``adversary`` the attack plane and ``telemetry`` the panel."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     net = _one_topic_net(n_peers, graph, layout, seed, dev)
-    st = _one_topic_state(net, msg_slots, layout, resident, seed, val_delay, chaos=chaos)
+    st = _one_topic_state(net, msg_slots, layout, resident, seed, val_delay, chaos=chaos,
+                          telemetry=telemetry)
     step = make_randomsub_step(net, size_estimate=size_estimate, queue_cap=queue_cap,
-                               chaos=chaos)
+                               chaos=chaos, adversary=adversary, telemetry=telemetry)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return st, RandomSubRun(net, time.perf_counter() - t0, step)

@@ -21,6 +21,7 @@ import torch
 from . import graph as graphlib
 from . import prng
 from .ops import bitset, csr, edges
+from .telemetry.panel import TelemetryState
 from .trace.events import zero_counters
 
 
@@ -401,6 +402,9 @@ class SimState:
     events: torch.Tensor  # [N_EVENTS] i32 cumulative trace counters
     # the Gilbert–Elliott link-fault chain (GE chaos builds), None otherwise
     chaos: ChaosState | None = None
+    # the telemetry panel and flight recorder (telemetry/panel.py), None
+    # when telemetry is off
+    telem: TelemetryState | None = None
     # the mutable overlay (dynamic-topology builds), None otherwise
     topo: TopoState | None = None
 
@@ -408,7 +412,8 @@ class SimState:
     def init(cls, n_peers: int, msg_slots: int, seed: int = 0, k: int = 0,
              device=None, n_edges: int | None = None,
              val_delay: int = 0, topo: TopoState | None = None,
-             wire_block: bool = False, chaos_ge: bool = False) -> "SimState":
+             wire_block: bool = False, chaos_ge: bool = False,
+             telemetry=None) -> "SimState":
         """``k`` is the topology's padded max degree; ``n_edges`` (pass
         ``net.n_edges``) selects the CSR-resident ``[E, W]`` first-arrival
         plane; ``val_delay`` > 0 adds the async-validation pipeline's
@@ -417,7 +422,9 @@ class SimState:
         ``wire_block`` adds the per-message transmit block
         (``MsgTable.wire_block``, behind ``api.Network(max_message_size=)``);
         ``chaos_ge`` the Gilbert–Elliott link-fault chain (``ChaosState``),
-        which a build whose ``ChaosConfig.needs_state`` requires."""
+        which a build whose ``ChaosConfig.needs_state`` requires;
+        ``telemetry`` (a ``telemetry.TelemetryConfig``) the panel
+        (``TelemetryState``) a recording step writes."""
         dev = resolve_device(device)
         return cls(
             tick=torch.zeros((), dtype=torch.int32, device=dev),
@@ -426,6 +433,7 @@ class SimState:
             dlv=Delivery.empty(n_peers, msg_slots, k, dev, val_delay, n_edges=n_edges),
             events=zero_counters(dev),
             chaos=ChaosState.empty(n_peers, k, dev) if chaos_ge else None,
+            telem=TelemetryState.empty(telemetry, dev) if telemetry is not None else None,
             topo=topo,
         )
 

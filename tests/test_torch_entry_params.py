@@ -103,8 +103,13 @@ def test_gossipsub_state_app_score_equals_reference():
     diff_leaves(want, convert.state_leaves(TState.init(tnet, 64, tcfg, score_params=tsp,
                                                        seed=5, app_score=app)), "keyword init")
     assert not convert.state_leaves(TState.init(tnet, 64, tcfg))[".app_score"].any()
-    with pytest.raises(NotImplementedError, match="5.3"):
-        TState.init(tnet, 64, tcfg, telemetry=object())
+    # the telemetry panel is ported (tests/test_torch_telemetry.py): an
+    # invalid config raises before the state is built
+    from go_libp2p_pubsub_tpu_torch.telemetry import TelemetryConfig, TelemetryConfigError
+
+    with pytest.raises(TelemetryConfigError):
+        TState.init(tnet, 64, tcfg, telemetry=TelemetryConfig(rows=0))
+    assert TState.init(tnet, 64, tcfg, telemetry=TelemetryConfig(rows=3)).core.telem.panel.shape[0] == 3
     st = rounds_against_reference(builds, 10, app_score=app)
     assert float(st.scores.abs().max()) > 0
 

@@ -246,10 +246,13 @@ def test_unported_options_raise():
     tnet = TNet.build(tgraph.ring_lattice(16, d=2), tgraph.subscribe_all(16, 1), device="cpu")
     p = torch.full((1,), -1, dtype=torch.int32)
     ok = torch.ones(1, dtype=torch.bool)
-    for kw, item in (({"telemetry": object()}, "5.3"), ({"adversary": object()}, "5.2")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
-            tflood.floodsub_step(tnet, TSim.init(16, 32, k=tnet.max_degree, device="cpu"),
-                                 p, p, ok, **kw)
+    # the attack plane is ported (tests/test_torch_adversary.py): an invalid
+    # scenario raises before the round
+    from go_libp2p_pubsub_tpu_torch.chaos import AdversaryError, AttackScenario
+
+    with pytest.raises(AdversaryError):
+        tflood.floodsub_step(tnet, TSim.init(16, 32, k=tnet.max_degree, device="cpu"),
+                             p, p, ok, adversary=AttackScenario(n_peers=16, surround_targets=True))
     # the chaos plane is ported (tests/test_torch_chaos_engines.py): an
     # invalid config raises before the round
     from go_libp2p_pubsub_tpu_torch.chaos import ChaosConfig, ChaosConfigError

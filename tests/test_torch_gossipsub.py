@@ -155,13 +155,20 @@ def test_unported_options_raise():
     assert int(st.core.tick) == 1 and torch.equal(st.edge_live, tnet.nbr_ok)
     # dynamic peers, the overlay and announce holes are ported
     # (tests/test_torch_churn.py, _dynamics.py), and so are lifted scores in
-    # both engines (tests/test_torch_lift.py); the router's delay plane is not
+    # both engines (tests/test_torch_lift.py), and so are the attack plane
+    # and telemetry (tests/test_torch_adversary.py, _telemetry.py), whose
+    # invalid configs raise at the build; the router's delay plane is not
+    from go_libp2p_pubsub_tpu_torch.chaos import AdversaryError, AttackScenario
     from go_libp2p_pubsub_tpu_torch.models.gossipsub_phase import make_gossipsub_phase_step
     from go_libp2p_pubsub_tpu_torch.score.params import ScoreParams
+    from go_libp2p_pubsub_tpu_torch.telemetry import TelemetryConfig, TelemetryConfigError
 
-    for make, kw in ((tmake, {"link_delay": np.zeros((N, 8), np.int32)}),
-                     (tmake, {"telemetry": object()}), (tmake, {"adversary": object()})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for make, kw, err in (
+            (tmake, {"link_delay": np.zeros((N, 8), np.int32)}, NotImplementedError),
+            (tmake, {"telemetry": TelemetryConfig(rows=0)}, TelemetryConfigError),
+            (tmake, {"adversary": AttackScenario(n_peers=N, surround_targets=True)},
+             AdversaryError)):
+        with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else None):
             make(tcfg, tnet, score_params=tsp, **kw)
     plane = ScoreParams.from_config(tcfg, tsp, device="cpu")
     st0 = TState.init(tnet, 64, tcfg, score_params=tsp)

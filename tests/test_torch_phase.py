@@ -204,14 +204,22 @@ def test_refused_options_raise():
     # the queue cap and the validation pipeline are (tests/test_torch_valdelay.py)
     for field in ("queue_cap", "validation_delay_rounds", "validator_timeout_rounds"):
         build(dataclasses.replace(tcfg, **{field: 1}))
-    for key in tphase.UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(tcfg, **{key: object()})
+    # the attack plane and telemetry are ported (tests/test_torch_adversary.py,
+    # _telemetry.py): an invalid config raises at the build, an unset one
+    # passes
+    from go_libp2p_pubsub_tpu_torch.chaos import AdversaryError, AttackScenario
+    from go_libp2p_pubsub_tpu_torch.telemetry import TelemetryConfig, TelemetryConfigError
+
+    for key, bad, err in (("adversary", AttackScenario(n_peers=N, surround_targets=True),
+                           AdversaryError),
+                          ("telemetry", TelemetryConfig(rows=0), TelemetryConfigError)):
+        with pytest.raises(err):
+            build(tcfg, **{key: bad})
         build(tcfg, **{key: None})       # unset options pass
     st_cnt = build(tcfg, score_counts=True)(TState.init(tnet, 64, tcfg, score_params=tsp),
                                             po8, pt8, pv8, do_heartbeat=True)
     assert int(st_cnt.core.tick) == 8
-    with pytest.raises(TypeError, match="unknown option"):
+    with pytest.raises(TypeError, match="unexpected keyword argument"):
         build(tcfg, fanout=True)
     with pytest.raises(ValueError):
         build(dataclasses.replace(tcfg, edge_layout="csr"))

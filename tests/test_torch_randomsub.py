@@ -157,9 +157,12 @@ def test_size_targets_and_the_random_draw():
 
 def test_unported_options_raise():
     tnet = TNet.build(tgraph.ring_lattice(16, d=2), tgraph.subscribe_all(16, 1), device="cpu")
-    for kw, item in (({"telemetry": object()}, "5.3"), ({"adversary": object()}, "5.2")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
-            trs.make_randomsub_step(tnet, **kw)
+    # the attack plane is ported (tests/test_torch_adversary.py): an invalid
+    # scenario raises at the build
+    from go_libp2p_pubsub_tpu_torch.chaos import AdversaryError, AttackScenario
+
+    with pytest.raises(AdversaryError):
+        trs.make_randomsub_step(tnet, adversary=AttackScenario(n_peers=16, sybil_fraction=1.5))
     # the chaos plane is ported (tests/test_torch_chaos_engines.py): an
     # invalid config raises at the build
     from go_libp2p_pubsub_tpu_torch.chaos import ChaosConfig, ChaosConfigError

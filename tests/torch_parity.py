@@ -402,7 +402,7 @@ def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None,
 def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None, observe=None,
                              dormant=None, up=None, blacklist=None, plane=None,
-                             wire_block: bool = False, deny=None, **kw):
+                             wire_block: bool = False, deny=None, telemetry=None, **kw):
     """Run the JAX package's phase step and the port's (on the CPU) over
     ``rounds`` rounds of ``phase_schedule`` in phases of ``r`` from the same
     state, heartbeats as ``heartbeat_schedule(he, r)`` flags them, every
@@ -419,9 +419,12 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
     or a function of the phase index giving one, passed last to every call.
     ``wire_block`` gives both initial states the transmit-block plane.
     ``deny`` ([rounds, N, K] bool) is a scheduled chaos step's deny plane (a
-    phase takes its head's row). ``kw`` goes to both packages'
-    make_gossipsub_phase_step, beside the builds' own step options.
-    Returns the port's final state."""
+    phase takes its head's row). ``telemetry`` is a (JAX, port)
+    TelemetryConfig pair: both initial states carry the panel and both
+    steps record it. ``kw`` goes to both packages'
+    make_gossipsub_phase_step, beside the builds' own step options (an
+    attack plane rides those: ``builds.jkw``/``builds.tkw``). Returns the
+    port's final state."""
     import jax.numpy as jnp
     import torch
 
@@ -434,11 +437,14 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
 
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
     # a fresh JAX state: the JAX step donates its buffers
+    jt, tt = telemetry or (None, None)
     jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant,
-                      wire_block=wire_block)
+                      wire_block=wire_block, telemetry=jt)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     diff_leaves(reference_leaves(jst), convert.state_leaves(tst), "init")
     jkw, tkw = step_options(builds)
+    if telemetry is not None:
+        jkw, tkw = dict(jkw, telemetry=jt), dict(tkw, telemetry=tt)
     jstep = jmake(jcfg, jnet, r, score_params=jsp, **jkw, **kw)
     tstep = make_gossipsub_phase_step(tcfg, tnet, r, score_params=tsp, **tkw, **kw)
     my_topics = tnet.my_topics.numpy() if tnet.n_topics > 1 else None
@@ -591,7 +597,8 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
                              static_heartbeat: bool = False, observe=None, dormant=None,
                              up=None, writes=None, blacklist=None, step_kw=None,
                              dynamic_topo: bool = False, plane=None,
-                             wire_block: bool = False, deny=None, app_score=None):
+                             wire_block: bool = False, deny=None, app_score=None,
+                             telemetry=None, seed: int = 0, msg_slots: int = 64):
     """The per-round counterpart of ``phases_against_reference``: both
     packages' per-round steps from the same state over ``rounds`` rounds,
     every leaf compared bit for bit after every round. ``up`` ([rounds, N]
@@ -603,8 +610,10 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
     pair or a function of the round giving one, ``wire_block`` gives both
     initial states the transmit-block plane, ``deny`` ([rounds, N, K] bool)
     is a scheduled chaos step's deny plane (its row rides between ``up`` and
-    ``writes``), ``app_score`` ([N] f32) both initial states' P5 plane.
-    Returns the port's final state."""
+    ``writes``), ``app_score`` ([N] f32) both initial states' P5 plane,
+    ``telemetry`` a (JAX, port) TelemetryConfig pair both states and steps
+    record with, ``seed`` and ``msg_slots`` the initial states'. Returns the
+    port's final state."""
     import jax.numpy as jnp
     import torch
 
@@ -615,10 +624,14 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
     from go_libp2p_pubsub_tpu_torch.models.gossipsub import make_gossipsub_step
 
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant,
-                      dynamic_topo=dynamic_topo, wire_block=wire_block, app_score=app_score)
+    jt, tt = telemetry or (None, None)
+    jst = JState.init(jnet, msg_slots, jcfg, score_params=jsp, seed=seed, dormant=dormant,
+                      dynamic_topo=dynamic_topo, wire_block=wire_block, app_score=app_score,
+                      telemetry=jt)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     jkw, tkw = step_options(builds)
+    if telemetry is not None:
+        jkw, tkw = dict(jkw, telemetry=jt), dict(tkw, telemetry=tt)
     step_kw = step_kw or {}
     jstep = jmake(jcfg, jnet, score_params=jsp, static_heartbeat=static_heartbeat, **jkw,
                   **step_kw)
