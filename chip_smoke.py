@@ -175,7 +175,7 @@ last line is printed:
 30. the mutating overlay at N=100k: the default config with dynamic_peers
    and dynamic_topo on powerlaw(100k, 2.2, d_min=2, max_degree=60) padded
    to K = 64, built dynamic, dense and full-capacity CSR (E = 6.4M), under
-   churn_storm(n_dispatches=64, kill_frac=0.2, rewires=8, joins=2,
+   churn_storm(n_dispatches=32, kill_frac=0.2, rewires=8, joins=2,
    join_links=2): the storm's compile seconds, batch width and hash; from
    every count at 0 no edge_exchange, fused_delivery or delivery kernel
    and 8 select_topk a heartbeat; rounds/s eager and through
@@ -314,7 +314,23 @@ last line is printed:
 41. the telemetry panel on the windowed default phase and per-round step
    at N=100k (events counted), on and off in turns: the rate cost, each
    window block's launches (equal on and off) and reconcile empty on the
-   card's panel.
+   card's panel;
+42. the invariant oracle (oracle/, before the profiler phase): (a) the
+   default config at N=100k through windows with the folded checker and
+   without, in turns, in both engines (the phase engine at r = 8 checked
+   every 2 phases, the per-round step every 8 rounds): every property
+   holds, a checked block launches each kernel as often as its unchecked
+   twin, one capture, the final state and the verdicts equal to an eager
+   run with an InvariantHook; the rates on and off and the checker's own
+   launches and device ms a check (perf/profile.check_cost); (b) at
+   N=8192 every seeded violation of every property on every engine it
+   applies to trips exactly its property, the card's verdicts equal to the
+   CPU's; (c) the due contract at N=8192: a halves partition through a
+   checked phase window (grace around the cut, recover after the heal) and
+   a churn storm with MutationSchedule.due_fn, both all ok and re-checked
+   on the CPU, each clause shown doing work; (d) the GossipSub step on the
+   card within 2% sup-norm of the port's OracleGossipSub's
+   propagation-latency CDF (tests/test_parity_cdf.py's N=192).
 
 It prints the ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
@@ -1400,18 +1416,19 @@ def churn_runs(sweep, driver, dev, card, counters) -> dict:
     return out
 
 
-OVERLAY_DISPATCHES = 64          # phase 30's storm: 64 rounds, a dispatch a round
+OVERLAY_DISPATCHES = 32          # phase 30's storm: 32 rounds, a dispatch a round
 
 
 def overlay_runs(sweep, driver, dev, card, counters) -> dict:
     """Phase 30: the mutating overlay at N=100k (``sweep.build_overlay``:
     powerlaw(100k, 2.2, d_min=2, max_degree=60) padded to K = 64, built
     dynamic, dense and full-capacity CSR, E = 6.4M) under one churn_storm
-    of 64 dispatches: the storm's compile seconds, batch width and hash;
-    from every count at 0 an eager run launches no edge_exchange,
-    fused_delivery, delivery_banded or csr_delivery and 8 select_topk a
-    heartbeat; rounds/s eager (64 rounds) and through driver.make_window
-    (32 rounds, after a first call of 32 that captures); peak memory; the
+    of OVERLAY_DISPATCHES dispatches: the storm's compile seconds, batch
+    width and hash; from every count at 0 an eager run launches no
+    edge_exchange, fused_delivery, delivery_banded or csr_delivery and 8
+    select_topk a heartbeat; rounds/s eager (all the dispatches) and
+    through driver.make_window (the second half, after a first call of
+    the first half that captures); peak memory; the
     storm's kills, joins and rewires; the device overlay equal to the
     storm's host mirror at the end."""
     import torch
@@ -1981,7 +1998,8 @@ def window_parity(sweep, convert, dev, counters) -> dict:
 
 
 def window_bench(sweep, driver, dev, card, counters, engine: str, observe=None,
-                 modes=("eager", "window", "window", "eager"), **bench_kw) -> dict:
+                 modes=("eager", "window", "window", "eager"), measured: int | None = None,
+                 **bench_kw) -> dict:
     """Phases 18, 25 and 27: the phase bench (``engine="phase"``) or the
     per-round bench at N=100k (with ``bench_kw``, the delivery core's
     options or the PX cell's), eager and windowed in turns (eager, window,
@@ -1989,11 +2007,13 @@ def window_bench(sweep, driver, dev, card, counters, engine: str, observe=None,
     formation and one untimed segment, then times one segment; a window
     turn's untimed segment captures its block. ``observe(state) -> dict``
     reads each turn's final state into its record; ``modes`` are the turns
-    (phase 33 takes one of each). Returns the turns."""
+    (phase 33 takes one of each); ``measured`` the rounds of a segment
+    (default: the bench's). Returns the turns."""
     import torch
 
     r = PHASE_R if engine == "phase" else 1
     m = PHASE_MEASURED * r if engine == "phase" else MEASURED_ROUNDS
+    m = measured or m
     f = PHASE_FORMATION * r if engine == "phase" else FORMATION_ROUNDS
     po, pt, pv = sweep.publish_schedule(f + 2 * m, N_FULL, 1, None)
     turns = []
@@ -3588,6 +3608,7 @@ CHAOS_PARITY = {"iid": dict(loss_rate=0.35),
 CHAOS_FULL = {"iid": dict(loss_rate=0.1),
               "ge": dict(generator="ge", ge_p_down=0.02, ge_p_up=0.25)}
 CHAOS_PARITY_ROUNDS = 12      # per-round dispatches of a parity cell (phases: 2)
+CHAOS_FULL_ROUNDS = 32        # rounds of a timed full-width segment (4 phases)
 #: the full-width partition: ticks of the cut (the phases at ticks 24-48
 #: after form_mesh), then the heal and enough phases for a pruned
 #: cross-group mesh link to re-form after the prune backoff (60 ticks); one
@@ -3841,7 +3862,7 @@ def chaos_full(sweep, driver, dev, card, counters) -> dict:
             chaos = None if label == "off" else ChaosConfig(**CHAOS_FULL[label])
             turns = window_bench(sweep, driver, dev, card, counters, engine,
                                  observe=chaos_observe(N_FULL), modes=("eager", "window"),
-                                 count_events=True, chaos=chaos)
+                                 measured=CHAOS_FULL_ROUNDS, count_events=True, chaos=chaos)
             block = turns[1]["block_launches"]
             d = turns[1]["block_dispatches"]
             if chaos is not None:
@@ -3904,7 +3925,7 @@ def random_gossip_build(n: int, device, chaos, r: int = 1, msg_slots: int = M_SL
     delivery-deficit scoring (P3: a mesh link that carries nothing loses
     score), events counted, under ``chaos``; the per-round step, or at r > 1
     the phase engine with the mesh formed. Returns (state, step,
-    topology)."""
+    topology, net, config)."""
     import dataclasses
 
     from go_libp2p_pubsub_tpu_torch import driver, graph
@@ -3927,9 +3948,9 @@ def random_gossip_build(n: int, device, chaos, r: int = 1, msg_slots: int = M_SL
     cfg = dataclasses.replace(cfg, count_events=True, fanout_slots=0)
     st = GossipSubState.init(net, msg_slots, cfg, score_params=sp, seed=0)
     if r == 1:
-        return st, make_gossipsub_step(cfg, net, score_params=sp), tp
+        return st, make_gossipsub_step(cfg, net, score_params=sp), tp, net, cfg
     step = make_gossipsub_phase_step(cfg, net, r, score_params=sp)
-    return driver.form_mesh(step, st, rounds_per_phase=r), step, tp
+    return driver.form_mesh(step, st, rounds_per_phase=r), step, tp, net, cfg
 
 
 def chaos_partition(driver, dev, card, counters) -> dict:
@@ -3960,8 +3981,8 @@ def chaos_partition(driver, dev, card, counters) -> dict:
 
     n, r, d = N_FULL, PHASE_R, CHAOS_CUT_PHASES
     t0 = time.perf_counter()
-    st, step, tp = random_gossip_build(n, dev, ChaosConfig(scheduled=True), r,
-                                       CHAOS_CUT_SLOTS)
+    st, step, tp, _net, _cfg = random_gossip_build(n, dev, ChaosConfig(scheduled=True), r,
+                                                   CHAOS_CUT_SLOTS)
     build_s = time.perf_counter() - t0
     groups = np.asarray(halves(n))
     sc = two_group_partition(n, **CHAOS_CUT)
@@ -4514,6 +4535,585 @@ def telemetry_cost(sweep, driver, dev, card, counters) -> dict:
             f"{turns[0]['block_launches']} on and off, reconcile empty on the card, on {card}")
         out[engine] = {"turns": turns, "cost": cost}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 42: the invariant oracle
+
+#: the checked full-width windows: engine, rounds a phase, the check cadence
+#: in dispatches, dispatches a window (the phase engine one check a two-phase
+#: block, the per-round step the reference's default cadence of 8)
+ORACLE_FULL = (("phase", PHASE_R, 2, 8), ("per-round", 1, 8, 32))
+#: the full-width checks' delivery window W. On the bench lattice a message
+#: slot lives 16 rounds (64 slots, 4 publishes a round) and the ring's
+#: diameter is N/16 hops, so no slot lives to be due: the clause is
+#: evaluated in every check and holds vacuously there; (b) and (c) hold it
+#: to due messages on random_connect(8192, 8)
+ORACLE_W = 24
+ORACLE_QUIET = (0, 1 << 30)
+#: the reference oracle smoke's cost budget (its scripts/invariant_report.py
+#: DEFAULT_OVERHEAD), printed beside the port's share, not asserted
+REFERENCE_OVERHEAD = 0.10
+#: the timed turns of (a), after a first call of each window that captures;
+#: the share is read off each mode's best rate (a host stall can slow one
+#: turn several-fold, run 3)
+ORACLE_TURNS = ("off", "on", "on", "off", "off", "on")
+#: (b)'s lived-in states on random_connect(N_PARITY, 8): the per-round
+#: engines' rounds, publish rounds and W, and the phase engine's (r = 8)
+ORACLE_ROUNDS, ORACLE_PUBS, ORACLE_SEEDED_W = 24, (2, 5), 12
+ORACLE_PHASE_ROUNDS, ORACLE_PHASE_PUBS, ORACLE_PHASE_W = 40, (8, 11), 24
+#: (c)'s partition: the halves cut from tick 16 for 16 rounds; grace and the
+#: recovery deadline 44 rounds after the heal (the reference partition
+#: cell's PARTITION_GRACE_AFTER_HEAL); phases of r = 8 past the deadline,
+#: one check a phase
+ORACLE_CUT = dict(start=16, rounds=16)
+ORACLE_GRACE_AFTER_HEAL = 44
+ORACLE_CUT_PHASES = 10
+#: (c)'s churn storm: dispatches (rounds), the check cadence, and the
+#: power-law overlay's tail degree and capacity
+ORACLE_STORM_ROUNDS, ORACLE_STORM_CE = 16, 2
+ORACLE_STORM_DEGREE = (12, 16)
+#: (d): tests/test_parity_cdf.py's cell
+CDF_N, CDF_DEG, CDF_WARMUP, CDF_PUB_ROUNDS, CDF_PUBS, CDF_DRAIN, CDF_MAX_H = (
+    192, 8, 20, 18, 2, 12, 14)
+
+
+def oracle_full(sweep, driver, dev, card) -> dict:
+    """Phase 42 (a): the default config at N=100k in both engines through
+    windows with and without the folded checker, in turns (ORACLE_TURNS,
+    after a first call of each): every
+    property holds at every check; a checked block launches each kernel as
+    often as its unchecked twin (whose block spans the same dispatches);
+    one capture each; the checked window's final state equals the
+    unchecked one's and an eager run's on the card, and ``ys["ok"]`` an
+    eager ``InvariantHook`` over that run (but at the first check's
+    events-monotone, which the window holds to the entry counters). Prints
+    the rates on and off, the port's share (of each mode's best rate)
+    beside the reference's budget,
+    and the checker's own launches and device ms a check
+    (``perf/profile.check_cost``, the ``--window --check-every`` report)."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.oracle import invariants as inv
+    from go_libp2p_pubsub_tpu_torch.perf import profile
+
+    out = {}
+    due_fn = lambda tick: inv.due_vector(quiet=ORACLE_QUIET)   # noqa: E731
+    for engine, r, ce, d in ORACLE_FULL:
+        bench = dict(rounds_per_phase=r, count_events=True)
+        st0, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, device=dev, **bench)
+        if r > 1:
+            st0 = driver.form_mesh(step, st0, rounds_per_phase=r)
+        spec = sweep.bench_invariants(N_FULL, check_every=ce, due_fn=due_fn,
+                                      delivery_window=ORACLE_W, device=dev, **bench)
+        due = spec.precompute(d)
+        po, pt, pv = sweep.publish_schedule(d * r, N_FULL, 1, None, seed=21)
+        xs = tuple(torch.as_tensor(a, device=dev).reshape((d, r, -1) if r > 1 else (d, -1))
+                   for a in (po, pt, pv))
+        hb = driver.heartbeat_schedule(r, r) if r > 1 else None
+        wins = {"off": driver.make_window(step, heartbeat=hb, unroll=ce, donate=False),
+                "on": driver.make_window(step, heartbeat=hb, check=spec.check, check_every=ce,
+                                         donate=False)}
+        ends, oks, secs = {}, [], {"off": [], "on": []}
+        for mode in ("off", "on") + ORACLE_TURNS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            end, ys = wins[mode](st0, xs, due if mode == "on" else None)
+            torch.cuda.synchronize()
+            secs[mode].append(time.perf_counter() - t0)
+            ends[mode] = end
+            if mode == "on":
+                oks.append(ys["ok"])
+        # the first call of each window captures; the turns are the rest
+        rates = {m: [d * r / s for s in v[1:]] for m, v in secs.items()}
+        best = {m: max(v) for m, v in rates.items()}
+        if not all(bool(o.all()) and torch.equal(o, oks[0]) for o in oks):
+            bad = [(c, spec.names[p]) for c, p in zip(*torch.nonzero(~oks[0]).T.tolist())]
+            raise AssertionError(f"oracle {engine} N={N_FULL}: violations {bad[:8]}")
+        for w in wins.values():
+            if w.captures != 1:
+                raise AssertionError(f"oracle {engine}: {w.captures} captures, expected 1")
+        if wins["on"].block_launches != wins["off"].block_launches or not any(
+                wins["on"].block_launches.values()):
+            raise AssertionError(f"oracle {engine}: checked block launches "
+                                 f"{wins['on'].block_launches}, unchecked "
+                                 f"{wins['off'].block_launches}")
+        hook = inv.InvariantHook(spec.engine, *sweep.bench_parts(N_FULL, device=dev,
+                                                                 **bench)[:2],
+                                 inv.InvariantConfig(delivery_window=ORACLE_W, check_every=ce),
+                                 batched=False, due_fn=due_fn, rounds_per_step=r)
+        hook.precompute(d)
+        eager = st0
+        for i in range(d):
+            eager = step(eager, *(a[i] for a in xs), **({"do_heartbeat": True} if r > 1 else {}))
+            hook.on_step(i, eager)
+        for name, a, b in zip(("unchecked", "eager"), (ends["off"], eager),
+                              (ends["on"], ends["on"])):
+            if not all(torch.equal(x, y) for x, y in zip(driver._leaves(a), driver._leaves(b))):
+                raise AssertionError(f"oracle {engine}: the checked window's final state "
+                                     f"differs from the {name} run's")
+        got = torch.from_numpy(hook.report().ok[:, 0])
+        mono = spec.names.index("events-monotone")
+        got[0, mono] = oks[0][0, mono].cpu()
+        if not torch.equal(got, oks[0].cpu()):
+            raise AssertionError(f"oracle {engine}: the eager hook's verdicts differ")
+        cost = profile.check_cost(spec.check, ends["on"], ends["on"].core.events, due[0])
+        on, off = best["on"], best["off"]
+        out[engine] = {
+            "r": r, "check_every": ce, "dispatches": d, "checks": int(due.shape[0]),
+            "properties": len(spec.names), "rates_on": rates["on"], "rates_off": rates["off"],
+            "share": (off - on) / off, "block_dispatches": wins["on"].block_dispatches,
+            "block_launches": dict(wins["on"].block_launches),
+            "capture_seconds": wins["on"].capture_seconds, **cost}
+        say(f"oracle (a) {engine} N={N_FULL} r={r}: {len(spec.names)} properties hold at all "
+            f"{due.shape[0]} checks (every {ce} dispatches, W={ORACLE_W}); checked block of "
+            f"{wins['on'].block_dispatches} dispatches launches {wins['on'].block_launches}, "
+            f"as the unchecked one; one capture each; final state equal to the unchecked and "
+            f"the eager run's, verdicts equal to the eager hook's; delivery-rounds/s on "
+            f"{[round(x, 3) for x in rates['on']]} off {[round(x, 3) for x in rates['off']]} "
+            f"(share of the best rates {out[engine]['share']:.4f}, the reference's budget "
+            f"{REFERENCE_OVERHEAD}); "
+            f"the checker: {cost['launches_per_check']:.1f} launches a check, device kernels "
+            f"{cost['device_kernel_ms_per_check']:.4f} ms a check, "
+            f"{cost['graph_ms_per_check']:.4f} ms replayed from a graph; on {card}")
+    return out
+
+
+def oracle_builds(n: int, device, dynamic: bool = False):
+    """(b)'s and (c)'s GossipSub build on random_connect(n, 8, seed=0): the
+    bench's parameters and default score plane, events counted; with
+    ``dynamic`` the mutable overlay on the power-law net of
+    ORACLE_STORM_DEGREE instead. Returns (net, cfg, score params,
+    topology)."""
+    import dataclasses
+
+    from go_libp2p_pubsub_tpu_torch import graph, topo
+    from go_libp2p_pubsub_tpu_torch.config import GossipSubParams
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import GossipSubConfig
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+    from go_libp2p_pubsub_tpu_torch.state import Net
+
+    if dynamic:
+        tail, cap = ORACLE_STORM_DEGREE
+        tp = topo.to_topology(topo.powerlaw(n, max_degree=tail, seed=0), max_degree=cap)
+    else:
+        tp = graph.random_connect(n, 8, seed=0)
+    net = Net.build(tp, graph.subscribe_all(n, 1), device=device, dynamic=dynamic)
+    _tp, sp = sweep.bench_score_params("default", 1)
+    params = dataclasses.replace(GossipSubParams(), flood_publish=False)
+    cfg = GossipSubConfig.build(params, sweep.bench_thresholds(), score_enabled=True)
+    cfg = dataclasses.replace(cfg, count_events=True, fanout_slots=0)
+    return net, cfg, sp, tp
+
+
+def oracle_lived(engine: str, n: int, device):
+    """(b)'s lived-in state of ``engine`` on the card: (state, net, cfg,
+    W, quiet due row)."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.models.floodsub import floodsub_step
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import GossipSubState, make_gossipsub_step
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub_phase import make_gossipsub_phase_step
+    from go_libp2p_pubsub_tpu_torch.models.randomsub import make_randomsub_step
+    from go_libp2p_pubsub_tpu_torch.oracle import invariants as inv
+    from go_libp2p_pubsub_tpu_torch.state import SimState
+
+    net, cfg, sp, _tp = oracle_builds(n, device)
+    phase = engine == "phase"
+    rounds, pubs, w = ((ORACLE_PHASE_ROUNDS, ORACLE_PHASE_PUBS, ORACLE_PHASE_W) if phase
+                       else (ORACLE_ROUNDS, ORACLE_PUBS, ORACLE_SEEDED_W))
+    rng = np.random.default_rng(0)
+    po = np.full((rounds, 4), -1, np.int32)
+    po[pubs[0]:pubs[1]] = rng.integers(0, n, size=(pubs[1] - pubs[0], 4))
+    po = torch.as_tensor(po, device=device)
+    pt = torch.zeros((rounds, 4), dtype=torch.int32, device=device)
+    pv = torch.ones((rounds, 4), dtype=torch.bool, device=device)
+    if engine in ("gossipsub", "phase"):
+        st = GossipSubState.init(net, M_SLOTS, cfg, score_params=sp, seed=0)
+    else:
+        st = SimState.init(n, M_SLOTS, seed=0, k=net.max_degree, device=device)
+        cfg = None
+    if phase:
+        step = make_gossipsub_phase_step(cfg, net, PHASE_R, score_params=sp)
+        for p in range(rounds // PHASE_R):
+            sl = slice(p * PHASE_R, (p + 1) * PHASE_R)
+            st = step(st, po[sl], pt[sl], pv[sl], do_heartbeat=True)
+    else:
+        step = {"gossipsub": lambda: make_gossipsub_step(cfg, net, score_params=sp),
+                "randomsub": lambda: make_randomsub_step(net),
+                "floodsub": lambda: (lambda s, a, b, c: floodsub_step(net, s, a, b, c))}[engine]()
+        for t in range(rounds):
+            st = step(st, po[t], pt[t], pv[t])
+    return st, net, cfg, w, inv.due_vector(quiet=(0, rounds))
+
+
+def oracle_verdicts(engine, leaves, sides, w, over=None, **kw) -> dict:
+    """The checker on the state of ``leaves`` on each side of ``sides``
+    ({"card": (device, net, cfg), "cpu": ...}; ``over`` net field
+    overrides): equal verdicts, returned by name."""
+    import torch
+    from torch_parity import oracle_net, oracle_state
+
+    from go_libp2p_pubsub_tpu_torch.oracle import invariants as inv
+
+    got = {side: inv.check_state(engine, oracle_net(net, **(over or {})),
+                                 oracle_state(leaves, dev), cfg,
+                                 inv.InvariantConfig(delivery_window=w), **kw).cpu()
+           for side, (dev, net, cfg) in sides.items()}
+    if not torch.equal(got["card"], got["cpu"]):
+        raise AssertionError(f"oracle {engine}: card verdicts {got['card'].tolist()} != CPU "
+                             f"{got['cpu'].tolist()}")
+    return dict(zip(inv.invariant_names(engine), got["cpu"].tolist()))
+
+
+def failed_of(res: dict) -> set:
+    return {k for k, v in res.items() if not v}
+
+
+def oracle_seeded(convert, dev) -> dict:
+    """Phase 42 (b): lived-in states of all four engines at N=8192 on the
+    card (the per-round step, the phase engine at r = 8, FloodSub,
+    RandomSub on random_connect(8192, 8)) pass every property under their
+    quiet due row; every seeded violation of tests/test_invariants.py
+    (``torch_parity.seeded_violation``) of every property on every engine
+    it applies to, and a padding bit at M = 48, trips exactly its property,
+    with the card's verdict vector equal to the CPU's. (The overlay's
+    ``edge-involution-wf`` is seeded in (c).)"""
+    import types
+
+    from torch_parity import SEEDED, corrupt_word_padding, seeded_violation
+
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import GossipSubState
+    from go_libp2p_pubsub_tpu_torch.oracle import invariants as inv
+    from go_libp2p_pubsub_tpu_torch.state import SimState
+
+    t0 = time.perf_counter()
+    n, lived, cases = N_PARITY, {}, 0
+    cpu_net, cpu_cfg, _sp, _tp = oracle_builds(n, "cpu")
+    for engine in ("gossipsub", "phase", "floodsub", "randomsub"):
+        st, net, cfg, w, quiet = oracle_lived(engine, n, dev)
+        sides = {"card": (dev, net, cfg), "cpu": ("cpu", cpu_net, cfg and cpu_cfg)}
+        leaves = convert.state_leaves(st)
+        bad = failed_of(oracle_verdicts(engine, leaves, sides, w, due=quiet))
+        if bad:
+            raise AssertionError(f"oracle (b) {engine}: the clean state fails {sorted(bad)}")
+        lived[engine] = (leaves, sides, w, quiet)
+    ctx = types.SimpleNamespace(nbr=cpu_net.nbr.numpy(), protocol=cpu_net.protocol.numpy(),
+                                dlo=cpu_cfg.Dlo)
+    for name, engine in SEEDED:
+        leaves, sides, w, quiet = lived[engine]
+        ctx.quiet = quiet
+        bad, over, kw = seeded_violation(name, ctx, leaves)
+        failed = failed_of(oracle_verdicts(engine, bad, sides, w, over, **kw))
+        if failed != {name}:
+            raise AssertionError(f"oracle (b) {name} on {engine}: tripped {sorted(failed)}")
+        cases += 1
+    grace = inv.due_vector(grace=True)
+    for engine, (_l, sides, w, _q) in lived.items():
+        if engine in ("gossipsub", "phase"):
+            fresh = GossipSubState.init(cpu_net, 48, cpu_cfg, seed=0)
+        else:
+            fresh = SimState.init(n, 48, seed=0, k=cpu_net.max_degree, device="cpu")
+        leaves = convert.state_leaves(fresh)
+        clean = failed_of(oracle_verdicts(engine, leaves, sides, w, due=grace))
+        failed = failed_of(oracle_verdicts(engine, corrupt_word_padding(leaves), sides, w,
+                                           due=grace))
+        if clean or failed != {"word-padding-wf"}:
+            raise AssertionError(f"oracle (b) word-padding-wf on {engine}: clean {clean}, "
+                                 f"seeded {sorted(failed)}")
+        cases += 1
+    secs = time.perf_counter() - t0
+    say(f"oracle (b) N={n}: clean lived-in states of all four engines pass every property; "
+        f"{cases} seeded violations (property x engine) each trip exactly their property, "
+        f"the card's verdicts equal to the CPU's ({secs:.1f} s)")
+    return {"cases": cases, "seconds": secs}
+
+
+def moved(driver, tree, device):
+    """A copy of a tree of tensors (a state, a net) on ``device``."""
+    return driver._rebuild(tree, iter([t.to(device) for t in driver._leaves(tree)]))
+
+
+def recheck_on_cpu(driver, spec, obs, ok, entry_events, due, ce: int, where: str) -> None:
+    """Hold a window's verdicts to the CPU checker (``spec``, built on the
+    CPU) on the same states: the window's per-dispatch states (``obs``,
+    observed whole), the counters at its entry and its due rows."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.oracle.invariants import sim_state
+
+    prev = entry_events.cpu()
+    for c in range(ok.shape[0]):
+        st = moved(driver, sim_state(obs, (c + 1) * ce - 1), "cpu")
+        got = spec.check(st, prev, due[c].cpu())
+        if not torch.equal(got, ok[c].cpu()):
+            raise AssertionError(f"{where}: check {c} on the CPU {got.tolist()} differs from "
+                                 f"the card's {ok[c].tolist()}")
+        prev = st.core.events
+
+
+def whole(st):
+    """An observation of the whole state (a window's per-dispatch states)."""
+    return st
+
+
+def oracle_partition(driver, convert, dev) -> dict:
+    """Phase 42 (c), the partition: the halves cut (ORACLE_CUT) of
+    random_connect(8192, 8) through a checked phase window (r = 8, a check a
+    phase) on the card, under the reference partition cell's due rows:
+    quiet before the cut, ``grace`` from the cut to 44 rounds past the
+    heal, ``recover`` by then (the messages of the last 4 rounds before the
+    heal delivered, the mesh re-formed). The window runs in two calls split
+    inside the cut and observes its states, which the CPU's checker
+    re-checks (phase 38 holds the engine's partitioned run on the card to
+    the CPU's): every check holds, the card's verdicts equal the CPU's.
+    Each clause does work: the state inside the cut with one peer's mesh
+    stripped trips exactly mesh-degree-bounds with grace cleared and not
+    under the cell's row; and the same window with the recovery deadline at
+    the heal trips eventual-delivery (the cut's messages have not crossed
+    yet)."""
+    import numpy as np
+    import torch
+    from torch_parity import corrupt_degree
+
+    from go_libp2p_pubsub_tpu_torch.chaos import ChaosConfig, two_group_partition
+    from go_libp2p_pubsub_tpu_torch.oracle import invariants as inv
+
+    t0 = time.perf_counter()
+    n, r, d = N_PARITY, PHASE_R, ORACLE_CUT_PHASES
+    start, heal = ORACLE_CUT["start"], ORACLE_CUT["start"] + ORACLE_CUT["rounds"]
+    deadline = heal + ORACLE_GRACE_AFTER_HEAL
+    sc = two_group_partition(n, **ORACLE_CUT)
+    icfg = inv.InvariantConfig(delivery_window=8, check_every=1)
+    st, step, tp, net, cfg = random_gossip_build(n, dev, ChaosConfig(scheduled=True), r,
+                                                 CHAOS_CUT_SLOTS)
+    cpu_net = moved(driver, net, "cpu")
+    sides = {"card": (dev, net, cfg), "cpu": ("cpu", cpu_net, cfg)}
+    tick0 = int(st.core.tick)
+    ticks = tick0 + r * np.arange(d)
+    zeros = np.zeros(tp.nbr.shape, bool)
+    deny = np.stack([zeros if sc.link_deny_at(int(t), tp.nbr) is None
+                     else sc.link_deny_at(int(t), tp.nbr) for t in ticks])
+    po, pt, pv = sweep_schedule(n, d * r, seed=17)
+    # one publish a round, none from the round before the heal on (the
+    # reference cell's traffic)
+    po[:, 1:] = -1
+    po[tick0 + np.arange(d * r) >= heal - 1] = -1
+    xs = tuple(torch.as_tensor(a, device=dev) for a in (
+        po.reshape(d, r, -1), pt.reshape(d, r, -1), pv.reshape(d, r, -1), deny))
+
+    def row(label, deadline=deadline):
+        tick = tick0 + label
+        return inv.due_vector(quiet=(0, start), recover=(heal - 4, heal - 1, deadline),
+                              grace=start <= tick < deadline)
+
+    mid = (start - tick0) // r + 1           # the window's split: a phase into the cut
+    out = {}
+    for name, due_fn in (("cell", row), ("early", lambda t: row(t, deadline=heal))):
+        specs = [inv.ScanInvariants("phase", nt, cfg, icfg, batched=False, due_fn=due_fn,
+                                    rounds_per_step=r)
+                 for nt in (net, cpu_net)]
+        due = specs[0].precompute(d)
+        win = driver.make_window(step, heartbeat=[True], check=specs[0].check, check_every=1,
+                                 observe=whole, donate=False)
+        split = (0, mid, d) if name == "cell" else (0, d)
+        end, oks = st, []
+        for lo, hi in zip(split, split[1:]):
+            entry = end.core.events.clone()
+            end, ys = win(end, tuple(a[lo:hi] for a in xs), due[lo:hi])
+            recheck_on_cpu(driver, specs[1], ys["obs"], ys["ok"], entry, due[lo:hi], 1,
+                           f"oracle (c) partition {name}")
+            oks.append(ys["ok"].cpu())
+            if hi == mid:
+                inside = convert.state_leaves(end)
+        out[name] = torch.cat(oks)
+    check_ticks = [tick0 + (c + 1) * r for c in range(d)]
+    names = inv.invariant_names("phase")
+    ok, early = out["cell"], out["early"]
+    if not bool(ok.all()) or check_ticks[-1] < deadline:
+        bad = [(check_ticks[c], names[p]) for c, p in torch.nonzero(~ok).tolist()]
+        raise AssertionError(f"oracle (c) partition: violations {bad}, last check "
+                             f"{check_ticks[-1]}, deadline {deadline}")
+    delivery = names.index("eventual-delivery")
+    late = [check_ticks[c] for c in torch.nonzero(~early[:, delivery]).flatten().tolist()]
+    if not late:
+        raise AssertionError("oracle (c) partition: a recovery deadline at the heal trips "
+                             "nothing")
+    grace_row = row(mid * r)
+    bare_row = np.array(grace_row)
+    bare_row[inv.DUE_GRACE] = 0
+    stripped = corrupt_degree(None, inside)[0]
+    graced = failed_of(oracle_verdicts("phase", stripped, sides, 8, due=grace_row))
+    bare = failed_of(oracle_verdicts("phase", stripped, sides, 8, due=bare_row))
+    if not grace_row[inv.DUE_GRACE] or graced or bare != {"mesh-degree-bounds"}:
+        raise AssertionError(f"oracle (c) partition, a stripped mesh inside the cut: under "
+                             f"the cell's row {sorted(graced)}, grace cleared {sorted(bare)}")
+    secs = time.perf_counter() - t0
+    say(f"oracle (c) partition N={n} r={r}: cut ticks {start}-{heal - 1}, grace to {deadline}, "
+        f"checks at ticks {check_ticks}: every property holds, the card's verdicts equal to "
+        f"the CPU checker's on the same states; a mesh stripped at tick "
+        f"{check_ticks[mid - 1]} trips mesh-degree-bounds alone with grace cleared, nothing "
+        f"under the cell's row; a recovery deadline at the heal trips eventual-delivery at "
+        f"ticks {late} ({secs:.1f} s)")
+    return {"check_ticks": check_ticks, "early_deadline_trips": late, "seconds": secs}
+
+
+def sweep_schedule(n: int, rounds: int, seed: int):
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    return sweep.publish_schedule(rounds, n, 1, None, seed=seed)
+
+
+def oracle_storm(driver, convert, dev) -> dict:
+    """Phase 42 (c), the overlay: a churn storm (``topo/dynamics.churn_storm``
+    over a power-law net of capacity 16 at N=8192: a fifth of the peers
+    killed and replaced, two rewires and a join) through one checked window of
+    the dynamic per-round step on the card, with the due rows of
+    ``MutationSchedule.due_fn``, its states re-checked by the CPU's checker:
+    every check holds, the verdicts equal. The storm's kill row applied to
+    the state before it without the step's same-round cleanup trips
+    exactly mesh-in-topology under a bare due row and not under a
+    mutation-grace row of ``due_fn`` (a check whose window saw one of the
+    storm's edge writes); and on the storm's final overlay a
+    self-pointing edge_perm slot and a negative epoch each trip exactly
+    edge-involution-wf in all four engines (the mesh engines on the state,
+    FloodSub and RandomSub on its core)."""
+    import torch
+    from torch_parity import corrupt_negative_epoch, corrupt_perm_self_point
+
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import GossipSubState, make_gossipsub_step
+    from go_libp2p_pubsub_tpu_torch.oracle import invariants as inv
+    from go_libp2p_pubsub_tpu_torch.topo import dynamics
+
+    t0 = time.perf_counter()
+    n, d, ce = N_PARITY, ORACLE_STORM_ROUNDS, ORACLE_STORM_CE
+    kill = d // 4                        # churn_storm's default kill dispatch
+    net, cfg, sp, tp = oracle_builds(n, dev, dynamic=True)
+    cpu_net = moved(driver, net, "cpu")
+    sides = {"card": (dev, net, cfg), "cpu": ("cpu", cpu_net, cfg)}
+    sched = dynamics.churn_storm(tp, n_dispatches=d, kill_frac=0.2, rewires=2, joins=1,
+                                 join_links=2, seed=0)
+    writes, up = sched.build()
+    st0 = GossipSubState.init(net, M_SLOTS, cfg, score_params=sp, seed=0, dynamic_topo=True)
+    step = make_gossipsub_step(cfg, net, score_params=sp, dynamic_peers=True, dynamic_topo=True)
+    po, pt, pv = sweep_schedule(n, d, seed=19)
+    po[kill:] = -1
+    xs = tuple(torch.as_tensor(a, device=dev) for a in (po, pt, pv, up, writes))
+    specs = [inv.ScanInvariants("gossipsub", nt, cfg,
+                                inv.InvariantConfig(delivery_window=12, check_every=ce),
+                                batched=False, due_fn=sched.due_fn(ce))
+             for nt in (net, cpu_net)]
+    due = specs[0].precompute(d)
+    end, ys = driver.make_window(step, check=specs[0].check, check_every=ce, observe=whole)(
+        st0, xs, due)
+    ok = ys["ok"].cpu()
+    recheck_on_cpu(driver, specs[1], ys["obs"], ok, st0.core.events, due, ce,
+                   "oracle (c) storm")
+    if not bool(ok.all()):
+        bad = [((c + 1) * ce, specs[0].names[p]) for c, p in torch.nonzero(~ok).tolist()]
+        raise AssertionError(f"oracle (c) storm: violations {bad}")
+    from go_libp2p_pubsub_tpu_torch.oracle.invariants import sim_state
+
+    before = convert.state_leaves(sim_state(ys["obs"], kill - 1))
+    killed = dict(before, **{".up": up[kill]})
+    bare = failed_of(oracle_verdicts("gossipsub", killed, sides, 12))
+    # a kill writes no edge (the up row masks them), so due_fn graces the
+    # checks around the storm's write dispatches: the first of those rows
+    rows = due.cpu().numpy()
+    row = rows[int(rows[:, inv.DUE_MUT_GRACE].argmax())]
+    graced = failed_of(oracle_verdicts("gossipsub", killed, sides, 12, due=row))
+    if bare != {"mesh-in-topology"} or graced or not row[inv.DUE_MUT_GRACE]:
+        raise AssertionError(f"oracle (c) storm kill row: bare {sorted(bare)}, under a "
+                             f"due_fn row {row.tolist()} {sorted(graced)}")
+    final = convert.state_leaves(end)
+    involution = 0
+    for corrupt in (corrupt_perm_self_point, corrupt_negative_epoch):
+        bad = corrupt(final)
+        for engine in ("gossipsub", "phase", "floodsub", "randomsub"):
+            leaves, eng_sides = bad, sides
+            if engine in ("floodsub", "randomsub"):
+                leaves = {k[len(".core"):]: v for k, v in bad.items() if k.startswith(".core.")}
+                eng_sides = {k: (dv, nt, None) for k, (dv, nt, _c) in sides.items()}
+            failed = failed_of(oracle_verdicts(engine, leaves, eng_sides, 12))
+            if failed != {"edge-involution-wf"}:
+                raise AssertionError(f"oracle (c) {corrupt.__name__} on {engine}: tripped "
+                                     f"{sorted(failed)}")
+            involution += 1
+    graced_checks = int(due[:, inv.DUE_MUT_GRACE].sum())
+    secs = time.perf_counter() - t0
+    say(f"oracle (c) storm N={n} K={tp.nbr.shape[1]}: {sched.n_kills} kills, {sched.n_joins} "
+        f"joins, {sched.n_rewires} rewires over {d} rounds, checks every {ce} with due_fn's "
+        f"rows (mutation grace at {graced_checks} of {d // ce}): every property holds, the "
+        f"card's verdicts equal to the CPU checker's on the same states; the kill row without "
+        f"the cleanup trips mesh-in-topology alone, nothing under a mutation-grace row of "
+        f"due_fn; {involution} "
+        f"involution corruptions trip edge-involution-wf alone ({secs:.1f} s)")
+    return {"kills": sched.n_kills, "involution_cases": involution, "seconds": secs}
+
+
+def oracle_cdf(dev, card) -> dict:
+    """Phase 42 (d): tests/test_parity_cdf.py's cell (N=192,
+    random_connect(192, 8, seed=5), 20 warm-up rounds, 18 rounds of 2
+    publishes, 12 to drain): the port's GossipSub step on the card against
+    the port's OracleGossipSub on the host: the propagation-latency CDF
+    within 2% sup-norm, both covering every pair."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import graph
+    from go_libp2p_pubsub_tpu_torch.config import GossipSubParams
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import (
+        GossipSubConfig,
+        GossipSubState,
+        make_gossipsub_step,
+    )
+    from go_libp2p_pubsub_tpu_torch.oracle.gossipsub import OracleGossipSub
+    from go_libp2p_pubsub_tpu_torch.state import Net, hops
+
+    t0 = time.perf_counter()
+    n = CDF_N
+    tp, subs = graph.random_connect(n, d=CDF_DEG, seed=5), graph.subscribe_all(n, 1)
+    cfg = GossipSubConfig.build(GossipSubParams())
+    sched = np.random.default_rng(7).integers(0, n, size=(CDF_PUB_ROUNDS, CDF_PUBS))
+    net = Net.build(tp, subs, device=dev)
+    st = GossipSubState.init(net, M_SLOTS, cfg, seed=3)
+    step = make_gossipsub_step(cfg, net)
+    none = torch.full((CDF_PUBS,), -1, dtype=torch.int32, device=dev)
+    empty = (none, none, torch.zeros((CDF_PUBS,), dtype=torch.bool, device=dev))
+    pt = torch.zeros((CDF_PUBS,), dtype=torch.int32, device=dev)
+    pv = torch.ones((CDF_PUBS,), dtype=torch.bool, device=dev)
+    for _ in range(CDF_WARMUP):
+        st = step(st, *empty)
+    for r in range(CDF_PUB_ROUNDS):
+        st = step(st, torch.as_tensor(sched[r], dtype=torch.int32, device=dev), pt, pv)
+    for _ in range(CDF_DRAIN):
+        st = step(st, *empty)
+    h = hops(st.core.msgs, st.core.dlv).cpu().numpy()
+    o = OracleGossipSub(tp, subs, cfg, msg_slots=M_SLOTS, seed=11)
+    for _ in range(CDF_WARMUP):
+        o.step()
+    for r in range(CDF_PUB_ROUNDS):
+        o.step([(int(p), 0, True) for p in sched[r]])
+    for _ in range(CDF_DRAIN):
+        o.step()
+
+    def cdf(hop_counts):
+        hist = np.bincount(np.minimum(np.asarray(hop_counts, np.int64), CDF_MAX_H),
+                           minlength=CDF_MAX_H + 1)
+        return np.cumsum(hist) / (CDF_PUB_ROUNDS * CDF_PUBS * n)
+
+    cv, co = cdf(h[h >= 0]), cdf(list(o.hops().values()))
+    sup = float(np.max(np.abs(cv - co)))
+    if sup > 0.02 or cv[-1] < 0.999 or co[-1] < 0.999:
+        raise AssertionError(f"oracle (d): CDF sup-distance {sup:.4f}, coverage {cv[-1]:.4f} "
+                             f"(card) {co[-1]:.4f} (oracle)")
+    secs = time.perf_counter() - t0
+    say(f"oracle (d) N={n}: the card's propagation-latency CDF within {sup:.4f} sup-norm of "
+        f"the port's OracleGossipSub (limit 0.02), coverage {cv[-1]:.4f} and {co[-1]:.4f}, "
+        f"mean hops {float(np.mean(h[h >= 0])):.4f} against "
+        f"{float(np.mean(list(o.hops().values()))):.4f} ({secs:.1f} s, on {card})")
+    return {"sup": sup, "seconds": secs}
 
 
 def leaves_equal(a: dict, b: dict, where: str):
@@ -5071,6 +5671,25 @@ def main() -> int:
     say("telemetry cell: " + json.dumps({"card": card, **telemetry}))
 
     lap("41")
+    # 42. the invariant oracle: checked windows at full width beside
+    # unchecked ones, every seeded violation card against CPU, the due
+    # contract under a partition and a churn storm, the CDF parity
+    t0 = time.perf_counter()
+    oracle = oracle_full(sweep, driver, dev, card)
+    seeded = oracle_seeded(convert, dev)
+    partition42 = oracle_partition(driver, convert, dev)
+    storm42 = oracle_storm(driver, convert, dev)
+    cdf = oracle_cdf(dev, card)
+    for rec in records:
+        rec["oracle_launches"] = {
+            f"{e} checked window (N={N_FULL}), a block of {v['block_dispatches']} dispatches":
+            v["block_launches"].get(rec["name"], 0) for e, v in oracle.items()}
+    say("oracle cell: " + json.dumps({"card": card, "full": oracle, "seeded": seeded,
+                                      "partition": partition42, "storm": storm42,
+                                      "cdf": cdf}))
+    say(f"oracle phase {time.perf_counter() - t0:.1f} s")
+
+    lap("42")
     # 39. launches of a bench round, a phase-bench phase and a windowed
     # phase, traced; then the configs' rounds and phases (last: the
     # profiler's tracing must not touch a rate timed in this process)

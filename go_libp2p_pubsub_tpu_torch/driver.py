@@ -16,6 +16,12 @@ ended. Window-invariant inputs (``consts``: a lifted step's score plane)
 are static buffers of the block too: each call copies the caller's into
 them, so one capture replays any plane of the same leaf shapes. A capture
 or a replay that fails raises: a CUDA window never runs eagerly.
+
+A checked window (``check=``, the invariant oracle folded in) runs its
+checks inside the same graph: the due rows are static buffers copied in
+before the replay, the counters snapshot a static buffer each check
+rewrites, and each check's verdict goes to its row of a static output
+buffer, so a checked run is still one graph replay a block.
 """
 
 from __future__ import annotations
@@ -25,10 +31,6 @@ import math
 import time
 
 import torch
-
-#: the option of the JAX package's windows the port refuses, and where it lands
-CHECK_UNPORTED = "the folded invariant checker (oracle/) — ROADMAP §1 item 5.4"
-
 
 def heartbeat_schedule(heartbeat_every: int, rounds_per_phase: int) -> list[bool]:
     """Per-phase heartbeat flags over one schedule period: phase p covers
@@ -154,9 +156,10 @@ def launch_counts() -> dict:
 
 class _Captured:
     """One captured block of a CUDA window: its graph, the static state,
-    row and observation buffers it reads and writes, the device cursor."""
+    row, due, counters and output buffers it reads and writes, the device
+    cursor."""
 
-    def __init__(self, win: "Window", st, xs, consts, n_dispatch: int):
+    def __init__(self, win: "Window", st, xs, consts, n_dispatch: int, due=None):
         dev = xs[0].device
         self.device = dev
         self.template = st
@@ -171,6 +174,15 @@ class _Captured:
         self.n_dispatch = n_dispatch
         self.obs = None
         self.obs_template = None
+        # the checks: the due rows, the counters snapshot the next check
+        # compares against, and the verdicts (one spill row past the last
+        # check, which a clamped row index writes instead of past the end)
+        self.n_checks = n_dispatch // win.check_every if win.check is not None else 0
+        self.due = self.prev = self.ok = None
+        if win.check is not None:
+            self.due = torch.empty((self.n_checks, due.shape[-1]), dtype=torch.int32, device=dev)
+            self.due.copy_(due)
+            self.prev = _core_of(st).events.clone()
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs = {}
         self.launches = {}
@@ -179,21 +191,29 @@ class _Captured:
         for a, buf in zip(xs, self.rows):
             buf.copy_(a)
         # warm-up on a side stream (torch.cuda.graphs asks for it): it
-        # loads every kernel module and fills the wrappers' constant
-        # caches, with the block's own heartbeat pattern, from a copy of
-        # the state that is then dropped
+        # loads every kernel module and fills the wrappers' and the
+        # checker's constant caches, with the block's own heartbeat pattern
+        # and checks, from a copy of the state that is then dropped
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             sw = _rebuild(st, iter([t.clone() for t in leaves]))
             cw = self.const_args()
+            prev = None if self.prev is None else self.prev.clone()
             for j in range(win.block_dispatches):
                 sw = win.call(sw, [r[j % n_dispatch] for r in self.rows] + cw, j)
                 if win.observe is not None:
                     obs = win.observe(sw)
+                if win.checks_after(j):
+                    c = ((j + 1) // win.check_every - 1) % self.n_checks
+                    ok = win.check(sw, prev, self.due[c])
+                    prev = _core_of(sw).events.clone()
             if win.observe is not None:
                 self.obs_template = obs
                 self.obs = [torch.empty((n_dispatch,) + tuple(t.shape), dtype=t.dtype, device=dev)
                             for t in _leaves(obs)]
+            if win.check is not None:
+                self.ok = torch.zeros((self.n_checks + 1,) + tuple(ok.shape), dtype=torch.bool,
+                                      device=dev)
             del sw
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
@@ -212,16 +232,30 @@ class _Captured:
         before = launch_counts()
         g = torch.cuda.CUDAGraph()
         inputs = {t.untyped_storage().data_ptr() for t in self.state}
+        ce = win.check_every
         with torch.cuda.graph(g, pool=self.pool):
             st = _rebuild(self.template, iter(self.state))
             idx = self.cursor + torch.arange(n, device=self.device)
             rows = [buf.index_select(0, idx) for buf in self.rows]
+            if self.ok is not None:
+                # this block's checks: their rows of the due and output
+                # buffers, from the cursor (a block starts at a multiple of
+                # check_every)
+                cidx = torch.div(self.cursor, ce, rounding_mode="floor") + torch.arange(
+                    n // ce, device=self.device)
+                due = self.due.index_select(0, cidx.clamp(max=self.n_checks - 1))
+                out_row = cidx.clamp(max=self.n_checks)
             cw = self.const_args()
             for j in range(n):
                 st = win.call(st, [r[j] for r in rows] + cw, j)
                 if self.obs is not None:
                     for buf, t in zip(self.obs, _leaves(win.observe(st))):
                         buf.index_copy_(0, idx[j:j + 1], t.unsqueeze(0))
+                if win.checks_after(j):
+                    c = (j + 1) // ce - 1
+                    ok = win.check(st, self.prev, due[c])
+                    self.ok.index_copy_(0, out_row[c:c + 1], ok.unsqueeze(0))
+                    self.prev.copy_(_core_of(st).events)
             out = _leaves(st)
             if _signature(out) != self.state_sig:
                 raise ValueError("make_window: the step changed the state's leaf shapes "
@@ -253,14 +287,20 @@ class Window:
     ``consts`` of the same structure and leaf shapes (another weight set)
     replays the same capture: ``captures`` does not move."""
 
-    def __init__(self, step, heartbeat, observe, unroll: int, donate: bool):
+    def __init__(self, step, heartbeat, observe, unroll: int, donate: bool, check=None,
+                 check_every: int = 1):
         self.step = step
         self.hb = None if heartbeat is None else min_cycle(heartbeat)
         self.period = 1 if self.hb is None else len(self.hb)
         self.observe = observe
+        self.check = check
+        self.check_every = int(check_every)
+        # a checked window's unit: the heartbeat period and the check
+        # cadence both repeat within it
+        self.unit = math.lcm(self.period, self.check_every) if check is not None else self.period
         self.unroll = max(1, int(unroll))
         self.donate = bool(donate)
-        self.block_dispatches = self.period * self.unroll
+        self.block_dispatches = self.unit * self.unroll
         self.replays = 0
         self.captures = 0
         self.capture_seconds = 0.0
@@ -272,9 +312,11 @@ class Window:
             return self.step(st, *args)
         return self.step(st, *args, do_heartbeat=self.hb[j % self.period])
 
+    def checks_after(self, j: int) -> bool:
+        """Whether a check follows dispatch ``j`` of a block."""
+        return self.check is not None and (j + 1) % self.check_every == 0
+
     def __call__(self, st, xs, due=None, consts=()):
-        if due is not None:
-            raise NotImplementedError(f"not ported yet: {CHECK_UNPORTED}")
         consts = tuple(consts)
         xs = tuple(xs)
         if not xs:
@@ -284,26 +326,46 @@ class Window:
         if any(a.shape[0] != n_dispatch for a in xs[1:]):
             raise ValueError(f"make_window: xs leading axes disagree "
                              f"({[a.shape[0] for a in xs]})")
-        if n_dispatch % self.period:
+        if n_dispatch % self.unit:
+            if self.check is None:
+                raise ValueError(f"window length {n_dispatch} dispatches is not a multiple of "
+                                 f"the heartbeat period {self.period}")
             raise ValueError(f"window length {n_dispatch} dispatches is not a multiple of "
-                             f"the heartbeat period {self.period}")
+                             f"lcm(heartbeat period={self.period}, check_every="
+                             f"{self.check_every}) = {self.unit}")
         dev = _core_of(st).tick.device
         xs = tuple(torch.as_tensor(a, device=dev) for a in xs)
+        if self.check is not None:
+            if due is None:
+                raise ValueError("make_window: a checked window needs the stacked "
+                                 "[n_checks, DUE_LEN] due rows")
+            due = torch.as_tensor(due, dtype=torch.int32, device=dev)
+            if due.shape[0] != n_dispatch // self.check_every:
+                raise ValueError(f"due rows {due.shape[0]} != expected checks "
+                                 f"{n_dispatch // self.check_every} ({n_dispatch} dispatches "
+                                 f"every {self.check_every})")
         if any(t.device != dev for t in _leaves(consts)):
             raise ValueError(f"make_window: consts must live on the state's device {dev}")
         if dev.type != "cuda":
-            return self._loop(st, xs, consts, n_dispatch)
-        return self._replay(st, xs, consts, n_dispatch)
+            return self._loop(st, xs, consts, n_dispatch, due)
+        return self._replay(st, xs, consts, n_dispatch, due)
 
-    def _loop(self, st, xs, consts, n_dispatch: int):
-        obs = []
+    def _loop(self, st, xs, consts, n_dispatch: int, due):
+        obs, oks = [], []
+        prev = _core_of(st).events.clone() if self.check is not None else None
         for d in range(n_dispatch):
             st = self.call(st, [a[d] for a in xs] + list(consts), d)
             if self.observe is not None:
                 obs.append(self.observe(st))
-        return st, ({"obs": _stack(obs)} if obs else {})
+            if self.checks_after(d):
+                oks.append(self.check(st, prev, due[(d + 1) // self.check_every - 1]))
+                prev = _core_of(st).events.clone()
+        ys = {"obs": _stack(obs)} if obs else {}
+        if self.check is not None:
+            ys["ok"] = torch.stack(oks)
+        return st, ys
 
-    def _replay(self, st, xs, consts, n_dispatch: int):
+    def _replay(self, st, xs, consts, n_dispatch: int, due):
         leaves = _leaves(st)
         const_leaves = _leaves(consts)
         # one capture serves every window up to its row capacity, and every
@@ -313,11 +375,16 @@ class Window:
         entry = self._entries.get(key)
         if entry is None or entry.n_dispatch < n_dispatch:
             self._entries.pop(key, None)
-            entry = self._entries[key] = _Captured(self, st, xs, consts, n_dispatch)
+            entry = self._entries[key] = _Captured(self, st, xs, consts, n_dispatch, due)
             self.captures += 1
         else:
             for a, buf in zip(xs, entry.rows):
                 buf[:n_dispatch].copy_(a)
+            if due is not None:
+                entry.due[:due.shape[0]].copy_(due)
+        if entry.prev is not None:
+            # the first check compares against the window-entry counters
+            entry.prev.copy_(_core_of(st).events)
         for t, buf in zip(const_leaves, entry.consts):
             if t.data_ptr() != buf.data_ptr():
                 buf.copy_(t)
@@ -328,7 +395,7 @@ class Window:
                 buf.copy_(t)
         entry.cursor.zero_()
         big = self.block_dispatches
-        plan = [big] * (n_dispatch // big) + [self.period] * ((n_dispatch % big) // self.period)
+        plan = [big] * (n_dispatch // big) + [self.unit] * ((n_dispatch % big) // self.unit)
         graphs = {n: entry.graph(self, n) for n in sorted(set(plan), reverse=True)}
         self.block_launches = entry.launches.get(big, self.block_launches)
         for n in plan:
@@ -340,6 +407,8 @@ class Window:
         if entry.obs is not None:
             ys["obs"] = _rebuild(entry.obs_template,
                                  iter([b[:n_dispatch].clone() for b in entry.obs]))
+        if entry.ok is not None:
+            ys["ok"] = entry.ok[:n_dispatch // self.check_every].clone()
         return st, ys
 
 
@@ -357,13 +426,24 @@ def make_window(step, *, heartbeat=None, check=None, check_every: int = 1, obser
       ``do_heartbeat``; None for steps that own their cadence.
     * ``observe`` is a state function evaluated after every dispatch; its
       per-dispatch stack comes back in ``ys["obs"]`` (leading axis D).
-    * ``D`` must be a multiple of the pattern's period.
+    * ``check`` folds the invariant oracle into the window: a predicate
+      ``check(state, prev_events, due_row) -> [P]`` (batched: ``[S, P]``)
+      evaluated after every ``check_every``-th dispatch; build it with
+      ``oracle.invariants.ScanInvariants``. ``due`` is the stacked
+      ``[n_checks, DUE_LEN]`` due rows (``ScanInvariants.precompute``); the
+      first check compares the counters against the window-entry counters,
+      each later one against the previous check's; the verdicts come back
+      in ``ys["ok"]`` (``[n_checks, P]`` / ``[n_checks, S, P]``). On the
+      card the checks are part of the captured block, so they must make no
+      host sync (the oracle's predicates make none).
+    * ``D`` must be a multiple of the pattern's period, and with ``check``
+      of lcm(period, ``check_every``), the span of a captured block.
     * ``donate=True`` (the JAX default) returns the window's own state
       buffers, which its next call overwrites; ``donate=False`` returns
       copies. A state a window returned may be passed back in as it is.
-    * ``unroll`` blocks of one period each are captured as one graph on the
-      card (a window whose length is not a multiple of that replays a
-      one-period graph for the rest).
+    * ``unroll`` blocks of one period (a checked window: of the lcm above)
+      each are captured as one graph on the card (a window whose length is
+      not a multiple of that replays a one-unit graph for the rest).
     * ``consts`` (a run-time argument) is a tuple of window-invariant
       inputs appended to every step call after the per-dispatch rows: a
       lifted step's score plane (``score.params``). On the card its tensor
@@ -383,15 +463,11 @@ def make_window(step, *, heartbeat=None, check=None, check_every: int = 1, obser
       writes); a dispatch with no partition takes an all-False row, since a
       window row cannot be None. ``step`` may be any engine's: a
       GossipSub or phase step, or a FloodSub or RandomSub round
-      (``perf/sweep``'s runs).
-
-    ``check`` (the folded invariant checker) raises
-    ``NotImplementedError``."""
-    if check is not None:
-        raise NotImplementedError(f"not ported yet: {CHECK_UNPORTED}")
+      (``perf/sweep``'s runs)."""
     if int(check_every) < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
-    return Window(step, heartbeat, observe, unroll, donate)
+    return Window(step, heartbeat, observe, unroll, donate, check=check,
+                  check_every=check_every)
 
 
 def make_scan(step, *, heartbeat_every: int = 1, rounds_per_phase: int = 1,

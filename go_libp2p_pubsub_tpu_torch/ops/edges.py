@@ -48,6 +48,45 @@ def detect_banded(nbr: np.ndarray, rev: np.ndarray, nbr_ok: np.ndarray):
     return tuple(int(o) for o in off[0]), tuple(int(r) for r in rev[0])
 
 
+def involution_wf(nbr: torch.Tensor, rev: torch.Tensor, nbr_ok: torch.Tensor,
+                  edge_perm: torch.Tensor, ar: torch.Tensor | None = None) -> torch.Tensor:
+    """0-d bool tensor: the (nbr, rev, nbr_ok, edge_perm) planes form a
+    well-formed capacity-bounded edge pool, the contract ``build_edge_perm``
+    and ``ops/csr.build_csr`` establish and the dynamic overlay
+    (``topo/dynamics.py``) must keep under every mutation batch:
+
+      * edge_perm is a self-inverse permutation of [0, N*K);
+      * absent slots self-point;
+      * present slots agree with their partner: partner present, the
+        partner's nbr points back, perm == nbr*K + rev, no self-edges,
+        nbr and rev in range.
+
+    Device ops only (no host read), so it runs inside a captured window.
+    ``edge_perm`` may be int32 (the state's ``TopoState`` leaf) or int64
+    (``Net.edge_perm``): the arithmetic is int64, so both give one verdict.
+    ``ar`` is an int64 ``arange(N*K)`` built beforehand (made here when
+    None)."""
+    n, k = nbr.shape
+    e = n * k
+    if ar is None:
+        ar = torch.arange(e, dtype=torch.int64, device=nbr.device)
+    pf = edge_perm.reshape(e).long()
+    okf = nbr_ok.reshape(e)
+    nbrf = nbr.reshape(e).long()
+    revf = rev.reshape(e).long()
+    in_range = ((pf >= 0) & (pf < e)).all()
+    ps = pf.clamp(0, max(e - 1, 0))
+    invol = (pf[ps] == ar).all()
+    absent_self = (okf | (pf == ar)).all()
+    partner_ok = (~okf | okf[ps]).all()
+    owner = ar // k
+    back = (~okf | (nbrf[ps] == owner)).all()
+    agree = (~okf | (pf == nbrf * k + revf)).all()
+    no_self = (~okf | (nbrf != owner)).all()
+    bounds = (~okf | ((nbrf >= 0) & (nbrf < n) & (revf >= 0) & (revf < k))).all()
+    return in_range & invol & absent_self & partner_ok & back & agree & no_self & bounds
+
+
 def edge_permute(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """x[N, K, ...] -> x[nbr[j,k], rev[j,k], ...] as a flat row gather."""
     n, k = perm.shape

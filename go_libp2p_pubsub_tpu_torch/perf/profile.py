@@ -4,7 +4,7 @@
         [--engine gossipsub|floodsub] [--config default|eth2|sybil]
         [--layout dense|csr] [--px]
         [--rounds-per-phase 1] [--warm 16] [--rounds 16] [--window]
-        [--out PATH]
+        [--check-every K] [--out PATH]
 
 Builds a bench GossipSub config (``--config``, the default one unless
 given; its publish schedule with the config's topics and honest origins;
@@ -34,8 +34,13 @@ JSON. With ``--window`` the untraced and the traced rounds run as
 window is captured on a window of ``--rounds`` rounds after the warm-up):
 the report adds the graph replays a window and the wrapper launches a
 captured block, and reads the kernels off a traced replay (the host ops
-of a replay are graph launches, so no kernel is attributed to one).
-Needs a CUDA device.
+of a replay are graph launches, so no kernel is attributed to one). With
+``--check-every K`` as well the windows are checked ones
+(``driver.make_window(check=...)``, the bench's invariant oracle every K
+dispatches under a quiet due row, ``sweep.bench_invariants``), and the
+report adds the checker's own cost (``check_cost``): its launches and
+device time a check, traced eagerly, and its device time a check replayed
+alone from a CUDA graph. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ import time
 
 import torch
 
-from ..driver import form_mesh, make_scan
+from ..driver import form_mesh, heartbeat_schedule, make_scan, make_window
+from ..oracle.invariants import due_vector
 from . import sweep
 
 
@@ -76,10 +82,57 @@ def _union_us(intervals) -> float:
     return total
 
 
+def check_cost(check, state, prev_events, due_row, reps: int = 5) -> dict:
+    """The invariant checker's own cost on the card, for one check of
+    ``state``: ``reps`` eager checks traced with ``torch.profiler`` (the
+    host's launch calls a check, the device's kernel time and busy time a
+    check), then the check captured alone in a CUDA graph and replayed
+    ``reps * 4`` times between CUDA events (its device time a check as a
+    window replays it)."""
+    check(state, prev_events, due_row)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            check(state, prev_events, due_row)
+        torch.cuda.synchronize()
+    kev = _events_on(prof, "cuda")
+    calls = sum(1 for e in _events_on(prof, "cpu") if e.name.startswith(_DEVICE_OP_CALLS))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        check(state, prev_events, due_row)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        check(state, prev_events, due_row)
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps * 4):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return {
+        "launches_per_check": calls / reps,
+        "device_ops_per_check": len(kev) / reps,
+        "device_kernel_ms_per_check": sum(e.time_range.end - e.time_range.start
+                                          for e in kev) / 1e3 / reps,
+        "device_busy_ms_per_check": _union_us([(e.time_range.start, e.time_range.end)
+                                               for e in kev]) / 1e3 / reps,
+        "graph_ms_per_check": start.elapsed_time(end) / (reps * 4),
+    }
+
+
 def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
                    layout: str = "dense", rounds_per_phase: int = 1,
-                   window: bool = False, config: str = "default", px: bool = False) -> dict:
+                   window: bool = False, config: str = "default", px: bool = False,
+                   check_every: int = 0) -> dict:
     r = int(rounds_per_phase)
+    if check_every and not (window and engine == "gossipsub"):
+        raise ValueError("--check-every needs --window and the GossipSub engine")
     if engine == "gossipsub":
         st, step, n_topics, honest = sweep.build_bench(
             n, 64, config=config, edge_layout=layout, fused=layout == "csr",
@@ -104,19 +157,35 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
     po, pt, pv = sweep.publish_schedule(warm + (3 if window else 2) * rounds, n, n_topics,
                                         honest)
     st = run(st, po[:warm], pt[:warm], pv[:warm])
-    scan = None
+    win = spec = None
     if window:
-        # the bench's windows: a block of 2 phases (r > 1) or 4 rounds,
         # captured on one window of `rounds` rounds before the timed ones
-        if engine == "gossipsub" and r > 1:
-            scan = make_scan(step, heartbeat_every=r, rounds_per_phase=r, unroll=2)
+        if check_every:
+            # a checked window: a block of check_every dispatches
+            spec = sweep.bench_invariants(
+                n, check_every=check_every, delivery_window=24,
+                due_fn=lambda tick: due_vector(quiet=(0, 1 << 30)), config=config,
+                edge_layout=layout, fused=layout == "csr", rounds_per_phase=r,
+                device="cuda", px=px)
+            win = make_window(step, heartbeat=heartbeat_schedule(r, r) if r > 1 else None,
+                              check=spec.check, check_every=check_every)
+
+            def run(st, po, pt, pv):
+                d = po.shape[0] // r
+                xs = tuple(torch.as_tensor(a, device="cuda").reshape(
+                    (d, r, -1) if r > 1 else (d, -1)) for a in (po, pt, pv))
+                return win(st, xs, spec.precompute(d))[0]
         else:
-            scan = make_scan(step, static_heartbeat=False, unroll=4)
-        run = scan
+            # the bench's windows: a block of 2 phases (r > 1) or 4 rounds
+            if engine == "gossipsub" and r > 1:
+                run = make_scan(step, heartbeat_every=r, rounds_per_phase=r, unroll=2)
+            else:
+                run = make_scan(step, static_heartbeat=False, unroll=4)
+            win = run.window
         st = run(st, *(a[warm:warm + rounds] for a in (po, pt, pv)))
         warm += rounds
     torch.cuda.synchronize()
-    replays0 = 0 if scan is None else scan.window.replays
+    replays0 = 0 if win is None else win.replays
     # an untraced window first: the profiler stretches the host's dispatch
     # time, so the busy share is also read against this window's rounds
     t0 = time.perf_counter()
@@ -124,7 +193,7 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
     st = run(st, po[plain], pt[plain], pv[plain])
     torch.cuda.synchronize()
     untraced_us = 1e6 * (time.perf_counter() - t0)
-    replays = None if scan is None else scan.window.replays - replays0
+    replays = None if win is None else win.replays - replays0
     traced = slice(warm + rounds, warm + 2 * rounds)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
@@ -139,7 +208,7 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
     # back short (55 of 3,730 missing in one of four traced phases on an
     # H100), while a graph replay's kernels exist only as device records
     calls = sum(1 for e in cpu_events if e.name.startswith(_DEVICE_OP_CALLS))
-    launches = len(kev) if scan is not None else calls
+    launches = len(kev) if win is not None else calls
     by_name: dict = {}
     for e in kev:
         d = by_name.setdefault(e.name, [0, 0.0])
@@ -159,12 +228,17 @@ def profile_rounds(n: int, warm: int, rounds: int, engine: str = "gossipsub",
             by = launched_by.setdefault(kern.name, {})
             op = f"{e.name} {e.input_shapes}"
             by[op] = by.get(op, 0.0) + kern.duration
+    check = None
+    if spec is not None:
+        check = dict(check_cost(spec.check, st, st.core.events, spec.precompute(check_every)[0]),
+                     check_every=check_every, checks_per_window=rounds // r // check_every)
     return {
         "engine": engine, "config": config, "layout": layout, "n_peers": n, "rounds": rounds,
         "rounds_per_phase": r, "window": bool(window),
         "graph_replays_per_window": replays,
-        "block_launches": None if scan is None else dict(scan.window.block_launches),
-        "capture_seconds": None if scan is None else scan.window.capture_seconds,
+        "block_launches": None if win is None else dict(win.block_launches),
+        "capture_seconds": None if win is None else win.capture_seconds,
+        "check": check,
         "host_ms_per_round": wall_us / 1e3 / rounds,
         "untraced_ms_per_round": untraced_us / 1e3 / rounds,
         "device_kernel_ms_per_round": kernel_us / 1e3 / rounds,
@@ -200,6 +274,8 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--window", action="store_true",
                     help="run the timed rounds as driver.make_scan windows (CUDA graphs)")
+    ap.add_argument("--check-every", type=int, default=0,
+                    help="with --window: check the invariant oracle every K dispatches")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -209,7 +285,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     rep = profile_rounds(args.n, args.warm, args.rounds, args.engine, args.layout,
                          args.rounds_per_phase, window=args.window, config=args.config,
-                         px=args.px)
+                         px=args.px, check_every=args.check_every)
     rep["card"] = card
     print(card)
     print(f"{rep['engine']} {rep['layout']} r={rep['rounds_per_phase']} N={rep['n_peers']} over {rep['rounds']} rounds: untraced "
@@ -224,6 +300,13 @@ def main(argv=None) -> int:
         print(f"windows: {rep['graph_replays_per_window']} graph replays a window of "
               f"{rep['rounds']} rounds, wrapper launches a captured block "
               f"{rep['block_launches']}, capture {rep['capture_seconds']:.3f} s")
+    if rep["check"]:
+        c = rep["check"]
+        print(f"checker every {c['check_every']} dispatches ({c['checks_per_window']} a "
+              f"window): {c['launches_per_check']:.1f} launches a check, device kernels "
+              f"{c['device_kernel_ms_per_check']:.4f} ms a check (busy "
+              f"{c['device_busy_ms_per_check']:.4f} ms), {c['graph_ms_per_check']:.4f} ms a "
+              "check replayed from a graph")
     for r in rep["kernels"][: args.top]:
         print(f"  {r['us_per_round']:10.1f} us/round {r['launches_per_round']:7.1f}x  "
               f"{r['name'][:110]}")

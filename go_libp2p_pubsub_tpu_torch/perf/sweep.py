@@ -120,6 +120,62 @@ def bench_topics(config: str) -> int:
     return 64 if config == "eth2" else 1
 
 
+def bench_parts(n_peers: int, seed: int = 0, config: str = "default",
+                count_events: bool = False, edge_layout: str = "dense", fused: bool = False,
+                rounds_per_phase: int = 1, heartbeat_every: int | None = None, device=None,
+                queue_cap: int = 0, validation_delay_rounds: int = 0, px: bool = False,
+                wire_coalesced: bool | None = None, chaos=None):
+    """(net, cfg, score params, gater params, no-forward vector) of a bench
+    config, as ``build_bench`` builds them (its arguments of the same
+    names)."""
+    _check_config(config)
+    dev = resolve_device(device)
+    tp = graphlib.ring_lattice(n_peers, d=8)
+    n_topics = bench_topics(config)
+    if config == "eth2":
+        subs = graphlib.subscribe_random(n_peers, n_topics=n_topics, topics_per_peer=2,
+                                         seed=seed)
+    else:
+        subs = graphlib.subscribe_all(n_peers, 1)
+    net = Net.build(tp, subs, edge_layout=edge_layout, fused=fused, device=dev)
+    params = dataclasses.replace(GossipSubParams(), flood_publish=False, do_px=px)
+    _tp, sp = bench_score_params(config, n_topics)
+    gater = PeerGaterParams() if config == "sybil" else None
+    no_forward = None
+    if config == "sybil":
+        no_forward = np.random.default_rng(seed).random(n_peers) < SYBIL_FRACTION
+    r = int(rounds_per_phase)
+    he = (r if r > 1 else 1) if heartbeat_every is None else int(heartbeat_every)
+    cfg = GossipSubConfig.build(params, bench_thresholds(px), score_enabled=True,
+                                heartbeat_every=he, gater_params=gater,
+                                validation_capacity=8 if config == "sybil" else 0,
+                                queue_cap=queue_cap,
+                                validation_delay_rounds=validation_delay_rounds,
+                                edge_layout=edge_layout, fused=fused,
+                                wire_coalesced=bench_wire_coalesced(wire_coalesced),
+                                trace_exact=px, narrow_counters=px, chaos=chaos)
+    cfg = dataclasses.replace(cfg, count_events=count_events,
+                              fanout_slots=cfg.fanout_slots if config == "eth2" else 0)
+    return net, cfg, sp, gater, no_forward
+
+
+def bench_invariants(n_peers: int, *, check_every: int, due_fn=None,
+                     delivery_window: int = 12, batched: bool = False, **bench_kw):
+    """The invariant oracle of a bench build (``oracle.invariants.
+    ScanInvariants`` on ``bench_parts``' net and config): fold its ``check``
+    into ``driver.make_window(check=spec.check, check_every=check_every)``.
+    ``bench_kw`` are ``bench_parts``' (the engine, the layout, the
+    device)."""
+    from ..oracle.invariants import InvariantConfig, ScanInvariants
+
+    r = int(bench_kw.get("rounds_per_phase", 1))
+    net, cfg, _sp, _g, _nf = bench_parts(n_peers, **bench_kw)
+    return ScanInvariants("phase" if r > 1 else "gossipsub", net, cfg,
+                          InvariantConfig(delivery_window=delivery_window,
+                                          check_every=check_every),
+                          batched=batched, due_fn=due_fn, rounds_per_step=r)
+
+
 def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                 config: str = "default", count_events: bool = False,
                 edge_layout: str = "dense", fused: bool = False,
@@ -168,34 +224,14 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     ``AttackScenario``, built against the bench lattice) arms the attack
     plane; ``honest`` then lists the peers outside its faction (and outside
     the sybil config's no-forward set)."""
-    _check_config(config)
-    dev = resolve_device(device)
+    net, cfg, sp, gater, no_forward = bench_parts(
+        n_peers, seed=seed, config=config, count_events=count_events,
+        edge_layout=edge_layout, fused=fused, rounds_per_phase=rounds_per_phase,
+        heartbeat_every=heartbeat_every, device=device, queue_cap=queue_cap,
+        validation_delay_rounds=validation_delay_rounds, px=px,
+        wire_coalesced=wire_coalesced, chaos=chaos)
     tp = graphlib.ring_lattice(n_peers, d=8)
-    n_topics = bench_topics(config)
-    if config == "eth2":
-        subs = graphlib.subscribe_random(n_peers, n_topics=n_topics, topics_per_peer=2,
-                                         seed=seed)
-    else:
-        subs = graphlib.subscribe_all(n_peers, 1)
-    net = Net.build(tp, subs, edge_layout=edge_layout, fused=fused, device=dev)
-    params = dataclasses.replace(GossipSubParams(), flood_publish=False, do_px=px)
-    _tp, sp = bench_score_params(config, n_topics)
-    gater = PeerGaterParams() if config == "sybil" else None
-    no_forward = None
-    if config == "sybil":
-        no_forward = np.random.default_rng(seed).random(n_peers) < SYBIL_FRACTION
-    r = int(rounds_per_phase)
-    he = (r if r > 1 else 1) if heartbeat_every is None else int(heartbeat_every)
-    cfg = GossipSubConfig.build(params, bench_thresholds(px), score_enabled=True,
-                                heartbeat_every=he, gater_params=gater,
-                                validation_capacity=8 if config == "sybil" else 0,
-                                queue_cap=queue_cap,
-                                validation_delay_rounds=validation_delay_rounds,
-                                edge_layout=edge_layout, fused=fused,
-                                wire_coalesced=bench_wire_coalesced(wire_coalesced),
-                                trace_exact=px, narrow_counters=px, chaos=chaos)
-    cfg = dataclasses.replace(cfg, count_events=count_events,
-                              fanout_slots=cfg.fanout_slots if config == "eth2" else 0)
+    r, he, n_topics = int(rounds_per_phase), cfg.heartbeat_every, bench_topics(config)
     st = GossipSubState.init(
         net, msg_slots, cfg, score_params=sp, seed=seed,
         dormant=graphlib.dormant_edges(tp, PX_DORMANT, seed=5) if px else None,

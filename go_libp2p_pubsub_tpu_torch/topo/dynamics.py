@@ -267,11 +267,25 @@ class MutationSchedule:
         return writes, self._up_rows.copy()
 
     def due_fn(self, check_every: int, grace_checks: int = 1, recover=None, quiet=None):
-        """The invariant oracle's due rows around mutation ticks: the oracle
-        is not ported."""
-        raise NotImplementedError(
-            "not ported yet: MutationSchedule.due_fn needs the invariant oracle "
-            "(oracle/) — ROADMAP §1 item 5.4")
+        """The invariant oracle's due-row factory for this program: sets
+        ``DUE_MUT_GRACE`` on every check whose window saw a mutation batch
+        (plus ``grace_checks - 1`` further checks), so the mutation-aware
+        invariants (mesh-in-topology, first-edge-wf) grace the re-peering
+        transient around mutation ticks. ``recover``/``quiet`` pass through
+        to ``oracle.invariants.due_vector``."""
+        from ..oracle import invariants as _oinv
+
+        mut_ticks = sorted(t * self.rounds_per_dispatch for t in self.mutation_dispatches)
+        span = int(check_every) * int(grace_checks)
+
+        def fn(tick: int) -> np.ndarray:
+            row = _oinv.due_vector(quiet=quiet, recover=recover)
+            lo = tick - span
+            if any(lo <= mt < tick + 1 for mt in mut_ticks):
+                row[_oinv.DUE_MUT_GRACE] = 1
+            return row
+
+        return fn
 
     def schedule_hash(self) -> str:
         """sha256 over the compiled program (which storm ran)."""

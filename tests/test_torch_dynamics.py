@@ -91,7 +91,8 @@ def test_storm_compiles_as_the_reference(seed):
 def test_schedule_rejects_malformed_programs():
     """The programs the JAX package rejects raise ``ScheduleError`` here
     too (its tests/test_dynamics.py:120-136); a slot written twice in one
-    dispatch too, and ``due_fn`` names the unported oracle."""
+    dispatch too. ``due_fn`` gives due rows (``tests/
+    test_torch_invariants_dynamics.py`` holds them to the JAX rows)."""
     _jt, tt = topologies()
     s = tdyn.MutationSchedule(tt.nbr, tt.nbr_ok, tt.rev, 4)
     with pytest.raises(tdyn.ScheduleError):
@@ -109,8 +110,8 @@ def test_schedule_rejects_malformed_programs():
         s._write(2, u * s.k, 1, 0, 1)        # slot already written in dispatch 2
     with pytest.raises(tdyn.ScheduleError):
         s.remove_edge(3, u, v)               # no such edge any more
-    with pytest.raises(NotImplementedError, match="item 5"):
-        s.due_fn(4)
+    row = s.due_fn(4)(4)
+    assert row.shape == (7,) and row[6] == 1     # the dispatch-2 mutation is in its window
     assert tdyn.PAD_SLOT == jdyn.PAD_SLOT
 
 

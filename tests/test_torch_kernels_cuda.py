@@ -1048,3 +1048,79 @@ def test_trace_and_checkpoint_on_the_card_equal_the_cpu(cuda, engine, tmp_path):
     for p in finals["cpu"]:
         assert np.array_equal(np.atleast_1d(finals["cpu"][p]).view(np.uint8),
                               np.atleast_1d(finals["cuda"][p]).view(np.uint8)), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["per-round", "phase"])
+def test_checked_window_on_the_card_equals_the_cpu(cuda, engine):
+    """The bench default config at N = 512 through a checked window (the
+    phase engine at r = 8 with a check every 2 phases, the per-round step
+    every 8 rounds) on the card and on the CPU: equal verdicts and final
+    states, one capture over two calls, and the checked block launches
+    each kernel as often as the same block unchecked. On the card the
+    checker launches no kernel and makes no host sync, and an eager hook
+    over the same dispatches gives the window's verdicts (but at the first
+    check's events-monotone, which the window holds to the entry
+    counters)."""
+    from go_libp2p_pubsub_tpu_torch import convert, driver
+    from go_libp2p_pubsub_tpu_torch.oracle import invariants as inv
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n, r = 512, (8 if engine == "phase" else 1)
+    ce, dispatches = (2, 8) if r > 1 else (8, 32)
+    po, pt, pv = sweep.publish_schedule(dispatches * r, n, 1, seed=1)
+    xs = tuple(a.reshape((dispatches, r, -1)) if r > 1 else a for a in (po, pt, pv))
+    bench = dict(rounds_per_phase=r, count_events=True)
+    due_fn = lambda tick: inv.due_vector(quiet=(0, 10_000))     # noqa: E731
+    hb = driver.heartbeat_schedule(r, r) if r > 1 else None
+    clone = lambda s: driver._rebuild(s, iter([t.clone() for t in driver._leaves(s)]))  # noqa: E731
+    out = {}
+    for dev in ("cpu", cuda):
+        st, step, _t, _h = sweep.build_bench(n, 64, device=dev, **bench)
+        if r > 1:
+            st = driver.form_mesh(step, st, rounds_per_phase=r)
+        spec = sweep.bench_invariants(n, check_every=ce, due_fn=due_fn, delivery_window=24,
+                                      device=dev, **bench)
+        due = spec.precompute(dispatches)
+        win = driver.make_window(step, heartbeat=hb, check=spec.check, check_every=ce,
+                                 donate=False)
+        plain = driver.make_window(step, heartbeat=hb, unroll=ce, donate=False)
+        end, ys = win(clone(st), xs, due)
+        end2, ys2 = win(clone(st), xs, due)
+        out[torch.device(dev).type] = (convert.state_leaves(end), ys["ok"].cpu())
+        assert torch.equal(ys["ok"], ys2["ok"]) and ys["ok"].all()
+        assert ys["ok"].shape == (dispatches // ce, len(spec.names))
+        if dev == "cpu":
+            continue
+        plain_end, _ = plain(clone(st), xs)
+        for a, b in zip(driver._leaves(plain_end), driver._leaves(end)):
+            assert torch.equal(a, b)
+        assert win.captures == 1 and win.block_dispatches == plain.block_dispatches == ce
+        assert win.block_launches == plain.block_launches
+        assert sum(win.block_launches.values()) > 0
+        before = driver.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ok = spec.check(end, end.core.events, due[0])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert driver.launch_counts() == before and ok.all()
+        net, cfg, _sp, _g, _nf = sweep.bench_parts(n, device=dev, **bench)
+        hook = inv.InvariantHook(spec.engine, net, cfg,
+                                 inv.InvariantConfig(delivery_window=24, check_every=ce),
+                                 batched=False, due_fn=due_fn, rounds_per_step=r)
+        hook.precompute(dispatches)
+        eager = st
+        for d in range(dispatches):
+            row = [torch.as_tensor(a[d], device=dev) for a in xs]
+            eager = step(eager, *row, **({"do_heartbeat": True} if r > 1 else {}))
+            hook.on_step(d, eager)
+        got = torch.from_numpy(hook.report().ok[:, 0])
+        mono = spec.names.index("events-monotone")
+        got[0, mono] = ys["ok"][0, mono]
+        assert torch.equal(got, ys["ok"].cpu())
+    for p, a in out["cpu"][0].items():
+        assert np.array_equal(np.atleast_1d(a).view(np.uint8),
+                              np.atleast_1d(out["cuda"][0][p]).view(np.uint8)), p
+    assert torch.equal(out["cpu"][1], out["cuda"][1])

@@ -260,8 +260,12 @@ def test_unported_window_options_raise():
     _jcfg, _jnet, _jsp, tcfg, tnet, tsp = bench_builds(n=N, d=4)
     step = tmake_step(tcfg, tnet, score_params=tsp)
     po, pt, pv = (a[:2] for a in phase_schedule(N, ROUNDS))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        driver.make_window(step, check=lambda s, p, d: None, check_every=2)
+    # the folded checker is ported (tests/test_torch_window_check.py holds
+    # it to the JAX windows): a checked window wants its due rows
+    win = driver.make_window(step, check=lambda s, p, d: None, check_every=2)
+    assert win.unit == 2
+    with pytest.raises(ValueError, match="due rows"):
+        win(_fresh(tcfg, tnet, tsp), (po, pt, pv))
     # the liveness schedule (tests/test_torch_churn.py) and the lifted
     # plane are ported, through make_window and make_scan alike
     # (tests/test_torch_lift.py holds the windows to their eager loops)

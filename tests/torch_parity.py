@@ -15,6 +15,7 @@ chip_smoke.py use the hazard builders on machines without the JAX stack.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import sys
 
 import numpy as np
@@ -763,3 +764,300 @@ def lifted_planes(builds, mesh: bool = False, moves=None, degrees=None):
         plane = jparams.CandidateParams(score=plane, mesh=msh)
     return plane, convert.score_plane_from_reference(
         reference_leaves(plane), device="cpu", app_specific_weight=plane.app_specific_weight)
+
+# ---------------------------------------------------------------------------
+# the invariant oracle's seeded violations (tests/test_invariants.py's,
+# applied to a state's leaves as ``convert.state_leaves`` gives them, so the
+# same corruption builds both packages' states, or a card and a CPU state):
+# one leaf (plus a doctored net, a due row or a counters snapshot where the
+# property is about a relation), tripping exactly its property on a clean
+# lived-in state
+
+
+def _core(leaves) -> str:
+    return ".core" if ".core.tick" in leaves else ""
+
+
+def _valid_slot(L) -> int:
+    return int(np.argwhere(L[_core(L) + ".msgs.valid"])[0][0])
+
+
+def _bit(i: int):
+    return i // 32, np.uint32(1) << np.uint32(i % 32)
+
+
+def _capacity(L) -> int:
+    return L[_core(L) + ".dlv.first_round"].shape[1]
+
+
+def _clear_bit(row, m) -> int:
+    bits = np.unpackbits(np.asarray(row, np.uint32).view(np.uint8), bitorder="little")
+    return next(i for i in range(m) if not bits[i])
+
+
+def _mesh_edge(L):
+    idx = np.argwhere(L[".mesh"])
+    assert idx.size, "lived-in state has an empty mesh"
+    return tuple(int(v) for v in idx[0])
+
+
+def _copy(L, *paths):
+    out = dict(L)
+    for p in paths:
+        out[p] = np.array(L[p], copy=True)
+    return out
+
+
+def corrupt_msgtable(c, L):
+    p = _core(L) + ".msgs.ignored"
+    L = _copy(L, p)
+    L[p][_valid_slot(L)] = True
+    return L, {}, {}
+
+
+def corrupt_fwd(c, L):
+    core = _core(L)
+    L = _copy(L, core + ".dlv.fwd")
+    w, b = _bit(_clear_bit(L[core + ".dlv.have"][0], _capacity(L)))
+    L[core + ".dlv.fwd"][0, w] |= b
+    return L, {}, {}
+
+
+def corrupt_first_edge(c, L):
+    # two first-arrival edges for one (peer, msg), both in have: only the
+    # at-most-one clause trips
+    core = _core(L)
+    L = _copy(L, core + ".dlv.have", core + ".dlv.fe_words")
+    w, b = _bit(_valid_slot(L))
+    L[core + ".dlv.have"][0, w] |= b
+    L[core + ".dlv.fe_words"][0, 0, w] |= b
+    L[core + ".dlv.fe_words"][0, 1, w] |= b
+    return L, {}, {}
+
+
+def corrupt_events(c, L):
+    return L, {}, {"prev_events": L[_core(L) + ".events"] + 1}
+
+
+def corrupt_delivery(c, L):
+    # un-deliver one validated, subscribed, non-origin receipt under the
+    # quiet due row
+    core = _core(L)
+    slot = _valid_slot(L)
+    peer = (int(L[core + ".msgs.origin"][slot]) + 1) % L[core + ".dlv.first_round"].shape[0]
+    L = _copy(L, core + ".dlv.first_round")
+    L[core + ".dlv.first_round"][peer, slot] = -1
+    return L, {}, {"due": c.quiet}
+
+
+def corrupt_self_graft(c, L):
+    i, s, k = _mesh_edge(L)
+    nbr = np.array(c.nbr)
+    nbr[i, k] = i
+    L = _copy(L, ".graft_out")
+    L[".graft_out"][i, s, k] = True
+    return L, {"nbr": nbr}, {}
+
+
+def corrupt_topology(c, L):
+    i, s, k = _mesh_edge(L)
+    L = _copy(L, ".up")
+    L[".up"][int(c.nbr[i, k])] = False
+    return L, {}, {}
+
+
+def corrupt_subscription(c, L):
+    i, s, k = _mesh_edge(L)
+    protocol = np.array(c.protocol)
+    protocol[int(c.nbr[i, k])] = 0
+    return L, {"protocol": protocol}, {}
+
+
+def corrupt_degree(c, L):
+    L = _copy(L, ".mesh")
+    L[".mesh"][0] = False
+    return L, {}, {}
+
+
+def corrupt_graft_backoff(c, L):
+    i, s, k = _mesh_edge(L)
+    tick = int(L[".core.tick"])
+    L = _copy(L, ".graft_out", ".backoff_present", ".backoff_expire")
+    L[".graft_out"][i, s, k] = True
+    L[".backoff_present"][i, s, k] = True
+    L[".backoff_expire"][i, s, k] = tick + 10
+    return L, {}, {}
+
+
+def corrupt_graylist(c, L):
+    i, s, k = _mesh_edge(L)
+    L = _copy(L, ".scores")
+    L[".scores"][i, k] = -5.0
+    return L, {}, {}
+
+
+def corrupt_mcache(c, L):
+    L = _copy(L, ".mcache")
+    w, b = _bit(_clear_bit(L[".core.dlv.have"][0], _capacity(L)))
+    L[".mcache"][0, 0, w] |= b
+    return L, {}, {}
+
+
+def corrupt_score_counter(c, L):
+    L = _copy(L, ".score.fmd")
+    L[".score.fmd"][0, 0, 0] = -1.0
+    return L, {}, {}
+
+
+def corrupt_backoff_presence(c, L):
+    i, s, k = _mesh_edge(L)
+    tick = int(L[".core.tick"])
+    L = _copy(L, ".backoff_present", ".backoff_expire")
+    L[".backoff_expire"][i, s, k] = tick + 50
+    L[".backoff_present"][i, s, k] = False
+    return L, {}, {}
+
+
+def corrupt_backoff_stuck(c, L):
+    i, s, k = _mesh_edge(L)
+    L = _copy(L, ".backoff_present", ".backoff_expire")
+    L[".backoff_expire"][i, s, k] = 1
+    L[".backoff_present"][i, s, k] = True
+    return L, {}, {}
+
+
+def corrupt_promise(c, L):
+    L = _copy(L, ".promise_mid")
+    L[".promise_mid"][0, 0] = _capacity(L) + 3
+    return L, {}, {}
+
+
+def corrupt_reform(c, L):
+    # post-heal deadline passed, a mesh emptied with candidates left; grace
+    # keeps the degree property suspended so only the heal clause trips
+    tick = int(L[".core.tick"])
+    L = _copy(L, ".mesh")
+    L[".mesh"][0] = False
+    due = np.array(c.quiet)
+    due[:] = -1
+    due[2:5] = (0, 5, tick - 1)      # recover: born in [0, 5], due from tick - 1
+    due[5], due[6] = 1, 0            # grace on
+    return L, {}, {"due": due}
+
+
+def corrupt_choke_outside_mesh(c, L):
+    # a choked bit on a non-mesh edge
+    L = dict(L, **{".choked": np.zeros_like(L[".mesh"])})
+    i, s, k = (int(v) for v in np.argwhere(~L[".mesh"])[0])
+    L[".choked"][i, s, k] = True
+    return L, {}, {}
+
+
+def corrupt_choke_starvation(c, L):
+    # every mesh link of one slot choked: choked stays within the mesh
+    deg = L[".mesh"].sum(-1)
+    i, s = (int(v) for v in np.argwhere(deg >= c.dlo)[0])
+    L = dict(L, **{".choked": np.zeros_like(L[".mesh"])})
+    L[".choked"][i, s] = L[".mesh"][i, s]
+    return L, {}, {}
+
+
+CORE_CORRUPTIONS = {
+    "msgtable-wf": corrupt_msgtable,
+    "fwd-subset-have": corrupt_fwd,
+    "first-edge-wf": corrupt_first_edge,
+    "events-monotone": corrupt_events,
+    "eventual-delivery": corrupt_delivery,
+}
+GOSSIP_CORRUPTIONS = {
+    "no-self-mesh": corrupt_self_graft,
+    "mesh-in-topology": corrupt_topology,
+    "mesh-subscribed": corrupt_subscription,
+    "mesh-degree-bounds": corrupt_degree,
+    "no-graft-under-backoff": corrupt_graft_backoff,
+    "graylist-not-in-mesh": corrupt_graylist,
+    "mcache-subset-seen": corrupt_mcache,
+    "score-counters-wf": corrupt_score_counter,
+    "backoff-wf": corrupt_backoff_presence,
+    "backoff-clears": corrupt_backoff_stuck,
+    "promise-wf": corrupt_promise,
+    "mesh-reform-after-heal": corrupt_reform,
+    "choke-wf": corrupt_choke_outside_mesh,
+    "no-choke-below-dlo": corrupt_choke_starvation,
+}
+SEEDED = ([(name, e) for name in CORE_CORRUPTIONS
+           for e in ("gossipsub", "phase", "floodsub", "randomsub")]
+          + [(name, e) for name in GOSSIP_CORRUPTIONS for e in ("gossipsub", "phase")])
+
+
+def seeded_violation(name: str, c, leaves: dict):
+    """``name``'s seeded violation on the state of ``leaves``: (leaves, net
+    field overrides, check keywords). ``c`` carries the net's ``nbr`` and
+    ``protocol`` (numpy), the ``quiet`` due row the clean state passes and
+    ``dlo``."""
+    return {**CORE_CORRUPTIONS, **GOSSIP_CORRUPTIONS}[name](c, leaves)
+
+
+def corrupt_word_padding(leaves: dict) -> dict:
+    """A set padding bit (bit 49: word 1, bit 17) in peer 0's seen-cache of
+    a state whose capacity leaves padding bits (M = 48)."""
+    have = _core(leaves) + ".dlv.have"
+    L = _copy(leaves, have)
+    L[have][0, 1] |= np.uint32(1) << np.uint32(17)
+    return L
+
+
+def corrupt_perm_self_point(leaves: dict) -> dict:
+    """A present overlay slot whose edge_perm points at itself."""
+    i, k = (int(v) for v in np.argwhere(leaves[".core.topo.nbr_ok"])[0])
+    ep = np.array(leaves[".core.topo.edge_perm"])
+    ep[i, k] = i * ep.shape[1] + k
+    return dict(leaves, **{".core.topo.edge_perm": ep})
+
+
+def corrupt_negative_epoch(leaves: dict) -> dict:
+    ep = np.array(leaves[".core.topo.epoch"])
+    ep[0, 0] = -1
+    return dict(leaves, **{".core.topo.epoch": ep})
+
+
+@functools.cache
+def _choked_state_class():
+    """The port's GossipSub state with the router's ``choked`` plane, which
+    the port's states gain with routers: the two choke properties read it
+    when present, as the reference's do."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import GossipSubState
+
+    @dataclasses.dataclass
+    class ChokedState(GossipSubState):
+        choked: torch.Tensor | None = None
+
+    return ChokedState
+
+
+def oracle_state(leaves: dict, device):
+    """The port state of ``leaves`` (``convert.state_from_reference``); with
+    a ``.choked`` leaf a ``_choked_state_class`` state carrying it."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import convert
+
+    st = convert.state_from_reference(leaves, device=device)
+    if ".choked" not in leaves:
+        return st
+    return _choked_state_class()(
+        **{f.name: getattr(st, f.name) for f in dataclasses.fields(st)},
+        choked=torch.as_tensor(np.array(leaves[".choked"]), device=device))
+
+
+def oracle_net(net, device=None, **over):
+    """``net`` with numpy field overrides at its dtypes (on ``device``)."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.state import replace
+
+    return replace(net, **{k: torch.as_tensor(np.asarray(v), dtype=getattr(net, k).dtype,
+                                              device=device or net.device)
+                           for k, v in over.items()})
