@@ -41,8 +41,8 @@ last line is printed:
    a subset of have; rounds/s and peak device memory;
 5. GossipSub card against CPU — the same step from the same seed on the
    card and on the CPU (plain versions) for 32 rounds at N=8192, every leaf
-   equal after every round; then the same on the lattice under each of the
-   score parameters that make float32 subnormals
+   equal after every round; then the same for 16 rounds on the lattice
+   under each of the score parameters that make float32 subnormals
    (tests/torch_parity.SUBNORMAL_CELLS);
 6. GossipSub CSR bench — the same config built with edge_layout="csr",
    fused=True (CSR-resident state, the XLA-path composites, E=1.6M) for
@@ -330,7 +330,30 @@ last line is printed:
    a churn storm with MutationSchedule.due_fn, both all ok and re-checked
    on the CPU, each clause shown doing work; (d) the GossipSub step on the
    card within 2% sup-norm of the port's OracleGossipSub's
-   propagation-latency CDF (tests/test_parity_cdf.py's N=192).
+   propagation-latency CDF (tests/test_parity_cdf.py's N=192);
+43. the router plane (routers/, before the profiler phase), on
+   scripts/choke_smoke.py's cells: powerlaw(N, 2.2, d_min=3,
+   max_degree=16) on 8 latency clusters (topo.link_delay_plane, ring
+   depth 7), scores on, i.i.d. loss 0.05; A is v1.1, B IDONTWANT, D B with
+   the latency ring, C D with lazy choking. (a) N=8192: B, D, C and the
+   bench lattice under RouterConfig(idontwant, choke) card against CPU on
+   every leaf after 32 rounds, each route from launch counts (neither
+   fused kernel; delivery_banded once a round on the lattice; select_topk
+   11 a round with the cells' 2 fanout slots, 8 on the lattice, one more
+   with choking); the CSR-resident arms and the lattice through captured
+   windows, each equal to its dense eager run; C's window saved between
+   its two calls with the ring in flight and resumed from the file.
+   (b) N=100k, A, B, D, C and C's CSR arm, one sim each, eager over the
+   first half and windowed over the whole run (equal at the half): B's
+   delivery plane (first_round, have, DELIVER_MESSAGE) equal to A's with
+   fewer duplicates and the RPC drop equal to the duplicate drop; C's
+   window with the checker folded in every 8 rounds holding every
+   property at every check, choke-wf and no-choke-below-dlo among them,
+   CHOKE > 0, its CSR arm's counters equal; D and C at >= 99% coverage;
+   printed: the duplicate cut, C's and D's paired-support p95 latency,
+   each cell's rates against A, peak memory, launches a round. (c) the
+   bench default config at N=100k windowed with the router on and off in
+   turns: the rate cost and both blocks' routes.
 
 It prints the ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
@@ -357,6 +380,7 @@ NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM outside the tensor cores
 N_FULL, M_SLOTS = 100_000, 64
 FORMATION_ROUNDS, MEASURED_ROUNDS = 16, 64
 N_PARITY, PARITY_ROUNDS = 8192, 32
+SUBNORMAL_PARITY_ROUNDS = 16  # each subnormal cell of phase 5, after the bench's 32
 N_CSR, FLOOD_ROUNDS = 1_000_000, 80
 POWERLAW_ROUNDS = 32          # timed rounds of phase 7, after the formation
 PHASE_R = 8                   # rounds a phase: bench.py's BENCH_PHASE_R default
@@ -1502,7 +1526,7 @@ def dynamic_parity(sweep, driver, convert, dev) -> None:
     phase: the churn cell in both engines (the per-round step 32 rounds, a
     fifth down in rounds 8-19; the phase engine form_mesh and 4 phases,
     down for phases 1-2) and the mutating overlay dense and CSR (its own
-    power-law net at N=8192, a storm of 12 dispatches); then each window
+    power-law net at N=8192, a storm of 8 dispatches); then each window
     (make_scan with the liveness rows; make_window with the rows and the
     write batches) against its eager loop on the card."""
     import torch
@@ -1555,7 +1579,7 @@ def dynamic_parity(sweep, driver, convert, dev) -> None:
         leaves_equal(leaves[0], leaves[1], f"churn {engine} window against eager")
         say(f"churn {engine} window N={n}: equal to the eager loop leaf for leaf in two calls")
     storm = None
-    d_disp = 12
+    d_disp = 8
     for layout in ("dense", "csr"):
         sides = {}
         for d in ("cuda", "cpu"):
@@ -1681,20 +1705,21 @@ def gossip_state_checks(st, net, total: int, where: str, degree_range=None,
     return dmin, float(deg.float().mean()), dmax
 
 
-def gossip_parity(sweep, convert, name, build):
+def gossip_parity(sweep, convert, name, build, rounds: int = PARITY_ROUNDS):
     """Phases 5 and 9: one GossipSub build from the same seed on the card
     and on the CPU (plain versions) at N=8192, every leaf equal after each
-    of 32 rounds; ``build(device)`` returns (state, step)."""
-    po, pt, pv = sweep.publish_schedule(PARITY_ROUNDS, N_PARITY, 1, None, seed=5)
+    of ``rounds`` rounds (32; the subnormal cells 16); ``build(device)``
+    returns (state, step)."""
+    po, pt, pv = sweep.publish_schedule(rounds, N_PARITY, 1, None, seed=5)
     sides = {d: build(d) for d in ("cuda", "cpu")}
     t0 = time.perf_counter()
-    for r in range(PARITY_ROUNDS):
+    for r in range(rounds):
         for d, (s, stp) in list(sides.items()):
             sides[d] = (sweep.run_rounds(s, stp, po[r:r + 1], pt[r:r + 1], pv[r:r + 1]), stp)
         leaves_equal(convert.state_leaves(sides["cpu"][0]),
                      convert.state_leaves(sides["cuda"][0]), f"{name} round {r}")
     ev = convert.state_leaves(sides["cuda"][0])[".core.events"]
-    say(f"{name} card == CPU: every leaf equal after each of {PARITY_ROUNDS} rounds at "
+    say(f"{name} card == CPU: every leaf equal after each of {rounds} rounds at "
         f"N={N_PARITY} ({time.perf_counter() - t0:.1f} s; events {ev.tolist()})")
 
 
@@ -2109,7 +2134,7 @@ def bench_cli(card: str, config: str = "default", coalesced: bool = True) -> dic
 
 #: the eth2 and sybil bench configs at the JAX bench's sizes (phases 20-22)
 CONFIG_N = {"eth2": 100_000, "sybil": 50_000}
-CONFIG_FORMATION, CONFIG_MEASURED = 8, 32     # per-round: formation, timed rounds
+CONFIG_FORMATION, CONFIG_MEASURED = 8, 16     # per-round: formation, timed rounds
 CONFIG_PHASES = 4                             # phase engine: timed phases
 CONFIG_PARITY_ROUNDS, CONFIG_PARITY_PHASES = 12, 3
 CONFIG_WINDOW_ROUNDS = 32                     # rounds of each window check (two calls)
@@ -2362,7 +2387,7 @@ def config_parity(sweep, driver, convert, config: str, dev, label: str | None = 
 
 
 RANDOMSUB_N, RANDOMSUB_ROUNDS = 1000, 80         # BASELINE.json config #2: 1k peers
-SCALE_FORMATION, SCALE_ROUNDS = 8, 32             # RandomSub at scale: untimed, timed
+SCALE_FORMATION, SCALE_ROUNDS = 8, 16             # RandomSub at scale: untimed, timed
 SCALE_PARITY_ROUNDS = 16                          # card against CPU at N_PARITY
 #: RandomSub at scale: the lattice with a size estimate whose target is
 #: RandomSubD = 6, and the 1M-peer power-law graph CSR-resident (target 32)
@@ -3276,7 +3301,7 @@ def checkpoint_cell(sweep, driver, convert, checkpoint, dev, engine: str) -> dic
 API_SUB_EVERY = 100             # 1,000 of the 100k nodes hold a Subscription
 API_PHASES, API_ROUNDS = 8, 8   # driven phases at r = 8, rounds at r = 1
 API_PUBS = 4                    # signed publishes a phase (a round at r = 1)
-API_PARITY_BATCHES = 3          # publish batches of each card == CPU session
+API_PARITY_BATCHES = 2          # publish batches of each card == CPU session
 API_CELLS = ("gossipsub r=1", "gossipsub r=8", "floodsub", "randomsub",
              "max_message_size", "join/leave")
 WIRE_BLOCK_CELLS = {             # cell: (kernels that must launch on a block state)
@@ -3607,8 +3632,8 @@ CHAOS_PARITY = {"iid": dict(loss_rate=0.35),
 #: 4 rounds, about 7% of the links bad)
 CHAOS_FULL = {"iid": dict(loss_rate=0.1),
               "ge": dict(generator="ge", ge_p_down=0.02, ge_p_up=0.25)}
-CHAOS_PARITY_ROUNDS = 12      # per-round dispatches of a parity cell (phases: 2)
-CHAOS_FULL_ROUNDS = 32        # rounds of a timed full-width segment (4 phases)
+CHAOS_PARITY_ROUNDS = 8       # per-round dispatches of a parity cell (phases: 2)
+CHAOS_FULL_ROUNDS = 16        # rounds of a timed full-width segment (2 phases)
 #: the full-width partition: ticks of the cut (the phases at ticks 24-48
 #: after form_mesh), then the heal and enough phases for a pruned
 #: cross-group mesh link to re-form after the prune backoff (60 ticks); one
@@ -5116,6 +5141,441 @@ def oracle_cdf(dev, card) -> dict:
     return {"sup": sup, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase 43: the router plane (routers/: IDONTWANT, lazy choking, the ring)
+
+#: scripts/choke_smoke.py's cells: powerlaw(N, 2.2, d_min=3, max_degree=16)
+#: on 8 latency clusters (the ring's depth L = 7: classes of 1, 2 and 8
+#: rounds), the v1.1 score config without P3, i.i.d. loss 0.05, mcache
+#: history 12 with 8 gossiped, 12 single publishes every 2 rounds from
+#: round 3, the choke knobs below, the checker every 8 rounds with W = 48.
+#: The checker's due row has no quiet window: under i.i.d. loss no
+#: propagation window is fault-quiet (the delivery clause's own scope), and
+#: a large net keeps a few protocol-faithful (peer, message) holes for
+#: good (the coverage phase 43 prints stays below 1), which the smoke's
+#: quiet row, sound at its N=256, would report; coverage is gated instead
+#: (>= 0.99, the smoke's floor)
+ROUTER_D_MIN, ROUTER_K, ROUTER_CLUSTERS = 3, 16, 8
+ROUTER_LOSS = 0.05
+ROUTER_KNOBS = dict(choke_ema_alpha=0.4, choke_threshold=0.35, unchoke_threshold=0.1,
+                    choke_max_per_hb=2)
+ROUTER_MSGS = 12
+ROUTER_PARITY_ROUNDS = 32      # card against CPU at N_PARITY
+ROUTER_ROUNDS = 64             # full width: both latency cells drain to >= 99% (two halves)
+ROUTER_CHECK_EVERY, ROUTER_W = 8, 48
+ROUTER_LATTICE_ROUNDS = 32     # the bench lattice's timed window segment
+ROUTER_ARMS = ("A", "B", "D", "C")
+#: select_topk launches a round with a heartbeat a round: the heartbeat's
+#: 8, 3 more with fanout slots (GossipSubConfig.build's 2; the bench's
+#: configs have none): the heartbeat's fanout maintenance and gossip, and
+#: the publishes' fanout peers (phase 37's 11 a dispatch), and the choke
+#: decision's one in a choke arm
+FANOUT_SELECTIONS = 3
+SELECTIONS_WITH_CHOKE = SELECTIONS_PER_HEARTBEAT + 1
+
+
+def router_graph(n: int):
+    """(topology, delay plane, L) of the router cells' graph at N = n."""
+    from go_libp2p_pubsub_tpu_torch import topo
+
+    el = topo.attach_latency_classes(
+        topo.powerlaw(n, 2.2, d_min=ROUTER_D_MIN, max_degree=ROUTER_K, seed=0),
+        n_clusters=ROUTER_CLUSTERS)
+    tp = topo.to_topology(el)
+    delay, depth = topo.link_delay_plane(el, tp)
+    return tp, delay, depth
+
+
+def router_config(arm: str, depth: int):
+    """The RouterConfig of an arm: A v1.1 (None), B IDONTWANT, D B with the
+    ring, C D with choking."""
+    from go_libp2p_pubsub_tpu_torch.routers import RouterConfig
+
+    return {"A": None, "B": RouterConfig(idontwant=True),
+            "D": RouterConfig(idontwant=True, latency_rounds=depth),
+            "C": RouterConfig(idontwant=True, latency_rounds=depth, choke=True,
+                              **ROUTER_KNOBS)}[arm]
+
+
+def router_build(arm: str, graph_parts, device, layout: str = "dense", nets=None):
+    """(net, cfg, state, step) of a router cell on ``graph_parts``
+    (``router_graph``'s), the choke smoke's config. ``nets`` (a dict) keeps
+    each (layout, device)'s Net across builds: a Net is never written."""
+    from go_libp2p_pubsub_tpu_torch import graph
+    from go_libp2p_pubsub_tpu_torch.chaos import ChaosConfig
+    from go_libp2p_pubsub_tpu_torch.config import (
+        GossipSubParams,
+        PeerScoreParams,
+        PeerScoreThresholds,
+        TopicScoreParams,
+    )
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import (
+        GossipSubConfig,
+        GossipSubState,
+        make_gossipsub_step,
+    )
+    from go_libp2p_pubsub_tpu_torch.state import Net
+
+    tp, delay, depth = graph_parts
+    n = tp.nbr.shape[0]
+    rc = router_config(arm, depth)
+    sp = PeerScoreParams(topics={0: TopicScoreParams(mesh_message_deliveries_weight=0.0,
+                                                     mesh_failure_penalty_weight=0.0)},
+                         skip_app_specific=True)
+    cfg = GossipSubConfig.build(GossipSubParams(history_length=12, history_gossip=8),
+                                PeerScoreThresholds(), score_enabled=True,
+                                chaos=ChaosConfig(loss_rate=ROUTER_LOSS), router=rc,
+                                edge_layout=layout)
+    nets = {} if nets is None else nets
+    key = (layout, str(device))
+    if key not in nets:
+        nets[key] = Net.build(tp, graph.subscribe_all(n, 1), edge_layout=layout,
+                              device=device)
+    net = nets[key]
+    st = GossipSubState.init(net, M_SLOTS, cfg, score_params=sp, seed=0)
+    ring = rc is not None and rc.latency_rounds > 0
+    step = make_gossipsub_step(cfg, net, score_params=sp, link_delay=delay if ring else None)
+    return net, cfg, st, step
+
+
+def router_schedule(rounds: int, n: int):
+    """The choke smoke's publishes: ROUTER_MSGS single publishes every 2
+    rounds from round 3 (those inside ``rounds``), origins from
+    default_rng(1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    po = np.full((rounds, 4), -1, np.int32)
+    pt = np.zeros((rounds, 4), np.int32)
+    pv = np.zeros((rounds, 4), bool)
+    for i in range(ROUTER_MSGS):
+        origin = rng.integers(0, n)
+        if 3 + 2 * i < rounds:
+            po[3 + 2 * i, 0], pv[3 + 2 * i, 0] = origin, True
+    return po, pt, pv
+
+
+def router_route(arm: str, rounds: int) -> dict:
+    """The launches a router run of ``rounds`` rounds (a heartbeat a round)
+    must make: neither fused kernel; on the bench lattice (``arm`` "lattice",
+    no fanout slots) ``delivery_banded`` once a round and select_topk 8 a
+    heartbeat; on the router cells' power-law graph (2 fanout slots) 11;
+    one more with choking (C and the lattice)."""
+    lattice = arm == "lattice"
+    sel = (SELECTIONS_PER_HEARTBEAT + (0 if lattice else FANOUT_SELECTIONS)
+           + (1 if arm in ("C", "lattice") else 0))
+    return _route(rounds, select_topk=sel, **({"delivery_banded": 1} if lattice else {}))
+
+
+def router_parity(sweep, driver, convert, checkpoint, dev, counters) -> dict:
+    """Phase 43 (a) at N=8192: arms B, D and C and the bench lattice under
+    RouterConfig(idontwant, choke) card against CPU on every leaf after
+    ROUTER_PARITY_ROUNDS rounds, each with its route from launch counts;
+    B, D and C CSR-resident and the lattice through captured windows on the
+    card, each equal to its dense eager run (the CSR state densified), each
+    block on its route; C's dense window saved between its two calls with
+    the ring in flight and resumed from the file, equal to the eager run
+    bit for bit. Returns the launches by cell."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.routers import RouterConfig
+    from go_libp2p_pubsub_tpu_torch.state import densify_edge_planes
+    from go_libp2p_pubsub_tpu_torch.trace.events import EV
+
+    n, rounds = N_PARITY, ROUTER_PARITY_ROUNDS
+    parts = router_graph(n)
+    po, pt, pv = router_schedule(rounds, n)
+    lpo, lpt, lpv = sweep.publish_schedule(rounds, n, 1, None, seed=13)
+    out = {}
+
+    def lattice(d):
+        st, step, _t, _h = sweep.build_bench(n, M_SLOTS, count_events=True, device=d,
+                                             router=RouterConfig(idontwant=True, choke=True))
+        return st, step
+
+    nets = {}
+    cells = {arm: (lambda d, a=arm: router_build(a, parts, d, nets=nets)[2:], (po, pt, pv))
+             for arm in ("B", "D", "C")}
+    cells["lattice"] = (lattice, (lpo, lpt, lpv))
+
+    def run_cell(cell, d):
+        build, sched = cells[cell]
+        st, step = build(torch.device(d))
+        return sweep.run_rounds(st, step, *sched)
+
+    finals = {}
+    for cell in cells:
+        for mod in counters:
+            mod.reset_launch_counts()
+        card_end = run_cell(cell, "cuda")
+        got = _dispatch_counts(counters)
+        want = router_route(cell, rounds)
+        if got != want:
+            raise AssertionError(f"router {cell}: launches {got}, the route wants {want}")
+        leaves = convert.state_leaves(card_end)
+        leaves_equal(convert.state_leaves(run_cell(cell, "cpu")), leaves,
+                     f"router {cell} after {rounds} rounds")
+        ev = leaves[".core.events"]
+        if ev[EV.IDONTWANT_SENT] <= 0 or ev[EV.DUP_SUPPRESSED] <= 0:
+            raise AssertionError(f"router {cell}: IDONTWANT moved nothing")
+        if cell in ("C", "lattice") and ev[EV.CHOKE] <= 0:
+            raise AssertionError(f"router {cell}: no link choked")
+        finals[cell] = leaves
+        out[cell] = got
+        say(f"router {cell} card == CPU: every leaf after {rounds} rounds at N={n}, "
+            f"IDONTWANT_SENT {int(ev[EV.IDONTWANT_SENT])} DUP_SUPPRESSED "
+            f"{int(ev[EV.DUP_SUPPRESSED])} CHOKE {int(ev[EV.CHOKE])} UNCHOKE "
+            f"{int(ev[EV.UNCHOKE])}, launches {got}")
+
+    # the CSR-resident arms through captured windows (two calls, one
+    # capture), densified, equal to the dense arms' eager runs; the dense
+    # lattice's window likewise; C's dense window saved between its two
+    # calls with the ring in flight and resumed from the file
+    half = rounds // 2
+    runs = [(arm, "csr") for arm in ("B", "D", "C")] + [("lattice", "dense"), ("C", "dense")]
+    for cell, layout in runs:
+        if cell == "lattice":
+            net = None
+            st, step = cells[cell][0](dev)
+            sched = cells[cell][1]
+        else:
+            net, _cfg, st, step = router_build(cell, parts, dev, layout, nets)
+            sched = (po, pt, pv)
+        scan = driver.make_scan(step, static_heartbeat=False, unroll=4)
+        st = scan(st, *(a[:half] for a in sched))
+        note = ""
+        if cell == "C" and layout == "dense":
+            if not bool(st.inflight.any()):
+                raise AssertionError("router checkpoint: the ring is empty at the save")
+            words = int(st.inflight.count_nonzero())
+            path = fresh_path("ckpt-router-C.npz")
+            checkpoint.save(path, st)
+            back = checkpoint.restore(path, router_build("C", parts, dev, nets=nets)[2])
+            leaves_equal(convert.state_leaves(st), convert.state_leaves(back),
+                         "router restored")
+            st = back
+            note = (f"; saved between the calls with {words} ring words in flight, "
+                    f"restored equal and resumed from the file")
+        st = scan(st, *(a[half:] for a in sched))
+        torch.cuda.synchronize()
+        win = scan.window
+        if win.captures != 1 or win.replays < 2:
+            raise AssertionError(f"router {cell} {layout} window: {win.captures} captures")
+        block = {k: v for k, v in win.block_launches.items() if v}
+        want = {k: v for k, v in router_route(cell, win.block_dispatches).items() if v}
+        if block != want:
+            raise AssertionError(f"router {cell} {layout} window block launches {block}, "
+                                 f"the route wants {want}")
+        if layout == "csr" and cell != "B" and st.inflight.dim() != 3:
+            raise AssertionError(f"router {cell} CSR: the ring is not flat")
+        got = st if net is None or layout == "dense" else densify_edge_planes(net, st)
+        leaves_equal(finals[cell], convert.state_leaves(got),
+                     f"router {cell} {layout} window against the dense eager run")
+        out[f"{cell} {layout} window block"] = block
+        say(f"router {cell} {layout} window N={n}: equal to the dense eager run leaf for leaf "
+            f"after {rounds} rounds in two calls, one capture; a block of "
+            f"{win.block_dispatches} dispatches launches {block}{note}")
+        del st, step, scan, win
+    return out
+
+
+def router_readings(st, n: int) -> dict:
+    """A full-width router run's readings: the counters, the coverage of the
+    published (peer, message) plane and the first_round stamps."""
+    import numpy as np
+
+    from go_libp2p_pubsub_tpu_torch.trace.events import EV
+
+    ev = st.core.events.cpu().numpy()
+    fr = st.core.dlv.first_round.cpu().numpy()
+    birth = st.core.msgs.birth.cpu().numpy()
+    mask = (fr >= 0) & (birth >= 0)[None, :]
+    return {"events": {name: int(ev[getattr(EV, name)]) for name in (
+                "DELIVER_MESSAGE", "DUPLICATE_MESSAGE", "SEND_RPC", "IDONTWANT_SENT",
+                "DUP_SUPPRESSED", "CHOKE", "UNCHOKE", "LINK_DOWN")},
+            "coverage": float(mask.sum()) / (ROUTER_MSGS * n),
+            "lat": fr - birth[None, :], "mask": mask, "fr": fr,
+            "have": st.core.dlv.have.cpu().numpy()}
+
+
+def router_full(sweep, driver, dev, card, counters) -> dict:
+    """Phase 43 (b): the choke smoke's four cells at N=100k, one sim each,
+    and C's CSR arm, eager over the run's first half (its second quarter
+    timed) and windowed over the whole run in two calls (the first equal
+    to the eager half on every leaf, the second timed). B against A:
+    first_round, have and DELIVER_MESSAGE identical, fewer duplicates, the
+    RPC drop equal to the duplicate drop. C: the checker folded into its
+    window every 8 rounds, every property at every check, CHOKE > 0, its
+    CSR arm's counters equal to the dense arm's. Returns the cells."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.oracle import invariants as inv
+    from go_libp2p_pubsub_tpu_torch.state import densify_edge_planes
+
+    n, rounds = N_FULL, ROUTER_ROUNDS
+    parts = router_graph(n)
+    half = rounds // 2
+    po, pt, pv = router_schedule(rounds, n)
+    xs = tuple(torch.as_tensor(a, device=dev) for a in (po, pt, pv))
+    out, reads, nets = {}, {}, {}
+    quarter = half // 2
+    for cell in ROUTER_ARMS + ("C csr",):
+        arm, layout = cell[0], "csr" if cell.endswith("csr") else "dense"
+        rec = {"cell": cell}
+        # eager: the first half of the run, its second quarter timed
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net, cfg, st, step = router_build(arm, parts, dev, layout, nets)
+        for mod in counters:
+            mod.reset_launch_counts()
+        st = sweep.run_rounds(st, step, po[:quarter], pt[:quarter], pv[:quarter])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = sweep.run_rounds(st, step, po[quarter:half], pt[quarter:half], pv[quarter:half])
+        torch.cuda.synchronize()
+        rec["eager_rate"] = (half - quarter) / (time.perf_counter() - t0)
+        rec["eager_peak"] = torch.cuda.max_memory_allocated()
+        got = _dispatch_counts(counters)
+        if got != router_route(arm, half):
+            raise AssertionError(f"router {cell} N={n}: launches {got}")
+        rec["launches_per_round"] = {k: v / half for k, v in got.items() if v}
+        eager_half = [t.clone() for t in driver._leaves(st)]
+        del st
+        # windowed: the whole run in two calls, the first equal to the eager
+        # half, the second timed; C's with the checker folded in
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _net, _cfg, st, step = router_build(arm, parts, dev, layout, nets)
+        check = due = None
+        if arm == "C":
+            spec = inv.ScanInvariants(
+                "gossipsub", net, cfg,
+                inv.InvariantConfig(check_every=ROUTER_CHECK_EVERY, delivery_window=ROUTER_W),
+                batched=False, due_fn=lambda tick: inv.due_vector())
+            due = spec.precompute(rounds)
+            check = spec.check
+        # a block of 8 dispatches either way (a checked unit spans the
+        # check cadence)
+        win = driver.make_window(step, check=check, unroll=1 if check else ROUTER_CHECK_EVERY,
+                                 check_every=ROUTER_CHECK_EVERY if check else 1)
+        oks = []
+        for i, sl in enumerate((slice(0, half), slice(half, rounds))):
+            dl = None if due is None else due[i * (len(due) // 2):(i + 1) * (len(due) // 2)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, ys = win(st, tuple(x[sl] for x in xs), dl)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if check is not None:
+                oks.append(ys["ok"])
+            if i == 0 and not all(torch.equal(x, y) for x, y in
+                                  zip(eager_half, driver._leaves(st))):
+                raise AssertionError(f"router {cell} N={n}: the window's state after "
+                                     f"{half} rounds differs from the eager run's")
+        rec.update(window_rate=half / dt, window_peak=torch.cuda.max_memory_allocated())
+        if win.captures != 1:
+            raise AssertionError(f"router {cell} window: {win.captures} captures")
+        block = {k: v for k, v in win.block_launches.items() if v}
+        want = {k: v for k, v in router_route(arm, win.block_dispatches).items() if v}
+        if block != want:
+            raise AssertionError(f"router {cell} window block launches {block}, the route "
+                                 f"wants {want}")
+        rec.update(block_launches=block, block_dispatches=win.block_dispatches,
+                   capture_seconds=win.capture_seconds)
+        if check is not None:
+            ok = torch.cat(oks)
+            if not bool(ok.all()):
+                bad = [(c, spec.names[p]) for c, p in zip(*torch.nonzero(~ok).T.tolist())]
+                raise AssertionError(f"router C N={n}: violations {bad[:8]}")
+            for name in ("choke-wf", "no-choke-below-dlo"):
+                if name not in spec.names:
+                    raise AssertionError(f"router C: {name} not checked")
+            rec.update(checks=int(ok.shape[0]), properties=len(spec.names))
+        reads[cell] = router_readings(densify_edge_planes(net, st) if layout == "csr" else st,
+                                      n)
+        rec.update(events=reads[cell]["events"], coverage=reads[cell]["coverage"])
+        out[cell] = rec
+        say(f"router {cell} N={n} (ring depth {parts[2]}): eager {rec['eager_rate']:.3f} "
+            f"rounds/s over rounds {quarter}-{half}, windowed {rec['window_rate']:.3f} over "
+            f"{half}-{rounds} (peak {rec['eager_peak']} / {rec['window_peak']} bytes), the "
+            f"window equal to the eager run at round {half}, coverage {rec['coverage']:.6f} "
+            f"after {rounds} rounds, counters {rec['events']}, launches a round "
+            f"{rec['launches_per_round']}, a window block of {rec['block_dispatches']} "
+            f"dispatches {rec['block_launches']}"
+            + (f", {rec['checks']} checks of {rec['properties']} properties all held"
+               if "checks" in rec else "") + f", on {card}")
+        del st, step, win, eager_half
+
+    a, b, c, d = (reads[k] for k in ("A", "B", "C", "D"))
+    ea, eb = a["events"], b["events"]
+    if not (np.array_equal(a["fr"], b["fr"]) and np.array_equal(a["have"], b["have"])
+            and ea["DELIVER_MESSAGE"] == eb["DELIVER_MESSAGE"]):
+        raise AssertionError("router B: the delivery plane moved against A")
+    if not eb["DUPLICATE_MESSAGE"] < ea["DUPLICATE_MESSAGE"]:
+        raise AssertionError("router B: no duplicate cut")
+    if ea["SEND_RPC"] - eb["SEND_RPC"] != ea["DUPLICATE_MESSAGE"] - eb["DUPLICATE_MESSAGE"]:
+        raise AssertionError("router B: the RPC drop is not the duplicate drop")
+    if out["C"]["events"]["CHOKE"] <= 0:
+        raise AssertionError("router C: no link choked")
+    if out["C csr"]["events"] != out["C"]["events"]:
+        raise AssertionError("router C CSR: counters differ from the dense arm's")
+    for cell in ("C", "D"):
+        if out[cell]["coverage"] < 0.99:
+            raise AssertionError(f"router {cell}: coverage {out[cell]['coverage']} < 0.99 "
+                                 f"after {rounds} rounds")
+    common = c["mask"] & d["mask"]
+    p95 = {k: float(np.percentile(v["lat"][common], 95)) for k, v in (("C", c), ("D", d))}
+    summary = {
+        "rounds": rounds, "ring_depth": parts[2],
+        "dup_cut": 1.0 - eb["DUPLICATE_MESSAGE"] / max(ea["DUPLICATE_MESSAGE"], 1),
+        "p95_latency_paired": p95, "common_support": float(common.sum()) / (ROUTER_MSGS * n),
+        "rate_vs_A": {k: {m: out[k][f"{m}_rate"] / out["A"][f"{m}_rate"]
+                          for m in ("eager", "window")} for k in out}}
+    say(f"router (b) N={n}: B's delivery plane equals A's (first_round, have, "
+        f"DELIVER_MESSAGE {eb['DELIVER_MESSAGE']}), duplicates {ea['DUPLICATE_MESSAGE']} -> "
+        f"{eb['DUPLICATE_MESSAGE']} (cut {summary['dup_cut']:.4f}), the RPC drop equals the "
+        f"duplicate drop; C choked {out['C']['events']['CHOKE']} links, its CSR arm's counters "
+        f"equal; paired-support p95 latency C {p95['C']} against D {p95['D']} rounds "
+        f"(support {summary['common_support']:.6f}); rates against A {summary['rate_vs_A']}; "
+        f"on {card}")
+    out["summary"] = summary
+    return out
+
+
+def router_lattice(sweep, driver, dev, card, counters) -> dict:
+    """Phase 43 (c): the bench default config at N=100k on the lattice under
+    RouterConfig(idontwant, choke) against router=None, windowed, in turns
+    (off, on, on, off): the router block launches delivery_banded once a
+    round and select_topk 9 a heartbeat, neither fused kernel; the v1.1
+    block its fused route. Returns the turns and the rate cost."""
+    from go_libp2p_pubsub_tpu_torch.routers import RouterConfig
+
+    turns = {"off": [], "on": []}
+    for label in ("off", "on", "on", "off"):
+        router = RouterConfig(idontwant=True, choke=True) if label == "on" else None
+        rec = window_bench(sweep, driver, dev, card, counters, "per-round", modes=("window",),
+                           measured=ROUTER_LATTICE_ROUNDS, count_events=True,
+                           router=router)[0]
+        d = rec["block_dispatches"]
+        want = (router_route("lattice", d) if router is not None
+                else _route(d, edge_exchange=1, fused_delivery=1,
+                            select_topk=SELECTIONS_PER_HEARTBEAT))
+        want = {k: v for k, v in want.items() if v}
+        if rec["block_launches"] != want:
+            raise AssertionError(f"router lattice {label}: block launches "
+                                 f"{rec['block_launches']}, the route wants {want}")
+        turns[label].append(rec)
+    on = max(t["rate"] for t in turns["on"])
+    off = max(t["rate"] for t in turns["off"])
+    say(f"router lattice N={N_FULL}: windowed rounds/s on {[t['rate'] for t in turns['on']]} "
+        f"off {[t['rate'] for t in turns['off']]}, cost of the best {(off - on) / off:.4f}; "
+        f"blocks on the router route (delivery_banded 1 a round, select_topk "
+        f"{SELECTIONS_WITH_CHOKE} a heartbeat, no fused kernel); on {card}")
+    return {"turns": turns, "cost": (off - on) / off}
+
+
 def leaves_equal(a: dict, b: dict, where: str):
     import numpy as np
 
@@ -5133,6 +5593,9 @@ def leaves_equal(a: dict, b: dict, where: str):
 def main() -> int:
     import torch
 
+    # nothing here takes a gradient: autograd's bookkeeping off makes every
+    # eager op's dispatch cheaper, on the CPU and the card
+    torch.set_grad_enabled(False)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
                     help="a checkout of another commit whose kernels are timed beside "
@@ -5258,7 +5721,8 @@ def main() -> int:
         N_PARITY, M_SLOTS, count_events=True, device=d)[:2])
     for cell in SUBNORMAL_CELLS:
         gossip_parity(sweep, convert, f"GossipSub subnormal {cell}",
-                      lambda d, c=cell: build_subnormal_gossipsub(sweep, N_PARITY, d, c))
+                      lambda d, c=cell: build_subnormal_gossipsub(sweep, N_PARITY, d, c),
+                      SUBNORMAL_PARITY_ROUNDS)
 
     lap("5")
     # 6. the CSR bench: the same run CSR-resident through the composites
@@ -5690,6 +6154,31 @@ def main() -> int:
     say(f"oracle phase {time.perf_counter() - t0:.1f} s")
 
     lap("42")
+    # 43. the router plane: card against CPU at N=8192, the choke smoke's
+    # cells at full width, the bench lattice with the router on and off
+    t0 = time.perf_counter()
+    rparity = router_parity(sweep, driver, convert, checkpoint, dev, counters)
+    say(f"router parity {time.perf_counter() - t0:.1f} s")
+    rfull = router_full(sweep, driver, dev, card, counters)
+    say(f"router parity and full width {time.perf_counter() - t0:.1f} s")
+    rlattice = router_lattice(sweep, driver, dev, card, counters)
+    for rec in records:
+        rec["router_launches"] = {
+            **{f"{c} (N={N_PARITY}), {ROUTER_PARITY_ROUNDS} rounds": v.get(rec["name"], 0)
+               for c, v in rparity.items() if "block" not in c},
+            **{f"{c.replace(' block', '')}, a block of 4 dispatches (N={N_PARITY})":
+               v.get(rec["name"], 0) for c, v in rparity.items() if "block" in c},
+            **{f"{c} (N={N_FULL}), a round": v["launches_per_round"].get(rec["name"], 0)
+               for c, v in rfull.items() if c != "summary"},
+            **{f"lattice window {label} (N={N_FULL}), a block of "
+               f"{t[0]['block_dispatches']} dispatches": t[0]["block_launches"].get(
+                   rec["name"], 0) for label, t in rlattice["turns"].items()}}
+    say("router cell: " + json.dumps({"card": card, "parity": rparity, "full": {
+        c: {k: v for k, v in rec.items()} for c, rec in rfull.items()},
+        "lattice": rlattice}))
+    say(f"router phase {time.perf_counter() - t0:.1f} s")
+
+    lap("43")
     # 39. launches of a bench round, a phase-bench phase and a windowed
     # phase, traced; then the configs' rounds and phases (last: the
     # profiler's tracing must not touch a rate timed in this process)

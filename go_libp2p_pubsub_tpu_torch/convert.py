@@ -7,9 +7,11 @@ duplicate plane (``.dup_trans``) and the transmit block
 (``.msgs.wire_block``), each a leaf only when the state has one,
 on both sides, and the Gilbert–Elliott link-fault chain of a GE chaos
 state (``.core.chaos``, ``ChaosState``) and the mutable overlay of a
-dynamic-topology state (``.core.topo``, ``TopoState``) and the telemetry
+dynamic-topology state (``.core.topo``, ``TopoState``), the telemetry
 panel and flight recorder of a recording state (``.core.telem.panel``,
-``.core.telem.flight``, ``TelemetryState``) likewise. Narrowed int16
+``.core.telem.flight``, ``TelemetryState``) and the router plane's leaves
+(``.dontwant``, ``.choked``, ``.choke_ema`` and the latency ring
+``.inflight``, flat ``[E, L, W]`` on a CSR net) likewise. Narrowed int16
 counters keep their dtype both ways.
 
 ``score_plane_from_reference`` carries a lifted score plane the same way
@@ -42,13 +44,16 @@ _SIM_WORDS = (".dlv.have", ".dlv.fwd", ".dlv.fe_words", ".dlv.pending")
 WORD_LEAVES = frozenset({
     *_SIM_WORDS, *(".core" + p for p in _SIM_WORDS), ".mcache",
     ".ihave_out", ".iwant_out", ".served_lo", ".served_hi", ".dup_trans",
+    ".dontwant", ".inflight",
 })
 KEY_LEAVES = frozenset({".key", ".core.key"})
 #: leaves a state may lack (None): the pipeline's stages, the exact-trace
-#: duplicate plane, the transmit block and the flight recorder
+#: duplicate plane, the transmit block, the flight recorder and the router
+#: plane's four
 OPTIONAL_LEAVES = frozenset({".dlv.pending", ".core.dlv.pending", ".dup_trans",
                              ".msgs.wire_block", ".core.msgs.wire_block",
-                             ".telem.flight", ".core.telem.flight"})
+                             ".telem.flight", ".core.telem.flight",
+                             ".dontwant", ".choked", ".choke_ema", ".inflight"})
 #: nested states a state may lack (None): the GE chain, the telemetry panel
 #: and the mutable overlay
 OPTIONAL_NESTED = frozenset({".chaos", ".core.chaos", ".telem", ".core.telem",

@@ -1,5 +1,5 @@
 """Static topology builders (the port's own copy of the JAX package's
-``graph.py``, trimmed to the builders the ported engines need).
+``graph.py``).
 
 The reference wires real libp2p hosts with topology helpers `connect` /
 `sparseConnect` (3 random links) / `denseConnect` (10) / `connectAll`
@@ -195,6 +195,36 @@ def from_edges(n: int, edges, max_degree: int | None = None) -> Topology:
     return _from_edge_lists(n, dialed, max_degree)
 
 
+def line(n: int, max_degree: int | None = None) -> Topology:
+    """Path graph: i dials i+1 (TestGossipsubMultihops,
+    gossipsub_test.go:853-894 — a 6-host chain). Propagation hop count
+    equals graph distance."""
+    dialed = [({i + 1} if i + 1 < n else set()) for i in range(n)]
+    return _from_edge_lists(n, dialed, max_degree)
+
+
+def tree(n: int, branching: int = 3, max_degree: int | None = None) -> Topology:
+    """Rooted b-ary tree: each parent dials its children
+    (TestGossipsubTreeTopology, gossipsub_test.go:896-941 uses a hand-built
+    10-node tree; this is the generalized shape). Degree <= branching+1, so
+    with default Dlo the mesh retains every tree edge and hop counts equal
+    tree distance."""
+    dialed: list[set[int]] = [set() for _ in range(n)]
+    for i in range(1, n):
+        dialed[(i - 1) // branching].add(i)
+    return _from_edge_lists(n, dialed, max_degree)
+
+
+def star(n: int, max_degree: int | None = None) -> Topology:
+    """Hub-and-spoke: every leaf dials node 0 (TestGossipsubStarTopology,
+    gossipsub_test.go:945-1024 — overlay bootstrapping through PRUNE-with-PX
+    from a star)."""
+    dialed = [set() for _ in range(n)]
+    for i in range(1, n):
+        dialed[i].add(0)
+    return _from_edge_lists(n, dialed, max_degree)
+
+
 # ---------------------------------------------------------------------------
 # subscription construction
 
@@ -251,3 +281,16 @@ def subscribe_mask(mask: np.ndarray, max_slots: int | None = None) -> Subscripti
     rows, tids = np.nonzero(mask)
     my_topics[rows, slot[rows, tids]] = tids.astype(np.int32)
     return Subscriptions(subscribed=mask.copy(), my_topics=my_topics, slot_of=slot_of)
+
+
+def ip_groups_with_sybils(n: int, n_sybil_groups: int, sybil_frac: float,
+                          seed: int = 0) -> np.ndarray:
+    """Assign each peer an ip-group id (the P6 colocation key; the sim's
+    analogue of the per-IP tracking at score.go:977-1074). Honest peers get
+    unique groups; a `sybil_frac` tail shares `n_sybil_groups` groups."""
+    rng = np.random.default_rng(seed)
+    groups = np.arange(n, dtype=np.int32)
+    n_sybil = int(n * sybil_frac)
+    if n_sybil and n_sybil_groups:
+        groups[n - n_sybil:] = (n - n_sybil) + rng.integers(0, n_sybil_groups, size=n_sybil)
+    return groups

@@ -31,16 +31,19 @@ net. The attack plane (``adversary``) leaves the fused kernels too, as the
 JAX package's ``fused_eligible`` does; its data masks ride the edge mask
 and the IWANT responses, so the shared delivery round keeps
 ``delivery_banded`` there as well. The telemetry panel changes no route:
-its row is the step's last operation.
+its row is the step's last operation. The router plane (``cfg.router``:
+IDONTWANT, lazy choking, the latency ring) leaves the fused kernels as the
+JAX package's ``fused_eligible`` does; its suppression rides the edge mask
+and the ring's arrivals the extra-transmission merge, so the shared
+delivery round keeps ``delivery_banded`` on a banded net, and the choke
+decision is one more ``select_topk`` launch a heartbeat.
 
 Peer exchange (``do_px``) and ``edge_liveness`` keep the kernel route: a
 round reads the live edges ``nbr_ok & edge_live`` (``live_step_views``)
 for every gate, gather and kernel argument, ``edge_exchange``'s live words
 and ``fused_delivery``'s F_LIVE flags included, and the px lane rides the
 control words (C = 5 at one topic and W = 2). Without either option the
-step reads the build's constants and launches nothing more. Options
-outside the port raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+step reads the build's constants and launches nothing more.
 """
 
 from __future__ import annotations
@@ -72,6 +75,19 @@ from ..ops.select import (
     median_masked,
     select_random_mask,
     select_topk_mask,
+)
+from ..routers import (
+    RouterConfig,
+    choke_decide,
+    choke_guard,
+    choke_lateness_update,
+    choke_suppression,
+    dontwant_announcements,
+    dontwant_suppression,
+    idontwant_sent_count,
+    ring_commit,
+    ring_init,
+    ring_keep,
 )
 from ..score.engine import (
     ScoreScalars,
@@ -119,8 +135,7 @@ from .common import (
 @dataclasses.dataclass(frozen=True)
 class GossipSubConfig:
     """Static configuration: GossipSubParams with durations in ticks, plus
-    the v1.1 thresholds and feature switches (the JAX package's fields but
-    ``router``)."""
+    the v1.1 thresholds and feature switches (the JAX package's fields)."""
 
     D: int = 6
     Dlo: int = 5
@@ -190,6 +205,10 @@ class GossipSubConfig:
     # first per (peer, msg), per edge, kept in the state's ``dup_trans``
     # (trace.go:186-194)
     trace_exact: bool = False
+    # the router plane (routers/): v1.2 IDONTWANT, episub lazy choking and
+    # the per-edge latency ring; None is v1.1, the step without the plane
+    # (the same leaves, ops and launches)
+    router: RouterConfig | None = None
     gossip_threshold: float = 0.0
     publish_threshold: float = 0.0
     graylist_threshold: float = 0.0
@@ -212,16 +231,20 @@ class GossipSubConfig:
               wire_coalesced: bool = True,
               trace_exact: bool = False,
               narrow_counters: bool = False,
-              chaos: ChaosConfig | None = None) -> "GossipSubConfig":
+              chaos: ChaosConfig | None = None,
+              router: RouterConfig | None = None) -> "GossipSubConfig":
         """``edge_layout`` and ``fused`` must match the Net's
         (``Net.build(..., edge_layout=..., fused=...)``); the step refuses
         a mismatch. The selections take one form under either flag; its
         ranks equal both of the JAX package's forms. Per-topic delays
         without a depth set the depth to their largest. ``narrow_counters``
         is refused where an int16 counter could not hold its bound; an
-        invalid ``chaos`` config raises ``ChaosConfigError``."""
+        invalid ``chaos`` config raises ``ChaosConfigError``, an invalid
+        ``router`` one ``RouterConfigError``."""
         p = params or GossipSubParams()
         p.validate()
+        if router is not None:
+            router.validate()
         if edge_layout not in ("dense", "csr"):
             raise ValueError(
                 f"edge_layout must be 'dense' or 'csr', got {edge_layout!r}")
@@ -283,6 +306,7 @@ class GossipSubConfig:
             trace_exact=bool(trace_exact),
             narrow_counters=bool(narrow_counters),
             chaos=chaos,
+            router=router,
         )
         if chaos is not None:
             chaos.validate()
@@ -352,6 +376,14 @@ class GossipSubState:
     # this round's arrivals beyond the first per (peer, msg), per edge
     # (cfg.trace_exact only, else None)
     dup_trans: torch.Tensor | None = None  # [N,K,W] words
+    # the router plane (cfg.router, else None): the IDONTWANT ids a peer
+    # announced (a subset of its seen-cache), the lazy-demoted mesh links
+    # (within the mesh, at least Dlo unchoked a slot), the lateness EMA
+    # and the delayed-commit ring (CSR-resident [E, L, W] on a CSR net)
+    dontwant: torch.Tensor | None = None   # [N,W] words
+    choked: torch.Tensor | None = None     # [N,S,K] bool
+    choke_ema: torch.Tensor | None = None  # [N,K] f32
+    inflight: torch.Tensor | None = None   # [N,K,L,W] words
 
     @classmethod
     def init(cls, net: Net, msg_slots: int, cfg: GossipSubConfig,
@@ -370,7 +402,9 @@ class GossipSubState:
         writes. A config whose chaos plane needs state (a GE generator) gets
         the link chain (``core.chaos``); ``telemetry`` (a
         ``telemetry.TelemetryConfig``) the panel a recording step writes
-        (``core.telem``)."""
+        (``core.telem``); a router config its plane's leaves (``dontwant``
+        with IDONTWANT, ``choked`` and ``choke_ema`` with choking, the ring
+        ``inflight`` with a latency depth)."""
         dev = net.device
         n, k = net.nbr.shape
         s = net.n_slots
@@ -385,6 +419,7 @@ class GossipSubState:
             p6 = torch.zeros((n, k), dtype=torch.float32, device=dev)
         i32, b = torch.int32, torch.bool
         z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+        rt = cfg.router
         # against a CSR net the per-edge planes are CSR-resident: fe_words
         # and served_* flat [E, W], peerhave/iasked [E] (the step densifies
         # them for its body, state.wrap_csr_resident)
@@ -431,6 +466,12 @@ class GossipSubState:
             prune_px_out=z((n, s, k), b),
             congested_in=z((n, k), b),
             dup_trans=z((n, k, w), i32) if cfg.trace_exact else None,
+            dontwant=z((n, w), i32) if rt is not None and rt.idontwant else None,
+            choked=z((n, s, k), b) if rt is not None and rt.choke else None,
+            choke_ema=(z((n, k), torch.float32)
+                       if rt is not None and rt.choke else None),
+            inflight=(ring_init(sv_shape, rt.latency_rounds, dev)
+                      if rt is not None and rt.latency_rounds > 0 else None),
         )
 
 
@@ -992,6 +1033,21 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
         kf1, kf2 = prng.split(prng.fold_in(key, 11))
         fpeers = fpeers | masked_width_random(kf1, cand_f, ineed_f, k_dim)
 
+    # ---- choke/unchoke (routers/choke.py): after mesh maintenance (the
+    # guard reads the maintained mesh), before emitGossip (whose targets
+    # take the choked links). The sender learns it is choked through one
+    # edge gather, riding the heartbeat's control batch
+    router = cfg.router
+    choked_by = None
+    choked = st.choked
+    if router is not None and router.choke:
+        choked = choke_guard(msh.Dlo, mesh, st.choked)
+        choked, n_choke, n_unchoke = choke_decide(router, msh.Dlo, mesh, choked,
+                                                  st.choke_ema)
+        choked_by = net.edge_gather(choked.any(1)) & net.nbr_ok
+        if cfg.count_events:
+            events = add_event(add_event(events, EV.CHOKE, n_choke), EV.UNCHOKE, n_unchoke)
+
     # ---- emitGossip (gossipsub.go:1669-1723) ----------------------------
     gwin = bitset.word_or_reduce(st.mcache[:, : cfg.history_gossip, :], dim=1)
     gossip_cand = connected & nbr_sub & ~mesh & ~net.direct[:, None, :]
@@ -1002,6 +1058,12 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
     n_cand = count_true(gossip_cand)
     target = _gossip_target(n_cand, msh)
     chosen = masked_width_random(k6, gossip_cand, target, k_dim)
+    if choked_by is not None:
+        # a choked mesh link is IHAVE-only: the choked sender always gossips
+        # to the choking neighbour (episub's lazy links carry every id), so
+        # the ids keep flowing and the IWANT service keeps working
+        chosen = chosen | (connected & nbr_sub & choked_by[:, None, :]
+                           & ~net.direct[:, None, :])
     slot_tw = slot_topic_words(net, st.core.msgs.topic)
     adv = torch.where(chosen[..., None], (gwin[:, None, :] & slot_tw)[:, :, None, :], 0)
     ihave_out = bitset.word_or_reduce(adv, dim=1)
@@ -1086,6 +1148,7 @@ def heartbeat(cfg: GossipSubConfig, net: Net, st: GossipSubState, tp: dict,
         fanout_topic=ft,
         fanout_peers=fpeers,
         fanout_lastpub=flastpub,
+        choked=choked,
     )
 
 
@@ -1555,9 +1618,22 @@ def apply_peer_transitions(cfg: GossipSubConfig, net: Net, st: GossipSubState,
     if cfg.count_events:
         events = add_event(add_event(events, EV.REMOVE_PEER, down_tr.sum(dtype=torch.int32)),
                            EV.ADD_PEER, up_tr.sum(dtype=torch.int32))
+    # the router plane: a crashing announcer forgets its IDONTWANT set with
+    # the rest of its soft state; choke state and in-flight commits die with
+    # their edges, and the guard re-establishes the choke contract against
+    # the post-churn mesh (a death that took an unchoked link fails open)
+    router_clear = {}
+    if st.dontwant is not None:
+        router_clear["dontwant"] = torch.where(d2, 0, st.dontwant)
+    if st.choked is not None:
+        de3 = down_edge[:, None, :]
+        router_clear["choked"] = choke_guard(cfg.Dlo, st.mesh & ~de3, st.choked & ~de3)
+        router_clear["choke_ema"] = torch.where(down_edge, 0.0, st.choke_ema)
+    if st.inflight is not None:
+        router_clear["inflight"] = torch.where(down_edge[:, :, None, None], 0, st.inflight)
     st = replace(drop_edges(st, down_edge, score),
                  core=replace(st.core, dlv=dlv, events=events),
-                 mcache=torch.where(d3, 0, st.mcache), up=eff_next)
+                 mcache=torch.where(d3, 0, st.mcache), up=eff_next, **router_clear)
     live = net.nbr_ok & st.up[:, None] & net.peer_gather(st.up)
     return st, live
 
@@ -1662,7 +1738,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                         static_heartbeat: bool = False, dynamic_peers: bool = False,
                         sub_knowledge_holes: np.ndarray | None = None,
                         dynamic_topo: bool = False, lift_scores: bool = False,
-                        telemetry=None, adversary=None, **unported):
+                        telemetry=None, adversary=None, link_delay: np.ndarray | None = None):
     """Build the per-round step for a fixed config + topology:
 
         step(state, pub_origin[P], pub_topic[P], pub_valid[P]
@@ -1753,12 +1829,21 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     chaos and attack the shared delivery round still takes
     ``delivery_banded``). A CSR net's state stays CSR-resident between
     steps. The step is functional: it never writes into the state it is
-    given. The JAX step's one option outside the port, the router's
-    ``link_delay``, raises."""
-    if unported:
-        raise NotImplementedError(
-            f"not ported yet: {sorted(unported)} — ROADMAP §1 item 6 (the router plane's "
-            "per-edge link delays)")
+    given.
+
+    ``cfg.router`` (a ``routers.RouterConfig``) runs the router plane:
+    IDONTWANT announcements from each round's first receipts suppress the
+    mesh push toward the announcer (``IDONTWANT_SENT``, ``DUP_SUPPRESSED``),
+    the heartbeat chokes late mesh links into lazy IHAVE-only links from a
+    per-edge lateness EMA (``CHOKE``, ``UNCHOKE``), and with
+    ``latency_rounds`` > 0 the data commits through the delayed-commit ring,
+    each edge ``link_delay`` [N, K] int rounds later (required then, and
+    only then, with values in [0, latency_rounds]: ``topo.link_delay_plane``;
+    a device constant of the build). A router build takes the composites,
+    as the JAX package's ``fused_eligible`` routes it: neither
+    ``edge_exchange`` nor ``fused_delivery`` launches, and the suppression
+    rides the edge mask, so the shared delivery round keeps
+    ``delivery_banded`` on a banded net. It refuses ``dynamic_topo``."""
     if lift_scores and not cfg.score_enabled:
         raise ValueError("lift_scores=True needs cfg.score_enabled — the lifted plane "
                          "parameterizes the v1.1 score machinery")
@@ -1793,6 +1878,32 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                              "identity; topology changes go through the mutation "
                              "schedule instead")
         from ..topo import dynamics as topo_dynamics
+    router = cfg.router
+    if router is not None:
+        router.validate()
+        if dynamic_topo:
+            raise ValueError("cfg.router is incompatible with dynamic_topo — the link_delay "
+                             "plane and the choke guard's edge views are static over the "
+                             "build topology; mutate topology on a v1.1 build or rebuild "
+                             "the router step")
+    delay_c = None
+    if router is not None and router.latency_rounds > 0:
+        if link_delay is None:
+            raise ValueError("cfg.router.latency_rounds > 0 needs the static link_delay "
+                             "plane (make_gossipsub_step(..., link_delay=...) — see "
+                             "topo.link_delay_plane)")
+        link_delay = np.asarray(link_delay, np.int32)
+        if link_delay.shape != tuple(net.nbr.shape):
+            raise ValueError(f"link_delay shape {link_delay.shape} does not match the "
+                             f"topology's [N, K] = {tuple(net.nbr.shape)}")
+        if link_delay.min() < 0 or link_delay.max() > router.latency_rounds:
+            raise ValueError(f"link_delay values must lie in [0, {router.latency_rounds}] "
+                             f"(the ring depth); got [{link_delay.min()}, "
+                             f"{link_delay.max()}]")
+        delay_c = torch.as_tensor(link_delay, device=net.device)
+    elif link_delay is not None:
+        raise ValueError("link_delay given but cfg.router.latency_rounds == 0 — the delay "
+                         "plane would be silently unread")
     consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval, gater_params,
                                  adversary_no_forward, sub_knowledge_holes, dynamic_peers,
                                  adversary)
@@ -1805,11 +1916,11 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
     chaos = chaos_faults.resolve(cfg.chaos)
     # the fused kernels hold a row's K first-arrival words in registers; a
     # wider banded net takes the composites, as every non-banded net does,
-    # and so do the queue cap, the pipeline, the chaos plane and the attack
-    # plane, which the kernels predate (the JAX package's fused_eligible)
+    # and so do the queue cap, the pipeline, the chaos, attack and router
+    # planes, which the kernels predate (the JAX package's fused_eligible)
     banded = (net.band_off is not None and k_dim <= fr.MAX_K
               and cfg.validation_delay_rounds == 0 and cfg.queue_cap == 0
-              and chaos is None and adv is None)
+              and chaos is None and adv is None and router is None)
     # whether the round's live edges are the build's (the telemetry
     # recorder's divisions fold as the JAX program's constants then)
     static_live = not (dynamic_peers or dynamic_topo or tracks_liveness(cfg))
@@ -1907,16 +2018,21 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         return st2, dlv, info
 
     def composite_data_plane(net_l, net_w, flood_from_l, st, st2, joined_words, slotw,
-                             acc_ok, acc_msg, ihave_in_raw, nbr_score_of_me, thr):
+                             acc_ok, acc_msg, ihave_in_raw, nbr_score_of_me, thr,
+                             mesh_edge=None):
         """The JAX package's XLA path: IWANT service (last round's asks ->
         this round's carry), IHAVE ingest, the mesh/flood edge mask through
         the shared delivery_round, then the IWANT responses merged in.
         ``net_w`` is the wire view (the live view under the round's link
         mask): the IWANT window rides it, so a flapped link's responses are
-        lost and its retransmission counters do not tick. Returns (st2,
-        dlv, info, n_iwant_rec, n_adv_drop): with events counted, the valid
-        first arrivals that rode the IWANT service under chaos and the
-        attack plane's withheld bits (None without either plane)."""
+        lost and its retransmission counters do not tick. ``mesh_edge``
+        [N, K] (the post-ingest mesh's edges) is given on a router build,
+        whose suppression masks and ring sit between the edge mask and the
+        delivery round. Returns (st2, dlv, info, n_iwant_rec, n_adv_drop,
+        n_dup_sup, inflight): with events counted, the valid first arrivals
+        that rode the IWANT service under chaos, the attack plane's withheld
+        bits and the router's suppressed ones (None without the plane), and
+        the ring's next state (None without one)."""
         core = st.core
         st2, iwant_resp = iwant_responses(cfg, net_w, st2, nbr_score_of_me, thr=thr)
         st2 = handle_ihave(cfg, net_l, st2, joined_words, acc_ok, ihave_in_raw, thr)
@@ -1945,7 +2061,39 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                 fwd_g = net_l.peer_gather(core.dlv.fwd)
                 n_adv_drop = (bitset.popcount(rem_mask & fwd_g).sum(dtype=torch.int32)
                               + bitset.popcount(rem_resp).sum(dtype=torch.int32))
+        n_dup_sup = ring_tx = inflight = None
+        if router is not None:
+            # receiver-side suppression: IDONTWANT and choke are ANDs on
+            # the edge mask before the delivery round (receiver-indexed, as
+            # the attack masks, so both layouts are covered alike)
+            suppress = torch.zeros_like(edge_mask)
+            if router.idontwant_eligible:
+                suppress = suppress | dontwant_suppression(st.dontwant, mesh_edge)
+            if router.choke:
+                suppress = torch.where(choke_suppression(st2.choked)[:, :, None], bitset.ALL,
+                                       suppress)
+            removed = edge_mask & suppress
+            edge_mask = edge_mask & ~suppress
+            if cfg.count_events:
+                # withheld bits within the senders' forward sets, as the
+                # attack plane counts them
+                fwd_g = net_l.peer_gather(core.dlv.fwd)
+                n_dup_sup = bitset.popcount(removed & fwd_g).sum(dtype=torch.int32)
+            if router.latency_rounds > 0:
+                # store and forward: the sender's fwd window lasts one
+                # round, so a delayed commit resolves against it and the
+                # echo exclusion at send time and the ring carries the
+                # resolved words; delay-0 edges keep the delivery round
+                d0 = (delay_c == 0)[:, :, None]
+                eager = torch.where(d0, 0, edge_mask & net_l.peer_gather(core.dlv.fwd)
+                                    & ~net_l.edge_gather(core.dlv.fe_words))
+                ring_tx, inflight = ring_commit(st.inflight, eager, delay_c)
+                edge_mask = torch.where(d0, edge_mask, 0)
         dlv, info = delivery_round(net_l, core.msgs, core.dlv, edge_mask, core.tick, **opts)
+        if ring_tx is not None:
+            # the ring's arrivals land before the IWANT responses, so the
+            # recovery count below stays IWANT-only
+            dlv, info = merge_extra_tx(net_l, core.msgs, dlv, info, ring_tx, core.tick, **opts)
         iwant_resp = torch.where(acc_msg[:, :, None], iwant_resp, 0)
         have_pre_merge = dlv.have
         dlv, info = merge_extra_tx(net_l, core.msgs, dlv, info, iwant_resp, core.tick,
@@ -1957,7 +2105,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             n_iwant_rec = bitset.popcount(
                 (dlv.have & ~have_pre_merge) & bitset.pack(core.msgs.valid)[None, :]
             ).sum(dtype=torch.int32)
-        return st2, dlv, info, n_iwant_rec, n_adv_drop
+        return st2, dlv, info, n_iwant_rec, n_adv_drop, n_dup_sup, inflight
 
     # net and consts are parameters of the round, not closure reads: a
     # dynamic-topology round rebinds both from the state's overlay
@@ -2019,6 +2167,11 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         if cfg.count_events:
             events = add_event(add_event(events, EV.GRAFT, n_graft),
                                EV.PRUNE, n_prune)
+        # the choke guard at the GRAFT/PRUNE mutation site: the ingest may
+        # have pruned an unchoked link, and the Dlo floor holds at every
+        # round boundary
+        if router is not None and router.choke:
+            st2 = replace(st2, choked=choke_guard(rp.msh.Dlo, st2.mesh, st2.choked))
         edge_live_next = px_connect(cfg, net, net_l, st, px_ok, dynamic_peers)
 
         joined_words = joined_msg_words(net_l, core.msgs)
@@ -2026,21 +2179,30 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
         valid_pack = bitset.pack(core.msgs.valid)
 
         # 2-4. IWANT service, IHAVE ingest and delivery
+        mesh_edge = st2.mesh.any(1) if router is not None else None
         if banded:
             st2, dlv, info = banded_data_plane(
                 net_l, st, st2, joined_words, slotw, acc_ok, acc_msg, ihave_in_raw,
                 nbr_score_of_me, valid_pack, rp.thr)
-            n_iwant_rec = n_adv_drop = None
+            n_iwant_rec = n_adv_drop = n_dup_sup = inflight = None
         else:
-            st2, dlv, info, n_iwant_rec, n_adv_drop = composite_data_plane(
-                net_l, net_w, flood_from_l, st, st2, joined_words, slotw, acc_ok, acc_msg,
-                ihave_in_raw, nbr_score_of_me, rp.thr)
+            st2, dlv, info, n_iwant_rec, n_adv_drop, n_dup_sup, inflight = (
+                composite_data_plane(net_l, net_w, flood_from_l, st, st2, joined_words, slotw,
+                                     acc_ok, acc_msg, ihave_in_raw, nbr_score_of_me, rp.thr,
+                                     mesh_edge))
 
         # the exact-trace duplicate plane: arrivals beyond the first per
         # (peer, msg), before the throttle (its refusals are fresh receipts)
         dup_plane = None
         if cfg.trace_exact:
             dup_plane = info.trans & ~(dlv.fe_words & info.recv_new_words[:, None, :])
+
+        # the choke signal: this round's per-edge lateness folded into the
+        # EMA (arrivals before the throttle, the duplicate counter's cohort)
+        choke_ema = None
+        if router is not None and router.choke:
+            choke_ema = choke_lateness_update(router, st2.choke_ema, info.trans,
+                                              dlv.fe_words, info.new_words)
 
         # 4b. the validation front-end throttle (validation.go:230-244): it
         # rewrites the round's have, fwd, first_round and fe planes (the
@@ -2105,9 +2267,29 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
                                     rp.msh)[0]
             st2 = update_fanout_on_publish(cfg, net_l, st2, pub_origin, pub_topic, sel, tick)
 
+        # the router plane's roll: announcements accumulate at the round's
+        # end from its post-throttle first receipts and are read next round
+        # (the one-RTT latency of every outbox); every per-id and per-edge
+        # router plane gets the keep-words recycle the mcache gets
+        router_next = {}
+        if router is not None:
+            if router.idontwant_eligible:
+                ann = dontwant_announcements(router, info.recv_new_words, joined_words)
+                router_next["dontwant"] = (st.dontwant | ann) & keep_words
+            if router.choke:
+                router_next["choke_ema"] = choke_ema
+            if router.latency_rounds > 0:
+                router_next["inflight"] = ring_keep(inflight, keep_words)
+
         if cfg.count_events:
             events = accumulate_round_events(events, info,
                                              is_pub.sum(dtype=torch.int32))
+            if router is not None:
+                if router.idontwant_eligible:
+                    events = add_event(events, EV.IDONTWANT_SENT,
+                                       idontwant_sent_count(ann, mesh_edge))
+                if n_dup_sup is not None:
+                    events = add_event(events, EV.DUP_SUPPRESSED, n_dup_sup)
             if chaos is not None:
                 # the live view's links, not the static topology's
                 events = add_event(add_event(
@@ -2137,6 +2319,7 @@ def make_gossipsub_step(cfg: GossipSubConfig, net: Net,
             # not keep-masked: a dup bit names the message its slot held at
             # the arrival
             dup_trans=dup_plane,
+            **router_next,
         )
 
         # congested links suppress this round's heartbeat gossip toward

@@ -279,7 +279,9 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
     the JAX engine does. The heartbeat runs the control behaviours.
     ``telemetry`` (a ``telemetry.TelemetryConfig``; the state needs
     ``GossipSubState.init(..., telemetry=)``) writes one panel row a phase
-    (``rounds_per_row = r``) as its last operation."""
+    (``rounds_per_row = r``) as its last operation. A router build
+    (``cfg.router``) raises ValueError, as in the JAX package: the router
+    plane runs in the per-round step alone."""
     r = int(rounds_per_phase)
     if r < 1:
         raise ValueError(f"rounds_per_phase must be >= 1, got {r}")
@@ -288,6 +290,10 @@ def make_gossipsub_phase_step(cfg: GossipSubConfig, net, rounds_per_phase: int,
     if lift_scores and not cfg.score_enabled:
         raise ValueError("lift_scores=True needs cfg.score_enabled — the lifted plane "
                          "parameterizes the v1.1 score machinery")
+    if cfg.router is not None:
+        raise ValueError("the phase engine predates the router plane — IDONTWANT "
+                         "suppression, choking and the latency ring hook the per-round "
+                         "delivery composition; use make_gossipsub_step for router builds")
     consts = prepare_step_consts(cfg, net, score_params, heartbeat_interval, gater_params,
                                  adversary_no_forward, sub_knowledge_holes, dynamic_peers,
                                  adversary)

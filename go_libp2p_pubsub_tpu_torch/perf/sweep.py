@@ -124,7 +124,7 @@ def bench_parts(n_peers: int, seed: int = 0, config: str = "default",
                 count_events: bool = False, edge_layout: str = "dense", fused: bool = False,
                 rounds_per_phase: int = 1, heartbeat_every: int | None = None, device=None,
                 queue_cap: int = 0, validation_delay_rounds: int = 0, px: bool = False,
-                wire_coalesced: bool | None = None, chaos=None):
+                wire_coalesced: bool | None = None, chaos=None, router=None):
     """(net, cfg, score params, gater params, no-forward vector) of a bench
     config, as ``build_bench`` builds them (its arguments of the same
     names)."""
@@ -153,7 +153,8 @@ def bench_parts(n_peers: int, seed: int = 0, config: str = "default",
                                 validation_delay_rounds=validation_delay_rounds,
                                 edge_layout=edge_layout, fused=fused,
                                 wire_coalesced=bench_wire_coalesced(wire_coalesced),
-                                trace_exact=px, narrow_counters=px, chaos=chaos)
+                                trace_exact=px, narrow_counters=px, chaos=chaos,
+                                router=router)
     cfg = dataclasses.replace(cfg, count_events=count_events,
                               fanout_slots=cfg.fanout_slots if config == "eth2" else 0)
     return net, cfg, sp, gater, no_forward
@@ -183,7 +184,8 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
                 device=None, queue_cap: int = 0, validation_delay_rounds: int = 0,
                 px: bool = False, dynamic_peers: bool = False,
                 wire_coalesced: bool | None = None, lift_scores: bool = False,
-                score_counts: bool = False, chaos=None, telemetry=None, adversary=None):
+                score_counts: bool = False, chaos=None, telemetry=None, adversary=None,
+                router=None):
     """Build (state, step, n_topics, honest) for a bench config, tracer
     detached (no event counters unless ``count_events``):
 
@@ -223,13 +225,15 @@ def build_bench(n_peers: int, msg_slots: int, seed: int = 0,
     ``count_events``). ``adversary`` (a ``chaos.Adversary`` or an
     ``AttackScenario``, built against the bench lattice) arms the attack
     plane; ``honest`` then lists the peers outside its faction (and outside
-    the sybil config's no-forward set)."""
+    the sybil config's no-forward set). ``router`` (a ``routers.RouterConfig``
+    without the latency ring, whose delay plane the lattice lacks) turns the
+    router plane on; it needs the per-round step."""
     net, cfg, sp, gater, no_forward = bench_parts(
         n_peers, seed=seed, config=config, count_events=count_events,
         edge_layout=edge_layout, fused=fused, rounds_per_phase=rounds_per_phase,
         heartbeat_every=heartbeat_every, device=device, queue_cap=queue_cap,
         validation_delay_rounds=validation_delay_rounds, px=px,
-        wire_coalesced=wire_coalesced, chaos=chaos)
+        wire_coalesced=wire_coalesced, chaos=chaos, router=router)
     tp = graphlib.ring_lattice(n_peers, d=8)
     r, he, n_topics = int(rounds_per_phase), cfg.heartbeat_every, bench_topics(config)
     st = GossipSubState.init(

@@ -440,33 +440,40 @@ class SimState:
 
 def densify_edge_planes(net: Net, st):
     """A GossipSub state's CSR-resident flat planes -> their dense forms:
-    ``fe_words``, ``served_lo``/``served_hi`` ``[E, W] -> [N, K, W]`` and
-    ``peerhave``/``iasked`` ``[E] -> [N, K]``, absent slots zero. A dense
-    state passes through unchanged."""
-    if st.served_lo.dim() == 3:
-        return st
-    dlv = st.core.dlv
-    return replace(st, core=replace(st.core, dlv=replace(
-        dlv, fe_words=net.unpack_edges(dlv.fe_words))),
-        served_lo=net.unpack_edges(st.served_lo),
-        served_hi=net.unpack_edges(st.served_hi),
-        peerhave=net.unpack_edges(st.peerhave),
-        iasked=net.unpack_edges(st.iasked))
+    ``fe_words``, ``served_lo``/``served_hi`` ``[E, W] -> [N, K, W]``,
+    ``peerhave``/``iasked`` ``[E] -> [N, K]`` and the router's latency ring
+    ``inflight`` ``[E, L, W] -> [N, K, L, W]``, absent slots zero. A dense
+    state passes through unchanged. The ring has its own rank check: it
+    exists on another branch of the build (``cfg.router``) than the served
+    planes."""
+    if st.served_lo.dim() == 2:
+        dlv = st.core.dlv
+        st = replace(st, core=replace(st.core, dlv=replace(
+            dlv, fe_words=net.unpack_edges(dlv.fe_words))),
+            served_lo=net.unpack_edges(st.served_lo),
+            served_hi=net.unpack_edges(st.served_hi),
+            peerhave=net.unpack_edges(st.peerhave),
+            iasked=net.unpack_edges(st.iasked))
+    if getattr(st, "inflight", None) is not None and st.inflight.dim() == 3:
+        st = replace(st, inflight=net.unpack_edges(st.inflight))
+    return st
 
 
 def flatten_edge_planes(net: Net, st):
     """Dense per-edge planes -> the CSR-resident flat forms (the inverse of
     ``densify_edge_planes``, exact because a dense plane is zero on absent
     slots). A flat state passes through unchanged."""
-    if st.served_lo.dim() == 2:
-        return st
-    dlv = st.core.dlv
-    return replace(st, core=replace(st.core, dlv=replace(
-        dlv, fe_words=net.pack_edges(dlv.fe_words))),
-        served_lo=net.pack_edges(st.served_lo),
-        served_hi=net.pack_edges(st.served_hi),
-        peerhave=net.pack_edges(st.peerhave),
-        iasked=net.pack_edges(st.iasked))
+    if st.served_lo.dim() == 3:
+        dlv = st.core.dlv
+        st = replace(st, core=replace(st.core, dlv=replace(
+            dlv, fe_words=net.pack_edges(dlv.fe_words))),
+            served_lo=net.pack_edges(st.served_lo),
+            served_hi=net.pack_edges(st.served_hi),
+            peerhave=net.pack_edges(st.peerhave),
+            iasked=net.pack_edges(st.iasked))
+    if getattr(st, "inflight", None) is not None and st.inflight.dim() == 4:
+        st = replace(st, inflight=net.pack_edges(st.inflight))
+    return st
 
 
 def wrap_csr_resident(net: Net, fn):

@@ -1,11 +1,10 @@
 """Topology generators: one canonical edge list, two emissions (the port's
-own copy of the JAX package's ``topo/generators.py``, with the power-law
-generator and the emission helpers).
+own copy of the JAX package's ``topo/generators.py``).
 
 A generator produces an :class:`EdgeList` — a deterministic,
 seed-reproducible array of undirected ``(a, b)`` pairs (``a < b``,
-lexicographically sorted) — and the emission helpers turn ONE edge list
-into both layouts:
+lexicographically sorted), with optional per-edge link classes — and the
+emission helpers turn ONE edge list into both layouts:
 
   * :func:`to_topology` -> the dense-padded ``graph.Topology``;
   * :func:`build_nets` -> the ``(dense, csr)`` Net pair built from the
@@ -17,12 +16,27 @@ into both layouts:
                 ``[d_min, max_degree]``, wired by seeded stub matching
                 with self/multi-edge rejection. The max-degree cap IS
                 the padded K.
+  small_world   Watts–Strogatz ring rewiring: a d-regular ring lattice
+                whose far endpoints rewire with probability ``beta``,
+                under the same capacity cap.
+  geo_clusters  geographically clustered links with latency classes:
+                peers in clusters, each dialing local / regional / global
+                edges tagged class 0/1/2 with a per-class latency in
+                rounds; every edge has exactly one class.
 
-Both helpers are vectorised numpy that reproduce the JAX package's
-per-element Python loops exactly (same random draws, same accept order,
-same slot order), so a million-peer graph builds in seconds; the edge
-list and the Topology are byte-identical to the reference's
-(tests/test_torch_floodsub.py)."""
+``attach_latency_classes`` gives a class-less edge list (a power-law
+graph) the same classes from contiguous id-block clusters, and
+``link_class_planes`` / ``link_delay_plane`` turn the classes into the
+per-slot planes the router's latency ring reads.
+
+``powerlaw``, ``to_topology`` and ``link_class_planes`` are vectorised
+numpy that reproduce the JAX package's per-element Python loops exactly
+(same random draws, same accept order, same slot order), so a
+million-peer graph builds in seconds; ``small_world`` and ``geo_clusters``
+keep the reference's loops, whose random draws interleave (a draw per
+edge and bounded retries; a sample without replacement per peer). The
+edge lists, the Topology and the planes are byte-identical to the
+reference's (tests/test_torch_floodsub.py, tests/test_torch_topo_gen.py)."""
 
 from __future__ import annotations
 
@@ -32,13 +46,19 @@ import numpy as np
 
 from .. import graph as graphlib
 
+#: default per-class latency in rounds of the geo link classes (local
+#: intra-cluster, regional neighbour-cluster, global long-haul)
+GEO_CLASS_LATENCY = (1, 2, 8)
+
 
 @dataclass(frozen=True)
 class EdgeList:
     """Canonical undirected edge list (see module docstring)."""
 
     n: int
-    edges: np.ndarray   # [E_u, 2] i32, a < b, sorted
+    edges: np.ndarray                     # [E_u, 2] i32, a < b, sorted
+    link_class: np.ndarray | None = None  # [E_u] i8 (geo classes)
+    class_latency: tuple | None = None    # rounds per class
 
     @property
     def n_undirected(self) -> int:
@@ -61,6 +81,13 @@ class EdgeList:
         """The determinism pin: the byte-identical canonical form both
         emissions are built from."""
         return np.ascontiguousarray(self.edges, np.int32).tobytes()
+
+
+def _canonical(n: int, pairs) -> np.ndarray:
+    """Sorted [E_u, 2] i32 canonical form of a set of (a, b) pairs."""
+    if not len(pairs):
+        return np.zeros((0, 2), np.int32)
+    return np.asarray(sorted({(min(a, b), max(a, b)) for a, b in pairs}), np.int32)
 
 
 def _degree_sequence(rng, n: int, exponent: float, d_min: int,
@@ -128,6 +155,83 @@ def powerlaw(n: int, exponent: float = 2.2, d_min: int = 2,
     return EdgeList(n=n, edges=edges.reshape(-1, 2))
 
 
+def small_world(n: int, d: int = 4, beta: float = 0.1, seed: int = 0,
+                max_degree: int | None = None) -> EdgeList:
+    """Watts–Strogatz rewiring of a d-regular ring under a degree cap
+    (default cap 2d + 4 slack: rewiring concentrates a few hubs). Each
+    edge of the sorted ring draws once and a rewired one up to 8 retries,
+    in the reference's order (one numpy stream)."""
+    cap = max_degree if max_degree is not None else 2 * d + 4
+    if cap < 2 * d:
+        raise ValueError(f"max_degree {cap} is below the seed ring "
+                         f"degree {2 * d} — the ring itself would "
+                         f"violate the cap before any rewiring")
+    rng = np.random.default_rng(seed)
+    have = {(i, (i + o) % n) if i < (i + o) % n else ((i + o) % n, i)
+            for i in range(n) for o in range(1, d + 1)}
+    deg = np.bincount(np.asarray(sorted(have), np.int64).reshape(-1), minlength=n)
+    for a, b in sorted(have):
+        if rng.random() >= beta:
+            continue
+        # rewire the far endpoint b -> uniform c with spare capacity
+        for _ in range(8):  # bounded retries, then keep the edge
+            c = int(rng.integers(0, n))
+            key = (min(a, c), max(a, c))
+            if c == a or key in have or deg[c] >= cap:
+                continue
+            have.discard((a, b))
+            deg[b] -= 1
+            have.add(key)
+            deg[c] += 1
+            break
+    return EdgeList(n=n, edges=_canonical(n, have))
+
+
+def _cluster_classes(n: int, n_clusters: int, edges: np.ndarray) -> np.ndarray:
+    """[E_u] i8 geo class of each edge under contiguous id-block clusters:
+    0 in one cluster, 1 between adjacent clusters, 2 otherwise."""
+    cluster = (np.arange(n, dtype=np.int64) * n_clusters) // n
+    ca, cb = cluster[edges[:, 0]], cluster[edges[:, 1]]
+    adj = np.minimum((ca - cb) % n_clusters, (cb - ca) % n_clusters) == 1
+    return np.where(ca == cb, np.int8(0), np.where(adj, np.int8(1), np.int8(2))).astype(np.int8)
+
+
+def geo_clusters(n: int, n_clusters: int = 8, d_local: int = 6,
+                 d_regional: int = 2, d_global: int = 1, seed: int = 0,
+                 class_latency: tuple = GEO_CLASS_LATENCY) -> EdgeList:
+    """Geographically clustered topology with latency link classes
+    (module docstring): class 0 (local) within a cluster, class 1
+    (regional) between adjacent clusters, class 2 (global) the rest, so
+    the per-class counts sum to E. Clusters are contiguous id blocks; each
+    peer samples its local, regional and global dials without replacement,
+    in the reference's order."""
+    if n_clusters < 2:
+        raise ValueError("geo_clusters needs >= 2 clusters")
+    rng = np.random.default_rng(seed)
+    cluster = (np.arange(n, dtype=np.int64) * n_clusters) // n
+    members = [np.flatnonzero(cluster == c) for c in range(n_clusters)]
+    have: set = set()
+
+    def dial(i: int, pool: np.ndarray, count: int):
+        pool = pool[pool != i]
+        if pool.shape[0] == 0 or count <= 0:
+            return
+        picks = rng.choice(pool, size=min(count, pool.shape[0]), replace=False)
+        for j in picks:
+            have.add((min(i, int(j)), max(i, int(j))))
+
+    all_ids = np.arange(n, dtype=np.int64)
+    for i in range(n):
+        c = int(cluster[i])
+        dial(i, members[c], d_local)
+        dial(i, np.concatenate([members[(c + 1) % n_clusters],
+                                members[(c - 1) % n_clusters]]), d_regional)
+        dial(i, all_ids, d_global)
+    edges = _canonical(n, have)
+    return EdgeList(n=n, edges=edges, link_class=_cluster_classes(n, n_clusters, edges),
+                    class_latency=tuple(class_latency))
+
+
 # ---------------------------------------------------------------------------
 # emission: one canonical edge list -> both layouts
 
@@ -176,3 +280,60 @@ def build_nets(el: EdgeList, subs, max_degree: int | None = None, **net_kw):
     dense = Net.build(topo, subs, **net_kw)
     csr = Net.build(topo, subs, edge_layout="csr", **net_kw)
     return topo, dense, csr
+
+
+def link_class_planes(el: EdgeList, topo: graphlib.Topology) -> tuple[np.ndarray, np.ndarray]:
+    """Per-directed-slot views of the geo link classes: ``(edge_class[N, K]
+    i8, latency_rounds[N, K] i32)`` with -1 / 0 on absent slots. Each
+    present slot (i, k) looks its undirected edge up in the sorted
+    canonical list (one search for all N x K slots)."""
+    if el.link_class is None:
+        raise ValueError("edge list carries no link classes "
+                         "(geo_clusters builds them)")
+    n = el.n
+    nbr = np.asarray(topo.nbr, np.int64)
+    ok = np.asarray(topo.nbr_ok, bool)
+    rows = np.broadcast_to(np.arange(nbr.shape[0], dtype=np.int64)[:, None], nbr.shape)
+    e = np.asarray(el.edges, np.int64).reshape(-1, 2)
+    keys = e[:, 0] * n + e[:, 1]          # ascending: the list is sorted
+    q = np.minimum(rows, nbr)[ok] * n + np.maximum(rows, nbr)[ok]
+    pos = np.searchsorted(keys, q)
+    found = pos < keys.shape[0]
+    found[found] = keys[pos[found]] == q[found]
+    if not found.all():
+        i, s = (int(v) for v in np.argwhere(ok)[np.flatnonzero(~found)[0]])
+        raise KeyError((i, int(nbr[i, s])))
+    cls = np.full(nbr.shape, -1, np.int8)
+    cls[ok] = np.asarray(el.link_class, np.int8)[pos]
+    lat = np.zeros(nbr.shape, np.int32)
+    for c, rounds in enumerate(el.class_latency or GEO_CLASS_LATENCY):
+        lat[cls == c] = rounds
+    return cls, lat
+
+
+def attach_latency_classes(el: EdgeList, n_clusters: int = 8,
+                           class_latency: tuple = GEO_CLASS_LATENCY) -> EdgeList:
+    """Geo latency classes for a class-less edge list (powerlaw,
+    small_world): contiguous id-block clusters, the relabeling
+    ``geo_clusters`` bakes, each edge classed by cluster adjacency (0
+    local, 1 adjacent cluster, 2 long haul). No random draw: the graph is
+    untouched, and the router plane's cells put power-law graphs on a
+    geo-latency floor this way."""
+    if n_clusters < 2:
+        raise ValueError("attach_latency_classes needs >= 2 clusters")
+    return EdgeList(n=el.n, edges=el.edges,
+                    link_class=_cluster_classes(el.n, n_clusters, el.edges),
+                    class_latency=tuple(class_latency))
+
+
+def link_delay_plane(el: EdgeList, topo: graphlib.Topology) -> tuple[np.ndarray, int]:
+    """The router plane's delay plane: ``(delay[N, K] i32, L)``, the
+    per-slot latency normalised so the fastest class is delay 0 (the v1.1
+    one-round hop; the ring models delay as extra rounds on top of it),
+    absent slots 0, and ``L = delay.max()``, the ring depth of
+    ``RouterConfig(latency_rounds=L)``."""
+    _, lat = link_class_planes(el, topo)
+    present = np.asarray(topo.nbr_ok, bool)
+    base = int(lat[present].min()) if present.any() else 0
+    delay = np.where(present, lat - base, 0).astype(np.int32)
+    return delay, int(delay.max()) if present.any() else 0

@@ -28,6 +28,7 @@ from test_torch_randomsub import nets, schedule
 from torch_parity import (
     bench_builds,
     diff_leaves,
+    jinit,
     phases_against_reference,
     reference_leaves,
     rounds_against_reference,
@@ -67,7 +68,7 @@ def _sim_run(router, jnet, tnet, chaos, resident, deny=None):
     """FloodSub or RandomSub of both packages under ``chaos`` from one
     fresh state, every leaf every round; returns the port's last leaves."""
     jc, tc = JChaos(**chaos), TChaos(**chaos)
-    jst = JSim.init(N, M, seed=0, k=jnet.max_degree, chaos_ge=jc.needs_state,
+    jst = jinit(JSim.init, N, M, seed=0, k=jnet.max_degree, chaos_ge=jc.needs_state,
                     n_edges=jnet.n_edges if resident else None)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     assert (tst.chaos is not None) == tc.needs_state

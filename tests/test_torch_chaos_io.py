@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import torch
 from test_torch_chaos_sched import deny_rows
 from test_torch_trace import _both, _gossip_run
-from torch_parity import bench_builds, diff_leaves, phase_schedule, reference_leaves
+from torch_parity import bench_builds, diff_leaves, jinit, phase_schedule, reference_leaves
 
 from go_libp2p_pubsub_tpu import checkpoint as jck
 from go_libp2p_pubsub_tpu import driver as jdriver
@@ -44,7 +44,7 @@ def test_window_with_deny_rows_equals_eager_and_reference():
     deny = deny_rows(N, tnet.nbr.numpy(), rounds, 8, 16)
     po, pt, pv = phase_schedule(N, rounds)
     grouped = [a.reshape((rounds // r, r) + a.shape[1:]) for a in (po, pt, pv)]
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0)
+    jst = jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=0)
     assert jst.core.chaos is not None
     init = reference_leaves(jst)
     jwin = jdriver.make_window(jmake_phase(jcfg, jnet, r, score_params=jsp), heartbeat=[True])
@@ -96,7 +96,7 @@ def test_ge_checkpoint_mid_partition_resumes_exact_fault_stream(tmp_path):
             st = tstep(st, *(torch.from_numpy(a[t]) for a in (po, pt, pv, deny)))
         return st
 
-    jtemplate = lambda: JState.init(jnet, 64, jcfg, score_params=jsp, seed=3)
+    jtemplate = lambda: jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=3)
     ttemplate = lambda: TState.init(tnet, 64, tcfg, score_params=tsp, seed=3)
     diff_leaves(reference_leaves(jtemplate()), convert.state_leaves(ttemplate()), "init")
     jmid = jdrive(jtemplate(), 0, 8)

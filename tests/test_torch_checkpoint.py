@@ -26,7 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import bench_builds, diff_leaves, phase_schedule, reference_leaves
+from torch_parity import bench_builds, diff_leaves, jinit, phase_schedule, reference_leaves
 
 from go_libp2p_pubsub_tpu import checkpoint as jck
 from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubState as JState
@@ -62,7 +62,7 @@ def test_leaf_order_is_the_jax_tree_order(option):
     GossipSub default is STATE_SCHEMA.json's order."""
     kw, init_kw = OPTIONS[option]
     b = bench_builds(n=N, d=4, **kw)
-    jst = JState.init(b[1], 64, b[0], score_params=b[2], seed=0, **init_kw)
+    jst = jinit(JState.init, b[1], 64, b[0], score_params=b[2], seed=0, **init_kw)
     ref = reference_leaves(jst)
     specs = convert.leaf_specs(convert.state_from_reference(ref, device="cpu"))
     assert list(specs) == list(ref)
@@ -77,7 +77,7 @@ def test_leaf_order_is_the_jax_tree_order(option):
 
 @pytest.mark.parametrize("val_delay", [0, 2])
 def test_sim_state_leaf_order_is_the_jax_tree_order(val_delay):
-    jst = JSim.init(N, 64, seed=0, k=8, val_delay=val_delay)
+    jst = jinit(JSim.init, N, 64, seed=0, k=8, val_delay=val_delay)
     ref = reference_leaves(jst)
     tst = TSim.init(N, 64, seed=0, k=8, device="cpu", val_delay=val_delay)
     assert convert.leaf_specs(tst) == {p: (a.shape, a.dtype) for p, a in ref.items()}
@@ -122,7 +122,7 @@ def test_checkpoint_crosses_packages(tmp_path, origin, engine):
     b, jstep, tstep, r = _engine(engine)
     first, more = (6, 6) if r == 1 else (2, 2)
     path = str(tmp_path / f"{origin}.npz")
-    jfresh = lambda: JState.init(b[1], 64, b[0], score_params=b[2], seed=0)
+    jfresh = lambda: jinit(JState.init, b[1], 64, b[0], score_params=b[2], seed=0)
     tfresh = lambda: convert.state_from_reference(reference_leaves(jfresh()), device="cpu")
     if origin == "jax":
         mid = _drive(jstep, jfresh(), r, 0, first, "jax")
@@ -241,7 +241,7 @@ def test_key_of_another_impl_is_refused(tmp_path):
     """A JAX checkpoint whose key is an ``unsafe_rbg`` key (4 words) does
     not fit the port's threefry key (2 words): refused, the key's path
     named."""
-    jst = JSim.init(8, 16, seed=0, k=4)
+    jst = jinit(JSim.init, 8, 16, seed=0, k=4)
     jst = jst.replace(key=jax.random.key(0, impl="unsafe_rbg"))
     path = str(tmp_path / "rbg.npz")
     jck.save(path, jst)

@@ -30,6 +30,7 @@ import torch
 from torch_parity import (
     bench_builds,
     diff_leaves,
+    jinit,
     phase_schedule,
     phases_against_reference,
     reference_leaves,
@@ -91,7 +92,9 @@ def test_churn_rounds_equal_reference(kind, layout, gater):
         kw = dict(gater={}, validation_capacity=2, ip_group=(np.arange(N) // 3).astype(np.int32))
     builds = bench_builds(n=N, topologies=topologies(kind), edge_layout=layout,
                           fused=layout == "csr", **kw)
-    st = rounds_against_reference(builds, ROUNDS, up=up, step_kw=DYN)
+    # the CSR-resident case replays the dense case's JAX run (densified)
+    st = rounds_against_reference(builds, ROUNDS, up=up, step_kw=DYN,
+                                  share=("churn rounds", kind, gater))
     assert_churned(st, up)
     assert builds[4].band_off is not None or kind != "lattice"
 
@@ -407,7 +410,7 @@ def test_state_with_blacklist_converts():
     from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubState as JState
 
     b = bench_builds(n=N, topologies=topologies("random"))
-    jst = JState.init(b[1], 64, b[0], score_params=b[2], seed=2)
+    jst = jinit(JState.init, b[1], 64, b[0], score_params=b[2], seed=2)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     from go_libp2p_pubsub_tpu_torch.models.gossipsub import set_blacklist
 

@@ -23,6 +23,7 @@ the card.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,6 +46,13 @@ from go_libp2p_pubsub_tpu_torch.state import MsgTable as TMsgTable
 from go_libp2p_pubsub_tpu_torch.state import Net as TNet
 from go_libp2p_pubsub_tpu_torch.state import replace
 from torch_parity import HAZARD_BAND_M, hazard_banded_args, hazard_bands
+
+
+# the reference's bit helpers jitted: one compile a shape instead of an
+# eager compile per op (integer ops: the same bits either way)
+_edge_eq_words = jax.jit(jbs.edge_eq_words, static_argnums=1)
+_first_edge_of = jax.jit(jbs.first_edge_of, static_argnums=1)
+_pack = jax.jit(jbs.pack)
 
 
 def _t(a):
@@ -82,7 +90,7 @@ def _random_banded(n, m, k, rng):
     dlv = JDelivery(
         have=jnp.asarray(words((n,))), fwd=jnp.asarray(words((n,))),
         first_round=jnp.asarray(rng.integers(-1, 5, size=(n, m)).astype(np.int32)),
-        fe_words=jbs.edge_eq_words(
+        fe_words=_edge_eq_words(
             jnp.asarray(rng.integers(-1, k, size=(n, m)).astype(np.int8)), k),
     )
     msgs = JMsgTable(
@@ -119,10 +127,10 @@ def test_banded_round_equals_pallas_and_composite(n, m, d, live_frac):
         tnet = replace(tnet, nbr_ok=torch.from_numpy(live))
     tick = 3
     jdlv, jmsgs, emask = _random_banded(n, m, k, rng)
-    ref_p, info_p = jcommon._delivery_round_pallas(
-        jnet, jmsgs, jdlv, jnp.asarray(emask), jnp.int32(tick), interpret=True)
-    ref_x, info_x = jcommon.delivery_round(jnet, jmsgs, jdlv, jnp.asarray(emask),
-                                           jnp.int32(tick))
+    args = (jmsgs, jdlv, jnp.asarray(emask), jnp.int32(tick))
+    ref_p, info_p = jax.jit(lambda *a: jcommon._delivery_round_pallas(jnet, *a,
+                                                                      interpret=True))(*args)
+    ref_x, info_x = jax.jit(lambda *a: jcommon.delivery_round(jnet, *a))(*args)
     tdlv, tmsgs = _port_state(jdlv, jmsgs)
     tdb.reset_launch_counts()
     got, info = tcommon.delivery_round(tnet, tmsgs, tdlv, _t(emask),
@@ -170,12 +178,12 @@ def test_banded_plain_equals_the_tpu_kernel_directly():
 
 def hazard_file(band) -> str:
     """Which file runs a hazard band's cases: here the bands with K <= 6
-    (the circulant among them), ``hazards`` K = 16 and 24
-    (tests/test_torch_delivery_hazards.py), ``wide`` K = 40
+    (the circulant among them), ``hazards`` K = 16
+    (tests/test_torch_delivery_hazards.py), ``wide`` K = 24 and 40
     (tests/test_torch_delivery_hazards_wide.py), so that each file stays
     within a loadfile worker's share of the suite."""
     k = len(band["offsets"])
-    return "delivery" if k <= 6 else "hazards" if k <= 24 else "wide"
+    return "delivery" if k <= 6 else "hazards" if k <= 16 else "wide"
 
 
 def hazard_cases(name: str) -> dict:
@@ -196,12 +204,12 @@ def check_banded_hazard(band, m):
     k, w = len(off), (m + 31) // 32
     fwd, fe, emask, _nm, have, first_round, valid_row, tick = hazard_banded_args(
         m + k, band, m,
-        first_edge=lambda fe8: np.asarray(jbs.edge_eq_words(jnp.asarray(fe8), k)).reshape(n, k * w))
+        first_edge=lambda fe8: np.asarray(_edge_eq_words(jnp.asarray(fe8), k)).reshape(n, k * w))
     origin = np.random.default_rng(n + m).integers(-1, n, size=m).astype(np.int32)
-    not_mine = ~np.asarray(jbs.pack(jnp.asarray(origin[None, :] == np.arange(n)[:, None])))
+    not_mine = ~np.asarray(_pack(jnp.asarray(origin[None, :] == np.arange(n)[:, None])))
     block = jfr.pick_block(n, off) or n    # a halo past every block: one block of N
     trans, have2, fwd2, fr2, fe2 = jbanded(
-        jnp.asarray(fwd), jbs.first_edge_of(jnp.asarray(fe).reshape(n, k, w), m),
+        jnp.asarray(fwd), _first_edge_of(jnp.asarray(fe).reshape(n, k, w), m),
         jnp.asarray(emask), jnp.asarray(have), jnp.asarray(first_round), jnp.asarray(origin),
         jnp.asarray(valid_row[0]), jnp.int32(tick), block=block, m=m, offsets=off, revs=rev,
         interpret=True)
@@ -213,7 +221,7 @@ def check_banded_hazard(band, m):
     _eq(have2, got["have"], f"{at} have")
     _eq(fwd2, got["fwd"], f"{at} fwd")
     _eq(fr2, got["first_round"], f"{at} first_round")
-    _eq(jbs.edge_eq_words(fe2, k).reshape(n, k * w), got["fe"], f"{at} fe words")
+    _eq(_edge_eq_words(fe2, k).reshape(n, k * w), got["fe"], f"{at} fe words")
     _eq(np.asarray(have2) & ~have, got["new"], f"{at} new")
 
 

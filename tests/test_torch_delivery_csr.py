@@ -13,6 +13,7 @@ comparison is bitwise."""
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -175,7 +176,10 @@ def test_segment_reductions_equal_reference():
             i += int(rng.integers(1, cap + 1))
         x = rng.integers(0, 1 << 32, size=(e, 2), dtype=np.uint64).astype(np.uint32)
         for c in (None, cap):
-            ri, rx = jcsr.segment_or_scan(jnp.asarray(x), jnp.asarray(flags), cap=c)
+            # jitted: one compile of each scan instead of one an op (integer
+            # ops: the same bits either way)
+            ri, rx = jax.jit(lambda a, f, c=c: jcsr.segment_or_scan(a, f, cap=c))(
+                jnp.asarray(x), jnp.asarray(flags))
             gi, gx = tcsr.segment_or_scan(_t(x), torch.from_numpy(flags), cap=c)
             _eq(ri, gi, f"inc cap={c}")
             _eq(rx, gx, f"exc cap={c}")
@@ -184,8 +188,9 @@ def test_segment_reductions_equal_reference():
         row_last = np.maximum(np.searchsorted(row, np.arange(n), side="right") - 1,
                               0).astype(np.int32)
         nonempty = np.bincount(row, minlength=n) > 0
-        _eq(jcsr.segment_or_words(jnp.asarray(x), jnp.asarray(flags),
-                                  jnp.asarray(row_last), jnp.asarray(nonempty), cap=cap),
+        _eq(jax.jit(lambda *a, cap=cap: jcsr.segment_or_words(*a, cap=cap))(
+                jnp.asarray(x), jnp.asarray(flags), jnp.asarray(row_last),
+                jnp.asarray(nonempty)),
             tcsr.segment_or_words(_t(x), torch.from_numpy(flags), _t(row_last),
                                   torch.from_numpy(nonempty), cap=cap), "or_words")
         vals = rng.integers(-50, 50, size=(e,)).astype(np.int32)
@@ -211,8 +216,11 @@ def test_finish_delivery_tails_equal_reference(fused):
     tdlv, tmsgs = _port_state(jdlv, jmsgs)
     tick_j, tick_t = jnp.int32(4), torch.tensor(4, dtype=torch.int32)
 
+    # the reference's bit algebra jitted: one compile of each tail instead of
+    # an eager compile per op (integer ops: the same bits either way)
     trans = jnet.unpack_edges(jnp.asarray(trans_e))
-    ref, rinfo = jcommon.finish_delivery(jnet, jmsgs, jdlv, trans, tick_j)
+    ref, rinfo = jax.jit(lambda *a: jcommon.finish_delivery(jnet, *a))(jmsgs, jdlv, trans,
+                                                                      tick_j)
     got, ginfo = tcommon.finish_delivery(tnet, tmsgs, tdlv, _t(np.asarray(trans)), tick_t)
     for f in ("have", "fwd", "first_round", "fe_words"):
         _eq(getattr(ref, f), getattr(got, f), f"dense {f}")
@@ -221,7 +229,8 @@ def test_finish_delivery_tails_equal_reference(fused):
 
     jflat = jdlv.replace(fe_words=jnet.pack_edges(jdlv.fe_words))
     tflat = replace(tdlv, fe_words=tnet.pack_edges(tdlv.fe_words))
-    ref, rinfo = jcommon.finish_delivery_flat(jnet, jmsgs, jflat, jnp.asarray(trans_e), tick_j)
+    ref, rinfo = jax.jit(lambda *a: jcommon.finish_delivery_flat(jnet, *a))(
+        jmsgs, jflat, jnp.asarray(trans_e), tick_j)
     got, ginfo = tcommon.finish_delivery_flat(tnet, tmsgs, tflat, _t(trans_e), tick_t)
     for f in ("have", "fwd", "first_round", "fe_words"):
         _eq(getattr(ref, f), getattr(got, f), f"flat {f}")

@@ -1,9 +1,9 @@
 """Hazard bands of tests/test_torch_delivery.py's ``delivery_banded_plain``
 check (split from it so that each file stays within a loadfile worker's
 share of the suite): the ring lattices with K = 16 (N = 17 under the
-staged window, N = 1000) and K = 24 (N = 250, not a multiple of the
-kernel's block), at W = 1, 2, 3 and 10, against delivery_round_banded in
-interpret mode."""
+staged window, N = 1000), at W = 1, 2, 3 and 10, against
+delivery_round_banded in interpret mode (K = 24 and 40 are
+tests/test_torch_delivery_hazards_wide.py)."""
 
 from __future__ import annotations
 

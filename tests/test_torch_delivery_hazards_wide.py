@@ -1,7 +1,8 @@
-"""The K = 40 hazard band (a ring with N = 200) of
-tests/test_torch_delivery.py's ``delivery_banded_plain`` check, at W = 1,
-2, 3 and 10, against delivery_round_banded in interpret mode (split from it
-so that each file stays within a loadfile worker's share of the suite)."""
+"""The K = 24 and K = 40 hazard bands (rings with N = 250, not a multiple
+of the kernel's block, and N = 200) of tests/test_torch_delivery.py's
+``delivery_banded_plain`` check, at W = 1, 2, 3 and 10, against
+delivery_round_banded in interpret mode (split from it so that each file
+stays within a loadfile worker's share of the suite)."""
 
 from __future__ import annotations
 

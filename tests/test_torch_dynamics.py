@@ -20,6 +20,7 @@ import torch
 from torch_parity import (
     bench_builds,
     diff_leaves,
+    jinit,
     phase_schedule,
     reference_leaves,
     rounds_against_reference,
@@ -161,7 +162,7 @@ def test_dynamic_net_and_state_equal_the_reference(layout):
         assert tnet.csr_identity and jnet.csr_identity
         np.testing.assert_array_equal(tnet.csr_e_valid.numpy(), np.asarray(jnet.csr_e_valid))
         np.testing.assert_array_equal(tnet.csr_eperm.numpy(), np.asarray(jnet.csr_eperm))
-    want = reference_leaves(JState.init(jnet, 64, jcfg, score_params=jsp, seed=1,
+    want = reference_leaves(jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=1,
                                         dynamic_topo=True))
     got = convert.state_leaves(TState.init(tnet, 64, tcfg, score_params=tsp, seed=1,
                                            dynamic_topo=True))
@@ -199,9 +200,10 @@ def test_storm_rounds_equal_reference(layout, gater):
     if gater:
         kw = dict(gater={}, validation_capacity=2, ip_group=(np.arange(N) // 3).astype(np.int32))
     builds = bench_builds(n=N, topologies=topologies(0), edge_layout=layout, dynamic=True, **kw)
+    # the full-capacity CSR case replays the dense case's JAX run (densified)
     st = rounds_against_reference(builds, ROUNDS, up=up, writes=writes,
                                   step_kw=dict(dynamic_peers=True, dynamic_topo=True),
-                                  dynamic_topo=True)
+                                  dynamic_topo=True, share=("storm rounds", gater))
     np.testing.assert_array_equal(st.core.topo.nbr.numpy(), ts.nbr)
     assert int(st.core.topo.epoch.sum()) == int((writes[:, :, 0] != tdyn.PAD_SLOT).sum())
     from go_libp2p_pubsub_tpu_torch.trace.events import EV

@@ -11,7 +11,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import bench_builds, diff_leaves, reference_leaves, rounds_against_reference
+from torch_parity import (
+    bench_builds,
+    diff_leaves,
+    jinit,
+    reference_leaves,
+    rounds_against_reference,
+)
 
 from go_libp2p_pubsub_tpu import driver as jdriver
 from go_libp2p_pubsub_tpu import graph as jgraph
@@ -52,7 +58,7 @@ def test_floodsub_stacked_equals_reference(queue_cap, val_delay):
     po_all[6:] = -1
     outs = []
     for stacked in (True, False):
-        jst = JSim.init(N, 16, seed=2, k=jnet.max_degree, val_delay=val_delay)
+        jst = jinit(JSim.init, N, 16, seed=2, k=jnet.max_degree, val_delay=val_delay)
         tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
         for i in range(10):
             pt = np.full((2,), i % 2, np.int32)
@@ -73,7 +79,7 @@ def test_floodsub_positional_call_in_the_reference_order():
     positionally: ``stacked`` lands in its place, so a positional False is
     the per-plane clears and ``chaos`` stays None, as in the JAX step."""
     jnet, tnet = _sim_nets(seed=4)
-    jst = JSim.init(N, 16, seed=4, k=jnet.max_degree)
+    jst = jinit(JSim.init, N, 16, seed=4, k=jnet.max_degree)
     tst = TSim.init(N, 16, seed=4, k=tnet.max_degree, device="cpu")
     po = np.array([3, 9], np.int32)
     pt = np.zeros((2,), np.int32)
@@ -97,7 +103,7 @@ def test_gossipsub_state_app_score_equals_reference():
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
     app = (np.random.default_rng(3).standard_normal(N) * 4).astype(np.float32)
     dormant = np.zeros(tuple(tnet.nbr.shape), bool)
-    want = reference_leaves(JState.init(jnet, 64, jcfg, jsp, 5, app, dormant))
+    want = reference_leaves(jinit(JState.init, jnet, 64, jcfg, jsp, 5, app, dormant))
     diff_leaves(want, convert.state_leaves(TState.init(tnet, 64, tcfg, tsp, 5, app, dormant)),
                 "positional init")
     diff_leaves(want, convert.state_leaves(TState.init(tnet, 64, tcfg, score_params=tsp,
@@ -123,7 +129,7 @@ def test_form_mesh_verdict_dtype_equals_reference(pv_dtype):
     r = 4
     builds = bench_builds(n=N, d=3, heartbeat_every=r)
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0)
+    jst = jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=0)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     jstep = jmake(jcfg, jnet, r, score_params=jsp)
     tstep = make_gossipsub_phase_step(tcfg, tnet, r, score_params=tsp)

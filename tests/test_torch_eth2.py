@@ -59,7 +59,9 @@ def test_eth2_step_equals_reference_every_round(kind, n_topics, layout):
     builds = eth2_builds(kind, n_topics, edge_layout=layout, fused=layout == "csr")
     assert (builds[4].band_off is not None) == (kind == "lattice" and layout == "dense")
     log = FanoutLog()
-    tst = rounds_against_reference(builds, ROUNDS, fanout_topics=True, observe=log)
+    # the CSR-resident case replays the dense case's JAX run (densified)
+    tst = rounds_against_reference(builds, ROUNDS, fanout_topics=True, observe=log,
+                                   share=("eth2 rounds", kind, n_topics))
     check_fanout_run(builds, log, ROUNDS)
     assert int(tst.fanout_peers.sum()) > 0
     reach = (tst.core.dlv.first_round >= 0).sum(0)

@@ -29,6 +29,8 @@ def test_eth2_phase_equals_reference_every_phase(kind, n_topics, layout, r):
                          fused=layout == "csr")
     log = FanoutLog()
     rounds = 32 if r > 1 else ROUNDS
-    tst = phases_against_reference(builds, r, r, rounds, fanout_topics=True, observe=log)
+    # the CSR-resident case replays the dense case's JAX run (densified)
+    tst = phases_against_reference(builds, r, r, rounds, fanout_topics=True, observe=log,
+                                   share=("eth2 phase", kind, n_topics, r))
     check_fanout_run(builds, log, rounds)
     assert int(tst.fanout_peers.sum()) > 0

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import diff_leaves, reference_leaves
+from torch_parity import diff_leaves, jinit, reference_leaves
 
 from go_libp2p_pubsub_tpu import graph as jgraph
 from go_libp2p_pubsub_tpu import topo as jtopo
@@ -72,7 +72,7 @@ def test_step_equals_reference_every_round(kind, layout, resident, fused):
     tnet = TNet.build(tt, tgraph.subscribe_all(N, 1), edge_layout=layout, fused=fused,
                       device="cpu")
     assert (tnet.band_off is not None) == (kind == "lattice")
-    jst = JSim.init(N, M, seed=0, k=jnet.max_degree,
+    jst = jinit(JSim.init, N, M, seed=0, k=jnet.max_degree,
                     n_edges=jnet.n_edges if resident else None)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     assert tst.dlv.fe_words.dim() == (2 if resident else 3)
@@ -99,7 +99,7 @@ def test_delivery_only_rounds_equal_reference():
     jt, tt = _topologies("lattice")
     jnet = JNet.build(jt, jgraph.subscribe_all(N, 1))
     tnet = TNet.build(tt, tgraph.subscribe_all(N, 1), device="cpu")
-    jst = JSim.init(N, M, seed=0, k=jnet.max_degree)
+    jst = jinit(JSim.init, N, M, seed=0, k=jnet.max_degree)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     po = jnp.asarray(np.array([3, 77, -1, 5], np.int32))
     z = jnp.zeros((4,), jnp.int32)
@@ -115,7 +115,7 @@ def test_flood_edge_mask_is_a_view_equal_to_reference():
     jt, tt = _topologies("random")
     jnet = JNet.build(jt, jgraph.subscribe_all(N, 2))
     tnet = TNet.build(tt, tgraph.subscribe_all(N, 2), device="cpu")
-    jst = JSim.init(N, M, seed=0, k=jnet.max_degree)
+    jst = jinit(JSim.init, N, M, seed=0, k=jnet.max_degree)
     topic = np.random.default_rng(1).integers(-1, 2, size=(M,)).astype(np.int32)
     jmsgs = jst.msgs.replace(topic=jnp.asarray(topic))
     tst = TSim.init(N, M, k=tnet.max_degree, device="cpu")
@@ -204,7 +204,7 @@ def test_pipelined_state_carries_across(val_delay, resident):
     and back, dense and CSR-resident, stages holding receipts."""
     jt, _ = _topologies("powerlaw")
     jnet = JNet.build(jt, jgraph.subscribe_all(N, 1), edge_layout="csr")
-    jst = JSim.init(N, M, seed=0, k=jnet.max_degree, val_delay=val_delay,
+    jst = jinit(JSim.init, N, M, seed=0, k=jnet.max_degree, val_delay=val_delay,
                     n_edges=jnet.n_edges if resident else None)
     z = jnp.zeros((4,), jnp.int32)
     jst = jflood.floodsub_step(jnet, jst, jnp.asarray([3, 9, 40, 77], jnp.int32), z,

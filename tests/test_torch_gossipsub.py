@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import bench_builds, diff_leaves, reference_leaves
+from torch_parity import bench_builds, diff_leaves, jinit, reference_leaves
 
 from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubState as JState
 from go_libp2p_pubsub_tpu.models.gossipsub import make_gossipsub_step as jmake
@@ -66,7 +66,7 @@ def test_step_equals_reference_every_round(d, heartbeat_every, static_hb, count_
     jcfg, jnet, jsp, tcfg, tnet, tsp = bench_builds(
         n=N, d=d, heartbeat_every=heartbeat_every, count_events=count_events)
     # a fresh JAX state per run: the JAX steps donate their buffers
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0)
+    jst = jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=0)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     diff_leaves(reference_leaves(jst), convert.state_leaves(tst), "init")
     jstep = jmake(jcfg, jnet, score_params=jsp, static_heartbeat=static_hb)
@@ -106,7 +106,7 @@ def test_state_matches_schema_manifest():
 
 def test_reference_state_round_trips():
     _jcfg, jnet, jsp, _tcfg, _tnet, _tsp = bench_builds(n=N, d=4)
-    ref = reference_leaves(JState.init(jnet, 64, _jcfg, score_params=jsp, seed=3))
+    ref = reference_leaves(jinit(JState.init, jnet, 64, _jcfg, score_params=jsp, seed=3))
     diff_leaves(ref, convert.state_leaves(convert.state_from_reference(ref, "cpu")))
 
 
@@ -157,18 +157,20 @@ def test_unported_options_raise():
     # (tests/test_torch_churn.py, _dynamics.py), and so are lifted scores in
     # both engines (tests/test_torch_lift.py), and so are the attack plane
     # and telemetry (tests/test_torch_adversary.py, _telemetry.py), whose
-    # invalid configs raise at the build; the router's delay plane is not
+    # invalid configs raise at the build, and so is the router plane
+    # (tests/test_torch_router.py), whose delay plane without a ring raises
+    # as the reference's does
     from go_libp2p_pubsub_tpu_torch.chaos import AdversaryError, AttackScenario
     from go_libp2p_pubsub_tpu_torch.models.gossipsub_phase import make_gossipsub_phase_step
     from go_libp2p_pubsub_tpu_torch.score.params import ScoreParams
     from go_libp2p_pubsub_tpu_torch.telemetry import TelemetryConfig, TelemetryConfigError
 
     for make, kw, err in (
-            (tmake, {"link_delay": np.zeros((N, 8), np.int32)}, NotImplementedError),
+            (tmake, {"link_delay": np.zeros((N, 8), np.int32)}, ValueError),
             (tmake, {"telemetry": TelemetryConfig(rows=0)}, TelemetryConfigError),
             (tmake, {"adversary": AttackScenario(n_peers=N, surround_targets=True)},
              AdversaryError)):
-        with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else None):
+        with pytest.raises(err, match="link_delay" if err is ValueError else None):
             make(tcfg, tnet, score_params=tsp, **kw)
     plane = ScoreParams.from_config(tcfg, tsp, device="cpu")
     st0 = TState.init(tnet, 64, tcfg, score_params=tsp)

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import bench_builds, diff_leaves, reference_leaves
+from torch_parity import bench_builds, diff_leaves, jinit, reference_leaves
 
 from go_libp2p_pubsub_tpu import graph as jgraph
 from go_libp2p_pubsub_tpu import topo as jtopo
@@ -70,7 +70,7 @@ def test_step_equals_reference_every_round(kind, n, layout, fused, heartbeat_eve
         topologies=_topologies(kind, n), edge_layout=layout, fused=fused)
     assert tnet.band_off is None and (tnet.n_edges is None) == (layout == "dense")
     static_hb = heartbeat_every > 1
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0)
+    jst = jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=0)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     if layout == "csr":
         e = tnet.n_edges
@@ -129,7 +129,7 @@ def test_csr_resident_planes_round_trip():
     jcfg, jnet, jsp, tcfg, tnet, tsp = bench_builds(
         n=n, topologies=_topologies("powerlaw", n), edge_layout="csr", fused=True)
     st = convert.state_from_reference(reference_leaves(
-        JState.init(jnet, 64, jcfg, score_params=jsp, seed=2)), device="cpu")
+        jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=2)), device="cpu")
     rng = np.random.default_rng(0)
     e = tnet.n_edges
     st.served_lo = torch.from_numpy(rng.integers(-2**31, 2**31, size=(e, 2)).astype(np.int32))

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
-from torch_parity import diff_leaves, package_modules, reference_leaves
+from torch_parity import diff_leaves, jinit, package_modules, reference_leaves
 
 from go_libp2p_pubsub_tpu_torch import convert
 
@@ -207,7 +207,7 @@ def test_connmgr_matches_reference():
                     cm.trim(net, mesh, max_conns=3).tolist()])
     assert res[0] == res[1]
 
-    jst = JSim.init(n, 32, seed=0, k=jnet.max_degree)
+    jst = jinit(JSim.init, n, 32, seed=0, k=jnet.max_degree)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     jtr, ttr = jcm.TagTracer(jnet), tcm.TagTracer(tnet)
     po = np.full(4, -1, np.int32)
@@ -290,7 +290,7 @@ def test_checkpoint_store_matches_reference(tmp_path):
     from go_libp2p_pubsub_tpu_torch.state import SimState as TSim
 
     n, m = 16, 32
-    jst = JSim.init(n, m, seed=1, k=4)
+    jst = jinit(JSim.init, n, m, seed=1, k=4)
     st = convert.state_from_reference(reference_leaves(jst), device="cpu")
     store = CheckpointStore(str(tmp_path / "port"), RetentionPolicy(keep_last=2, keep_every=3))
     jstore = JStore(str(tmp_path / "jax"), __import__(
@@ -303,7 +303,7 @@ def test_checkpoint_store_matches_reference(tmp_path):
     strip = lambda es: [{k: v for k, v in e.items() if k != "written_at"} for e in es]  # noqa: E731
     assert strip(store.entries()) == strip(jstore.entries())
     assert [e["ordinal"] for e in store.entries()] == [0, 3, 5, 6]
-    restored, entry = JStore(str(tmp_path / "port")).restore_latest(JSim.init(n, m, seed=1, k=4))
+    restored, entry = JStore(str(tmp_path / "port")).restore_latest(jinit(JSim.init, n, m, seed=1, k=4))
     assert entry["ordinal"] == 6
     diff_leaves(convert.state_leaves(st), reference_leaves(restored), "jax reads port")
     truncate_file(str(tmp_path / "port" / store.latest()["file"]))

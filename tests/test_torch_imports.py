@@ -67,3 +67,16 @@ def test_prefix_is_not_mistaken_for_the_jax_package():
     roots = {r for r, _ in _imported_roots(PORT / "convert.py")}
     assert "go_libp2p_pubsub_tpu" not in roots
     assert "go_libp2p_pubsub_tpu_torch".split(".")[0] not in FORBIDDEN
+
+
+def test_router_and_workload_modules_are_the_ports_own():
+    """The router plane and the workloads are copies of their own: each
+    module is among those the two checks above import and read, and its
+    file lives in the port."""
+    mods = _modules()
+    for name in ("routers", "routers.config", "routers.idontwant", "routers.latency",
+                 "routers.choke", "topo.workloads", "topo.generators"):
+        assert f"go_libp2p_pubsub_tpu_torch.{name}" in mods, name
+        rel = name.replace(".", "/")
+        path = PORT / (rel + ".py") if (PORT / (rel + ".py")).exists() else PORT / rel / "__init__.py"
+        assert not [r for r, _ in _imported_roots(path) if r in FORBIDDEN], name

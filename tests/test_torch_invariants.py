@@ -28,6 +28,7 @@ from torch_parity import (
     corrupt_degree,
     corrupt_graylist,
     corrupt_word_padding,
+    jinit,
     oracle_net,
     oracle_state,
     reference_leaves,
@@ -124,7 +125,7 @@ def lived_in(engine: str) -> Cell:
         window, rounds = 24, PHASE_ROUNDS
         quiet = jinv.due_vector(quiet=(0, rounds))
         po, pt, pv = schedule(rounds, pub_at=(8, 11))
-        st = JState.init(jnet, M, jcfg, score_params=sp, seed=0)
+        st = jinit(JState.init, jnet, M, jcfg, score_params=sp, seed=0)
         step = jmake_phase(jcfg, jnet, PHASE_R, score_params=sp)
         for p in range(rounds // PHASE_R):
             sl = slice(p * PHASE_R, (p + 1) * PHASE_R)
@@ -133,10 +134,10 @@ def lived_in(engine: str) -> Cell:
         return Cell(engine, jnet, jcfg, st, tnet, tcfg, window, quiet)
     po, pt, pv = schedule()
     if engine == "gossipsub":
-        st = JState.init(jnet, M, jcfg, score_params=sp, seed=0)
+        st = jinit(JState.init, jnet, M, jcfg, score_params=sp, seed=0)
         step = jmake_step(jcfg, jnet, score_params=sp)
     else:
-        st = JSim.init(N, M, seed=0, k=jnet.max_degree)
+        st = jinit(JSim.init, N, M, seed=0, k=jnet.max_degree)
         step = (jmake_random(jnet) if engine == "randomsub"
                 else (lambda s, a, b, c: jflood(jnet, s, a, b, c)))
         jcfg = tcfg = None
@@ -247,9 +248,9 @@ def test_word_padding_violation_equals_reference(engine):
     jnet, tnet = nets()
     jcfg, tcfg = configs()
     if engine in ("gossipsub", "phase"):
-        jst = JState.init(jnet, 48, jcfg, score_params=jbsp("default", 1)[1], seed=0)
+        jst = jinit(JState.init, jnet, 48, jcfg, score_params=jbsp("default", 1)[1], seed=0)
     else:
-        jst = JSim.init(N, 48, seed=0, k=jnet.max_degree)
+        jst = jinit(JSim.init, N, 48, seed=0, k=jnet.max_degree)
         jcfg = tcfg = None
     c = Cell(engine, jnet, jcfg, jst, tnet, tcfg, 12, jinv.due_vector())
     grace = jinv.due_vector(grace=True)

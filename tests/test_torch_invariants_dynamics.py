@@ -29,6 +29,7 @@ from torch_parity import (
     bench_builds,
     corrupt_negative_epoch,
     corrupt_perm_self_point,
+    jinit,
     reference_leaves,
 )
 
@@ -68,7 +69,7 @@ def lived():
                       dynamic=True, device="cpu")
     jcfg, tcfg = configs()
     sp = jbsp("default", 1)[1]
-    st = JState.init(jnet, M, jcfg, score_params=sp, seed=0, dynamic_topo=True)
+    st = jinit(JState.init, jnet, M, jcfg, score_params=sp, seed=0, dynamic_topo=True)
     step = jmake_step(jcfg, jnet, score_params=sp, dynamic_peers=True, dynamic_topo=True)
     rng = np.random.default_rng(0)
     up, writes = jnp.ones((N,), bool), jnp.asarray(_pad_writes())
@@ -230,7 +231,7 @@ def test_storm_hook_reports_equal_reference():
     builds = bench_builds(n=jt.n_peers, topologies=(jt, tt), dynamic=True,
                           params=dict(PARAMS, D=3), heartbeat_every=1)
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
-    jst = JState.init(jnet, M, jcfg, score_params=jsp, seed=0, dynamic_topo=True)
+    jst = jinit(JState.init, jnet, M, jcfg, score_params=jsp, seed=0, dynamic_topo=True)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     jstep = jmake_step(jcfg, jnet, score_params=jsp, dynamic_peers=True, dynamic_topo=True)
     tstep = tmake_step(tcfg, tnet, score_params=tsp, dynamic_peers=True, dynamic_topo=True)

@@ -21,6 +21,7 @@ import pytest
 import torch
 from torch_parity import (
     bench_builds,
+    jinit,
     phases_against_reference,
     reference_leaves,
     rounds_against_reference,
@@ -70,7 +71,7 @@ def test_narrow_state_converts_both_ways(layout):
     and back."""
     jcfg, jnet, jsp, _tcfg, _tnet, _tsp = bench_builds(
         n=N, d=4, edge_layout=layout, fused=layout == "csr", options=NARROW)
-    want = reference_leaves(JState.init(jnet, 64, jcfg, score_params=jsp, seed=1))
+    want = reference_leaves(jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=1))
     st = convert.state_from_reference(want, device="cpu")
     assert st.peerhave.dtype == st.iasked.dtype == torch.int16
     got = convert.state_leaves(st)

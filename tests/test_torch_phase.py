@@ -190,11 +190,14 @@ def test_refused_options_raise():
         assert int(st.core.tick) == 1
         assert (st.dup_trans is not None) == (field == "trace_exact")
         assert (st.iasked.dtype == torch.int16) == (field == "narrow_counters")
-    # the JAX config's field that no ported step runs is not a field of the
-    # port's config: setting it is an error before any step is built; the
-    # chaos plane is ported (tests/test_torch_chaos_engines.py)
-    with pytest.raises(TypeError):
-        dataclasses.replace(tcfg, router=1)
+    # the router plane is ported to the per-round step alone, as in the JAX
+    # package (tests/test_torch_router.py): the phase engine refuses a router
+    # build with the reference's ValueError; the chaos plane is ported
+    # (tests/test_torch_chaos_engines.py)
+    from go_libp2p_pubsub_tpu_torch.routers import RouterConfig
+
+    with pytest.raises(ValueError, match="phase engine predates the router plane"):
+        build(dataclasses.replace(tcfg, router=RouterConfig(idontwant=True)))
     from go_libp2p_pubsub_tpu_torch.chaos import ChaosConfig
 
     cfg = dataclasses.replace(tcfg, chaos=ChaosConfig(loss_rate=0.2))

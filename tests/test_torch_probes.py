@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_invariants import Cell, _stacked, cell, configs, jax_state, nets, port_state
-from torch_parity import corrupt_negative_epoch, corrupt_perm_self_point
+from torch_parity import corrupt_negative_epoch, corrupt_perm_self_point, jinit
 
 from go_libp2p_pubsub_tpu.oracle import probes as jprobes
 from go_libp2p_pubsub_tpu_torch.oracle import probes as tprobes
@@ -58,7 +58,7 @@ def fresh_gossip() -> Cell:
 
     jnet, tnet = nets()
     jcfg, tcfg = configs()
-    jst = JState.init(jnet, 64, jcfg, score_params=bench_score_params("default", 1)[1], seed=0)
+    jst = jinit(JState.init, jnet, 64, jcfg, score_params=bench_score_params("default", 1)[1], seed=0)
     return Cell("gossipsub", jnet, jcfg, jst, tnet, tcfg, 12, None)
 
 

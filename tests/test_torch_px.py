@@ -27,6 +27,7 @@ import torch
 from torch_parity import (
     bench_builds,
     diff_leaves,
+    jinit,
     phase_schedule,
     phases_against_reference,
     rounds_against_reference,
@@ -104,7 +105,9 @@ def test_px_rounds_equal_reference(kind, layout, gater):
                   ip_group=(np.arange(N) // 3).astype(np.int32))
     builds, dormant = px_builds(kind, layout, **kw)
     log = PxLog(builds[4])
-    rounds_against_reference(builds, 20, observe=log, dormant=dormant)
+    # the CSR-resident case replays the dense case's JAX run (densified)
+    rounds_against_reference(builds, 20, observe=log, dormant=dormant,
+                             share=("px rounds", kind, gater))
     log.check(dormant)
 
 
@@ -118,7 +121,7 @@ def test_px_phases_equal_reference(kind, layout, r):
     builds, dormant = px_builds(kind, layout, heartbeat_every=r)
     log = PxLog(builds[4])
     phases_against_reference(builds, r, r, 24 if r == 8 else 20, observe=log,
-                             dormant=dormant)
+                             dormant=dormant, share=("px phases", kind, r))
     log.check(dormant)
 
 
@@ -218,7 +221,7 @@ def test_state_init_equals_reference():
         builds, dormant = px_builds("random", layout, options=dict(
             trace_exact=True, narrow_counters=True))
         jcfg, jnet, jsp, tcfg, tnet, tsp = builds
-        want = reference_leaves(JState.init(jnet, 64, jcfg, score_params=jsp, seed=3,
+        want = reference_leaves(jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=3,
                                             dormant=dormant))
         got = convert.state_leaves(TState.init(tnet, 64, tcfg, score_params=tsp, seed=3,
                                                dormant=dormant))

@@ -19,7 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import diff_leaves, reference_leaves
+from torch_parity import diff_leaves, jinit, reference_leaves
 
 from go_libp2p_pubsub_tpu import graph as jgraph
 from go_libp2p_pubsub_tpu import topo as jtopo
@@ -77,7 +77,7 @@ def run_against_reference(jnet, tnet, jstep, tstep, resident: bool = False,
     """Two SimState steps (the JAX package's and the port's: FloodSub or
     RandomSub) from the same fresh state over ``schedule``; every leaf
     equal after every round. Returns the port's final leaves."""
-    jst = JSim.init(tnet.n_peers, M, seed=0, k=jnet.max_degree, val_delay=val_delay,
+    jst = jinit(JSim.init, tnet.n_peers, M, seed=0, k=jnet.max_degree, val_delay=val_delay,
                     n_edges=jnet.n_edges if resident else None)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     po, pt, pv = schedule(tnet.n_peers, rounds)

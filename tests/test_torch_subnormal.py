@@ -31,6 +31,7 @@ from torch_parity import (
     SUBNORMAL_CELLS,
     bench_builds,
     diff_leaves,
+    jinit,
     reference_leaves,
     subnormal_overrides,
 )
@@ -67,7 +68,7 @@ def test_step_flushes_subnormals_as_the_reference(cell, net):
     jcfg, jnet, jsp, tcfg, tnet, tsp = bench_builds(n=N, d=4, topologies=topologies,
                                                     **subnormal_overrides(cell, N))
     assert (tnet.band_off is not None) == (net == "lattice")
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0)
+    jst = jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=0)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     jstep = jmake(jcfg, jnet, score_params=jsp)
     tstep = tmake(tcfg, tnet, score_params=tsp)

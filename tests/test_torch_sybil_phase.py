@@ -27,6 +27,7 @@ def test_sybil_phase_equals_reference_every_phase(kind, layout, cap, group, r):
                           fused=layout == "csr")
     rounds = 32 if r > 1 else 24
     log = GaterLog()
+    # the CSR-resident case replays the dense case's JAX run (densified)
     phases_against_reference(builds, r, r, rounds, schedule=verdict_schedule(rounds),
-                             observe=log)
+                             observe=log, share=("sybil phase", kind, cap, group, r))
     log.check()

@@ -32,6 +32,7 @@ from test_torch_randomsub import nets, schedule
 from torch_parity import (
     bench_builds,
     diff_leaves,
+    jinit,
     phases_against_reference,
     reference_leaves,
     rounds_against_reference,
@@ -154,7 +155,7 @@ def test_panel_float_forms_on_random_planes(kind):
     sc[rng.random((n, k)) < 0.1] = 0.0
     sc[rng.random((n, k)) < 0.05] = -0.0
     jcfg, tcfg = pair(4, (0, 5, 150))
-    jst = JSim.init(n, m, k=k, telemetry=jcfg)
+    jst = jinit(JSim.init, n, m, k=k, telemetry=jcfg)
     jmsgs = jst.msgs.replace(**{f: jnp.asarray(planes[f]) for f in ("birth", "origin", "topic")})
     jdlv = jst.dlv.replace(first_round=jnp.asarray(planes["fr"]), have=jnp.asarray(planes["have"]))
     tmsgs = MsgTable.empty(m, "cpu")
@@ -234,7 +235,7 @@ def _sim_run(router, layout, rows, rounds, chaos=None):
     jnet, tnet = nets("lattice" if layout == "dense" else "powerlaw", layout, n=N)
     jt, tt = pair(rows)
     jc, tc = (JChaos(**chaos), TChaos(**chaos)) if chaos else (None, None)
-    jst = JSim.init(N, M, seed=2, k=jnet.max_degree, n_edges=jnet.n_edges, telemetry=jt)
+    jst = jinit(JSim.init, N, M, seed=2, k=jnet.max_degree, n_edges=jnet.n_edges, telemetry=jt)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     if router == "floodsub":
         jstep = lambda s, *a: jflood.floodsub_step(jnet, s, *a, chaos=jc, telemetry=jt)
@@ -356,7 +357,7 @@ def test_checkpoint_roundtrip_telemetry_carry(tmp_path):
     diff_leaves(convert.state_leaves(st), convert.state_leaves(resumed), "resume")
     assert ttel.reconcile(resumed.core.telem.panel, resumed.core.events) == []
     # both packages read each other's files
-    jtemplate = JState.init(jnet, M, jcfg, score_params=jsp, seed=9, telemetry=jt)
+    jtemplate = jinit(JState.init, jnet, M, jcfg, score_params=jsp, seed=9, telemetry=jt)
     jst = jcheckpoint.restore(path, jtemplate)
     diff_leaves(reference_leaves(jst), convert.state_leaves(checkpoint.restore(path, template())),
                 "JAX restore of the port's file")

@@ -11,10 +11,11 @@ appear) must be equal byte for byte, and the device counters and the
 sessions' accounting caveats equal. Cells: the per-round GossipSub step
 on the lattice, a random dense net and CSR-resident (``snapshot(st,
 net)`` densifies the flat first-arrival plane); the phase engine at r =
-8; FloodSub and RandomSub on the lattice and CSR-resident; exact mode on
-a ``trace_exact`` build; churn (ADD_PEER / REMOVE_PEER); PX (GRAFT /
-PRUNE from mesh diffs with dormant edges). A fresh JAX state is built
-for every run: the JAX steps donate their buffers.
+8; exact mode on a ``trace_exact`` build. Churn, PX, FloodSub and
+RandomSub are tests/test_torch_trace_engines.py, which uses this file's
+runners (split so that each file stays within a loadfile worker's share of
+the suite). A fresh JAX state is built for every run: the JAX steps donate
+their buffers.
 
 The sink, framing, fragmentation and schema tests of the JAX package's
 ``tests/test_trace.py`` and ``tests/test_pb.py`` run here on the port's
@@ -30,28 +31,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_churn import DYN, up_schedule
-from test_torch_px import px_builds
-from test_torch_randomsub import nets as rs_nets
-from torch_parity import bench_builds, phase_schedule, reference_leaves
+from torch_parity import bench_builds, jinit, phase_schedule, reference_leaves
 
 from go_libp2p_pubsub_tpu import graph as jgraph
-from go_libp2p_pubsub_tpu.models import floodsub as jflood
-from go_libp2p_pubsub_tpu.models import randomsub as jrs
 from go_libp2p_pubsub_tpu.models.gossipsub import GossipSubState as JState
 from go_libp2p_pubsub_tpu.models.gossipsub import make_gossipsub_step as jmake
 from go_libp2p_pubsub_tpu.models.gossipsub_phase import make_gossipsub_phase_step as jmake_phase
 from go_libp2p_pubsub_tpu.pb import compat_pb2 as jcompat_pb2
 from go_libp2p_pubsub_tpu.pb import rpc_pb2 as jrpc_pb2
 from go_libp2p_pubsub_tpu.pb import trace_pb2 as jtrace_pb2
-from go_libp2p_pubsub_tpu.state import SimState as JSim
 from go_libp2p_pubsub_tpu.trace import drain as jdrain
 from go_libp2p_pubsub_tpu.trace import sinks as jsinks
 from go_libp2p_pubsub_tpu_torch import convert, trace
 from go_libp2p_pubsub_tpu_torch import graph as tgraph
 from go_libp2p_pubsub_tpu_torch.driver import heartbeat_schedule
-from go_libp2p_pubsub_tpu_torch.models import floodsub as tflood
-from go_libp2p_pubsub_tpu_torch.models import randomsub as trs
 from go_libp2p_pubsub_tpu_torch.models.gossipsub import make_gossipsub_step as tmake
 from go_libp2p_pubsub_tpu_torch.models.gossipsub_phase import make_gossipsub_phase_step
 from go_libp2p_pubsub_tpu_torch.pb import compat_pb2, rpc_pb2, trace_pb2
@@ -438,7 +431,7 @@ def _gossip_run(builds, rounds, r=1, up=None, dormant=None, step_kw=None):
     packages from one fresh state: the per-round step, or the phase
     engine at r with heartbeats as ``heartbeat_schedule`` flags them."""
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant)
+    jst = jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     kw = step_kw or {}
     po, pt, pv = phase_schedule(tnet.n_peers, rounds)
@@ -511,58 +504,6 @@ def test_exact_traces_equal_reference(tmp_path):
     assert kinds.count("DUPLICATE_MESSAGE") == sess.counter_events(snap)["DUPLICATE_MESSAGE"] > 0
     assert any(e.type == TYPE.SEND_RPC and not e.sendRPC.meta.messages
                and e.sendRPC.meta.control.ihave for e in evs)
-
-
-def test_churn_traces_equal_reference(tmp_path):
-    """Dynamic peers (the churn tests' schedule): REMOVE_PEER and ADD_PEER
-    records one for each transition the device counted."""
-    from test_torch_churn import topologies
-
-    n = 64
-    up = up_schedule(18, n)
-    builds = bench_builds(n=n, topologies=topologies("lattice"))
-    snap, sess, (evs, _) = _both(tmp_path, *_gossip_run(builds, 18, up=up, step_kw=DYN))
-    kinds = [TYPE.Type.Name(e.type) for e in evs]
-    count = sess.counter_events(snap)
-    assert kinds.count("REMOVE_PEER") == count["REMOVE_PEER"] > 0
-    assert kinds.count("ADD_PEER") == count["ADD_PEER"] + n
-
-
-def test_px_traces_equal_reference(tmp_path):
-    """PX with dormant edges on the lattice: GRAFT and PRUNE records from
-    the mesh diffs, over-subscription prunes every heartbeat."""
-    builds, dormant = px_builds("lattice")
-    snap, _, (evs, _) = _both(tmp_path, *_gossip_run(builds, 16, dormant=dormant))
-    kinds = [TYPE.Type.Name(e.type) for e in evs]
-    assert kinds.count("PRUNE") > 0 and kinds.count("GRAFT") > kinds.count("PRUNE")
-
-
-@pytest.mark.parametrize("router,layout", [("floodsub", "lattice"), ("floodsub", "csr"),
-                                           ("randomsub", "lattice"), ("randomsub", "csr")])
-def test_sim_state_traces_equal_reference(tmp_path, router, layout):
-    """FloodSub and RandomSub (a bare ``SimState``: no mesh, no liveness)
-    on the banded lattice and a power-law graph CSR-resident."""
-    kind, lay = ("lattice", "dense") if layout == "lattice" else ("powerlaw", "csr")
-    n = 128
-    jnet, tnet = rs_nets(kind, lay, n=n)
-    resident = layout == "csr"
-    jst = JSim.init(n, 64, seed=0, k=jnet.max_degree,
-                    n_edges=jnet.n_edges if resident else None)
-    tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
-    po, pt, pv = phase_schedule(n, ROUNDS)
-    if router == "floodsub":
-        jstep = lambda s, *a: jflood.floodsub_step(jnet, s, *a)
-        tstep = lambda s, *a: tflood.floodsub_step(tnet, s, *a)
-    else:
-        jstep, tstep = jrs.make_randomsub_step(jnet), trs.make_randomsub_step(tnet)
-    jcall = lambda s, i: jstep(s, jnp.asarray(po[i]), jnp.asarray(pt[i]), jnp.asarray(pv[i]))
-    tcall = lambda s, i: tstep(s, torch.from_numpy(po[i]), torch.from_numpy(pt[i]),
-                               torch.from_numpy(pv[i]))
-    snap, sess, (evs, q1) = _both(tmp_path, (jnet, tnet), (jst, tst), (jcall, tcall),
-                                  lambda i: (po[i], pt[i], pv[i]), ROUNDS, resident=resident)
-    kinds = [TYPE.Type.Name(e.type) for e in evs]
-    assert kinds.count("DELIVER_MESSAGE") == sess.counter_events(snap)["DELIVER_MESSAGE"] > 0
-    assert "GRAFT" not in kinds and "DROP_RPC" in _types(q1)
 
 
 def test_snapshot_reads_the_port_state(tmp_path):

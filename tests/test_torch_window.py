@@ -26,6 +26,7 @@ from test_torch_sybil import GaterLog, sybil_builds, verdict_schedule
 from torch_parity import (
     bench_builds,
     diff_leaves,
+    jinit,
     phase_schedule,
     reference_leaves,
     step_options,
@@ -62,7 +63,7 @@ def _flood_cell(kind):
         layout = "csr"
     jnet = JNet.build(jt, jgraph.subscribe_all(N, 1), edge_layout=layout)
     tnet = TNet.build(tt, tgraph.subscribe_all(N, 1), edge_layout=layout, device="cpu")
-    jst = JSim.init(N, M, seed=0, k=jnet.max_degree,
+    jst = jinit(JSim.init, N, M, seed=0, k=jnet.max_degree,
                     n_edges=jnet.n_edges if layout == "csr" else None)
     return jnet, tnet, jst
 
@@ -126,7 +127,7 @@ def _scan_pair(builds, r, he, rounds, static_heartbeat=None, port_builds=(), pha
         return make_step(cfg, net, score_params=sp, static_heartbeat=bool(static_heartbeat),
                          **opts)
 
-    jst = JState.init(jnet, M, jcfg, score_params=jsp, seed=0)
+    jst = jinit(JState.init, jnet, M, jcfg, score_params=jsp, seed=0)
     leaves0 = reference_leaves(jst)
     po, pt, pv = schedule or phase_schedule(tnet.n_peers, rounds)
     kw = dict(heartbeat_every=he, rounds_per_phase=r,

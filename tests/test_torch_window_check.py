@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_invariants import _stacked, jax_state
-from torch_parity import bench_builds, diff_leaves, phase_schedule, reference_leaves
+from torch_parity import bench_builds, diff_leaves, jinit, phase_schedule, reference_leaves
 
 from go_libp2p_pubsub_tpu import driver as jdriver
 from go_libp2p_pubsub_tpu import graph as jgraph
@@ -53,7 +53,7 @@ def _flood():
     return dict(engine="floodsub", jnet=jnet, tnet=tnet, jcfg=None, tcfg=None,
                 jstep=lambda s, a, b, c: jflood.floodsub_step(jnet, s, a, b, c),
                 tstep=lambda s, a, b, c: tflood.floodsub_step(tnet, s, a, b, c),
-                init=lambda: JSim.init(N, M, seed=0, k=jnet.max_degree), heartbeat=None, r=1)
+                init=lambda: jinit(JSim.init, N, M, seed=0, k=jnet.max_degree), heartbeat=None, r=1)
 
 
 def _gossip(he: int = 2, r: int = 1):
@@ -66,7 +66,7 @@ def _gossip(he: int = 2, r: int = 1):
         tstep = tmake_step(tcfg, tnet, score_params=tsp, static_heartbeat=True)
     return dict(engine="phase" if r > 1 else "gossipsub", jnet=jnet, tnet=tnet, jcfg=jcfg,
                 tcfg=tcfg, jstep=jstep, tstep=tstep,
-                init=lambda: JState.init(jnet, M, jcfg, score_params=jsp, seed=0),
+                init=lambda: jinit(JState.init, jnet, M, jcfg, score_params=jsp, seed=0),
                 heartbeat=driver.heartbeat_schedule(he, r), r=r)
 
 
@@ -193,7 +193,7 @@ def test_window_checks_a_batch_of_sims():
     cell = _flood()
     s_dim, dispatches, ce = 2, 16, 4
     k = cell["tnet"].max_degree
-    starts = [convert.state_from_reference(reference_leaves(JSim.init(N, M, seed=s, k=k)),
+    starts = [convert.state_from_reference(reference_leaves(jinit(JSim.init, N, M, seed=s, k=k)),
                                            device="cpu")
               for s in range(s_dim)]
     xs = _xs(cell, dispatches)

@@ -26,6 +26,7 @@ import torch
 from torch_parity import (
     bench_builds,
     diff_leaves,
+    jinit,
     phase_schedule,
     phases_against_reference,
     reference_leaves,
@@ -115,7 +116,7 @@ def test_sim_engines_block_transmits(engine, layout):
         tstep = functools.partial(tflood.floodsub_step, tnet)
     else:
         jstep, tstep = jrs.make_randomsub_step(jnet), trs.make_randomsub_step(tnet)
-    jst = JSim.init(N, M, seed=0, k=jnet.max_degree, wire_block=True,
+    jst = jinit(JSim.init, N, M, seed=0, k=jnet.max_degree, wire_block=True,
                     n_edges=jnet.n_edges)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     assert tst.msgs.wire_block is not None
@@ -132,20 +133,20 @@ def test_checkpoint_leaf_order_with_the_block_plane(tmp_path):
     """The plane sits after the cursor in the message table, as in the JAX
     tree, in both state kinds; a file of either package loads in the other."""
     b = bench_builds(n=N, d=4)
-    jst = JState.init(b[1], M, b[0], score_params=b[2], seed=0, wire_block=True)
+    jst = jinit(JState.init, b[1], M, b[0], score_params=b[2], seed=0, wire_block=True)
     ref = reference_leaves(jst)
     tst = TState.init(b[4], M, b[3], score_params=b[5], seed=0, wire_block=True)
     specs = convert.leaf_specs(tst)
     assert specs == {p: (a.shape, a.dtype) for p, a in ref.items()}
     paths = list(specs)
     assert paths[paths.index(".core.msgs.cursor") + 1] == ".core.msgs.wire_block"
-    jsim = JSim.init(N, M, seed=0, k=8, wire_block=True)
+    jsim = jinit(JSim.init, N, M, seed=0, k=8, wire_block=True)
     tsim = convert.state_from_reference(reference_leaves(jsim), device="cpu")
     assert list(convert.leaf_specs(tsim)) == list(reference_leaves(jsim))
     # a blocked publish in the table, then both ways through a file
     tsim.msgs.wire_block[3] = True
     tck.save(str(tmp_path / "port.npz"), tsim)
-    back = jck.restore(str(tmp_path / "port.npz"), JSim.init(N, M, seed=0, k=8,
+    back = jck.restore(str(tmp_path / "port.npz"), jinit(JSim.init, N, M, seed=0, k=8,
                                                             wire_block=True))
     diff_leaves(convert.state_leaves(tsim), reference_leaves(back), "port -> jax")
     jck.save(str(tmp_path / "jax.npz"), back)

@@ -15,7 +15,6 @@ chip_smoke.py use the hazard builders on machines without the JAX stack.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import sys
 
 import numpy as np
@@ -24,10 +23,13 @@ if "pytest" in sys.modules:
     # one torch thread a test process: the parity tensors are small, and
     # six xdist workers each running torch's default pool (a thread a core)
     # on the same cores spend more time waiting than computing; scripts
-    # that import this module (chip_smoke.py) keep torch's default
+    # that import this module (chip_smoke.py) keep torch's default. No test
+    # takes a gradient, so autograd's bookkeeping is off too (a step's ops
+    # dispatch about 15% faster on the CPU)
     import torch
 
     torch.set_num_threads(1)
+    torch.set_grad_enabled(False)
 
 #: the widths the select_topk hazard tests cover: the one-lane, sub-warp,
 #: warp and multi-slot layouts and both sides of each boundary
@@ -372,6 +374,57 @@ def diff_leaves(ref: dict, got: dict, where: str = "") -> None:
                 f"{bad[:3].tolist()}: {a[tuple(bad[0])]} vs {b[tuple(bad[0])]}")
 
 
+#: JAX runs shared between the cases of a test file: the reference's leaves
+#: after every dispatch, densified, by the key its cases pass as ``share``
+_TRAILS: dict = {}
+
+
+def dense_reference_leaves(jnet, jst) -> dict:
+    """``reference_leaves`` of a JAX GossipSub state in its dense form (a
+    CSR-resident state's flat planes unpacked)."""
+    if jnet.edge_layout == "csr":
+        from go_libp2p_pubsub_tpu.state import densify_edge_planes as jdensify
+
+        jst = jdensify(jnet, jst)
+    return reference_leaves(jst)
+
+
+def dense_port_leaves(tnet, tst) -> dict:
+    """``convert.state_leaves`` of a port GossipSub state in its dense form.
+    The unpacking is injective (each flat entry lands on its own slot), so
+    equal dense forms mean equal flat planes."""
+    from go_libp2p_pubsub_tpu_torch import convert
+    from go_libp2p_pubsub_tpu_torch.state import densify_edge_planes
+
+    if tnet.edge_layout == "csr":
+        tst = densify_edge_planes(tnet, tst)
+    return convert.state_leaves(tst)
+
+
+def jinit(init, *args, **kw):
+    """``init(*args, **kw)`` (a JAX package's state init:
+    ``GossipSubState.init``, ``SimState.init``) jitted: one compile of the
+    whole init instead of an eager compile per op for every new shape. The
+    same leaves: an init fills, copies and keys, and its one float op (the
+    colocation square) has nothing to fuse with."""
+    import jax
+
+    return jax.jit(lambda: init(*args, **kw))()
+
+
+def reference_trail(share, run) -> list:
+    """``run()`` (a JAX run's list of leaves after every dispatch), once a
+    key: the cases of a test file that pass one ``share`` key run the same
+    JAX config, net and schedule up to the layout (a CSR build's run
+    densified equals the dense build's, the JAX package's own CSR parity),
+    so the first case's run serves them all. ``share=None`` runs it."""
+    if share is None:
+        return run()
+    if share not in _TRAILS:
+        _TRAILS[share] = run()
+    return _TRAILS[share]
+
+
 def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None,
                    n_topics: int = 0):
     """The phase parity tests' publish schedule (numpy, seed 0): 4
@@ -403,7 +456,8 @@ def phase_schedule(n: int, rounds: int, codes: bool = False, my_topics=None,
 def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None, observe=None,
                              dormant=None, up=None, blacklist=None, plane=None,
-                             wire_block: bool = False, deny=None, telemetry=None, **kw):
+                             wire_block: bool = False, deny=None, telemetry=None, share=None,
+                             **kw):
     """Run the JAX package's phase step and the port's (on the CPU) over
     ``rounds`` rounds of ``phase_schedule`` in phases of ``r`` from the same
     state, heartbeats as ``heartbeat_schedule(he, r)`` flags them, every
@@ -424,8 +478,10 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
     TelemetryConfig pair: both initial states carry the panel and both
     steps record it. ``kw`` goes to both packages'
     make_gossipsub_phase_step, beside the builds' own step options (an
-    attack plane rides those: ``builds.jkw``/``builds.tkw``). Returns the
-    port's final state."""
+    attack plane rides those: ``builds.jkw``/``builds.tkw``). ``share`` (a
+    key) lets the cases of a file that differ only in the layout share one
+    JAX run (``reference_trail``): the leaves are compared dense. Returns
+    the port's final state."""
     import jax.numpy as jnp
     import torch
 
@@ -436,25 +492,27 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
     from go_libp2p_pubsub_tpu_torch.driver import heartbeat_schedule
     from go_libp2p_pubsub_tpu_torch.models.gossipsub_phase import make_gossipsub_phase_step
 
+    from go_libp2p_pubsub_tpu.models.gossipsub import set_blacklist as jset
+
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import set_blacklist as tset
+
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
     # a fresh JAX state: the JAX step donates its buffers
     jt, tt = telemetry or (None, None)
-    jst = JState.init(jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant,
-                      wire_block=wire_block, telemetry=jt)
+    jst = jinit(JState.init, jnet, 64, jcfg, score_params=jsp, seed=0, dormant=dormant,
+                wire_block=wire_block, telemetry=jt)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     diff_leaves(reference_leaves(jst), convert.state_leaves(tst), "init")
     jkw, tkw = step_options(builds)
     if telemetry is not None:
         jkw, tkw = dict(jkw, telemetry=jt), dict(tkw, telemetry=tt)
-    jstep = jmake(jcfg, jnet, r, score_params=jsp, **jkw, **kw)
     tstep = make_gossipsub_phase_step(tcfg, tnet, r, score_params=tsp, **tkw, **kw)
     my_topics = tnet.my_topics.numpy() if tnet.n_topics > 1 else None
     po, pt, pv = schedule or phase_schedule(
         tnet.n_peers, rounds, codes, my_topics, tnet.n_topics if fanout_topics else 0)
     flags = heartbeat_schedule(he, r)
-    for p in range(rounds // r):
-        sl = slice(p * r, (p + 1) * r)
-        hb = flags[p % len(flags)]
+
+    def rows(p):
         jx, tx = (), ()
         if up is not None:
             jx, tx = (jnp.asarray(up[p * r]),), (torch.from_numpy(up[p * r]),)
@@ -463,13 +521,28 @@ def phases_against_reference(builds, r: int, he: int, rounds: int, codes: bool =
         if plane is not None:
             jp, tp = plane(p) if callable(plane) else plane
             jx, tx = jx + (jp,), tx + (tp,)
+        return jx, tx
+
+    def jax_run(jst=jst):
+        jstep = jmake(jcfg, jnet, r, score_params=jsp, **jkw, **kw)
+        trail = []
+        for p in range(rounds // r):
+            sl = slice(p * r, (p + 1) * r)
+            if blacklist is not None and p in blacklist:
+                jst = jset(jst, blacklist[p])
+            jst = jstep(jst, jnp.asarray(po[sl]), jnp.asarray(pt[sl]), jnp.asarray(pv[sl]),
+                        *rows(p)[0], do_heartbeat=flags[p % len(flags)])
+            trail.append(dense_reference_leaves(jnet, jst))
+        return trail
+
+    trail = reference_trail(share, jax_run)
+    for p in range(rounds // r):
+        sl = slice(p * r, (p + 1) * r)
         if blacklist is not None and p in blacklist:
-            jst, tst = set_both_blacklists(jst, tst, blacklist[p])
-        jst = jstep(jst, jnp.asarray(po[sl]), jnp.asarray(pt[sl]), jnp.asarray(pv[sl]),
-                    *jx, do_heartbeat=hb)
+            tst = tset(tst, blacklist[p])
         tst = tstep(tst, torch.from_numpy(po[sl]), torch.from_numpy(pt[sl]),
-                    torch.from_numpy(pv[sl]), *tx, do_heartbeat=hb)
-        diff_leaves(reference_leaves(jst), convert.state_leaves(tst), f"phase {p}")
+                    torch.from_numpy(pv[sl]), *rows(p)[1], do_heartbeat=flags[p % len(flags)])
+        diff_leaves(trail[p], dense_port_leaves(tnet, tst), f"phase {p}")
         if observe is not None:
             observe(tst)
     return tst
@@ -493,7 +566,8 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
                  config="default", fanout_slots=0, fanout_ttl=None, gater=None,
                  validation_capacity=0, adversary=None, queue_cap=0,
                  validation_delay_rounds=0, validation_delay_topic=None,
-                 params=None, options=None, direct=None, dynamic=False, chaos=None):
+                 params=None, options=None, direct=None, dynamic=False, chaos=None,
+                 router=None):
     """(jax_cfg, jax_net, sp, torch_cfg, torch_net, torch_sp) for the
     bench's params on ring_lattice(n, d), or on ``topologies``, a
     (JAX Topology, port Topology) pair of the same graph, in
@@ -514,7 +588,8 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     (``edge_liveness``, ``trace_exact``, ``narrow_counters``), and
     ``direct`` is the nets' [N, K] direct edges; ``dynamic`` builds both
     nets for the mutable overlay; ``chaos`` (a dict of ChaosConfig fields)
-    turns each package's link-fault plane on. The step options ride the
+    turns each package's link-fault plane on, ``router`` (a dict of
+    RouterConfig fields) its router plane. The step options ride the
     result (``step_options``)."""
     from go_libp2p_pubsub_tpu import config as jconfig
     from go_libp2p_pubsub_tpu import graph as jgraph
@@ -546,6 +621,12 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
         jcore, tcore = dict(core, chaos=JChaos(**chaos)), dict(core, chaos=TChaos(**chaos))
     else:
         jcore = tcore = core
+    if router is not None:
+        from go_libp2p_pubsub_tpu.routers import RouterConfig as JRouter
+
+        from go_libp2p_pubsub_tpu_torch.routers import RouterConfig as TRouter
+
+        jcore, tcore = dict(jcore, router=JRouter(**router)), dict(tcore, router=TRouter(**router))
     if subscriptions is None:
         subscriptions = jgraph.subscribe_all(n, 1)
     n_topics = subscriptions.subscribed.shape[1]
@@ -584,22 +665,14 @@ def bench_builds(n=96, d=4, msg_slots=64, heartbeat_every=1,
     return out
 
 
-def set_both_blacklists(jst, tst, mask):
-    """Both packages' ``set_blacklist`` on their states."""
-    from go_libp2p_pubsub_tpu.models.gossipsub import set_blacklist as jset
-
-    from go_libp2p_pubsub_tpu_torch.models.gossipsub import set_blacklist as tset
-
-    return jset(jst, mask), tset(tst, mask)
-
-
 def rounds_against_reference(builds, rounds: int, codes: bool = False,
                              fanout_topics: bool = False, schedule=None,
                              static_heartbeat: bool = False, observe=None, dormant=None,
                              up=None, writes=None, blacklist=None, step_kw=None,
                              dynamic_topo: bool = False, plane=None,
                              wire_block: bool = False, deny=None, app_score=None,
-                             telemetry=None, seed: int = 0, msg_slots: int = 64):
+                             telemetry=None, seed: int = 0, msg_slots: int = 64,
+                             share=None):
     """The per-round counterpart of ``phases_against_reference``: both
     packages' per-round steps from the same state over ``rounds`` rounds,
     every leaf compared bit for bit after every round. ``up`` ([rounds, N]
@@ -613,8 +686,9 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
     is a scheduled chaos step's deny plane (its row rides between ``up`` and
     ``writes``), ``app_score`` ([N] f32) both initial states' P5 plane,
     ``telemetry`` a (JAX, port) TelemetryConfig pair both states and steps
-    record with, ``seed`` and ``msg_slots`` the initial states'. Returns the
-    port's final state."""
+    record with, ``seed`` and ``msg_slots`` the initial states', ``share``
+    a key of a JAX run the cases of a file share (``reference_trail``;
+    leaves compared dense). Returns the port's final state."""
     import jax.numpy as jnp
     import torch
 
@@ -624,37 +698,51 @@ def rounds_against_reference(builds, rounds: int, codes: bool = False,
     from go_libp2p_pubsub_tpu_torch import convert
     from go_libp2p_pubsub_tpu_torch.models.gossipsub import make_gossipsub_step
 
+    from go_libp2p_pubsub_tpu.models.gossipsub import set_blacklist as jset
+
+    from go_libp2p_pubsub_tpu_torch.models.gossipsub import set_blacklist as tset
+
     jcfg, jnet, jsp, tcfg, tnet, tsp = builds
     jt, tt = telemetry or (None, None)
-    jst = JState.init(jnet, msg_slots, jcfg, score_params=jsp, seed=seed, dormant=dormant,
-                      dynamic_topo=dynamic_topo, wire_block=wire_block, app_score=app_score,
-                      telemetry=jt)
+    jst = jinit(JState.init, jnet, msg_slots, jcfg, score_params=jsp, seed=seed,
+                dormant=dormant, dynamic_topo=dynamic_topo, wire_block=wire_block,
+                app_score=app_score, telemetry=jt)
     tst = convert.state_from_reference(reference_leaves(jst), device="cpu")
     jkw, tkw = step_options(builds)
     if telemetry is not None:
         jkw, tkw = dict(jkw, telemetry=jt), dict(tkw, telemetry=tt)
     step_kw = step_kw or {}
-    jstep = jmake(jcfg, jnet, score_params=jsp, static_heartbeat=static_heartbeat, **jkw,
-                  **step_kw)
     tstep = make_gossipsub_step(tcfg, tnet, score_params=tsp,
                                 static_heartbeat=static_heartbeat, **tkw, **step_kw)
     my_topics = tnet.my_topics.numpy() if tnet.n_topics > 1 else None
     po, pt, pv = schedule or phase_schedule(
         tnet.n_peers, rounds, codes, my_topics, tnet.n_topics if fanout_topics else 0)
     he = tcfg.heartbeat_every
+    hb = lambda t: {"do_heartbeat": t % he == 0} if static_heartbeat and he > 1 else {}
+    extra = lambda t: [a[t] for a in (up, deny, writes) if a is not None]
+    planes = lambda t: ((), ()) if plane is None else tuple(
+        (x,) for x in (plane(t) if callable(plane) else plane))
+
+    def jax_run(jst=jst):
+        jstep = jmake(jcfg, jnet, score_params=jsp, static_heartbeat=static_heartbeat, **jkw,
+                      **step_kw)
+        trail = []
+        for t in range(rounds):
+            if blacklist is not None and t in blacklist:
+                jst = jset(jst, blacklist[t])
+            jst = jstep(jst, jnp.asarray(po[t]), jnp.asarray(pt[t]), jnp.asarray(pv[t]),
+                        *(jnp.asarray(a) for a in extra(t)), *planes(t)[0], **hb(t))
+            trail.append(dense_reference_leaves(jnet, jst))
+        return trail
+
+    trail = reference_trail(share, jax_run)
     for t in range(rounds):
-        hb = ({"do_heartbeat": t % he == 0} if static_heartbeat and he > 1 else {})
-        extra = [a[t] for a in (up, deny, writes) if a is not None]
         if blacklist is not None and t in blacklist:
-            jst, tst = set_both_blacklists(jst, tst, blacklist[t])
-        planes = ((), ()) if plane is None else tuple(
-            (x,) for x in (plane(t) if callable(plane) else plane))
-        jst = jstep(jst, jnp.asarray(po[t]), jnp.asarray(pt[t]), jnp.asarray(pv[t]),
-                    *(jnp.asarray(a) for a in extra), *planes[0], **hb)
+            tst = tset(tst, blacklist[t])
         tst = tstep(tst, torch.from_numpy(po[t]), torch.from_numpy(pt[t]),
-                    torch.from_numpy(pv[t]), *(torch.from_numpy(a) for a in extra),
-                    *planes[1], **hb)
-        diff_leaves(reference_leaves(jst), convert.state_leaves(tst), f"round {t}")
+                    torch.from_numpy(pv[t]), *(torch.from_numpy(a) for a in extra(t)),
+                    *planes(t)[1], **hb(t))
+        diff_leaves(trail[t], dense_port_leaves(tnet, tst), f"round {t}")
         if observe is not None:
             observe(tst)
     return tst
@@ -945,9 +1033,18 @@ def corrupt_reform(c, L):
     return L, {}, {"due": due}
 
 
+def _choked(L):
+    """``L`` with a copy of its choke plane to corrupt: a router state's
+    own, or an all-clear one beside a v1.1 state's leaves (a state with
+    the router's ``choked`` plane and nothing choked)."""
+    if ".choked" in L:
+        return _copy(L, ".choked")
+    return dict(L, **{".choked": np.zeros_like(L[".mesh"])})
+
+
 def corrupt_choke_outside_mesh(c, L):
     # a choked bit on a non-mesh edge
-    L = dict(L, **{".choked": np.zeros_like(L[".mesh"])})
+    L = _choked(L)
     i, s, k = (int(v) for v in np.argwhere(~L[".mesh"])[0])
     L[".choked"][i, s, k] = True
     return L, {}, {}
@@ -957,7 +1054,7 @@ def corrupt_choke_starvation(c, L):
     # every mesh link of one slot choked: choked stays within the mesh
     deg = L[".mesh"].sum(-1)
     i, s = (int(v) for v in np.argwhere(deg >= c.dlo)[0])
-    L = dict(L, **{".choked": np.zeros_like(L[".mesh"])})
+    L = _choked(L)
     L[".choked"][i, s] = L[".mesh"][i, s]
     return L, {}, {}
 
@@ -1021,35 +1118,12 @@ def corrupt_negative_epoch(leaves: dict) -> dict:
     return dict(leaves, **{".core.topo.epoch": ep})
 
 
-@functools.cache
-def _choked_state_class():
-    """The port's GossipSub state with the router's ``choked`` plane, which
-    the port's states gain with routers: the two choke properties read it
-    when present, as the reference's do."""
-    import torch
-
-    from go_libp2p_pubsub_tpu_torch.models.gossipsub import GossipSubState
-
-    @dataclasses.dataclass
-    class ChokedState(GossipSubState):
-        choked: torch.Tensor | None = None
-
-    return ChokedState
-
-
 def oracle_state(leaves: dict, device):
-    """The port state of ``leaves`` (``convert.state_from_reference``); with
-    a ``.choked`` leaf a ``_choked_state_class`` state carrying it."""
-    import torch
-
+    """The port state of ``leaves`` (``convert.state_from_reference``): a
+    ``.choked`` leaf rides the state's router plane, as in the reference."""
     from go_libp2p_pubsub_tpu_torch import convert
 
-    st = convert.state_from_reference(leaves, device=device)
-    if ".choked" not in leaves:
-        return st
-    return _choked_state_class()(
-        **{f.name: getattr(st, f.name) for f in dataclasses.fields(st)},
-        choked=torch.as_tensor(np.array(leaves[".choked"]), device=device))
+    return convert.state_from_reference(leaves, device=device)
 
 
 def oracle_net(net, device=None, **over):
