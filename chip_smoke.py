@@ -59,7 +59,7 @@ last line is printed:
    same shape: equal to its plain version bit for bit; times of the
    kernel, the pairwise and the sort form, beside the bound;
 9. GossipSub CSR card against CPU — phases 6 and 7's builds at N=8192 for
-   32 rounds, every leaf equal after every round;
+   16 rounds, every leaf equal after every round;
 10. FloodSub, banded dense — ring_lattice(100k, d=8): delivery_banded
    against its plain version (captured and random inputs, and the hazard
    bands with K up to 40; medians, bound),
@@ -120,7 +120,7 @@ last line is printed:
    launches a delivery round; every kernel call of one more eager round or
    phase against its plain version bit for bit;
 21. both configs card against CPU at N=8192 in both engines (every leaf
-   after each of 12 rounds; after form_mesh and each of 3 phases), and
+   after each of 8 rounds; after form_mesh and each of 2 phases), and
    each engine's window against its eager loop on the card;
 22. the bench CLI's line of each config (BENCH_CONFIG=eth2, sybil; the
    sybil line at the CLI's default N=50k);
@@ -337,7 +337,7 @@ last line is printed:
    depth 7), scores on, i.i.d. loss 0.05; A is v1.1, B IDONTWANT, D B with
    the latency ring, C D with lazy choking. (a) N=8192: B, D, C and the
    bench lattice under RouterConfig(idontwant, choke) card against CPU on
-   every leaf after 32 rounds, each route from launch counts (neither
+   every leaf after 24 rounds, each route from launch counts (neither
    fused kernel; delivery_banded once a round on the lattice; select_topk
    11 a round with the cells' 2 fanout slots, 8 on the lattice, one more
    with choking); the CSR-resident arms and the lattice through captured
@@ -353,7 +353,29 @@ last line is printed:
    printed: the duplicate cut, C's and D's paired-support p95 latency,
    each cell's rates against A, peak memory, launches a round. (c) the
    bench default config at N=100k windowed with the router on and off in
-   turns: the rate cost and both blocks' routes.
+   turns: the rate cost and both blocks' routes;
+44. the ensemble plane (ensemble/: S sims a dispatch, every kernel with a
+   sim axis, csrc/sims.cuh), before the profiler phase. (a) N=8192, S=3,
+   16 rounds: FloodSub on the lattice and power-law CSR-resident, RandomSub
+   on the lattice, the per-round bench step dense and CSR-resident and the
+   phase engine at r=8 as lifted ensembles (ensemble.lift_step, vmap): the
+   card's batched run equal on every leaf to the card's one-sim runs under
+   with_sim_key, sim for sim, and to the CPU's batched run; an S=3
+   dispatch launching each kernel as often as a one-sim dispatch; a lifted
+   window (one capture) equal to its eager loop. (b) each kernel's S=8
+   batched launch (*_sims) on the earlier phases' main-path calls against
+   its one-sim launch in turns, each sim's outputs equal to the one-sim
+   launch's, the bound S times the one-sim bytes; the bench default config
+   at N=100k, phase engine r=8, 2 + 8 phases as an S=8 windowed ensemble
+   beside the 8 sims one after another through the one-sim window:
+   sim-delivery-rounds/s, peak memory, the same block launches, every
+   sim's final state equal. (c) scripts/choke_smoke.py at its shape (N=256,
+   4 sims, 84 rounds) as S=4 windowed ensembles of its C (the checker
+   folded in every 12 rounds) and D cells with its per-sim gates (coverage
+   >= 0.99, CHOKE > 0, tail_cut > 0), and phase 43's C and D cells at
+   N=100k as S=4 ensembles over 64 rounds, their per-sim paired p95
+   printed. Each kernel record gains ``ensemble``: its S=8 batched time
+   and bound, its launches in (a), its launches in (b)'s block.
 
 It prints the ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
@@ -381,6 +403,7 @@ N_FULL, M_SLOTS = 100_000, 64
 FORMATION_ROUNDS, MEASURED_ROUNDS = 16, 64
 N_PARITY, PARITY_ROUNDS = 8192, 32
 SUBNORMAL_PARITY_ROUNDS = 16  # each subnormal cell of phase 5, after the bench's 32
+CSR_PARITY_ROUNDS = 16        # each build of phase 9 (32 before phase 44)
 N_CSR, FLOOD_ROUNDS = 1_000_000, 80
 POWERLAW_ROUNDS = 32          # timed rounds of phase 7, after the formation
 PHASE_R = 8                   # rounds a phase: bench.py's BENCH_PHASE_R default
@@ -653,6 +676,7 @@ def check_kernels(fr, captured, gen, base):
               + torch.tensor(kw["offsets"], device=wire.device)[None, :]) % n) * k
             + torch.tensor(kw["revs"], device=wire.device)[None, :]).reshape(-1)
     flat = wire.view(n * k, c)
+    keep_call("edge_exchange", args, kw)
     launch = prepared(fr._lib(), "edge_exchange_launch",
                       lambda: fr.edge_exchange(*args, **kw))
     rec = {
@@ -692,6 +716,7 @@ def check_kernels(fr, captured, gen, base):
     res = fr.fused_delivery(*args, **kw)
     io = nbytes(*[t for t in args if hasattr(t, "numel")], *res.values())
     ops = 40 * n * k * w               # word ops per (peer, edge, word)
+    keep_call("fused_delivery", args, kw)
     launch = prepared(fr._lib(), "fused_delivery_launch",
                       lambda: fr.fused_delivery(*args, **kw))
     rec = {
@@ -847,16 +872,24 @@ def check_flood_kernel(module, name, args, kw, gen):
         err = max(err, check_band_hazards(name, args[0].device))
     res = kernel(*args, **kw)
     if name == "csr_delivery":
-        # what the kernel reads: the peer and edge planes, col, eperm, row_ptr
-        reads = [*args[:9], args[10], args[14]]
         e, w = args[1].shape
         ops = 12 * e * w
     else:
-        reads = list(args)
         n, w = args[0].shape
         ops = 12 * n * len(kw["offsets"]) * w
-    io = nbytes(*reads, *res.values())
+    io = nbytes(*kernel_reads(name, args), *res.values())
     return err, io, ops
+
+
+def kernel_reads(name, args) -> list:
+    """The tensor arguments a kernel call reads, for its bound: all of them,
+    but csr_delivery reads the peer and edge planes, col, eperm and row_ptr
+    only (not row, seg_start, row_last or row_nonempty)."""
+    import torch
+
+    if name == "csr_delivery":
+        return [*args[:9], args[10], args[14]]
+    return [a for a in args if isinstance(a, torch.Tensor)]
 
 
 def check_csr_hazards(cd, dev) -> float:
@@ -912,6 +945,7 @@ def flood_run(sweep, convert, module, name, spec, card, gen, dev, base):
     st, captured = capture_round(lambda s: step(s, *sched), st, module, (name,))
     args, kw = captured[name]
     err, io, ops = check_flood_kernel(module, name, args, kw, gen)
+    keep_call(name, args, kw)
     launch = prepared(module._lib(), f"{name}_launch",
                       lambda: getattr(module, name)(*args, **kw))
     rec = {
@@ -1523,9 +1557,9 @@ def overlay_runs(sweep, driver, dev, card, counters) -> dict:
 
 def dynamic_parity(sweep, driver, convert, dev) -> None:
     """Phase 31: card against CPU at N=8192, every leaf after every round or
-    phase: the churn cell in both engines (the per-round step 32 rounds, a
-    fifth down in rounds 8-19; the phase engine form_mesh and 4 phases,
-    down for phases 1-2) and the mutating overlay dense and CSR (its own
+    phase: the churn cell in both engines (the per-round step 24 rounds, a
+    fifth down in rounds 8-15; the phase engine form_mesh and 3 phases,
+    down for phase 1) and the mutating overlay dense and CSR (its own
     power-law net at N=8192, a storm of 8 dispatches); then each window
     (make_scan with the liveness rows; make_window with the rows and the
     write batches) against its eager loop on the card."""
@@ -1533,8 +1567,8 @@ def dynamic_parity(sweep, driver, convert, dev) -> None:
 
     t0 = time.perf_counter()
     n, r = N_PARITY, PHASE_R
-    up = sweep.churn_up(n, rounds=4 * r, down_at=8, up_at=20)
-    po, pt, pv = sweep.publish_schedule(4 * r, n, 1, None, seed=5)
+    up = sweep.churn_up(n, rounds=3 * r, down_at=8, up_at=16)
+    po, pt, pv = sweep.publish_schedule(3 * r, n, 1, None, seed=5)
     for engine, rr in (("per-round", 1), ("phase", r)):
         sides = {}
         for d in ("cuda", "cpu"):
@@ -1544,7 +1578,7 @@ def dynamic_parity(sweep, driver, convert, dev) -> None:
                 st = driver.form_mesh(step, st, rounds_per_phase=rr,
                                       up=torch.ones(n, dtype=bool))
             sides[d] = [st, step]
-        for i in range(4 * r // rr):
+        for i in range(3 * r // rr):
             sl = slice(i * rr, (i + 1) * rr)
             for d, (st, step) in sides.items():
                 sides[d][0] = (sweep.run_phases(st, step, po[sl], pt[sl], pv[sl],
@@ -1554,7 +1588,7 @@ def dynamic_parity(sweep, driver, convert, dev) -> None:
             leaves_equal(convert.state_leaves(sides["cpu"][0]),
                          convert.state_leaves(sides["cuda"][0]),
                          f"churn {engine} card against CPU, dispatch {i}")
-        say(f"churn {engine} card == CPU: every leaf equal after each of {4 * r // rr} "
+        say(f"churn {engine} card == CPU: every leaf equal after each of {3 * r // rr} "
             f"dispatches at N={n} (a fifth of the peers down and back)")
         leaves = []
         for mode in ("eager", "window"):
@@ -1708,7 +1742,7 @@ def gossip_state_checks(st, net, total: int, where: str, degree_range=None,
 def gossip_parity(sweep, convert, name, build, rounds: int = PARITY_ROUNDS):
     """Phases 5 and 9: one GossipSub build from the same seed on the card
     and on the CPU (plain versions) at N=8192, every leaf equal after each
-    of ``rounds`` rounds (32; the subnormal cells 16); ``build(device)``
+    of ``rounds`` rounds (32; the subnormal cells and phase 9 16); ``build(device)``
     returns (state, step)."""
     po, pt, pv = sweep.publish_schedule(rounds, N_PARITY, 1, None, seed=5)
     sides = {d: build(d) for d in ("cuda", "cpu")}
@@ -2136,7 +2170,7 @@ def bench_cli(card: str, config: str = "default", coalesced: bool = True) -> dic
 CONFIG_N = {"eth2": 100_000, "sybil": 50_000}
 CONFIG_FORMATION, CONFIG_MEASURED = 8, 16     # per-round: formation, timed rounds
 CONFIG_PHASES = 4                             # phase engine: timed phases
-CONFIG_PARITY_ROUNDS, CONFIG_PARITY_PHASES = 12, 3
+CONFIG_PARITY_ROUNDS, CONFIG_PARITY_PHASES = 8, 2    # 12, 3 before phase 44
 CONFIG_WINDOW_ROUNDS = 32                     # rounds of each window check (two calls)
 
 
@@ -2388,7 +2422,7 @@ def config_parity(sweep, driver, convert, config: str, dev, label: str | None = 
 
 RANDOMSUB_N, RANDOMSUB_ROUNDS = 1000, 80         # BASELINE.json config #2: 1k peers
 SCALE_FORMATION, SCALE_ROUNDS = 8, 16             # RandomSub at scale: untimed, timed
-SCALE_PARITY_ROUNDS = 16                          # card against CPU at N_PARITY
+SCALE_PARITY_ROUNDS = 8                           # card against CPU at N_PARITY (16 before phase 44)
 #: RandomSub at scale: the lattice with a size estimate whose target is
 #: RandomSubD = 6, and the 1M-peer power-law graph CSR-resident (target 32)
 RANDOMSUB_SCALE = {
@@ -5160,7 +5194,7 @@ ROUTER_LOSS = 0.05
 ROUTER_KNOBS = dict(choke_ema_alpha=0.4, choke_threshold=0.35, unchoke_threshold=0.1,
                     choke_max_per_hb=2)
 ROUTER_MSGS = 12
-ROUTER_PARITY_ROUNDS = 32      # card against CPU at N_PARITY
+ROUTER_PARITY_ROUNDS = 24      # card against CPU at N_PARITY (32 before phase 44)
 ROUTER_ROUNDS = 64             # full width: both latency cells drain to >= 99% (two halves)
 ROUTER_CHECK_EVERY, ROUTER_W = 8, 48
 ROUTER_LATTICE_ROUNDS = 32     # the bench lattice's timed window segment
@@ -5576,6 +5610,414 @@ def router_lattice(sweep, driver, dev, card, counters) -> dict:
     return {"turns": turns, "cost": (off - on) / off}
 
 
+# ---------------------------------------------------------------------------
+# phase 44: the ensemble plane (ensemble/: S sims a dispatch, a sim axis in
+# every kernel)
+
+ENSEMBLE_SIMS = 3              # (a): card parity, sims a build
+ENSEMBLE_ROUNDS = 16           # (a): rounds a build (2 phases of the phase engine)
+ENSEMBLE_FULL_SIMS = 8         # (b): the full-width ensemble
+ENSEMBLE_FULL_PHASES = (2, 8)  # (b): formation phases, timed phases
+CHOKE_N, CHOKE_SIMS, CHOKE_ROUNDS = 256, 4, 84   # scripts/choke_smoke.py:62-77
+CHOKE_CHECK_EVERY = 12         # (c): the checker's cadence in the choked cell's window
+ENSEMBLE_LATENCY_SIMS = 4      # (c): phase 43's latency cells at full width
+#: positions of a kernel call's arguments that every sim of the main path
+#: shares (the CSR topology: col, row, eperm, seg_start, row_last,
+#: row_nonempty, row_ptr); every other tensor is a sim's own
+ENSEMBLE_SHARED = {"csr_delivery": {8, 9, 10, 11, 12, 13, 14}}
+#: one-sim calls of each kernel at the main path's shapes, kept on the host
+#: by the earlier phases for phase 44's batched timings
+ENSEMBLE_CALLS: dict = {}
+
+
+def keep_call(name: str, args, kw=None) -> None:
+    """Keep a host copy of one kernel wrapper call (phase 44 replays it
+    batched)."""
+    import torch
+
+    host = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x   # noqa: E731
+    ENSEMBLE_CALLS[name] = ([host(a) for a in args], {k: host(v) for k, v in (kw or {}).items()})
+
+
+def ensemble_builds(sweep, n: int):
+    """(label, build(device) -> (state, step), rounds a dispatch) of phase
+    44 (a)'s six builds."""
+    return (
+        ("floodsub lattice", lambda d: sweep.build_floodsub(n, M_SLOTS, device=d), 1),
+        ("floodsub powerlaw csr", lambda d: sweep.build_floodsub(
+            n, M_SLOTS, graph="powerlaw", layout="csr", device=d), 1),
+        ("randomsub lattice", lambda d: sweep.build_randomsub(n, M_SLOTS, device=d), 1),
+        ("per-round lattice", lambda d: sweep.build_bench(
+            n, M_SLOTS, count_events=True, device=d)[:2], 1),
+        ("per-round csr", lambda d: sweep.build_bench(
+            n, M_SLOTS, count_events=True, edge_layout="csr", fused=True, device=d)[:2], 1),
+        ("phase r=8", lambda d: sweep.build_bench(
+            n, M_SLOTS, count_events=True, rounds_per_phase=PHASE_R, device=d)[:2], PHASE_R),
+    )
+
+
+def ensemble_rows(po, pt, pv, r: int, device, s=None):
+    """The dispatches' rows of a schedule: ``[P]`` (``[r, P]`` a phase), each
+    tiled to ``[S, ...]`` when ``s`` is given."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import ensemble
+
+    d = po.shape[0] // r
+    out = []
+    for i in range(d):
+        row = [torch.as_tensor(a[i * r:(i + 1) * r] if r > 1 else a[i], device=device)
+               for a in (po, pt, pv)]
+        out.append(tuple(ensemble.tile(x, s) if s else x for x in row))
+    return out
+
+
+def ensemble_drive(st, step, rows, r: int):
+    kw = {"do_heartbeat": True} if r > 1 else {}
+    for row in rows:
+        st = step(st, *row, **kw)
+    return st
+
+
+def ensemble_parity(sweep, driver, convert, dev, counters) -> dict:
+    """Phase 44 (a): six builds at N=8192 as S=3 ensembles over 16 rounds:
+    the card's batched run equal, sim for sim, to the card's one-sim runs
+    under ``with_sim_key`` and to the CPU's batched run; an S-sim dispatch
+    launching each kernel as often as a one-sim dispatch; a lifted window
+    (one capture) equal to its eager loop. Returns each build's launches."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import ensemble
+
+    s, n = ENSEMBLE_SIMS, N_PARITY
+    po, pt, pv = sweep.publish_schedule(ENSEMBLE_ROUNDS, n, 1, None, seed=6)
+    out = {}
+    for label, build, r in ensemble_builds(sweep, n):
+        t0 = time.perf_counter()
+        st, step = build(dev)
+        key = st.core.key if hasattr(st, "core") else st.key
+        ens = ensemble.lift_step(step)
+        for mod in counters:
+            mod.reset_launch_counts()
+        batched = ensemble_drive(ensemble.batch_states(st, s), ens,
+                                 ensemble_rows(po, pt, pv, r, dev, s), r)
+        torch.cuda.synchronize()
+        launched = _dispatch_counts(counters)
+        leaves = convert.state_leaves(batched)
+        for i in range(s):
+            for mod in counters:
+                mod.reset_launch_counts()
+            one = ensemble_drive(ensemble.with_sim_key(st, key, i), step,
+                                 ensemble_rows(po, pt, pv, r, dev), r)
+            one_launched = _dispatch_counts(counters)
+            leaves_equal(convert.state_leaves(one),
+                         convert.state_leaves(ensemble.unbatch(batched, i)),
+                         f"ensemble {label} sim {i}: card batched against card one-sim")
+            if one_launched != launched:
+                raise AssertionError(f"ensemble {label}: S={s} launches {launched}, one "
+                                     f"sim's {one_launched}")
+        if not any(launched.values()):
+            raise AssertionError(f"ensemble {label}: no kernel launched")
+        cst, cstep = build("cpu")
+        cpu = ensemble_drive(ensemble.batch_states(cst, s), ensemble.lift_step(cstep),
+                             ensemble_rows(po, pt, pv, r, "cpu", s), r)
+        leaves_equal(convert.state_leaves(cpu), leaves,
+                     f"ensemble {label}: card batched against CPU batched")
+        win = driver.make_window(ens, heartbeat=[True] if r > 1 else None)
+        rows = ensemble_rows(po, pt, pv, r, dev, s)
+        xs = tuple(torch.stack([row[j] for row in rows]) for j in range(3))
+        end, _ = win(ensemble.batch_states(st, s), xs)
+        leaves_equal(convert.state_leaves(end), leaves,
+                     f"ensemble {label}: lifted window against its eager loop")
+        if win.captures != 1:
+            raise AssertionError(f"ensemble {label} window: {win.captures} captures")
+        out[label] = {"launches": {k: v for k, v in launched.items() if v},
+                      "block_launches": {k: v for k, v in win.block_launches.items() if v},
+                      "dispatches": ENSEMBLE_ROUNDS // r}
+        say(f"ensemble {label} N={n} S={s}: {ENSEMBLE_ROUNDS} rounds, card batched == card "
+            f"one-sim (with_sim_key) for every sim == CPU batched, leaf for leaf; launches "
+            f"{out[label]['launches']} (each one sim's alone); the lifted window (1 capture, "
+            f"a block launching {out[label]['block_launches']}) == its eager loop "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del st, step, ens, batched, one, cst, cstep, cpu, win, end
+    return out
+
+
+def ensemble_kernel_times(dev, card) -> dict:
+    """Phase 44 (b): each kernel's S=8 batched launch on the earlier phases'
+    main-path calls (each sim a copy of the call but the shared topology),
+    against its one-sim launch, in turns (one, batched, batched, one); the
+    batched outputs equal the one-sim outputs sim for sim; the bound is S
+    times the one-sim bytes."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import ensemble
+    from go_libp2p_pubsub_tpu_torch.ops import csr_delivery as cd
+    from go_libp2p_pubsub_tpu_torch.ops import delivery_banded as db
+    from go_libp2p_pubsub_tpu_torch.ops import fused_round as fr
+    from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
+
+    s = ENSEMBLE_FULL_SIMS
+    mods = {"edge_exchange": fr, "fused_delivery": fr, "delivery_banded": db,
+            "csr_delivery": cd, "select_topk": sk}
+    out = {}
+    for name, mod in mods.items():
+        host_args, host_kw = ENSEMBLE_CALLS[name]
+        args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in host_args]
+        kw = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in host_kw.items()}
+        shared = ENSEMBLE_SHARED.get(name, set())
+        fn = getattr(mod, name)
+        tensor_pos = [i for i, a in enumerate(args)
+                      if isinstance(a, torch.Tensor) and i not in shared]
+        bargs = [ensemble.tile(a, s) if i in tensor_pos else a for i, a in enumerate(args)]
+        in_dims = tuple(0 if i in tensor_pos else None for i in range(len(args)))
+        one = lambda: fn(*args, **kw)   # noqa: E731
+        many = lambda: torch.func.vmap(lambda *a: fn(*a, **kw), in_dims=in_dims)(*bargs)  # noqa: E731
+        want, got = outputs_of(one()), outputs_of(many())
+        torch.cuda.synchronize()
+        err = max(max_abs_err(want, [g[z] for g in got]) for z in range(s))
+        launch1 = prepared(mod._lib(), f"{name}_launch", one)
+        launch_s = prepared(mod._lib(), f"{name}_sims", many)
+        t = [batch_ms(launch1), batch_ms(launch_s), batch_ms(launch_s), batch_ms(launch1)]
+        one_ms, s_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        one_bytes = nbytes(*kernel_reads(name, args), *want)
+        s_bytes = s * one_bytes
+        rec = {"s": s, "ms": s_ms, "one_ms": one_ms, "turns_ms": t,
+               "ratio_to_s_one": s_ms / (s * one_ms), "bound_ms": 1e3 * s_bytes / HBM_BYTES_PER_S,
+               "bound_by": "bytes", "max_abs_err": err,
+               "shape": {k: list(v.shape) for k, v in zip(("arg0", "arg1"), args[:2])}}
+        rec["bound_share"] = rec["bound_ms"] / s_ms
+        out[name] = rec
+        say(f"ensemble kernel {name} S={s}: {s_ms:.6f} ms batched against {s} x "
+            f"{one_ms:.6f} ms one-sim (ratio {rec['ratio_to_s_one']:.4f}; turns "
+            f"{', '.join(f'{x:.6f}' for x in t)}), bound {rec['bound_ms']:.6f} ms "
+            f"({s_bytes} bytes; share {rec['bound_share']:.4f}), each sim equal to the "
+            f"one-sim launch (max_abs_err {err}), on {card}")
+        if name == "select_topk":
+            rec["rows"] = select_rows_against_grid(bargs, got[0], launch_s, card)
+        del launch1, launch_s, want, got, args, bargs, kw
+    return out
+
+
+def select_rows_against_grid(bargs, got, launch_s, card) -> dict:
+    """select_topk at S sims: the wrapper's batched launch (every argument
+    batched, so S folded into R: one launch over the S*R rows) against the
+    same sims with sim z on grid.y, the route a shared argument takes,
+    forced here by sim strides padded past each sim's elements; in turns
+    (grid, rows, rows, grid), both outputs equal."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.ops import kernels
+    from go_libp2p_pubsub_tpu_torch.ops import select_topk as sk
+
+    s, r, k = got.shape
+    pad = 64    # elements: keeps every sim's base 16-byte aligned
+
+    def padded(x, dtype):
+        buf = torch.zeros(s, x[0].numel() + pad, dtype=dtype, device=x.device)
+        buf[:, :x[0].numel()] = x.reshape(s, -1)
+        return buf
+
+    values, mask, k_rows, noise = (padded(b, d) for b, d in zip(
+        bargs, (torch.float32, torch.bool, torch.int32, torch.float32)))
+    out = torch.zeros(s, r * k + pad, dtype=torch.bool, device=got.device)
+    held = (values, mask, k_rows, noise, out)
+    strides = kernels.strides_arg([t.shape[1] for t in held])
+    lib, stream = sk._lib(), kernels.stream(got.device)
+
+    def grid():
+        kernels.raise_on(lib.select_topk_sims(*[kernels.ptr(t) for t in held], r, k, s,
+                                              strides, stream), "select_topk")
+
+    grid()
+    torch.cuda.synchronize()
+    if not torch.equal(out[:, :r * k].view(s, r, k), got):
+        raise AssertionError("select_topk: the grid.y launch differs from the S*R rows")
+    t = [batch_ms(grid), batch_ms(launch_s), batch_ms(launch_s), batch_ms(grid)]
+    rec = {"grid_ms": (t[0] + t[3]) / 2, "rows_ms": (t[1] + t[2]) / 2, "turns_ms": t}
+    rec["grid_over_rows"] = rec["grid_ms"] / rec["rows_ms"]
+    say(f"ensemble kernel select_topk S={s}: S*R rows in one launch {rec['rows_ms']:.6f} ms "
+        f"against sim z on grid.y {rec['grid_ms']:.6f} ms (grid/rows "
+        f"{rec['grid_over_rows']:.4f}; turns {', '.join(f'{x:.6f}' for x in t)}), outputs "
+        f"equal, on {card}")
+    return rec
+
+
+def ensemble_full(sweep, driver, convert, dev, card, counters) -> dict:
+    """Phase 44 (b): the default config at N=100k, phase engine r=8, as an
+    S=8 windowed ensemble beside the same 8 sims run one after another
+    through the one-sim window: after ``form_mesh``, 2 formation phases
+    eager, then 8 phases a window call (the capture made by an untimed
+    call on the same rows); aggregate sim-delivery-rounds/s, peak memory,
+    the windows' block launches, every sim's final state equal."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import ensemble
+
+    s, r = ENSEMBLE_FULL_SIMS, PHASE_R
+    f, m = ENSEMBLE_FULL_PHASES
+    po, pt, pv = sweep.publish_schedule((f + m) * r, N_FULL, 1, None, seed=8)
+    hb = driver.heartbeat_schedule(r, r)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, rounds_per_phase=r, device=dev)
+    st = driver.form_mesh(step, st, rounds_per_phase=r)
+    key = st.core.key
+    rows = [tuple(torch.as_tensor(a[p * r:(p + 1) * r], device=dev) for a in (po, pt, pv))
+            for p in range(f + m)]
+    tiled = [tuple(ensemble.tile(x, s) for x in row) for row in rows]
+    timed = lambda rs: tuple(torch.stack([row[j] for row in rs[f:]]) for j in range(3))  # noqa: E731
+
+    def run(step_, first, rs, state):
+        """Formation eager, an untimed window call (the capture), the timed
+        call; returns (final state, seconds, window)."""
+        state = ensemble_drive(state, step_, rs[:f], r)
+        win = driver.make_window(step_, heartbeat=hb, donate=False)
+        xs = timed(rs)
+        if first is not None:
+            win = first
+        else:
+            win(state, xs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = win(state, xs)
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0, win
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    finals, dt1, win1 = [], 0.0, None
+    for i in range(s):
+        one, dt, win1 = run(step, win1, rows, ensemble.with_sim_key(st, key, i))
+        dt1 += dt
+        finals.append(convert.state_leaves(one))
+    out["one_sim"] = {"seconds": dt1, "sim_rounds_per_s": s * m * r / dt1,
+                      "peak": torch.cuda.max_memory_allocated(), "captures": win1.captures,
+                      "block_launches": {k: v for k, v in win1.block_launches.items() if v}}
+    del win1, one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bs, dtb, winb = run(ensemble.lift_step(step), None, tiled, ensemble.batch_states(st, s))
+    out["batched"] = {"seconds": dtb, "sim_rounds_per_s": s * m * r / dtb,
+                      "peak": torch.cuda.max_memory_allocated(), "captures": winb.captures,
+                      "block_launches": {k: v for k, v in winb.block_launches.items() if v}}
+    if (out["batched"]["captures"], out["one_sim"]["captures"]) != (1, 1) or \
+            out["batched"]["block_launches"] != out["one_sim"]["block_launches"]:
+        raise AssertionError(f"ensemble full: batched window {out['batched']}, one-sim "
+                             f"{out['one_sim']}")
+    for i in range(s):
+        leaves_equal(finals[i], convert.state_leaves(ensemble.unbatch(bs, i)),
+                     f"ensemble full sim {i}: S={s} window against the one-sim window")
+    out["speedup"] = dt1 / dtb
+    say(f"ensemble full N={N_FULL} r={r} S={s}: {f} + {m} phases; batched window "
+        f"{out['batched']['sim_rounds_per_s']:.3f} sim-delivery-rounds/s ({dtb:.3f} s, peak "
+        f"{out['batched']['peak']} bytes) against {s} one-sim windows in turn "
+        f"{out['one_sim']['sim_rounds_per_s']:.3f} ({dt1:.3f} s, peak "
+        f"{out['one_sim']['peak']} bytes): x{out['speedup']:.3f}; block launches "
+        f"{out['batched']['block_launches']} both (one capture each); every sim's final "
+        f"state equal, on {card}")
+    del st, step, winb, bs, finals
+    return out
+
+
+def ensemble_choke(sweep, driver, dev, card, counters) -> dict:
+    """Phase 44 (c): the choke smoke at its own shape (N=256, 4 sims, 84
+    rounds) as S=4 windowed ensembles of its C (ring + choking, the
+    checker folded in) and D (ring) cells, with its per-sim gates:
+    coverage >= 0.99, CHOKE > 0 in every sim, the paired p95 of C below
+    D's on average (tail_cut > 0); then phase 43's C and D cells at
+    N=100k as S=4 ensembles over 64 rounds, their per-sim paired p95
+    reported."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import ensemble
+    from go_libp2p_pubsub_tpu_torch.oracle import invariants as inv
+    from go_libp2p_pubsub_tpu_torch.trace.events import EV
+
+    nets = {}     # one Net a graph, shared by its C and D cells
+
+    def cell(arm, parts, n, rounds, sims, checked):
+        net, cfg, st, step = router_build(arm, parts, dev, nets=nets)
+        po, pt, pv = router_schedule(rounds, n)
+        ens = ensemble.lift_step(step)
+        spec = None
+        if checked:
+            spec = inv.ScanInvariants(
+                "gossipsub", net, cfg,
+                inv.InvariantConfig(check_every=CHOKE_CHECK_EVERY, delivery_window=48),
+                batched=True, due_fn=lambda tick: inv.due_vector(quiet=(0, rounds)))
+        margs = lambda i: tuple(ensemble.tile(torch.as_tensor(a[i], device=dev), sims)  # noqa: E731
+                                for a in (po, pt, pv))
+        for mod in counters:
+            mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        run = ensemble.run_window(ens, ensemble.batch_states(st, sims), margs, rounds,
+                                  invariants=spec, unroll=1 if checked else 4)
+        core = run.states.core
+        fr = core.dlv.first_round.cpu().numpy()
+        birth = core.msgs.birth.cpu().numpy()
+        rep = run.invariant_report
+        if rep is not None and not rep.all_ok:
+            raise AssertionError(f"choke {arm} N={n}: violations {rep.violations()[:8]}")
+        return {"lat": fr - birth[:, None, :], "mask": (fr >= 0) & (birth[:, None, :] >= 0),
+                "events": core.events.cpu().numpy(), "seconds": run.seconds,
+                "compiles": run.compiles, "checked": 0 if rep is None else rep.checked}
+
+    def p95(c, common):
+        return [float(np.percentile(c["lat"][z][common[z]], 95)) if common[z].any() else -1.0
+                for z in range(common.shape[0])]
+
+    out = {}
+    t0 = time.perf_counter()
+    parts = router_graph(CHOKE_N)
+    c = cell("C", parts, CHOKE_N, CHOKE_ROUNDS, CHOKE_SIMS, True)
+    d = cell("D", parts, CHOKE_N, CHOKE_ROUNDS, CHOKE_SIMS, False)
+    common = c["mask"] & d["mask"]
+    p95_c, p95_d = p95(c, common), p95(d, common)
+    chokes = [int(x) for x in c["events"][:, EV.CHOKE]]
+    tail_cut = 1.0 - float(np.mean(p95_c)) / max(float(np.mean(p95_d)), 1e-9)
+    smoke = {"coverage_choke": coverage(c, CHOKE_N), "coverage_nochoke": coverage(d, CHOKE_N),
+             "chokes": chokes,
+             "p95_choke": p95_c, "p95_nochoke": p95_d, "tail_cut": tail_cut,
+             "checked": c["checked"], "captures": [c["compiles"], d["compiles"]]}
+    bad = [x for x in smoke["coverage_choke"] + smoke["coverage_nochoke"] if x < 0.99]
+    if bad or min(chokes) <= 0 or not tail_cut > 0 or smoke["captures"] != [1, 1]:
+        raise AssertionError(f"choke smoke as S={CHOKE_SIMS} ensembles failed its gates: {smoke}")
+    out["smoke"] = smoke
+    say(f"ensemble choke smoke N={CHOKE_N} S={CHOKE_SIMS} {CHOKE_ROUNDS} rounds (ring depth "
+        f"{parts[2]}): coverage C {smoke['coverage_choke']} D {smoke['coverage_nochoke']} "
+        f"(>= 0.99), chokes {chokes} (> 0), paired p95 C {p95_c} D {p95_d}, tail_cut "
+        f"{tail_cut:.4f} (> 0), {c['checked']} property checks in C's window all held, one "
+        f"capture a cell ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    nets.clear()
+    parts = router_graph(N_FULL)
+    sims = ENSEMBLE_LATENCY_SIMS
+    c = cell("C", parts, N_FULL, ROUTER_ROUNDS, sims, False)
+    d = cell("D", parts, N_FULL, ROUTER_ROUNDS, sims, False)
+    common = c["mask"] & d["mask"]
+    full = {"p95_choke": p95(c, common), "p95_nochoke": p95(d, common),
+            "coverage_choke": coverage(c, N_FULL), "coverage_nochoke": coverage(d, N_FULL),
+            "chokes": [int(x) for x in c["events"][:, EV.CHOKE]],
+            "seconds": [c["seconds"], d["seconds"]]}
+    full["tail_cut"] = 1.0 - float(np.mean(full["p95_choke"])) / max(
+        float(np.mean(full["p95_nochoke"])), 1e-9)
+    out["full"] = full
+    say(f"ensemble router latency N={N_FULL} S={sims} {ROUTER_ROUNDS} rounds: paired p95 C "
+        f"{full['p95_choke']} D {full['p95_nochoke']} (tail_cut {full['tail_cut']:.4f}, "
+        f"reported), coverage C {full['coverage_choke']} D {full['coverage_nochoke']}, chokes "
+        f"{full['chokes']}, windows {full['seconds'][0]:.3f} s and {full['seconds'][1]:.3f} s, "
+        f"on {card} ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def coverage(c, n: int) -> list:
+    """Each sim's share of the published (peer, message) pairs delivered."""
+    return [float(m.sum()) / (ROUTER_MSGS * n) for m in c["mask"]]
+
+
 def leaves_equal(a: dict, b: dict, where: str):
     import numpy as np
 
@@ -5800,6 +6242,7 @@ def main() -> int:
     lap("7")
     # 8. select_topk at the main path's shapes
     sel = check_select_topk(sk, select_calls, gen, base)
+    keep_call("select_topk", select_calls["K=16"])
     main16, k64 = sel["K=16"], sel["K=64"]
     records.append({
         "name": "select_topk", "route": "cuda", "source": SELECT_SOURCE,
@@ -5816,9 +6259,10 @@ def main() -> int:
     lap("8")
     # 9. the CSR builds, card against CPU
     gossip_parity(sweep, convert, "CSR bench", lambda d: sweep.build_bench(
-        N_PARITY, M_SLOTS, count_events=True, edge_layout="csr", fused=True, device=d)[:2])
+        N_PARITY, M_SLOTS, count_events=True, edge_layout="csr", fused=True, device=d)[:2],
+        CSR_PARITY_ROUNDS)
     gossip_parity(sweep, convert, "power-law GossipSub", lambda d: build_powerlaw_gossipsub(
-        sweep, N_PARITY, d, count_events=True)[:2])
+        sweep, N_PARITY, d, count_events=True)[:2], CSR_PARITY_ROUNDS)
 
     lap("9")
     # 10-12. FloodSub over the shared delivery core, both layouts
@@ -6179,6 +6623,27 @@ def main() -> int:
     say(f"router phase {time.perf_counter() - t0:.1f} s")
 
     lap("43")
+    # 44. the ensemble plane: six builds as S=3 ensembles card against card
+    # one-sim, CPU and window; the kernels' S=8 launches; the phase bench as
+    # an S=8 windowed ensemble; the choke smoke and the router's latency
+    # cells as S=4 ensembles
+    t0 = time.perf_counter()
+    eparity = ensemble_parity(sweep, driver, convert, dev, counters)
+    ekernels = ensemble_kernel_times(dev, card)
+    efull = ensemble_full(sweep, driver, convert, dev, card, counters)
+    echoke = ensemble_choke(sweep, driver, dev, card, counters)
+    for rec in records:
+        rec["ensemble"] = {
+            "batched_s8": ekernels[rec["name"]],
+            "launches_s3": {f"{label} (N={N_PARITY}, S={ENSEMBLE_SIMS}), "
+                            f"{v['dispatches']} dispatches": v["launches"].get(rec["name"], 0)
+                            for label, v in eparity.items()},
+            "full_block_launches_s8": efull["batched"]["block_launches"].get(rec["name"], 0)}
+    say("ensemble cell: " + json.dumps({"card": card, "parity": eparity, "kernels": ekernels,
+                                        "full": efull, "choke": echoke}))
+    say(f"ensemble phase {time.perf_counter() - t0:.1f} s")
+
+    lap("44")
     # 39. launches of a bench round, a phase-bench phase and a windowed
     # phase, traced; then the configs' rounds and phases (last: the
     # profiler's tracing must not touch a rate timed in this process)

@@ -67,12 +67,19 @@
 // stamped, never the padding bits of the last word. Words go 32 at a time
 // (grid.y), since every word is independent. `fe'` goes to a fresh buffer
 // in both kernels because other receivers read this round's `fe` of their
-// senders. Each launch returns cudaGetLastError().
+// senders.
+//
+// The sim axis (sims.cuh): delivery_banded_sims and csr_delivery_sims run S
+// simulations in one launch, sim z on grid.z, each pointer moved by its sim
+// stride (0: shared by the sims, as offrev, col, eperm and row_ptr are when
+// the sims share a topology). The one-sim entry points are the S = 1 call.
+// Each launch returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "banded.cuh"
+#include "sims.cuh"
 
 namespace {
 
@@ -146,6 +153,9 @@ __device__ __forceinline__ void stamp_rows(const int* __restrict__ src, int* __r
 constexpr int banded_staged(int k) { return k + 1; }
 constexpr int banded_own(int k) { return k + 3; }
 
+// kSims: sim blockIdx.z of a batched launch, its pointers moved by the
+// strides (in elements, in the order of the parameters)
+template <bool kSims>
 __global__ void __launch_bounds__(banded::kThreads) delivery_banded_kernel(
     const uint32_t* __restrict__ fwd,       // [N, W]
     const uint32_t* __restrict__ fe,        // [N, K*W] first-arrival edges
@@ -162,9 +172,27 @@ __global__ void __launch_bounds__(banded::kThreads) delivery_banded_kernel(
     uint32_t* __restrict__ have_out,        // [N, W]
     uint32_t* __restrict__ fwd_out,         // [N, W]
     int* __restrict__ fr_out,               // [N, M]
-    const banded::Layout L, int m) {
+    const banded::Layout L, int m, const sims::Strides<kSims> ss) {
   using namespace banded;
   extern __shared__ uint4 smem_v[];
+  if constexpr (kSims) {
+    const long long z = blockIdx.z;
+    fwd = sims::at(fwd, ss.e[0], z);
+    fe = sims::at(fe, ss.e[1], z);
+    emask = sims::at(emask, ss.e[2], z);
+    not_mine = sims::at(not_mine, ss.e[3], z);
+    have = sims::at(have, ss.e[4], z);
+    first_round = sims::at(first_round, ss.e[5], z);
+    valid = sims::at(valid, ss.e[6], z);
+    tick = sims::at(tick, ss.e[7], z);
+    offrev = sims::at(offrev, ss.e[8], z);
+    trans_out = sims::at(trans_out, ss.e[9], z);
+    fe_out = sims::at(fe_out, ss.e[10], z);
+    new_out = sims::at(new_out, ss.e[11], z);
+    have_out = sims::at(have_out, ss.e[12], z);
+    fwd_out = sims::at(fwd_out, ss.e[13], z);
+    fr_out = sims::at(fr_out, ss.e[14], z);
+  }
   const int n = L.n, nk = L.k, w = L.w;
   const long long r0 = (long long)blockIdx.x * L.rows;
   const int nrows = n - r0 < L.rows ? (int)(n - r0) : L.rows;
@@ -296,6 +324,8 @@ constexpr __host__ __device__ int csr_warp_words(int w) {
 // memory a block takes without an opt-in
 static_assert(kCsrWarps * csr_warp_words(kWord) * 4 <= 48 * 1024, "shared memory");
 
+// kSims: sim blockIdx.z of a batched launch (as delivery_banded_kernel)
+template <bool kSims>
 __global__ void __launch_bounds__(32 * kCsrWarps) csr_delivery_kernel(
     const uint32_t* __restrict__ fwd,       // [N, W]
     const uint32_t* __restrict__ fe,        // [E, W] first-arrival edges
@@ -317,8 +347,31 @@ __global__ void __launch_bounds__(32 * kCsrWarps) csr_delivery_kernel(
     int* __restrict__ fr_out,               // [N, M]
     uint32_t* __restrict__ fe_out,          // [E, W] (never aliases fe)
     uint32_t* __restrict__ fa_out,          // [E, W]
-    int n, int w, int m) {
+    int n, int w, int m, const sims::Strides<kSims> ss) {
   extern __shared__ int smem[];
+  if constexpr (kSims) {
+    const long long z = blockIdx.z;
+    fwd = sims::at(fwd, ss.e[0], z);
+    fe = sims::at(fe, ss.e[1], z);
+    mask = sims::at(mask, ss.e[2], z);
+    not_mine = sims::at(not_mine, ss.e[3], z);
+    have = sims::at(have, ss.e[4], z);
+    first_round = sims::at(first_round, ss.e[5], z);
+    valid = sims::at(valid, ss.e[6], z);
+    tick = sims::at(tick, ss.e[7], z);
+    col = sims::at(col, ss.e[8], z);
+    eperm = sims::at(eperm, ss.e[9], z);
+    row_ptr = sims::at(row_ptr, ss.e[10], z);
+    link_ok = sims::at(link_ok, ss.e[11], z);
+    trans_out = sims::at(trans_out, ss.e[12], z);
+    recv_out = sims::at(recv_out, ss.e[13], z);
+    new_out = sims::at(new_out, ss.e[14], z);
+    have_out = sims::at(have_out, ss.e[15], z);
+    fwd_out = sims::at(fwd_out, ss.e[16], z);
+    fr_out = sims::at(fr_out, ss.e[17], z);
+    fe_out = sims::at(fe_out, ss.e[18], z);
+    fa_out = sims::at(fa_out, ss.e[19], z);
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int wmax = group_words(w);
@@ -492,24 +545,75 @@ bool bad_words(int n, int w, int m) {
 
 }  // namespace
 
+// delivery_banded over S sims: the strides of its 15 pointers, in their order
+extern "C" int delivery_banded_sims(
+    const void* fwd, const void* fe, const void* emask, const void* not_mine,
+    const void* have, const void* first_round, const void* valid,
+    const void* tick, const void* offrev, void* trans_out, void* fe_out,
+    void* new_out, void* have_out, void* fwd_out, void* fr_out, int n, int k,
+    int w, int m, int s, const long long* strides, void* stream) {
+  if (k <= 0 || bad_words(n, w, m) || s <= 0 || s > 65535) return (int)cudaErrorInvalidValue;
+  const banded::Layout L = banded::make_layout(n, k, w, banded_staged(k), banded_own(k));
+  if (L.rows == 0) return (int)cudaErrorInvalidValue;   // K too wide to stage one row
+  const sims::Batched ss = sims::load(strides, 15);
+  const dim3 grid((unsigned int)((n + L.rows - 1) / L.rows),
+                  (unsigned int)((w + L.wb - 1) / L.wb), (unsigned int)s);
+#define BANDED_ARGS                                                                  \
+  (const uint32_t*)fwd, (const uint32_t*)fe, (const uint32_t*)emask,                \
+      (const uint32_t*)not_mine, (const uint32_t*)have, (const int*)first_round,    \
+      (const uint32_t*)valid, (const int*)tick, (const int*)offrev,                 \
+      (uint32_t*)trans_out, (uint32_t*)fe_out, (uint32_t*)new_out,                  \
+      (uint32_t*)have_out, (uint32_t*)fwd_out, (int*)fr_out, L, m
+  if (s == 1)
+    delivery_banded_kernel<false><<<grid, banded::kThreads, L.smem_bytes,
+                                    (cudaStream_t)stream>>>(BANDED_ARGS, sims::Strides<false>{});
+  else
+    delivery_banded_kernel<true><<<grid, banded::kThreads, L.smem_bytes,
+                                   (cudaStream_t)stream>>>(BANDED_ARGS, ss);
+#undef BANDED_ARGS
+  return (int)cudaGetLastError();
+}
+
 extern "C" int delivery_banded_launch(
     const void* fwd, const void* fe, const void* emask, const void* not_mine,
     const void* have, const void* first_round, const void* valid,
     const void* tick, const void* offrev, void* trans_out, void* fe_out,
     void* new_out, void* have_out, void* fwd_out, void* fr_out, int n, int k,
     int w, int m, void* stream) {
-  if (k <= 0 || bad_words(n, w, m)) return (int)cudaErrorInvalidValue;
-  const banded::Layout L = banded::make_layout(n, k, w, banded_staged(k), banded_own(k));
-  if (L.rows == 0) return (int)cudaErrorInvalidValue;   // K too wide to stage one row
-  const dim3 grid((unsigned int)((n + L.rows - 1) / L.rows),
-                  (unsigned int)((w + L.wb - 1) / L.wb));
-  delivery_banded_kernel<<<grid, banded::kThreads, L.smem_bytes, (cudaStream_t)stream>>>(
-      (const uint32_t*)fwd, (const uint32_t*)fe, (const uint32_t*)emask,
-      (const uint32_t*)not_mine, (const uint32_t*)have,
-      (const int*)first_round, (const uint32_t*)valid, (const int*)tick,
-      (const int*)offrev, (uint32_t*)trans_out, (uint32_t*)fe_out,
-      (uint32_t*)new_out, (uint32_t*)have_out, (uint32_t*)fwd_out,
-      (int*)fr_out, L, m);
+  return delivery_banded_sims(fwd, fe, emask, not_mine, have, first_round, valid, tick,
+                              offrev, trans_out, fe_out, new_out, have_out, fwd_out, fr_out,
+                              n, k, w, m, 1, nullptr, stream);
+}
+
+// csr_delivery over S sims: the strides of its 20 pointers, in their order
+extern "C" int csr_delivery_sims(
+    const void* fwd, const void* fe, const void* mask, const void* not_mine,
+    const void* have, const void* first_round, const void* valid,
+    const void* tick, const void* col, const void* eperm, const void* row_ptr,
+    const void* link_ok, void* trans_out, void* recv_out, void* new_out,
+    void* have_out, void* fwd_out, void* fr_out, void* fe_out, void* fa_out,
+    int n, int w, int m, int s, const long long* strides, void* stream) {
+  if (bad_words(n, w, m) || s <= 0 || s > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kCsrWarps * csr_warp_words(w) * sizeof(int);
+  const long long warps = ((long long)n + kCsrRows - 1) / kCsrRows;
+  const sims::Batched ss = sims::load(strides, 20);
+  const dim3 grid((unsigned int)((warps + kCsrWarps - 1) / kCsrWarps),
+                  (unsigned int)((w + kWord - 1) / kWord), (unsigned int)s);
+#define CSR_ARGS                                                                     \
+  (const uint32_t*)fwd, (const uint32_t*)fe, (const uint32_t*)mask,                 \
+      (const uint32_t*)not_mine, (const uint32_t*)have, (const int*)first_round,    \
+      (const uint32_t*)valid, (const int*)tick, (const int*)col, (const int*)eperm, \
+      (const int*)row_ptr, (const uint8_t*)link_ok, (uint32_t*)trans_out,           \
+      (uint32_t*)recv_out, (uint32_t*)new_out, (uint32_t*)have_out,                 \
+      (uint32_t*)fwd_out, (int*)fr_out, (uint32_t*)fe_out, (uint32_t*)fa_out, n, w, \
+      m
+  if (s == 1)
+    csr_delivery_kernel<false><<<grid, 32 * kCsrWarps, smem, (cudaStream_t)stream>>>(
+        CSR_ARGS, sims::Strides<false>{});
+  else
+    csr_delivery_kernel<true><<<grid, 32 * kCsrWarps, smem, (cudaStream_t)stream>>>(
+        CSR_ARGS, ss);
+#undef CSR_ARGS
   return (int)cudaGetLastError();
 }
 
@@ -520,18 +624,7 @@ extern "C" int csr_delivery_launch(
     const void* link_ok, void* trans_out, void* recv_out, void* new_out,
     void* have_out, void* fwd_out, void* fr_out, void* fe_out, void* fa_out,
     int n, int w, int m, void* stream) {
-  if (bad_words(n, w, m)) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kCsrWarps * csr_warp_words(w) * sizeof(int);
-  const long long warps = ((long long)n + kCsrRows - 1) / kCsrRows;
-  const dim3 grid((unsigned int)((warps + kCsrWarps - 1) / kCsrWarps),
-                  (unsigned int)((w + kWord - 1) / kWord));
-  csr_delivery_kernel<<<grid, 32 * kCsrWarps, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)fwd, (const uint32_t*)fe, (const uint32_t*)mask,
-      (const uint32_t*)not_mine, (const uint32_t*)have,
-      (const int*)first_round, (const uint32_t*)valid, (const int*)tick,
-      (const int*)col, (const int*)eperm, (const int*)row_ptr,
-      (const uint8_t*)link_ok, (uint32_t*)trans_out, (uint32_t*)recv_out,
-      (uint32_t*)new_out, (uint32_t*)have_out, (uint32_t*)fwd_out,
-      (int*)fr_out, (uint32_t*)fe_out, (uint32_t*)fa_out, n, w, m);
-  return (int)cudaGetLastError();
+  return csr_delivery_sims(fwd, fe, mask, not_mine, have, first_round, valid, tick, col,
+                           eperm, row_ptr, link_ok, trans_out, recv_out, new_out, have_out,
+                           fwd_out, fr_out, fe_out, fa_out, n, w, m, 1, nullptr, stream);
 }

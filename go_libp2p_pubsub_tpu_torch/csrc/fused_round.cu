@@ -42,13 +42,20 @@
 // over the lanes of one word, and its exclusive prefix lets the lowest edge
 // win, in place of per-thread first-arrival arrays. Its score gates read a
 // subnormal neighbour score or threshold as a zero of its sign (fnum.cuh),
-// as XLA does. Each launch returns cudaGetLastError().
+// as XLA does.
+//
+// The sim axis (sims.cuh): edge_exchange_sims and fused_delivery_sims run S
+// simulations in one launch, sim z on grid.y (edge_exchange) or grid.z
+// (fused_delivery), each pointer moved by its sim stride (0: shared by the
+// sims, as offrev always is). The one-sim entry points are the S = 1 call.
+// Each launch returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "banded.cuh"
 #include "fnum.cuh"
+#include "sims.cuh"
 
 namespace {
 
@@ -78,7 +85,9 @@ __device__ __forceinline__ uint32_t served_capped(int cap, uint32_t lo,
   return kAll;
 }
 
-template <typename V>
+// kSims: sim blockIdx.y of a batched launch (strides in elements, wire's
+// and wire_out's in vectors V)
+template <typename V, bool kSims>
 __global__ void __launch_bounds__(kExchangeThreads) edge_exchange_kernel(
     const V* __restrict__ wire,           // [N, K, nv] vectors of a slot's C words
     const float* __restrict__ scores,     // [N, K] or null
@@ -86,7 +95,16 @@ __global__ void __launch_bounds__(kExchangeThreads) edge_exchange_kernel(
     const int* __restrict__ offrev,       // [2K]
     V* __restrict__ wire_out,             // [N, K, nv]
     float* __restrict__ score_out,        // [N, K] or null
-    int n, int k, int nv, int score_enabled) {
+    int n, int k, int nv, int score_enabled, const sims::Strides<kSims> ss) {
+  if constexpr (kSims) {
+    const long long z = blockIdx.y;
+    wire = sims::at(wire, ss.e[0], z);
+    scores = sims::at(scores, ss.e[1], z);
+    live = sims::at(live, ss.e[2], z);
+    offrev = sims::at(offrev, ss.e[3], z);
+    wire_out = sims::at(wire_out, ss.e[4], z);
+    score_out = sims::at(score_out, ss.e[5], z);
+  }
   const int kk = threadIdx.y;
   const int j = blockIdx.x * blockDim.z + threadIdx.z;
   if (j >= n) return;
@@ -106,6 +124,9 @@ __global__ void __launch_bounds__(kExchangeThreads) edge_exchange_kernel(
 constexpr int fused_staged(int k) { return 2 * k + 2; }
 constexpr int kFusedOwn = 4;
 
+// kSims: sim blockIdx.z of a batched launch, its pointers moved by the
+// strides (in elements, in the order of the parameters)
+template <bool kSims>
 __global__ void __launch_bounds__(banded::kThreads) fused_delivery_kernel(
     const uint32_t* __restrict__ carry,   // [N, K*W] sender push outboxes
     const uint32_t* __restrict__ fe,      // [N, K*W] first-arrival edges
@@ -131,9 +152,37 @@ __global__ void __launch_bounds__(banded::kThreads) fused_delivery_kernel(
     uint32_t* __restrict__ fwd_out,       // [N, W]
     uint32_t* __restrict__ mesh_t_out,    // [N, K*W] or null
     uint32_t* __restrict__ extra_out,     // [N, K*W] or null
-    const banded::Layout L, int score_enabled, int want_cohorts, int retrans_cap) {
+    const banded::Layout L, int score_enabled, int want_cohorts, int retrans_cap,
+    const sims::Strides<kSims> ss) {
   using namespace banded;
   extern __shared__ uint4 smem_v[];
+  if constexpr (kSims) {
+    const long long z = blockIdx.z;
+    carry = sims::at(carry, ss.e[0], z);
+    fe = sims::at(fe, ss.e[1], z);
+    fwd = sims::at(fwd, ss.e[2], z);
+    mcw = sims::at(mcw, ss.e[3], z);
+    nbrsc = sims::at(nbrsc, ss.e[4], z);
+    asked = sims::at(asked, ss.e[5], z);
+    slo = sims::at(slo, ss.e[6], z);
+    shi = sims::at(shi, ss.e[7], z);
+    flags = sims::at(flags, ss.e[8], z);
+    have = sims::at(have, ss.e[9], z);
+    origin = sims::at(origin, ss.e[10], z);
+    joined = sims::at(joined, ss.e[11], z);
+    valid = sims::at(valid, ss.e[12], z);
+    thr = sims::at(thr, ss.e[13], z);
+    offrev = sims::at(offrev, ss.e[14], z);
+    trans_out = sims::at(trans_out, ss.e[15], z);
+    fe_out = sims::at(fe_out, ss.e[16], z);
+    slo_out = sims::at(slo_out, ss.e[17], z);
+    shi_out = sims::at(shi_out, ss.e[18], z);
+    new_out = sims::at(new_out, ss.e[19], z);
+    have_out = sims::at(have_out, ss.e[20], z);
+    fwd_out = sims::at(fwd_out, ss.e[21], z);
+    mesh_t_out = sims::at(mesh_t_out, ss.e[22], z);
+    extra_out = sims::at(extra_out, ss.e[23], z);
+  }
   const int n = L.n, nk = L.k, w = L.w;
   const long long r0 = (long long)blockIdx.x * L.rows;
   const int nrows = n - r0 < L.rows ? (int)(n - r0) : L.rows;
@@ -266,35 +315,100 @@ __global__ void __launch_bounds__(banded::kThreads) fused_delivery_kernel(
 template <typename V>
 void launch_exchange(const void* wire, const void* scores, const void* live,
                      const void* offrev, void* wire_out, void* score_out, int n,
-                     int k, int nv, int score_enabled, cudaStream_t stream) {
+                     int k, int nv, int score_enabled, int s, sims::Batched ss,
+                     cudaStream_t stream) {
   const int bx = nv < kExchangeThreads / k ? nv : kExchangeThreads / k;
   int bz = kExchangeThreads / (bx * k);
   bz = bz > kMaxBlockRows ? kMaxBlockRows : bz;
   const dim3 block((unsigned)bx, (unsigned)k, (unsigned)bz);
-  edge_exchange_kernel<V><<<(unsigned)((n + bz - 1) / bz), block, 0, stream>>>(
+  const unsigned gx = (unsigned)((n + bz - 1) / bz);
+  if (s == 1) {
+    edge_exchange_kernel<V, false><<<gx, block, 0, stream>>>(
+        (const V*)wire, (const float*)scores, (const uint32_t*)live, (const int*)offrev,
+        (V*)wire_out, (float*)score_out, n, k, nv, score_enabled, sims::Strides<false>{});
+    return;
+  }
+  // the wire strides in vectors
+  const long long per = (long long)(sizeof(V) / sizeof(uint32_t));
+  ss.e[0] /= per;
+  ss.e[4] /= per;
+  edge_exchange_kernel<V, true><<<dim3(gx, (unsigned)s), block, 0, stream>>>(
       (const V*)wire, (const float*)scores, (const uint32_t*)live, (const int*)offrev,
-      (V*)wire_out, (float*)score_out, n, k, nv, score_enabled);
+      (V*)wire_out, (float*)score_out, n, k, nv, score_enabled, ss);
 }
 
 }  // namespace
+
+// edge_exchange over S sims: the strides of its 6 pointers (wire, scores,
+// live, offrev, wire_out, score_out)
+extern "C" int edge_exchange_sims(
+    const void* wire, const void* scores, const void* live, const void* offrev,
+    void* wire_out, void* score_out, int n, int k, int c, int score_enabled, int s,
+    const long long* strides, void* stream) {
+  if (k > kMaxK || k <= 0 || c <= 0 || n <= 0 || s <= 0 || s > 65535)
+    return (int)cudaErrorInvalidValue;
+  const sims::Batched ss = sims::load(strides, 6);
+  // the widest vectors a slot's C words, both wire pointers and (in a
+  // batched launch) both wire strides allow
+  const uintptr_t at = (uintptr_t)wire | (uintptr_t)wire_out;
+  const bool s4 = s == 1 || (ss.e[0] % 4 == 0 && ss.e[4] % 4 == 0);
+  const bool s2 = s == 1 || (ss.e[0] % 2 == 0 && ss.e[4] % 2 == 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (c % 4 == 0 && at % 16 == 0 && s4)
+    launch_exchange<uint4>(wire, scores, live, offrev, wire_out, score_out, n, k, c / 4,
+                           score_enabled, s, ss, st);
+  else if (c % 2 == 0 && at % 8 == 0 && s2)
+    launch_exchange<uint2>(wire, scores, live, offrev, wire_out, score_out, n, k, c / 2,
+                           score_enabled, s, ss, st);
+  else
+    launch_exchange<uint32_t>(wire, scores, live, offrev, wire_out, score_out, n, k, c,
+                              score_enabled, s, ss, st);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int edge_exchange_launch(
     const void* wire, const void* scores, const void* live, const void* offrev,
     void* wire_out, void* score_out, int n, int k, int c, int score_enabled,
     void* stream) {
-  if (k > kMaxK || k <= 0 || c <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  // the widest vectors a slot's C words and both wire pointers allow
-  const uintptr_t at = (uintptr_t)wire | (uintptr_t)wire_out;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (c % 4 == 0 && at % 16 == 0)
-    launch_exchange<uint4>(wire, scores, live, offrev, wire_out, score_out, n, k, c / 4,
-                           score_enabled, st);
-  else if (c % 2 == 0 && at % 8 == 0)
-    launch_exchange<uint2>(wire, scores, live, offrev, wire_out, score_out, n, k, c / 2,
-                           score_enabled, st);
+  return edge_exchange_sims(wire, scores, live, offrev, wire_out, score_out, n, k, c,
+                            score_enabled, 1, nullptr, stream);
+}
+
+// fused_delivery over S sims: the strides of its 24 pointers, in their order
+extern "C" int fused_delivery_sims(
+    const void* carry, const void* fe, const void* fwd, const void* mcw,
+    const void* nbrsc, const void* asked, const void* slo, const void* shi,
+    const void* flags, const void* have, const void* origin,
+    const void* joined, const void* valid, const void* thr,
+    const void* offrev, void* trans_out, void* fe_out, void* slo_out,
+    void* shi_out, void* new_out, void* have_out, void* fwd_out,
+    void* mesh_t_out, void* extra_out, int n, int k, int w,
+    int score_enabled, int want_cohorts, int retrans_cap, int s,
+    const long long* strides, void* stream) {
+  if (k > kMaxK || k <= 0 || w <= 0 || n <= 0 || s <= 0 || s > 65535)
+    return (int)cudaErrorInvalidValue;
+  int cap = retrans_cap < 0 ? 0 : (retrans_cap > 3 ? 3 : retrans_cap);
+  const banded::Layout L = banded::make_layout(n, k, w, fused_staged(k), kFusedOwn);
+  const sims::Batched ss = sims::load(strides, 24);
+  const dim3 grid((unsigned int)((n + L.rows - 1) / L.rows),
+                  (unsigned int)((w + L.wb - 1) / L.wb), (unsigned int)s);
+#define FUSED_ARGS                                                              \
+  (const uint32_t*)carry, (const uint32_t*)fe, (const uint32_t*)fwd,           \
+      (const uint32_t*)mcw, (const float*)nbrsc, (const uint32_t*)asked,       \
+      (const uint32_t*)slo, (const uint32_t*)shi, (const uint32_t*)flags,      \
+      (const uint32_t*)have, (const uint32_t*)origin, (const uint32_t*)joined, \
+      (const uint32_t*)valid, (const float*)thr, (const int*)offrev,           \
+      (uint32_t*)trans_out, (uint32_t*)fe_out, (uint32_t*)slo_out,             \
+      (uint32_t*)shi_out, (uint32_t*)new_out, (uint32_t*)have_out,             \
+      (uint32_t*)fwd_out, (uint32_t*)mesh_t_out, (uint32_t*)extra_out, L,      \
+      score_enabled, want_cohorts, cap
+  if (s == 1)
+    fused_delivery_kernel<false><<<grid, banded::kThreads, L.smem_bytes,
+                                   (cudaStream_t)stream>>>(FUSED_ARGS, sims::Strides<false>{});
   else
-    launch_exchange<uint32_t>(wire, scores, live, offrev, wire_out, score_out, n, k, c,
-                              score_enabled, st);
+    fused_delivery_kernel<true><<<grid, banded::kThreads, L.smem_bytes,
+                                  (cudaStream_t)stream>>>(FUSED_ARGS, ss);
+#undef FUSED_ARGS
   return (int)cudaGetLastError();
 }
 
@@ -307,20 +421,9 @@ extern "C" int fused_delivery_launch(
     void* shi_out, void* new_out, void* have_out, void* fwd_out,
     void* mesh_t_out, void* extra_out, int n, int k, int w,
     int score_enabled, int want_cohorts, int retrans_cap, void* stream) {
-  if (k > kMaxK || k <= 0 || w <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  int cap = retrans_cap < 0 ? 0 : (retrans_cap > 3 ? 3 : retrans_cap);
-  const banded::Layout L = banded::make_layout(n, k, w, fused_staged(k), kFusedOwn);
-  const dim3 grid((unsigned int)((n + L.rows - 1) / L.rows),
-                  (unsigned int)((w + L.wb - 1) / L.wb));
-  fused_delivery_kernel<<<grid, banded::kThreads, L.smem_bytes, (cudaStream_t)stream>>>(
-      (const uint32_t*)carry, (const uint32_t*)fe, (const uint32_t*)fwd,
-      (const uint32_t*)mcw, (const float*)nbrsc, (const uint32_t*)asked,
-      (const uint32_t*)slo, (const uint32_t*)shi, (const uint32_t*)flags,
-      (const uint32_t*)have, (const uint32_t*)origin,
-      (const uint32_t*)joined, (const uint32_t*)valid, (const float*)thr,
-      (const int*)offrev, (uint32_t*)trans_out, (uint32_t*)fe_out,
-      (uint32_t*)slo_out, (uint32_t*)shi_out, (uint32_t*)new_out,
-      (uint32_t*)have_out, (uint32_t*)fwd_out, (uint32_t*)mesh_t_out,
-      (uint32_t*)extra_out, L, score_enabled, want_cohorts, cap);
-  return (int)cudaGetLastError();
+  return fused_delivery_sims(carry, fe, fwd, mcw, nbrsc, asked, slo, shi, flags, have,
+                             origin, joined, valid, thr, offrev, trans_out, fe_out,
+                             slo_out, shi_out, new_out, have_out, fwd_out, mesh_t_out,
+                             extra_out, n, k, w, score_enabled, want_cohorts, retrans_cap,
+                             1, nullptr, stream);
 }

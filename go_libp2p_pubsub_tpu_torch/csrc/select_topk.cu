@@ -46,13 +46,19 @@
 // themselves. The trap is a masked slot whose value is -inf: it ties with
 // every unmasked slot, which then outranks it on noise or index, so such a
 // row (one ballot finds it) takes a list of all K slots — the pairwise
-// count itself. Any K up to 256; above, cudaErrorInvalidValue. Each launch
-// returns cudaGetLastError().
+// count itself. Any K up to 256; above, cudaErrorInvalidValue.
+//
+// The sim axis (sims.cuh): select_topk_sims runs S simulations in one
+// launch, as S*R rows of the one-sim launch when every tensor is batched,
+// else with sim z on grid.y and each pointer moved by its sim stride. The
+// one-sim entry point is the S = 1 call. Each launch returns
+// cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "fnum.cuh"
+#include "sims.cuh"
 
 namespace {
 
@@ -94,14 +100,24 @@ __device__ __forceinline__ void count_at_or_below(int& n, const uint4& i, const 
 // P lanes a row, S slots a lane (K <= P*S). VEC: K == P*S and lane g holds
 // slots [g*S, g*S + S), loaded and stored as vectors (S = 2, 4 or 8);
 // otherwise slot s*P + g, one element a load.
-template <int P, int S, bool VEC>
+// kSims: sim blockIdx.y of a batched launch, its pointers moved by the
+// strides (in elements: values, mask, k_rows, noise, out).
+template <int P, int S, bool VEC, bool kSims>
 __global__ void __launch_bounds__(kThreads) select_topk_kernel(
     const float* __restrict__ values,    // [R, K]
     const uint8_t* __restrict__ mask,    // [R, K] bool
     const int* __restrict__ k_rows,      // [R]
     const float* __restrict__ noise,     // [R, K]
     uint8_t* __restrict__ out,           // [R, K] bool
-    int r, int k) {
+    int r, int k, const sims::Strides<kSims> ss) {
+  if constexpr (kSims) {
+    const long long z = blockIdx.y;
+    values = sims::at(values, ss.e[0], z);
+    mask = sims::at(mask, ss.e[1], z);
+    k_rows = sims::at(k_rows, ss.e[2], z);
+    noise = sims::at(noise, ss.e[3], z);
+    out = sims::at(out, ss.e[4], z);
+  }
   constexpr int kGroups = 32 / P;      // rows a warp
   constexpr int kStride = P * S + 1;   // list entries a row; +1 keeps rows on other banks
   __shared__ uint4 list[kWarps][kGroups * kStride];   // one 16-byte entry a slot
@@ -273,12 +289,18 @@ __global__ void __launch_bounds__(kThreads) select_topk_kernel(
 
 template <int P, int S, bool VEC>
 int launch(const void* values, const void* mask, const void* k_rows,
-           const void* noise, void* out, int r, int k, cudaStream_t stream) {
+           const void* noise, void* out, int r, int k, int s, const sims::Batched& ss,
+           cudaStream_t stream) {
   constexpr int rows_pb = kWarps * (32 / P);
   const unsigned int blocks = (unsigned int)((r + rows_pb - 1) / rows_pb);
-  select_topk_kernel<P, S, VEC><<<blocks, kThreads, 0, stream>>>(
-      (const float*)values, (const uint8_t*)mask, (const int*)k_rows,
-      (const float*)noise, (uint8_t*)out, r, k);
+  if (s == 1)
+    select_topk_kernel<P, S, VEC, false><<<blocks, kThreads, 0, stream>>>(
+        (const float*)values, (const uint8_t*)mask, (const int*)k_rows,
+        (const float*)noise, (uint8_t*)out, r, k, sims::Strides<false>{});
+  else
+    select_topk_kernel<P, S, VEC, true><<<dim3(blocks, (unsigned)s), kThreads, 0, stream>>>(
+        (const float*)values, (const uint8_t*)mask, (const int*)k_rows,
+        (const float*)noise, (uint8_t*)out, r, k, ss);
   return (int)cudaGetLastError();
 }
 
@@ -286,47 +308,74 @@ int launch(const void* values, const void* mask, const void* k_rows,
 // loads when the pointers allow them
 template <int P, int S>
 int launch_pow2(bool vec, const void* values, const void* mask,
-                const void* k_rows, const void* noise, void* out, int r, int k,
-                cudaStream_t stream) {
-  return vec ? launch<P, S, true>(values, mask, k_rows, noise, out, r, k, stream)
-             : launch<P, S, false>(values, mask, k_rows, noise, out, r, k, stream);
+                const void* k_rows, const void* noise, void* out, int r, int k, int s,
+                const sims::Batched& ss, cudaStream_t stream) {
+  return vec ? launch<P, S, true>(values, mask, k_rows, noise, out, r, k, s, ss, stream)
+             : launch<P, S, false>(values, mask, k_rows, noise, out, r, k, s, ss, stream);
 }
 
-}  // namespace
-
-extern "C" int select_topk_launch(const void* values, const void* mask,
-                                  const void* k_rows, const void* noise,
-                                  void* out, int r, int k, void* stream) {
-  if (r <= 0 || k <= 0 || k > kMaxK) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  // 16-byte vectors of values and noise, 4-byte words of mask and out
+int dispatch(const void* values, const void* mask, const void* k_rows, const void* noise,
+             void* out, int r, int k, int s, const sims::Batched& ss, cudaStream_t st) {
+  // 16-byte vectors of values and noise, 4-byte words of mask and out, in
+  // every sim
   const bool vec = ((uintptr_t)values % 16 == 0) && ((uintptr_t)noise % 16 == 0) &&
-                   ((uintptr_t)mask % 4 == 0) && ((uintptr_t)out % 4 == 0);
+                   ((uintptr_t)mask % 4 == 0) && ((uintptr_t)out % 4 == 0) &&
+                   (s == 1 || (ss.e[0] % 4 == 0 && ss.e[3] % 4 == 0 && ss.e[1] % 4 == 0 &&
+                               ss.e[4] % 4 == 0));
+#define ARGS values, mask, k_rows, noise, out, r, k, s, ss, st
   switch (k) {
-    case 4: return launch_pow2<1, 4>(vec, values, mask, k_rows, noise, out, r, k, st);
-    case 8: return launch_pow2<2, 4>(vec, values, mask, k_rows, noise, out, r, k, st);
-    case 16: return launch_pow2<4, 4>(vec, values, mask, k_rows, noise, out, r, k, st);
-    case 32: return launch_pow2<8, 4>(vec, values, mask, k_rows, noise, out, r, k, st);
-    case 64: return launch_pow2<32, 2>(vec, values, mask, k_rows, noise, out, r, k, st);
-    case 128: return launch_pow2<32, 4>(vec, values, mask, k_rows, noise, out, r, k, st);
-    case 256: return launch_pow2<32, 8>(vec, values, mask, k_rows, noise, out, r, k, st);
+    case 4: return launch_pow2<1, 4>(vec, ARGS);
+    case 8: return launch_pow2<2, 4>(vec, ARGS);
+    case 16: return launch_pow2<4, 4>(vec, ARGS);
+    case 32: return launch_pow2<8, 4>(vec, ARGS);
+    case 64: return launch_pow2<32, 2>(vec, ARGS);
+    case 128: return launch_pow2<32, 4>(vec, ARGS);
+    case 256: return launch_pow2<32, 8>(vec, ARGS);
     default: break;
   }
   // any other K: one slot a lane up to 32 (the row's group the next power
   // of two), S = ceil(K/32) slots a lane of a whole warp above
-  if (k <= 1) return launch<1, 1, false>(values, mask, k_rows, noise, out, r, k, st);
-  if (k <= 2) return launch<2, 1, false>(values, mask, k_rows, noise, out, r, k, st);
-  if (k <= 4) return launch<4, 1, false>(values, mask, k_rows, noise, out, r, k, st);
-  if (k <= 8) return launch<8, 1, false>(values, mask, k_rows, noise, out, r, k, st);
-  if (k <= 16) return launch<16, 1, false>(values, mask, k_rows, noise, out, r, k, st);
-  if (k <= 32) return launch<32, 1, false>(values, mask, k_rows, noise, out, r, k, st);
+  if (k <= 1) return launch<1, 1, false>(ARGS);
+  if (k <= 2) return launch<2, 1, false>(ARGS);
+  if (k <= 4) return launch<4, 1, false>(ARGS);
+  if (k <= 8) return launch<8, 1, false>(ARGS);
+  if (k <= 16) return launch<16, 1, false>(ARGS);
+  if (k <= 32) return launch<32, 1, false>(ARGS);
   switch ((k + 31) / 32) {
-    case 2: return launch<32, 2, false>(values, mask, k_rows, noise, out, r, k, st);
-    case 3: return launch<32, 3, false>(values, mask, k_rows, noise, out, r, k, st);
-    case 4: return launch<32, 4, false>(values, mask, k_rows, noise, out, r, k, st);
-    case 5: return launch<32, 5, false>(values, mask, k_rows, noise, out, r, k, st);
-    case 6: return launch<32, 6, false>(values, mask, k_rows, noise, out, r, k, st);
-    case 7: return launch<32, 7, false>(values, mask, k_rows, noise, out, r, k, st);
-    default: return launch<32, 8, false>(values, mask, k_rows, noise, out, r, k, st);
+    case 2: return launch<32, 2, false>(ARGS);
+    case 3: return launch<32, 3, false>(ARGS);
+    case 4: return launch<32, 4, false>(ARGS);
+    case 5: return launch<32, 5, false>(ARGS);
+    case 6: return launch<32, 6, false>(ARGS);
+    case 7: return launch<32, 7, false>(ARGS);
+    default: return launch<32, 8, false>(ARGS);
   }
+#undef ARGS
+}
+
+}  // namespace
+
+// select_topk over S sims of R rows each: the strides of its 5 pointers
+// (values, mask, k_rows, noise, out). Rows are independent, so when every
+// tensor is batched with its natural stride the S sims are S*R rows of the
+// one-sim launch (4.5% faster than grid.y at S=8, R=100k, K=16 on an H100:
+// chip_smoke.py phase 44 (b)); otherwise (a shared k_rows, say) sim z takes
+// grid.y.
+extern "C" int select_topk_sims(const void* values, const void* mask,
+                                const void* k_rows, const void* noise,
+                                void* out, int r, int k, int s,
+                                const long long* strides, void* stream) {
+  if (r <= 0 || k <= 0 || k > kMaxK || s <= 0 || s > 65535) return (int)cudaErrorInvalidValue;
+  const sims::Batched ss = sims::load(strides, 5);
+  const long long rk = (long long)r * k;
+  if (s > 1 && ss.e[0] == rk && ss.e[1] == rk && ss.e[2] == r && ss.e[3] == rk &&
+      ss.e[4] == rk && rk * s < (1LL << 31))
+    return dispatch(values, mask, k_rows, noise, out, r * s, k, 1, ss, (cudaStream_t)stream);
+  return dispatch(values, mask, k_rows, noise, out, r, k, s, ss, (cudaStream_t)stream);
+}
+
+extern "C" int select_topk_launch(const void* values, const void* mask,
+                                  const void* k_rows, const void* noise,
+                                  void* out, int r, int k, void* stream) {
+  return select_topk_sims(values, mask, k_rows, noise, out, r, k, 1, nullptr, stream);
 }

@@ -67,7 +67,7 @@ from ..config import (
 )
 from ..ops import bitset, edges
 from ..ops import fused_round as fr
-from ..ops.fnum import flush_f32
+from ..ops.fnum import bitcast, flush_f32
 from ..ops.select import (
     count_true,
     masked_width_random,
@@ -1530,7 +1530,7 @@ def control_exchange_coalesced(cfg: GossipSubConfig, net: Net, st: GossipSubStat
     kernel_route = net.band_off is not None and k <= fr.MAX_K
     if not kernel_route and cfg.score_enabled:
         # the reference's order: the score bits ride after the control words
-        named.insert(len(named) - 1, ("score", st.scores.view(torch.int32)[..., None]))
+        named.insert(len(named) - 1, ("score", bitcast(st.scores, torch.int32)[..., None]))
     names = [nm for nm, _ in named]
     sizes = np.cumsum([0] + [p.shape[-1] for _, p in named])
     words = torch.cat([p for _, p in named], dim=-1)
@@ -1550,7 +1550,7 @@ def control_exchange_coalesced(cfg: GossipSubConfig, net: Net, st: GossipSubStat
         return wire[..., int(sizes[i]): int(sizes[i + 1])]
 
     if not kernel_route and cfg.score_enabled:
-        nbr_score_of_me = torch.where(net.nbr_ok, seg("score")[..., 0].view(torch.float32),
+        nbr_score_of_me = torch.where(net.nbr_ok, bitcast(seg("score")[..., 0], torch.float32),
                                       0.0)
     graft_in_raw, prune_in_raw, ihave_in_raw, px_in_raw = control_unpack(
         cfg, net, lambda i: seg(("graft", "prune", "ihave", "px")[i]))

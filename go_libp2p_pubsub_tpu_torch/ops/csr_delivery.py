@@ -28,10 +28,15 @@ of any length, any W and the deny mask are taken; the source says how.
 The wrapper launches the kernel for a CUDA tensor — or raises — and takes
 the plain PyTorch version (``csr_delivery_plain``, the reference's
 composite: flat gathers plus ``ops/csr.segment_or_scan`` with ``cap``)
-only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
+only for a CPU tensor. Under ``torch.func.vmap`` (the ensemble plane) the
+S sims take one launch, sim z on grid.z, the shared ``row_ptr``/``col``/
+``eperm`` at sim stride 0 (``kernels.sim_launch``). ``LAUNCHES`` counts
+kernel launches, a batched one once.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -86,8 +91,32 @@ def _lib():
     lib = kernels.load("delivery")
     if not getattr(lib, "_csr_bound", False):
         kernels.bind(lib, "csr_delivery_launch", 20, 3)
+        kernels.bind_sims(lib, "csr_delivery_sims", 20, 3)
         lib._csr_bound = True
     return lib
+
+
+def _run(args, dims, s, *, n, e, w, m):
+    """One launch of the kernel (``kernels.sim_launch``'s ``run``): the one
+    sim, or the S sims of a vmapped call at once."""
+    x, flags, strides = kernels.sim_views(args, dims, s)
+    dev = x[0].device
+    i32 = torch.int32
+    specs = (("fwd", i32, (n, w)), ("fe_e", i32, (e, w)), ("mask_e", i32, (e, w)),
+             ("not_mine", i32, (n, w)), ("have", i32, (n, w)), ("first_round", i32, (n, m)),
+             ("valid_row", i32, (1, w)), ("tick", i32, ()), ("col", i32, (e,)),
+             ("eperm", i32, (e,)), ("row_ptr", i32, (n + 1,)),
+             ("link_ok_e", torch.bool, (e,)))
+    for (name, dtype, shape), t, b in zip(specs, x, flags):
+        if t is not None:
+            kernels.check(t, name, dtype, kernels.sim_shape(b, s, shape), dev)
+    batched = dims is not None
+    outs = [torch.empty(kernels.sim_shape(batched, s, shape), dtype=i32, device=dev)
+            for shape in ((e, w), (n, w), (n, w), (n, w), (n, w), (n, m), (e, w), (e, w))]
+    kernels.launch(_lib(), "csr_delivery", (*x, *outs), (n, w, m), s=s, batched=batched,
+                   strides=strides + kernels.out_strides(outs, batched), device=dev)
+    LAUNCHES["csr_delivery"] += 1
+    return tuple(outs)
 
 
 def csr_delivery(fwd, fe_e, mask_e, not_mine, have, first_round, valid_row,
@@ -100,40 +129,19 @@ def csr_delivery(fwd, fe_e, mask_e, not_mine, have, first_round, valid_row,
     the plain version reduces with ``seg_start``/``row_last``/
     ``row_nonempty`` and the segment bound ``cap``). ``link_ok_e`` is an
     optional ``[E]`` bool deny mask. Returns the ``OUTPUTS`` dict of fresh
-    tensors."""
+    tensors. Under ``torch.func.vmap`` the S sims take one launch
+    (``kernels.sim_launch``)."""
     if not fwd.is_cuda:
         return csr_delivery_plain(fwd, fe_e, mask_e, not_mine, have, first_round,
                                   valid_row, tick, col, row, eperm, seg_start,
                                   row_last, row_nonempty, row_ptr, cap=cap,
                                   link_ok_e=link_ok_e)
-    dev = fwd.device
     n, w = fwd.shape
     e, m = fe_e.shape[0], first_round.shape[1]
     if n == 0 or bitset.n_words(m) != w:
         raise ValueError(f"csr_delivery: needs N > 0 and W = ceil(M/32), got "
                          f"N={n}, M={m}, W={w}")
-    i32 = torch.int32
-    for name, x in (("fe_e", fe_e), ("mask_e", mask_e)):
-        kernels.check(x, name, i32, (e, w), dev)
-    for name, x in (("not_mine", not_mine), ("have", have)):
-        kernels.check(x, name, i32, (n, w), dev)
-    kernels.check(fwd, "fwd", i32, (n, w), dev)
-    kernels.check(first_round, "first_round", i32, (n, m), dev)
-    kernels.check(valid_row, "valid_row", i32, (1, w), dev)
-    kernels.check(tick, "tick", i32, (), dev)
-    for name, x in (("col", col), ("eperm", eperm)):
-        kernels.check(x, name, i32, (e,), dev)
-    kernels.check(row_ptr, "row_ptr", i32, (n + 1,), dev)
-    if link_ok_e is not None:
-        kernels.check(link_ok_e, "link_ok_e", torch.bool, (e,), dev)
-    res = {"trans_e": torch.empty_like(fe_e), "recv": torch.empty_like(fwd),
-           "new": torch.empty_like(fwd), "have": torch.empty_like(fwd),
-           "fwd": torch.empty_like(fwd), "first_round": torch.empty_like(first_round),
-           "fe": torch.empty_like(fe_e), "fa_e": torch.empty_like(fe_e)}
-    ptrs = [kernels.ptr(x) for x in (
-        fwd, fe_e, mask_e, not_mine, have, first_round, valid_row, tick, col,
-        eperm, row_ptr, link_ok_e, *(res[k] for k in OUTPUTS))]
-    err = _lib().csr_delivery_launch(*ptrs, n, w, m, kernels.stream(dev))
-    kernels.raise_on(err, "csr_delivery")
-    LAUNCHES["csr_delivery"] += 1
-    return res
+    outs = kernels.sim_launch(functools.partial(_run, n=n, e=e, w=w, m=m), fwd, fe_e, mask_e,
+                              not_mine, have, first_round, valid_row, tick, col, eperm,
+                              row_ptr, link_ok_e)
+    return dict(zip(OUTPUTS, outs))

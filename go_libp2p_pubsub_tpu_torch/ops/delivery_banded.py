@@ -24,12 +24,16 @@ any W and any N.
 
 The wrapper launches the kernel for a CUDA tensor — or raises — and takes
 the plain PyTorch version (``delivery_banded_plain``) only for a CPU
-tensor. ``LAUNCHES`` counts kernel launches. Reference semantics:
+tensor. Under ``torch.func.vmap`` (the ensemble plane) the S sims take
+one launch, sim z on grid.z (``kernels.sim_launch``). ``LAUNCHES`` counts
+kernel launches, a batched one once. Reference semantics:
 floodsub.go:76-100 (forward to every topic peer except the source and the
 origin), pubsub.go:1076-1081 (seen-cache dedup).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -63,12 +67,37 @@ def delivery_banded_plain(fwd, fe, emask, not_mine, have, first_round,
     }
 
 
+#: the outputs of a round, in the kernel's order
+OUTPUTS = ("trans", "fe", "new", "have", "fwd", "first_round")
+
+
 def _lib():
     lib = kernels.load("delivery")
     if not getattr(lib, "_banded_bound", False):
         kernels.bind(lib, "delivery_banded_launch", 15, 4)
+        kernels.bind_sims(lib, "delivery_banded_sims", 15, 4)
         lib._banded_bound = True
     return lib
+
+
+def _run(args, dims, s, *, n, k, w, m):
+    """One launch of the kernel (``kernels.sim_launch``'s ``run``): the one
+    sim, or the S sims of a vmapped call at once."""
+    x, flags, strides = kernels.sim_views(args, dims, s)
+    dev = x[0].device
+    i32 = torch.int32
+    shapes = ((n, w), (n, k * w), (n, k * w), (n, w), (n, w), (n, m), (1, w), ())
+    for name, t, b, shape in zip(("fwd", "fe", "emask", "not_mine", "have", "first_round",
+                                  "valid_row", "tick"), x, flags, shapes):
+        kernels.check(t, name, i32, kernels.sim_shape(b, s, shape), dev)
+    batched = dims is not None
+    outs = [torch.empty(kernels.sim_shape(batched, s, shape), dtype=i32, device=dev)
+            for shape in ((n, k * w), (n, k * w), (n, w), (n, w), (n, w), (n, m))]
+    kernels.launch(_lib(), "delivery_banded", (*x, *outs), (n, k, w, m), s=s,
+                   batched=batched, strides=strides + kernels.out_strides(outs, batched),
+                   device=dev)
+    LAUNCHES["delivery_banded"] += 1
+    return tuple(outs)
 
 
 def delivery_banded(fwd, fe, emask, not_mine, have, first_round, valid_row,
@@ -78,31 +107,16 @@ def delivery_banded(fwd, fe, emask, not_mine, have, first_round, valid_row,
     zero on dead edges), ``not_mine`` the ``[N, W]`` words of messages a
     peer did not originate, ``valid_row`` ``[1, W]``, ``tick`` a 0-dim
     int32. Returns a dict of fresh tensors: trans, fe ``[N, K*W]``; new,
-    have, fwd ``[N, W]``; first_round ``[N, M]``."""
+    have, fwd ``[N, W]``; first_round ``[N, M]``. Under ``torch.func.vmap``
+    the S sims take one launch (``kernels.sim_launch``)."""
     if not fwd.is_cuda:
         return delivery_banded_plain(fwd, fe, emask, not_mine, have, first_round,
                                      valid_row, tick, offsets=offsets, revs=revs, w=w)
-    dev = fwd.device
     n, k, m = fwd.shape[0], len(offsets), first_round.shape[1]
     if k == 0 or n == 0 or bitset.n_words(m) != w:
         raise ValueError(f"delivery_banded: needs K > 0, N > 0 and W = ceil(M/32), "
                          f"got K={k}, N={n}, M={m}, W={w}")
-    i32 = torch.int32
-    for name, x in (("fe", fe), ("emask", emask)):
-        kernels.check(x, name, i32, (n, k * w), dev)
-    for name, x in (("fwd", fwd), ("not_mine", not_mine), ("have", have)):
-        kernels.check(x, name, i32, (n, w), dev)
-    kernels.check(first_round, "first_round", i32, (n, m), dev)
-    kernels.check(valid_row, "valid_row", i32, (1, w), dev)
-    kernels.check(tick, "tick", i32, (), dev)
-    res = {"trans": torch.empty_like(fe), "fe": torch.empty_like(fe),
-           "new": torch.empty_like(fwd), "have": torch.empty_like(fwd),
-           "fwd": torch.empty_like(fwd), "first_round": torch.empty_like(first_round)}
-    ptrs = [kernels.ptr(x) for x in (
-        fwd, fe, emask, not_mine, have, first_round, valid_row, tick,
-        kernels.offrev(offsets, revs, dev), res["trans"], res["fe"], res["new"],
-        res["have"], res["fwd"], res["first_round"])]
-    err = _lib().delivery_banded_launch(*ptrs, n, k, w, m, kernels.stream(dev))
-    kernels.raise_on(err, "delivery_banded")
-    LAUNCHES["delivery_banded"] += 1
-    return res
+    offrev = kernels.offrev(offsets, revs, fwd.device)
+    outs = kernels.sim_launch(functools.partial(_run, n=n, k=k, w=w, m=m), fwd, fe, emask,
+                              not_mine, have, first_round, valid_row, tick, offrev)
+    return dict(zip(OUTPUTS, outs))

@@ -15,6 +15,10 @@ XLA:CPU also contracts a multiply into the add that consumes it, inside
 one fused loop, to a fused multiply-add: one rounding where the written
 order has two. ``fma_f32`` computes that exactly, and the score path uses
 it where the JAX package's compiled score loop fuses (``score/engine.py``).
+
+``bitcast`` reinterprets a tensor's bits as another dtype of the same
+width, also on a tensor ``torch.func.vmap`` batched (the ensemble plane),
+which some PyTorch releases refuse for ``view(dtype)``.
 """
 
 from __future__ import annotations
@@ -64,7 +68,35 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor) -> torch.
     s = p + c64
     t = s - p
     err = (p - (s - t)) + (c64 - t)          # s + err == p + c exactly
-    even = (s.view(torch.int64) & 1) == 0
+    even = (bitcast(s, torch.int64) & 1) == 0
     away = torch.where(err > 0, torch.full_like(s, math.inf), torch.full_like(s, -math.inf))
     s = torch.where((err != 0) & even, torch.nextafter(s, away), s)
     return s.float()
+
+
+class _Bitcast(torch.autograd.Function):
+    """``x.view(dtype)`` with a batching rule: the bits of a batched tensor
+    reinterpreted in place of its batch dimension, which stays where it is
+    (the dtypes have one width, so no dimension changes)."""
+
+    @staticmethod
+    def forward(x, dtype):
+        return x.view(dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, x, dtype):
+        return x.view(dtype), in_dims[0]
+
+
+def bitcast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x``'s bits as ``dtype``, which has the same element width: a plain
+    ``view(dtype)``, through a batching rule when vmap batched ``x``."""
+    if x.element_size() != dtype.itemsize:
+        raise ValueError(f"bitcast: {x.dtype} and {dtype} differ in width")
+    if torch._C._functorch.is_batchedtensor(x):
+        return _Bitcast.apply(x, dtype)
+    return x.view(dtype)

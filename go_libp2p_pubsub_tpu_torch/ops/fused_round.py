@@ -31,7 +31,9 @@ any W.
 
 Each wrapper launches its kernel for a CUDA tensor — or raises — and takes
 the plain PyTorch version (``*_plain``, built from rolls and bitwise ops)
-only for a CPU tensor. ``LAUNCHES`` counts kernel launches per wrapper.
+only for a CPU tensor. Under ``torch.func.vmap`` (the ensemble plane) the
+S sims take one launch of each kernel (``kernels.sim_launch``).
+``LAUNCHES`` counts kernel launches per wrapper, a batched one once.
 Reference semantics: gossipsub.go:943-1013 (push), floodsub.go:85-88 (echo
 and origin exclusion), pubsub.go:1076-1081 (dedup), gossipsub.go:679-716
 (IWANT service and retransmission cap), gossipsub.go:1096-1141 (control
@@ -39,6 +41,8 @@ piggyback).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -177,6 +181,8 @@ def _lib():
     if not getattr(lib, "_pubsub_bound", False):
         kernels.bind(lib, "edge_exchange_launch", 6, 4)
         kernels.bind(lib, "fused_delivery_launch", 24, 6)
+        kernels.bind_sims(lib, "edge_exchange_sims", 6, 4)
+        kernels.bind_sims(lib, "fused_delivery_sims", 24, 6)
         lib._pubsub_bound = True
     return lib
 
@@ -195,6 +201,33 @@ def _check_k(k: int, n: int):
         raise ValueError("empty peer axis")
 
 
+def _exchange_run(args, dims, s, *, n, k, c, score_enabled):
+    """One ``edge_exchange`` launch (``kernels.sim_launch``'s ``run``): the
+    one sim, or the S sims of a vmapped call at once."""
+    x, flags, strides = kernels.sim_views(args, dims, s)
+    wire_pack, scores, live_u32, offrev = x
+    dev = wire_pack.device
+    sh = lambda i, shape: kernels.sim_shape(flags[i], s, shape)
+    kernels.check(wire_pack, "wire_pack", torch.int32, sh(0, (n, k * c)), dev)
+    kernels.check(live_u32, "live_u32", torch.int32, sh(2, (n, k)), dev)
+    if score_enabled:
+        kernels.check(scores, "scores", torch.float32, sh(1, (n, k)), dev)
+    batched = dims is not None
+    wire_out = torch.empty(kernels.sim_shape(batched, s, (n, k * c)), dtype=torch.int32,
+                           device=dev)
+    outs = [wire_out]
+    if score_enabled:
+        outs.append(torch.empty(kernels.sim_shape(batched, s, (n, k)), dtype=torch.float32,
+                                device=dev))
+    score_out = outs[1] if score_enabled else None
+    kernels.launch(_lib(), "edge_exchange", (*x, wire_out, score_out),
+                   (n, k, c, int(score_enabled)), s=s, batched=batched,
+                   strides=strides + kernels.out_strides([wire_out, score_out], batched),
+                   device=dev)
+    LAUNCHES["edge_exchange"] += 1
+    return tuple(outs)
+
+
 def edge_exchange(wire_pack, scores, live_u32, *, offsets, revs, c,
                   score_enabled):
     """Merged control-wire gather + neighbor-score exchange (see module
@@ -203,24 +236,47 @@ def edge_exchange(wire_pack, scores, live_u32, *, offsets, revs, c,
     if not wire_pack.is_cuda:
         return edge_exchange_plain(wire_pack, scores, live_u32, offsets=offsets,
                                    revs=revs, c=c, score_enabled=score_enabled)
-    dev = wire_pack.device
     n, k = wire_pack.shape[0], len(offsets)
     _check_k(k, n)
-    kernels.check(wire_pack, "wire_pack", torch.int32, (n, k * c), dev)
-    kernels.check(live_u32, "live_u32", torch.int32, (n, k), dev)
-    if score_enabled:
-        kernels.check(scores, "scores", torch.float32, (n, k), dev)
-    wire_out = torch.empty_like(wire_pack)
-    score_out = (torch.empty((n, k), dtype=torch.float32, device=dev)
-                 if score_enabled else None)
-    ptrs = [kernels.ptr(t) for t in (
+    outs = kernels.sim_launch(
+        functools.partial(_exchange_run, n=n, k=k, c=c, score_enabled=score_enabled),
         wire_pack, scores if score_enabled else None, live_u32,
-        kernels.offrev(offsets, revs, dev), wire_out, score_out)]
-    err = _lib().edge_exchange_launch(*ptrs, n, k, c, int(score_enabled),
-                                      kernels.stream(dev))
-    kernels.raise_on(err, "edge_exchange")
-    LAUNCHES["edge_exchange"] += 1
-    return wire_out, score_out
+        kernels.offrev(offsets, revs, wire_pack.device))
+    return outs[0], (outs[1] if score_enabled else None)
+
+
+#: fused_delivery's outputs, in the kernel's order (the cohorts last)
+FUSED_OUTPUTS = ("trans", "fe", "served_lo", "served_hi", "new", "have", "fwd",
+                 "mesh_trans", "extra")
+
+
+def _delivery_run(args, dims, s, *, n, k, w, score_enabled, want_cohorts, retrans_cap):
+    """One ``fused_delivery`` launch (``kernels.sim_launch``'s ``run``):
+    the one sim, or the S sims of a vmapped call at once."""
+    x, flags, strides = kernels.sim_views(args, dims, s)
+    dev = x[0].device
+    i32 = torch.int32
+    kw = k * w
+    specs = (("carry_out", i32, (n, kw)), ("fe_words", i32, (n, kw)), ("fwd", i32, (n, w)),
+             ("mcache_win", i32, (n, w)), ("nbr_score", torch.float32, (n, k)),
+             ("asked", i32, (n, kw)), ("served_lo", i32, (n, kw)),
+             ("served_hi", i32, (n, kw)), ("flags", i32, (n, k)), ("have", i32, (n, w)),
+             ("origin_w", i32, (n, w)), ("joined_w", i32, (n, w)),
+             ("valid_row", i32, (1, w)), ("thr_row", torch.float32, (1, 2)))
+    for (name, dtype, shape), t, b in zip(specs, x, flags):
+        if t is not None:
+            kernels.check(t, name, dtype, kernels.sim_shape(b, s, shape), dev)
+    batched = dims is not None
+    shapes = [(n, kw)] * 4 + [(n, w)] * 3 + ([(n, kw)] * 2 if want_cohorts else [])
+    outs = [torch.empty(kernels.sim_shape(batched, s, shape), dtype=i32, device=dev)
+            for shape in shapes]
+    ptr_outs = outs + [None] * (len(FUSED_OUTPUTS) - len(outs))
+    kernels.launch(_lib(), "fused_delivery", (*x, *ptr_outs),
+                   (n, k, w, int(score_enabled), int(want_cohorts), int(retrans_cap)), s=s,
+                   batched=batched, strides=strides + kernels.out_strides(ptr_outs, batched),
+                   device=dev)
+    LAUNCHES["fused_delivery"] += 1
+    return tuple(outs)
 
 
 def fused_delivery(carry_out, fe_words, fwd, mcache_win, nbr_score, asked,
@@ -234,7 +290,9 @@ def fused_delivery(carry_out, fe_words, fwd, mcache_win, nbr_score, asked,
     host floats (``gossip_thr``, ``publish_thr``: a constant row kept per
     value) or, from a lifted plane, ``thr_row``, a float32 ``[1, 2]`` row
     on the device, which the kernel reads as it stands: no host read, so a
-    captured window replays any plane's thresholds."""
+    captured window replays any plane's thresholds. Under
+    ``torch.func.vmap`` the S sims take one launch (``kernels.sim_launch``),
+    a stacked plane's ``thr_row`` one row a sim."""
     kw_args = dict(offsets=offsets, revs=revs, w=w, score_enabled=score_enabled,
                    want_cohorts=want_cohorts, retrans_cap=retrans_cap, thr_row=thr_row)
     if not fwd.is_cuda:
@@ -245,40 +303,14 @@ def fused_delivery(carry_out, fe_words, fwd, mcache_win, nbr_score, asked,
     dev = fwd.device
     n, k = fwd.shape[0], len(offsets)
     _check_k(k, n)
-    kw = k * w
-    i32 = torch.int32
-    for name, t in (("carry_out", carry_out), ("fe_words", fe_words),
-                    ("asked", asked), ("served_lo", served_lo),
-                    ("served_hi", served_hi)):
-        kernels.check(t, name, i32, (n, kw), dev)
-    for name, t in (("fwd", fwd), ("mcache_win", mcache_win), ("have", have),
-                    ("origin_w", origin_w), ("joined_w", joined_w)):
-        kernels.check(t, name, i32, (n, w), dev)
-    kernels.check(flags, "flags", i32, (n, k), dev)
-    kernels.check(valid_row, "valid_row", i32, (1, w), dev)
-    if score_enabled:
-        kernels.check(nbr_score, "nbr_score", torch.float32, (n, k), dev)
     if thr_row is None:
         thr_row = _thr_row(gossip_thr, publish_thr, dev)
     else:
         thr_row = thr_row.contiguous()
-        kernels.check(thr_row, "thr_row", torch.float32, (1, 2), dev)
-    plane = lambda: torch.empty((n, kw), dtype=i32, device=dev)
-    row = lambda: torch.empty((n, w), dtype=i32, device=dev)
-    res = {"trans": plane(), "fe": plane(), "served_lo": plane(),
-           "served_hi": plane(), "new": row(), "have": row(), "fwd": row()}
-    if want_cohorts:
-        res["mesh_trans"] = plane()
-        res["extra"] = plane()
-    ptrs = [kernels.ptr(t) for t in (
-        carry_out, fe_words, fwd, mcache_win, nbr_score if score_enabled else None,
-        asked, served_lo, served_hi, flags, have, origin_w, joined_w, valid_row,
-        thr_row, kernels.offrev(offsets, revs, dev),
-        res["trans"], res["fe"], res["served_lo"], res["served_hi"], res["new"],
-        res["have"], res["fwd"], res.get("mesh_trans"), res.get("extra"))]
-    err = _lib().fused_delivery_launch(
-        *ptrs, n, k, w, int(score_enabled), int(want_cohorts), int(retrans_cap),
-        kernels.stream(dev))
-    kernels.raise_on(err, "fused_delivery")
-    LAUNCHES["fused_delivery"] += 1
-    return res
+    run = functools.partial(_delivery_run, n=n, k=k, w=w, score_enabled=score_enabled,
+                            want_cohorts=want_cohorts, retrans_cap=retrans_cap)
+    outs = kernels.sim_launch(
+        run, carry_out, fe_words, fwd, mcache_win, nbr_score if score_enabled else None,
+        asked, served_lo, served_hi, flags, have, origin_w, joined_w, valid_row, thr_row,
+        kernels.offrev(offsets, revs, dev))
+    return dict(zip(FUSED_OUTPUTS, outs))

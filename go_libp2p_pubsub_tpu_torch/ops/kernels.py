@@ -6,6 +6,13 @@ repository root (named by a hash of its source, the shared ``csrc/*.cuh``
 headers and the flags, so an edited source or header rebuilds), then
 loaded with ``ctypes``. Building happens at first
 use, never at import: the package imports on machines with no toolkit.
+
+The sim axis (the ensemble plane, ``ensemble/``): every kernel takes S
+simulations in one launch (``csrc/sims.cuh``). A wrapper hands its tensors
+to ``sim_launch``, whose batching rule under ``torch.func.vmap`` moves each
+batched tensor's sim axis to the front, gives an unbatched one sim stride
+0, allocates ``[S, ...]`` outputs and launches the kernel once for all S
+sims; outside vmap the same function launches the one-sim kernel.
 """
 
 from __future__ import annotations
@@ -94,6 +101,22 @@ def bind(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int):
     return f
 
 
+def bind_sims(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int):
+    """``lib.fn`` of a ``*_sims`` entry point with its ctypes signature set:
+    ``n_ptr`` pointers, ``n_int`` ints, then S, the host array of the
+    pointers' sim strides and the stream."""
+    f = getattr(lib, fn)
+    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                  + [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    f.restype = ctypes.c_int
+    return f
+
+
+def strides_arg(strides):
+    """The host array of sim strides a ``*_sims`` entry point takes."""
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
 def check(t, name: str, dtype, shape, device) -> None:
     """Raise unless ``t`` is a contiguous tensor of this dtype and shape on
     ``device``: the kernels take exactly that."""
@@ -138,3 +161,91 @@ def offrev(offsets, revs, device):
 def raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# the sim axis: one launch for the S sims of a vmapped call
+
+
+class _SimLaunch(torch.autograd.Function):
+    """A kernel wrapper's launch as a function torch.func.vmap can batch:
+    ``run(args, dims, s)`` launches the kernel on ``args`` and returns its
+    output tensors. Outside vmap ``dims`` is None and ``s`` 1 (the one-sim
+    launch); the batching rule passes the vmap's ``in_dims`` and batch
+    size, and ``run`` launches once for all S sims with ``[S, ...]``
+    outputs at out_dims 0."""
+
+    @staticmethod
+    def forward(run, *args):
+        return run(args, None, 1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, run, *args):
+        out = run(args, in_dims[1:], info.batch_size)
+        return out, (0,) * len(out)
+
+
+def _batched(x) -> bool:
+    return isinstance(x, torch.Tensor) and torch._C._functorch.is_batchedtensor(x)
+
+
+def sim_launch(run, *args) -> tuple:
+    """``run``'s outputs for ``args`` (a kernel wrapper's tensors and None
+    for an absent optional one): through ``_SimLaunch`` when vmap batched
+    one of them, so the batching rule launches once for the S sims;
+    straight to the one-sim launch otherwise."""
+    if any(_batched(a) for a in args):
+        return _SimLaunch.apply(run, *args)
+    return run(args, None, 1)
+
+
+def sim_views(args, dims, s: int):
+    """(tensors, batched flags, sim strides) of a launch's arguments: with
+    ``dims`` (a batched launch) each batched tensor has its sim axis moved
+    to the front and is made contiguous, its stride its per-sim element
+    count; an unbatched tensor, an absent one (None) and every tensor of a
+    one-sim launch have stride 0."""
+    out, flags, strides = [], [], []
+    for i, x in enumerate(args):
+        d = None if dims is None else dims[i]
+        if x is None or d is None:
+            out.append(x)
+            flags.append(False)
+            strides.append(0)
+            continue
+        x = x.movedim(d, 0).contiguous()
+        if x.shape[0] != s:
+            raise ValueError(f"sim axis of {x.shape[0]} != the vmap's batch size {s}")
+        out.append(x)
+        flags.append(True)
+        strides.append(x[0].numel())
+    return out, flags, strides
+
+
+def sim_shape(batched: bool, s: int, shape) -> tuple:
+    """A tensor's shape in a launch: ``[S, *shape]`` when batched."""
+    return ((s,) if batched else ()) + tuple(shape)
+
+
+def launch(lib, name: str, tensors, ints, *, s: int, batched: bool, strides, device) -> None:
+    """Launch kernel ``name`` of ``lib`` on ``tensors`` (its pointers in
+    order, None for a null one) and ``ints``: the one-sim ``{name}_launch``,
+    or with ``batched`` ``{name}_sims`` over S sims with the tensors' sim
+    strides."""
+    ptrs = [ptr(t) for t in tensors]
+    if batched:
+        err = getattr(lib, f"{name}_sims")(*ptrs, *ints, s, strides_arg(strides),
+                                           stream(device))
+    else:
+        err = getattr(lib, f"{name}_launch")(*ptrs, *ints, stream(device))
+    raise_on(err, name)
+
+
+def out_strides(outs, batched: bool) -> list:
+    """The sim strides of a launch's outputs (each ``[S, ...]`` when
+    batched; None, an absent output, 0)."""
+    return [x[0].numel() if batched and x is not None else 0 for x in outs]

@@ -28,10 +28,15 @@ So the kernel equals ``select_topk_plain`` bit for bit on any input. It
 takes any K up to ``MAX_K`` and raises above.
 
 The wrapper launches the kernel for a CUDA tensor — or raises — and takes the
-plain version only for a CPU tensor. ``LAUNCHES`` counts kernel launches.
+plain version only for a CPU tensor. Under ``torch.func.vmap`` (the
+ensemble plane) the S sims take one launch: S*R rows when every argument
+is batched, else a grid with a sim dimension (``kernels.sim_launch``).
+``LAUNCHES`` counts kernel launches, a batched one once.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -75,8 +80,26 @@ def _lib():
     lib = kernels.load("select_topk")
     if not getattr(lib, "_bound", False):
         kernels.bind(lib, "select_topk_launch", 5, 2)
+        kernels.bind_sims(lib, "select_topk_sims", 5, 2)
         lib._bound = True
     return lib
+
+
+def _run(args, dims, s, *, r, k):
+    """One launch of the kernel (``kernels.sim_launch``'s ``run``): the one
+    sim, or the S sims of a vmapped call at once."""
+    x, flags, strides = kernels.sim_views(args, dims, s)
+    dev = x[0].device
+    specs = (("values", torch.float32, (r, k)), ("mask", torch.bool, (r, k)),
+             ("k_rows", torch.int32, (r,)), ("noise", torch.float32, (r, k)))
+    for (name, dtype, shape), t, b in zip(specs, x, flags):
+        kernels.check(t, name, dtype, kernels.sim_shape(b, s, shape), dev)
+    batched = dims is not None
+    out = torch.empty(kernels.sim_shape(batched, s, (r, k)), dtype=torch.bool, device=dev)
+    kernels.launch(_lib(), "select_topk", (*x, out), (r, k), s=s, batched=batched,
+                   strides=strides + kernels.out_strides([out], batched), device=dev)
+    LAUNCHES["select_topk"] += 1
+    return (out,)
 
 
 def select_topk(values, mask, k_rows, noise):
@@ -85,7 +108,9 @@ def select_topk(values, mask, k_rows, noise):
     ``k_rows`` ``[R]`` int32 (any value: at or below 0 selects nothing,
     K or more every masked slot), ``noise`` float32, all contiguous on one
     device. Returns a fresh ``[R, K]`` bool tensor. The arguments are
-    checked on either device, so the CPU takes what the card takes."""
+    checked on either device, so the CPU takes what the card takes (on the
+    card inside the launch, on the tensors it is given: under
+    ``torch.func.vmap`` the S sims take one launch, ``kernels.sim_launch``)."""
     if values.dim() != 2 or not values.dtype.is_floating_point:
         raise ValueError(f"select_topk: values must be a 2-D float tensor, got "
                          f"{values.dtype} of shape {tuple(values.shape)}")
@@ -93,18 +118,13 @@ def select_topk(values, mask, k_rows, noise):
     if r == 0 or not 0 < k <= MAX_K:
         raise ValueError(f"select_topk: needs R > 0 rows and 1 <= K <= {MAX_K}, "
                          f"got R={r}, K={k}")
-    dev = values.device
     values = values.to(torch.float32)
+    if values.is_cuda:
+        return kernels.sim_launch(functools.partial(_run, r=r, k=k), values, mask, k_rows,
+                                  noise)[0]
+    dev = values.device
     kernels.check(values, "values", torch.float32, (r, k), dev)
     kernels.check(mask, "mask", torch.bool, (r, k), dev)
     kernels.check(k_rows, "k_rows", torch.int32, (r,), dev)
     kernels.check(noise, "noise", torch.float32, (r, k), dev)
-    if not values.is_cuda:
-        return select_topk_plain(values, mask, k_rows, noise)
-    out = torch.empty((r, k), dtype=torch.bool, device=dev)
-    err = _lib().select_topk_launch(
-        *(kernels.ptr(x) for x in (values, mask, k_rows, noise, out)), r, k,
-        kernels.stream(dev))
-    kernels.raise_on(err, "select_topk")
-    LAUNCHES["select_topk"] += 1
-    return out
+    return select_topk_plain(values, mask, k_rows, noise)

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from .ops.fnum import bitcast
+
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -88,7 +90,7 @@ def uniform(k: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in [0, 1) float32: the top 23 bits
     as the mantissa of a float in [1, 2), minus one."""
     bits = random_bits(k, shape)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    f = bitcast(((bits >> 9) | 0x3F800000).to(torch.int32), torch.float32)
     return f - 1.0
 
 
@@ -115,5 +117,5 @@ def uniform_rows(keys: torch.Tensor, shape) -> torch.Tensor:
     lo = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
     b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(lo), lo)
     bits = (b1 ^ b2).reshape((keys.shape[0],) + shape)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    f = bitcast(((bits >> 9) | 0x3F800000).to(torch.int32), torch.float32)
     return f - 1.0

@@ -1124,3 +1124,198 @@ def test_checked_window_on_the_card_equals_the_cpu(cuda, engine):
         assert np.array_equal(np.atleast_1d(a).view(np.uint8),
                               np.atleast_1d(out["cuda"][0][p]).view(np.uint8)), p
     assert torch.equal(out["cpu"][1], out["cuda"][1])
+
+
+# ---------------------------------------------------------------------------
+# the sim axis: one launch for S sims under torch.func.vmap
+
+SIMS = 3
+
+
+def _sims_case(cuda, name: str, seed: int):
+    """(fn, one sim's args, the positions every sim shares) of one kernel
+    wrapper on hazard inputs of ``seed``: each sim draws its own arguments
+    but the shared ones, which the vmap leaves unbatched (sim stride 0)."""
+    band = next(b for b in FUSED_BANDS if len(b["offsets"]) == 16)
+    rng = np.random.default_rng(seed)
+    to = lambda a: None if a is None else a.to(cuda)   # noqa: E731
+    n, k = band["n"], len(band["offsets"])
+    if name == "edge_exchange":
+        args = [to(_words(rng, n, k * 6)),
+                to(torch.from_numpy(rng.normal(0.0, 20.0, size=(n, k)).astype(np.float32))),
+                to(torch.from_numpy((np.random.default_rng(1).random((n, k)) < 0.8)
+                                    .astype(np.int32)))]
+        kw = dict(offsets=band["offsets"], revs=band["revs"], c=6, score_enabled=True)
+        return (lambda *a: fr.edge_exchange(*a, **kw)), args, {2}
+    if name == "fused_delivery":
+        args = [to(_np_tensor(a)) for a in hazard_fused_args(seed, band, 64)]
+        args[8] = to(_np_tensor(hazard_fused_args(1, band, 64)[8]))
+        kw = dict(offsets=band["offsets"], revs=band["revs"], w=2, score_enabled=True,
+                  want_cohorts=True, retrans_cap=2)
+        return (lambda *a: fr.fused_delivery(*a, -10.0, -50.0, **kw)), args, {8, 12}
+    if name == "delivery_banded":
+        args = [to(_np_tensor(a)) for a in hazard_banded_args(seed, band, 64)]
+        args[7] = torch.tensor(5, dtype=torch.int32, device=cuda)
+        return (lambda *a: db.delivery_banded(*a, offsets=band["offsets"], revs=band["revs"],
+                                              w=2)), args, {2, 7}
+    if name == "csr_delivery":
+        net = Net.build(topo.to_topology(topo.powerlaw(512, 2.2, 2, 64, seed=0), max_degree=64),
+                        graph.subscribe_all(512, 1), edge_layout="csr", device=cuda)
+        e = net.n_edges
+        args = [to(x) for x in (_words(rng, 512, 2), _words(rng, e, 2), _words(rng, e, 2),
+                                _words(rng, 512, 2), _words(rng, 512, 2),
+                                torch.from_numpy(rng.integers(-1, 50, size=(512, 64))
+                                                 .astype(np.int32)),
+                                _words(np.random.default_rng(2), 1, 2))]
+        args += [torch.tensor(seed, dtype=torch.int32, device=cuda),
+                 to(torch.from_numpy(rng.random(e) < 0.7))]
+        topo_args = (net.csr_col, net.csr_row, net.csr_eperm, net.csr_seg_start,
+                     net.csr_row_last, net.csr_row_nonempty, net.csr_row_ptr)
+
+        def fn(*a):
+            return cd.csr_delivery(*a[:8], *topo_args, cap=net.max_degree, link_ok_e=a[8])
+        return fn, args, {6}
+    if name.startswith("select_topk"):
+        args = [to(torch.from_numpy(a)) for a in (
+            rng.choice(np.array([-1.5, -0.0, 0.0, 0.5, 2.0], np.float32), size=(1000, 16)),
+            rng.random((1000, 16)) < 0.7,
+            np.random.default_rng(3).integers(-1, 18, size=(1000,)).astype(np.int32),
+            rng.choice(np.array([-0.0, 0.0, 0.25, 0.5], np.float32), size=(1000, 16)))]
+        # shared k_rows: the strided launch; every argument batched: S*R rows
+        return (lambda *a: sk.select_topk(*a)), args, ({2} if name == "select_topk" else set())
+    raise KeyError(name)
+
+
+def _flat_out(out):
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    if isinstance(out, (tuple, list)):
+        return list(out)
+    return [out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["edge_exchange", "fused_delivery", "delivery_banded",
+                                  "csr_delivery", "select_topk", "select_topk-folded"])
+def test_batched_launch_equals_single_launches(cuda, name):
+    """Each kernel vmapped over S = 3 sims launches once and writes, sim for
+    sim, what three one-sim launches write, bit for bit; the shared
+    arguments (left unbatched by the vmap) are read at sim stride 0. Also
+    inside a captured graph."""
+    from torch_parity import graph_replay_equals_eager
+
+    from go_libp2p_pubsub_tpu_torch.driver import launch_counts
+
+    cases = [_sims_case(cuda, name, 10 + z) for z in range(SIMS)]
+    fn, _, shared = cases[0]
+    for _, args, _ in cases[1:]:
+        for i in shared:
+            args[i] = cases[0][1][i]
+    singles = [_flat_out(fn(*args)) for _, args, _ in cases]
+    base = cases[0][1]
+    in_dims = tuple(None if i in shared else 0 for i in range(len(base)))
+    stacked = [base[i] if i in shared else torch.stack([c[1][i] for c in cases])
+               for i in range(len(base))]
+    before = dict(launch_counts())
+    got = _flat_out(torch.func.vmap(fn, in_dims=in_dims)(*stacked))
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    assert moved == {name.partition("-")[0]: 1}
+    for z in range(SIMS):
+        for i, (a, b) in enumerate(zip(singles[z], got)):
+            assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                               b[z].view(torch.int32) if b.is_floating_point() else b[z]), (z, i)
+    batched = lambda: torch.func.vmap(fn, in_dims=in_dims)(*stacked)   # noqa: E731
+    assert graph_replay_equals_eager(batched) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["per-round", "phase"])
+def test_lifted_window_equals_eager_loop(cuda, engine):
+    """A lifted ensemble step (S = 3) on the card: its eager loop makes no
+    host sync, launches each kernel as often as the one-sim step does, and
+    a run window over it (one capture) ends where the eager loop ends."""
+    from go_libp2p_pubsub_tpu_torch import driver, ensemble
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n, r = 512, (8 if engine == "phase" else 1)
+    dispatches = 4
+    po, pt, pv = (torch.as_tensor(a, device=cuda)
+                  for a in sweep.publish_schedule(dispatches * r, n, 1, seed=2))
+    if r > 1:
+        po, pt, pv = (a.reshape(dispatches, r, -1) for a in (po, pt, pv))
+    hb = [True] if r > 1 else None
+    kw = {"do_heartbeat": True} if r > 1 else {}
+    st, step, _t, _h = sweep.build_bench(n, 64, rounds_per_phase=r, device=cuda)
+    ens = ensemble.lift_step(step)
+    row = lambda d: tuple(ensemble.tile(a[d], SIMS) for a in (po, pt, pv))  # noqa: E731
+    eager = ensemble.batch_states(st, SIMS)
+    eager = ens(eager, *row(0), **kw)
+    torch.cuda.synchronize()
+    before = dict(driver.launch_counts())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = ens(eager, *row(1), **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    batched = {k: v - before[k] for k, v in driver.launch_counts().items()}
+    one = ensemble.with_sim_key(st, st.core.key, 0)
+    one = step(one, po[0], pt[0], pv[0], **kw)
+    before = dict(driver.launch_counts())
+    one = step(one, po[1], pt[1], pv[1], **kw)
+    assert batched == {k: v - before[k] for k, v in driver.launch_counts().items()}
+    for d in range(2, dispatches):
+        eager = ens(eager, *row(d), **kw)
+    win = driver.make_window(ens, heartbeat=hb)
+    xs = tuple(torch.stack([ensemble.tile(a[d], SIMS) for d in range(dispatches)])
+               for a in (po, pt, pv))
+    end, _ = win(ensemble.batch_states(st, SIMS), xs)
+    assert win.captures == 1
+    for a, b in zip(driver._leaves(eager), driver._leaves(end)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["churn-per-round", "churn-phase", "overlay-dense",
+                                  "overlay-csr", "px"])
+def test_lifted_dynamic_steps_on_the_card(cuda, cell):
+    """Dynamic peers (a fifth of the peers down and back), the mutating
+    overlay (a churn storm's writes) and PX as S = 2 ensembles on the card:
+    each sim equals its one-sim run under ``with_sim_key`` on every leaf
+    (the scatters with a spill slot, ``state._scatter_drop`` and
+    ``topo.dynamics._drop_index``, batched)."""
+    from go_libp2p_pubsub_tpu_torch import driver, ensemble
+    from go_libp2p_pubsub_tpu_torch.perf import sweep
+
+    n, s, rounds = 512, 2, 16
+    po, pt, pv = (torch.as_tensor(a, device=cuda) for a in sweep.publish_schedule(rounds, n, 1))
+    kind, _, what = cell.partition("-")
+    kw = {}
+    if kind == "churn":
+        r = 8 if what == "phase" else 1
+        st, step, _t, _h = sweep.build_bench(n, 64, rounds_per_phase=r, device=cuda,
+                                             dynamic_peers=True)
+        up = torch.as_tensor(sweep.churn_up(n, rounds=rounds, down_at=2, up_at=10), device=cuda)
+        if r > 1:
+            kw = {"do_heartbeat": True}
+            rows = [(po[8 * p:8 * p + 8], pt[8 * p:8 * p + 8], pv[8 * p:8 * p + 8], up[8 * p])
+                    for p in range(rounds // 8)]
+        else:
+            rows = [(po[i], pt[i], pv[i], up[i]) for i in range(rounds)]
+    elif kind == "overlay":
+        st, step, storm, _s = sweep.build_overlay(n, 64, rounds, edge_layout=what, device=cuda)
+        writes, upw = (torch.as_tensor(a, device=cuda) for a in storm.build())
+        rows = [(po[i], pt[i], pv[i], upw[i], writes[i]) for i in range(rounds)]
+    else:
+        st, step, _t, _h = sweep.build_bench(n, 64, px=True, device=cuda)
+        rows = [(po[i], pt[i], pv[i]) for i in range(rounds)]
+    ens = ensemble.lift_step(step)
+    batched = ensemble.batch_states(st, s)
+    for row in rows:
+        batched = ens(batched, *(ensemble.tile(x, s) for x in row), **kw)
+    for i in range(s):
+        one = ensemble.with_sim_key(st, st.core.key, i)
+        for row in rows:
+            one = step(one, *row, **kw)
+        for a, b in zip(driver._leaves(one), driver._leaves(ensemble.unbatch(batched, i))):
+            assert torch.equal(a, b)
