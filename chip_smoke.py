@@ -375,7 +375,33 @@ last line is printed:
    >= 0.99, CHOKE > 0, tail_cut > 0), and phase 43's C and D cells at
    N=100k as S=4 ensembles over 64 rounds, their per-sim paired p95
    printed. Each kernel record gains ``ensemble``: its S=8 batched time
-   and bound, its launches in (a), its launches in (b)'s block.
+   and bound, its launches in (a), its launches in (b)'s block;
+45. the supervised service loop (serve/, before the profiler phase). (a)
+   the ``_child`` cell (GossipSub on random_connect(8192, 4), loss 0.1,
+   scores and counters) supervised on the card and on the CPU, 32
+   dispatches in segments of 8, the probes, the checker every 4 and a
+   checkpoint every segment: equal digests, one capture, select_topk alone
+   launched, 11 a counted dispatch (warm-up and capture; a replay counts
+   nothing); the degradation ladder on the card (two failures past
+   max_retries=1: the segment halves to 4 and the run completes in the
+   same digest, one capture a window shape). (b) the bench default at
+   N=100k (phase engine r=8, form_mesh, 32 phases in segments of 8), the
+   probes and the checker every 2 phases (all but backoff-clears,
+   SERVE_FULL_SKIPPED): the final digest equals a bare segmented
+   WindowRunner's with the same checker folded in, one capture, a replay block launching what the bare
+   window's does (edge_exchange 1 + r and select_topk 8 a phase); timed
+   warm in turns (bare, supervised, supervised, bare, twice) with one
+   checkpoint at the end, the overhead share of the medians (the
+   supervision's own: both sides fold the checker in) printed beside the
+   reference's 10% ceiling; the every-segment checkpoint cadence's rate and each save's
+   bytes and seconds. (c) the (b) run with a NaN in ``scores`` after
+   dispatch 3 of segment 1 and two transient failures of segment 2: the
+   bundle names global dispatch 11, two retries, (b)'s digest. (d) a
+   ``python -m go_libp2p_pubsub_tpu_torch.serve._child --device cuda`` at
+   (a)'s arguments SIGKILLed mid-write of segment 1's checkpoint and run
+   again: it resumes at dispatch 8 in (a)'s digest (two processes). Each
+   kernel record gains ``serve_launches``: its launches in (a) and in
+   (b)'s block.
 
 It prints the ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
@@ -677,7 +703,7 @@ def check_kernels(fr, captured, gen, base):
             + torch.tensor(kw["revs"], device=wire.device)[None, :]).reshape(-1)
     flat = wire.view(n * k, c)
     keep_call("edge_exchange", args, kw)
-    launch = prepared(fr._lib(), "edge_exchange_launch",
+    launch = prepared(fr._lib(), "edge_exchange_sims",
                       lambda: fr.edge_exchange(*args, **kw))
     rec = {
         "name": "edge_exchange", "route": "cuda", "source": KERNEL_SOURCE,
@@ -717,7 +743,7 @@ def check_kernels(fr, captured, gen, base):
     io = nbytes(*[t for t in args if hasattr(t, "numel")], *res.values())
     ops = 40 * n * k * w               # word ops per (peer, edge, word)
     keep_call("fused_delivery", args, kw)
-    launch = prepared(fr._lib(), "fused_delivery_launch",
+    launch = prepared(fr._lib(), "fused_delivery_sims",
                       lambda: fr.fused_delivery(*args, **kw))
     rec = {
         "name": "fused_delivery", "route": "cuda", "source": KERNEL_SOURCE,
@@ -946,7 +972,7 @@ def flood_run(sweep, convert, module, name, spec, card, gen, dev, base):
     args, kw = captured[name]
     err, io, ops = check_flood_kernel(module, name, args, kw, gen)
     keep_call(name, args, kw)
-    launch = prepared(module._lib(), f"{name}_launch",
+    launch = prepared(module._lib(), f"{name}_sims",
                       lambda: getattr(module, name)(*args, **kw))
     rec = {
         "name": name, "route": "cuda", "source": DELIVERY_SOURCE,
@@ -1094,7 +1120,7 @@ def check_select_topk(sk, captured, gen, base):
         io = r * k * 10 + 4 * r        # value, noise f32 + mask, out bytes; k_rows
         # the least work ranks each row by sorting: K log2 K compares
         ops = r * k * max(1, (k - 1).bit_length())
-        launch = prepared(sk._lib(), "select_topk_launch", lambda: sk.select_topk(*args))
+        launch = prepared(sk._lib(), "select_topk_sims", lambda: sk.select_topk(*args))
         rec = {
             "max_abs_err": err,
             **kernel_times(launch, base and base["select_topk"]),
@@ -1273,7 +1299,7 @@ def check_px_delivery(fr, call, gen, base, label: str = "PX") -> dict:
         err = max(err, max_abs_err([ref[x] for x in names], [got[x] for x in names]))
     res = fr.fused_delivery(*args, **kw)
     io = nbytes(*[t for t in args if hasattr(t, "numel")], *res.values())
-    launch = prepared(fr._lib(), "fused_delivery_launch", lambda: fr.fused_delivery(*args, **kw))
+    launch = prepared(fr._lib(), "fused_delivery_sims", lambda: fr.fused_delivery(*args, **kw))
     rec = {"max_abs_err": err, **kernel_times(launch, base and base["fused_round"]),
            "plain_ms": batch_ms(lambda: fr.fused_delivery_plain(*args, **kw)),
            **bound(io, 40 * n * k * w), "library_ms": None}
@@ -1891,7 +1917,7 @@ def check_phase_exchange(fr, calls, gen, base, label: str = "phase") -> dict:
                   + torch.tensor(kw["offsets"], device=wire.device)[None, :]) % n) * k
                 + torch.tensor(kw["revs"], device=wire.device)[None, :]).reshape(-1)
         flat = wire.view(n * k, c)
-        launch = prepared(fr._lib(), "edge_exchange_launch",
+        launch = prepared(fr._lib(), "edge_exchange_sims",
                           lambda: fr.edge_exchange(*args, **kw))
         rec = {"c": c, "scores": bool(kw["score_enabled"]), "max_abs_err": err,
                **kernel_times(launch, base and base["fused_round"]),
@@ -2544,7 +2570,7 @@ def randomsub_scale(sweep, driver, convert, counters, dev, card, name: str, spec
         raise AssertionError(f"RandomSub {name}: a message 4+ rounds old reached only its origin")
     args, skw = calls[(sk, "select_topk")][0]
     r_rows, k = args[0].shape
-    launch = prepared(sk._lib(), "select_topk_launch", lambda: sk.select_topk(*args, **skw))
+    launch = prepared(sk._lib(), "select_topk_sims", lambda: sk.select_topk(*args, **skw))
     draw = {"rows": r_rows, "k": k, "target": int(args[2].max()),
             **kernel_times(launch), "plain_ms": batch_ms(lambda: sk.select_topk_plain(*args)),
             **bound(r_rows * k * 10 + 4 * r_rows, r_rows * k * max(1, (k - 1).bit_length())),
@@ -2959,7 +2985,8 @@ def plane_engines_parity(sweep, convert, dev) -> None:
 
 
 
-TRACE_DIR = os.path.join("build", "chip_smoke")   # under the checkout (git-ignored)
+#: under the checkout (git-ignored), wherever the script is run from
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 TRACE_BUFFER = 1 << 21          # records a sink holds: a full-width emit_init is 2N
 TRACE_PARITY_ROUNDS = 8         # rounds of a card-against-CPU trace cell (the phase
                                 # engine: one phase; the flood cells fewer, below)
@@ -3666,7 +3693,8 @@ CHAOS_PARITY = {"iid": dict(loss_rate=0.35),
 #: 4 rounds, about 7% of the links bad)
 CHAOS_FULL = {"iid": dict(loss_rate=0.1),
               "ge": dict(generator="ge", ge_p_down=0.02, ge_p_up=0.25)}
-CHAOS_PARITY_ROUNDS = 8       # per-round dispatches of a parity cell (phases: 2)
+CHAOS_PARITY_ROUNDS = 4       # per-round dispatches of a parity cell (phases: 2; 8 before phase 45)
+CHAOS_PARTITION_ROUNDS = 8    # the per-round partition cell: 4 rounds before the cut, 4 inside
 CHAOS_FULL_ROUNDS = 16        # rounds of a timed full-width segment (2 phases)
 #: the full-width partition: ticks of the cut (the phases at ticks 24-48
 #: after form_mesh), then the heal and enough phases for a pruned
@@ -3812,8 +3840,8 @@ def chaos_parity(sweep, driver, convert, dev, counters) -> dict:
         rounds_per_phase=r, heartbeat_every=r, link_deny=deny[r + i * r:r + (i + 1) * r])
     out["per-round partition"] = plane_card_cpu(
         convert, counters, "chaos per-round partition", bench(ChaosConfig(
-            **CHAOS_PARITY["iid"], scheduled=True)), sched_round, nr,
-        _route(nr, delivery_banded=1, select_topk=sel), links_went_down)
+            **CHAOS_PARITY["iid"], scheduled=True)), sched_round, CHAOS_PARTITION_ROUNDS,
+        _route(CHAOS_PARTITION_ROUNDS, delivery_banded=1, select_topk=sel), links_went_down)
     out["phase partition"] = plane_card_cpu(
         convert, counters, "chaos phase partition", bench(ChaosConfig(
             **CHAOS_PARITY["ge"], scheduled=True), r), sched_phase, 2,
@@ -4114,6 +4142,7 @@ def chaos_partition(driver, dev, card, counters) -> dict:
 
 #: the parity cells' population: every behaviour, a fifth of the peers
 #: from a ramped onset, censoring every seventh peer's messages
+ATTACK_PARITY_ROUNDS = 8       # per-round dispatches of an attack parity cell (phases: 2)
 ATTACK_PARITY = dict(sybil_fraction=0.2, onset=2, ramp_rounds=2, seed=3)
 #: scripts/attack_report.py's sybil-flood cell (its fraction, behaviours,
 #: onset and loss) on the bench default config; 2 honest publishes a round
@@ -4153,7 +4182,7 @@ def attack_parity(sweep, driver, convert, dev, counters) -> dict:
     from go_libp2p_pubsub_tpu_torch.telemetry import TelemetryConfig, reconcile
     from go_libp2p_pubsub_tpu_torch.trace.events import EV
 
-    n, r, nr, wr = N_PARITY, PHASE_R, CHAOS_PARITY_ROUNDS, CONFIG_WINDOW_ROUNDS
+    n, r, nr, wr = N_PARITY, PHASE_R, ATTACK_PARITY_ROUNDS, CONFIG_WINDOW_ROUNDS
     tel = TelemetryConfig(rows=nr, tracked=(0, n // 2))
     scenario = AttackScenario(n_peers=n, behaviors=BEHAVIORS,
                               censor_origins=tuple(range(0, n, 7)), **ATTACK_PARITY)
@@ -5776,7 +5805,7 @@ def ensemble_kernel_times(dev, card) -> dict:
         want, got = outputs_of(one()), outputs_of(many())
         torch.cuda.synchronize()
         err = max(max_abs_err(want, [g[z] for g in got]) for z in range(s))
-        launch1 = prepared(mod._lib(), f"{name}_launch", one)
+        launch1 = prepared(mod._lib(), f"{name}_sims", one)
         launch_s = prepared(mod._lib(), f"{name}_sims", many)
         t = [batch_ms(launch1), batch_ms(launch_s), batch_ms(launch_s), batch_ms(launch1)]
         one_ms, s_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
@@ -6030,6 +6059,355 @@ def leaves_equal(a: dict, b: dict, where: str):
             x, y = x.view(np.uint32), y.view(np.uint32)
         if not np.array_equal(x, y):
             raise AssertionError(f"{where}: leaf {p} differs between card and CPU")
+
+
+# ---------------------------------------------------------------------------
+# phase 45: the supervised service loop
+
+SERVE_ARGS = dict(rounds=32, segment=8, seed=7, loss=0.1, check_every=4)  # the _child cell
+SERVE_PHASES, SERVE_SEGMENT = 32, 8   # (b)-(c): phases at full width, a segment's phases
+SERVE_FULL_CHECK_EVERY = 2            # (b)-(c): the folded checker's cadence (phase 42's)
+#: (b)-(c) leave out backoff-clears: the phase engine clears backoff at a
+#: heartbeat whose tick is a multiple of backoff_clear_ticks (15), which at
+#: r = 8 is every 120 ticks, so an expired entry outlives the property's
+#: bound (expiry + 26 ticks) past tick ~100 in both packages
+#: (models/gossipsub.py:903; the JAX package's :1174)
+SERVE_FULL_SKIPPED = ("backoff-clears",)
+#: the reference's ceiling on the supervision's overhead against a bare
+#: segmented window (SERVICE_SMOKE_OVERHEAD, scripts/service_smoke.py)
+SERVICE_OVERHEAD_CEILING = 0.10
+SERVE_DIR = os.path.join(TRACE_DIR, "serve")
+SERVE_TURNS = ("bare", "supervised", "supervised", "bare") * 2   # (b): the median of each
+
+
+def serve_supervisor(root: str, cell, n_dispatches: int, segment: int, *, check_every: int,
+                     rounds_per_dispatch: int = 1, heartbeat_fn=None, faults=None,
+                     max_retries: int = 3, checkpoint_every: int = 1, due_fn=None,
+                     delivery_window: int = 16, invariants=None):
+    """A Supervisor over ``cell`` (``(step, make_args, template_fn, net,
+    cfg)``) with the health probes and the invariant checker folded in,
+    its store under ``root`` (emptied first)."""
+    import shutil
+
+    from go_libp2p_pubsub_tpu_torch import serve
+    from go_libp2p_pubsub_tpu_torch.oracle import HealthConfig, InvariantConfig, ScanInvariants
+
+    step, make_args, template_fn, net, cfg = cell
+    shutil.rmtree(root, ignore_errors=True)
+    if invariants is None:
+        invariants = ScanInvariants(
+            "phase" if rounds_per_dispatch > 1 else "gossipsub", net, cfg,
+            InvariantConfig(check_every=check_every, delivery_window=delivery_window),
+            batched=False, due_fn=due_fn, rounds_per_step=rounds_per_dispatch)
+    svc = serve.ServiceConfig(n_dispatches=n_dispatches, segment_len=segment,
+                              rounds_per_dispatch=rounds_per_dispatch, health=HealthConfig(),
+                              checkpoint_every_segments=checkpoint_every,
+                              max_retries=max_retries, backoff_base_s=0.001, report_name=None)
+    return serve.Supervisor(step, make_args, template_fn, root, svc,
+                            heartbeat_fn=heartbeat_fn, invariants=invariants,
+                            faults=faults)
+
+
+def window_eager_dispatches(win) -> int:
+    """The dispatches a captured window ran where the wrappers count
+    launches: each capture's warm-up block and the blocks it captured (a
+    replay counts nothing)."""
+    return win.captures * win.block_dispatches + sum(
+        n for entry in win._entries.values() for n in entry.graphs)
+
+
+def serve_parity(dev, counters) -> dict:
+    """Phase 45 (a): the ``_child`` cell (GossipSub on random_connect(8192,
+    4) under 10% i.i.d. loss, scores and counters, 32 dispatches in
+    segments of 8, probes, the checker every 4, a checkpoint every
+    segment) supervised on the card and on the CPU: equal digests, one
+    capture, select_topk alone launched (the net is unbanded), 11 a
+    counted dispatch (the heartbeat's 8 and FANOUT_SELECTIONS). Then the
+    ladder on the card: segment 1's dispatch fails past ``max_retries``,
+    the segment halves to 4 and the run completes, in the control's digest,
+    with one capture per window shape. Returns the control's digest and the
+    card run's launches."""
+    from go_libp2p_pubsub_tpu_torch import serve
+    from go_libp2p_pubsub_tpu_torch.serve import _child
+
+    a = SERVE_ARGS
+    digests, out = {}, {}
+    for side, device in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        cell = _child.build_cell(N_PARITY, a["rounds"], a["seed"], a["loss"], device=device)
+        sup = serve_supervisor(os.path.join(SERVE_DIR, f"parity-{side}"), cell, a["rounds"],
+                               a["segment"], check_every=a["check_every"])
+        for m in counters:
+            m.reset_launch_counts()
+        rep = sup.run(fresh=True)
+        if side == "card":
+            out["launches"] = _dispatch_counts(counters)
+            if rep.window_compiles != {f"L{a['segment']}": 1}:
+                raise AssertionError(f"serve (a): captures {rep.window_compiles}, expected one")
+            win = sup._runner_for(a["segment"]).window
+            counted = window_eager_dispatches(win)
+            want = _route(counted, select_topk=SELECTIONS_PER_HEARTBEAT + FANOUT_SELECTIONS)
+            if out["launches"] != want:
+                raise AssertionError(f"serve (a): launches {out['launches']} over {counted} "
+                                     f"counted dispatches, expected {want} (select_topk "
+                                     "alone: random_connect is unbanded)")
+            out.update(counted_dispatches=counted, block_dispatches=win.block_dispatches,
+                       block_launches={k: v for k, v in win.block_launches.items() if v})
+        if rep.recoveries or rep.invariant_checks != a["rounds"] // a["check_every"]:
+            raise AssertionError(f"serve (a) {side}: {rep.recoveries} recoveries, "
+                                 f"{rep.invariant_checks} checks")
+        digests[side] = serve.state_digest(rep.states)
+        out[f"{side}_seconds"] = time.perf_counter() - t0
+        del sup, rep, cell
+    if digests["card"] != digests["cpu"]:
+        raise AssertionError("serve (a): the card's digest differs from the CPU's")
+    cell = _child.build_cell(N_PARITY, a["rounds"], a["seed"], a["loss"], device=dev)
+    ladder = serve_supervisor(os.path.join(SERVE_DIR, "ladder"), cell, a["rounds"],
+                              a["segment"], check_every=a["check_every"], max_retries=1,
+                              faults=serve.FaultPlan(fail_dispatches={1: 2}))
+    rep = ladder.run(fresh=True)
+    half = a["segment"] // 2
+    if (rep.degradations != [f"shrink-segment:{half}"] or rep.retries != 2
+            or serve.state_digest(rep.states) != digests["card"]
+            or rep.window_compiles != {f"L{a['segment']}": 1, f"L{half}": 1}):
+        raise AssertionError(f"serve (a) ladder: {rep.degradations}, {rep.retries} retries, "
+                             f"captures {rep.window_compiles}, or its digest differs")
+    out.update(digest=digests["card"], ladder={"degradations": rep.degradations,
+                                               "retries": rep.retries,
+                                               "captures": rep.window_compiles})
+    say(f"serve (a) the _child cell at N={N_PARITY}, {a['rounds']} dispatches in segments of "
+        f"{a['segment']}, probes and the checker every {a['check_every']}: card digest == CPU "
+        f"digest {digests['card'][:16]} (card {out['card_seconds']:.1f} s, CPU "
+        f"{out['cpu_seconds']:.1f} s), one capture; launches {out['launches']} over "
+        f"{out['counted_dispatches']} counted dispatches (warm-up and capture), a replay "
+        f"block of {out['block_dispatches']} launching {out['block_launches']}; the ladder "
+        f"on the card (2 failures past max_retries=1): {rep.degradations}, captures "
+        f"{rep.window_compiles}, the same digest")
+    return out
+
+
+def serve_full_cell(sweep, driver, dev):
+    """(cell, invariants) of the bench default at full width for the
+    supervisor: the phase engine r=8 formed (``driver.form_mesh``) once,
+    each template a clone of that state, the publish rows of 32 phases on
+    the card, the checker every 2 phases on every property but
+    ``SERVE_FULL_SKIPPED``."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch.oracle import invariants as inv
+
+    r = PHASE_R
+    bench = dict(rounds_per_phase=r, count_events=True)
+    st, step, _t, _h = sweep.build_bench(N_FULL, M_SLOTS, device=dev, **bench)
+    st0 = driver.form_mesh(step, st, rounds_per_phase=r)
+    po, pt, pv = sweep.publish_schedule(SERVE_PHASES * r, N_FULL, 1, None, seed=23)
+    rows = [torch.as_tensor(a, device=dev).reshape(SERVE_PHASES, r, -1) for a in (po, pt, pv)]
+    net, cfg = sweep.bench_parts(N_FULL, device=dev, **bench)[:2]
+    names = tuple(n for n in inv.invariant_names("phase") if n not in SERVE_FULL_SKIPPED)
+    spec = inv.ScanInvariants(
+        "phase", net, cfg, inv.InvariantConfig(delivery_window=ORACLE_W,
+                                               check_every=SERVE_FULL_CHECK_EVERY,
+                                               names=names),
+        batched=False, due_fn=lambda tick: inv.due_vector(quiet=ORACLE_QUIET),
+        rounds_per_step=r)
+    cell = (step, lambda i: tuple(a[i] for a in rows),
+            lambda: driver._rebuild(st0, iter([t.clone() for t in driver._leaves(st0)])),
+            None, None)
+    return cell, spec
+
+
+def timed_save(store, log: list):
+    """``store.save`` that appends each save's seconds and file bytes to
+    ``log`` (phase 45's instrumentation)."""
+    save = store.save
+
+    def timed(state, tick, meta=None):
+        t0 = time.perf_counter()
+        entry = save(state, tick, meta)
+        log.append({"seconds": time.perf_counter() - t0,
+                    "bytes": os.path.getsize(os.path.join(store.root, entry["file"]))})
+        return entry
+
+    return timed
+
+
+def timed_run(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serve_full(sweep, driver, dev, card) -> dict:
+    """Phase 45 (b): the bench default at N=100k (phase engine r=8), 32
+    phases in segments of 8, supervised with the probes and the checker
+    every 2 phases: its final digest equals a bare segmented WindowRunner's
+    with the same checker folded in;
+    one capture; a replay block launches, per phase, what the bare window's
+    does (edge_exchange 1 + r, select_topk 8). Timed warm in turns (bare,
+    supervised, supervised, bare, twice) with one checkpoint at the end:
+    the supervision's overhead share from the medians, with and without
+    the save's seconds; then the every-segment checkpoint cadence's rate
+    and each save's bytes and seconds."""
+    import torch
+
+    from go_libp2p_pubsub_tpu_torch import ensemble, serve
+
+    r = PHASE_R
+    cell, spec = serve_full_cell(sweep, driver, dev)
+    step, make_args, template_fn = cell[:3]
+    hb = lambda i: True   # noqa: E731  (a heartbeat every phase, as the bench)
+    # the checker folded into the bare window too, as the reference's
+    # service_smoke does: the overhead share is the supervision's own
+    bare = ensemble.WindowRunner(step, SERVE_PHASES, rounds_per_phase=r, heartbeat_fn=hb,
+                                 invariants=spec, segment_len=SERVE_SEGMENT)
+    sups = {cadence: serve_supervisor(
+        os.path.join(SERVE_DIR, f"full-{cadence}"), cell, SERVE_PHASES, SERVE_SEGMENT,
+        check_every=SERVE_FULL_CHECK_EVERY, rounds_per_dispatch=r, heartbeat_fn=hb,
+        checkpoint_every=k, invariants=spec)
+        for cadence, k in (("end", SERVE_PHASES // SERVE_SEGMENT), ("segment", 1))}
+    saves = {cadence: [] for cadence in sups}
+    for cadence, sup in sups.items():
+        sup.store.save = timed_save(sup.store, saves[cadence])
+    runs = {"bare": lambda: bare.run(template_fn(), make_args).states,
+            "supervised": lambda: sups["end"].run(fresh=True).states}
+    # the first call of each captures; every timed call is warm
+    ends = {mode: fn() for mode, fn in runs.items()}
+    digest = serve.state_digest(ends["bare"])
+    if serve.state_digest(ends["supervised"]) != digest:
+        raise AssertionError("serve (b): the supervised run's digest differs from the bare "
+                             "window's")
+    del ends
+    secs = {"bare": [], "supervised": [], "supervised_less_save": []}
+    for mode in SERVE_TURNS:
+        saves["end"].clear()
+        dt = timed_run(runs[mode])[1]
+        secs[mode].append(dt)
+        if mode == "supervised":
+            secs["supervised_less_save"].append(dt - sum(x["seconds"] for x in saves["end"]))
+    rates = {m: [SERVE_PHASES * r / s for s in v] for m, v in secs.items()}
+    med = {m: statistics.median(v) for m, v in rates.items()}
+    share = (med["bare"] - med["supervised"]) / med["bare"]
+    share_less_save = (med["bare"] - med["supervised_less_save"]) / med["bare"]
+    seg_sup = sups["segment"]
+    seg_sup.run(fresh=True)                      # captures
+    saves["segment"].clear()
+    rep, seg_secs = timed_run(lambda: seg_sup.run(fresh=True))
+    saves = saves["segment"]
+    if serve.state_digest(rep.states) != digest:
+        raise AssertionError("serve (b): the every-segment run's digest differs")
+    sup_runner = sups["end"]._runner_for(SERVE_SEGMENT)
+    per = lambda w: {k: v / w.block_dispatches for k, v in w.block_launches.items()}  # noqa
+    sup_per, bare_per = per(sup_runner.window), per(bare.window)
+    want = {k: 0.0 for k in REPLACES}
+    want.update(edge_exchange=1.0 + r, select_topk=float(SELECTIONS_PER_HEARTBEAT))
+    if sup_per != bare_per or {k: sup_per.get(k, 0.0) for k in REPLACES} != want:
+        raise AssertionError(f"serve (b): launches a phase {sup_per}, bare {bare_per}, "
+                             f"expected {want}")
+    for name, s in sups.items():
+        if s.window_compiles() != {f"L{SERVE_SEGMENT}": 1}:
+            raise AssertionError(f"serve (b) {name}: captures {s.window_compiles()}")
+    out = {
+        "n": N_FULL, "r": r, "phases": SERVE_PHASES, "segment": SERVE_SEGMENT,
+        "check_every": SERVE_FULL_CHECK_EVERY, "digest": digest, "turns": list(SERVE_TURNS),
+        "turn_seconds": secs, "rates": rates, "overhead_share": share,
+        "overhead_share_less_save": share_less_save,
+        "overhead_ceiling": SERVICE_OVERHEAD_CEILING,
+        "every_segment_rate": SERVE_PHASES * r / seg_secs, "saves": saves,
+        "block_dispatches": sup_runner.window.block_dispatches,
+        "block_launches": dict(sup_runner.window.block_launches),
+        "bare_block_launches": dict(bare.window.block_launches),
+        "captures": sups["end"].window_compiles(),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+    say(f"serve (b) the bench default N={N_FULL} r={r}, {SERVE_PHASES} phases in segments of "
+        f"{SERVE_SEGMENT}, probes and the checker every {SERVE_FULL_CHECK_EVERY} phases: "
+        f"supervised digest == bare window's {digest[:16]}; one capture; a phase launches "
+        f"{want}, as the bare window; delivery-rounds/s bare {rates['bare']} supervised "
+        f"{rates['supervised']} (turns {', '.join(SERVE_TURNS)}; one checkpoint at the end; "
+        f"medians): "
+        f"overhead share {share:.4f}, {share_less_save:.4f} less the save's seconds (the "
+        f"reference's ceiling {SERVICE_OVERHEAD_CEILING}); "
+        f"a checkpoint every segment: {out['every_segment_rate']:.1f} delivery-rounds/s, "
+        f"saves {saves}; on {card}")
+    del sups, bare, seg_sup, rep
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_recovery(sweep, driver, dev, full: dict) -> dict:
+    """Phase 45 (c): the (b) run with a NaN in ``scores`` after dispatch 3
+    of segment 1 and two transient failures of segment 2's dispatch: one
+    recovery whose bundle names global dispatch 11 and the ``.scores``
+    leaf, two retries, and (b)'s final digest."""
+    from go_libp2p_pubsub_tpu_torch import serve
+
+    cell, spec = serve_full_cell(sweep, driver, dev)
+    plan = serve.FaultPlan(corrupt_segment=1, corrupt_dispatch=3, corrupt_leaf="scores",
+                           fail_dispatches={2: 2})
+    sup = serve_supervisor(os.path.join(SERVE_DIR, "recovery"), cell, SERVE_PHASES,
+                           SERVE_SEGMENT, check_every=SERVE_FULL_CHECK_EVERY,
+                           rounds_per_dispatch=PHASE_R, heartbeat_fn=lambda i: True,
+                           faults=plan, invariants=spec)
+    rep, secs = timed_run(lambda: sup.run(fresh=True))
+    b = rep.bundles[0] if rep.bundles else {}
+    got = serve.state_digest(rep.states)
+    if (rep.recoveries != 1 or rep.retries != 2 or b.get("first_bad_dispatch") != 11
+            or b.get("nan_census") != {".scores": 1} or got != full["digest"]):
+        raise AssertionError(f"serve (c): {rep.recoveries} recoveries, {rep.retries} retries, "
+                             f"bundle {b}, digest equal {got == full['digest']}")
+    out = {"first_bad_dispatch": b["first_bad_dispatch"], "replay_failures":
+           b["replay_failures"], "window_probe_failures": b["window_probe_failures"],
+           "nan_census": b["nan_census"], "retries": rep.retries, "seconds": secs,
+           "captures": rep.window_compiles}
+    say(f"serve (c) N={N_FULL}: a NaN in .scores at segment 1 dispatch 3 rolled back and "
+        f"localised to global dispatch {b['first_bad_dispatch']} ({b['replay_failures']}); "
+        f"two transient failures of segment 2 retried; the final digest equals (b)'s "
+        f"({secs:.1f} s, captures {rep.window_compiles})")
+    del sup, rep
+    return out
+
+
+def serve_kill(digest: str) -> dict:
+    """Phase 45 (d): ``python -m go_libp2p_pubsub_tpu_torch.serve._child
+    --device cuda`` at (a)'s arguments, SIGKILLed mid-write of segment 1's
+    checkpoint, then run again: it resumes at dispatch 8 and its FINAL.json
+    digest equals (a)'s in-process control. Two child processes."""
+    import signal
+    import shutil
+
+    a = SERVE_ARGS
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(SERVE_DIR, "kill")
+    shutil.rmtree(root, ignore_errors=True)
+    cmd = [sys.executable, "-m", "go_libp2p_pubsub_tpu_torch.serve._child", "--root", root,
+           "--device", "cuda", "--n", str(N_PARITY), "--rounds", str(a["rounds"]),
+           "--segment", str(a["segment"]), "--seed", str(a["seed"]), "--loss", str(a["loss"]),
+           "--probes", "--invariants", "--check-every", str(a["check_every"])]
+    t0 = time.perf_counter()
+    killed = subprocess.run(cmd + ["--fresh", "--kill-segment", "1", "--kill-site",
+                                   "mid-write"], cwd=here, capture_output=True, text=True,
+                            timeout=300)
+    if killed.returncode not in (-signal.SIGKILL, 128 + signal.SIGKILL):
+        raise AssertionError(f"serve (d): the child exited {killed.returncode}, not killed: "
+                             f"{killed.stderr[-800:]}")
+    t1 = time.perf_counter()
+    resumed = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=300)
+    if resumed.returncode != 0:
+        raise AssertionError(f"serve (d): the resumed child failed: {resumed.stderr[-800:]}")
+    with open(os.path.join(root, "FINAL.json")) as f:
+        final = json.load(f)
+    if final["digest"] != digest or final["resumed_from"] != a["segment"]:
+        raise AssertionError(f"serve (d): resumed from {final['resumed_from']}, digest equal "
+                             f"{final['digest'] == digest}")
+    out = {"resumed_from": final["resumed_from"], "killed_seconds": t1 - t0,
+           "resumed_seconds": time.perf_counter() - t1, "captures": final["window_compiles"]}
+    say(f"serve (d) a _child --device cuda killed mid-write of segment 1 "
+        f"({out['killed_seconds']:.1f} s) resumed from dispatch {final['resumed_from']} "
+        f"({out['resumed_seconds']:.1f} s) to (a)'s digest")
+    return out
 
 
 def main() -> int:
@@ -6644,6 +7022,28 @@ def main() -> int:
     say(f"ensemble phase {time.perf_counter() - t0:.1f} s")
 
     lap("44")
+    # 45. the supervised service loop: the _child cell card against CPU with
+    # the ladder, the bench default supervised at full width against the
+    # bare window, recovery at full width, a kill -9 resumed
+    t0 = time.perf_counter()
+    sparity = serve_parity(dev, counters)
+    sfull = serve_full(sweep, driver, dev, card)
+    srecovery = serve_recovery(sweep, driver, dev, sfull)
+    skill = serve_kill(sparity["digest"])
+    for rec in records:
+        rec["serve_launches"] = {
+            f"_child cell (N={N_PARITY}), {sparity['counted_dispatches']} counted "
+            f"dispatches of {SERVE_ARGS['rounds']} (warm-up and capture)":
+                sparity["launches"].get(rec["name"], 0),
+            f"_child cell (N={N_PARITY}), a replay block of {sparity['block_dispatches']} "
+            "dispatches": sparity["block_launches"].get(rec["name"], 0),
+            f"supervised bench (N={N_FULL}), a block of {sfull['block_dispatches']} phases":
+                sfull["block_launches"].get(rec["name"], 0)}
+    say("serve cell: " + json.dumps({"card": card, "parity": sparity, "full": sfull,
+                                     "recovery": srecovery, "kill": skill}))
+    say(f"serve phase {time.perf_counter() - t0:.1f} s")
+
+    lap("45")
     # 39. launches of a bench round, a phase-bench phase and a windowed
     # phase, traced; then the configs' rounds and phases (last: the
     # profiler's tracing must not touch a rate timed in this process)

@@ -4,9 +4,9 @@
 // go_libp2p_pubsub_tpu_torch/ops/csr_delivery.py).
 //
 // They replace the TPU Pallas kernels of the JAX package:
-//   delivery_banded_launch <- go_libp2p_pubsub_tpu/ops/pallas_delivery.py
+//   delivery_banded_sims <- go_libp2p_pubsub_tpu/ops/pallas_delivery.py
 //                              delivery_round_banded / _kernel
-//   csr_delivery_launch    <- go_libp2p_pubsub_tpu/ops/pallas_csr.py
+//   csr_delivery_sims    <- go_libp2p_pubsub_tpu/ops/pallas_csr.py
 //                              csr_delivery: _edge_phase_kernel,
 //                              _row_phase_kernel, _edge_commit_kernel
 //                              (three calls there, one kernel here)
@@ -574,17 +574,6 @@ extern "C" int delivery_banded_sims(
   return (int)cudaGetLastError();
 }
 
-extern "C" int delivery_banded_launch(
-    const void* fwd, const void* fe, const void* emask, const void* not_mine,
-    const void* have, const void* first_round, const void* valid,
-    const void* tick, const void* offrev, void* trans_out, void* fe_out,
-    void* new_out, void* have_out, void* fwd_out, void* fr_out, int n, int k,
-    int w, int m, void* stream) {
-  return delivery_banded_sims(fwd, fe, emask, not_mine, have, first_round, valid, tick,
-                              offrev, trans_out, fe_out, new_out, have_out, fwd_out, fr_out,
-                              n, k, w, m, 1, nullptr, stream);
-}
-
 // csr_delivery over S sims: the strides of its 20 pointers, in their order
 extern "C" int csr_delivery_sims(
     const void* fwd, const void* fe, const void* mask, const void* not_mine,
@@ -615,16 +604,4 @@ extern "C" int csr_delivery_sims(
         CSR_ARGS, ss);
 #undef CSR_ARGS
   return (int)cudaGetLastError();
-}
-
-extern "C" int csr_delivery_launch(
-    const void* fwd, const void* fe, const void* mask, const void* not_mine,
-    const void* have, const void* first_round, const void* valid,
-    const void* tick, const void* col, const void* eperm, const void* row_ptr,
-    const void* link_ok, void* trans_out, void* recv_out, void* new_out,
-    void* have_out, void* fwd_out, void* fr_out, void* fe_out, void* fa_out,
-    int n, int w, int m, void* stream) {
-  return csr_delivery_sims(fwd, fe, mask, not_mine, have, first_round, valid, tick, col,
-                           eperm, row_ptr, link_ok, trans_out, recv_out, new_out, have_out,
-                           fwd_out, fr_out, fe_out, fa_out, n, w, m, 1, nullptr, stream);
 }

@@ -3,9 +3,9 @@
 // go_libp2p_pubsub_tpu_torch/ops/fused_round.py).
 //
 // They replace the TPU Pallas kernels of the JAX package:
-//   edge_exchange_launch   <- go_libp2p_pubsub_tpu/ops/fused_round.py
+//   edge_exchange_sims   <- go_libp2p_pubsub_tpu/ops/fused_round.py
 //                              edge_exchange / _exchange_kernel
-//   fused_delivery_launch  <- go_libp2p_pubsub_tpu/ops/fused_round.py
+//   fused_delivery_sims  <- go_libp2p_pubsub_tpu/ops/fused_round.py
 //                              fused_delivery / _delivery_kernel
 //
 // Banded topology: receiver j's edge k talks to sender (j + off[k]) mod N,
@@ -366,14 +366,6 @@ extern "C" int edge_exchange_sims(
   return (int)cudaGetLastError();
 }
 
-extern "C" int edge_exchange_launch(
-    const void* wire, const void* scores, const void* live, const void* offrev,
-    void* wire_out, void* score_out, int n, int k, int c, int score_enabled,
-    void* stream) {
-  return edge_exchange_sims(wire, scores, live, offrev, wire_out, score_out, n, k, c,
-                            score_enabled, 1, nullptr, stream);
-}
-
 // fused_delivery over S sims: the strides of its 24 pointers, in their order
 extern "C" int fused_delivery_sims(
     const void* carry, const void* fe, const void* fwd, const void* mcw,
@@ -410,20 +402,4 @@ extern "C" int fused_delivery_sims(
                                   (cudaStream_t)stream>>>(FUSED_ARGS, ss);
 #undef FUSED_ARGS
   return (int)cudaGetLastError();
-}
-
-extern "C" int fused_delivery_launch(
-    const void* carry, const void* fe, const void* fwd, const void* mcw,
-    const void* nbrsc, const void* asked, const void* slo, const void* shi,
-    const void* flags, const void* have, const void* origin,
-    const void* joined, const void* valid, const void* thr,
-    const void* offrev, void* trans_out, void* fe_out, void* slo_out,
-    void* shi_out, void* new_out, void* have_out, void* fwd_out,
-    void* mesh_t_out, void* extra_out, int n, int k, int w,
-    int score_enabled, int want_cohorts, int retrans_cap, void* stream) {
-  return fused_delivery_sims(carry, fe, fwd, mcw, nbrsc, asked, slo, shi, flags, have,
-                             origin, joined, valid, thr, offrev, trans_out, fe_out,
-                             slo_out, shi_out, new_out, have_out, fwd_out, mesh_t_out,
-                             extra_out, n, k, w, score_enabled, want_cohorts, retrans_cap,
-                             1, nullptr, stream);
 }

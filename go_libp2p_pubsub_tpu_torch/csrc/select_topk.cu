@@ -3,7 +3,7 @@
 // go_libp2p_pubsub_tpu_torch/ops/select_topk.py).
 //
 // It replaces the TPU Pallas kernel of the JAX package:
-//   select_topk_launch <- go_libp2p_pubsub_tpu/ops/pallas_csr.py
+//   select_topk_sims <- go_libp2p_pubsub_tpu/ops/pallas_csr.py
 //                          select_topk_pallas / _topk_kernel
 //
 // Per row r of [R, K] (R = N*S peer-topic slots, K the padded neighbor axis):
@@ -374,8 +374,3 @@ extern "C" int select_topk_sims(const void* values, const void* mask,
   return dispatch(values, mask, k_rows, noise, out, r, k, s, ss, (cudaStream_t)stream);
 }
 
-extern "C" int select_topk_launch(const void* values, const void* mask,
-                                  const void* k_rows, const void* noise,
-                                  void* out, int r, int k, void* stream) {
-  return select_topk_sims(values, mask, k_rows, noise, out, r, k, 1, nullptr, stream);
-}

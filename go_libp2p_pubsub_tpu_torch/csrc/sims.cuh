@@ -9,7 +9,7 @@
 // threshold row, an argument the vmap left unbatched); a null strides array
 // shares every tensor. At S == 1 an entry point launches the one-sim
 // instantiation of its kernel (kSims false), whose code takes no sim
-// offset at all: the one-sim `*_launch` entry points are that same call.
+// offset at all: a one-sim launch is `*_sims` with S = 1 and null strides.
 
 #pragma once
 

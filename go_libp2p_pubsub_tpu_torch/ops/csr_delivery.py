@@ -90,7 +90,6 @@ def csr_delivery_plain(fwd, fe_e, mask_e, not_mine, have, first_round,
 def _lib():
     lib = kernels.load("delivery")
     if not getattr(lib, "_csr_bound", False):
-        kernels.bind(lib, "csr_delivery_launch", 20, 3)
         kernels.bind_sims(lib, "csr_delivery_sims", 20, 3)
         lib._csr_bound = True
     return lib

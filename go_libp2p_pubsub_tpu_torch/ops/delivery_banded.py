@@ -74,7 +74,6 @@ OUTPUTS = ("trans", "fe", "new", "have", "fwd", "first_round")
 def _lib():
     lib = kernels.load("delivery")
     if not getattr(lib, "_banded_bound", False):
-        kernels.bind(lib, "delivery_banded_launch", 15, 4)
         kernels.bind_sims(lib, "delivery_banded_sims", 15, 4)
         lib._banded_bound = True
     return lib

@@ -179,8 +179,6 @@ def fused_delivery_plain(carry_out, fe_words, fwd, mcache_win, nbr_score,
 def _lib():
     lib = kernels.load("fused_round")
     if not getattr(lib, "_pubsub_bound", False):
-        kernels.bind(lib, "edge_exchange_launch", 6, 4)
-        kernels.bind(lib, "fused_delivery_launch", 24, 6)
         kernels.bind_sims(lib, "edge_exchange_sims", 6, 4)
         kernels.bind_sims(lib, "fused_delivery_sims", 24, 6)
         lib._pubsub_bound = True

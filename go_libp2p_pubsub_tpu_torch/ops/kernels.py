@@ -12,7 +12,9 @@ simulations in one launch (``csrc/sims.cuh``). A wrapper hands its tensors
 to ``sim_launch``, whose batching rule under ``torch.func.vmap`` moves each
 batched tensor's sim axis to the front, gives an unbatched one sim stride
 0, allocates ``[S, ...]`` outputs and launches the kernel once for all S
-sims; outside vmap the same function launches the one-sim kernel.
+sims; outside vmap the same function launches the one-sim kernel. Each
+kernel has one C entry point, ``{name}_sims``; S = 1 with null strides is
+the one-sim launch.
 """
 
 from __future__ import annotations
@@ -90,15 +92,6 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
-
-
-def bind(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int):
-    """``lib.fn`` with its ctypes signature set: ``n_ptr`` pointers, then
-    ``n_int`` ints, then the stream; it returns a CUDA error code."""
-    f = getattr(lib, fn)
-    f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    return f
 
 
 def bind_sims(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int):
@@ -233,15 +226,14 @@ def sim_shape(batched: bool, s: int, shape) -> tuple:
 
 def launch(lib, name: str, tensors, ints, *, s: int, batched: bool, strides, device) -> None:
     """Launch kernel ``name`` of ``lib`` on ``tensors`` (its pointers in
-    order, None for a null one) and ``ints``: the one-sim ``{name}_launch``,
-    or with ``batched`` ``{name}_sims`` over S sims with the tensors' sim
-    strides."""
+    order, None for a null one) and ``ints`` through its one C entry point,
+    ``{name}_sims``: with ``batched`` over S sims with the tensors' sim
+    strides, else with S = 1 and null strides, which launches the kernel's
+    one-sim instantiation (``csrc/sims.cuh``)."""
     ptrs = [ptr(t) for t in tensors]
-    if batched:
-        err = getattr(lib, f"{name}_sims")(*ptrs, *ints, s, strides_arg(strides),
-                                           stream(device))
-    else:
-        err = getattr(lib, f"{name}_launch")(*ptrs, *ints, stream(device))
+    err = getattr(lib, f"{name}_sims")(*ptrs, *ints, s if batched else 1,
+                                       strides_arg(strides) if batched else None,
+                                       stream(device))
     raise_on(err, name)
 
 

@@ -79,7 +79,6 @@ def select_topk_plain(values, mask, k_rows, noise):
 def _lib():
     lib = kernels.load("select_topk")
     if not getattr(lib, "_bound", False):
-        kernels.bind(lib, "select_topk_launch", 5, 2)
         kernels.bind_sims(lib, "select_topk_sims", 5, 2)
         lib._bound = True
     return lib

@@ -544,7 +544,13 @@ def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_ev
     (``wire_coalesced`` False) the head crosses twice: the control words
     with the scores, and the IWANT window. ``params`` names the fields a
     lifted build reads from its plane (``score.params.LIFTED_FIELD_NAMES``)."""
-    from .artifacts import CHAOS_OFF, ROUTER_V11, execution_fingerprint, params_fingerprint
+    from .artifacts import (
+        chaos_fingerprint,
+        execution_fingerprint,
+        params_fingerprint,
+        router_fingerprint,
+    )
+    from ..score.params import LIFTED_FIELD_NAMES
 
     _check_config(config)
     n_topics = bench_topics(config)
@@ -590,16 +596,18 @@ def workload_fingerprint(config: str, n_peers: int, msg_slots: int, heartbeat_ev
             # them for any topic universe, the JAX package's up to 8 topics
             "incr_members": phase,
         },
-        "chaos": dict(CHAOS_OFF),
-        "params": params_fingerprint(lift_scores),
-        "router": dict(ROUTER_V11),
+        "chaos": chaos_fingerprint(),
+        "params": params_fingerprint(lift_scores, LIFTED_FIELD_NAMES if lift_scores else ()),
+        "router": router_fingerprint(),
     }
     if seg_rounds is not None:
         fp["seg_rounds"] = int(seg_rounds)
     if unroll is not None:
         fp["unroll"] = int(unroll)
     if seg_rounds is not None:
-        fp["execution"] = execution_fingerprint(segment_rounds=seg_rounds, unroll=unroll)
+        fp["execution"] = execution_fingerprint(
+            scan=True, segment_rounds=int(seg_rounds), dispatches_per_window=1,
+            rounds_per_dispatch=int(seg_rounds), unroll=unroll)
     if phase:
         fp["permute_sets_per_phase"] = r + 1 if coalesced else r + 2
     dev = resolve_device(device)

@@ -17,8 +17,9 @@ float32, exact while one observation's delta stays below 2**24, so
 :func:`reconcile` demands summed deltas == drained counters bit for bit.
 The float columns take the JAX package's float forms on XLA:CPU, measured
 against its compiled recorder: a row sum over the neighbour axis adds left
-to right from 0.0, in windows of 32 at a multiple of 32 (``_row_sum``;
-other widths above 32 are not mapped); a division by a value the
+to right from 0.0 up to 32 wide and as XLA's tree-reduction windows of
+32 above (``_row_sum``, every width mapped); a row min ranks -0.0 below
++0.0 (``_row_min``); a division by a value the
 JAX program holds as a build constant (the slot count, the live-edge
 counts, the link total of a static net) is a multiplication by the
 divisor's reciprocal, any other a true division (``_div``); the quantile
@@ -175,19 +176,38 @@ def _div(a: torch.Tensor, b: torch.Tensor, folded: bool) -> torch.Tensor:
 
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
-    """float32 sum over the last axis in XLA:CPU's order (measured): a row
-    of up to 32 left to right from 0.0; a row of a multiple of 32 as
-    windows of 32, each left to right, then the windows' sums left to
-    right. Each partial sum is flushed. Other widths above 32 take another
-    order on XLA:CPU, not mapped; they are summed left to right."""
+    """float32 sum over the last axis in XLA:CPU's order, every width
+    (read from the compiled HLO and held on random rows): a row of up to
+    32 left to right from 0.0. A wider row is XLA's tree-reduction
+    rewrite: padded with zeros to ``W = ceil(K / 32)`` windows of 32, the
+    padding split ``floor(P / 2)`` before and the rest after (``P = 32W -
+    K``), each window summed left to right from 0.0, then the ``W``
+    window sums reduced the same way (recursively past 32 windows). So a
+    row of 33-64 is its first ``ceil(K / 2)`` and the rest, K = 65 is 17,
+    32 and 16, and a multiple of 32 is windows of 32. The padding adds
+    +0.0 to a sum that is never -0.0, so the windows are cut without it.
+    Each partial sum is flushed."""
     k = x.shape[-1]
-    if k > 32 and k % 32 == 0:
-        return _row_sum(torch.stack([_row_sum(x[..., i:i + 32]) for i in range(0, k, 32)],
+    if k > 32:
+        w = -(-k // 32)
+        first = 32 - (32 * w - k) // 2
+        cuts = [0] + [first + 32 * i for i in range(w - 1)] + [k]
+        return _row_sum(torch.stack([_row_sum(x[..., a:b]) for a, b in zip(cuts, cuts[1:])],
                                     dim=-1))
     acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
     for j in range(k):
         acc = flush_subnormals(acc + x[..., j])
     return acc
+
+
+def _row_min(x: torch.Tensor) -> torch.Tensor:
+    """float32 min over the last axis as XLA:CPU computes it: -0.0 ranks
+    below +0.0 (IEEE minimum), so a row whose least value is a zero of
+    both signs gives -0.0, whatever its order (measured on random rows;
+    ``amin`` picks either)."""
+    m = x.amin(-1)
+    negz = ((x == 0.0) & torch.signbit(x)).any(-1)
+    return torch.where((m == 0.0) & negz, -0.0, m)
 
 
 def _sort_as_reference(x: torch.Tensor) -> torch.Tensor:
@@ -296,7 +316,7 @@ def _flight_row(cfg: TelemetryConfig, dlv, mesh, scores, edge_ok, backoff_active
     if scores is not None:
         ok = edge_ok[idx]
         s_mean, cnt = _peer_mean_scores(scores[idx], ok, static_live)
-        s_min = torch.where(ok, scores[idx].float(), _BIG).amin(-1)
+        s_min = _row_min(torch.where(ok, scores[idx].float(), _BIG))
         has = cnt > 0
         s_mean = torch.where(has, s_mean, 0.0)
         s_min = torch.where(has, s_min, 0.0)

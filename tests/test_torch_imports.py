@@ -80,3 +80,17 @@ def test_router_and_workload_modules_are_the_ports_own():
         rel = name.replace(".", "/")
         path = PORT / (rel + ".py") if (PORT / (rel + ".py")).exists() else PORT / rel / "__init__.py"
         assert not [r for r, _ in _imported_roots(path) if r in FORBIDDEN], name
+
+
+def test_service_and_artifact_modules_are_the_ports_own():
+    """The supervised service loop and the bench artifacts are copies of
+    their own: ``serve/supervisor.py``, ``serve/faults.py``,
+    ``serve/_child.py`` and ``perf/artifacts.py`` are among the modules the
+    checks above import and read, and none imports JAX or the JAX
+    package."""
+    mods = _modules()
+    for rel in ("serve/supervisor.py", "serve/faults.py", "serve/_child.py",
+                "perf/artifacts.py"):
+        name = "go_libp2p_pubsub_tpu_torch." + rel[:-3].replace("/", ".")
+        assert name in mods, name
+        assert not [r for r, _ in _imported_roots(PORT / rel) if r in FORBIDDEN], rel

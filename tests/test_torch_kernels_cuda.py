@@ -16,6 +16,8 @@ hazard inputs (tests/torch_parity.py).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1319,3 +1321,88 @@ def test_lifted_dynamic_steps_on_the_card(cuda, cell):
             one = step(one, *row, **kw)
         for a, b in zip(driver._leaves(one), driver._leaves(ensemble.unbatch(batched, i))):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_every_launch_takes_the_one_sims_entry(cuda):
+    """Each kernel library exports one C entry a kernel, ``{name}_sims``; a
+    one-sim launch is that entry with S = 1 and null strides, and equals
+    the kernel's plain version."""
+    for mod, names in ((fr, ("edge_exchange", "fused_delivery")), (db, ("delivery_banded",)),
+                       (cd, ("csr_delivery",)), (sk, ("select_topk",))):
+        lib = mod._lib()
+        for name in names:
+            with pytest.raises(AttributeError):
+                getattr(lib, f"{name}_launch")
+            assert getattr(lib, f"{name}_sims").restype is not None
+    lib = sk._lib()
+    orig, seen = lib.select_topk_sims, []
+
+    def record(*args):
+        seen.append(args)
+        return orig(*args)
+
+    rng = np.random.default_rng(5)
+    values = torch.from_numpy(rng.standard_normal((300, 16)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((300, 16)) < 0.7)
+    k_rows = torch.from_numpy(rng.integers(0, 17, 300).astype(np.int32))
+    noise = torch.from_numpy(rng.random((300, 16)).astype(np.float32))
+    lib.select_topk_sims = record
+    try:
+        got = sk.select_topk(*(t.to(cuda) for t in (values, mask, k_rows, noise)))
+        torch.cuda.synchronize()
+    finally:
+        lib.select_topk_sims = orig
+    assert len(seen) == 1 and seen[0][-3] == 1 and seen[0][-2] is None
+    assert torch.equal(got.cpu(), sk.select_topk(values, mask, k_rows, noise))
+
+
+@pytest.mark.cuda
+def test_supervised_window_on_the_card_equals_the_bare_window(cuda, tmp_path):
+    """The ``_child`` cell supervised on the card (probes, the checker every
+    4 dispatches, a checkpoint every segment) ends in the bare segmented
+    window's state and the CPU run's, with one capture a window shape; a
+    NaN injected after dispatch 2 of segment 1 is rolled back and localised
+    to dispatch 6, with the same final state (the evidence is read before
+    the rollback's replay reuses the window's buffers); so is a counter
+    corrupted there, which only a cloned counters snapshot shows (an
+    aliased one would hold the window's own buffer, the corruption
+    compared with itself)."""
+    from go_libp2p_pubsub_tpu_torch import ensemble, serve
+    from go_libp2p_pubsub_tpu_torch.oracle import InvariantConfig, ScanInvariants
+    from go_libp2p_pubsub_tpu_torch.serve import _child
+
+    n, rounds, seg = 256, 16, 4
+    digests = {}
+    for dev in (cuda, "cpu"):
+        step, make_args, template_fn, net, cfg = _child.build_cell(n, rounds, 7, 0.1,
+                                                                   device=dev)
+        bare = ensemble.WindowRunner(step, rounds, segment_len=seg).run(template_fn(),
+                                                                       make_args)
+        digests[(str(dev), "bare")] = serve.state_digest(bare.states)
+        for name, plan in (("clean", None),
+                           ("nan", serve.FaultPlan(corrupt_segment=1, corrupt_dispatch=2)),
+                           ("events", serve.FaultPlan(corrupt_segment=1, corrupt_dispatch=2,
+                                                      corrupt_kind="events"))):
+            spec = ScanInvariants("gossipsub", net, cfg,
+                                  InvariantConfig(check_every=4, delivery_window=16),
+                                  batched=False)
+            sup = serve.Supervisor(step, make_args, template_fn,
+                                   str(tmp_path / f"{dev}-{name}"),
+                                   serve.ServiceConfig(n_dispatches=rounds, segment_len=seg,
+                                                       report_name=None),
+                                   invariants=spec, faults=plan)
+            rep = sup.run()
+            digests[(str(dev), name)] = serve.state_digest(rep.states)
+            if plan is not None:
+                b = rep.bundles[0]
+                assert rep.recoveries == 1 and b["first_bad_dispatch"] == 6
+                assert os.path.isfile(os.path.join(b["path"], "bundle.json"))
+            if name == "nan":
+                assert b["nan_census"] == {".scores": 1}
+            if name == "events":
+                assert "events-monotone" in b["window_probe_failures"]
+                assert b["nan_census"] == {}
+            if dev is cuda:
+                assert rep.window_compiles == {f"L{seg}": 1}
+    assert len(set(digests.values())) == 1, digests

@@ -107,7 +107,9 @@ def test_host_helpers_equal_reference():
         ttel.panel_ev_totals(panels)
 
 
-@pytest.mark.parametrize("kind", ["random", "lattice", "powerlaw64"])
+@pytest.mark.parametrize("kind", ["random", "lattice", "powerlaw64", "powerlaw33",
+                                  "powerlaw40", "powerlaw48", "powerlaw63", "powerlaw65",
+                                  "powerlaw100"])
 def test_panel_float_forms_on_random_planes(kind):
     """The recorder's float map against the JAX package's compiled
     ``record_step`` on random planes (scores over 12 binades, zeros of
@@ -115,7 +117,9 @@ def test_panel_float_forms_on_random_planes(kind):
     per-round, phase and RandomSub steps on a static net) and a traced
     argument (the live view under dynamic peers or PX): every column and
     flight column bit for bit, on a random net, the lattice (K = 16) and
-    a power-law graph padded to K = 64 (the windows-of-32 row sum)."""
+    power-law graphs padded to K = 33, 40, 48, 63, 64, 65 and 100 (the
+    row sum's tree-reduction windows: two at 33-64, three at 65, four at
+    100, no tolerance)."""
     import jax
 
     from go_libp2p_pubsub_tpu import topo as jtopo
@@ -131,11 +135,13 @@ def test_panel_float_forms_on_random_planes(kind):
     elif kind == "lattice":
         topos = jgraph.ring_lattice(n, d=8), tgraph.ring_lattice(n, d=8)
     else:
-        topos = tuple(t.to_topology(t.powerlaw(n, 2.2, d_min=2, max_degree=64, seed=0),
-                                    max_degree=64) for t in (jtopo, ttopo))
+        kmax = int(kind[len("powerlaw"):])
+        topos = tuple(t.to_topology(t.powerlaw(n, 2.2, d_min=2, max_degree=kmax, seed=0),
+                                    max_degree=kmax) for t in (jtopo, ttopo))
     jnet = JNet.build(topos[0], jgraph.subscribe_all(n, 1))
     tnet = TNet.build(topos[1], tgraph.subscribe_all(n, 1), device="cpu")
     k = tnet.max_degree
+    assert kind[:8] != "powerlaw" or k == int(kind[8:])
     rng = np.random.default_rng(k)
     # a live view: dead edges, and three peers with no live edge
     live = tnet.nbr_ok.numpy() & (rng.random((n, k)) < 0.85)
@@ -154,7 +160,9 @@ def test_panel_float_forms_on_random_planes(kind):
     sc = (rng.standard_normal((n, k)) * np.exp(rng.standard_normal((n, k)) * 3)).astype(np.float32)
     sc[rng.random((n, k)) < 0.1] = 0.0
     sc[rng.random((n, k)) < 0.05] = -0.0
-    jcfg, tcfg = pair(4, (0, 5, 150))
+    # every peer tracked: the flight recorder's score_mean holds each
+    # peer's row sum, not only the three order statistics the panel reads
+    jcfg, tcfg = pair(4, tuple(range(n)))
     jst = jinit(JSim.init, n, m, k=k, telemetry=jcfg)
     jmsgs = jst.msgs.replace(**{f: jnp.asarray(planes[f]) for f in ("birth", "origin", "topic")})
     jdlv = jst.dlv.replace(first_round=jnp.asarray(planes["fr"]), have=jnp.asarray(planes["have"]))
@@ -210,6 +218,26 @@ def test_per_round_step_under_chaos_and_churn_equals_reference():
     dr = panel[:, ttel.metric_index("delivery_ratio")]
     assert 0.0 <= dr.min() and dr.max() <= 1.0
     assert panel[-1, ttel.metric_index("mesh_deg_mean")] > 0.0
+
+
+def test_scored_engine_on_powerlaw48_equals_reference():
+    """A scored per-round run with the panel on a power-law graph padded to
+    K = 48, whose per-peer score sum takes the two-window order: every
+    leaf, the panel's score quantile columns included, bit for bit every
+    round."""
+    from go_libp2p_pubsub_tpu import topo as jtopo
+    from go_libp2p_pubsub_tpu_torch import topo as ttopo
+
+    topos = tuple(t.to_topology(t.powerlaw(N, 2.2, d_min=3, max_degree=48, seed=2),
+                                max_degree=48) for t in (jtopo, ttopo))
+    builds = bench_builds(n=N, d=4, topologies=topos)
+    assert builds[4].max_degree == 48
+    rounds = 10
+    st = rounds_against_reference(builds, rounds, telemetry=pair(rounds, (0, 7)))
+    panel = st.core.telem.panel.numpy()
+    assert ttel.reconcile(panel, st.core.events) == []
+    q = panel[:, [ttel.metric_index(c) for c in ("score_p5", "score_p50", "score_p95")]]
+    assert (q != 0.0).any()
 
 
 @pytest.mark.parametrize("r,net", [(1, "lattice"), (8, "random")])
